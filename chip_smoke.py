@@ -1,0 +1,503 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (sparch_tpu_torch) on one CUDA card and check it.
+
+    python3 chip_smoke.py
+
+Builds every CUDA kernel of the serving path from ``sparch_tpu_torch/csrc``
+into ``build/kernels/`` (one ``nvcc`` per source, all at once), then prints
+one JSON line per phase:
+
+1. ``device``: the card's name and power limit (``nvidia-smi``), the TF32
+   switches (both off) and the build time.
+2. ``kernel_vs_plain`` for the fused cell: LIF, adLIF, RLIF and RadLIF at
+   the serving shape (B=128, T=100, H=512) with the batchnorm affine, and
+   a ragged case (B=5, T=13, H=40). With V on a dyadic grid the kernel's
+   spikes must equal the plain version's bit for bit; with an orthogonal V
+   the mismatch is bounded as ``orthogonal_check`` says. Kernel and plain
+   times, CUDA events.
+3. ``kernel_vs_plain`` for the readout at (128, 100, 35), rtol 1e-5.
+4. ``serving``: a RadLIF [512, 512, 35] Predictor (F=700, batch 128,
+   seeded random weights, zero state init, running statistics from one
+   train-mode pass) on 300 synthetic spike rasters of 2 % density, so the
+   last batch is padded; variants ``scan`` (plain PyTorch), ``auto``
+   (fused cell kernel) and ``pallas`` (both kernels). On both models (see
+   ``serving_state``) auto and pallas must reproduce the spikes of
+   ``plain_fused_forward``, their function with each kernel replaced by
+   its plain version. On the "zero_means" model they must also give
+   scan's labels on >= 99 % and its probabilities within 1e-3; the
+   "calibrated" model is timed and held to scan within bounds set by the
+   scan path's own card-vs-CPU divergence (see ``phase_serving``). Launch
+   counters are set to 0 just before each variant's first call and read
+   just after; every kernel of the variant, and no other, must have
+   launched.
+5. ``kernels``: each kernel with its launches in the "calibrated" model's
+   ``pallas`` run, its error and its time beside its plain version's.
+
+The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
+if any phase fails, the script exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parent
+B, T, F, H, C = 128, 100, 700, 512, 35
+N_UTT = 300
+MISMATCH_MAX = 1e-3
+# how far the kernel paths' agreement with scan may fall short of the scan
+# path's own card-vs-CPU agreement (see phase_serving); 300 utterances at
+# ~10 % disagreement carry a binomial spread of ~1.8 points
+WITNESS_LABEL_MARGIN = 0.08
+WITNESS_PROB_FACTOR = 3.0
+FORMS = {  # name: (recurrent, adaptive)
+    "lif": (False, False),
+    "adlif": (False, True),
+    "rlif": (True, False),
+    "radlif": (True, True),
+}
+
+
+class CheckFailed(RuntimeError):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise CheckFailed(what)
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def cell_inputs(shape, dyadic: bool, seed: int, dev):
+    """Inputs of one fused-cell call, with the neuron constants inside
+    their clamp ranges and V zero-diagonal, so the wrapper's clamp and mask
+    change nothing and the plain version can take the same tensors."""
+    from sparch_tpu_torch.ops import cells
+
+    b, t, h = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def uni(size, lo, hi):
+        return torch.rand(size, generator=g, device=dev) * (hi - lo) + lo
+
+    V = torch.empty(h, h)
+    torch.nn.init.orthogonal_(V, generator=torch.Generator().manual_seed(seed))
+    V = V.to(dev)
+    if dyadic:
+        V = torch.round(V * 256.0) / 256.0
+    V = cells.zero_diag(V)
+    return dict(
+        Wx=torch.randn(shape, generator=g, device=dev),
+        scale=uni(h, 1.0, 2.0), shift=uni(h, 0.0, 1.0),
+        alpha=uni(h, *cells.ALPHA_LIM), beta=uni(h, *cells.BETA_LIM),
+        a=uni(h, *cells.A_LIM), b=uni(h, *cells.B_LIM), V=V,
+        u0=uni((b, h), 0.0, 1.0), w0=uni((b, h), 0.0, 1.0),
+        s0=(uni((b, h), 0.0, 1.0) > 0.8).float(),
+    )
+
+
+def fused_call(name, d, affine):
+    """The wrapper a layer calls: on a CUDA tensor, the kernel."""
+    from sparch_tpu_torch.ops import fused_cells
+
+    kw = dict(scale=d["scale"], shift=d["shift"]) if affine else {}
+    if name == "lif":
+        return fused_cells.lif_fused(d["Wx"], d["alpha"], 1.0, d["u0"],
+                                     d["s0"], **kw)
+    if name == "adlif":
+        return fused_cells.adlif_fused(d["Wx"], d["alpha"], d["beta"],
+                                       d["a"], d["b"], 1.0, d["u0"],
+                                       d["w0"], d["s0"], **kw)
+    if name == "rlif":
+        return fused_cells.rlif_fused(d["Wx"], d["alpha"], d["V"], 1.0,
+                                      d["u0"], d["s0"], **kw)
+    return fused_cells.radlif_fused(d["Wx"], d["alpha"], d["beta"], d["a"],
+                                    d["b"], d["V"], 1.0, d["u0"], d["w0"],
+                                    d["s0"], **kw)
+
+
+def _prepared(name, d, affine):
+    rec, ada = FORMS[name]
+    return dict(
+        args=(d["Wx"], d["scale"] if affine else None,
+              d["shift"] if affine else None, d["alpha"], d["beta"], d["a"],
+              d["b"], d["V"], 1.0, d["u0"], d["w0"], d["s0"]),
+        kw=dict(recurrent=rec, adaptive=ada),
+    )
+
+
+def plain_call(name, d, affine):
+    """The plain PyTorch version on the same (already clamped) inputs."""
+    from sparch_tpu_torch.ops import fused_cells
+
+    p = _prepared(name, d, affine)
+    return fused_cells.fused_cell_plain(*p["args"], **p["kw"])
+
+
+def kernel_call(name, d, affine):
+    """The kernel alone, without the wrapper's clamp and mask."""
+    from sparch_tpu_torch.ops import fused_cells
+
+    p = _prepared(name, d, affine)
+    return fused_cells._fused_cell_cuda(*p["args"], **p["kw"])
+
+
+def phase_device():
+    from sparch_tpu_torch import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    logs = _build.build()
+    build_s = time.perf_counter() - t0
+    ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
+             if "registers" in ln or "Compiling entry" in ln]
+    emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
+         torch=torch.__version__, cuda=torch.version.cuda,
+         allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+         allow_tf32_cudnn=torch.backends.cudnn.allow_tf32,
+         kernel_build_s=build_s, built=sorted(logs), ptxas=ptxas)
+    return smi
+
+
+def orthogonal_check(name, shape, dev):
+    """Kernel vs plain with an orthogonal V, where s@V rounds by summation
+    order. An untrained adaptive neuron with a < 0 amplifies any rounding
+    difference step by step (its (u, w) loop has a per-step gain above 1),
+    so two correct implementations diverge too. The bound is therefore
+    MISMATCH_MAX plus twice the divergence between the plain version on
+    the card and on the host CPU (cuBLAS and the CPU library sum in other
+    orders): a kernel that got s@V wrong diverges from step 1 in every
+    row, far above it."""
+    o = cell_inputs(shape, dyadic=False, seed=2, dev=dev)
+    with torch.no_grad():
+        got = fused_call(name, o, True)
+        want = plain_call(name, o, True)
+        host = plain_call(name, {k: v.cpu() for k, v in o.items()}, True)
+    mism = float((got != want).float().mean())
+    intrinsic = float((want.cpu() != host).float().mean())
+    bound = MISMATCH_MAX + 2.0 * intrinsic
+    check(mism <= bound, f"{name} {shape}: orthogonal-V mismatch {mism} "
+                         f"> bound {bound}")
+    return dict(orthogonal_mismatch_fraction=mism,
+                orthogonal_plain_card_vs_cpu_mismatch=intrinsic,
+                orthogonal_mismatch_bound=bound)
+
+
+def phase_fused_cell(dev):
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    main = None
+    for shape in ((B, T, H), (5, 13, 40)):
+        for name in FORMS:
+            rec = FORMS[name][0]
+            row = {"cell": name, "shape": list(shape), "affine": True}
+            d = cell_inputs(shape, dyadic=True, seed=1, dev=dev)
+            with torch.no_grad():
+                got = fused_call(name, d, True)
+                want = plain_call(name, d, True)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            row.update(dyadic_max_abs_err=err,
+                       firing_rate=float(want.mean()))
+            check(torch.equal(got, want),
+                  f"{name} {shape}: spikes differ with dyadic V")
+            if rec:
+                row.update(orthogonal_check(name, shape, dev))
+            if shape == (B, T, H):
+                with torch.no_grad():
+                    row["ms"] = cuda_time_ms(kernel_call, name, d, True)
+                    row["plain_ms"] = cuda_time_ms(plain_call, name, d, True)
+                if name == "radlif":
+                    main = dict(max_abs_err=err, ms=row["ms"],
+                                plain_ms=row["plain_ms"])
+            emit("kernel_vs_plain", kernel="fused_cell_fwd", **row)
+    return main
+
+
+def phase_readout(dev):
+    from sparch_tpu_torch.ops import cells, fused_cells
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    Wx = 3.0 * torch.randn((B, T, C), generator=g, device=dev)
+    lo, hi = cells.ALPHA_LIM
+    alpha = torch.rand(C, generator=g, device=dev) * (hi - lo) + lo
+    u0 = torch.rand((B, C), generator=g, device=dev)
+    got = fused_cells.readout_fused(Wx, alpha, u0)
+    want = fused_cells.readout_plain(Wx, alpha, u0)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = float(((got - want).abs() / want.abs()).max())
+    check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+          f"readout: max abs err {err}, max rel err {rel}")
+    ms = cuda_time_ms(fused_cells._readout_cuda, Wx, alpha, u0)
+    plain_ms = cuda_time_ms(fused_cells.readout_plain, Wx, alpha, u0)
+    emit("kernel_vs_plain", kernel="readout_fwd", shape=[B, T, C],
+         max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def serving_state(dev, zero_means: bool):
+    """State dict of a RadLIF [512, 512, 35] with seeded random weights,
+    V rounded onto a 2^-8 grid (s@V is then exact in any summation order),
+    and running statistics from one train-mode pass over a calibration
+    batch.
+
+    ``zero_means`` also sets the running means to 0: BatchNorm folded into
+    scale*x + shift then rounds exactly as BatchNorm applied, so the kernel
+    paths compute the scan path's function to the last bit, up to the
+    readout's exp and class sum."""
+    from sparch_tpu_torch.models import build_model
+    from sparch_tpu_torch.models.common import BN_MOMENTUM
+
+    model = build_model(
+        "RadLIF", (B, T, F), [H, H, C], state_init="zeros",
+        cell_impl="scan", generator=torch.Generator().manual_seed(0),
+    ).to(dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    calib = (torch.rand((B, T, F), generator=g, device=dev) < 0.02).float()
+    with torch.no_grad():
+        for layer in model.hidden_layers():
+            layer.V.copy_(torch.round(layer.V * 256.0) / 256.0)
+        model.train()
+        model(calib)
+        # one pass moves the running average 5 % of the way from its
+        # init (mean 0, var 1) to the batch statistics: undo that, so the
+        # running statistics ARE the batch's
+        w = 1.0 - BN_MOMENTUM
+        for layer in model.hidden_layers() + [model.readout]:
+            n = layer.norm
+            n.running_mean.copy_(0.0 if zero_means else n.running_mean / w)
+            n.running_var.copy_((n.running_var - BN_MOMENTUM) / w)
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+@torch.no_grad()
+def plain_fused_forward(model, x):
+    """The kernel path's function on the card with each kernel replaced by
+    its plain version: the same projections and clamps, BatchNorm folded
+    as JAX ``_BNAffine`` folds it (scale = gamma*rsqrt(var + eps),
+    shift = beta - mean*scale, from the running statistics), zero initial
+    state. With V on a dyadic grid the kernels must reproduce its spikes
+    bit for bit. Returns (probs, firing_rates)."""
+    from sparch_tpu_torch.models.common import NORM_EPS
+    from sparch_tpu_torch.ops import cells, fused_cells
+
+    rates = []
+    for layer in model.hidden_layers():
+        Wx = layer.W(x)
+        n = layer.norm
+        scale = n.weight * torch.rsqrt(n.running_var + NORM_EPS)
+        shift = n.bias - n.running_mean * scale
+        alpha, beta, a, b, V = fused_cells.clip_and_mask(
+            layer.alpha, layer.beta, layer.a, layer.b, layer.V)
+        z = torch.zeros(Wx.shape[0], Wx.shape[2], device=Wx.device)
+        x = fused_cells.fused_cell_plain(
+            Wx, scale, shift, alpha, beta, a, b, V, layer.threshold, z, z, z,
+            recurrent=True, adaptive=True)
+        rates.append(x.mean(dim=(0, 1)))
+    ro = model.readout
+    Wx = ro.norm(ro.W(x))
+    z = torch.zeros(Wx.shape[0], Wx.shape[2], device=Wx.device)
+    if model.cell_impl == "pallas":
+        alpha = fused_cells.clip_and_mask(ro.alpha)[0]
+        out = fused_cells.readout_plain(Wx, alpha, z)
+    else:
+        out = cells.readout_sum(Wx, ro.alpha, z)
+    return out / out.sum(dim=-1, keepdim=True), torch.cat(rates)
+
+
+def reference_check(impl, pred, x, probs):
+    """Hold a kernel variant's served probabilities against
+    ``plain_fused_forward`` on the same padded batches: firing rates equal
+    (the spike trains are the same), labels equal on >= 99 %, probs within
+    1e-5 (the readout kernel agrees with its plain version to rtol 1e-5)."""
+    ref, rates_equal = [], True
+    for i in range(0, len(x), B):
+        chunk = x[i:i + B]
+        pad = B - len(chunk)
+        if pad:
+            chunk = np.concatenate(
+                [chunk, np.zeros((pad,) + chunk.shape[1:], chunk.dtype)])
+        xb = torch.from_numpy(chunk).to(pred.device)
+        p, rates = plain_fused_forward(pred.model, xb)
+        with torch.no_grad():
+            _, got_rates = pred.model(xb)
+        rates_equal &= bool(torch.equal(got_rates, rates))
+        ref.append(p.cpu().numpy()[:B - pad])
+    ref = np.concatenate(ref)
+    agree = _agreement((probs.argmax(-1), probs), (ref.argmax(-1), ref))
+    check(rates_equal, f"{impl}: spikes differ from plain_fused_forward")
+    check(agree["label_agreement"] >= 0.99 and
+          agree["max_abs_prob_diff"] <= 1e-5,
+          f"{impl}: vs plain_fused_forward {agree}")
+    return dict(vs_plain_fused=dict(firing_rates_equal=rates_equal,
+                                    **agree))
+
+
+def _agreement(a, b):
+    return dict(label_agreement=float((a[0] == b[0]).mean()),
+                max_abs_prob_diff=float(np.abs(a[1] - b[1]).max()))
+
+
+def serve_variants(dev, state, x, timed: bool):
+    """Serve ``x`` with cell_impl scan, auto and pallas; launch counters
+    are set to 0 just before each variant's first call and read just
+    after it. The kernel variants are held against
+    ``plain_fused_forward``."""
+    from sparch_tpu_torch.models import build_model
+    from sparch_tpu_torch.ops import fused_cells
+    from sparch_tpu_torch.serve import Predictor
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    out, rows = {}, {}
+    for impl in ("scan", "auto", "pallas"):
+        model = build_model("RadLIF", (B, T, F), [H, H, C],
+                            state_init="zeros", cell_impl=impl)
+        pred = Predictor(model, state, batch_size=B, device=dev)
+        fused_cells.reset_launch_counts()
+        labels, probs = pred(x)
+        counts = fused_cells.launch_counts()
+        check(probs.shape == (len(x), C) and bool(np.isfinite(probs).all()),
+              f"{impl}: probs not finite or of the wrong shape")
+        check(bool(np.allclose(probs.sum(-1), 1.0, atol=1e-5)),
+              f"{impl}: probs do not sum to 1")
+        want = {"scan": (0, 0), "auto": (1, 0), "pallas": (1, 1)}[impl]
+        got = (counts["fused_cell_fwd"] > 0, counts["readout_fwd"] > 0)
+        check(got == tuple(map(bool, want)),
+              f"{impl}: kernel launches {counts}")
+        out[impl] = (labels, probs)
+        row = dict(launches=counts)
+        if impl != "scan":
+            row.update(reference_check(impl, pred, x, probs))
+            row["vs_scan"] = _agreement(out[impl], out["scan"])
+        if timed:
+            n_batches = -(-len(x) // B)
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                pred(x)
+                walls.append(time.perf_counter() - t0)
+            wall = statistics.median(walls)
+            xb = torch.from_numpy(x[:B]).to(dev)
+            with torch.no_grad():
+                _, rates = pred.model(xb)
+                fwd_ms = cuda_time_ms(pred.model, xb, warmup=2, iters=5,
+                                      repeats=3)
+            row.update(
+                predict_ms_per_batch=1e3 * wall / n_batches,
+                utterances_per_s=len(x) / wall, forward_ms=fwd_ms,
+                firing_rate_layer0=float(rates[:H].mean()),
+                firing_rate_layer1=float(rates[H:].mean()),
+            )
+        rows[impl] = row
+    return out, rows
+
+
+def phase_serving(dev):
+    """The serving main path, on two models, each kernel variant held
+    against ``plain_fused_forward`` (spikes bit for bit) and against scan:
+
+    - ``zero_means``: auto and pallas must give the scan path's labels on
+      >= 99 % and its probabilities within 1e-3;
+    - ``calibrated`` (running means as calibrated, the one timed): an
+      untrained RadLIF amplifies rounding (see orthogonal_check), so the
+      BatchNorm fold alone moves its outputs away from scan's. The witness
+      is the scan path on the host CPU, which differs from the card's only
+      in rounding: the kernel paths must agree with scan on the card on at
+      least the witness's label share minus WITNESS_LABEL_MARGIN, with
+      probabilities no further than WITNESS_PROB_FACTOR times the
+      witness's (and never held tighter than 1e-3). A wrong fold (its mean
+      term, say) moves every utterance, far past either bound.
+    """
+    from sparch_tpu_torch.models import build_model
+    from sparch_tpu_torch.serve import Predictor
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = (torch.rand((N_UTT, T, F), generator=g, device=dev) < 0.02)
+    x = x.float().cpu().numpy()
+
+    out, rows = serve_variants(dev, serving_state(dev, zero_means=True), x,
+                               timed=False)
+    emit("serving", model="zero_means", **rows)
+    for impl in ("auto", "pallas"):
+        agree = rows[impl]["vs_scan"]
+        check(agree["label_agreement"] >= 0.99,
+              f"zero_means {impl}: labels agree on "
+              f"{agree['label_agreement']}")
+        check(agree["max_abs_prob_diff"] <= 1e-3,
+              f"zero_means {impl}: probs differ by "
+              f"{agree['max_abs_prob_diff']}")
+
+    state = serving_state(dev, zero_means=False)
+    out, rows = serve_variants(dev, state, x, timed=True)
+    host = Predictor(
+        build_model("RadLIF", (B, T, F), [H, H, C], state_init="zeros",
+                    cell_impl="scan"),
+        {k: v.cpu() for k, v in state.items()}, batch_size=B, device="cpu",
+    )(x)
+    witness = _agreement(out["scan"], host)
+    label_min = witness["label_agreement"] - WITNESS_LABEL_MARGIN
+    prob_max = max(WITNESS_PROB_FACTOR * witness["max_abs_prob_diff"], 1e-3)
+    emit("serving", model="calibrated", n_utterances=N_UTT, batch_size=B,
+         scan_card_vs_cpu=witness, vs_scan_label_min=label_min,
+         vs_scan_prob_max=prob_max, **rows)
+    for impl in ("auto", "pallas"):
+        agree = rows[impl]["vs_scan"]
+        check(agree["label_agreement"] >= label_min,
+              f"calibrated {impl}: labels agree with scan on "
+              f"{agree['label_agreement']} < {label_min}")
+        check(agree["max_abs_prob_diff"] <= prob_max,
+              f"calibrated {impl}: probs differ from scan by "
+              f"{agree['max_abs_prob_diff']} > {prob_max}")
+    return rows["pallas"]["launches"]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    smi = phase_device()
+    cell = phase_fused_cell(dev)
+    readout = phase_readout(dev)
+    launches = phase_serving(dev)
+    kernels = [
+        dict(name="fused_cell_fwd", route="cuda",
+             source="sparch_tpu_torch/csrc/fused_cell_fwd.cu",
+             replaces="sparch_tpu/ops/pallas_cells.py:305",
+             launches=launches["fused_cell_fwd"], **cell),
+        dict(name="readout_fwd", route="cuda",
+             source="sparch_tpu_torch/csrc/readout_fwd.cu",
+             replaces="sparch_tpu/ops/pallas_cells.py:1235",
+             launches=launches["readout_fwd"], **readout),
+    ]
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

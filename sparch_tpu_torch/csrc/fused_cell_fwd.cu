@@ -1,0 +1,260 @@
+// Fused spiking-cell forward for Hopper (sm_90a): LIF, adLIF, RLIF and
+// RadLIF in one template, with the batchnorm affine applied on load.
+//
+// Replaces: sparch_tpu/ops/pallas_cells.py `_fwd_kernel`, the TPU kernel
+// behind lif/adlif/rlif/radlif_pallas, in its serving form
+// (save_residuals=False, no dropout, float32 streams).
+//
+// Per step, for one batch row (previous-step u, w and s on the right):
+//   drive = scale*Wx_t + shift               (AFFINE)
+//   drive = drive + s @ V                    (RECURRENT; V zero-diagonal)
+//   w     = beta*w + a*u + b*s ; drive -= w  (ADAPTIVE)
+//   u     = alpha*(u - s) + (1-alpha)*drive
+//   s     = u > threshold
+//
+// What bounds it on this card: the T dependent steps. At the serving
+// shape (B=128, T=100, H=512) the kernel reads 26 MB of Wx and writes
+// 26 MB of spikes once each, about 16 us at HBM rate, and V (1 MB) stays
+// in L2. But each step of a recurrent cell needs the whole spike vector of
+// the step before, so a step is one block barrier plus an H-long gather,
+// and T of them run one after another: latency, not bandwidth or FLOPs,
+// sets the time.
+//
+// Design:
+// - One block owns one batch row for the whole sequence. Blocks run in no
+//   order, so the TPU kernel's sequential grid over time chunks becomes a
+//   loop over T inside the block, and nothing carries between blocks.
+//   Each thread owns NPT neurons j = threadIdx.x + i*blockDim.x; u, w and s
+//   stay in registers.
+// - Spikes are 0/1, so (s @ V)[j] is the sum of the rows k of V at which s
+//   spiked. Each warp publishes its spikes as one __ballot_sync word in
+//   shared memory, double-buffered so that one barrier per step suffices;
+//   after the barrier every thread walks the words in ascending k and adds
+//   V[k, j] for the set bits, four loads in flight at a time. A row of V is
+//   read coalesced across the warp, from L2.
+// - The next step's Wx is loaded before the barrier, so its latency hides
+//   behind the gather.
+// - Edges are masked: threads with j >= H hold no spike and never load or
+//   store. B and H are not padded, and there are no sentinel lanes.
+// - Rounding: every update uses __fmul_rn/__fadd_rn/__fsub_rn in the
+//   order of the TPU kernel, so no FMA contraction changes a result and
+//   the kernel rounds step for step like its plain PyTorch version
+//   (ops/fused_cells.py fused_cell_plain). With V on a dyadic grid the sum
+//   s@V is exact in any order and the spike trains are bit-identical;
+//   otherwise only the summation order of s@V differs.
+// - The initial state s0 need not be 0/1 (a uniform state init draws it
+//   from U[0,1)), so the first s0 @ V is a dense dot over k, ascending.
+//
+// C interface, bound with ctypes: sparch_fused_cell_fwd returns
+// cudaGetLastError() after the launch (or an invalid-value error for a
+// shape it does not take) and never synchronises.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxThreads = 512;
+constexpr int kMaxNpt = 8;  // so H <= kMaxThreads * kMaxNpt = 4096
+
+struct Args {
+  const float* wx;
+  const float* scale;
+  const float* shift;
+  const float* alpha;
+  const float* beta;
+  const float* a;
+  const float* b;
+  const float* V;
+  const float* u0;
+  const float* w0;
+  const float* s0;
+  float* s_out;
+  int T;
+  int H;
+  float threshold;
+};
+
+template <bool RECURRENT, bool ADAPTIVE, bool AFFINE, int NPT>
+__global__ void __launch_bounds__(kMaxThreads)
+fused_cell_fwd_kernel(const Args p) {
+  // dynamic shared memory: the s0 row (H floats), then two buffers of
+  // n_words spike masks
+  extern __shared__ float smem[];
+  const int H = p.H;
+  const int T = p.T;
+  const int warps = blockDim.x >> 5;
+  const int n_words = NPT * warps;
+  uint32_t* masks = reinterpret_cast<uint32_t*>(smem + H);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const size_t row = blockIdx.x;
+
+  float al[NPT], oma[NPT], be[NPT], aa[NPT], bb[NPT], sc[NPT], sh[NPT];
+  float u[NPT], w[NPT], s[NPT], sv[NPT], x[NPT];
+  int col[NPT];
+  bool live[NPT];
+#pragma unroll
+  for (int i = 0; i < NPT; ++i) {
+    const int j = threadIdx.x + i * blockDim.x;
+    live[i] = j < H;
+    col[i] = live[i] ? j : 0;
+    const int c = col[i];
+    al[i] = p.alpha[c];
+    oma[i] = __fsub_rn(1.0f, al[i]);
+    be[i] = ADAPTIVE ? p.beta[c] : 0.f;
+    aa[i] = ADAPTIVE ? p.a[c] : 0.f;
+    bb[i] = ADAPTIVE ? p.b[c] : 0.f;
+    sc[i] = AFFINE ? p.scale[c] : 0.f;
+    sh[i] = AFFINE ? p.shift[c] : 0.f;
+    u[i] = p.u0[row * H + c];
+    w[i] = ADAPTIVE ? p.w0[row * H + c] : 0.f;
+    s[i] = live[i] ? p.s0[row * H + c] : 0.f;
+    sv[i] = 0.f;
+    if (RECURRENT && live[i]) smem[j] = s[i];
+  }
+
+  if (RECURRENT) {
+    __syncthreads();
+    for (int k = 0; k < H; ++k) {
+      const float sk = smem[k];
+      if (sk != 0.f) {
+        const float* vrow = p.V + (size_t)k * H;
+#pragma unroll
+        for (int i = 0; i < NPT; ++i) {
+          if (live[i]) sv[i] = __fadd_rn(sv[i], __fmul_rn(sk, vrow[col[i]]));
+        }
+      }
+    }
+  }
+
+  const float* wx_row = p.wx + row * T * H;
+  float* s_row = p.s_out + row * T * H;
+#pragma unroll
+  for (int i = 0; i < NPT; ++i) x[i] = live[i] ? wx_row[col[i]] : 0.f;
+
+  for (int t = 0; t < T; ++t) {
+#pragma unroll
+    for (int i = 0; i < NPT; ++i) {
+      float d = x[i];
+      if (AFFINE) d = __fadd_rn(__fmul_rn(sc[i], d), sh[i]);
+      if (RECURRENT) d = __fadd_rn(d, sv[i]);
+      if (ADAPTIVE) {
+        w[i] = __fadd_rn(__fadd_rn(__fmul_rn(be[i], w[i]),
+                                   __fmul_rn(aa[i], u[i])),
+                         __fmul_rn(bb[i], s[i]));
+        d = __fsub_rn(d, w[i]);
+      }
+      u[i] = __fadd_rn(__fmul_rn(al[i], __fsub_rn(u[i], s[i])),
+                       __fmul_rn(oma[i], d));
+      s[i] = u[i] > p.threshold ? 1.f : 0.f;
+      if (live[i]) s_row[(size_t)t * H + col[i]] = s[i];
+    }
+    if (t + 1 < T) {
+      const float* wx_next = wx_row + (size_t)(t + 1) * H;
+#pragma unroll
+      for (int i = 0; i < NPT; ++i) x[i] = live[i] ? wx_next[col[i]] : 0.f;
+    }
+    if (RECURRENT) {
+      uint32_t* buf = masks + (t & 1) * n_words;
+#pragma unroll
+      for (int i = 0; i < NPT; ++i) {
+        const uint32_t m = __ballot_sync(0xffffffffu, live[i] && s[i] != 0.f);
+        if (lane == 0) buf[i * warps + warp] = m;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < NPT; ++i) sv[i] = 0.f;
+      for (int wd = 0; wd < n_words; ++wd) {
+        uint32_t m = buf[wd];
+        const float* vbase = p.V + (size_t)wd * 32 * H;
+        while (m) {
+          // up to four spiking rows per round, added in ascending k; a
+          // missing row adds 0, which changes no sum
+          const int k0 = __ffs(m) - 1;
+          m &= m - 1;
+          int k1 = -1, k2 = -1, k3 = -1;
+          if (m) { k1 = __ffs(m) - 1; m &= m - 1; }
+          if (m) { k2 = __ffs(m) - 1; m &= m - 1; }
+          if (m) { k3 = __ffs(m) - 1; m &= m - 1; }
+#pragma unroll
+          for (int i = 0; i < NPT; ++i) {
+            if (!live[i]) continue;
+            const float* vc = vbase + col[i];
+            const float v0 = vc[(size_t)k0 * H];
+            const float v1 = k1 >= 0 ? vc[(size_t)k1 * H] : 0.f;
+            const float v2 = k2 >= 0 ? vc[(size_t)k2 * H] : 0.f;
+            const float v3 = k3 >= 0 ? vc[(size_t)k3 * H] : 0.f;
+            sv[i] = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(sv[i], v0), v1),
+                                        v2),
+                              v3);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <bool R, bool A, bool F>
+void launch_npt(const Args& p, int B, int npt, int threads, size_t smem,
+                cudaStream_t stream) {
+  switch (npt) {
+    case 1:
+      fused_cell_fwd_kernel<R, A, F, 1><<<B, threads, smem, stream>>>(p);
+      break;
+    case 2:
+      fused_cell_fwd_kernel<R, A, F, 2><<<B, threads, smem, stream>>>(p);
+      break;
+    case 4:
+      fused_cell_fwd_kernel<R, A, F, 4><<<B, threads, smem, stream>>>(p);
+      break;
+    default:
+      fused_cell_fwd_kernel<R, A, F, 8><<<B, threads, smem, stream>>>(p);
+      break;
+  }
+}
+
+template <bool R, bool A>
+void launch_affine(const Args& p, int B, bool affine, int npt, int threads,
+                   size_t smem, cudaStream_t stream) {
+  if (affine) {
+    launch_npt<R, A, true>(p, B, npt, threads, smem, stream);
+  } else {
+    launch_npt<R, A, false>(p, B, npt, threads, smem, stream);
+  }
+}
+
+}  // namespace
+
+extern "C" int sparch_fused_cell_fwd(
+    const float* wx, const float* scale, const float* shift,
+    const float* alpha, const float* beta, const float* a, const float* b,
+    const float* V, const float* u0, const float* w0, const float* s0,
+    float* s_out, int B, int T, int H, float threshold, int recurrent,
+    int adaptive, int affine, void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0 || H > kMaxThreads * kMaxNpt ||
+      !wx || !alpha || !u0 || !s0 || !s_out || (recurrent && !V) ||
+      (adaptive && (!beta || !a || !b || !w0)) ||
+      (affine && (!scale || !shift))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // fewest neurons per thread that keep the block within kMaxThreads
+  int npt = 1;
+  while ((H + npt - 1) / npt > kMaxThreads) npt *= 2;
+  const int threads = (((H + npt - 1) / npt) + 31) / 32 * 32;
+  const int n_words = npt * (threads / 32);
+  const size_t smem = (size_t)H * sizeof(float) + 2 * n_words * sizeof(uint32_t);
+  const Args p{wx, scale, shift, alpha, beta, a, b, V, u0, w0, s0, s_out,
+               T, H, threshold};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (recurrent && adaptive) {
+    launch_affine<true, true>(p, B, affine, npt, threads, smem, st);
+  } else if (recurrent) {
+    launch_affine<true, false>(p, B, affine, npt, threads, smem, st);
+  } else if (adaptive) {
+    launch_affine<false, true>(p, B, affine, npt, threads, smem, st);
+  } else {
+    launch_affine<false, false>(p, B, affine, npt, threads, smem, st);
+  }
+  return (int)cudaGetLastError();
+}

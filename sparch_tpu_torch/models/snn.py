@@ -1,0 +1,361 @@
+"""Spiking neural networks (counterpart of sparch_tpu/models/snn.py).
+
+Multi-layer stacks of {LIF, adLIF, RLIF, RadLIF} neurons with a
+non-spiking cumulative-softmax readout. Each layer hoists its input
+projection into one time-batched matmul and runs the state recurrence
+either as a plain PyTorch loop (``ops.cells``) or through the fused CUDA
+kernel (``ops.fused_cells``), which also applies BatchNorm as an affine on
+load.
+
+    model = SNN((B, T, F), [512, 512, 35], neuron_type="RadLIF")
+    out, firing_rates = model(x)              # x: (B, T, F)
+
+Eval/train mode is the module's (``model.eval()``); a uniform state init
+draws from the ``generator`` given to ``forward``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from sparch_tpu_torch.models.common import (
+    Dense,
+    FusedCellPolicy,
+    SeqNorm,
+    bidir_concat,
+    bidir_split,
+)
+from sparch_tpu_torch.ops import cells, fused_cells
+
+__all__ = [
+    "SNN",
+    "LIFLayer",
+    "adLIFLayer",
+    "RLIFLayer",
+    "RadLIFLayer",
+    "ReadoutLayer",
+    "SNN_NEURON_TYPES",
+]
+
+SNN_NEURON_TYPES = ("LIF", "adLIF", "RLIF", "RadLIF")
+
+
+def _uniform_(t: torch.Tensor, lim, generator):
+    with torch.no_grad():
+        t.uniform_(lim[0], lim[1], generator=generator)
+
+
+def _init_states(like: torch.Tensor, n: int, mode: str, generator):
+    shape = (like.shape[0], like.shape[2])
+    return [
+        cells.init_state(generator, shape, like.dtype, mode, like.device)
+        for _ in range(n)
+    ]
+
+
+class _SpikingLayerBase(FusedCellPolicy, nn.Module):
+    """Shared scaffolding: bidirectional batch trick, hoisted projection,
+    norm, cell, dropout. Subclasses set ``recurrent``/``adaptive`` and
+    define ``_cell``."""
+
+    recurrent = False
+    adaptive = False
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 threshold: float = 1.0, dropout: float = 0.0,
+                 normalization: str = "batchnorm", use_bias: bool = False,
+                 bidirectional: bool = False, state_init: str = "uniform",
+                 cell_impl: str = "auto"):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.threshold = threshold
+        self.dropout = dropout
+        self.normalization = normalization
+        self.bidirectional = bidirectional
+        self.state_init = state_init
+        self.cell_impl = cell_impl
+        self.W = Dense(input_size, hidden_size, use_bias)
+        self.norm = SeqNorm(normalization, hidden_size)
+        self.alpha = nn.Parameter(torch.empty(hidden_size))
+        if self.adaptive:
+            self.beta = nn.Parameter(torch.empty(hidden_size))
+            self.a = nn.Parameter(torch.empty(hidden_size))
+            self.b = nn.Parameter(torch.empty(hidden_size))
+        if self.recurrent:
+            self.V = nn.Parameter(torch.empty(hidden_size, hidden_size))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        self.W.reset_parameters(generator)
+        self.norm.reset_parameters()
+        _uniform_(self.alpha, cells.ALPHA_LIM, generator)
+        if self.adaptive:
+            _uniform_(self.beta, cells.BETA_LIM, generator)
+            _uniform_(self.a, cells.A_LIM, generator)
+            _uniform_(self.b, cells.B_LIM, generator)
+        if self.recurrent:
+            with torch.no_grad():
+                nn.init.orthogonal_(self.V, generator=generator)
+
+    def _fold_norm(self, x) -> bool:
+        """On the fused path batchnorm/none fold into the kernel as an
+        affine on the drive; layernorm (per-sample stats) cannot."""
+        return self._use_fused(x) and self.normalization != "layernorm"
+
+    def _pre(self, x):
+        """Hoisted projection + norm -> (Wx, scale, shift); scale/shift are
+        None where the norm was applied to Wx here."""
+        if self.bidirectional:
+            x = bidir_concat(x)
+        Wx = self.W(x)
+        if self._fold_norm(x):
+            scale, shift = self.norm.affine(Wx)
+            return Wx, scale, shift
+        return self.norm(Wx), None, None
+
+    def _drop_rate(self, fused: bool) -> float:
+        """Dropout rate handed to the fused kernel: nonzero only while
+        training on the fused path (which then raises: the fused dropout
+        comes with the training slice)."""
+        return float(self.dropout) if (
+            fused and self.training and self.dropout > 0
+        ) else 0.0
+
+    def _post(self, out, fused: bool):
+        if self.bidirectional:
+            out = bidir_split(out)
+        if fused:
+            return out  # eval, or training without dropout
+        return F.dropout(out, self.dropout, self.training)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        Wx, scale, shift = self._pre(x)
+        fused = self._use_fused(x)
+        n = 3 if self.adaptive else 2
+        states = _init_states(Wx, n, self.state_init, generator)
+        s = self._cell(Wx, scale, shift, states, fused)
+        return self._post(s, fused)
+
+    def _cell(self, Wx, scale, shift, states, fused):
+        raise NotImplementedError
+
+
+class LIFLayer(_SpikingLayerBase):
+    """Feedforward leaky integrate-and-fire layer."""
+
+    def _cell(self, Wx, scale, shift, states, fused):
+        u0, s0 = states
+        if fused:
+            return fused_cells.lif_fused(
+                Wx, self.alpha, self.threshold, u0, s0, scale=scale,
+                shift=shift, drop_rate=self._drop_rate(fused),
+            )
+        return cells.lif_scan(Wx, self.alpha, self.threshold, u0, s0)
+
+
+class adLIFLayer(_SpikingLayerBase):
+    """Adaptive LIF layer with adaptation current."""
+
+    adaptive = True
+
+    def _cell(self, Wx, scale, shift, states, fused):
+        u0, w0, s0 = states
+        if fused:
+            return fused_cells.adlif_fused(
+                Wx, self.alpha, self.beta, self.a, self.b, self.threshold,
+                u0, w0, s0, scale=scale, shift=shift,
+                drop_rate=self._drop_rate(fused),
+            )
+        return cells.adlif_scan(Wx, self.alpha, self.beta, self.a, self.b,
+                                self.threshold, u0, w0, s0)
+
+
+class RLIFLayer(_SpikingLayerBase):
+    """Recurrent LIF layer with a zero-diagonal orthogonal V."""
+
+    recurrent = True
+
+    def _cell(self, Wx, scale, shift, states, fused):
+        u0, s0 = states
+        if fused:
+            return fused_cells.rlif_fused(
+                Wx, self.alpha, self.V, self.threshold, u0, s0, scale=scale,
+                shift=shift, drop_rate=self._drop_rate(fused),
+            )
+        return cells.rlif_scan(Wx, self.alpha, self.V, self.threshold,
+                               u0, s0)
+
+
+class RadLIFLayer(_SpikingLayerBase):
+    """Recurrent adaptive LIF layer, the strongest spiking model."""
+
+    recurrent = True
+    adaptive = True
+
+    def _cell(self, Wx, scale, shift, states, fused):
+        u0, w0, s0 = states
+        if fused:
+            return fused_cells.radlif_fused(
+                Wx, self.alpha, self.beta, self.a, self.b, self.V,
+                self.threshold, u0, w0, s0, scale=scale, shift=shift,
+                drop_rate=self._drop_rate(fused),
+            )
+        return cells.radlif_scan(Wx, self.alpha, self.beta, self.a, self.b,
+                                 self.V, self.threshold, u0, w0, s0)
+
+
+class ReadoutLayer(nn.Module):
+    """Non-spiking leaky readout producing ``(B, labels)`` as a cumulative
+    softmax of the membrane. The fused readout kernel runs only under
+    ``cell_impl='pallas'``; otherwise the chunked closed form
+    ``cells.readout_sum`` does, as in the JAX package."""
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 normalization: str = "batchnorm", use_bias: bool = False,
+                 state_init: str = "uniform", cell_impl: str = "auto"):
+        super().__init__()
+        self.state_init = state_init
+        self.cell_impl = cell_impl
+        self.W = Dense(input_size, hidden_size, use_bias)
+        self.norm = SeqNorm(normalization, hidden_size)
+        self.alpha = nn.Parameter(torch.empty(hidden_size))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        self.W.reset_parameters(generator)
+        self.norm.reset_parameters()
+        _uniform_(self.alpha, cells.ALPHA_LIM, generator)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        Wx = self.norm(self.W(x))
+        (u0,) = _init_states(Wx, 1, self.state_init, generator)
+        if self.cell_impl == "pallas":
+            return fused_cells.readout_fused(Wx, self.alpha, u0)
+        return cells.readout_sum(Wx, self.alpha, u0)
+
+
+_LAYER_CLASSES = {
+    "LIF": LIFLayer,
+    "adLIF": adLIFLayer,
+    "RLIF": RLIFLayer,
+    "RadLIF": RadLIFLayer,
+}
+
+
+class SNN(nn.Module):
+    """A multi-layered spiking neural network.
+
+    Takes ``(batch, time, feat)`` inputs (4-D ``(batch, time, feat, chan)``
+    inputs are flattened to 3-D) and returns ``(output, firing_rates)``:
+    the readout's ``(B, classes)`` (or the top layer's spikes without a
+    readout) and the mean firing rate of every hidden neuron, shape
+    ``(sum of hidden widths,)`` (2H per bidirectional layer). Hidden
+    layers are the submodules ``layer_0``, ``layer_1``, ...; the readout
+    is ``readout``.
+
+    ``compute_dtype=bfloat16``, ``remat`` and ``cell_impl='pallas_tp'`` are
+    not ported yet and raise; the port computes in float32.
+    """
+
+    is_snn = True
+
+    def __init__(self, input_shape: Tuple, layer_sizes: Sequence[int],
+                 neuron_type: str = "LIF", threshold: float = 1.0,
+                 dropout: float = 0.0, normalization: str = "batchnorm",
+                 use_bias: bool = False, bidirectional: bool = False,
+                 use_readout_layer: bool = True, state_init: str = "uniform",
+                 cell_impl: str = "auto", compute_dtype=None,
+                 remat: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if compute_dtype is not None and compute_dtype != torch.float32:
+            raise NotImplementedError(
+                "compute_dtype=bfloat16 is ROADMAP queue 1 item 3 (AMP) and "
+                "queue 2 item 4 (bf16 streams)"
+            )
+        if remat:
+            raise NotImplementedError("remat is ROADMAP queue 1 item 3")
+        if cell_impl == "pallas_tp":
+            raise NotImplementedError(
+                "cell_impl='pallas_tp' is ROADMAP queue 2 items 8-9 "
+                "(tensor-parallel kernels)"
+            )
+        if neuron_type not in _LAYER_CLASSES:
+            raise ValueError(f"Invalid neuron type {neuron_type}")
+        if use_readout_layer and len(layer_sizes) < 2:
+            raise ValueError(
+                "use_readout_layer=True needs at least one hidden layer "
+                "(nb_layers >= 2)"
+            )
+        self.input_shape = tuple(input_shape)
+        self.layer_sizes = tuple(layer_sizes)
+        self.neuron_type = neuron_type
+        self.threshold = threshold
+        self.normalization = normalization
+        self.bidirectional = bidirectional
+        self.use_readout_layer = use_readout_layer
+        self.state_init = state_init
+        self.cell_impl = cell_impl
+
+        layer_cls = _LAYER_CLASSES[neuron_type]
+        width = math.prod(self.input_shape[2:])
+        for i in range(self.num_hidden):
+            layer = layer_cls(
+                width, self.layer_sizes[i], threshold=threshold,
+                dropout=dropout, normalization=normalization,
+                use_bias=use_bias, bidirectional=bidirectional,
+                state_init=state_init, cell_impl=cell_impl,
+            )
+            self.add_module(f"layer_{i}", layer)
+            width = self.layer_sizes[i] * (2 if bidirectional else 1)
+        if use_readout_layer:
+            self.readout = ReadoutLayer(
+                width, self.layer_sizes[-1], normalization=normalization,
+                use_bias=use_bias, state_init=state_init,
+                cell_impl=cell_impl,
+            )
+        if generator is not None:
+            self.reset_parameters(generator)
+
+    @property
+    def num_layers(self) -> int:
+        return len(self.layer_sizes)
+
+    @property
+    def num_outputs(self) -> int:
+        return self.layer_sizes[-1]
+
+    @property
+    def num_hidden(self) -> int:
+        return self.num_layers - 1 if self.use_readout_layer else \
+            self.num_layers
+
+    def hidden_layers(self):
+        return [getattr(self, f"layer_{i}") for i in range(self.num_hidden)]
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        for layer in self.hidden_layers():
+            layer.reset_parameters(generator)
+        if self.use_readout_layer:
+            self.readout.reset_parameters(generator)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        if x.ndim == 4:
+            x = x.reshape(x.shape[0], x.shape[1], -1)
+        elif x.ndim != 3:
+            raise NotImplementedError(f"Unsupported input rank {x.ndim}")
+        all_spikes = []
+        for layer in self.hidden_layers():
+            x = layer(x, generator)
+            all_spikes.append(x)
+        if self.use_readout_layer:
+            x = self.readout(x, generator)
+        # per-layer means before concatenating: no (B, T, sum H) stack
+        firing_rates = torch.cat(
+            [s.float().mean(dim=(0, 1)) for s in all_spikes]
+        )
+        return x, firing_rates

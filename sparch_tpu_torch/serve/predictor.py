@@ -1,0 +1,106 @@
+"""Offline batch inference (counterpart of sparch_tpu/serve/predictor.py).
+
+Every chunk of the input is padded to ``batch_size``, so each forward sees
+one shape; an SNN's summed softmax is normalised by its own mass; models
+with ``state_init='uniform'`` draw their states from a generator re-seeded
+with ``seed`` before every forward, so calls are deterministic.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["Predictor", "load_experiment"]
+
+_CHECKPOINT_ITEM = (
+    "the checkpoint slice of the port (ROADMAP queue 1 item 2: "
+    "train/checkpoint.py)"
+)
+
+
+def load_experiment(exp_folder: str):
+    raise NotImplementedError(
+        f"loading an experiment folder needs {_CHECKPOINT_ITEM}; build the "
+        "model and convert its weights with convert.variables_from_flax"
+    )
+
+
+class Predictor:
+    """Wraps a model and its ``state_dict`` for batched inference.
+
+        predictor = Predictor(model, state_dict, device="cuda")
+        labels, probs = predictor(x)          # x: (n, T, F), any n
+    """
+
+    @classmethod
+    def from_experiment(cls, exp_folder: str, **kwargs) -> "Predictor":
+        raise NotImplementedError(f"from_experiment needs {_CHECKPOINT_ITEM}")
+
+    def __init__(self, model, state_dict, batch_size: int = 128,
+                 seed: int = 0, pad_multiple: int = 100, device=None,
+                 mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "sequence-sharded serving is ROADMAP queue 1 item 8 "
+                "(parallel/seqpipe.py)"
+            )
+        if pad_multiple != 100:
+            raise NotImplementedError(
+                "pad_multiple buckets waveform frame counts, which need the "
+                "device fbank frontend, ROADMAP queue 1 item 5"
+            )
+        if not getattr(model, "is_snn", False):
+            raise NotImplementedError(
+                "the port serves spiking models only; the ANN slice is "
+                "ROADMAP queue 1 item 4"
+            )
+        self.device = torch.device(
+            device if device is not None
+            else ("cuda" if torch.cuda.is_available() else "cpu")
+        )
+        model.load_state_dict(state_dict, strict=True)
+        self.model = model.to(self.device).eval()
+        self.batch_size = batch_size
+        self.seed = seed
+        self._generator = (
+            torch.Generator(device=self.device)
+            if model.state_init == "uniform" else None
+        )
+
+    @torch.no_grad()
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._generator is not None:
+            self._generator.manual_seed(self.seed)
+        out, _ = self.model(x, self._generator)
+        # the readout already sums per-step softmax posteriors: normalising
+        # by its mass is the class probability
+        return out / out.sum(dim=-1, keepdim=True)
+
+    def __call__(self, x, lengths=None) -> Tuple[np.ndarray, np.ndarray]:
+        """Predict labels for ``x: (n, T, F)``; returns (labels, probs)."""
+        if lengths is not None:
+            raise NotImplementedError(
+                "waveform inputs (lengths=) need the device fbank frontend, "
+                "ROADMAP queue 1 item 5"
+            )
+        x = np.asarray(x, np.float32)
+        n = x.shape[0]
+        if n == 0:
+            c = self.model.num_outputs
+            return np.zeros((0,), np.int64), np.zeros((0, c), np.float32)
+        bs = self.batch_size
+        probs_out = []
+        for i in range(0, n, bs):
+            chunk = x[i:i + bs]
+            pad = bs - chunk.shape[0]
+            if pad:  # one shape for every forward
+                chunk = np.concatenate(
+                    [chunk, np.zeros((pad,) + chunk.shape[1:], chunk.dtype)]
+                )
+            probs = self._forward(torch.from_numpy(chunk).to(self.device))
+            probs = probs.cpu().numpy()
+            probs_out.append(probs[:bs - pad] if pad else probs)
+        probs = np.concatenate(probs_out, axis=0)
+        return probs.argmax(axis=-1), probs
