@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch/CUDA port's serving path on one CUDA card.
+"""Profile the PyTorch/CUDA port's serving and training paths on one CUDA
+card.
 
     python3 chip_profile.py
 
@@ -18,6 +19,21 @@ this run:
    the cuBLAS projections.
 4. ``h2d``: the pageable numpy -> card copy of one float32 raster batch,
    the first step ``Predictor`` takes per batch.
+5. ``bwd_sweep``: the backward kernel alone at (128, 100, 512) over the
+   same shifts, on the residuals of the training forward at that shift:
+   kernel ms against the firing rate (the backward's products are dense,
+   so its time should not follow the rate).
+6. ``profile_training``: ``torch.profiler`` over 3 training steps of the
+   RadLIF [512, 512, 35] trainer of ``chip_smoke.py``, per ``cell_impl``:
+   device time and kernel launches per step, the share of each
+   hand-written kernel and of the cuBLAS products, and the idle share of
+   the card (1 - device time / elapsed time between CUDA events around
+   the profiled steps, profiler overhead included), and the same share
+   against the un-profiled step time (CUDA events over 20 steps).
+7. ``bwd_variants``: the backward kernel built with other rows per block
+   (``-DSPARCH_BWD_WORK``), one ``nvcc`` each, all at once; RadLIF at
+   (128, 100, 512): kernel ms and the worst gradient error against the
+   plain version.
 
 Without a CUDA card it exits non-zero and prints no result.
 """
@@ -99,6 +115,145 @@ def profile(dev):
              gemm_share=_share(ev, "gemm", "sgemm", "cutlass") / busy)
 
 
+def bwd_sweep(dev):
+    import chip_smoke as cs
+    from sparch_tpu_torch.ops import fused_cells
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    B, T, H = cs.B, cs.T, cs.H
+    seed = torch.tensor([1234, 99], dtype=torch.int32, device=dev)
+    g = torch.randn((B, T, H), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(6))
+    for name in ("lif", "rlif", "radlif"):
+        rec, ada = cs.FORMS[name]
+        for shift in SHIFTS:
+            d = cs.cell_inputs((B, T, H), dyadic=False, seed=1, dev=dev)
+            d["shift"] = torch.full_like(d["shift"], shift)
+            d["scale"] = torch.ones_like(d["scale"])
+            with torch.no_grad():
+                _, u_seq = cs.train_forward_call(name, d, True, seed=seed)
+                rate = float((u_seq > 1.0).float().mean())
+                ms = cuda_time_ms(
+                    lambda: fused_cells._fused_cell_bwd_cuda(
+                        g, d["Wx"], u_seq, d["scale"], d["alpha"], d["beta"],
+                        d["a"], d["b"], d["V"], 1.0, d["u0"], d["w0"],
+                        d["s0"], recurrent=rec, adaptive=ada,
+                        drop_rate=cs.P_DROP, seed=seed), iters=5)
+            emit("bwd_sweep", cell=name, shift=shift, firing_rate=rate, ms=ms)
+
+
+_TRAIN_KERNELS = {
+    "fused_cell_fwd": ("fused_cell_fwd_kernel",),
+    "fused_cell_bwd_time_loop": ("fused_cell_bwd_kernel",),
+    "fused_cell_bwd_dv": ("dv_kernel", "dv_reduce_kernel"),
+    "fused_cell_bwd_vec_reduce": ("vec_reduce_kernel",),
+    "readout_fwd": ("readout_fwd_kernel",),
+    "readout_bwd": ("readout_bwd_kernel", "dalpha_reduce_kernel"),
+    "gemm": ("gemm", "sgemm", "cutlass"),
+}
+
+
+def profile_training(dev):
+    import chip_smoke as cs
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from sparch_tpu_torch.train import make_train_step
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    state_dict = cs.training_state(dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = (torch.rand((cs.B, cs.T, cs.F), generator=gen, device=dev) < 0.02)
+    x = x.float()
+    y = torch.randint(0, cs.C, (cs.B,), generator=gen, device=dev)
+    n = 3
+    for impl in ("auto", "pallas", "scan"):
+        model, state, _, _, _ = cs.train_run(dev, impl, state_dict, x, y, 3)
+        step = make_train_step(model)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            start.record()
+            for _ in range(n):
+                step(state, x, y)
+            end.record()
+            torch.cuda.synchronize()
+        elapsed_us = 1e3 * start.elapsed_time(end)
+        step_us = 1e3 * cuda_time_ms(step, state, x, y, warmup=1, iters=20,
+                                     repeats=3)
+        print(f"=== training {impl}")
+        print(prof.key_averages().table(sort_by="cuda_time_total",
+                                        row_limit=16,
+                                        max_name_column_width=60))
+        ev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        busy = sum(e.device_time for e in ev)
+        emit("profile_training", variant=impl, steps=n,
+             device_us_per_step=busy / n, elapsed_us_per_step=elapsed_us / n,
+             idle_share_profiled=1.0 - busy / elapsed_us,
+             unprofiled_us_per_step=step_us,
+             idle_share=1.0 - busy / n / step_us,
+             kernels_per_step=len(ev) / n,
+             shares={k: _share(ev, *needles) / busy
+                     for k, needles in _TRAIN_KERNELS.items()})
+
+
+def bwd_variants(dev):
+    import ctypes
+    import chip_smoke as cs
+    from sparch_tpu_torch import _build
+    from sparch_tpu_torch.ops import fused_cells
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    out = _build.BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for work in (8, 4, 2, 1):
+        lib = out / f"libfused_cell_bwd-w{work}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS,
+               f"-DSPARCH_BWD_WORK={work}", "-o", str(lib),
+               str(_build.CSRC / "fused_cell_bwd.cu")]
+        jobs[work] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), lib)
+    for (proc, _) in jobs.values():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{log[-3000:]}")
+
+    B, T, H = cs.B, cs.T, cs.H
+    seed = torch.tensor([1234, 99], dtype=torch.int32, device=dev)
+    d = cs.cell_inputs((B, T, H), dyadic=True, seed=1, dev=dev)
+    g = torch.randn((B, T, H), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(6))
+    kernel = fused_cells.FUSED_CELL_BWD
+    saved = kernel._fn, fused_cells._BWD_WORK
+    try:
+        with torch.no_grad():
+            _, u_seq = cs.train_forward_call("radlif", d, True, seed=seed)
+            args = (g, d["Wx"], u_seq, d["scale"], d["alpha"], d["beta"],
+                    d["a"], d["b"], d["V"], 1.0, d["u0"], d["w0"], d["s0"])
+            kw = dict(recurrent=True, adaptive=True, drop_rate=cs.P_DROP,
+                      seed=seed)
+            want = fused_cells.fused_cell_bwd_plain(*args, **kw)
+            for work, (_, lib) in jobs.items():
+                fn = getattr(ctypes.CDLL(str(lib)), kernel.symbol)
+                fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
+                kernel._fn, fused_cells._BWD_WORK = fn, work
+                got = fused_cells._fused_cell_bwd_cuda(*args, **kw)
+                torch.cuda.synchronize()
+                err = max(cs.rel_err(x, y) for x, y in zip(got, want)
+                          if x is not None)
+                ms = cuda_time_ms(
+                    lambda: fused_cells._fused_cell_bwd_cuda(*args, **kw),
+                    iters=5, repeats=3)
+                emit("bwd_variants", rows_per_block=work,
+                     blocks=fused_cells._bwd_plan(B, T, H)[1], ms=ms,
+                     worst_rel_err=err)
+    finally:
+        kernel._fn, fused_cells._BWD_WORK = saved
+
+
 def h2d(dev):
     import chip_smoke as cs
 
@@ -134,6 +289,9 @@ def main() -> int:
     sweep(dev)
     profile(dev)
     h2d(dev)
+    bwd_sweep(dev)
+    profile_training(dev)
+    bwd_variants(dev)
     return 0
 
 

@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the serving path from ``sparch_tpu_torch/csrc``
-into ``build/kernels/`` (one ``nvcc`` per source, all at once), then prints
-one JSON line per phase:
+Builds every CUDA kernel of the serving and the training path from
+``sparch_tpu_torch/csrc`` into ``build/kernels/`` (one ``nvcc`` per source,
+all at once), then prints one JSON line per phase:
 
 1. ``device``: the card's name and power limit (``nvidia-smi``), the TF32
    switches (both off) and the build time.
@@ -30,15 +30,47 @@ one JSON line per phase:
    counters are set to 0 just before each variant's first call and read
    just after; every kernel of the variant, and no other, must have
    launched.
-5. ``kernels``: each kernel with its launches in the "calibrated" model's
-   ``pallas`` run, its error and its time beside its plain version's.
+5. ``kernel_vs_plain`` for the dropout hash and the training form of the
+   fused cell (``fused_cell_fwd_train``): dropped spikes and the membrane
+   series at (128, 100, 512), p = 0.1, and at the ragged shape, the four
+   forms, dyadic V, bit for bit against the plain version; the dropped
+   share within 0.1 +- 0.005.
+6. ``kernel_vs_plain`` for the backward (``fused_cell_bwd``): both sides get
+   the same forward residuals; every gradient against the plain version,
+   the error relative to that gradient's largest magnitude, bound 1e-4, or
+   else no more than 4 times the float32 plain version's own error against
+   the plain version in float64 (both errors are printed); two launches
+   give the same bits.
+7. ``kernel_vs_plain`` for the readout backward at (128, 100, 35), alike.
+8. ``training``: a RadLIF [512, 512, 35] trainer (batchnorm, dropout 0.1,
+   uniform state init, Adam at lr 1e-2; ``create_train_state``,
+   ``make_train_step``) on one device-resident batch of 128 rasters of 2 %
+   density, for ``scan``, ``auto`` and ``pallas`` from one seed and one
+   state dict (V on a 2^-8 grid). Checks: step 1 of ``auto`` and ``pallas``
+   against the same step with each kernel swapped for its plain version
+   (loss within 1e-3 relative, every gradient within the backward bound);
+   the loss is finite and lower after 10 steps than at step 1; every kernel
+   of the variant launched, the stated number of times per step, and no
+   other; two runs of three steps from one seed give bit-equal parameters.
+   Against ``scan`` only the step-1 loss is held (loosely). Times:
+   ``train_step_ms`` (CUDA events over 20 steps after 3 warm-up steps,
+   median of 3), ``utterances_per_s`` and the forward / backward /
+   optimizer split.
+9. ``kernels``: each kernel with its launches on its main path (serving:
+   the "calibrated" model's ``pallas`` run; training: the ``pallas``
+   trainer's 10 steps), its error, its time beside its plain version's, and
+   its bound: the larger of its bytes over the card's memory rate and its
+   operations over the card's float32 rate, from this run's shapes and
+   firing rates.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 if any phase fails, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -52,6 +84,17 @@ REPO = Path(__file__).resolve().parent
 B, T, F, H, C = 128, 100, 700, 512, 35
 N_UTT = 300
 MISMATCH_MAX = 1e-3
+P_DROP = 0.1
+LR = 1e-2
+GRAD_REL_MAX = 1e-4  # kernel vs plain, relative to the gradient's largest
+WITNESS_GRAD_FACTOR = 4.0  # else: kernel error <= 4x the f32 plain's, vs f64
+TRAIN_STEPS = 10
+# published peaks of one H100 SXM: HBM bytes/s, float32 FLOP/s outside the
+# tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+GRAD_NAMES = ("dWx", "dscale", "dshift", "dV", "dalpha", "dbeta", "da", "db",
+              "du0", "dw0", "ds0")
 # how far the kernel paths' agreement with scan may fall short of the scan
 # path's own card-vs-CPU agreement (see phase_serving); 300 utterances at
 # ~10 % disagreement carry a binomial spread of ~1.8 points
@@ -166,8 +209,13 @@ def phase_device():
     t0 = time.perf_counter()
     logs = _build.build()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
-             if "registers" in ln or "Compiling entry" in ln]
+    ptxas = {}
+    for name, log in logs.items():
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", log)]
+        ptxas[name] = dict(entries=len(regs), max_registers=max(regs),
+                           entries_that_spill=sum(1 for n in spills if n),
+                           max_spill_store_bytes=max(spills))
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda,
          allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
@@ -226,7 +274,8 @@ def phase_fused_cell(dev):
                     row["plain_ms"] = cuda_time_ms(plain_call, name, d, True)
                 if name == "radlif":
                     main = dict(max_abs_err=err, ms=row["ms"],
-                                plain_ms=row["plain_ms"])
+                                plain_ms=row["plain_ms"],
+                                firing_rate=row["firing_rate"])
             emit("kernel_vs_plain", kernel="fused_cell_fwd", **row)
     return main
 
@@ -381,7 +430,9 @@ def serve_variants(dev, state, x, timed: bool):
               f"{impl}: probs do not sum to 1")
         want = {"scan": (0, 0), "auto": (1, 0), "pallas": (1, 1)}[impl]
         got = (counts["fused_cell_fwd"] > 0, counts["readout_fwd"] > 0)
-        check(got == tuple(map(bool, want)),
+        others = sum(n for k, n in counts.items()
+                     if k not in ("fused_cell_fwd", "readout_fwd"))
+        check(got == tuple(map(bool, want)) and others == 0,
               f"{impl}: kernel launches {counts}")
         out[impl] = (labels, probs)
         row = dict(launches=counts)
@@ -470,6 +521,376 @@ def phase_serving(dev):
     return rows["pallas"]["launches"]
 
 
+def bound(n_bytes: float, n_ops: float):
+    """The least time the card could take: the larger of the bytes over
+    its memory rate and the operations over its float32 rate."""
+    by_bytes = 1e3 * n_bytes / PEAK_BYTES_S
+    by_ops = 1e3 * n_ops / PEAK_F32_S
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def cell_bounds(rate: float):
+    """Bounds of the fused-cell kernels at (B, T, H), RadLIF with the
+    affine, from the shape and this run's firing rate. Each stream is
+    counted once: Wx, spikes, the membrane series, g and dWx are B*T*H
+    floats, V and dV H*H, the states B*H. The forward's s @ V adds one row
+    of V per spike; the backward has two dense products of 2*B*T*H*H."""
+    stream, mat, state = 4.0 * B * T * H, 4.0 * H * H, 4.0 * B * H
+    elementwise = 16.0 * B * T * H
+    gather = rate * B * T * H * H
+    return dict(
+        fwd=bound(2 * stream + mat + 3 * state, elementwise + gather),
+        fwd_train=bound(3 * stream + mat + 3 * state,
+                        elementwise + gather + 12.0 * B * T * H),
+        bwd=bound(4 * stream + 2 * mat + 6 * state,
+                  4.0 * B * T * H * H + 40.0 * B * T * H),
+        hash=bound(0.0, 2 * 12.0 * B * T * H),
+    )
+
+
+def train_forward_call(name, d, kernel: bool, drop_rate=P_DROP, seed=None,
+                       save_residuals=True):
+    """The training form of the forward, the kernel or its plain version,
+    on already clamped inputs with the affine."""
+    from sparch_tpu_torch.ops import fused_cells
+
+    p = _prepared(name, d, True)
+    fn = fused_cells._fused_cell_cuda if kernel else \
+        fused_cells.fused_cell_plain
+    return fn(*p["args"], **p["kw"], drop_rate=drop_rate, seed=seed,
+              save_residuals=save_residuals)
+
+
+def phase_train_forward(dev):
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    seed = torch.tensor([1234, 99], dtype=torch.int32, device=dev)
+    main, hashed = None, None
+    for shape in ((B, T, H), (5, 13, 40)):
+        for name in FORMS:
+            d = cell_inputs(shape, dyadic=True, seed=1, dev=dev)
+            with torch.no_grad():
+                out, u_seq = train_forward_call(name, d, True, seed=seed)
+                want, want_u = train_forward_call(name, d, False, seed=seed)
+                raw = kernel_call(name, d, True)
+            torch.cuda.synchronize()
+            err = float((out - want).abs().max())
+            u_err = float((u_seq - want_u).abs().max())
+            dropped = 1.0 - float((out > 0).sum() / raw.sum())
+            check(torch.equal(out, want),
+                  f"{name} {shape}: dropped spikes differ from plain")
+            check(torch.equal(u_seq, want_u),
+                  f"{name} {shape}: membrane series differs from plain")
+            row = dict(cell=name, shape=list(shape), affine=True,
+                       drop_rate=P_DROP, max_abs_err=err,
+                       u_series_max_abs_err=u_err, dropped_share=dropped,
+                       firing_rate=float(raw.mean()))
+            if shape == (B, T, H):
+                check(abs(dropped - P_DROP) <= 0.005,
+                      f"{name}: dropped share {dropped}")
+                with torch.no_grad():
+                    row["ms"] = cuda_time_ms(train_forward_call, name, d,
+                                             True, P_DROP, seed)
+                    row["plain_ms"] = cuda_time_ms(
+                        train_forward_call, name, d, False, P_DROP, seed,
+                        iters=3, repeats=3)
+                    row["ms_without_dropout"] = cuda_time_ms(
+                        train_forward_call, name, d, True, 0.0, None)
+                if name == "radlif":
+                    main = dict(max_abs_err=max(err, u_err), ms=row["ms"],
+                                plain_ms=row["plain_ms"])
+                    hashed = dict(
+                        max_abs_err=err, ms=row["ms"],
+                        plain_ms=row["plain_ms"],
+                        ms_over_no_dropout=row["ms"]
+                        - row["ms_without_dropout"],
+                        dropped_share=dropped)
+            emit("kernel_vs_plain", kernel="fused_cell_fwd_train", **row)
+    emit("kernel_vs_plain", kernel="dropout_hash", shape=[B, T, H],
+         measured_in="fused_cell_fwd_train", **hashed)
+    return main, hashed
+
+
+def rel_err(got, want) -> float:
+    return float((got - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def grads_within_bound(what, got, want32, want64):
+    """Hold each gradient of ``got`` (the kernel's) against the plain
+    version's: within GRAD_REL_MAX of its largest magnitude, or else, with
+    the plain version in float64 as the truth, no further from it than
+    WITNESS_GRAD_FACTOR times the float32 plain version is. ``want64``
+    is a function that computes the float64 gradients when they are
+    needed. Returns the errors by gradient."""
+    errs, truth = {}, None
+    for name, x, y in zip(GRAD_NAMES, got, want32):
+        check((x is None) == (y is None), f"{what}: {name} missing")
+        if x is None:
+            continue
+        check(bool(torch.isfinite(x).all()), f"{what}: {name} not finite")
+        e = dict(vs_plain=rel_err(x, y))
+        if e["vs_plain"] > GRAD_REL_MAX:
+            if truth is None:
+                truth = dict(zip(GRAD_NAMES, want64()))
+            e["kernel_vs_f64"] = rel_err(x.double(), truth[name])
+            e["plain_vs_f64"] = rel_err(y.double(), truth[name])
+            check(e["kernel_vs_f64"]
+                  <= WITNESS_GRAD_FACTOR * e["plain_vs_f64"],
+                  f"{what}: {name} {e}")
+        errs[name] = e
+    return errs
+
+
+def phase_backward(dev):
+    from sparch_tpu_torch.ops import fused_cells
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    seed = torch.tensor([1234, 99], dtype=torch.int32, device=dev)
+    main = None
+    for shape in ((B, T, H), (5, 13, 40)):
+        for name in FORMS:
+            rec, ada = FORMS[name]
+            d = cell_inputs(shape, dyadic=True, seed=1, dev=dev)
+            # s0 need not be 0/1: a uniform state init draws it from U[0,1)
+            d["s0"] = torch.rand(
+                d["s0"].shape, device=dev,
+                generator=torch.Generator(device=dev).manual_seed(5))
+            gen = torch.Generator(device=dev).manual_seed(6)
+            g = torch.randn(shape, generator=gen, device=dev)
+            with torch.no_grad():
+                # one set of residuals for both sides: no spike can flip
+                # between them
+                _, u_seq = train_forward_call(name, d, False, seed=seed)
+
+            def args(f):
+                return (f(g), f(d["Wx"]), f(u_seq), f(d["scale"]),
+                        f(d["alpha"]), f(d["beta"]), f(d["a"]), f(d["b"]),
+                        f(d["V"]), 1.0, f(d["u0"]), f(d["w0"]), f(d["s0"]))
+
+            kw = dict(recurrent=rec, adaptive=ada, drop_rate=P_DROP,
+                      seed=seed)
+            same = lambda t: t  # noqa: E731
+            with torch.no_grad():
+                got = fused_cells._fused_cell_bwd_cuda(*args(same), **kw)
+                again = fused_cells._fused_cell_bwd_cuda(*args(same), **kw)
+                want = fused_cells.fused_cell_bwd_plain(*args(same), **kw)
+                torch.cuda.synchronize()
+                errs = grads_within_bound(
+                    f"{name} {shape}", got, want,
+                    lambda: fused_cells.fused_cell_bwd_plain(
+                        *args(torch.Tensor.double), **kw))
+            for n, x, z in zip(GRAD_NAMES, got, again):
+                check(x is None or torch.equal(x, z),
+                      f"{name} {shape}: {n} differs between two launches")
+            row = dict(cell=name, shape=list(shape), affine=True,
+                       drop_rate=P_DROP, rel_err=errs,
+                       two_launches_bit_equal=True,
+                       max_abs_err=float((got[0] - want[0]).abs().max()))
+            if shape == (B, T, H):
+                with torch.no_grad():
+                    row["ms"] = cuda_time_ms(
+                        lambda: fused_cells._fused_cell_bwd_cuda(
+                            *args(same), **kw))
+                    row["plain_ms"] = cuda_time_ms(
+                        lambda: fused_cells.fused_cell_bwd_plain(
+                            *args(same), **kw), iters=3, repeats=3)
+                if name == "radlif":
+                    main = dict(max_abs_err=row["max_abs_err"], ms=row["ms"],
+                                plain_ms=row["plain_ms"])
+            emit("kernel_vs_plain", kernel="fused_cell_bwd", **row)
+    return main
+
+
+def phase_readout_backward(dev):
+    from sparch_tpu_torch.ops import cells, fused_cells
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    Wx = 3.0 * torch.randn((B, T, C), generator=gen, device=dev)
+    lo, hi = cells.ALPHA_LIM
+    alpha = torch.rand(C, generator=gen, device=dev) * (hi - lo) + lo
+    u0 = torch.rand((B, C), generator=gen, device=dev)
+    gout = torch.randn((B, C), generator=gen, device=dev)
+    out, u_seq = fused_cells._readout_cuda(Wx, alpha, u0, save_residuals=True)
+    want_out, want_u = fused_cells.readout_plain(Wx, alpha, u0,
+                                                 save_residuals=True)
+    check(torch.equal(u_seq, want_u), "readout: membrane series differs")
+    check(torch.allclose(out, want_out, rtol=1e-5, atol=1e-6),
+          "readout: output with residuals differs")
+    got = fused_cells._readout_bwd_cuda(gout, u_seq, alpha, u0)
+    again = fused_cells._readout_bwd_cuda(gout, u_seq, alpha, u0)
+    want = fused_cells.readout_bwd_plain(gout, u_seq, alpha, u0)
+    torch.cuda.synchronize()
+    errs = {}
+    for n, x, y, z in zip(("dWx", "dalpha", "du0"), got, want, again):
+        errs[n] = rel_err(x, y)
+        check(errs[n] <= GRAD_REL_MAX, f"readout backward: {n} {errs[n]}")
+        check(torch.equal(x, z),
+              f"readout backward: {n} differs between two launches")
+    err = float((got[0] - want[0]).abs().max())
+    ms = cuda_time_ms(fused_cells._readout_bwd_cuda, gout, u_seq, alpha, u0)
+    plain_ms = cuda_time_ms(fused_cells.readout_bwd_plain, gout, u_seq,
+                            alpha, u0, iters=3, repeats=3)
+    emit("kernel_vs_plain", kernel="readout_bwd", shape=[B, T, C],
+         rel_err=errs, two_launches_bit_equal=True, max_abs_err=err, ms=ms,
+         plain_ms=plain_ms)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Inside, every fused entry point runs its plain version on the card
+    instead of its kernel: the reference the training step is held to."""
+    from sparch_tpu_torch.ops import fused_cells
+
+    saved = fused_cells._by_device
+    fused_cells._by_device = lambda t, plain, kernel, what: plain
+    try:
+        yield
+    finally:
+        fused_cells._by_device = saved
+
+
+def training_state(dev):
+    """State dict of the trained model: RadLIF [512, 512, 35] from seed 0,
+    V rounded onto a 2^-8 grid so that the kernels' and the plain versions'
+    spike trains are the same."""
+    from sparch_tpu_torch.models import build_model
+
+    model = build_model("RadLIF", (B, T, F), [H, H, C], dropout=P_DROP,
+                        cell_impl="scan",
+                        generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for layer in model.hidden_layers():
+            layer.V.copy_(torch.round(layer.V * 256.0) / 256.0)
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def train_run(dev, impl, state_dict, x, y, steps, seed=0):
+    """``steps`` training steps of a new trainer; returns (model, state,
+    losses, first-step gradients, launch counts of the run)."""
+    from sparch_tpu_torch.models import build_model
+    from sparch_tpu_torch.ops import fused_cells
+    from sparch_tpu_torch.train import create_train_state, make_train_step
+
+    model = build_model("RadLIF", (B, T, F), [H, H, C], dropout=P_DROP,
+                        normalization="batchnorm", state_init="uniform",
+                        cell_impl=impl)
+    model.load_state_dict(state_dict)
+    state = create_train_state(model, LR, device=dev, seed=seed)
+    step = make_train_step(model)
+    losses, grads = [], None
+    fused_cells.reset_launch_counts()
+    for i in range(steps):
+        state, met = step(state, x, y)
+        losses.append(met["loss"])
+        if i == 0:
+            grads = {k: p.grad.detach().clone()
+                     for k, p in model.named_parameters()}
+    counts = fused_cells.launch_counts()
+    return model, state, [float(v) for v in losses], grads, counts
+
+
+def step_split_ms(model, state, x, y, n=10):
+    """Median ms of the forward (with the loss), the backward and the
+    optimizer update of one training step, from CUDA events."""
+    import torch.nn.functional as F_
+
+    rows = []
+    for _ in range(n):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        ev[0].record()
+        out, _ = model(x, state.generator)
+        loss = F_.cross_entropy(out, y)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        state.optimizer.step()
+        ev[3].record()
+        rows.append(ev)
+    torch.cuda.synchronize()
+    return {k: statistics.median(ev[i].elapsed_time(ev[i + 1]) for ev in rows)
+            for i, k in enumerate(("forward_ms", "backward_ms",
+                                   "optimizer_ms"))}
+
+
+def phase_training(dev):
+    """The training main path (see the module docstring, phase 8)."""
+    from sparch_tpu_torch.train import make_train_step
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    state_dict = training_state(dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = (torch.rand((B, T, F), generator=gen, device=dev) < 0.02).float()
+    y = torch.randint(0, C, (B,), generator=gen, device=dev)
+    per_step = {
+        "scan": {},
+        "auto": {"fused_cell_fwd_train": 2, "fused_cell_bwd": 2},
+        "pallas": {"fused_cell_fwd_train": 2, "fused_cell_bwd": 2,
+                   "readout_fwd": 1, "readout_bwd": 1},
+    }
+    rows, launches = {}, None
+    for impl in ("scan", "auto", "pallas"):
+        model, state, losses, grads, counts = train_run(
+            dev, impl, state_dict, x, y, TRAIN_STEPS)
+        want = {k: TRAIN_STEPS * per_step[impl].get(k, 0) for k in counts}
+        check(counts == want, f"{impl}: kernel launches {counts} != {want}")
+        check(bool(np.isfinite(losses).all()), f"{impl}: losses {losses}")
+        check(losses[-1] < losses[0],
+              f"{impl}: loss did not fall in {TRAIN_STEPS} steps: {losses}")
+        row = dict(launches=counts, losses=losses)
+        # one seed, bit-equal parameters
+        a = train_run(dev, impl, state_dict, x, y, 3)[0].state_dict()
+        b = train_run(dev, impl, state_dict, x, y, 3)[0].state_dict()
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        check(not differ, f"{impl}: two runs from one seed differ in {differ}")
+        row["two_runs_bit_equal"] = True
+        if impl != "scan":
+            with plain_versions():
+                _, _, plain_losses, plain_grads, plain_counts = train_run(
+                    dev, impl, state_dict, x, y, 1)
+            check(not any(plain_counts.values()),
+                  f"{impl}: the plain run launched {plain_counts}")
+            loss_rel = abs(losses[0] - plain_losses[0]) / abs(plain_losses[0])
+            errs = {k: rel_err(grads[k], plain_grads[k]) for k in grads}
+            row["vs_plain_versions"] = dict(
+                step1_loss=plain_losses[0], step1_loss_rel_diff=loss_rel,
+                max_grad_rel_err=max(errs.values()), grad_rel_err=errs)
+            check(loss_rel <= 1e-3,
+                  f"{impl}: step-1 loss {losses[0]} vs plain versions' "
+                  f"{plain_losses[0]}")
+            for k, e in errs.items():
+                check(bool(torch.isfinite(grads[k]).all()) and
+                      e <= GRAD_REL_MAX,
+                      f"{impl}: step-1 gradient of {k} differs from the "
+                      f"plain versions' by {e} of its largest magnitude")
+            scan_loss = rows["scan"]["losses"][0]
+            row["vs_scan_step1_loss_rel_diff"] = \
+                abs(losses[0] - scan_loss) / scan_loss
+            check(row["vs_scan_step1_loss_rel_diff"] <= 0.1,
+                  f"{impl}: step-1 loss {losses[0]} vs scan's {scan_loss}")
+        step = make_train_step(model)
+        row["train_step_ms"] = cuda_time_ms(step, state, x, y, warmup=3,
+                                            iters=20, repeats=3)
+        row["utterances_per_s"] = 1e3 * B / row["train_step_ms"]
+        row.update(step_split_ms(model, state, x, y))
+        with torch.no_grad():
+            model.eval()
+            _, rates = model(x, state.generator)
+        row["firing_rate_layer0"] = float(rates[:H].mean())
+        row["firing_rate_layer1"] = float(rates[H:].mean())
+        rows[impl] = row
+        if impl == "pallas":
+            launches = counts
+    emit("training", model="RadLIF [512, 512, 35]", batch_size=B, T=T, F=F,
+         dropout=P_DROP, lr=LR, steps=TRAIN_STEPS, **rows)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -480,16 +901,43 @@ def main() -> int:
     smi = phase_device()
     cell = phase_fused_cell(dev)
     readout = phase_readout(dev)
+    fwd_train, hashed = phase_train_forward(dev)
+    bwd = phase_backward(dev)
+    readout_bwd = phase_readout_backward(dev)
     launches = phase_serving(dev)
+    trained = phase_training(dev)
+    cb = cell_bounds(cell.pop("firing_rate"))
+    readout_bytes = 4.0 * (B * T * C + 2 * B * C + C)
+    readout_ops = 12.0 * B * T * C
+    src = "sparch_tpu_torch/csrc/"
+    tpu = "sparch_tpu/ops/pallas_cells.py:"
     kernels = [
         dict(name="fused_cell_fwd", route="cuda",
-             source="sparch_tpu_torch/csrc/fused_cell_fwd.cu",
-             replaces="sparch_tpu/ops/pallas_cells.py:305",
-             launches=launches["fused_cell_fwd"], **cell),
+             source=src + "fused_cell_fwd.cu", replaces=tpu + "305",
+             launches=launches["fused_cell_fwd"], **cell, **cb["fwd"],
+             library_ms=None),
+        dict(name="fused_cell_fwd_train", route="cuda",
+             source=src + "fused_cell_fwd.cu", replaces=tpu + "305",
+             launches=trained["fused_cell_fwd_train"], **fwd_train,
+             **cb["fwd_train"], library_ms=None),
+        dict(name="dropout_hash", route="cuda",
+             source=src + "dropout_hash.cuh", replaces=tpu + "265",
+             launches=trained["fused_cell_fwd_train"]
+             + trained["fused_cell_bwd"], **hashed, **cb["hash"],
+             library_ms=None),
+        dict(name="fused_cell_bwd", route="cuda",
+             source=src + "fused_cell_bwd.cu", replaces=tpu + "631",
+             launches=trained["fused_cell_bwd"], **bwd, **cb["bwd"],
+             library_ms=None),
         dict(name="readout_fwd", route="cuda",
-             source="sparch_tpu_torch/csrc/readout_fwd.cu",
-             replaces="sparch_tpu/ops/pallas_cells.py:1235",
-             launches=launches["readout_fwd"], **readout),
+             source=src + "readout_fwd.cu", replaces=tpu + "1235",
+             launches=launches["readout_fwd"],
+             launches_training=trained["readout_fwd"], **readout,
+             **bound(readout_bytes, readout_ops), library_ms=None),
+        dict(name="readout_bwd", route="cuda",
+             source=src + "readout_bwd.cu", replaces=tpu + "1274",
+             launches=trained["readout_bwd"], **readout_bwd,
+             **bound(2 * readout_bytes, 2 * readout_ops), library_ms=None),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -21,7 +21,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "library_path", "Kernel"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("fused_cell_fwd", "readout_fwd")
+SOURCES = ("fused_cell_fwd", "fused_cell_bwd", "readout_fwd", "readout_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",
@@ -92,12 +92,15 @@ class Kernel:
     Calling it launches the kernel on the given stream and raises if the
     launch was refused (the C function returns ``cudaGetLastError()``).
     ``launches`` counts the launches that went through, so a run can show
-    that its path reached the kernel.
+    that its path reached the kernel; ``name`` (the source's, unless one
+    source has several entry points) is the key it is reported under.
     """
 
-    def __init__(self, source: str, symbol: str, argtypes):
+    def __init__(self, source: str, symbol: str, argtypes,
+                 name: Optional[str] = None):
         self.source = source
         self.symbol = symbol
+        self.name = name or source
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn: Optional[ctypes._CFuncPtr] = None

@@ -14,6 +14,10 @@ dicts of numpy (or JAX) arrays, onto the port's ``state_dict`` names:
 with ``<m>`` one of ``layer_<i>`` and ``readout``. Values are copied
 exactly. A leaf that maps to nothing raises here; a port tensor that no
 leaf sets raises in ``model.load_state_dict(..., strict=True)``.
+
+:func:`variables_to_flax` is the inverse: a ``state_dict`` of the port
+becomes the nested dicts of numpy arrays of the flax tree, so that the
+port's trained parameters can be read in the JAX package's layout.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["variables_from_flax"]
+__all__ = ["variables_from_flax", "variables_to_flax"]
 
 _CELL_PARAMS = ("alpha", "beta", "a", "b", "V")
 _NORMS = ("BatchNorm_0", "LayerNorm_0")
@@ -73,3 +77,38 @@ def variables_from_flax(variables) -> Dict[str, torch.Tensor]:
             arr = np.ascontiguousarray(arr.T)
         state_dict[key] = torch.from_numpy(arr)
     return state_dict
+
+
+def variables_to_flax(state_dict) -> Dict[str, dict]:
+    """The port's ``state_dict`` -> flax SNN variables (nested dicts of
+    numpy arrays), the inverse of :func:`variables_from_flax`. A module
+    with running statistics is a BatchNorm, any other norm a LayerNorm."""
+    variables: Dict[str, dict] = {"params": {}}
+
+    def put(collection, path, value):
+        node = variables.setdefault(collection, {})
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+
+    for key, tensor in state_dict.items():
+        module, *rest = key.split(".")
+        arr = tensor.detach().cpu().numpy().copy()
+        norm = ("BatchNorm_0" if f"{module}.norm.running_mean" in state_dict
+                else "LayerNorm_0")
+        if rest == ["W", "weight"]:
+            put("params", (module, "W", "kernel"),
+                np.ascontiguousarray(arr.T))
+        elif rest == ["W", "bias"]:
+            put("params", (module, "W", "bias"), arr)
+        elif len(rest) == 1 and rest[0] in _CELL_PARAMS:
+            put("params", (module, rest[0]), arr)
+        elif rest in (["norm", "weight"], ["norm", "bias"]):
+            name = "scale" if rest[1] == "weight" else "bias"
+            put("params", (module, "norm", norm, name), arr)
+        elif rest in (["norm", "running_mean"], ["norm", "running_var"]):
+            put("batch_stats",
+                (module, "norm", norm, rest[1][len("running_"):]), arr)
+        else:
+            raise KeyError(f"no flax leaf for port tensor {key}")
+    return variables

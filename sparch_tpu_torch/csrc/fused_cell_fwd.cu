@@ -2,8 +2,12 @@
 // RadLIF in one template, with the batchnorm affine applied on load.
 //
 // Replaces: sparch_tpu/ops/pallas_cells.py `_fwd_kernel`, the TPU kernel
-// behind lif/adlif/rlif/radlif_pallas, in its serving form
-// (save_residuals=False, no dropout, float32 streams).
+// behind lif/adlif/rlif/radlif_pallas, float32 streams, in two forms:
+// the serving form (save_residuals=False, no dropout; entry point
+// sparch_fused_cell_fwd) and the training form (entry point
+// sparch_fused_cell_fwd_train), which has two more compile-time switches:
+// RESID also writes the membrane series u, and DROPOUT drops the stored
+// output with the mask of dropout_hash.cuh.
 //
 // Per step, for one batch row (previous-step u, w and s on the right):
 //   drive = scale*Wx_t + shift               (AFFINE)
@@ -11,6 +15,19 @@
 //   w     = beta*w + a*u + b*s ; drive -= w  (ADAPTIVE)
 //   u     = alpha*(u - s) + (1-alpha)*drive
 //   s     = u > threshold
+//   out_t = keep ? s * 1/(1-p) : 0           (DROPOUT; else out_t = s)
+//   u_t stored                               (RESID)
+//
+// Residuals: the u series is the only one. The backward kernel
+// (fused_cell_bwd.cu) re-thresholds exactly these float32 values to get
+// the spikes back, and it needs no w series at all: neither stored (26 MB
+// per layer at the training shape, written and read) nor unwound as the
+// TPU kernel does (w_{t-1} = (w_t - a*u_{t-1} - b*s_{t-1})/beta, which
+// amplifies rounding by 1/beta per step and needs boundary states every
+// few steps). The one gradient that reads w, dbeta = sum_t B_t*w_{t-1},
+// is taken there in an equivalent form that reads only u, s and w0. With
+// dropout the raw spike stays in the recurrence and only the stored
+// output is dropped, so the mask needs no storage either.
 //
 // What bounds it on this card: the T dependent steps. At the serving
 // shape (B=128, T=100, H=512) the kernel reads 26 MB of Wx and writes
@@ -47,10 +64,13 @@
 //
 // C interface, bound with ctypes: sparch_fused_cell_fwd returns
 // cudaGetLastError() after the launch (or an invalid-value error for a
-// shape it does not take) and never synchronises.
+// shape it does not take) and never synchronises; so does
+// sparch_fused_cell_fwd_train.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dropout_hash.cuh"
 
 namespace {
 
@@ -73,9 +93,16 @@ struct Args {
   int T;
   int H;
   float threshold;
+  // training form only
+  float* u_out;         // RESID: the membrane series (B, T, H)
+  const int* seed;      // DROPOUT: two int32 in device memory
+  uint32_t keep_u32;    // DROPOUT: keep where hash bits < keep_u32
+  float inv_keep;       // DROPOUT: float32(1/(1-p))
+  int tile_rows;        // DROPOUT: rows of one batch tile of the hash
 };
 
-template <bool RECURRENT, bool ADAPTIVE, bool AFFINE, int NPT>
+template <bool RECURRENT, bool ADAPTIVE, bool AFFINE, bool RESID,
+          bool DROPOUT, int NPT>
 __global__ void __launch_bounds__(kMaxThreads)
 fused_cell_fwd_kernel(const Args p) {
   // dynamic shared memory: the s0 row (H floats), then two buffers of
@@ -130,6 +157,9 @@ fused_cell_fwd_kernel(const Args p) {
 
   const float* wx_row = p.wx + row * T * H;
   float* s_row = p.s_out + row * T * H;
+  float* u_row = RESID ? p.u_out + row * T * H : nullptr;
+  const uint32_t drop_base =
+      DROPOUT ? sparch::dropout_row_base(p.seed, (int)row, p.tile_rows) : 0u;
 #pragma unroll
   for (int i = 0; i < NPT; ++i) x[i] = live[i] ? wx_row[col[i]] : 0.f;
 
@@ -148,7 +178,17 @@ fused_cell_fwd_kernel(const Args p) {
       u[i] = __fadd_rn(__fmul_rn(al[i], __fsub_rn(u[i], s[i])),
                        __fmul_rn(oma[i], d));
       s[i] = u[i] > p.threshold ? 1.f : 0.f;
-      if (live[i]) s_row[(size_t)t * H + col[i]] = s[i];
+      if (live[i]) {
+        float stored = s[i];
+        if (DROPOUT) {
+          // the raw spike stays in the recurrence
+          stored = sparch::dropout_keep(drop_base, col[i], t, p.keep_u32)
+                       ? __fmul_rn(s[i], p.inv_keep)
+                       : 0.f;
+        }
+        s_row[(size_t)t * H + col[i]] = stored;
+        if (RESID) u_row[(size_t)t * H + col[i]] = u[i];
+      }
     }
     if (t + 1 < T) {
       const float* wx_next = wx_row + (size_t)(t + 1) * H;
@@ -195,66 +235,117 @@ fused_cell_fwd_kernel(const Args p) {
   }
 }
 
-template <bool R, bool A, bool F>
+template <bool R, bool A, bool F, bool RS, bool DR>
 void launch_npt(const Args& p, int B, int npt, int threads, size_t smem,
                 cudaStream_t stream) {
   switch (npt) {
     case 1:
-      fused_cell_fwd_kernel<R, A, F, 1><<<B, threads, smem, stream>>>(p);
+      fused_cell_fwd_kernel<R, A, F, RS, DR, 1>
+          <<<B, threads, smem, stream>>>(p);
       break;
     case 2:
-      fused_cell_fwd_kernel<R, A, F, 2><<<B, threads, smem, stream>>>(p);
+      fused_cell_fwd_kernel<R, A, F, RS, DR, 2>
+          <<<B, threads, smem, stream>>>(p);
       break;
     case 4:
-      fused_cell_fwd_kernel<R, A, F, 4><<<B, threads, smem, stream>>>(p);
+      fused_cell_fwd_kernel<R, A, F, RS, DR, 4>
+          <<<B, threads, smem, stream>>>(p);
       break;
     default:
-      fused_cell_fwd_kernel<R, A, F, 8><<<B, threads, smem, stream>>>(p);
+      fused_cell_fwd_kernel<R, A, F, RS, DR, 8>
+          <<<B, threads, smem, stream>>>(p);
       break;
+  }
+}
+
+template <bool R, bool A, bool F>
+void launch_train(const Args& p, int B, bool resid, bool dropout, int npt,
+                  int threads, size_t smem, cudaStream_t stream) {
+  if (resid && dropout) {
+    launch_npt<R, A, F, true, true>(p, B, npt, threads, smem, stream);
+  } else if (resid) {
+    launch_npt<R, A, F, true, false>(p, B, npt, threads, smem, stream);
+  } else if (dropout) {
+    launch_npt<R, A, F, false, true>(p, B, npt, threads, smem, stream);
+  } else {
+    launch_npt<R, A, F, false, false>(p, B, npt, threads, smem, stream);
   }
 }
 
 template <bool R, bool A>
-void launch_affine(const Args& p, int B, bool affine, int npt, int threads,
-                   size_t smem, cudaStream_t stream) {
+void launch_affine(const Args& p, int B, bool affine, bool resid,
+                   bool dropout, int npt, int threads, size_t smem,
+                   cudaStream_t stream) {
   if (affine) {
-    launch_npt<R, A, true>(p, B, npt, threads, smem, stream);
+    launch_train<R, A, true>(p, B, resid, dropout, npt, threads, smem,
+                             stream);
   } else {
-    launch_npt<R, A, false>(p, B, npt, threads, smem, stream);
+    launch_train<R, A, false>(p, B, resid, dropout, npt, threads, smem,
+                              stream);
   }
 }
 
-}  // namespace
-
-extern "C" int sparch_fused_cell_fwd(
-    const float* wx, const float* scale, const float* shift,
-    const float* alpha, const float* beta, const float* a, const float* b,
-    const float* V, const float* u0, const float* w0, const float* s0,
-    float* s_out, int B, int T, int H, float threshold, int recurrent,
-    int adaptive, int affine, void* stream) {
+// Checks the arguments both entry points share and launches the form.
+int launch_form(const Args& p, int B, int recurrent, int adaptive,
+                int affine, void* stream) {
+  const int T = p.T, H = p.H;
   if (B <= 0 || T <= 0 || H <= 0 || H > kMaxThreads * kMaxNpt ||
-      !wx || !alpha || !u0 || !s0 || !s_out || (recurrent && !V) ||
-      (adaptive && (!beta || !a || !b || !w0)) ||
-      (affine && (!scale || !shift))) {
+      !p.wx || !p.alpha || !p.u0 || !p.s0 || !p.s_out ||
+      (recurrent && !p.V) ||
+      (adaptive && (!p.beta || !p.a || !p.b || !p.w0)) ||
+      (affine && (!p.scale || !p.shift))) {
     return (int)cudaErrorInvalidValue;
   }
+  const bool resid = p.u_out != nullptr;
+  const bool dropout = p.seed != nullptr;
+  if (dropout && p.tile_rows <= 0) return (int)cudaErrorInvalidValue;
   // fewest neurons per thread that keep the block within kMaxThreads
   int npt = 1;
   while ((H + npt - 1) / npt > kMaxThreads) npt *= 2;
   const int threads = (((H + npt - 1) / npt) + 31) / 32 * 32;
   const int n_words = npt * (threads / 32);
   const size_t smem = (size_t)H * sizeof(float) + 2 * n_words * sizeof(uint32_t);
-  const Args p{wx, scale, shift, alpha, beta, a, b, V, u0, w0, s0, s_out,
-               T, H, threshold};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (recurrent && adaptive) {
-    launch_affine<true, true>(p, B, affine, npt, threads, smem, st);
+    launch_affine<true, true>(p, B, affine, resid, dropout, npt, threads,
+                              smem, st);
   } else if (recurrent) {
-    launch_affine<true, false>(p, B, affine, npt, threads, smem, st);
+    launch_affine<true, false>(p, B, affine, resid, dropout, npt, threads,
+                               smem, st);
   } else if (adaptive) {
-    launch_affine<false, true>(p, B, affine, npt, threads, smem, st);
+    launch_affine<false, true>(p, B, affine, resid, dropout, npt, threads,
+                               smem, st);
   } else {
-    launch_affine<false, false>(p, B, affine, npt, threads, smem, st);
+    launch_affine<false, false>(p, B, affine, resid, dropout, npt, threads,
+                                smem, st);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Serving form: spikes only.
+extern "C" int sparch_fused_cell_fwd(
+    const float* wx, const float* scale, const float* shift,
+    const float* alpha, const float* beta, const float* a, const float* b,
+    const float* V, const float* u0, const float* w0, const float* s0,
+    float* s_out, int B, int T, int H, float threshold, int recurrent,
+    int adaptive, int affine, void* stream) {
+  const Args p{wx, scale, shift, alpha, beta, a, b, V, u0, w0, s0, s_out,
+               T, H, threshold, nullptr, nullptr, 0u, 1.f, 1};
+  return launch_form(p, B, recurrent, adaptive, affine, stream);
+}
+
+// Training form: u_out non-null writes the membrane series, seed non-null
+// drops the stored output (keep_u32, inv_keep and tile_rows are then read).
+extern "C" int sparch_fused_cell_fwd_train(
+    const float* wx, const float* scale, const float* shift,
+    const float* alpha, const float* beta, const float* a, const float* b,
+    const float* V, const float* u0, const float* w0, const float* s0,
+    float* s_out, float* u_out, const int* seed, int B, int T, int H,
+    float threshold, int recurrent, int adaptive, int affine,
+    unsigned int keep_u32, float inv_keep, int tile_rows, void* stream) {
+  const Args p{wx, scale, shift, alpha, beta, a, b, V, u0, w0, s0, s_out,
+               T, H, threshold, u_out, seed, keep_u32, inv_keep, tile_rows};
+  return launch_form(p, B, recurrent, adaptive, affine, stream);
 }

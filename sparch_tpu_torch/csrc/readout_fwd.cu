@@ -1,7 +1,9 @@
 // Leaky cumulative-softmax readout forward for Hopper (sm_90a).
 //
 // Replaces: sparch_tpu/ops/pallas_cells.py `_readout_fwd_kernel`, the TPU
-// kernel behind readout_pallas, in its serving form (save_residuals=False).
+// kernel behind readout_pallas. With a non-null u_out it also writes the
+// membrane series (save_residuals=True), which the backward kernel
+// (readout_bwd.cu) recomputes the softmax from.
 //
 // Per step, for one batch row over the C classes:
 //   u_t = alpha*u_{t-1} + (1-alpha)*Wx_t
@@ -38,7 +40,7 @@ __global__ void __launch_bounds__(32)
 readout_fwd_kernel(const float* __restrict__ wx,
                    const float* __restrict__ alpha,
                    const float* __restrict__ u0, float* __restrict__ out,
-                   int T, int C) {
+                   float* __restrict__ u_out, int T, int C) {
   const int lane = threadIdx.x;
   const size_t row = blockIdx.x;
   const float* wx_row = wx + row * T * C;
@@ -62,6 +64,13 @@ readout_fwd_kernel(const float* __restrict__ wx,
     for (int v = 0; v < VPL; ++v) {
       u[v] = __fadd_rn(__fmul_rn(al[v], u[v]), __fmul_rn(oma[v], x[v]));
       if (live[v]) m = fmaxf(m, u[v]);
+    }
+    if (u_out) {
+      float* u_row = u_out + (row * T + t) * C;
+#pragma unroll
+      for (int v = 0; v < VPL; ++v) {
+        if (live[v]) u_row[lane + 32 * v] = u[v];
+      }
     }
     if (t + 1 < T) {
       const float* wx_next = wx_row + (size_t)(t + 1) * C;
@@ -100,8 +109,8 @@ readout_fwd_kernel(const float* __restrict__ wx,
 }  // namespace
 
 extern "C" int sparch_readout_fwd(const float* wx, const float* alpha,
-                                  const float* u0, float* out, int B, int T,
-                                  int C, void* stream) {
+                                  const float* u0, float* out, float* u_out,
+                                  int B, int T, int C, void* stream) {
   if (B <= 0 || T <= 0 || C <= 0 || C > 32 * kMaxVpl || !wx || !alpha ||
       !u0 || !out) {
     return (int)cudaErrorInvalidValue;
@@ -109,13 +118,17 @@ extern "C" int sparch_readout_fwd(const float* wx, const float* alpha,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int vpl = (C + 31) / 32;
   if (vpl == 1) {
-    readout_fwd_kernel<1><<<B, 32, 0, st>>>(wx, alpha, u0, out, T, C);
+    readout_fwd_kernel<1><<<B, 32, 0, st>>>(wx, alpha, u0, out, u_out, T,
+                                        C);
   } else if (vpl == 2) {
-    readout_fwd_kernel<2><<<B, 32, 0, st>>>(wx, alpha, u0, out, T, C);
+    readout_fwd_kernel<2><<<B, 32, 0, st>>>(wx, alpha, u0, out, u_out, T,
+                                        C);
   } else if (vpl <= 4) {
-    readout_fwd_kernel<4><<<B, 32, 0, st>>>(wx, alpha, u0, out, T, C);
+    readout_fwd_kernel<4><<<B, 32, 0, st>>>(wx, alpha, u0, out, u_out, T,
+                                        C);
   } else {
-    readout_fwd_kernel<8><<<B, 32, 0, st>>>(wx, alpha, u0, out, T, C);
+    readout_fwd_kernel<8><<<B, 32, 0, st>>>(wx, alpha, u0, out, u_out, T,
+                                        C);
   }
   return (int)cudaGetLastError();
 }

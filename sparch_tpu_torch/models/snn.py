@@ -10,8 +10,10 @@ load.
     model = SNN((B, T, F), [512, 512, 35], neuron_type="RadLIF")
     out, firing_rates = model(x)              # x: (B, T, F)
 
-Eval/train mode is the module's (``model.eval()``); a uniform state init
-draws from the ``generator`` given to ``forward``.
+Eval/train mode is the module's (``model.eval()``); a uniform state init,
+the dropout seed of the fused path and the dropout mask of the plain path
+draw from the ``generator`` given to ``forward``. Both paths are
+differentiable: the fused one through the backward kernels.
 """
 from __future__ import annotations
 
@@ -19,7 +21,6 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from sparch_tpu_torch.models.common import (
@@ -117,42 +118,50 @@ class _SpikingLayerBase(FusedCellPolicy, nn.Module):
             return Wx, scale, shift
         return self.norm(Wx), None, None
 
-    def _drop_rate(self, fused: bool) -> float:
-        """Dropout rate handed to the fused kernel: nonzero only while
-        training on the fused path (which then raises: the fused dropout
-        comes with the training slice)."""
-        return float(self.dropout) if (
-            fused and self.training and self.dropout > 0
-        ) else 0.0
+    def _fused_dropout(self, fused: bool, like: torch.Tensor, generator):
+        """``dict(drop_rate, drop_seed)`` for the in-kernel dropout: while
+        training with dropout on the fused path, the rate and two int32
+        drawn from ``generator`` on the layer's device (no host sync);
+        otherwise rate 0 and no seed. The mask is drawn per element before
+        the bidirectional split, as in the JAX package."""
+        if not (fused and self.training and self.dropout > 0):
+            return dict(drop_rate=0.0, drop_seed=None)
+        seed = torch.randint(0, 2**31 - 1, (2,), generator=generator,
+                             dtype=torch.int32, device=like.device)
+        return dict(drop_rate=float(self.dropout), drop_seed=seed)
 
-    def _post(self, out, fused: bool):
+    def _post(self, out, fused: bool, generator):
         if self.bidirectional:
             out = bidir_split(out)
-        if fused:
-            return out  # eval, or training without dropout
-        return F.dropout(out, self.dropout, self.training)
+        if fused or not (self.training and self.dropout > 0):
+            return out  # dropped in the kernel, or not at all
+        # inverted dropout with the mask drawn from the run's generator
+        keep = torch.rand(out.shape, generator=generator, dtype=out.dtype,
+                          device=out.device) >= self.dropout
+        return out * keep * (1.0 / (1.0 - self.dropout))
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         Wx, scale, shift = self._pre(x)
         fused = self._use_fused(x)
         n = 3 if self.adaptive else 2
         states = _init_states(Wx, n, self.state_init, generator)
-        s = self._cell(Wx, scale, shift, states, fused)
-        return self._post(s, fused)
+        drop = self._fused_dropout(fused, Wx, generator)
+        s = self._cell(Wx, scale, shift, states, fused, drop)
+        return self._post(s, fused, generator)
 
-    def _cell(self, Wx, scale, shift, states, fused):
+    def _cell(self, Wx, scale, shift, states, fused, drop):
         raise NotImplementedError
 
 
 class LIFLayer(_SpikingLayerBase):
     """Feedforward leaky integrate-and-fire layer."""
 
-    def _cell(self, Wx, scale, shift, states, fused):
+    def _cell(self, Wx, scale, shift, states, fused, drop):
         u0, s0 = states
         if fused:
             return fused_cells.lif_fused(
                 Wx, self.alpha, self.threshold, u0, s0, scale=scale,
-                shift=shift, drop_rate=self._drop_rate(fused),
+                shift=shift, **drop,
             )
         return cells.lif_scan(Wx, self.alpha, self.threshold, u0, s0)
 
@@ -162,13 +171,13 @@ class adLIFLayer(_SpikingLayerBase):
 
     adaptive = True
 
-    def _cell(self, Wx, scale, shift, states, fused):
+    def _cell(self, Wx, scale, shift, states, fused, drop):
         u0, w0, s0 = states
         if fused:
             return fused_cells.adlif_fused(
                 Wx, self.alpha, self.beta, self.a, self.b, self.threshold,
                 u0, w0, s0, scale=scale, shift=shift,
-                drop_rate=self._drop_rate(fused),
+                **drop,
             )
         return cells.adlif_scan(Wx, self.alpha, self.beta, self.a, self.b,
                                 self.threshold, u0, w0, s0)
@@ -179,12 +188,12 @@ class RLIFLayer(_SpikingLayerBase):
 
     recurrent = True
 
-    def _cell(self, Wx, scale, shift, states, fused):
+    def _cell(self, Wx, scale, shift, states, fused, drop):
         u0, s0 = states
         if fused:
             return fused_cells.rlif_fused(
                 Wx, self.alpha, self.V, self.threshold, u0, s0, scale=scale,
-                shift=shift, drop_rate=self._drop_rate(fused),
+                shift=shift, **drop,
             )
         return cells.rlif_scan(Wx, self.alpha, self.V, self.threshold,
                                u0, s0)
@@ -196,13 +205,13 @@ class RadLIFLayer(_SpikingLayerBase):
     recurrent = True
     adaptive = True
 
-    def _cell(self, Wx, scale, shift, states, fused):
+    def _cell(self, Wx, scale, shift, states, fused, drop):
         u0, w0, s0 = states
         if fused:
             return fused_cells.radlif_fused(
                 Wx, self.alpha, self.beta, self.a, self.b, self.V,
                 self.threshold, u0, w0, s0, scale=scale, shift=shift,
-                drop_rate=self._drop_rate(fused),
+                **drop,
             )
         return cells.radlif_scan(Wx, self.alpha, self.beta, self.a, self.b,
                                  self.V, self.threshold, u0, w0, s0)

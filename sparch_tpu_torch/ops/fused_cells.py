@@ -1,22 +1,36 @@
 """Fused spiking cells and readout (counterpart of
-sparch_tpu/ops/pallas_cells.py), forward only.
+sparch_tpu/ops/pallas_cells.py), forward and backward.
 
 Each entry point clamps its neuron constants and masks the diagonal of V
-once, then dispatches on the device of ``Wx``:
+with ordinary torch ops (so autograd pulls the gradients back through the
+clamps and the mask), then runs a ``torch.autograd.Function`` that
+dispatches on the device of ``Wx``:
 
-- a CPU tensor runs the plain PyTorch version (``fused_cell_plain``,
-  ``readout_plain``): the per-step arithmetic of the TPU kernel as a loop
-  over T, rounded op by op in the kernel's order;
-- a CUDA tensor launches the hand-written kernel of ``csrc/``
-  (``fused_cell_fwd.cu``, ``readout_fwd.cu``) and nothing else: a kernel
-  that cannot launch raises;
+- a CPU tensor runs the plain PyTorch versions (``fused_cell_plain``,
+  ``fused_cell_bwd_plain``, ``readout_plain``, ``readout_bwd_plain``): the
+  per-step arithmetic of the kernels as loops over T;
+- a CUDA tensor launches the hand-written kernels of ``csrc/``
+  (``fused_cell_fwd.cu``, ``fused_cell_bwd.cu``, ``readout_fwd.cu``,
+  ``readout_bwd.cu``) and nothing else: a kernel that cannot launch raises;
 - any other device raises.
 
-``FUSED_CELL_FWD.launches`` and ``READOUT_FWD.launches`` count kernel
-launches, so a run can show that it went through the kernels.
+Without a gradient to compute (eval, serving, ``torch.no_grad``) the
+forward saves nothing. With one it also writes the membrane series ``u``,
+the only full-length residual: the backward recomputes the spikes as
+``u > threshold``, regenerates the dropout mask from the seed, and needs
+no ``w`` series (see ``fused_cell_bwd_plain``).
 
-The backward kernels, the fused output dropout and the bf16-stream mode
-belong to later slices of the port and raise ``NotImplementedError`` here.
+Output dropout is a counter hash of (seed, batch tile, row in the tile,
+column, timestep) (``random_keep_plain``, ``csrc/dropout_hash.cuh``), the
+hash branch of the JAX ``_random_keep``. The batch tile is the port's own
+convention: ``dropout_tile_rows(B)`` rows, the largest of 128, 64, 32, 16, 8
+that divides B rounded up to a multiple of 8. The JAX kernel picks the same
+tile unless its VMEM plan shrinks it (very wide layers), so at every other
+size the masks of the two packages are equal bit for bit.
+
+``launch_counts()`` counts kernel launches by entry point, so a run can
+show that it went through the kernels. The bf16-stream mode belongs to a
+later slice of the port and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,18 +38,27 @@ import ctypes
 from typing import Dict, Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from sparch_tpu_torch._build import Kernel
 from sparch_tpu_torch.ops import cells
 
 __all__ = [
     "FUSED_CELL_FWD",
+    "FUSED_CELL_FWD_TRAIN",
+    "FUSED_CELL_BWD",
     "READOUT_FWD",
+    "READOUT_BWD",
     "launch_counts",
     "reset_launch_counts",
     "clip_and_mask",
+    "keep_u32",
+    "dropout_tile_rows",
+    "random_keep_plain",
     "fused_cell_plain",
+    "fused_cell_bwd_plain",
     "readout_plain",
+    "readout_bwd_plain",
     "lif_fused",
     "adlif_fused",
     "rlif_fused",
@@ -45,31 +68,48 @@ __all__ = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_U = ctypes.c_uint32
 FUSED_CELL_FWD = Kernel(
     "fused_cell_fwd", "sparch_fused_cell_fwd",
-    [_P] * 12 + [_I] * 3 + [ctypes.c_float] + [_I] * 3 + [_P],
+    [_P] * 12 + [_I] * 3 + [_F] + [_I] * 3 + [_P],
+)
+FUSED_CELL_FWD_TRAIN = Kernel(
+    "fused_cell_fwd", "sparch_fused_cell_fwd_train",
+    [_P] * 14 + [_I] * 3 + [_F] + [_I] * 3 + [_U, _F, _I] + [_P],
+    name="fused_cell_fwd_train",
+)
+FUSED_CELL_BWD = Kernel(
+    "fused_cell_bwd", "sparch_fused_cell_bwd",
+    [_P] * 22 + [_I] * 3 + [_F] + [_I] * 3 + [_U, _F, _I] + [_I] * 2 + [_P],
 )
 READOUT_FWD = Kernel(
-    "readout_fwd", "sparch_readout_fwd", [_P] * 4 + [_I] * 3 + [_P]
+    "readout_fwd", "sparch_readout_fwd", [_P] * 5 + [_I] * 3 + [_P]
 )
-_KERNELS = (FUSED_CELL_FWD, READOUT_FWD)
+READOUT_BWD = Kernel(
+    "readout_bwd", "sparch_readout_bwd", [_P] * 8 + [_I] * 3 + [_P]
+)
+_KERNELS = (FUSED_CELL_FWD, FUSED_CELL_FWD_TRAIN, FUSED_CELL_BWD,
+            READOUT_FWD, READOUT_BWD)
 # widest layer and class count the kernels take (csrc/*.cu kMaxThreads *
 # kMaxNpt and 32 * kMaxVpl)
 _MAX_H = 4096
 _MAX_C = 256
+# csrc/fused_cell_bwd.cu: threads per block, (rows * neurons) per thread,
+# and the tile of the dV product
+_BWD_THREADS = 512
+_BWD_WORK = 2
+_DV_TILE = 64
+_DV_BK = 16
 
-_TRAINING_SLICE = (
-    "the training slice of the port (ROADMAP queue 1 item 1: _bwd_kernel, "
-    "_random_keep, _readout_bwd_kernel)"
-)
 _BF16_ITEM = (
     "ROADMAP queue 2 item 4, the bf16-stream mode of the fused cells"
 )
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches so far, by kernel source name."""
-    return {k.source: k.launches for k in _KERNELS}
+    """Kernel launches so far, by entry point."""
+    return {k.name: k.launches for k in _KERNELS}
 
 
 def reset_launch_counts() -> None:
@@ -77,20 +117,11 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
-def _forward_only(*tensors) -> None:
-    if torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors
-    ):
-        raise NotImplementedError(
-            "the fused cells are forward-only in this slice; gradients "
-            f"come with {_TRAINING_SLICE}. Use cell_impl='scan' to train."
-        )
-
-
-def _check(name: str, t: torch.Tensor, shape, device) -> None:
-    if t.device != device or t.dtype != torch.float32:
+def _check(name: str, t: torch.Tensor, shape, device,
+           dtype=torch.float32) -> None:
+    if t.device != device or t.dtype != dtype:
         raise ValueError(
-            f"{name}: want float32 on {device}, got {t.dtype} on {t.device}"
+            f"{name}: want {dtype} on {device}, got {t.dtype} on {t.device}"
         )
     if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
         raise ValueError(
@@ -104,21 +135,108 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 # ---------------------------------------------------------------------------
-# Spiking cell
+# Dropout hash
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def keep_u32(drop_rate: float) -> int:
+    """uint32 threshold such that P(bits < threshold) = 1 - drop_rate."""
+    return min(2**32 - 1, int(round((1.0 - drop_rate) * 2**32)))
+
+
+def dropout_tile_rows(B: int) -> int:
+    """Rows of one batch tile of the dropout hash: the largest of 128, 64,
+    32, 16, 8 that divides B rounded up to a multiple of 8."""
+    Bp = -(-B // 8) * 8
+    return next(c for c in (128, 64, 32, 16, 8) if Bp % c == 0)
+
+
+def _hash_keep(r, c, seed, t, tile_i, keep):
+    """The uint32 index hash, carried in int64 with the low 32 bits masked
+    after every product (int64 wraps modulo 2^64, which keeps them)."""
+    s0 = seed[0].to(torch.int64) & _M32
+    s1 = seed[1].to(torch.int64) & _M32
+    z = (r * 0x9E3779B1 + c * 0x85EBCA77 + s0 * 0xC2B2AE3D + s1
+         + t * 0x27D4EB2F + tile_i * 0x165667B1) & _M32
+    z = z ^ (z >> 16)
+    z = (z * 0x7FEB352D) & _M32
+    z = z ^ (z >> 15)
+    z = (z * 0x846CA68B) & _M32
+    z = z ^ (z >> 16)
+    return z < keep
+
+
+def random_keep_plain(shape, seed, tile_i: int, t: int, keep: int):
+    """Plain version of ``csrc/dropout_hash.cuh``: the keep mask of one
+    ``(rows, H)`` batch tile at timestep ``t`` (0-based). ``seed`` is an
+    int32 tensor of two; ``keep`` is ``keep_u32(drop_rate)``. Equals the
+    hash branch of the JAX ``_random_keep`` bit for bit."""
+    dev = seed.device
+    r = torch.arange(shape[0], device=dev)[:, None]
+    c = torch.arange(shape[1], device=dev)[None, :]
+    return _hash_keep(r, c, seed, t, tile_i, keep)
+
+
+def _keep_rows(B: int, H: int, seed, t: int, keep: int):
+    """The keep mask of all B rows at timestep ``t``: row ``b`` is row
+    ``b % tile_rows`` of tile ``b // tile_rows``."""
+    dev = seed.device
+    rows = torch.arange(B, device=dev)[:, None]
+    tr = dropout_tile_rows(B)
+    c = torch.arange(H, device=dev)[None, :]
+    return _hash_keep(rows % tr, c, seed, t, rows // tr, keep)
+
+
+def _inv_keep(drop_rate: float) -> float:
+    # float32(1 / (1 - p)), the factor both packages multiply kept values by
+    return float(torch.tensor(1.0 / (1.0 - drop_rate), dtype=torch.float32))
+
+
+def _as_seed(drop_seed, device) -> torch.Tensor:
+    if drop_seed is None:
+        return torch.zeros(2, dtype=torch.int32, device=device)
+    seed = torch.as_tensor(drop_seed, dtype=torch.int32, device=device)
+    if seed.shape != (2,):
+        raise ValueError(f"drop_seed: want two int32, got {tuple(seed.shape)}")
+    return seed.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Spiking cell: plain versions
 # ---------------------------------------------------------------------------
 
 
+def _first_product(s0, V):
+    """``s0 @ V`` summed over k in ascending order, product then sum, as
+    the kernel takes it: s0 need not be 0/1 (a uniform state init), so
+    unlike the later products this one is not exact in any order."""
+    sV = torch.zeros_like(s0)
+    for k in range(V.shape[0]):
+        sV = sV + s0[:, k:k + 1] * V[k]
+    return sV
+
+
 def fused_cell_plain(Wx, scale, shift, alpha, beta, a, b, V, threshold,
-                     u0, w0, s0, *, recurrent: bool, adaptive: bool):
+                     u0, w0, s0, *, recurrent: bool, adaptive: bool,
+                     drop_rate: float = 0.0, seed=None,
+                     save_residuals: bool = False):
     """Plain PyTorch version of ``csrc/fused_cell_fwd.cu``: the TPU
     ``_fwd_kernel``'s per-step arithmetic as a loop over T. Params must
     already be clamped (and V zero-diagonal); ``scale``/``shift`` None
-    means no affine. Returns the spikes (B,T,H)."""
+    means no affine. With ``drop_rate > 0`` the raw spike stays in the
+    recurrence and only the stored output is dropped. Returns the spikes
+    (B,T,H), and with ``save_residuals`` also the membrane series."""
+    B, T, H = Wx.shape
     u, s = u0, s0
     w = w0
-    sV = torch.matmul(s, V) if recurrent else None
+    sV = _first_product(s, V) if recurrent else None
     out = torch.empty_like(Wx)
-    for t in range(Wx.shape[1]):
+    u_seq = torch.empty_like(Wx) if save_residuals else None
+    if drop_rate > 0.0:
+        keep, inv = keep_u32(drop_rate), _inv_keep(drop_rate)
+    for t in range(T):
         drive = Wx[:, t]
         if scale is not None:
             drive = scale * drive + shift
@@ -131,12 +249,109 @@ def fused_cell_plain(Wx, scale, shift, alpha, beta, a, b, V, threshold,
         s = (u > threshold).to(u.dtype)
         if recurrent:
             sV = torch.matmul(s, V)
-        out[:, t] = s
-    return out
+        if drop_rate > 0.0:
+            mask = _keep_rows(B, H, seed, t, keep)
+            out[:, t] = torch.where(mask, s * inv, torch.zeros_like(s))
+        else:
+            out[:, t] = s
+        if save_residuals:
+            u_seq[:, t] = u
+    return (out, u_seq) if save_residuals else out
 
 
-def _fused_cell_cuda(Wx, scale, shift, alpha, beta, a, b, V, threshold,
-                     u0, w0, s0, *, recurrent: bool, adaptive: bool):
+def fused_cell_bwd_plain(g, Wx, u_seq, scale, alpha, beta, a, b, V,
+                         threshold, u0, w0, s0, *, recurrent: bool,
+                         adaptive: bool, drop_rate: float = 0.0, seed=None):
+    """Plain PyTorch version of ``csrc/fused_cell_bwd.cu``: reverse-time
+    BPTT with the boxcar surrogate, the adjoint recurrence of the TPU
+    ``_bwd_kernel``. With A_t = dL/du_t, B_t = dL/dw_t and g_t the (masked)
+    output cotangent, walking t = T..1:
+
+        C_t = g_t - alpha*A_{t+1} + ((1-alpha)*A_{t+1}) @ V^T + b*B_{t+1}
+        A_t = window(u_t - thr)*C_t + alpha*A_{t+1} + a*B_{t+1}
+        B_t = beta*B_{t+1} - (1-alpha)*A_t
+
+    The only series it reads is u: s_t = u_t > thr is recomputed, and
+    dbeta = sum_t B_t*w_{t-1} is taken without the w series through
+    P_t = B_t + beta*P_{t+1}, as w_0*P_1 + sum_t (a*u_{t-1} + b*s_{t-1})*P_{t+1}
+    (the same sum with w_{t-1} written out and the order of summation
+    exchanged). ``Wx`` is read only with the affine. Params must already be
+    clamped and V zero-diagonal. Returns (dWx, dscale, dshift, dV, dalpha,
+    dbeta, da, db, du0, dw0, ds0) with respect to those, None where the
+    form has no such operand."""
+    B, T, H = g.shape
+    affine = scale is not None
+    zeros = torch.zeros_like(u0)
+    A, Bw, P, AV = zeros, zeros, zeros, zeros
+    oma = 1.0 - alpha
+    dWx = torch.empty_like(g)
+    dd_seq = torch.empty_like(g) if recurrent else None
+    dal, dbe, daa, dbb, dsc, dsh = (zeros,) * 6
+    if drop_rate > 0.0:
+        keep, inv = keep_u32(drop_rate), _inv_keep(drop_rate)
+    for t in range(T - 1, -1, -1):
+        g_t = g[:, t]
+        if drop_rate > 0.0:
+            mask = _keep_rows(B, H, seed, t, keep)
+            g_t = torch.where(mask, g_t * inv, torch.zeros_like(g_t))
+        u_t = u_seq[:, t]
+        u_p = u_seq[:, t - 1] if t > 0 else u0
+        s_p = (u_p > threshold).to(u_p.dtype) if t > 0 else s0
+        alphaA = alpha * A
+        C = g_t - alphaA
+        if recurrent:
+            C = C + AV
+        if adaptive:
+            C = C + b * Bw
+        wsub = u_t - threshold
+        window = (wsub > -0.5) & (wsub <= 0.5)
+        A = torch.where(window, C, torch.zeros_like(C)) + alphaA
+        if adaptive:
+            A = A + a * Bw
+        dd = oma * A
+        if recurrent:
+            AV = torch.matmul(dd, V.t())
+            dd_seq[:, t] = dd
+        if affine:
+            dsc = dsc + dd * Wx[:, t]
+            dsh = dsh + dd
+            dWx[:, t] = dd * scale
+        else:
+            dWx[:, t] = dd
+        dal = dal + A * (u_p - s_p - u_t)
+        if adaptive:
+            Bw = beta * Bw - dd
+            dbe = dbe + (a * u_p + b * s_p) * P
+            P = Bw + beta * P
+            daa = daa + Bw * u_p
+            dbb = dbb + Bw * s_p
+    dalpha = dal.sum(0) / oma
+    dscale = dsc.sum(0) if affine else None
+    dshift = dsh.sum(0) if affine else None
+    dbeta = da = db = dw0 = dV = None
+    du0 = alpha * A
+    ds0 = -(alpha * A)
+    if adaptive:
+        dbeta = (dbe + w0 * P).sum(0)
+        da, db = daa.sum(0), dbb.sum(0)
+        du0 = du0 + a * Bw
+        dw0 = beta * Bw
+        ds0 = ds0 + b * Bw
+    if recurrent:
+        ds0 = ds0 + AV
+        s_prev = torch.cat(
+            [s0[:, None], (u_seq[:, :-1] > threshold).to(g.dtype)], dim=1)
+        dV = torch.matmul(s_prev.reshape(-1, H).t(), dd_seq.reshape(-1, H))
+    return dWx, dscale, dshift, dV, dalpha, dbeta, da, db, du0, dw0, ds0
+
+
+# ---------------------------------------------------------------------------
+# Spiking cell: kernels
+# ---------------------------------------------------------------------------
+
+
+def _check_cell_operands(Wx, scale, alpha, beta, a, b, V, u0, w0, s0,
+                         recurrent, adaptive, shift=None):
     B, T, H = Wx.shape
     dev = Wx.device
     _check("Wx", Wx, (B, T, H), dev)
@@ -144,7 +359,9 @@ def _fused_cell_cuda(Wx, scale, shift, alpha, beta, a, b, V, threshold,
         raise ValueError(f"the fused cell kernel takes H <= {_MAX_H}, got {H}")
     vecs = {"alpha": alpha}
     if scale is not None:
-        vecs.update(scale=scale, shift=shift)
+        vecs.update(scale=scale)
+    if shift is not None:
+        vecs.update(shift=shift)
     if adaptive:
         vecs.update(beta=beta, a=a, b=b)
     for name, t in vecs.items():
@@ -154,20 +371,160 @@ def _fused_cell_cuda(Wx, scale, shift, alpha, beta, a, b, V, threshold,
         _check(name, t, (B, H), dev)
     if recurrent:
         _check("V", V, (H, H), dev)
+
+
+def _fused_cell_cuda(Wx, scale, shift, alpha, beta, a, b, V, threshold,
+                     u0, w0, s0, *, recurrent: bool, adaptive: bool,
+                     drop_rate: float = 0.0, seed=None,
+                     save_residuals: bool = False):
+    """Launch ``csrc/fused_cell_fwd.cu``: its serving entry point without
+    dropout and residuals, else its training entry point."""
+    B, T, H = Wx.shape
+    dev = Wx.device
+    _check_cell_operands(Wx, scale, alpha, beta, a, b, V, u0, w0, s0,
+                         recurrent, adaptive, shift=shift)
+    training_form = save_residuals or drop_rate > 0.0
+    if drop_rate > 0.0:
+        _check("seed", seed, (2,), dev, torch.int32)
     out = torch.empty_like(Wx)
+    u_seq = torch.empty_like(Wx) if save_residuals else None
     if out.numel() == 0:
-        return out
+        return (out, u_seq) if save_residuals else out
     if not adaptive:
         beta = a = b = w0 = None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        FUSED_CELL_FWD(
-            _ptr(Wx), _ptr(scale), _ptr(shift), _ptr(alpha), _ptr(beta),
-            _ptr(a), _ptr(b), _ptr(V) if recurrent else None, _ptr(u0),
-            _ptr(w0), _ptr(s0), _ptr(out), B, T, H, float(threshold),
-            int(recurrent), int(adaptive), int(scale is not None), stream,
+        head = (_ptr(Wx), _ptr(scale), _ptr(shift), _ptr(alpha), _ptr(beta),
+                _ptr(a), _ptr(b), _ptr(V) if recurrent else None, _ptr(u0),
+                _ptr(w0), _ptr(s0), _ptr(out))
+        shape = (B, T, H, float(threshold), int(recurrent), int(adaptive),
+                 int(scale is not None))
+        if training_form:
+            dropout = drop_rate > 0.0
+            FUSED_CELL_FWD_TRAIN(
+                *head, _ptr(u_seq), _ptr(seed) if dropout else None, *shape,
+                keep_u32(drop_rate) if dropout else 0,
+                _inv_keep(drop_rate) if dropout else 1.0,
+                dropout_tile_rows(B), stream,
+            )
+        else:
+            FUSED_CELL_FWD(*head, *shape, stream)
+    return (out, u_seq) if save_residuals else out
+
+
+def _bwd_plan(B: int, T: int, H: int):
+    """(rows per block, blocks, split of the dV product over B*T), the
+    launch plan that ``csrc/fused_cell_bwd.cu`` checks its arguments
+    against."""
+    npt = 1
+    while -(-H // npt) > _BWD_THREADS:
+        npt *= 2
+    rows = max(1, _BWD_WORK // npt)
+    tiles = (-(-H // _DV_TILE)) ** 2
+    ksplit = max(1, min(264 // tiles, -(-(B * T) // (8 * _DV_BK))))
+    return rows, -(-B // rows), ksplit
+
+
+def _fused_cell_bwd_cuda(g, Wx, u_seq, scale, alpha, beta, a, b, V,
+                         threshold, u0, w0, s0, *, recurrent: bool,
+                         adaptive: bool, drop_rate: float = 0.0, seed=None):
+    """Launch ``csrc/fused_cell_bwd.cu``. Same contract as
+    ``fused_cell_bwd_plain``."""
+    B, T, H = g.shape
+    dev = g.device
+    affine = scale is not None
+    _check("g", g, (B, T, H), dev)
+    _check("u_seq", u_seq, (B, T, H), dev)
+    _check_cell_operands(Wx if affine else g, scale, alpha, beta, a, b, V,
+                         u0, w0, s0, recurrent, adaptive)
+    dropout = drop_rate > 0.0
+    if dropout:
+        _check("seed", seed, (2,), dev, torch.int32)
+    rows, n_blocks, ksplit = _bwd_plan(B, T, H)
+    new = lambda *shape: torch.empty(shape, dtype=g.dtype, device=dev)  # noqa: E731
+    dWx = torch.empty_like(g)
+    # dDrive before the scale, the right operand of the dV product
+    dd = torch.empty_like(g) if (affine and recurrent) else None
+    partials = new(n_blocks, 6, H)
+    vecs = new(6, H)
+    # V^T with its rows padded to 16 bytes, so that every tile of rows the
+    # kernel streams is one aligned contiguous piece
+    VT = torch.nn.functional.pad(
+        V.t(), (0, -H % 4)).contiguous() if recurrent else None
+    dV = new(H, H) if recurrent else None
+    dv_partials = new(ksplit, H, H) if recurrent else None
+    du0, ds0 = new(B, H), new(B, H)
+    dw0 = new(B, H) if adaptive else None
+    if not adaptive:
+        beta = a = b = w0 = None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        FUSED_CELL_BWD(
+            _ptr(g), _ptr(Wx) if affine else None, _ptr(u_seq), _ptr(scale),
+            _ptr(alpha), _ptr(beta), _ptr(a), _ptr(b), _ptr(VT), _ptr(u0),
+            _ptr(w0), _ptr(s0), _ptr(seed) if dropout else None, _ptr(dWx),
+            _ptr(dd), _ptr(partials), _ptr(vecs), _ptr(dV),
+            _ptr(dv_partials), _ptr(du0), _ptr(dw0), _ptr(ds0),
+            B, T, H, float(threshold), int(recurrent), int(adaptive),
+            int(affine), keep_u32(drop_rate) if dropout else 0,
+            _inv_keep(drop_rate) if dropout else 1.0, dropout_tile_rows(B),
+            n_blocks, ksplit, stream,
         )
-    return out
+    dalpha, dbeta, da, db, dscale, dshift = vecs.unbind(0)
+    if not adaptive:
+        dbeta = da = db = None
+    if not affine:
+        dscale = dshift = None
+    return dWx, dscale, dshift, dV, dalpha, dbeta, da, db, du0, dw0, ds0
+
+
+def _by_device(t: torch.Tensor, plain, kernel, what: str):
+    if t.device.type == "cpu":
+        return plain
+    if t.device.type == "cuda":
+        return kernel
+    raise ValueError(f"no {what} for device {t.device}")
+
+
+class _FusedCell(torch.autograd.Function):
+    """The fused cell on clamped and masked operands (JAX ``_make_op``).
+    A None operand (no affine, not adaptive, not recurrent) gets no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, Wx, scale, shift, alpha, beta, a, b, V, u0, w0, s0,
+                seed, threshold, recurrent, adaptive, drop_rate):
+        fwd = _by_device(Wx, fused_cell_plain, _fused_cell_cuda,
+                         "fused cell")
+        flags = dict(recurrent=recurrent, adaptive=adaptive,
+                     drop_rate=drop_rate, seed=seed)
+        args = (Wx, scale, shift, alpha, beta, a, b, V, threshold, u0, w0,
+                s0)
+        if not any(ctx.needs_input_grad):
+            return fwd(*args, **flags)
+        out, u_seq = fwd(*args, save_residuals=True, **flags)
+        ctx.flags = dict(flags, threshold=threshold)
+        ctx.save_for_backward(Wx if scale is not None else None, u_seq,
+                              scale, alpha, beta, a, b, V, u0, w0, s0, seed)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (Wx, u_seq, scale, alpha, beta, a, b, V, u0, w0, s0,
+         seed) = ctx.saved_tensors
+        flags = dict(ctx.flags)
+        threshold = flags.pop("threshold")
+        flags["seed"] = seed
+        bwd = _by_device(g, fused_cell_bwd_plain, _fused_cell_bwd_cuda,
+                         "fused cell backward")
+        # the cotangent often arrives as a view (the bidirectional split, a
+        # broadcast from the firing-rate mean)
+        (dWx, dscale, dshift, dV, dalpha, dbeta, da, db, du0, dw0,
+         ds0) = bwd(g.contiguous(), Wx, u_seq, scale, alpha, beta, a, b, V,
+                    threshold, u0, w0, s0, **flags)
+        return (dWx, dscale, dshift, dalpha, dbeta, da, db, dV, du0, dw0,
+                ds0, None, None, None, None, None)
 
 
 def clip_and_mask(alpha, beta=None, a=None, b=None, V=None):
@@ -188,25 +545,18 @@ def clip_and_mask(alpha, beta=None, a=None, b=None, V=None):
 
 def _fused_cell(Wx, scale, shift, alpha, beta, a, b, V, threshold, u0, w0,
                 s0, *, recurrent, adaptive, drop_rate, drop_seed, mxu_bf16):
-    if drop_rate > 0.0 or drop_seed is not None:
-        raise NotImplementedError(
-            f"fused output dropout (drop_rate > 0, drop_seed) comes with "
-            f"{_TRAINING_SLICE}"
-        )
     if mxu_bf16:
         raise NotImplementedError(f"mxu_bf16=True is {_BF16_ITEM}")
     if (scale is None) != (shift is None):
         raise ValueError("pass both scale and shift, or neither")
-    _forward_only(Wx, scale, shift, alpha, beta, a, b, V, u0, w0, s0)
+    drop_rate = float(drop_rate)
+    if not 0.0 <= drop_rate < 1.0:
+        raise ValueError(f"drop_rate must lie in [0, 1), got {drop_rate}")
+    seed = _as_seed(drop_seed, Wx.device) if drop_rate > 0.0 else None
     alpha, beta, a, b, V = clip_and_mask(alpha, beta, a, b, V)
-    args = (Wx, scale, shift, alpha, beta, a, b, V, threshold, u0, w0, s0)
-    if Wx.device.type == "cpu":
-        return fused_cell_plain(*args, recurrent=recurrent,
-                                adaptive=adaptive)
-    if Wx.device.type == "cuda":
-        return _fused_cell_cuda(*args, recurrent=recurrent,
-                                adaptive=adaptive)
-    raise ValueError(f"no fused cell for device {Wx.device}")
+    return _FusedCell.apply(Wx, scale, shift, alpha, beta, a, b, V, u0, w0,
+                            s0, seed, float(threshold), recurrent, adaptive,
+                            drop_rate)
 
 
 def radlif_fused(Wx, alpha, beta, a, b, V, threshold, u0, w0, s0,
@@ -214,7 +564,9 @@ def radlif_fused(Wx, alpha, beta, a, b, V, threshold, u0, w0, s0,
                  drop_rate: float = 0.0, drop_seed=None):
     """Fused RadLIF recurrence (drop-in for cells.radlif_scan). With
     ``scale``/``shift`` the normalization affine is applied on load
-    (drive = scale*Wx + shift)."""
+    (drive = scale*Wx + shift) and their gradients are returned. With
+    ``drop_rate``/``drop_seed`` (two int32) the layer-output dropout is
+    fused: the backward regenerates the mask from the seed."""
     return _fused_cell(Wx, scale, shift, alpha, beta, a, b, V, threshold,
                        u0, w0, s0, recurrent=True, adaptive=True,
                        drop_rate=drop_rate, drop_seed=drop_seed,
@@ -256,20 +608,53 @@ def lif_fused(Wx, alpha, threshold, u0, s0, scale=None, shift=None,
 # ---------------------------------------------------------------------------
 
 
-def readout_plain(Wx, alpha, u0):
+def _softmax(u):
+    e = torch.exp(u - u.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def readout_plain(Wx, alpha, u0, save_residuals: bool = False):
     """Plain PyTorch version of ``csrc/readout_fwd.cu``: the TPU
     ``_readout_fwd_kernel``'s per-step arithmetic as a loop over T.
-    ``alpha`` must already be clamped. Returns (B, C)."""
+    ``alpha`` must already be clamped. Returns (B, C), and with
+    ``save_residuals`` also the membrane series (B, T, C)."""
     u = u0
     acc = torch.zeros_like(u0)
+    u_seq = torch.empty_like(Wx) if save_residuals else None
     for t in range(Wx.shape[1]):
         u = alpha * u + (1.0 - alpha) * Wx[:, t]
-        e = torch.exp(u - u.amax(dim=-1, keepdim=True))
-        acc = acc + e / e.sum(dim=-1, keepdim=True)
-    return acc
+        acc = acc + _softmax(u)
+        if save_residuals:
+            u_seq[:, t] = u
+    return (acc, u_seq) if save_residuals else acc
 
 
-def _readout_cuda(Wx, alpha, u0):
+def readout_bwd_plain(gout, u_seq, alpha, u0):
+    """Plain PyTorch version of ``csrc/readout_bwd.cu``, the TPU
+    ``_readout_bwd_kernel``: with p_t = softmax(u_t) recomputed from the
+    saved series,
+
+        G_t = p_t*(gout - <p_t, gout>) + alpha*G_{t+1}
+        dWx_t = (1-alpha)*G_t
+        dalpha = sum_{b,t} G_t*(u_{t-1} - u_t) / (1-alpha)
+        du0 = alpha*G_1
+
+    Returns (dWx, dalpha, du0) with respect to the clamped alpha."""
+    oma = 1.0 - alpha
+    G = torch.zeros_like(u0)
+    dal = torch.zeros_like(u0)
+    dWx = torch.empty_like(u_seq)
+    for t in range(u_seq.shape[1] - 1, -1, -1):
+        u_t = u_seq[:, t]
+        u_p = u_seq[:, t - 1] if t > 0 else u0
+        p = _softmax(u_t)
+        G = p * (gout - (p * gout).sum(dim=-1, keepdim=True)) + alpha * G
+        dWx[:, t] = oma * G
+        dal = dal + G * (u_p - u_t)
+    return dWx, dal.sum(0) / oma, alpha * G
+
+
+def _check_readout(Wx, alpha, u0):
     B, T, C = Wx.shape
     dev = Wx.device
     _check("Wx", Wx, (B, T, C), dev)
@@ -277,22 +662,66 @@ def _readout_cuda(Wx, alpha, u0):
         raise ValueError(f"the readout kernel takes C <= {_MAX_C}, got {C}")
     _check("alpha", alpha, (C,), dev)
     _check("u0", u0, (B, C), dev)
+
+
+def _readout_cuda(Wx, alpha, u0, save_residuals: bool = False):
+    B, T, C = Wx.shape
+    dev = Wx.device
+    _check_readout(Wx, alpha, u0)
     out = torch.empty_like(u0)
+    u_seq = torch.empty_like(Wx) if save_residuals else None
     if Wx.numel() == 0:
-        return out.zero_()
+        out.zero_()
+    else:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            READOUT_FWD(_ptr(Wx), _ptr(alpha), _ptr(u0), _ptr(out),
+                        _ptr(u_seq), B, T, C, stream)
+    return (out, u_seq) if save_residuals else out
+
+
+def _readout_bwd_cuda(gout, u_seq, alpha, u0):
+    B, T, C = u_seq.shape
+    dev = u_seq.device
+    _check_readout(u_seq, alpha, u0)
+    _check("gout", gout, (B, C), dev)
+    dWx = torch.empty_like(u_seq)
+    partials = torch.empty_like(u0)
+    dalpha = torch.empty_like(alpha)
+    du0 = torch.empty_like(u0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        READOUT_FWD(_ptr(Wx), _ptr(alpha), _ptr(u0), _ptr(out), B, T, C,
-                    stream)
-    return out
+        READOUT_BWD(_ptr(gout), _ptr(u_seq), _ptr(alpha), _ptr(u0),
+                    _ptr(dWx), _ptr(partials), _ptr(dalpha), _ptr(du0),
+                    B, T, C, stream)
+    return dWx, dalpha, du0
+
+
+class _Readout(torch.autograd.Function):
+    """The fused readout on a clamped alpha (JAX ``_make_readout_op``)."""
+
+    @staticmethod
+    def forward(ctx, Wx, alpha, u0):
+        fwd = _by_device(Wx, readout_plain, _readout_cuda, "fused readout")
+        if not any(ctx.needs_input_grad):
+            return fwd(Wx, alpha, u0)
+        out, u_seq = fwd(Wx, alpha, u0, save_residuals=True)
+        ctx.save_for_backward(u_seq, alpha, u0)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gout):
+        u_seq, alpha, u0 = ctx.saved_tensors
+        if u_seq.numel() == 0:
+            return (torch.zeros_like(u_seq), torch.zeros_like(alpha),
+                    torch.zeros_like(u0))
+        bwd = _by_device(gout, readout_bwd_plain, _readout_bwd_cuda,
+                         "fused readout backward")
+        return bwd(gout.contiguous(), u_seq, alpha, u0)
 
 
 def readout_fused(Wx, alpha, u0):
     """Fused cumulative-softmax readout (drop-in for cells.readout_sum)."""
-    _forward_only(Wx, alpha, u0)
     alpha = torch.clamp(alpha, *cells.ALPHA_LIM)
-    if Wx.device.type == "cpu":
-        return readout_plain(Wx, alpha, u0)
-    if Wx.device.type == "cuda":
-        return _readout_cuda(Wx, alpha, u0)
-    raise ValueError(f"no fused readout for device {Wx.device}")
+    return _Readout.apply(Wx, alpha, u0)

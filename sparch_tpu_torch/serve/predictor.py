@@ -12,6 +12,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from sparch_tpu_torch.utils.device import resolve_device
+
 __all__ = ["Predictor", "load_experiment"]
 
 _CHECKPOINT_ITEM = (
@@ -30,8 +32,11 @@ def load_experiment(exp_folder: str):
 class Predictor:
     """Wraps a model and its ``state_dict`` for batched inference.
 
-        predictor = Predictor(model, state_dict, device="cuda")
+        predictor = Predictor(model, state_dict)
         labels, probs = predictor(x)          # x: (n, T, F), any n
+
+    ``device=None`` is the CUDA card and raises without one;
+    ``device="cpu"`` runs on the CPU.
     """
 
     @classmethod
@@ -56,10 +61,7 @@ class Predictor:
                 "the port serves spiking models only; the ANN slice is "
                 "ROADMAP queue 1 item 4"
             )
-        self.device = torch.device(
-            device if device is not None
-            else ("cuda" if torch.cuda.is_available() else "cpu")
-        )
+        self.device = resolve_device(device)
         model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device).eval()
         self.batch_size = batch_size

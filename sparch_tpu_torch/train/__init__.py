@@ -1,0 +1,14 @@
+"""Training (counterpart of sparch_tpu/train): the training state, the
+train and eval steps and the plateau schedule. Data loaders, checkpoints
+and the epoch loop are not ported yet."""
+from sparch_tpu_torch.train.schedule import ReduceLROnPlateau
+from sparch_tpu_torch.train.state import TrainState, create_train_state
+from sparch_tpu_torch.train.steps import make_eval_step, make_train_step
+
+__all__ = [
+    "ReduceLROnPlateau",
+    "TrainState",
+    "create_train_state",
+    "make_train_step",
+    "make_eval_step",
+]

@@ -1,0 +1,84 @@
+"""Train and eval steps (counterpart of sparch_tpu/train/steps.py).
+
+A train step is the forward (hoisted projections, fused or plain cells),
+the mean cross-entropy plus the optional firing-rate hinge regularizer,
+the backward (through the fused backward kernels on the fused path) and
+the Adam update. Metrics come back as device tensors and nothing inside a
+step reads a value on the host, so steps queue on the card back to back;
+the caller fetches metrics when it wants them.
+
+The logged loss is the cross-entropy *before* the regularizer is added, as
+in the JAX package and the original sparch.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["make_train_step", "make_eval_step"]
+
+
+def _metrics(ce, out, rates, y, is_snn):
+    pred = out.argmax(dim=-1)
+    return {
+        "loss": ce.detach(),
+        "acc": (pred == y).float().mean(),
+        "spike_rate": rates.detach().mean() if is_snn
+        else torch.zeros((), device=out.device),
+    }
+
+
+def _check_state(state, model):
+    if state.model is not model:
+        raise ValueError("the state was created for another model")
+
+
+def make_train_step(model, use_regularizers: bool = False,
+                    reg_factor: float = 0.5, reg_fmin: float = 0.01,
+                    reg_fmax: float = 0.5):
+    """Build the training step for ``model``.
+
+    Returns ``train_step(state, x, y) -> (state, metrics)``: ``state`` is
+    the ``TrainState`` of this model, updated in place and handed back;
+    ``x`` is ``(B, T, F)`` and ``y`` integer labels ``(B,)``, both on the
+    state's device; ``metrics`` = {loss, acc, spike_rate} as device
+    tensors.
+    """
+    is_snn = getattr(model, "is_snn", False)
+
+    def train_step(state, x, y):
+        _check_state(state, model)
+        model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        out, rates = model(x, state.generator)
+        ce = F.cross_entropy(out, y)
+        loss = ce
+        if is_snn and use_regularizers:
+            # hinge penalty on per-neuron firing rates
+            reg_quiet = F.relu(reg_fmin - rates).sum()
+            reg_burst = F.relu(rates - reg_fmax).sum()
+            loss = loss + reg_factor * (reg_quiet + reg_burst)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        with torch.no_grad():
+            return state, _metrics(ce, out, rates, y, is_snn)
+
+    return train_step
+
+
+def make_eval_step(model):
+    """Build the eval step: ``eval_step(state, x, y, generator=None) ->
+    metrics``. ``generator`` drives the uniform state init (the original
+    sparch randomises the states in eval too); it is unused with
+    ``state_init='zeros'``."""
+    is_snn = getattr(model, "is_snn", False)
+
+    @torch.no_grad()
+    def eval_step(state, x, y, generator=None):
+        _check_state(state, model)
+        model.eval()
+        out, rates = model(x, generator)
+        return _metrics(F.cross_entropy(out, y), out, rates, y, is_snn)
+
+    return eval_step

@@ -32,8 +32,7 @@ def test_plain_fused_cell_matches_pallas(name, affine):
     assert 0.02 < want.mean() < 0.9  # a real spike train
     np.testing.assert_array_equal(got.numpy(), want)
     # CPU tensors take the plain version: no kernel was launched
-    assert fused_cells.launch_counts() == {"fused_cell_fwd": 0,
-                                           "readout_fwd": 0}
+    assert not any(fused_cells.launch_counts().values())
 
 
 @pytest.mark.parametrize("shape", [(3, 11, 24), (9, 13, 40)])

@@ -201,10 +201,11 @@ def test_unported_options_raise():
                     compute_dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="tensor-parallel"):
         build_model("RadLIF", (2, 3, 4), [8, 3], cell_impl="pallas_tp")
+    # the fused dropout is ported: a train-mode forward runs and drops
     model = build_model("RadLIF", (2, 3, 4), [8, 3], cell_impl="pallas",
                         dropout=0.5).train()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(torch.zeros(2, 3, 4))
+    out, _ = model(torch.ones(2, 3, 4), torch.Generator().manual_seed(0))
+    assert torch.isfinite(out).all()
 
 
 def test_build_model_from_config_and_generator_init():

@@ -89,3 +89,19 @@ def test_streaming_rejects_bidirectional():
     model = port_snn(jmodel, variables, "scan")
     with pytest.raises(ValueError, match="Bidirectional"):
         streaming_init(model, variables_from_flax(variables), 2)
+
+
+def test_predictor_needs_a_card_unless_asked_for_the_cpu():
+    """The default device is the CUDA card: without one the Predictor
+    raises instead of carrying on on the CPU; device='cpu' serves there."""
+    jmodel, variables, x = jax_snn("LIF")
+    model = port_snn(jmodel, variables, "scan")
+    sd = variables_from_flax(variables)
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device exists")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Predictor(model, sd)
+    pred = Predictor(model, sd, device="cpu")
+    assert pred.device == torch.device("cpu")
+    labels, probs = pred(x)
+    assert labels.shape == (B,) and np.isfinite(probs).all()
