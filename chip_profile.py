@@ -14,9 +14,11 @@ this run:
    gathered (firing rate * H * H * 4 B * B * T over the kernel time).
 3. ``profile``: ``torch.profiler`` over 5 forwards of one batch of the
    RadLIF [512, 512, 35] serving model of ``chip_smoke.py`` (its
-   "calibrated" state), per ``cell_impl``: device time and kernel launches
-   per forward, and the share of the fused cell, the readout kernel and
-   the cuBLAS projections.
+   "calibrated" state) and of its GRU [512, 512, 35] serving model, per
+   ``cell_impl``: device time and kernel launches per forward, the share
+   of the fused cell, the readout kernel and the cuBLAS projections, and
+   the idle share of the card against the un-profiled forward (CUDA events
+   over 20 forwards).
 4. ``h2d``: the pageable numpy -> card copy of one float32 raster batch,
    the first step ``Predictor`` takes per batch.
 5. ``bwd_sweep``: the backward kernel alone at (128, 100, 512) over the
@@ -24,7 +26,8 @@ this run:
    kernel ms against the firing rate (the backward's products are dense,
    so its time should not follow the rate).
 6. ``profile_training``: ``torch.profiler`` over 3 training steps of the
-   RadLIF [512, 512, 35] trainer of ``chip_smoke.py``, per ``cell_impl``:
+   RadLIF [512, 512, 35] trainer of ``chip_smoke.py`` and of its GRU
+   [512, 512, 35] trainer, per ``cell_impl``:
    device time and kernel launches per step, the share of each
    hand-written kernel and of the cuBLAS products, and the idle share of
    the card (1 - device time / elapsed time between CUDA events around
@@ -78,18 +81,30 @@ def _share(events, *needles):
                if any(n in e.name for n in needles))
 
 
-def profile(dev):
+def _serving_case(dev, model_type):
+    """(state dict, one input batch, cell_impls) of ``chip_smoke.py``'s
+    serving model of this type."""
+    import chip_smoke as cs
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    if model_type == "RadLIF":
+        x = torch.rand((cs.B, cs.T, cs.F), generator=g, device=dev) < 0.02
+        return (cs.serving_state(dev, zero_means=False), x.float(),
+                ("auto", "pallas", "scan"))
+    x = torch.randn((cs.B, cs.T, cs.F_ANN), generator=g, device=dev)
+    return cs.ann_state(dev, model_type), x, ("auto", "scan")
+
+
+def profile(dev, model_type="RadLIF"):
     import chip_smoke as cs
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     from sparch_tpu_torch.models import build_model
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
 
-    state = cs.serving_state(dev, zero_means=False)
-    g = torch.Generator(device=dev).manual_seed(12)
-    x = (torch.rand((cs.B, cs.T, cs.F), generator=g, device=dev) < 0.02)
-    x = x.float()
-    for impl in ("auto", "pallas", "scan"):
-        m = build_model("RadLIF", (cs.B, cs.T, cs.F), [cs.H, cs.H, cs.C],
+    state, x, impls = _serving_case(dev, model_type)
+    for impl in impls:
+        m = build_model(model_type, tuple(x.shape), [cs.H, cs.H, cs.C],
                         state_init="zeros", cell_impl=impl).to(dev).eval()
         m.load_state_dict(state)
         with torch.no_grad():
@@ -101,16 +116,21 @@ def profile(dev):
                 for _ in range(5):
                     m(x)
                 torch.cuda.synchronize()
-        print(f"=== {impl}")
+            forward_us = 1e3 * cuda_time_ms(m, x, warmup=1, iters=20,
+                                            repeats=3)
+        print(f"=== {model_type} {impl}")
         print(prof.key_averages().table(sort_by="cuda_time_total",
                                         row_limit=14,
                                         max_name_column_width=60))
         ev = [e for e in prof.events() if e.device_type.name == "CUDA"]
         busy = sum(e.device_time for e in ev)
-        emit("profile", variant=impl,
+        emit("profile", model=model_type, variant=impl,
              device_us_per_forward=busy / 5,
              kernels_per_forward=len(ev) / 5,
-             fused_cell_share=_share(ev, "fused_cell_fwd") / busy,
+             unprofiled_us_per_forward=forward_us,
+             idle_share=1.0 - busy / 5 / forward_us,
+             fused_cell_share=_share(ev, "fused_cell_fwd",
+                                     "fused_ann_fwd") / busy,
              readout_kernel_share=_share(ev, "readout_fwd") / busy,
              gemm_share=_share(ev, "gemm", "sgemm", "cutlass") / busy)
 
@@ -142,32 +162,46 @@ def bwd_sweep(dev):
             emit("bwd_sweep", cell=name, shift=shift, firing_rate=rate, ms=ms)
 
 
+# shares of a training step, by kernel name; the dV products and the
+# fixed-order second passes have one name in both backward sources
 _TRAIN_KERNELS = {
     "fused_cell_fwd": ("fused_cell_fwd_kernel",),
     "fused_cell_bwd_time_loop": ("fused_cell_bwd_kernel",),
-    "fused_cell_bwd_dv": ("dv_kernel", "dv_reduce_kernel"),
-    "fused_cell_bwd_vec_reduce": ("vec_reduce_kernel",),
+    "fused_ann_fwd": ("fused_ann_fwd_kernel",),
+    "fused_ann_bwd_time_loop": ("fused_ann_bwd_kernel",),
+    "bwd_dv": ("dv_kernel",),
+    "bwd_reduce": ("vec_reduce_kernel", "sum_parts_kernel"),
     "readout_fwd": ("readout_fwd_kernel",),
     "readout_bwd": ("readout_bwd_kernel", "dalpha_reduce_kernel"),
     "gemm": ("gemm", "sgemm", "cutlass"),
 }
 
 
-def profile_training(dev):
+def profile_training(dev, model_type="RadLIF"):
     import chip_smoke as cs
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
+    from sparch_tpu_torch.models import build_model
     from sparch_tpu_torch.train import make_train_step
     from sparch_tpu_torch.utils.timing import cuda_time_ms
 
-    state_dict = cs.training_state(dev)
     gen = torch.Generator(device=dev).manual_seed(21)
-    x = (torch.rand((cs.B, cs.T, cs.F), generator=gen, device=dev) < 0.02)
-    x = x.float()
+    if model_type == "RadLIF":
+        state_dict = cs.training_state(dev)
+        x = torch.rand((cs.B, cs.T, cs.F), generator=gen, device=dev) < 0.02
+        x, impls = x.float(), ("auto", "pallas", "scan")
+    else:
+        state_dict = build_model(
+            model_type, (cs.B, cs.T, cs.F_ANN), [cs.H, cs.H, cs.C],
+            dropout=cs.P_DROP,
+            generator=torch.Generator().manual_seed(0)).state_dict()
+        x = torch.randn((cs.B, cs.T, cs.F_ANN), generator=gen, device=dev)
+        impls = ("auto", "scan")
     y = torch.randint(0, cs.C, (cs.B,), generator=gen, device=dev)
     n = 3
-    for impl in ("auto", "pallas", "scan"):
-        model, state, _, _, _ = cs.train_run(dev, impl, state_dict, x, y, 3)
+    for impl in impls:
+        model, state, _, _, _ = cs.train_run(dev, impl, state_dict, x, y, 3,
+                                             model_type=model_type)
         step = make_train_step(model)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
@@ -182,13 +216,13 @@ def profile_training(dev):
         elapsed_us = 1e3 * start.elapsed_time(end)
         step_us = 1e3 * cuda_time_ms(step, state, x, y, warmup=1, iters=20,
                                      repeats=3)
-        print(f"=== training {impl}")
+        print(f"=== training {model_type} {impl}")
         print(prof.key_averages().table(sort_by="cuda_time_total",
                                         row_limit=16,
                                         max_name_column_width=60))
         ev = [e for e in prof.events() if e.device_type.name == "CUDA"]
         busy = sum(e.device_time for e in ev)
-        emit("profile_training", variant=impl, steps=n,
+        emit("profile_training", model=model_type, variant=impl, steps=n,
              device_us_per_step=busy / n, elapsed_us_per_step=elapsed_us / n,
              idle_share_profiled=1.0 - busy / elapsed_us,
              unprofiled_us_per_step=step_us,
@@ -288,9 +322,11 @@ def main() -> int:
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0))
     sweep(dev)
     profile(dev)
+    profile(dev, "GRU")
     h2d(dev)
     bwd_sweep(dev)
     profile_training(dev)
+    profile_training(dev, "GRU")
     bwd_variants(dev)
     return 0
 

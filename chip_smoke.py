@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the serving and the training path from
+Builds every CUDA kernel of the serving and the training paths (the spiking
+family's and the non-spiking family's) from
 ``sparch_tpu_torch/csrc`` into ``build/kernels/`` (one ``nvcc`` per source,
 all at once), then prints one JSON line per phase:
 
@@ -56,12 +57,40 @@ all at once), then prints one JSON line per phase:
    ``train_step_ms`` (CUDA events over 20 steps after 3 warm-up steps,
    median of 3), ``utterances_per_s`` and the forward / backward /
    optimizer split.
-9. ``kernels``: each kernel with its launches on its main path (serving:
-   the "calibrated" model's ``pallas`` run; training: the ``pallas``
-   trainer's 10 steps), its error, its time beside its plain version's, and
-   its bound: the larger of its bytes over the card's memory rate and its
-   operations over the card's float32 rate, from this run's shapes and
-   firing rates.
+9. ``kernel_vs_plain`` for the fused non-spiking cell, forward
+   (``fused_ann_fwd``): RNN, LiGRU and GRU at (128, 100, 512) with the
+   batchnorm affine and at the ragged shape, in the serving form (the
+   output alone) and the training form (dropout 0.1, the raw y series and
+   the gate series). Nothing here is bit-equal to the plain version (the
+   products sum in another order, exp and tanh come from the card's
+   library): the output and every residual series within atol 2e-5, or
+   else no further from the float64 plain version than 4 times the float32
+   plain version is (both printed); the dropped positions identical, the
+   dropped share within 0.1 +- 0.005, two launches bit-equal.
+10. ``kernel_vs_plain`` for its backward (``fused_ann_bwd``): both sides get
+   the plain forward's residuals; every gradient (per gate dWx, dscale,
+   dshift, dV; dy0) as in phase 6; two launches bit-equal.
+11. ``serving_ann``: a GRU [512, 512, 35] Predictor (F=40 features drawn
+   normal(0, 1), batch 128, seeded random weights, running statistics from
+   one train-mode pass) on 300 utterances, variants ``scan`` and ``auto``:
+   labels equal on >= 99 %, probabilities within 1e-3 of scan, two forward
+   launches per batch and no other kernel; timed. LiGRU and RNN at the same
+   width: checked alike, their forward timed.
+12. ``training_ann``: a GRU [512, 512, 35] trainer (batchnorm, dropout 0.1,
+   Adam at lr 1e-2) on one device-resident batch of 128, variants ``scan``
+   and ``auto``, checked and timed as phase 8 (two forward and two backward
+   launches per step). LiGRU and RNN: three steps, checked alike, but
+   for the LiGRU's step-1 gradients, which the relu's kink separates (see
+   ``KINK_GRAD_REL_MAX``).
+13. ``kernels``: each kernel with its launches on its main path (spiking
+   serving: the "calibrated" model's ``pallas`` run; spiking training: the
+   ``pallas`` trainer's 10 steps; non-spiking: the ``auto`` Predictor's and
+   the ``auto`` trainer's runs of its model), its error, its time beside
+   its plain version's, and its bound: the larger of its bytes over the
+   card's memory rate and its operations over the card's float32 rate, from
+   this run's shapes and firing rates. No library call computes any of
+   these functions (cuDNN's GRU applies the reset gate after the recurrent
+   product, this one before it), so ``library_ms`` is null.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 if any phase fails, the script exits non-zero and prints no result.
@@ -88,11 +117,22 @@ P_DROP = 0.1
 LR = 1e-2
 GRAD_REL_MAX = 1e-4  # kernel vs plain, relative to the gradient's largest
 WITNESS_GRAD_FACTOR = 4.0  # else: kernel error <= 4x the f32 plain's, vs f64
+# A whole LiGRU training step, kernels vs plain versions: the backward masks
+# on the forward's saved c > 0, and the two forwards differ by ~1e-6 in the
+# candidate's pre-activation, so of the 6.5 M candidates of a layer a handful
+# fall on the other side of the relu's kink and each moves the gradients by
+# a whole term (measured: 2.5e-3 of the largest magnitude). On shared
+# residuals (phase 10) the LiGRU is held to GRAD_REL_MAX like the others.
+KINK_GRAD_REL_MAX = 2e-2
 TRAIN_STEPS = 10
 # published peaks of one H100 SXM: HBM bytes/s, float32 FLOP/s outside the
 # tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+F_ANN = 40  # filterbank features of the non-spiking models' input
+ANN_ATOL = 2e-5  # fused ANN forward, kernel vs plain
+WITNESS_FWD_FACTOR = 4.0  # else: kernel error <= 4x the f32 plain's, vs f64
+ANN_TYPES = {"rnn": "RNN", "ligru": "LiGRU", "gru": "GRU"}
 GRAD_NAMES = ("dWx", "dscale", "dshift", "dV", "dalpha", "dbeta", "da", "db",
               "du0", "dw0", "ds0")
 # how far the kernel paths' agreement with scan may fall short of the scan
@@ -617,7 +657,7 @@ def rel_err(got, want) -> float:
                  / want.abs().max().clamp_min(1e-30))
 
 
-def grads_within_bound(what, got, want32, want64):
+def grads_within_bound(what, got, want32, want64, names=GRAD_NAMES):
     """Hold each gradient of ``got`` (the kernel's) against the plain
     version's: within GRAD_REL_MAX of its largest magnitude, or else, with
     the plain version in float64 as the truth, no further from it than
@@ -625,7 +665,7 @@ def grads_within_bound(what, got, want32, want64):
     is a function that computes the float64 gradients when they are
     needed. Returns the errors by gradient."""
     errs, truth = {}, None
-    for name, x, y in zip(GRAD_NAMES, got, want32):
+    for name, x, y in zip(names, got, want32):
         check((x is None) == (y is None), f"{what}: {name} missing")
         if x is None:
             continue
@@ -633,7 +673,7 @@ def grads_within_bound(what, got, want32, want64):
         e = dict(vs_plain=rel_err(x, y))
         if e["vs_plain"] > GRAD_REL_MAX:
             if truth is None:
-                truth = dict(zip(GRAD_NAMES, want64()))
+                truth = dict(zip(names, want64()))
             e["kernel_vs_f64"] = rel_err(x.double(), truth[name])
             e["plain_vs_f64"] = rel_err(y.double(), truth[name])
             check(e["kernel_vs_f64"]
@@ -768,18 +808,20 @@ def training_state(dev):
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
-def train_run(dev, impl, state_dict, x, y, steps, seed=0):
-    """``steps`` training steps of a new trainer; returns (model, state,
-    losses, first-step gradients, launch counts of the run)."""
+def train_run(dev, impl, state_dict, x, y, steps, seed=0,
+              model_type="RadLIF"):
+    """``steps`` training steps of a new trainer, in the type of ``x``;
+    returns (model, state, losses, first-step gradients, launch counts of
+    the run)."""
     from sparch_tpu_torch.models import build_model
     from sparch_tpu_torch.ops import fused_cells
     from sparch_tpu_torch.train import create_train_state, make_train_step
 
-    model = build_model("RadLIF", (B, T, F), [H, H, C], dropout=P_DROP,
-                        normalization="batchnorm", state_init="uniform",
-                        cell_impl=impl)
+    model = build_model(model_type, tuple(x.shape), [H, H, C],
+                        dropout=P_DROP, normalization="batchnorm",
+                        state_init="uniform", cell_impl=impl)
     model.load_state_dict(state_dict)
-    state = create_train_state(model, LR, device=dev, seed=seed)
+    state = create_train_state(model.to(x.dtype), LR, device=dev, seed=seed)
     step = make_train_step(model)
     losses, grads = [], None
     fused_cells.reset_launch_counts()
@@ -818,11 +860,99 @@ def step_split_ms(model, state, x, y, n=10):
                                    "optimizer_ms"))}
 
 
-def phase_training(dev):
-    """The training main path (see the module docstring, phase 8)."""
+def train_variant(dev, impl, state_dict, x, y, per_step, scan_row,
+                  model_type="RadLIF", steps=TRAIN_STEPS, timed=True,
+                  grad_rel_max=GRAD_REL_MAX):
+    """One ``cell_impl`` of a training phase: ``steps`` steps of a new
+    trainer with the launch counters set to 0 just before and read just
+    after; every kernel of the variant launched ``per_step`` times per step
+    and no other; the loss finite and (over TRAIN_STEPS steps) lower at the
+    end; two 3-step runs
+    from one seed bit-equal; for a kernel variant, step 1 against the same
+    step with each kernel swapped for its plain version (loss within 1e-3
+    relative, every gradient within ``grad_rel_max`` of its largest
+    magnitude or else by the float64 witness rule of the backward
+    phases), and (loosely) against scan's. Returns (row, launch
+    counts)."""
     from sparch_tpu_torch.train import make_train_step
     from sparch_tpu_torch.utils.timing import cuda_time_ms
 
+    what = f"{model_type} {impl}"
+    run = dict(model_type=model_type)
+    model, state, losses, grads, counts = train_run(
+        dev, impl, state_dict, x, y, steps, **run)
+    want = {k: steps * per_step.get(k, 0) for k in counts}
+    check(counts == want, f"{what}: kernel launches {counts} != {want}")
+    check(bool(np.isfinite(losses).all()), f"{what}: losses {losses}")
+    # a run of a few steps is only held to finite losses
+    check(steps < TRAIN_STEPS or losses[-1] < losses[0],
+          f"{what}: loss did not fall in {steps} steps: {losses}")
+    row = dict(launches={k: n for k, n in counts.items() if n},
+               losses=losses)
+    # one seed, bit-equal parameters
+    a = train_run(dev, impl, state_dict, x, y, 3, **run)[0].state_dict()
+    b = train_run(dev, impl, state_dict, x, y, 3, **run)[0].state_dict()
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    check(not differ, f"{what}: two runs from one seed differ in {differ}")
+    row["two_runs_bit_equal"] = True
+    if impl != "scan":
+        with plain_versions():
+            _, _, plain_losses, plain_grads, plain_counts = train_run(
+                dev, impl, state_dict, x, y, 1, **run)
+        check(not any(plain_counts.values()),
+              f"{what}: the plain run launched {plain_counts}")
+        loss_rel = abs(losses[0] - plain_losses[0]) / abs(plain_losses[0])
+        errs = {k: rel_err(grads[k], plain_grads[k]) for k in grads}
+        row["vs_plain_versions"] = dict(
+            step1_loss=plain_losses[0], step1_loss_rel_diff=loss_rel,
+            max_grad_rel_err=max(errs.values()), grad_rel_bound=grad_rel_max,
+            grad_rel_err=errs)
+        check(loss_rel <= 1e-3,
+              f"{what}: step-1 loss {losses[0]} vs plain versions' "
+              f"{plain_losses[0]}")
+        truth = None
+        for k, e in errs.items():
+            check(bool(torch.isfinite(grads[k]).all()),
+                  f"{what}: step-1 gradient of {k} is not finite")
+            if e <= grad_rel_max:
+                continue
+            # as for the backward kernels: the same step in float64 is the
+            # truth, and the kernels' step may be no further from it than
+            # WITNESS_GRAD_FACTOR times the float32 plain versions' step
+            if truth is None:
+                with plain_versions():
+                    truth = train_run(dev, impl, state_dict, x.double(), y,
+                                      1, **run)[3]
+            w = dict(vs_plain=e,
+                     kernel_vs_f64=rel_err(grads[k].double(), truth[k]),
+                     plain_vs_f64=rel_err(plain_grads[k].double(), truth[k]))
+            row["vs_plain_versions"].setdefault("f64_witness", {})[k] = w
+            check(w["kernel_vs_f64"]
+                  <= WITNESS_GRAD_FACTOR * w["plain_vs_f64"],
+                  f"{what}: step-1 gradient of {k} {w}")
+        scan_loss = scan_row["losses"][0]
+        row["vs_scan_step1_loss_rel_diff"] = \
+            abs(losses[0] - scan_loss) / scan_loss
+        check(row["vs_scan_step1_loss_rel_diff"] <= 0.1,
+              f"{what}: step-1 loss {losses[0]} vs scan's {scan_loss}")
+    if timed:
+        step = make_train_step(model)
+        row["train_step_ms"] = cuda_time_ms(step, state, x, y, warmup=3,
+                                            iters=20, repeats=3)
+        row["utterances_per_s"] = 1e3 * B / row["train_step_ms"]
+        row.update(step_split_ms(model, state, x, y))
+    with torch.no_grad():
+        model.eval()
+        _, rates = model(x, state.generator)
+    if rates is not None:
+        row["firing_rate_layer0"] = float(rates[:H].mean())
+        row["firing_rate_layer1"] = float(rates[H:].mean())
+    return row, counts
+
+
+def phase_training(dev):
+    """The spiking training main path (see the module docstring, phase
+    8)."""
     state_dict = training_state(dev)
     gen = torch.Generator(device=dev).manual_seed(21)
     x = (torch.rand((B, T, F), generator=gen, device=dev) < 0.02).float()
@@ -835,60 +965,395 @@ def phase_training(dev):
     }
     rows, launches = {}, None
     for impl in ("scan", "auto", "pallas"):
-        model, state, losses, grads, counts = train_run(
-            dev, impl, state_dict, x, y, TRAIN_STEPS)
-        want = {k: TRAIN_STEPS * per_step[impl].get(k, 0) for k in counts}
-        check(counts == want, f"{impl}: kernel launches {counts} != {want}")
-        check(bool(np.isfinite(losses).all()), f"{impl}: losses {losses}")
-        check(losses[-1] < losses[0],
-              f"{impl}: loss did not fall in {TRAIN_STEPS} steps: {losses}")
-        row = dict(launches=counts, losses=losses)
-        # one seed, bit-equal parameters
-        a = train_run(dev, impl, state_dict, x, y, 3)[0].state_dict()
-        b = train_run(dev, impl, state_dict, x, y, 3)[0].state_dict()
-        differ = [k for k in a if not torch.equal(a[k], b[k])]
-        check(not differ, f"{impl}: two runs from one seed differ in {differ}")
-        row["two_runs_bit_equal"] = True
-        if impl != "scan":
-            with plain_versions():
-                _, _, plain_losses, plain_grads, plain_counts = train_run(
-                    dev, impl, state_dict, x, y, 1)
-            check(not any(plain_counts.values()),
-                  f"{impl}: the plain run launched {plain_counts}")
-            loss_rel = abs(losses[0] - plain_losses[0]) / abs(plain_losses[0])
-            errs = {k: rel_err(grads[k], plain_grads[k]) for k in grads}
-            row["vs_plain_versions"] = dict(
-                step1_loss=plain_losses[0], step1_loss_rel_diff=loss_rel,
-                max_grad_rel_err=max(errs.values()), grad_rel_err=errs)
-            check(loss_rel <= 1e-3,
-                  f"{impl}: step-1 loss {losses[0]} vs plain versions' "
-                  f"{plain_losses[0]}")
-            for k, e in errs.items():
-                check(bool(torch.isfinite(grads[k]).all()) and
-                      e <= GRAD_REL_MAX,
-                      f"{impl}: step-1 gradient of {k} differs from the "
-                      f"plain versions' by {e} of its largest magnitude")
-            scan_loss = rows["scan"]["losses"][0]
-            row["vs_scan_step1_loss_rel_diff"] = \
-                abs(losses[0] - scan_loss) / scan_loss
-            check(row["vs_scan_step1_loss_rel_diff"] <= 0.1,
-                  f"{impl}: step-1 loss {losses[0]} vs scan's {scan_loss}")
-        step = make_train_step(model)
-        row["train_step_ms"] = cuda_time_ms(step, state, x, y, warmup=3,
-                                            iters=20, repeats=3)
-        row["utterances_per_s"] = 1e3 * B / row["train_step_ms"]
-        row.update(step_split_ms(model, state, x, y))
-        with torch.no_grad():
-            model.eval()
-            _, rates = model(x, state.generator)
-        row["firing_rate_layer0"] = float(rates[:H].mean())
-        row["firing_rate_layer1"] = float(rates[H:].mean())
-        rows[impl] = row
-        if impl == "pallas":
-            launches = counts
+        rows[impl], launches = train_variant(
+            dev, impl, state_dict, x, y, per_step[impl], rows.get("scan"))
     emit("training", model="RadLIF [512, 512, 35]", batch_size=B, T=T, F=F,
          dropout=P_DROP, lr=LR, steps=TRAIN_STEPS, **rows)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# The non-spiking family: RNN, LiGRU, GRU
+# ---------------------------------------------------------------------------
+
+
+def ann_inputs(mode, shape, seed, dev):
+    """Operands of one fused ANN cell call, lists by gate: normal input
+    streams, full orthogonal recurrent matrices, a batchnorm-like affine
+    and a nonzero y0."""
+    from sparch_tpu_torch.ops import fused_ann
+
+    b, t, h = shape
+    n = fused_ann.MODES[mode]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    vs = []
+    for i in range(n):
+        V = torch.empty(h, h)
+        torch.nn.init.orthogonal_(
+            V, generator=torch.Generator().manual_seed(seed + i))
+        vs.append(V.to(dev))
+    return dict(
+        wxs=[torch.randn(shape, generator=g, device=dev) for _ in range(n)],
+        scales=[torch.rand(h, generator=g, device=dev) * 0.7 + 0.8
+                for _ in range(n)],
+        shifts=[0.2 * torch.randn(h, generator=g, device=dev)
+                for _ in range(n)],
+        vs=vs, y0=torch.rand((b, h), generator=g, device=dev),
+    )
+
+
+def _same(t):
+    return t
+
+
+def ann_forward(mode, d, kernel: bool, drop_rate=0.0, seed=None,
+                save_residuals=False, cast=_same):
+    """The fused ANN forward with the affine, the kernel or its plain
+    version; with ``save_residuals`` the flat tuple (y, y_raw, *gates)."""
+    from sparch_tpu_torch.ops import fused_ann
+
+    fn = fused_ann._ann_cell_cuda if kernel else fused_ann.ann_cell_plain
+    r = fn(mode, *([cast(t) for t in d[k]] for k in
+                   ("wxs", "scales", "shifts", "vs")), cast(d["y0"]),
+           drop_rate=drop_rate, seed=seed, save_residuals=save_residuals)
+    return (r[0], r[1], *r[2]) if save_residuals else r
+
+
+def ann_backward(mode, d, g, residuals, seed, kernel: bool, cast=_same):
+    """The fused ANN backward on the residuals (y_raw, *gates) of the
+    training form, the kernel or its plain version; the flat tuple of
+    gradients named by ``ann_grad_names``."""
+    from sparch_tpu_torch.ops import fused_ann
+
+    fn = fused_ann._ann_cell_bwd_cuda if kernel else \
+        fused_ann.ann_cell_bwd_plain
+    y_raw, *gates = residuals
+    dwxs, dscales, dshifts, dvs, dy0 = fn(
+        mode, cast(g), [cast(t) for t in d["wxs"]], cast(y_raw),
+        [cast(t) for t in gates], [cast(t) for t in d["scales"]],
+        [cast(t) for t in d["vs"]], cast(d["y0"]), drop_rate=P_DROP,
+        seed=seed)
+    return (*dwxs, *dscales, *dshifts, *dvs, dy0)
+
+
+def ann_grad_names(mode):
+    from sparch_tpu_torch.ops import fused_ann
+
+    gates = ("", "z", "r")[:fused_ann.MODES[mode]]
+    return tuple(f"d{k}{g}" for k in ("Wx", "scale", "shift", "V")
+                 for g in gates) + ("dy0",)
+
+
+def series_within_bound(what, names, atols, got, want32, want64):
+    """Hold each series of ``got`` (the kernel's) against the plain
+    version's: within its atol, or else, with the plain version in float64
+    as the truth, no further from it than WITNESS_FWD_FACTOR times the
+    float32 plain version is. ``want64`` computes the float64 series when
+    they are needed. Returns the errors by series."""
+    errs, truth = {}, None
+    for name, atol, x, y in zip(names, atols, got, want32):
+        check(bool(torch.isfinite(x).all()), f"{what}: {name} not finite")
+        e = dict(vs_plain=float((x - y).abs().max()))
+        if e["vs_plain"] > atol:
+            if truth is None:
+                truth = dict(zip(names, want64()))
+            e["kernel_vs_f64"] = float((x.double() - truth[name]).abs().max())
+            e["plain_vs_f64"] = float((y.double() - truth[name]).abs().max())
+            check(e["kernel_vs_f64"]
+                  <= WITNESS_FWD_FACTOR * e["plain_vs_f64"],
+                  f"{what}: {name} {e}")
+        errs[name] = e
+    return errs
+
+
+def phase_ann_forward(dev):
+    from sparch_tpu_torch.ops import fused_ann
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    seed = torch.tensor([1234, 99], dtype=torch.int32, device=dev)
+    double = torch.Tensor.double
+    main = {}
+    for shape in ((B, T, H), (5, 13, 40)):
+        for mode in fused_ann.MODES:
+            what = f"{mode} {shape}"
+            d = ann_inputs(mode, shape, 4, dev)
+            names = ("y", "y_raw") + fused_ann._GATE_SERIES[mode]
+            # a kept output is y / (1 - p)
+            atols = (ANN_ATOL / (1.0 - P_DROP),) + \
+                (ANN_ATOL,) * (len(names) - 1)
+            train = (P_DROP, seed, True)
+            with torch.no_grad():
+                served = ann_forward(mode, d, True)
+                got = ann_forward(mode, d, True, *train)
+                again = ann_forward(mode, d, True, *train)
+                want_served = ann_forward(mode, d, False)
+                want = ann_forward(mode, d, False, *train)
+                torch.cuda.synchronize()
+                errs = series_within_bound(
+                    what, ("y_served",), (ANN_ATOL,), (served,),
+                    (want_served,),
+                    lambda: (ann_forward(mode, d, False, cast=double),))
+                errs.update(series_within_bound(
+                    what, names, atols, got, want,
+                    lambda: ann_forward(mode, d, False, *train,
+                                        cast=double)))
+            for n, x, z in zip(names, got, again):
+                check(torch.equal(x, z),
+                      f"{what}: {n} differs between two launches")
+            check(torch.equal(got[0] == 0, want[0] == 0),
+                  f"{what}: dropped positions differ from plain")
+            dropped = float((got[0] == 0).float().mean())
+            row = dict(cell=mode, shape=list(shape), affine=True,
+                       drop_rate=P_DROP, abs_err=errs, dropped_share=dropped,
+                       dropped_positions_equal=True,
+                       two_launches_bit_equal=True,
+                       max_abs_err=max(e["vs_plain"] for e in errs.values()))
+            if shape == (B, T, H):
+                check(abs(dropped - P_DROP) <= 0.005,
+                      f"{what}: dropped share {dropped}")
+                with torch.no_grad():
+                    row["ms"] = cuda_time_ms(ann_forward, mode, d, True)
+                    row["plain_ms"] = cuda_time_ms(ann_forward, mode, d,
+                                                   False, iters=3, repeats=3)
+                    row["ms_train"] = cuda_time_ms(ann_forward, mode, d, True,
+                                                   *train)
+                    row["plain_ms_train"] = cuda_time_ms(
+                        ann_forward, mode, d, False, *train, iters=3,
+                        repeats=3)
+                main[mode] = {k: row[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "ms_train",
+                    "plain_ms_train")}
+            emit("kernel_vs_plain", kernel="fused_ann_fwd", **row)
+    return main
+
+
+def phase_ann_backward(dev):
+    from sparch_tpu_torch.ops import fused_ann
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    seed = torch.tensor([1234, 99], dtype=torch.int32, device=dev)
+    main = {}
+    for shape in ((B, T, H), (5, 13, 40)):
+        for mode in fused_ann.MODES:
+            what = f"{mode} {shape}"
+            d = ann_inputs(mode, shape, 4, dev)
+            gen = torch.Generator(device=dev).manual_seed(6)
+            g = torch.randn(shape, generator=gen, device=dev)
+            names = ann_grad_names(mode)
+            with torch.no_grad():
+                # one set of residuals for both sides: the LiGRU's c > 0
+                # cannot flip between them
+                res = ann_forward(mode, d, False, P_DROP, seed, True)[1:]
+                got = ann_backward(mode, d, g, res, seed, True)
+                again = ann_backward(mode, d, g, res, seed, True)
+                want = ann_backward(mode, d, g, res, seed, False)
+                torch.cuda.synchronize()
+                errs = grads_within_bound(
+                    what, got, want,
+                    lambda: ann_backward(mode, d, g, res, seed, False,
+                                         cast=torch.Tensor.double), names)
+            check(len(got) == len(names) == len(want),
+                  f"{what}: {len(got)} gradients for {names}")
+            for n, x, z in zip(names, got, again):
+                check(torch.equal(x, z),
+                      f"{what}: {n} differs between two launches")
+            row = dict(cell=mode, shape=list(shape), affine=True,
+                       drop_rate=P_DROP, rel_err=errs,
+                       two_launches_bit_equal=True,
+                       max_abs_err=float((got[0] - want[0]).abs().max()))
+            if shape == (B, T, H):
+                with torch.no_grad():
+                    row["ms"] = cuda_time_ms(ann_backward, mode, d, g, res,
+                                             seed, True)
+                    row["plain_ms"] = cuda_time_ms(
+                        ann_backward, mode, d, g, res, seed, False, iters=3,
+                        repeats=3)
+                main[mode] = {k: row[k] for k in ("max_abs_err", "ms",
+                                                  "plain_ms")}
+            emit("kernel_vs_plain", kernel="fused_ann_bwd", **row)
+    return main
+
+
+def ann_state(dev, ann_type):
+    """State dict of a [512, 512, 35] model of the non-spiking family with
+    seeded random weights and, as running statistics, the batch statistics
+    of one train-mode pass over a calibration batch."""
+    from sparch_tpu_torch.models import build_model
+    from sparch_tpu_torch.models.common import BN_MOMENTUM, SeqNorm
+
+    model = build_model(
+        ann_type, (B, T, F_ANN), [H, H, C], cell_impl="scan",
+        generator=torch.Generator().manual_seed(0),
+    ).to(dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    calib = torch.randn((B, T, F_ANN), generator=g, device=dev)
+    with torch.no_grad():
+        model.train()
+        model(calib)
+        # undo the running average's first step (see serving_state)
+        w = 1.0 - BN_MOMENTUM
+        for n in model.modules():
+            if isinstance(n, SeqNorm):
+                n.running_mean.copy_(n.running_mean / w)
+                n.running_var.copy_((n.running_var - BN_MOMENTUM) / w)
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def serve_ann(dev, mode, x, timed_predictor: bool):
+    """Serve ``x`` with one model of the non-spiking family, cell_impl scan
+    and auto; the launch counters are set to 0 just before each variant's
+    call and read just after it: auto launches the forward kernel of its
+    mode twice per batch (two hidden layers) and no other kernel, scan
+    none. auto must give scan's labels on >= 99 % and its probabilities
+    within 1e-3."""
+    from sparch_tpu_torch.models import build_model
+    from sparch_tpu_torch.ops import fused_cells
+    from sparch_tpu_torch.serve import Predictor
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    ann_type = ANN_TYPES[mode]
+    state = ann_state(dev, ann_type)
+    n_batches = -(-len(x) // B)
+    out, rows = {}, {}
+    for impl in ("scan", "auto"):
+        what = f"{ann_type} {impl}"
+        model = build_model(ann_type, (B, T, F_ANN), [H, H, C],
+                            cell_impl=impl)
+        pred = Predictor(model, state, batch_size=B, device=dev)
+        fused_cells.reset_launch_counts()
+        labels, probs = pred(x)
+        counts = fused_cells.launch_counts()
+        check(probs.shape == (len(x), C) and bool(np.isfinite(probs).all()),
+              f"{what}: probs not finite or of the wrong shape")
+        check(bool(np.allclose(probs.sum(-1), 1.0, atol=1e-5)),
+              f"{what}: probs do not sum to 1")
+        want = {k: 0 for k in counts}
+        if impl == "auto":
+            want[f"fused_ann_fwd_{mode}"] = 2 * n_batches
+        check(counts == want, f"{what}: kernel launches {counts} != {want}")
+        out[impl] = (labels, probs)
+        row = dict(launches={k: n for k, n in counts.items() if n})
+        if impl == "auto":
+            row["vs_scan"] = agree = _agreement(out["auto"], out["scan"])
+            check(agree["label_agreement"] >= 0.99,
+                  f"{what}: labels agree with scan on "
+                  f"{agree['label_agreement']}")
+            check(agree["max_abs_prob_diff"] <= 1e-3,
+                  f"{what}: probs differ from scan by "
+                  f"{agree['max_abs_prob_diff']}")
+        if timed_predictor:
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                pred(x)
+                walls.append(time.perf_counter() - t0)
+            wall = statistics.median(walls)
+            row.update(predict_ms_per_batch=1e3 * wall / n_batches,
+                       utterances_per_s=len(x) / wall)
+        xb = torch.from_numpy(x[:B]).to(dev)
+        with torch.no_grad():
+            row["forward_ms"] = cuda_time_ms(pred.model, xb, warmup=2,
+                                             iters=5, repeats=3)
+        rows[impl] = row
+    return rows, counts
+
+
+def phase_serving_ann(dev):
+    """The non-spiking serving main path: the GRU, timed; the LiGRU and the
+    RNN checked alike with their forward timed. Returns the ``auto``
+    Predictor's launch counts by mode."""
+    x = np.random.default_rng(12).normal(0.0, 1.0, (N_UTT, T, F_ANN)) \
+        .astype(np.float32)
+    launches = {}
+    for mode in ("gru", "ligru", "rnn"):
+        rows, launches[mode] = serve_ann(dev, mode, x, mode == "gru")
+        emit("serving_ann", model=f"{ANN_TYPES[mode]} [512, 512, 35]",
+             n_utterances=N_UTT, batch_size=B, T=T, F=F_ANN, **rows)
+    return launches
+
+
+def phase_training_ann(dev):
+    """The non-spiking training main path: the GRU for TRAIN_STEPS steps,
+    scan and auto, timed; the LiGRU and the RNN for three steps, checked
+    alike. Returns the ``auto`` trainer's launch counts by mode."""
+    from sparch_tpu_torch.models import build_model
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn((B, T, F_ANN), generator=gen, device=dev)
+    y = torch.randint(0, C, (B,), generator=gen, device=dev)
+    launches = {}
+    for mode in ("gru", "ligru", "rnn"):
+        ann_type = ANN_TYPES[mode]
+        state_dict = build_model(
+            ann_type, (B, T, F_ANN), [H, H, C], dropout=P_DROP,
+            generator=torch.Generator().manual_seed(0)).state_dict()
+        steps = TRAIN_STEPS if mode == "gru" else 3
+        per_step = {"scan": {}, "auto": {f"fused_ann_fwd_{mode}": 2,
+                                         f"fused_ann_bwd_{mode}": 2}}
+        rows = {}
+        for impl in ("scan", "auto"):
+            rows[impl], launches[mode] = train_variant(
+                dev, impl, state_dict, x, y, per_step[impl],
+                rows.get("scan"), model_type=ann_type, steps=steps,
+                timed=mode == "gru",
+                grad_rel_max=KINK_GRAD_REL_MAX if mode == "ligru"
+                else GRAD_REL_MAX)
+        emit("training_ann", model=f"{ann_type} [512, 512, 35]",
+             batch_size=B, T=T, F=F_ANN, dropout=P_DROP, lr=LR, steps=steps,
+             **rows)
+    return launches
+
+
+def ann_bounds(mode):
+    """Bounds of the fused ANN kernels at (B, T, H) with the affine, from
+    the shape: each (B, T, H) stream, each (H, H) matrix and each state
+    counted once; every gate has one dense product of 2*B*T*H*H in the
+    forward and two in the backward (the adjoint and the dV outer
+    product)."""
+    from sparch_tpu_torch.ops import fused_ann
+
+    n = fused_ann.MODES[mode]
+    series = len(fused_ann._GATE_SERIES[mode])
+    stream, mat, state, vec = 4.0 * B * T * H, 4.0 * H * H, 4.0 * B * H, \
+        4.0 * H
+    product = 2.0 * B * T * H * H
+    fwd_bytes = (n + 1) * stream + n * mat + state + 2 * n * vec
+    fwd_ops = n * product + 12.0 * n * B * T * H
+    # reads g, the raw y, the gate series and the raw input streams; writes
+    # the input streams' gradients
+    bwd_bytes = (2 + series + 2 * n) * stream + 2 * n * mat + 2 * state \
+        + 3 * n * vec
+    return dict(
+        fwd=bound(fwd_bytes, fwd_ops),
+        fwd_train=bound(fwd_bytes + (series + 1) * stream,
+                        fwd_ops + 12.0 * B * T * H),
+        bwd=bound(bwd_bytes, 2 * n * product + 30.0 * n * B * T * H),
+    )
+
+
+def ann_kernel_rows(fwd, bwd, served, trained):
+    """The ``kernels`` entries of the fused ANN cells, one per direction
+    and mode."""
+    src = "sparch_tpu_torch/csrc/"
+    tpu = "sparch_tpu/ops/pallas_ann.py:"
+    rows = []
+    for mode in ANN_TYPES:
+        b = ann_bounds(mode)
+        f, name = dict(fwd[mode]), f"fused_ann_fwd_{mode}"
+        rows.append(dict(
+            name=name, route="cuda", source=src + "fused_ann_fwd.cu",
+            replaces=tpu + "174", launches=served[mode][name],
+            launches_training=trained[mode][name],
+            max_abs_err=f["max_abs_err"], ms=f["ms"], plain_ms=f["plain_ms"],
+            **b["fwd"], library_ms=None, ms_train=f["ms_train"],
+            plain_ms_train=f["plain_ms_train"],
+            bound_ms_train=b["fwd_train"]["bound_ms"]))
+        name = f"fused_ann_bwd_{mode}"
+        rows.append(dict(
+            name=name, route="cuda", source=src + "fused_ann_bwd.cu",
+            replaces=tpu + "392", launches=trained[mode][name], **bwd[mode],
+            **b["bwd"], library_ms=None))
+    return rows
 
 
 def main() -> int:
@@ -906,6 +1371,10 @@ def main() -> int:
     readout_bwd = phase_readout_backward(dev)
     launches = phase_serving(dev)
     trained = phase_training(dev)
+    ann_fwd = phase_ann_forward(dev)
+    ann_bwd = phase_ann_backward(dev)
+    ann_served = phase_serving_ann(dev)
+    ann_trained = phase_training_ann(dev)
     cb = cell_bounds(cell.pop("firing_rate"))
     readout_bytes = 4.0 * (B * T * C + 2 * B * C + C)
     readout_ops = 12.0 * B * T * C
@@ -938,7 +1407,7 @@ def main() -> int:
              source=src + "readout_bwd.cu", replaces=tpu + "1274",
              launches=trained["readout_bwd"], **readout_bwd,
              **bound(2 * readout_bytes, 2 * readout_ops), library_ms=None),
-    ]
+    ] + ann_kernel_rows(ann_fwd, ann_bwd, ann_served, ann_trained)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

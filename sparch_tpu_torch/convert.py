@@ -1,19 +1,21 @@
 """Carry trained weights from the JAX package to the port.
 
-:func:`variables_from_flax` maps a flax SNN variable tree, given as nested
-dicts of numpy (or JAX) arrays, onto the port's ``state_dict`` names:
+:func:`variables_from_flax` maps a flax SNN or ANN variable tree, given as
+nested dicts of numpy (or JAX) arrays, onto the port's ``state_dict`` names:
 
-    params/<m>/W/kernel                  -> <m>.W.weight  (transposed: (out, in))
-    params/<m>/W/bias                    -> <m>.W.bias
-    params/<m>/{alpha,beta,a,b,V}        -> <m>.{alpha,beta,a,b,V}
-    params/<m>/norm/BatchNorm_0/scale    -> <m>.norm.weight   (LayerNorm_0 alike)
-    params/<m>/norm/BatchNorm_0/bias     -> <m>.norm.bias
-    batch_stats/<m>/norm/BatchNorm_0/mean -> <m>.norm.running_mean
-    batch_stats/<m>/norm/BatchNorm_0/var  -> <m>.norm.running_var
+    params/<m>/<W>/kernel                -> <m>.<W>.weight  (transposed)
+    params/<m>/<W>/bias                  -> <m>.<W>.bias
+    params/<m>/{alpha,beta,a,b,V,Vz,Vr}  -> <m>.{alpha,beta,a,b,V,Vz,Vr}
+    params/<m>/<n>/BatchNorm_0/scale     -> <m>.<n>.weight   (LayerNorm_0 alike)
+    params/<m>/<n>/BatchNorm_0/bias      -> <m>.<n>.bias
+    batch_stats/<m>/<n>/BatchNorm_0/mean -> <m>.<n>.running_mean
+    batch_stats/<m>/<n>/BatchNorm_0/var  -> <m>.<n>.running_var
 
-with ``<m>`` one of ``layer_<i>`` and ``readout``. Values are copied
-exactly. A leaf that maps to nothing raises here; a port tensor that no
-leaf sets raises in ``model.load_state_dict(..., strict=True)``.
+with ``<m>`` one of ``layer_<i>`` and ``readout``, ``<W>`` a projection
+(``W``; an ANN layer's gates also ``Wz``, ``Wr``) and ``<n>`` its norm
+(``norm``; an ANN layer's ``norm_W``, ``norm_Wz``, ``norm_Wr``). Values are
+copied exactly. A leaf that maps to nothing raises here; a port tensor that
+no leaf sets raises in ``model.load_state_dict(..., strict=True)``.
 
 :func:`variables_to_flax` is the inverse: a ``state_dict`` of the port
 becomes the nested dicts of numpy arrays of the flax tree, so that the
@@ -29,7 +31,9 @@ import torch
 
 __all__ = ["variables_from_flax", "variables_to_flax"]
 
-_CELL_PARAMS = ("alpha", "beta", "a", "b", "V")
+_CELL_PARAMS = ("alpha", "beta", "a", "b", "V", "Vz", "Vr")
+_DENSES = ("W", "Wz", "Wr")
+_NORM_MODULES = ("norm",) + tuple(f"norm_{w}" for w in _DENSES)
 _NORMS = ("BatchNorm_0", "LayerNorm_0")
 
 
@@ -48,24 +52,26 @@ def _target(path) -> Optional[Tuple[str, bool]]:
         return None
     collection, module, rest = path[0], path[1], path[2:]
     if collection == "params":
-        if rest == ("W", "kernel"):
-            return f"{module}.W.weight", True
-        if rest == ("W", "bias"):
-            return f"{module}.W.bias", False
+        if len(rest) == 2 and rest[0] in _DENSES and rest[1] == "kernel":
+            return f"{module}.{rest[0]}.weight", True
+        if len(rest) == 2 and rest[0] in _DENSES and rest[1] == "bias":
+            return f"{module}.{rest[0]}.bias", False
         if len(rest) == 1 and rest[0] in _CELL_PARAMS:
             return f"{module}.{rest[0]}", False
-        if (len(rest) == 3 and rest[0] == "norm" and rest[1] in _NORMS
+        if (len(rest) == 3 and rest[0] in _NORM_MODULES and rest[1] in _NORMS
                 and rest[2] in ("scale", "bias")):
             name = "weight" if rest[2] == "scale" else "bias"
-            return f"{module}.norm.{name}", False
+            return f"{module}.{rest[0]}.{name}", False
     if collection == "batch_stats" and len(rest) == 3 and \
-            rest[:2] == ("norm", "BatchNorm_0") and rest[2] in ("mean", "var"):
-        return f"{module}.norm.running_{rest[2]}", False
+            rest[0] in _NORM_MODULES and rest[1] == "BatchNorm_0" and \
+            rest[2] in ("mean", "var"):
+        return f"{module}.{rest[0]}.running_{rest[2]}", False
     return None
 
 
 def variables_from_flax(variables) -> Dict[str, torch.Tensor]:
-    """flax SNN variables -> the port's ``state_dict`` (CPU tensors)."""
+    """flax SNN or ANN variables -> the port's ``state_dict`` (CPU
+    tensors)."""
     state_dict = {}
     for path, value in _leaves(variables):
         target = _target(path)
@@ -80,9 +86,9 @@ def variables_from_flax(variables) -> Dict[str, torch.Tensor]:
 
 
 def variables_to_flax(state_dict) -> Dict[str, dict]:
-    """The port's ``state_dict`` -> flax SNN variables (nested dicts of
-    numpy arrays), the inverse of :func:`variables_from_flax`. A module
-    with running statistics is a BatchNorm, any other norm a LayerNorm."""
+    """The port's ``state_dict`` -> flax SNN or ANN variables (nested dicts
+    of numpy arrays), the inverse of :func:`variables_from_flax`. A norm
+    with running statistics is a BatchNorm, any other a LayerNorm."""
     variables: Dict[str, dict] = {"params": {}}
 
     def put(collection, path, value):
@@ -94,21 +100,25 @@ def variables_to_flax(state_dict) -> Dict[str, dict]:
     for key, tensor in state_dict.items():
         module, *rest = key.split(".")
         arr = tensor.detach().cpu().numpy().copy()
-        norm = ("BatchNorm_0" if f"{module}.norm.running_mean" in state_dict
-                else "LayerNorm_0")
-        if rest == ["W", "weight"]:
-            put("params", (module, "W", "kernel"),
-                np.ascontiguousarray(arr.T))
-        elif rest == ["W", "bias"]:
-            put("params", (module, "W", "bias"), arr)
-        elif len(rest) == 1 and rest[0] in _CELL_PARAMS:
+        if len(rest) == 1 and rest[0] in _CELL_PARAMS:
             put("params", (module, rest[0]), arr)
-        elif rest in (["norm", "weight"], ["norm", "bias"]):
-            name = "scale" if rest[1] == "weight" else "bias"
-            put("params", (module, "norm", norm, name), arr)
-        elif rest in (["norm", "running_mean"], ["norm", "running_var"]):
+            continue
+        sub, leaf = rest if len(rest) == 2 else (None, None)
+        norm = ("BatchNorm_0"
+                if f"{module}.{sub}.running_mean" in state_dict
+                else "LayerNorm_0")
+        if sub in _DENSES and leaf == "weight":
+            put("params", (module, sub, "kernel"),
+                np.ascontiguousarray(arr.T))
+        elif sub in _DENSES and leaf == "bias":
+            put("params", (module, sub, "bias"), arr)
+        elif sub in _NORM_MODULES and leaf in ("weight", "bias"):
+            name = "scale" if leaf == "weight" else "bias"
+            put("params", (module, sub, norm, name), arr)
+        elif sub in _NORM_MODULES and leaf in ("running_mean",
+                                               "running_var"):
             put("batch_stats",
-                (module, "norm", norm, rest[1][len("running_"):]), arr)
+                (module, sub, norm, leaf[len("running_"):]), arr)
         else:
             raise KeyError(f"no flax leaf for port tensor {key}")
     return variables

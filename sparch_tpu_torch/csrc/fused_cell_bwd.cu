@@ -50,8 +50,9 @@
 //   once and pads its rows to 16 bytes) streams from L2 through shared
 //   memory in tiles of up to 64 KB, kStages stages deep and one barrier
 //   per tile: one thread starts each tile as a bulk copy (TMA) that
-//   reports to an mbarrier (the same stream built from per-thread
-//   cp.async was a quarter slower at every block size). The stream runs
+//   reports to an mbarrier (tile_stream.cuh, shared with the ANN kernels;
+//   the same stream built from per-thread cp.async was a quarter slower
+//   at every block size). The stream runs
 //   on across the steps, so the next step's first tiles arrive during
 //   this step's elementwise work. (A first version read V^T straight into registers, eight loads
 //   in flight per thread, and waited on L2 latency: 39 us per step at
@@ -81,8 +82,11 @@
 #include <stdint.h>
 
 #include "dropout_hash.cuh"
+#include "tile_stream.cuh"
 
 namespace {
+
+using namespace sparch;
 
 constexpr int kThreads = 512;
 // The rows a block owns times the neurons a thread owns; a macro so that
@@ -92,14 +96,11 @@ constexpr int kThreads = 512;
 #define SPARCH_BWD_WORK 2
 #endif
 constexpr int kWork = SPARCH_BWD_WORK;
-constexpr int kUnroll = 8;  // of the product's inner loop
 constexpr int kMaxNpt = 8;  // so H <= kThreads * kMaxNpt = 4096
 constexpr int kTile = 64;  // dV output tile
 constexpr int kBK = 16;    // dV depth per shared-memory stage
 constexpr int kDvThreads = 256;
 constexpr int kVecs = 6;  // dalpha, dbeta, da, db, dscale, dshift
-constexpr int kStages = 3;           // cp.async stages of the V^T stream
-constexpr int kTileFloats = 16384;   // floats of V^T per stage (64 KB)
 
 struct Args {
   const float* g;
@@ -130,92 +131,6 @@ struct Args {
   int tile_rows;
 };
 
-template <int N>
-__device__ __forceinline__ void load_rows(const float* p, float* d) {
-  if constexpr (N == 8) {
-    const float4 lo = reinterpret_cast<const float4*>(p)[0];
-    const float4 hi = reinterpret_cast<const float4*>(p)[1];
-    d[0] = lo.x; d[1] = lo.y; d[2] = lo.z; d[3] = lo.w;
-    d[4] = hi.x; d[5] = hi.y; d[6] = hi.z; d[7] = hi.w;
-  } else if constexpr (N == 4) {
-    const float4 v = reinterpret_cast<const float4*>(p)[0];
-    d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
-  } else if constexpr (N == 2) {
-    const float2 v = reinterpret_cast<const float2*>(p)[0];
-    d[0] = v.x; d[1] = v.y;
-  } else {
-    d[0] = p[0];
-  }
-}
-
-// Row stride of V^T (the wrapper pads its rows to a multiple of four
-// floats, so every row and every tile starts 16-byte aligned) and the rows
-// of one tile.
-__host__ __device__ inline int tile_stride(int H) { return (H + 3) & ~3; }
-__host__ __device__ inline int tile_rows(int H) {
-  const int rows = kTileFloats / tile_stride(H);
-  return rows < H ? rows : H;
-}
-
-// One thread starts a bulk copy (the Tensor Memory Accelerator, no tensor
-// map: a tile is one contiguous piece of V^T); the hardware reports the
-// bytes that have landed to an mbarrier in shared memory.
-__device__ __forceinline__ uint32_t shared_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   shared_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(shared_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(shared_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(shared_addr(dst)),
-      "l"(src), "r"(bytes), "r"(shared_addr(bar))
-      : "memory");
-}
-
-// Start the asynchronous copy of tile n of the stream (tile n % n_tiles of
-// V^T) into stage n % kStages.
-__device__ __forceinline__ void start_tile(const float* __restrict__ VT,
-                                           float* stages, uint64_t* full,
-                                           int n, int n_tiles, int TJ, int H,
-                                           int Hc) {
-  const int j0 = (n % n_tiles) * TJ;
-  const int rows = min(TJ, H - j0);
-  float* stage = stages + (n % kStages) * kTileFloats;
-  const float* src = VT + (size_t)j0 * Hc;
-  if (threadIdx.x == 0) {
-    const uint32_t bytes = (uint32_t)(rows * Hc) * sizeof(float);
-    mbar_expect_tx(&full[n % kStages], bytes);
-    bulk_copy(stage, src, bytes, &full[n % kStages]);
-  }
-}
-
 template <bool RECURRENT, bool ADAPTIVE, bool AFFINE, bool DROPOUT, int NPT>
 __global__ void __launch_bounds__(kThreads)
 fused_cell_bwd_kernel(const Args p) {
@@ -227,15 +142,11 @@ fused_cell_bwd_kernel(const Args p) {
   const int T = p.T;
   const int row0 = blockIdx.x * BT;
   const float thr = p.threshold;
-  const int Hc = tile_stride(H);
-  const int TJ = tile_rows(H);
-  const int n_tiles = (H + TJ - 1) / TJ;
-  const int total_tiles = T * n_tiles;
-  // the stages start 16-byte aligned behind the dDrive buffers
-  float* stages = dd_s + ((2 * H * BT + 3) & ~3);
-  int next_tile = 0;  // next tile of the stream to start copying
-  int tile = 0;       // next tile to consume
   __shared__ uint64_t full[kStages];  // one mbarrier per stage
+  // the cyclic stream of V^T's tiles, T times over; the stages start
+  // 16-byte aligned behind the dDrive buffers
+  TileStream vt = stream_over(p.VT, dd_s + ((2 * H * BT + 3) & ~3), full, H,
+                              1, T);
 
   float al[NPT], oma[NPT], be[NPT], aa[NPT], bb[NPT], sc[NPT];
   float dal[NPT], dbe[NPT], daa[NPT], dbb[NPT], dsc[NPT], dsh[NPT];
@@ -276,20 +187,7 @@ fused_cell_bwd_kernel(const Args p) {
                     : 0.f;
     }
   }
-  if (RECURRENT) {
-    if (threadIdx.x == 0) {
-      for (int k = 0; k < kStages; ++k) mbar_init(&full[k], 1);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
-    __syncthreads();
-    // fill the pipeline: kStages - 1 tiles in flight before the first step
-    for (int k = 0; k < kStages - 1; ++k) {
-      if (next_tile < total_tiles) {
-        start_tile(p.VT, stages, full, next_tile, n_tiles, TJ, H, Hc);
-      }
-      ++next_tile;
-    }
-  }
+  if (RECURRENT) stream_open(vt);
 
   for (int t = T - 1; t >= 0; --t) {
     float* buf = dd_s + (t & 1) * H * BT;
@@ -358,35 +256,7 @@ fused_cell_bwd_kernel(const Args p) {
       }
       // AV[b][k] = sum_j dDrive[b][j] * V[k][j] = sum_j dDrive[b][j] *
       // VT[j][k], j ascending, tile by tile
-      for (int jt = 0; jt < n_tiles; ++jt, ++tile) {
-        // the tile has landed: its stage's mbarrier has completed the
-        // phase of this use
-        mbar_wait(&full[tile % kStages], (tile / kStages) & 1);
-        // all threads are done with the tile before, and (first tile of a
-        // step) dDrive is published
-        __syncthreads();
-        if (next_tile < total_tiles) {
-          // into the stage of the tile before, which is free now
-          start_tile(p.VT, stages, full, next_tile, n_tiles, TJ, H, Hc);
-        }
-        ++next_tile;
-        const float* stage = stages + (tile % kStages) * kTileFloats;
-        const int j0 = jt * TJ;
-        const int rows = min(TJ, H - j0);
-#pragma unroll kUnroll
-        for (int q = 0; q < rows; ++q) {
-          float d[BT];
-          load_rows<BT>(buf + (size_t)(j0 + q) * BT, d);
-#pragma unroll
-          for (int i = 0; i < NPT; ++i) {
-            const float v = stage[q * Hc + col[i]];
-#pragma unroll
-            for (int r = 0; r < BT; ++r) {
-              AV[i][r] = fmaf(d[r], v, AV[i][r]);
-            }
-          }
-        }
-      }
+      stream_matrix<NPT, BT>(vt, buf, col, AV);
     }
   }
 
@@ -507,16 +377,6 @@ dv_kernel(const float* __restrict__ u_seq, const float* __restrict__ s0,
   }
 }
 
-__global__ void dv_reduce_kernel(const float* __restrict__ partial,
-                                 float* __restrict__ dV, int ksplit,
-                                 int n) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  float sum = 0.f;
-  for (int z = 0; z < ksplit; ++z) sum += partial[(size_t)z * n + idx];
-  dV[idx] = sum;
-}
-
 // More than 48 KB of dynamic shared memory has to be asked for, per
 // instantiation.
 template <bool R, bool A, bool F, bool D, int NPT>
@@ -634,7 +494,7 @@ extern "C" int sparch_fused_cell_bwd(
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   const int n = H * H;
-  dv_reduce_kernel<<<(n + 255) / 256, 256, 0, st>>>(dv_partials, dV, ksplit,
+  sum_parts_kernel<<<(n + 255) / 256, 256, 0, st>>>(dv_partials, dV, ksplit,
                                                     n);
   return (int)cudaGetLastError();
 }

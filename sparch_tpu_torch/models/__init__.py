@@ -1,10 +1,19 @@
 """Model registry (counterpart of sparch_tpu/models/__init__.py): the
-spiking {LIF, adLIF, RLIF, RadLIF} family, selected by a model-type
-string. The non-spiking {MLP, RNN, LiGRU, GRU} family is not ported yet."""
+spiking {LIF, adLIF, RLIF, RadLIF} and the non-spiking {MLP, RNN, LiGRU,
+GRU} family, selected by one model-type string."""
 from __future__ import annotations
 
 import torch
 
+from sparch_tpu_torch.models.ann import (
+    ANN,
+    ANN_TYPES,
+    GRULayer,
+    LiGRULayer,
+    MLPLayer,
+    ReadoutLayerANN,
+    RNNLayer,
+)
 from sparch_tpu_torch.models.snn import (
     SNN,
     SNN_NEURON_TYPES,
@@ -15,10 +24,10 @@ from sparch_tpu_torch.models.snn import (
     adLIFLayer,
 )
 
-ANN_TYPES = ("MLP", "RNN", "LiGRU", "GRU")
 MODEL_TYPES = SNN_NEURON_TYPES + ANN_TYPES
 
 __all__ = [
+    "ANN",
     "SNN",
     "MODEL_TYPES",
     "ANN_TYPES",
@@ -30,6 +39,11 @@ __all__ = [
     "RLIFLayer",
     "RadLIFLayer",
     "ReadoutLayer",
+    "MLPLayer",
+    "RNNLayer",
+    "LiGRULayer",
+    "GRULayer",
+    "ReadoutLayerANN",
 ]
 
 
@@ -44,7 +58,7 @@ def build_model(
     use_readout_layer: bool = True,
     **kwargs,
 ):
-    """Build a model from a model-type string."""
+    """Build an SNN or an ANN from a model-type string."""
     if model_type in SNN_NEURON_TYPES:
         return SNN(
             input_shape=tuple(input_shape),
@@ -58,9 +72,19 @@ def build_model(
             **kwargs,
         )
     if model_type in ANN_TYPES:
-        raise NotImplementedError(
-            f"{model_type} is a non-spiking model: the ANN slice of the port "
-            "(ROADMAP queue 1 item 4, queue 2 items 6-7) is not done yet"
+        # an ANN has no state init (always zeros) and no threshold
+        kwargs.pop("state_init", None)
+        kwargs.pop("threshold", None)
+        return ANN(
+            input_shape=tuple(input_shape),
+            layer_sizes=tuple(layer_sizes),
+            ann_type=model_type,
+            dropout=dropout,
+            normalization=normalization,
+            use_bias=use_bias,
+            bidirectional=bidirectional,
+            use_readout_layer=use_readout_layer,
+            **kwargs,
         )
     raise ValueError(f"Invalid model type {model_type}")
 

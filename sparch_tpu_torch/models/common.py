@@ -1,4 +1,4 @@
-"""Shared building blocks for the SNN layer stacks (counterpart of
+"""Shared building blocks for the SNN and ANN layer stacks (counterpart of
 sparch_tpu/models/common.py).
 
 - Feedforward weights and biases: U[-1/sqrt(fan_in), 1/sqrt(fan_in)],
@@ -132,7 +132,9 @@ class SeqNorm(nn.Module):
         form."""
         if self.kind == "batchnorm":
             if self.training:
-                flat = x.reshape(-1, x.shape[-1]).float()
+                flat = x.reshape(-1, x.shape[-1])
+                if flat.dtype != torch.float64:
+                    flat = flat.float()  # statistics in float32 at least
                 mean = flat.mean(dim=0)
                 mean2 = (flat * flat).mean(dim=0)
                 var = mean2 - mean * mean
@@ -162,8 +164,11 @@ def bidir_split(s):
 
 class FusedCellPolicy:
     """When a layer takes the fused CUDA kernels (flax
-    ``FusedCellPolicy._use_pallas``). The inheriting module defines
-    ``hidden_size`` and ``cell_impl``.
+    ``FusedCellPolicy._use_pallas``), and the dropout and bidirectional
+    re-merge that follow the cell on either path, in one place for the
+    spiking and the non-spiking layers. The inheriting module defines
+    ``hidden_size``, ``cell_impl``, ``dropout``, ``bidirectional`` and
+    ``training``.
 
     ``cell_impl``: 'pallas' always takes the fused path (its plain version
     on a CPU tensor); 'auto' takes it for every CUDA tensor, so a layer
@@ -180,3 +185,27 @@ class FusedCellPolicy:
         if self.cell_impl == "scan":
             return False
         raise ValueError(f"Invalid cell_impl {self.cell_impl}")
+
+    def _fused_dropout(self, fused: bool, like: torch.Tensor, generator):
+        """``dict(drop_rate, drop_seed)`` for the in-kernel dropout: while
+        training with dropout on the fused path, the rate and two int32
+        drawn from ``generator`` on the layer's device (no host sync);
+        otherwise rate 0 and no seed. The mask is drawn per element before
+        the bidirectional split, as in the JAX package."""
+        if not (fused and self.training and self.dropout > 0):
+            return dict(drop_rate=0.0, drop_seed=None)
+        seed = torch.randint(0, 2**31 - 1, (2,), generator=generator,
+                             dtype=torch.int32, device=like.device)
+        return dict(drop_rate=float(self.dropout), drop_seed=seed)
+
+    def _post(self, out, fused: bool, generator):
+        """Bidirectional re-merge, then (unless the kernel dropped the
+        output already) dropout."""
+        if self.bidirectional:
+            out = bidir_split(out)
+        if fused or not (self.training and self.dropout > 0):
+            return out  # dropped in the kernel, or not at all
+        # inverted dropout with the mask drawn from the run's generator
+        keep = torch.rand(out.shape, generator=generator, dtype=out.dtype,
+                          device=out.device) >= self.dropout
+        return out * keep * (1.0 / (1.0 - self.dropout))

@@ -28,7 +28,6 @@ from sparch_tpu_torch.models.common import (
     FusedCellPolicy,
     SeqNorm,
     bidir_concat,
-    bidir_split,
 )
 from sparch_tpu_torch.ops import cells, fused_cells
 
@@ -117,28 +116,6 @@ class _SpikingLayerBase(FusedCellPolicy, nn.Module):
             scale, shift = self.norm.affine(Wx)
             return Wx, scale, shift
         return self.norm(Wx), None, None
-
-    def _fused_dropout(self, fused: bool, like: torch.Tensor, generator):
-        """``dict(drop_rate, drop_seed)`` for the in-kernel dropout: while
-        training with dropout on the fused path, the rate and two int32
-        drawn from ``generator`` on the layer's device (no host sync);
-        otherwise rate 0 and no seed. The mask is drawn per element before
-        the bidirectional split, as in the JAX package."""
-        if not (fused and self.training and self.dropout > 0):
-            return dict(drop_rate=0.0, drop_seed=None)
-        seed = torch.randint(0, 2**31 - 1, (2,), generator=generator,
-                             dtype=torch.int32, device=like.device)
-        return dict(drop_rate=float(self.dropout), drop_seed=seed)
-
-    def _post(self, out, fused: bool, generator):
-        if self.bidirectional:
-            out = bidir_split(out)
-        if fused or not (self.training and self.dropout > 0):
-            return out  # dropped in the kernel, or not at all
-        # inverted dropout with the mask drawn from the run's generator
-        keep = torch.rand(out.shape, generator=generator, dtype=out.dtype,
-                          device=out.device) >= self.dropout
-        return out * keep * (1.0 / (1.0 - self.dropout))
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         Wx, scale, shift = self._pre(x)

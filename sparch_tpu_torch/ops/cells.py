@@ -1,5 +1,6 @@
-"""Spiking neuron recurrences as plain PyTorch loops over time
-(counterpart of the spiking half of sparch_tpu/ops/cells.py).
+"""Neuron recurrences as plain PyTorch loops over time (counterpart of
+sparch_tpu/ops/cells.py): the spiking cells and the non-spiking (ANN)
+ones.
 
 The calling layer hoists the input projection out of the recurrence, so
 every cell here takes the pre-activations ``Wx`` of shape ``(B, T, H)`` and
@@ -14,6 +15,12 @@ Dynamics (per step, previous-step ``u``, ``w`` and ``s`` on the right):
 - RLIF:   u = a*(u - s) + (1-a)*(Wx_t + s @ V)
 - RadLIF: w as adLIF ;  u = a*(u - s) + (1-a)*(Wx_t + s @ V - w)
 - Readout: u = a*u + (1-a)*Wx_t ;  out = sum_t softmax(u_t)
+- RNN:    y = sigmoid(Wx_t + y @ V)
+- LiGRU:  z = sigmoid(Wzx_t + y @ Vz) ;  c = relu(Wx_t + y @ V)
+          y = z*y + (1-z)*c
+- GRU:    z as LiGRU ;  r = sigmoid(Wrx_t + y @ Vr)
+          c = tanh(Wx_t + (r*y) @ V) ;  y = z*y + (1-z)*c
+- ANN readout: out = sum_t softmax(x_t), no state
 
 The arithmetic is written in the order the JAX cells use, op by op, so
 that the two packages round alike.
@@ -42,6 +49,10 @@ __all__ = [
     "leaky_cumsum",
     "readout_sum",
     "readout_sum_scan",
+    "rnn_scan",
+    "ligru_scan",
+    "gru_scan",
+    "cumulative_softmax",
 ]
 
 # Plausible ranges for the trainable neuron time constants.
@@ -198,3 +209,53 @@ def readout_sum_scan(Wx, alpha, u0):
         u = alpha * u + (1.0 - alpha) * Wx[:, t]
         out = out + torch.softmax(u, dim=-1)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Non-spiking (ANN) cells
+# ---------------------------------------------------------------------------
+
+
+def rnn_scan(Wx, V, y0):
+    """Vanilla sigmoid RNN recurrence. ``Wx``: (B,T,H) -> y (B,T,H)."""
+    y = y0
+    out = []
+    for t in range(Wx.shape[1]):
+        y = torch.sigmoid(Wx[:, t] + torch.matmul(y, V))
+        out.append(y)
+    return torch.stack(out, dim=1)
+
+
+def ligru_scan(Wx, Wzx, V, Vz, y0):
+    """Light GRU (Ravanelli et al. 2018) recurrence with a ReLU candidate."""
+    y = y0
+    out = []
+    for t in range(Wx.shape[1]):
+        z = torch.sigmoid(Wzx[:, t] + torch.matmul(y, Vz))
+        c = torch.relu(Wx[:, t] + torch.matmul(y, V))
+        y = z * y + (1.0 - z) * c
+        out.append(y)
+    return torch.stack(out, dim=1)
+
+
+def gru_scan(Wx, Wzx, Wrx, V, Vz, Vr, y0):
+    """Full GRU (Cho et al. 2014) recurrence with a tanh candidate; the
+    reset gate is applied before the recurrent product, ``(r*y) @ V``."""
+    y = y0
+    out = []
+    for t in range(Wx.shape[1]):
+        z = torch.sigmoid(Wzx[:, t] + torch.matmul(y, Vz))
+        r = torch.sigmoid(Wrx[:, t] + torch.matmul(y, Vr))
+        c = torch.tanh(Wx[:, t] + torch.matmul(r * y, V))
+        y = z * y + (1.0 - z) * c
+        out.append(y)
+    return torch.stack(out, dim=1)
+
+
+def cumulative_softmax(x):
+    """The ANN readout's collapse of time: ``sum_t softmax(x_t)``,
+    ``(B,T,H) -> (B,H)``, summed in float32 (a float64 input stays
+    float64)."""
+    if x.dtype != torch.float64:
+        x = x.float()
+    return torch.softmax(x, dim=-1).sum(dim=1)

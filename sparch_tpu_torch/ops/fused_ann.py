@@ -1,0 +1,462 @@
+"""Fused non-spiking recurrent cells (counterpart of
+sparch_tpu/ops/pallas_ann.py), forward and backward: the sigmoid RNN, the
+LiGRU and the GRU.
+
+    RNN:    y_t = sigmoid(wx_t + y @ V)
+    LiGRU:  z = sigmoid(wzx_t + y @ Vz); c = relu(wx_t + y @ V)
+            y_t = z*y + (1-z)*c
+    GRU:    z = sigmoid(wzx_t + y @ Vz); r = sigmoid(wrx_t + y @ Vr)
+            c = tanh(wx_t + (r*y) @ V);  y_t = z*y + (1-z)*c
+
+A cell has one input stream and one recurrent matrix per gate. Gates are
+numbered 0 (the candidate: ``Wx``, ``V``), 1 (update: ``Wzx``, ``Vz``) and
+2 (reset: ``Wrx``, ``Vr``); the RNN has gate 0 only. ``scales``/``shifts``
+(one ``(H,)`` pair per gate) apply the normalization affine on load,
+``drive = scale*wx + shift``, and their gradients are returned.
+
+Each entry point runs one ``torch.autograd.Function`` that dispatches on
+the device of ``Wx`` as ``ops.fused_cells`` does: a CPU tensor runs the
+plain PyTorch versions (``ann_cell_plain``, ``ann_cell_bwd_plain``), a CUDA
+tensor launches ``csrc/fused_ann_fwd.cu`` and ``csrc/fused_ann_bwd.cu`` and
+nothing else, any other device raises.
+
+Residuals: with a gradient to compute the forward also writes the gate
+series (LiGRU z, c; GRU z, r, c) and, only under dropout, the raw ``y``
+series beside the dropped output; without dropout the output is the ``y``
+residual. Without a gradient it writes the output alone.
+
+Output dropout is the hash of ``ops.fused_cells`` (same seed, same batch
+tile): the raw ``y`` stays in the recurrence, only the stored output is
+dropped, and the backward regenerates the mask.
+
+Launches are counted per mode (``fused_ann_fwd_gru``, ...) and reported by
+``fused_cells.launch_counts()``. The bf16-stream mode raises
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from sparch_tpu_torch._build import Kernel
+from sparch_tpu_torch.ops import fused_cells
+from sparch_tpu_torch.ops.fused_cells import (
+    _as_seed,
+    _check,
+    _inv_keep,
+    _keep_rows,
+    _ptr,
+    dropout_tile_rows,
+    keep_u32,
+)
+
+__all__ = [
+    "MODES",
+    "FUSED_ANN_FWD",
+    "FUSED_ANN_BWD",
+    "KERNELS",
+    "ann_cell_plain",
+    "ann_cell_bwd_plain",
+    "rnn_fused",
+    "ligru_fused",
+    "gru_fused",
+]
+
+# gates per mode, and the gate series the backward reads
+MODES = {"rnn": 1, "ligru": 2, "gru": 3}
+_GATE_SERIES = {"rnn": (), "ligru": ("z", "c"), "gru": ("z", "r", "c")}
+_MODE_ID = {"rnn": 0, "ligru": 1, "gru": 2}
+# the order in which one step reads the recurrent matrices, by gate: the
+# kernels stream them from one packed buffer in this order
+_FWD_ORDER = {"rnn": (0,), "ligru": (0, 1), "gru": (1, 2, 0)}
+_BWD_ORDER = {"rnn": (0,), "ligru": (0, 1), "gru": (0, 1, 2)}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_U = ctypes.c_uint32
+_FWD_ARGS = [_P] * 13 + [_I] * 4 + [_U, _F, _I] + [_P]
+_BWD_ARGS = [_P] * 23 + [_I] * 4 + [_U, _F, _I] + [_I] * 2 + [_P]
+FUSED_ANN_FWD = {
+    mode: Kernel("fused_ann_fwd", "sparch_fused_ann_fwd", _FWD_ARGS,
+                 name=f"fused_ann_fwd_{mode}") for mode in MODES
+}
+FUSED_ANN_BWD = {
+    mode: Kernel("fused_ann_bwd", "sparch_fused_ann_bwd", _BWD_ARGS,
+                 name=f"fused_ann_bwd_{mode}") for mode in MODES
+}
+KERNELS = tuple(FUSED_ANN_FWD.values()) + tuple(FUSED_ANN_BWD.values())
+# csrc/fused_ann_*.cu: threads per block, neurons per thread at most (so
+# H <= 2048), (rows * neurons) per thread, and the tile of the dV product
+_THREADS = 512
+_MAX_NPT = 4
+_MAX_H = _THREADS * _MAX_NPT
+_WORK = 2
+_DV_TILE = 64
+_DV_BK = 16
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def ann_cell_plain(mode: str, wxs, scales, shifts, vs, y0, *,
+                   drop_rate: float = 0.0, seed=None,
+                   save_residuals: bool = False):
+    """Plain PyTorch version of ``csrc/fused_ann_fwd.cu``: the TPU
+    ``_ann_fwd_kernel``'s per-step arithmetic as a loop over T. ``wxs``,
+    ``vs`` (and ``scales``/``shifts``, or None for no affine) are lists by
+    gate. Returns the output (B,T,H), dropped under ``drop_rate > 0``; with
+    ``save_residuals`` returns ``(out, y_raw, gates)``: the raw y series
+    (None without dropout, where ``out`` is it) and the tuple of gate
+    series."""
+    B, T, H = wxs[0].shape
+    y = y0
+    out = torch.empty_like(wxs[0])
+    dropout = drop_rate > 0.0
+    y_raw = torch.empty_like(out) if (save_residuals and dropout) else None
+    gates = tuple(torch.empty_like(out) for _ in _GATE_SERIES[mode]) \
+        if save_residuals else ()
+    if dropout:
+        keep, inv = keep_u32(drop_rate), _inv_keep(drop_rate)
+    for t in range(T):
+        d = [w[:, t] for w in wxs]
+        if scales is not None:
+            d = [sc * x + sh for sc, x, sh in zip(scales, d, shifts)]
+        if mode == "rnn":
+            y = torch.sigmoid(d[0] + torch.matmul(y, vs[0]))
+            vals = ()
+        elif mode == "ligru":
+            z = torch.sigmoid(d[1] + torch.matmul(y, vs[1]))
+            c = torch.relu(d[0] + torch.matmul(y, vs[0]))
+            y = z * y + (1.0 - z) * c
+            vals = (z, c)
+        else:
+            z = torch.sigmoid(d[1] + torch.matmul(y, vs[1]))
+            r = torch.sigmoid(d[2] + torch.matmul(y, vs[2]))
+            c = torch.tanh(d[0] + torch.matmul(r * y, vs[0]))
+            y = z * y + (1.0 - z) * c
+            vals = (z, r, c)
+        if dropout:
+            # the raw y stays in the recurrence
+            mask = _keep_rows(B, H, seed, t, keep)
+            out[:, t] = torch.where(mask, y * inv, torch.zeros_like(y))
+            if y_raw is not None:
+                y_raw[:, t] = y
+        else:
+            out[:, t] = y
+        for series, val in zip(gates, vals):
+            series[:, t] = val
+    return (out, y_raw, gates) if save_residuals else out
+
+
+def ann_cell_bwd_plain(mode: str, g, wxs, y_seq, gates, scales, vs, y0, *,
+                       drop_rate: float = 0.0, seed=None):
+    """Plain PyTorch version of ``csrc/fused_ann_bwd.cu``: reverse-time
+    BPTT, the adjoint equations of the TPU ``_ann_bwd_kernel``. With G_t the
+    total adjoint of y_t (the masked output cotangent plus what step t+1
+    carries back) and y_p = y_{t-1} (y0 at the first step), walking
+    t = T..1:
+
+        RNN:   dpre = G*y_t*(1-y_t);  G_{t-1} += dpre @ V^T
+        LiGRU: dcpre = G*(1-z)*[c > 0];  dzpre = G*(y_p-c)*z*(1-z)
+               G_{t-1} += G*z + dcpre @ V^T + dzpre @ Vz^T
+        GRU:   dcpre = G*(1-z)*(1-c^2);  dzpre = G*(y_p-c)*z*(1-z)
+               dry = dcpre @ V^T;  drpre = dry*y_p*r*(1-r)
+               G_{t-1} += G*z + dry*r + dzpre @ Vz^T + drpre @ Vr^T
+
+    and per gate dWx = dpre*scale, dscale = sum dpre*wx, dshift = sum dpre,
+    dV = sum y_p^T dpre (the GRU's candidate: (r*y_p)^T dcpre), dy0 = G_0.
+    ``y_seq`` is the raw y series; ``wxs`` (the raw streams) is read only
+    with the affine. Returns ``(dwxs, dscales, dshifts, dvs, dy0)``, lists
+    by gate, the affine ones None without it."""
+    B, T, H = g.shape
+    n = MODES[mode]
+    affine = scales is not None
+    zeros = torch.zeros_like(y0)
+    D = zeros
+    dpres = [torch.empty_like(g) for _ in range(n)]
+    dsc, dsh = [zeros] * n, [zeros] * n
+    dropout = drop_rate > 0.0
+    if dropout:
+        keep, inv = keep_u32(drop_rate), _inv_keep(drop_rate)
+    for t in range(T - 1, -1, -1):
+        g_t = g[:, t]
+        if dropout:
+            mask = _keep_rows(B, H, seed, t, keep)
+            g_t = torch.where(mask, g_t * inv, torch.zeros_like(g_t))
+        y_p = y_seq[:, t - 1] if t > 0 else y0
+        G = g_t + D
+        if mode == "rnn":
+            y_t = y_seq[:, t]
+            step = (G * y_t * (1.0 - y_t),)
+            D = torch.matmul(step[0], vs[0].t())
+        elif mode == "ligru":
+            z, c = gates[0][:, t], gates[1][:, t]
+            dc = torch.where(c > 0, G * (1.0 - z), torch.zeros_like(G))
+            dz = G * (y_p - c) * z * (1.0 - z)
+            D = G * z + torch.matmul(dc, vs[0].t()) \
+                + torch.matmul(dz, vs[1].t())
+            step = (dc, dz)
+        else:
+            z, r, c = gates[0][:, t], gates[1][:, t], gates[2][:, t]
+            dc = G * (1.0 - z) * (1.0 - c * c)
+            dz = G * (y_p - c) * z * (1.0 - z)
+            dry = torch.matmul(dc, vs[0].t())
+            dr = dry * y_p * r * (1.0 - r)
+            D = G * z + dry * r + torch.matmul(dz, vs[1].t()) \
+                + torch.matmul(dr, vs[2].t())
+            step = (dc, dz, dr)
+        for i, dpre in enumerate(step):
+            dpres[i][:, t] = dpre
+            if affine:
+                dsc[i] = dsc[i] + dpre * wxs[i][:, t]
+                dsh[i] = dsh[i] + dpre
+    y_prev = torch.cat([y0[:, None], y_seq[:, :-1]], dim=1)
+    dvs = []
+    for i, dpre in enumerate(dpres):
+        left = gates[1] * y_prev if (mode == "gru" and i == 0) else y_prev
+        dvs.append(torch.matmul(left.reshape(-1, H).t(),
+                                dpre.reshape(-1, H)))
+    if not affine:
+        return dpres, None, None, dvs, D
+    dwxs = [dpre * sc for dpre, sc in zip(dpres, scales)]
+    return (dwxs, [x.sum(0) for x in dsc], [x.sum(0) for x in dsh], dvs, D)
+
+
+# ---------------------------------------------------------------------------
+# Kernels
+# ---------------------------------------------------------------------------
+
+
+def _check_operands(mode, wxs, scales, shifts, vs, y0):
+    n = MODES[mode]
+    B, T, H = wxs[0].shape
+    dev = wxs[0].device
+    if H > _MAX_H:
+        raise ValueError(
+            f"the fused ANN cell kernel takes H <= {_MAX_H}, got {H}")
+    for name, group, shape in (("wx", wxs, (B, T, H)), ("V", vs, (H, H)),
+                               ("scale", scales, (H,)),
+                               ("shift", shifts, (H,))):
+        if group is None:
+            continue
+        if len(group) != n:
+            raise ValueError(f"{mode}: want {n} of {name}, got {len(group)}")
+        for i, t in enumerate(group):
+            _check(f"{name}[{i}]", t, shape, dev)
+    _check("y0", y0, (B, H), dev)
+
+
+def _pack(mats: Sequence[torch.Tensor], order) -> torch.Tensor:
+    """The matrices in the order one step streams them, as one
+    ``(len(order), H, Hc)`` buffer with the rows padded to 16 bytes, so
+    that every tile of rows is one aligned contiguous piece."""
+    H = mats[0].shape[0]
+    return torch.stack([torch.nn.functional.pad(mats[i], (0, -H % 4))
+                        for i in order]).contiguous()
+
+
+def _three(ts):
+    """Pointers of up to three tensors, None for the gates a mode lacks."""
+    ts = list(ts) if ts is not None else []
+    return tuple(_ptr(t) for t in ts + [None] * (3 - len(ts)))
+
+
+def _dropout_args(B, drop_rate, seed, dev):
+    if not drop_rate > 0.0:
+        return None, 0, 1.0, dropout_tile_rows(B)
+    _check("seed", seed, (2,), dev, torch.int32)
+    return (_ptr(seed), keep_u32(drop_rate), _inv_keep(drop_rate),
+            dropout_tile_rows(B))
+
+
+def _ann_cell_cuda(mode: str, wxs, scales, shifts, vs, y0, *,
+                   drop_rate: float = 0.0, seed=None,
+                   save_residuals: bool = False):
+    """Launch ``csrc/fused_ann_fwd.cu``. Same contract as
+    ``ann_cell_plain``."""
+    if (scales is None) != (shifts is None):
+        raise ValueError("pass both scales and shifts, or neither")
+    _check_operands(mode, wxs, scales, shifts, vs, y0)
+    B, T, H = wxs[0].shape
+    dev = wxs[0].device
+    seed_p, keep, inv, tile = _dropout_args(B, drop_rate, seed, dev)
+    out = torch.empty_like(wxs[0])
+    y_raw = torch.empty_like(out) if (save_residuals and seed_p) else None
+    names = _GATE_SERIES[mode] if save_residuals else ()
+    series = {k: torch.empty_like(out) for k in names}
+    result = (out, y_raw, tuple(series.values()))
+    if out.numel() == 0:
+        return result if save_residuals else out
+    # named, so that they live until the launch is enqueued
+    scale = torch.stack(scales) if scales is not None else None
+    shift = torch.stack(shifts) if shifts is not None else None
+    packed = _pack(vs, _FWD_ORDER[mode])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        FUSED_ANN_FWD[mode](
+            *_three(wxs), _ptr(scale), _ptr(shift), _ptr(packed), _ptr(y0),
+            seed_p, _ptr(out),
+            _ptr(y_raw), _ptr(series.get("z")), _ptr(series.get("r")),
+            _ptr(series.get("c")), B, T, H, _MODE_ID[mode], keep, inv, tile,
+            stream,
+        )
+    return result if save_residuals else out
+
+
+def _bwd_plan(B: int, T: int, H: int, n: int):
+    """(blocks of the time loop, split of the dV products over B*T), the
+    launch plan that ``csrc/fused_ann_bwd.cu`` checks its arguments
+    against."""
+    npt = 1
+    while -(-H // npt) > _THREADS:
+        npt *= 2
+    rows = max(1, _WORK // npt)
+    tiles = n * (-(-H // _DV_TILE)) ** 2
+    ksplit = max(1, min(264 // tiles, -(-(B * T) // (8 * _DV_BK))))
+    return -(-B // rows), ksplit
+
+
+def _ann_cell_bwd_cuda(mode: str, g, wxs, y_seq, gates, scales, vs, y0, *,
+                       drop_rate: float = 0.0, seed=None):
+    """Launch ``csrc/fused_ann_bwd.cu``. Same contract as
+    ``ann_cell_bwd_plain``."""
+    n = MODES[mode]
+    affine = scales is not None
+    B, T, H = g.shape
+    dev = g.device
+    _check_operands(mode, wxs if affine else [g] * n, scales, None, vs, y0)
+    _check("g", g, (B, T, H), dev)
+    _check("y_seq", y_seq, (B, T, H), dev)
+    if len(gates) != len(_GATE_SERIES[mode]):
+        raise ValueError(f"{mode}: want the series {_GATE_SERIES[mode]}")
+    for name, t in zip(_GATE_SERIES[mode], gates):
+        _check(name, t, (B, T, H), dev)
+    series = dict(zip(_GATE_SERIES[mode], gates))
+    seed_p, keep, inv, tile = _dropout_args(B, drop_rate, seed, dev)
+    n_blocks, ksplit = _bwd_plan(B, T, H, n)
+
+    def new(*shape):
+        return torch.empty(shape, dtype=g.dtype, device=dev)
+
+    dwxs = [torch.empty_like(g) for _ in range(n)]
+    # dpre before the scale, the right operand of the dV products
+    dds = [torch.empty_like(g) for _ in range(n)] if affine else []
+    partials = new(n_blocks, 2 * n, H)
+    vecs = new(2 * n, H)
+    dvs = new(n, H, H)
+    dv_partials = new(ksplit, n, H, H)
+    dy0 = new(B, H)
+    # V^T per gate: the adjoint products contract V's second axis
+    vts = _pack([v.t() for v in vs], _BWD_ORDER[mode])
+    scale = torch.stack(scales) if affine else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        FUSED_ANN_BWD[mode](
+            _ptr(g), *_three(wxs if affine else None), _ptr(y_seq),
+            _ptr(series.get("z")), _ptr(series.get("r")),
+            _ptr(series.get("c")),
+            _ptr(scale), _ptr(vts), _ptr(y0), seed_p, *_three(dwxs),
+            *_three(dds), _ptr(partials), _ptr(vecs), _ptr(dvs),
+            _ptr(dv_partials), _ptr(dy0),
+            B, T, H, _MODE_ID[mode], keep, inv, tile, n_blocks, ksplit,
+            stream,
+        )
+    if not affine:
+        return dwxs, None, None, list(dvs.unbind(0)), dy0
+    return (dwxs, list(vecs[:n].unbind(0)), list(vecs[n:].unbind(0)),
+            list(dvs.unbind(0)), dy0)
+
+
+class _FusedANN(torch.autograd.Function):
+    """The fused cell (JAX ``_make_ann_op``). ``ops`` are the per-gate
+    operands in a row: the input streams, then the scales and the shifts
+    (with the affine), then the recurrent matrices."""
+
+    @staticmethod
+    def forward(ctx, mode, drop_rate, seed, y0, *ops):
+        n = MODES[mode]
+        affine = len(ops) == 4 * n
+        wxs = list(ops[:n])
+        scales = list(ops[n:2 * n]) if affine else None
+        shifts = list(ops[2 * n:3 * n]) if affine else None
+        vs = list(ops[-n:])
+        fwd = fused_cells._by_device(wxs[0], ann_cell_plain, _ann_cell_cuda,
+                                     "fused ANN cell")
+        flags = dict(drop_rate=drop_rate, seed=seed)
+        if not any(ctx.needs_input_grad):
+            return fwd(mode, wxs, scales, shifts, vs, y0, **flags)
+        out, y_raw, gates = fwd(mode, wxs, scales, shifts, vs, y0,
+                                save_residuals=True, **flags)
+        ctx.mode, ctx.drop_rate, ctx.affine = mode, drop_rate, affine
+        ctx.save_for_backward(out if y_raw is None else y_raw, y0, seed,
+                              *gates, *vs, *(wxs + scales if affine else ()))
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        mode, n = ctx.mode, MODES[ctx.mode]
+        n_gates = len(_GATE_SERIES[mode])
+        y_seq, y0, seed, *rest = ctx.saved_tensors
+        gates, rest = rest[:n_gates], rest[n_gates:]
+        vs, rest = rest[:n], rest[n:]
+        wxs, scales = (rest[:n], rest[n:]) if ctx.affine else (None, None)
+        bwd = fused_cells._by_device(g, ann_cell_bwd_plain,
+                                     _ann_cell_bwd_cuda,
+                                     "fused ANN cell backward")
+        # the cotangent often arrives as a view (the bidirectional split)
+        dwxs, dscales, dshifts, dvs, dy0 = bwd(
+            mode, g.contiguous(), wxs, y_seq, gates, scales, vs, y0,
+            drop_rate=ctx.drop_rate, seed=seed)
+        aff = (*dscales, *dshifts) if ctx.affine else ()
+        return (None, None, None, dy0, *dwxs, *aff, *dvs)
+
+
+def _fused_ann(mode, wxs, vs, y0, mxu_bf16, scales, shifts, drop_rate,
+               drop_seed):
+    if mxu_bf16:
+        raise NotImplementedError(
+            f"mxu_bf16=True is {fused_cells._BF16_ITEM}")
+    if (scales is None) != (shifts is None):
+        raise ValueError("pass both scales and shifts, or neither")
+    n = MODES[mode]
+    if scales is not None and not len(scales) == len(shifts) == n:
+        raise ValueError(f"{mode}: want {n} scales and {n} shifts")
+    drop_rate = float(drop_rate)
+    if not 0.0 <= drop_rate < 1.0:
+        raise ValueError(f"drop_rate must lie in [0, 1), got {drop_rate}")
+    seed = _as_seed(drop_seed, wxs[0].device) if drop_rate > 0.0 else None
+    aff = (*scales, *shifts) if scales is not None else ()
+    return _FusedANN.apply(mode, drop_rate, seed, y0, *wxs, *aff, *vs)
+
+
+def rnn_fused(Wx, V, y0, mxu_bf16: bool = False, scales=None, shifts=None,
+              drop_rate: float = 0.0, drop_seed: Optional[object] = None):
+    """Fused sigmoid-RNN recurrence (drop-in for cells.rnn_scan). With
+    ``scales``/``shifts`` (one (H,) pair per gate) the normalization affine
+    is applied on load and their gradients are returned; with
+    ``drop_rate``/``drop_seed`` (two int32) the layer-output dropout is
+    fused and the backward regenerates the mask from the seed."""
+    return _fused_ann("rnn", [Wx], [V], y0, mxu_bf16, scales, shifts,
+                      drop_rate, drop_seed)
+
+
+def ligru_fused(Wx, Wzx, V, Vz, y0, mxu_bf16: bool = False, scales=None,
+                shifts=None, drop_rate: float = 0.0, drop_seed=None):
+    """Fused LiGRU recurrence (drop-in for cells.ligru_scan)."""
+    return _fused_ann("ligru", [Wx, Wzx], [V, Vz], y0, mxu_bf16, scales,
+                      shifts, drop_rate, drop_seed)
+
+
+def gru_fused(Wx, Wzx, Wrx, V, Vz, Vr, y0, mxu_bf16: bool = False,
+              scales=None, shifts=None, drop_rate: float = 0.0,
+              drop_seed=None):
+    """Fused GRU recurrence (drop-in for cells.gru_scan)."""
+    return _fused_ann("gru", [Wx, Wzx, Wrx], [V, Vz, Vr], y0, mxu_bf16,
+                      scales, shifts, drop_rate, drop_seed)

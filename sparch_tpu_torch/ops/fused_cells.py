@@ -107,13 +107,21 @@ _BF16_ITEM = (
 )
 
 
+def _all_kernels():
+    # ops.fused_ann imports this module, so it is looked up at call time
+    from sparch_tpu_torch.ops import fused_ann
+
+    return _KERNELS + fused_ann.KERNELS
+
+
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches so far, by entry point."""
-    return {k.name: k.launches for k in _KERNELS}
+    """Kernel launches so far, by entry point: the spiking kernels of this
+    module and the ANN kernels of ``ops.fused_ann``."""
+    return {k.name: k.launches for k in _all_kernels()}
 
 
 def reset_launch_counts() -> None:
-    for k in _KERNELS:
+    for k in _all_kernels():
         k.launches = 0
 
 

@@ -1,8 +1,9 @@
 """Offline batch inference (counterpart of sparch_tpu/serve/predictor.py).
 
 Every chunk of the input is padded to ``batch_size``, so each forward sees
-one shape; an SNN's summed softmax is normalised by its own mass; models
-with ``state_init='uniform'`` draw their states from a generator re-seeded
+one shape; an SNN's summed softmax is normalised by its own mass and an
+ANN's logits go through a softmax; models with ``state_init='uniform'``
+draw their states from a generator re-seeded
 with ``seed`` before every forward, so calls are deterministic.
 """
 from __future__ import annotations
@@ -56,11 +57,6 @@ class Predictor:
                 "pad_multiple buckets waveform frame counts, which need the "
                 "device fbank frontend, ROADMAP queue 1 item 5"
             )
-        if not getattr(model, "is_snn", False):
-            raise NotImplementedError(
-                "the port serves spiking models only; the ANN slice is "
-                "ROADMAP queue 1 item 4"
-            )
         self.device = resolve_device(device)
         model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device).eval()
@@ -68,7 +64,7 @@ class Predictor:
         self.seed = seed
         self._generator = (
             torch.Generator(device=self.device)
-            if model.state_init == "uniform" else None
+            if getattr(model, "state_init", None) == "uniform" else None
         )
 
     @torch.no_grad()
@@ -76,9 +72,11 @@ class Predictor:
         if self._generator is not None:
             self._generator.manual_seed(self.seed)
         out, _ = self.model(x, self._generator)
-        # the readout already sums per-step softmax posteriors: normalising
-        # by its mass is the class probability
-        return out / out.sum(dim=-1, keepdim=True)
+        if getattr(self.model, "is_snn", False):
+            # the SNN readout already sums per-step softmax posteriors:
+            # normalising by its mass is the class probability
+            return out / out.sum(dim=-1, keepdim=True)
+        return torch.softmax(out, dim=-1)
 
     def __call__(self, x, lengths=None) -> Tuple[np.ndarray, np.ndarray]:
         """Predict labels for ``x: (n, T, F)``; returns (labels, probs)."""

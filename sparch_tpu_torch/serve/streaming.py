@@ -1,16 +1,18 @@
-"""Streaming (frame-by-frame) inference for the SNN family (counterpart of
-the SNN half of sparch_tpu/serve/streaming.py).
+"""Streaming (frame-by-frame) inference for the SNN and the ANN family
+(counterpart of sparch_tpu/serve/streaming.py).
 
 Every model here is a stack of one-step recurrences, so streaming carries
-each layer's state ``(u[, w], s)`` and the readout's membrane and
-accumulator, and advances them one frame at a time. Both functions read the
-weights from a ``state_dict`` (the port's names, as ``model.state_dict()``
-or ``convert.variables_from_flax`` give them); the model supplies only the
-architecture. BatchNorm uses its running statistics, so the per-frame norm
+each layer's state (SNN: ``(u[, w], s)``; ANN: ``y``) and the readout's
+accumulator (SNN: with its membrane), and advances them one frame at a
+time. The ANN readout collapses time first, so its running sum of softmaxes
+streams and its linear layer and norm are applied to it at every frame.
+Both functions read the weights from a ``state_dict`` (the port's names, as
+``model.state_dict()`` or ``convert.variables_from_flax`` give them); the
+model supplies only the architecture. BatchNorm uses its running statistics, so the per-frame norm
 is an affine map.
 
-For a unidirectional model with ``state_init='zeros'``, feeding T frames
-one at a time gives the cumulative readout of one ``(B, T, F)`` forward.
+For a unidirectional model (an SNN with ``state_init='zeros'``; an ANN
+always starts from zeros), feeding T frames one at a time gives the cumulative readout of one ``(B, T, F)`` forward.
 Bidirectional models need the reversed sequence and cannot stream.
 """
 from __future__ import annotations
@@ -33,57 +35,64 @@ def _layer_names(model):
     return [f"layer_{i}" for i in range(model.num_hidden)]
 
 
-def _check_snn(model):
-    if not getattr(model, "is_snn", False):
-        raise NotImplementedError(
-            "the port streams spiking models only; the ANN slice is "
-            "ROADMAP queue 1 item 4"
-        )
+def _check_streams(model):
     if model.bidirectional:
         raise ValueError("Bidirectional models cannot run in streaming mode.")
+
+
+def _zeros(batch_size: int, vec: torch.Tensor):
+    """A zero state as wide as ``vec`` is long, on its device."""
+    return torch.zeros((batch_size, vec.shape[0]), dtype=torch.float32,
+                       device=vec.device)
 
 
 def streaming_init(model, state_dict, batch_size: int) -> Dict:
     """Zero-initialised streaming state for ``batch_size`` parallel
     streams, on the device of the weights."""
-    _check_snn(model)
+    _check_streams(model)
     state: Dict = {"layers": [], "t": 0}
+    if not getattr(model, "is_snn", False):
+        for name in _layer_names(model):
+            w = state_dict[f"{name}.W.weight"]  # (out, in)
+            # MLP layers are stateless; every layer carries a y all the same
+            state["layers"].append({"y": _zeros(batch_size, w)})
+        if model.use_readout_layer:
+            # the running sum of the top layer's softmaxes
+            state["readout"] = {"acc": _zeros(batch_size, w)}
+        return state
     for name in _layer_names(model):
-        alpha = state_dict[f"{name}.alpha"]
-        zeros = torch.zeros((batch_size, alpha.shape[0]), dtype=torch.float32,
-                            device=alpha.device)
+        zeros = _zeros(batch_size, state_dict[f"{name}.alpha"])
         layer = {"u": zeros, "s": zeros}
         if model.neuron_type in _ADAPTIVE:
             layer["w"] = zeros
         state["layers"].append(layer)
     if model.use_readout_layer:
-        alpha = state_dict["readout.alpha"]
-        zeros = torch.zeros((batch_size, alpha.shape[0]), dtype=torch.float32,
-                            device=alpha.device)
+        zeros = _zeros(batch_size, state_dict["readout.alpha"])
         state["readout"] = {"u": zeros, "out": zeros}
     return state
 
 
-def _affine_norm(sd, prefix, normalization, y):
-    """Eval-mode normalisation of a (B, H) frame."""
+def _affine_norm(sd, norm, normalization, y):
+    """Eval-mode normalisation of a (B, H) frame by the norm module
+    ``norm`` (its state_dict prefix)."""
     if normalization == "batchnorm":
-        inv = torch.rsqrt(sd[f"{prefix}.norm.running_var"] + NORM_EPS)
-        return ((y - sd[f"{prefix}.norm.running_mean"]) * inv
-                * sd[f"{prefix}.norm.weight"] + sd[f"{prefix}.norm.bias"])
+        inv = torch.rsqrt(sd[f"{norm}.running_var"] + NORM_EPS)
+        return ((y - sd[f"{norm}.running_mean"]) * inv
+                * sd[f"{norm}.weight"] + sd[f"{norm}.bias"])
     if normalization == "layernorm":
         mean = y.mean(dim=-1, keepdim=True)
         var = ((y - mean) ** 2).mean(dim=-1, keepdim=True)
         return ((y - mean) * torch.rsqrt(var + NORM_EPS)
-                * sd[f"{prefix}.norm.weight"] + sd[f"{prefix}.norm.bias"])
+                * sd[f"{norm}.weight"] + sd[f"{norm}.bias"])
     return y
 
 
-def _project(sd, prefix, normalization, x_t):
-    y = torch.matmul(x_t, sd[f"{prefix}.W.weight"].t())
-    bias = sd.get(f"{prefix}.W.bias")
+def _project(sd, prefix, normalization, x_t, dense="W", norm="norm"):
+    y = torch.matmul(x_t, sd[f"{prefix}.{dense}.weight"].t())
+    bias = sd.get(f"{prefix}.{dense}.bias")
     if bias is not None:
         y = y + bias
-    return _affine_norm(sd, prefix, normalization, y)
+    return _affine_norm(sd, f"{prefix}.{norm}", normalization, y)
 
 
 @torch.no_grad()
@@ -91,9 +100,12 @@ def streaming_step(model, state_dict, state: Dict,
                    x_t: torch.Tensor) -> Tuple[Dict, torch.Tensor]:
     """Advance all layers by one ``(B, F)`` frame. Returns
     ``(new_state, readout)``: the cumulative-softmax class accumulator
-    ``(B, classes)``, or the top layer's spikes without a readout layer."""
-    _check_snn(model)
+    ``(B, classes)`` (for an ANN: the readout's logits of the running
+    sum), or the top layer's output without a readout layer."""
+    _check_streams(model)
     sd = state_dict
+    if not getattr(model, "is_snn", False):
+        return _ann_streaming_step(model, sd, state, x_t)
     neuron = model.neuron_type
     thr = model.threshold
     h = x_t
@@ -127,4 +139,43 @@ def streaming_step(model, state_dict, state: Dict,
         out = state["readout"]["out"] + torch.softmax(u, dim=-1)
         new_state["readout"] = {"u": u, "out": out}
         return new_state, out
+    return new_state, h
+
+
+def _ann_streaming_step(model, sd, state, x_t):
+    """One frame through the ANN stack."""
+    kind = model.normalization
+    ann_type = model.ann_type
+    h = x_t
+    new_layers = []
+    for name, st in zip(_layer_names(model), state["layers"]):
+        y = st["y"]
+
+        def gate(w):
+            return _project(sd, name, kind, h, w, f"norm_{w}")
+
+        if ann_type == "MLP":
+            y = torch.sigmoid(gate("W"))  # stateless
+        elif ann_type == "RNN":
+            y = torch.sigmoid(gate("W") + torch.matmul(y, sd[f"{name}.V"]))
+        else:
+            z = torch.sigmoid(gate("Wz")
+                              + torch.matmul(y, sd[f"{name}.Vz"]))
+            if ann_type == "LiGRU":
+                c = torch.relu(gate("W") + torch.matmul(y, sd[f"{name}.V"]))
+            else:
+                r = torch.sigmoid(gate("Wr")
+                                  + torch.matmul(y, sd[f"{name}.Vr"]))
+                c = torch.tanh(gate("W")
+                               + torch.matmul(r * y, sd[f"{name}.V"]))
+            y = z * y + (1.0 - z) * c
+        new_layers.append({"y": y})
+        h = y  # no dropout at inference
+    new_state = {"layers": new_layers, "t": state["t"] + 1}
+    if model.use_readout_layer:
+        # the readout collapses time first: the running sum streams, and
+        # the small head is applied to it anew at every frame
+        acc = state["readout"]["acc"] + torch.softmax(h, dim=-1)
+        new_state["readout"] = {"acc": acc}
+        return new_state, _project(sd, "readout", kind, acc)
     return new_state, h

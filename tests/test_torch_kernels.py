@@ -9,8 +9,12 @@ kernel against its plain version. With V on a dyadic grid the spike trains,
 the membrane series and the dropped outputs must be bit-identical; the
 readout agrees to rtol 1e-5; every gradient of the backward kernels agrees
 with the plain backward on the same residuals to 1e-4 of that gradient's
-largest magnitude, and two launches give the same bits. This file imports
-no JAX, so it runs where the JAX package is not installed:
+largest magnitude, and two launches give the same bits. The ANN kernels
+(RNN, LiGRU, GRU) sum their dense products in another order than the plain
+version's matmul and take exp and tanh from the card's library, so nothing
+there is bit-equal: outputs and residuals agree to atol 2e-5, gradients to
+1e-4 of their largest magnitude. This file imports no JAX, so it runs where
+the JAX package is not installed:
 
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -q
 """
@@ -18,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from sparch_tpu_torch.ops import cells, fused_cells
+from sparch_tpu_torch.ops import cells, fused_ann, fused_cells
 
 _ARGS = {
     "lif": ("Wx", "alpha", 1.0, "u0", "s0"),
@@ -121,7 +125,8 @@ def test_kernel_wrappers_raise_past_their_width():
     assert not any(fused_cells.launch_counts().values())
     assert set(fused_cells.launch_counts()) == {
         "fused_cell_fwd", "fused_cell_fwd_train", "fused_cell_bwd",
-        "readout_fwd", "readout_bwd"}
+        "readout_fwd", "readout_bwd"} | {
+        f"fused_ann_{d}_{m}" for d in ("fwd", "bwd") for m in ANN_MODES}
 
 
 @pytest.mark.cuda
@@ -282,8 +287,196 @@ def test_autograd_reaches_the_kernels_on_card(cuda):
     torch.cuda.synchronize()
     assert fused_cells.launch_counts() == {
         "fused_cell_fwd": 0, "fused_cell_fwd_train": 1, "fused_cell_bwd": 1,
-        "readout_fwd": 1, "readout_bwd": 1}
+        "readout_fwd": 1, "readout_bwd": 1,
+        **{k.name: 0 for k in fused_ann.KERNELS}}
     for k in ("Wx", "scale", "shift", "alpha", "beta", "a", "b", "V", "u0",
               "w0", "s0"):
         assert torch.isfinite(t[k].grad).all(), k
     assert float(torch.diagonal(t["V"].grad).abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# The non-spiking cells (ops/fused_ann.py)
+# ---------------------------------------------------------------------------
+
+ANN_MODES = list(fused_ann.MODES)
+ANN_SHAPES = [(5, 13, 40), (16, 20, 512), (4, 7, 1001), (2, 5, 1100)]
+
+
+def make_ann_inputs(mode, B, T, H, seed=0):
+    """Numpy inputs of one ANN cell, lists by gate: input streams,
+    orthogonal recurrent matrices, affine pairs; a nonzero y0."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    n = fused_ann.MODES[mode]
+    return dict(
+        wxs=[(0.8 * rng.normal(size=(B, T, H))).astype(f32)
+             for _ in range(n)],
+        vs=[np.linalg.qr(rng.normal(size=(H, H)))[0].astype(f32)
+            for _ in range(n)],
+        scales=[(1.0 + 0.2 * rng.normal(size=H)).astype(f32)
+                for _ in range(n)],
+        shifts=[(0.1 * rng.normal(size=H)).astype(f32) for _ in range(n)],
+        y0=rng.uniform(0.0, 1.0, (B, H)).astype(f32),
+    )
+
+
+def ann_call(module, suffix, mode, d, to, affine=False, **kw):
+    """``module.<mode>_<suffix>`` (``fused_ann.gru_fused``, the scan cell,
+    the JAX op) on the inputs ``d`` converted by ``to``."""
+    if affine:
+        kw.update(scales=[to(a) for a in d["scales"]],
+                  shifts=[to(a) for a in d["shifts"]])
+    args = [to(a) for a in d["wxs"]] + [to(a) for a in d["vs"]]
+    return getattr(module, f"{mode}_{suffix}")(*args, to(d["y0"]), **kw)
+
+
+def _ann_operands(d, dev, affine):
+    t = {k: ([torch.from_numpy(a).to(dev) for a in v] if isinstance(v, list)
+             else torch.from_numpy(v).to(dev)) for k, v in d.items()}
+    return (t["wxs"], t["scales"] if affine else None,
+            t["shifts"] if affine else None, t["vs"], t["y0"])
+
+
+@pytest.mark.parametrize("mode", ANN_MODES)
+def test_ann_cpu_tensors_take_the_plain_version(mode):
+    """Without the affine the fused ANN cell is the scan cell, op for op,
+    and a CPU tensor launches no kernel."""
+    d = make_ann_inputs(mode, 5, 13, 24, seed=1)
+    fused_cells.reset_launch_counts()
+    got = ann_call(fused_ann, "fused", mode, d, torch.from_numpy)
+    want = ann_call(cells, "scan", mode, d, torch.from_numpy)
+    assert torch.equal(got, want)
+    assert not any(fused_cells.launch_counts().values())
+
+
+def test_ann_wrappers_raise_on_what_they_do_not_take():
+    d = make_ann_inputs("gru", 2, 3, 8)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        ann_call(fused_ann, "fused", "gru", d, torch.from_numpy,
+                 mxu_bf16=True)
+    with pytest.raises(ValueError, match="both scales and shifts"):
+        ann_call(fused_ann, "fused", "gru", d, torch.from_numpy,
+                 scales=[torch.ones(8)] * 3)
+    with pytest.raises(ValueError, match="3 scales"):
+        ann_call(fused_ann, "fused", "gru", d, torch.from_numpy,
+                 scales=[torch.ones(8)], shifts=[torch.ones(8)])
+    with pytest.raises(ValueError, match="drop_rate"):
+        ann_call(fused_ann, "fused", "gru", d, torch.from_numpy,
+                 drop_rate=1.0)
+    with pytest.raises(ValueError, match="two int32"):
+        ann_call(fused_ann, "fused", "gru", d, torch.from_numpy,
+                 drop_rate=0.1, drop_seed=3)
+    # past its width the kernel path raises before any launch
+    H = fused_ann._MAX_H + 1
+    wide = make_ann_inputs("rnn", 1, 1, 8)
+    wide["wxs"] = [np.zeros((1, 1, H), np.float32)]
+    ops = _ann_operands(wide, "cpu", False)
+    with pytest.raises(ValueError, match=f"H <= {fused_ann._MAX_H}"):
+        fused_ann._ann_cell_cuda("rnn", *ops)
+    with torch.no_grad(), pytest.raises(ValueError, match="device"):
+        ann_call(fused_ann, "fused", "rnn", make_ann_inputs("rnn", 2, 3, 8),
+                 lambda a: torch.from_numpy(a).to("meta"))
+    assert not any(fused_cells.launch_counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ANN_SHAPES)
+@pytest.mark.parametrize("affine,drop_rate",
+                         [(True, 0.25), (True, 0.0), (False, 0.0)])
+@pytest.mark.parametrize("mode", ANN_MODES)
+def test_ann_forward_kernel_matches_plain_on_card(cuda, mode, affine,
+                                                  drop_rate, shape):
+    """The output and every residual series within atol 2e-5 of the plain
+    version at 1, 2 and 4 neurons per thread (H = 1001: rows of the packed
+    matrices padded); the dropped positions are the same; the serving form
+    (no residuals) gives the same output."""
+    ops = _ann_operands(make_ann_inputs(mode, *shape, seed=2), cuda, affine)
+    seed = torch.tensor([42, 7], dtype=torch.int32, device=cuda)
+    kw = dict(drop_rate=drop_rate, seed=seed)
+    counter = fused_ann.FUSED_ANN_FWD[mode]
+    before = counter.launches
+    out, y_raw, gates = fused_ann._ann_cell_cuda(mode, *ops,
+                                                 save_residuals=True, **kw)
+    served = fused_ann._ann_cell_cuda(mode, *ops, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    want, want_raw, want_gates = fused_ann.ann_cell_plain(
+        mode, *ops, save_residuals=True, **kw)
+    assert torch.equal(served, out)
+    # a kept output is y / (1 - p)
+    torch.testing.assert_close(out, want, rtol=0,
+                               atol=2e-5 / (1.0 - drop_rate))
+    assert (y_raw is None) == (want_raw is None) == (drop_rate == 0.0)
+    if drop_rate:
+        torch.testing.assert_close(y_raw, want_raw, rtol=0, atol=2e-5)
+        assert torch.equal(out == 0, want == 0)
+        assert 0.15 < float((out == 0).float().mean()) < 0.35
+    assert len(gates) == len(want_gates)
+    for got_g, want_g in zip(gates, want_gates):
+        torch.testing.assert_close(got_g, want_g, rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ANN_SHAPES)
+@pytest.mark.parametrize("affine,drop_rate", [(True, 0.25), (False, 0.0)])
+@pytest.mark.parametrize("mode", ANN_MODES)
+def test_ann_backward_kernel_matches_plain_on_card(cuda, mode, affine,
+                                                   drop_rate, shape):
+    """Every gradient against the plain backward on the same residuals, to
+    1e-4 of its largest magnitude; two launches give the same bits."""
+    wxs, scales, shifts, vs, y0 = _ann_operands(
+        make_ann_inputs(mode, *shape, seed=5), cuda, affine)
+    seed = torch.tensor([42, 7], dtype=torch.int32, device=cuda)
+    kw = dict(drop_rate=drop_rate, seed=seed)
+    out, y_raw, gates = fused_ann.ann_cell_plain(
+        mode, wxs, scales, shifts, vs, y0, save_residuals=True, **kw)
+    y_seq = out if y_raw is None else y_raw
+    g = torch.from_numpy(np.random.default_rng(7).normal(
+        0, 1, shape).astype(np.float32)).to(cuda)
+    bargs = (mode, g, wxs if affine else None, y_seq, gates, scales, vs, y0)
+    counter = fused_ann.FUSED_ANN_BWD[mode]
+    before = counter.launches
+    got = fused_ann._ann_cell_bwd_cuda(*bargs, **kw)
+    again = fused_ann._ann_cell_bwd_cuda(*bargs, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    want = fused_ann.ann_cell_bwd_plain(*bargs, **kw)
+    for n, x, y, z in zip(("dwxs", "dscales", "dshifts", "dvs", "dy0"), got,
+                          want, again):
+        assert (x is None) == (y is None) == (n[:2] == "ds" and not affine)
+        if x is None:
+            continue
+        for i, (xi, yi, zi) in enumerate(
+                zip(*([x], [y], [z]) if n == "dy0" else (x, y, z))):
+            assert torch.equal(xi, zi), f"{n}[{i}] differs between launches"
+            assert _rel_err(xi, yi) <= 1e-4, (n, i, _rel_err(xi, yi))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ANN_MODES)
+def test_ann_autograd_reaches_the_kernels_on_card(cuda, mode):
+    """A CUDA tensor that needs a gradient goes through the forward and
+    the backward kernel of its mode, and no other."""
+    d = make_ann_inputs(mode, 8, 13, 40, seed=9)
+    leaves = []
+
+    def to(a):
+        leaves.append(torch.from_numpy(a).to(cuda).requires_grad_(True))
+        return leaves[-1]
+
+    fused_cells.reset_launch_counts()
+    out = ann_call(fused_ann, "fused", mode, d, to, True, drop_rate=0.1,
+                   drop_seed=[1, 2])
+    out.sum().backward()
+    torch.cuda.synchronize()
+    want = {k: 0 for k in fused_cells.launch_counts()}
+    want[f"fused_ann_fwd_{mode}"] = want[f"fused_ann_bwd_{mode}"] = 1
+    assert fused_cells.launch_counts() == want
+    assert len(leaves) == 4 * fused_ann.MODES[mode] + 1
+    for t in leaves:
+        assert t.grad is not None and torch.isfinite(t.grad).all()
+    with torch.no_grad():
+        ann_call(fused_ann, "fused", mode, d, to, True)
+    want[f"fused_ann_fwd_{mode}"] += 1
+    assert fused_cells.launch_counts() == want

@@ -192,8 +192,8 @@ def test_fused_policy():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ANN slice"):
-        build_model("GRU", (2, 3, 4), [8, 3])
+    # the non-spiking family is ported: the registry builds it
+    assert not build_model("GRU", (2, 3, 4), [8, 3]).is_snn
     with pytest.raises(NotImplementedError, match="remat"):
         build_model("RadLIF", (2, 3, 4), [8, 3], remat=True)
     with pytest.raises(NotImplementedError, match="bf16"):
