@@ -2,9 +2,12 @@
 """Profile the PyTorch/CUDA port's serving and training paths on one CUDA
 card.
 
-    python3 chip_profile.py
+    python3 chip_profile.py [phase ...]
 
-Prints JSON lines (tables of the profiler in between), each measured in
+With phase names (``sweep``, ``profile``, ``h2d``, ``bwd_sweep``,
+``profile_training``, ``bwd_variants``, ``bf16``, ``ab=DIR``) only those
+run. Prints
+JSON lines (tables of the profiler in between), each measured in
 this run:
 
 1. ``device``: the card's name and power limit (``nvidia-smi``).
@@ -37,6 +40,18 @@ this run:
    (``-DSPARCH_BWD_WORK``), one ``nvcc`` each, all at once; RadLIF at
    (128, 100, 512): kernel ms and the worst gradient error against the
    plain version.
+8. ``bf16``: phases 3 and 6 for the same two models under
+   ``compute_dtype=bfloat16`` (``cell_impl="auto"``; lines ``profile`` and
+   ``profile_training`` with ``compute_dtype`` "bfloat16"), beside their
+   float32 ``auto`` runs in the same call.
+9. ``ab=DIR`` (only when named): the float32 cell kernels of the tree
+   unpacked in ``DIR`` (another commit of this repository, e.g. from
+   ``git archive``) against this tree's, in one call on one card, in the
+   order DIR, this, this, DIR, each in a process of its own that builds
+   that tree's kernels: kernel ms at (128, 100, 512) (CUDA events) and the
+   SASS instruction count of each float32 ``fused_ann_fwd_kernel`` at one
+   neuron per thread (``cuobjdump``), which shows whether a change left
+   the float32 code as it was.
 
 Without a CUDA card it exits non-zero and prints no result.
 """
@@ -95,17 +110,23 @@ def _serving_case(dev, model_type):
     return cs.ann_state(dev, model_type), x, ("auto", "scan")
 
 
-def profile(dev, model_type="RadLIF"):
+def _dtype_name(model_kw):
+    return "bfloat16" if model_kw.get("compute_dtype") == torch.bfloat16 \
+        else "float32"
+
+
+def profile(dev, model_type="RadLIF", impls=None, **model_kw):
     import chip_smoke as cs
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     from sparch_tpu_torch.models import build_model
     from sparch_tpu_torch.utils.timing import cuda_time_ms
 
-    state, x, impls = _serving_case(dev, model_type)
-    for impl in impls:
+    state, x, all_impls = _serving_case(dev, model_type)
+    for impl in impls or all_impls:
         m = build_model(model_type, tuple(x.shape), [cs.H, cs.H, cs.C],
-                        state_init="zeros", cell_impl=impl).to(dev).eval()
+                        state_init="zeros", cell_impl=impl,
+                        **model_kw).to(dev).eval()
         m.load_state_dict(state)
         with torch.no_grad():
             for _ in range(3):
@@ -118,13 +139,14 @@ def profile(dev, model_type="RadLIF"):
                 torch.cuda.synchronize()
             forward_us = 1e3 * cuda_time_ms(m, x, warmup=1, iters=20,
                                             repeats=3)
-        print(f"=== {model_type} {impl}")
+        print(f"=== {model_type} {impl} {_dtype_name(model_kw)}")
         print(prof.key_averages().table(sort_by="cuda_time_total",
                                         row_limit=14,
                                         max_name_column_width=60))
         ev = [e for e in prof.events() if e.device_type.name == "CUDA"]
         busy = sum(e.device_time for e in ev)
         emit("profile", model=model_type, variant=impl,
+             compute_dtype=_dtype_name(model_kw),
              device_us_per_forward=busy / 5,
              kernels_per_forward=len(ev) / 5,
              unprofiled_us_per_forward=forward_us,
@@ -177,7 +199,7 @@ _TRAIN_KERNELS = {
 }
 
 
-def profile_training(dev, model_type="RadLIF"):
+def profile_training(dev, model_type="RadLIF", impls=None, **model_kw):
     import chip_smoke as cs
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -189,19 +211,20 @@ def profile_training(dev, model_type="RadLIF"):
     if model_type == "RadLIF":
         state_dict = cs.training_state(dev)
         x = torch.rand((cs.B, cs.T, cs.F), generator=gen, device=dev) < 0.02
-        x, impls = x.float(), ("auto", "pallas", "scan")
+        x, all_impls = x.float(), ("auto", "pallas", "scan")
     else:
         state_dict = build_model(
             model_type, (cs.B, cs.T, cs.F_ANN), [cs.H, cs.H, cs.C],
             dropout=cs.P_DROP,
             generator=torch.Generator().manual_seed(0)).state_dict()
         x = torch.randn((cs.B, cs.T, cs.F_ANN), generator=gen, device=dev)
-        impls = ("auto", "scan")
+        all_impls = ("auto", "scan")
     y = torch.randint(0, cs.C, (cs.B,), generator=gen, device=dev)
     n = 3
-    for impl in impls:
+    for impl in impls or all_impls:
         model, state, _, _, _ = cs.train_run(dev, impl, state_dict, x, y, 3,
-                                             model_type=model_type)
+                                             model_type=model_type,
+                                             **model_kw)
         step = make_train_step(model)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
@@ -216,13 +239,14 @@ def profile_training(dev, model_type="RadLIF"):
         elapsed_us = 1e3 * start.elapsed_time(end)
         step_us = 1e3 * cuda_time_ms(step, state, x, y, warmup=1, iters=20,
                                      repeats=3)
-        print(f"=== training {model_type} {impl}")
+        print(f"=== training {model_type} {impl} {_dtype_name(model_kw)}")
         print(prof.key_averages().table(sort_by="cuda_time_total",
                                         row_limit=16,
                                         max_name_column_width=60))
         ev = [e for e in prof.events() if e.device_type.name == "CUDA"]
         busy = sum(e.device_time for e in ev)
-        emit("profile_training", model=model_type, variant=impl, steps=n,
+        emit("profile_training", model=model_type, variant=impl,
+             compute_dtype=_dtype_name(model_kw), steps=n,
              device_us_per_step=busy / n, elapsed_us_per_step=elapsed_us / n,
              idle_share_profiled=1.0 - busy / elapsed_us,
              unprofiled_us_per_step=step_us,
@@ -288,6 +312,82 @@ def bwd_variants(dev):
         kernel._fn, fused_cells._BWD_WORK = saved
 
 
+# runs in a process of its own with a tree's root as argv[1]: that tree's
+# chip_smoke helpers and kernels, whatever commit it is
+_AB_CODE = r"""
+import importlib.util, json, re, subprocess, sys
+import torch
+root = sys.argv[1]
+sys.path.insert(0, root)
+spec = importlib.util.spec_from_file_location("smoke", root + "/chip_smoke.py")
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+from sparch_tpu_torch import _build
+from sparch_tpu_torch.ops import fused_cells
+from sparch_tpu_torch.utils.timing import cuda_time_ms
+if not _build.__file__.startswith(root):
+    raise RuntimeError("imported the package of another tree: "
+                       + _build.__file__)
+torch.backends.cuda.matmul.allow_tf32 = False
+_build.build()
+dev = torch.device("cuda", 0)
+shape = (smoke.B, smoke.T, smoke.H)
+seed = torch.tensor([1234, 99], dtype=torch.int32, device=dev)
+res = {}
+with torch.no_grad():
+    d = smoke.cell_inputs(shape, dyadic=True, seed=1, dev=dev)
+    g = torch.randn(shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(6))
+    for name in ("rlif", "radlif"):
+        rec, ada = smoke.FORMS[name]
+        res["cell_fwd_" + name] = cuda_time_ms(smoke.kernel_call, name, d,
+                                               True)
+        res["cell_fwd_train_" + name] = cuda_time_ms(
+            smoke.train_forward_call, name, d, True, smoke.P_DROP, seed)
+        _, u_seq = smoke.train_forward_call(name, d, True, seed=seed)
+        args = (g, d["Wx"], u_seq, d["scale"], d["alpha"], d["beta"], d["a"],
+                d["b"], d["V"], 1.0, d["u0"], d["w0"], d["s0"])
+        kw = dict(recurrent=rec, adaptive=ada, drop_rate=smoke.P_DROP,
+                  seed=seed)
+        res["cell_bwd_" + name] = cuda_time_ms(
+            lambda: fused_cells._fused_cell_bwd_cuda(*args, **kw))
+    for mode in ("rnn", "ligru", "gru"):
+        a = smoke.ann_inputs(mode, shape, 4, dev)
+        res["ann_fwd_" + mode] = cuda_time_ms(smoke.ann_forward, mode, a,
+                                              True)
+        r = smoke.ann_forward(mode, a, True, smoke.P_DROP, seed, True)[1:]
+        res["ann_bwd_" + mode] = cuda_time_ms(smoke.ann_backward, mode, a, g,
+                                              r, seed, True)
+from pathlib import Path
+sass = subprocess.run(
+    [str(Path(_build._nvcc()).with_name("cuobjdump")), "-sass",
+     str(_build.library_path("fused_ann_fwd"))],
+    capture_output=True, text=True).stdout
+counts = {}
+for m in re.finditer(r"Function : (\S+)\n(.*?)(?=\n\s*Function :|\Z)", sass,
+                     re.S):
+    k = re.search(r"fused_ann_fwd_kernelILi(\d)ELi1E(Lb0E)?EEv", m.group(1))
+    if k:
+        counts["mode%s" % k.group(1)] = len(
+            re.findall(r"^\s+/\*[0-9a-f]{4}\*/", m.group(2), re.M))
+print(json.dumps({"phase": "ab", "tree": root, "ms": res,
+                  "ann_fwd_f32_sass_instructions": counts}), flush=True)
+"""
+
+
+def ab(dev, other: str):
+    """Phase 9: ``other`` and this tree in turns, each in its own process."""
+    here = str(REPO)
+    for root in (str(Path(other).resolve()), here, here,
+                 str(Path(other).resolve())):
+        proc = subprocess.run([sys.executable, "-c", _AB_CODE, root],
+                              capture_output=True, text=True, timeout=900,
+                              cwd=root)
+        if proc.returncode != 0:
+            raise RuntimeError(f"ab: {root} failed:\n{proc.stderr[-2000:]}")
+        print(proc.stdout.strip().splitlines()[-1], flush=True)
+
+
 def h2d(dev):
     import chip_smoke as cs
 
@@ -320,14 +420,34 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     _build.build()
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0))
-    sweep(dev)
-    profile(dev)
-    profile(dev, "GRU")
-    h2d(dev)
-    bwd_sweep(dev)
-    profile_training(dev)
-    profile_training(dev, "GRU")
-    bwd_variants(dev)
+
+    def bf16(dev):
+        for model_type in ("RadLIF", "GRU"):
+            for kw in ({}, {"compute_dtype": torch.bfloat16}):
+                profile(dev, model_type, impls=("auto",), **kw)
+                profile_training(dev, model_type, impls=("auto",), **kw)
+
+    phases = {
+        "sweep": sweep,
+        "profile": lambda dev: (profile(dev), profile(dev, "GRU")),
+        "h2d": h2d,
+        "bwd_sweep": bwd_sweep,
+        "profile_training": lambda dev: (profile_training(dev),
+                                         profile_training(dev, "GRU")),
+        "bwd_variants": bwd_variants,
+        "bf16": bf16,
+    }
+    chosen = sys.argv[1:] or list(phases)
+    unknown = [name for name in chosen
+               if name not in phases and not name.startswith("ab=")]
+    if unknown:
+        print(f"chip_profile: unknown phases {unknown}", file=sys.stderr)
+        return 2
+    for name in chosen:
+        if name.startswith("ab="):
+            ab(dev, name[3:])
+        else:
+            phases[name](dev)
     return 0
 
 

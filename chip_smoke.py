@@ -55,8 +55,8 @@ all at once), then prints one JSON line per phase:
    other; two runs of three steps from one seed give bit-equal parameters.
    Against ``scan`` only the step-1 loss is held (loosely). Times:
    ``train_step_ms`` (CUDA events over 20 steps after 3 warm-up steps,
-   median of 3), ``utterances_per_s`` and the forward / backward /
-   optimizer split.
+   median of 3; ``scan``: 5 steps after 1), ``utterances_per_s`` and the
+   forward / backward / optimizer split (median of 10 steps; ``scan``: 3).
 9. ``kernel_vs_plain`` for the fused non-spiking cell, forward
    (``fused_ann_fwd``): RNN, LiGRU and GRU at (128, 100, 512) with the
    batchnorm affine and at the ragged shape, in the serving form (the
@@ -82,10 +82,38 @@ all at once), then prints one JSON line per phase:
    launches per step). LiGRU and RNN: three steps, checked alike, but
    for the LiGRU's step-1 gradients, which the relu's kink separates (see
    ``KINK_GRAD_REL_MAX``).
-13. ``kernels``: each kernel with its launches on its main path (spiking
+13. The bf16-stream mode (``mxu_bf16=True``, ``compute_dtype=bfloat16``):
+   ``kernel_vs_plain`` for ``fused_cell_fwd_bf16`` (serving and training
+   form, the four cells, affine on and off, a float32 and a bf16 drive) with
+   the exact checks: (a) with V on the 2^-8 grid and a float32 drive the
+   spikes and the membrane series equal the float32 kernel's, (b) so do LIF's
+   and adLIF's, which have no product, (c) with either drive the kernel
+   equals its plain version bit for bit, (d) the dropped positions are the
+   float32 form's and a kept value is bf16(1/(1-p)), (e) the output types;
+   then ``fused_cell_bwd_bf16``, ``fused_ann_fwd_bf16`` and
+   ``fused_ann_bwd_bf16`` at (128, 100, 512) and the ragged shape, held by
+   the bounds of ``BF16_ULP`` and ``BF16_SUM_REL_MAX`` or else the float64
+   witness rule of phases 6 and 9.
+14. ``serving_bf16``: RadLIF [512, 512, 35] and GRU [512, 512, 35] with
+   ``compute_dtype=bfloat16`` through ``Predictor``, ``auto`` and ``scan``,
+   with the metrics of phases 4 and 11. ``auto`` is held against the same
+   Predictor with each kernel swapped for its plain version (RadLIF: the
+   probabilities bit for bit; GRU: labels on >= 99 %, probabilities within
+   ``BF16_PROB_MAX``, or else by the float64 witness rule of phase 4's
+   calibrated model); its distance from the float32 ``auto`` run is
+   printed, not bounded (an untrained RadLIF amplifies any rounding).
+   LiGRU and RNN: one batch, checked alike.
+15. ``training_bf16``: both models through ``create_train_state`` and
+   ``make_train_step`` as in phases 8 and 12 (parameters, gradients and
+   Adam's moments float32), with the float32 ``auto`` losses side by side;
+   LiGRU and RNN for three steps; and ``training_remat``: three steps of the
+   RadLIF bf16 ``auto`` trainer with ``remat=True`` against the same without
+   it, losses and step-1 gradients bit-equal, peak memory of both.
+16. ``kernels``: each kernel with its launches on its main path (spiking
    serving: the "calibrated" model's ``pallas`` run; spiking training: the
    ``pallas`` trainer's 10 steps; non-spiking: the ``auto`` Predictor's and
-   the ``auto`` trainer's runs of its model), its error, its time beside
+   the ``auto`` trainer's runs of its model; the bf16 forms: the bf16
+   ``auto`` runs), its error, its time beside
    its plain version's, and its bound: the larger of its bytes over the
    card's memory rate and its operations over the card's float32 rate, from
    this run's shapes and firing rates. No library call computes any of
@@ -129,10 +157,32 @@ TRAIN_STEPS = 10
 # tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+PEAK_BF16_S = 989e12  # dense bf16 products with a float32 sum
 F_ANN = 40  # filterbank features of the non-spiking models' input
 ANN_ATOL = 2e-5  # fused ANN forward, kernel vs plain
 WITNESS_FWD_FACTOR = 4.0  # else: kernel error <= 4x the f32 plain's, vs f64
 ANN_TYPES = {"rnn": "RNN", "ligru": "LiGRU", "gru": "GRU"}
+# The bf16-stream mode, kernel vs plain version. Both round the same values
+# at the same places, but sum in float32 in another order, and a sum that
+# differs in its last bit can tip a rounding to bf16 (one ulp, 2^-8
+# relative) of an output or of the next product's operand; a tipped operand
+# moves the next step's sums by about |V| * ulp, which tips more. Two right
+# implementations therefore land on neighbouring bf16 values now and then.
+# A bf16 stream is held to one bf16 ulp at the top of its range, 2^-7:
+# relative to max(1, |value|) for the forward's series, to the gradient's
+# largest magnitude for a dWx stream. A gradient reduced in float32 over
+# B*T terms averages the tipped terms out and is held to 1e-3 of its largest
+# magnitude. Past its bound a value is held by the float64 witness rule.
+BF16_ULP = 2.0 ** -7
+BF16_SUM_REL_MAX = 1e-3
+# served probabilities, bf16 GRU kernels vs their plain versions: the
+# outputs differ by an ulp (<= 2^-7) on few elements, the readout averages
+# 100 steps and 512 units
+BF16_PROB_MAX = 1e-2
+BF16 = torch.bfloat16
+# A plain version takes 10-130 ms a call and its time is only a yardstick:
+# it is timed over few calls
+PLAIN_ROUNDS = dict(warmup=1, iters=2, repeats=3)
 GRAD_NAMES = ("dWx", "dscale", "dshift", "dV", "dalpha", "dbeta", "da", "db",
               "du0", "dw0", "ds0")
 # how far the kernel paths' agreement with scan may fall short of the scan
@@ -249,19 +299,37 @@ def phase_device():
     t0 = time.perf_counter()
     logs = _build.build()
     build_s = time.perf_counter() - t0
-    ptxas = {}
-    for name, log in logs.items():
-        regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
-        spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", log)]
-        ptxas[name] = dict(entries=len(regs), max_registers=max(regs),
-                           entries_that_spill=sum(1 for n in spills if n),
-                           max_spill_store_bytes=max(spills))
+    ptxas = {name: ptxas_summary(log) for name, log in logs.items()}
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda,
          allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
          allow_tf32_cudnn=torch.backends.cudnn.allow_tf32,
          kernel_build_s=build_s, built=sorted(logs), ptxas=ptxas)
     return smi
+
+
+def ptxas_summary(log: str):
+    """Registers and spills of one source's entry functions, all together
+    and, for the kernels that have the two stream modes (their last template
+    argument), by mode: the float32 forms must not pay for the bf16 ones."""
+    entries = re.findall(
+        r"Compiling entry function '(\S+)' for[^\n]*\n(?:[^\n]*\n)*?"
+        r"[^\n]*?(\d+) bytes spill stores[^\n]*\n[^\n]*Used (\d+) registers",
+        log)
+
+    def summary(rows):
+        return dict(entries=len(rows), max_registers=max(r for r, _ in rows),
+                    entries_that_spill=sum(1 for _, sp in rows if sp),
+                    max_spill_store_bytes=max(sp for _, sp in rows))
+
+    rows = [(int(regs), int(spill)) for _, spill, regs in entries]
+    out = summary(rows)
+    for flag, mode in (("0", "float32"), ("1", "bf16")):
+        of_mode = [(int(regs), int(spill)) for name, spill, regs in entries
+                   if re.search(rf"Lb{flag}EEEvNS_\d*ArgsE$", name)]
+        if of_mode:
+            out[mode] = summary(of_mode)
+    return out
 
 
 def orthogonal_check(name, shape, dev):
@@ -311,7 +379,8 @@ def phase_fused_cell(dev):
             if shape == (B, T, H):
                 with torch.no_grad():
                     row["ms"] = cuda_time_ms(kernel_call, name, d, True)
-                    row["plain_ms"] = cuda_time_ms(plain_call, name, d, True)
+                    row["plain_ms"] = cuda_time_ms(plain_call, name, d, True,
+                                                   **PLAIN_ROUNDS)
                 if name == "radlif":
                     main = dict(max_abs_err=err, ms=row["ms"],
                                 plain_ms=row["plain_ms"],
@@ -561,36 +630,45 @@ def phase_serving(dev):
     return rows["pallas"]["launches"]
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, n_ops_bf16: float = 0.0):
     """The least time the card could take: the larger of the bytes over
-    its memory rate and the operations over its float32 rate."""
+    its memory rate and the operations over its rate for their type
+    (float32 outside the tensor cores; ``n_ops_bf16``: the products of
+    bf16 operands with a float32 sum)."""
     by_bytes = 1e3 * n_bytes / PEAK_BYTES_S
-    by_ops = 1e3 * n_ops / PEAK_F32_S
+    by_ops = 1e3 * (n_ops / PEAK_F32_S + n_ops_bf16 / PEAK_BF16_S)
     return dict(bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
-def cell_bounds(rate: float):
+def cell_bounds(rate: float, bf16=False):
     """Bounds of the fused-cell kernels at (B, T, H), RadLIF with the
     affine, from the shape and this run's firing rate. Each stream is
     counted once: Wx, spikes, the membrane series, g and dWx are B*T*H
-    floats, V and dV H*H, the states B*H. The forward's s @ V adds one row
-    of V per spike; the backward has two dense products of 2*B*T*H*H."""
-    stream, mat, state = 4.0 * B * T * H, 4.0 * H * H, 4.0 * B * H
+    elements, V and dV H*H, the states B*H. The forward's s @ V adds one row
+    of V per spike; the backward has two dense products of 2*B*T*H*H. In
+    the bf16-stream mode Wx, the spikes, g, dWx and V are two bytes an
+    element (the membrane series, dV and the states stay four) and the
+    dense products are of bf16 operands."""
+    e = 2.0 if bf16 else 4.0
+    stream, mat, state = e * B * T * H, e * H * H, 4.0 * B * H
+    u_series, dv = 4.0 * B * T * H, 4.0 * H * H
     elementwise = 16.0 * B * T * H
     gather = rate * B * T * H * H
+    products = 4.0 * B * T * H * H
     return dict(
         fwd=bound(2 * stream + mat + 3 * state, elementwise + gather),
-        fwd_train=bound(3 * stream + mat + 3 * state,
+        fwd_train=bound(2 * stream + u_series + mat + 3 * state,
                         elementwise + gather + 12.0 * B * T * H),
-        bwd=bound(4 * stream + 2 * mat + 6 * state,
-                  4.0 * B * T * H * H + 40.0 * B * T * H),
+        bwd=bound(3 * stream + u_series + mat + dv + 6 * state,
+                  40.0 * B * T * H + (0.0 if bf16 else products),
+                  products if bf16 else 0.0),
         hash=bound(0.0, 2 * 12.0 * B * T * H),
     )
 
 
 def train_forward_call(name, d, kernel: bool, drop_rate=P_DROP, seed=None,
-                       save_residuals=True):
+                       save_residuals=True, bf16=False):
     """The training form of the forward, the kernel or its plain version,
     on already clamped inputs with the affine."""
     from sparch_tpu_torch.ops import fused_cells
@@ -599,7 +677,7 @@ def train_forward_call(name, d, kernel: bool, drop_rate=P_DROP, seed=None,
     fn = fused_cells._fused_cell_cuda if kernel else \
         fused_cells.fused_cell_plain
     return fn(*p["args"], **p["kw"], drop_rate=drop_rate, seed=seed,
-              save_residuals=save_residuals)
+              save_residuals=save_residuals, mxu_bf16=bf16)
 
 
 def phase_train_forward(dev):
@@ -634,7 +712,7 @@ def phase_train_forward(dev):
                                              True, P_DROP, seed)
                     row["plain_ms"] = cuda_time_ms(
                         train_forward_call, name, d, False, P_DROP, seed,
-                        iters=3, repeats=3)
+                        **PLAIN_ROUNDS)
                     row["ms_without_dropout"] = cuda_time_ms(
                         train_forward_call, name, d, True, 0.0, None)
                 if name == "radlif":
@@ -657,9 +735,11 @@ def rel_err(got, want) -> float:
                  / want.abs().max().clamp_min(1e-30))
 
 
-def grads_within_bound(what, got, want32, want64, names=GRAD_NAMES):
+def grads_within_bound(what, got, want32, want64, names=GRAD_NAMES,
+                       rel_max=None):
     """Hold each gradient of ``got`` (the kernel's) against the plain
-    version's: within GRAD_REL_MAX of its largest magnitude, or else, with
+    version's: within GRAD_REL_MAX of its largest magnitude (``rel_max``
+    gives another bound by name), or else, with
     the plain version in float64 as the truth, no further from it than
     WITNESS_GRAD_FACTOR times the float32 plain version is. ``want64``
     is a function that computes the float64 gradients when they are
@@ -670,8 +750,11 @@ def grads_within_bound(what, got, want32, want64, names=GRAD_NAMES):
         if x is None:
             continue
         check(bool(torch.isfinite(x).all()), f"{what}: {name} not finite")
+        check(x.dtype == y.dtype, f"{what}: {name} is {x.dtype}, the plain "
+                                  f"version's {y.dtype}")
+        x, y = x.float(), y.float()
         e = dict(vs_plain=rel_err(x, y))
-        if e["vs_plain"] > GRAD_REL_MAX:
+        if e["vs_plain"] > (rel_max or {}).get(name, GRAD_REL_MAX):
             if truth is None:
                 truth = dict(zip(names, want64()))
             e["kernel_vs_f64"] = rel_err(x.double(), truth[name])
@@ -683,7 +766,16 @@ def grads_within_bound(what, got, want32, want64, names=GRAD_NAMES):
     return errs
 
 
-def phase_backward(dev):
+def bf16_grad_bounds(names):
+    """The bf16 mode's bounds by gradient: the dWx streams are bf16, all
+    else is reduced in float32."""
+    return {n: BF16_ULP if n.startswith("dWx") else BF16_SUM_REL_MAX
+            for n in names}
+
+
+def phase_backward(dev, bf16=False):
+    """Phase 6, or with ``bf16`` the bf16-stream form: g and the drive are
+    then bf16, and the bounds those of ``bf16_grad_bounds``."""
     from sparch_tpu_torch.ops import fused_cells
     from sparch_tpu_torch.utils.timing import cuda_time_ms
 
@@ -699,10 +791,13 @@ def phase_backward(dev):
                 generator=torch.Generator(device=dev).manual_seed(5))
             gen = torch.Generator(device=dev).manual_seed(6)
             g = torch.randn(shape, generator=gen, device=dev)
+            if bf16:
+                g, d["Wx"] = g.to(BF16), d["Wx"].to(BF16)
             with torch.no_grad():
                 # one set of residuals for both sides: no spike can flip
                 # between them
-                _, u_seq = train_forward_call(name, d, False, seed=seed)
+                _, u_seq = train_forward_call(name, d, False, seed=seed,
+                                              bf16=bf16)
 
             def args(f):
                 return (f(g), f(d["Wx"]), f(u_seq), f(d["scale"]),
@@ -710,7 +805,7 @@ def phase_backward(dev):
                         f(d["V"]), 1.0, f(d["u0"]), f(d["w0"]), f(d["s0"]))
 
             kw = dict(recurrent=rec, adaptive=ada, drop_rate=P_DROP,
-                      seed=seed)
+                      seed=seed, mxu_bf16=bf16)
             same = lambda t: t  # noqa: E731
             with torch.no_grad():
                 got = fused_cells._fused_cell_bwd_cuda(*args(same), **kw)
@@ -720,14 +815,16 @@ def phase_backward(dev):
                 errs = grads_within_bound(
                     f"{name} {shape}", got, want,
                     lambda: fused_cells.fused_cell_bwd_plain(
-                        *args(torch.Tensor.double), **kw))
+                        *args(torch.Tensor.double), **kw),
+                    rel_max=bf16_grad_bounds(GRAD_NAMES) if bf16 else None)
             for n, x, z in zip(GRAD_NAMES, got, again):
                 check(x is None or torch.equal(x, z),
                       f"{name} {shape}: {n} differs between two launches")
             row = dict(cell=name, shape=list(shape), affine=True,
                        drop_rate=P_DROP, rel_err=errs,
                        two_launches_bit_equal=True,
-                       max_abs_err=float((got[0] - want[0]).abs().max()))
+                       max_abs_err=float(
+                           (got[0].float() - want[0].float()).abs().max()))
             if shape == (B, T, H):
                 with torch.no_grad():
                     row["ms"] = cuda_time_ms(
@@ -735,11 +832,13 @@ def phase_backward(dev):
                             *args(same), **kw))
                     row["plain_ms"] = cuda_time_ms(
                         lambda: fused_cells.fused_cell_bwd_plain(
-                            *args(same), **kw), iters=3, repeats=3)
+                            *args(same), **kw), **PLAIN_ROUNDS)
                 if name == "radlif":
                     main = dict(max_abs_err=row["max_abs_err"], ms=row["ms"],
                                 plain_ms=row["plain_ms"])
-            emit("kernel_vs_plain", kernel="fused_cell_bwd", **row)
+            emit("kernel_vs_plain",
+                 kernel="fused_cell_bwd_bf16" if bf16 else "fused_cell_bwd",
+                 **row)
     return main
 
 
@@ -772,7 +871,7 @@ def phase_readout_backward(dev):
     err = float((got[0] - want[0]).abs().max())
     ms = cuda_time_ms(fused_cells._readout_bwd_cuda, gout, u_seq, alpha, u0)
     plain_ms = cuda_time_ms(fused_cells.readout_bwd_plain, gout, u_seq,
-                            alpha, u0, iters=3, repeats=3)
+                            alpha, u0, **PLAIN_ROUNDS)
     emit("kernel_vs_plain", kernel="readout_bwd", shape=[B, T, C],
          rel_err=errs, two_launches_bit_equal=True, max_abs_err=err, ms=ms,
          plain_ms=plain_ms)
@@ -809,17 +908,17 @@ def training_state(dev):
 
 
 def train_run(dev, impl, state_dict, x, y, steps, seed=0,
-              model_type="RadLIF"):
-    """``steps`` training steps of a new trainer, in the type of ``x``;
-    returns (model, state, losses, first-step gradients, launch counts of
-    the run)."""
+              model_type="RadLIF", **model_kw):
+    """``steps`` training steps of a new trainer, in the type of ``x``
+    (``model_kw``: ``compute_dtype``, ``remat``); returns (model, state,
+    losses, first-step gradients, launch counts of the run)."""
     from sparch_tpu_torch.models import build_model
     from sparch_tpu_torch.ops import fused_cells
     from sparch_tpu_torch.train import create_train_state, make_train_step
 
     model = build_model(model_type, tuple(x.shape), [H, H, C],
                         dropout=P_DROP, normalization="batchnorm",
-                        state_init="uniform", cell_impl=impl)
+                        state_init="uniform", cell_impl=impl, **model_kw)
     model.load_state_dict(state_dict)
     state = create_train_state(model.to(x.dtype), LR, device=dev, seed=seed)
     step = make_train_step(model)
@@ -862,7 +961,7 @@ def step_split_ms(model, state, x, y, n=10):
 
 def train_variant(dev, impl, state_dict, x, y, per_step, scan_row,
                   model_type="RadLIF", steps=TRAIN_STEPS, timed=True,
-                  grad_rel_max=GRAD_REL_MAX):
+                  grad_rel_max=GRAD_REL_MAX, **model_kw):
     """One ``cell_impl`` of a training phase: ``steps`` steps of a new
     trainer with the launch counters set to 0 just before and read just
     after; every kernel of the variant launched ``per_step`` times per step
@@ -872,18 +971,25 @@ def train_variant(dev, impl, state_dict, x, y, per_step, scan_row,
     step with each kernel swapped for its plain version (loss within 1e-3
     relative, every gradient within ``grad_rel_max`` of its largest
     magnitude or else by the float64 witness rule of the backward
-    phases), and (loosely) against scan's. Returns (row, launch
-    counts)."""
+    phases), and (loosely, where ``scan_row`` is given) against scan's.
+    ``model_kw`` (``compute_dtype``) goes to every trainer of the variant.
+    Returns (row, launch counts)."""
     from sparch_tpu_torch.train import make_train_step
     from sparch_tpu_torch.utils.timing import cuda_time_ms
 
-    what = f"{model_type} {impl}"
-    run = dict(model_type=model_type)
+    what = f"{model_type} {impl}" + (f" {model_kw}" if model_kw else "")
+    run = dict(model_type=model_type, **model_kw)
     model, state, losses, grads, counts = train_run(
         dev, impl, state_dict, x, y, steps, **run)
     want = {k: steps * per_step.get(k, 0) for k in counts}
     check(counts == want, f"{what}: kernel launches {counts} != {want}")
     check(bool(np.isfinite(losses).all()), f"{what}: losses {losses}")
+    check(all(p.dtype == p.grad.dtype == torch.float32
+              for p in model.parameters()) and
+          all(v.dtype == torch.float32
+              for st in state.optimizer.state.values()
+              for v in st.values() if torch.is_tensor(v)),
+          f"{what}: parameters, gradients and Adam's moments are float32")
     # a run of a few steps is only held to finite losses
     check(steps < TRAIN_STEPS or losses[-1] < losses[0],
           f"{what}: loss did not fall in {steps} steps: {losses}")
@@ -930,6 +1036,7 @@ def train_variant(dev, impl, state_dict, x, y, per_step, scan_row,
             check(w["kernel_vs_f64"]
                   <= WITNESS_GRAD_FACTOR * w["plain_vs_f64"],
                   f"{what}: step-1 gradient of {k} {w}")
+    if impl != "scan" and scan_row is not None:
         scan_loss = scan_row["losses"][0]
         row["vs_scan_step1_loss_rel_diff"] = \
             abs(losses[0] - scan_loss) / scan_loss
@@ -937,10 +1044,13 @@ def train_variant(dev, impl, state_dict, x, y, per_step, scan_row,
               f"{what}: step-1 loss {losses[0]} vs scan's {scan_loss}")
     if timed:
         step = make_train_step(model)
-        row["train_step_ms"] = cuda_time_ms(step, state, x, y, warmup=3,
-                                            iters=20, repeats=3)
+        # a scan step is ~20 kernel steps long: fewer of them time it
+        slow = impl == "scan"
+        row["train_step_ms"] = cuda_time_ms(
+            step, state, x, y, warmup=1 if slow else 3,
+            iters=5 if slow else 20, repeats=3)
         row["utterances_per_s"] = 1e3 * B / row["train_step_ms"]
-        row.update(step_split_ms(model, state, x, y))
+        row.update(step_split_ms(model, state, x, y, n=3 if slow else 10))
     with torch.no_grad():
         model.eval()
         _, rates = model(x, state.generator)
@@ -1007,7 +1117,7 @@ def _same(t):
 
 
 def ann_forward(mode, d, kernel: bool, drop_rate=0.0, seed=None,
-                save_residuals=False, cast=_same):
+                save_residuals=False, cast=_same, bf16=False):
     """The fused ANN forward with the affine, the kernel or its plain
     version; with ``save_residuals`` the flat tuple (y, y_raw, *gates)."""
     from sparch_tpu_torch.ops import fused_ann
@@ -1015,11 +1125,13 @@ def ann_forward(mode, d, kernel: bool, drop_rate=0.0, seed=None,
     fn = fused_ann._ann_cell_cuda if kernel else fused_ann.ann_cell_plain
     r = fn(mode, *([cast(t) for t in d[k]] for k in
                    ("wxs", "scales", "shifts", "vs")), cast(d["y0"]),
-           drop_rate=drop_rate, seed=seed, save_residuals=save_residuals)
+           drop_rate=drop_rate, seed=seed, save_residuals=save_residuals,
+           mxu_bf16=bf16)
     return (r[0], r[1], *r[2]) if save_residuals else r
 
 
-def ann_backward(mode, d, g, residuals, seed, kernel: bool, cast=_same):
+def ann_backward(mode, d, g, residuals, seed, kernel: bool, cast=_same,
+                 bf16=False):
     """The fused ANN backward on the residuals (y_raw, *gates) of the
     training form, the kernel or its plain version; the flat tuple of
     gradients named by ``ann_grad_names``."""
@@ -1032,7 +1144,7 @@ def ann_backward(mode, d, g, residuals, seed, kernel: bool, cast=_same):
         mode, cast(g), [cast(t) for t in d["wxs"]], cast(y_raw),
         [cast(t) for t in gates], [cast(t) for t in d["scales"]],
         [cast(t) for t in d["vs"]], cast(d["y0"]), drop_rate=P_DROP,
-        seed=seed)
+        seed=seed, mxu_bf16=bf16)
     return (*dwxs, *dscales, *dshifts, *dvs, dy0)
 
 
@@ -1044,16 +1156,24 @@ def ann_grad_names(mode):
                  for g in gates) + ("dy0",)
 
 
-def series_within_bound(what, names, atols, got, want32, want64):
+def series_within_bound(what, names, atols, got, want32, want64,
+                        relative=False):
     """Hold each series of ``got`` (the kernel's) against the plain
-    version's: within its atol, or else, with the plain version in float64
+    version's: within its atol (``relative``: times max(1, |value|)), or
+    else, with the plain version in float64
     as the truth, no further from it than WITNESS_FWD_FACTOR times the
     float32 plain version is. ``want64`` computes the float64 series when
     they are needed. Returns the errors by series."""
     errs, truth = {}, None
     for name, atol, x, y in zip(names, atols, got, want32):
         check(bool(torch.isfinite(x).all()), f"{what}: {name} not finite")
-        e = dict(vs_plain=float((x - y).abs().max()))
+        check(x.dtype == y.dtype, f"{what}: {name} is {x.dtype}, the plain "
+                                  f"version's {y.dtype}")
+        x, y = x.float(), y.float()
+        diff = (x - y).abs()
+        if relative:
+            diff = diff / y.abs().clamp_min(1.0)
+        e = dict(vs_plain=float(diff.max()))
         if e["vs_plain"] > atol:
             if truth is None:
                 truth = dict(zip(names, want64()))
@@ -1066,37 +1186,44 @@ def series_within_bound(what, names, atols, got, want32, want64):
     return errs
 
 
-def phase_ann_forward(dev):
+def phase_ann_forward(dev, bf16=False):
+    """Phase 9, or with ``bf16`` the bf16-stream form: the input streams
+    are then bf16, the series are bf16 and held to one ulp (BF16_ULP)."""
     from sparch_tpu_torch.ops import fused_ann
     from sparch_tpu_torch.utils.timing import cuda_time_ms
 
     seed = torch.tensor([1234, 99], dtype=torch.int32, device=dev)
     double = torch.Tensor.double
     main = {}
+    atol = BF16_ULP if bf16 else ANN_ATOL
+    mode_kw = dict(bf16=bf16)
     for shape in ((B, T, H), (5, 13, 40)):
         for mode in fused_ann.MODES:
-            what = f"{mode} {shape}"
+            what = f"{mode} {shape}" + (" bf16" if bf16 else "")
             d = ann_inputs(mode, shape, 4, dev)
+            if bf16:
+                d["wxs"] = [w.to(BF16) for w in d["wxs"]]
             names = ("y", "y_raw") + fused_ann._GATE_SERIES[mode]
             # a kept output is y / (1 - p)
-            atols = (ANN_ATOL / (1.0 - P_DROP),) + \
-                (ANN_ATOL,) * (len(names) - 1)
+            atols = (atol / (1.0 - P_DROP),) + (atol,) * (len(names) - 1)
             train = (P_DROP, seed, True)
             with torch.no_grad():
-                served = ann_forward(mode, d, True)
-                got = ann_forward(mode, d, True, *train)
-                again = ann_forward(mode, d, True, *train)
-                want_served = ann_forward(mode, d, False)
-                want = ann_forward(mode, d, False, *train)
+                served = ann_forward(mode, d, True, **mode_kw)
+                got = ann_forward(mode, d, True, *train, **mode_kw)
+                again = ann_forward(mode, d, True, *train, **mode_kw)
+                want_served = ann_forward(mode, d, False, **mode_kw)
+                want = ann_forward(mode, d, False, *train, **mode_kw)
                 torch.cuda.synchronize()
                 errs = series_within_bound(
-                    what, ("y_served",), (ANN_ATOL,), (served,),
+                    what, ("y_served",), (atol,), (served,),
                     (want_served,),
-                    lambda: (ann_forward(mode, d, False, cast=double),))
+                    lambda: (ann_forward(mode, d, False, cast=double,
+                                         **mode_kw),), relative=bf16)
                 errs.update(series_within_bound(
                     what, names, atols, got, want,
                     lambda: ann_forward(mode, d, False, *train,
-                                        cast=double)))
+                                        cast=double, **mode_kw),
+                    relative=bf16))
             for n, x, z in zip(names, got, again):
                 check(torch.equal(x, z),
                       f"{what}: {n} differs between two launches")
@@ -1111,47 +1238,60 @@ def phase_ann_forward(dev):
             if shape == (B, T, H):
                 check(abs(dropped - P_DROP) <= 0.005,
                       f"{what}: dropped share {dropped}")
+                def timed(kernel, *form, **kw):
+                    return cuda_time_ms(
+                        lambda: ann_forward(mode, d, kernel, *form,
+                                            **mode_kw), **kw)
+
                 with torch.no_grad():
-                    row["ms"] = cuda_time_ms(ann_forward, mode, d, True)
-                    row["plain_ms"] = cuda_time_ms(ann_forward, mode, d,
-                                                   False, iters=3, repeats=3)
-                    row["ms_train"] = cuda_time_ms(ann_forward, mode, d, True,
-                                                   *train)
-                    row["plain_ms_train"] = cuda_time_ms(
-                        ann_forward, mode, d, False, *train, iters=3,
-                        repeats=3)
+                    row["ms"] = timed(True)
+                    row["plain_ms"] = timed(False, **PLAIN_ROUNDS)
+                    row["ms_train"] = timed(True, *train)
+                    row["plain_ms_train"] = timed(False, *train,
+                                                  **PLAIN_ROUNDS)
                 main[mode] = {k: row[k] for k in (
                     "max_abs_err", "ms", "plain_ms", "ms_train",
                     "plain_ms_train")}
-            emit("kernel_vs_plain", kernel="fused_ann_fwd", **row)
+            emit("kernel_vs_plain",
+                 kernel="fused_ann_fwd_bf16" if bf16 else "fused_ann_fwd",
+                 **row)
     return main
 
 
-def phase_ann_backward(dev):
+def phase_ann_backward(dev, bf16=False):
+    """Phase 10, or with ``bf16`` the bf16-stream form: g, the input
+    streams and the residual series are then bf16, and the bounds those of
+    ``bf16_grad_bounds``."""
     from sparch_tpu_torch.ops import fused_ann
     from sparch_tpu_torch.utils.timing import cuda_time_ms
 
     seed = torch.tensor([1234, 99], dtype=torch.int32, device=dev)
     main = {}
+    mode_kw = dict(bf16=bf16)
     for shape in ((B, T, H), (5, 13, 40)):
         for mode in fused_ann.MODES:
-            what = f"{mode} {shape}"
+            what = f"{mode} {shape}" + (" bf16" if bf16 else "")
             d = ann_inputs(mode, shape, 4, dev)
             gen = torch.Generator(device=dev).manual_seed(6)
             g = torch.randn(shape, generator=gen, device=dev)
+            if bf16:
+                g, d["wxs"] = g.to(BF16), [w.to(BF16) for w in d["wxs"]]
             names = ann_grad_names(mode)
             with torch.no_grad():
                 # one set of residuals for both sides: the LiGRU's c > 0
                 # cannot flip between them
-                res = ann_forward(mode, d, False, P_DROP, seed, True)[1:]
-                got = ann_backward(mode, d, g, res, seed, True)
-                again = ann_backward(mode, d, g, res, seed, True)
-                want = ann_backward(mode, d, g, res, seed, False)
+                res = ann_forward(mode, d, False, P_DROP, seed, True,
+                                  **mode_kw)[1:]
+                got = ann_backward(mode, d, g, res, seed, True, **mode_kw)
+                again = ann_backward(mode, d, g, res, seed, True, **mode_kw)
+                want = ann_backward(mode, d, g, res, seed, False, **mode_kw)
                 torch.cuda.synchronize()
                 errs = grads_within_bound(
                     what, got, want,
                     lambda: ann_backward(mode, d, g, res, seed, False,
-                                         cast=torch.Tensor.double), names)
+                                         cast=torch.Tensor.double,
+                                         **mode_kw), names,
+                    rel_max=bf16_grad_bounds(names) if bf16 else None)
             check(len(got) == len(names) == len(want),
                   f"{what}: {len(got)} gradients for {names}")
             for n, x, z in zip(names, got, again):
@@ -1160,17 +1300,21 @@ def phase_ann_backward(dev):
             row = dict(cell=mode, shape=list(shape), affine=True,
                        drop_rate=P_DROP, rel_err=errs,
                        two_launches_bit_equal=True,
-                       max_abs_err=float((got[0] - want[0]).abs().max()))
+                       max_abs_err=float(
+                           (got[0].float() - want[0].float()).abs().max()))
             if shape == (B, T, H):
                 with torch.no_grad():
-                    row["ms"] = cuda_time_ms(ann_backward, mode, d, g, res,
-                                             seed, True)
+                    row["ms"] = cuda_time_ms(
+                        lambda: ann_backward(mode, d, g, res, seed, True,
+                                             **mode_kw))
                     row["plain_ms"] = cuda_time_ms(
-                        ann_backward, mode, d, g, res, seed, False, iters=3,
-                        repeats=3)
+                        lambda: ann_backward(mode, d, g, res, seed, False,
+                                             **mode_kw), **PLAIN_ROUNDS)
                 main[mode] = {k: row[k] for k in ("max_abs_err", "ms",
                                                   "plain_ms")}
-            emit("kernel_vs_plain", kernel="fused_ann_bwd", **row)
+            emit("kernel_vs_plain",
+                 kernel="fused_ann_bwd_bf16" if bf16 else "fused_ann_bwd",
+                 **row)
     return main
 
 
@@ -1304,30 +1448,39 @@ def phase_training_ann(dev):
     return launches
 
 
-def ann_bounds(mode):
+def ann_bounds(mode, bf16=False):
     """Bounds of the fused ANN kernels at (B, T, H) with the affine, from
     the shape: each (B, T, H) stream, each (H, H) matrix and each state
     counted once; every gate has one dense product of 2*B*T*H*H in the
     forward and two in the backward (the adjoint and the dV outer
-    product)."""
+    product). In the bf16-stream mode every stream and matrix read is two
+    bytes an element (dV and the states stay four) and the products are of
+    bf16 operands."""
     from sparch_tpu_torch.ops import fused_ann
 
     n = fused_ann.MODES[mode]
     series = len(fused_ann._GATE_SERIES[mode])
-    stream, mat, state, vec = 4.0 * B * T * H, 4.0 * H * H, 4.0 * B * H, \
+    e = 2.0 if bf16 else 4.0
+    stream, mat, state, vec = e * B * T * H, e * H * H, 4.0 * B * H, \
         4.0 * H
+    dv = 4.0 * H * H
     product = 2.0 * B * T * H * H
+
+    def ops(products, elementwise):
+        return (elementwise, products) if bf16 else \
+            (elementwise + products, 0.0)
+
     fwd_bytes = (n + 1) * stream + n * mat + state + 2 * n * vec
-    fwd_ops = n * product + 12.0 * n * B * T * H
+    fwd_elem = 12.0 * n * B * T * H
     # reads g, the raw y, the gate series and the raw input streams; writes
     # the input streams' gradients
-    bwd_bytes = (2 + series + 2 * n) * stream + 2 * n * mat + 2 * state \
+    bwd_bytes = (2 + series + 2 * n) * stream + n * (mat + dv) + 2 * state \
         + 3 * n * vec
     return dict(
-        fwd=bound(fwd_bytes, fwd_ops),
+        fwd=bound(fwd_bytes, *ops(n * product, fwd_elem)),
         fwd_train=bound(fwd_bytes + (series + 1) * stream,
-                        fwd_ops + 12.0 * B * T * H),
-        bwd=bound(bwd_bytes, 2 * n * product + 30.0 * n * B * T * H),
+                        *ops(n * product, fwd_elem + 12.0 * B * T * H)),
+        bwd=bound(bwd_bytes, *ops(2 * n * product, 30.0 * n * B * T * H)),
     )
 
 
@@ -1356,6 +1509,340 @@ def ann_kernel_rows(fwd, bwd, served, trained):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The bf16-stream mode: mxu_bf16=True, compute_dtype=bfloat16
+# ---------------------------------------------------------------------------
+
+
+def phase_bf16_cell_forward(dev):
+    """``fused_cell_fwd_bf16`` and ``fused_cell_fwd_train_bf16`` with the
+    exact checks (a)-(e) of the module docstring, phase 13; with a uniform
+    s0 (rounded for the first product only) the recurrent forms still equal
+    their plain version bit for bit. Times: RadLIF with the affine and a
+    bf16 drive, as ``compute_dtype=bfloat16`` gives it."""
+    from sparch_tpu_torch.ops import fused_cells
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    kernel, plain = fused_cells._fused_cell_cuda, fused_cells.fused_cell_plain
+    seed = torch.tensor([1234, 99], dtype=torch.int32, device=dev)
+    train = dict(drop_rate=P_DROP, seed=seed, save_residuals=True)
+    kept = torch.tensor(1.0 / (1.0 - P_DROP), device=dev).to(BF16)
+    main = {}
+    for shape in ((B, T, H), (5, 13, 40)):
+        for name in FORMS:
+            for affine in (True, False):
+                what = f"{name} {shape} affine={affine} bf16"
+                d = cell_inputs(shape, dyadic=True, seed=1, dev=dev)
+                check(torch.equal(d["V"].to(BF16).float(), d["V"]),
+                      f"{what}: V is not exact in bf16")
+                p = _prepared(name, d, affine)
+                with torch.no_grad():
+                    f32_served = kernel(*p["args"], **p["kw"])
+                    f32_out, f32_u = kernel(*p["args"], **p["kw"], **train)
+                for wx_bf16 in (False, True):
+                    dd = dict(d, Wx=d["Wx"].to(BF16)) if wx_bf16 else d
+                    p = _prepared(name, dd, affine)
+                    call = dict(p["kw"], mxu_bf16=True)
+                    with torch.no_grad():
+                        served = kernel(*p["args"], **call)
+                        out, u_seq = kernel(*p["args"], **call, **train)
+                        want_served = plain(*p["args"], **call)
+                        want, want_u = plain(*p["args"], **call, **train)
+                    torch.cuda.synchronize()
+                    check(served.dtype == out.dtype == BF16 and
+                          u_seq.dtype == torch.float32,
+                          f"{what}: (e) output types")
+                    check(torch.equal(served, want_served) and
+                          torch.equal(out, want) and
+                          torch.equal(u_seq, want_u),
+                          f"{what} wx_bf16={wx_bf16}: (c) differs from plain")
+                    check(bool(((out == 0) | (out == kept)).all()),
+                          f"{what}: (d) a kept value is not bf16(1/(1-p))")
+                    if not wx_bf16:
+                        check(torch.equal(served.float(), f32_served) and
+                              torch.equal(u_seq, f32_u),
+                              f"{what}: (a, b) differs from the float32 "
+                              f"kernel")
+                        check(torch.equal(out == 0, f32_out == 0),
+                              f"{what}: (d) dropped positions differ from "
+                              f"the float32 form's")
+                row = dict(cell=name, shape=list(shape), affine=affine,
+                           drop_rate=P_DROP, max_abs_err=0.0,
+                           equals_plain_bit_for_bit=True,
+                           float32_drive_equals_float32_kernel=True,
+                           firing_rate=float(f32_served.mean()))
+                if FORMS[name][0]:
+                    dd["s0"] = torch.rand(
+                        dd["s0"].shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(5))
+                    p = _prepared(name, dd, affine)
+                    with torch.no_grad():
+                        out, u_seq = kernel(*p["args"], **call, **train)
+                        want, want_u = plain(*p["args"], **call, **train)
+                    check(torch.equal(out, want) and
+                          torch.equal(u_seq, want_u),
+                          f"{what}: uniform s0 differs from plain")
+                    row["uniform_s0_equals_plain"] = True
+                if shape == (B, T, H) and name == "radlif" and affine:
+                    dd = dict(d, Wx=d["Wx"].to(BF16))
+                    p = _prepared(name, dd, True)
+
+                    def timed(fn, *form, **kw):
+                        return cuda_time_ms(
+                            lambda: fn(*p["args"], **call,
+                                       **(form[0] if form else {})), **kw)
+
+                    with torch.no_grad():
+                        row.update(
+                            ms=timed(kernel),
+                            plain_ms=timed(plain, **PLAIN_ROUNDS),
+                            ms_train=timed(kernel, train),
+                            plain_ms_train=timed(plain, train,
+                                                 **PLAIN_ROUNDS))
+                    main = {k: row[k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "ms_train",
+                        "plain_ms_train", "firing_rate")}
+                emit("kernel_vs_plain", kernel="fused_cell_fwd_bf16", **row)
+    return main
+
+
+def serve_bf16(dev, model_type, state, x, timed: bool):
+    """Serve ``x`` with one model under ``compute_dtype=bfloat16``,
+    cell_impl scan and auto. ``auto`` launches the bf16 forward kernel of
+    its cell twice per batch and no other kernel, and is held against the
+    same Predictor with the kernels swapped for their plain versions; its
+    distance from the float32 ``auto`` run and from scan is printed."""
+    from sparch_tpu_torch.models import build_model
+    from sparch_tpu_torch.ops import fused_cells
+    from sparch_tpu_torch.serve import Predictor
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    spiking = model_type == "RadLIF"
+    kernel = "fused_cell_fwd_bf16" if spiking else \
+        f"fused_ann_fwd_{model_type.lower()}_bf16"
+    n_batches = -(-len(x) // B)
+
+    def predictor(impl, dtype=torch.float32, **kw):
+        model = build_model(model_type, (B, T, x.shape[-1]), [H, H, C],
+                            state_init="zeros", cell_impl=impl, **kw)
+        return Predictor(model.to(dtype), state, batch_size=B, device=dev)
+
+    out, rows = {}, {}
+    for impl in ("scan", "auto"):
+        what = f"{model_type} bf16 {impl}"
+        pred = predictor(impl, compute_dtype=BF16)
+        fused_cells.reset_launch_counts()
+        labels, probs = pred(x)
+        counts = fused_cells.launch_counts()
+        check(probs.dtype == np.float32 and probs.shape == (len(x), C) and
+              bool(np.isfinite(probs).all()),
+              f"{what}: probs not finite float32 of the right shape")
+        check(bool(np.allclose(probs.sum(-1), 1.0, atol=1e-5)),
+              f"{what}: probs do not sum to 1")
+        want = {k: 0 for k in counts}
+        if impl == "auto":
+            want[kernel] = 2 * n_batches
+        check(counts == want, f"{what}: kernel launches {counts} != {want}")
+        out[impl] = (labels, probs)
+        row = dict(launches={k: n for k, n in counts.items() if n})
+        if impl == "auto":
+            with plain_versions():
+                plain = pred(x)
+            row["vs_plain_versions"] = agree = _agreement(out["auto"], plain)
+            if spiking:
+                # V on the 2^-8 grid: the same spikes, so the same floats
+                check(np.array_equal(probs, plain[1]),
+                      f"{what}: differs from the plain versions: {agree}")
+            elif not (agree["label_agreement"] >= 0.99 and
+                      agree["max_abs_prob_diff"] <= BF16_PROB_MAX):
+                # the rule of phase 4's calibrated model, with the plain
+                # versions on float64 parameters (same bf16 streams, same
+                # rounding points) as the truth: the kernels may be no
+                # further from it than the float32 plain versions are
+                with plain_versions():
+                    truth = predictor("auto", torch.float64,
+                                      compute_dtype=BF16)(x)
+                w = dict(kernel_vs_f64=_agreement(out["auto"], truth),
+                         plain_vs_f64=_agreement(plain, truth))
+                row["f64_witness"] = w
+                check(w["kernel_vs_f64"]["label_agreement"]
+                      >= w["plain_vs_f64"]["label_agreement"]
+                      - WITNESS_LABEL_MARGIN and
+                      w["kernel_vs_f64"]["max_abs_prob_diff"]
+                      <= WITNESS_PROB_FACTOR
+                      * w["plain_vs_f64"]["max_abs_prob_diff"],
+                      f"{what}: vs the plain versions {agree}, {w}")
+            row["vs_scan"] = _agreement(out["auto"], out["scan"])
+            row["vs_float32_auto"] = _agreement(out["auto"],
+                                                predictor("auto")(x))
+        if timed:
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                pred(x)
+                walls.append(time.perf_counter() - t0)
+            wall = statistics.median(walls)
+            xb = torch.from_numpy(x[:B]).to(dev)
+            with torch.no_grad():
+                row.update(
+                    predict_ms_per_batch=1e3 * wall / n_batches,
+                    utterances_per_s=len(x) / wall,
+                    forward_ms=cuda_time_ms(pred.model, xb, warmup=2,
+                                            iters=5, repeats=3))
+        rows[impl] = row
+    return rows, counts
+
+
+def phase_serving_bf16(dev):
+    """The bf16 serving main paths (module docstring, phase 14). Returns
+    the ``auto`` Predictors' launch counts by model."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    rasters = (torch.rand((N_UTT, T, F), generator=g, device=dev) < 0.02)
+    rasters = rasters.float().cpu().numpy()
+    feats = np.random.default_rng(12).normal(
+        0.0, 1.0, (N_UTT, T, F_ANN)).astype(np.float32)
+    launches = {}
+    for model_type in ("RadLIF", "GRU", "LiGRU", "RNN"):
+        main = model_type in ("RadLIF", "GRU")
+        if model_type == "RadLIF":
+            state, x = serving_state(dev, zero_means=False), rasters
+        else:
+            state, x = ann_state(dev, model_type), feats
+        if not main:
+            x = x[:B]
+        rows, launches[model_type] = serve_bf16(dev, model_type, state, x,
+                                                timed=main)
+        emit("serving_bf16", model=f"{model_type} [512, 512, 35]",
+             compute_dtype="bfloat16", n_utterances=len(x), batch_size=B,
+             T=T, F=x.shape[-1], **rows)
+    return launches
+
+
+def phase_training_bf16(dev):
+    """The bf16 training main paths (module docstring, phase 15). Returns
+    the ``auto`` trainers' launch counts by model."""
+    from sparch_tpu_torch.models import build_model
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rasters = (torch.rand((B, T, F), generator=gen, device=dev) < 0.02)
+    y = torch.randint(0, C, (B,), generator=gen, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    feats = torch.randn((B, T, F_ANN), generator=gen, device=dev)
+    bf16 = dict(compute_dtype=BF16)
+    launches = {}
+    for model_type in ("RadLIF", "GRU", "LiGRU", "RNN"):
+        main = model_type in ("RadLIF", "GRU")
+        if model_type == "RadLIF":
+            state_dict, x = training_state(dev), rasters.float()
+            per_step = {"fused_cell_fwd_train_bf16": 2,
+                        "fused_cell_bwd_bf16": 2}
+        else:
+            state_dict = build_model(
+                model_type, (B, T, F_ANN), [H, H, C], dropout=P_DROP,
+                generator=torch.Generator().manual_seed(0)).state_dict()
+            x, mode = feats, model_type.lower()
+            per_step = {f"fused_ann_fwd_{mode}_bf16": 2,
+                        f"fused_ann_bwd_{mode}_bf16": 2}
+        steps = TRAIN_STEPS if main else 3
+        rows = {}
+        for impl in ("scan", "auto") if main else ("auto",):
+            rows[impl], counts = train_variant(
+                dev, impl, state_dict, x, y,
+                per_step if impl == "auto" else {}, rows.get("scan"),
+                model_type=model_type, steps=steps, timed=main,
+                grad_rel_max=KINK_GRAD_REL_MAX if model_type == "LiGRU"
+                else BF16_ULP, **bf16)
+        launches[model_type] = counts
+        if main:
+            rows["float32_auto_losses"] = train_run(
+                dev, "auto", state_dict, x, y, steps,
+                model_type=model_type)[2]
+        emit("training_bf16", model=f"{model_type} [512, 512, 35]",
+             compute_dtype="bfloat16", batch_size=B, T=T, F=x.shape[-1],
+             dropout=P_DROP, lr=LR, steps=steps, **rows)
+        if model_type == "RadLIF":
+            training_remat(dev, state_dict, x, y)
+    return launches
+
+
+def training_remat(dev, state_dict, x, y):
+    """Three steps of the RadLIF bf16 ``auto`` trainer with ``remat=True``
+    against the same without it: the recomputation replays the dropout
+    seeds and the uniform states, so losses, step-1 gradients and the
+    parameters after the steps are bit-equal; each forward kernel launches
+    once more per layer and step. Peak device memory of both."""
+    runs = {}
+    for remat in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model, _, losses, grads, counts = train_run(
+            dev, "auto", state_dict, x, y, 3, compute_dtype=BF16,
+            remat=remat)
+        torch.cuda.synchronize()
+        runs[remat] = dict(
+            losses=losses, grads=grads, params=model.state_dict(),
+            row=dict(losses=losses,
+                     launches={k: n for k, n in counts.items() if n},
+                     max_memory_allocated=torch.cuda.max_memory_allocated()))
+    plain, remat = runs[False], runs[True]
+    check(plain["losses"] == remat["losses"],
+          f"remat: losses {remat['losses']} != {plain['losses']}")
+    for what in ("grads", "params"):
+        differ = [k for k, v in plain[what].items()
+                  if not torch.equal(v, remat[what][k])]
+        check(not differ, f"remat: {what} differ in {differ}")
+    check(remat["row"]["launches"] ==
+          {"fused_cell_fwd_train_bf16": 12, "fused_cell_bwd_bf16": 6},
+          f"remat: kernel launches {remat['row']['launches']}")
+    emit("training_remat", model="RadLIF [512, 512, 35]",
+         compute_dtype="bfloat16", cell_impl="auto", steps=3,
+         losses_and_step1_gradients_bit_equal=True,
+         without_remat=plain["row"], with_remat=remat["row"])
+
+
+def bf16_kernel_rows(cell_fwd, cell_bwd, ann_fwd, ann_bwd, served, trained):
+    """The ``kernels`` entries of the bf16-stream forms; their launches are
+    those of the bf16 ``auto`` Predictors and trainers."""
+    src = "sparch_tpu_torch/csrc/"
+    cb = cell_bounds(cell_fwd["firing_rate"], bf16=True)
+    tpu = "sparch_tpu/ops/pallas_cells.py:"
+    rows = [
+        dict(name="fused_cell_fwd_bf16", route="cuda",
+             source=src + "fused_cell_fwd.cu", replaces=tpu + "305",
+             launches=served["RadLIF"]["fused_cell_fwd_bf16"],
+             max_abs_err=cell_fwd["max_abs_err"], ms=cell_fwd["ms"],
+             plain_ms=cell_fwd["plain_ms"], **cb["fwd"], library_ms=None),
+        dict(name="fused_cell_fwd_train_bf16", route="cuda",
+             source=src + "fused_cell_fwd.cu", replaces=tpu + "305",
+             launches=trained["RadLIF"]["fused_cell_fwd_train_bf16"],
+             max_abs_err=cell_fwd["max_abs_err"], ms=cell_fwd["ms_train"],
+             plain_ms=cell_fwd["plain_ms_train"], **cb["fwd_train"],
+             library_ms=None),
+        dict(name="fused_cell_bwd_bf16", route="cuda",
+             source=src + "fused_cell_bwd.cu", replaces=tpu + "631",
+             launches=trained["RadLIF"]["fused_cell_bwd_bf16"], **cell_bwd,
+             **cb["bwd"], library_ms=None),
+    ]
+    tpu = "sparch_tpu/ops/pallas_ann.py:"
+    for mode, ann_type in ANN_TYPES.items():
+        b = ann_bounds(mode, bf16=True)
+        f, name = ann_fwd[mode], f"fused_ann_fwd_{mode}_bf16"
+        rows.append(dict(
+            name=name, route="cuda", source=src + "fused_ann_fwd.cu",
+            replaces=tpu + "174", launches=served[ann_type][name],
+            launches_training=trained[ann_type][name],
+            max_abs_err=f["max_abs_err"], ms=f["ms"], plain_ms=f["plain_ms"],
+            **b["fwd"], library_ms=None, ms_train=f["ms_train"],
+            plain_ms_train=f["plain_ms_train"],
+            bound_ms_train=b["fwd_train"]["bound_ms"]))
+        name = f"fused_ann_bwd_{mode}_bf16"
+        rows.append(dict(
+            name=name, route="cuda", source=src + "fused_ann_bwd.cu",
+            replaces=tpu + "392", launches=trained[ann_type][name],
+            **ann_bwd[mode], **b["bwd"], library_ms=None))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1363,18 +1850,35 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    smi = phase_device()
-    cell = phase_fused_cell(dev)
-    readout = phase_readout(dev)
-    fwd_train, hashed = phase_train_forward(dev)
-    bwd = phase_backward(dev)
-    readout_bwd = phase_readout_backward(dev)
-    launches = phase_serving(dev)
-    trained = phase_training(dev)
-    ann_fwd = phase_ann_forward(dev)
-    ann_bwd = phase_ann_backward(dev)
-    ann_served = phase_serving_ann(dev)
-    ann_trained = phase_training_ann(dev)
+    seconds = {}
+
+    def run(name, phase, *args, **kw):
+        t0 = time.perf_counter()
+        result = phase(*args, **kw)
+        torch.cuda.synchronize()
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return result
+
+    smi = run("device", phase_device)
+    cell = run("fused_cell", phase_fused_cell, dev)
+    readout = run("readout", phase_readout, dev)
+    fwd_train, hashed = run("train_forward", phase_train_forward, dev)
+    bwd = run("backward", phase_backward, dev)
+    readout_bwd = run("readout_backward", phase_readout_backward, dev)
+    launches = run("serving", phase_serving, dev)
+    trained = run("training", phase_training, dev)
+    ann_fwd = run("ann_forward", phase_ann_forward, dev)
+    ann_bwd = run("ann_backward", phase_ann_backward, dev)
+    ann_served = run("serving_ann", phase_serving_ann, dev)
+    ann_trained = run("training_ann", phase_training_ann, dev)
+    bf16_cell = run("bf16_cell_forward", phase_bf16_cell_forward, dev)
+    bf16_bwd = run("bf16_backward", phase_backward, dev, bf16=True)
+    bf16_ann_fwd = run("bf16_ann_forward", phase_ann_forward, dev, bf16=True)
+    bf16_ann_bwd = run("bf16_ann_backward", phase_ann_backward, dev,
+                       bf16=True)
+    bf16_served = run("serving_bf16", phase_serving_bf16, dev)
+    bf16_trained = run("training_bf16", phase_training_bf16, dev)
+    emit("seconds", **seconds)
     cb = cell_bounds(cell.pop("firing_rate"))
     readout_bytes = 4.0 * (B * T * C + 2 * B * C + C)
     readout_ops = 12.0 * B * T * C
@@ -1407,7 +1911,9 @@ def main() -> int:
              source=src + "readout_bwd.cu", replaces=tpu + "1274",
              launches=trained["readout_bwd"], **readout_bwd,
              **bound(2 * readout_bytes, 2 * readout_ops), library_ms=None),
-    ] + ann_kernel_rows(ann_fwd, ann_bwd, ann_served, ann_trained)
+    ] + ann_kernel_rows(ann_fwd, ann_bwd, ann_served, ann_trained) \
+        + bf16_kernel_rows(bf16_cell, bf16_bwd, bf16_ann_fwd, bf16_ann_bwd,
+                           bf16_served, bf16_trained)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

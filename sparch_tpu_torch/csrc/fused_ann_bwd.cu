@@ -4,7 +4,16 @@
 // the forward.
 //
 // Replaces: sparch_tpu/ops/pallas_ann.py `_ann_bwd_kernel`, the TPU kernel
-// behind the VJP of rnn/ligru/gru_pallas (float32 streams).
+// behind the VJP of rnn/ligru/gru_pallas, in two stream modes (BF):
+// float32 streams, and the TPU kernel's mxu_bf16 mode. In that mode g, the
+// residual series (raw y, z, r, c) and the per-gate dWx are bf16 streams,
+// the packed transposed matrices are bf16, each raw input stream (read with
+// the affine) is float32 or bf16 as the forward got it, every dpre is
+// rounded to bf16 where it enters a product (the adjoint product and dV, so
+// the scratch series the dV kernel reads are bf16), the dV products' left
+// operands are rounded too (y0 and r*y_p; a stored y is bf16 already), and
+// dWx = bf16(dpre*scale); dscale and dshift (from the float32 dpre), dV and
+// dy0 stay float32 in their fixed order.
 //
 // With G_t the total adjoint of y_t (the output cotangent, masked and
 // scaled like the forward's output under dropout, plus what step t+1
@@ -79,18 +88,19 @@ constexpr int kBK = 16;    // dV depth per shared-memory stage
 constexpr int kDvThreads = 256;
 
 struct Args {
-  const float* g;
-  const float* wx[3];  // the raw input streams, read only with the affine
-  const float* y_seq;
-  const float* z;
-  const float* r;
-  const float* c;
+  const void* g;       // g and the residual series: float, bf16 in bf16 mode
+  const void* wx[3];   // the raw input streams, read only with the affine;
+                       // float, or bf16 where wx_bf16 (bf16 mode only)
+  const void* y_seq;
+  const void* z;
+  const void* r;
+  const void* c;
   const float* scale;  // (gates, H), or null for no affine
-  const float* VT;     // the packed transposed matrices, by gate
+  const void* VT;      // the packed transposed matrices, by gate
   const float* y0;
   const int* seed;     // null for no dropout
-  float* dwx[3];
-  float* dd[3];        // dpre before the scale, written only with the affine
+  void* dwx[3];        // float, bf16 in the bf16 mode, like dd
+  void* dd[3];         // dpre before the scale, written only with the affine
   float* partials;
   float* dy0;
   int B;
@@ -99,6 +109,22 @@ struct Args {
   uint32_t keep_u32;
   float inv_keep;
   int tile_rows;
+};
+
+// The bf16 mode's one more flag rides in a struct of its own, so that the
+// float32 kernels' parameter block, and with it their code, stays what it
+// was before the mode existed (an int appended to Args changed how the
+// float32 time loops compiled).
+struct ArgsBf16 : Args {
+  int wx_bf16;  // the input streams are bf16, not float
+};
+template <bool BF>
+struct ModeArgs {
+  using type = Args;
+};
+template <>
+struct ModeArgs<true> {
+  using type = ArgsBf16;
 };
 
 template <int NPT, int BT>
@@ -110,9 +136,10 @@ __device__ __forceinline__ void clear(float (&acc)[NPT][BT]) {
   }
 }
 
-template <int MODE, int NPT>
+template <int MODE, int NPT, bool BF>
 __global__ void __launch_bounds__(kThreads)
-fused_ann_bwd_kernel(const Args p) {
+fused_ann_bwd_kernel(const typename ModeArgs<BF>::type p) {
+  using ST = typename Elem<BF>::type;
   constexpr int BT = kWork / NPT > 0 ? kWork / NPT : 1;
   constexpr int G = MODE + 1;
   // one published dpre per gate (H*BT floats each), then the stream's
@@ -125,8 +152,16 @@ fused_ann_bwd_kernel(const Args p) {
   const bool affine = p.scale != nullptr;
   const bool dropout = p.seed != nullptr;
 
-  TileStream s =
-      stream_over(p.VT, pub + ((G * H * BT + 3) & ~3), full, H, G, T);
+  TileStream<ST> s = stream_over(
+      static_cast<const ST*>(p.VT),
+      reinterpret_cast<ST*>(pub + ((G * H * BT + 3) & ~3)), full, H, G, T);
+  bool wx_bf16 = false;
+  if constexpr (BF) wx_bf16 = p.wx_bf16;
+  const ST* g_in = static_cast<const ST*>(p.g);
+  const ST* y_seq = static_cast<const ST*>(p.y_seq);
+  const ST* z_in = static_cast<const ST*>(p.z);
+  const ST* r_in = static_cast<const ST*>(p.r);
+  const ST* c_in = static_cast<const ST*>(p.c);
 
   float sc[G][NPT], dsc[G][NPT], dsh[G][NPT];
   float D[NPT][BT];
@@ -165,7 +200,7 @@ fused_ann_bwd_kernel(const Args p) {
         const bool ok = live[i] && rowlive[r];
         const size_t row = (size_t)(row0 + r);
         const size_t at = (row * T + t) * H + col[i];
-        float g_t = ok ? p.g[at] : 0.f;
+        float g_t = ok ? to_float(g_in[at]) : 0.f;
         if (dropout) {
           g_t = dropout_keep(drop_base[r], col[i], t, p.keep_u32)
                     ? g_t * p.inv_keep
@@ -173,19 +208,20 @@ fused_ann_bwd_kernel(const Args p) {
         }
         Gt[i][r] = g_t + D[i][r];
         if constexpr (MODE == kRnn) {
-          const float y_t = ok ? p.y_seq[at] : 0.f;
+          const float y_t = ok ? to_float(y_seq[at]) : 0.f;
           dpre[0][i][r] = Gt[i][r] * y_t * (1.0f - y_t);
         } else {
           yp[i][r] = !ok ? 0.f
-                         : (t > 0 ? p.y_seq[at - H] : p.y0[row * H + col[i]]);
-          z[i][r] = ok ? p.z[at] : 0.f;
-          c[i][r] = ok ? p.c[at] : 0.f;
+                         : (t > 0 ? to_float(y_seq[at - H])
+                                  : p.y0[row * H + col[i]]);
+          z[i][r] = ok ? to_float(z_in[at]) : 0.f;
+          c[i][r] = ok ? to_float(c_in[at]) : 0.f;
           const float omz = 1.0f - z[i][r];
           dpre[1][i][r] = Gt[i][r] * (yp[i][r] - c[i][r]) * z[i][r] * omz;
           if constexpr (MODE == kLigru) {
             dpre[0][i][r] = c[i][r] > 0.f ? Gt[i][r] * omz : 0.f;
           } else {
-            rr[i][r] = ok ? p.r[at] : 0.f;
+            rr[i][r] = ok ? to_float(r_in[at]) : 0.f;
             dpre[0][i][r] = Gt[i][r] * omz * (1.0f - c[i][r] * c[i][r]);
           }
         }
@@ -194,10 +230,10 @@ fused_ann_bwd_kernel(const Args p) {
     // the step before left its last product behind a barrier, so the
     // buffers are free
     float acc[G][NPT][BT];
-    publish<NPT, BT>(pub, dpre[0], col, live);
+    publish<NPT, BT, BF>(pub, dpre[0], col, live);
     clear<NPT, BT>(acc[0]);
     if constexpr (MODE != kRnn) {
-      publish<NPT, BT>(pub + H * BT, dpre[1], col, live);
+      publish<NPT, BT, BF>(pub + H * BT, dpre[1], col, live);
       clear<NPT, BT>(acc[1]);
     }
     stream_matrix<NPT, BT>(s, pub, col, acc[0]);  // dpre_0 @ V^T
@@ -211,7 +247,7 @@ fused_ann_bwd_kernel(const Args p) {
               acc[0][i][r] * yp[i][r] * rr[i][r] * (1.0f - rr[i][r]);
         }
       }
-      publish<NPT, BT>(pub + 2 * H * BT, dpre[2], col, live);
+      publish<NPT, BT, BF>(pub + 2 * H * BT, dpre[2], col, live);
       clear<NPT, BT>(acc[2]);
     }
     if constexpr (MODE != kRnn) {
@@ -238,15 +274,16 @@ fused_ann_bwd_kernel(const Args p) {
         for (int g = 0; g < G; ++g) {
           const float dp = dpre[g][i][r];
           if (affine) {
-            const float wx_t = ok ? p.wx[g][at] : 0.f;
+            const float wx_t =
+                ok ? load_stream<BF>(p.wx[g], at, wx_bf16) : 0.f;
             dsc[g][i] += dp * wx_t;
             dsh[g][i] += dp;
             if (ok) {
-              p.dwx[g][at] = dp * sc[g][i];
-              p.dd[g][at] = dp;
+              static_cast<ST*>(p.dwx[g])[at] = from_float<ST>(dp * sc[g][i]);
+              static_cast<ST*>(p.dd[g])[at] = from_float<ST>(dp);
             }
           } else if (ok) {
-            p.dwx[g][at] = dp;
+            static_cast<ST*>(p.dwx[g])[at] = from_float<ST>(dp);
           }
         }
       }
@@ -270,10 +307,10 @@ fused_ann_bwd_kernel(const Args p) {
 }
 
 struct DvArgs {
-  const float* y_seq;
+  const void* y_seq;     // y_seq, r and dpre: float, bf16 in the bf16 mode
   const float* y0;
-  const float* r;        // the GRU's reset series, else null
-  const float* dpre[3];  // the right operand, by gate
+  const void* r;         // the GRU's reset series, else null
+  const void* dpre[3];   // the right operand, by gate
   float* partial;        // (ksplit, gates, H, H)
   int T;
   int H;
@@ -284,8 +321,12 @@ struct DvArgs {
 
 // partial[split][gate][m][n] = sum over rows q = (b, t) of this split,
 // ascending, of left[q][m] * dpre_gate[q][n], with left = y_{t-1}[b] (y0
-// at t = 0), times r_t[b] for the GRU's candidate (gate 0).
+// at t = 0), times r_t[b] for the GRU's candidate (gate 0). ST is the
+// element type of the series; with bf16 the left operand is rounded to bf16
+// too, and the sum is float32.
+template <typename ST>
 __global__ void __launch_bounds__(kDvThreads) dv_kernel(const DvArgs a) {
+  constexpr bool kRound = sizeof(ST) == 2;
   __shared__ __align__(16) float As[kBK][kTile];
   __shared__ __align__(16) float Bs[kBK][kTile];
   const int tid = threadIdx.x;
@@ -297,7 +338,9 @@ __global__ void __launch_bounds__(kDvThreads) dv_kernel(const DvArgs a) {
   const int split = blockIdx.z / a.G;
   const int H = a.H;
   const int T = a.T;
-  const float* dd = a.dpre[gate];
+  const ST* dd = static_cast<const ST*>(a.dpre[gate]);
+  const ST* y_seq = static_cast<const ST*>(a.y_seq);
+  const ST* r_in = static_cast<const ST*>(a.r);
   const bool gated = a.r != nullptr && gate == 0;
   const int q_begin = split * a.rows_per_split;
   const int q_end = min(a.R, q_begin + a.rows_per_split);
@@ -322,12 +365,14 @@ __global__ void __launch_bounds__(kDvThreads) dv_kernel(const DvArgs a) {
       float left = 0.f;
       if (row_ok && m < H) {
         left = t == 0 ? a.y0[(size_t)brow * H + m]
-                      : a.y_seq[(size_t)(q - 1) * H + m];
-        if (gated) left *= a.r[(size_t)q * H + m];
+                      : to_float(y_seq[(size_t)(q - 1) * H + m]);
+        if (gated) left *= to_float(r_in[(size_t)q * H + m]);
+        if (kRound) left = round_bf16(left);
       }
       As[lr][lc + k] = left;
       const int n = n0 + lc + k;
-      Bs[lr][lc + k] = (row_ok && n < H) ? dd[(size_t)q * H + n] : 0.f;
+      Bs[lr][lc + k] =
+          (row_ok && n < H) ? to_float(dd[(size_t)q * H + n]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -357,26 +402,36 @@ __global__ void __launch_bounds__(kDvThreads) dv_kernel(const DvArgs a) {
   }
 }
 
-template <int MODE, int NPT>
-void launch_one(const Args& p, int n_blocks, int threads, cudaStream_t st) {
+template <int MODE, int NPT, bool BF>
+void launch_one(const ArgsBf16& p, int n_blocks, int threads, cudaStream_t st) {
   constexpr int BT = kWork / NPT > 0 ? kWork / NPT : 1;
   constexpr int G = MODE + 1;
   const size_t smem = ((((size_t)G * p.H * BT + 3) & ~(size_t)3) +
                        (size_t)kStages * kTileFloats) * sizeof(float);
   // more than 48 KB of dynamic shared memory has to be asked for
-  cudaFuncSetAttribute(fused_ann_bwd_kernel<MODE, NPT>,
+  cudaFuncSetAttribute(fused_ann_bwd_kernel<MODE, NPT, BF>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  fused_ann_bwd_kernel<MODE, NPT><<<n_blocks, threads, smem, st>>>(p);
+  fused_ann_bwd_kernel<MODE, NPT, BF><<<n_blocks, threads, smem, st>>>(p);
+}
+
+template <int MODE, bool BF>
+void launch_mode(const ArgsBf16& p, int n_blocks, int npt, int threads,
+                 cudaStream_t st) {
+  switch (npt) {
+    case 1: launch_one<MODE, 1, BF>(p, n_blocks, threads, st); break;
+    case 2: launch_one<MODE, 2, BF>(p, n_blocks, threads, st); break;
+    default: launch_one<MODE, 4, BF>(p, n_blocks, threads, st); break;
+  }
 }
 
 template <int MODE>
-void launch_npt(const Args& p, int n_blocks, int npt, int threads,
+void launch_npt(const ArgsBf16& p, bool bf16, int n_blocks, int npt, int threads,
                 cudaStream_t st) {
-  switch (npt) {
-    case 1: launch_one<MODE, 1>(p, n_blocks, threads, st); break;
-    case 2: launch_one<MODE, 2>(p, n_blocks, threads, st); break;
-    default: launch_one<MODE, 4>(p, n_blocks, threads, st); break;
+  if (bf16) {
+    launch_mode<MODE, true>(p, n_blocks, npt, threads, st);
+  } else {
+    launch_mode<MODE, false>(p, n_blocks, npt, threads, st);
   }
 }
 
@@ -385,22 +440,26 @@ void launch_npt(const Args& p, int n_blocks, int npt, int threads,
 // mode: 0 RNN, 1 LiGRU, 2 GRU. Null pointers switch parts off: scale (no
 // affine: wx, dd and vecs are then not touched) and seed (no dropout).
 // Operands of gates the mode lacks are ignored. vecs is (2*gates, H):
-// dscale by gate, then dshift by gate.
+// dscale by gate, then dshift by gate. bf16 selects the bf16-stream mode:
+// g, the residual series, dwx, dd and VT (rows padded to eight elements) are
+// then bf16, and the raw input streams are bf16 where wx_bf16.
 extern "C" int sparch_fused_ann_bwd(
-    const float* g, const float* wx0, const float* wx1, const float* wx2,
-    const float* y_seq, const float* z, const float* r, const float* c,
-    const float* scale, const float* VT, const float* y0, const int* seed,
-    float* dwx0, float* dwx1, float* dwx2, float* dd0, float* dd1,
-    float* dd2, float* partials, float* vecs, float* dV, float* dv_partials,
+    const void* g, const void* wx0, const void* wx1, const void* wx2,
+    const void* y_seq, const void* z, const void* r, const void* c,
+    const float* scale, const void* VT, const float* y0, const int* seed,
+    void* dwx0, void* dwx1, void* dwx2, void* dd0, void* dd1,
+    void* dd2, float* partials, float* vecs, float* dV, float* dv_partials,
     float* dy0, int B, int T, int H, int mode, unsigned int keep_u32,
-    float inv_keep, int tile_rows, int n_blocks, int ksplit, void* stream) {
-  const float* wx[3] = {wx0, wx1, wx2};
-  float* dwx[3] = {dwx0, dwx1, dwx2};
-  float* dd[3] = {dd0, dd1, dd2};
+    float inv_keep, int tile_rows, int n_blocks, int ksplit, int bf16,
+    int wx_bf16, void* stream) {
+  const void* wx[3] = {wx0, wx1, wx2};
+  void* dwx[3] = {dwx0, dwx1, dwx2};
+  void* dd[3] = {dd0, dd1, dd2};
   if (B <= 0 || T <= 0 || H <= 0 || H > kThreads * kMaxNpt || mode < kRnn ||
       mode > kGru || !g || !y_seq || !VT || !y0 || !partials || !vecs ||
       !dV || !dv_partials || !dy0 || (mode >= kLigru && (!z || !c)) ||
-      (mode == kGru && !r) || (seed && tile_rows <= 0) || ksplit < 1) {
+      (mode == kGru && !r) || (seed && tile_rows <= 0) || ksplit < 1 ||
+      (wx_bf16 && !bf16)) {
     return (int)cudaErrorInvalidValue;
   }
   const int G = mode + 1;
@@ -416,14 +475,21 @@ extern "C" int sparch_fused_ann_bwd(
   const int bt = kWork / npt > 0 ? kWork / npt : 1;
   if (n_blocks != (B + bt - 1) / bt) return (int)cudaErrorInvalidValue;
   const int threads = (((H + npt - 1) / npt) + 31) / 32 * 32;
-  const Args p{g, {wx0, wx1, wx2}, y_seq, z, r, c, scale, VT, y0, seed,
-               {dwx0, dwx1, dwx2}, {dd0, dd1, dd2}, partials, dy0, B, T, H,
-               keep_u32, inv_keep, tile_rows};
+  const ArgsBf16 p{{g, {wx0, wx1, wx2}, y_seq, z, r, c, scale, VT, y0, seed,
+                    {dwx0, dwx1, dwx2}, {dd0, dd1, dd2}, partials, dy0, B, T,
+                    H, keep_u32, inv_keep, tile_rows},
+                   wx_bf16};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case kRnn: launch_npt<kRnn>(p, n_blocks, npt, threads, st); break;
-    case kLigru: launch_npt<kLigru>(p, n_blocks, npt, threads, st); break;
-    default: launch_npt<kGru>(p, n_blocks, npt, threads, st); break;
+    case kRnn:
+      launch_npt<kRnn>(p, bf16 != 0, n_blocks, npt, threads, st);
+      break;
+    case kLigru:
+      launch_npt<kLigru>(p, bf16 != 0, n_blocks, npt, threads, st);
+      break;
+    default:
+      launch_npt<kGru>(p, bf16 != 0, n_blocks, npt, threads, st);
+      break;
   }
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
@@ -445,7 +511,11 @@ extern "C" int sparch_fused_ann_bwd(
   for (int k = 0; k < 3; ++k) a.dpre[k] = affine ? dd[k] : dwx[k];
   const int tiles = (H + kTile - 1) / kTile;
   const dim3 grid(tiles, tiles, G * ksplit);
-  dv_kernel<<<grid, kDvThreads, 0, st>>>(a);
+  if (bf16) {
+    dv_kernel<__nv_bfloat16><<<grid, kDvThreads, 0, st>>>(a);
+  } else {
+    dv_kernel<float><<<grid, kDvThreads, 0, st>>>(a);
+  }
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   const int n = G * H * H;

@@ -4,8 +4,14 @@
 // dropout_hash.cuh.
 //
 // Replaces: sparch_tpu/ops/pallas_ann.py `_ann_fwd_kernel`, the TPU kernel
-// behind rnn/ligru/gru_pallas (float32 streams), in its serving form (the
-// output alone) and its training form (the residual series too).
+// behind rnn/ligru/gru_pallas, in its serving form (the output alone) and
+// its training form (the residual series too), each in two stream modes
+// (BF): float32 streams, and the TPU kernel's mxu_bf16 mode. In that mode
+// the output, the raw-y series and the gate residuals are bf16 streams, the
+// packed matrices are bf16 (rounded once by the wrapper), each input stream
+// is float32 or bf16 as the projection emitted it, both operands of every
+// product are rounded to bf16 (y, or r*y, where it is published) and summed
+// in float32, and the carried y and all elementwise arithmetic stay float32.
 //
 // Per step, for one batch row (y is the previous step's state; gate 0 is
 // the candidate with Wx and V, gate 1 the update z, gate 2 the reset r):
@@ -69,17 +75,18 @@ constexpr int kMaxNpt = 4;  // so H <= kThreads * kMaxNpt = 2048
 constexpr int kRnn = 0, kLigru = 1, kGru = 2;
 
 struct Args {
-  const float* wx[3];
+  const void* wx[3];   // float, or bf16 where wx_bf16 (bf16 mode only)
   const float* scale;  // (gates, H), or null for no affine
   const float* shift;
-  const float* V;      // the packed matrices, in the step's order
+  const void* V;       // the packed matrices, in the step's order; bf16 in
+                       // the bf16 mode, like the five output series
   const float* y0;
   const int* seed;     // null for no dropout
-  float* y_out;
-  float* yraw_out;     // null unless residuals under dropout
-  float* z_out;        // the gate series, null without residuals
-  float* r_out;
-  float* c_out;
+  void* y_out;
+  void* yraw_out;      // null unless residuals under dropout
+  void* z_out;         // the gate series, null without residuals
+  void* r_out;
+  void* c_out;
   int B;
   int T;
   int H;
@@ -88,13 +95,30 @@ struct Args {
   int tile_rows;
 };
 
+// The bf16 mode's one more flag rides in a struct of its own, so that the
+// float32 kernels' parameter block, and with it their code, stays what it
+// was before the mode existed (an int appended to Args changed how the
+// float32 time loops compiled).
+struct ArgsBf16 : Args {
+  int wx_bf16;  // the input streams are bf16, not float
+};
+template <bool BF>
+struct ModeArgs {
+  using type = Args;
+};
+template <>
+struct ModeArgs<true> {
+  using type = ArgsBf16;
+};
+
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-template <int MODE, int NPT>
+template <int MODE, int NPT, bool BF>
 __global__ void __launch_bounds__(kThreads)
-fused_ann_fwd_kernel(const Args p) {
+fused_ann_fwd_kernel(const typename ModeArgs<BF>::type p) {
+  using ST = typename Elem<BF>::type;
   constexpr int BT = kWork / NPT > 0 ? kWork / NPT : 1;
   constexpr int G = MODE + 1;
   // the published left operand (H*BT floats), then the stream's stages
@@ -106,8 +130,11 @@ fused_ann_fwd_kernel(const Args p) {
   const bool affine = p.scale != nullptr;
   const bool dropout = p.seed != nullptr;
 
-  TileStream s =
-      stream_over(p.V, pub + ((H * BT + 3) & ~3), full, H, G, T);
+  TileStream<ST> s = stream_over(
+      static_cast<const ST*>(p.V),
+      reinterpret_cast<ST*>(pub + ((H * BT + 3) & ~3)), full, H, G, T);
+  bool wx_bf16 = false;
+  if constexpr (BF) wx_bf16 = p.wx_bf16;
 
   float sc[G][NPT], sh[G][NPT];
   float y[NPT][BT];
@@ -139,7 +166,7 @@ fused_ann_fwd_kernel(const Args p) {
                     : 0.f;
     }
   }
-  publish<NPT, BT>(pub, y, col, live);
+  publish<NPT, BT, BF>(pub, y, col, live);
   stream_open(s);
 
   for (int t = 0; t < T; ++t) {
@@ -152,7 +179,9 @@ fused_ann_fwd_kernel(const Args p) {
 #pragma unroll
         for (int r = 0; r < BT; ++r) {
           const size_t at = ((size_t)(row0 + r) * T + t) * H + col[i];
-          const float x = (live[i] && rowlive[r]) ? p.wx[g][at] : 0.f;
+          const float x = (live[i] && rowlive[r])
+                              ? load_stream<BF>(p.wx[g], at, wx_bf16)
+                              : 0.f;
           d[g][i][r] = affine ? sc[g][i] * x + sh[g][i] : x;
           acc[g][i][r] = 0.f;
         }
@@ -172,7 +201,7 @@ fused_ann_fwd_kernel(const Args p) {
           ry[i][r] = rr[i][r] * y[i][r];
         }
       }
-      publish<NPT, BT>(pub, ry, col, live);
+      publish<NPT, BT, BF>(pub, ry, col, live);
       stream_matrix<NPT, BT>(s, pub, col, acc[0]);  // (r*y) @ V
     } else {
       stream_matrix<NPT, BT>(s, pub, col, acc[0]);  // y @ V
@@ -204,42 +233,56 @@ fused_ann_fwd_kernel(const Args p) {
                        ? y[i][r] * p.inv_keep
                        : 0.f;
         }
-        p.y_out[at] = stored;
-        if (p.yraw_out) p.yraw_out[at] = y[i][r];
+        static_cast<ST*>(p.y_out)[at] = from_float<ST>(stored);
+        if (p.yraw_out) {
+          static_cast<ST*>(p.yraw_out)[at] = from_float<ST>(y[i][r]);
+        }
         if constexpr (MODE != kRnn) {
           if (p.c_out) {
-            p.z_out[at] = z[i][r];
-            p.c_out[at] = c[i][r];
-            if constexpr (MODE == kGru) p.r_out[at] = rr[i][r];
+            static_cast<ST*>(p.z_out)[at] = from_float<ST>(z[i][r]);
+            static_cast<ST*>(p.c_out)[at] = from_float<ST>(c[i][r]);
+            if constexpr (MODE == kGru) {
+              static_cast<ST*>(p.r_out)[at] = from_float<ST>(rr[i][r]);
+            }
           }
         }
       }
     }
     // every thread left the last product behind its closing barrier, so
     // the buffer is free for the next step's left operand
-    publish<NPT, BT>(pub, y, col, live);
+    publish<NPT, BT, BF>(pub, y, col, live);
   }
 }
 
-template <int MODE, int NPT>
-void launch_one(const Args& p, int threads, cudaStream_t st) {
+template <int MODE, int NPT, bool BF>
+void launch_one(const ArgsBf16& p, int threads, cudaStream_t st) {
   constexpr int BT = kWork / NPT > 0 ? kWork / NPT : 1;
   const int n_blocks = (p.B + BT - 1) / BT;
   const size_t smem = ((((size_t)p.H * BT + 3) & ~(size_t)3) +
                        (size_t)kStages * kTileFloats) * sizeof(float);
   // more than 48 KB of dynamic shared memory has to be asked for
-  cudaFuncSetAttribute(fused_ann_fwd_kernel<MODE, NPT>,
+  cudaFuncSetAttribute(fused_ann_fwd_kernel<MODE, NPT, BF>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  fused_ann_fwd_kernel<MODE, NPT><<<n_blocks, threads, smem, st>>>(p);
+  fused_ann_fwd_kernel<MODE, NPT, BF><<<n_blocks, threads, smem, st>>>(p);
+}
+
+template <int MODE, bool BF>
+void launch_mode(const ArgsBf16& p, int npt, int threads, cudaStream_t st) {
+  switch (npt) {
+    case 1: launch_one<MODE, 1, BF>(p, threads, st); break;
+    case 2: launch_one<MODE, 2, BF>(p, threads, st); break;
+    default: launch_one<MODE, 4, BF>(p, threads, st); break;
+  }
 }
 
 template <int MODE>
-void launch_npt(const Args& p, int npt, int threads, cudaStream_t st) {
-  switch (npt) {
-    case 1: launch_one<MODE, 1>(p, threads, st); break;
-    case 2: launch_one<MODE, 2>(p, threads, st); break;
-    default: launch_one<MODE, 4>(p, threads, st); break;
+void launch_npt(const ArgsBf16& p, bool bf16, int npt, int threads,
+                cudaStream_t st) {
+  if (bf16) {
+    launch_mode<MODE, true>(p, npt, threads, st);
+  } else {
+    launch_mode<MODE, false>(p, npt, threads, st);
   }
 }
 
@@ -248,18 +291,20 @@ void launch_npt(const Args& p, int npt, int threads, cudaStream_t st) {
 // mode: 0 RNN, 1 LiGRU, 2 GRU. Null pointers switch parts off: scale and
 // shift (no affine), seed (no dropout), yraw_out and the gate series (no
 // residuals). wx1/wx2 and the gate series of gates the mode lacks are
-// ignored.
+// ignored. bf16 selects the bf16-stream mode: V (rows padded to eight
+// elements) and the five output series are then bf16, and the input streams
+// are bf16 where wx_bf16.
 extern "C" int sparch_fused_ann_fwd(
-    const float* wx0, const float* wx1, const float* wx2, const float* scale,
-    const float* shift, const float* V, const float* y0, const int* seed,
-    float* y_out, float* yraw_out, float* z_out, float* r_out, float* c_out,
+    const void* wx0, const void* wx1, const void* wx2, const float* scale,
+    const float* shift, const void* V, const float* y0, const int* seed,
+    void* y_out, void* yraw_out, void* z_out, void* r_out, void* c_out,
     int B, int T, int H, int mode, unsigned int keep_u32, float inv_keep,
-    int tile_rows, void* stream) {
+    int tile_rows, int bf16, int wx_bf16, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || H > kThreads * kMaxNpt || mode < kRnn ||
       mode > kGru || !wx0 || (mode >= kLigru && !wx1) ||
       (mode == kGru && !wx2) || !V || !y0 || !y_out ||
       ((scale == nullptr) != (shift == nullptr)) ||
-      (seed && tile_rows <= 0) ||
+      (seed && tile_rows <= 0) || (wx_bf16 && !bf16) ||
       (mode >= kLigru && ((z_out == nullptr) != (c_out == nullptr))) ||
       (mode == kGru && ((r_out == nullptr) != (c_out == nullptr)))) {
     return (int)cudaErrorInvalidValue;
@@ -268,13 +313,15 @@ extern "C" int sparch_fused_ann_fwd(
   int npt = 1;
   while ((H + npt - 1) / npt > kThreads) npt *= 2;
   const int threads = (((H + npt - 1) / npt) + 31) / 32 * 32;
-  const Args p{{wx0, wx1, wx2}, scale, shift, V, y0, seed, y_out, yraw_out,
-               z_out, r_out, c_out, B, T, H, keep_u32, inv_keep, tile_rows};
+  const ArgsBf16 p{{{wx0, wx1, wx2}, scale, shift, V, y0, seed, y_out,
+                    yraw_out, z_out, r_out, c_out, B, T, H, keep_u32,
+                    inv_keep, tile_rows},
+                   wx_bf16};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case kRnn: launch_npt<kRnn>(p, npt, threads, st); break;
-    case kLigru: launch_npt<kLigru>(p, npt, threads, st); break;
-    default: launch_npt<kGru>(p, npt, threads, st); break;
+    case kRnn: launch_npt<kRnn>(p, bf16 != 0, npt, threads, st); break;
+    case kLigru: launch_npt<kLigru>(p, bf16 != 0, npt, threads, st); break;
+    default: launch_npt<kGru>(p, bf16 != 0, npt, threads, st); break;
   }
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,15 @@
 // with the batchnorm affine and the output dropout of the forward.
 //
 // Replaces: sparch_tpu/ops/pallas_cells.py `_bwd_kernel`, the TPU kernel
-// behind the VJP of lif/adlif/rlif/radlif_pallas (float32 streams).
+// behind the VJP of lif/adlif/rlif/radlif_pallas, in two stream modes (BF):
+// float32 streams, and the TPU kernel's mxu_bf16 mode. In that mode the
+// cotangent g and dWx are bf16 streams, V^T is bf16 (rounded once by the
+// wrapper), Wx (read with the affine) is float32 or bf16 as the forward
+// got it, dDrive is rounded to bf16 where it enters a product (the adjoint
+// product and dV, so the scratch series the dV kernel reads is stored in
+// bf16) and dWx = bf16(dDrive*scale); the membrane series, all adjoint
+// state and every reduced gradient (dscale and dshift from the float32
+// dDrive) stay float32 and keep their fixed order.
 //
 // With A_t = dL/du_t, B_t = dL/dw_t and g_t the output cotangent (masked
 // and scaled like the forward's output under DROPOUT), walking t = T..1:
@@ -103,21 +111,21 @@ constexpr int kDvThreads = 256;
 constexpr int kVecs = 6;  // dalpha, dbeta, da, db, dscale, dshift
 
 struct Args {
-  const float* g;
-  const float* wx;
+  const void* g;    // the streams g, dwx, dd and VT: float, bf16 in bf16 mode
+  const void* wx;   // float, or bf16 where wx_bf16 (bf16 mode only)
   const float* u_seq;
   const float* scale;
   const float* alpha;
   const float* beta;
   const float* a;
   const float* b;
-  const float* VT;
+  const void* VT;
   const float* u0;
   const float* w0;
   const float* s0;
   const int* seed;
-  float* dwx;
-  float* dd;
+  void* dwx;
+  void* dd;
   float* partials;
   float* du0;
   float* dw0;
@@ -131,9 +139,27 @@ struct Args {
   int tile_rows;
 };
 
-template <bool RECURRENT, bool ADAPTIVE, bool AFFINE, bool DROPOUT, int NPT>
+// The bf16 mode's one more flag rides in a struct of its own, so that the
+// float32 kernels' parameter block, and with it their code, stays what it
+// was before the mode existed (an int appended to Args changed how the
+// float32 time loops compiled).
+struct ArgsBf16 : Args {
+  int wx_bf16;  // the Wx stream is bf16, not float
+};
+template <bool BF>
+struct ModeArgs {
+  using type = Args;
+};
+template <>
+struct ModeArgs<true> {
+  using type = ArgsBf16;
+};
+
+template <bool RECURRENT, bool ADAPTIVE, bool AFFINE, bool DROPOUT, int NPT,
+          bool BF>
 __global__ void __launch_bounds__(kThreads)
-fused_cell_bwd_kernel(const Args p) {
+fused_cell_bwd_kernel(const typename ModeArgs<BF>::type p) {
+  using ST = typename Elem<BF>::type;
   constexpr int BT = kWork / NPT > 0 ? kWork / NPT : 1;
   // RECURRENT: two buffers of H*BT floats, dDrive as [neuron][row], then
   // kStages tiles of V^T
@@ -145,8 +171,14 @@ fused_cell_bwd_kernel(const Args p) {
   __shared__ uint64_t full[kStages];  // one mbarrier per stage
   // the cyclic stream of V^T's tiles, T times over; the stages start
   // 16-byte aligned behind the dDrive buffers
-  TileStream vt = stream_over(p.VT, dd_s + ((2 * H * BT + 3) & ~3), full, H,
-                              1, T);
+  TileStream<ST> vt = stream_over(
+      static_cast<const ST*>(p.VT),
+      reinterpret_cast<ST*>(dd_s + ((2 * H * BT + 3) & ~3)), full, H, 1, T);
+  const ST* g_in = static_cast<const ST*>(p.g);
+  ST* dwx_out = static_cast<ST*>(p.dwx);
+  ST* dd_out = static_cast<ST*>(p.dd);
+  bool wx_bf16 = false;
+  if constexpr (BF) wx_bf16 = p.wx_bf16;
 
   float al[NPT], oma[NPT], be[NPT], aa[NPT], bb[NPT], sc[NPT];
   float dal[NPT], dbe[NPT], daa[NPT], dbb[NPT], dsc[NPT], dsh[NPT];
@@ -199,7 +231,7 @@ fused_cell_bwd_kernel(const Args p) {
         const bool ok = live[i] && rowlive[r];
         const size_t row = (size_t)(row0 + r);
         const size_t at = (row * T + t) * H + c;
-        float g_t = ok ? p.g[at] : 0.f;
+        float g_t = ok ? to_float(g_in[at]) : 0.f;
         if (DROPOUT) {
           g_t = sparch::dropout_keep(drop_base[r], c, t, p.keep_u32)
                     ? g_t * p.inv_keep
@@ -227,15 +259,16 @@ fused_cell_bwd_kernel(const Args p) {
         if (ADAPTIVE) A_new += aa[i] * Bw[i][r];
         const float dd = oma[i] * A_new;
         if (AFFINE) {
-          const float wx_t = ok ? p.wx[at] : 0.f;
+          const float wx_t = ok ? load_stream<BF>(p.wx, at, wx_bf16) : 0.f;
           dsc[i] += dd * wx_t;
           dsh[i] += dd;
         }
         if (ok) {
-          p.dwx[at] = AFFINE ? dd * sc[i] : dd;
-          if (RECURRENT && AFFINE) p.dd[at] = dd;
+          dwx_out[at] = from_float<ST>(AFFINE ? dd * sc[i] : dd);
+          if (RECURRENT && AFFINE) dd_out[at] = from_float<ST>(dd);
         }
-        if (RECURRENT && live[i]) buf[c * BT + r] = dd;
+        // bf16 mode: rounded where it enters the adjoint product
+        if (RECURRENT && live[i]) buf[c * BT + r] = BF ? round_bf16(dd) : dd;
         dal[i] += A_new * (u_p - s_p - u_t);
         if (ADAPTIVE) {
           const float B_new = be[i] * Bw[i][r] - dd;
@@ -308,11 +341,15 @@ __global__ void vec_reduce_kernel(const float* __restrict__ partials,
 }
 
 // partial[z][m][n] = sum over rows r = (b, t) of this split, ascending, of
-// s_{t-1}[b][m] * dDrive_t[b][n].
+// s_{t-1}[b][m] * dDrive_t[b][n]. DT is the element type of the dDrive
+// series; with bf16 both operands are bf16 values (s0, which need not be
+// 0/1, is rounded here) and the sum is float32.
+template <typename DT>
 __global__ void __launch_bounds__(kDvThreads)
 dv_kernel(const float* __restrict__ u_seq, const float* __restrict__ s0,
-          const float* __restrict__ dd, float* __restrict__ partial, int T,
+          const DT* __restrict__ dd, float* __restrict__ partial, int T,
           int H, int R, int rows_per_split, float thr) {
+  constexpr bool kRound = sizeof(DT) == 2;
   __shared__ __align__(16) float As[kBK][kTile];
   __shared__ __align__(16) float Bs[kBK][kTile];
   const int tid = threadIdx.x;
@@ -344,10 +381,12 @@ dv_kernel(const float* __restrict__ u_seq, const float* __restrict__ s0,
       if (row_ok && m < H) {
         sp = t == 0 ? s0[(size_t)brow * H + m]
                     : (u_seq[(size_t)(r - 1) * H + m] > thr ? 1.f : 0.f);
+        if (kRound) sp = round_bf16(sp);
       }
       As[lr][lc + q] = sp;
       const int n = n0 + lc + q;
-      Bs[lr][lc + q] = (row_ok && n < H) ? dd[(size_t)r * H + n] : 0.f;
+      Bs[lr][lc + q] =
+          (row_ok && n < H) ? to_float(dd[(size_t)r * H + n]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -379,67 +418,82 @@ dv_kernel(const float* __restrict__ u_seq, const float* __restrict__ s0,
 
 // More than 48 KB of dynamic shared memory has to be asked for, per
 // instantiation.
-template <bool R, bool A, bool F, bool D, int NPT>
-void launch_one(const Args& p, int n_blocks, int threads, size_t smem,
+template <bool R, bool A, bool F, bool D, int NPT, bool BF>
+void launch_one(const ArgsBf16& p, int n_blocks, int threads, size_t smem,
                 cudaStream_t st) {
   if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(fused_cell_bwd_kernel<R, A, F, D, NPT>,
+    cudaFuncSetAttribute(fused_cell_bwd_kernel<R, A, F, D, NPT, BF>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
   }
-  fused_cell_bwd_kernel<R, A, F, D, NPT><<<n_blocks, threads, smem, st>>>(p);
+  fused_cell_bwd_kernel<R, A, F, D, NPT, BF>
+      <<<n_blocks, threads, smem, st>>>(p);
+}
+
+template <bool R, bool A, bool F, bool D, bool BF>
+void launch_mode(const ArgsBf16& p, int n_blocks, int npt, int threads,
+                 size_t smem, cudaStream_t st) {
+  switch (npt) {
+    case 1:
+      launch_one<R, A, F, D, 1, BF>(p, n_blocks, threads, smem, st);
+      break;
+    case 2:
+      launch_one<R, A, F, D, 2, BF>(p, n_blocks, threads, smem, st);
+      break;
+    case 4:
+      launch_one<R, A, F, D, 4, BF>(p, n_blocks, threads, smem, st);
+      break;
+    default:
+      launch_one<R, A, F, D, 8, BF>(p, n_blocks, threads, smem, st);
+      break;
+  }
 }
 
 template <bool R, bool A, bool F, bool D>
-void launch_npt(const Args& p, int n_blocks, int npt, int threads,
+void launch_npt(const ArgsBf16& p, bool bf16, int n_blocks, int npt, int threads,
                 size_t smem, cudaStream_t st) {
-  switch (npt) {
-    case 1:
-      launch_one<R, A, F, D, 1>(p, n_blocks, threads, smem, st);
-      break;
-    case 2:
-      launch_one<R, A, F, D, 2>(p, n_blocks, threads, smem, st);
-      break;
-    case 4:
-      launch_one<R, A, F, D, 4>(p, n_blocks, threads, smem, st);
-      break;
-    default:
-      launch_one<R, A, F, D, 8>(p, n_blocks, threads, smem, st);
-      break;
+  if (bf16) {
+    launch_mode<R, A, F, D, true>(p, n_blocks, npt, threads, smem, st);
+  } else {
+    launch_mode<R, A, F, D, false>(p, n_blocks, npt, threads, smem, st);
   }
 }
 
 template <bool R, bool A>
-void launch_affine(const Args& p, bool affine, bool dropout, int n_blocks,
-                   int npt, int threads, size_t smem, cudaStream_t st) {
+void launch_affine(const ArgsBf16& p, bool bf16, bool affine, bool dropout,
+                   int n_blocks, int npt, int threads, size_t smem,
+                   cudaStream_t st) {
   if (affine && dropout) {
-    launch_npt<R, A, true, true>(p, n_blocks, npt, threads, smem, st);
+    launch_npt<R, A, true, true>(p, bf16, n_blocks, npt, threads, smem, st);
   } else if (affine) {
-    launch_npt<R, A, true, false>(p, n_blocks, npt, threads, smem, st);
+    launch_npt<R, A, true, false>(p, bf16, n_blocks, npt, threads, smem, st);
   } else if (dropout) {
-    launch_npt<R, A, false, true>(p, n_blocks, npt, threads, smem, st);
+    launch_npt<R, A, false, true>(p, bf16, n_blocks, npt, threads, smem, st);
   } else {
-    launch_npt<R, A, false, false>(p, n_blocks, npt, threads, smem, st);
+    launch_npt<R, A, false, false>(p, bf16, n_blocks, npt, threads, smem,
+                                   st);
   }
 }
 
 }  // namespace
 
+// bf16 selects the bf16-stream mode: g, dwx, dd and VT are then bf16 (VT's
+// rows padded to eight elements), and wx is bf16 where wx_bf16.
 extern "C" int sparch_fused_cell_bwd(
-    const float* g, const float* wx, const float* u_seq, const float* scale,
+    const void* g, const void* wx, const float* u_seq, const float* scale,
     const float* alpha, const float* beta, const float* a, const float* b,
-    const float* VT, const float* u0, const float* w0, const float* s0,
-    const int* seed, float* dwx, float* dd, float* partials, float* vecs,
+    const void* VT, const float* u0, const float* w0, const float* s0,
+    const int* seed, void* dwx, void* dd, float* partials, float* vecs,
     float* dV, float* dv_partials, float* du0, float* dw0, float* ds0,
     int B, int T, int H, float threshold, int recurrent, int adaptive,
     int affine, unsigned int keep_u32, float inv_keep, int tile_rows,
-    int n_blocks, int ksplit, void* stream) {
+    int n_blocks, int ksplit, int bf16, int wx_bf16, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || H > kThreads * kMaxNpt || !g || !u_seq ||
       !alpha || !u0 || !s0 || !dwx || !partials || !vecs || !du0 || !ds0 ||
       (recurrent && (!VT || !dV || !dv_partials)) ||
       (adaptive && (!beta || !a || !b || !w0 || !dw0)) ||
       (affine && (!wx || !scale)) || (affine && recurrent && !dd) ||
-      (seed && tile_rows <= 0)) {
+      (seed && tile_rows <= 0) || (wx_bf16 && !bf16)) {
     return (int)cudaErrorInvalidValue;
   }
   // fewest neurons per thread that keep the block within kThreads
@@ -456,23 +510,24 @@ extern "C" int sparch_fused_cell_bwd(
       recurrent ? (((2 * (size_t)H * bt + 3) & ~(size_t)3) +
                    (size_t)kStages * kTileFloats) * sizeof(float)
                 : 0;
-  const Args p{g, wx, u_seq, scale, alpha, beta, a, b, VT, u0, w0, s0, seed,
-               dwx, dd, partials, du0, dw0, ds0, B, T, H, threshold,
-               keep_u32, inv_keep, tile_rows};
+  const ArgsBf16 p{{g, wx, u_seq, scale, alpha, beta, a, b, VT, u0, w0, s0,
+                    seed, dwx, dd, partials, du0, dw0, ds0, B, T, H,
+                    threshold, keep_u32, inv_keep, tile_rows},
+                   wx_bf16};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool dropout = seed != nullptr;
   if (recurrent && adaptive) {
-    launch_affine<true, true>(p, affine, dropout, n_blocks, npt, threads,
-                              smem, st);
+    launch_affine<true, true>(p, bf16 != 0, affine, dropout, n_blocks, npt,
+                              threads, smem, st);
   } else if (recurrent) {
-    launch_affine<true, false>(p, affine, dropout, n_blocks, npt, threads,
-                               smem, st);
+    launch_affine<true, false>(p, bf16 != 0, affine, dropout, n_blocks, npt,
+                               threads, smem, st);
   } else if (adaptive) {
-    launch_affine<false, true>(p, affine, dropout, n_blocks, npt, threads,
-                               smem, st);
+    launch_affine<false, true>(p, bf16 != 0, affine, dropout, n_blocks, npt,
+                               threads, smem, st);
   } else {
-    launch_affine<false, false>(p, affine, dropout, n_blocks, npt, threads,
-                                smem, st);
+    launch_affine<false, false>(p, bf16 != 0, affine, dropout, n_blocks, npt,
+                                threads, smem, st);
   }
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
@@ -488,9 +543,16 @@ extern "C" int sparch_fused_cell_bwd(
   int rows_per_split = (R + ksplit - 1) / ksplit;
   rows_per_split = (rows_per_split + kBK - 1) / kBK * kBK;
   const dim3 grid(tiles, tiles, ksplit);
-  dv_kernel<<<grid, kDvThreads, 0, st>>>(u_seq, s0, affine ? dd : dwx,
-                                         dv_partials, T, H, R,
-                                         rows_per_split, threshold);
+  const void* dd_series = affine ? dd : dwx;
+  if (bf16) {
+    dv_kernel<__nv_bfloat16><<<grid, kDvThreads, 0, st>>>(
+        u_seq, s0, static_cast<const __nv_bfloat16*>(dd_series), dv_partials,
+        T, H, R, rows_per_split, threshold);
+  } else {
+    dv_kernel<float><<<grid, kDvThreads, 0, st>>>(
+        u_seq, s0, static_cast<const float*>(dd_series), dv_partials, T, H,
+        R, rows_per_split, threshold);
+  }
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   const int n = H * H;

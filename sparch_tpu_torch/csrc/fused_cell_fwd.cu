@@ -2,12 +2,16 @@
 // RadLIF in one template, with the batchnorm affine applied on load.
 //
 // Replaces: sparch_tpu/ops/pallas_cells.py `_fwd_kernel`, the TPU kernel
-// behind lif/adlif/rlif/radlif_pallas, float32 streams, in two forms:
+// behind lif/adlif/rlif/radlif_pallas, in two forms:
 // the serving form (save_residuals=False, no dropout; entry point
 // sparch_fused_cell_fwd) and the training form (entry point
 // sparch_fused_cell_fwd_train), which has two more compile-time switches:
 // RESID also writes the membrane series u, and DROPOUT drops the stored
-// output with the mask of dropout_hash.cuh.
+// output with the mask of dropout_hash.cuh. Each form has two stream
+// modes (BF): float32 streams, and the TPU kernel's mxu_bf16 mode, in which
+// the spike output is bf16, V is bf16 (rounded once by the wrapper), Wx is
+// float32 or bf16 as the projection emitted it and is promoted on load, and
+// the membrane series, all state and all arithmetic stay float32.
 //
 // Per step, for one batch row (previous-step u, w and s on the right):
 //   drive = scale*Wx_t + shift               (AFFINE)
@@ -61,6 +65,13 @@
 //   otherwise only the summation order of s@V differs.
 // - The initial state s0 need not be 0/1 (a uniform state init draws it
 //   from U[0,1)), so the first s0 @ V is a dense dot over k, ascending.
+// - bf16 mode: a spike is 0 or 1, so s @ V is the same gather-sum over
+//   bf16 rows of V, summed in float32. Only the first product sees a
+//   rounding: s0 is rounded to bf16 for that product alone, while the state
+//   that enters u - s and b*s keeps the float32 s0. A kept output under
+//   dropout is bf16(s / (1-p)). A product of two bf16 values is exact in
+//   float32, so float32 adds of float32 products compute the bf16 product
+//   with a float32 sum.
 //
 // C interface, bound with ctypes: sparch_fused_cell_fwd returns
 // cudaGetLastError() after the launch (or an invalid-value error for a
@@ -71,25 +82,32 @@
 #include <stdint.h>
 
 #include "dropout_hash.cuh"
+#include "tile_stream.cuh"
 
 namespace {
+
+using sparch::Elem;
+using sparch::from_float;
+using sparch::load_stream;
+using sparch::round_bf16;
+using sparch::to_float;
 
 constexpr int kMaxThreads = 512;
 constexpr int kMaxNpt = 8;  // so H <= kMaxThreads * kMaxNpt = 4096
 
 struct Args {
-  const float* wx;
+  const void* wx;       // float, or bf16 where wx_bf16 (bf16 mode only)
   const float* scale;
   const float* shift;
   const float* alpha;
   const float* beta;
   const float* a;
   const float* b;
-  const float* V;
+  const void* V;        // float, bf16 in the bf16 mode
   const float* u0;
   const float* w0;
   const float* s0;
-  float* s_out;
+  void* s_out;          // float, bf16 in the bf16 mode
   int T;
   int H;
   float threshold;
@@ -101,10 +119,27 @@ struct Args {
   int tile_rows;        // DROPOUT: rows of one batch tile of the hash
 };
 
+// The bf16 mode's one more flag rides in a struct of its own, so that the
+// float32 kernels' parameter block, and with it their code, stays what it
+// was before the mode existed (an int appended to Args changed how the
+// float32 time loops compiled).
+struct ArgsBf16 : Args {
+  int wx_bf16;  // the Wx stream is bf16, not float
+};
+template <bool BF>
+struct ModeArgs {
+  using type = Args;
+};
+template <>
+struct ModeArgs<true> {
+  using type = ArgsBf16;
+};
+
 template <bool RECURRENT, bool ADAPTIVE, bool AFFINE, bool RESID,
-          bool DROPOUT, int NPT>
+          bool DROPOUT, int NPT, bool BF>
 __global__ void __launch_bounds__(kMaxThreads)
-fused_cell_fwd_kernel(const Args p) {
+fused_cell_fwd_kernel(const typename ModeArgs<BF>::type p) {
+  using ST = typename Elem<BF>::type;  // spikes out, V
   // dynamic shared memory: the s0 row (H floats), then two buffers of
   // n_words spike masks
   extern __shared__ float smem[];
@@ -116,6 +151,8 @@ fused_cell_fwd_kernel(const Args p) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const size_t row = blockIdx.x;
+  bool wx_bf16 = false;
+  if constexpr (BF) wx_bf16 = p.wx_bf16;
 
   float al[NPT], oma[NPT], be[NPT], aa[NPT], bb[NPT], sc[NPT], sh[NPT];
   float u[NPT], w[NPT], s[NPT], sv[NPT], x[NPT];
@@ -144,24 +181,29 @@ fused_cell_fwd_kernel(const Args p) {
   if (RECURRENT) {
     __syncthreads();
     for (int k = 0; k < H; ++k) {
-      const float sk = smem[k];
+      // bf16 mode: rounded for this product only, the state keeps s0
+      const float sk = BF ? round_bf16(smem[k]) : smem[k];
       if (sk != 0.f) {
-        const float* vrow = p.V + (size_t)k * H;
+        const ST* vrow = static_cast<const ST*>(p.V) + (size_t)k * H;
 #pragma unroll
         for (int i = 0; i < NPT; ++i) {
-          if (live[i]) sv[i] = __fadd_rn(sv[i], __fmul_rn(sk, vrow[col[i]]));
+          if (live[i]) {
+            sv[i] = __fadd_rn(sv[i], __fmul_rn(sk, to_float(vrow[col[i]])));
+          }
         }
       }
     }
   }
 
-  const float* wx_row = p.wx + row * T * H;
-  float* s_row = p.s_out + row * T * H;
+  const size_t wx_row = row * T * H;  // first element of the row's Wx
+  ST* s_row = static_cast<ST*>(p.s_out) + row * T * H;
   float* u_row = RESID ? p.u_out + row * T * H : nullptr;
   const uint32_t drop_base =
       DROPOUT ? sparch::dropout_row_base(p.seed, (int)row, p.tile_rows) : 0u;
 #pragma unroll
-  for (int i = 0; i < NPT; ++i) x[i] = live[i] ? wx_row[col[i]] : 0.f;
+  for (int i = 0; i < NPT; ++i) {
+    x[i] = live[i] ? load_stream<BF>(p.wx, wx_row + col[i], wx_bf16) : 0.f;
+  }
 
   for (int t = 0; t < T; ++t) {
 #pragma unroll
@@ -186,14 +228,17 @@ fused_cell_fwd_kernel(const Args p) {
                        ? __fmul_rn(s[i], p.inv_keep)
                        : 0.f;
         }
-        s_row[(size_t)t * H + col[i]] = stored;
+        s_row[(size_t)t * H + col[i]] = from_float<ST>(stored);
         if (RESID) u_row[(size_t)t * H + col[i]] = u[i];
       }
     }
     if (t + 1 < T) {
-      const float* wx_next = wx_row + (size_t)(t + 1) * H;
+      const size_t wx_next = wx_row + (size_t)(t + 1) * H;
 #pragma unroll
-      for (int i = 0; i < NPT; ++i) x[i] = live[i] ? wx_next[col[i]] : 0.f;
+      for (int i = 0; i < NPT; ++i) {
+        x[i] = live[i] ? load_stream<BF>(p.wx, wx_next + col[i], wx_bf16)
+                       : 0.f;
+      }
     }
     if (RECURRENT) {
       uint32_t* buf = masks + (t & 1) * n_words;
@@ -207,7 +252,7 @@ fused_cell_fwd_kernel(const Args p) {
       for (int i = 0; i < NPT; ++i) sv[i] = 0.f;
       for (int wd = 0; wd < n_words; ++wd) {
         uint32_t m = buf[wd];
-        const float* vbase = p.V + (size_t)wd * 32 * H;
+        const ST* vbase = static_cast<const ST*>(p.V) + (size_t)wd * 32 * H;
         while (m) {
           // up to four spiking rows per round, added in ascending k; a
           // missing row adds 0, which changes no sum
@@ -220,11 +265,11 @@ fused_cell_fwd_kernel(const Args p) {
 #pragma unroll
           for (int i = 0; i < NPT; ++i) {
             if (!live[i]) continue;
-            const float* vc = vbase + col[i];
-            const float v0 = vc[(size_t)k0 * H];
-            const float v1 = k1 >= 0 ? vc[(size_t)k1 * H] : 0.f;
-            const float v2 = k2 >= 0 ? vc[(size_t)k2 * H] : 0.f;
-            const float v3 = k3 >= 0 ? vc[(size_t)k3 * H] : 0.f;
+            const ST* vc = vbase + col[i];
+            const float v0 = to_float(vc[(size_t)k0 * H]);
+            const float v1 = k1 >= 0 ? to_float(vc[(size_t)k1 * H]) : 0.f;
+            const float v2 = k2 >= 0 ? to_float(vc[(size_t)k2 * H]) : 0.f;
+            const float v3 = k3 >= 0 ? to_float(vc[(size_t)k3 * H]) : 0.f;
             sv[i] = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(sv[i], v0), v1),
                                         v2),
                               v3);
@@ -235,59 +280,70 @@ fused_cell_fwd_kernel(const Args p) {
   }
 }
 
-template <bool R, bool A, bool F, bool RS, bool DR>
-void launch_npt(const Args& p, int B, int npt, int threads, size_t smem,
-                cudaStream_t stream) {
+template <bool R, bool A, bool F, bool RS, bool DR, bool BF>
+void launch_mode(const ArgsBf16& p, int B, int npt, int threads, size_t smem,
+                 cudaStream_t stream) {
   switch (npt) {
     case 1:
-      fused_cell_fwd_kernel<R, A, F, RS, DR, 1>
+      fused_cell_fwd_kernel<R, A, F, RS, DR, 1, BF>
           <<<B, threads, smem, stream>>>(p);
       break;
     case 2:
-      fused_cell_fwd_kernel<R, A, F, RS, DR, 2>
+      fused_cell_fwd_kernel<R, A, F, RS, DR, 2, BF>
           <<<B, threads, smem, stream>>>(p);
       break;
     case 4:
-      fused_cell_fwd_kernel<R, A, F, RS, DR, 4>
+      fused_cell_fwd_kernel<R, A, F, RS, DR, 4, BF>
           <<<B, threads, smem, stream>>>(p);
       break;
     default:
-      fused_cell_fwd_kernel<R, A, F, RS, DR, 8>
+      fused_cell_fwd_kernel<R, A, F, RS, DR, 8, BF>
           <<<B, threads, smem, stream>>>(p);
       break;
+  }
+}
+
+template <bool R, bool A, bool F, bool RS, bool DR>
+void launch_npt(const ArgsBf16& p, bool bf16, int B, int npt, int threads,
+                size_t smem, cudaStream_t stream) {
+  if (bf16) {
+    launch_mode<R, A, F, RS, DR, true>(p, B, npt, threads, smem, stream);
+  } else {
+    launch_mode<R, A, F, RS, DR, false>(p, B, npt, threads, smem, stream);
   }
 }
 
 template <bool R, bool A, bool F>
-void launch_train(const Args& p, int B, bool resid, bool dropout, int npt,
-                  int threads, size_t smem, cudaStream_t stream) {
+void launch_train(const ArgsBf16& p, bool bf16, int B, bool resid, bool dropout,
+                  int npt, int threads, size_t smem, cudaStream_t stream) {
   if (resid && dropout) {
-    launch_npt<R, A, F, true, true>(p, B, npt, threads, smem, stream);
+    launch_npt<R, A, F, true, true>(p, bf16, B, npt, threads, smem, stream);
   } else if (resid) {
-    launch_npt<R, A, F, true, false>(p, B, npt, threads, smem, stream);
+    launch_npt<R, A, F, true, false>(p, bf16, B, npt, threads, smem, stream);
   } else if (dropout) {
-    launch_npt<R, A, F, false, true>(p, B, npt, threads, smem, stream);
+    launch_npt<R, A, F, false, true>(p, bf16, B, npt, threads, smem, stream);
   } else {
-    launch_npt<R, A, F, false, false>(p, B, npt, threads, smem, stream);
+    launch_npt<R, A, F, false, false>(p, bf16, B, npt, threads, smem,
+                                      stream);
   }
 }
 
 template <bool R, bool A>
-void launch_affine(const Args& p, int B, bool affine, bool resid,
+void launch_affine(const ArgsBf16& p, bool bf16, int B, bool affine, bool resid,
                    bool dropout, int npt, int threads, size_t smem,
                    cudaStream_t stream) {
   if (affine) {
-    launch_train<R, A, true>(p, B, resid, dropout, npt, threads, smem,
+    launch_train<R, A, true>(p, bf16, B, resid, dropout, npt, threads, smem,
                              stream);
   } else {
-    launch_train<R, A, false>(p, B, resid, dropout, npt, threads, smem,
+    launch_train<R, A, false>(p, bf16, B, resid, dropout, npt, threads, smem,
                               stream);
   }
 }
 
 // Checks the arguments both entry points share and launches the form.
-int launch_form(const Args& p, int B, int recurrent, int adaptive,
-                int affine, void* stream) {
+int launch_form(const ArgsBf16& p, int B, int recurrent, int adaptive,
+                int affine, int bf16, void* stream) {
   const int T = p.T, H = p.H;
   if (B <= 0 || T <= 0 || H <= 0 || H > kMaxThreads * kMaxNpt ||
       !p.wx || !p.alpha || !p.u0 || !p.s0 || !p.s_out ||
@@ -299,6 +355,7 @@ int launch_form(const Args& p, int B, int recurrent, int adaptive,
   const bool resid = p.u_out != nullptr;
   const bool dropout = p.seed != nullptr;
   if (dropout && p.tile_rows <= 0) return (int)cudaErrorInvalidValue;
+  if (p.wx_bf16 && !bf16) return (int)cudaErrorInvalidValue;
   // fewest neurons per thread that keep the block within kMaxThreads
   int npt = 1;
   while ((H + npt - 1) / npt > kMaxThreads) npt *= 2;
@@ -307,45 +364,51 @@ int launch_form(const Args& p, int B, int recurrent, int adaptive,
   const size_t smem = (size_t)H * sizeof(float) + 2 * n_words * sizeof(uint32_t);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (recurrent && adaptive) {
-    launch_affine<true, true>(p, B, affine, resid, dropout, npt, threads,
-                              smem, st);
+    launch_affine<true, true>(p, bf16 != 0, B, affine, resid, dropout, npt,
+                              threads, smem, st);
   } else if (recurrent) {
-    launch_affine<true, false>(p, B, affine, resid, dropout, npt, threads,
-                               smem, st);
+    launch_affine<true, false>(p, bf16 != 0, B, affine, resid, dropout, npt,
+                               threads, smem, st);
   } else if (adaptive) {
-    launch_affine<false, true>(p, B, affine, resid, dropout, npt, threads,
-                               smem, st);
+    launch_affine<false, true>(p, bf16 != 0, B, affine, resid, dropout, npt,
+                               threads, smem, st);
   } else {
-    launch_affine<false, false>(p, B, affine, resid, dropout, npt, threads,
-                                smem, st);
+    launch_affine<false, false>(p, bf16 != 0, B, affine, resid, dropout, npt,
+                                threads, smem, st);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Serving form: spikes only.
+// Serving form: spikes only. bf16 selects the bf16-stream mode (s_out and V
+// bf16; wx bf16 where wx_bf16, else float).
 extern "C" int sparch_fused_cell_fwd(
-    const float* wx, const float* scale, const float* shift,
+    const void* wx, const float* scale, const float* shift,
     const float* alpha, const float* beta, const float* a, const float* b,
-    const float* V, const float* u0, const float* w0, const float* s0,
-    float* s_out, int B, int T, int H, float threshold, int recurrent,
-    int adaptive, int affine, void* stream) {
-  const Args p{wx, scale, shift, alpha, beta, a, b, V, u0, w0, s0, s_out,
-               T, H, threshold, nullptr, nullptr, 0u, 1.f, 1};
-  return launch_form(p, B, recurrent, adaptive, affine, stream);
+    const void* V, const float* u0, const float* w0, const float* s0,
+    void* s_out, int B, int T, int H, float threshold, int recurrent,
+    int adaptive, int affine, int bf16, int wx_bf16, void* stream) {
+  const ArgsBf16 p{{wx, scale, shift, alpha, beta, a, b, V, u0, w0, s0, s_out,
+                    T, H, threshold, nullptr, nullptr, 0u, 1.f, 1},
+                   wx_bf16};
+  return launch_form(p, B, recurrent, adaptive, affine, bf16, stream);
 }
 
 // Training form: u_out non-null writes the membrane series, seed non-null
 // drops the stored output (keep_u32, inv_keep and tile_rows are then read).
+// The membrane series stays float in both modes.
 extern "C" int sparch_fused_cell_fwd_train(
-    const float* wx, const float* scale, const float* shift,
+    const void* wx, const float* scale, const float* shift,
     const float* alpha, const float* beta, const float* a, const float* b,
-    const float* V, const float* u0, const float* w0, const float* s0,
-    float* s_out, float* u_out, const int* seed, int B, int T, int H,
+    const void* V, const float* u0, const float* w0, const float* s0,
+    void* s_out, float* u_out, const int* seed, int B, int T, int H,
     float threshold, int recurrent, int adaptive, int affine,
-    unsigned int keep_u32, float inv_keep, int tile_rows, void* stream) {
-  const Args p{wx, scale, shift, alpha, beta, a, b, V, u0, w0, s0, s_out,
-               T, H, threshold, u_out, seed, keep_u32, inv_keep, tile_rows};
-  return launch_form(p, B, recurrent, adaptive, affine, stream);
+    unsigned int keep_u32, float inv_keep, int tile_rows, int bf16,
+    int wx_bf16, void* stream) {
+  const ArgsBf16 p{{wx, scale, shift, alpha, beta, a, b, V, u0, w0, s0, s_out,
+                    T, H, threshold, u_out, seed, keep_u32, inv_keep,
+                    tile_rows},
+                   wx_bf16};
+  return launch_form(p, B, recurrent, adaptive, affine, bf16, stream);
 }

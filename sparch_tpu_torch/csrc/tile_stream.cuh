@@ -12,16 +12,67 @@
 // the bytes that have landed to an mbarrier; kStages tiles are in flight,
 // and the stream runs on across the steps, so the next step's first tiles
 // arrive during this step's elementwise work.
+//
+// The matrix element type MT is a template parameter: float, or
+// __nv_bfloat16 in the bf16-stream mode, where a 64 KB tile holds twice the
+// rows and a step streams half the bytes. The left operand stays float in
+// shared memory (the block rounds it to bf16 when it publishes it, see
+// publish), and every product is an FMA in float32: the product of two
+// bf16 values is exact there, so the sum is that of a bf16 product with a
+// float32 accumulator, in ascending order.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace sparch {
 
 constexpr int kStages = 3;          // tiles in flight
-constexpr int kTileFloats = 16384;  // floats per stage (64 KB)
+constexpr int kTileBytes = 65536;   // bytes per stage
+constexpr int kTileFloats = kTileBytes / 4;
 constexpr int kUnroll = 8;          // of the product's inner loop
+
+// The element type of the streams and matrices of a mode.
+template <bool BF>
+struct Elem {
+  using type = float;
+};
+template <>
+struct Elem<true> {
+  using type = __nv_bfloat16;
+};
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+// v rounded to the nearest bf16 (ties to even), as a float.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+// Element idx of an input stream that is float, or (bf16-stream mode only,
+// where the caller's projection may have emitted either) bf16.
+template <bool BF>
+__device__ __forceinline__ float load_stream(const void* p, size_t idx,
+                                             bool is_bf16) {
+  if constexpr (BF) {
+    if (is_bf16) {
+      return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[idx]);
+    }
+  }
+  return static_cast<const float*>(p)[idx];
+}
 
 // N consecutive floats as one load.
 template <int N>
@@ -42,12 +93,17 @@ __device__ __forceinline__ void load_rows(const float* p, float* d) {
   }
 }
 
-// Row stride of a streamed matrix (rows padded to a multiple of four
-// floats, so every row and every tile starts 16-byte aligned) and the rows
-// of one tile.
-__host__ __device__ inline int tile_stride(int H) { return (H + 3) & ~3; }
+// Row stride of a streamed matrix in elements (rows padded to 16 bytes:
+// four floats or eight bf16, so every row and every tile starts 16-byte
+// aligned) and the rows of one tile.
+template <typename MT>
+__host__ __device__ inline int tile_stride(int H) {
+  constexpr int q = 16 / (int)sizeof(MT);
+  return (H + q - 1) & ~(q - 1);
+}
+template <typename MT>
 __host__ __device__ inline int tile_rows(int H) {
-  const int rows = kTileFloats / tile_stride(H);
+  const int rows = (kTileBytes / (int)sizeof(MT)) / tile_stride<MT>(H);
   return rows < H ? rows : H;
 }
 
@@ -81,7 +137,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "memory");
   } while (!done);
 }
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
                                           uint32_t bytes, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
@@ -93,9 +149,10 @@ __device__ __forceinline__ void bulk_copy(float* dst, const float* src,
 // The cyclic stream of tiles over n_mats packed (H, Hc) matrices: tile n of
 // the stream is tile n % n_tiles of matrix (n / n_tiles) % n_mats and
 // lands in stage n % kStages.
+template <typename MT>
 struct TileStream {
-  const float* base;  // n_mats matrices of H rows of Hc floats
-  float* stages;      // kStages * kTileFloats floats of shared memory
+  const MT* base;     // n_mats matrices of H rows of Hc elements
+  MT* stages;         // kStages * kTileBytes bytes of shared memory
   uint64_t* full;     // one mbarrier per stage
   int next_tile;      // next tile to start copying
   int tile;           // next tile to consume
@@ -108,19 +165,20 @@ struct TileStream {
 };
 
 // The stream of T passes over n_mats packed matrices of H rows each.
-__device__ __forceinline__ TileStream stream_over(const float* base,
-                                                  float* stages,
-                                                  uint64_t* full, int H,
-                                                  int n_mats, int T) {
-  TileStream s;
+template <typename MT>
+__device__ __forceinline__ TileStream<MT> stream_over(const MT* base,
+                                                      MT* stages,
+                                                      uint64_t* full, int H,
+                                                      int n_mats, int T) {
+  TileStream<MT> s;
   s.base = base;
   s.stages = stages;
   s.full = full;
   s.next_tile = 0;
   s.tile = 0;
   s.H = H;
-  s.Hc = tile_stride(H);
-  s.TJ = tile_rows(H);
+  s.Hc = tile_stride<MT>(H);
+  s.TJ = tile_rows<MT>(H);
   s.n_tiles = (H + s.TJ - 1) / s.TJ;
   s.n_mats = n_mats;
   s.total_tiles = T * n_mats * s.n_tiles;
@@ -128,22 +186,25 @@ __device__ __forceinline__ TileStream stream_over(const float* base,
 }
 
 // Start the copy of the stream's next tile, if the stream has one left.
-__device__ __forceinline__ void stream_start(TileStream& s) {
+template <typename MT>
+__device__ __forceinline__ void stream_start(TileStream<MT>& s) {
+  constexpr int kTileElems = kTileBytes / (int)sizeof(MT);
   const int n = s.next_tile++;
   if (n >= s.total_tiles || threadIdx.x != 0) return;
   const int in_step = n % (s.n_mats * s.n_tiles);
   const int mat = in_step / s.n_tiles;
   const int j0 = (in_step % s.n_tiles) * s.TJ;
   const int rows = min(s.TJ, s.H - j0);
-  const uint32_t bytes = (uint32_t)(rows * s.Hc) * sizeof(float);
+  const uint32_t bytes = (uint32_t)(rows * s.Hc) * sizeof(MT);
   uint64_t* bar = &s.full[n % kStages];
   mbar_expect_tx(bar, bytes);
-  bulk_copy(s.stages + (n % kStages) * kTileFloats,
+  bulk_copy(s.stages + (n % kStages) * kTileElems,
             s.base + ((size_t)mat * s.H + j0) * s.Hc, bytes, bar);
 }
 
 // Set up the barriers and fill the pipeline: kStages - 1 tiles in flight.
-__device__ __forceinline__ void stream_open(TileStream& s) {
+template <typename MT>
+__device__ __forceinline__ void stream_open(TileStream<MT>& s) {
   if (threadIdx.x == 0) {
     for (int k = 0; k < kStages; ++k) mbar_init(&s.full[k], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -153,9 +214,10 @@ __device__ __forceinline__ void stream_open(TileStream& s) {
 }
 
 // Write a thread's values v[i][r] (neuron col[i], row r) into a left operand
-// of stream_matrix, laid out [neuron][row]. The block synchronises before
-// it reads them (stream_matrix does, at its first tile).
-template <int NPT, int BT>
+// of stream_matrix, laid out [neuron][row]; ROUND rounds them to bf16 on the
+// way (the bf16-stream mode's operand rounding). The block synchronises
+// before it reads them (stream_matrix does, at its first tile).
+template <int NPT, int BT, bool ROUND = false>
 __device__ __forceinline__ void publish(float* left, const float (&v)[NPT][BT],
                                         const int (&col)[NPT],
                                         const bool (&live)[NPT]) {
@@ -163,7 +225,9 @@ __device__ __forceinline__ void publish(float* left, const float (&v)[NPT][BT],
   for (int i = 0; i < NPT; ++i) {
     if (!live[i]) continue;
 #pragma unroll
-    for (int r = 0; r < BT; ++r) left[col[i] * BT + r] = v[i][r];
+    for (int r = 0; r < BT; ++r) {
+      left[col[i] * BT + r] = ROUND ? round_bf16(v[i][r]) : v[i][r];
+    }
   }
 }
 
@@ -171,8 +235,8 @@ __device__ __forceinline__ void publish(float* left, const float (&v)[NPT][BT],
 // matrix M, j ascending, tile by tile. `left` is H x BT floats in shared
 // memory as [j][row], written by the block before the call; when the call
 // returns every thread is done reading it.
-template <int NPT, int BT>
-__device__ __forceinline__ void stream_matrix(TileStream& s,
+template <int NPT, int BT, typename MT>
+__device__ __forceinline__ void stream_matrix(TileStream<MT>& s,
                                               const float* left,
                                               const int (&col)[NPT],
                                               float (&acc)[NPT][BT]) {
@@ -184,7 +248,8 @@ __device__ __forceinline__ void stream_matrix(TileStream& s,
     // is published
     __syncthreads();
     stream_start(s);  // into the stage of the tile before, free now
-    const float* stage = s.stages + (s.tile % kStages) * kTileFloats;
+    const MT* stage =
+        s.stages + (s.tile % kStages) * (kTileBytes / (int)sizeof(MT));
     const int j0 = jt * s.TJ;
     const int rows = min(s.TJ, s.H - j0);
 #pragma unroll kUnroll
@@ -193,7 +258,7 @@ __device__ __forceinline__ void stream_matrix(TileStream& s,
       load_rows<BT>(left + (size_t)(j0 + q) * BT, d);
 #pragma unroll
       for (int i = 0; i < NPT; ++i) {
-        const float v = stage[q * s.Hc + col[i]];
+        const float v = to_float(stage[q * s.Hc + col[i]]);
 #pragma unroll
         for (int r = 0; r < BT; ++r) acc[i][r] = fmaf(d[r], v, acc[i][r]);
       }

@@ -18,6 +18,15 @@ projections), ``layer_<i>.{norm_W,norm_Wz,norm_Wr}``, the parameters
 state is always zeros. Eval/train mode is the module's; the dropout seed of
 the fused path and the dropout mask of the plain path draw from the
 ``generator`` given to ``forward``.
+
+``compute_dtype=torch.bfloat16``: every projection runs and emits in bf16
+(parameters stay float32); on the fused path each gate's raw bf16 stream
+feeds the batch statistics (summed in float32), the kernel's affine and the
+backward alike (the JAX layer casts the gate stream to bf16 once for this;
+here the projection has emitted bf16 already), and the kernels run in their
+bf16-stream mode. The readout
+collapses time in float32. ``remat=True`` recomputes each hidden layer in
+the backward instead of keeping its residuals.
 """
 from __future__ import annotations
 
@@ -32,6 +41,8 @@ from sparch_tpu_torch.models.common import (
     FusedCellPolicy,
     SeqNorm,
     bidir_concat,
+    check_precision_fields,
+    remat_layer,
 )
 from sparch_tpu_torch.ops import cells, fused_ann
 
@@ -62,15 +73,20 @@ class _ANNLayerBase(FusedCellPolicy, nn.Module):
     def __init__(self, input_size: int, hidden_size: int,
                  dropout: float = 0.0, normalization: str = "batchnorm",
                  use_bias: bool = False, bidirectional: bool = False,
-                 cell_impl: str = "auto"):
+                 cell_impl: str = "auto", compute_dtype=None,
+                 mxu_precision: str = "default"):
         super().__init__()
+        dense_dtype = check_precision_fields(compute_dtype, mxu_precision)
+        self.compute_dtype = compute_dtype
+        self.mxu_precision = mxu_precision
         self.hidden_size = hidden_size
         self.dropout = dropout
         self.normalization = normalization
         self.bidirectional = bidirectional
         self.cell_impl = cell_impl
         for name in self.gates:
-            self.add_module(name, Dense(input_size, hidden_size, use_bias))
+            self.add_module(name, Dense(input_size, hidden_size, use_bias,
+                                        dtype=dense_dtype))
             self.add_module(f"norm_{name}",
                             SeqNorm(normalization, hidden_size))
             if self.recurrent:
@@ -119,11 +135,15 @@ class _ANNLayerBase(FusedCellPolicy, nn.Module):
         fused = self._use_fused(x)
         fold = fused and self.normalization != "layernorm"
         wxs, scales, shifts = self._gate_projections(x, fold)
+        # the fused cell carries its state in float32 at least
+        state_dtype = torch.promote_types(wxs[0].dtype, torch.float32) \
+            if fused else wxs[0].dtype
         y0 = torch.zeros((wxs[0].shape[0], wxs[0].shape[2]),
-                         dtype=wxs[0].dtype, device=wxs[0].device)
+                         dtype=state_dtype, device=wxs[0].device)
         if fused:
             y = type(self)._fused(
                 *wxs, *self._matrices(), y0, scales=scales, shifts=shifts,
+                mxu_bf16=self._mxu_bf16(),
                 **self._fused_dropout(fused, wxs[0], generator))
         else:
             y = type(self)._scan(*wxs, *self._matrices(), y0)
@@ -168,9 +188,11 @@ class ReadoutLayerANN(nn.Module):
     and a norm on the 2-D ``(B, out)`` result."""
 
     def __init__(self, input_size: int, output_size: int,
-                 normalization: str = "batchnorm", use_bias: bool = False):
+                 normalization: str = "batchnorm", use_bias: bool = False,
+                 compute_dtype=None):
         super().__init__()
-        self.W = Dense(input_size, output_size, use_bias)
+        self.W = Dense(input_size, output_size, use_bias,
+                       dtype=check_precision_fields(compute_dtype, "default"))
         self.norm = SeqNorm(normalization, output_size)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -198,8 +220,10 @@ class ANN(nn.Module):
     ``(B, T, H)`` without a readout. Hidden layers are the submodules
     ``layer_0``, ``layer_1``, ...; the readout is ``readout``.
 
-    ``compute_dtype=bfloat16``, ``remat`` and ``cell_impl='pallas_tp'`` are
-    not ported yet and raise; the port computes in float32.
+    ``compute_dtype`` (None or float32, or bfloat16 for mixed precision),
+    ``mxu_precision`` and ``remat`` as in the JAX package (see the module
+    docstring and ``common.FusedCellPolicy``). ``cell_impl='pallas_tp'`` is
+    not ported yet and raises.
     """
 
     is_snn = False
@@ -209,16 +233,10 @@ class ANN(nn.Module):
                  normalization: str = "batchnorm", use_bias: bool = False,
                  bidirectional: bool = False, use_readout_layer: bool = True,
                  cell_impl: str = "auto", compute_dtype=None,
-                 remat: bool = False,
+                 mxu_precision: str = "default", remat: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if compute_dtype is not None and compute_dtype != torch.float32:
-            raise NotImplementedError(
-                "compute_dtype=bfloat16 is ROADMAP queue 1 item 3 (AMP) and "
-                "queue 2 item 4 (bf16 streams)"
-            )
-        if remat:
-            raise NotImplementedError("remat is ROADMAP queue 1 item 3")
+        check_precision_fields(compute_dtype, mxu_precision)
         if cell_impl == "pallas_tp":
             raise NotImplementedError(
                 "cell_impl='pallas_tp' is ROADMAP queue 2 items 8-9 "
@@ -240,6 +258,9 @@ class ANN(nn.Module):
         self.bidirectional = bidirectional
         self.use_readout_layer = use_readout_layer
         self.cell_impl = cell_impl
+        self.compute_dtype = compute_dtype
+        self.mxu_precision = mxu_precision
+        self.remat = remat
 
         layer_cls = _LAYER_CLASSES[ann_type]
         width = math.prod(self.input_shape[2:])
@@ -248,13 +269,14 @@ class ANN(nn.Module):
                 width, self.layer_sizes[i], dropout=dropout,
                 normalization=normalization, use_bias=use_bias,
                 bidirectional=bidirectional, cell_impl=cell_impl,
+                compute_dtype=compute_dtype, mxu_precision=mxu_precision,
             )
             self.add_module(f"layer_{i}", layer)
             width = self.layer_sizes[i] * (2 if bidirectional else 1)
         if use_readout_layer:
             self.readout = ReadoutLayerANN(
                 width, self.layer_sizes[-1], normalization=normalization,
-                use_bias=use_bias,
+                use_bias=use_bias, compute_dtype=compute_dtype,
             )
         if generator is not None:
             self.reset_parameters(generator)
@@ -286,8 +308,10 @@ class ANN(nn.Module):
             x = x.reshape(x.shape[0], x.shape[1], -1)
         elif x.ndim != 3:
             raise NotImplementedError(f"Unsupported input rank {x.ndim}")
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.hidden_layers():
-            x = layer(x, generator)
+            x = remat_layer(layer, x, generator) if remat \
+                else layer(x, generator)
         if self.use_readout_layer:
             x = self.readout(x, generator)
         return x, None

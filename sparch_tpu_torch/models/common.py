@@ -9,6 +9,12 @@ sparch_tpu/models/common.py).
   batch variance), or LayerNorm; any other kind is the identity.
 - On the fused-kernel path BatchNorm is applied inside the kernel as the
   per-feature affine ``scale*x + shift`` (:meth:`SeqNorm.affine`).
+- ``compute_dtype=torch.bfloat16`` (mixed precision, by explicit casts):
+  a :class:`Dense` casts its input and its weight to bf16 where it uses
+  them and emits bf16, the normalisations take their sums in float32 over
+  the bf16 stream, and the fused kernels run in their bf16-stream mode
+  (:meth:`FusedCellPolicy._mxu_bf16`). Parameters, running statistics and
+  the optimizer's moments stay float32.
 """
 from __future__ import annotations
 
@@ -25,6 +31,8 @@ __all__ = [
     "Dense",
     "SeqNorm",
     "FusedCellPolicy",
+    "check_precision_fields",
+    "remat_layer",
     "bidir_concat",
     "bidir_split",
 ]
@@ -42,13 +50,43 @@ def torch_linear_init(t: torch.Tensor, fan_in: int,
         return t.uniform_(-bound, bound, generator=generator)
 
 
+class _CastLinear(torch.autograd.Function):
+    """``x @ W^T (+ bias)`` in the type of ``x`` with float32 parameters
+    (JAX ``rec_dot`` and ``bias_add``): the weight and the bias are cast at
+    use, and their gradients are summed in float32, not in the stream's
+    type. A product of two bf16 values is exact in float32, so the weight
+    gradient is the bf16 product with a float32 sum."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        ctx.has_bias = bias is not None
+        y = torch.matmul(x, weight.to(x.dtype).t())
+        return y if bias is None else y + bias.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx = torch.matmul(g, weight.to(g.dtype)) \
+            if ctx.needs_input_grad[0] else None
+        g2 = g.reshape(-1, g.shape[-1]).to(weight.dtype)
+        dw = torch.matmul(g2.t(), x.reshape(-1, x.shape[-1]).to(weight.dtype))
+        return dx, dw, g2.sum(dim=0) if ctx.has_bias else None
+
+
 class Dense(nn.Module):
     """Linear layer with torch-default init. ``weight`` is (out, in); the
-    product is one ``torch.matmul`` over all leading dims."""
+    product is one ``torch.matmul`` over all leading dims.
+
+    ``dtype`` as flax's: the input and the float32 parameters are cast to
+    it where they are used and the output comes in it. With ``dtype=None``
+    nothing is cast but an input of a narrower type than the weight (a bf16
+    spike raster), which is promoted to the weight's."""
 
     def __init__(self, in_features: int, features: int,
-                 use_bias: bool = False):
+                 use_bias: bool = False, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(features, in_features))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
         self.reset_parameters()
@@ -60,6 +98,10 @@ class Dense(nn.Module):
             torch_linear_init(self.bias, fan_in, generator)
 
     def forward(self, x):
+        if self.dtype is not None:
+            return _CastLinear.apply(x.to(self.dtype), self.weight, self.bias)
+        if x.dtype != self.weight.dtype:
+            x = x.to(torch.promote_types(x.dtype, self.weight.dtype))
         y = torch.matmul(x, self.weight.t())
         if self.bias is not None:
             y = y + self.bias
@@ -74,7 +116,9 @@ class SeqNorm(nn.Module):
     arithmetic); :meth:`affine` returns BatchNorm as the per-feature
     ``(scale, shift)`` a fused kernel applies on load (flax
     ``SeqNormAffine`` / ``_BNAffine``). Both read and, in training mode,
-    update the same running statistics.
+    update the same running statistics. A bf16 stream is read up to
+    float32 first: the sums are float32 and so is what ``forward`` returns
+    (the identity returns its input as it is).
     """
 
     def __init__(self, kind: str, features: int):
@@ -103,6 +147,9 @@ class SeqNorm(nn.Module):
             self.running_var.copy_(m * self.running_var + (1 - m) * var)
 
     def forward(self, x):
+        if self.kind in ("batchnorm", "layernorm") and \
+                x.dtype == torch.bfloat16:
+            x = x.float()
         if self.kind == "batchnorm":
             shape = x.shape
             flat = x.reshape(-1, shape[-1])
@@ -170,6 +217,13 @@ class FusedCellPolicy:
     ``hidden_size``, ``cell_impl``, ``dropout``, ``bidirectional`` and
     ``training``.
 
+    ``compute_dtype`` and ``mxu_precision`` (kept for the JAX model
+    records; 'default' or 'highest'): the fused kernels run in their
+    bf16-stream mode exactly when ``compute_dtype`` is bfloat16. The JAX
+    policy's other clause, ``mxu_precision='default'`` on a TPU, follows
+    that chip's default product precision; a float32 product on a CUDA card
+    is float32 by default, so here ``mxu_precision`` selects nothing.
+
     ``cell_impl``: 'pallas' always takes the fused path (its plain version
     on a CPU tensor); 'auto' takes it for every CUDA tensor, so a layer
     wider than the kernel takes raises there instead of running a plain
@@ -185,6 +239,9 @@ class FusedCellPolicy:
         if self.cell_impl == "scan":
             return False
         raise ValueError(f"Invalid cell_impl {self.cell_impl}")
+
+    def _mxu_bf16(self) -> bool:
+        return self.compute_dtype == torch.bfloat16
 
     def _fused_dropout(self, fused: bool, like: torch.Tensor, generator):
         """``dict(drop_rate, drop_seed)`` for the in-kernel dropout: while
@@ -206,6 +263,57 @@ class FusedCellPolicy:
         if fused or not (self.training and self.dropout > 0):
             return out  # dropped in the kernel, or not at all
         # inverted dropout with the mask drawn from the run's generator
-        keep = torch.rand(out.shape, generator=generator, dtype=out.dtype,
+        draw = torch.float32 if out.dtype == torch.bfloat16 else out.dtype
+        keep = torch.rand(out.shape, generator=generator, dtype=draw,
                           device=out.device) >= self.dropout
         return out * keep * (1.0 / (1.0 - self.dropout))
+
+
+def check_precision_fields(compute_dtype, mxu_precision: str):
+    """Validate a model's ``compute_dtype`` (None, float32 or bfloat16) and
+    ``mxu_precision``; returns the ``dtype`` of its ``Dense`` layers (None
+    for float32, as in the JAX package)."""
+    if compute_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"Invalid compute_dtype {compute_dtype}")
+    if mxu_precision not in ("default", "highest"):
+        raise ValueError(f"Invalid mxu_precision {mxu_precision}")
+    return torch.bfloat16 if compute_dtype == torch.bfloat16 else None
+
+
+def remat_layer(layer: nn.Module, x, generator):
+    """``layer(x, generator)`` rematerialised (flax ``nn.remat``): its
+    residuals are dropped after the forward and the backward recomputes the
+    layer from its input.
+
+    The recomputation must see the forward's random draws (dropout seed or
+    mask, uniform states), and they come from an explicit generator that
+    ``torch.utils.checkpoint`` does not restore. So the generator's state
+    at entry is kept, the recomputation replays from it, and the state the
+    generator had reached by then is put back afterwards. The running
+    statistics are put back too: only the forward itself may move them."""
+    from torch.utils.checkpoint import checkpoint
+
+    if generator is None:
+        entry = None
+    else:
+        entry = generator.get_state()
+    forward_done = []
+
+    def run(x):
+        if not forward_done:
+            forward_done.append(True)
+            return layer(x, generator)
+        buffers = [b.detach().clone() for b in layer.buffers()]
+        now = generator.get_state() if generator is not None else None
+        try:
+            if generator is not None:
+                generator.set_state(entry)
+            return layer(x, generator)
+        finally:
+            if generator is not None:
+                generator.set_state(now)
+            with torch.no_grad():
+                for b, saved in zip(layer.buffers(), buffers):
+                    b.copy_(saved)
+
+    return checkpoint(run, x, use_reentrant=False)

@@ -14,6 +14,12 @@ Eval/train mode is the module's (``model.eval()``); a uniform state init,
 the dropout seed of the fused path and the dropout mask of the plain path
 draw from the ``generator`` given to ``forward``. Both paths are
 differentiable: the fused one through the backward kernels.
+
+``compute_dtype=torch.bfloat16``: every projection runs and emits in bf16
+(parameters stay float32), the fused cells run in their bf16-stream mode on
+that bf16 drive and hand bf16 spikes to the next layer, and the readout's
+membrane recurrence runs in float32. ``remat=True`` recomputes each hidden
+layer in the backward instead of keeping its residuals.
 """
 from __future__ import annotations
 
@@ -28,6 +34,8 @@ from sparch_tpu_torch.models.common import (
     FusedCellPolicy,
     SeqNorm,
     bidir_concat,
+    check_precision_fields,
+    remat_layer,
 )
 from sparch_tpu_torch.ops import cells, fused_cells
 
@@ -69,8 +77,12 @@ class _SpikingLayerBase(FusedCellPolicy, nn.Module):
                  threshold: float = 1.0, dropout: float = 0.0,
                  normalization: str = "batchnorm", use_bias: bool = False,
                  bidirectional: bool = False, state_init: str = "uniform",
-                 cell_impl: str = "auto"):
+                 cell_impl: str = "auto", compute_dtype=None,
+                 mxu_precision: str = "default"):
         super().__init__()
+        dense_dtype = check_precision_fields(compute_dtype, mxu_precision)
+        self.compute_dtype = compute_dtype
+        self.mxu_precision = mxu_precision
         self.hidden_size = hidden_size
         self.threshold = threshold
         self.dropout = dropout
@@ -78,7 +90,7 @@ class _SpikingLayerBase(FusedCellPolicy, nn.Module):
         self.bidirectional = bidirectional
         self.state_init = state_init
         self.cell_impl = cell_impl
-        self.W = Dense(input_size, hidden_size, use_bias)
+        self.W = Dense(input_size, hidden_size, use_bias, dtype=dense_dtype)
         self.norm = SeqNorm(normalization, hidden_size)
         self.alpha = nn.Parameter(torch.empty(hidden_size))
         if self.adaptive:
@@ -108,7 +120,10 @@ class _SpikingLayerBase(FusedCellPolicy, nn.Module):
 
     def _pre(self, x):
         """Hoisted projection + norm -> (Wx, scale, shift); scale/shift are
-        None where the norm was applied to Wx here."""
+        None where the norm was applied to Wx here. On the fold path Wx
+        keeps the type the projection emitted (bf16 under
+        ``compute_dtype=bfloat16``): it is not cast here, so the float32
+        mode keeps its exact spike trains."""
         if self.bidirectional:
             x = bidir_concat(x)
         Wx = self.W(x)
@@ -138,7 +153,7 @@ class LIFLayer(_SpikingLayerBase):
         if fused:
             return fused_cells.lif_fused(
                 Wx, self.alpha, self.threshold, u0, s0, scale=scale,
-                shift=shift, **drop,
+                shift=shift, mxu_bf16=self._mxu_bf16(), **drop,
             )
         return cells.lif_scan(Wx, self.alpha, self.threshold, u0, s0)
 
@@ -154,7 +169,7 @@ class adLIFLayer(_SpikingLayerBase):
             return fused_cells.adlif_fused(
                 Wx, self.alpha, self.beta, self.a, self.b, self.threshold,
                 u0, w0, s0, scale=scale, shift=shift,
-                **drop,
+                mxu_bf16=self._mxu_bf16(), **drop,
             )
         return cells.adlif_scan(Wx, self.alpha, self.beta, self.a, self.b,
                                 self.threshold, u0, w0, s0)
@@ -170,7 +185,7 @@ class RLIFLayer(_SpikingLayerBase):
         if fused:
             return fused_cells.rlif_fused(
                 Wx, self.alpha, self.V, self.threshold, u0, s0, scale=scale,
-                shift=shift, **drop,
+                shift=shift, mxu_bf16=self._mxu_bf16(), **drop,
             )
         return cells.rlif_scan(Wx, self.alpha, self.V, self.threshold,
                                u0, s0)
@@ -188,7 +203,7 @@ class RadLIFLayer(_SpikingLayerBase):
             return fused_cells.radlif_fused(
                 Wx, self.alpha, self.beta, self.a, self.b, self.V,
                 self.threshold, u0, w0, s0, scale=scale, shift=shift,
-                **drop,
+                mxu_bf16=self._mxu_bf16(), **drop,
             )
         return cells.radlif_scan(Wx, self.alpha, self.beta, self.a, self.b,
                                  self.V, self.threshold, u0, w0, s0)
@@ -202,11 +217,13 @@ class ReadoutLayer(nn.Module):
 
     def __init__(self, input_size: int, hidden_size: int,
                  normalization: str = "batchnorm", use_bias: bool = False,
-                 state_init: str = "uniform", cell_impl: str = "auto"):
+                 state_init: str = "uniform", cell_impl: str = "auto",
+                 compute_dtype=None):
         super().__init__()
         self.state_init = state_init
         self.cell_impl = cell_impl
-        self.W = Dense(input_size, hidden_size, use_bias)
+        self.W = Dense(input_size, hidden_size, use_bias,
+                       dtype=check_precision_fields(compute_dtype, "default"))
         self.norm = SeqNorm(normalization, hidden_size)
         self.alpha = nn.Parameter(torch.empty(hidden_size))
         self.reset_parameters()
@@ -218,6 +235,10 @@ class ReadoutLayer(nn.Module):
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         Wx = self.norm(self.W(x))
+        if Wx.dtype == torch.bfloat16:
+            # the membrane recurrence always runs in float32: it is tiny
+            # and feeds the loss
+            Wx = Wx.float()
         (u0,) = _init_states(Wx, 1, self.state_init, generator)
         if self.cell_impl == "pallas":
             return fused_cells.readout_fused(Wx, self.alpha, u0)
@@ -243,8 +264,10 @@ class SNN(nn.Module):
     layers are the submodules ``layer_0``, ``layer_1``, ...; the readout
     is ``readout``.
 
-    ``compute_dtype=bfloat16``, ``remat`` and ``cell_impl='pallas_tp'`` are
-    not ported yet and raise; the port computes in float32.
+    ``compute_dtype`` (None or float32, or bfloat16 for mixed precision),
+    ``mxu_precision`` and ``remat`` as in the JAX package (see the module
+    docstring and ``common.FusedCellPolicy``). ``cell_impl='pallas_tp'`` is
+    not ported yet and raises.
     """
 
     is_snn = True
@@ -255,16 +278,10 @@ class SNN(nn.Module):
                  use_bias: bool = False, bidirectional: bool = False,
                  use_readout_layer: bool = True, state_init: str = "uniform",
                  cell_impl: str = "auto", compute_dtype=None,
-                 remat: bool = False,
+                 mxu_precision: str = "default", remat: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if compute_dtype is not None and compute_dtype != torch.float32:
-            raise NotImplementedError(
-                "compute_dtype=bfloat16 is ROADMAP queue 1 item 3 (AMP) and "
-                "queue 2 item 4 (bf16 streams)"
-            )
-        if remat:
-            raise NotImplementedError("remat is ROADMAP queue 1 item 3")
+        check_precision_fields(compute_dtype, mxu_precision)
         if cell_impl == "pallas_tp":
             raise NotImplementedError(
                 "cell_impl='pallas_tp' is ROADMAP queue 2 items 8-9 "
@@ -286,6 +303,9 @@ class SNN(nn.Module):
         self.use_readout_layer = use_readout_layer
         self.state_init = state_init
         self.cell_impl = cell_impl
+        self.compute_dtype = compute_dtype
+        self.mxu_precision = mxu_precision
+        self.remat = remat
 
         layer_cls = _LAYER_CLASSES[neuron_type]
         width = math.prod(self.input_shape[2:])
@@ -295,6 +315,7 @@ class SNN(nn.Module):
                 dropout=dropout, normalization=normalization,
                 use_bias=use_bias, bidirectional=bidirectional,
                 state_init=state_init, cell_impl=cell_impl,
+                compute_dtype=compute_dtype, mxu_precision=mxu_precision,
             )
             self.add_module(f"layer_{i}", layer)
             width = self.layer_sizes[i] * (2 if bidirectional else 1)
@@ -302,7 +323,7 @@ class SNN(nn.Module):
             self.readout = ReadoutLayer(
                 width, self.layer_sizes[-1], normalization=normalization,
                 use_bias=use_bias, state_init=state_init,
-                cell_impl=cell_impl,
+                cell_impl=cell_impl, compute_dtype=compute_dtype,
             )
         if generator is not None:
             self.reset_parameters(generator)
@@ -335,8 +356,10 @@ class SNN(nn.Module):
         elif x.ndim != 3:
             raise NotImplementedError(f"Unsupported input rank {x.ndim}")
         all_spikes = []
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.hidden_layers():
-            x = layer(x, generator)
+            x = remat_layer(layer, x, generator) if remat \
+                else layer(x, generator)
             all_spikes.append(x)
         if self.use_readout_layer:
             x = self.readout(x, generator)

@@ -23,7 +23,10 @@ Dynamics (per step, previous-step ``u``, ``w`` and ``s`` on the right):
 - ANN readout: out = sum_t softmax(x_t), no state
 
 The arithmetic is written in the order the JAX cells use, op by op, so
-that the two packages round alike.
+that the two packages round alike. A cell runs in the type of ``Wx``: the
+float32 neuron constants and recurrent matrices are cast to it where they
+are used (a bf16 ``Wx``, which only an un-normalised projection under
+``compute_dtype=bfloat16`` emits, gives a bf16 recurrence).
 """
 from __future__ import annotations
 
@@ -92,7 +95,7 @@ def _clip(p: torch.Tensor, lim) -> torch.Tensor:
 
 def lif_scan(Wx, alpha, threshold: float, u0, s0):
     """Feedforward LIF recurrence. ``Wx``: (B,T,H) -> spikes (B,T,H)."""
-    alpha = _clip(alpha, ALPHA_LIM)
+    alpha = _clip(alpha, ALPHA_LIM).to(Wx.dtype)
     u, s = u0, s0
     out = []
     for t in range(Wx.shape[1]):
@@ -104,10 +107,11 @@ def lif_scan(Wx, alpha, threshold: float, u0, s0):
 
 def adlif_scan(Wx, alpha, beta, a, b, threshold: float, u0, w0, s0):
     """Adaptive LIF recurrence (adaptation current w)."""
-    alpha = _clip(alpha, ALPHA_LIM)
-    beta = _clip(beta, BETA_LIM)
-    a = _clip(a, A_LIM)
-    b = _clip(b, B_LIM)
+    dt = Wx.dtype
+    alpha = _clip(alpha, ALPHA_LIM).to(dt)
+    beta = _clip(beta, BETA_LIM).to(dt)
+    a = _clip(a, A_LIM).to(dt)
+    b = _clip(b, B_LIM).to(dt)
     u, w, s = u0, w0, s0
     out = []
     for t in range(Wx.shape[1]):
@@ -121,8 +125,8 @@ def adlif_scan(Wx, alpha, beta, a, b, threshold: float, u0, w0, s0):
 
 def rlif_scan(Wx, alpha, V, threshold: float, u0, s0):
     """Recurrent LIF: adds a per-step ``s @ V``, V zero-diagonal."""
-    alpha = _clip(alpha, ALPHA_LIM)
-    V = zero_diag(V)
+    alpha = _clip(alpha, ALPHA_LIM).to(Wx.dtype)
+    V = zero_diag(V).to(Wx.dtype)
     u, s = u0, s0
     out = []
     for t in range(Wx.shape[1]):
@@ -135,11 +139,12 @@ def rlif_scan(Wx, alpha, V, threshold: float, u0, s0):
 
 def radlif_scan(Wx, alpha, beta, a, b, V, threshold: float, u0, w0, s0):
     """Recurrent adaptive LIF (the flagship model)."""
-    alpha = _clip(alpha, ALPHA_LIM)
-    beta = _clip(beta, BETA_LIM)
-    a = _clip(a, A_LIM)
-    b = _clip(b, B_LIM)
-    V = zero_diag(V)
+    dt = Wx.dtype
+    alpha = _clip(alpha, ALPHA_LIM).to(dt)
+    beta = _clip(beta, BETA_LIM).to(dt)
+    a = _clip(a, A_LIM).to(dt)
+    b = _clip(b, B_LIM).to(dt)
+    V = zero_diag(V).to(dt)
     u, w, s = u0, w0, s0
     out = []
     for t in range(Wx.shape[1]):
@@ -218,6 +223,7 @@ def readout_sum_scan(Wx, alpha, u0):
 
 def rnn_scan(Wx, V, y0):
     """Vanilla sigmoid RNN recurrence. ``Wx``: (B,T,H) -> y (B,T,H)."""
+    V = V.to(Wx.dtype)
     y = y0
     out = []
     for t in range(Wx.shape[1]):
@@ -228,6 +234,7 @@ def rnn_scan(Wx, V, y0):
 
 def ligru_scan(Wx, Wzx, V, Vz, y0):
     """Light GRU (Ravanelli et al. 2018) recurrence with a ReLU candidate."""
+    V, Vz = V.to(Wx.dtype), Vz.to(Wx.dtype)
     y = y0
     out = []
     for t in range(Wx.shape[1]):
@@ -241,6 +248,7 @@ def ligru_scan(Wx, Wzx, V, Vz, y0):
 def gru_scan(Wx, Wzx, Wrx, V, Vz, Vr, y0):
     """Full GRU (Cho et al. 2014) recurrence with a tanh candidate; the
     reset gate is applied before the recurrent product, ``(r*y) @ V``."""
+    V, Vz, Vr = (m.to(Wx.dtype) for m in (V, Vz, Vr))
     y = y0
     out = []
     for t in range(Wx.shape[1]):

@@ -29,9 +29,19 @@ Output dropout is the hash of ``ops.fused_cells`` (same seed, same batch
 tile): the raw ``y`` stays in the recurrence, only the stored output is
 dropped, and the backward regenerates the mask.
 
-Launches are counted per mode (``fused_ann_fwd_gru``, ...) and reported by
-``fused_cells.launch_counts()``. The bf16-stream mode raises
-``NotImplementedError``.
+The bf16-stream mode (``mxu_bf16=True``, the JAX kernels' mode of that
+name): the output, the raw-``y`` series, the gate residuals, the cotangent
+and the per-gate ``dWx`` are bf16 streams, the recurrent matrices are
+rounded to bf16 once, each ``Wx`` keeps the type it arrives in (float32 or
+bf16) and is promoted on load, and both operands of every product
+(``y @ V``, ``(r*y) @ V``, ``dpre @ V^T``, ``y_{t-1}^T dpre``) are rounded
+to bf16 and summed in float32; the carried ``y``, the adjoint and every
+reduced gradient stay float32. Each gradient comes back in its operand's
+type.
+
+Launches are counted per cell and stream mode (``fused_ann_fwd_gru``,
+``fused_ann_fwd_gru_bf16``, ...) and reported by
+``fused_cells.launch_counts()``.
 """
 from __future__ import annotations
 
@@ -44,11 +54,16 @@ from torch.autograd.function import once_differentiable
 from sparch_tpu_torch._build import Kernel
 from sparch_tpu_torch.ops import fused_cells
 from sparch_tpu_torch.ops.fused_cells import (
+    _BF16,
     _as_seed,
     _check,
     _inv_keep,
     _keep_rows,
     _ptr,
+    _rb,
+    _stream_dtype,
+    _work_dtype,
+    _wx_dtypes,
     dropout_tile_rows,
     keep_u32,
 )
@@ -57,6 +72,8 @@ __all__ = [
     "MODES",
     "FUSED_ANN_FWD",
     "FUSED_ANN_BWD",
+    "FUSED_ANN_FWD_BF16",
+    "FUSED_ANN_BWD_BF16",
     "KERNELS",
     "ann_cell_plain",
     "ann_cell_bwd_plain",
@@ -78,17 +95,25 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint32
-_FWD_ARGS = [_P] * 13 + [_I] * 4 + [_U, _F, _I] + [_P]
-_BWD_ARGS = [_P] * 23 + [_I] * 4 + [_U, _F, _I] + [_I] * 2 + [_P]
-FUSED_ANN_FWD = {
-    mode: Kernel("fused_ann_fwd", "sparch_fused_ann_fwd", _FWD_ARGS,
-                 name=f"fused_ann_fwd_{mode}") for mode in MODES
-}
-FUSED_ANN_BWD = {
-    mode: Kernel("fused_ann_bwd", "sparch_fused_ann_bwd", _BWD_ARGS,
-                 name=f"fused_ann_bwd_{mode}") for mode in MODES
-}
-KERNELS = tuple(FUSED_ANN_FWD.values()) + tuple(FUSED_ANN_BWD.values())
+_FWD_ARGS = [_P] * 13 + [_I] * 4 + [_U, _F, _I] + [_I] * 2 + [_P]
+_BWD_ARGS = [_P] * 23 + [_I] * 4 + [_U, _F, _I] + [_I] * 4 + [_P]
+
+
+def _per_mode(source: str, suffix: str = ""):
+    """One counter per cell for an entry point (which serves both stream
+    modes; they are counted apart)."""
+    args = _FWD_ARGS if source == "fused_ann_fwd" else _BWD_ARGS
+    return {mode: Kernel(source, f"sparch_{source}", args,
+                         name=f"{source}_{mode}{suffix}") for mode in MODES}
+
+
+FUSED_ANN_FWD = _per_mode("fused_ann_fwd")
+FUSED_ANN_BWD = _per_mode("fused_ann_bwd")
+FUSED_ANN_FWD_BF16 = _per_mode("fused_ann_fwd", "_bf16")
+FUSED_ANN_BWD_BF16 = _per_mode("fused_ann_bwd", "_bf16")
+KERNELS = tuple(k for group in (FUSED_ANN_FWD, FUSED_ANN_BWD,
+                                FUSED_ANN_FWD_BF16, FUSED_ANN_BWD_BF16)
+                for k in group.values())
 # csrc/fused_ann_*.cu: threads per block, neurons per thread at most (so
 # H <= 2048), (rows * neurons) per thread, and the tile of the dV product
 _THREADS = 512
@@ -104,19 +129,35 @@ _DV_BK = 16
 # ---------------------------------------------------------------------------
 
 
+def _dot(x, v, mxu_bf16: bool):
+    """``x @ v``; in the bf16 mode ``x`` is rounded to bf16 (``v`` is
+    already) and the sum stays float32."""
+    return torch.matmul(_rb(x) if mxu_bf16 else x, v)
+
+
 def ann_cell_plain(mode: str, wxs, scales, shifts, vs, y0, *,
                    drop_rate: float = 0.0, seed=None,
-                   save_residuals: bool = False):
+                   save_residuals: bool = False, mxu_bf16: bool = False):
     """Plain PyTorch version of ``csrc/fused_ann_fwd.cu``: the TPU
     ``_ann_fwd_kernel``'s per-step arithmetic as a loop over T. ``wxs``,
     ``vs`` (and ``scales``/``shifts``, or None for no affine) are lists by
     gate. Returns the output (B,T,H), dropped under ``drop_rate > 0``; with
     ``save_residuals`` returns ``(out, y_raw, gates)``: the raw y series
     (None without dropout, where ``out`` is it) and the tuple of gate
-    series."""
+    series.
+
+    ``mxu_bf16``: the output and the residual series come back bf16, the
+    matrices are rounded to bf16, each ``wx`` (float32 or bf16) is promoted
+    on load, and the left operand of every product is rounded to bf16; the
+    carried ``y`` stays float32."""
     B, T, H = wxs[0].shape
-    y = y0
-    out = torch.empty_like(wxs[0])
+    # float64 matrices (the witness of a whole model) lift the arithmetic
+    work = torch.promote_types(_work_dtype(wxs[0]), vs[0].dtype)
+    y = y0.to(work)
+    if mxu_bf16:
+        vs = [_rb(v) for v in vs]
+    out = torch.empty(wxs[0].shape, dtype=_stream_dtype(mxu_bf16, wxs[0]),
+                      device=wxs[0].device)
     dropout = drop_rate > 0.0
     y_raw = torch.empty_like(out) if (save_residuals and dropout) else None
     gates = tuple(torch.empty_like(out) for _ in _GATE_SERIES[mode]) \
@@ -124,21 +165,21 @@ def ann_cell_plain(mode: str, wxs, scales, shifts, vs, y0, *,
     if dropout:
         keep, inv = keep_u32(drop_rate), _inv_keep(drop_rate)
     for t in range(T):
-        d = [w[:, t] for w in wxs]
+        d = [w[:, t].to(work) for w in wxs]
         if scales is not None:
             d = [sc * x + sh for sc, x, sh in zip(scales, d, shifts)]
         if mode == "rnn":
-            y = torch.sigmoid(d[0] + torch.matmul(y, vs[0]))
+            y = torch.sigmoid(d[0] + _dot(y, vs[0], mxu_bf16))
             vals = ()
         elif mode == "ligru":
-            z = torch.sigmoid(d[1] + torch.matmul(y, vs[1]))
-            c = torch.relu(d[0] + torch.matmul(y, vs[0]))
+            z = torch.sigmoid(d[1] + _dot(y, vs[1], mxu_bf16))
+            c = torch.relu(d[0] + _dot(y, vs[0], mxu_bf16))
             y = z * y + (1.0 - z) * c
             vals = (z, c)
         else:
-            z = torch.sigmoid(d[1] + torch.matmul(y, vs[1]))
-            r = torch.sigmoid(d[2] + torch.matmul(y, vs[2]))
-            c = torch.tanh(d[0] + torch.matmul(r * y, vs[0]))
+            z = torch.sigmoid(d[1] + _dot(y, vs[1], mxu_bf16))
+            r = torch.sigmoid(d[2] + _dot(y, vs[2], mxu_bf16))
+            c = torch.tanh(d[0] + _dot(r * y, vs[0], mxu_bf16))
             y = z * y + (1.0 - z) * c
             vals = (z, r, c)
         if dropout:
@@ -155,7 +196,8 @@ def ann_cell_plain(mode: str, wxs, scales, shifts, vs, y0, *,
 
 
 def ann_cell_bwd_plain(mode: str, g, wxs, y_seq, gates, scales, vs, y0, *,
-                       drop_rate: float = 0.0, seed=None):
+                       drop_rate: float = 0.0, seed=None,
+                       mxu_bf16: bool = False):
     """Plain PyTorch version of ``csrc/fused_ann_bwd.cu``: reverse-time
     BPTT, the adjoint equations of the TPU ``_ann_bwd_kernel``. With G_t the
     total adjoint of y_t (the masked output cotangent plus what step t+1
@@ -173,58 +215,80 @@ def ann_cell_bwd_plain(mode: str, g, wxs, y_seq, gates, scales, vs, y0, *,
     dV = sum y_p^T dpre (the GRU's candidate: (r*y_p)^T dcpre), dy0 = G_0.
     ``y_seq`` is the raw y series; ``wxs`` (the raw streams) is read only
     with the affine. Returns ``(dwxs, dscales, dshifts, dvs, dy0)``, lists
-    by gate, the affine ones None without it."""
+    by gate, the affine ones None without it.
+
+    ``mxu_bf16``: ``g`` and the residual series arrive bf16 and are read up
+    to float32, each ``dWx`` comes back bf16 (``bf16(dpre*scale)``), the
+    matrices are rounded to bf16, and each dpre is rounded to bf16 where it
+    enters the adjoint product and ``dV``, whose left operand (``y0``, or
+    ``r*y_p``) is rounded too; ``dscale``/``dshift`` sum the float32 dpre."""
     B, T, H = g.shape
     n = MODES[mode]
     affine = scales is not None
+    work = torch.promote_types(_work_dtype(y0), vs[0].dtype)
+    sdt = _stream_dtype(mxu_bf16, y0)
+    y0 = y0.to(work)
     zeros = torch.zeros_like(y0)
     D = zeros
-    dpres = [torch.empty_like(g) for _ in range(n)]
+    # dpre as it enters the products, and the gradient streams
+    dpres = [torch.empty(g.shape, dtype=work, device=g.device)
+             for _ in range(n)]
+    dwxs = [torch.empty(g.shape, dtype=sdt, device=g.device)
+            for _ in range(n)]
     dsc, dsh = [zeros] * n, [zeros] * n
+    if mxu_bf16:
+        vs = [_rb(v) for v in vs]
+
+    def dotT(x, v):
+        return torch.matmul(_rb(x) if mxu_bf16 else x, v.t())
+
     dropout = drop_rate > 0.0
     if dropout:
         keep, inv = keep_u32(drop_rate), _inv_keep(drop_rate)
     for t in range(T - 1, -1, -1):
-        g_t = g[:, t]
+        g_t = g[:, t].to(work)
         if dropout:
             mask = _keep_rows(B, H, seed, t, keep)
             g_t = torch.where(mask, g_t * inv, torch.zeros_like(g_t))
-        y_p = y_seq[:, t - 1] if t > 0 else y0
+        y_p = y_seq[:, t - 1].to(work) if t > 0 else y0
         G = g_t + D
         if mode == "rnn":
-            y_t = y_seq[:, t]
+            y_t = y_seq[:, t].to(work)
             step = (G * y_t * (1.0 - y_t),)
-            D = torch.matmul(step[0], vs[0].t())
+            D = dotT(step[0], vs[0])
         elif mode == "ligru":
-            z, c = gates[0][:, t], gates[1][:, t]
+            z, c = gates[0][:, t].to(work), gates[1][:, t].to(work)
             dc = torch.where(c > 0, G * (1.0 - z), torch.zeros_like(G))
             dz = G * (y_p - c) * z * (1.0 - z)
-            D = G * z + torch.matmul(dc, vs[0].t()) \
-                + torch.matmul(dz, vs[1].t())
+            D = G * z + dotT(dc, vs[0]) + dotT(dz, vs[1])
             step = (dc, dz)
         else:
-            z, r, c = gates[0][:, t], gates[1][:, t], gates[2][:, t]
+            z, r, c = (x[:, t].to(work) for x in gates)
             dc = G * (1.0 - z) * (1.0 - c * c)
             dz = G * (y_p - c) * z * (1.0 - z)
-            dry = torch.matmul(dc, vs[0].t())
+            dry = dotT(dc, vs[0])
             dr = dry * y_p * r * (1.0 - r)
-            D = G * z + dry * r + torch.matmul(dz, vs[1].t()) \
-                + torch.matmul(dr, vs[2].t())
+            D = G * z + dry * r + dotT(dz, vs[1]) + dotT(dr, vs[2])
             step = (dc, dz, dr)
         for i, dpre in enumerate(step):
-            dpres[i][:, t] = dpre
+            dpres[i][:, t] = _rb(dpre) if mxu_bf16 else dpre
             if affine:
-                dsc[i] = dsc[i] + dpre * wxs[i][:, t]
+                dsc[i] = dsc[i] + dpre * wxs[i][:, t].to(work)
                 dsh[i] = dsh[i] + dpre
-    y_prev = torch.cat([y0[:, None], y_seq[:, :-1]], dim=1)
+                dwxs[i][:, t] = dpre * scales[i]
+            else:
+                dwxs[i][:, t] = dpre
+    y_prev = torch.cat([y0[:, None], y_seq[:, :-1].to(work)], dim=1)
     dvs = []
     for i, dpre in enumerate(dpres):
-        left = gates[1] * y_prev if (mode == "gru" and i == 0) else y_prev
+        left = gates[1].to(work) * y_prev if (mode == "gru" and i == 0) \
+            else y_prev
+        if mxu_bf16:
+            left = _rb(left)
         dvs.append(torch.matmul(left.reshape(-1, H).t(),
                                 dpre.reshape(-1, H)))
     if not affine:
-        return dpres, None, None, dvs, D
-    dwxs = [dpre * sc for dpre, sc in zip(dpres, scales)]
+        return dwxs, None, None, dvs, D
     return (dwxs, [x.sum(0) for x in dsc], [x.sum(0) for x in dsh], dvs, D)
 
 
@@ -233,7 +297,10 @@ def ann_cell_bwd_plain(mode: str, g, wxs, y_seq, gates, scales, vs, y0, *,
 # ---------------------------------------------------------------------------
 
 
-def _check_operands(mode, wxs, scales, shifts, vs, y0):
+def _check_operands(mode, wxs, scales, shifts, vs, y0,
+                    wx_dtype=torch.float32):
+    """``wx_dtype``: the type(s) the input streams may have; they must all
+    have the same one."""
     n = MODES[mode]
     B, T, H = wxs[0].shape
     dev = wxs[0].device
@@ -248,17 +315,25 @@ def _check_operands(mode, wxs, scales, shifts, vs, y0):
         if len(group) != n:
             raise ValueError(f"{mode}: want {n} of {name}, got {len(group)}")
         for i, t in enumerate(group):
-            _check(f"{name}[{i}]", t, shape, dev)
+            _check(f"{name}[{i}]", t, shape, dev,
+                   wx_dtype if name == "wx" else torch.float32)
+    if len({w.dtype for w in wxs}) != 1:
+        raise ValueError(f"{mode}: the input streams differ in type")
     _check("y0", y0, (B, H), dev)
 
 
-def _pack(mats: Sequence[torch.Tensor], order) -> torch.Tensor:
+def _pack(mats: Sequence[torch.Tensor], order,
+          mxu_bf16: bool = False) -> torch.Tensor:
     """The matrices in the order one step streams them, as one
-    ``(len(order), H, Hc)`` buffer with the rows padded to 16 bytes, so
-    that every tile of rows is one aligned contiguous piece."""
+    ``(len(order), H, Hc)`` buffer with the rows padded to 16 bytes (four
+    floats; in the bf16 mode, where they are rounded to bf16 here, eight
+    elements), so that every tile of rows is one aligned contiguous
+    piece."""
     H = mats[0].shape[0]
-    return torch.stack([torch.nn.functional.pad(mats[i], (0, -H % 4))
-                        for i in order]).contiguous()
+    dtype, q = (_BF16, 8) if mxu_bf16 else (mats[0].dtype, 4)
+    return torch.stack([
+        torch.nn.functional.pad(mats[i].to(dtype), (0, -H % q))
+        for i in order]).contiguous()
 
 
 def _three(ts):
@@ -277,16 +352,17 @@ def _dropout_args(B, drop_rate, seed, dev):
 
 def _ann_cell_cuda(mode: str, wxs, scales, shifts, vs, y0, *,
                    drop_rate: float = 0.0, seed=None,
-                   save_residuals: bool = False):
-    """Launch ``csrc/fused_ann_fwd.cu``. Same contract as
-    ``ann_cell_plain``."""
+                   save_residuals: bool = False, mxu_bf16: bool = False):
+    """Launch ``csrc/fused_ann_fwd.cu`` in the float32 or the bf16 stream
+    mode. Same contract as ``ann_cell_plain``."""
     if (scales is None) != (shifts is None):
         raise ValueError("pass both scales and shifts, or neither")
-    _check_operands(mode, wxs, scales, shifts, vs, y0)
+    _check_operands(mode, wxs, scales, shifts, vs, y0, _wx_dtypes(mxu_bf16))
     B, T, H = wxs[0].shape
     dev = wxs[0].device
     seed_p, keep, inv, tile = _dropout_args(B, drop_rate, seed, dev)
-    out = torch.empty_like(wxs[0])
+    out = torch.empty(wxs[0].shape, dtype=_stream_dtype(mxu_bf16, wxs[0]),
+                      device=dev)
     y_raw = torch.empty_like(out) if (save_residuals and seed_p) else None
     names = _GATE_SERIES[mode] if save_residuals else ()
     series = {k: torch.empty_like(out) for k in names}
@@ -296,15 +372,15 @@ def _ann_cell_cuda(mode: str, wxs, scales, shifts, vs, y0, *,
     # named, so that they live until the launch is enqueued
     scale = torch.stack(scales) if scales is not None else None
     shift = torch.stack(shifts) if shifts is not None else None
-    packed = _pack(vs, _FWD_ORDER[mode])
+    packed = _pack(vs, _FWD_ORDER[mode], mxu_bf16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        FUSED_ANN_FWD[mode](
+        (FUSED_ANN_FWD_BF16 if mxu_bf16 else FUSED_ANN_FWD)[mode](
             *_three(wxs), _ptr(scale), _ptr(shift), _ptr(packed), _ptr(y0),
             seed_p, _ptr(out),
             _ptr(y_raw), _ptr(series.get("z")), _ptr(series.get("r")),
             _ptr(series.get("c")), B, T, H, _MODE_ID[mode], keep, inv, tile,
-            stream,
+            int(mxu_bf16), int(wxs[0].dtype == _BF16), stream,
         )
     return result if save_residuals else out
 
@@ -323,29 +399,33 @@ def _bwd_plan(B: int, T: int, H: int, n: int):
 
 
 def _ann_cell_bwd_cuda(mode: str, g, wxs, y_seq, gates, scales, vs, y0, *,
-                       drop_rate: float = 0.0, seed=None):
-    """Launch ``csrc/fused_ann_bwd.cu``. Same contract as
-    ``ann_cell_bwd_plain``."""
+                       drop_rate: float = 0.0, seed=None,
+                       mxu_bf16: bool = False):
+    """Launch ``csrc/fused_ann_bwd.cu`` in the float32 or the bf16 stream
+    mode. Same contract as ``ann_cell_bwd_plain``."""
     n = MODES[mode]
     affine = scales is not None
     B, T, H = g.shape
     dev = g.device
-    _check_operands(mode, wxs if affine else [g] * n, scales, None, vs, y0)
-    _check("g", g, (B, T, H), dev)
-    _check("y_seq", y_seq, (B, T, H), dev)
+    sdt = _BF16 if mxu_bf16 else torch.float32
+    _check("g", g, (B, T, H), dev, sdt)
+    _check_operands(mode, wxs if affine else [g] * n, scales, None, vs, y0,
+                    _wx_dtypes(mxu_bf16))
+    _check("y_seq", y_seq, (B, T, H), dev, sdt)
     if len(gates) != len(_GATE_SERIES[mode]):
         raise ValueError(f"{mode}: want the series {_GATE_SERIES[mode]}")
     for name, t in zip(_GATE_SERIES[mode], gates):
-        _check(name, t, (B, T, H), dev)
+        _check(name, t, (B, T, H), dev, sdt)
     series = dict(zip(_GATE_SERIES[mode], gates))
     seed_p, keep, inv, tile = _dropout_args(B, drop_rate, seed, dev)
     n_blocks, ksplit = _bwd_plan(B, T, H, n)
 
     def new(*shape):
-        return torch.empty(shape, dtype=g.dtype, device=dev)
+        return torch.empty(shape, dtype=torch.float32, device=dev)
 
     dwxs = [torch.empty_like(g) for _ in range(n)]
-    # dpre before the scale, the right operand of the dV products
+    # dpre before the scale, the right operand of the dV products (in the
+    # bf16 mode stored as the bf16 the products consume)
     dds = [torch.empty_like(g) for _ in range(n)] if affine else []
     partials = new(n_blocks, 2 * n, H)
     vecs = new(2 * n, H)
@@ -353,11 +433,11 @@ def _ann_cell_bwd_cuda(mode: str, g, wxs, y_seq, gates, scales, vs, y0, *,
     dv_partials = new(ksplit, n, H, H)
     dy0 = new(B, H)
     # V^T per gate: the adjoint products contract V's second axis
-    vts = _pack([v.t() for v in vs], _BWD_ORDER[mode])
+    vts = _pack([v.t() for v in vs], _BWD_ORDER[mode], mxu_bf16)
     scale = torch.stack(scales) if affine else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        FUSED_ANN_BWD[mode](
+        (FUSED_ANN_BWD_BF16 if mxu_bf16 else FUSED_ANN_BWD)[mode](
             _ptr(g), *_three(wxs if affine else None), _ptr(y_seq),
             _ptr(series.get("z")), _ptr(series.get("r")),
             _ptr(series.get("c")),
@@ -365,7 +445,7 @@ def _ann_cell_bwd_cuda(mode: str, g, wxs, y_seq, gates, scales, vs, y0, *,
             *_three(dds), _ptr(partials), _ptr(vecs), _ptr(dvs),
             _ptr(dv_partials), _ptr(dy0),
             B, T, H, _MODE_ID[mode], keep, inv, tile, n_blocks, ksplit,
-            stream,
+            int(mxu_bf16), int(affine and wxs[0].dtype == _BF16), stream,
         )
     if not affine:
         return dwxs, None, None, list(dvs.unbind(0)), dy0
@@ -379,7 +459,7 @@ class _FusedANN(torch.autograd.Function):
     (with the affine), then the recurrent matrices."""
 
     @staticmethod
-    def forward(ctx, mode, drop_rate, seed, y0, *ops):
+    def forward(ctx, mode, mxu_bf16, drop_rate, seed, y0, *ops):
         n = MODES[mode]
         affine = len(ops) == 4 * n
         wxs = list(ops[:n])
@@ -388,12 +468,13 @@ class _FusedANN(torch.autograd.Function):
         vs = list(ops[-n:])
         fwd = fused_cells._by_device(wxs[0], ann_cell_plain, _ann_cell_cuda,
                                      "fused ANN cell")
-        flags = dict(drop_rate=drop_rate, seed=seed)
+        flags = dict(drop_rate=drop_rate, seed=seed, mxu_bf16=mxu_bf16)
         if not any(ctx.needs_input_grad):
             return fwd(mode, wxs, scales, shifts, vs, y0, **flags)
         out, y_raw, gates = fwd(mode, wxs, scales, shifts, vs, y0,
                                 save_residuals=True, **flags)
         ctx.mode, ctx.drop_rate, ctx.affine = mode, drop_rate, affine
+        ctx.mxu_bf16, ctx.wx_dtype = mxu_bf16, wxs[0].dtype
         ctx.save_for_backward(out if y_raw is None else y_raw, y0, seed,
                               *gates, *vs, *(wxs + scales if affine else ()))
         return out
@@ -413,16 +494,16 @@ class _FusedANN(torch.autograd.Function):
         # the cotangent often arrives as a view (the bidirectional split)
         dwxs, dscales, dshifts, dvs, dy0 = bwd(
             mode, g.contiguous(), wxs, y_seq, gates, scales, vs, y0,
-            drop_rate=ctx.drop_rate, seed=seed)
+            drop_rate=ctx.drop_rate, seed=seed, mxu_bf16=ctx.mxu_bf16)
         aff = (*dscales, *dshifts) if ctx.affine else ()
-        return (None, None, None, dy0, *dwxs, *aff, *dvs)
+        # each gradient in its operand's type: the bf16 mode's dWx streams
+        # go back up where the streams arrived float32
+        dwxs = [d.to(ctx.wx_dtype) for d in dwxs]
+        return (None, None, None, None, dy0, *dwxs, *aff, *dvs)
 
 
 def _fused_ann(mode, wxs, vs, y0, mxu_bf16, scales, shifts, drop_rate,
                drop_seed):
-    if mxu_bf16:
-        raise NotImplementedError(
-            f"mxu_bf16=True is {fused_cells._BF16_ITEM}")
     if (scales is None) != (shifts is None):
         raise ValueError("pass both scales and shifts, or neither")
     n = MODES[mode]
@@ -433,7 +514,10 @@ def _fused_ann(mode, wxs, vs, y0, mxu_bf16, scales, shifts, drop_rate,
         raise ValueError(f"drop_rate must lie in [0, 1), got {drop_rate}")
     seed = _as_seed(drop_seed, wxs[0].device) if drop_rate > 0.0 else None
     aff = (*scales, *shifts) if scales is not None else ()
-    return _FusedANN.apply(mode, drop_rate, seed, y0, *wxs, *aff, *vs)
+    # the carried state is float32 (float64 with float64 streams)
+    y0 = y0.to(_work_dtype(wxs[0]))
+    return _FusedANN.apply(mode, bool(mxu_bf16), drop_rate, seed, y0, *wxs,
+                           *aff, *vs)
 
 
 def rnn_fused(Wx, V, y0, mxu_bf16: bool = False, scales=None, shifts=None,

@@ -28,9 +28,19 @@ that divides B rounded up to a multiple of 8. The JAX kernel picks the same
 tile unless its VMEM plan shrinks it (very wide layers), so at every other
 size the masks of the two packages are equal bit for bit.
 
-``launch_counts()`` counts kernel launches by entry point, so a run can
-show that it went through the kernels. The bf16-stream mode belongs to a
-later slice of the port and raises ``NotImplementedError``.
+The bf16-stream mode (``mxu_bf16=True``, the JAX kernels' mode of that
+name): the spike output, the cotangent and ``dWx`` are bf16 streams, ``V``
+is rounded to bf16 once, ``Wx`` keeps the type it arrives in (float32, or
+bf16 where the projection emitted bf16) and is promoted on load, and every
+operand of a product is rounded to bf16 where the JAX kernel rounds it; the
+membrane series, all state, all elementwise arithmetic and every reduced
+gradient stay float32. LIF and adLIF have no product, so only their
+streams change. The readout has no such mode. Each gradient comes back in
+its operand's type.
+
+``launch_counts()`` counts kernel launches by entry point, the bf16 forms
+under names of their own (``fused_cell_fwd_bf16``, ...), so a run can show
+which kernels it went through.
 """
 from __future__ import annotations
 
@@ -47,6 +57,9 @@ __all__ = [
     "FUSED_CELL_FWD",
     "FUSED_CELL_FWD_TRAIN",
     "FUSED_CELL_BWD",
+    "FUSED_CELL_FWD_BF16",
+    "FUSED_CELL_FWD_TRAIN_BF16",
+    "FUSED_CELL_BWD_BF16",
     "READOUT_FWD",
     "READOUT_BWD",
     "launch_counts",
@@ -70,19 +83,29 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint32
+_FWD_ARGS = [_P] * 12 + [_I] * 3 + [_F] + [_I] * 5 + [_P]
+_FWD_TRAIN_ARGS = ([_P] * 14 + [_I] * 3 + [_F] + [_I] * 3 + [_U, _F, _I]
+                   + [_I] * 2 + [_P])
+_BWD_ARGS = ([_P] * 22 + [_I] * 3 + [_F] + [_I] * 3 + [_U, _F, _I]
+             + [_I] * 4 + [_P])
+# one C entry point per form serves both stream modes; the modes are
+# counted apart
 FUSED_CELL_FWD = Kernel(
-    "fused_cell_fwd", "sparch_fused_cell_fwd",
-    [_P] * 12 + [_I] * 3 + [_F] + [_I] * 3 + [_P],
-)
+    "fused_cell_fwd", "sparch_fused_cell_fwd", _FWD_ARGS)
+FUSED_CELL_FWD_BF16 = Kernel(
+    "fused_cell_fwd", "sparch_fused_cell_fwd", _FWD_ARGS,
+    name="fused_cell_fwd_bf16")
 FUSED_CELL_FWD_TRAIN = Kernel(
-    "fused_cell_fwd", "sparch_fused_cell_fwd_train",
-    [_P] * 14 + [_I] * 3 + [_F] + [_I] * 3 + [_U, _F, _I] + [_P],
-    name="fused_cell_fwd_train",
-)
+    "fused_cell_fwd", "sparch_fused_cell_fwd_train", _FWD_TRAIN_ARGS,
+    name="fused_cell_fwd_train")
+FUSED_CELL_FWD_TRAIN_BF16 = Kernel(
+    "fused_cell_fwd", "sparch_fused_cell_fwd_train", _FWD_TRAIN_ARGS,
+    name="fused_cell_fwd_train_bf16")
 FUSED_CELL_BWD = Kernel(
-    "fused_cell_bwd", "sparch_fused_cell_bwd",
-    [_P] * 22 + [_I] * 3 + [_F] + [_I] * 3 + [_U, _F, _I] + [_I] * 2 + [_P],
-)
+    "fused_cell_bwd", "sparch_fused_cell_bwd", _BWD_ARGS)
+FUSED_CELL_BWD_BF16 = Kernel(
+    "fused_cell_bwd", "sparch_fused_cell_bwd", _BWD_ARGS,
+    name="fused_cell_bwd_bf16")
 READOUT_FWD = Kernel(
     "readout_fwd", "sparch_readout_fwd", [_P] * 5 + [_I] * 3 + [_P]
 )
@@ -90,7 +113,8 @@ READOUT_BWD = Kernel(
     "readout_bwd", "sparch_readout_bwd", [_P] * 8 + [_I] * 3 + [_P]
 )
 _KERNELS = (FUSED_CELL_FWD, FUSED_CELL_FWD_TRAIN, FUSED_CELL_BWD,
-            READOUT_FWD, READOUT_BWD)
+            READOUT_FWD, READOUT_BWD, FUSED_CELL_FWD_BF16,
+            FUSED_CELL_FWD_TRAIN_BF16, FUSED_CELL_BWD_BF16)
 # widest layer and class count the kernels take (csrc/*.cu kMaxThreads *
 # kMaxNpt and 32 * kMaxVpl)
 _MAX_H = 4096
@@ -101,10 +125,6 @@ _BWD_THREADS = 512
 _BWD_WORK = 2
 _DV_TILE = 64
 _DV_BK = 16
-
-_BF16_ITEM = (
-    "ROADMAP queue 2 item 4, the bf16-stream mode of the fused cells"
-)
 
 
 def _all_kernels():
@@ -127,9 +147,12 @@ def reset_launch_counts() -> None:
 
 def _check(name: str, t: torch.Tensor, shape, device,
            dtype=torch.float32) -> None:
-    if t.device != device or t.dtype != dtype:
+    """``dtype`` is one type or a tuple of the types the kernel takes."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.device != device or t.dtype not in dtypes:
+        want = " or ".join(str(d) for d in dtypes)
         raise ValueError(
-            f"{name}: want {dtype} on {device}, got {t.dtype} on {t.device}"
+            f"{name}: want {want} on {device}, got {t.dtype} on {t.device}"
         )
     if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
         raise ValueError(
@@ -140,6 +163,39 @@ def _check(name: str, t: torch.Tensor, shape, device,
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# The two stream modes
+# ---------------------------------------------------------------------------
+
+_BF16 = torch.bfloat16
+
+
+def _rb(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to the nearest bf16 (ties to even), in its own type:
+    the value a bf16 operand of a product carries."""
+    return x.to(_BF16).to(x.dtype)
+
+
+def _work_dtype(x: torch.Tensor) -> torch.dtype:
+    """The type of the state and the arithmetic for an input stream ``x``:
+    float32 for a bf16 stream, else the stream's own."""
+    return torch.float32 if x.dtype == _BF16 else x.dtype
+
+
+def _stream_dtype(mxu_bf16: bool, x: torch.Tensor) -> torch.dtype:
+    """The type of the output streams: bf16 in the bf16-stream mode, else
+    the working type. A float64 call in the bf16 mode (the plain versions
+    only) is the witness of that mode: it rounds the operands of the
+    products where the mode rounds them and keeps its outputs float64."""
+    work = _work_dtype(x)
+    return _BF16 if (mxu_bf16 and work != torch.float64) else work
+
+
+def _wx_dtypes(mxu_bf16: bool):
+    """The types a kernel takes for an input stream in a mode."""
+    return (torch.float32, _BF16) if mxu_bf16 else torch.float32
 
 
 # ---------------------------------------------------------------------------
@@ -229,23 +285,36 @@ def _first_product(s0, V):
 def fused_cell_plain(Wx, scale, shift, alpha, beta, a, b, V, threshold,
                      u0, w0, s0, *, recurrent: bool, adaptive: bool,
                      drop_rate: float = 0.0, seed=None,
-                     save_residuals: bool = False):
+                     save_residuals: bool = False, mxu_bf16: bool = False):
     """Plain PyTorch version of ``csrc/fused_cell_fwd.cu``: the TPU
     ``_fwd_kernel``'s per-step arithmetic as a loop over T. Params must
     already be clamped (and V zero-diagonal); ``scale``/``shift`` None
     means no affine. With ``drop_rate > 0`` the raw spike stays in the
     recurrence and only the stored output is dropped. Returns the spikes
-    (B,T,H), and with ``save_residuals`` also the membrane series."""
+    (B,T,H), and with ``save_residuals`` also the membrane series.
+
+    ``mxu_bf16``: the spikes come back bf16 (a kept value under dropout is
+    ``bf16(s/(1-p))``), ``V`` is rounded to bf16, ``Wx`` (float32 or bf16)
+    is promoted on load, and the first product rounds ``s0`` for the
+    product only; the membrane series and the state stay float32."""
     B, T, H = Wx.shape
+    work = _work_dtype(Wx)
     u, s = u0, s0
     w = w0
-    sV = _first_product(s, V) if recurrent else None
-    out = torch.empty_like(Wx)
-    u_seq = torch.empty_like(Wx) if save_residuals else None
+    if recurrent and mxu_bf16:
+        V = _rb(V)
+    sV = None
+    if recurrent:
+        # the state keeps the float32 s0
+        sV = _first_product(_rb(s) if mxu_bf16 else s, V)
+    out = torch.empty(Wx.shape, dtype=_stream_dtype(mxu_bf16, Wx),
+                      device=Wx.device)
+    u_seq = torch.empty(Wx.shape, dtype=work, device=Wx.device) \
+        if save_residuals else None
     if drop_rate > 0.0:
         keep, inv = keep_u32(drop_rate), _inv_keep(drop_rate)
     for t in range(T):
-        drive = Wx[:, t]
+        drive = Wx[:, t].to(work)
         if scale is not None:
             drive = scale * drive + shift
         if recurrent:
@@ -269,7 +338,8 @@ def fused_cell_plain(Wx, scale, shift, alpha, beta, a, b, V, threshold,
 
 def fused_cell_bwd_plain(g, Wx, u_seq, scale, alpha, beta, a, b, V,
                          threshold, u0, w0, s0, *, recurrent: bool,
-                         adaptive: bool, drop_rate: float = 0.0, seed=None):
+                         adaptive: bool, drop_rate: float = 0.0, seed=None,
+                         mxu_bf16: bool = False):
     """Plain PyTorch version of ``csrc/fused_cell_bwd.cu``: reverse-time
     BPTT with the boxcar surrogate, the adjoint recurrence of the TPU
     ``_bwd_kernel``. With A_t = dL/du_t, B_t = dL/dw_t and g_t the (masked)
@@ -286,19 +356,31 @@ def fused_cell_bwd_plain(g, Wx, u_seq, scale, alpha, beta, a, b, V,
     exchanged). ``Wx`` is read only with the affine. Params must already be
     clamped and V zero-diagonal. Returns (dWx, dscale, dshift, dV, dalpha,
     dbeta, da, db, du0, dw0, ds0) with respect to those, None where the
-    form has no such operand."""
+    form has no such operand.
+
+    ``mxu_bf16``: ``g`` arrives bf16 and is read up to float32, ``dWx``
+    comes back bf16 (``bf16(dDrive*scale)``), ``V`` is rounded to bf16, and
+    dDrive is rounded to bf16 where it enters the adjoint product and
+    ``dV`` (whose other operand, ``s_{t-1}``, is rounded too: ``s0`` need
+    not be 0/1); ``dscale`` and ``dshift`` sum the float32 dDrive, and
+    everything else stays float32."""
     B, T, H = g.shape
     affine = scale is not None
+    work = _work_dtype(u_seq)
     zeros = torch.zeros_like(u0)
     A, Bw, P, AV = zeros, zeros, zeros, zeros
     oma = 1.0 - alpha
-    dWx = torch.empty_like(g)
-    dd_seq = torch.empty_like(g) if recurrent else None
+    dWx = torch.empty(g.shape, dtype=_stream_dtype(mxu_bf16, u_seq),
+                      device=g.device)
+    dd_seq = torch.empty(g.shape, dtype=work, device=g.device) \
+        if recurrent else None
+    if recurrent and mxu_bf16:
+        V = _rb(V)
     dal, dbe, daa, dbb, dsc, dsh = (zeros,) * 6
     if drop_rate > 0.0:
         keep, inv = keep_u32(drop_rate), _inv_keep(drop_rate)
     for t in range(T - 1, -1, -1):
-        g_t = g[:, t]
+        g_t = g[:, t].to(work)
         if drop_rate > 0.0:
             mask = _keep_rows(B, H, seed, t, keep)
             g_t = torch.where(mask, g_t * inv, torch.zeros_like(g_t))
@@ -318,10 +400,11 @@ def fused_cell_bwd_plain(g, Wx, u_seq, scale, alpha, beta, a, b, V,
             A = A + a * Bw
         dd = oma * A
         if recurrent:
-            AV = torch.matmul(dd, V.t())
-            dd_seq[:, t] = dd
+            dd_in = _rb(dd) if mxu_bf16 else dd
+            AV = torch.matmul(dd_in, V.t())
+            dd_seq[:, t] = dd_in
         if affine:
-            dsc = dsc + dd * Wx[:, t]
+            dsc = dsc + dd * Wx[:, t].to(work)
             dsh = dsh + dd
             dWx[:, t] = dd * scale
         else:
@@ -348,7 +431,8 @@ def fused_cell_bwd_plain(g, Wx, u_seq, scale, alpha, beta, a, b, V,
     if recurrent:
         ds0 = ds0 + AV
         s_prev = torch.cat(
-            [s0[:, None], (u_seq[:, :-1] > threshold).to(g.dtype)], dim=1)
+            [(_rb(s0) if mxu_bf16 else s0)[:, None],
+             (u_seq[:, :-1] > threshold).to(work)], dim=1)
         dV = torch.matmul(s_prev.reshape(-1, H).t(), dd_seq.reshape(-1, H))
     return dWx, dscale, dshift, dV, dalpha, dbeta, da, db, du0, dw0, ds0
 
@@ -359,10 +443,13 @@ def fused_cell_bwd_plain(g, Wx, u_seq, scale, alpha, beta, a, b, V,
 
 
 def _check_cell_operands(Wx, scale, alpha, beta, a, b, V, u0, w0, s0,
-                         recurrent, adaptive, shift=None):
+                         recurrent, adaptive, shift=None, wx_dtype=None):
+    """``wx_dtype``: the type(s) ``Wx`` may have, or None where the caller
+    has checked the stream it passes in ``Wx``'s place already."""
     B, T, H = Wx.shape
     dev = Wx.device
-    _check("Wx", Wx, (B, T, H), dev)
+    if wx_dtype is not None:
+        _check("Wx", Wx, (B, T, H), dev, wx_dtype)
     if H > _MAX_H:
         raise ValueError(f"the fused cell kernel takes H <= {_MAX_H}, got {H}")
     vecs = {"alpha": alpha}
@@ -384,22 +471,29 @@ def _check_cell_operands(Wx, scale, alpha, beta, a, b, V, u0, w0, s0,
 def _fused_cell_cuda(Wx, scale, shift, alpha, beta, a, b, V, threshold,
                      u0, w0, s0, *, recurrent: bool, adaptive: bool,
                      drop_rate: float = 0.0, seed=None,
-                     save_residuals: bool = False):
+                     save_residuals: bool = False, mxu_bf16: bool = False):
     """Launch ``csrc/fused_cell_fwd.cu``: its serving entry point without
-    dropout and residuals, else its training entry point."""
+    dropout and residuals, else its training entry point, in the float32
+    or the bf16 stream mode. Same contract as ``fused_cell_plain``."""
     B, T, H = Wx.shape
     dev = Wx.device
     _check_cell_operands(Wx, scale, alpha, beta, a, b, V, u0, w0, s0,
-                         recurrent, adaptive, shift=shift)
+                         recurrent, adaptive, shift=shift,
+                         wx_dtype=_wx_dtypes(mxu_bf16))
     training_form = save_residuals or drop_rate > 0.0
     if drop_rate > 0.0:
         _check("seed", seed, (2,), dev, torch.int32)
-    out = torch.empty_like(Wx)
-    u_seq = torch.empty_like(Wx) if save_residuals else None
+    out = torch.empty(Wx.shape, dtype=_stream_dtype(mxu_bf16, Wx),
+                      device=dev)
+    u_seq = torch.empty(Wx.shape, dtype=torch.float32, device=dev) \
+        if save_residuals else None
     if out.numel() == 0:
         return (out, u_seq) if save_residuals else out
     if not adaptive:
         beta = a = b = w0 = None
+    if recurrent and mxu_bf16:
+        V = V.to(_BF16)  # rounded once, as the JAX wrapper does
+    mode = (int(mxu_bf16), int(Wx.dtype == _BF16))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         head = (_ptr(Wx), _ptr(scale), _ptr(shift), _ptr(alpha), _ptr(beta),
@@ -409,14 +503,17 @@ def _fused_cell_cuda(Wx, scale, shift, alpha, beta, a, b, V, threshold,
                  int(scale is not None))
         if training_form:
             dropout = drop_rate > 0.0
-            FUSED_CELL_FWD_TRAIN(
+            launch = FUSED_CELL_FWD_TRAIN_BF16 if mxu_bf16 \
+                else FUSED_CELL_FWD_TRAIN
+            launch(
                 *head, _ptr(u_seq), _ptr(seed) if dropout else None, *shape,
                 keep_u32(drop_rate) if dropout else 0,
                 _inv_keep(drop_rate) if dropout else 1.0,
-                dropout_tile_rows(B), stream,
+                dropout_tile_rows(B), *mode, stream,
             )
         else:
-            FUSED_CELL_FWD(*head, *shape, stream)
+            launch = FUSED_CELL_FWD_BF16 if mxu_bf16 else FUSED_CELL_FWD
+            launch(*head, *shape, *mode, stream)
     return (out, u_seq) if save_residuals else out
 
 
@@ -435,30 +532,37 @@ def _bwd_plan(B: int, T: int, H: int):
 
 def _fused_cell_bwd_cuda(g, Wx, u_seq, scale, alpha, beta, a, b, V,
                          threshold, u0, w0, s0, *, recurrent: bool,
-                         adaptive: bool, drop_rate: float = 0.0, seed=None):
-    """Launch ``csrc/fused_cell_bwd.cu``. Same contract as
-    ``fused_cell_bwd_plain``."""
+                         adaptive: bool, drop_rate: float = 0.0, seed=None,
+                         mxu_bf16: bool = False):
+    """Launch ``csrc/fused_cell_bwd.cu`` in the float32 or the bf16 stream
+    mode. Same contract as ``fused_cell_bwd_plain``."""
     B, T, H = g.shape
     dev = g.device
     affine = scale is not None
-    _check("g", g, (B, T, H), dev)
+    sdt = _BF16 if mxu_bf16 else torch.float32
+    _check("g", g, (B, T, H), dev, sdt)
     _check("u_seq", u_seq, (B, T, H), dev)
     _check_cell_operands(Wx if affine else g, scale, alpha, beta, a, b, V,
-                         u0, w0, s0, recurrent, adaptive)
+                         u0, w0, s0, recurrent, adaptive,
+                         wx_dtype=_wx_dtypes(mxu_bf16) if affine else None)
     dropout = drop_rate > 0.0
     if dropout:
         _check("seed", seed, (2,), dev, torch.int32)
     rows, n_blocks, ksplit = _bwd_plan(B, T, H)
-    new = lambda *shape: torch.empty(shape, dtype=g.dtype, device=dev)  # noqa: E731
+    new = lambda *shape: torch.empty(  # noqa: E731
+        shape, dtype=torch.float32, device=dev)
     dWx = torch.empty_like(g)
-    # dDrive before the scale, the right operand of the dV product
+    # dDrive before the scale, the right operand of the dV product (in the
+    # bf16 mode stored as the bf16 the product consumes)
     dd = torch.empty_like(g) if (affine and recurrent) else None
     partials = new(n_blocks, 6, H)
     vecs = new(6, H)
-    # V^T with its rows padded to 16 bytes, so that every tile of rows the
-    # kernel streams is one aligned contiguous piece
+    # V^T with its rows padded to 16 bytes (four floats, eight bf16), so
+    # that every tile of rows the kernel streams is one aligned contiguous
+    # piece
     VT = torch.nn.functional.pad(
-        V.t(), (0, -H % 4)).contiguous() if recurrent else None
+        V.t().to(sdt), (0, -H % (8 if mxu_bf16 else 4))).contiguous() \
+        if recurrent else None
     dV = new(H, H) if recurrent else None
     dv_partials = new(ksplit, H, H) if recurrent else None
     du0, ds0 = new(B, H), new(B, H)
@@ -467,7 +571,8 @@ def _fused_cell_bwd_cuda(g, Wx, u_seq, scale, alpha, beta, a, b, V,
         beta = a = b = w0 = None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        FUSED_CELL_BWD(
+        launch = FUSED_CELL_BWD_BF16 if mxu_bf16 else FUSED_CELL_BWD
+        launch(
             _ptr(g), _ptr(Wx) if affine else None, _ptr(u_seq), _ptr(scale),
             _ptr(alpha), _ptr(beta), _ptr(a), _ptr(b), _ptr(VT), _ptr(u0),
             _ptr(w0), _ptr(s0), _ptr(seed) if dropout else None, _ptr(dWx),
@@ -476,7 +581,8 @@ def _fused_cell_bwd_cuda(g, Wx, u_seq, scale, alpha, beta, a, b, V,
             B, T, H, float(threshold), int(recurrent), int(adaptive),
             int(affine), keep_u32(drop_rate) if dropout else 0,
             _inv_keep(drop_rate) if dropout else 1.0, dropout_tile_rows(B),
-            n_blocks, ksplit, stream,
+            n_blocks, ksplit, int(mxu_bf16),
+            int(affine and Wx.dtype == _BF16), stream,
         )
     dalpha, dbeta, da, db, dscale, dshift = vecs.unbind(0)
     if not adaptive:
@@ -501,17 +607,18 @@ class _FusedCell(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, Wx, scale, shift, alpha, beta, a, b, V, u0, w0, s0,
-                seed, threshold, recurrent, adaptive, drop_rate):
+                seed, threshold, recurrent, adaptive, drop_rate, mxu_bf16):
         fwd = _by_device(Wx, fused_cell_plain, _fused_cell_cuda,
                          "fused cell")
         flags = dict(recurrent=recurrent, adaptive=adaptive,
-                     drop_rate=drop_rate, seed=seed)
+                     drop_rate=drop_rate, seed=seed, mxu_bf16=mxu_bf16)
         args = (Wx, scale, shift, alpha, beta, a, b, V, threshold, u0, w0,
                 s0)
         if not any(ctx.needs_input_grad):
             return fwd(*args, **flags)
         out, u_seq = fwd(*args, save_residuals=True, **flags)
         ctx.flags = dict(flags, threshold=threshold)
+        ctx.wx_dtype = Wx.dtype
         ctx.save_for_backward(Wx if scale is not None else None, u_seq,
                               scale, alpha, beta, a, b, V, u0, w0, s0, seed)
         return out
@@ -531,8 +638,10 @@ class _FusedCell(torch.autograd.Function):
         (dWx, dscale, dshift, dV, dalpha, dbeta, da, db, du0, dw0,
          ds0) = bwd(g.contiguous(), Wx, u_seq, scale, alpha, beta, a, b, V,
                     threshold, u0, w0, s0, **flags)
-        return (dWx, dscale, dshift, dalpha, dbeta, da, db, dV, du0, dw0,
-                ds0, None, None, None, None, None)
+        # each gradient in its operand's type: the bf16 mode's dWx stream
+        # goes back up where Wx arrived float32
+        return (dWx.to(ctx.wx_dtype), dscale, dshift, dalpha, dbeta, da, db,
+                dV, du0, dw0, ds0, None, None, None, None, None, None)
 
 
 def clip_and_mask(alpha, beta=None, a=None, b=None, V=None):
@@ -553,10 +662,14 @@ def clip_and_mask(alpha, beta=None, a=None, b=None, V=None):
 
 def _fused_cell(Wx, scale, shift, alpha, beta, a, b, V, threshold, u0, w0,
                 s0, *, recurrent, adaptive, drop_rate, drop_seed, mxu_bf16):
-    if mxu_bf16:
-        raise NotImplementedError(f"mxu_bf16=True is {_BF16_ITEM}")
     if (scale is None) != (shift is None):
         raise ValueError("pass both scale and shift, or neither")
+    # the state is float32 (float64 with a float64 stream) whatever type it
+    # was drawn in; autograd carries a gradient back through the cast
+    work = _work_dtype(Wx)
+    u0, s0 = u0.to(work), s0.to(work)
+    if w0 is not None:
+        w0 = w0.to(work)
     drop_rate = float(drop_rate)
     if not 0.0 <= drop_rate < 1.0:
         raise ValueError(f"drop_rate must lie in [0, 1), got {drop_rate}")
@@ -564,7 +677,7 @@ def _fused_cell(Wx, scale, shift, alpha, beta, a, b, V, threshold, u0, w0,
     alpha, beta, a, b, V = clip_and_mask(alpha, beta, a, b, V)
     return _FusedCell.apply(Wx, scale, shift, alpha, beta, a, b, V, u0, w0,
                             s0, seed, float(threshold), recurrent, adaptive,
-                            drop_rate)
+                            drop_rate, bool(mxu_bf16))
 
 
 def radlif_fused(Wx, alpha, beta, a, b, V, threshold, u0, w0, s0,

@@ -4,7 +4,9 @@ Every chunk of the input is padded to ``batch_size``, so each forward sees
 one shape; an SNN's summed softmax is normalised by its own mass and an
 ANN's logits go through a softmax; models with ``state_init='uniform'``
 draw their states from a generator re-seeded
-with ``seed`` before every forward, so calls are deterministic.
+with ``seed`` before every forward, so calls are deterministic. The input
+goes in as float32 and the probabilities come back float32 whatever the
+model's ``compute_dtype``.
 """
 from __future__ import annotations
 
@@ -72,6 +74,9 @@ class Predictor:
         if self._generator is not None:
             self._generator.manual_seed(self.seed)
         out, _ = self.model(x, self._generator)
+        if out.dtype == torch.bfloat16:
+            # probabilities are float32 whatever the model computes in
+            out = out.float()
         if getattr(self.model, "is_snn", False):
             # the SNN readout already sums per-step softmax posteriors:
             # normalising by its mass is the class probability

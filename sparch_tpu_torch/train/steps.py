@@ -8,7 +8,10 @@ step reads a value on the host, so steps queue on the card back to back;
 the caller fetches metrics when it wants them.
 
 The logged loss is the cross-entropy *before* the regularizer is added, as
-in the JAX package and the original sparch.
+in the JAX package and the original sparch. Under
+``compute_dtype=bfloat16`` the parameters, their gradients and Adam's
+moments are float32 (the casts are inside the model); a bf16 input batch
+is taken as it is (an integer spike raster is exact in bf16).
 """
 from __future__ import annotations
 
@@ -26,6 +29,12 @@ def _metrics(ce, out, rates, y, is_snn):
         "spike_rate": rates.detach().mean() if is_snn
         else torch.zeros((), device=out.device),
     }
+
+
+def _f32_logits(out):
+    """The loss is taken in float32 at least: an un-normalised ANN readout
+    under ``compute_dtype=bfloat16`` emits bf16 logits."""
+    return out.float() if out.dtype == torch.bfloat16 else out
 
 
 def _check_state(state, model):
@@ -51,7 +60,7 @@ def make_train_step(model, use_regularizers: bool = False,
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
         out, rates = model(x, state.generator)
-        ce = F.cross_entropy(out, y)
+        ce = F.cross_entropy(_f32_logits(out), y)
         loss = ce
         if is_snn and use_regularizers:
             # hinge penalty on per-neuron firing rates
@@ -79,6 +88,7 @@ def make_eval_step(model):
         _check_state(state, model)
         model.eval()
         out, rates = model(x, generator)
-        return _metrics(F.cross_entropy(out, y), out, rates, y, is_snn)
+        ce = F.cross_entropy(_f32_logits(out), y)
+        return _metrics(ce, out, rates, y, is_snn)
 
     return eval_step

@@ -223,10 +223,15 @@ def test_ann_options():
         build_model("MLP", (2, 3, 4), [8, 3], bidirectional=True)
     with pytest.raises(ValueError, match="nb_layers"):
         build_model("RNN", (2, 3, 4), [3])
-    with pytest.raises(NotImplementedError, match="remat"):
-        build_model("GRU", (2, 3, 4), [8, 3], remat=True)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        build_model("GRU", (2, 3, 4), [8, 3], compute_dtype=torch.bfloat16)
+    # remat and compute_dtype=bfloat16 are ported: the model builds, keeps
+    # its parameters float32 and runs
+    model = build_model("GRU", (2, 3, 4), [8, 3], remat=True,
+                        compute_dtype=torch.bfloat16)
+    assert model.remat and model.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert model(torch.zeros(2, 3, 4))[0].dtype == torch.float32
+    with pytest.raises(ValueError, match="compute_dtype"):
+        build_model("GRU", (2, 3, 4), [8, 3], compute_dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="tensor-parallel"):
         build_model("GRU", (2, 3, 4), [8, 3], cell_impl="pallas_tp")
     with pytest.raises(NotImplementedError, match="rank"):

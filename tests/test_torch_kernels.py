@@ -14,7 +14,9 @@ largest magnitude, and two launches give the same bits. The ANN kernels
 version's matmul and take exp and tanh from the card's library, so nothing
 there is bit-equal: outputs and residuals agree to atol 2e-5, gradients to
 1e-4 of their largest magnitude. This file imports no JAX, so it runs where
-the JAX package is not installed:
+the JAX package is not installed. The bf16-stream forms (``mxu_bf16=True``)
+are held at the end of the file: the spiking forward bit for bit, the rest
+within bounds stated there.
 
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -q
 """
@@ -88,8 +90,13 @@ def test_unported_modes_raise():
     d = make_inputs(3, 11, 24)
     args = [torch.from_numpy(d[a]) if isinstance(a, str) else a
             for a in _ARGS["radlif"]]
-    with pytest.raises(NotImplementedError, match="bf16"):
-        fused_cells.radlif_fused(*args, mxu_bf16=True)
+    # the bf16-stream mode is ported: it runs on CPU tensors, with a
+    # float32 and with a bf16 drive, and gives bf16 spikes
+    assert fused_cells.radlif_fused(*args, mxu_bf16=True).dtype == \
+        torch.bfloat16
+    half = [args[0].bfloat16()] + args[1:]
+    assert fused_cells.radlif_fused(*half, mxu_bf16=True).dtype == \
+        torch.bfloat16
     with pytest.raises(ValueError, match="two int32"):
         fused_cells.radlif_fused(*args, drop_rate=0.1, drop_seed=3)
     with pytest.raises(ValueError, match="both scale and shift"):
@@ -123,10 +130,11 @@ def test_kernel_wrappers_raise_past_their_width():
         fused_cells._readout_cuda(torch.zeros(1, 1, C), torch.zeros(C),
                                   torch.zeros(1, C))
     assert not any(fused_cells.launch_counts().values())
-    assert set(fused_cells.launch_counts()) == {
-        "fused_cell_fwd", "fused_cell_fwd_train", "fused_cell_bwd",
-        "readout_fwd", "readout_bwd"} | {
-        f"fused_ann_{d}_{m}" for d in ("fwd", "bwd") for m in ANN_MODES}
+    cell = {"fused_cell_fwd", "fused_cell_fwd_train", "fused_cell_bwd"}
+    ann = {f"fused_ann_{d}_{m}" for d in ("fwd", "bwd") for m in ANN_MODES}
+    assert set(fused_cells.launch_counts()) == (
+        cell | ann | {"readout_fwd", "readout_bwd"}
+        | {f"{k}_bf16" for k in cell | ann})
 
 
 @pytest.mark.cuda
@@ -285,10 +293,10 @@ def test_autograd_reaches_the_kernels_on_card(cuda):
                                    t["u0"][:, :5].contiguous())
     ro.sum().backward()
     torch.cuda.synchronize()
-    assert fused_cells.launch_counts() == {
-        "fused_cell_fwd": 0, "fused_cell_fwd_train": 1, "fused_cell_bwd": 1,
-        "readout_fwd": 1, "readout_bwd": 1,
-        **{k.name: 0 for k in fused_ann.KERNELS}}
+    want = {k: 0 for k in fused_cells.launch_counts()}
+    want.update(fused_cell_fwd_train=1, fused_cell_bwd=1, readout_fwd=1,
+                readout_bwd=1)
+    assert fused_cells.launch_counts() == want
     for k in ("Wx", "scale", "shift", "alpha", "beta", "a", "b", "V", "u0",
               "w0", "s0"):
         assert torch.isfinite(t[k].grad).all(), k
@@ -352,9 +360,9 @@ def test_ann_cpu_tensors_take_the_plain_version(mode):
 
 def test_ann_wrappers_raise_on_what_they_do_not_take():
     d = make_ann_inputs("gru", 2, 3, 8)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        ann_call(fused_ann, "fused", "gru", d, torch.from_numpy,
-                 mxu_bf16=True)
+    # the bf16-stream mode is ported and runs on CPU tensors
+    assert ann_call(fused_ann, "fused", "gru", d, torch.from_numpy,
+                    mxu_bf16=True).dtype == torch.bfloat16
     with pytest.raises(ValueError, match="both scales and shifts"):
         ann_call(fused_ann, "fused", "gru", d, torch.from_numpy,
                  scales=[torch.ones(8)] * 3)
@@ -480,3 +488,318 @@ def test_ann_autograd_reaches_the_kernels_on_card(cuda, mode):
         ann_call(fused_ann, "fused", mode, d, to, True)
     want[f"fused_ann_fwd_{mode}"] += 1
     assert fused_cells.launch_counts() == want
+
+
+# ---------------------------------------------------------------------------
+# The bf16-stream forms on the card
+# ---------------------------------------------------------------------------
+#
+# Bounds. The spiking forward is exact: V lies on the 2^-8 grid, so every
+# s @ V is exact in float32 in any order and the kernel equals its plain
+# version bit for bit (the first product, where s0 need not be 0/1, sums in
+# the same order on both sides). Everywhere else a float32 sum taken in
+# another order can tip a later rounding to bf16, so two right
+# implementations may land on neighbouring bf16 values: an output stream is
+# held to one bf16 ulp of a value in [1, 2), 2^-7, relative to max(1, |v|)
+# (forward) or to the gradient's largest magnitude (backward). A gradient
+# reduced in float32 is held to the same 2^-7 of its largest magnitude: at
+# these shapes it sums as few as B*T = 10 terms, so one operand that tipped
+# to its neighbour shows in full (at B*T = 12800 the tipped terms average
+# out, and the full-size check on the card holds such a gradient to 1e-3).
+# A value past its bound is held by the witness rule instead: with the plain
+# version in float64 (same rounding points) as the truth, the kernel may be
+# no further from it than 4 times the float32 plain version is.
+
+BF16_ULP = 2.0 ** -7
+WITNESS_FACTOR = 4.0
+BF16_SHAPES = [(5, 13, 40), (16, 20, 512), (4, 7, 1001), (2, 5, 2100)]
+
+
+def _held(name, got, want, truth, bound, scale):
+    """``got`` within ``bound*scale`` of ``want`` elementwise, or else no
+    further from ``truth()`` than WITNESS_FACTOR times ``want`` is."""
+    got, want = got.double(), want.double()
+    if bool(((got - want).abs() <= bound * scale).all()):
+        return
+    t = truth().double()
+    far, base = (got - t).abs().max(), (want - t).abs().max()
+    assert far <= WITNESS_FACTOR * base, (name, float(far), float(base))
+
+
+def _bf16_cell_inputs(shape, dev, uniform_s0=False, seed=2):
+    d = make_inputs(*shape, seed=seed)
+    # |k| <= 255 on the 2^-8 grid: bf16 holds V exactly
+    d["V"] = np.clip(d["V"], -255 / 256, 255 / 256)
+    if uniform_s0:
+        d["s0"] = np.random.default_rng(6).uniform(
+            0, 1, d["s0"].shape).astype(np.float32)
+    return _clamped(d, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("wx_bf16", [False, True])
+@pytest.mark.parametrize("name", FORMS)
+def test_bf16_forward_kernel_matches_plain_on_card(cuda, name, wx_bf16,
+                                                   affine, shape):
+    """Serving and training form of the bf16-stream forward, with a uniform
+    s0: bf16 spikes and the float32 membrane series equal the plain
+    version's bit for bit and a kept value is bf16(1/(1-p)); LIF and adLIF
+    have no product, so with a float32 drive their membrane series and
+    dropped positions are the float32 kernel's."""
+    t = _bf16_cell_inputs(shape, cuda, uniform_s0=True)
+    if wx_bf16:
+        t["Wx"] = t["Wx"].bfloat16()
+    args, kw = _cell_args(t, name, affine)
+    seed = torch.tensor([42, 7], dtype=torch.int32, device=cuda)
+    train = dict(drop_rate=0.25, seed=seed, save_residuals=True)
+    c_serve = fused_cells.FUSED_CELL_FWD_BF16
+    c_train = fused_cells.FUSED_CELL_FWD_TRAIN_BF16
+    before = (c_serve.launches, c_train.launches)
+    served = fused_cells._fused_cell_cuda(*args, **kw, mxu_bf16=True)
+    out, u_seq = fused_cells._fused_cell_cuda(*args, **kw, **train,
+                                              mxu_bf16=True)
+    torch.cuda.synchronize()
+    assert (c_serve.launches, c_train.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    assert served.dtype == out.dtype == torch.bfloat16
+    assert u_seq.dtype == torch.float32
+    want_served = fused_cells.fused_cell_plain(*args, **kw, mxu_bf16=True)
+    want, want_u = fused_cells.fused_cell_plain(*args, **kw, **train,
+                                                mxu_bf16=True)
+    assert torch.equal(served, want_served)
+    assert torch.equal(out, want)
+    assert torch.equal(u_seq, want_u)
+    kept = torch.tensor(1.0 / 0.75, dtype=torch.float32).bfloat16()
+    assert bool(((out == 0) | (out == kept.to(cuda))).all())
+    if not (wx_bf16 or kw["recurrent"]):
+        # no product: the mode changes the streams only
+        f32_out, f32_u = fused_cells._fused_cell_cuda(*args, **kw, **train)
+        assert torch.equal(out == 0, f32_out == 0)
+        assert torch.equal(u_seq, f32_u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rlif", "radlif"])
+def test_bf16_forward_equals_float32_kernel_on_card(cuda, name):
+    """With a 0/1 s0, a bf16-exact V and a float32 drive nothing is rounded
+    on the way to a spike: the bf16 form's spikes, membrane series and
+    dropped positions are the float32 form's."""
+    t = _bf16_cell_inputs((16, 20, 512), cuda)
+    args, kw = _cell_args(t, name, True)
+    got = fused_cells._fused_cell_cuda(*args, **kw, mxu_bf16=True)
+    want = fused_cells._fused_cell_cuda(*args, **kw)
+    assert torch.equal(got.float(), want)
+    seed = torch.tensor([42, 7], dtype=torch.int32, device=cuda)
+    train = dict(drop_rate=0.25, seed=seed, save_residuals=True)
+    out, u_seq = fused_cells._fused_cell_cuda(*args, **kw, **train,
+                                              mxu_bf16=True)
+    f32_out, f32_u = fused_cells._fused_cell_cuda(*args, **kw, **train)
+    assert torch.equal(out == 0, f32_out == 0)
+    assert torch.equal(u_seq, f32_u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+@pytest.mark.parametrize("affine,drop_rate,wx_bf16",
+                         [(True, 0.25, True), (True, 0.0, False),
+                          (False, 0.0, False)])
+@pytest.mark.parametrize("name", FORMS)
+def test_bf16_backward_kernel_matches_plain_on_card(cuda, name, affine,
+                                                    drop_rate, wx_bf16,
+                                                    shape):
+    """Every gradient of the bf16-stream backward against its plain version
+    on the same residuals, by the bounds above; the types; two launches
+    give the same bits."""
+    t = _bf16_cell_inputs(shape, cuda, uniform_s0=True, seed=5)
+    if wx_bf16:
+        t["Wx"] = t["Wx"].bfloat16()
+    args, kw = _cell_args(t, name, affine)
+    seed = torch.tensor([42, 7], dtype=torch.int32, device=cuda)
+    kw.update(drop_rate=drop_rate, seed=seed, mxu_bf16=True)
+    _, u_seq = fused_cells.fused_cell_plain(*args, save_residuals=True, **kw)
+    g = torch.from_numpy(np.random.default_rng(7).normal(
+        0, 1, shape).astype(np.float32)).to(cuda).bfloat16()
+    Wx, scale, _, alpha, beta, a, b, V, thr, u0, w0, s0 = args
+    bargs = (g, Wx, u_seq, scale, alpha, beta, a, b, V, thr, u0, w0, s0)
+    counter = fused_cells.FUSED_CELL_BWD_BF16
+    before = counter.launches
+    got = fused_cells._fused_cell_bwd_cuda(*bargs, **kw)
+    again = fused_cells._fused_cell_bwd_cuda(*bargs, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    want = fused_cells.fused_cell_bwd_plain(*bargs, **kw)
+    truth = []
+
+    def witness(i):
+        if not truth:
+            truth.extend(fused_cells.fused_cell_bwd_plain(
+                *[x.double() if isinstance(x, torch.Tensor) else x
+                  for x in bargs], **kw))
+        return truth[i]
+
+    names = ("dWx", "dscale", "dshift", "dV", "dalpha", "dbeta", "da", "db",
+             "du0", "dw0", "ds0")
+    for i, (n, x, y, z) in enumerate(zip(names, got, want, again)):
+        assert (x is None) == (y is None), n
+        if x is None:
+            continue
+        assert x.dtype == (torch.bfloat16 if n == "dWx" else torch.float32)
+        assert torch.equal(x, z), f"{n} differs between two launches"
+        _held(n, x, y, lambda i=i: witness(i), BF16_ULP,
+              y.double().abs().max())
+
+
+def _bf16_ann_operands(mode, shape, dev, affine, wx_bf16, seed):
+    wxs, scales, shifts, vs, y0 = _ann_operands(
+        make_ann_inputs(mode, *shape, seed=seed), dev, affine)
+    if wx_bf16:
+        wxs = [w.bfloat16() for w in wxs]
+    return wxs, scales, shifts, vs, y0
+
+
+def _double(x):
+    if isinstance(x, torch.Tensor):
+        return x.double()
+    if isinstance(x, (list, tuple)):
+        return [_double(v) for v in x]
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ANN_SHAPES)
+@pytest.mark.parametrize("affine,drop_rate,wx_bf16",
+                         [(True, 0.25, True), (True, 0.0, False),
+                          (False, 0.0, True)])
+@pytest.mark.parametrize("mode", ANN_MODES)
+def test_bf16_ann_forward_kernel_matches_plain_on_card(cuda, mode, affine,
+                                                       drop_rate, wx_bf16,
+                                                       shape):
+    """The bf16 output and residual series within one bf16 ulp of the plain
+    version's (or by the witness rule); the dropped positions are the same;
+    the serving form gives the training form's output."""
+    ops = _bf16_ann_operands(mode, shape, cuda, affine, wx_bf16, 2)
+    seed = torch.tensor([42, 7], dtype=torch.int32, device=cuda)
+    kw = dict(drop_rate=drop_rate, seed=seed, mxu_bf16=True)
+    counter = fused_ann.FUSED_ANN_FWD_BF16[mode]
+    before = counter.launches
+    out, y_raw, gates = fused_ann._ann_cell_cuda(mode, *ops,
+                                                 save_residuals=True, **kw)
+    served = fused_ann._ann_cell_cuda(mode, *ops, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    want, want_raw, want_gates = fused_ann.ann_cell_plain(
+        mode, *ops, save_residuals=True, **kw)
+    assert torch.equal(served, out)
+    assert (y_raw is None) == (want_raw is None) == (drop_rate == 0.0)
+    if drop_rate:
+        assert torch.equal(out == 0, want == 0)
+    truth = []
+
+    def witness(i):
+        if not truth:
+            t_out, t_raw, t_gates = fused_ann.ann_cell_plain(
+                mode, *_double(list(ops)), save_residuals=True, **kw)
+            truth.extend([t_out, t_raw, *t_gates])
+        return truth[i]
+
+    series = [out, y_raw, *gates]
+    wants = [want, want_raw, *want_gates]
+    for i, (x, y) in enumerate(zip(series, wants)):
+        if x is None:
+            continue
+        assert x.dtype == torch.bfloat16
+        _held(f"{mode} series {i}", x, y, lambda i=i: witness(i), BF16_ULP,
+              y.double().abs().clamp_min(1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ANN_SHAPES)
+@pytest.mark.parametrize("affine,drop_rate,wx_bf16",
+                         [(True, 0.25, True), (False, 0.0, False)])
+@pytest.mark.parametrize("mode", ANN_MODES)
+def test_bf16_ann_backward_kernel_matches_plain_on_card(cuda, mode, affine,
+                                                        drop_rate, wx_bf16,
+                                                        shape):
+    """Every gradient of the bf16-stream backward against its plain version
+    on the same residuals, by the bounds above; the types; two launches
+    give the same bits."""
+    wxs, scales, shifts, vs, y0 = _bf16_ann_operands(
+        mode, shape, cuda, affine, wx_bf16, 5)
+    seed = torch.tensor([42, 7], dtype=torch.int32, device=cuda)
+    kw = dict(drop_rate=drop_rate, seed=seed, mxu_bf16=True)
+    out, y_raw, gates = fused_ann.ann_cell_plain(
+        mode, wxs, scales, shifts, vs, y0, save_residuals=True, **kw)
+    y_seq = out if y_raw is None else y_raw
+    g = torch.from_numpy(np.random.default_rng(7).normal(
+        0, 1, shape).astype(np.float32)).to(cuda).bfloat16()
+    bargs = (mode, g, wxs if affine else None, y_seq, gates, scales, vs, y0)
+    counter = fused_ann.FUSED_ANN_BWD_BF16[mode]
+    before = counter.launches
+    got = fused_ann._ann_cell_bwd_cuda(*bargs, **kw)
+    again = fused_ann._ann_cell_bwd_cuda(*bargs, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    want = fused_ann.ann_cell_bwd_plain(*bargs, **kw)
+    truth = []
+
+    def witness(k, i):
+        if not truth:
+            truth.extend(fused_ann.ann_cell_bwd_plain(
+                *_double(list(bargs)), **kw))
+        return truth[k] if i is None else truth[k][i]
+
+    for k, (n, x, y, z) in enumerate(zip(
+            ("dwxs", "dscales", "dshifts", "dvs", "dy0"), got, want, again)):
+        assert (x is None) == (y is None) == (n[:2] == "ds" and not affine)
+        if x is None:
+            continue
+        items = [(None, x, y, z)] if n == "dy0" else \
+            [(i, *v) for i, v in enumerate(zip(x, y, z))]
+        for i, xi, yi, zi in items:
+            assert xi.dtype == (torch.bfloat16 if n == "dwxs"
+                                else torch.float32)
+            assert torch.equal(xi, zi), f"{n}[{i}] differs between launches"
+            _held(f"{mode} {n}[{i}]", xi, yi, lambda k=k, i=i: witness(k, i),
+                  BF16_ULP, yi.double().abs().max())
+
+
+@pytest.mark.cuda
+def test_bf16_autograd_reaches_the_bf16_kernels_on_card(cuda):
+    """A bf16-stream call on CUDA tensors goes through the bf16 kernels and
+    no other, and each gradient comes back in its operand's type."""
+    d = make_inputs(8, 13, 40, seed=9)
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in d.items()}
+    t["Wx"] = t["Wx"].bfloat16()
+    t = {k: v.requires_grad_(True) for k, v in t.items()}
+    fused_cells.reset_launch_counts()
+    out = call(fused_cells, "fused", "radlif", t, lambda x: x, True,
+               drop_rate=0.1, drop_seed=[1, 2], mxu_bf16=True)
+    out.float().sum().backward()
+    n = fused_ann.MODES["gru"]
+    a = make_ann_inputs("gru", 8, 13, 40, seed=9)
+    leaves = []
+
+    def to(x):
+        leaves.append(torch.from_numpy(x).to(cuda).requires_grad_(True))
+        return leaves[-1]
+
+    y = ann_call(fused_ann, "fused", "gru", a, to, True, drop_rate=0.1,
+                 drop_seed=[1, 2], mxu_bf16=True)
+    y.float().sum().backward()
+    torch.cuda.synchronize()
+    want = {k: 0 for k in fused_cells.launch_counts()}
+    want.update(fused_cell_fwd_train_bf16=1, fused_cell_bwd_bf16=1,
+                fused_ann_fwd_gru_bf16=1, fused_ann_bwd_gru_bf16=1)
+    assert fused_cells.launch_counts() == want
+    assert out.dtype == y.dtype == torch.bfloat16
+    assert t["Wx"].grad.dtype == torch.bfloat16
+    for k in ("scale", "shift", "alpha", "beta", "a", "b", "V", "u0", "w0",
+              "s0"):
+        assert t[k].grad.dtype == torch.float32, k
+        assert torch.isfinite(t[k].grad).all(), k
+    assert len(leaves) == 4 * n + 1
+    for leaf in leaves:  # float32 streams get float32 gradients
+        assert leaf.grad.dtype == torch.float32
+        assert torch.isfinite(leaf.grad).all()

@@ -16,6 +16,7 @@ import torch
 from sparch_tpu.models import build_model as jax_build_model
 from sparch_tpu_torch.convert import variables_from_flax
 from sparch_tpu_torch.models import (
+    MODEL_TYPES,
     SNN,
     build_model,
     build_model_from_config,
@@ -194,11 +195,20 @@ def test_fused_policy():
 def test_unported_options_raise():
     # the non-spiking family is ported: the registry builds it
     assert not build_model("GRU", (2, 3, 4), [8, 3]).is_snn
-    with pytest.raises(NotImplementedError, match="remat"):
-        build_model("RadLIF", (2, 3, 4), [8, 3], remat=True)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        build_model("RadLIF", (2, 3, 4), [8, 3],
-                    compute_dtype=torch.bfloat16)
+    # remat and compute_dtype=bfloat16 are ported: every model type builds
+    # with both and runs a train-mode forward and a backward
+    for model_type in MODEL_TYPES:
+        model = build_model(model_type, (2, 3, 4), [8, 8, 3], remat=True,
+                            compute_dtype=torch.bfloat16, cell_impl="pallas",
+                            dropout=0.5).train()
+        out, _ = model(torch.ones(2, 3, 4), torch.Generator().manual_seed(0))
+        out.float().sum().backward()
+        assert all(p.grad is not None and p.grad.dtype == torch.float32
+                   for p in model.parameters()), model_type
+    with pytest.raises(ValueError, match="compute_dtype"):
+        build_model("RadLIF", (2, 3, 4), [8, 3], compute_dtype=torch.float16)
+    with pytest.raises(ValueError, match="mxu_precision"):
+        build_model("GRU", (2, 3, 4), [8, 3], mxu_precision="low")
     with pytest.raises(NotImplementedError, match="tensor-parallel"):
         build_model("RadLIF", (2, 3, 4), [8, 3], cell_impl="pallas_tp")
     # the fused dropout is ported: a train-mode forward runs and drops
