@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the serving and the training paths (the spiking
-family's and the non-spiking family's) from
+family's, the non-spiking family's and the tensor-parallel ones) from
 ``sparch_tpu_torch/csrc`` into ``build/kernels/`` (one ``nvcc`` per source,
 all at once), then prints one JSON line per phase:
 
@@ -109,16 +109,43 @@ all at once), then prints one JSON line per phase:
    LiGRU and RNN for three steps; and ``training_remat``: three steps of the
    RadLIF bf16 ``auto`` trainer with ``remat=True`` against the same without
    it, losses and step-1 gradients bit-equal, peak memory of both.
-16. ``kernels``: each kernel with its launches on its main path (spiking
+16. The tensor-parallel path (``cell_impl="pallas_tp"``) in its one-card
+   form: all P ranks of a mesh that repeats the card P times run in one
+   cooperative launch, exchanging through buffers in the card's memory.
+   ``tp_collectives``: the all-gather and reduce-scatter harnesses at
+   B=128, Hl=256, 3 rounds, P = 1, 2, 4, bit for bit against their plain
+   versions, twice.
+17. ``kernel_vs_plain`` for ``tp_cell_fwd``: RLIF and RadLIF at P = 1, 2, 4
+   on the main path's shape (B_eff=256, T=100, H=1024) and a small one
+   (8, 13, P*128), V on the 2^-8 grid: spikes and membrane series bit for
+   bit against ``tp_cell_plain``, against P = 1 and against the
+   single-card fused cell without the affine.
+18. ``kernel_vs_plain`` for ``tp_cell_bwd``: the same shapes with a
+   uniform s0; every gradient against ``tp_cell_bwd_plain`` by the rule of
+   phase 6, two launches bit-equal, the gradients that sum over no rows
+   bit-equal to P = 1's.
+19. ``training_tp``: a RadLIF [1024, 1024, 35] bidirectional trainer
+   (batchnorm, dropout 0.1, uniform state init, Adam at lr 1e-2) on one
+   batch of 128 SC-shaped utterances (F=40 normal features), ``scan`` and
+   ``pallas_tp`` at P = 1, 2, 4, checked and timed as phase 8 (two TP
+   forward and two TP backward launches per step, no other kernel), P = 2
+   and 4 against P = 1; then one ``make_eval_step`` pass per variant over
+   the trained weights (V back on the 2^-8 grid, zero state init): the
+   probabilities bit for bit against the plain versions' and P = 1's, and
+   against scan by the witness rule of phase 4. No multi-card run is made.
+20. ``kernels``: each kernel with its launches on its main path (spiking
    serving: the "calibrated" model's ``pallas`` run; spiking training: the
    ``pallas`` trainer's 10 steps; non-spiking: the ``auto`` Predictor's and
    the ``auto`` trainer's runs of its model; the bf16 forms: the bf16
-   ``auto`` runs), its error, its time beside
+   ``auto`` runs; the TP collectives: phase 16's calls; the TP cells: the
+   P = 4 trainer's 10 steps), its error, its time beside
    its plain version's, and its bound: the larger of its bytes over the
    card's memory rate and its operations over the card's float32 rate, from
    this run's shapes and firing rates. No library call computes any of
    these functions (cuDNN's GRU applies the reset gate after the recurrent
-   product, this one before it), so ``library_ms`` is null.
+   product, this one before it; no PyTorch call exchanges inside a
+   recurrence, and a library all-gather is no port of these harnesses),
+   so ``library_ms`` is null.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 if any phase fails, the script exits non-zero and prints no result.
@@ -908,15 +935,16 @@ def training_state(dev):
 
 
 def train_run(dev, impl, state_dict, x, y, steps, seed=0,
-              model_type="RadLIF", **model_kw):
+              model_type="RadLIF", sizes=(H, H, C), **model_kw):
     """``steps`` training steps of a new trainer, in the type of ``x``
-    (``model_kw``: ``compute_dtype``, ``remat``); returns (model, state,
-    losses, first-step gradients, launch counts of the run)."""
+    (``model_kw``: ``compute_dtype``, ``remat``, ``bidirectional``,
+    ``tp_mesh``); returns (model, state, losses, first-step gradients,
+    launch counts of the run)."""
     from sparch_tpu_torch.models import build_model
     from sparch_tpu_torch.ops import fused_cells
     from sparch_tpu_torch.train import create_train_state, make_train_step
 
-    model = build_model(model_type, tuple(x.shape), [H, H, C],
+    model = build_model(model_type, tuple(x.shape), list(sizes),
                         dropout=P_DROP, normalization="batchnorm",
                         state_init="uniform", cell_impl=impl, **model_kw)
     model.load_state_dict(state_dict)
@@ -961,7 +989,8 @@ def step_split_ms(model, state, x, y, n=10):
 
 def train_variant(dev, impl, state_dict, x, y, per_step, scan_row,
                   model_type="RadLIF", steps=TRAIN_STEPS, timed=True,
-                  grad_rel_max=GRAD_REL_MAX, **model_kw):
+                  grad_rel_max=GRAD_REL_MAX, sizes=(H, H, C), keep=None,
+                  **model_kw):
     """One ``cell_impl`` of a training phase: ``steps`` steps of a new
     trainer with the launch counters set to 0 just before and read just
     after; every kernel of the variant launched ``per_step`` times per step
@@ -972,13 +1001,15 @@ def train_variant(dev, impl, state_dict, x, y, per_step, scan_row,
     relative, every gradient within ``grad_rel_max`` of its largest
     magnitude or else by the float64 witness rule of the backward
     phases), and (loosely, where ``scan_row`` is given) against scan's.
-    ``model_kw`` (``compute_dtype``) goes to every trainer of the variant.
-    Returns (row, launch counts)."""
+    ``model_kw`` (``compute_dtype``, ``bidirectional``, ``tp_mesh``) goes
+    to every trainer of the variant. ``keep`` (a dict) receives the
+    step-1 gradients and the state dict after the steps. Returns (row,
+    launch counts)."""
     from sparch_tpu_torch.train import make_train_step
     from sparch_tpu_torch.utils.timing import cuda_time_ms
 
     what = f"{model_type} {impl}" + (f" {model_kw}" if model_kw else "")
-    run = dict(model_type=model_type, **model_kw)
+    run = dict(model_type=model_type, sizes=sizes, **model_kw)
     model, state, losses, grads, counts = train_run(
         dev, impl, state_dict, x, y, steps, **run)
     want = {k: steps * per_step.get(k, 0) for k in counts}
@@ -995,6 +1026,9 @@ def train_variant(dev, impl, state_dict, x, y, per_step, scan_row,
           f"{what}: loss did not fall in {steps} steps: {losses}")
     row = dict(launches={k: n for k, n in counts.items() if n},
                losses=losses)
+    if keep is not None:
+        keep.update(grads=grads, state_dict={
+            k: v.detach().clone() for k, v in model.state_dict().items()})
     # one seed, bit-equal parameters
     a = train_run(dev, impl, state_dict, x, y, 3, **run)[0].state_dict()
     b = train_run(dev, impl, state_dict, x, y, 3, **run)[0].state_dict()
@@ -1054,9 +1088,10 @@ def train_variant(dev, impl, state_dict, x, y, per_step, scan_row,
     with torch.no_grad():
         model.eval()
         _, rates = model(x, state.generator)
-    if rates is not None:
-        row["firing_rate_layer0"] = float(rates[:H].mean())
-        row["firing_rate_layer1"] = float(rates[H:].mean())
+    if rates is not None:  # two hidden layers of one width
+        half = rates.shape[0] // 2
+        row["firing_rate_layer0"] = float(rates[:half].mean())
+        row["firing_rate_layer1"] = float(rates[half:].mean())
     return row, counts
 
 
@@ -1843,6 +1878,428 @@ def bf16_kernel_rows(cell_fwd, cell_bwd, ann_fwd, ann_bwd, served, trained):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The tensor-parallel spiking path: cell_impl='pallas_tp', one-card form
+# ---------------------------------------------------------------------------
+
+TP_PS = (1, 2, 4)  # ranks of the TP axis, all on the one card
+TP_H, TP_F = 1024, 40  # RadLIF [1024, 1024, 35] bidirectional, SC-shaped
+TP_SIZES = (TP_H, TP_H, C)
+TP_HL, TP_ROUNDS = 256, 3  # the collectives' block per rank and rounds
+TP_GRAD_NAMES = ("dWx", "dV", "dalpha", "dbeta", "da", "db", "du0", "dw0",
+                 "ds0")
+TP_UNREDUCED = ("dWx", "dV", "du0", "dw0", "ds0")  # no sum over rows
+
+
+def tp_mesh(dev, P):
+    from sparch_tpu_torch.parallel import make_mesh
+
+    return make_mesh([dev] * P, model=P)
+
+
+def phase_tp_collectives(dev):
+    """Both exchange harnesses at B=128, Hl=256, 3 rounds, P = 1, 2, 4.
+    Their path: one call of each entry point per P, with the counters set
+    to 0 just before and read just after. Each result bit for bit against
+    its plain version, and a second launch alike. Returns (launches, rows
+    by P)."""
+    from sparch_tpu_torch.ops import fused_cells, fused_tp
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    inputs = {P: (torch.randn((B, P * TP_HL), generator=g, device=dev),
+                  torch.randn((P, B, P * TP_HL), generator=g, device=dev))
+              for P in TP_PS}
+    names = ("tp_all_gather", "tp_reduce_scatter")
+    fused_cells.reset_launch_counts()
+    got = {P: (fused_tp.tp_all_gather(x, num_devices=P, rounds=TP_ROUNDS),
+               fused_tp.tp_reduce_scatter(parts, num_devices=P,
+                                          rounds=TP_ROUNDS))
+           for P, (x, parts) in inputs.items()}
+    torch.cuda.synchronize()
+    counts = fused_cells.launch_counts()
+    want = {k: len(TP_PS) if k in names else 0 for k in counts}
+    check(counts == want, f"tp_collectives: kernel launches {counts}")
+    kernels = (fused_tp._tp_all_gather_cuda, fused_tp._tp_reduce_scatter_cuda)
+    plains = (fused_tp.tp_all_gather_plain, fused_tp.tp_reduce_scatter_plain)
+    rows = {}
+    for P, args in inputs.items():
+        kw = dict(num_devices=P, rounds=TP_ROUNDS)
+        rows[P] = {}
+        for name, arg, out, kernel, plain in zip(names, args, got[P],
+                                                 kernels, plains):
+            want_out = plain(arg, **kw)
+            again = kernel(arg, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(out, want_out),
+                  f"{name} P={P}: differs from its plain version")
+            check(torch.equal(again, out),
+                  f"{name} P={P}: two launches differ")
+            rows[P][name] = dict(
+                max_abs_err=float((out - want_out).abs().max()),
+                plan=fused_tp.last_plans()[name],
+                ms=cuda_time_ms(lambda: kernel(arg, **kw)),
+                plain_ms=cuda_time_ms(lambda: plain(arg, **kw),
+                                      **PLAIN_ROUNDS))
+    emit("tp_collectives", batch_size=B, block_per_rank=TP_HL,
+         rounds=TP_ROUNDS, one_card_form=True, bit_equal_to_plain=True,
+         two_launches_bit_equal=True,
+         launches={k: n for k, n in counts.items() if n},
+         **{f"P{P}": r for P, r in rows.items()})
+    return counts, rows
+
+
+def tp_cell_inputs(shape, seed, dev, uniform_s0=False):
+    """``cell_inputs`` (V on the 2^-8 grid, zero-diagonal) with the affine
+    applied to the drive, as a TP layer applies its norm before the cell.
+    ``uniform_s0``: s0 drawn from U[0, 1), as the uniform state init draws
+    it, in place of 0/1 spikes."""
+    d = cell_inputs(shape, dyadic=True, seed=seed, dev=dev)
+    d["Wx"] = d["Wx"] * d["scale"] + d["shift"]
+    if uniform_s0:
+        d["s0"] = torch.rand(
+            d["s0"].shape, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(seed + 4))
+    return d
+
+
+def _tp_args(name, d):
+    ada = FORMS[name][1]
+    return ((d["Wx"], d["alpha"], d["beta"] if ada else None,
+             d["a"] if ada else None, d["b"] if ada else None, d["V"], 1.0,
+             d["u0"], d["w0"] if ada else None, d["s0"]), ada)
+
+
+def tp_shapes(P):
+    """The main path's shape (B_eff = 2 * 128 bidirectional rows, T=100,
+    H=1024) and a small one."""
+    return ((2 * B, T, TP_H), (8, 13, P * 128))
+
+
+def tp_cell_bounds(rate, b, t, h):
+    """Bounds of the TP cell kernels over all ranks at (b, t, h): the
+    training forward reads Wx and writes the spikes and the membrane series,
+    reads V and the states; its s_full @ V[:, shard] adds one row of V's
+    columns per spike. The backward reads g and the u series and writes
+    dWx, reads V, writes dV, reads three states and writes three; it has
+    two dense products of 2*b*t*h*h (the per-step adjoint and dV)."""
+    stream, mat, state = 4.0 * b * t * h, 4.0 * h * h, 4.0 * b * h
+    return dict(
+        fwd=bound(3 * stream + mat + 3 * state,
+                  16.0 * b * t * h + rate * b * t * h * h),
+        bwd=bound(3 * stream + 2 * mat + 6 * state,
+                  40.0 * b * t * h + 4.0 * b * t * h * h),
+    )
+
+
+def phase_tp_cell_forward(dev):
+    """``tp_cell_fwd`` (RLIF, RadLIF) at P = 1, 2, 4 on the main path's
+    shape and a small one: the spikes and the membrane series bit for bit
+    against ``tp_cell_plain``, against the kernel at P = 1 (the split
+    changes no sum) and against the single-card fused cell without the
+    affine; the serving form (no residuals) alike. Times of the training
+    form (the one the trainer launches) at the main shape beside the
+    plain version's and the single-card kernel's. Returns the RadLIF rows
+    by P."""
+    from sparch_tpu_torch.ops import fused_cells, fused_tp
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    ref, main = {}, {}
+    for P in TP_PS:
+        for shape in tp_shapes(P):
+            for name in ("rlif", "radlif"):
+                what = f"tp_cell_fwd {name} {shape} P={P}"
+                d = tp_cell_inputs(shape, seed=1, dev=dev)
+                args, ada = _tp_args(name, d)
+                kw = dict(num_devices=P, adaptive=ada)
+                with torch.no_grad():
+                    s, u = fused_tp._tp_cell_cuda(*args, **kw,
+                                                  save_residuals=True)
+                    plan = fused_tp.last_plans()["tp_cell_fwd"]
+                    served = fused_tp._tp_cell_cuda(*args, **kw)
+                    want, want_u = fused_tp.tp_cell_plain(
+                        *args, **kw, save_residuals=True)
+                    one, one_u = fused_cells._fused_cell_cuda(
+                        args[0], None, None, *args[1:], recurrent=True,
+                        adaptive=ada, save_residuals=True)
+                torch.cuda.synchronize()
+                check(torch.equal(s, want) and torch.equal(u, want_u),
+                      f"{what}: differs from tp_cell_plain")
+                check(torch.equal(served, want),
+                      f"{what}: the serving form differs")
+                check(torch.equal(s, one) and torch.equal(u, one_u),
+                      f"{what}: differs from the single-card fused cell")
+                row = dict(cell=name, shape=list(shape), P=P,
+                           one_card_form=P > 1, plan=plan,
+                           firing_rate=float(want.mean()), max_abs_err=0.0,
+                           equals_plain_bit_for_bit=True,
+                           equals_single_card_kernel=True)
+                main_shape = shape == tp_shapes(P)[0]
+                if main_shape:
+                    if P == 1:
+                        ref[name] = (s, u)
+                    check(torch.equal(s, ref[name][0]) and
+                          torch.equal(u, ref[name][1]),
+                          f"{what}: differs from P=1")
+                    row["equals_p1"] = True
+                    with torch.no_grad():
+                        row["ms"] = cuda_time_ms(
+                            lambda: fused_tp._tp_cell_cuda(
+                                *args, **kw, save_residuals=True))
+                        row["plain_ms"] = cuda_time_ms(
+                            lambda: fused_tp.tp_cell_plain(
+                                *args, **kw, save_residuals=True),
+                            **PLAIN_ROUNDS)
+                        row["single_card_kernel_ms"] = cuda_time_ms(
+                            lambda: fused_cells._fused_cell_cuda(
+                                args[0], None, None, *args[1:],
+                                recurrent=True, adaptive=ada,
+                                save_residuals=True))
+                    if name == "radlif":
+                        main[P] = row
+                emit("kernel_vs_plain", kernel="tp_cell_fwd", **row)
+    return main
+
+
+def phase_tp_cell_backward(dev):
+    """``tp_cell_bwd`` (RLIF, RadLIF) at P = 1, 2, 4 on the main path's
+    shape and a small one, s0 uniform: both sides get the plain forward's
+    residuals; every gradient against ``tp_cell_bwd_plain`` by the rule of
+    phase 6 (``grads_within_bound``); two launches give the same bits; at
+    P > 1 the gradients that sum over no rows equal P = 1's bit for bit,
+    the others' gap is printed. Times at the main shape beside the plain
+    version's and the single-card backward's (no affine, no dropout).
+    Returns the RadLIF rows by P."""
+    from sparch_tpu_torch.ops import fused_cells, fused_tp
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    ref, main = {}, {}
+    for P in TP_PS:
+        for shape in tp_shapes(P):
+            for name in ("rlif", "radlif"):
+                what = f"tp_cell_bwd {name} {shape} P={P}"
+                d = tp_cell_inputs(shape, seed=1, dev=dev, uniform_s0=True)
+                args, ada = _tp_args(name, d)
+                kw = dict(num_devices=P, adaptive=ada)
+                g = torch.randn(shape, device=dev,
+                                generator=torch.Generator(
+                                    device=dev).manual_seed(6))
+                with torch.no_grad():
+                    _, u_seq = fused_tp.tp_cell_plain(*args, **kw,
+                                                      save_residuals=True)
+                Wx, *rest = args
+                bargs = (g, u_seq, *rest)
+
+                def bwd(fn, f=lambda t: t):
+                    return fn(*[f(a) if torch.is_tensor(a) else a
+                                for a in bargs], **kw)
+
+                with torch.no_grad():
+                    got = bwd(fused_tp._tp_cell_bwd_cuda)
+                    plan = fused_tp.last_plans()["tp_cell_bwd"]
+                    again = bwd(fused_tp._tp_cell_bwd_cuda)
+                    want = bwd(fused_tp.tp_cell_bwd_plain)
+                    torch.cuda.synchronize()
+                    errs = grads_within_bound(
+                        what, got, want,
+                        lambda: bwd(fused_tp.tp_cell_bwd_plain,
+                                    torch.Tensor.double),
+                        names=TP_GRAD_NAMES)
+                for n, x, z in zip(TP_GRAD_NAMES, got, again):
+                    check(x is None or torch.equal(x, z),
+                          f"{what}: {n} differs between two launches")
+                row = dict(cell=name, shape=list(shape), P=P,
+                           one_card_form=P > 1, plan=plan, rel_err=errs,
+                           two_launches_bit_equal=True,
+                           max_abs_err=float((got[0] - want[0]).abs().max()))
+                if shape == tp_shapes(P)[0]:
+                    if P == 1:
+                        ref[name] = got
+                    gap = {}
+                    for n, x, r in zip(TP_GRAD_NAMES, got, ref[name]):
+                        if x is None:
+                            continue
+                        gap[n] = rel_err(x, r)
+                        check(n not in TP_UNREDUCED or torch.equal(x, r),
+                              f"{what}: {n} differs from P=1")
+                    row["vs_p1_rel_err"] = gap
+                    with torch.no_grad():
+                        row["ms"] = cuda_time_ms(
+                            lambda: bwd(fused_tp._tp_cell_bwd_cuda))
+                        row["plain_ms"] = cuda_time_ms(
+                            lambda: bwd(fused_tp.tp_cell_bwd_plain),
+                            **PLAIN_ROUNDS)
+                        row["single_card_kernel_ms"] = cuda_time_ms(
+                            lambda: fused_cells._fused_cell_bwd_cuda(
+                                g, Wx, u_seq, None, *rest, recurrent=True,
+                                adaptive=ada))
+                    if name == "radlif":
+                        main[P] = row
+                emit("kernel_vs_plain", kernel="tp_cell_bwd", **row)
+    return main
+
+
+def tp_training_state():
+    """State dict of the TP trainers: RadLIF [1024, 1024, 35]
+    bidirectional from seed 0, V rounded onto a 2^-8 grid."""
+    from sparch_tpu_torch.models import build_model
+
+    model = build_model("RadLIF", (B, T, TP_F), list(TP_SIZES),
+                        dropout=P_DROP, bidirectional=True, cell_impl="scan",
+                        generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for layer in model.hidden_layers():
+            layer.V.copy_(torch.round(layer.V * 256.0) / 256.0)
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def eval_tp(dev, state_dict, x, y):
+    """One ``make_eval_step`` pass (zero state init) over the trained
+    weights with V put back on the 2^-8 grid, for scan and for pallas_tp
+    at P = 1, 2, 4, counters set to 0 just before each and read just
+    after (one forward launch per layer). The probabilities (out / sum,
+    as ``Predictor`` serves an SNN) of every P equal P = 1's and the
+    plain versions' bit for bit, and the eval metrics alike; against
+    scan by the rule of phase 4, with the scan model on the host CPU as
+    the witness."""
+    from sparch_tpu_torch.models import build_model
+    from sparch_tpu_torch.ops import fused_cells
+    from sparch_tpu_torch.train import create_train_state, make_eval_step
+
+    sd = {k: (torch.round(v * 256.0) / 256.0 if k.endswith(".V") else v)
+          for k, v in state_dict.items()}
+
+    def run(impl, P=None, device=dev, data=(x, y)):
+        model = build_model("RadLIF", (B, T, TP_F), list(TP_SIZES),
+                            bidirectional=True, state_init="zeros",
+                            cell_impl=impl,
+                            tp_mesh=tp_mesh(device, P) if P else None)
+        model.load_state_dict(sd)
+        state = create_train_state(model, LR, device=device)
+        step = make_eval_step(model)
+        fused_cells.reset_launch_counts()
+        met = step(state, *data)
+        counts = fused_cells.launch_counts()
+        with torch.no_grad():
+            out, _ = model(data[0])
+        probs = (out / out.sum(dim=-1, keepdim=True)).cpu().numpy()
+        met = {k: float(v) for k, v in met.items()}
+        return (probs.argmax(-1), probs), met, counts
+
+    rows = {}
+    scan, scan_met, _ = run("scan")
+    host, _, _ = run("scan", device=torch.device("cpu"),
+                     data=(x.cpu(), y.cpu()))
+    witness = _agreement(scan, host)
+    label_min = witness["label_agreement"] - WITNESS_LABEL_MARGIN
+    prob_max = max(WITNESS_PROB_FACTOR * witness["max_abs_prob_diff"], 1e-3)
+    first = None
+    for P in TP_PS:
+        what = f"eval pallas_tp P={P}"
+        got, met, counts = run("pallas_tp", P)
+        want = {k: 2 if k == "tp_cell_fwd" else 0 for k in counts}
+        check(counts == want, f"{what}: kernel launches {counts}")
+        with plain_versions():
+            plain, plain_met, _ = run("pallas_tp", P)
+        check(np.array_equal(got[1], plain[1]) and met == plain_met,
+              f"{what}: differs from the plain versions")
+        first = first or got
+        check(np.array_equal(got[1], first[1]), f"{what}: differs from P=1")
+        agree = _agreement(got, scan)
+        check(agree["label_agreement"] >= label_min and
+              agree["max_abs_prob_diff"] <= prob_max,
+              f"{what}: vs scan {agree}, witness {witness}")
+        rows[f"pallas_tp_p{P}"] = dict(
+            metrics=met, launches={k: n for k, n in counts.items() if n},
+            equals_plain_versions=True, equals_p1=True, vs_scan=agree)
+    rows["scan"] = dict(metrics=scan_met, scan_card_vs_cpu=witness,
+                        vs_scan_label_min=label_min,
+                        vs_scan_prob_max=prob_max)
+    return rows
+
+
+def phase_training_tp(dev):
+    """The TP training main path: RadLIF [1024, 1024, 35] bidirectional
+    (batchnorm, dropout 0.1, uniform state init, Adam lr 1e-2) on one
+    device-resident batch of 128 SC-shaped utterances (F=40 features drawn
+    normal(0, 1)), ``scan`` and ``pallas_tp`` at P = 1, 2, 4 from one state
+    dict and seed, each checked and timed as phase 8 (two forward and two
+    backward TP launches per step, no other kernel); P = 2 and 4 against
+    P = 1 (step-1 gradients within GRAD_REL_MAX, the largest gap printed);
+    then ``eval_tp``. Returns the launch counts of each P's run."""
+    state_dict = tp_training_state()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn((B, T, TP_F), generator=gen, device=dev)
+    y = torch.randint(0, C, (B,), generator=gen, device=dev)
+    per_step = {"tp_cell_fwd": 2, "tp_cell_bwd": 2}
+    rows, launches, kept = {}, {}, {}
+    common = dict(sizes=TP_SIZES, bidirectional=True)
+    rows["scan"], _ = train_variant(dev, "scan", state_dict, x, y, {}, None,
+                                    **common)
+    for P in TP_PS:
+        kept[P] = {}
+        rows[f"pallas_tp_p{P}"], launches[P] = train_variant(
+            dev, "pallas_tp", state_dict, x, y, per_step, rows["scan"],
+            keep=kept[P], tp_mesh=tp_mesh(dev, P), **common)
+        if P > 1:
+            gaps = {k: rel_err(v, kept[1]["grads"][k])
+                    for k, v in kept[P]["grads"].items()}
+            worst = max(gaps, key=gaps.get)
+            rows[f"pallas_tp_p{P}"]["vs_p1_step1_grads"] = dict(
+                max_rel_err=gaps[worst], at=worst, bound=GRAD_REL_MAX)
+            check(gaps[worst] <= GRAD_REL_MAX,
+                  f"pallas_tp P={P}: step-1 gradient of {worst} is "
+                  f"{gaps[worst]} from P=1's")
+    rows["eval"] = eval_tp(dev, kept[1]["state_dict"], x, y)
+    emit("training_tp", model="RadLIF [1024, 1024, 35] bidirectional",
+         batch_size=B, T=T, F=TP_F, dropout=P_DROP, lr=LR,
+         steps=TRAIN_STEPS, one_card_form="P > 1", **rows)
+    return launches
+
+
+def tp_kernel_rows(coll_launches, coll, fwd, bwd, trained):
+    """The ``kernels`` entries of the TP path. Times at P = 4 (all four
+    ranks in one launch on the one card), each P's beside it; launches:
+    the collectives' path (one call per P) and the P = 4 trainer's run."""
+    src = "sparch_tpu_torch/csrc/"
+    tpu = "sparch_tpu/ops/pallas_tp.py:"
+    P = TP_PS[-1]
+    h = P * TP_HL
+    coll_bounds = {
+        "tp_all_gather": bound(4.0 * B * h * (1 + P * TP_ROUNDS),
+                               TP_ROUNDS * B * h),
+        "tp_reduce_scatter": bound(4.0 * B * h * (P + TP_ROUNDS),
+                                   TP_ROUNDS * P * B * h),
+    }
+    rows = []
+    for name, line in (("tp_all_gather", "180"),
+                       ("tp_reduce_scatter", "241")):
+        r = coll[P][name]
+        rows.append(dict(
+            name=name, route="cuda", source=src + "tp_collectives.cu",
+            replaces=tpu + line, launches=coll_launches[name],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            **coll_bounds[name], library_ms=None, one_card_form=True, P=P,
+            shape=[B, h], rounds=TP_ROUNDS,
+            ms_by_p={q: coll[q][name]["ms"] for q in TP_PS},
+            plain_ms_by_p={q: coll[q][name]["plain_ms"] for q in TP_PS}))
+    tb = tp_cell_bounds(fwd[P]["firing_rate"], 2 * B, T, TP_H)
+    for name, src_file, line, main, b in (
+            ("tp_cell_fwd", "tp_cell_fwd.cu", "350", fwd, tb["fwd"]),
+            ("tp_cell_bwd", "tp_cell_bwd.cu", "448", bwd, tb["bwd"])):
+        rows.append(dict(
+            name=name, route="cuda", source=src + src_file,
+            replaces=tpu + line, launches=trained[P][name],
+            max_abs_err=main[P]["max_abs_err"], ms=main[P]["ms"],
+            plain_ms=main[P]["plain_ms"], **b, library_ms=None,
+            one_card_form=True, P=P, shape=[2 * B, T, TP_H],
+            ms_by_p={q: main[q]["ms"] for q in TP_PS},
+            plain_ms_by_p={q: main[q]["plain_ms"] for q in TP_PS},
+            single_card_kernel_ms=main[1]["single_card_kernel_ms"],
+            launches_by_p={q: trained[q][name] for q in TP_PS}))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1878,6 +2335,11 @@ def main() -> int:
                        bf16=True)
     bf16_served = run("serving_bf16", phase_serving_bf16, dev)
     bf16_trained = run("training_bf16", phase_training_bf16, dev)
+    tp_coll_launches, tp_coll = run("tp_collectives", phase_tp_collectives,
+                                    dev)
+    tp_fwd = run("tp_cell_forward", phase_tp_cell_forward, dev)
+    tp_bwd = run("tp_cell_backward", phase_tp_cell_backward, dev)
+    tp_trained = run("training_tp", phase_training_tp, dev)
     emit("seconds", **seconds)
     cb = cell_bounds(cell.pop("firing_rate"))
     readout_bytes = 4.0 * (B * T * C + 2 * B * C + C)
@@ -1913,7 +2375,9 @@ def main() -> int:
              **bound(2 * readout_bytes, 2 * readout_ops), library_ms=None),
     ] + ann_kernel_rows(ann_fwd, ann_bwd, ann_served, ann_trained) \
         + bf16_kernel_rows(bf16_cell, bf16_bwd, bf16_ann_fwd, bf16_ann_bwd,
-                           bf16_served, bf16_trained)
+                           bf16_served, bf16_trained) \
+        + tp_kernel_rows(tp_coll_launches, tp_coll, tp_fwd, tp_bwd,
+                         tp_trained)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,101 @@
+// The dV product of the recurrent spiking backward kernels for Hopper
+// (sm_90a): fused_cell_bwd.cu and tp_cell_bwd.cu run it after their time
+// loops.
+//
+// dV = sum over (b, t) of s_{t-1}[b]^T dDrive_t[b]: an (H, B*T) x (B*T, H)
+// product whose left operand is recomputed from the membrane series (s0
+// for the first step of each row) and whose right operand is the stored
+// dDrive series. 64x64 output tiles, 4x4 per thread, split over B*T into
+// partials that sum_parts_kernel (tile_stream.cuh) adds in ascending
+// order, so two runs give the same bits.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tile_stream.cuh"
+
+namespace sparch {
+
+constexpr int kTile = 64;  // dV output tile
+constexpr int kBK = 16;    // dV depth per shared-memory stage
+constexpr int kDvThreads = 256;
+
+// partial[z][m][n] = sum over rows r = (b, t) of this split, ascending, of
+// s_{t-1}[b][m] * dDrive_t[b][n]. DT is the element type of the dDrive
+// series; with bf16 both operands are bf16 values (s0, which need not be
+// 0/1, is rounded here) and the sum is float32.
+template <typename DT>
+__global__ void __launch_bounds__(kDvThreads)
+dv_kernel(const float* __restrict__ u_seq, const float* __restrict__ s0,
+          const DT* __restrict__ dd, float* __restrict__ partial, int T,
+          int H, int R, int rows_per_split, float thr) {
+  constexpr bool kRound = sizeof(DT) == 2;
+  __shared__ __align__(16) float As[kBK][kTile];
+  __shared__ __align__(16) float Bs[kBK][kTile];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int n0 = blockIdx.x * kTile;
+  const int m0 = blockIdx.y * kTile;
+  const int r_begin = blockIdx.z * rows_per_split;
+  const int r_end = min(R, r_begin + rows_per_split);
+  const int lr = tid / 16;        // row of the stage this thread loads
+  const int lc = (tid % 16) * 4;  // first of its four columns
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
+
+  for (int r0 = r_begin; r0 < r_end; r0 += kBK) {
+    const int r = r0 + lr;
+    const bool row_ok = r < r_end;
+    const int t = row_ok ? r % T : 0;
+    const int brow = row_ok ? r / T : 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int m = m0 + lc + q;
+      float sp = 0.f;
+      if (row_ok && m < H) {
+        sp = t == 0 ? s0[(size_t)brow * H + m]
+                    : (u_seq[(size_t)(r - 1) * H + m] > thr ? 1.f : 0.f);
+        if (kRound) sp = round_bf16(sp);
+      }
+      As[lr][lc + q] = sp;
+      const int n = n0 + lc + q;
+      Bs[lr][lc + q] =
+          (row_ok && n < H) ? to_float(dd[(size_t)r * H + n]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
+      const float4 b4 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
+      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+
+  float* out = partial + (size_t)blockIdx.z * H * H;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (m < H && n < H) out[(size_t)m * H + n] = acc[i][j];
+    }
+  }
+}
+
+}  // namespace sparch

@@ -71,7 +71,8 @@
 //   in registers, writes them to partials[block][6][H], and a second
 //   kernel adds the blocks in ascending order (and divides dalpha by
 //   1-alpha). No atomics.
-// - dV is a third kernel after the time loop: one (H, B*T) x (B*T, H)
+// - dV is a third kernel after the time loop (dv_product.cuh, shared with
+//   tp_cell_bwd.cu): one (H, B*T) x (B*T, H)
 //   product whose left operand is recomputed from the u series (s0 for
 //   the first step of each row) and whose right operand is the stored
 //   dDrive (dWx itself without the affine, else a scratch stream written
@@ -90,6 +91,7 @@
 #include <stdint.h>
 
 #include "dropout_hash.cuh"
+#include "dv_product.cuh"
 #include "tile_stream.cuh"
 
 namespace {
@@ -105,9 +107,6 @@ constexpr int kThreads = 512;
 #endif
 constexpr int kWork = SPARCH_BWD_WORK;
 constexpr int kMaxNpt = 8;  // so H <= kThreads * kMaxNpt = 4096
-constexpr int kTile = 64;  // dV output tile
-constexpr int kBK = 16;    // dV depth per shared-memory stage
-constexpr int kDvThreads = 256;
 constexpr int kVecs = 6;  // dalpha, dbeta, da, db, dscale, dshift
 
 struct Args {
@@ -338,82 +337,6 @@ __global__ void vec_reduce_kernel(const float* __restrict__ partials,
   }
   if (idx < H) sum = sum / (1.0f - alpha[idx]);
   out[idx] = sum;
-}
-
-// partial[z][m][n] = sum over rows r = (b, t) of this split, ascending, of
-// s_{t-1}[b][m] * dDrive_t[b][n]. DT is the element type of the dDrive
-// series; with bf16 both operands are bf16 values (s0, which need not be
-// 0/1, is rounded here) and the sum is float32.
-template <typename DT>
-__global__ void __launch_bounds__(kDvThreads)
-dv_kernel(const float* __restrict__ u_seq, const float* __restrict__ s0,
-          const DT* __restrict__ dd, float* __restrict__ partial, int T,
-          int H, int R, int rows_per_split, float thr) {
-  constexpr bool kRound = sizeof(DT) == 2;
-  __shared__ __align__(16) float As[kBK][kTile];
-  __shared__ __align__(16) float Bs[kBK][kTile];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int n0 = blockIdx.x * kTile;
-  const int m0 = blockIdx.y * kTile;
-  const int r_begin = blockIdx.z * rows_per_split;
-  const int r_end = min(R, r_begin + rows_per_split);
-  const int lr = tid / 16;        // row of the stage this thread loads
-  const int lc = (tid % 16) * 4;  // first of its four columns
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int r0 = r_begin; r0 < r_end; r0 += kBK) {
-    const int r = r0 + lr;
-    const bool row_ok = r < r_end;
-    const int t = row_ok ? r % T : 0;
-    const int brow = row_ok ? r / T : 0;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int m = m0 + lc + q;
-      float sp = 0.f;
-      if (row_ok && m < H) {
-        sp = t == 0 ? s0[(size_t)brow * H + m]
-                    : (u_seq[(size_t)(r - 1) * H + m] > thr ? 1.f : 0.f);
-        if (kRound) sp = round_bf16(sp);
-      }
-      As[lr][lc + q] = sp;
-      const int n = n0 + lc + q;
-      Bs[lr][lc + q] =
-          (row_ok && n < H) ? to_float(dd[(size_t)r * H + n]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-  float* out = partial + (size_t)blockIdx.z * H * H;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (m < H && n < H) out[(size_t)m * H + n] = acc[i][j];
-    }
-  }
 }
 
 // More than 48 KB of dynamic shared memory has to be asked for, per

@@ -1,0 +1,310 @@
+// Tensor-parallel fused RLIF/RadLIF forward for Hopper (sm_90a): the
+// neurons are split into P column blocks of Hl = H/P, one per rank, and
+// the ranks exchange their spikes at every step.
+//
+// Replaces: sparch_tpu/ops/pallas_tp.py `_tp_fwd_kernel` (:350, through
+// `_tp_forward` :609), float32 (its `mxu_bf16` form is not ported yet).
+// Rank r owns the neurons r*Hl .. r*Hl+Hl-1: their drive Wx, constants,
+// state and output, and the column block V[:, shard] of the recurrent
+// matrix. Per step, for one batch row (the dynamics of :416-445, the
+// single-card fused_cell_fwd.cu without the affine and the dropout):
+//   drive = Wx_t + s_full @ V[:, shard]
+//   w     = beta*w + a*u + b*s ; drive -= w       (ADAPTIVE: RadLIF)
+//   u     = alpha*(u - s) + (1-alpha)*drive
+//   s     = u > threshold                          (the rank's Hl spikes)
+//   s_full = all-gather of every rank's s          (tp_exchange.cuh)
+// The step's gather feeds the next step's product, so the last step has
+// none; every rank skips it alike, and every rank makes T-1 exchanges per
+// row. The first product takes the gathered initial spikes s0_full (the
+// caller's: the JAX wrapper all-gathers s0 once before its kernel; in the
+// one-card form the full s0 is at hand). RESID also writes the membrane
+// series u, the one residual of the backward (tp_cell_bwd.cu). The JAX
+// kernel also writes boundary states and the end of the w series: the port
+// has no time chunks, so its boundaries are u0/s0, and its backward takes
+// dbeta without the w series (as fused_cell_bwd.cu does), so no w is saved.
+//
+// What bounds it on this card: the T dependent steps, as in the single-card
+// kernel: each step needs every rank's spikes of the step before. A step is
+// a gather-sum over the spiking rows of V's column block (from L2) and one
+// exchange: each rank stores its Hl/32 spike words into every rank's slot,
+// and a release/acquire handshake between the P blocks of the row.
+//
+// Design:
+// - One block runs one rank's neurons of one batch row for the whole
+//   sequence (fused_cell_fwd.cu's layout with H replaced by Hl); a block
+//   walks rows k, k + per_rank, ... where the card holds fewer than P*B
+//   blocks. Thread j owns the rank's neurons j + i*blockDim.x (NPT of
+//   them); u, w and s stay in registers.
+// - Spikes are 0/1, so each warp's spikes are one __ballot_sync word, and
+//   the exchange moves words: row b's gathered spikes are H/32 words, the
+//   rank's at words r*Hl/32 ... The words are read back from the own slot
+//   into shared memory, and (s_full @ V[:, shard])[j] is the sum of the
+//   rows k of V at which s_full spiked, k ascending, as in
+//   fused_cell_fwd.cu; a row of the column block is read coalesced.
+// - Rounding: __fmul_rn/__fadd_rn/__fsub_rn in the JAX kernel's order, so
+//   with V on a dyadic grid every s @ V is exact and the spike trains and
+//   membrane series equal the plain version's (ops/fused_tp.py
+//   tp_cell_plain) and, at any P, the single-card kernel's without the
+//   affine, bit for bit. The first product (s0 need not be 0/1) sums over
+//   k ascending, product then sum, as fused_cell_fwd.cu does.
+// - Rank data: the local rank l's column block starts at column l*Hl of
+//   tensors with row stride ld. In the one-card form they are the full
+//   (…, H) tensors (ld = H); across cards each rank's own (ld = Hl).
+//
+// C interface, bound with ctypes: sparch_tp_cell_fwd returns the launch's
+// cudaError_t (or an invalid-value error for arguments it does not take)
+// and never synchronises. `plan` (host memory, may be null) receives
+// {1 row per block, blocks per rank, blocks per SM, threads}.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tp_exchange.cuh"
+
+namespace {
+
+using sparch::tp::Layout;
+using sparch::tp::Peers;
+
+constexpr int kMaxThreads = 512;
+constexpr int kMaxNpt = 4;  // so Hl <= 2048
+
+struct FwdArgs {
+  const float* wx;     // (B, T, ld)
+  const float* alpha;  // (ld,)
+  const float* beta;
+  const float* a;
+  const float* b;
+  const float* V;      // (H, ld): rank l's column block at column l*Hl
+  const float* u0;     // (B, ld)
+  const float* w0;
+  const float* s0f;    // (B, H): the gathered initial spikes
+  float* s_out;        // (B, T, ld)
+  float* u_out;        // (B, T, ld), RESID
+  Peers peers;         // slots: per rank [2][B][H/32] spike words
+  Layout lay;
+  int B, T, H, Hl, ld;
+  float threshold;
+};
+
+template <bool ADAPTIVE, bool RESID, int NPT>
+__global__ void __launch_bounds__(kMaxThreads)
+tp_cell_fwd_kernel(const FwdArgs p) {
+  // dynamic shared memory: the s0 row (H floats), then the H/32 gathered
+  // spike words
+  extern __shared__ float smem[];
+  const Layout& l = p.lay;
+  const int H = p.H, T = p.T, ld = p.ld;
+  const int nw = H / 32;
+  uint32_t* mask = reinterpret_cast<uint32_t*>(smem + H);
+  const int local = sparch::tp::local_rank(l);
+  const int rank = l.rank0 + local;
+  const int col0 = local * p.Hl;  // the rank's first column in rank data
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int word0 = rank * (p.Hl / 32);  // the rank's first spike word
+  const float* V = p.V + col0;
+
+  float al[NPT], oma[NPT], be[NPT], aa[NPT], bb[NPT];
+  float u[NPT], w[NPT], s[NPT], sv[NPT], x[NPT];
+  int col[NPT];
+#pragma unroll
+  for (int i = 0; i < NPT; ++i) {
+    col[i] = threadIdx.x + i * blockDim.x;
+    const int c = col0 + col[i];
+    al[i] = p.alpha[c];
+    oma[i] = __fsub_rn(1.0f, al[i]);
+    be[i] = ADAPTIVE ? p.beta[c] : 0.f;
+    aa[i] = ADAPTIVE ? p.a[c] : 0.f;
+    bb[i] = ADAPTIVE ? p.b[c] : 0.f;
+  }
+
+  for (int row = sparch::tp::block_in_rank(l); row < p.B; row += l.per_rank) {
+    __syncthreads();  // the last row is done with the s0 row
+    for (int k = threadIdx.x; k < H; k += blockDim.x) {
+      smem[k] = p.s0f[(size_t)row * H + k];
+    }
+#pragma unroll
+    for (int i = 0; i < NPT; ++i) {
+      const size_t at = (size_t)row * ld + col0 + col[i];
+      u[i] = p.u0[at];
+      w[i] = ADAPTIVE ? p.w0[at] : 0.f;
+      s[i] = p.s0f[(size_t)row * H + rank * p.Hl + col[i]];
+      sv[i] = 0.f;
+    }
+    __syncthreads();
+    for (int k = 0; k < H; ++k) {
+      const float sk = smem[k];
+      if (sk != 0.f) {
+        const float* vrow = V + (size_t)k * ld;
+#pragma unroll
+        for (int i = 0; i < NPT; ++i) {
+          sv[i] = __fadd_rn(sv[i], __fmul_rn(sk, vrow[col[i]]));
+        }
+      }
+    }
+
+    const size_t base = (size_t)row * T * ld + col0;
+#pragma unroll
+    for (int i = 0; i < NPT; ++i) x[i] = p.wx[base + col[i]];
+
+    for (int t = 0; t < T; ++t) {
+#pragma unroll
+      for (int i = 0; i < NPT; ++i) {
+        float d = __fadd_rn(x[i], sv[i]);
+        if (ADAPTIVE) {
+          w[i] = __fadd_rn(__fadd_rn(__fmul_rn(be[i], w[i]),
+                                     __fmul_rn(aa[i], u[i])),
+                           __fmul_rn(bb[i], s[i]));
+          d = __fsub_rn(d, w[i]);
+        }
+        u[i] = __fadd_rn(__fmul_rn(al[i], __fsub_rn(u[i], s[i])),
+                         __fmul_rn(oma[i], d));
+        s[i] = u[i] > p.threshold ? 1.f : 0.f;
+        const size_t at = base + (size_t)t * ld + col[i];
+        p.s_out[at] = s[i];
+        if (RESID) p.u_out[at] = u[i];
+      }
+      if (t + 1 == T) break;  // the last step's gather would feed nothing
+#pragma unroll
+      for (int i = 0; i < NPT; ++i) {
+        x[i] = p.wx[base + (size_t)(t + 1) * ld + col[i]];
+      }
+      // the rank's spike words into slot t & 1 of every rank
+      const size_t at_row = ((size_t)(t & 1) * p.B + row) * nw;
+#pragma unroll
+      for (int i = 0; i < NPT; ++i) {
+        const uint32_t m = __ballot_sync(0xffffffffu, s[i] != 0.f);
+        if (lane == 0) {
+          const int word = word0 + i * warps + warp;
+          for (int q = 0; q < l.P; ++q) {
+            __stcg(static_cast<uint32_t*>(p.peers.slots[q]) + at_row + word,
+                   m);
+          }
+        }
+      }
+      sparch::tp::exchange(p.peers, l, rank, row, t);
+      const uint32_t* gathered =
+          static_cast<const uint32_t*>(p.peers.slots[rank]) + at_row;
+      for (int k = threadIdx.x; k < nw; k += blockDim.x) {
+        mask[k] = __ldcg(gathered + k);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < NPT; ++i) sv[i] = 0.f;
+      for (int wd = 0; wd < nw; ++wd) {
+        uint32_t m = mask[wd];
+        const float* vbase = V + (size_t)wd * 32 * ld;
+        while (m) {
+          // up to four spiking rows per round, added in ascending k; a
+          // missing row adds 0, which changes no sum
+          const int k0 = __ffs(m) - 1;
+          m &= m - 1;
+          int k1 = -1, k2 = -1, k3 = -1;
+          if (m) { k1 = __ffs(m) - 1; m &= m - 1; }
+          if (m) { k2 = __ffs(m) - 1; m &= m - 1; }
+          if (m) { k3 = __ffs(m) - 1; m &= m - 1; }
+#pragma unroll
+          for (int i = 0; i < NPT; ++i) {
+            const float* vc = vbase + col[i];
+            const float v0 = vc[(size_t)k0 * ld];
+            const float v1 = k1 >= 0 ? vc[(size_t)k1 * ld] : 0.f;
+            const float v2 = k2 >= 0 ? vc[(size_t)k2 * ld] : 0.f;
+            const float v3 = k3 >= 0 ? vc[(size_t)k3 * ld] : 0.f;
+            sv[i] = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(sv[i], v0), v1),
+                                        v2),
+                              v3);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <bool A, bool R, int NPT>
+int plan_and_launch(FwdArgs& p, int* plan, cudaStream_t st) {
+  auto kernel = tp_cell_fwd_kernel<A, R, NPT>;
+  const int threads = p.Hl / NPT;
+  const size_t smem = (size_t)p.H * sizeof(float) + (p.H / 32) * 4;
+  int per_sm = 0;
+  cudaError_t err = sparch::tp::plan_blocks(
+      kernel, threads, smem, p.lay.n_local, p.lay.n_groups, &p.lay.per_rank,
+      &per_sm);
+  if (err != cudaSuccess) return (int)err;
+  if (plan) {
+    plan[0] = 1;
+    plan[1] = p.lay.per_rank;
+    plan[2] = per_sm;
+    plan[3] = threads;
+  }
+  err = sparch::tp::launch_cooperative(kernel, p.lay.n_local * p.lay.per_rank,
+                                       threads, smem, p, st);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+template <bool A, bool R>
+int launch_npt(FwdArgs& p, int npt, int* plan, cudaStream_t st) {
+  switch (npt) {
+    case 1: return plan_and_launch<A, R, 1>(p, plan, st);
+    case 2: return plan_and_launch<A, R, 2>(p, plan, st);
+    default: return plan_and_launch<A, R, 4>(p, plan, st);
+  }
+}
+
+}  // namespace
+
+// slots/flags: host arrays of P device pointers, every rank's spike-word
+// slots ([2][B][H/32] u32) and zeroed counters ([P][B][2] u32). u_out
+// non-null writes the membrane series.
+extern "C" int sparch_tp_cell_fwd(
+    const float* wx, const float* alpha, const float* beta, const float* a,
+    const float* b, const float* V, const float* u0, const float* w0,
+    const float* s0f, float* s_out, float* u_out, void* const* slots,
+    unsigned* const* flags, int B, int T, int H, int P, int rank0,
+    int n_local, int ld, float threshold, int adaptive, int* plan,
+    void* stream) {
+  if (B <= 0 || T <= 0 || P < 1 || P > sparch::tp::kMaxRanks || H <= 0 ||
+      H % (P * 128) != 0 || n_local < 1 || rank0 < 0 ||
+      rank0 + n_local > P || H / P > kMaxThreads * kMaxNpt || !wx ||
+      !alpha || !V || !u0 || !s0f || !s_out ||
+      (adaptive && (!beta || !a || !b || !w0))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  FwdArgs p{};
+  if (!sparch::tp::make_peers(slots, flags, P, &p.peers)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  p.wx = wx;
+  p.alpha = alpha;
+  p.beta = beta;
+  p.a = a;
+  p.b = b;
+  p.V = V;
+  p.u0 = u0;
+  p.w0 = w0;
+  p.s0f = s0f;
+  p.s_out = s_out;
+  p.u_out = u_out;
+  p.lay.P = P;
+  p.lay.rank0 = rank0;
+  p.lay.n_local = n_local;
+  p.lay.n_groups = B;
+  p.B = B;
+  p.T = T;
+  p.H = H;
+  p.Hl = H / P;
+  p.ld = ld;
+  p.threshold = threshold;
+  // fewest neurons per thread that keep the block within kMaxThreads
+  int npt = 1;
+  while (p.Hl / npt > kMaxThreads) npt *= 2;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool resid = u_out != nullptr;
+  if (adaptive) {
+    return resid ? launch_npt<true, true>(p, npt, plan, st)
+                 : launch_npt<true, false>(p, npt, plan, st);
+  }
+  return resid ? launch_npt<false, true>(p, npt, plan, st)
+               : launch_npt<false, false>(p, npt, plan, st);
+}

@@ -239,8 +239,8 @@ class ANN(nn.Module):
         check_precision_fields(compute_dtype, mxu_precision)
         if cell_impl == "pallas_tp":
             raise NotImplementedError(
-                "cell_impl='pallas_tp' is ROADMAP queue 2 items 8-9 "
-                "(tensor-parallel kernels)"
+                "cell_impl='pallas_tp' for the non-spiking cells is ROADMAP "
+                "queue 2 item 10 (tensor-parallel ANN kernels)"
             )
         if ann_type not in _LAYER_CLASSES:
             raise ValueError(f"Invalid ann type {ann_type}")

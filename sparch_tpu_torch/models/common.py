@@ -228,7 +228,8 @@ class FusedCellPolicy:
     on a CPU tensor); 'auto' takes it for every CUDA tensor, so a layer
     wider than the kernel takes raises there instead of running a plain
     loop on the card; 'scan' never. The JAX name 'pallas' is kept so that
-    saved model records map one to one.
+    saved model records map one to one. 'pallas_tp' is a path of its own
+    (``_tp``), not the fused one.
     """
 
     def _use_fused(self, x: torch.Tensor) -> bool:
@@ -236,9 +237,23 @@ class FusedCellPolicy:
             return True
         if self.cell_impl == "auto":
             return x.is_cuda
-        if self.cell_impl == "scan":
+        if self.cell_impl in ("scan", "pallas_tp"):
             return False
         raise ValueError(f"Invalid cell_impl {self.cell_impl}")
+
+    def _tp(self):
+        """(mesh, axis, batch_axis) of the ``cell_impl='pallas_tp'`` path
+        (JAX ``FusedCellPolicy._tp``). Normalisation and dropout stay
+        outside the TP kernels: the norm is applied to the drive, and
+        ``_post`` drops the output with a mask from the run's generator,
+        as on the scan path. The inheriting module defines ``tp_mesh``,
+        ``tp_axis`` and ``tp_batch_axis``."""
+        if self.tp_mesh is None:
+            raise ValueError(
+                "cell_impl='pallas_tp' needs tp_mesh=<sparch_tpu_torch."
+                "parallel.Mesh with a '%s' axis>" % self.tp_axis
+            )
+        return self.tp_mesh, self.tp_axis, self.tp_batch_axis
 
     def _mxu_bf16(self) -> bool:
         return self.compute_dtype == torch.bfloat16

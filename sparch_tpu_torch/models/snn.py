@@ -20,6 +20,15 @@ differentiable: the fused one through the backward kernels.
 that bf16 drive and hand bf16 spikes to the next layer, and the readout's
 membrane recurrence runs in float32. ``remat=True`` recomputes each hidden
 layer in the backward instead of keeping its residuals.
+
+``cell_impl='pallas_tp'`` with ``tp_mesh=parallel.make_mesh([dev] * P,
+model=P)`` runs each hidden layer's recurrence split over the P ranks of the
+mesh's ``tp_axis`` (``ops.fused_tp``): RLIF and RadLIF through the
+tensor-parallel kernels, LIF and adLIF through the fused cell on each
+rank's block. The norm is applied to the drive and the dropout drawn from
+the run's generator, both outside the kernels, as on the scan path; the
+readout is the plain one. ``tp_batch_axis`` is kept for the JAX model
+records: the mesh has no data axis yet.
 """
 from __future__ import annotations
 
@@ -37,7 +46,7 @@ from sparch_tpu_torch.models.common import (
     check_precision_fields,
     remat_layer,
 )
-from sparch_tpu_torch.ops import cells, fused_cells
+from sparch_tpu_torch.ops import cells, fused_cells, fused_tp
 
 __all__ = [
     "SNN",
@@ -78,9 +87,19 @@ class _SpikingLayerBase(FusedCellPolicy, nn.Module):
                  normalization: str = "batchnorm", use_bias: bool = False,
                  bidirectional: bool = False, state_init: str = "uniform",
                  cell_impl: str = "auto", compute_dtype=None,
-                 mxu_precision: str = "default"):
+                 mxu_precision: str = "default", tp_mesh=None,
+                 tp_axis: str = "model",
+                 tp_batch_axis: Optional[str] = "data"):
         super().__init__()
         dense_dtype = check_precision_fields(compute_dtype, mxu_precision)
+        if cell_impl == "pallas_tp" and compute_dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "cell_impl='pallas_tp' with compute_dtype=bfloat16 (the TP "
+                "kernels' mxu_bf16 form) is ROADMAP queue 2 item 11"
+            )
+        self.tp_mesh = tp_mesh
+        self.tp_axis = tp_axis
+        self.tp_batch_axis = tp_batch_axis
         self.compute_dtype = compute_dtype
         self.mxu_precision = mxu_precision
         self.hidden_size = hidden_size
@@ -150,6 +169,10 @@ class LIFLayer(_SpikingLayerBase):
 
     def _cell(self, Wx, scale, shift, states, fused, drop):
         u0, s0 = states
+        if self.cell_impl == "pallas_tp":
+            mesh, axis, _ = self._tp()
+            return fused_tp.lif_tp(Wx, self.alpha, self.threshold, u0, s0,
+                                   mesh=mesh, tp_axis=axis)
         if fused:
             return fused_cells.lif_fused(
                 Wx, self.alpha, self.threshold, u0, s0, scale=scale,
@@ -165,6 +188,11 @@ class adLIFLayer(_SpikingLayerBase):
 
     def _cell(self, Wx, scale, shift, states, fused, drop):
         u0, w0, s0 = states
+        if self.cell_impl == "pallas_tp":
+            mesh, axis, _ = self._tp()
+            return fused_tp.adlif_tp(Wx, self.alpha, self.beta, self.a,
+                                     self.b, self.threshold, u0, w0, s0,
+                                     mesh=mesh, tp_axis=axis)
         if fused:
             return fused_cells.adlif_fused(
                 Wx, self.alpha, self.beta, self.a, self.b, self.threshold,
@@ -182,6 +210,10 @@ class RLIFLayer(_SpikingLayerBase):
 
     def _cell(self, Wx, scale, shift, states, fused, drop):
         u0, s0 = states
+        if self.cell_impl == "pallas_tp":
+            mesh, axis, _ = self._tp()
+            return fused_tp.rlif_tp(Wx, self.alpha, self.V, self.threshold,
+                                    u0, s0, mesh=mesh, tp_axis=axis)
         if fused:
             return fused_cells.rlif_fused(
                 Wx, self.alpha, self.V, self.threshold, u0, s0, scale=scale,
@@ -199,6 +231,11 @@ class RadLIFLayer(_SpikingLayerBase):
 
     def _cell(self, Wx, scale, shift, states, fused, drop):
         u0, w0, s0 = states
+        if self.cell_impl == "pallas_tp":
+            mesh, axis, _ = self._tp()
+            return fused_tp.radlif_tp(Wx, self.alpha, self.beta, self.a,
+                                      self.b, self.V, self.threshold, u0, w0,
+                                      s0, mesh=mesh, tp_axis=axis)
         if fused:
             return fused_cells.radlif_fused(
                 Wx, self.alpha, self.beta, self.a, self.b, self.V,
@@ -265,9 +302,9 @@ class SNN(nn.Module):
     is ``readout``.
 
     ``compute_dtype`` (None or float32, or bfloat16 for mixed precision),
-    ``mxu_precision`` and ``remat`` as in the JAX package (see the module
-    docstring and ``common.FusedCellPolicy``). ``cell_impl='pallas_tp'`` is
-    not ported yet and raises.
+    ``mxu_precision``, ``remat`` and, for ``cell_impl='pallas_tp'``,
+    ``tp_mesh``, ``tp_axis`` and ``tp_batch_axis`` as in the JAX package (see
+    the module docstring and ``common.FusedCellPolicy``).
     """
 
     is_snn = True
@@ -279,14 +316,11 @@ class SNN(nn.Module):
                  use_readout_layer: bool = True, state_init: str = "uniform",
                  cell_impl: str = "auto", compute_dtype=None,
                  mxu_precision: str = "default", remat: bool = False,
+                 tp_mesh=None, tp_axis: str = "model",
+                 tp_batch_axis: Optional[str] = "data",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         check_precision_fields(compute_dtype, mxu_precision)
-        if cell_impl == "pallas_tp":
-            raise NotImplementedError(
-                "cell_impl='pallas_tp' is ROADMAP queue 2 items 8-9 "
-                "(tensor-parallel kernels)"
-            )
         if neuron_type not in _LAYER_CLASSES:
             raise ValueError(f"Invalid neuron type {neuron_type}")
         if use_readout_layer and len(layer_sizes) < 2:
@@ -306,6 +340,9 @@ class SNN(nn.Module):
         self.compute_dtype = compute_dtype
         self.mxu_precision = mxu_precision
         self.remat = remat
+        self.tp_mesh = tp_mesh
+        self.tp_axis = tp_axis
+        self.tp_batch_axis = tp_batch_axis
 
         layer_cls = _LAYER_CLASSES[neuron_type]
         width = math.prod(self.input_shape[2:])
@@ -316,6 +353,7 @@ class SNN(nn.Module):
                 use_bias=use_bias, bidirectional=bidirectional,
                 state_init=state_init, cell_impl=cell_impl,
                 compute_dtype=compute_dtype, mxu_precision=mxu_precision,
+                tp_mesh=tp_mesh, tp_axis=tp_axis, tp_batch_axis=tp_batch_axis,
             )
             self.add_module(f"layer_{i}", layer)
             width = self.layer_sizes[i] * (2 if bidirectional else 1)

@@ -128,15 +128,17 @@ _DV_BK = 16
 
 
 def _all_kernels():
-    # ops.fused_ann imports this module, so it is looked up at call time
-    from sparch_tpu_torch.ops import fused_ann
+    # ops.fused_ann and ops.fused_tp import this module, so they are looked
+    # up at call time
+    from sparch_tpu_torch.ops import fused_ann, fused_tp
 
-    return _KERNELS + fused_ann.KERNELS
+    return _KERNELS + fused_ann.KERNELS + fused_tp.KERNELS
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by entry point: the spiking kernels of this
-    module and the ANN kernels of ``ops.fused_ann``."""
+    module, the ANN kernels of ``ops.fused_ann`` and the tensor-parallel
+    kernels of ``ops.fused_tp``."""
     return {k.name: k.launches for k in _all_kernels()}
 
 

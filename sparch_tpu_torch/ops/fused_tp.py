@@ -1,0 +1,561 @@
+"""Tensor-parallel fused spiking cells (counterpart of
+sparch_tpu/ops/pallas_tp.py): the neurons of a layer split into P column
+blocks of Hl = H/P, one per rank of the TP axis, with an exchange inside the
+kernel at every step.
+
+- RLIF/RadLIF (``rlif_tp``, ``radlif_tp``): each step's recurrent drive
+  ``s_full @ V[:, shard]`` needs every rank's spikes of the step before, so
+  the forward all-gathers the spike blocks at every step, and the backward
+  all-gathers the adjoint blocks D = (1-alpha)*A for ``R = D_full @
+  V[shard, :]^T``. One ``torch.autograd.Function`` holds the two kernels
+  (``csrc/tp_cell_fwd.cu``, ``csrc/tp_cell_bwd.cu``), as the JAX
+  ``custom_vjp`` does.
+- LIF/adLIF (``lif_tp``, ``adlif_tp``): no recurrence, so no exchange: the
+  single-card fused cell (``ops.fused_cells``) runs on each block, without
+  the affine and the dropout.
+- ``tp_all_gather``, ``tp_reduce_scatter``: the harnesses that pin the
+  exchange (``csrc/tp_collectives.cu``).
+
+The one-card form: the port runs all P ranks of a mesh that repeats one
+device (``parallel.make_mesh([dev] * P, model=P)``) in one cooperative launch
+on that device, each rank storing into its peers' buffers in the one card's
+memory. The kernels are written against an array of every rank's buffer
+base and a rank (``csrc/tp_exchange.cuh``), but no multi-card run has been
+made (ROADMAP queue 1 item 7). In this form the entry points take the full
+tensors, as the layer holds them: ``Wx (B, T, H)``, ``V (H, H)``, the states
+``(B, H)``; rank r's block is columns ``r*Hl .. (r+1)*Hl`` of each, and the
+gathered initial spikes are the full ``s0``.
+
+Dispatch is ``ops.fused_cells``': a CPU tensor runs the plain versions
+(``tp_all_gather_plain``, ``tp_reduce_scatter_plain``, ``tp_cell_plain``,
+``tp_cell_bwd_plain``), loops over T and over the P blocks in the kernels'
+rounding order; a CUDA tensor launches the kernels or raises. Normalisation
+and dropout stay outside these cells (the layer applies them), as in the JAX
+package. Widths as the JAX kernels take them: H divisible by P*128, B by 8;
+float32 only (the ``mxu_bf16`` form is not ported yet).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, List, Tuple
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from sparch_tpu_torch._build import Kernel
+from sparch_tpu_torch.ops import fused_cells
+
+__all__ = [
+    "KERNELS",
+    "LANE",
+    "SUBLANE",
+    "last_plans",
+    "tp_all_gather",
+    "tp_reduce_scatter",
+    "tp_all_gather_plain",
+    "tp_reduce_scatter_plain",
+    "tp_cell_plain",
+    "tp_cell_bwd_plain",
+    "zero_diag_shard",
+    "rlif_tp",
+    "radlif_tp",
+    "lif_tp",
+    "adlif_tp",
+]
+
+LANE = 128
+SUBLANE = 8
+# widest block a rank takes (csrc/tp_cell_*.cu kThreads * kMaxNpt)
+_MAX_HL = 2048
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_COLLECTIVE_ARGS = [_P] * 4 + [_I] * 7 + [_P, _P]
+TP_ALL_GATHER = Kernel("tp_collectives", "sparch_tp_all_gather",
+                       _COLLECTIVE_ARGS, name="tp_all_gather")
+TP_REDUCE_SCATTER = Kernel("tp_collectives", "sparch_tp_reduce_scatter",
+                           _COLLECTIVE_ARGS, name="tp_reduce_scatter")
+TP_CELL_FWD = Kernel("tp_cell_fwd", "sparch_tp_cell_fwd",
+                     [_P] * 13 + [_I] * 7 + [_F, _I] + [_P, _P])
+TP_CELL_BWD = Kernel("tp_cell_bwd", "sparch_tp_cell_bwd",
+                     [_P] * 20 + [_I] * 7 + [_F, _I, _I] + [_P, _P])
+KERNELS = (TP_ALL_GATHER, TP_REDUCE_SCATTER, TP_CELL_FWD, TP_CELL_BWD)
+
+_PLANS: Dict[str, Tuple[int, ...]] = {}
+
+
+def last_plans() -> Dict[str, Tuple[int, ...]]:
+    """The launch plan of each kernel's last launch: the collectives'
+    (blocks per rank, blocks per SM), the cells' (rows per block, blocks per
+    rank, blocks per SM, threads per block)."""
+    return dict(_PLANS)
+
+
+def _shards(H: int, P: int) -> List[slice]:
+    hl = H // P
+    return [slice(r * hl, (r + 1) * hl) for r in range(P)]
+
+
+def _validate(B: int, H: int, P: int) -> None:
+    """The JAX package's checks (pallas_tp.py:964-970, :619-623)."""
+    if H % (P * LANE):
+        raise ValueError(
+            f"tensor-parallel fused cells need hidden_size divisible by "
+            f"num_model_devices*{LANE} (got H={H}, tp={P}); use the scan "
+            f"cells for other widths"
+        )
+    if B % SUBLANE or (H // P) % LANE:
+        raise ValueError(
+            f"TP kernel needs B%{SUBLANE}==0 and Hl%{LANE}==0, got B={B} "
+            f"Hl={H // P}"
+        )
+
+
+# ---------------------------------------------------------------------------
+# The exchange harnesses
+# ---------------------------------------------------------------------------
+
+
+def tp_all_gather_plain(x, *, num_devices: int, rounds: int = 3):
+    """Plain version of ``csrc/tp_collectives.cu`` ``tp_all_gather``:
+    ``x`` (B, H) holds the P ranks' (B, H/P) blocks side by side; returns
+    (P, rounds, B, H), every rank's gathered planes. Round 0 gathers x;
+    round r > 0 gathers each rank's own block of round r-1's gather + 1
+    (JAX ``_ag_kernel``), so round r holds x + r."""
+    B, H = x.shape
+    out = x.new_empty((num_devices, rounds, B, H))
+    for r in range(rounds):
+        for q, c in enumerate(_shards(H, num_devices)):
+            stage = x[:, c] if r == 0 else out[q, r - 1][:, c] + 1.0
+            out[:, r, :, c] = stage  # every rank receives rank q's block
+    return out
+
+
+def tp_reduce_scatter_plain(parts, *, num_devices: int, rounds: int = 3):
+    """Plain version of ``tp_reduce_scatter``: ``parts`` (P, B, H) holds
+    each rank's partial; returns (rounds, B, H), rank q's reduced block at
+    its columns. Round 0 reduces the partials; round r > 0 reduces
+    ``parts[q] + acc_{r-1}[:, first column of q]`` (JAX ``_rs_kernel``).
+    Rank q adds its own block first, then the blocks of the ranks q-1,
+    q-2, ... (sender offset d = 1..P-1), the JAX kernel's order."""
+    P, B, H = parts.shape
+    sl = _shards(H, num_devices)
+    out = parts.new_empty((rounds, B, H))
+    for r in range(rounds):
+        stages = [parts[q] if r == 0
+                  else parts[q] + out[r - 1][:, c.start:c.start + 1]
+                  for q, c in enumerate(sl)]
+        for q, c in enumerate(sl):
+            acc = stages[q][:, c]
+            for d in range(1, num_devices):
+                acc = acc + stages[(q - d) % num_devices][:, c]
+            out[r][:, c] = acc
+    return out
+
+
+def _check_collective(x, num_devices: int, rounds: int) -> None:
+    H = x.shape[-1]
+    if H % (num_devices * LANE):
+        raise ValueError(
+            f"TP shard width must be lane-aligned: H={H} over "
+            f"{num_devices} ranks")
+    if rounds < 1:
+        raise ValueError(f"rounds must be >= 1, got {rounds}")
+
+
+def _exchange_buffers(slot_shape, dtype, P: int, groups: int, dev):
+    """Every rank's slots and zeroed counters, and the host arrays of their
+    bases that the kernels take (the one-card form: rank q's at index q)."""
+    slots = torch.empty((P,) + tuple(slot_shape), dtype=dtype, device=dev)
+    flags = torch.zeros((P, P, groups, 2), dtype=torch.int32, device=dev)
+    slot_ptrs = (ctypes.c_void_p * P)(*[slots[q].data_ptr()
+                                        for q in range(P)])
+    flag_ptrs = (ctypes.c_void_p * P)(*[flags[q].data_ptr()
+                                        for q in range(P)])
+    return (slots, flags, ctypes.cast(slot_ptrs, ctypes.c_void_p),
+            ctypes.cast(flag_ptrs, ctypes.c_void_p), (slot_ptrs, flag_ptrs))
+
+
+def _launch(kernel: Kernel, dev, *args, n_plan: int):
+    plan = (ctypes.c_int * n_plan)()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        kernel(*args, ctypes.cast(plan, ctypes.c_void_p), stream)
+    _PLANS[kernel.name] = tuple(plan)
+
+
+def _tp_all_gather_cuda(x, *, num_devices: int, rounds: int = 3):
+    B, H = x.shape
+    P, dev = num_devices, x.device
+    fused_cells._check("x", x, (B, H), dev)
+    out = torch.empty((P, rounds, B, H), dtype=torch.float32, device=dev)
+    bufs = _exchange_buffers((2, B, H), torch.float32, P, B, dev)
+    _launch(TP_ALL_GATHER, dev, x.data_ptr(), out.data_ptr(), bufs[2],
+            bufs[3], B, H, P, 0, P, H, rounds, n_plan=2)
+    return out
+
+
+def _tp_reduce_scatter_cuda(parts, *, num_devices: int, rounds: int = 3):
+    P, B, H = parts.shape
+    dev = parts.device
+    fused_cells._check("parts", parts, (num_devices, B, H), dev)
+    out = torch.empty((rounds, B, H), dtype=torch.float32, device=dev)
+    bufs = _exchange_buffers((2, P, B, H // P), torch.float32, P, B, dev)
+    _launch(TP_REDUCE_SCATTER, dev, parts.data_ptr(), out.data_ptr(),
+            bufs[2], bufs[3], B, H, P, 0, P, H, rounds, n_plan=2)
+    return out
+
+
+def tp_all_gather(x, *, num_devices: int, rounds: int = 3):
+    """``rounds`` chained all-gathers over the TP axis (JAX
+    ``tp_all_gather``); see ``tp_all_gather_plain``."""
+    _check_collective(x, num_devices, rounds)
+    fn = fused_cells._by_device(x, tp_all_gather_plain, _tp_all_gather_cuda,
+                                "TP all-gather")
+    return fn(x, num_devices=num_devices, rounds=rounds)
+
+
+def tp_reduce_scatter(parts, *, num_devices: int, rounds: int = 3):
+    """``rounds`` chained reduce-scatters over the TP axis (JAX
+    ``tp_reduce_scatter``); see ``tp_reduce_scatter_plain``."""
+    _check_collective(parts, num_devices, rounds)
+    if parts.shape[0] != num_devices:
+        raise ValueError(f"want one partial per rank, got {parts.shape[0]} "
+                         f"for {num_devices}")
+    fn = fused_cells._by_device(parts, tp_reduce_scatter_plain,
+                                _tp_reduce_scatter_cuda, "TP reduce-scatter")
+    return fn(parts, num_devices=num_devices, rounds=rounds)
+
+
+# ---------------------------------------------------------------------------
+# RLIF / RadLIF: plain versions
+# ---------------------------------------------------------------------------
+
+
+def _first_product(s0, Vcol):
+    """Rank's columns of ``s0 @ V``, summed over k ascending, product then
+    sum, as the kernel takes it (``fused_cells._first_product`` on a column
+    block)."""
+    sV = s0.new_zeros((s0.shape[0], Vcol.shape[1]))
+    for k in range(Vcol.shape[0]):
+        sV = sV + s0[:, k:k + 1] * Vcol[k]
+    return sV
+
+
+def tp_cell_plain(Wx, alpha, beta, a, b, V, threshold, u0, w0, s0, *,
+                  num_devices: int, adaptive: bool,
+                  save_residuals: bool = False):
+    """Plain version of ``csrc/tp_cell_fwd.cu``: the TPU ``_tp_fwd_kernel``'s
+    per-step arithmetic as a loop over T and over the P blocks. Params must
+    already be clamped and V zero-diagonal. Each rank's first product is
+    its columns of ``s0 @ V`` summed over k ascending (s0 need not be 0/1);
+    every later product ``s_full @ V[:, shard]`` has 0/1 spikes on the left.
+    Returns the spikes (B, T, H), and with ``save_residuals`` also the
+    membrane series."""
+    T = Wx.shape[1]
+    sl = _shards(Wx.shape[2], num_devices)
+    u = [u0[:, c] for c in sl]
+    s = [s0[:, c] for c in sl]
+    w = [w0[:, c] for c in sl] if adaptive else None
+    sV = [_first_product(s0, V[:, c]) for c in sl]
+    out = torch.empty_like(Wx)
+    u_seq = torch.empty_like(Wx) if save_residuals else None
+    for t in range(T):
+        for r, c in enumerate(sl):
+            drive = Wx[:, t, c] + sV[r]
+            if adaptive:
+                w[r] = beta[c] * w[r] + a[c] * u[r] + b[c] * s[r]
+                drive = drive - w[r]
+            u[r] = alpha[c] * (u[r] - s[r]) + (1.0 - alpha[c]) * drive
+            s[r] = (u[r] > threshold).to(u[r].dtype)
+            out[:, t, c] = s[r]
+            if save_residuals:
+                u_seq[:, t, c] = u[r]
+        if t + 1 < T:  # the gather of the last step feeds nothing
+            s_full = torch.cat(s, dim=1)
+            sV = [torch.matmul(s_full, V[:, c]) for c in sl]
+    return (out, u_seq) if save_residuals else out
+
+
+def tp_cell_bwd_plain(g, u_seq, alpha, beta, a, b, V, threshold, u0, w0, s0,
+                      *, num_devices: int, adaptive: bool):
+    """Plain version of ``csrc/tp_cell_bwd.cu``: the TPU ``_tp_bwd_kernel``'s
+    adjoint recurrence as a loop over reversed T and over the P blocks. Per
+    step each rank computes D = (1-alpha)*A on its block, the blocks are
+    gathered into D_full, and rank r's recurrent term for the step before
+    is ``D_full @ V[shard_r, :]^T``; dbeta without the w series and dV
+    after the loop, as ``fused_cells.fused_cell_bwd_plain`` takes them.
+    Returns (dWx, dV, dalpha, dbeta, da, db, du0, dw0, ds0), None where
+    RLIF has no such operand."""
+    T = g.shape[1]
+    sl = _shards(g.shape[2], num_devices)
+    zero = [torch.zeros_like(u0[:, c]) for c in sl]
+    A, Bw, Pq, R = list(zero), list(zero), list(zero), list(zero)
+    dal, dbe, daa, dbb = list(zero), list(zero), list(zero), list(zero)
+    dWx = torch.empty_like(u_seq)
+    for t in range(T - 1, -1, -1):
+        dd = []
+        for r, c in enumerate(sl):
+            al = alpha[c]
+            u_t = u_seq[:, t, c]
+            u_p = u_seq[:, t - 1, c] if t > 0 else u0[:, c]
+            s_p = (u_p > threshold).to(u_p.dtype) if t > 0 else s0[:, c]
+            alphaA = al * A[r]
+            C = g[:, t, c].to(u_t.dtype) - alphaA + R[r]
+            if adaptive:
+                C = C + b[c] * Bw[r]
+            wsub = u_t - threshold
+            window = (wsub > -0.5) & (wsub <= 0.5)
+            A_new = torch.where(window, C, torch.zeros_like(C)) + alphaA
+            if adaptive:
+                A_new = A_new + a[c] * Bw[r]
+            d = (1.0 - al) * A_new
+            dWx[:, t, c] = d
+            dal[r] = dal[r] + A_new * (u_p - s_p - u_t)
+            if adaptive:
+                B_new = beta[c] * Bw[r] - d
+                dbe[r] = dbe[r] + (a[c] * u_p + b[c] * s_p) * Pq[r]
+                Pq[r] = B_new + beta[c] * Pq[r]
+                daa[r] = daa[r] + B_new * u_p
+                dbb[r] = dbb[r] + B_new * s_p
+                Bw[r] = B_new
+            A[r] = A_new
+            dd.append(d)
+        D_full = torch.cat(dd, dim=1)
+        R = [torch.matmul(D_full, V[c, :].t()) for c in sl]
+
+    def cat(xs):
+        return torch.cat(xs, dim=-1)
+
+    dalpha = cat([x.sum(0) for x in dal]) / (1.0 - alpha)
+    du0 = cat([alpha[c] * A[r] for r, c in enumerate(sl)])
+    ds0 = cat([-(alpha[c] * A[r]) + R[r] for r, c in enumerate(sl)])
+    dbeta = da = db = dw0 = None
+    if adaptive:
+        du0 = du0 + cat([a[c] * Bw[r] for r, c in enumerate(sl)])
+        ds0 = ds0 + cat([b[c] * Bw[r] for r, c in enumerate(sl)])
+        dw0 = cat([beta[c] * Bw[r] for r, c in enumerate(sl)])
+        dbeta = cat([(dbe[r] + w0[:, c] * Pq[r]).sum(0)
+                     for r, c in enumerate(sl)])
+        da = cat([x.sum(0) for x in daa])
+        db = cat([x.sum(0) for x in dbb])
+    H = g.shape[2]
+    s_prev = torch.cat([s0[:, None], (u_seq[:, :-1] > threshold).to(
+        u_seq.dtype)], dim=1)
+    dV = torch.matmul(s_prev.reshape(-1, H).t(), dWx.reshape(-1, H))
+    return dWx, dV, dalpha, dbeta, da, db, du0, dw0, ds0
+
+
+# ---------------------------------------------------------------------------
+# RLIF / RadLIF: kernels
+# ---------------------------------------------------------------------------
+
+
+def _check_cell(Wx, alpha, beta, a, b, V, u0, w0, s0, adaptive, P):
+    B, T, H = Wx.shape
+    dev = Wx.device
+    _validate(B, H, P)
+    if H // P > _MAX_HL:
+        raise ValueError(f"the TP cell kernels take H/P <= {_MAX_HL}, got "
+                         f"{H // P}")
+    vecs = {"alpha": alpha, **({"beta": beta, "a": a, "b": b}
+                               if adaptive else {})}
+    for name, t in vecs.items():
+        fused_cells._check(name, t, (H,), dev)
+    states = {"u0": u0, "s0": s0, **({"w0": w0} if adaptive else {})}
+    for name, t in states.items():
+        fused_cells._check(name, t, (B, H), dev)
+    fused_cells._check("V", V, (H, H), dev)
+
+
+def _tp_cell_cuda(Wx, alpha, beta, a, b, V, threshold, u0, w0, s0, *,
+                  num_devices: int, adaptive: bool,
+                  save_residuals: bool = False):
+    """Launch ``csrc/tp_cell_fwd.cu`` over all P ranks (the one-card form).
+    Same contract as ``tp_cell_plain``."""
+    B, T, H = Wx.shape
+    P, dev = num_devices, Wx.device
+    fused_cells._check("Wx", Wx, (B, T, H), dev)
+    _check_cell(Wx, alpha, beta, a, b, V, u0, w0, s0, adaptive, P)
+    out = torch.empty_like(Wx)
+    u_seq = torch.empty_like(Wx) if save_residuals else None
+    if not adaptive:
+        beta = a = b = w0 = None
+    ptr = fused_cells._ptr
+    bufs = _exchange_buffers((2, B, H // 32), torch.int32, P, B, dev)
+    _launch(TP_CELL_FWD, dev, ptr(Wx), ptr(alpha), ptr(beta), ptr(a), ptr(b),
+            ptr(V), ptr(u0), ptr(w0), ptr(s0), ptr(out), ptr(u_seq),
+            bufs[2], bufs[3], B, T, H, P, 0, P, H, float(threshold),
+            int(adaptive), n_plan=4)
+    return (out, u_seq) if save_residuals else out
+
+
+def _tp_cell_bwd_cuda(g, u_seq, alpha, beta, a, b, V, threshold, u0, w0, s0,
+                      *, num_devices: int, adaptive: bool):
+    """Launch ``csrc/tp_cell_bwd.cu`` over all P ranks (the one-card form).
+    Same contract as ``tp_cell_bwd_plain``."""
+    B, T, H = g.shape
+    P, dev = num_devices, g.device
+    fused_cells._check("g", g, (B, T, H), dev)
+    fused_cells._check("u_seq", u_seq, (B, T, H), dev)
+    _check_cell(g, alpha, beta, a, b, V, u0, w0, s0, adaptive, P)
+    # one V^T for all ranks: rank r's V[shard_r, :]^T is its column block
+    VT = V.t().contiguous()
+    ksplit = fused_cells._bwd_plan(B, T, H)[2]
+
+    def new(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    dWx = torch.empty_like(g)
+    # per-block partials: a rank has at most one block per batch row
+    partials, vecs = new(P, B, 4, H // P), new(4, H)
+    dV, dv_partials = new(H, H), new(ksplit, H, H)
+    du0, ds0 = new(B, H), new(B, H)
+    dw0 = new(B, H) if adaptive else None
+    if not adaptive:
+        beta = a = b = w0 = None
+    ptr = fused_cells._ptr
+    bufs = _exchange_buffers((2, B, H), torch.float32, P, B, dev)
+    _launch(TP_CELL_BWD, dev, ptr(g), ptr(u_seq), ptr(alpha), ptr(beta),
+            ptr(a), ptr(b), ptr(VT), ptr(u0), ptr(w0), ptr(s0), ptr(dWx),
+            ptr(partials), ptr(vecs), ptr(dV), ptr(dv_partials), ptr(du0),
+            ptr(dw0), ptr(ds0), bufs[2], bufs[3], B, T, H, P, 0, P, H,
+            float(threshold), int(adaptive), ksplit, n_plan=4)
+    dalpha, dbeta, da, db = vecs.unbind(0)
+    if not adaptive:
+        dbeta = da = db = None
+    return dWx, dV, dalpha, dbeta, da, db, du0, dw0, ds0
+
+
+class _TPCell(torch.autograd.Function):
+    """The TP cell on clamped and masked operands (JAX ``_get_tp_op``). A
+    None operand (RLIF: beta, a, b, w0) gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, Wx, alpha, beta, a, b, V, u0, w0, s0, threshold,
+                adaptive, num_devices):
+        fwd = fused_cells._by_device(Wx, tp_cell_plain, _tp_cell_cuda,
+                                     "TP cell")
+        flags = dict(num_devices=num_devices, adaptive=adaptive)
+        args = (Wx, alpha, beta, a, b, V, threshold, u0, w0, s0)
+        if not any(ctx.needs_input_grad):
+            return fwd(*args, **flags)
+        out, u_seq = fwd(*args, save_residuals=True, **flags)
+        ctx.flags = dict(flags, threshold=threshold)
+        ctx.save_for_backward(u_seq, alpha, beta, a, b, V, u0, w0, s0)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        u_seq, alpha, beta, a, b, V, u0, w0, s0 = ctx.saved_tensors
+        flags = dict(ctx.flags)
+        threshold = flags.pop("threshold")
+        bwd = fused_cells._by_device(g, tp_cell_bwd_plain, _tp_cell_bwd_cuda,
+                                     "TP cell backward")
+        # the cotangent often arrives as a view (the bidirectional split)
+        (dWx, dV, dalpha, dbeta, da, db, du0, dw0,
+         ds0) = bwd(g.contiguous(), u_seq, alpha, beta, a, b, V, threshold,
+                    u0, w0, s0, **flags)
+        return (dWx, dalpha, dbeta, da, db, dV, du0, dw0, ds0, None, None,
+                None)
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+
+def zero_diag_shard(Vcol, rank: int):
+    """Zero the global diagonal of rank ``rank``'s column block (H, Hl) of V
+    (JAX ``zero_diag_shard``): row ``rank*Hl + c`` of column c. A
+    differentiable mask, so no gradient reaches the diagonal."""
+    Hg, Hl = Vcol.shape
+    rows = torch.arange(Hg, device=Vcol.device)[:, None]
+    cols = torch.arange(Hl, device=Vcol.device)[None, :] + rank * Hl
+    return Vcol * (rows != cols).to(Vcol.dtype)
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    return a.type == b.type and (a.index is None or b.index is None
+                                 or a.index == b.index)
+
+
+def _tp_size(mesh, tp_axis: str, x) -> int:
+    """P, the length of the mesh's TP axis, for a one-card mesh on the
+    device of ``x``."""
+    if tp_axis not in mesh.shape:
+        raise ValueError(f"the mesh has no axis {tp_axis!r}: {mesh.shape}")
+    if not mesh.one_card:
+        raise NotImplementedError(
+            "TP ranks on distinct cards: ROADMAP queue 1 item 7")
+    if not _same_device(x.device, mesh.device):
+        raise ValueError(f"the tensors lie on {x.device}, the mesh on "
+                         f"{mesh.device}")
+    return mesh.shape[tp_axis]
+
+
+def _prepare(Wx, alpha, beta, a, b, V, u0, w0, s0, mesh, tp_axis):
+    P = _tp_size(mesh, tp_axis, Wx)
+    B, _, H = Wx.shape
+    _validate(B, H, P)
+    if Wx.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            "the TP cells' bf16-stream form is ROADMAP queue 2 item 11")
+    # the state in the stream's type, whatever type it was drawn in
+    u0, s0 = u0.to(Wx.dtype), s0.to(Wx.dtype)
+    if w0 is not None:
+        w0 = w0.to(Wx.dtype)
+    alpha, beta, a, b, _ = fused_cells.clip_and_mask(alpha, beta, a, b)
+    V = torch.cat([zero_diag_shard(V[:, c], r)
+                   for r, c in enumerate(_shards(H, P))], dim=1)
+    return P, (alpha, beta, a, b, V, u0, w0, s0)
+
+
+def rlif_tp(Wx, alpha, V, threshold, u0, s0, *, mesh, tp_axis="model"):
+    """Tensor-parallel fused RLIF over the mesh's TP axis (JAX
+    ``rlif_tp_sharded``; semantics ``cells.rlif_scan``)."""
+    P, (alpha, _, _, _, V, u0, _, s0) = _prepare(
+        Wx, alpha, None, None, None, V, u0, None, s0, mesh, tp_axis)
+    return _TPCell.apply(Wx, alpha, None, None, None, V, u0, None, s0,
+                         float(threshold), False, P)
+
+
+def radlif_tp(Wx, alpha, beta, a, b, V, threshold, u0, w0, s0, *, mesh,
+              tp_axis="model"):
+    """Tensor-parallel fused RadLIF over the mesh's TP axis (JAX
+    ``radlif_tp_sharded``; semantics ``cells.radlif_scan``)."""
+    P, (alpha, beta, a, b, V, u0, w0, s0) = _prepare(
+        Wx, alpha, beta, a, b, V, u0, w0, s0, mesh, tp_axis)
+    return _TPCell.apply(Wx, alpha, beta, a, b, V, u0, w0, s0,
+                         float(threshold), True, P)
+
+
+def _per_block(fn, Wx, mesh, tp_axis, vecs, states):
+    """``fn`` on each rank's column block, the outputs side by side."""
+    P = _tp_size(mesh, tp_axis, Wx)
+    H = Wx.shape[-1]
+    if H % P:
+        raise ValueError(f"H={H} does not split over {P} ranks")
+    return torch.cat([
+        fn(Wx[..., c].contiguous(), *[v[c] for v in vecs],
+           *[s[:, c].contiguous() for s in states])
+        for c in _shards(H, P)], dim=-1)
+
+
+def lif_tp(Wx, alpha, threshold, u0, s0, *, mesh, tp_axis="model"):
+    """Neuron-sharded LIF (JAX ``lif_tp_sharded``): no recurrence, so no
+    exchange; the single-card fused cell runs on each block."""
+    return _per_block(
+        lambda x, al, u, s: fused_cells.lif_fused(x, al, threshold, u, s),
+        Wx, mesh, tp_axis, (alpha,), (u0, s0))
+
+
+def adlif_tp(Wx, alpha, beta, a, b, threshold, u0, w0, s0, *, mesh,
+             tp_axis="model"):
+    """Neuron-sharded adLIF (JAX ``adlif_tp_sharded``)."""
+    return _per_block(
+        lambda x, al, be, aa, bb, u, w, s: fused_cells.adlif_fused(
+            x, al, be, aa, bb, threshold, u, w, s),
+        Wx, mesh, tp_axis, (alpha, beta, a, b), (u0, w0, s0))

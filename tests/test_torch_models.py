@@ -209,8 +209,11 @@ def test_unported_options_raise():
         build_model("RadLIF", (2, 3, 4), [8, 3], compute_dtype=torch.float16)
     with pytest.raises(ValueError, match="mxu_precision"):
         build_model("GRU", (2, 3, 4), [8, 3], mxu_precision="low")
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        build_model("RadLIF", (2, 3, 4), [8, 3], cell_impl="pallas_tp")
+    # cell_impl='pallas_tp' is ported for the spiking family: it needs a
+    # mesh and says so when it runs without one
+    with pytest.raises(ValueError, match="tp_mesh"):
+        build_model("RadLIF", (8, 3, 4), [128, 3],
+                    cell_impl="pallas_tp")(torch.ones(8, 3, 4))
     # the fused dropout is ported: a train-mode forward runs and drops
     model = build_model("RadLIF", (2, 3, 4), [8, 3], cell_impl="pallas",
                         dropout=0.5).train()
