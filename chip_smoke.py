@@ -133,12 +133,33 @@ all at once), then prints one JSON line per phase:
    the trained weights (V back on the 2^-8 grid, zero state init): the
    probabilities bit for bit against the plain versions' and P = 1's, and
    against scan by the witness rule of phase 4. No multi-card run is made.
-20. ``kernels``: each kernel with its launches on its main path (spiking
+20. ``kernel_vs_plain`` for ``tp_ann_fwd``: the TP RNN, LiGRU and GRU at
+   P = 1, 2, 4 on the main path's shape (B=128, T=100, H=1024), recurrent
+   matrices orthogonal * 0.5: the output and the gate series against
+   ``tp_ann_cell_plain`` by the rule of phase 9, the serving form alike;
+   bit for bit across P, against the single-card ``fused_ann_fwd`` without
+   the affine and the dropout, and between two launches.
+21. ``kernel_vs_plain`` for ``tp_ann_bwd``: the same on the plain forward's
+   residuals; every gradient against ``tp_ann_cell_bwd_plain`` by the rule
+   of phase 6, bit for bit across P, against the single-card
+   ``fused_ann_bwd`` and between two launches.
+22. ``training_tp_ann``: a GRU [1024, 1024, 35] trainer (batchnorm, dropout
+   0.1, Adam at lr 1e-2) on one batch of 128 SC-shaped utterances, ``scan``,
+   ``auto`` and ``pallas_tp`` at P = 1, 2, 4, checked and timed as phase 8
+   (two TP forward and two TP backward launches per step, no other
+   kernel), P = 2 and 4 against P = 1; then one ``make_eval_step`` pass per
+   variant over the trained weights: the probabilities of every P bit for
+   bit against P = 1's, and against the plain versions' and scan's by the
+   witness rule of phase 4. LiGRU and RNN at the same width: ``auto`` and
+   ``pallas_tp`` at P = 2 for three steps at lr 1e-3 (at 1e-2 the LiGRU
+   diverges on every path), checked alike.
+23. ``kernels``: each kernel with its launches on its main path (spiking
    serving: the "calibrated" model's ``pallas`` run; spiking training: the
    ``pallas`` trainer's 10 steps; non-spiking: the ``auto`` Predictor's and
    the ``auto`` trainer's runs of its model; the bf16 forms: the bf16
    ``auto`` runs; the TP collectives: phase 16's calls; the TP cells: the
-   P = 4 trainer's 10 steps), its error, its time beside
+   P = 4 trainer's 10 steps; the TP ANN cells: the P = 4 GRU trainer's 10
+   steps, and by mode the P = 2 runs), its error, its time beside
    its plain version's, and its bound: the larger of its bytes over the
    card's memory rate and its operations over the card's float32 rate, from
    this run's shapes and firing rates. No library call computes any of
@@ -935,7 +956,7 @@ def training_state(dev):
 
 
 def train_run(dev, impl, state_dict, x, y, steps, seed=0,
-              model_type="RadLIF", sizes=(H, H, C), **model_kw):
+              model_type="RadLIF", sizes=(H, H, C), lr=LR, **model_kw):
     """``steps`` training steps of a new trainer, in the type of ``x``
     (``model_kw``: ``compute_dtype``, ``remat``, ``bidirectional``,
     ``tp_mesh``); returns (model, state, losses, first-step gradients,
@@ -948,7 +969,7 @@ def train_run(dev, impl, state_dict, x, y, steps, seed=0,
                         dropout=P_DROP, normalization="batchnorm",
                         state_init="uniform", cell_impl=impl, **model_kw)
     model.load_state_dict(state_dict)
-    state = create_train_state(model.to(x.dtype), LR, device=dev, seed=seed)
+    state = create_train_state(model.to(x.dtype), lr, device=dev, seed=seed)
     step = make_train_step(model)
     losses, grads = [], None
     fused_cells.reset_launch_counts()
@@ -990,7 +1011,7 @@ def step_split_ms(model, state, x, y, n=10):
 def train_variant(dev, impl, state_dict, x, y, per_step, scan_row,
                   model_type="RadLIF", steps=TRAIN_STEPS, timed=True,
                   grad_rel_max=GRAD_REL_MAX, sizes=(H, H, C), keep=None,
-                  **model_kw):
+                  lr=LR, **model_kw):
     """One ``cell_impl`` of a training phase: ``steps`` steps of a new
     trainer with the launch counters set to 0 just before and read just
     after; every kernel of the variant launched ``per_step`` times per step
@@ -1001,15 +1022,15 @@ def train_variant(dev, impl, state_dict, x, y, per_step, scan_row,
     relative, every gradient within ``grad_rel_max`` of its largest
     magnitude or else by the float64 witness rule of the backward
     phases), and (loosely, where ``scan_row`` is given) against scan's.
-    ``model_kw`` (``compute_dtype``, ``bidirectional``, ``tp_mesh``) goes
-    to every trainer of the variant. ``keep`` (a dict) receives the
+    ``model_kw`` (``compute_dtype``, ``bidirectional``, ``tp_mesh``) and
+    ``lr`` go to every trainer of the variant. ``keep`` (a dict) receives the
     step-1 gradients and the state dict after the steps. Returns (row,
     launch counts)."""
     from sparch_tpu_torch.train import make_train_step
     from sparch_tpu_torch.utils.timing import cuda_time_ms
 
     what = f"{model_type} {impl}" + (f" {model_kw}" if model_kw else "")
-    run = dict(model_type=model_type, sizes=sizes, **model_kw)
+    run = dict(model_type=model_type, sizes=sizes, lr=lr, **model_kw)
     model, state, losses, grads, counts = train_run(
         dev, impl, state_dict, x, y, steps, **run)
     want = {k: steps * per_step.get(k, 0) for k in counts}
@@ -2300,6 +2321,391 @@ def tp_kernel_rows(coll_launches, coll, fwd, bwd, trained):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The tensor-parallel non-spiking path: cell_impl='pallas_tp' for RNN, LiGRU
+# and GRU, one-card form
+# ---------------------------------------------------------------------------
+
+TP_ANN_PER_STEP = {"tp_ann_fwd": 2, "tp_ann_bwd": 2}  # two hidden layers
+
+
+def tp_ann_inputs(mode, shape, seed, dev):
+    """``ann_inputs`` without the affine (a TP layer applies its norm before
+    the cell), the recurrent matrices orthogonal * 0.5: the conditioning
+    tests/test_pallas_tp_ann.py keeps for the LiGRU's relu candidate."""
+    d = ann_inputs(mode, shape, seed, dev)
+    return dict(wxs=d["wxs"], vs=[0.5 * v for v in d["vs"]], y0=d["y0"])
+
+
+def tp_ann_grad_names(mode):
+    from sparch_tpu_torch.ops import fused_ann
+
+    gates = ("", "z", "r")[:fused_ann.MODES[mode]]
+    return tuple(f"d{k}{g}" for k in ("Wx", "V") for g in gates) + ("dy0",)
+
+
+def _double(ts):
+    return [t.double() for t in ts]
+
+
+def phase_tp_ann_forward(dev):
+    """``tp_ann_fwd`` (RNN, LiGRU, GRU) at P = 1, 2, 4 on the main path's
+    shape (128, 100, 1024): the output and the gate series against
+    ``tp_ann_cell_plain`` by the rule of phase 9 (``series_within_bound``),
+    the serving form alike; the kernel's output and series bit for bit
+    across P, equal to the single-card ``fused_ann_fwd`` without the affine
+    and the dropout (every product sums its Hg terms in one ascending
+    order), and two launches alike. Times of the training form (the one the
+    trainer launches) and the serving form beside the plain version's and
+    the single-card kernel's. Returns the rows by mode and P."""
+    from sparch_tpu_torch.ops import fused_ann, fused_tp, fused_tp_ann
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    shape = (B, T, TP_H)
+    main = {}
+    for mode in ANN_TYPES:
+        d = tp_ann_inputs(mode, shape, 4, dev)
+        args = (mode, d["wxs"], d["vs"], d["y0"])
+        args64 = (mode, _double(d["wxs"]), _double(d["vs"]), d["y0"].double())
+        names = ("y",) + fused_tp_ann._MODES[mode]["gates"]
+
+        def flat(r):
+            return (r[0], *r[1])
+
+        def single_card():
+            out, _, gates = fused_ann._ann_cell_cuda(
+                mode, d["wxs"], None, None, d["vs"], d["y0"],
+                save_residuals=True)
+            return (out, *gates)
+
+        with torch.no_grad():
+            single = single_card()
+        main[mode] = dict(single_card_kernel_ms=cuda_time_ms(
+            single_card, warmup=1, iters=5, repeats=3))
+        ref = None
+        for P in TP_PS:
+            what = f"tp_ann_fwd {mode} {shape} P={P}"
+            kw = dict(num_devices=P)
+            with torch.no_grad():
+                got = flat(fused_tp_ann._tp_ann_cell_cuda(
+                    *args, **kw, save_residuals=True))
+                plan = fused_tp.last_plans()["tp_ann_fwd"]
+                again = flat(fused_tp_ann._tp_ann_cell_cuda(
+                    *args, **kw, save_residuals=True))
+                served = fused_tp_ann._tp_ann_cell_cuda(*args, **kw)
+                want = flat(fused_tp_ann.tp_ann_cell_plain(
+                    *args, **kw, save_residuals=True))
+                torch.cuda.synchronize()
+                errs = series_within_bound(
+                    what, names, (ANN_ATOL,) * len(names), got, want,
+                    lambda: flat(fused_tp_ann.tp_ann_cell_plain(
+                        *args64, **kw, save_residuals=True)))
+            ref = ref or got
+            for n, x, z, r, s1 in zip(names, got, again, ref, single):
+                check(torch.equal(x, z), f"{what}: {n} differs between two "
+                                         f"launches")
+                check(torch.equal(x, r), f"{what}: {n} differs from P=1")
+                check(torch.equal(x, s1), f"{what}: {n} differs from the "
+                                          f"single-card kernel")
+            check(torch.equal(served, got[0]),
+                  f"{what}: the serving form differs")
+            row = dict(cell=mode, shape=list(shape), P=P,
+                       one_card_form=P > 1, plan=plan, abs_err=errs,
+                       max_abs_err=max(e["vs_plain"] for e in errs.values()),
+                       two_launches_bit_equal=True, equals_p1=True,
+                       equals_single_card_kernel=True)
+            with torch.no_grad():
+                row["ms"] = cuda_time_ms(
+                    lambda: fused_tp_ann._tp_ann_cell_cuda(
+                        *args, **kw, save_residuals=True),
+                    warmup=1, iters=5, repeats=3)
+                row["ms_serving"] = cuda_time_ms(
+                    lambda: fused_tp_ann._tp_ann_cell_cuda(*args, **kw),
+                    warmup=1, iters=5, repeats=3)
+                row["plain_ms"] = cuda_time_ms(
+                    lambda: fused_tp_ann.tp_ann_cell_plain(
+                        *args, **kw, save_residuals=True), **PLAIN_ROUNDS)
+            row["single_card_kernel_ms"] = main[mode]["single_card_kernel_ms"]
+            main[mode][P] = row
+            emit("kernel_vs_plain", kernel="tp_ann_fwd", **row)
+    return main
+
+
+def phase_tp_ann_backward(dev):
+    """``tp_ann_bwd`` (RNN, LiGRU, GRU) at P = 1, 2, 4 on the main path's
+    shape: both sides get the plain forward's residuals; every gradient
+    (per gate dWx and dV; dy0) against ``tp_ann_cell_bwd_plain`` by the rule
+    of phase 6 (``grads_within_bound``); two launches bit-equal; every
+    gradient bit for bit across P and equal to the single-card
+    ``fused_ann_bwd`` without the affine and the dropout. Times beside the
+    plain version's and the single-card kernel's. Returns the rows by mode
+    and P."""
+    from sparch_tpu_torch.ops import fused_ann, fused_tp, fused_tp_ann
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    shape = (B, T, TP_H)
+    main = {}
+    for mode in ANN_TYPES:
+        d = tp_ann_inputs(mode, shape, 4, dev)
+        g = torch.randn(shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(6))
+        names = tp_ann_grad_names(mode)
+        with torch.no_grad():
+            out, gates = fused_tp_ann.tp_ann_cell_plain(
+                mode, d["wxs"], d["vs"], d["y0"], num_devices=1,
+                save_residuals=True)
+        bargs = (mode, g, out, gates, d["vs"], d["y0"])
+        bargs64 = (mode, g.double(), out.double(), _double(gates),
+                   _double(d["vs"]), d["y0"].double())
+
+        def flat(r):
+            return (*r[0], *r[1], r[2])
+
+        def single_card():
+            dwxs, _, _, dvs, dy0 = fused_ann._ann_cell_bwd_cuda(
+                mode, g, None, out, list(gates), None, d["vs"], d["y0"])
+            return (*dwxs, *dvs, dy0)
+
+        with torch.no_grad():
+            single = single_card()
+        main[mode] = dict(single_card_kernel_ms=cuda_time_ms(
+            single_card, warmup=1, iters=5, repeats=3))
+        ref = None
+        for P in TP_PS:
+            what = f"tp_ann_bwd {mode} {shape} P={P}"
+            kw = dict(num_devices=P)
+            with torch.no_grad():
+                got = flat(fused_tp_ann._tp_ann_cell_bwd_cuda(*bargs, **kw))
+                plan = fused_tp.last_plans()["tp_ann_bwd"]
+                again = flat(fused_tp_ann._tp_ann_cell_bwd_cuda(*bargs, **kw))
+                want = flat(fused_tp_ann.tp_ann_cell_bwd_plain(*bargs, **kw))
+                torch.cuda.synchronize()
+                errs = grads_within_bound(
+                    what, got, want,
+                    lambda: flat(fused_tp_ann.tp_ann_cell_bwd_plain(
+                        *bargs64, **kw)), names=names)
+            ref = ref or got
+            for n, x, z, r, s1 in zip(names, got, again, ref, single):
+                check(torch.equal(x, z), f"{what}: {n} differs between two "
+                                         f"launches")
+                check(torch.equal(x, r), f"{what}: {n} differs from P=1")
+                check(torch.equal(x, s1), f"{what}: {n} differs from the "
+                                          f"single-card kernel")
+            row = dict(cell=mode, shape=list(shape), P=P,
+                       one_card_form=P > 1, plan=plan, rel_err=errs,
+                       max_abs_err=float((got[0] - want[0]).abs().max()),
+                       two_launches_bit_equal=True, equals_p1=True,
+                       equals_single_card_kernel=True)
+            with torch.no_grad():
+                row["ms"] = cuda_time_ms(
+                    lambda: fused_tp_ann._tp_ann_cell_bwd_cuda(*bargs, **kw),
+                    warmup=1, iters=5, repeats=3)
+                row["plain_ms"] = cuda_time_ms(
+                    lambda: fused_tp_ann.tp_ann_cell_bwd_plain(*bargs, **kw),
+                    **PLAIN_ROUNDS)
+            row["single_card_kernel_ms"] = main[mode]["single_card_kernel_ms"]
+            main[mode][P] = row
+            emit("kernel_vs_plain", kernel="tp_ann_bwd", **row)
+    return main
+
+
+def tp_ann_state(ann_type):
+    """State dict of a TP ANN trainer: [1024, 1024, 35] from seed 0."""
+    from sparch_tpu_torch.models import build_model
+
+    return build_model(ann_type, (B, T, TP_F), list(TP_SIZES),
+                       dropout=P_DROP,
+                       generator=torch.Generator().manual_seed(0)).state_dict()
+
+
+def eval_tp_ann(dev, state_dict, x, y):
+    """One ``make_eval_step`` pass of the GRU over the trained weights, for
+    scan and for pallas_tp at P = 1, 2, 4, counters set to 0 just before
+    each and read just after (one forward launch per layer). The
+    probabilities (the softmax of the logits, as ``Predictor`` serves an
+    ANN) of every P equal P = 1's bit for bit; against the plain versions
+    and against scan by the rule of phase 4, with the scan model on the host
+    CPU as the witness."""
+    from sparch_tpu_torch.models import build_model
+    from sparch_tpu_torch.ops import fused_cells
+    from sparch_tpu_torch.train import create_train_state, make_eval_step
+
+    def run(impl, P=None, device=dev, data=(x, y)):
+        model = build_model("GRU", (B, T, TP_F), list(TP_SIZES),
+                            cell_impl=impl,
+                            tp_mesh=tp_mesh(device, P) if P else None)
+        model.load_state_dict(state_dict)
+        state = create_train_state(model, LR, device=device)
+        step = make_eval_step(model)
+        fused_cells.reset_launch_counts()
+        met = step(state, *data)
+        counts = fused_cells.launch_counts()
+        with torch.no_grad():
+            out, _ = model(data[0])
+        probs = torch.softmax(out, dim=-1).cpu().numpy()
+        met = {k: float(v) for k, v in met.items()}
+        return (probs.argmax(-1), probs), met, counts
+
+    rows = {}
+    scan, scan_met, _ = run("scan")
+    host, _, _ = run("scan", device=torch.device("cpu"),
+                     data=(x.cpu(), y.cpu()))
+    witness = _agreement(scan, host)
+    label_min = witness["label_agreement"] - WITNESS_LABEL_MARGIN
+    prob_max = max(WITNESS_PROB_FACTOR * witness["max_abs_prob_diff"], 1e-3)
+    first = None
+    for P in TP_PS:
+        what = f"eval GRU pallas_tp P={P}"
+        got, met, counts = run("pallas_tp", P)
+        want = {k: 2 if k == "tp_ann_fwd" else 0 for k in counts}
+        check(counts == want, f"{what}: kernel launches {counts}")
+        with plain_versions():
+            plain, _, _ = run("pallas_tp", P)
+        first = first or got
+        check(np.array_equal(got[1], first[1]), f"{what}: differs from P=1")
+        agree = {"plain_versions": _agreement(got, plain),
+                 "scan": _agreement(got, scan)}
+        for k, a in agree.items():
+            check(a["label_agreement"] >= label_min and
+                  a["max_abs_prob_diff"] <= prob_max,
+                  f"{what}: vs {k} {a}, witness {witness}")
+        rows[f"pallas_tp_p{P}"] = dict(
+            metrics=met, launches={k: n for k, n in counts.items() if n},
+            equals_p1=True, vs_plain_versions=agree["plain_versions"],
+            vs_scan=agree["scan"])
+    rows["scan"] = dict(metrics=scan_met, scan_card_vs_cpu=witness,
+                        vs_label_min=label_min, vs_prob_max=prob_max)
+    return rows
+
+
+def phase_training_tp_ann(dev):
+    """The TP non-spiking training main path: GRU [1024, 1024, 35]
+    (batchnorm, dropout 0.1, Adam lr 1e-2) on one device-resident batch of
+    128 SC-shaped utterances (F=40 features drawn normal(0, 1)), ``scan``,
+    ``auto`` and ``pallas_tp`` at P = 1, 2, 4 from one state dict and seed,
+    each checked and timed as phase 8 (two TP forward and two TP backward
+    launches per step, no other kernel); P = 2 and 4 against P = 1 (step-1
+    gradients within GRAD_REL_MAX); then ``eval_tp_ann``. LiGRU and RNN at
+    the same width: ``auto`` and ``pallas_tp`` at P = 2 for three steps at
+    lr 1e-3, checked alike, the step-1 loss within 10 % of the ``auto``
+    twin's (the two draw other dropout masks). At lr 1e-2 the LiGRU [1024,
+    1024, 35] diverges on every path, the plain scan on the host CPU
+    included: Adam's first steps move each entry of V by about lr, so the
+    unbounded relu candidate explodes by the third step; at 1e-3 its loss
+    falls 4.11 -> 0.59 in three steps. Returns the launch counts of each
+    run."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn((B, T, TP_F), generator=gen, device=dev)
+    y = torch.randint(0, C, (B,), generator=gen, device=dev)
+    launches = {}
+    for mode in ("gru", "ligru", "rnn"):
+        ann_type = ANN_TYPES[mode]
+        state_dict = tp_ann_state(ann_type)
+        main = mode == "gru"
+        ps = TP_PS if main else (2,)
+        common = dict(model_type=ann_type, sizes=TP_SIZES,
+                      steps=TRAIN_STEPS if main else 3, timed=main,
+                      lr=LR if main else 1e-3,
+                      grad_rel_max=KINK_GRAD_REL_MAX if mode == "ligru"
+                      else GRAD_REL_MAX)
+        rows, kept = {}, {}
+        if main:
+            rows["scan"], _ = train_variant(dev, "scan", state_dict, x, y,
+                                            {}, None, **common)
+        rows["auto"], _ = train_variant(
+            dev, "auto", state_dict, x, y,
+            {f"fused_ann_fwd_{mode}": 2, f"fused_ann_bwd_{mode}": 2},
+            rows.get("scan"), **common)
+        for P in ps:
+            kept[P] = {}
+            key = f"pallas_tp_p{P}"
+            rows[key], launches[(mode, P)] = train_variant(
+                dev, "pallas_tp", state_dict, x, y, TP_ANN_PER_STEP,
+                rows.get("scan"), keep=kept[P], tp_mesh=tp_mesh(dev, P),
+                **common)
+            auto_loss = rows["auto"]["losses"][0]
+            rows[key]["vs_auto_step1_loss_rel_diff"] = rel = \
+                abs(rows[key]["losses"][0] - auto_loss) / auto_loss
+            check(rel <= 0.1, f"{ann_type} pallas_tp P={P}: step-1 loss "
+                              f"{rows[key]['losses'][0]} vs auto's "
+                              f"{auto_loss}")
+            if P > 1 and main:
+                gaps = {k: rel_err(v, kept[1]["grads"][k])
+                        for k, v in kept[P]["grads"].items()}
+                worst = max(gaps, key=gaps.get)
+                rows[key]["vs_p1_step1_grads"] = dict(
+                    max_rel_err=gaps[worst], at=worst, bound=GRAD_REL_MAX)
+                check(gaps[worst] <= GRAD_REL_MAX,
+                      f"{ann_type} pallas_tp P={P}: step-1 gradient of "
+                      f"{worst} is {gaps[worst]} from P=1's")
+        if main:
+            rows["eval"] = eval_tp_ann(dev, kept[1]["state_dict"], x, y)
+        emit("training_tp_ann", model=f"{ann_type} [1024, 1024, 35]",
+             batch_size=B, T=T, F=TP_F, dropout=P_DROP, lr=common["lr"],
+             steps=common["steps"], one_card_form="P > 1", **rows)
+    return launches
+
+
+def tp_ann_bounds(mode, b, t, h):
+    """Bounds of the TP ANN kernels over all ranks at (b, t, h): the
+    training forward reads the input streams and writes the output and the
+    gate series, reads the matrices and y0; one dense product of 2*b*t*h*h
+    per gate. The backward reads g, the y and gate series, y0 and the
+    matrices, writes dWx per gate, dV and dy0; two dense products per gate
+    (the per-step adjoint and dV)."""
+    from sparch_tpu_torch.ops import fused_ann
+
+    n = fused_ann.MODES[mode]
+    series = len(fused_ann._GATE_SERIES[mode])
+    stream, mat, state = 4.0 * b * t * h, 4.0 * h * h, 4.0 * b * h
+    product = 2.0 * b * t * h * h
+    return dict(
+        fwd=bound((n + 1 + series) * stream + n * mat + state,
+                  n * product + 12.0 * n * b * t * h),
+        bwd=bound((2 + series + n) * stream + 2 * n * mat + 2 * state,
+                  2 * n * product + 30.0 * n * b * t * h),
+    )
+
+
+def tp_ann_kernel_rows(fwd, bwd, trained):
+    """The ``kernels`` entries of the TP ANN path: the GRU at P = 4 (all
+    four ranks in one launch on the one card), each P's and each mode's
+    beside it; launches: the P = 4 GRU trainer's run, and the P = 2 runs
+    of the LiGRU and the RNN by mode."""
+    src = "sparch_tpu_torch/csrc/"
+    tpu = "sparch_tpu/ops/pallas_tp_ann.py:"
+    P = TP_PS[-1]
+    rows = []
+    for name, line, res in (("tp_ann_fwd", "126", fwd),
+                            ("tp_ann_bwd", "326", bwd)):
+        direction = name[-3:]
+        by_mode = {}
+        for mode in ANN_TYPES:
+            ps = TP_PS if mode == "gru" else (2,)
+            by_mode[mode] = dict(
+                ms_by_p={q: res[mode][q]["ms"] for q in TP_PS},
+                plain_ms_by_p={q: res[mode][q]["plain_ms"] for q in TP_PS},
+                max_abs_err=max(res[mode][q]["max_abs_err"] for q in TP_PS),
+                single_card_kernel_ms=res[mode]["single_card_kernel_ms"],
+                launches_by_p={q: trained[(mode, q)][name] for q in ps},
+                **tp_ann_bounds(mode, B, T, TP_H)[direction])
+            if direction == "fwd":
+                by_mode[mode]["ms_serving_by_p"] = {
+                    q: res[mode][q]["ms_serving"] for q in TP_PS}
+        main = res["gru"][P]
+        rows.append(dict(
+            name=name, route="cuda", source=src + name + ".cu",
+            replaces=tpu + line, launches=trained[("gru", P)][name],
+            max_abs_err=main["max_abs_err"], ms=main["ms"],
+            plain_ms=main["plain_ms"],
+            **tp_ann_bounds("gru", B, T, TP_H)[direction], library_ms=None,
+            one_card_form=True, P=P, mode="gru", shape=[B, T, TP_H],
+            ms_by_p=by_mode["gru"]["ms_by_p"],
+            single_card_kernel_ms=main["single_card_kernel_ms"],
+            by_mode=by_mode))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2340,6 +2746,9 @@ def main() -> int:
     tp_fwd = run("tp_cell_forward", phase_tp_cell_forward, dev)
     tp_bwd = run("tp_cell_backward", phase_tp_cell_backward, dev)
     tp_trained = run("training_tp", phase_training_tp, dev)
+    tp_ann_fwd = run("tp_ann_forward", phase_tp_ann_forward, dev)
+    tp_ann_bwd = run("tp_ann_backward", phase_tp_ann_backward, dev)
+    tp_ann_trained = run("training_tp_ann", phase_training_tp_ann, dev)
     emit("seconds", **seconds)
     cb = cell_bounds(cell.pop("firing_rate"))
     readout_bytes = 4.0 * (B * T * C + 2 * B * C + C)
@@ -2377,7 +2786,8 @@ def main() -> int:
         + bf16_kernel_rows(bf16_cell, bf16_bwd, bf16_ann_fwd, bf16_ann_bwd,
                            bf16_served, bf16_trained) \
         + tp_kernel_rows(tp_coll_launches, tp_coll, tp_fwd, tp_bwd,
-                         tp_trained)
+                         tp_trained) \
+        + tp_ann_kernel_rows(tp_ann_fwd, tp_ann_bwd, tp_ann_trained)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("fused_cell_fwd", "fused_cell_bwd", "readout_fwd", "readout_bwd",
            "fused_ann_fwd", "fused_ann_bwd", "tp_collectives", "tp_cell_fwd",
-           "tp_cell_bwd")
+           "tp_cell_bwd", "tp_ann_fwd", "tp_ann_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",

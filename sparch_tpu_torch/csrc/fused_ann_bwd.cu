@@ -59,7 +59,8 @@
 //   with the stored dpre series (dWx itself without the affine, else a
 //   scratch series written beside it, since dWx is then dpre*scale).
 //   64x64 tiles, 4x4 per thread, split over B*T into partials that the
-//   same second kernel adds in ascending order.
+//   same second kernel adds in ascending order (dv_product.cuh, shared
+//   with tp_ann_bwd.cu).
 // - Edges are masked: rows >= B and neurons >= H load nothing, hold zero
 //   adjoints and store nothing.
 //
@@ -73,6 +74,7 @@
 #include <stdint.h>
 
 #include "dropout_hash.cuh"
+#include "dv_product.cuh"
 #include "tile_stream.cuh"
 
 namespace {
@@ -83,9 +85,6 @@ constexpr int kThreads = 512;
 constexpr int kWork = 2;    // rows a block owns times neurons a thread owns
 constexpr int kMaxNpt = 4;  // so H <= kThreads * kMaxNpt = 2048
 constexpr int kRnn = 0, kLigru = 1, kGru = 2;
-constexpr int kTile = 64;  // dV output tile
-constexpr int kBK = 16;    // dV depth per shared-memory stage
-constexpr int kDvThreads = 256;
 
 struct Args {
   const void* g;       // g and the residual series: float, bf16 in bf16 mode
@@ -306,102 +305,6 @@ fused_ann_bwd_kernel(const typename ModeArgs<BF>::type p) {
   }
 }
 
-struct DvArgs {
-  const void* y_seq;     // y_seq, r and dpre: float, bf16 in the bf16 mode
-  const float* y0;
-  const void* r;         // the GRU's reset series, else null
-  const void* dpre[3];   // the right operand, by gate
-  float* partial;        // (ksplit, gates, H, H)
-  int T;
-  int H;
-  int R;                 // B*T
-  int rows_per_split;
-  int G;
-};
-
-// partial[split][gate][m][n] = sum over rows q = (b, t) of this split,
-// ascending, of left[q][m] * dpre_gate[q][n], with left = y_{t-1}[b] (y0
-// at t = 0), times r_t[b] for the GRU's candidate (gate 0). ST is the
-// element type of the series; with bf16 the left operand is rounded to bf16
-// too, and the sum is float32.
-template <typename ST>
-__global__ void __launch_bounds__(kDvThreads) dv_kernel(const DvArgs a) {
-  constexpr bool kRound = sizeof(ST) == 2;
-  __shared__ __align__(16) float As[kBK][kTile];
-  __shared__ __align__(16) float Bs[kBK][kTile];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int n0 = blockIdx.x * kTile;
-  const int m0 = blockIdx.y * kTile;
-  const int gate = blockIdx.z % a.G;
-  const int split = blockIdx.z / a.G;
-  const int H = a.H;
-  const int T = a.T;
-  const ST* dd = static_cast<const ST*>(a.dpre[gate]);
-  const ST* y_seq = static_cast<const ST*>(a.y_seq);
-  const ST* r_in = static_cast<const ST*>(a.r);
-  const bool gated = a.r != nullptr && gate == 0;
-  const int q_begin = split * a.rows_per_split;
-  const int q_end = min(a.R, q_begin + a.rows_per_split);
-  const int lr = tid / 16;        // row of the stage this thread loads
-  const int lc = (tid % 16) * 4;  // first of its four columns
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int q0 = q_begin; q0 < q_end; q0 += kBK) {
-    const int q = q0 + lr;
-    const bool row_ok = q < q_end;
-    const int t = row_ok ? q % T : 0;
-    const int brow = row_ok ? q / T : 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int m = m0 + lc + k;
-      float left = 0.f;
-      if (row_ok && m < H) {
-        left = t == 0 ? a.y0[(size_t)brow * H + m]
-                      : to_float(y_seq[(size_t)(q - 1) * H + m]);
-        if (gated) left *= to_float(r_in[(size_t)q * H + m]);
-        if (kRound) left = round_bf16(left);
-      }
-      As[lr][lc + k] = left;
-      const int n = n0 + lc + k;
-      Bs[lr][lc + k] =
-          (row_ok && n < H) ? to_float(dd[(size_t)q * H + n]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-  float* out = a.partial + ((size_t)split * a.G + gate) * H * H;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (m < H && n < H) out[(size_t)m * H + n] = acc[i][j];
-    }
-  }
-}
-
 template <int MODE, int NPT, bool BF>
 void launch_one(const ArgsBf16& p, int n_blocks, int threads, cudaStream_t st) {
   constexpr int BT = kWork / NPT > 0 ? kWork / NPT : 1;
@@ -506,15 +409,15 @@ extern "C" int sparch_fused_ann_bwd(
   // rows per split, a multiple of the stage depth
   int rows_per_split = (R + ksplit - 1) / ksplit;
   rows_per_split = (rows_per_split + kBK - 1) / kBK * kBK;
-  DvArgs a{y_seq, y0, mode == kGru ? r : nullptr, {}, dv_partials, T, H, R,
-           rows_per_split, G};
+  AnnDvArgs a{y_seq, y0, mode == kGru ? r : nullptr, {}, dv_partials, T, H,
+              R, rows_per_split, G};
   for (int k = 0; k < 3; ++k) a.dpre[k] = affine ? dd[k] : dwx[k];
   const int tiles = (H + kTile - 1) / kTile;
   const dim3 grid(tiles, tiles, G * ksplit);
   if (bf16) {
-    dv_kernel<__nv_bfloat16><<<grid, kDvThreads, 0, st>>>(a);
+    ann_dv_kernel<__nv_bfloat16><<<grid, kDvThreads, 0, st>>>(a);
   } else {
-    dv_kernel<float><<<grid, kDvThreads, 0, st>>>(a);
+    ann_dv_kernel<float><<<grid, kDvThreads, 0, st>>>(a);
   }
   err = (int)cudaGetLastError();
   if (err != 0) return err;

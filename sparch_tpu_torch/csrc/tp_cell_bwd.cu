@@ -75,9 +75,6 @@ constexpr int kThreads = 512;
 constexpr int kMaxNpt = 4;    // so Hl <= 2048
 constexpr int kMaxWork = 16;  // NPT * BT
 constexpr int kVecs = 4;      // dalpha, dbeta, da, db
-// dynamic shared memory a block may ask for, with room for the static
-// mbarriers
-constexpr size_t kMaxSmem = 227 * 1024 - 256;
 
 struct BwdArgs {
   const float* g;      // (B, T, ld)
@@ -390,40 +387,19 @@ __global__ void tp_vec_reduce_kernel(const float* __restrict__ partials,
   out[idx] = sum;
 }
 
-struct Plan {
-  int bt;
-  int per_rank;
-  int per_sm;
-  size_t smem;
-};
-
 template <bool A, int NPT, int BT>
-void try_plan(const BwdArgs& p, Plan& best, bool& all_fit) {
+void try_plan(const BwdArgs& p, tp::Plan& best, bool& all_fit) {
   if constexpr (NPT * BT <= kMaxWork) {
-    if (all_fit) return;
     const size_t smem = (((size_t)p.H * BT + 3) & ~(size_t)3) * sizeof(float) +
                         (size_t)kStages * kTileBytes;
-    if (smem > kMaxSmem) return;
-    const int groups = (p.B + BT - 1) / BT;
-    int per_rank = 0, per_sm = 0;
-    if (tp::plan_blocks(tp_cell_bwd_kernel<A, NPT, BT>, p.Hl / NPT, smem,
-                        p.lay.n_local, groups, &per_rank,
-                        &per_sm) != cudaSuccess) {
-      cudaGetLastError();  // a refused plan is no launch error
-      return;
-    }
-    // rows at work at once: the most wins, and the first BT that holds
-    // every group is taken
-    if (best.bt == 0 || per_rank * BT > best.per_rank * best.bt) {
-      best = Plan{BT, per_rank, per_sm, smem};
-    }
-    all_fit = per_rank == groups;
+    tp::try_plan(tp_cell_bwd_kernel<A, NPT, BT>, BT, p.Hl / NPT, smem,
+                 (p.B + BT - 1) / BT, p.lay.n_local, best, all_fit);
   }
 }
 
 template <bool A, int NPT>
 int launch_npt(BwdArgs& p, int* plan, cudaStream_t st) {
-  Plan best{0, 0, 0, 0};
+  tp::Plan best{0, 0, 0, 0};
   bool all_fit = false;
   try_plan<A, NPT, 1>(p, best, all_fit);
   try_plan<A, NPT, 2>(p, best, all_fit);

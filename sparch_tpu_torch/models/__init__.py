@@ -72,10 +72,8 @@ def build_model(
             **kwargs,
         )
     if model_type in ANN_TYPES:
-        # an ANN has no state init (always zeros) and no threshold, and no
-        # tensor-parallel path yet (it raises for cell_impl='pallas_tp')
-        for key in ("state_init", "threshold", "tp_mesh", "tp_axis",
-                    "tp_batch_axis"):
+        # an ANN has no state init (always zeros) and no threshold
+        for key in ("state_init", "threshold"):
             kwargs.pop(key, None)
         return ANN(
             input_shape=tuple(input_shape),

@@ -5,9 +5,13 @@ The same layer scaffolding as the spiking stack: each gate's input
 projection is hoisted into one time-batched matmul with its own
 normalisation, and the state recurrence runs either as a plain PyTorch loop
 (``ops.cells``) or through the fused CUDA kernels (``ops.fused_ann``), which
-apply BatchNorm per gate as an affine on load. The ANN readout collapses
-time first (a sum of per-step softmaxes) and then applies its linear layer
-and a 2-D norm, the opposite order of the SNN readout.
+apply BatchNorm per gate as an affine on load. ``cell_impl='pallas_tp'``
+runs the recurrence through the tensor-parallel kernels of
+``ops.fused_tp_ann`` over the ranks of ``tp_mesh``; the norm is then applied
+to each gate's drive and the dropout follows the cell, as on the scan path.
+The ANN readout collapses time first (a sum of per-step softmaxes) and then
+applies its linear layer and a 2-D norm, the opposite order of the SNN
+readout.
 
     model = ANN((B, T, F), [512, 512, 35], ann_type="GRU")
     out, _ = model(x)                     # (out, None), like the SNN
@@ -44,7 +48,7 @@ from sparch_tpu_torch.models.common import (
     check_precision_fields,
     remat_layer,
 )
-from sparch_tpu_torch.ops import cells, fused_ann
+from sparch_tpu_torch.ops import cells, fused_ann, fused_tp_ann
 
 __all__ = [
     "ANN",
@@ -67,16 +71,28 @@ class _ANNLayerBase(FusedCellPolicy, nn.Module):
 
     gates: Tuple[str, ...] = ("W",)
     recurrent = True
-    _scan = None   # the plain cell of ops.cells
-    _fused = None  # the fused cell of ops.fused_ann
+    _scan = None     # the plain cell of ops.cells
+    _fused = None    # the fused cell of ops.fused_ann
+    _tp_cell = None  # the tensor-parallel cell of ops.fused_tp_ann
 
     def __init__(self, input_size: int, hidden_size: int,
                  dropout: float = 0.0, normalization: str = "batchnorm",
                  use_bias: bool = False, bidirectional: bool = False,
                  cell_impl: str = "auto", compute_dtype=None,
-                 mxu_precision: str = "default"):
+                 mxu_precision: str = "default", tp_mesh=None,
+                 tp_axis: str = "model",
+                 tp_batch_axis: Optional[str] = "data"):
         super().__init__()
         dense_dtype = check_precision_fields(compute_dtype, mxu_precision)
+        if (self.recurrent and cell_impl == "pallas_tp"
+                and compute_dtype == torch.bfloat16):
+            raise NotImplementedError(
+                "cell_impl='pallas_tp' with compute_dtype=bfloat16 (the TP "
+                "kernels' mxu_bf16 form) is ROADMAP queue 2 item 11"
+            )
+        self.tp_mesh = tp_mesh
+        self.tp_axis = tp_axis
+        self.tp_batch_axis = tp_batch_axis
         self.compute_dtype = compute_dtype
         self.mxu_precision = mxu_precision
         self.hidden_size = hidden_size
@@ -145,6 +161,10 @@ class _ANNLayerBase(FusedCellPolicy, nn.Module):
                 *wxs, *self._matrices(), y0, scales=scales, shifts=shifts,
                 mxu_bf16=self._mxu_bf16(),
                 **self._fused_dropout(fused, wxs[0], generator))
+        elif self.cell_impl == "pallas_tp":
+            mesh, axis, _ = self._tp()
+            y = type(self)._tp_cell(*wxs, *self._matrices(), y0, mesh=mesh,
+                                    tp_axis=axis)
         else:
             y = type(self)._scan(*wxs, *self._matrices(), y0)
         return self._post(y, fused, generator)
@@ -165,6 +185,7 @@ class RNNLayer(_ANNLayerBase):
 
     _scan = staticmethod(cells.rnn_scan)
     _fused = staticmethod(fused_ann.rnn_fused)
+    _tp_cell = staticmethod(fused_tp_ann.rnn_tp)
 
 
 class LiGRULayer(_ANNLayerBase):
@@ -173,6 +194,7 @@ class LiGRULayer(_ANNLayerBase):
     gates = ("W", "Wz")
     _scan = staticmethod(cells.ligru_scan)
     _fused = staticmethod(fused_ann.ligru_fused)
+    _tp_cell = staticmethod(fused_tp_ann.ligru_tp)
 
 
 class GRULayer(_ANNLayerBase):
@@ -181,6 +203,7 @@ class GRULayer(_ANNLayerBase):
     gates = ("W", "Wz", "Wr")
     _scan = staticmethod(cells.gru_scan)
     _fused = staticmethod(fused_ann.gru_fused)
+    _tp_cell = staticmethod(fused_tp_ann.gru_tp)
 
 
 class ReadoutLayerANN(nn.Module):
@@ -222,8 +245,12 @@ class ANN(nn.Module):
 
     ``compute_dtype`` (None or float32, or bfloat16 for mixed precision),
     ``mxu_precision`` and ``remat`` as in the JAX package (see the module
-    docstring and ``common.FusedCellPolicy``). ``cell_impl='pallas_tp'`` is
-    not ported yet and raises.
+    docstring and ``common.FusedCellPolicy``). ``cell_impl='pallas_tp'``
+    takes ``tp_mesh`` (``parallel.make_mesh``; its ``tp_axis`` splits the
+    neurons of every recurrent layer) and raises without one when it runs,
+    and with ``compute_dtype=bfloat16`` when it is built; ``tp_batch_axis``
+    is kept for the JAX model records (a ``data`` axis longer than 1 is not
+    ported).
     """
 
     is_snn = False
@@ -234,14 +261,11 @@ class ANN(nn.Module):
                  bidirectional: bool = False, use_readout_layer: bool = True,
                  cell_impl: str = "auto", compute_dtype=None,
                  mxu_precision: str = "default", remat: bool = False,
+                 tp_mesh=None, tp_axis: str = "model",
+                 tp_batch_axis: Optional[str] = "data",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         check_precision_fields(compute_dtype, mxu_precision)
-        if cell_impl == "pallas_tp":
-            raise NotImplementedError(
-                "cell_impl='pallas_tp' for the non-spiking cells is ROADMAP "
-                "queue 2 item 10 (tensor-parallel ANN kernels)"
-            )
         if ann_type not in _LAYER_CLASSES:
             raise ValueError(f"Invalid ann type {ann_type}")
         if bidirectional and ann_type == "MLP":
@@ -270,6 +294,7 @@ class ANN(nn.Module):
                 normalization=normalization, use_bias=use_bias,
                 bidirectional=bidirectional, cell_impl=cell_impl,
                 compute_dtype=compute_dtype, mxu_precision=mxu_precision,
+                tp_mesh=tp_mesh, tp_axis=tp_axis, tp_batch_axis=tp_batch_axis,
             )
             self.add_module(f"layer_{i}", layer)
             width = self.layer_sizes[i] * (2 if bidirectional else 1)

@@ -128,17 +128,18 @@ _DV_BK = 16
 
 
 def _all_kernels():
-    # ops.fused_ann and ops.fused_tp import this module, so they are looked
-    # up at call time
-    from sparch_tpu_torch.ops import fused_ann, fused_tp
+    # ops.fused_ann, ops.fused_tp and ops.fused_tp_ann import this module,
+    # so they are looked up at call time
+    from sparch_tpu_torch.ops import fused_ann, fused_tp, fused_tp_ann
 
-    return _KERNELS + fused_ann.KERNELS + fused_tp.KERNELS
+    return (_KERNELS + fused_ann.KERNELS + fused_tp.KERNELS
+            + fused_tp_ann.KERNELS)
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by entry point: the spiking kernels of this
     module, the ANN kernels of ``ops.fused_ann`` and the tensor-parallel
-    kernels of ``ops.fused_tp``."""
+    kernels of ``ops.fused_tp`` and ``ops.fused_tp_ann``."""
     return {k.name: k.launches for k in _all_kernels()}
 
 

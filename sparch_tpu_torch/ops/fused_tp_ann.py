@@ -1,0 +1,399 @@
+"""Tensor-parallel fused non-spiking cells (counterpart of
+sparch_tpu/ops/pallas_tp_ann.py): the sigmoid RNN, the LiGRU and the GRU
+with the neurons of a layer split into P column blocks of Hl = H/P, one per
+rank of the TP axis, and an exchange inside the kernel at every step.
+
+    RNN:    y_t = sigmoid(wx_t + y_full @ V[:, shard])
+    LiGRU:  z = sigmoid(wzx_t + y_full @ Vz[:, shard])
+            c = relu(wx_t + y_full @ V[:, shard]);  y_t = z*y + (1-z)*c
+    GRU:    z = sigmoid(wzx_t + y_full @ Vz[:, shard])
+            r = sigmoid(wrx_t + y_full @ Vr[:, shard])
+            c = tanh(wx_t + (r*y)_full @ V[:, shard]);  y_t = z*y + (1-z)*c
+
+The forward (``csrc/tp_ann_fwd.cu``) all-gathers the new y at every step
+(the GRU first r*y, then y); the backward (``csrc/tp_ann_bwd.cu``) all-gathers
+the adjoint blocks for the products with the rows of V: dpre (RNN), one
+stacked [dcpre|dzpre] (LiGRU), dcpre and then a stacked [dzpre|drpre]
+(GRU). One ``torch.autograd.Function`` holds the two kernels, as the JAX
+``custom_vjp`` does (``_get_tp_ann_op``). Gates are numbered as in
+``ops.fused_ann``: 0 the candidate (``Wx``, ``V``), 1 the update (``Wzx``,
+``Vz``), 2 the reset (``Wrx``, ``Vr``).
+
+Layout, against the JAX kernels. The JAX backward turns each rank's column
+shard of V into a row shard by an all_to_all (``_row_shard``), interleaves
+the row shards per peer (``_interleave``) so that one dot against the
+stacked gathered plane sums every gate's product at once, and turns the
+accumulated dV row shards back (``_deinterleave``, ``_col_shard``). In the
+one-card form every all_to_all is a slice of the full V, so the wrapper
+takes each rank's blocks of V^T directly, and nothing is interleaved: the
+stacked gather is one exchange of two planes side by side, and each gate's
+product runs on its own over the Hg gathered columns in ascending order;
+the backward then adds D = G*z + dry*r + (dzpre_full @ Vz^T) + (drpre_full @
+Vr^T) (LiGRU: G*z + dcpre-term + dzpre-term), the order of
+``csrc/fused_ann_bwd.cu``. dV is not accumulated by outer products per step:
+it is the single-card backward's product after the time loop, y_p^T @ dpre
+per gate ((r*y_p)^T @ dcpre for the GRU's candidate), over the stored
+series; in the one-card form the ranks' dWx blocks side by side are the
+gathered dpre series, and across cards that product would need them
+gathered (ROADMAP queue 1 item 7).
+
+The one-card form (``ops.fused_tp``): the P ranks of a mesh that repeats one
+device run in one cooperative launch on it. The entry points take the full
+tensors, ``Wx (B, T, H)``, ``V (H, H)``, ``y0 (B, H)``; rank r's block is
+columns ``r*Hl .. (r+1)*Hl``, and the gathered initial state is the full y0.
+Dispatch is ``ops.fused_cells``': a CPU tensor runs the plain versions
+(``tp_ann_cell_plain``, ``tp_ann_cell_bwd_plain``), loops over T and over the
+P blocks in the kernels' order; a CUDA tensor launches the kernels or
+raises. Normalisation and dropout stay outside (the layer applies them), as
+in the JAX package. Widths as the JAX kernels take them: H divisible by
+P*128, B by 8; float32 only (the ``mxu_bf16`` form is ROADMAP queue 2 item
+11); the kernels take H/P <= 2048 and H up to the shared memory of a block
+(``_check_width``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from sparch_tpu_torch._build import Kernel
+from sparch_tpu_torch.ops import fused_ann, fused_cells, fused_tp
+from sparch_tpu_torch.ops.fused_cells import _BF16, _check, _ptr, _work_dtype
+from sparch_tpu_torch.ops.fused_tp import _shards
+
+__all__ = [
+    "KERNELS",
+    "TP_ANN_FWD",
+    "TP_ANN_BWD",
+    "tp_ann_cell_plain",
+    "tp_ann_cell_bwd_plain",
+    "rnn_tp",
+    "ligru_tp",
+    "gru_tp",
+]
+
+# per-mode structure (pallas_tp_ann._MODES): input streams (one recurrent
+# matrix each), the gate series the backward reads, and the planes of the
+# backward's widest exchange
+_MODES = {
+    "rnn": dict(n_wx=1, gates=(), bwd_stack=1),
+    "ligru": dict(n_wx=2, gates=("z", "c"), bwd_stack=2),
+    "gru": dict(n_wx=3, gates=("z", "r", "c"), bwd_stack=2),
+}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+TP_ANN_FWD = Kernel("tp_ann_fwd", "sparch_tp_ann_fwd",
+                    [_P] * 11 + [_I] * 8 + [_P, _P])
+TP_ANN_BWD = Kernel("tp_ann_bwd", "sparch_tp_ann_bwd",
+                    [_P] * 15 + [_I] * 9 + [_P, _P])
+KERNELS = (TP_ANN_FWD, TP_ANN_BWD)
+
+# csrc/tp_ann.cuh: the widest block a rank takes, the ranks of a launch, and
+# the shared memory of a block (at one row per block: the gathered planes,
+# then three 64 KB stages)
+_MAX_HL = 2048
+_MAX_RANKS = 8
+_MAX_SMEM = 227 * 1024 - 256
+_STAGES_BYTES = 3 * 65536
+
+
+def _check_width(mode: str, H: int, P: int) -> None:
+    """The kernels' limits: H/P <= 2048, P <= 8, and the backward's widest
+    gathered rows (one plane for the RNN, two for the stacked exchanges)
+    beside the tile stages in one block's shared memory."""
+    if H // P > _MAX_HL:
+        raise ValueError(f"the TP ANN kernels take H/P <= {_MAX_HL}, got "
+                         f"{H // P}")
+    if P > _MAX_RANKS:
+        raise ValueError(f"the TP ANN kernels take at most {_MAX_RANKS} "
+                         f"ranks, got {P}")
+    planes = _MODES[mode]["bwd_stack"]
+    if 4 * planes * H + _STAGES_BYTES > _MAX_SMEM:
+        widest = (_MAX_SMEM - _STAGES_BYTES) // (4 * planes)
+        raise ValueError(f"the TP ANN kernels take H <= {widest} for "
+                         f"{mode} (the gathered rows of a block lie in its "
+                         f"shared memory), got H={H}")
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def tp_ann_cell_plain(mode: str, wxs, vs, y0, *, num_devices: int,
+                      save_residuals: bool = False):
+    """Plain version of ``csrc/tp_ann_fwd.cu``: the TPU ``_tp_ann_fwd_kernel``'s
+    per-step arithmetic as a loop over T and over the P column blocks.
+    ``wxs``/``vs`` are lists by gate; each rank's products take the gathered
+    state (the GRU's candidate the gathered r*y). Returns the output
+    (B, T, H), and with ``save_residuals`` ``(out, gates)``: the gate series
+    the backward reads (LiGRU z, c; GRU z, r, c)."""
+    B, T, H = wxs[0].shape
+    sl = _shards(H, num_devices)
+    # float64 matrices (the witness of a whole model) lift the arithmetic
+    work = torch.promote_types(_work_dtype(wxs[0]), vs[0].dtype)
+    vs = [v.to(work) for v in vs]
+    y_full = y0.to(work)
+    y = [y_full[:, c] for c in sl]
+    out = torch.empty((B, T, H), dtype=work, device=wxs[0].device)
+    gates = tuple(torch.empty_like(out) for _ in _MODES[mode]["gates"]) \
+        if save_residuals else ()
+    for t in range(T):
+        d = [w[:, t].to(work) for w in wxs]
+        if mode == "gru":
+            z = [torch.sigmoid(d[1][:, c] + torch.matmul(y_full, vs[1][:, c]))
+                 for c in sl]
+            r = [torch.sigmoid(d[2][:, c] + torch.matmul(y_full, vs[2][:, c]))
+                 for c in sl]
+            ry_full = torch.cat([rk * yk for rk, yk in zip(r, y)], dim=1)
+        for k, c in enumerate(sl):
+            if mode == "rnn":
+                y[k] = torch.sigmoid(
+                    d[0][:, c] + torch.matmul(y_full, vs[0][:, c]))
+                vals = ()
+            elif mode == "ligru":
+                zk = torch.sigmoid(
+                    d[1][:, c] + torch.matmul(y_full, vs[1][:, c]))
+                ck = torch.relu(d[0][:, c] + torch.matmul(y_full, vs[0][:, c]))
+                y[k] = zk * y[k] + (1.0 - zk) * ck
+                vals = (zk, ck)
+            else:
+                ck = torch.tanh(
+                    d[0][:, c] + torch.matmul(ry_full, vs[0][:, c]))
+                y[k] = z[k] * y[k] + (1.0 - z[k]) * ck
+                vals = (z[k], r[k], ck)
+            out[:, t, c] = y[k]
+            for series, val in zip(gates, vals):
+                series[:, t, c] = val
+        if t + 1 < T:  # the gather of the last step feeds nothing
+            y_full = torch.cat(y, dim=1)
+    return (out, gates) if save_residuals else out
+
+
+def tp_ann_cell_bwd_plain(mode: str, g, y_seq, gates, vs, y0, *,
+                          num_devices: int):
+    """Plain version of ``csrc/tp_ann_bwd.cu``: the TPU
+    ``_tp_ann_bwd_kernel``'s adjoint recurrence as a loop over reversed T and
+    over the P blocks (the equations of ``fused_ann.ann_cell_bwd_plain``, no
+    affine, no dropout). Per step each rank computes its dpre blocks, the
+    blocks are gathered, and rank r's products are its columns of
+    ``x_full @ V^T`` (``x_full @ V[shard_r, :]^T``); the GRU's dry feeds
+    drpre before the second gather. dV after the loop, over the stored
+    series. Returns ``(dwxs, dvs, dy0)``, lists by gate."""
+    B, T, H = g.shape
+    n = _MODES[mode]["n_wx"]
+    sl = _shards(H, num_devices)
+    work = torch.promote_types(_work_dtype(y0), vs[0].dtype)
+    vs = [v.to(work) for v in vs]
+    y0 = y0.to(work)
+    D = [torch.zeros_like(y0[:, c]) for c in sl]
+    dwxs = [torch.empty((B, T, H), dtype=work, device=g.device)
+            for _ in range(n)]
+
+    def rows_t(x_full, i, c):
+        """The rank's columns of ``x_full @ vs[i]^T``."""
+        return torch.matmul(x_full, vs[i][c, :].t())
+
+    for t in range(T - 1, -1, -1):
+        y_p = y_seq[:, t - 1].to(work) if t > 0 else y0
+        Gs = [g[:, t, c].to(work) + D[k] for k, c in enumerate(sl)]
+        if mode == "rnn":
+            y_t = y_seq[:, t].to(work)
+            dp = [Gs[k] * y_t[:, c] * (1.0 - y_t[:, c])
+                  for k, c in enumerate(sl)]
+            dp_full = torch.cat(dp, dim=1)
+            D = [rows_t(dp_full, 0, c) for c in sl]
+            step = (dp,)
+        else:
+            z, c_ = gates[0][:, t].to(work), gates[-1][:, t].to(work)
+            dz = [Gs[k] * (y_p[:, c] - c_[:, c]) * z[:, c] * (1.0 - z[:, c])
+                  for k, c in enumerate(sl)]
+            if mode == "ligru":
+                dc = [torch.where(c_[:, c] > 0, Gs[k] * (1.0 - z[:, c]),
+                                  torch.zeros_like(Gs[k]))
+                      for k, c in enumerate(sl)]
+                dc_full, dz_full = torch.cat(dc, dim=1), torch.cat(dz, dim=1)
+                D = [Gs[k] * z[:, c] + rows_t(dc_full, 0, c)
+                     + rows_t(dz_full, 1, c) for k, c in enumerate(sl)]
+                step = (dc, dz)
+            else:
+                r = gates[1][:, t].to(work)
+                dc = [Gs[k] * (1.0 - z[:, c]) * (1.0 - c_[:, c] * c_[:, c])
+                      for k, c in enumerate(sl)]
+                dc_full = torch.cat(dc, dim=1)
+                dry = [rows_t(dc_full, 0, c) for c in sl]
+                dr = [dry[k] * y_p[:, c] * r[:, c] * (1.0 - r[:, c])
+                      for k, c in enumerate(sl)]
+                dz_full, dr_full = torch.cat(dz, dim=1), torch.cat(dr, dim=1)
+                D = [Gs[k] * z[:, c] + dry[k] * r[:, c]
+                     + rows_t(dz_full, 1, c) + rows_t(dr_full, 2, c)
+                     for k, c in enumerate(sl)]
+                step = (dc, dz, dr)
+        for i, blocks in enumerate(step):
+            dwxs[i][:, t] = torch.cat(blocks, dim=1)
+    y_prev = torch.cat([y0[:, None], y_seq[:, :-1].to(work)], dim=1)
+    dvs = []
+    for i, dpre in enumerate(dwxs):
+        left = gates[1].to(work) * y_prev if (mode == "gru" and i == 0) \
+            else y_prev
+        dvs.append(torch.matmul(left.reshape(-1, H).t(),
+                                dpre.reshape(-1, H)))
+    return dwxs, dvs, torch.cat(D, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Kernels
+# ---------------------------------------------------------------------------
+
+
+def _check_operands(mode, wxs, vs, y0, P):
+    n = _MODES[mode]["n_wx"]
+    B, T, H = wxs[0].shape
+    dev = wxs[0].device
+    fused_tp._validate(B, H, P)
+    _check_width(mode, H, P)
+    if len(wxs) != n or len(vs) != n:
+        raise ValueError(f"{mode}: want {n} input streams and {n} matrices")
+    for i, (w, v) in enumerate(zip(wxs, vs)):
+        _check(f"wx[{i}]", w, (B, T, H), dev)
+        _check(f"V[{i}]", v, (H, H), dev)
+    _check("y0", y0, (B, H), dev)
+
+
+def _pack(blocks_of, vs, order, P):
+    """Every rank's blocks of the matrices in the order a step streams
+    them, as one contiguous (P, len(order), H, H/P) buffer:
+    ``blocks_of(V, shard)`` is the (H, H/P) block a rank reads."""
+    H = vs[0].shape[0]
+    return torch.stack([torch.stack([blocks_of(vs[i], c) for i in order])
+                        for c in _shards(H, P)]).contiguous()
+
+
+def _tp_ann_cell_cuda(mode: str, wxs, vs, y0, *, num_devices: int,
+                      save_residuals: bool = False):
+    """Launch ``csrc/tp_ann_fwd.cu`` over all P ranks (the one-card form).
+    Same contract as ``tp_ann_cell_plain``."""
+    P = num_devices
+    _check_operands(mode, wxs, vs, y0, P)
+    B, T, H = wxs[0].shape
+    dev = wxs[0].device
+    out = torch.empty_like(wxs[0])
+    names = _MODES[mode]["gates"] if save_residuals else ()
+    series = {k: torch.empty_like(out) for k in names}
+    # V[:, shard] per rank, in the order of fused_ann_fwd.cu's stream
+    packed = _pack(lambda v, c: v[:, c], vs, fused_ann._FWD_ORDER[mode], P)
+    bufs = fused_tp._exchange_buffers((2, B, H), torch.float32, P, B, dev)
+    fused_tp._launch(TP_ANN_FWD, dev, *fused_ann._three(wxs), _ptr(packed),
+                     _ptr(y0), _ptr(out), _ptr(series.get("z")),
+                     _ptr(series.get("r")), _ptr(series.get("c")), bufs[2],
+                     bufs[3], B, T, H, P, 0, P, H, fused_ann._MODE_ID[mode],
+                     n_plan=4)
+    return (out, tuple(series.values())) if save_residuals else out
+
+
+def _tp_ann_cell_bwd_cuda(mode: str, g, y_seq, gates, vs, y0, *,
+                          num_devices: int):
+    """Launch ``csrc/tp_ann_bwd.cu`` over all P ranks (the one-card form).
+    Same contract as ``tp_ann_cell_bwd_plain``."""
+    P = num_devices
+    n = _MODES[mode]["n_wx"]
+    _check_operands(mode, [g] * n, vs, y0, P)
+    B, T, H = g.shape
+    dev = g.device
+    _check("y_seq", y_seq, (B, T, H), dev)
+    if len(gates) != len(_MODES[mode]["gates"]):
+        raise ValueError(f"{mode}: want the series {_MODES[mode]['gates']}")
+    for name, t in zip(_MODES[mode]["gates"], gates):
+        _check(name, t, (B, T, H), dev)
+    series = dict(zip(_MODES[mode]["gates"], gates))
+    ksplit = fused_ann._bwd_plan(B, T, H, n)[1]
+
+    def new(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    dwxs = [torch.empty_like(g) for _ in range(n)]
+    dvs, dv_partials, dy0 = new(n, H, H), new(ksplit, n, H, H), new(B, H)
+    # V[shard, :]^T per rank (the rank's columns of V^T), by gate
+    packed = _pack(lambda v, c: v[c, :].t(), vs, fused_ann._BWD_ORDER[mode],
+                   P)
+    width = _MODES[mode]["bwd_stack"] * H
+    bufs = fused_tp._exchange_buffers((2, B, width), torch.float32, P, B,
+                                      dev)
+    fused_tp._launch(TP_ANN_BWD, dev, _ptr(g), _ptr(y_seq),
+                     _ptr(series.get("z")), _ptr(series.get("r")),
+                     _ptr(series.get("c")), _ptr(packed), _ptr(y0),
+                     *fused_ann._three(dwxs), _ptr(dvs), _ptr(dv_partials),
+                     _ptr(dy0), bufs[2], bufs[3], B, T, H, P, 0, P, H,
+                     fused_ann._MODE_ID[mode], ksplit, n_plan=4)
+    return dwxs, list(dvs.unbind(0)), dy0
+
+
+class _TPANN(torch.autograd.Function):
+    """The TP cell (JAX ``_get_tp_ann_op``). ``ops`` are the input streams,
+    then the recurrent matrices, by gate."""
+
+    @staticmethod
+    def forward(ctx, mode, num_devices, y0, *ops):
+        n = _MODES[mode]["n_wx"]
+        wxs, vs = list(ops[:n]), list(ops[n:])
+        fwd = fused_cells._by_device(wxs[0], tp_ann_cell_plain,
+                                     _tp_ann_cell_cuda, "TP ANN cell")
+        if not any(ctx.needs_input_grad):
+            return fwd(mode, wxs, vs, y0, num_devices=num_devices)
+        out, gates = fwd(mode, wxs, vs, y0, num_devices=num_devices,
+                         save_residuals=True)
+        ctx.mode, ctx.num_devices = mode, num_devices
+        ctx.save_for_backward(out, y0, *gates, *vs)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        mode = ctx.mode
+        out, y0, *rest = ctx.saved_tensors
+        n_gates = len(_MODES[mode]["gates"])
+        gates, vs = rest[:n_gates], rest[n_gates:]
+        bwd = fused_cells._by_device(g, tp_ann_cell_bwd_plain,
+                                     _tp_ann_cell_bwd_cuda,
+                                     "TP ANN cell backward")
+        # the cotangent often arrives as a view (the bidirectional split)
+        dwxs, dvs, dy0 = bwd(mode, g.contiguous(), out, gates, vs, y0,
+                             num_devices=ctx.num_devices)
+        return (None, None, dy0, *dwxs, *dvs)
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+
+def _tp_ann(mode, wxs, vs, y0, mesh, tp_axis):
+    P = fused_tp._tp_size(mesh, tp_axis, wxs[0])
+    B, _, H = wxs[0].shape
+    fused_tp._validate(B, H, P)
+    if any(w.dtype == _BF16 for w in wxs):
+        raise NotImplementedError(
+            "the TP ANN cells' bf16-stream form is ROADMAP queue 2 item 11")
+    # the carried state is float32 (float64 with float64 streams)
+    y0 = y0.to(_work_dtype(wxs[0]))
+    return _TPANN.apply(mode, P, y0, *wxs, *vs)
+
+
+def rnn_tp(Wx, V, y0, *, mesh, tp_axis="model"):
+    """Tensor-parallel fused sigmoid-RNN over the mesh's TP axis (JAX
+    ``rnn_tp_sharded``; semantics ``cells.rnn_scan``)."""
+    return _tp_ann("rnn", [Wx], [V], y0, mesh, tp_axis)
+
+
+def ligru_tp(Wx, Wzx, V, Vz, y0, *, mesh, tp_axis="model"):
+    """Tensor-parallel fused LiGRU over the mesh's TP axis (JAX
+    ``ligru_tp_sharded``; semantics ``cells.ligru_scan``)."""
+    return _tp_ann("ligru", [Wx, Wzx], [V, Vz], y0, mesh, tp_axis)
+
+
+def gru_tp(Wx, Wzx, Wrx, V, Vz, Vr, y0, *, mesh, tp_axis="model"):
+    """Tensor-parallel fused GRU over the mesh's TP axis (JAX
+    ``gru_tp_sharded``; semantics ``cells.gru_scan``)."""
+    return _tp_ann("gru", [Wx, Wzx, Wrx], [V, Vz, Vr], y0, mesh, tp_axis)

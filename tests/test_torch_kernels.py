@@ -132,7 +132,8 @@ def test_kernel_wrappers_raise_past_their_width():
     assert not any(fused_cells.launch_counts().values())
     cell = {"fused_cell_fwd", "fused_cell_fwd_train", "fused_cell_bwd"}
     ann = {f"fused_ann_{d}_{m}" for d in ("fwd", "bwd") for m in ANN_MODES}
-    tp = {"tp_all_gather", "tp_reduce_scatter", "tp_cell_fwd", "tp_cell_bwd"}
+    tp = {"tp_all_gather", "tp_reduce_scatter", "tp_cell_fwd", "tp_cell_bwd",
+          "tp_ann_fwd", "tp_ann_bwd"}
     assert set(fused_cells.launch_counts()) == (
         cell | ann | tp | {"readout_fwd", "readout_bwd"}
         | {f"{k}_bf16" for k in cell | ann})

@@ -1,5 +1,5 @@
-"""The port's tensor-parallel wrappers and CUDA kernels (ops/fused_tp.py),
-without JAX.
+"""The port's tensor-parallel wrappers and CUDA kernels (ops/fused_tp.py,
+ops/fused_tp_ann.py), without JAX.
 
 On the CPU: a CPU tensor runs the plain versions and launches nothing; the
 plain TP cell at any P equals the single-card plain fused cell without the
@@ -13,6 +13,11 @@ dyadic grid, s0 on sixteenths, so every product is exact); every gradient
 of the TP backward agrees with the plain backward on the same residuals to
 1e-4 of that gradient's largest magnitude, two launches give the same bits,
 and the gradients that no reduction over rows touches are equal across P.
+The TP RNN/LiGRU/GRU kernels agree with their plain versions within the
+bounds of the single-card ANN kernels (the products sum in another order,
+exp and tanh come from the card's library), and equal the single-card
+kernels without the affine and the dropout, and themselves at every P, bit
+for bit: every product sums its Hg terms in the same ascending order.
 
     python -m pytest tests/test_torch_tp_kernels.py -m cuda --noconftest -q
 """
@@ -21,12 +26,14 @@ import pytest
 import torch
 
 from sparch_tpu_torch.models import build_model
-from sparch_tpu_torch.ops import fused_cells, fused_tp
+from sparch_tpu_torch.ops import fused_ann, fused_cells, fused_tp, fused_tp_ann
 from sparch_tpu_torch.parallel import make_mesh
 
 PS = (1, 2, 4)
 GRAD_REL = 1e-4
 GRADS = ("dWx", "dV", "dalpha", "dbeta", "da", "db", "du0", "dw0", "ds0")
+ANN_MODES = ("rnn", "ligru", "gru")
+ANN_FWD_ATOL = 2e-5  # the single-card ANN forward's bound (chip_smoke.py)
 
 
 def tp_inputs(B, T, H, seed=0, device="cpu"):
@@ -261,3 +268,260 @@ def test_model_reaches_the_tp_kernels_on_card(cuda, neuron):
                           "fused_cell_bwd": 2 * P}
     assert torch.isfinite(out).all() and float(rates.mean()) > 0
     assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+# ---------------------------------------------------------------------------
+# The TP RNN / LiGRU / GRU (ops/fused_tp_ann.py)
+# ---------------------------------------------------------------------------
+
+
+def ann_tp_inputs(mode, B, T, H, seed=0, device="cpu"):
+    """Normal input streams, recurrent matrices of spectral norm about 0.5
+    (the conditioning tests/test_pallas_tp_ann.py keeps for the LiGRU's relu
+    candidate), a uniform y0 and a cotangent."""
+    rng = np.random.default_rng(seed)
+    n = fused_ann.MODES[mode]
+    f32 = np.float32
+
+    def t(a):
+        return torch.from_numpy(a.astype(f32)).to(device)
+
+    return dict(
+        wxs=[t(rng.normal(0, 1, (B, T, H))) for _ in range(n)],
+        vs=[t(rng.normal(0, 0.25 / np.sqrt(H), (H, H))) for _ in range(n)],
+        y0=t(rng.uniform(0, 1, (B, H))),
+        g=t(rng.normal(0, 1, (B, T, H))),
+    )
+
+
+def ann_bwd_args(mode, d, P):
+    """The backward's operands on the plain forward's residuals."""
+    out, gates = fused_tp_ann.tp_ann_cell_plain(
+        mode, d["wxs"], d["vs"], d["y0"], num_devices=P, save_residuals=True)
+    return (mode, d["g"], out, gates, d["vs"], d["y0"])
+
+
+def _rel(x, y):
+    return float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("mode", ANN_MODES)
+def test_plain_tp_ann_cell_is_the_plain_fused_ann_cell(mode):
+    """At every P the plain TP forward is the single-card plain cell without
+    the affine and the dropout, and the plain TP backward its backward; the
+    column blocks of a product may round otherwise than the whole product."""
+    d = ann_tp_inputs(mode, 8, 9, 512, seed=1)
+    want, _, want_g = fused_ann.ann_cell_plain(
+        mode, d["wxs"], None, None, d["vs"], d["y0"], save_residuals=True)
+    bwant = fused_ann.ann_cell_bwd_plain(mode, d["g"], None, want, want_g,
+                                         None, d["vs"], d["y0"])
+    for P in PS:
+        got, got_g = fused_tp_ann.tp_ann_cell_plain(
+            mode, d["wxs"], d["vs"], d["y0"], num_devices=P,
+            save_residuals=True)
+        for x, y in zip((got, *got_g), (want, *want_g)):
+            torch.testing.assert_close(x, y, rtol=0, atol=1e-6)
+        dwxs, dvs, dy0 = fused_tp_ann.tp_ann_cell_bwd_plain(
+            mode, d["g"], want, want_g, d["vs"], d["y0"], num_devices=P)
+        for x, y in zip((*dwxs, *dvs, dy0),
+                        (*bwant[0], *bwant[3], bwant[4])):
+            assert _rel(x, y) <= 1e-5, (mode, P)
+
+
+def test_tp_ann_cpu_tensors_take_the_plain_versions():
+    fused_cells.reset_launch_counts()
+    d = ann_tp_inputs("gru", 8, 4, 256)
+    for p in (*d["wxs"], *d["vs"]):
+        p.requires_grad_(True)
+    out = fused_tp_ann.gru_tp(*d["wxs"], *d["vs"], d["y0"],
+                              mesh=_mesh(2, "cpu"))
+    (out * d["g"]).sum().backward()
+    assert not any(fused_cells.launch_counts().values())
+    assert {k.name for k in fused_tp_ann.KERNELS} <= set(
+        fused_cells.launch_counts())
+
+
+def test_tp_ann_checks_raise():
+    d = ann_tp_inputs("gru", 8, 2, 256)
+    args = (*d["wxs"], *d["vs"], d["y0"])
+    with pytest.raises(ValueError, match="divisible by num_model_devices"):
+        fused_tp_ann.gru_tp(*args, mesh=_mesh(4, "cpu"))
+    e = ann_tp_inputs("rnn", 6, 2, 256)
+    with pytest.raises(ValueError, match="B%8==0"):
+        fused_tp_ann.rnn_tp(*e["wxs"], *e["vs"], e["y0"],
+                            mesh=_mesh(2, "cpu"))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        fused_tp_ann.gru_tp(d["wxs"][0].bfloat16(), *args[1:],
+                            mesh=_mesh(2, "cpu"))
+    # the kernel wrappers check their widths before they launch
+    wide = ann_tp_inputs("rnn", 8, 1, 2176)
+    with pytest.raises(ValueError, match="H/P <= 2048"):
+        fused_tp_ann._tp_ann_cell_cuda("rnn", wide["wxs"], wide["vs"],
+                                       wide["y0"], num_devices=1)
+    # the stacked exchange's two gathered planes and the tile stages must
+    # share one block's shared memory
+    wide = ann_tp_inputs("ligru", 8, 1, 4608)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_tp_ann._tp_ann_cell_cuda("ligru", wide["wxs"], wide["vs"],
+                                       wide["y0"], num_devices=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", PS)
+@pytest.mark.parametrize("shape", [(8, 13, 128), (24, 20, 256)])
+@pytest.mark.parametrize("mode", ANN_MODES)
+def test_tp_ann_forward_kernel_matches_plain_on_card(cuda, mode, shape, P):
+    B, T, hl = shape
+    d = ann_tp_inputs(mode, B, T, P * hl, seed=2, device=cuda)
+    args = (mode, d["wxs"], d["vs"], d["y0"])
+    want, want_g = fused_tp_ann.tp_ann_cell_plain(*args, num_devices=P,
+                                                  save_residuals=True)
+    fused_cells.reset_launch_counts()
+    got, got_g = fused_tp_ann._tp_ann_cell_cuda(*args, num_devices=P,
+                                                save_residuals=True)
+    served = fused_tp_ann._tp_ann_cell_cuda(*args, num_devices=P)
+    one, one_g = fused_tp_ann._tp_ann_cell_cuda(*args, num_devices=1,
+                                                save_residuals=True)
+    single, _, single_g = fused_ann._ann_cell_cuda(
+        mode, d["wxs"], None, None, d["vs"], d["y0"], save_residuals=True)
+    torch.cuda.synchronize()
+    for x, y in zip((got, *got_g), (want, *want_g)):
+        assert float((x - y).abs().max()) <= ANN_FWD_ATOL
+    assert torch.equal(served, got)
+    for x, y, z in zip((got, *got_g), (one, *one_g), (single, *single_g)):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    assert fused_cells.launch_counts()["tp_ann_fwd"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", PS)
+@pytest.mark.parametrize("shape", [(8, 13, 128), (24, 20, 256)])
+@pytest.mark.parametrize("mode", ANN_MODES)
+def test_tp_ann_backward_kernel_matches_plain_on_card(cuda, mode, shape, P):
+    B, T, hl = shape
+    d = ann_tp_inputs(mode, B, T, P * hl, seed=3, device=cuda)
+    args = ann_bwd_args(mode, d, P)
+    got = fused_tp_ann._tp_ann_cell_bwd_cuda(*args, num_devices=P)
+    again = fused_tp_ann._tp_ann_cell_bwd_cuda(*args, num_devices=P)
+    one = fused_tp_ann._tp_ann_cell_bwd_cuda(*args, num_devices=1)
+    want = fused_tp_ann.tp_ann_cell_bwd_plain(*args, num_devices=P)
+    _, _, y_seq, gates, vs, y0 = args
+    single = fused_ann._ann_cell_bwd_cuda(mode, d["g"], None, y_seq, gates,
+                                          None, vs, y0)
+    torch.cuda.synchronize()
+
+    def flat(r):
+        return (*r[0], *r[1], r[2])
+
+    single = (*single[0], *single[3], single[4])
+    for x, y, z, w, s in zip(flat(got), flat(want), flat(again), flat(one),
+                             single):
+        assert _rel(x, y) <= GRAD_REL
+        assert torch.equal(x, z) and torch.equal(x, w) and torch.equal(x, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ANN_MODES)
+def test_tp_ann_kernels_walk_row_groups_on_card(cuda, mode):
+    """More row groups than the card holds blocks: at P = 4 and B = 1024
+    each rank has 128 groups of 8 rows, and a block walks several, in the
+    same order on every rank."""
+    P = 4
+    d = ann_tp_inputs(mode, 1024, 6, P * 128, seed=4, device=cuda)
+    args = (mode, d["wxs"], d["vs"], d["y0"])
+    got, got_g = fused_tp_ann._tp_ann_cell_cuda(*args, num_devices=P,
+                                                save_residuals=True)
+    bt, per_rank = fused_tp.last_plans()["tp_ann_fwd"][:2]
+    bargs = (mode, d["g"], got, got_g, d["vs"], d["y0"])
+    grads = fused_tp_ann._tp_ann_cell_bwd_cuda(*bargs, num_devices=P)
+    bwd_bt, bwd_per_rank = fused_tp.last_plans()["tp_ann_bwd"][:2]
+    want, want_g = fused_tp_ann.tp_ann_cell_plain(*args, num_devices=P,
+                                                  save_residuals=True)
+    want_grads = fused_tp_ann.tp_ann_cell_bwd_plain(*bargs, num_devices=P)
+    torch.cuda.synchronize()
+    assert per_rank < 1024 // bt and bwd_per_rank < 1024 // bwd_bt
+    for x, y in zip((got, *got_g), (want, *want_g)):
+        assert float((x - y).abs().max()) <= ANN_FWD_ATOL
+    for x, y in zip((*grads[0], *grads[1], grads[2]),
+                    (*want_grads[0], *want_grads[1], want_grads[2])):
+        assert _rel(x, y) <= GRAD_REL
+
+
+@pytest.mark.cuda
+def test_tp_ann_gru_at_its_widest_on_card(cuda):
+    """The GRU at Hl = 2048 (four neurons a thread) over two ranks, H =
+    4096: the backward's stacked planes fill a block's shared memory beside
+    the tile stages."""
+    P, B, T, H = 2, 8, 3, 4096
+    d = ann_tp_inputs("gru", B, T, H, seed=5, device=cuda)
+    args = ("gru", d["wxs"], d["vs"], d["y0"])
+    got, got_g = fused_tp_ann._tp_ann_cell_cuda(*args, num_devices=P,
+                                                save_residuals=True)
+    bargs = ("gru", d["g"], got, got_g, d["vs"], d["y0"])
+    grads = fused_tp_ann._tp_ann_cell_bwd_cuda(*bargs, num_devices=P)
+    want, want_g = fused_tp_ann.tp_ann_cell_plain(*args, num_devices=P,
+                                                  save_residuals=True)
+    want_grads = fused_tp_ann.tp_ann_cell_bwd_plain(*bargs, num_devices=P)
+    torch.cuda.synchronize()
+    assert fused_tp.last_plans()["tp_ann_bwd"][3] == 512
+    for x, y in zip((got, *got_g), (want, *want_g)):
+        assert float((x - y).abs().max()) <= ANN_FWD_ATOL
+    for x, y in zip((*grads[0], *grads[1], grads[2]),
+                    (*want_grads[0], *want_grads[1], want_grads[2])):
+        assert _rel(x, y) <= GRAD_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ann_type,cell", [("GRU", "gru"), ("LiGRU", "ligru"),
+                                           ("RNN", "rnn")])
+def test_model_reaches_the_tp_ann_kernels_on_card(cuda, ann_type, cell):
+    B, T, F, H, C, P = 16, 20, 24, 256, 5, 2
+    model = build_model(ann_type, (B, T, F), [H, H, C], dropout=0.1,
+                        cell_impl="pallas_tp", tp_mesh=_mesh(P, "cuda"),
+                        bidirectional=ann_type == "LiGRU",
+                        generator=torch.Generator().manual_seed(0)).to(cuda)
+    x = torch.randn((B, T, F), device=cuda)
+    fused_cells.reset_launch_counts()
+    out, _ = model(x, torch.Generator(device=cuda).manual_seed(1))
+    out.sum().backward()
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in fused_cells.launch_counts().items() if n}
+    assert counts == {"tp_ann_fwd": 2, "tp_ann_bwd": 2}
+    assert torch.isfinite(out).all()
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", (2, 4))
+def test_tp_ann_gru_exchanges_land_on_fixed_parities_on_card(cuda, P,
+                                                             monkeypatch):
+    """The GRU's two exchanges of a step have consecutive indices, so r*y
+    always lands in slot 0 and y in slot 1 (the backpressure argument of
+    pallas_tp_ann.py:38-44), and in the backward dcpre in slot 0 and
+    [dzpre|drpre] in slot 1. After a launch every rank's slots hold the last
+    exchange of each kind: in the forward r*y of step T-1 and y of step T-2
+    (the last y gather is skipped), in the backward those of step 0."""
+    slots = []
+    exchange_buffers = fused_tp._exchange_buffers
+
+    def keep(*args, **kw):
+        bufs = exchange_buffers(*args, **kw)
+        slots.append(bufs[0])
+        return bufs
+
+    monkeypatch.setattr(fused_tp, "_exchange_buffers", keep)
+    B, T, H = 8, 7, P * 128
+    d = ann_tp_inputs("gru", B, T, H, seed=6, device=cuda)
+    out, (z, r, c) = fused_tp_ann._tp_ann_cell_cuda(
+        "gru", d["wxs"], d["vs"], d["y0"], num_devices=P,
+        save_residuals=True)
+    dwxs, _, _ = fused_tp_ann._tp_ann_cell_bwd_cuda(
+        "gru", d["g"], out, (z, r, c), d["vs"], d["y0"], num_devices=P)
+    torch.cuda.synchronize()
+    fwd, bwd = slots  # (P, 2, B, H) and (P, 2, B, 2H)
+    for q in range(P):
+        assert torch.equal(fwd[q, 0], r[:, -1] * out[:, -2])
+        assert torch.equal(fwd[q, 1], out[:, -2])
+        assert torch.equal(bwd[q, 0, :, :H], dwxs[0][:, 0])
+        assert torch.equal(bwd[q, 1], torch.cat([dwxs[1][:, 0],
+                                                 dwxs[2][:, 0]], dim=1))

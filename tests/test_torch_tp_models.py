@@ -206,7 +206,11 @@ def test_tp_model_error_paths():
     with pytest.raises(ValueError, match="no axis 'tp'"):
         build_model("RLIF", (B, T, F), [256, C], cell_impl="pallas_tp",
                     tp_mesh=_mesh(2), tp_axis="tp")(x)
-    # the non-spiking family's TP kernels are the next PR's
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # the non-spiking family takes the TP path too (ops/fused_tp_ann.py),
+    # and its bf16 form is the same next TP item
+    model = build_model("GRU", (B, T, F), [256, C], cell_impl="pallas_tp",
+                        tp_mesh=_mesh(2))
+    assert model(x)[0].shape == (B, C)
+    with pytest.raises(NotImplementedError, match="item 11"):
         build_model("GRU", (B, T, F), [256, C], cell_impl="pallas_tp",
-                    tp_mesh=_mesh(2))
+                    tp_mesh=_mesh(2), compute_dtype=torch.bfloat16)
