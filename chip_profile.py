@@ -48,10 +48,14 @@ this run:
    unpacked in ``DIR`` (another commit of this repository, e.g. from
    ``git archive``) against this tree's, in one call on one card, in the
    order DIR, this, this, DIR, each in a process of its own that builds
-   that tree's kernels: kernel ms at (128, 100, 512) (CUDA events) and the
-   SASS instruction count of each float32 ``fused_ann_fwd_kernel`` at one
-   neuron per thread (``cuobjdump``), which shows whether a change left
-   the float32 code as it was.
+   that tree's kernels: kernel ms at (128, 100, 512) (CUDA events), the
+   float32 tensor-parallel cells at their main shapes (RadLIF at (256,
+   100, 1024), RNN/LiGRU/GRU at (128, 100, 1024); P = 1, 2, 4), the SASS
+   instruction count of each float32 ``fused_ann_fwd_kernel`` at one
+   neuron per thread and of every float32 TP cell kernel, with the TP
+   kernels' registers and stack bytes (spills included; ``cuobjdump
+   -sass``, ``-res-usage``), which show whether a change left the float32
+   code as it was.
 
 Without a CUDA card it exits non-zero and prints no result.
 """
@@ -358,6 +362,36 @@ with torch.no_grad():
         r = smoke.ann_forward(mode, a, True, smoke.P_DROP, seed, True)[1:]
         res["ann_bwd_" + mode] = cuda_time_ms(smoke.ann_backward, mode, a, g,
                                               r, seed, True)
+    # the float32 tensor-parallel cells at their main shapes, P = 1, 2, 4
+    from sparch_tpu_torch.ops import fused_tp, fused_tp_ann
+    tshape = (2 * smoke.B, smoke.T, smoke.TP_H)
+    gt = torch.randn(tshape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(6))
+    ashape = (smoke.B, smoke.T, smoke.TP_H)
+    ga = torch.randn(ashape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(6))
+    for P in (1, 2, 4):
+        dt = smoke.tp_cell_inputs(tshape, seed=1, dev=dev, uniform_s0=True)
+        args, ada = smoke._tp_args("radlif", dt)
+        kw = dict(num_devices=P, adaptive=ada)
+        res[f"tp_cell_fwd_p{P}"] = cuda_time_ms(
+            lambda: fused_tp._tp_cell_cuda(*args, save_residuals=True, **kw))
+        _, u_seq = fused_tp._tp_cell_cuda(*args, save_residuals=True, **kw)
+        res[f"tp_cell_bwd_p{P}"] = cuda_time_ms(
+            lambda: fused_tp._tp_cell_bwd_cuda(gt, u_seq, *args[1:], **kw))
+        for mode in ("rnn", "ligru", "gru"):
+            da = smoke.tp_ann_inputs(mode, ashape, 4, dev)
+            fa = (mode, da["wxs"], da["vs"], da["y0"])
+            res[f"tp_ann_fwd_{mode}_p{P}"] = cuda_time_ms(
+                lambda: fused_tp_ann._tp_ann_cell_cuda(
+                    *fa, num_devices=P, save_residuals=True),
+                warmup=1, iters=5, repeats=3)
+            out, gates = fused_tp_ann._tp_ann_cell_cuda(
+                *fa, num_devices=P, save_residuals=True)
+            ba = (mode, ga, out, gates, da["vs"], da["y0"])
+            res[f"tp_ann_bwd_{mode}_p{P}"] = cuda_time_ms(
+                lambda: fused_tp_ann._tp_ann_cell_bwd_cuda(*ba, num_devices=P),
+                warmup=1, iters=5, repeats=3)
 from pathlib import Path
 sass = subprocess.run(
     [str(Path(_build._nvcc()).with_name("cuobjdump")), "-sass",
@@ -370,8 +404,36 @@ for m in re.finditer(r"Function : (\S+)\n(.*?)(?=\n\s*Function :|\Z)", sass,
     if k:
         counts["mode%s" % k.group(1)] = len(
             re.findall(r"^\s+/\*[0-9a-f]{4}\*/", m.group(2), re.M))
+# the float32 TP kernels, by kernel and template arguments (a tree with the
+# bf16 mode names its float32 instantiations with a last argument false):
+# SASS instructions, registers and stack bytes (spills included)
+tp = {}
+for lib in ("tp_cell_fwd", "tp_cell_bwd", "tp_ann_fwd", "tp_ann_bwd"):
+    def key(fn):
+        k = re.search(r"(tp_(?:cell|ann)_(?:fwd|bwd)_kernel)I(.*?)EE", fn)
+        if not k or k.group(2).endswith("ELb1"):
+            return None
+        return k.group(1) + "<" + re.sub(r"ELb0$", "", k.group(2)) + ">"
+    def dump(flag):
+        return subprocess.run(
+            [str(Path(_build._nvcc()).with_name("cuobjdump")), flag,
+             str(_build.library_path(lib))], capture_output=True,
+            text=True).stdout
+    for m in re.finditer(r"Function : (\S+)\n(.*?)(?=\n\s*Function :|\Z)",
+                         dump("-sass"), re.S):
+        k = key(m.group(1))
+        if k:
+            tp.setdefault(k, {})["sass"] = len(
+                re.findall(r"^\s+/\*[0-9a-f]{4}\*/", m.group(2), re.M))
+    for m in re.finditer(r"Function (\S+):\s*REG:(\d+) STACK:(\d+)",
+                         dump("-res-usage")):
+        k = key(m.group(1))
+        if k:
+            tp.setdefault(k, {}).update(regs=int(m.group(2)),
+                                        stack=int(m.group(3)))
 print(json.dumps({"phase": "ab", "tree": root, "ms": res,
-                  "ann_fwd_f32_sass_instructions": counts}), flush=True)
+                  "ann_fwd_f32_sass_instructions": counts,
+                  "tp_f32_kernels": tp}), flush=True)
 """
 
 

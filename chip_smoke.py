@@ -153,13 +153,29 @@ all at once), then prints one JSON line per phase:
    witness rule of phase 4. LiGRU and RNN at the same width: ``auto`` and
    ``pallas_tp`` at P = 2 for three steps at lr 1e-3 (at 1e-2 the LiGRU
    diverges on every path), checked alike.
-23. ``kernels``: each kernel with its launches on its main path (spiking
+23. The TP path's bf16-stream form (``compute_dtype=bfloat16``): phases
+   17-22 again with ``mxu_bf16`` (``tp_forward_bf16``,
+   ``tp_backward_bf16``, ``training_tp_bf16``, ``tp_ann_forward_bf16``,
+   ``tp_ann_backward_bf16``, ``training_tp_ann_bf16``). The spiking forward
+   takes a uniform s0 (the first product rounds it) and is still bit for
+   bit against its plain version, P = 1 and the single-card bf16 kernel;
+   the backward and the ANN kernels are held by ``bf16_grad_bounds`` and
+   BF16_ULP or else the float64 witness rule, bit for bit across P and
+   between launches, the ANN kernels and the spiking backward's gradients
+   that sum over no rows bit for bit against the single-card bf16 kernels.
+   The trainers run beside a bf16 ``scan`` twin (5 steps) and a bf16
+   ``auto`` twin, print ``vs_float32_tp`` (the float32 P = 1 trainer's
+   losses and step-1 gradient distance, not bounded), and the GRU's eval
+   is held against its plain versions as ``serving_bf16`` holds the served
+   bf16 GRU.
+24. ``kernels``: each kernel with its launches on its main path (spiking
    serving: the "calibrated" model's ``pallas`` run; spiking training: the
    ``pallas`` trainer's 10 steps; non-spiking: the ``auto`` Predictor's and
    the ``auto`` trainer's runs of its model; the bf16 forms: the bf16
    ``auto`` runs; the TP collectives: phase 16's calls; the TP cells: the
    P = 4 trainer's 10 steps; the TP ANN cells: the P = 4 GRU trainer's 10
-   steps, and by mode the P = 2 runs), its error, its time beside
+   steps, and by mode the P = 2 runs; their bf16 forms alike, from the
+   bf16 trainers), its error, its time beside
    its plain version's, and its bound: the larger of its bytes over the
    card's memory rate and its operations over the card's float32 rate, from
    this run's shapes and firing rates. No library call computes any of
@@ -1997,31 +2013,43 @@ def tp_shapes(P):
     return ((2 * B, T, TP_H), (8, 13, P * 128))
 
 
-def tp_cell_bounds(rate, b, t, h):
+def tp_cell_bounds(rate, b, t, h, bf16=False):
     """Bounds of the TP cell kernels over all ranks at (b, t, h): the
     training forward reads Wx and writes the spikes and the membrane series,
     reads V and the states; its s_full @ V[:, shard] adds one row of V's
     columns per spike. The backward reads g and the u series and writes
     dWx, reads V, writes dV, reads three states and writes three; it has
-    two dense products of 2*b*t*h*h (the per-step adjoint and dV)."""
-    stream, mat, state = 4.0 * b * t * h, 4.0 * h * h, 4.0 * b * h
+    two dense products of 2*b*t*h*h (the per-step adjoint and dV). In the
+    bf16-stream mode the spikes, g, dWx and V are two bytes an element (Wx
+    stays float32, as the model's norm emits it; the membrane series, dV
+    and the states stay four) and the dense products are of bf16
+    operands."""
+    e = 2.0 if bf16 else 4.0
+    f32 = 4.0 * b * t * h
+    stream, mat, state = e * b * t * h, e * h * h, 4.0 * b * h
+    products = 4.0 * b * t * h * h
     return dict(
-        fwd=bound(3 * stream + mat + 3 * state,
+        fwd=bound(2 * f32 + stream + mat + 3 * state,
                   16.0 * b * t * h + rate * b * t * h * h),
-        bwd=bound(3 * stream + 2 * mat + 6 * state,
-                  40.0 * b * t * h + 4.0 * b * t * h * h),
+        bwd=bound(2 * stream + f32 + mat + 4.0 * h * h + 6 * state,
+                  40.0 * b * t * h + (0.0 if bf16 else products),
+                  products if bf16 else 0.0),
     )
 
 
-def phase_tp_cell_forward(dev):
+def phase_tp_cell_forward(dev, bf16=False):
     """``tp_cell_fwd`` (RLIF, RadLIF) at P = 1, 2, 4 on the main path's
     shape and a small one: the spikes and the membrane series bit for bit
     against ``tp_cell_plain``, against the kernel at P = 1 (the split
     changes no sum) and against the single-card fused cell without the
     affine; the serving form (no residuals) alike. Times of the training
     form (the one the trainer launches) at the main shape beside the
-    plain version's and the single-card kernel's. Returns the RadLIF rows
-    by P."""
+    plain version's and the single-card kernel's. With ``bf16`` the
+    bf16-stream form (``tp_cell_fwd_bf16``): s0 uniform, as the uniform
+    state init draws it (the first product rounds it), a float32 drive at
+    the main shape (the model's norm emits float32) and a bf16 one at the
+    small shape, the same checks against the single-card bf16 kernel.
+    Returns the RadLIF rows by P."""
     from sparch_tpu_torch.ops import fused_cells, fused_tp
     from sparch_tpu_torch.utils.timing import cuda_time_ms
 
@@ -2029,10 +2057,13 @@ def phase_tp_cell_forward(dev):
     for P in TP_PS:
         for shape in tp_shapes(P):
             for name in ("rlif", "radlif"):
-                what = f"tp_cell_fwd {name} {shape} P={P}"
-                d = tp_cell_inputs(shape, seed=1, dev=dev)
+                what = f"tp_cell_fwd {name} {shape} P={P}" + (
+                    " bf16" if bf16 else "")
+                d = tp_cell_inputs(shape, seed=1, dev=dev, uniform_s0=bf16)
+                if bf16 and shape != tp_shapes(P)[0]:
+                    d["Wx"] = d["Wx"].to(BF16)
                 args, ada = _tp_args(name, d)
-                kw = dict(num_devices=P, adaptive=ada)
+                kw = dict(num_devices=P, adaptive=ada, mxu_bf16=bf16)
                 with torch.no_grad():
                     s, u = fused_tp._tp_cell_cuda(*args, **kw,
                                                   save_residuals=True)
@@ -2042,8 +2073,10 @@ def phase_tp_cell_forward(dev):
                         *args, **kw, save_residuals=True)
                     one, one_u = fused_cells._fused_cell_cuda(
                         args[0], None, None, *args[1:], recurrent=True,
-                        adaptive=ada, save_residuals=True)
+                        adaptive=ada, save_residuals=True, mxu_bf16=bf16)
                 torch.cuda.synchronize()
+                check(s.dtype == (BF16 if bf16 else torch.float32) and
+                      u.dtype == torch.float32, f"{what}: output types")
                 check(torch.equal(s, want) and torch.equal(u, want_u),
                       f"{what}: differs from tp_cell_plain")
                 check(torch.equal(served, want),
@@ -2052,8 +2085,9 @@ def phase_tp_cell_forward(dev):
                       f"{what}: differs from the single-card fused cell")
                 row = dict(cell=name, shape=list(shape), P=P,
                            one_card_form=P > 1, plan=plan,
-                           firing_rate=float(want.mean()), max_abs_err=0.0,
-                           equals_plain_bit_for_bit=True,
+                           wx_dtype=str(args[0].dtype),
+                           firing_rate=float(want.float().mean()),
+                           max_abs_err=0.0, equals_plain_bit_for_bit=True,
                            equals_single_card_kernel=True)
                 main_shape = shape == tp_shapes(P)[0]
                 if main_shape:
@@ -2075,14 +2109,16 @@ def phase_tp_cell_forward(dev):
                             lambda: fused_cells._fused_cell_cuda(
                                 args[0], None, None, *args[1:],
                                 recurrent=True, adaptive=ada,
-                                save_residuals=True))
+                                save_residuals=True, mxu_bf16=bf16))
                     if name == "radlif":
                         main[P] = row
-                emit("kernel_vs_plain", kernel="tp_cell_fwd", **row)
+                emit("kernel_vs_plain",
+                     kernel="tp_cell_fwd_bf16" if bf16 else "tp_cell_fwd",
+                     **row)
     return main
 
 
-def phase_tp_cell_backward(dev):
+def phase_tp_cell_backward(dev, bf16=False):
     """``tp_cell_bwd`` (RLIF, RadLIF) at P = 1, 2, 4 on the main path's
     shape and a small one, s0 uniform: both sides get the plain forward's
     residuals; every gradient against ``tp_cell_bwd_plain`` by the rule of
@@ -2090,7 +2126,10 @@ def phase_tp_cell_backward(dev):
     P > 1 the gradients that sum over no rows equal P = 1's bit for bit,
     the others' gap is printed. Times at the main shape beside the plain
     version's and the single-card backward's (no affine, no dropout).
-    Returns the RadLIF rows by P."""
+    With ``bf16`` the bf16-stream form (``tp_cell_bwd_bf16``): g bf16, the
+    bounds of ``bf16_grad_bounds``, and every gradient also held against
+    the single-card bf16 backward by those bounds, the ones that sum over no
+    rows bit for bit. Returns the RadLIF rows by P."""
     from sparch_tpu_torch.ops import fused_cells, fused_tp
     from sparch_tpu_torch.utils.timing import cuda_time_ms
 
@@ -2098,18 +2137,20 @@ def phase_tp_cell_backward(dev):
     for P in TP_PS:
         for shape in tp_shapes(P):
             for name in ("rlif", "radlif"):
-                what = f"tp_cell_bwd {name} {shape} P={P}"
+                what = f"tp_cell_bwd {name} {shape} P={P}" + (
+                    " bf16" if bf16 else "")
                 d = tp_cell_inputs(shape, seed=1, dev=dev, uniform_s0=True)
                 args, ada = _tp_args(name, d)
-                kw = dict(num_devices=P, adaptive=ada)
+                kw = dict(num_devices=P, adaptive=ada, mxu_bf16=bf16)
                 g = torch.randn(shape, device=dev,
                                 generator=torch.Generator(
                                     device=dev).manual_seed(6))
+                if bf16:
+                    g = g.to(BF16)
                 with torch.no_grad():
                     _, u_seq = fused_tp.tp_cell_plain(*args, **kw,
                                                       save_residuals=True)
-                Wx, *rest = args
-                bargs = (g, u_seq, *rest)
+                bargs = (g, u_seq, *args[1:])
 
                 def bwd(fn, f=lambda t: t):
                     return fn(*[f(a) if torch.is_tensor(a) else a
@@ -2121,18 +2162,42 @@ def phase_tp_cell_backward(dev):
                     again = bwd(fused_tp._tp_cell_bwd_cuda)
                     want = bwd(fused_tp.tp_cell_bwd_plain)
                     torch.cuda.synchronize()
-                    errs = grads_within_bound(
-                        what, got, want,
-                        lambda: bwd(fused_tp.tp_cell_bwd_plain,
-                                    torch.Tensor.double),
-                        names=TP_GRAD_NAMES)
+                    def f64():
+                        return bwd(fused_tp.tp_cell_bwd_plain,
+                                   torch.Tensor.double)
+
+                    bounds = bf16_grad_bounds(TP_GRAD_NAMES) if bf16 \
+                        else None
+                    errs = grads_within_bound(what, got, want, f64,
+                                              names=TP_GRAD_NAMES,
+                                              rel_max=bounds)
+                    if bf16:
+                        single = fused_cells._fused_cell_bwd_cuda(
+                            g, args[0], u_seq, None, *args[1:],
+                            recurrent=True, adaptive=ada, mxu_bf16=True)
+                        single = [single[i] for i in (0, 3, 4, 5, 6, 7, 8, 9,
+                                                      10)]
+                        torch.cuda.synchronize()
+                        single_errs = grads_within_bound(
+                            f"{what} vs the single-card kernel", got, single,
+                            f64, names=TP_GRAD_NAMES, rel_max=bounds)
+                        # the gradients that sum over no rows: the same
+                        # arithmetic in the same order
+                        for n, x, z in zip(TP_GRAD_NAMES, got, single):
+                            check(n not in TP_UNREDUCED or x is None or
+                                  torch.equal(x, z),
+                                  f"{what}: {n} differs from the "
+                                  f"single-card kernel")
                 for n, x, z in zip(TP_GRAD_NAMES, got, again):
                     check(x is None or torch.equal(x, z),
                           f"{what}: {n} differs between two launches")
                 row = dict(cell=name, shape=list(shape), P=P,
                            one_card_form=P > 1, plan=plan, rel_err=errs,
                            two_launches_bit_equal=True,
-                           max_abs_err=float((got[0] - want[0]).abs().max()))
+                           max_abs_err=float((got[0].float()
+                                              - want[0].float()).abs().max()))
+                if bf16:
+                    row["vs_single_card_kernel"] = single_errs
                 if shape == tp_shapes(P)[0]:
                     if P == 1:
                         ref[name] = got
@@ -2152,11 +2217,14 @@ def phase_tp_cell_backward(dev):
                             **PLAIN_ROUNDS)
                         row["single_card_kernel_ms"] = cuda_time_ms(
                             lambda: fused_cells._fused_cell_bwd_cuda(
-                                g, Wx, u_seq, None, *rest, recurrent=True,
-                                adaptive=ada))
+                                g, args[0], u_seq, None, *args[1:],
+                                recurrent=True, adaptive=ada,
+                                mxu_bf16=bf16))
                     if name == "radlif":
                         main[P] = row
-                emit("kernel_vs_plain", kernel="tp_cell_bwd", **row)
+                emit("kernel_vs_plain",
+                     kernel="tp_cell_bwd_bf16" if bf16 else "tp_cell_bwd",
+                     **row)
     return main
 
 
@@ -2174,7 +2242,7 @@ def tp_training_state():
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
-def eval_tp(dev, state_dict, x, y):
+def eval_tp(dev, state_dict, x, y, bf16=False):
     """One ``make_eval_step`` pass (zero state init) over the trained
     weights with V put back on the 2^-8 grid, for scan and for pallas_tp
     at P = 1, 2, 4, counters set to 0 just before each and read just
@@ -2182,7 +2250,7 @@ def eval_tp(dev, state_dict, x, y):
     as ``Predictor`` serves an SNN) of every P equal P = 1's and the
     plain versions' bit for bit, and the eval metrics alike; against
     scan by the rule of phase 4, with the scan model on the host CPU as
-    the witness."""
+    the witness. ``bf16``: every model under ``compute_dtype=bfloat16``."""
     from sparch_tpu_torch.models import build_model
     from sparch_tpu_torch.ops import fused_cells
     from sparch_tpu_torch.train import create_train_state, make_eval_step
@@ -2194,7 +2262,8 @@ def eval_tp(dev, state_dict, x, y):
         model = build_model("RadLIF", (B, T, TP_F), list(TP_SIZES),
                             bidirectional=True, state_init="zeros",
                             cell_impl=impl,
-                            tp_mesh=tp_mesh(device, P) if P else None)
+                            tp_mesh=tp_mesh(device, P) if P else None,
+                            compute_dtype=BF16 if bf16 else None)
         model.load_state_dict(sd)
         state = create_train_state(model, LR, device=device)
         step = make_eval_step(model)
@@ -2215,10 +2284,11 @@ def eval_tp(dev, state_dict, x, y):
     label_min = witness["label_agreement"] - WITNESS_LABEL_MARGIN
     prob_max = max(WITNESS_PROB_FACTOR * witness["max_abs_prob_diff"], 1e-3)
     first = None
+    fwd_name = "tp_cell_fwd_bf16" if bf16 else "tp_cell_fwd"
     for P in TP_PS:
-        what = f"eval pallas_tp P={P}"
+        what = f"eval pallas_tp P={P}" + (" bf16" if bf16 else "")
         got, met, counts = run("pallas_tp", P)
-        want = {k: 2 if k == "tp_cell_fwd" else 0 for k in counts}
+        want = {k: 2 if k == fwd_name else 0 for k in counts}
         check(counts == want, f"{what}: kernel launches {counts}")
         with plain_versions():
             plain, plain_met, _ = run("pallas_tp", P)
@@ -2239,7 +2309,7 @@ def eval_tp(dev, state_dict, x, y):
     return rows
 
 
-def phase_training_tp(dev):
+def phase_training_tp(dev, bf16=False):
     """The TP training main path: RadLIF [1024, 1024, 35] bidirectional
     (batchnorm, dropout 0.1, uniform state init, Adam lr 1e-2) on one
     device-resident batch of 128 SC-shaped utterances (F=40 features drawn
@@ -2247,16 +2317,31 @@ def phase_training_tp(dev):
     dict and seed, each checked and timed as phase 8 (two forward and two
     backward TP launches per step, no other kernel); P = 2 and 4 against
     P = 1 (step-1 gradients within GRAD_REL_MAX, the largest gap printed);
-    then ``eval_tp``. Returns the launch counts of each P's run."""
+    then ``eval_tp``. With ``bf16`` every trainer under
+    ``compute_dtype=bfloat16`` (the TP kernels' bf16-stream form), the
+    ``scan`` twin for 5 steps, an ``auto`` twin beside it, step-1 gradients
+    against the plain versions within BF16_ULP (else the float64 witness
+    rule), and ``vs_float32_tp``: the float32 P = 1 trainer's losses and its
+    step-1 gradients' distance, printed, not bounded. Returns the launch
+    counts of each P's run."""
     state_dict = tp_training_state()
     gen = torch.Generator(device=dev).manual_seed(21)
     x = torch.randn((B, T, TP_F), generator=gen, device=dev)
     y = torch.randint(0, C, (B,), generator=gen, device=dev)
-    per_step = {"tp_cell_fwd": 2, "tp_cell_bwd": 2}
+    sfx = "_bf16" if bf16 else ""
+    per_step = {f"tp_cell_fwd{sfx}": 2, f"tp_cell_bwd{sfx}": 2}
     rows, launches, kept = {}, {}, {}
     common = dict(sizes=TP_SIZES, bidirectional=True)
+    if bf16:
+        common.update(compute_dtype=BF16, grad_rel_max=BF16_ULP)
     rows["scan"], _ = train_variant(dev, "scan", state_dict, x, y, {}, None,
+                                    steps=5 if bf16 else TRAIN_STEPS,
                                     **common)
+    if bf16:
+        rows["auto"], _ = train_variant(
+            dev, "auto", state_dict, x, y,
+            {"fused_cell_fwd_train_bf16": 2, "fused_cell_bwd_bf16": 2},
+            rows["scan"], **common)
     for P in TP_PS:
         kept[P] = {}
         rows[f"pallas_tp_p{P}"], launches[P] = train_variant(
@@ -2271,11 +2356,30 @@ def phase_training_tp(dev):
             check(gaps[worst] <= GRAD_REL_MAX,
                   f"pallas_tp P={P}: step-1 gradient of {worst} is "
                   f"{gaps[worst]} from P=1's")
-    rows["eval"] = eval_tp(dev, kept[1]["state_dict"], x, y)
-    emit("training_tp", model="RadLIF [1024, 1024, 35] bidirectional",
-         batch_size=B, T=T, F=TP_F, dropout=P_DROP, lr=LR,
-         steps=TRAIN_STEPS, one_card_form="P > 1", **rows)
+    if bf16:
+        rows["vs_float32_tp"] = vs_float32_tp(
+            dev, state_dict, x, y, kept[1], model_type="RadLIF",
+            sizes=TP_SIZES, bidirectional=True)
+    rows["eval"] = eval_tp(dev, kept[1]["state_dict"], x, y, bf16=bf16)
+    emit("training_tp" + sfx, model="RadLIF [1024, 1024, 35] bidirectional",
+         compute_dtype="bfloat16" if bf16 else "float32", batch_size=B, T=T,
+         F=TP_F, dropout=P_DROP, lr=LR, steps=TRAIN_STEPS,
+         one_card_form="P > 1", **rows)
     return launches
+
+
+def vs_float32_tp(dev, state_dict, x, y, kept, **run):
+    """The float32 ``pallas_tp`` P = 1 trainer beside a bf16 one (``kept``:
+    its step-1 gradients): the float32 losses over TRAIN_STEPS steps and the
+    largest step-1 gradient distance, relative to the float32 gradient's
+    largest magnitude. Printed, not bounded: the mode moves the answers."""
+    _, _, losses, grads, _ = train_run(dev, "pallas_tp", state_dict, x, y,
+                                       TRAIN_STEPS, tp_mesh=tp_mesh(dev, 1),
+                                       **run)
+    gaps = {k: rel_err(kept["grads"][k], v) for k, v in grads.items()}
+    worst = max(gaps, key=gaps.get)
+    return dict(float32_losses=losses, step1_grad_max_rel_diff=gaps[worst],
+                at=worst)
 
 
 def tp_kernel_rows(coll_launches, coll, fwd, bwd, trained):
@@ -2304,20 +2408,30 @@ def tp_kernel_rows(coll_launches, coll, fwd, bwd, trained):
             shape=[B, h], rounds=TP_ROUNDS,
             ms_by_p={q: coll[q][name]["ms"] for q in TP_PS},
             plain_ms_by_p={q: coll[q][name]["plain_ms"] for q in TP_PS}))
-    tb = tp_cell_bounds(fwd[P]["firing_rate"], 2 * B, T, TP_H)
-    for name, src_file, line, main, b in (
-            ("tp_cell_fwd", "tp_cell_fwd.cu", "350", fwd, tb["fwd"]),
-            ("tp_cell_bwd", "tp_cell_bwd.cu", "448", bwd, tb["bwd"])):
+    return rows + tp_cell_rows(fwd, bwd, trained)
+
+
+def tp_cell_rows(fwd, bwd, trained, bf16=False):
+    """The ``kernels`` entries of the TP cells in one stream mode: times at
+    P = 4, each P's beside them; launches: the P = 4 trainer's run."""
+    src = "sparch_tpu_torch/csrc/"
+    tpu = "sparch_tpu/ops/pallas_tp.py:"
+    P = TP_PS[-1]
+    sfx = "_bf16" if bf16 else ""
+    tb = tp_cell_bounds(fwd[P]["firing_rate"], 2 * B, T, TP_H, bf16=bf16)
+    rows = []
+    for name, line, main, b in (("tp_cell_fwd", "350", fwd, tb["fwd"]),
+                                ("tp_cell_bwd", "448", bwd, tb["bwd"])):
         rows.append(dict(
-            name=name, route="cuda", source=src + src_file,
-            replaces=tpu + line, launches=trained[P][name],
+            name=name + sfx, route="cuda", source=src + name + ".cu",
+            replaces=tpu + line, launches=trained[P][name + sfx],
             max_abs_err=main[P]["max_abs_err"], ms=main[P]["ms"],
             plain_ms=main[P]["plain_ms"], **b, library_ms=None,
             one_card_form=True, P=P, shape=[2 * B, T, TP_H],
             ms_by_p={q: main[q]["ms"] for q in TP_PS},
             plain_ms_by_p={q: main[q]["plain_ms"] for q in TP_PS},
             single_card_kernel_ms=main[1]["single_card_kernel_ms"],
-            launches_by_p={q: trained[q][name] for q in TP_PS}))
+            launches_by_p={q: trained[q][name + sfx] for q in TP_PS}))
     return rows
 
 
@@ -2348,7 +2462,7 @@ def _double(ts):
     return [t.double() for t in ts]
 
 
-def phase_tp_ann_forward(dev):
+def phase_tp_ann_forward(dev, bf16=False):
     """``tp_ann_fwd`` (RNN, LiGRU, GRU) at P = 1, 2, 4 on the main path's
     shape (128, 100, 1024): the output and the gate series against
     ``tp_ann_cell_plain`` by the rule of phase 9 (``series_within_bound``),
@@ -2357,12 +2471,19 @@ def phase_tp_ann_forward(dev):
     and the dropout (every product sums its Hg terms in one ascending
     order), and two launches alike. Times of the training form (the one the
     trainer launches) and the serving form beside the plain version's and
-    the single-card kernel's. Returns the rows by mode and P."""
+    the single-card kernel's. With ``bf16`` the bf16-stream form
+    (``tp_ann_fwd_bf16``, float32 input streams as the model's norm emits
+    them): every series within one bf16 ulp (BF16_ULP relative to
+    max(1, |value|)) of the plain version's, else the float64 witness rule,
+    and the same bit-for-bit checks against the single-card bf16 kernel.
+    Returns the rows by mode and P."""
     from sparch_tpu_torch.ops import fused_ann, fused_tp, fused_tp_ann
     from sparch_tpu_torch.utils.timing import cuda_time_ms
 
     shape = (B, T, TP_H)
     main = {}
+    mkw = dict(mxu_bf16=bf16)
+    atol = BF16_ULP if bf16 else ANN_ATOL
     for mode in ANN_TYPES:
         d = tp_ann_inputs(mode, shape, 4, dev)
         args = (mode, d["wxs"], d["vs"], d["y0"])
@@ -2375,7 +2496,7 @@ def phase_tp_ann_forward(dev):
         def single_card():
             out, _, gates = fused_ann._ann_cell_cuda(
                 mode, d["wxs"], None, None, d["vs"], d["y0"],
-                save_residuals=True)
+                save_residuals=True, **mkw)
             return (out, *gates)
 
         with torch.no_grad():
@@ -2384,8 +2505,9 @@ def phase_tp_ann_forward(dev):
             single_card, warmup=1, iters=5, repeats=3))
         ref = None
         for P in TP_PS:
-            what = f"tp_ann_fwd {mode} {shape} P={P}"
-            kw = dict(num_devices=P)
+            what = f"tp_ann_fwd {mode} {shape} P={P}" + (
+                " bf16" if bf16 else "")
+            kw = dict(num_devices=P, **mkw)
             with torch.no_grad():
                 got = flat(fused_tp_ann._tp_ann_cell_cuda(
                     *args, **kw, save_residuals=True))
@@ -2397,9 +2519,9 @@ def phase_tp_ann_forward(dev):
                     *args, **kw, save_residuals=True))
                 torch.cuda.synchronize()
                 errs = series_within_bound(
-                    what, names, (ANN_ATOL,) * len(names), got, want,
+                    what, names, (atol,) * len(names), got, want,
                     lambda: flat(fused_tp_ann.tp_ann_cell_plain(
-                        *args64, **kw, save_residuals=True)))
+                        *args64, **kw, save_residuals=True)), relative=bf16)
             ref = ref or got
             for n, x, z, r, s1 in zip(names, got, again, ref, single):
                 check(torch.equal(x, z), f"{what}: {n} differs between two "
@@ -2427,33 +2549,38 @@ def phase_tp_ann_forward(dev):
                         *args, **kw, save_residuals=True), **PLAIN_ROUNDS)
             row["single_card_kernel_ms"] = main[mode]["single_card_kernel_ms"]
             main[mode][P] = row
-            emit("kernel_vs_plain", kernel="tp_ann_fwd", **row)
+            emit("kernel_vs_plain",
+                 kernel="tp_ann_fwd_bf16" if bf16 else "tp_ann_fwd", **row)
     return main
 
 
-def phase_tp_ann_backward(dev):
+def phase_tp_ann_backward(dev, bf16=False):
     """``tp_ann_bwd`` (RNN, LiGRU, GRU) at P = 1, 2, 4 on the main path's
     shape: both sides get the plain forward's residuals; every gradient
     (per gate dWx and dV; dy0) against ``tp_ann_cell_bwd_plain`` by the rule
     of phase 6 (``grads_within_bound``); two launches bit-equal; every
     gradient bit for bit across P and equal to the single-card
     ``fused_ann_bwd`` without the affine and the dropout. Times beside the
-    plain version's and the single-card kernel's. Returns the rows by mode
-    and P."""
+    plain version's and the single-card kernel's. With ``bf16`` the
+    bf16-stream form (``tp_ann_bwd_bf16``: g and the series bf16) by the
+    bounds of ``bf16_grad_bounds``. Returns the rows by mode and P."""
     from sparch_tpu_torch.ops import fused_ann, fused_tp, fused_tp_ann
     from sparch_tpu_torch.utils.timing import cuda_time_ms
 
     shape = (B, T, TP_H)
     main = {}
+    mkw = dict(mxu_bf16=bf16)
     for mode in ANN_TYPES:
         d = tp_ann_inputs(mode, shape, 4, dev)
         g = torch.randn(shape, device=dev,
                         generator=torch.Generator(device=dev).manual_seed(6))
+        if bf16:
+            g = g.to(BF16)
         names = tp_ann_grad_names(mode)
         with torch.no_grad():
             out, gates = fused_tp_ann.tp_ann_cell_plain(
                 mode, d["wxs"], d["vs"], d["y0"], num_devices=1,
-                save_residuals=True)
+                save_residuals=True, **mkw)
         bargs = (mode, g, out, gates, d["vs"], d["y0"])
         bargs64 = (mode, g.double(), out.double(), _double(gates),
                    _double(d["vs"]), d["y0"].double())
@@ -2463,7 +2590,8 @@ def phase_tp_ann_backward(dev):
 
         def single_card():
             dwxs, _, _, dvs, dy0 = fused_ann._ann_cell_bwd_cuda(
-                mode, g, None, out, list(gates), None, d["vs"], d["y0"])
+                mode, g, None, out, list(gates), None, d["vs"], d["y0"],
+                **mkw)
             return (*dwxs, *dvs, dy0)
 
         with torch.no_grad():
@@ -2472,8 +2600,9 @@ def phase_tp_ann_backward(dev):
             single_card, warmup=1, iters=5, repeats=3))
         ref = None
         for P in TP_PS:
-            what = f"tp_ann_bwd {mode} {shape} P={P}"
-            kw = dict(num_devices=P)
+            what = f"tp_ann_bwd {mode} {shape} P={P}" + (
+                " bf16" if bf16 else "")
+            kw = dict(num_devices=P, **mkw)
             with torch.no_grad():
                 got = flat(fused_tp_ann._tp_ann_cell_bwd_cuda(*bargs, **kw))
                 plan = fused_tp.last_plans()["tp_ann_bwd"]
@@ -2483,7 +2612,8 @@ def phase_tp_ann_backward(dev):
                 errs = grads_within_bound(
                     what, got, want,
                     lambda: flat(fused_tp_ann.tp_ann_cell_bwd_plain(
-                        *bargs64, **kw)), names=names)
+                        *bargs64, **kw)), names=names,
+                    rel_max=bf16_grad_bounds(names) if bf16 else None)
             ref = ref or got
             for n, x, z, r, s1 in zip(names, got, again, ref, single):
                 check(torch.equal(x, z), f"{what}: {n} differs between two "
@@ -2493,7 +2623,8 @@ def phase_tp_ann_backward(dev):
                                           f"single-card kernel")
             row = dict(cell=mode, shape=list(shape), P=P,
                        one_card_form=P > 1, plan=plan, rel_err=errs,
-                       max_abs_err=float((got[0] - want[0]).abs().max()),
+                       max_abs_err=float((got[0].float()
+                                          - want[0].float()).abs().max()),
                        two_launches_bit_equal=True, equals_p1=True,
                        equals_single_card_kernel=True)
             with torch.no_grad():
@@ -2505,7 +2636,8 @@ def phase_tp_ann_backward(dev):
                     **PLAIN_ROUNDS)
             row["single_card_kernel_ms"] = main[mode]["single_card_kernel_ms"]
             main[mode][P] = row
-            emit("kernel_vs_plain", kernel="tp_ann_bwd", **row)
+            emit("kernel_vs_plain",
+                 kernel="tp_ann_bwd_bf16" if bf16 else "tp_ann_bwd", **row)
     return main
 
 
@@ -2518,23 +2650,31 @@ def tp_ann_state(ann_type):
                        generator=torch.Generator().manual_seed(0)).state_dict()
 
 
-def eval_tp_ann(dev, state_dict, x, y):
+def eval_tp_ann(dev, state_dict, x, y, bf16=False):
     """One ``make_eval_step`` pass of the GRU over the trained weights, for
     scan and for pallas_tp at P = 1, 2, 4, counters set to 0 just before
     each and read just after (one forward launch per layer). The
     probabilities (the softmax of the logits, as ``Predictor`` serves an
     ANN) of every P equal P = 1's bit for bit; against the plain versions
     and against scan by the rule of phase 4, with the scan model on the host
-    CPU as the witness."""
+    CPU as the witness. ``bf16``: every model under
+    ``compute_dtype=bfloat16``, held against the plain versions as
+    ``serve_bf16`` holds the served bf16 GRU (labels on >= 99 %,
+    probabilities within BF16_PROB_MAX, else the float64 witness rule: a
+    summing order tips bf16 roundings that the readout's average does not
+    undo), its distance from scan printed, not bounded."""
     from sparch_tpu_torch.models import build_model
     from sparch_tpu_torch.ops import fused_cells
     from sparch_tpu_torch.train import create_train_state, make_eval_step
 
-    def run(impl, P=None, device=dev, data=(x, y)):
+    def run(impl, P=None, device=dev, data=(x, y), dtype=torch.float32):
         model = build_model("GRU", (B, T, TP_F), list(TP_SIZES),
                             cell_impl=impl,
-                            tp_mesh=tp_mesh(device, P) if P else None)
+                            tp_mesh=tp_mesh(device, P) if P else None,
+                            compute_dtype=BF16 if bf16 else None)
         model.load_state_dict(state_dict)
+        model.to(dtype)
+        data = (data[0].to(dtype), data[1])
         state = create_train_state(model, LR, device=device)
         step = make_eval_step(model)
         fused_cells.reset_launch_counts()
@@ -2554,10 +2694,11 @@ def eval_tp_ann(dev, state_dict, x, y):
     label_min = witness["label_agreement"] - WITNESS_LABEL_MARGIN
     prob_max = max(WITNESS_PROB_FACTOR * witness["max_abs_prob_diff"], 1e-3)
     first = None
+    fwd_name = "tp_ann_fwd_bf16" if bf16 else "tp_ann_fwd"
     for P in TP_PS:
-        what = f"eval GRU pallas_tp P={P}"
+        what = f"eval GRU pallas_tp P={P}" + (" bf16" if bf16 else "")
         got, met, counts = run("pallas_tp", P)
-        want = {k: 2 if k == "tp_ann_fwd" else 0 for k in counts}
+        want = {k: 2 if k == fwd_name else 0 for k in counts}
         check(counts == want, f"{what}: kernel launches {counts}")
         with plain_versions():
             plain, _, _ = run("pallas_tp", P)
@@ -2565,20 +2706,37 @@ def eval_tp_ann(dev, state_dict, x, y):
         check(np.array_equal(got[1], first[1]), f"{what}: differs from P=1")
         agree = {"plain_versions": _agreement(got, plain),
                  "scan": _agreement(got, scan)}
+        row = dict(metrics=met,
+                   launches={k: n for k, n in counts.items() if n},
+                   equals_p1=True, vs_plain_versions=agree["plain_versions"],
+                   vs_scan=agree["scan"])
         for k, a in agree.items():
-            check(a["label_agreement"] >= label_min and
-                  a["max_abs_prob_diff"] <= prob_max,
-                  f"{what}: vs {k} {a}, witness {witness}")
-        rows[f"pallas_tp_p{P}"] = dict(
-            metrics=met, launches={k: n for k, n in counts.items() if n},
-            equals_p1=True, vs_plain_versions=agree["plain_versions"],
-            vs_scan=agree["scan"])
+            if not bf16:
+                check(a["label_agreement"] >= label_min and
+                      a["max_abs_prob_diff"] <= prob_max,
+                      f"{what}: vs {k} {a}, witness {witness}")
+            elif k == "plain_versions" and not (
+                    a["label_agreement"] >= 0.99 and
+                    a["max_abs_prob_diff"] <= BF16_PROB_MAX):
+                with plain_versions():
+                    truth = run("pallas_tp", P, dtype=torch.float64)[0]
+                w = row["f64_witness"] = dict(
+                    kernel_vs_f64=_agreement(got, truth),
+                    plain_vs_f64=_agreement(plain, truth))
+                check(w["kernel_vs_f64"]["label_agreement"]
+                      >= w["plain_vs_f64"]["label_agreement"]
+                      - WITNESS_LABEL_MARGIN and
+                      w["kernel_vs_f64"]["max_abs_prob_diff"]
+                      <= WITNESS_PROB_FACTOR
+                      * w["plain_vs_f64"]["max_abs_prob_diff"],
+                      f"{what}: vs the plain versions {a}, {w}")
+        rows[f"pallas_tp_p{P}"] = row
     rows["scan"] = dict(metrics=scan_met, scan_card_vs_cpu=witness,
                         vs_label_min=label_min, vs_prob_max=prob_max)
     return rows
 
 
-def phase_training_tp_ann(dev):
+def phase_training_tp_ann(dev, bf16=False):
     """The TP non-spiking training main path: GRU [1024, 1024, 35]
     (batchnorm, dropout 0.1, Adam lr 1e-2) on one device-resident batch of
     128 SC-shaped utterances (F=40 features drawn normal(0, 1)), ``scan``,
@@ -2592,11 +2750,17 @@ def phase_training_tp_ann(dev):
     1024, 35] diverges on every path, the plain scan on the host CPU
     included: Adam's first steps move each entry of V by about lr, so the
     unbounded relu candidate explodes by the third step; at 1e-3 its loss
-    falls 4.11 -> 0.59 in three steps. Returns the launch counts of each
-    run."""
+    falls 4.11 -> 0.59 in three steps. With ``bf16`` every trainer under
+    ``compute_dtype=bfloat16`` (the TP kernels' bf16-stream form), the GRU's
+    ``scan`` twin for 5 steps, step-1 gradients against the plain versions
+    within BF16_ULP (else the float64 witness rule), and
+    ``vs_float32_tp`` as in ``phase_training_tp``. Returns the launch
+    counts of each run."""
     gen = torch.Generator(device=dev).manual_seed(21)
     x = torch.randn((B, T, TP_F), generator=gen, device=dev)
     y = torch.randint(0, C, (B,), generator=gen, device=dev)
+    sfx = "_bf16" if bf16 else ""
+    per_step = {f"{k}{sfx}": n for k, n in TP_ANN_PER_STEP.items()}
     launches = {}
     for mode in ("gru", "ligru", "rnn"):
         ann_type = ANN_TYPES[mode]
@@ -2607,20 +2771,23 @@ def phase_training_tp_ann(dev):
                       steps=TRAIN_STEPS if main else 3, timed=main,
                       lr=LR if main else 1e-3,
                       grad_rel_max=KINK_GRAD_REL_MAX if mode == "ligru"
-                      else GRAD_REL_MAX)
+                      else BF16_ULP if bf16 else GRAD_REL_MAX)
+        if bf16:
+            common.update(compute_dtype=BF16)
         rows, kept = {}, {}
         if main:
-            rows["scan"], _ = train_variant(dev, "scan", state_dict, x, y,
-                                            {}, None, **common)
+            rows["scan"], _ = train_variant(
+                dev, "scan", state_dict, x, y, {}, None,
+                **dict(common, steps=5) if bf16 else common)
         rows["auto"], _ = train_variant(
             dev, "auto", state_dict, x, y,
-            {f"fused_ann_fwd_{mode}": 2, f"fused_ann_bwd_{mode}": 2},
-            rows.get("scan"), **common)
+            {f"fused_ann_fwd_{mode}{sfx}": 2,
+             f"fused_ann_bwd_{mode}{sfx}": 2}, rows.get("scan"), **common)
         for P in ps:
             kept[P] = {}
             key = f"pallas_tp_p{P}"
             rows[key], launches[(mode, P)] = train_variant(
-                dev, "pallas_tp", state_dict, x, y, TP_ANN_PER_STEP,
+                dev, "pallas_tp", state_dict, x, y, per_step,
                 rows.get("scan"), keep=kept[P], tp_mesh=tp_mesh(dev, P),
                 **common)
             auto_loss = rows["auto"]["losses"][0]
@@ -2638,43 +2805,60 @@ def phase_training_tp_ann(dev):
                 check(gaps[worst] <= GRAD_REL_MAX,
                       f"{ann_type} pallas_tp P={P}: step-1 gradient of "
                       f"{worst} is {gaps[worst]} from P=1's")
+        if main and bf16:
+            rows["vs_float32_tp"] = vs_float32_tp(
+                dev, state_dict, x, y, kept[1], model_type=ann_type,
+                sizes=TP_SIZES)
         if main:
-            rows["eval"] = eval_tp_ann(dev, kept[1]["state_dict"], x, y)
-        emit("training_tp_ann", model=f"{ann_type} [1024, 1024, 35]",
-             batch_size=B, T=T, F=TP_F, dropout=P_DROP, lr=common["lr"],
+            rows["eval"] = eval_tp_ann(dev, kept[1]["state_dict"], x, y,
+                                       bf16=bf16)
+        emit("training_tp_ann" + sfx, model=f"{ann_type} [1024, 1024, 35]",
+             compute_dtype="bfloat16" if bf16 else "float32", batch_size=B,
+             T=T, F=TP_F, dropout=P_DROP, lr=common["lr"],
              steps=common["steps"], one_card_form="P > 1", **rows)
     return launches
 
 
-def tp_ann_bounds(mode, b, t, h):
+def tp_ann_bounds(mode, b, t, h, bf16=False):
     """Bounds of the TP ANN kernels over all ranks at (b, t, h): the
     training forward reads the input streams and writes the output and the
     gate series, reads the matrices and y0; one dense product of 2*b*t*h*h
     per gate. The backward reads g, the y and gate series, y0 and the
     matrices, writes dWx per gate, dV and dy0; two dense products per gate
-    (the per-step adjoint and dV)."""
+    (the per-step adjoint and dV). In the bf16-stream mode the output, the
+    series, g, dWx and the matrices are two bytes an element (the input
+    streams stay float32, as the model's norm emits them; dV and the states
+    stay four) and the dense products are of bf16 operands."""
     from sparch_tpu_torch.ops import fused_ann
 
     n = fused_ann.MODES[mode]
     series = len(fused_ann._GATE_SERIES[mode])
-    stream, mat, state = 4.0 * b * t * h, 4.0 * h * h, 4.0 * b * h
-    product = 2.0 * b * t * h * h
+    e = 2.0 if bf16 else 4.0
+    f32 = 4.0 * b * t * h
+    stream, mat, state = e * b * t * h, e * h * h, 4.0 * b * h
+    products = n * 2.0 * b * t * h * h
+
+    def ops(count, elementwise):
+        return (elementwise + (0.0 if bf16 else count * products),
+                count * products if bf16 else 0.0)
+
     return dict(
-        fwd=bound((n + 1 + series) * stream + n * mat + state,
-                  n * product + 12.0 * n * b * t * h),
-        bwd=bound((2 + series + n) * stream + 2 * n * mat + 2 * state,
-                  2 * n * product + 30.0 * n * b * t * h),
+        fwd=bound(n * f32 + (1 + series) * stream + n * mat + state,
+                  *ops(1, 12.0 * n * b * t * h)),
+        bwd=bound((2 + series + n) * stream + n * mat + n * 4.0 * h * h
+                  + 2 * state, *ops(2, 30.0 * n * b * t * h)),
     )
 
 
-def tp_ann_kernel_rows(fwd, bwd, trained):
-    """The ``kernels`` entries of the TP ANN path: the GRU at P = 4 (all
-    four ranks in one launch on the one card), each P's and each mode's
-    beside it; launches: the P = 4 GRU trainer's run, and the P = 2 runs
-    of the LiGRU and the RNN by mode."""
+def tp_ann_kernel_rows(fwd, bwd, trained, bf16=False):
+    """The ``kernels`` entries of the TP ANN path in one stream mode: the
+    GRU at P = 4 (all four ranks in one launch on the one card), each P's
+    and each mode's beside it; launches: the P = 4 GRU trainer's run, and
+    the P = 2 runs of the LiGRU and the RNN by mode."""
     src = "sparch_tpu_torch/csrc/"
     tpu = "sparch_tpu/ops/pallas_tp_ann.py:"
     P = TP_PS[-1]
+    sfx = "_bf16" if bf16 else ""
     rows = []
     for name, line, res in (("tp_ann_fwd", "126", fwd),
                             ("tp_ann_bwd", "326", bwd)):
@@ -2687,18 +2871,20 @@ def tp_ann_kernel_rows(fwd, bwd, trained):
                 plain_ms_by_p={q: res[mode][q]["plain_ms"] for q in TP_PS},
                 max_abs_err=max(res[mode][q]["max_abs_err"] for q in TP_PS),
                 single_card_kernel_ms=res[mode]["single_card_kernel_ms"],
-                launches_by_p={q: trained[(mode, q)][name] for q in ps},
-                **tp_ann_bounds(mode, B, T, TP_H)[direction])
+                launches_by_p={q: trained[(mode, q)][name + sfx]
+                               for q in ps},
+                **tp_ann_bounds(mode, B, T, TP_H, bf16=bf16)[direction])
             if direction == "fwd":
                 by_mode[mode]["ms_serving_by_p"] = {
                     q: res[mode][q]["ms_serving"] for q in TP_PS}
         main = res["gru"][P]
         rows.append(dict(
-            name=name, route="cuda", source=src + name + ".cu",
-            replaces=tpu + line, launches=trained[("gru", P)][name],
+            name=name + sfx, route="cuda", source=src + name + ".cu",
+            replaces=tpu + line, launches=trained[("gru", P)][name + sfx],
             max_abs_err=main["max_abs_err"], ms=main["ms"],
             plain_ms=main["plain_ms"],
-            **tp_ann_bounds("gru", B, T, TP_H)[direction], library_ms=None,
+            **tp_ann_bounds("gru", B, T, TP_H, bf16=bf16)[direction],
+            library_ms=None,
             one_card_form=True, P=P, mode="gru", shape=[B, T, TP_H],
             ms_by_p=by_mode["gru"]["ms_by_p"],
             single_card_kernel_ms=main["single_card_kernel_ms"],
@@ -2749,6 +2935,16 @@ def main() -> int:
     tp_ann_fwd = run("tp_ann_forward", phase_tp_ann_forward, dev)
     tp_ann_bwd = run("tp_ann_backward", phase_tp_ann_backward, dev)
     tp_ann_trained = run("training_tp_ann", phase_training_tp_ann, dev)
+    tp_fwd16 = run("tp_forward_bf16", phase_tp_cell_forward, dev, bf16=True)
+    tp_bwd16 = run("tp_backward_bf16", phase_tp_cell_backward, dev,
+                   bf16=True)
+    tp_trained16 = run("training_tp_bf16", phase_training_tp, dev, bf16=True)
+    tp_ann_fwd16 = run("tp_ann_forward_bf16", phase_tp_ann_forward, dev,
+                       bf16=True)
+    tp_ann_bwd16 = run("tp_ann_backward_bf16", phase_tp_ann_backward, dev,
+                       bf16=True)
+    tp_ann_trained16 = run("training_tp_ann_bf16", phase_training_tp_ann,
+                           dev, bf16=True)
     emit("seconds", **seconds)
     cb = cell_bounds(cell.pop("firing_rate"))
     readout_bytes = 4.0 * (B * T * C + 2 * B * C + C)
@@ -2787,7 +2983,10 @@ def main() -> int:
                            bf16_served, bf16_trained) \
         + tp_kernel_rows(tp_coll_launches, tp_coll, tp_fwd, tp_bwd,
                          tp_trained) \
-        + tp_ann_kernel_rows(tp_ann_fwd, tp_ann_bwd, tp_ann_trained)
+        + tp_ann_kernel_rows(tp_ann_fwd, tp_ann_bwd, tp_ann_trained) \
+        + tp_cell_rows(tp_fwd16, tp_bwd16, tp_trained16, bf16=True) \
+        + tp_ann_kernel_rows(tp_ann_fwd16, tp_ann_bwd16, tp_ann_trained16,
+                             bf16=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

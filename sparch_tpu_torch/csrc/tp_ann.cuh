@@ -10,11 +10,16 @@
 // tile_stream.cuh's pipeline carries through shared memory in 64 KB bulk
 // copies, as it carries the single-card kernels' whole matrices.
 //
-// The exchange (tp_exchange.cuh): a rank's slot is [2][B][W] floats, a row
-// of W = planes * Hg holding `planes` gathered planes side by side, the
-// rank's block of plane p at p*Hg + r*Hl. A block stores its values into
-// every rank's slot, exchanges, and reads the group's gathered rows back
-// into shared memory as the next product's left operand, [plane][j][row].
+// The exchange (tp_exchange.cuh): a rank's slot is [2][B][W] elements of
+// the wire's type, a row of W = planes * Hg holding `planes` gathered planes
+// side by side, the rank's block of plane p at p*Hg + r*Hl. A block stores
+// its values into every rank's slot, exchanges, and reads the group's
+// gathered rows back into shared memory as the next product's left operand,
+// [plane][j][row], in float. The wire is float, or __nv_bfloat16 in the
+// bf16-stream mode, where a value is rounded to bf16 as it is stored: the
+// rounding of the product's left operand that the TPU kernels make as they
+// stage their exchange (pallas_tp_ann.py:185, :472), and every reader of
+// the slot sees the rounded value.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -36,12 +41,14 @@ __device__ __forceinline__ float sigmoidf(float x) {
 }
 
 // The stream of `passes` passes over a rank's n_mats packed (Hg, Hl)
-// column blocks: tile_stream.cuh's TileStream with rows and columns apart
-// (Hl is a multiple of 128, so every row and tile is 16-byte aligned).
-__device__ __forceinline__ TileStream<float> block_stream(
-    const float* base, float* stages, uint64_t* full, int Hg, int Hl,
-    int n_mats, int passes) {
-  TileStream<float> s;
+// column blocks of element type MT (float, or bf16 in the bf16-stream
+// mode): tile_stream.cuh's TileStream with rows and columns apart (Hl is a
+// multiple of 128, so every row and tile is 16-byte aligned).
+template <typename MT>
+__device__ __forceinline__ TileStream<MT> block_stream(
+    const MT* base, MT* stages, uint64_t* full, int Hg, int Hl, int n_mats,
+    int passes) {
+  TileStream<MT> s;
   s.base = base;
   s.stages = stages;
   s.full = full;
@@ -49,7 +56,7 @@ __device__ __forceinline__ TileStream<float> block_stream(
   s.tile = 0;
   s.H = Hg;
   s.Hc = Hl;
-  s.TJ = min(Hg, kTileFloats / Hl);
+  s.TJ = min(Hg, (kTileBytes / (int)sizeof(MT)) / Hl);
   s.n_tiles = (Hg + s.TJ - 1) / s.TJ;
   s.n_mats = n_mats;
   s.total_tiles = passes * n_mats * s.n_tiles;
@@ -58,19 +65,20 @@ __device__ __forceinline__ TileStream<float> block_stream(
 
 // A thread's values v[i][r] (the rank's neuron col[i], batch row row0 + r)
 // into slot `parity` of every rank, at offset `off` of the row (p*Hg + r*Hl
-// for plane p).
-template <int NPT, int BT>
+// for plane p), as elements of the wire's type WT.
+template <typename WT, int NPT, int BT>
 __device__ __forceinline__ void to_peers(const tp::Peers& peers, int P, int B,
                                          int W, int parity, int row0, int off,
                                          const float (&v)[NPT][BT],
                                          const int (&col)[NPT]) {
   for (int q = 0; q < P; ++q) {
-    float* slot = static_cast<float*>(peers.slots[q]) + (size_t)parity * B * W;
+    WT* slot = static_cast<WT*>(peers.slots[q]) + (size_t)parity * B * W;
 #pragma unroll
     for (int i = 0; i < NPT; ++i) {
 #pragma unroll
       for (int r = 0; r < BT; ++r) {
-        __stcg(slot + (size_t)(row0 + r) * W + off + col[i], v[i][r]);
+        tp::wire_store(slot + (size_t)(row0 + r) * W + off + col[i],
+                       v[i][r]);
       }
     }
   }
@@ -80,19 +88,20 @@ __device__ __forceinline__ void to_peers(const tp::Peers& peers, int P, int B,
 // rows, from the own slot `parity` into `left` as [plane][j][row]. The
 // block synchronises before it reads them (stream_matrix does, at its first
 // tile).
-template <int BT>
+template <typename WT, int BT>
 __device__ __forceinline__ void from_slot(float* left, const void* own,
                                           int B, int W, int parity, int row0,
                                           int Hg, int planes) {
-  const float* in =
-      static_cast<const float*>(own) + ((size_t)parity * B + row0) * W;
+  const WT* in =
+      static_cast<const WT*>(own) + ((size_t)parity * B + row0) * W;
   const int n = planes * Hg;
   for (int idx = threadIdx.x; idx < BT * n; idx += blockDim.x) {
     const int r = idx / n;
     const int k = idx - r * n;  // plane * Hg + j
     const int pl = k / Hg;
     const int j = k - pl * Hg;
-    left[((size_t)pl * Hg + j) * BT + r] = __ldcg(in + (size_t)r * W + k);
+    left[((size_t)pl * Hg + j) * BT + r] =
+        tp::wire_load(in + (size_t)r * W + k);
   }
 }
 

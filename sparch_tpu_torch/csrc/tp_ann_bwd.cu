@@ -3,7 +3,8 @@
 // neuron-sharded layout of tp_ann_fwd.cu.
 //
 // Replaces: sparch_tpu/ops/pallas_tp_ann.py `_tp_ann_bwd_kernel` (:326,
-// through `_tp_ann_backward` :458), float32. With G_t the total adjoint of
+// through `_tp_ann_backward` :458), in its two stream modes (BF): float32,
+// and the TPU kernel's mxu_bf16 mode (below). With G_t the total adjoint of
 // y_t (the output cotangent plus what step t+1 carries back) and y_p =
 // y_{t-1} (y0 at the first step), rank r walks t = T..1 on its block
 // (V*row = V*[shard, :], so x_full @ V*row^T is the rank's columns of
@@ -50,6 +51,20 @@
 // the GRU does 161 GFLOP, 2.40 ms at the float32 peak outside the tensor
 // cores, against ~470 MB of streams (0.14 ms at HBM rate).
 //
+// bf16 mode (the JAX kernel's mxu_bf16: sdt bf16, pallas_tp_ann.py:472):
+// g, the residual series (y, z, r, c) and the per-gate dWx are bf16 streams,
+// the packed blocks of V^T are bf16, and the wire is bf16 (tp_exchange.cuh),
+// so every dpre is rounded to bf16 as it is staged and both the adjoint
+// products and dV see the rounded value (dWx is that value too: dV reads
+// it back); dV's left operands are rounded as well (y0 and r*y_p; a stored y
+// is bf16 already, :415-446), and the adjoint, dV and dy0 stay float32.
+// y_p is the bf16 y series at every step but the first, whose y0 is float:
+// the JAX kernel reads its float32 boundary state at the first step of each
+// time chunk instead; the port has no time chunks (the single-card
+// fused_ann_bwd.cu reads y_p the same way). These are fused_ann_bwd.cu's
+// bf16 rounding points, so the gradients still equal that kernel's without
+// the affine and the dropout, at every P.
+//
 // Design: tp_ann_fwd.cu's in reverse. A block runs one rank's neurons for
 // BT batch rows and walks row groups; each gate's gathered dpre rows lie in
 // shared memory as [j][row] (two planes for the stacked gathers); the
@@ -76,24 +91,26 @@ using namespace sparch::tp_ann;
 using sparch::tp::Layout;
 using sparch::tp::Peers;
 
+// Streams, matrices and slots are float, or bf16 in the bf16 mode.
 struct BwdArgs {
-  const float* g;      // (B, T, ld)
-  const float* y_seq;  // the forward's residual series, (B, T, ld)
-  const float* z;
-  const float* r;
-  const float* c;
-  const float* VT;     // [n_local][G][Hg][Hl]: the packed blocks of V*^T
+  const void* g;       // (B, T, ld)
+  const void* y_seq;   // the forward's residual series, (B, T, ld)
+  const void* z;
+  const void* r;
+  const void* c;
+  const void* VT;      // [n_local][G][Hg][Hl]: the packed blocks of V*^T
   const float* y0;     // (B, ld)
-  float* dwx[3];       // (B, T, ld) by gate
+  void* dwx[3];        // (B, T, ld) by gate
   float* dy0;          // (B, ld)
-  Peers peers;         // slots: per rank [2][B][W] floats
+  Peers peers;         // slots: per rank [2][B][W] elements
   Layout lay;
   int B, T, Hg, Hl, ld, W;
 };
 
-template <int MODE, int NPT, int BT>
+template <int MODE, int NPT, int BT, bool BF>
 __global__ void __launch_bounds__(kThreads)
 tp_ann_bwd_kernel(const BwdArgs p) {
+  using ST = typename Elem<BF>::type;  // streams, matrices, wire
   constexpr int G = MODE + 1;
   constexpr int PLANES = MODE == kRnn ? 1 : 2;
   // dynamic shared memory: PLANES left operands of Hg*BT floats, then the
@@ -108,9 +125,10 @@ tp_ann_bwd_kernel(const BwdArgs p) {
   const int col0 = local * Hl;
   const int my_groups = (l.n_groups - blk + l.per_rank - 1) / l.per_rank;
   float* pub1 = pub + Hg * BT;
-  TileStream<float> s =
-      block_stream(p.VT + (size_t)local * G * Hg * Hl, pub + PLANES * Hg * BT,
-                   full, Hg, Hl, G, my_groups * T);
+  TileStream<ST> s = block_stream(
+      static_cast<const ST*>(p.VT) + (size_t)local * G * Hg * Hl,
+      reinterpret_cast<ST*>(pub + PLANES * Hg * BT), full, Hg, Hl, G,
+      my_groups * T);
 
   int col[NPT];
 #pragma unroll
@@ -135,21 +153,22 @@ tp_ann_bwd_kernel(const BwdArgs p) {
         for (int r = 0; r < BT; ++r) {
           const size_t row = (size_t)(row0 + r);
           const size_t at = (row * T + t) * ld + col0 + col[i];
-          Gt[i][r] = p.g[at] + D[i][r];
+          Gt[i][r] = to_float(static_cast<const ST*>(p.g)[at]) + D[i][r];
           if constexpr (MODE == kRnn) {
-            const float y_t = p.y_seq[at];
+            const float y_t = to_float(static_cast<const ST*>(p.y_seq)[at]);
             dpre[0][i][r] = Gt[i][r] * y_t * (1.0f - y_t);
           } else {
             yp[i][r] =
-                t > 0 ? p.y_seq[at - ld] : p.y0[row * ld + col0 + col[i]];
-            z[i][r] = p.z[at];
-            c[i][r] = p.c[at];
+                t > 0 ? to_float(static_cast<const ST*>(p.y_seq)[at - ld])
+                      : p.y0[row * ld + col0 + col[i]];
+            z[i][r] = to_float(static_cast<const ST*>(p.z)[at]);
+            c[i][r] = to_float(static_cast<const ST*>(p.c)[at]);
             const float omz = 1.0f - z[i][r];
             dpre[1][i][r] = Gt[i][r] * (yp[i][r] - c[i][r]) * z[i][r] * omz;
             if constexpr (MODE == kLigru) {
               dpre[0][i][r] = c[i][r] > 0.f ? Gt[i][r] * omz : 0.f;
             } else {
-              rr[i][r] = p.r[at];
+              rr[i][r] = to_float(static_cast<const ST*>(p.r)[at]);
               dpre[0][i][r] = Gt[i][r] * omz * (1.0f - c[i][r] * c[i][r]);
             }
           }
@@ -159,10 +178,10 @@ tp_ann_bwd_kernel(const BwdArgs p) {
       }
       if constexpr (MODE == kGru) {
         // dcpre alone (plane 0, parity 0): dry feeds drpre within the step
-        to_peers<NPT, BT>(p.peers, l.P, p.B, W, 0, row0, rank * Hl, dpre[0],
-                          col);
+        to_peers<ST, NPT, BT>(p.peers, l.P, p.B, W, 0, row0, rank * Hl,
+                              dpre[0], col);
         tp::exchange(p.peers, l, rank, grp, 2 * step);
-        from_slot<BT>(pub, p.peers.slots[rank], p.B, W, 0, row0, Hg, 1);
+        from_slot<ST, BT>(pub, p.peers.slots[rank], p.B, W, 0, row0, Hg, 1);
         stream_matrix<NPT, BT>(s, pub, col, acc[0]);  // dry
 #pragma unroll
         for (int i = 0; i < NPT; ++i) {
@@ -173,25 +192,25 @@ tp_ann_bwd_kernel(const BwdArgs p) {
           }
         }
         // [dzpre|drpre] (planes 0 and 1, parity 1)
-        to_peers<NPT, BT>(p.peers, l.P, p.B, W, 1, row0, rank * Hl, dpre[1],
-                          col);
-        to_peers<NPT, BT>(p.peers, l.P, p.B, W, 1, row0, Hg + rank * Hl,
-                          dpre[2], col);
+        to_peers<ST, NPT, BT>(p.peers, l.P, p.B, W, 1, row0, rank * Hl,
+                              dpre[1], col);
+        to_peers<ST, NPT, BT>(p.peers, l.P, p.B, W, 1, row0, Hg + rank * Hl,
+                              dpre[2], col);
         tp::exchange(p.peers, l, rank, grp, 2 * step + 1);
-        from_slot<BT>(pub, p.peers.slots[rank], p.B, W, 1, row0, Hg, 2);
+        from_slot<ST, BT>(pub, p.peers.slots[rank], p.B, W, 1, row0, Hg, 2);
         stream_matrix<NPT, BT>(s, pub, col, acc[1]);   // @ Vzrow^T
         stream_matrix<NPT, BT>(s, pub1, col, acc[2]);  // @ Vrrow^T
       } else {
         const int parity = step & 1;
-        to_peers<NPT, BT>(p.peers, l.P, p.B, W, parity, row0, rank * Hl,
-                          dpre[0], col);
+        to_peers<ST, NPT, BT>(p.peers, l.P, p.B, W, parity, row0, rank * Hl,
+                              dpre[0], col);
         if constexpr (MODE == kLigru) {
-          to_peers<NPT, BT>(p.peers, l.P, p.B, W, parity, row0,
-                            Hg + rank * Hl, dpre[1], col);
+          to_peers<ST, NPT, BT>(p.peers, l.P, p.B, W, parity, row0,
+                                Hg + rank * Hl, dpre[1], col);
         }
         tp::exchange(p.peers, l, rank, grp, step);
-        from_slot<BT>(pub, p.peers.slots[rank], p.B, W, parity, row0, Hg,
-                      PLANES);
+        from_slot<ST, BT>(pub, p.peers.slots[rank], p.B, W, parity, row0, Hg,
+                          PLANES);
         stream_matrix<NPT, BT>(s, pub, col, acc[0]);  // @ Vrow^T
         if constexpr (MODE == kLigru) {
           stream_matrix<NPT, BT>(s, pub1, col, acc[1]);  // @ Vzrow^T
@@ -212,7 +231,9 @@ tp_ann_bwd_kernel(const BwdArgs p) {
           const size_t at =
               ((size_t)(row0 + r) * T + t) * ld + col0 + col[i];
 #pragma unroll
-          for (int g = 0; g < G; ++g) p.dwx[g][at] = dpre[g][i][r];
+          for (int g = 0; g < G; ++g) {
+            static_cast<ST*>(p.dwx[g])[at] = from_float<ST>(dpre[g][i][r]);
+          }
         }
       }
     }
@@ -226,24 +247,24 @@ tp_ann_bwd_kernel(const BwdArgs p) {
   }
 }
 
-template <int MODE, int NPT>
+template <int MODE, int NPT, bool BF>
 int launch_npt(BwdArgs& p, int* plan, cudaStream_t st) {
   constexpr int PLANES = MODE == kRnn ? 1 : 2;
   const int threads = p.Hl / NPT;
   const int n_local = p.lay.n_local;
   tp::Plan best{0, 0, 0, 0};
   bool fit = false;
-  try_plan<1>(tp_ann_bwd_kernel<MODE, NPT, 1>, threads, PLANES, p.Hg, p.B,
-              n_local, best, fit);
-  try_plan<2>(tp_ann_bwd_kernel<MODE, NPT, 2>, threads, PLANES, p.Hg, p.B,
-              n_local, best, fit);
+  try_plan<1>(tp_ann_bwd_kernel<MODE, NPT, 1, BF>, threads, PLANES, p.Hg,
+              p.B, n_local, best, fit);
+  try_plan<2>(tp_ann_bwd_kernel<MODE, NPT, 2, BF>, threads, PLANES, p.Hg,
+              p.B, n_local, best, fit);
   if constexpr (NPT * 4 <= kMaxWork) {
-    try_plan<4>(tp_ann_bwd_kernel<MODE, NPT, 4>, threads, PLANES, p.Hg, p.B,
-                n_local, best, fit);
+    try_plan<4>(tp_ann_bwd_kernel<MODE, NPT, 4, BF>, threads, PLANES, p.Hg,
+                p.B, n_local, best, fit);
   }
   if constexpr (NPT * 8 <= kMaxWork) {
-    try_plan<8>(tp_ann_bwd_kernel<MODE, NPT, 8>, threads, PLANES, p.Hg, p.B,
-                n_local, best, fit);
+    try_plan<8>(tp_ann_bwd_kernel<MODE, NPT, 8, BF>, threads, PLANES, p.Hg,
+                p.B, n_local, best, fit);
   }
   if (best.bt == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
   p.lay.per_rank = best.per_rank;
@@ -258,35 +279,44 @@ int launch_npt(BwdArgs& p, int* plan, cudaStream_t st) {
   cudaError_t err = cudaErrorInvalidValue;
   switch (best.bt) {
     case 1:
-      err = tp::launch_cooperative(tp_ann_bwd_kernel<MODE, NPT, 1>, blocks,
-                                   threads, best.smem, p, st);
+      err = tp::launch_cooperative(tp_ann_bwd_kernel<MODE, NPT, 1, BF>,
+                                   blocks, threads, best.smem, p, st);
       break;
     case 2:
-      err = tp::launch_cooperative(tp_ann_bwd_kernel<MODE, NPT, 2>, blocks,
-                                   threads, best.smem, p, st);
+      err = tp::launch_cooperative(tp_ann_bwd_kernel<MODE, NPT, 2, BF>,
+                                   blocks, threads, best.smem, p, st);
       break;
     case 4:
       if constexpr (NPT * 4 <= kMaxWork) {
-        err = tp::launch_cooperative(tp_ann_bwd_kernel<MODE, NPT, 4>, blocks,
-                                     threads, best.smem, p, st);
+        err = tp::launch_cooperative(tp_ann_bwd_kernel<MODE, NPT, 4, BF>,
+                                     blocks, threads, best.smem, p, st);
       }
       break;
     default:
       if constexpr (NPT * 8 <= kMaxWork) {
-        err = tp::launch_cooperative(tp_ann_bwd_kernel<MODE, NPT, 8>, blocks,
-                                     threads, best.smem, p, st);
+        err = tp::launch_cooperative(tp_ann_bwd_kernel<MODE, NPT, 8, BF>,
+                                     blocks, threads, best.smem, p, st);
       }
       break;
   }
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-template <int MODE>
+template <int MODE, bool BF>
 int launch_mode(BwdArgs& p, int npt, int* plan, cudaStream_t st) {
   switch (npt) {
-    case 1: return launch_npt<MODE, 1>(p, plan, st);
-    case 2: return launch_npt<MODE, 2>(p, plan, st);
-    default: return launch_npt<MODE, 4>(p, plan, st);
+    case 1: return launch_npt<MODE, 1, BF>(p, plan, st);
+    case 2: return launch_npt<MODE, 2, BF>(p, plan, st);
+    default: return launch_npt<MODE, 4, BF>(p, plan, st);
+  }
+}
+
+template <bool BF>
+int launch_form(BwdArgs& p, int mode, int npt, int* plan, cudaStream_t st) {
+  switch (mode) {
+    case kRnn: return launch_mode<kRnn, BF>(p, npt, plan, st);
+    case kLigru: return launch_mode<kLigru, BF>(p, npt, plan, st);
+    default: return launch_mode<kGru, BF>(p, npt, plan, st);
   }
 }
 
@@ -298,14 +328,16 @@ int launch_mode(BwdArgs& p, int npt, int* plan, cudaStream_t st) {
 // pointers, every rank's slots ([2][B][W] floats, W = Hg for the RNN, 2*Hg
 // for the stacked gathers) and zeroed counters ([P][B][2] u32). dV (gates,
 // Hg, Hg) and dv_partials (ksplit, gates, Hg, Hg) receive the dV product.
+// bf16 selects the bf16-stream mode (g, the series, VT, the slots and dwx
+// bf16); y0, dV and dy0 are float in either mode.
 extern "C" int sparch_tp_ann_bwd(
-    const float* g, const float* y_seq, const float* z, const float* r,
-    const float* c, const float* VT, const float* y0, float* dwx0,
-    float* dwx1, float* dwx2, float* dV, float* dv_partials, float* dy0,
+    const void* g, const void* y_seq, const void* z, const void* r,
+    const void* c, const void* VT, const float* y0, void* dwx0, void* dwx1,
+    void* dwx2, float* dV, float* dv_partials, float* dy0,
     void* const* slots, unsigned* const* flags, int B, int T, int Hg, int P,
-    int rank0, int n_local, int ld, int mode, int ksplit, int* plan,
-    void* stream) {
-  float* dwx[3] = {dwx0, dwx1, dwx2};
+    int rank0, int n_local, int ld, int mode, int ksplit, int bf16,
+    int* plan, void* stream) {
+  void* dwx[3] = {dwx0, dwx1, dwx2};
   if (B <= 0 || B % 8 != 0 || T <= 0 || P < 1 || P > tp::kMaxRanks ||
       Hg <= 0 || Hg % (P * 128) != 0 || Hg / P > kThreads * kMaxNpt ||
       rank0 != 0 || n_local != P || ld != Hg || mode < kRnn || mode > kGru ||
@@ -342,12 +374,8 @@ extern "C" int sparch_tp_ann_bwd(
   int npt = 1;
   while (p.Hl / npt > kThreads) npt *= 2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err;
-  switch (mode) {
-    case kRnn: err = launch_mode<kRnn>(p, npt, plan, st); break;
-    case kLigru: err = launch_mode<kLigru>(p, npt, plan, st); break;
-    default: err = launch_mode<kGru>(p, npt, plan, st); break;
-  }
+  int err = bf16 ? launch_form<true>(p, mode, npt, plan, st)
+                 : launch_form<false>(p, mode, npt, plan, st);
   if (err != 0) return err;
 
   // dV over the full y series and the ranks' dWx blocks (the gathered dpre)
@@ -357,8 +385,12 @@ extern "C" int sparch_tp_ann_bwd(
   AnnDvArgs a{y_seq, y0, mode == kGru ? r : nullptr, {dwx0, dwx1, dwx2},
               dv_partials, T, Hg, R, rows_per_split, G};
   const int tiles = (Hg + kTile - 1) / kTile;
-  ann_dv_kernel<float><<<dim3(tiles, tiles, G * ksplit), kDvThreads, 0, st>>>(
-      a);
+  const dim3 grid(tiles, tiles, G * ksplit);
+  if (bf16) {
+    ann_dv_kernel<__nv_bfloat16><<<grid, kDvThreads, 0, st>>>(a);
+  } else {
+    ann_dv_kernel<float><<<grid, kDvThreads, 0, st>>>(a);
+  }
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   const int n = G * Hg * Hg;

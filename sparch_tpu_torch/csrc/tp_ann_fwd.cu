@@ -4,12 +4,13 @@
 // inside the time loop.
 //
 // Replaces: sparch_tpu/ops/pallas_tp_ann.py `_tp_ann_fwd_kernel` (:126,
-// through `_tp_ann_forward` :229), float32 (its `mxu_bf16` form is not
-// ported yet), in its serving form (the output alone) and its training
-// form (the gate series too). Per step, for one batch row of rank r (y the
-// rank's block of the state, y_full the gathered state of the step before;
-// gate 0 is the candidate with V, gate 1 the update z with Vz, gate 2 the
-// reset r with Vr; V*[:, shard] the rank's column block):
+// through `_tp_ann_forward` :229), in its serving form (the output alone)
+// and its training form (the gate series too), in its two stream modes
+// (BF): float32, and the TPU kernel's mxu_bf16 mode (below). Per step, for
+// one batch row of rank r (y the rank's block of the state, y_full the
+// gathered state of the step before; gate 0 is the candidate with V, gate 1
+// the update z with Vz, gate 2 the reset r with Vr; V*[:, shard] the rank's
+// column block):
 //   RNN:    y = sigmoid(wx_t + y_full @ V[:, shard])
 //   LiGRU:  z = sigmoid(wzx_t + y_full @ Vz[:, shard])
 //           c = relu(wx_t + y_full @ V[:, shard]);   y = z*y + (1-z)*c
@@ -63,6 +64,18 @@
 // - Rank data: the local rank l's column block starts at column l*Hl of
 //   tensors with row stride ld. In the one-card form they are the full
 //   (…, H) tensors (ld = H); across cards each rank's own (ld = Hl).
+// - bf16 mode (the JAX kernel's mxu_bf16: rdt/vdt bf16,
+//   pallas_tp_ann.py:243-244): the packed column blocks are bf16 (rounded
+//   once by the wrapper), the wire is bf16 (tp_exchange.cuh), so the
+//   gathered y and r*y that feed the products are rounded to bf16 as they
+//   are staged (:185, :204, :210), and so is the gathered y0 of the first
+//   products (`_dot` rounds its left operand); the output and the gate
+//   series are bf16 streams (:219-222), each input stream is float32 or
+//   bf16 as the model emitted it, and the carried y stays float32 (:172,
+//   :208, :224). A product of two bf16 values is exact in float32, so the
+//   sums are those of a bf16 product with a float32 accumulator. These are
+//   the rounding points of fused_ann_fwd.cu's bf16 mode, so the output still
+//   equals that kernel's without the affine and the dropout, at every P.
 //
 // C interface, bound with ctypes: sparch_tp_ann_fwd returns the launch's
 // cudaError_t (or an invalid-value error for arguments it does not take)
@@ -81,22 +94,40 @@ using namespace sparch::tp_ann;
 using sparch::tp::Layout;
 using sparch::tp::Peers;
 
+// Streams, matrices and slots are float, or bf16 in the bf16 mode; wx is
+// float or bf16 there, as wx_bf16 says.
 struct FwdArgs {
-  const float* wx[3];  // (B, T, ld) by gate
-  const float* V;      // [n_local][G][Hg][Hl]: the packed column blocks
+  const void* wx[3];   // (B, T, ld) by gate
+  const void* V;       // [n_local][G][Hg][Hl]: the packed column blocks
   const float* y0f;    // (B, Hg): the gathered initial state
-  float* y_out;        // (B, T, ld)
-  float* z_out;        // the gate series, (B, T, ld); null: serving form
-  float* r_out;
-  float* c_out;
-  Peers peers;         // slots: per rank [2][B][Hg] floats
+  void* y_out;         // (B, T, ld)
+  void* z_out;         // the gate series, (B, T, ld); null: serving form
+  void* r_out;
+  void* c_out;
+  Peers peers;         // slots: per rank [2][B][Hg] elements
   Layout lay;
   int B, T, Hg, Hl, ld;
 };
 
-template <int MODE, int NPT, int BT>
+// The bf16 mode's one more flag rides in a struct of its own, so that the
+// float32 kernels' parameter block stays what it was before the mode
+// existed (see fused_ann_fwd.cu).
+struct FwdArgsBf16 : FwdArgs {
+  int wx_bf16;  // the input streams are bf16, not float
+};
+template <bool BF>
+struct ModeArgs {
+  using type = FwdArgs;
+};
+template <>
+struct ModeArgs<true> {
+  using type = FwdArgsBf16;
+};
+
+template <int MODE, int NPT, int BT, bool BF>
 __global__ void __launch_bounds__(kThreads)
-tp_ann_fwd_kernel(const FwdArgs p) {
+tp_ann_fwd_kernel(const typename ModeArgs<BF>::type p) {
+  using ST = typename Elem<BF>::type;  // streams, matrices, wire
   constexpr int G = MODE + 1;
   // dynamic shared memory: the left operand (Hg*BT floats), then the
   // stream's stages
@@ -109,10 +140,12 @@ tp_ann_fwd_kernel(const FwdArgs p) {
   const int rank = l.rank0 + local;
   const int col0 = local * Hl;  // the rank's first column in rank data
   const int my_groups = (l.n_groups - blk + l.per_rank - 1) / l.per_rank;
-  TileStream<float> s =
-      block_stream(p.V + (size_t)local * G * Hg * Hl, pub + Hg * BT, full, Hg,
-                   Hl, G, my_groups * T);
+  TileStream<ST> s = block_stream(
+      static_cast<const ST*>(p.V) + (size_t)local * G * Hg * Hl,
+      reinterpret_cast<ST*>(pub + Hg * BT), full, Hg, Hl, G, my_groups * T);
   const bool resid = p.c_out != nullptr;
+  bool wx_bf16 = false;
+  if constexpr (BF) wx_bf16 = p.wx_bf16;
 
   int col[NPT];
 #pragma unroll
@@ -130,11 +163,13 @@ tp_ann_fwd_kernel(const FwdArgs p) {
       }
     }
     // the first left operand: the group's rows of the gathered y0 (the
-    // group before left its last product behind a barrier)
+    // group before left its last product behind a barrier), rounded to
+    // bf16 in the bf16 mode
     for (int idx = threadIdx.x; idx < BT * Hg; idx += blockDim.x) {
       const int r = idx / Hg;
       const int j = idx - r * Hg;
-      pub[j * BT + r] = p.y0f[(size_t)row0 * Hg + idx];
+      const float v = p.y0f[(size_t)row0 * Hg + idx];
+      pub[j * BT + r] = BF ? round_bf16(v) : v;
     }
 
     for (int t = 0; t < T; ++t) {
@@ -146,8 +181,9 @@ tp_ann_fwd_kernel(const FwdArgs p) {
         for (int i = 0; i < NPT; ++i) {
 #pragma unroll
           for (int r = 0; r < BT; ++r) {
-            d[g][i][r] =
-                p.wx[g][((size_t)(row0 + r) * T + t) * ld + col0 + col[i]];
+            d[g][i][r] = load_stream<BF>(
+                p.wx[g], ((size_t)(row0 + r) * T + t) * ld + col0 + col[i],
+                wx_bf16);
             acc[g][i][r] = 0.f;
           }
         }
@@ -166,9 +202,10 @@ tp_ann_fwd_kernel(const FwdArgs p) {
             ry[i][r] = rr[i][r] * y[i][r];
           }
         }
-        to_peers<NPT, BT>(p.peers, l.P, p.B, Hg, 0, row0, rank * Hl, ry, col);
+        to_peers<ST, NPT, BT>(p.peers, l.P, p.B, Hg, 0, row0, rank * Hl, ry,
+                              col);
         tp::exchange(p.peers, l, rank, grp, 2 * t);
-        from_slot<BT>(pub, p.peers.slots[rank], p.B, Hg, 0, row0, Hg, 1);
+        from_slot<ST, BT>(pub, p.peers.slots[rank], p.B, Hg, 0, row0, Hg, 1);
         stream_matrix<NPT, BT>(s, pub, col, acc[0]);  // ry_full @ V[:, sh]
       } else {
         stream_matrix<NPT, BT>(s, pub, col, acc[0]);  // y_full @ V[:, sh]
@@ -193,42 +230,46 @@ tp_ann_fwd_kernel(const FwdArgs p) {
             y[i][r] = z[i][r] * y[i][r] + (1.0f - z[i][r]) * c[i][r];
           }
           const size_t at = ((size_t)(row0 + r) * T + t) * ld + col0 + col[i];
-          p.y_out[at] = y[i][r];
+          static_cast<ST*>(p.y_out)[at] = from_float<ST>(y[i][r]);
           if constexpr (MODE != kRnn) {
             if (resid) {
-              p.z_out[at] = z[i][r];
-              p.c_out[at] = c[i][r];
-              if constexpr (MODE == kGru) p.r_out[at] = rr[i][r];
+              static_cast<ST*>(p.z_out)[at] = from_float<ST>(z[i][r]);
+              static_cast<ST*>(p.c_out)[at] = from_float<ST>(c[i][r]);
+              if constexpr (MODE == kGru) {
+                static_cast<ST*>(p.r_out)[at] = from_float<ST>(rr[i][r]);
+              }
             }
           }
         }
       }
       if (t + 1 == T) break;  // the last step's y gather would feed nothing
       const int e = MODE == kGru ? 2 * t + 1 : t;
-      to_peers<NPT, BT>(p.peers, l.P, p.B, Hg, e & 1, row0, rank * Hl, y,
-                        col);
+      to_peers<ST, NPT, BT>(p.peers, l.P, p.B, Hg, e & 1, row0, rank * Hl,
+                            y, col);
       tp::exchange(p.peers, l, rank, grp, e);
-      from_slot<BT>(pub, p.peers.slots[rank], p.B, Hg, e & 1, row0, Hg, 1);
+      from_slot<ST, BT>(pub, p.peers.slots[rank], p.B, Hg, e & 1, row0, Hg,
+                        1);
     }
   }
 }
 
-template <int MODE, int NPT>
-int launch_npt(FwdArgs& p, int* plan, cudaStream_t st) {
+template <int MODE, int NPT, bool BF>
+int launch_npt(typename ModeArgs<BF>::type& p, int* plan,
+               cudaStream_t st) {
   const int threads = p.Hl / NPT;
   const int n_local = p.lay.n_local;
   tp::Plan best{0, 0, 0, 0};
   bool fit = false;
-  try_plan<1>(tp_ann_fwd_kernel<MODE, NPT, 1>, threads, 1, p.Hg, p.B,
+  try_plan<1>(tp_ann_fwd_kernel<MODE, NPT, 1, BF>, threads, 1, p.Hg, p.B,
               n_local, best, fit);
-  try_plan<2>(tp_ann_fwd_kernel<MODE, NPT, 2>, threads, 1, p.Hg, p.B,
+  try_plan<2>(tp_ann_fwd_kernel<MODE, NPT, 2, BF>, threads, 1, p.Hg, p.B,
               n_local, best, fit);
   if constexpr (NPT * 4 <= kMaxWork) {
-    try_plan<4>(tp_ann_fwd_kernel<MODE, NPT, 4>, threads, 1, p.Hg, p.B,
+    try_plan<4>(tp_ann_fwd_kernel<MODE, NPT, 4, BF>, threads, 1, p.Hg, p.B,
                 n_local, best, fit);
   }
   if constexpr (NPT * 8 <= kMaxWork) {
-    try_plan<8>(tp_ann_fwd_kernel<MODE, NPT, 8>, threads, 1, p.Hg, p.B,
+    try_plan<8>(tp_ann_fwd_kernel<MODE, NPT, 8, BF>, threads, 1, p.Hg, p.B,
                 n_local, best, fit);
   }
   if (best.bt == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
@@ -244,35 +285,46 @@ int launch_npt(FwdArgs& p, int* plan, cudaStream_t st) {
   cudaError_t err = cudaErrorInvalidValue;
   switch (best.bt) {
     case 1:
-      err = tp::launch_cooperative(tp_ann_fwd_kernel<MODE, NPT, 1>, blocks,
-                                   threads, best.smem, p, st);
+      err = tp::launch_cooperative(tp_ann_fwd_kernel<MODE, NPT, 1, BF>,
+                                   blocks, threads, best.smem, p, st);
       break;
     case 2:
-      err = tp::launch_cooperative(tp_ann_fwd_kernel<MODE, NPT, 2>, blocks,
-                                   threads, best.smem, p, st);
+      err = tp::launch_cooperative(tp_ann_fwd_kernel<MODE, NPT, 2, BF>,
+                                   blocks, threads, best.smem, p, st);
       break;
     case 4:
       if constexpr (NPT * 4 <= kMaxWork) {
-        err = tp::launch_cooperative(tp_ann_fwd_kernel<MODE, NPT, 4>, blocks,
-                                     threads, best.smem, p, st);
+        err = tp::launch_cooperative(tp_ann_fwd_kernel<MODE, NPT, 4, BF>,
+                                     blocks, threads, best.smem, p, st);
       }
       break;
     default:
       if constexpr (NPT * 8 <= kMaxWork) {
-        err = tp::launch_cooperative(tp_ann_fwd_kernel<MODE, NPT, 8>, blocks,
-                                     threads, best.smem, p, st);
+        err = tp::launch_cooperative(tp_ann_fwd_kernel<MODE, NPT, 8, BF>,
+                                     blocks, threads, best.smem, p, st);
       }
       break;
   }
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-template <int MODE>
-int launch_mode(FwdArgs& p, int npt, int* plan, cudaStream_t st) {
+template <int MODE, bool BF>
+int launch_mode(typename ModeArgs<BF>::type& p, int npt, int* plan,
+                cudaStream_t st) {
   switch (npt) {
-    case 1: return launch_npt<MODE, 1>(p, plan, st);
-    case 2: return launch_npt<MODE, 2>(p, plan, st);
-    default: return launch_npt<MODE, 4>(p, plan, st);
+    case 1: return launch_npt<MODE, 1, BF>(p, plan, st);
+    case 2: return launch_npt<MODE, 2, BF>(p, plan, st);
+    default: return launch_npt<MODE, 4, BF>(p, plan, st);
+  }
+}
+
+template <bool BF>
+int launch_form(typename ModeArgs<BF>::type& p, int mode, int npt, int* plan,
+                cudaStream_t st) {
+  switch (mode) {
+    case kRnn: return launch_mode<kRnn, BF>(p, npt, plan, st);
+    case kLigru: return launch_mode<kLigru, BF>(p, npt, plan, st);
+    default: return launch_mode<kGru, BF>(p, npt, plan, st);
   }
 }
 
@@ -283,22 +335,26 @@ int launch_mode(FwdArgs& p, int npt, int* plan, cudaStream_t st) {
 // [n_local][gates][Hg][Hl] in the order a step reads them. slots/flags: host
 // arrays of P device pointers, every rank's slots ([2][B][Hg] floats) and
 // zeroed counters ([P][B][2] u32). c_out non-null (with z_out, and r_out
-// for the GRU) writes the gate series.
+// for the GRU) writes the gate series. bf16 selects the bf16-stream mode
+// (V, the slots, y_out and the gate series bf16; wx bf16 where wx_bf16,
+// else float); y0f is float in either mode.
 extern "C" int sparch_tp_ann_fwd(
-    const float* wx0, const float* wx1, const float* wx2, const float* V,
-    const float* y0f, float* y_out, float* z_out, float* r_out, float* c_out,
+    const void* wx0, const void* wx1, const void* wx2, const void* V,
+    const float* y0f, void* y_out, void* z_out, void* r_out, void* c_out,
     void* const* slots, unsigned* const* flags, int B, int T, int Hg, int P,
-    int rank0, int n_local, int ld, int mode, int* plan, void* stream) {
+    int rank0, int n_local, int ld, int mode, int bf16, int wx_bf16,
+    int* plan, void* stream) {
   if (B <= 0 || B % 8 != 0 || T <= 0 || P < 1 || P > tp::kMaxRanks ||
       Hg <= 0 || Hg % (P * 128) != 0 || Hg / P > kThreads * kMaxNpt ||
       n_local < 1 || rank0 < 0 || rank0 + n_local > P || mode < kRnn ||
       mode > kGru || !wx0 || (mode >= kLigru && !wx1) ||
       (mode == kGru && !wx2) || !V || !y0f || !y_out ||
       (mode >= kLigru && ((z_out == nullptr) != (c_out == nullptr))) ||
-      (mode == kGru && ((r_out == nullptr) != (c_out == nullptr)))) {
+      (mode == kGru && ((r_out == nullptr) != (c_out == nullptr))) ||
+      (wx_bf16 && !bf16)) {
     return (int)cudaErrorInvalidValue;
   }
-  FwdArgs p{};
+  FwdArgsBf16 p{};
   if (!tp::make_peers(slots, flags, P, &p.peers)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -322,10 +378,8 @@ extern "C" int sparch_tp_ann_fwd(
   // fewest neurons per thread that keep the block within kThreads
   int npt = 1;
   while (p.Hl / npt > kThreads) npt *= 2;
+  p.wx_bf16 = wx_bf16;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kRnn: return launch_mode<kRnn>(p, npt, plan, st);
-    case kLigru: return launch_mode<kLigru>(p, npt, plan, st);
-    default: return launch_mode<kGru>(p, npt, plan, st);
-  }
+  if (bf16) return launch_form<true>(p, mode, npt, plan, st);
+  return launch_form<false>(static_cast<FwdArgs&>(p), mode, npt, plan, st);
 }

@@ -3,7 +3,8 @@
 // layout of tp_cell_fwd.cu.
 //
 // Replaces: sparch_tpu/ops/pallas_tp.py `_tp_bwd_kernel` (:448, through
-// `_tp_backward` :727), float32. Rank r owns the neurons of its column
+// `_tp_backward` :727), in its two stream modes (BF): float32, and the TPU
+// kernel's mxu_bf16 mode (below). Rank r owns the neurons of its column
 // block. With A_t = dL/du_t, B_t = dL/dw_t, g_t the output cotangent and
 // R_{t+1} the recurrent adjoint term, walking t = T..1 (:516-606):
 //   C_t = g_t - alpha*A_{t+1} + R_{t+1} + b*B_{t+1}
@@ -32,6 +33,16 @@
 // (H, Hl) product per rank, 2*B*H*H FLOP over all ranks, T times in
 // sequence, and dV another 2*B*T*H*H: at (256, 100, 1024) 107 GFLOP, 1.6 ms
 // at the float32 peak, against ~400 MB of streams (0.12 ms at HBM rate).
+//
+// bf16 mode (the JAX kernel's mxu_bf16: sdt bf16, pallas_tp.py:739): g is
+// read and dWx written as bf16 streams (:745, :783), V^T is bf16 (rounded
+// once by the wrapper, :505-506, :813), and the wire is bf16
+// (tp_exchange.cuh), so D is rounded to bf16 as it is staged (:547) and
+// both R = D_full @ Vrow^T and dV see the rounded value (:555-566; dWx is
+// that value too, and dV reads it back). dV's left operand is rounded as
+// well (s0, which need not be 0/1, :561); A, B, R, the carried state and
+// every reduction stay float32, and B_t takes the unrounded D (:577).
+// These are fused_cell_bwd.cu's bf16 rounding points.
 //
 // Design:
 // - A block runs one rank's neurons for BT batch rows (a row group) and
@@ -76,34 +87,36 @@ constexpr int kMaxNpt = 4;    // so Hl <= 2048
 constexpr int kMaxWork = 16;  // NPT * BT
 constexpr int kVecs = 4;      // dalpha, dbeta, da, db
 
+// g, VT, dwx and the slots are float, or bf16 in the bf16 mode.
 struct BwdArgs {
-  const float* g;      // (B, T, ld)
+  const void* g;       // (B, T, ld)
   const float* u_seq;  // (B, T, ld)
   const float* alpha;  // (ld,)
   const float* beta;
   const float* a;
   const float* b;
-  const float* VT;     // (H, ld): V^T, rank l's Vrow^T at column l*Hl
+  const void* VT;      // (H, ld): V^T, rank l's Vrow^T at column l*Hl
   const float* u0;     // (B, ld)
   const float* w0;
   const float* s0f;    // (B, H): the gathered initial spikes
-  float* dwx;          // (B, T, ld)
+  void* dwx;           // (B, T, ld)
   float* partials;     // [n_local][per_rank][kVecs][Hl]
   float* du0;          // (B, ld)
   float* dw0;
   float* ds0;
-  Peers peers;         // slots: per rank [2][B][H] floats
+  Peers peers;         // slots: per rank [2][B][H] elements
   Layout lay;
   int B, T, H, Hl, ld;
   float threshold;
 };
 
-// The stream of a rank's (H, Hl) block of V^T, whose rows lie ld apart:
-// tile n holds TJ rows j, one bulk copy per row, all reporting to the
-// stage's mbarrier; T passes per row group.
+// The stream of a rank's (H, Hl) block of V^T (elements MT), whose rows lie
+// ld apart: tile n holds TJ rows j, one bulk copy per row, all reporting to
+// the stage's mbarrier; T passes per row group.
+template <typename MT>
 struct ShardStream {
-  const float* base;
-  float* stages;
+  const MT* base;
+  MT* stages;
   uint64_t* full;
   int next_tile;
   int tile;
@@ -115,11 +128,12 @@ struct ShardStream {
   int ld;
 };
 
-__device__ __forceinline__ ShardStream shard_stream(const float* base, int ld,
-                                                    float* stages,
-                                                    uint64_t* full, int H,
-                                                    int Hl, int passes) {
-  ShardStream s;
+template <typename MT>
+__device__ __forceinline__ ShardStream<MT> shard_stream(const MT* base, int ld,
+                                                        MT* stages,
+                                                        uint64_t* full, int H,
+                                                        int Hl, int passes) {
+  ShardStream<MT> s;
   s.base = base;
   s.stages = stages;
   s.full = full;
@@ -128,21 +142,22 @@ __device__ __forceinline__ ShardStream shard_stream(const float* base, int ld,
   s.H = H;
   s.Hl = Hl;
   s.ld = ld;
-  s.TJ = min(H, kTileFloats / Hl);
+  s.TJ = min(H, (kTileBytes / (int)sizeof(MT)) / Hl);
   s.n_tiles = (H + s.TJ - 1) / s.TJ;
   s.total_tiles = passes * s.n_tiles;
   return s;
 }
 
 // Start the copy of the stream's next tile (warp 0), if it has one left.
-__device__ __forceinline__ void shard_start(ShardStream& s) {
+template <typename MT>
+__device__ __forceinline__ void shard_start(ShardStream<MT>& s) {
   const int n = s.next_tile++;
   if (n >= s.total_tiles || threadIdx.x >= 32) return;
   const int j0 = (n % s.n_tiles) * s.TJ;
   const int rows = min(s.TJ, s.H - j0);
-  const uint32_t row_bytes = (uint32_t)s.Hl * sizeof(float);
+  const uint32_t row_bytes = (uint32_t)s.Hl * sizeof(MT);
   uint64_t* bar = &s.full[n % kStages];
-  float* dst = s.stages + (size_t)(n % kStages) * kTileFloats;
+  MT* dst = s.stages + (size_t)(n % kStages) * (kTileBytes / sizeof(MT));
   if (threadIdx.x == 0) mbar_expect_tx(bar, rows * row_bytes);
   __syncwarp();
   for (int q = threadIdx.x; q < rows; q += 32) {
@@ -151,7 +166,8 @@ __device__ __forceinline__ void shard_start(ShardStream& s) {
   }
 }
 
-__device__ __forceinline__ void shard_open(ShardStream& s) {
+template <typename MT>
+__device__ __forceinline__ void shard_open(ShardStream<MT>& s) {
   if (threadIdx.x == 0) {
     for (int k = 0; k < kStages; ++k) mbar_init(&s.full[k], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -183,8 +199,8 @@ __device__ __forceinline__ void shard_wait(uint64_t* bar, uint32_t parity) {
 // tile (tile_stream.cuh stream_matrix over the strided block). `left` is
 // H x BT floats in shared memory, written by the block before the call;
 // when the call returns every thread is done reading it.
-template <int NPT, int BT>
-__device__ __forceinline__ void shard_product(ShardStream& s,
+template <int NPT, int BT, typename MT>
+__device__ __forceinline__ void shard_product(ShardStream<MT>& s,
                                               const float* left,
                                               const int (&col)[NPT],
                                               float (&acc)[NPT][BT]) {
@@ -192,7 +208,8 @@ __device__ __forceinline__ void shard_product(ShardStream& s,
     shard_wait(&s.full[s.tile % kStages], (s.tile / kStages) & 1);
     __syncthreads();
     shard_start(s);  // into the stage of the tile before, free now
-    const float* stage = s.stages + (size_t)(s.tile % kStages) * kTileFloats;
+    const MT* stage =
+        s.stages + (size_t)(s.tile % kStages) * (kTileBytes / sizeof(MT));
     const int j0 = jt * s.TJ;
     const int rows = min(s.TJ, s.H - j0);
 #pragma unroll kUnroll
@@ -201,7 +218,7 @@ __device__ __forceinline__ void shard_product(ShardStream& s,
       load_rows<BT>(left + (size_t)(j0 + q) * BT, d);
 #pragma unroll
       for (int i = 0; i < NPT; ++i) {
-        const float v = stage[q * s.Hl + col[i]];
+        const float v = to_float(stage[q * s.Hl + col[i]]);
 #pragma unroll
         for (int r = 0; r < BT; ++r) acc[i][r] = fmaf(d[r], v, acc[i][r]);
       }
@@ -210,9 +227,10 @@ __device__ __forceinline__ void shard_product(ShardStream& s,
   __syncthreads();
 }
 
-template <bool ADAPTIVE, int NPT, int BT>
+template <bool ADAPTIVE, int NPT, int BT, bool BF>
 __global__ void __launch_bounds__(kThreads)
 tp_cell_bwd_kernel(const BwdArgs p) {
+  using ST = typename Elem<BF>::type;  // g, dWx, V^T, wire
   // dynamic shared memory: the group's D_full as [j][row] (H*BT floats),
   // then, 16-byte aligned, the kStages tiles of V^T's block
   extern __shared__ __align__(16) float smem[];
@@ -226,8 +244,10 @@ tp_cell_bwd_kernel(const BwdArgs p) {
   const float thr = p.threshold;
   float* left = smem;
   const int my_groups = (l.n_groups - blk + l.per_rank - 1) / l.per_rank;
-  ShardStream vt = shard_stream(p.VT + col0, ld, smem + ((H * BT + 3) & ~3),
-                                full, H, Hl, my_groups * T);
+  ShardStream<ST> vt = shard_stream(
+      static_cast<const ST*>(p.VT) + col0, ld,
+      reinterpret_cast<ST*>(smem + ((H * BT + 3) & ~3)), full, H, Hl,
+      my_groups * T);
 
   float al[NPT], oma[NPT], be[NPT], aa[NPT], bb[NPT];
   float dal[NPT], dbe[NPT], daa[NPT], dbb[NPT];
@@ -275,7 +295,8 @@ tp_cell_bwd_kernel(const BwdArgs p) {
           const bool ok = rowlive[r];
           const size_t row = (size_t)(row0 + r);
           const size_t at = (row * T + t) * ld + c;
-          const float g_t = ok ? p.g[at] : 0.f;
+          const float g_t =
+              ok ? to_float(static_cast<const ST*>(p.g)[at]) : 0.f;
           const float u_t = up[i][r];
           float u_p = 0.f, s_p = 0.f;
           if (ok) {
@@ -298,11 +319,12 @@ tp_cell_bwd_kernel(const BwdArgs p) {
           if (ADAPTIVE) A_new += aa[i] * Bw[i][r];
           const float dd = oma[i] * A_new;
           if (ok) {
-            p.dwx[at] = dd;
+            static_cast<ST*>(p.dwx)[at] = from_float<ST>(dd);
             const size_t slot_at = ((size_t)parity * p.B + row) * H +
                                    rank * Hl + col[i];
             for (int q = 0; q < l.P; ++q) {
-              __stcg(static_cast<float*>(p.peers.slots[q]) + slot_at, dd);
+              tp::wire_store(static_cast<ST*>(p.peers.slots[q]) + slot_at,
+                             dd);
             }
           }
           dal[i] += A_new * (u_p - s_p - u_t);
@@ -319,12 +341,12 @@ tp_cell_bwd_kernel(const BwdArgs p) {
       }
       tp::exchange(p.peers, l, rank, grp, e);
       // the group's gathered D rows, [j][row]
-      const float* in = static_cast<const float*>(p.peers.slots[rank]) +
-                        ((size_t)parity * p.B + row0) * H;
+      const ST* in = static_cast<const ST*>(p.peers.slots[rank]) +
+                     ((size_t)parity * p.B + row0) * H;
       for (int idx = threadIdx.x; idx < BT * H; idx += blockDim.x) {
         const int r = idx / H;
         const int j = idx - r * H;
-        left[j * BT + r] = row0 + r < p.B ? __ldcg(in + idx) : 0.f;
+        left[j * BT + r] = row0 + r < p.B ? tp::wire_load(in + idx) : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < NPT; ++i) {
@@ -387,24 +409,24 @@ __global__ void tp_vec_reduce_kernel(const float* __restrict__ partials,
   out[idx] = sum;
 }
 
-template <bool A, int NPT, int BT>
+template <bool A, int NPT, int BT, bool BF>
 void try_plan(const BwdArgs& p, tp::Plan& best, bool& all_fit) {
   if constexpr (NPT * BT <= kMaxWork) {
     const size_t smem = (((size_t)p.H * BT + 3) & ~(size_t)3) * sizeof(float) +
                         (size_t)kStages * kTileBytes;
-    tp::try_plan(tp_cell_bwd_kernel<A, NPT, BT>, BT, p.Hl / NPT, smem,
+    tp::try_plan(tp_cell_bwd_kernel<A, NPT, BT, BF>, BT, p.Hl / NPT, smem,
                  (p.B + BT - 1) / BT, p.lay.n_local, best, all_fit);
   }
 }
 
-template <bool A, int NPT>
+template <bool A, int NPT, bool BF>
 int launch_npt(BwdArgs& p, int* plan, cudaStream_t st) {
   tp::Plan best{0, 0, 0, 0};
   bool all_fit = false;
-  try_plan<A, NPT, 1>(p, best, all_fit);
-  try_plan<A, NPT, 2>(p, best, all_fit);
-  try_plan<A, NPT, 4>(p, best, all_fit);
-  try_plan<A, NPT, 8>(p, best, all_fit);
+  try_plan<A, NPT, 1, BF>(p, best, all_fit);
+  try_plan<A, NPT, 2, BF>(p, best, all_fit);
+  try_plan<A, NPT, 4, BF>(p, best, all_fit);
+  try_plan<A, NPT, 8, BF>(p, best, all_fit);
   if (best.bt == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
   p.lay.per_rank = best.per_rank;
   p.lay.n_groups = (p.B + best.bt - 1) / best.bt;
@@ -419,50 +441,58 @@ int launch_npt(BwdArgs& p, int* plan, cudaStream_t st) {
   cudaError_t err = cudaErrorInvalidValue;
   switch (best.bt) {
     case 1:
-      err = tp::launch_cooperative(tp_cell_bwd_kernel<A, NPT, 1>, blocks,
-                                   threads, best.smem, p, st);
+      err = tp::launch_cooperative(tp_cell_bwd_kernel<A, NPT, 1, BF>,
+                                   blocks, threads, best.smem, p, st);
       break;
     case 2:
-      err = tp::launch_cooperative(tp_cell_bwd_kernel<A, NPT, 2>, blocks,
-                                   threads, best.smem, p, st);
+      err = tp::launch_cooperative(tp_cell_bwd_kernel<A, NPT, 2, BF>,
+                                   blocks, threads, best.smem, p, st);
       break;
     case 4:
-      err = tp::launch_cooperative(tp_cell_bwd_kernel<A, NPT, 4>, blocks,
-                                   threads, best.smem, p, st);
+      err = tp::launch_cooperative(tp_cell_bwd_kernel<A, NPT, 4, BF>,
+                                   blocks, threads, best.smem, p, st);
       break;
     default:
       if constexpr (NPT * 8 <= kMaxWork) {
-        err = tp::launch_cooperative(tp_cell_bwd_kernel<A, NPT, 8>, blocks,
-                                     threads, best.smem, p, st);
+        err = tp::launch_cooperative(tp_cell_bwd_kernel<A, NPT, 8, BF>,
+                                     blocks, threads, best.smem, p, st);
       }
       break;
   }
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-template <bool A>
+template <bool A, bool BF>
 int launch_adaptive(BwdArgs& p, int npt, int* plan, cudaStream_t st) {
   switch (npt) {
-    case 1: return launch_npt<A, 1>(p, plan, st);
-    case 2: return launch_npt<A, 2>(p, plan, st);
-    default: return launch_npt<A, 4>(p, plan, st);
+    case 1: return launch_npt<A, 1, BF>(p, plan, st);
+    case 2: return launch_npt<A, 2, BF>(p, plan, st);
+    default: return launch_npt<A, 4, BF>(p, plan, st);
   }
+}
+
+template <bool BF>
+int launch_form(BwdArgs& p, bool adaptive, int npt, int* plan,
+                cudaStream_t st) {
+  return adaptive ? launch_adaptive<true, BF>(p, npt, plan, st)
+                  : launch_adaptive<false, BF>(p, npt, plan, st);
 }
 
 }  // namespace
 
 // slots/flags: host arrays of P device pointers, every rank's D slots
-// ([2][B][H] floats) and zeroed counters ([P][B][2] u32). partials holds
+// ([2][B][H] elements) and zeroed counters ([P][B][2] u32). partials holds
 // n_local*B*4*(H/P) floats, vecs (4, n_local*H/P) receives dalpha, dbeta,
-// da, db; dV (H, H) and dv_partials (ksplit, H, H) the dV product.
+// da, db; dV (H, H) and dv_partials (ksplit, H, H) the dV product. bf16
+// selects the bf16-stream mode (g, VT, dwx and the slots bf16).
 extern "C" int sparch_tp_cell_bwd(
-    const float* g, const float* u_seq, const float* alpha, const float* beta,
-    const float* a, const float* b, const float* VT, const float* u0,
-    const float* w0, const float* s0f, float* dwx, float* partials,
+    const void* g, const float* u_seq, const float* alpha, const float* beta,
+    const float* a, const float* b, const void* VT, const float* u0,
+    const float* w0, const float* s0f, void* dwx, float* partials,
     float* vecs, float* dV, float* dv_partials, float* du0, float* dw0,
     float* ds0, void* const* slots, unsigned* const* flags, int B, int T,
     int H, int P, int rank0, int n_local, int ld, float threshold,
-    int adaptive, int ksplit, int* plan, void* stream) {
+    int adaptive, int ksplit, int bf16, int* plan, void* stream) {
   if (B <= 0 || T <= 0 || P < 1 || P > tp::kMaxRanks || H <= 0 ||
       H % (P * 128) != 0 || H / P > kThreads * kMaxNpt || rank0 != 0 ||
       n_local != P || ld != H || ksplit < 1 || !g || !u_seq || !alpha ||
@@ -502,8 +532,8 @@ extern "C" int sparch_tp_cell_bwd(
   int npt = 1;
   while (p.Hl / npt > kThreads) npt *= 2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = adaptive ? launch_adaptive<true>(p, npt, plan, st)
-                     : launch_adaptive<false>(p, npt, plan, st);
+  int err = bf16 ? launch_form<true>(p, adaptive != 0, npt, plan, st)
+                 : launch_form<false>(p, adaptive != 0, npt, plan, st);
   if (err != 0) return err;
 
   const int n_cols = n_local * p.Hl;
@@ -517,8 +547,16 @@ extern "C" int sparch_tp_cell_bwd(
   int rows_per_split = (R + ksplit - 1) / ksplit;
   rows_per_split = (rows_per_split + kBK - 1) / kBK * kBK;
   const int tiles = (H + kTile - 1) / kTile;
-  dv_kernel<float><<<dim3(tiles, tiles, ksplit), kDvThreads, 0, st>>>(
-      u_seq, s0f, dwx, dv_partials, T, H, R, rows_per_split, threshold);
+  const dim3 grid(tiles, tiles, ksplit);
+  if (bf16) {
+    dv_kernel<__nv_bfloat16><<<grid, kDvThreads, 0, st>>>(
+        u_seq, s0f, static_cast<const __nv_bfloat16*>(dwx), dv_partials, T,
+        H, R, rows_per_split, threshold);
+  } else {
+    dv_kernel<float><<<grid, kDvThreads, 0, st>>>(
+        u_seq, s0f, static_cast<const float*>(dwx), dv_partials, T, H, R,
+        rows_per_split, threshold);
+  }
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   sum_parts_kernel<<<(H * H + 255) / 256, 256, 0, st>>>(dv_partials, dV,

@@ -3,11 +3,12 @@
 // the ranks exchange their spikes at every step.
 //
 // Replaces: sparch_tpu/ops/pallas_tp.py `_tp_fwd_kernel` (:350, through
-// `_tp_forward` :609), float32 (its `mxu_bf16` form is not ported yet).
-// Rank r owns the neurons r*Hl .. r*Hl+Hl-1: their drive Wx, constants,
-// state and output, and the column block V[:, shard] of the recurrent
-// matrix. Per step, for one batch row (the dynamics of :416-445, the
-// single-card fused_cell_fwd.cu without the affine and the dropout):
+// `_tp_forward` :609), in its two stream modes (BF): float32, and the TPU
+// kernel's mxu_bf16 mode (below). Rank r owns the neurons r*Hl ..
+// r*Hl+Hl-1: their drive Wx, constants, state and output, and the column
+// block V[:, shard] of the recurrent matrix. Per step, for one batch row
+// (the dynamics of :416-445, the single-card fused_cell_fwd.cu without the
+// affine and the dropout):
 //   drive = Wx_t + s_full @ V[:, shard]
 //   w     = beta*w + a*u + b*s ; drive -= w       (ADAPTIVE: RadLIF)
 //   u     = alpha*(u - s) + (1-alpha)*drive
@@ -50,6 +51,18 @@
 // - Rank data: the local rank l's column block starts at column l*Hl of
 //   tensors with row stride ld. In the one-card form they are the full
 //   (…, H) tensors (ld = H); across cards each rank's own (ld = Hl).
+// - bf16 mode (the JAX kernel's mxu_bf16: rdt/vdt bf16, pallas_tp.py:625-
+//   626): V is bf16 in global memory (rounded once by the wrapper,
+//   :386-387, :710) and the spike output a bf16 stream (:660, :674); Wx is
+//   read as float32 or bf16, whichever the model gives (the JAX SNN does
+//   not cast it); the membrane series and the state stay float32. A spike
+//   is 0 or 1, so the wire still moves bit words, exact in either mode, and
+//   s_full @ V is the same gather-sum over bf16 rows of V summed in float32.
+//   Only the first product sees a rounding: s0_full is rounded to bf16 for
+//   it alone (:397-401), while the state keeps the float32 s0 (:394). These
+//   are fused_cell_fwd.cu's bf16 rounding points, so the spikes and the
+//   membrane series equal that kernel's without the affine and the
+//   dropout, and those of every P, bit for bit on a dyadic V.
 //
 // C interface, bound with ctypes: sparch_tp_cell_fwd returns the launch's
 // cudaError_t (or an invalid-value error for arguments it does not take)
@@ -59,10 +72,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile_stream.cuh"
 #include "tp_exchange.cuh"
 
 namespace {
 
+using sparch::Elem;
+using sparch::from_float;
+using sparch::load_stream;
+using sparch::round_bf16;
+using sparch::to_float;
 using sparch::tp::Layout;
 using sparch::tp::Peers;
 
@@ -70,16 +89,17 @@ constexpr int kMaxThreads = 512;
 constexpr int kMaxNpt = 4;  // so Hl <= 2048
 
 struct FwdArgs {
-  const float* wx;     // (B, T, ld)
+  const void* wx;      // (B, T, ld): float, or bf16 where wx_bf16
   const float* alpha;  // (ld,)
   const float* beta;
   const float* a;
   const float* b;
-  const float* V;      // (H, ld): rank l's column block at column l*Hl
+  const void* V;       // (H, ld): rank l's column block at column l*Hl;
+                       // float, bf16 in the bf16 mode
   const float* u0;     // (B, ld)
   const float* w0;
   const float* s0f;    // (B, H): the gathered initial spikes
-  float* s_out;        // (B, T, ld)
+  void* s_out;         // (B, T, ld): float, bf16 in the bf16 mode
   float* u_out;        // (B, T, ld), RESID
   Peers peers;         // slots: per rank [2][B][H/32] spike words
   Layout lay;
@@ -87,9 +107,25 @@ struct FwdArgs {
   float threshold;
 };
 
-template <bool ADAPTIVE, bool RESID, int NPT>
+// The bf16 mode's one more flag rides in a struct of its own, so that the
+// float32 kernels' parameter block stays what it was before the mode
+// existed (see fused_cell_fwd.cu).
+struct FwdArgsBf16 : FwdArgs {
+  int wx_bf16;  // the Wx stream is bf16, not float
+};
+template <bool BF>
+struct ModeArgs {
+  using type = FwdArgs;
+};
+template <>
+struct ModeArgs<true> {
+  using type = FwdArgsBf16;
+};
+
+template <bool ADAPTIVE, bool RESID, int NPT, bool BF>
 __global__ void __launch_bounds__(kMaxThreads)
-tp_cell_fwd_kernel(const FwdArgs p) {
+tp_cell_fwd_kernel(const typename ModeArgs<BF>::type p) {
+  using ST = typename Elem<BF>::type;  // spikes out, V
   // dynamic shared memory: the s0 row (H floats), then the H/32 gathered
   // spike words
   extern __shared__ float smem[];
@@ -104,7 +140,9 @@ tp_cell_fwd_kernel(const FwdArgs p) {
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
   const int word0 = rank * (p.Hl / 32);  // the rank's first spike word
-  const float* V = p.V + col0;
+  const ST* V = static_cast<const ST*>(p.V) + col0;
+  bool wx_bf16 = false;
+  if constexpr (BF) wx_bf16 = p.wx_bf16;
 
   float al[NPT], oma[NPT], be[NPT], aa[NPT], bb[NPT];
   float u[NPT], w[NPT], s[NPT], sv[NPT], x[NPT];
@@ -135,19 +173,22 @@ tp_cell_fwd_kernel(const FwdArgs p) {
     }
     __syncthreads();
     for (int k = 0; k < H; ++k) {
-      const float sk = smem[k];
+      // bf16 mode: rounded for this product only, the state keeps s0
+      const float sk = BF ? round_bf16(smem[k]) : smem[k];
       if (sk != 0.f) {
-        const float* vrow = V + (size_t)k * ld;
+        const ST* vrow = V + (size_t)k * ld;
 #pragma unroll
         for (int i = 0; i < NPT; ++i) {
-          sv[i] = __fadd_rn(sv[i], __fmul_rn(sk, vrow[col[i]]));
+          sv[i] = __fadd_rn(sv[i], __fmul_rn(sk, to_float(vrow[col[i]])));
         }
       }
     }
 
     const size_t base = (size_t)row * T * ld + col0;
 #pragma unroll
-    for (int i = 0; i < NPT; ++i) x[i] = p.wx[base + col[i]];
+    for (int i = 0; i < NPT; ++i) {
+      x[i] = load_stream<BF>(p.wx, base + col[i], wx_bf16);
+    }
 
     for (int t = 0; t < T; ++t) {
 #pragma unroll
@@ -163,13 +204,14 @@ tp_cell_fwd_kernel(const FwdArgs p) {
                          __fmul_rn(oma[i], d));
         s[i] = u[i] > p.threshold ? 1.f : 0.f;
         const size_t at = base + (size_t)t * ld + col[i];
-        p.s_out[at] = s[i];
+        static_cast<ST*>(p.s_out)[at] = from_float<ST>(s[i]);
         if (RESID) p.u_out[at] = u[i];
       }
       if (t + 1 == T) break;  // the last step's gather would feed nothing
 #pragma unroll
       for (int i = 0; i < NPT; ++i) {
-        x[i] = p.wx[base + (size_t)(t + 1) * ld + col[i]];
+        x[i] = load_stream<BF>(p.wx, base + (size_t)(t + 1) * ld + col[i],
+                               wx_bf16);
       }
       // the rank's spike words into slot t & 1 of every rank
       const size_t at_row = ((size_t)(t & 1) * p.B + row) * nw;
@@ -195,7 +237,7 @@ tp_cell_fwd_kernel(const FwdArgs p) {
       for (int i = 0; i < NPT; ++i) sv[i] = 0.f;
       for (int wd = 0; wd < nw; ++wd) {
         uint32_t m = mask[wd];
-        const float* vbase = V + (size_t)wd * 32 * ld;
+        const ST* vbase = V + (size_t)wd * 32 * ld;
         while (m) {
           // up to four spiking rows per round, added in ascending k; a
           // missing row adds 0, which changes no sum
@@ -207,11 +249,11 @@ tp_cell_fwd_kernel(const FwdArgs p) {
           if (m) { k3 = __ffs(m) - 1; m &= m - 1; }
 #pragma unroll
           for (int i = 0; i < NPT; ++i) {
-            const float* vc = vbase + col[i];
-            const float v0 = vc[(size_t)k0 * ld];
-            const float v1 = k1 >= 0 ? vc[(size_t)k1 * ld] : 0.f;
-            const float v2 = k2 >= 0 ? vc[(size_t)k2 * ld] : 0.f;
-            const float v3 = k3 >= 0 ? vc[(size_t)k3 * ld] : 0.f;
+            const ST* vc = vbase + col[i];
+            const float v0 = to_float(vc[(size_t)k0 * ld]);
+            const float v1 = k1 >= 0 ? to_float(vc[(size_t)k1 * ld]) : 0.f;
+            const float v2 = k2 >= 0 ? to_float(vc[(size_t)k2 * ld]) : 0.f;
+            const float v3 = k3 >= 0 ? to_float(vc[(size_t)k3 * ld]) : 0.f;
             sv[i] = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(sv[i], v0), v1),
                                         v2),
                               v3);
@@ -222,9 +264,10 @@ tp_cell_fwd_kernel(const FwdArgs p) {
   }
 }
 
-template <bool A, bool R, int NPT>
-int plan_and_launch(FwdArgs& p, int* plan, cudaStream_t st) {
-  auto kernel = tp_cell_fwd_kernel<A, R, NPT>;
+template <bool A, bool R, int NPT, bool BF>
+int plan_and_launch(typename ModeArgs<BF>::type& p, int* plan,
+                    cudaStream_t st) {
+  auto kernel = tp_cell_fwd_kernel<A, R, NPT, BF>;
   const int threads = p.Hl / NPT;
   const size_t smem = (size_t)p.H * sizeof(float) + (p.H / 32) * 4;
   int per_sm = 0;
@@ -243,35 +286,48 @@ int plan_and_launch(FwdArgs& p, int* plan, cudaStream_t st) {
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-template <bool A, bool R>
-int launch_npt(FwdArgs& p, int npt, int* plan, cudaStream_t st) {
+template <bool A, bool R, bool BF>
+int launch_npt(typename ModeArgs<BF>::type& p, int npt, int* plan,
+               cudaStream_t st) {
   switch (npt) {
-    case 1: return plan_and_launch<A, R, 1>(p, plan, st);
-    case 2: return plan_and_launch<A, R, 2>(p, plan, st);
-    default: return plan_and_launch<A, R, 4>(p, plan, st);
+    case 1: return plan_and_launch<A, R, 1, BF>(p, plan, st);
+    case 2: return plan_and_launch<A, R, 2, BF>(p, plan, st);
+    default: return plan_and_launch<A, R, 4, BF>(p, plan, st);
   }
+}
+
+template <bool BF>
+int launch_form(typename ModeArgs<BF>::type& p, bool adaptive, bool resid,
+                int npt, int* plan, cudaStream_t st) {
+  if (adaptive) {
+    return resid ? launch_npt<true, true, BF>(p, npt, plan, st)
+                 : launch_npt<true, false, BF>(p, npt, plan, st);
+  }
+  return resid ? launch_npt<false, true, BF>(p, npt, plan, st)
+               : launch_npt<false, false, BF>(p, npt, plan, st);
 }
 
 }  // namespace
 
 // slots/flags: host arrays of P device pointers, every rank's spike-word
 // slots ([2][B][H/32] u32) and zeroed counters ([P][B][2] u32). u_out
-// non-null writes the membrane series.
+// non-null writes the membrane series. bf16 selects the bf16-stream mode
+// (V and s_out bf16; wx bf16 where wx_bf16, else float).
 extern "C" int sparch_tp_cell_fwd(
-    const float* wx, const float* alpha, const float* beta, const float* a,
-    const float* b, const float* V, const float* u0, const float* w0,
-    const float* s0f, float* s_out, float* u_out, void* const* slots,
+    const void* wx, const float* alpha, const float* beta, const float* a,
+    const float* b, const void* V, const float* u0, const float* w0,
+    const float* s0f, void* s_out, float* u_out, void* const* slots,
     unsigned* const* flags, int B, int T, int H, int P, int rank0,
-    int n_local, int ld, float threshold, int adaptive, int* plan,
-    void* stream) {
+    int n_local, int ld, float threshold, int adaptive, int bf16,
+    int wx_bf16, int* plan, void* stream) {
   if (B <= 0 || T <= 0 || P < 1 || P > sparch::tp::kMaxRanks || H <= 0 ||
       H % (P * 128) != 0 || n_local < 1 || rank0 < 0 ||
       rank0 + n_local > P || H / P > kMaxThreads * kMaxNpt || !wx ||
       !alpha || !V || !u0 || !s0f || !s_out ||
-      (adaptive && (!beta || !a || !b || !w0))) {
+      (adaptive && (!beta || !a || !b || !w0)) || (wx_bf16 && !bf16)) {
     return (int)cudaErrorInvalidValue;
   }
-  FwdArgs p{};
+  FwdArgsBf16 p{};
   if (!sparch::tp::make_peers(slots, flags, P, &p.peers)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -299,12 +355,10 @@ extern "C" int sparch_tp_cell_fwd(
   // fewest neurons per thread that keep the block within kMaxThreads
   int npt = 1;
   while (p.Hl / npt > kMaxThreads) npt *= 2;
+  p.wx_bf16 = wx_bf16;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool resid = u_out != nullptr;
-  if (adaptive) {
-    return resid ? launch_npt<true, true>(p, npt, plan, st)
-                 : launch_npt<true, false>(p, npt, plan, st);
-  }
-  return resid ? launch_npt<false, true>(p, npt, plan, st)
-               : launch_npt<false, false>(p, npt, plan, st);
+  if (bf16) return launch_form<true>(p, adaptive, resid, npt, plan, st);
+  return launch_form<false>(static_cast<FwdArgs&>(p), adaptive, resid, npt,
+                            plan, st);
 }

@@ -36,6 +36,10 @@
 //   exchange e+1, which each peer publishes only after it has read slot p
 //   for exchange e (its next payload depends on what it read). The value
 //   chain is the backpressure; the harnesses of tp_collectives.cu pin it.
+// - The wire's element type is the kernel's: float, or bf16 in the
+//   bf16-stream mode (wire_store rounds to nearest, ties to even), so a
+//   slot holds exactly the value every rank reads; the spike exchange of
+//   tp_cell_fwd.cu moves 32-bit words in either mode.
 // - Counters are monotonic within a launch and zeroed before each launch
 //   (the wrapper allocates them zeroed on the launch's stream), so a count
 //   of an earlier launch or an earlier exchange cannot be read as this
@@ -53,6 +57,7 @@
 // instead of holding the card.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -115,6 +120,24 @@ __device__ __forceinline__ unsigned load_acquire_sys(const unsigned* p) {
                : "l"(p)
                : "memory");
   return v;
+}
+
+// One element of a slot, stored past L1 (st.global.cg) and read back from
+// L2 (ld.global.cg), in the wire's type: float, or bf16 (rounded as it is
+// stored).
+__device__ __forceinline__ void wire_store(float* p, float v) {
+  __stcg(p, v);
+}
+__device__ __forceinline__ void wire_store(__nv_bfloat16* p, float v) {
+  __stcg(reinterpret_cast<unsigned short*>(p),
+         __bfloat16_as_ushort(__float2bfloat16_rn(v)));
+}
+__device__ __forceinline__ float wire_load(const float* p) {
+  return __ldcg(p);
+}
+__device__ __forceinline__ float wire_load(const __nv_bfloat16* p) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
 }
 
 __device__ __forceinline__ unsigned* counter(unsigned* base, const Layout& l,

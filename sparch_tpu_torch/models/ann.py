@@ -28,8 +28,8 @@ the fused path and the dropout mask of the plain path draw from the
 feeds the batch statistics (summed in float32), the kernel's affine and the
 backward alike (the JAX layer casts the gate stream to bf16 once for this;
 here the projection has emitted bf16 already), and the kernels run in their
-bf16-stream mode. The readout
-collapses time in float32. ``remat=True`` recomputes each hidden layer in
+bf16-stream mode, as the tensor-parallel ones do on the normalised drive.
+The readout collapses time in float32. ``remat=True`` recomputes each hidden layer in
 the backward instead of keeping its residuals.
 """
 from __future__ import annotations
@@ -84,12 +84,6 @@ class _ANNLayerBase(FusedCellPolicy, nn.Module):
                  tp_batch_axis: Optional[str] = "data"):
         super().__init__()
         dense_dtype = check_precision_fields(compute_dtype, mxu_precision)
-        if (self.recurrent and cell_impl == "pallas_tp"
-                and compute_dtype == torch.bfloat16):
-            raise NotImplementedError(
-                "cell_impl='pallas_tp' with compute_dtype=bfloat16 (the TP "
-                "kernels' mxu_bf16 form) is ROADMAP queue 2 item 11"
-            )
         self.tp_mesh = tp_mesh
         self.tp_axis = tp_axis
         self.tp_batch_axis = tp_batch_axis
@@ -164,7 +158,7 @@ class _ANNLayerBase(FusedCellPolicy, nn.Module):
         elif self.cell_impl == "pallas_tp":
             mesh, axis, _ = self._tp()
             y = type(self)._tp_cell(*wxs, *self._matrices(), y0, mesh=mesh,
-                                    tp_axis=axis)
+                                    tp_axis=axis, mxu_bf16=self._mxu_bf16())
         else:
             y = type(self)._scan(*wxs, *self._matrices(), y0)
         return self._post(y, fused, generator)
@@ -247,10 +241,9 @@ class ANN(nn.Module):
     ``mxu_precision`` and ``remat`` as in the JAX package (see the module
     docstring and ``common.FusedCellPolicy``). ``cell_impl='pallas_tp'``
     takes ``tp_mesh`` (``parallel.make_mesh``; its ``tp_axis`` splits the
-    neurons of every recurrent layer) and raises without one when it runs,
-    and with ``compute_dtype=bfloat16`` when it is built; ``tp_batch_axis``
-    is kept for the JAX model records (a ``data`` axis longer than 1 is not
-    ported).
+    neurons of every recurrent layer) and raises without one when it runs;
+    ``tp_batch_axis`` is kept for the JAX model records (a ``data`` axis
+    longer than 1 is not ported).
     """
 
     is_snn = False

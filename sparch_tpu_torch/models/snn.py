@@ -25,9 +25,10 @@ layer in the backward instead of keeping its residuals.
 model=P)`` runs each hidden layer's recurrence split over the P ranks of the
 mesh's ``tp_axis`` (``ops.fused_tp``): RLIF and RadLIF through the
 tensor-parallel kernels, LIF and adLIF through the fused cell on each
-rank's block. The norm is applied to the drive and the dropout drawn from
-the run's generator, both outside the kernels, as on the scan path; the
-readout is the plain one. ``tp_batch_axis`` is kept for the JAX model
+rank's block, in the bf16-stream mode under ``compute_dtype=bfloat16``. The
+norm is applied to the drive and the dropout drawn from the run's
+generator, both outside the kernels, as on the scan path; the readout is
+the plain one. ``tp_batch_axis`` is kept for the JAX model
 records: the mesh has no data axis yet.
 """
 from __future__ import annotations
@@ -92,11 +93,6 @@ class _SpikingLayerBase(FusedCellPolicy, nn.Module):
                  tp_batch_axis: Optional[str] = "data"):
         super().__init__()
         dense_dtype = check_precision_fields(compute_dtype, mxu_precision)
-        if cell_impl == "pallas_tp" and compute_dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "cell_impl='pallas_tp' with compute_dtype=bfloat16 (the TP "
-                "kernels' mxu_bf16 form) is ROADMAP queue 2 item 11"
-            )
         self.tp_mesh = tp_mesh
         self.tp_axis = tp_axis
         self.tp_batch_axis = tp_batch_axis
@@ -172,7 +168,8 @@ class LIFLayer(_SpikingLayerBase):
         if self.cell_impl == "pallas_tp":
             mesh, axis, _ = self._tp()
             return fused_tp.lif_tp(Wx, self.alpha, self.threshold, u0, s0,
-                                   mesh=mesh, tp_axis=axis)
+                                   mesh=mesh, tp_axis=axis,
+                                   mxu_bf16=self._mxu_bf16())
         if fused:
             return fused_cells.lif_fused(
                 Wx, self.alpha, self.threshold, u0, s0, scale=scale,
@@ -192,7 +189,8 @@ class adLIFLayer(_SpikingLayerBase):
             mesh, axis, _ = self._tp()
             return fused_tp.adlif_tp(Wx, self.alpha, self.beta, self.a,
                                      self.b, self.threshold, u0, w0, s0,
-                                     mesh=mesh, tp_axis=axis)
+                                     mesh=mesh, tp_axis=axis,
+                                     mxu_bf16=self._mxu_bf16())
         if fused:
             return fused_cells.adlif_fused(
                 Wx, self.alpha, self.beta, self.a, self.b, self.threshold,
@@ -213,7 +211,8 @@ class RLIFLayer(_SpikingLayerBase):
         if self.cell_impl == "pallas_tp":
             mesh, axis, _ = self._tp()
             return fused_tp.rlif_tp(Wx, self.alpha, self.V, self.threshold,
-                                    u0, s0, mesh=mesh, tp_axis=axis)
+                                    u0, s0, mesh=mesh, tp_axis=axis,
+                                    mxu_bf16=self._mxu_bf16())
         if fused:
             return fused_cells.rlif_fused(
                 Wx, self.alpha, self.V, self.threshold, u0, s0, scale=scale,
@@ -235,7 +234,8 @@ class RadLIFLayer(_SpikingLayerBase):
             mesh, axis, _ = self._tp()
             return fused_tp.radlif_tp(Wx, self.alpha, self.beta, self.a,
                                       self.b, self.V, self.threshold, u0, w0,
-                                      s0, mesh=mesh, tp_axis=axis)
+                                      s0, mesh=mesh, tp_axis=axis,
+                                      mxu_bf16=self._mxu_bf16())
         if fused:
             return fused_cells.radlif_fused(
                 Wx, self.alpha, self.beta, self.a, self.b, self.V,

@@ -31,8 +31,18 @@ Dispatch is ``ops.fused_cells``': a CPU tensor runs the plain versions
 ``tp_cell_bwd_plain``), loops over T and over the P blocks in the kernels'
 rounding order; a CUDA tensor launches the kernels or raises. Normalisation
 and dropout stay outside these cells (the layer applies them), as in the JAX
-package. Widths as the JAX kernels take them: H divisible by P*128, B by 8;
-float32 only (the ``mxu_bf16`` form is not ported yet).
+package. Widths as the JAX kernels take them: H divisible by P*128, B by 8.
+
+The bf16-stream mode (``mxu_bf16=True``, the JAX kernels' mode of that name)
+rounds where ``ops.fused_cells``' bf16 mode rounds, and the JAX TP kernels
+with it: V is rounded to bf16 once, the spikes, the cotangent and ``dWx``
+are bf16 streams, ``Wx`` keeps the type it arrives in (float32, or bf16) and
+is promoted on load, the gathered s0 is rounded for the first product only,
+and the exchanged adjoint D is rounded to bf16 (the bf16 wire), so both the
+recurrent product and ``dV`` see the rounded value; the membrane series, the
+state, the adjoints and every reduced gradient stay float32. The spike
+exchange moves bit words in either mode. The kernels' launches are counted
+apart (``tp_cell_fwd_bf16``, ``tp_cell_bwd_bf16``).
 """
 from __future__ import annotations
 
@@ -44,6 +54,13 @@ from torch.autograd.function import once_differentiable
 
 from sparch_tpu_torch._build import Kernel
 from sparch_tpu_torch.ops import fused_cells
+from sparch_tpu_torch.ops.fused_cells import (
+    _BF16,
+    _rb,
+    _stream_dtype,
+    _work_dtype,
+    _wx_dtypes,
+)
 
 __all__ = [
     "KERNELS",
@@ -76,11 +93,18 @@ TP_ALL_GATHER = Kernel("tp_collectives", "sparch_tp_all_gather",
                        _COLLECTIVE_ARGS, name="tp_all_gather")
 TP_REDUCE_SCATTER = Kernel("tp_collectives", "sparch_tp_reduce_scatter",
                            _COLLECTIVE_ARGS, name="tp_reduce_scatter")
-TP_CELL_FWD = Kernel("tp_cell_fwd", "sparch_tp_cell_fwd",
-                     [_P] * 13 + [_I] * 7 + [_F, _I] + [_P, _P])
-TP_CELL_BWD = Kernel("tp_cell_bwd", "sparch_tp_cell_bwd",
-                     [_P] * 20 + [_I] * 7 + [_F, _I, _I] + [_P, _P])
-KERNELS = (TP_ALL_GATHER, TP_REDUCE_SCATTER, TP_CELL_FWD, TP_CELL_BWD)
+# one C entry point per direction serves both stream modes; the modes are
+# counted apart
+_FWD_ARGS = [_P] * 13 + [_I] * 7 + [_F] + [_I] * 3 + [_P, _P]
+_BWD_ARGS = [_P] * 20 + [_I] * 7 + [_F] + [_I] * 3 + [_P, _P]
+TP_CELL_FWD = Kernel("tp_cell_fwd", "sparch_tp_cell_fwd", _FWD_ARGS)
+TP_CELL_BWD = Kernel("tp_cell_bwd", "sparch_tp_cell_bwd", _BWD_ARGS)
+TP_CELL_FWD_BF16 = Kernel("tp_cell_fwd", "sparch_tp_cell_fwd", _FWD_ARGS,
+                          name="tp_cell_fwd_bf16")
+TP_CELL_BWD_BF16 = Kernel("tp_cell_bwd", "sparch_tp_cell_bwd", _BWD_ARGS,
+                          name="tp_cell_bwd_bf16")
+KERNELS = (TP_ALL_GATHER, TP_REDUCE_SCATTER, TP_CELL_FWD, TP_CELL_BWD,
+           TP_CELL_FWD_BF16, TP_CELL_BWD_BF16)
 
 _PLANS: Dict[str, Tuple[int, ...]] = {}
 
@@ -182,7 +206,8 @@ def _launch(kernel: Kernel, dev, *args, n_plan: int):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         kernel(*args, ctypes.cast(plan, ctypes.c_void_p), stream)
-    _PLANS[kernel.name] = tuple(plan)
+    # both stream modes of a kernel under one name
+    _PLANS[kernel.name.removesuffix("_bf16")] = tuple(plan)
 
 
 def _tp_all_gather_cuda(x, *, num_devices: int, rounds: int = 3):
@@ -233,37 +258,46 @@ def tp_reduce_scatter(parts, *, num_devices: int, rounds: int = 3):
 # ---------------------------------------------------------------------------
 
 
-def _first_product(s0, Vcol):
-    """Rank's columns of ``s0 @ V``, summed over k ascending, product then
-    sum, as the kernel takes it (``fused_cells._first_product`` on a column
-    block)."""
-    sV = s0.new_zeros((s0.shape[0], Vcol.shape[1]))
-    for k in range(Vcol.shape[0]):
-        sV = sV + s0[:, k:k + 1] * Vcol[k]
-    return sV
+def _rank_columns(x_full, M, sl):
+    """Each rank's columns of ``x_full @ M``: the kernels sum all rows of
+    a rank's column block in one ascending order whatever P is, so the
+    plain versions take the whole product once and cut it into blocks."""
+    full = torch.matmul(x_full, M)
+    return [full[:, c] for c in sl]
 
 
 def tp_cell_plain(Wx, alpha, beta, a, b, V, threshold, u0, w0, s0, *,
                   num_devices: int, adaptive: bool,
-                  save_residuals: bool = False):
+                  save_residuals: bool = False, mxu_bf16: bool = False):
     """Plain version of ``csrc/tp_cell_fwd.cu``: the TPU ``_tp_fwd_kernel``'s
     per-step arithmetic as a loop over T and over the P blocks. Params must
     already be clamped and V zero-diagonal. Each rank's first product is
     its columns of ``s0 @ V`` summed over k ascending (s0 need not be 0/1);
     every later product ``s_full @ V[:, shard]`` has 0/1 spikes on the left.
     Returns the spikes (B, T, H), and with ``save_residuals`` also the
-    membrane series."""
+    membrane series.
+
+    ``mxu_bf16``: the spikes come back bf16, V is rounded to bf16, ``Wx``
+    (float32 or bf16) is promoted on load and the gathered s0 is rounded
+    for the first product only; the membrane series and the state stay
+    float32."""
     T = Wx.shape[1]
+    work = _work_dtype(Wx)
     sl = _shards(Wx.shape[2], num_devices)
+    if mxu_bf16:
+        V = _rb(V)
     u = [u0[:, c] for c in sl]
     s = [s0[:, c] for c in sl]
     w = [w0[:, c] for c in sl] if adaptive else None
-    sV = [_first_product(s0, V[:, c]) for c in sl]
-    out = torch.empty_like(Wx)
-    u_seq = torch.empty_like(Wx) if save_residuals else None
+    first = fused_cells._first_product(_rb(s0) if mxu_bf16 else s0, V)
+    sV = [first[:, c] for c in sl]
+    out = torch.empty(Wx.shape, dtype=_stream_dtype(mxu_bf16, Wx),
+                      device=Wx.device)
+    u_seq = torch.empty(Wx.shape, dtype=work, device=Wx.device) \
+        if save_residuals else None
     for t in range(T):
         for r, c in enumerate(sl):
-            drive = Wx[:, t, c] + sV[r]
+            drive = Wx[:, t, c].to(work) + sV[r]
             if adaptive:
                 w[r] = beta[c] * w[r] + a[c] * u[r] + b[c] * s[r]
                 drive = drive - w[r]
@@ -273,13 +307,13 @@ def tp_cell_plain(Wx, alpha, beta, a, b, V, threshold, u0, w0, s0, *,
             if save_residuals:
                 u_seq[:, t, c] = u[r]
         if t + 1 < T:  # the gather of the last step feeds nothing
-            s_full = torch.cat(s, dim=1)
-            sV = [torch.matmul(s_full, V[:, c]) for c in sl]
+            sV = _rank_columns(torch.cat(s, dim=1), V, sl)
     return (out, u_seq) if save_residuals else out
 
 
 def tp_cell_bwd_plain(g, u_seq, alpha, beta, a, b, V, threshold, u0, w0, s0,
-                      *, num_devices: int, adaptive: bool):
+                      *, num_devices: int, adaptive: bool,
+                      mxu_bf16: bool = False):
     """Plain version of ``csrc/tp_cell_bwd.cu``: the TPU ``_tp_bwd_kernel``'s
     adjoint recurrence as a loop over reversed T and over the P blocks. Per
     step each rank computes D = (1-alpha)*A on its block, the blocks are
@@ -287,13 +321,24 @@ def tp_cell_bwd_plain(g, u_seq, alpha, beta, a, b, V, threshold, u0, w0, s0,
     is ``D_full @ V[shard_r, :]^T``; dbeta without the w series and dV
     after the loop, as ``fused_cells.fused_cell_bwd_plain`` takes them.
     Returns (dWx, dV, dalpha, dbeta, da, db, du0, dw0, ds0), None where
-    RLIF has no such operand."""
+    RLIF has no such operand.
+
+    ``mxu_bf16``: ``g`` arrives bf16 and is read up to float32, V is
+    rounded to bf16, and D is rounded to bf16 where it is gathered (the
+    bf16 wire): ``dWx`` is that value as a bf16 stream, and both the
+    recurrent product and ``dV`` (whose other operand, ``s_{t-1}``, is
+    rounded too: ``s0`` need not be 0/1) take it; B_t, the adjoints and
+    every reduced gradient take the float32 D."""
     T = g.shape[1]
+    work = _work_dtype(u_seq)
     sl = _shards(g.shape[2], num_devices)
+    if mxu_bf16:
+        V = _rb(V)
     zero = [torch.zeros_like(u0[:, c]) for c in sl]
     A, Bw, Pq, R = list(zero), list(zero), list(zero), list(zero)
     dal, dbe, daa, dbb = list(zero), list(zero), list(zero), list(zero)
-    dWx = torch.empty_like(u_seq)
+    dWx = torch.empty(g.shape, dtype=_stream_dtype(mxu_bf16, u_seq),
+                      device=g.device)
     for t in range(T - 1, -1, -1):
         dd = []
         for r, c in enumerate(sl):
@@ -302,7 +347,7 @@ def tp_cell_bwd_plain(g, u_seq, alpha, beta, a, b, V, threshold, u0, w0, s0,
             u_p = u_seq[:, t - 1, c] if t > 0 else u0[:, c]
             s_p = (u_p > threshold).to(u_p.dtype) if t > 0 else s0[:, c]
             alphaA = al * A[r]
-            C = g[:, t, c].to(u_t.dtype) - alphaA + R[r]
+            C = g[:, t, c].to(work) - alphaA + R[r]
             if adaptive:
                 C = C + b[c] * Bw[r]
             wsub = u_t - threshold
@@ -311,7 +356,6 @@ def tp_cell_bwd_plain(g, u_seq, alpha, beta, a, b, V, threshold, u0, w0, s0,
             if adaptive:
                 A_new = A_new + a[c] * Bw[r]
             d = (1.0 - al) * A_new
-            dWx[:, t, c] = d
             dal[r] = dal[r] + A_new * (u_p - s_p - u_t)
             if adaptive:
                 B_new = beta[c] * Bw[r] - d
@@ -322,8 +366,12 @@ def tp_cell_bwd_plain(g, u_seq, alpha, beta, a, b, V, threshold, u0, w0, s0,
                 Bw[r] = B_new
             A[r] = A_new
             dd.append(d)
+        # the gathered D, as the wire carries it
         D_full = torch.cat(dd, dim=1)
-        R = [torch.matmul(D_full, V[c, :].t()) for c in sl]
+        if mxu_bf16:
+            D_full = _rb(D_full)
+        dWx[:, t] = D_full
+        R = _rank_columns(D_full, V.t(), sl)
 
     def cat(xs):
         return torch.cat(xs, dim=-1)
@@ -341,9 +389,9 @@ def tp_cell_bwd_plain(g, u_seq, alpha, beta, a, b, V, threshold, u0, w0, s0,
         da = cat([x.sum(0) for x in daa])
         db = cat([x.sum(0) for x in dbb])
     H = g.shape[2]
-    s_prev = torch.cat([s0[:, None], (u_seq[:, :-1] > threshold).to(
-        u_seq.dtype)], dim=1)
-    dV = torch.matmul(s_prev.reshape(-1, H).t(), dWx.reshape(-1, H))
+    s_prev = torch.cat([(_rb(s0) if mxu_bf16 else s0)[:, None],
+                        (u_seq[:, :-1] > threshold).to(work)], dim=1)
+    dV = torch.matmul(s_prev.reshape(-1, H).t(), dWx.reshape(-1, H).to(work))
     return dWx, dV, dalpha, dbeta, da, db, du0, dw0, ds0
 
 
@@ -371,37 +419,46 @@ def _check_cell(Wx, alpha, beta, a, b, V, u0, w0, s0, adaptive, P):
 
 def _tp_cell_cuda(Wx, alpha, beta, a, b, V, threshold, u0, w0, s0, *,
                   num_devices: int, adaptive: bool,
-                  save_residuals: bool = False):
-    """Launch ``csrc/tp_cell_fwd.cu`` over all P ranks (the one-card form).
-    Same contract as ``tp_cell_plain``."""
+                  save_residuals: bool = False, mxu_bf16: bool = False):
+    """Launch ``csrc/tp_cell_fwd.cu`` over all P ranks (the one-card form)
+    in the float32 or the bf16 stream mode. Same contract as
+    ``tp_cell_plain``."""
     B, T, H = Wx.shape
     P, dev = num_devices, Wx.device
-    fused_cells._check("Wx", Wx, (B, T, H), dev)
+    fused_cells._check("Wx", Wx, (B, T, H), dev, _wx_dtypes(mxu_bf16))
     _check_cell(Wx, alpha, beta, a, b, V, u0, w0, s0, adaptive, P)
-    out = torch.empty_like(Wx)
-    u_seq = torch.empty_like(Wx) if save_residuals else None
+    out = torch.empty(Wx.shape, dtype=_stream_dtype(mxu_bf16, Wx),
+                      device=dev)
+    u_seq = torch.empty(Wx.shape, dtype=torch.float32, device=dev) \
+        if save_residuals else None
     if not adaptive:
         beta = a = b = w0 = None
+    if mxu_bf16:
+        V = V.to(_BF16)  # rounded once, as the JAX wrapper does
     ptr = fused_cells._ptr
     bufs = _exchange_buffers((2, B, H // 32), torch.int32, P, B, dev)
-    _launch(TP_CELL_FWD, dev, ptr(Wx), ptr(alpha), ptr(beta), ptr(a), ptr(b),
-            ptr(V), ptr(u0), ptr(w0), ptr(s0), ptr(out), ptr(u_seq),
-            bufs[2], bufs[3], B, T, H, P, 0, P, H, float(threshold),
-            int(adaptive), n_plan=4)
+    _launch(TP_CELL_FWD_BF16 if mxu_bf16 else TP_CELL_FWD, dev, ptr(Wx),
+            ptr(alpha), ptr(beta), ptr(a), ptr(b), ptr(V), ptr(u0), ptr(w0),
+            ptr(s0), ptr(out), ptr(u_seq), bufs[2], bufs[3], B, T, H, P, 0,
+            P, H, float(threshold), int(adaptive), int(mxu_bf16),
+            int(Wx.dtype == _BF16), n_plan=4)
     return (out, u_seq) if save_residuals else out
 
 
 def _tp_cell_bwd_cuda(g, u_seq, alpha, beta, a, b, V, threshold, u0, w0, s0,
-                      *, num_devices: int, adaptive: bool):
-    """Launch ``csrc/tp_cell_bwd.cu`` over all P ranks (the one-card form).
-    Same contract as ``tp_cell_bwd_plain``."""
+                      *, num_devices: int, adaptive: bool,
+                      mxu_bf16: bool = False):
+    """Launch ``csrc/tp_cell_bwd.cu`` over all P ranks (the one-card form)
+    in the float32 or the bf16 stream mode. Same contract as
+    ``tp_cell_bwd_plain``."""
     B, T, H = g.shape
     P, dev = num_devices, g.device
-    fused_cells._check("g", g, (B, T, H), dev)
+    sdt = _BF16 if mxu_bf16 else torch.float32
+    fused_cells._check("g", g, (B, T, H), dev, sdt)
     fused_cells._check("u_seq", u_seq, (B, T, H), dev)
     _check_cell(g, alpha, beta, a, b, V, u0, w0, s0, adaptive, P)
     # one V^T for all ranks: rank r's V[shard_r, :]^T is its column block
-    VT = V.t().contiguous()
+    VT = V.t().to(sdt).contiguous()
     ksplit = fused_cells._bwd_plan(B, T, H)[2]
 
     def new(*shape):
@@ -416,12 +473,13 @@ def _tp_cell_bwd_cuda(g, u_seq, alpha, beta, a, b, V, threshold, u0, w0, s0,
     if not adaptive:
         beta = a = b = w0 = None
     ptr = fused_cells._ptr
-    bufs = _exchange_buffers((2, B, H), torch.float32, P, B, dev)
-    _launch(TP_CELL_BWD, dev, ptr(g), ptr(u_seq), ptr(alpha), ptr(beta),
-            ptr(a), ptr(b), ptr(VT), ptr(u0), ptr(w0), ptr(s0), ptr(dWx),
-            ptr(partials), ptr(vecs), ptr(dV), ptr(dv_partials), ptr(du0),
-            ptr(dw0), ptr(ds0), bufs[2], bufs[3], B, T, H, P, 0, P, H,
-            float(threshold), int(adaptive), ksplit, n_plan=4)
+    bufs = _exchange_buffers((2, B, H), sdt, P, B, dev)
+    _launch(TP_CELL_BWD_BF16 if mxu_bf16 else TP_CELL_BWD, dev, ptr(g),
+            ptr(u_seq), ptr(alpha), ptr(beta), ptr(a), ptr(b), ptr(VT),
+            ptr(u0), ptr(w0), ptr(s0), ptr(dWx), ptr(partials), ptr(vecs),
+            ptr(dV), ptr(dv_partials), ptr(du0), ptr(dw0), ptr(ds0), bufs[2],
+            bufs[3], B, T, H, P, 0, P, H, float(threshold), int(adaptive),
+            ksplit, int(mxu_bf16), n_plan=4)
     dalpha, dbeta, da, db = vecs.unbind(0)
     if not adaptive:
         dbeta = da = db = None
@@ -434,15 +492,17 @@ class _TPCell(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, Wx, alpha, beta, a, b, V, u0, w0, s0, threshold,
-                adaptive, num_devices):
+                adaptive, num_devices, mxu_bf16):
         fwd = fused_cells._by_device(Wx, tp_cell_plain, _tp_cell_cuda,
                                      "TP cell")
-        flags = dict(num_devices=num_devices, adaptive=adaptive)
+        flags = dict(num_devices=num_devices, adaptive=adaptive,
+                     mxu_bf16=mxu_bf16)
         args = (Wx, alpha, beta, a, b, V, threshold, u0, w0, s0)
         if not any(ctx.needs_input_grad):
             return fwd(*args, **flags)
         out, u_seq = fwd(*args, save_residuals=True, **flags)
         ctx.flags = dict(flags, threshold=threshold)
+        ctx.wx_dtype = Wx.dtype
         ctx.save_for_backward(u_seq, alpha, beta, a, b, V, u0, w0, s0)
         return out
 
@@ -458,8 +518,9 @@ class _TPCell(torch.autograd.Function):
         (dWx, dV, dalpha, dbeta, da, db, du0, dw0,
          ds0) = bwd(g.contiguous(), u_seq, alpha, beta, a, b, V, threshold,
                     u0, w0, s0, **flags)
-        return (dWx, dalpha, dbeta, da, db, dV, du0, dw0, ds0, None, None,
-                None)
+        # the bf16 mode's dWx stream goes back up where Wx arrived float32
+        return (dWx.to(ctx.wx_dtype), dalpha, dbeta, da, db, dV, du0, dw0,
+                ds0, None, None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -500,36 +561,36 @@ def _prepare(Wx, alpha, beta, a, b, V, u0, w0, s0, mesh, tp_axis):
     P = _tp_size(mesh, tp_axis, Wx)
     B, _, H = Wx.shape
     _validate(B, H, P)
-    if Wx.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "the TP cells' bf16-stream form is ROADMAP queue 2 item 11")
-    # the state in the stream's type, whatever type it was drawn in
-    u0, s0 = u0.to(Wx.dtype), s0.to(Wx.dtype)
+    # the state is float32 (float64 with a float64 stream), whatever type it
+    # was drawn in
+    work = _work_dtype(Wx)
+    u0, s0 = u0.to(work), s0.to(work)
     if w0 is not None:
-        w0 = w0.to(Wx.dtype)
+        w0 = w0.to(work)
     alpha, beta, a, b, _ = fused_cells.clip_and_mask(alpha, beta, a, b)
     V = torch.cat([zero_diag_shard(V[:, c], r)
                    for r, c in enumerate(_shards(H, P))], dim=1)
     return P, (alpha, beta, a, b, V, u0, w0, s0)
 
 
-def rlif_tp(Wx, alpha, V, threshold, u0, s0, *, mesh, tp_axis="model"):
+def rlif_tp(Wx, alpha, V, threshold, u0, s0, *, mesh, tp_axis="model",
+            mxu_bf16: bool = False):
     """Tensor-parallel fused RLIF over the mesh's TP axis (JAX
     ``rlif_tp_sharded``; semantics ``cells.rlif_scan``)."""
     P, (alpha, _, _, _, V, u0, _, s0) = _prepare(
         Wx, alpha, None, None, None, V, u0, None, s0, mesh, tp_axis)
     return _TPCell.apply(Wx, alpha, None, None, None, V, u0, None, s0,
-                         float(threshold), False, P)
+                         float(threshold), False, P, bool(mxu_bf16))
 
 
 def radlif_tp(Wx, alpha, beta, a, b, V, threshold, u0, w0, s0, *, mesh,
-              tp_axis="model"):
+              tp_axis="model", mxu_bf16: bool = False):
     """Tensor-parallel fused RadLIF over the mesh's TP axis (JAX
     ``radlif_tp_sharded``; semantics ``cells.radlif_scan``)."""
     P, (alpha, beta, a, b, V, u0, w0, s0) = _prepare(
         Wx, alpha, beta, a, b, V, u0, w0, s0, mesh, tp_axis)
     return _TPCell.apply(Wx, alpha, beta, a, b, V, u0, w0, s0,
-                         float(threshold), True, P)
+                         float(threshold), True, P, bool(mxu_bf16))
 
 
 def _per_block(fn, Wx, mesh, tp_axis, vecs, states):
@@ -544,18 +605,21 @@ def _per_block(fn, Wx, mesh, tp_axis, vecs, states):
         for c in _shards(H, P)], dim=-1)
 
 
-def lif_tp(Wx, alpha, threshold, u0, s0, *, mesh, tp_axis="model"):
+def lif_tp(Wx, alpha, threshold, u0, s0, *, mesh, tp_axis="model",
+           mxu_bf16: bool = False):
     """Neuron-sharded LIF (JAX ``lif_tp_sharded``): no recurrence, so no
-    exchange; the single-card fused cell runs on each block."""
+    exchange; the single-card fused cell runs on each block, in the stream
+    mode ``mxu_bf16`` selects."""
     return _per_block(
-        lambda x, al, u, s: fused_cells.lif_fused(x, al, threshold, u, s),
+        lambda x, al, u, s: fused_cells.lif_fused(x, al, threshold, u, s,
+                                                  mxu_bf16=mxu_bf16),
         Wx, mesh, tp_axis, (alpha,), (u0, s0))
 
 
 def adlif_tp(Wx, alpha, beta, a, b, threshold, u0, w0, s0, *, mesh,
-             tp_axis="model"):
+             tp_axis="model", mxu_bf16: bool = False):
     """Neuron-sharded adLIF (JAX ``adlif_tp_sharded``)."""
     return _per_block(
         lambda x, al, be, aa, bb, u, w, s: fused_cells.adlif_fused(
-            x, al, be, aa, bb, threshold, u, w, s),
+            x, al, be, aa, bb, threshold, u, w, s, mxu_bf16=mxu_bf16),
         Wx, mesh, tp_axis, (alpha, beta, a, b), (u0, w0, s0))

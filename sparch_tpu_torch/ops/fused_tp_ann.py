@@ -46,9 +46,19 @@ Dispatch is ``ops.fused_cells``': a CPU tensor runs the plain versions
 P blocks in the kernels' order; a CUDA tensor launches the kernels or
 raises. Normalisation and dropout stay outside (the layer applies them), as
 in the JAX package. Widths as the JAX kernels take them: H divisible by
-P*128, B by 8; float32 only (the ``mxu_bf16`` form is ROADMAP queue 2 item
-11); the kernels take H/P <= 2048 and H up to the shared memory of a block
-(``_check_width``).
+P*128, B by 8; the kernels take H/P <= 2048 and H up to the shared memory of
+a block (``_check_width``).
+
+The bf16-stream mode (``mxu_bf16=True``, the JAX kernels' mode of that name)
+rounds where ``ops.fused_ann``'s bf16 mode rounds, and the JAX TP kernels
+with it: the recurrent matrices are rounded to bf16 once, the exchanged
+values are bf16 (the wire), so the gathered y, r*y and dpre that enter the
+products are rounded, and so is the gathered y0 of the first products; the
+output, the gate series, the cotangent and each ``dWx`` are bf16 streams
+(``dWx`` is the exchanged dpre), each ``Wx`` keeps the type it arrives in
+(float32 or bf16), ``dV``'s left operand is rounded too, and the carried
+``y``, the adjoint and ``dV`` stay float32. The kernels' launches are
+counted apart (``tp_ann_fwd_bf16``, ``tp_ann_bwd_bf16``).
 """
 from __future__ import annotations
 
@@ -59,13 +69,23 @@ from torch.autograd.function import once_differentiable
 
 from sparch_tpu_torch._build import Kernel
 from sparch_tpu_torch.ops import fused_ann, fused_cells, fused_tp
-from sparch_tpu_torch.ops.fused_cells import _BF16, _check, _ptr, _work_dtype
-from sparch_tpu_torch.ops.fused_tp import _shards
+from sparch_tpu_torch.ops.fused_cells import (
+    _BF16,
+    _check,
+    _ptr,
+    _rb,
+    _stream_dtype,
+    _work_dtype,
+    _wx_dtypes,
+)
+from sparch_tpu_torch.ops.fused_tp import _rank_columns, _shards
 
 __all__ = [
     "KERNELS",
     "TP_ANN_FWD",
     "TP_ANN_BWD",
+    "TP_ANN_FWD_BF16",
+    "TP_ANN_BWD_BF16",
     "tp_ann_cell_plain",
     "tp_ann_cell_bwd_plain",
     "rnn_tp",
@@ -84,11 +104,17 @@ _MODES = {
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-TP_ANN_FWD = Kernel("tp_ann_fwd", "sparch_tp_ann_fwd",
-                    [_P] * 11 + [_I] * 8 + [_P, _P])
-TP_ANN_BWD = Kernel("tp_ann_bwd", "sparch_tp_ann_bwd",
-                    [_P] * 15 + [_I] * 9 + [_P, _P])
-KERNELS = (TP_ANN_FWD, TP_ANN_BWD)
+# one C entry point per direction serves both stream modes; the modes are
+# counted apart
+_FWD_ARGS = [_P] * 11 + [_I] * 10 + [_P, _P]
+_BWD_ARGS = [_P] * 15 + [_I] * 10 + [_P, _P]
+TP_ANN_FWD = Kernel("tp_ann_fwd", "sparch_tp_ann_fwd", _FWD_ARGS)
+TP_ANN_BWD = Kernel("tp_ann_bwd", "sparch_tp_ann_bwd", _BWD_ARGS)
+TP_ANN_FWD_BF16 = Kernel("tp_ann_fwd", "sparch_tp_ann_fwd", _FWD_ARGS,
+                         name="tp_ann_fwd_bf16")
+TP_ANN_BWD_BF16 = Kernel("tp_ann_bwd", "sparch_tp_ann_bwd", _BWD_ARGS,
+                         name="tp_ann_bwd_bf16")
+KERNELS = (TP_ANN_FWD, TP_ANN_BWD, TP_ANN_FWD_BF16, TP_ANN_BWD_BF16)
 
 # csrc/tp_ann.cuh: the widest block a rank takes, the ranks of a launch, and
 # the shared memory of a block (at one row per block: the gathered planes,
@@ -123,57 +149,71 @@ def _check_width(mode: str, H: int, P: int) -> None:
 
 
 def tp_ann_cell_plain(mode: str, wxs, vs, y0, *, num_devices: int,
-                      save_residuals: bool = False):
+                      save_residuals: bool = False, mxu_bf16: bool = False):
     """Plain version of ``csrc/tp_ann_fwd.cu``: the TPU ``_tp_ann_fwd_kernel``'s
     per-step arithmetic as a loop over T and over the P column blocks.
     ``wxs``/``vs`` are lists by gate; each rank's products take the gathered
     state (the GRU's candidate the gathered r*y). Returns the output
     (B, T, H), and with ``save_residuals`` ``(out, gates)``: the gate series
-    the backward reads (LiGRU z, c; GRU z, r, c)."""
+    the backward reads (LiGRU z, c; GRU z, r, c).
+
+    ``mxu_bf16``: the output and the gate series come back bf16, the
+    matrices are rounded to bf16, each ``wx`` (float32 or bf16) is promoted
+    on load, and every gathered left operand (y0, y, r*y) is rounded to
+    bf16, as the bf16 wire carries it; the carried ``y`` stays float32."""
     B, T, H = wxs[0].shape
     sl = _shards(H, num_devices)
     # float64 matrices (the witness of a whole model) lift the arithmetic
     work = torch.promote_types(_work_dtype(wxs[0]), vs[0].dtype)
-    vs = [v.to(work) for v in vs]
-    y_full = y0.to(work)
-    y = [y_full[:, c] for c in sl]
-    out = torch.empty((B, T, H), dtype=work, device=wxs[0].device)
+    vs = [(_rb(v) if mxu_bf16 else v).to(work) for v in vs]
+
+    def gather(blocks):
+        """The rank blocks side by side, as the wire carries them."""
+        full = torch.cat(blocks, dim=1)
+        return _rb(full) if mxu_bf16 else full
+
+    y = [y0.to(work)[:, c] for c in sl]
+    y_full = gather(y)
+    out = torch.empty((B, T, H), dtype=_stream_dtype(mxu_bf16, wxs[0]),
+                      device=wxs[0].device)
     gates = tuple(torch.empty_like(out) for _ in _MODES[mode]["gates"]) \
         if save_residuals else ()
     for t in range(T):
         d = [w[:, t].to(work) for w in wxs]
         if mode == "gru":
-            z = [torch.sigmoid(d[1][:, c] + torch.matmul(y_full, vs[1][:, c]))
-                 for c in sl]
-            r = [torch.sigmoid(d[2][:, c] + torch.matmul(y_full, vs[2][:, c]))
-                 for c in sl]
-            ry_full = torch.cat([rk * yk for rk, yk in zip(r, y)], dim=1)
+            zv = _rank_columns(y_full, vs[1], sl)
+            rv = _rank_columns(y_full, vs[2], sl)
+            z = [torch.sigmoid(d[1][:, c] + zv[k]) for k, c in enumerate(sl)]
+            r = [torch.sigmoid(d[2][:, c] + rv[k]) for k, c in enumerate(sl)]
+            cv = _rank_columns(gather([rk * yk for rk, yk in zip(r, y)]),
+                               vs[0], sl)
+        else:
+            cv = _rank_columns(y_full, vs[0], sl)
+            if mode == "ligru":
+                zv = _rank_columns(y_full, vs[1], sl)
         for k, c in enumerate(sl):
             if mode == "rnn":
-                y[k] = torch.sigmoid(
-                    d[0][:, c] + torch.matmul(y_full, vs[0][:, c]))
+                y[k] = torch.sigmoid(d[0][:, c] + cv[k])
                 vals = ()
             elif mode == "ligru":
-                zk = torch.sigmoid(
-                    d[1][:, c] + torch.matmul(y_full, vs[1][:, c]))
-                ck = torch.relu(d[0][:, c] + torch.matmul(y_full, vs[0][:, c]))
+                zk = torch.sigmoid(d[1][:, c] + zv[k])
+                ck = torch.relu(d[0][:, c] + cv[k])
                 y[k] = zk * y[k] + (1.0 - zk) * ck
                 vals = (zk, ck)
             else:
-                ck = torch.tanh(
-                    d[0][:, c] + torch.matmul(ry_full, vs[0][:, c]))
+                ck = torch.tanh(d[0][:, c] + cv[k])
                 y[k] = z[k] * y[k] + (1.0 - z[k]) * ck
                 vals = (z[k], r[k], ck)
             out[:, t, c] = y[k]
             for series, val in zip(gates, vals):
                 series[:, t, c] = val
         if t + 1 < T:  # the gather of the last step feeds nothing
-            y_full = torch.cat(y, dim=1)
+            y_full = gather(y)
     return (out, gates) if save_residuals else out
 
 
 def tp_ann_cell_bwd_plain(mode: str, g, y_seq, gates, vs, y0, *,
-                          num_devices: int):
+                          num_devices: int, mxu_bf16: bool = False):
     """Plain version of ``csrc/tp_ann_bwd.cu``: the TPU
     ``_tp_ann_bwd_kernel``'s adjoint recurrence as a loop over reversed T and
     over the P blocks (the equations of ``fused_ann.ann_cell_bwd_plain``, no
@@ -181,20 +221,31 @@ def tp_ann_cell_bwd_plain(mode: str, g, y_seq, gates, vs, y0, *,
     blocks are gathered, and rank r's products are its columns of
     ``x_full @ V^T`` (``x_full @ V[shard_r, :]^T``); the GRU's dry feeds
     drpre before the second gather. dV after the loop, over the stored
-    series. Returns ``(dwxs, dvs, dy0)``, lists by gate."""
+    series. Returns ``(dwxs, dvs, dy0)``, lists by gate.
+
+    ``mxu_bf16``: ``g`` and the series arrive bf16 and are read up to
+    float32, the matrices are rounded to bf16, each gathered dpre is rounded
+    to bf16 (the wire): the products take it, and ``dWx`` is it as a bf16
+    stream, which ``dV`` takes with its left operand (``y0``, ``r*y_p``)
+    rounded too; the adjoint, ``dV`` and ``dy0`` stay float32."""
     B, T, H = g.shape
     n = _MODES[mode]["n_wx"]
     sl = _shards(H, num_devices)
     work = torch.promote_types(_work_dtype(y0), vs[0].dtype)
-    vs = [v.to(work) for v in vs]
+    vs = [(_rb(v) if mxu_bf16 else v).to(work) for v in vs]
     y0 = y0.to(work)
     D = [torch.zeros_like(y0[:, c]) for c in sl]
-    dwxs = [torch.empty((B, T, H), dtype=work, device=g.device)
-            for _ in range(n)]
+    # dpre as the wire carries it, the right operand of dV
+    dpres = [torch.empty((B, T, H), dtype=work, device=g.device)
+             for _ in range(n)]
 
-    def rows_t(x_full, i, c):
-        """The rank's columns of ``x_full @ vs[i]^T``."""
-        return torch.matmul(x_full, vs[i][c, :].t())
+    def gather(blocks):
+        full = torch.cat(blocks, dim=1)
+        return _rb(full) if mxu_bf16 else full
+
+    def rows_t(x_full, i):
+        """Each rank's columns of ``x_full @ vs[i]^T``."""
+        return _rank_columns(x_full, vs[i].t(), sl)
 
     for t in range(T - 1, -1, -1):
         y_p = y_seq[:, t - 1].to(work) if t > 0 else y0
@@ -203,9 +254,8 @@ def tp_ann_cell_bwd_plain(mode: str, g, y_seq, gates, vs, y0, *,
             y_t = y_seq[:, t].to(work)
             dp = [Gs[k] * y_t[:, c] * (1.0 - y_t[:, c])
                   for k, c in enumerate(sl)]
-            dp_full = torch.cat(dp, dim=1)
-            D = [rows_t(dp_full, 0, c) for c in sl]
-            step = (dp,)
+            step = (gather(dp),)
+            D = rows_t(step[0], 0)
         else:
             z, c_ = gates[0][:, t].to(work), gates[-1][:, t].to(work)
             dz = [Gs[k] * (y_p[:, c] - c_[:, c]) * z[:, c] * (1.0 - z[:, c])
@@ -214,33 +264,35 @@ def tp_ann_cell_bwd_plain(mode: str, g, y_seq, gates, vs, y0, *,
                 dc = [torch.where(c_[:, c] > 0, Gs[k] * (1.0 - z[:, c]),
                                   torch.zeros_like(Gs[k]))
                       for k, c in enumerate(sl)]
-                dc_full, dz_full = torch.cat(dc, dim=1), torch.cat(dz, dim=1)
-                D = [Gs[k] * z[:, c] + rows_t(dc_full, 0, c)
-                     + rows_t(dz_full, 1, c) for k, c in enumerate(sl)]
-                step = (dc, dz)
+                step = (gather(dc), gather(dz))
+                cterm, zterm = rows_t(step[0], 0), rows_t(step[1], 1)
+                D = [Gs[k] * z[:, c] + cterm[k] + zterm[k]
+                     for k, c in enumerate(sl)]
             else:
                 r = gates[1][:, t].to(work)
                 dc = [Gs[k] * (1.0 - z[:, c]) * (1.0 - c_[:, c] * c_[:, c])
                       for k, c in enumerate(sl)]
-                dc_full = torch.cat(dc, dim=1)
-                dry = [rows_t(dc_full, 0, c) for c in sl]
+                dc_full = gather(dc)
+                dry = rows_t(dc_full, 0)
                 dr = [dry[k] * y_p[:, c] * r[:, c] * (1.0 - r[:, c])
                       for k, c in enumerate(sl)]
-                dz_full, dr_full = torch.cat(dz, dim=1), torch.cat(dr, dim=1)
-                D = [Gs[k] * z[:, c] + dry[k] * r[:, c]
-                     + rows_t(dz_full, 1, c) + rows_t(dr_full, 2, c)
+                step = (dc_full, gather(dz), gather(dr))
+                zterm, rterm = rows_t(step[1], 1), rows_t(step[2], 2)
+                D = [Gs[k] * z[:, c] + dry[k] * r[:, c] + zterm[k] + rterm[k]
                      for k, c in enumerate(sl)]
-                step = (dc, dz, dr)
-        for i, blocks in enumerate(step):
-            dwxs[i][:, t] = torch.cat(blocks, dim=1)
+        for i, dpre in enumerate(step):
+            dpres[i][:, t] = dpre
     y_prev = torch.cat([y0[:, None], y_seq[:, :-1].to(work)], dim=1)
     dvs = []
-    for i, dpre in enumerate(dwxs):
+    for i, dpre in enumerate(dpres):
         left = gates[1].to(work) * y_prev if (mode == "gru" and i == 0) \
             else y_prev
+        if mxu_bf16:
+            left = _rb(left)
         dvs.append(torch.matmul(left.reshape(-1, H).t(),
                                 dpre.reshape(-1, H)))
-    return dwxs, dvs, torch.cat(D, dim=1)
+    sdt = _stream_dtype(mxu_bf16, y0)
+    return [d.to(sdt) for d in dpres], dvs, torch.cat(D, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +300,9 @@ def tp_ann_cell_bwd_plain(mode: str, g, y_seq, gates, vs, y0, *,
 # ---------------------------------------------------------------------------
 
 
-def _check_operands(mode, wxs, vs, y0, P):
+def _check_operands(mode, wxs, vs, y0, P, wx_dtype=torch.float32):
+    """``wx_dtype``: the type(s) the input streams may have; they must all
+    have the same one."""
     n = _MODES[mode]["n_wx"]
     B, T, H = wxs[0].shape
     dev = wxs[0].device
@@ -257,56 +311,65 @@ def _check_operands(mode, wxs, vs, y0, P):
     if len(wxs) != n or len(vs) != n:
         raise ValueError(f"{mode}: want {n} input streams and {n} matrices")
     for i, (w, v) in enumerate(zip(wxs, vs)):
-        _check(f"wx[{i}]", w, (B, T, H), dev)
+        _check(f"wx[{i}]", w, (B, T, H), dev, wx_dtype)
         _check(f"V[{i}]", v, (H, H), dev)
+    if len({w.dtype for w in wxs}) != 1:
+        raise ValueError(f"{mode}: the input streams differ in type")
     _check("y0", y0, (B, H), dev)
 
 
-def _pack(blocks_of, vs, order, P):
+def _pack(blocks_of, vs, order, P, dtype):
     """Every rank's blocks of the matrices in the order a step streams
-    them, as one contiguous (P, len(order), H, H/P) buffer:
-    ``blocks_of(V, shard)`` is the (H, H/P) block a rank reads."""
+    them, as one contiguous (P, len(order), H, H/P) buffer of ``dtype``
+    (bf16 in the bf16 mode: rounded once here): ``blocks_of(V, shard)`` is
+    the (H, H/P) block a rank reads."""
     H = vs[0].shape[0]
     return torch.stack([torch.stack([blocks_of(vs[i], c) for i in order])
-                        for c in _shards(H, P)]).contiguous()
+                        for c in _shards(H, P)]).to(dtype).contiguous()
 
 
 def _tp_ann_cell_cuda(mode: str, wxs, vs, y0, *, num_devices: int,
-                      save_residuals: bool = False):
-    """Launch ``csrc/tp_ann_fwd.cu`` over all P ranks (the one-card form).
-    Same contract as ``tp_ann_cell_plain``."""
+                      save_residuals: bool = False, mxu_bf16: bool = False):
+    """Launch ``csrc/tp_ann_fwd.cu`` over all P ranks (the one-card form)
+    in the float32 or the bf16 stream mode. Same contract as
+    ``tp_ann_cell_plain``."""
     P = num_devices
-    _check_operands(mode, wxs, vs, y0, P)
+    _check_operands(mode, wxs, vs, y0, P, _wx_dtypes(mxu_bf16))
     B, T, H = wxs[0].shape
     dev = wxs[0].device
-    out = torch.empty_like(wxs[0])
+    sdt = _BF16 if mxu_bf16 else torch.float32
+    out = torch.empty(wxs[0].shape, dtype=sdt, device=dev)
     names = _MODES[mode]["gates"] if save_residuals else ()
     series = {k: torch.empty_like(out) for k in names}
     # V[:, shard] per rank, in the order of fused_ann_fwd.cu's stream
-    packed = _pack(lambda v, c: v[:, c], vs, fused_ann._FWD_ORDER[mode], P)
-    bufs = fused_tp._exchange_buffers((2, B, H), torch.float32, P, B, dev)
-    fused_tp._launch(TP_ANN_FWD, dev, *fused_ann._three(wxs), _ptr(packed),
-                     _ptr(y0), _ptr(out), _ptr(series.get("z")),
-                     _ptr(series.get("r")), _ptr(series.get("c")), bufs[2],
-                     bufs[3], B, T, H, P, 0, P, H, fused_ann._MODE_ID[mode],
-                     n_plan=4)
+    packed = _pack(lambda v, c: v[:, c], vs, fused_ann._FWD_ORDER[mode], P,
+                   sdt)
+    bufs = fused_tp._exchange_buffers((2, B, H), sdt, P, B, dev)
+    fused_tp._launch(TP_ANN_FWD_BF16 if mxu_bf16 else TP_ANN_FWD, dev,
+                     *fused_ann._three(wxs), _ptr(packed), _ptr(y0),
+                     _ptr(out), _ptr(series.get("z")), _ptr(series.get("r")),
+                     _ptr(series.get("c")), bufs[2], bufs[3], B, T, H, P, 0,
+                     P, H, fused_ann._MODE_ID[mode], int(mxu_bf16),
+                     int(wxs[0].dtype == _BF16), n_plan=4)
     return (out, tuple(series.values())) if save_residuals else out
 
 
 def _tp_ann_cell_bwd_cuda(mode: str, g, y_seq, gates, vs, y0, *,
-                          num_devices: int):
-    """Launch ``csrc/tp_ann_bwd.cu`` over all P ranks (the one-card form).
-    Same contract as ``tp_ann_cell_bwd_plain``."""
+                          num_devices: int, mxu_bf16: bool = False):
+    """Launch ``csrc/tp_ann_bwd.cu`` over all P ranks (the one-card form)
+    in the float32 or the bf16 stream mode. Same contract as
+    ``tp_ann_cell_bwd_plain``."""
     P = num_devices
     n = _MODES[mode]["n_wx"]
-    _check_operands(mode, [g] * n, vs, y0, P)
+    sdt = _BF16 if mxu_bf16 else torch.float32
+    _check_operands(mode, [g] * n, vs, y0, P, sdt)
     B, T, H = g.shape
     dev = g.device
-    _check("y_seq", y_seq, (B, T, H), dev)
+    _check("y_seq", y_seq, (B, T, H), dev, sdt)
     if len(gates) != len(_MODES[mode]["gates"]):
         raise ValueError(f"{mode}: want the series {_MODES[mode]['gates']}")
     for name, t in zip(_MODES[mode]["gates"], gates):
-        _check(name, t, (B, T, H), dev)
+        _check(name, t, (B, T, H), dev, sdt)
     series = dict(zip(_MODES[mode]["gates"], gates))
     ksplit = fused_ann._bwd_plan(B, T, H, n)[1]
 
@@ -317,16 +380,16 @@ def _tp_ann_cell_bwd_cuda(mode: str, g, y_seq, gates, vs, y0, *,
     dvs, dv_partials, dy0 = new(n, H, H), new(ksplit, n, H, H), new(B, H)
     # V[shard, :]^T per rank (the rank's columns of V^T), by gate
     packed = _pack(lambda v, c: v[c, :].t(), vs, fused_ann._BWD_ORDER[mode],
-                   P)
+                   P, sdt)
     width = _MODES[mode]["bwd_stack"] * H
-    bufs = fused_tp._exchange_buffers((2, B, width), torch.float32, P, B,
-                                      dev)
-    fused_tp._launch(TP_ANN_BWD, dev, _ptr(g), _ptr(y_seq),
-                     _ptr(series.get("z")), _ptr(series.get("r")),
-                     _ptr(series.get("c")), _ptr(packed), _ptr(y0),
-                     *fused_ann._three(dwxs), _ptr(dvs), _ptr(dv_partials),
-                     _ptr(dy0), bufs[2], bufs[3], B, T, H, P, 0, P, H,
-                     fused_ann._MODE_ID[mode], ksplit, n_plan=4)
+    bufs = fused_tp._exchange_buffers((2, B, width), sdt, P, B, dev)
+    fused_tp._launch(TP_ANN_BWD_BF16 if mxu_bf16 else TP_ANN_BWD, dev,
+                     _ptr(g), _ptr(y_seq), _ptr(series.get("z")),
+                     _ptr(series.get("r")), _ptr(series.get("c")),
+                     _ptr(packed), _ptr(y0), *fused_ann._three(dwxs),
+                     _ptr(dvs), _ptr(dv_partials), _ptr(dy0), bufs[2],
+                     bufs[3], B, T, H, P, 0, P, H, fused_ann._MODE_ID[mode],
+                     ksplit, int(mxu_bf16), n_plan=4)
     return dwxs, list(dvs.unbind(0)), dy0
 
 
@@ -335,16 +398,16 @@ class _TPANN(torch.autograd.Function):
     then the recurrent matrices, by gate."""
 
     @staticmethod
-    def forward(ctx, mode, num_devices, y0, *ops):
+    def forward(ctx, mode, num_devices, mxu_bf16, y0, *ops):
         n = _MODES[mode]["n_wx"]
         wxs, vs = list(ops[:n]), list(ops[n:])
         fwd = fused_cells._by_device(wxs[0], tp_ann_cell_plain,
                                      _tp_ann_cell_cuda, "TP ANN cell")
+        flags = dict(num_devices=num_devices, mxu_bf16=mxu_bf16)
         if not any(ctx.needs_input_grad):
-            return fwd(mode, wxs, vs, y0, num_devices=num_devices)
-        out, gates = fwd(mode, wxs, vs, y0, num_devices=num_devices,
-                         save_residuals=True)
-        ctx.mode, ctx.num_devices = mode, num_devices
+            return fwd(mode, wxs, vs, y0, **flags)
+        out, gates = fwd(mode, wxs, vs, y0, save_residuals=True, **flags)
+        ctx.mode, ctx.flags, ctx.wx_dtype = mode, flags, wxs[0].dtype
         ctx.save_for_backward(out, y0, *gates, *vs)
         return out
 
@@ -360,8 +423,11 @@ class _TPANN(torch.autograd.Function):
                                      "TP ANN cell backward")
         # the cotangent often arrives as a view (the bidirectional split)
         dwxs, dvs, dy0 = bwd(mode, g.contiguous(), out, gates, vs, y0,
-                             num_devices=ctx.num_devices)
-        return (None, None, dy0, *dwxs, *dvs)
+                             **ctx.flags)
+        # the bf16 mode's dWx streams go back up where the streams arrived
+        # float32
+        dwxs = [d.to(ctx.wx_dtype) for d in dwxs]
+        return (None, None, None, dy0, *dwxs, *dvs)
 
 
 # ---------------------------------------------------------------------------
@@ -369,31 +435,31 @@ class _TPANN(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
-def _tp_ann(mode, wxs, vs, y0, mesh, tp_axis):
+def _tp_ann(mode, wxs, vs, y0, mesh, tp_axis, mxu_bf16):
     P = fused_tp._tp_size(mesh, tp_axis, wxs[0])
     B, _, H = wxs[0].shape
     fused_tp._validate(B, H, P)
-    if any(w.dtype == _BF16 for w in wxs):
-        raise NotImplementedError(
-            "the TP ANN cells' bf16-stream form is ROADMAP queue 2 item 11")
     # the carried state is float32 (float64 with float64 streams)
     y0 = y0.to(_work_dtype(wxs[0]))
-    return _TPANN.apply(mode, P, y0, *wxs, *vs)
+    return _TPANN.apply(mode, P, bool(mxu_bf16), y0, *wxs, *vs)
 
 
-def rnn_tp(Wx, V, y0, *, mesh, tp_axis="model"):
+def rnn_tp(Wx, V, y0, *, mesh, tp_axis="model", mxu_bf16: bool = False):
     """Tensor-parallel fused sigmoid-RNN over the mesh's TP axis (JAX
     ``rnn_tp_sharded``; semantics ``cells.rnn_scan``)."""
-    return _tp_ann("rnn", [Wx], [V], y0, mesh, tp_axis)
+    return _tp_ann("rnn", [Wx], [V], y0, mesh, tp_axis, mxu_bf16)
 
 
-def ligru_tp(Wx, Wzx, V, Vz, y0, *, mesh, tp_axis="model"):
+def ligru_tp(Wx, Wzx, V, Vz, y0, *, mesh, tp_axis="model",
+             mxu_bf16: bool = False):
     """Tensor-parallel fused LiGRU over the mesh's TP axis (JAX
     ``ligru_tp_sharded``; semantics ``cells.ligru_scan``)."""
-    return _tp_ann("ligru", [Wx, Wzx], [V, Vz], y0, mesh, tp_axis)
+    return _tp_ann("ligru", [Wx, Wzx], [V, Vz], y0, mesh, tp_axis, mxu_bf16)
 
 
-def gru_tp(Wx, Wzx, Wrx, V, Vz, Vr, y0, *, mesh, tp_axis="model"):
+def gru_tp(Wx, Wzx, Wrx, V, Vz, Vr, y0, *, mesh, tp_axis="model",
+           mxu_bf16: bool = False):
     """Tensor-parallel fused GRU over the mesh's TP axis (JAX
     ``gru_tp_sharded``; semantics ``cells.gru_scan``)."""
-    return _tp_ann("gru", [Wx, Wzx, Wrx], [V, Vz, Vr], y0, mesh, tp_axis)
+    return _tp_ann("gru", [Wx, Wzx, Wrx], [V, Vz, Vr], y0, mesh, tp_axis,
+                   mxu_bf16)

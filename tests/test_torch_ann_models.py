@@ -30,6 +30,7 @@ from sparch_tpu_torch.models import (
     build_model,
     build_model_from_config,
 )
+from sparch_tpu_torch.parallel import make_mesh
 
 from tests.test_torch_models import _leaves
 
@@ -233,13 +234,14 @@ def test_ann_options():
     with pytest.raises(ValueError, match="compute_dtype"):
         build_model("GRU", (2, 3, 4), [8, 3], compute_dtype=torch.float16)
     # the tensor-parallel path is ported: it needs a mesh when it runs, and
-    # its bf16 form is the next TP item
+    # its bf16 form runs
     with pytest.raises(ValueError, match="tp_mesh"):
         build_model("GRU", (8, 3, 4), [256, 3], cell_impl="pallas_tp")(
             torch.zeros(8, 3, 4))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build_model("GRU", (8, 3, 4), [256, 3], cell_impl="pallas_tp",
-                    compute_dtype=torch.bfloat16)
+    model = build_model("GRU", (8, 3, 4), [256, 3], cell_impl="pallas_tp",
+                        compute_dtype=torch.bfloat16,
+                        tp_mesh=make_mesh([torch.device("cpu")] * 2, model=2))
+    assert model(torch.zeros(8, 3, 4))[0].dtype == torch.float32
     with pytest.raises(NotImplementedError, match="rank"):
         build_model("GRU", (2, 3, 4), [8, 3])(torch.zeros(2, 3))
     model = build_model("LiGRU", (2, 3, 2, 2), [8, 3], cell_impl="nope")

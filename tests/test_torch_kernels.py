@@ -132,11 +132,11 @@ def test_kernel_wrappers_raise_past_their_width():
     assert not any(fused_cells.launch_counts().values())
     cell = {"fused_cell_fwd", "fused_cell_fwd_train", "fused_cell_bwd"}
     ann = {f"fused_ann_{d}_{m}" for d in ("fwd", "bwd") for m in ANN_MODES}
-    tp = {"tp_all_gather", "tp_reduce_scatter", "tp_cell_fwd", "tp_cell_bwd",
-          "tp_ann_fwd", "tp_ann_bwd"}
+    tp_cells = {"tp_cell_fwd", "tp_cell_bwd", "tp_ann_fwd", "tp_ann_bwd"}
+    tp = {"tp_all_gather", "tp_reduce_scatter"} | tp_cells
     assert set(fused_cells.launch_counts()) == (
         cell | ann | tp | {"readout_fwd", "readout_bwd"}
-        | {f"{k}_bf16" for k in cell | ann})
+        | {f"{k}_bf16" for k in cell | ann | tp_cells})
 
 
 @pytest.mark.cuda

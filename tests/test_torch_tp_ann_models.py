@@ -165,10 +165,10 @@ def test_tp_ann_error_paths():
     # no mesh: raises when it runs, as the JAX layer does
     with pytest.raises(ValueError, match="tp_mesh"):
         build_model("LiGRU", (B, T, F), [256, C], cell_impl="pallas_tp")(x)
-    # the TP kernels' bf16 form is the next TP item
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build_model("RNN", (B, T, F), [256, C], cell_impl="pallas_tp",
-                    tp_mesh=_mesh(2), compute_dtype=torch.bfloat16)
+    # the TP kernels' bf16 form runs
+    out, _ = build_model("RNN", (B, T, F), [256, C], cell_impl="pallas_tp",
+                         tp_mesh=_mesh(2), compute_dtype=torch.bfloat16)(x)
+    assert out.shape == (B, C) and bool(torch.isfinite(out).all())
     # H % (P*128)
     with pytest.raises(ValueError, match="divisible by num_model_devices"):
         build_model("GRU", (B, T, F), [384, C], cell_impl="pallas_tp",

@@ -144,9 +144,10 @@ def test_tp_checks_raise():
     with pytest.raises(ValueError, match="B%8==0"):
         fused_tp.rlif_tp(*[e[k] for k in ("Wx", "alpha", "V")], 1.0,
                          e["u0"], e["s0"], mesh=_mesh(2, "cpu"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        fused_tp.rlif_tp(args[0].bfloat16(), *args[1:], 1.0, d["u0"],
-                         d["s0"], mesh=_mesh(2, "cpu"))
+    # the bf16-stream form runs: bf16 spikes from a bf16 drive
+    s = fused_tp.rlif_tp(args[0].bfloat16(), *args[1:], 1.0, d["u0"],
+                         d["s0"], mesh=_mesh(2, "cpu"), mxu_bf16=True)
+    assert s.dtype == torch.bfloat16 and s.shape == args[0].shape
     meta = make_mesh([torch.device("meta")] * 2, model=2)
     with pytest.raises(ValueError, match="the mesh on"):
         fused_tp.rlif_tp(*args, 1.0, d["u0"], d["s0"], mesh=meta)
@@ -350,9 +351,14 @@ def test_tp_ann_checks_raise():
     with pytest.raises(ValueError, match="B%8==0"):
         fused_tp_ann.rnn_tp(*e["wxs"], *e["vs"], e["y0"],
                             mesh=_mesh(2, "cpu"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        fused_tp_ann.gru_tp(d["wxs"][0].bfloat16(), *args[1:],
-                            mesh=_mesh(2, "cpu"))
+    # the bf16-stream form runs: a bf16 output from bf16 streams
+    y = fused_tp_ann.gru_tp(*[w.bfloat16() for w in d["wxs"]], *args[3:],
+                            mesh=_mesh(2, "cpu"), mxu_bf16=True)
+    assert y.dtype == torch.bfloat16 and y.shape == d["wxs"][0].shape
+    with pytest.raises(ValueError, match="differ in type"):
+        fused_tp_ann._tp_ann_cell_cuda(
+            "gru", [d["wxs"][0].bfloat16(), *d["wxs"][1:]], d["vs"],
+            d["y0"], num_devices=2, mxu_bf16=True)
     # the kernel wrappers check their widths before they launch
     wide = ann_tp_inputs("rnn", 8, 1, 2176)
     with pytest.raises(ValueError, match="H/P <= 2048"):
@@ -525,3 +531,386 @@ def test_tp_ann_gru_exchanges_land_on_fixed_parities_on_card(cuda, P,
         assert torch.equal(bwd[q, 0, :, :H], dwxs[0][:, 0])
         assert torch.equal(bwd[q, 1], torch.cat([dwxs[1][:, 0],
                                                  dwxs[2][:, 0]], dim=1))
+
+
+# ---------------------------------------------------------------------------
+# The bf16-stream form of the four TP kernels (mxu_bf16=True)
+# ---------------------------------------------------------------------------
+#
+# Bounds, as for the single-card bf16 kernels (tests/test_torch_kernels.py):
+# the spiking forward is exact (V on the 2^-8 grid and s0 on sixteenths are
+# bf16 values, so every product is exact in float32 in any order); elsewhere
+# a float32 sum taken in another order than the plain version's can tip a
+# rounding to bf16, and a tipped operand moves the next step's sums, so a
+# bf16 stream is held to one bf16 ulp of a value in [1, 2), 2^-7, relative
+# to max(1, |v|) (forward) or to the gradient's largest magnitude
+# (backward), and a gradient reduced in float32 to 2^-7 of its largest
+# magnitude too (at these shapes it may sum few terms); a value past its
+# bound is held by the witness rule: with the plain version in float64
+# (same rounding points) as the truth, the kernel may be no further from it
+# than 4 times the float32 plain version is. Across P and between launches
+# everything is bit for bit; against the single-card bf16 kernels the
+# forward is bit for bit (every product sums its rows in one ascending
+# order), the backward's gradients that sum over no rows too, and the rest
+# within the bounds above.
+
+BF16_ULP = 2.0 ** -7
+WITNESS_FACTOR = 4.0
+
+
+def _within(x, y, scale, what, truth=None):
+    """``x`` within ``BF16_ULP * scale`` of ``y`` elementwise, or else (with
+    ``truth``, a function that gives the float64 plain version) no further
+    from the truth than WITNESS_FACTOR times ``y`` is."""
+    x, y = x.double(), y.double()
+    err = (x - y).abs()
+    if bool((err <= BF16_ULP * scale).all()):
+        return
+    assert truth is not None, (what, float(err.max()))
+    t = truth().double()
+    far, base = float((x - t).abs().max()), float((y - t).abs().max())
+    assert far <= WITNESS_FACTOR * base, (what, far, base)
+
+
+def _f64(x):
+    if isinstance(x, torch.Tensor):
+        return x.double()
+    if isinstance(x, (list, tuple)):
+        return [_f64(v) for v in x]
+    return x
+
+
+def _bf16_tp_inputs(B, T, H, seed, device, wx_bf16):
+    d = tp_inputs(B, T, H, seed=seed, device=device)
+    # |k| <= 255 on the 2^-8 grid: bf16 holds V exactly
+    d["V"] = d["V"].clamp(-255 / 256, 255 / 256)
+    if wx_bf16:
+        d["Wx"] = d["Wx"].bfloat16()
+    d["g"] = d["g"].bfloat16()
+    return d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", PS)
+@pytest.mark.parametrize("shape", [(8, 13, 128), (24, 20, 256),
+                                   (256, 100, 256)])
+@pytest.mark.parametrize("wx_bf16", [False, True])
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_bf16_forward_kernel_matches_plain_on_card(cuda, adaptive, wx_bf16,
+                                                   shape, P):
+    B, T, hl = shape
+    H = P * hl if B < 256 else 1024
+    d = _bf16_tp_inputs(B, T, H, 2, cuda, wx_bf16)
+    args = cell_args(d, adaptive)
+    kw = dict(adaptive=adaptive, mxu_bf16=True)
+    want, want_u = fused_tp.tp_cell_plain(*args, num_devices=P,
+                                          save_residuals=True, **kw)
+    fused_cells.reset_launch_counts()
+    got, got_u = fused_tp._tp_cell_cuda(*args, num_devices=P,
+                                        save_residuals=True, **kw)
+    again = fused_tp._tp_cell_cuda(*args, num_devices=P, **kw)
+    one, one_u = fused_tp._tp_cell_cuda(*args, num_devices=1,
+                                        save_residuals=True, **kw)
+    single, single_u = fused_cells._fused_cell_cuda(
+        args[0], None, None, *args[1:], recurrent=True, adaptive=adaptive,
+        save_residuals=True, mxu_bf16=True)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got_u.dtype == torch.float32
+    assert 0 < float(want.float().mean()) < 0.5
+    for x, y in ((got, want), (got_u, want_u), (again, want), (got, one),
+                 (got_u, one_u), (got, single), (got_u, single_u)):
+        assert torch.equal(x, y)
+    assert fused_cells.launch_counts()["tp_cell_fwd_bf16"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", PS)
+@pytest.mark.parametrize("shape", [(8, 13, 128), (24, 20, 256),
+                                   (256, 100, 256)])
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_bf16_backward_kernel_matches_plain_on_card(cuda, adaptive, shape, P):
+    """s0 uniform, as the uniform state init draws it: the first product
+    and dV round it to bf16."""
+    B, T, hl = shape
+    H = P * hl if B < 256 else 1024
+    d = _bf16_tp_inputs(B, T, H, 3, cuda, False)
+    d["s0"] = torch.rand(d["s0"].shape, device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(3))
+    kw = dict(adaptive=adaptive, mxu_bf16=True)
+    _, u_seq = fused_tp.tp_cell_plain(*cell_args(d, adaptive), num_devices=P,
+                                      save_residuals=True, **kw)
+    args = bwd_args(d, u_seq, adaptive)
+    fused_cells.reset_launch_counts()
+    got = fused_tp._tp_cell_bwd_cuda(*args, num_devices=P, **kw)
+    again = fused_tp._tp_cell_bwd_cuda(*args, num_devices=P, **kw)
+    one = fused_tp._tp_cell_bwd_cuda(*args, num_devices=1, **kw)
+    want = fused_tp.tp_cell_bwd_plain(*args, num_devices=P, **kw)
+    g, u_seq, *rest = args
+    single = fused_cells._fused_cell_bwd_cuda(
+        g, None, u_seq, None, *rest, recurrent=True, adaptive=adaptive,
+        mxu_bf16=True)
+    single = dict(zip(("dWx", "dscale", "dshift", "dV", "dalpha", "dbeta",
+                       "da", "db", "du0", "dw0", "ds0"), single))
+    torch.cuda.synchronize()
+    assert fused_cells.launch_counts()["tp_cell_bwd_bf16"] == 3
+    truth = []
+
+    def witness(k):
+        if not truth:
+            truth.extend(fused_tp.tp_cell_bwd_plain(*_f64(list(args)),
+                                                    num_devices=P, **kw))
+        return truth[k]
+
+    for k, (name, x, y, z, w) in enumerate(zip(GRADS, got, want, again,
+                                               one)):
+        if x is None:
+            assert y is None and not adaptive
+            continue
+        assert x.dtype == (torch.bfloat16 if name == "dWx"
+                           else torch.float32), name
+        scale = y.double().abs().max()
+        _within(x, y, scale, name, lambda k=k: witness(k))
+        _within(x, single[name], scale, f"{name} vs the single-card kernel",
+                lambda k=k: witness(k))
+        assert torch.equal(x, z), name
+        if name in ("dWx", "dV", "du0", "dw0", "ds0"):
+            # no reduction over rows: the split changes no sum, and the
+            # single-card kernel takes the same arithmetic in the same order
+            assert torch.equal(x, w), name
+            assert torch.equal(x, single[name]), name
+
+
+@pytest.mark.cuda
+def test_bf16_tp_cell_kernels_walk_row_groups_on_card(cuda):
+    """At P = 4 and B = 1024 a rank has more rows (forward) and row groups
+    (backward) than the card holds blocks."""
+    P = 4
+    d = _bf16_tp_inputs(1024, 6, P * 128, 4, cuda, True)
+    args = cell_args(d, True)
+    kw = dict(num_devices=P, adaptive=True, mxu_bf16=True)
+    got, u_seq = fused_tp._tp_cell_cuda(*args, save_residuals=True, **kw)
+    per_rank = fused_tp.last_plans()["tp_cell_fwd"][1]
+    grads = fused_tp._tp_cell_bwd_cuda(*bwd_args(d, u_seq, True), **kw)
+    bt, bwd_per_rank = fused_tp.last_plans()["tp_cell_bwd"][:2]
+    want, want_u = fused_tp.tp_cell_plain(*args, save_residuals=True, **kw)
+    want_grads = fused_tp.tp_cell_bwd_plain(*bwd_args(d, u_seq, True), **kw)
+    torch.cuda.synchronize()
+    assert per_rank < 1024 and bwd_per_rank < 1024 // bt
+    assert torch.equal(got, want) and torch.equal(u_seq, want_u)
+    for k, (name, x, y) in enumerate(zip(GRADS, grads, want_grads)):
+        _within(x, y, y.double().abs().max(), name,
+                lambda k=k: fused_tp.tp_cell_bwd_plain(
+                    *_f64(list(bwd_args(d, u_seq, True))), **kw)[k])
+
+
+def _bf16_ann_inputs(mode, B, T, H, seed, device, wx_bf16):
+    d = ann_tp_inputs(mode, B, T, H, seed=seed, device=device)
+    if wx_bf16:
+        d["wxs"] = [w.bfloat16() for w in d["wxs"]]
+    d["g"] = d["g"].bfloat16()
+    return d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", PS)
+@pytest.mark.parametrize("shape", [(8, 13, 128), (24, 20, 256)])
+@pytest.mark.parametrize("wx_bf16", [False, True])
+@pytest.mark.parametrize("mode", ANN_MODES)
+def test_bf16_tp_ann_forward_kernel_matches_plain_on_card(cuda, mode,
+                                                          wx_bf16, shape, P):
+    B, T, hl = shape
+    d = _bf16_ann_inputs(mode, B, T, P * hl, 2, cuda, wx_bf16)
+    args = (mode, d["wxs"], d["vs"], d["y0"])
+    kw = dict(mxu_bf16=True)
+    want, want_g = fused_tp_ann.tp_ann_cell_plain(
+        *args, num_devices=P, save_residuals=True, **kw)
+    fused_cells.reset_launch_counts()
+    got, got_g = fused_tp_ann._tp_ann_cell_cuda(
+        *args, num_devices=P, save_residuals=True, **kw)
+    served = fused_tp_ann._tp_ann_cell_cuda(*args, num_devices=P, **kw)
+    one, one_g = fused_tp_ann._tp_ann_cell_cuda(
+        *args, num_devices=1, save_residuals=True, **kw)
+    single, _, single_g = fused_ann._ann_cell_cuda(
+        mode, d["wxs"], None, None, d["vs"], d["y0"], save_residuals=True,
+        **kw)
+    torch.cuda.synchronize()
+    assert fused_cells.launch_counts()["tp_ann_fwd_bf16"] == 3
+    truth = []
+
+    def witness(i):
+        if not truth:
+            t_out, t_g = fused_tp_ann.tp_ann_cell_plain(
+                mode, *_f64(list(args[1:])), num_devices=P,
+                save_residuals=True, **kw)
+            truth.extend([t_out, *t_g])
+        return truth[i]
+
+    for i, (x, y) in enumerate(zip((got, *got_g), (want, *want_g))):
+        assert x.dtype == torch.bfloat16
+        _within(x, y, y.double().abs().clamp_min(1.0), (mode, i),
+                lambda i=i: witness(i))
+    assert torch.equal(served, got)
+    for x, y, z in zip((got, *got_g), (one, *one_g), (single, *single_g)):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", PS)
+@pytest.mark.parametrize("shape", [(8, 13, 128), (24, 20, 256)])
+@pytest.mark.parametrize("mode", ANN_MODES)
+def test_bf16_tp_ann_backward_kernel_matches_plain_on_card(cuda, mode, shape,
+                                                           P):
+    B, T, hl = shape
+    d = _bf16_ann_inputs(mode, B, T, P * hl, 3, cuda, False)
+    kw = dict(mxu_bf16=True)
+    out, gates = fused_tp_ann.tp_ann_cell_plain(
+        mode, d["wxs"], d["vs"], d["y0"], num_devices=P, save_residuals=True,
+        **kw)
+    args = (mode, d["g"], out, gates, d["vs"], d["y0"])
+    fused_cells.reset_launch_counts()
+    got = fused_tp_ann._tp_ann_cell_bwd_cuda(*args, num_devices=P, **kw)
+    again = fused_tp_ann._tp_ann_cell_bwd_cuda(*args, num_devices=P, **kw)
+    one = fused_tp_ann._tp_ann_cell_bwd_cuda(*args, num_devices=1, **kw)
+    want = fused_tp_ann.tp_ann_cell_bwd_plain(*args, num_devices=P, **kw)
+    single = fused_ann._ann_cell_bwd_cuda(mode, d["g"], None, out,
+                                          list(gates), None, d["vs"],
+                                          d["y0"], **kw)
+    torch.cuda.synchronize()
+    assert fused_cells.launch_counts()["tp_ann_bwd_bf16"] == 3
+
+    def flat(r):
+        return (*r[0], *r[1], r[2])
+
+    truth = []
+
+    def witness(k):
+        if not truth:
+            truth.extend(flat(fused_tp_ann.tp_ann_cell_bwd_plain(
+                mode, *_f64(list(args[1:])), num_devices=P, **kw)))
+        return truth[k]
+
+    n = fused_ann.MODES[mode]
+    single = (*single[0], *single[3], single[4])
+    for k, (x, y, z, w, s) in enumerate(zip(flat(got), flat(want),
+                                            flat(again), flat(one), single)):
+        assert x.dtype == (torch.bfloat16 if k < n else torch.float32)
+        _within(x, y, y.double().abs().max(), (mode, k),
+                lambda k=k: witness(k))
+        assert torch.equal(x, z) and torch.equal(x, w) and torch.equal(x, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ANN_MODES)
+def test_bf16_tp_ann_kernels_walk_row_groups_on_card(cuda, mode):
+    P = 4
+    d = _bf16_ann_inputs(mode, 1024, 6, P * 128, 4, cuda, True)
+    args = (mode, d["wxs"], d["vs"], d["y0"])
+    kw = dict(num_devices=P, mxu_bf16=True)
+    got, got_g = fused_tp_ann._tp_ann_cell_cuda(*args, save_residuals=True,
+                                                **kw)
+    bt, per_rank = fused_tp.last_plans()["tp_ann_fwd"][:2]
+    bargs = (mode, d["g"], got, got_g, d["vs"], d["y0"])
+    grads = fused_tp_ann._tp_ann_cell_bwd_cuda(*bargs, **kw)
+    bwd_bt, bwd_per_rank = fused_tp.last_plans()["tp_ann_bwd"][:2]
+    want, want_g = fused_tp_ann.tp_ann_cell_plain(*args, save_residuals=True,
+                                                  **kw)
+    want_grads = fused_tp_ann.tp_ann_cell_bwd_plain(*bargs, **kw)
+    torch.cuda.synchronize()
+    assert per_rank < 1024 // bt and bwd_per_rank < 1024 // bwd_bt
+    truth = []
+
+    def witness(k):
+        if not truth:
+            t_out, t_g = fused_tp_ann.tp_ann_cell_plain(
+                mode, *_f64(list(args[1:])), save_residuals=True, **kw)
+            t_grads = fused_tp_ann.tp_ann_cell_bwd_plain(
+                mode, *_f64(list(bargs[1:])), **kw)
+            truth.extend([t_out, *t_g, *t_grads[0], *t_grads[1],
+                          t_grads[2]])
+        return truth[k]
+
+    pairs = list(zip((got, *got_g), (want, *want_g)))
+    n_fwd = len(pairs)
+    pairs += list(zip((*grads[0], *grads[1], grads[2]),
+                      (*want_grads[0], *want_grads[1], want_grads[2])))
+    for k, (x, y) in enumerate(pairs):
+        scale = (y.double().abs().clamp_min(1.0) if k < n_fwd
+                 else y.double().abs().max())
+        _within(x, y, scale, (mode, k), lambda k=k: witness(k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", (2, 4))
+def test_bf16_wire_slots_hold_bf16_values_on_card(cuda, P, monkeypatch):
+    """The bf16 wire: every slot buffer is bf16 and holds, after a launch,
+    the last exchange of each kind rounded once. The GRU forward's y slot
+    holds y of step T-2, the very bf16 value of the output stream; its r*y
+    slot bf16(r*y) of step T-1 from the float32 r and y, within one ulp of
+    the product of the two bf16 series; the backward's slots hold the dpre
+    of step 0, equal to the dWx streams; the spiking backward's slot the D
+    of step 0, equal to dWx."""
+    slots = []
+    exchange_buffers = fused_tp._exchange_buffers
+
+    def keep(*args, **kw):
+        bufs = exchange_buffers(*args, **kw)
+        slots.append(bufs[0])
+        return bufs
+
+    monkeypatch.setattr(fused_tp, "_exchange_buffers", keep)
+    B, T, H = 8, 7, P * 128
+    d = _bf16_ann_inputs("gru", B, T, H, 6, cuda, False)
+    out, (z, r, c) = fused_tp_ann._tp_ann_cell_cuda(
+        "gru", d["wxs"], d["vs"], d["y0"], num_devices=P,
+        save_residuals=True, mxu_bf16=True)
+    dwxs, _, _ = fused_tp_ann._tp_ann_cell_bwd_cuda(
+        "gru", d["g"], out, (z, r, c), d["vs"], d["y0"], num_devices=P,
+        mxu_bf16=True)
+    e = _bf16_tp_inputs(B, T, H, 6, cuda, False)
+    _, u_seq = fused_tp.tp_cell_plain(*cell_args(e, True), num_devices=P,
+                                      adaptive=True, save_residuals=True,
+                                      mxu_bf16=True)
+    grads = fused_tp._tp_cell_bwd_cuda(*bwd_args(e, u_seq, True),
+                                       num_devices=P, adaptive=True,
+                                       mxu_bf16=True)
+    torch.cuda.synchronize()
+    fwd, bwd, spk = slots  # (P, 2, B, H), (P, 2, B, 2H), (P, 2, B, H)
+    assert fwd.dtype == bwd.dtype == spk.dtype == torch.bfloat16
+    ry = r[:, -1].float() * out[:, -2].float()
+    for q in range(P):
+        assert torch.equal(fwd[q, 1], out[:, -2])
+        _within(fwd[q, 0], ry, 1.0, "r*y")  # r*y lies in (-1, 1)
+        assert torch.equal(bwd[q, 0, :, :H], dwxs[0][:, 0])
+        assert torch.equal(bwd[q, 1], torch.cat([dwxs[1][:, 0],
+                                                 dwxs[2][:, 0]], dim=1))
+        # T exchanges: step 0's is the last, on parity (T - 1) & 1
+        assert torch.equal(spk[q, (T - 1) & 1], grads[0][:, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type", ["RLIF", "RadLIF", "LIF", "adLIF",
+                                        "RNN", "LiGRU", "GRU"])
+def test_model_reaches_the_bf16_tp_kernels_on_card(cuda, model_type):
+    B, T, F, H, C, P = 16, 20, 24, 256, 5, 2
+    model = build_model(model_type, (B, T, F), [H, H, C], dropout=0.1,
+                        cell_impl="pallas_tp", tp_mesh=_mesh(P, "cuda"),
+                        bidirectional=model_type in ("RadLIF", "LiGRU"),
+                        compute_dtype=torch.bfloat16,
+                        generator=torch.Generator().manual_seed(0)).to(cuda)
+    x = torch.rand((B, T, F), device=cuda) * 3
+    fused_cells.reset_launch_counts()
+    out, _ = model(x, torch.Generator(device=cuda).manual_seed(1))
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in fused_cells.launch_counts().items() if n}
+    if model_type in ("RLIF", "RadLIF"):
+        want = {"tp_cell_fwd_bf16": 2, "tp_cell_bwd_bf16": 2}
+    elif model_type in ("LIF", "adLIF"):
+        want = {"fused_cell_fwd_train_bf16": 2 * P,
+                "fused_cell_bwd_bf16": 2 * P}
+    else:
+        want = {"tp_ann_fwd_bf16": 2, "tp_ann_bwd_bf16": 2}
+    assert counts == want
+    assert torch.isfinite(out).all()
+    assert all(p.dtype == p.grad.dtype == torch.float32 and
+               torch.isfinite(p.grad).all() for p in model.parameters())
