@@ -44,18 +44,21 @@ this run:
    ``compute_dtype=bfloat16`` (``cell_impl="auto"``; lines ``profile`` and
    ``profile_training`` with ``compute_dtype`` "bfloat16"), beside their
    float32 ``auto`` runs in the same call.
-9. ``ab=DIR`` (only when named): the float32 cell kernels of the tree
-   unpacked in ``DIR`` (another commit of this repository, e.g. from
-   ``git archive``) against this tree's, in one call on one card, in the
-   order DIR, this, this, DIR, each in a process of its own that builds
-   that tree's kernels: kernel ms at (128, 100, 512) (CUDA events), the
-   float32 tensor-parallel cells at their main shapes (RadLIF at (256,
-   100, 1024), RNN/LiGRU/GRU at (128, 100, 1024); P = 1, 2, 4), the SASS
-   instruction count of each float32 ``fused_ann_fwd_kernel`` at one
-   neuron per thread and of every float32 TP cell kernel, with the TP
-   kernels' registers and stack bytes (spills included; ``cuobjdump
-   -sass``, ``-res-usage``), which show whether a change left the float32
-   code as it was.
+9. ``ab=DIR`` (only when named): the kernels of the tree unpacked in
+   ``DIR`` (another commit of this repository, e.g. from ``git archive``)
+   against this tree's, in one call on one card, in the order DIR, this,
+   this, DIR, each in a process of its own that builds that tree's
+   kernels: kernel ms (CUDA events) of the float32 spiking cells at (128,
+   100, 512), of the fused RNN/LiGRU/GRU kernels (with the affine; the
+   forward's serving and training form and the backward) at (128, 100,
+   512) and (128, 100, 1024) in float32 and bf16, of the float32
+   tensor-parallel cells at their main shapes (RadLIF at (256, 100, 1024),
+   RNN/LiGRU/GRU at (128, 100, 1024); P = 1, 2, 4); the ``auto`` training
+   step of the GRU [512, 512, 35] (float32 and bf16) and [1024, 1024, 35]
+   trainers; the ptxas report of the fused ANN kernels; and, per library
+   that the fused ANN kernels do not touch, the kernels whose SASS count,
+   registers or stack bytes (``cuobjdump -sass``, ``-res-usage``) differ
+   between the trees (whole records in ``build/ab/ab_<i>.json``).
 
 Without a CUDA card it exits non-zero and prints no result.
 """
@@ -327,17 +330,25 @@ spec = importlib.util.spec_from_file_location("smoke", root + "/chip_smoke.py")
 smoke = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(smoke)
 from sparch_tpu_torch import _build
+from sparch_tpu_torch.models import build_model
 from sparch_tpu_torch.ops import fused_cells
+from sparch_tpu_torch.train import make_train_step
 from sparch_tpu_torch.utils.timing import cuda_time_ms
 if not _build.__file__.startswith(root):
     raise RuntimeError("imported the package of another tree: "
                        + _build.__file__)
 torch.backends.cuda.matmul.allow_tf32 = False
-_build.build()
+# the fused ANN sources build in this process, whatever was built before,
+# so that their ptxas report is at hand
+for lib in ("fused_ann_fwd", "fused_ann_bwd"):
+    _build.library_path(lib).unlink(missing_ok=True)
+logs = _build.build()
 dev = torch.device("cuda", 0)
 shape = (smoke.B, smoke.T, smoke.H)
 seed = torch.tensor([1234, 99], dtype=torch.int32, device=dev)
+bf16 = torch.bfloat16
 res = {}
+fast = dict(warmup=1, iters=5, repeats=3)
 with torch.no_grad():
     d = smoke.cell_inputs(shape, dyadic=True, seed=1, dev=dev)
     g = torch.randn(shape, device=dev,
@@ -355,13 +366,30 @@ with torch.no_grad():
                   seed=seed)
         res["cell_bwd_" + name] = cuda_time_ms(
             lambda: fused_cells._fused_cell_bwd_cuda(*args, **kw))
-    for mode in ("rnn", "ligru", "gru"):
-        a = smoke.ann_inputs(mode, shape, 4, dev)
-        res["ann_fwd_" + mode] = cuda_time_ms(smoke.ann_forward, mode, a,
-                                              True)
-        r = smoke.ann_forward(mode, a, True, smoke.P_DROP, seed, True)[1:]
-        res["ann_bwd_" + mode] = cuda_time_ms(smoke.ann_backward, mode, a, g,
-                                              r, seed, True)
+    # rows 6 and 7: the fused ANN kernels with the affine, serving and
+    # training form, and the backward, at H = 512 and 1024, both modes
+    for h in (smoke.H, smoke.TP_H):
+        ashape = (smoke.B, smoke.T, h)
+        ga = torch.randn(ashape, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(6))
+        for mode in ("rnn", "ligru", "gru"):
+            for mx in (False, True):
+                a = smoke.ann_inputs(mode, ashape, 4, dev)
+                gm = ga
+                if mx:
+                    a["wxs"] = [w.to(bf16) for w in a["wxs"]]
+                    gm = ga.to(bf16)
+                key = f"{mode}_h{h}" + ("_bf16" if mx else "")
+                res["ann_fwd_" + key] = cuda_time_ms(
+                    lambda: smoke.ann_forward(mode, a, True, bf16=mx), **fast)
+                res["ann_fwd_train_" + key] = cuda_time_ms(
+                    lambda: smoke.ann_forward(mode, a, True, smoke.P_DROP,
+                                              seed, True, bf16=mx), **fast)
+                r = smoke.ann_forward(mode, a, True, smoke.P_DROP, seed, True,
+                                      bf16=mx)[1:]
+                res["ann_bwd_" + key] = cuda_time_ms(
+                    lambda: smoke.ann_backward(mode, a, gm, r, seed, True,
+                                               bf16=mx), **fast)
     # the float32 tensor-parallel cells at their main shapes, P = 1, 2, 4
     from sparch_tpu_torch.ops import fused_tp, fused_tp_ann
     tshape = (2 * smoke.B, smoke.T, smoke.TP_H)
@@ -384,70 +412,94 @@ with torch.no_grad():
             fa = (mode, da["wxs"], da["vs"], da["y0"])
             res[f"tp_ann_fwd_{mode}_p{P}"] = cuda_time_ms(
                 lambda: fused_tp_ann._tp_ann_cell_cuda(
-                    *fa, num_devices=P, save_residuals=True),
-                warmup=1, iters=5, repeats=3)
+                    *fa, num_devices=P, save_residuals=True), **fast)
             out, gates = fused_tp_ann._tp_ann_cell_cuda(
                 *fa, num_devices=P, save_residuals=True)
             ba = (mode, ga, out, gates, da["vs"], da["y0"])
             res[f"tp_ann_bwd_{mode}_p{P}"] = cuda_time_ms(
                 lambda: fused_tp_ann._tp_ann_cell_bwd_cuda(*ba, num_devices=P),
-                warmup=1, iters=5, repeats=3)
+                **fast)
+# training steps through cell_impl="auto": the GRU [512, 512, 35] trainer
+# of training_ann and its bf16 twin, and the GRU [1024, 1024, 35] auto
+# trainer of training_tp_ann
+gen = torch.Generator(device=dev).manual_seed(21)
+x = torch.randn((smoke.B, smoke.T, smoke.F_ANN), generator=gen, device=dev)
+y = torch.randint(0, smoke.C, (smoke.B,), generator=gen, device=dev)
+sd = build_model("GRU", (smoke.B, smoke.T, smoke.F_ANN),
+                 [smoke.H, smoke.H, smoke.C], dropout=smoke.P_DROP,
+                 generator=torch.Generator().manual_seed(0)).state_dict()
+cases = (("gru512", sd, {}), ("gru512_bf16", sd, dict(compute_dtype=bf16)),
+         ("gru1024", smoke.tp_ann_state("GRU"), dict(sizes=smoke.TP_SIZES)))
+for key, state_dict, kw in cases:
+    model, state = smoke.train_run(dev, "auto", state_dict, x, y, 1,
+                                   model_type="GRU", **kw)[:2]
+    res["train_step_" + key] = cuda_time_ms(make_train_step(model), state, x,
+                                            y, warmup=3, iters=20, repeats=3)
 from pathlib import Path
-sass = subprocess.run(
-    [str(Path(_build._nvcc()).with_name("cuobjdump")), "-sass",
-     str(_build.library_path("fused_ann_fwd"))],
-    capture_output=True, text=True).stdout
-counts = {}
-for m in re.finditer(r"Function : (\S+)\n(.*?)(?=\n\s*Function :|\Z)", sass,
-                     re.S):
-    k = re.search(r"fused_ann_fwd_kernelILi(\d)ELi1E(Lb0E)?EEv", m.group(1))
-    if k:
-        counts["mode%s" % k.group(1)] = len(
-            re.findall(r"^\s+/\*[0-9a-f]{4}\*/", m.group(2), re.M))
-# the float32 TP kernels, by kernel and template arguments (a tree with the
-# bf16 mode names its float32 instantiations with a last argument false):
-# SASS instructions, registers and stack bytes (spills included)
-tp = {}
-for lib in ("tp_cell_fwd", "tp_cell_bwd", "tp_ann_fwd", "tp_ann_bwd"):
-    def key(fn):
-        k = re.search(r"(tp_(?:cell|ann)_(?:fwd|bwd)_kernel)I(.*?)EE", fn)
-        if not k or k.group(2).endswith("ELb1"):
-            return None
-        return k.group(1) + "<" + re.sub(r"ELb0$", "", k.group(2)) + ">"
+tool = str(Path(_build._nvcc()).with_name("cuobjdump"))
+# every kernel of every library: SASS instructions, registers and stack
+# bytes (spills included), by mangled name, less the hash that names the
+# anonymous namespace of each tree's build
+def name(fn):
+    return re.sub(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+", "anon::", fn)
+code = {}
+for lib in _build.SOURCES:
     def dump(flag):
-        return subprocess.run(
-            [str(Path(_build._nvcc()).with_name("cuobjdump")), flag,
-             str(_build.library_path(lib))], capture_output=True,
-            text=True).stdout
+        return subprocess.run([tool, flag, str(_build.library_path(lib))],
+                              capture_output=True, text=True).stdout
+    funcs = code.setdefault(lib, {})
     for m in re.finditer(r"Function : (\S+)\n(.*?)(?=\n\s*Function :|\Z)",
                          dump("-sass"), re.S):
-        k = key(m.group(1))
-        if k:
-            tp.setdefault(k, {})["sass"] = len(
-                re.findall(r"^\s+/\*[0-9a-f]{4}\*/", m.group(2), re.M))
+        funcs.setdefault(name(m.group(1)), {})["sass"] = len(
+            re.findall(r"^\s+/\*[0-9a-f]{4}\*/", m.group(2), re.M))
     for m in re.finditer(r"Function (\S+):\s*REG:(\d+) STACK:(\d+)",
                          dump("-res-usage")):
-        k = key(m.group(1))
-        if k:
-            tp.setdefault(k, {}).update(regs=int(m.group(2)),
-                                        stack=int(m.group(3)))
-print(json.dumps({"phase": "ab", "tree": root, "ms": res,
-                  "ann_fwd_f32_sass_instructions": counts,
-                  "tp_f32_kernels": tp}), flush=True)
+        funcs.setdefault(name(m.group(1)), {}).update(regs=int(m.group(2)),
+                                                      stack=int(m.group(3)))
+# the ptxas report (-Xptxas -v) of the non-spiking cell kernels
+ptxas = {lib: [l.strip() for l in logs.get(lib, "").splitlines()
+               if "fused_ann" in l or "registers" in l or "spill" in l]
+         for lib in ("fused_ann_fwd", "fused_ann_bwd")}
+print(json.dumps({"phase": "ab", "tree": root, "ms": res, "code": code,
+                  "ptxas": ptxas}), flush=True)
 """
+
+# the libraries whose kernels no change to the single-card non-spiking
+# cells touches: their code must stay as the other tree compiles it
+AB_UNTOUCHED = ("fused_cell_fwd", "fused_cell_bwd", "readout_fwd",
+                "readout_bwd", "tp_collectives", "tp_cell_fwd", "tp_cell_bwd",
+                "tp_ann_fwd", "tp_ann_bwd")
 
 
 def ab(dev, other: str):
-    """Phase 9: ``other`` and this tree in turns, each in its own process."""
+    """Phase 9: ``other`` and this tree in turns, each in its own process.
+    Each run's whole record goes to build/ab/ab_<i>.json; the output
+    has each run's times and ptxas report, then, per untouched library,
+    the kernels whose SASS count, registers or stack bytes differ between
+    the two trees."""
     here = str(REPO)
-    for root in (str(Path(other).resolve()), here, here,
-                 str(Path(other).resolve())):
+    out_dir = REPO / "build" / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    runs = []
+    for i, root in enumerate((str(Path(other).resolve()), here, here,
+                              str(Path(other).resolve()))):
         proc = subprocess.run([sys.executable, "-c", _AB_CODE, root],
                               capture_output=True, text=True, timeout=900,
                               cwd=root)
         if proc.returncode != 0:
             raise RuntimeError(f"ab: {root} failed:\n{proc.stderr[-2000:]}")
-        print(proc.stdout.strip().splitlines()[-1], flush=True)
+        line = proc.stdout.strip().splitlines()[-1]
+        (out_dir / f"ab_{i}.json").write_text(line)
+        run = json.loads(line)
+        runs.append(run)
+        emit("ab", tree=run["tree"], ms=run["ms"], ptxas=run["ptxas"])
+    parent, change = runs[0]["code"], runs[1]["code"]
+    for lib in AB_UNTOUCHED:
+        a, b = parent.get(lib, {}), change.get(lib, {})
+        moved = {k: [a.get(k), b.get(k)] for k in sorted(set(a) | set(b))
+                 if a.get(k) != b.get(k)}
+        emit("ab_code", library=lib, kernels=len(b), same=len(b) - len(moved),
+             moved=moved)
 
 
 def h2d(dev):

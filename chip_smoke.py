@@ -66,10 +66,16 @@ all at once), then prints one JSON line per phase:
    library): the output and every residual series within atol 2e-5, or
    else no further from the float64 plain version than 4 times the float32
    plain version is (both printed); the dropped positions identical, the
-   dropped share within 0.1 +- 0.005, two launches bit-equal.
+   dropped share within 0.1 +- 0.005, two launches bit-equal. At the main
+   shape the line gives the launch plan (``plan``: blocks a cluster, rows a
+   cluster, the column slice resident in shared memory or streamed, and how
+   many clusters the card holds at once).
 10. ``kernel_vs_plain`` for its backward (``fused_ann_bwd``): both sides get
    the plain forward's residuals; every gradient (per gate dWx, dscale,
-   dshift, dV; dy0) as in phase 6; two launches bit-equal.
+   dshift, dV; dy0) as in phase 6; two launches bit-equal. At the main
+   shape: the plan, and ``split_ms``, the time loop, the dV product and the
+   second passes (the sums over partials), CUDA events around each launch
+   in a timing pass of its own.
 11. ``serving_ann``: a GRU [512, 512, 35] Predictor (F=40 features drawn
    normal(0, 1), batch 128, seeded random weights, running statistics from
    one train-mode pass) on 300 utterances, variants ``scan`` and ``auto``:
@@ -178,7 +184,10 @@ all at once), then prints one JSON line per phase:
    bf16 trainers), its error, its time beside
    its plain version's, and its bound: the larger of its bytes over the
    card's memory rate and its operations over the card's float32 rate, from
-   this run's shapes and firing rates. No library call computes any of
+   this run's shapes and firing rates. The fused ANN kernels add their plan,
+   the backward its split, and ``at_h1024``: the kernel at (128, 100, 1024)
+   without the affine, as phases 20-21 time it, beside its bound and plan.
+   No library call computes any of
    these functions (cuDNN's GRU applies the reset gate after the recurrent
    product, this one before it; no PyTorch call exchanges inside a
    recurrence, and a library all-gather is no port of these harnesses),
@@ -1203,10 +1212,11 @@ def ann_forward(mode, d, kernel: bool, drop_rate=0.0, seed=None,
 
 
 def ann_backward(mode, d, g, residuals, seed, kernel: bool, cast=_same,
-                 bf16=False):
+                 bf16=False, **kernel_kw):
     """The fused ANN backward on the residuals (y_raw, *gates) of the
     training form, the kernel or its plain version; the flat tuple of
-    gradients named by ``ann_grad_names``."""
+    gradients named by ``ann_grad_names``. ``kernel_kw`` (``split_ms``) goes
+    to the kernel's wrapper."""
     from sparch_tpu_torch.ops import fused_ann
 
     fn = fused_ann._ann_cell_bwd_cuda if kernel else \
@@ -1216,8 +1226,41 @@ def ann_backward(mode, d, g, residuals, seed, kernel: bool, cast=_same,
         mode, cast(g), [cast(t) for t in d["wxs"]], cast(y_raw),
         [cast(t) for t in gates], [cast(t) for t in d["scales"]],
         [cast(t) for t in d["vs"]], cast(d["y0"]), drop_rate=P_DROP,
-        seed=seed, mxu_bf16=bf16)
+        seed=seed, mxu_bf16=bf16, **kernel_kw)
     return (*dwxs, *dscales, *dshifts, *dvs, dy0)
+
+
+def ann_plan(mode, shape, bf16=False, backward=False):
+    """The launch plan of the fused ANN forward (``backward``: of the
+    backward's time loop) at ``shape``, and how many of its clusters the
+    card holds at once."""
+    from sparch_tpu_torch.ops import fused_ann
+
+    b, t, h = shape
+    n = fused_ann.MODES[mode]
+    p = fused_ann._bwd_plan(b, t, h, n, bf16)[0] if backward else \
+        fused_ann._fwd_plan(b, h, n, bf16)
+    return dict(cluster=p.cluster, rows_per_cluster=p.rows,
+                resident=p.resident, cols=p.cols, clusters=p.clusters,
+                threads=p.threads, stage_bytes=p.stage_bytes,
+                max_active_clusters=fused_ann.max_active_clusters(
+                    mode, b, h, bf16, backward=backward))
+
+
+SPLIT_NAMES = ("time_loop", "dv_product", "second_passes")
+
+
+def bwd_split_ms(mode, d, g, res, seed, bf16, n=5):
+    """Median milliseconds of the fused ANN backward's launches (the time
+    loop, the dV product, the second passes: dV's and dscale/dshift's sums
+    over partials) over ``n`` calls, CUDA events around each launch."""
+    splits = []
+    for _ in range(n):
+        split = []
+        ann_backward(mode, d, g, res, seed, True, bf16=bf16, split_ms=split)
+        splits.append(split)
+    return {k: statistics.median(s[i] for s in splits)
+            for i, k in enumerate(SPLIT_NAMES)}
 
 
 def ann_grad_names(mode):
@@ -1321,9 +1364,10 @@ def phase_ann_forward(dev, bf16=False):
                     row["ms_train"] = timed(True, *train)
                     row["plain_ms_train"] = timed(False, *train,
                                                   **PLAIN_ROUNDS)
+                row["plan"] = ann_plan(mode, shape, bf16)
                 main[mode] = {k: row[k] for k in (
                     "max_abs_err", "ms", "plain_ms", "ms_train",
-                    "plain_ms_train")}
+                    "plain_ms_train", "plan")}
             emit("kernel_vs_plain",
                  kernel="fused_ann_fwd_bf16" if bf16 else "fused_ann_fwd",
                  **row)
@@ -1382,8 +1426,12 @@ def phase_ann_backward(dev, bf16=False):
                     row["plain_ms"] = cuda_time_ms(
                         lambda: ann_backward(mode, d, g, res, seed, False,
                                              **mode_kw), **PLAIN_ROUNDS)
+                    row["split_ms"] = bwd_split_ms(mode, d, g, res, seed,
+                                                   bf16)
+                row["plan"] = ann_plan(mode, shape, bf16, backward=True)
                 main[mode] = {k: row[k] for k in ("max_abs_err", "ms",
-                                                  "plain_ms")}
+                                                  "plain_ms", "split_ms",
+                                                  "plan")}
             emit("kernel_vs_plain",
                  kernel="fused_ann_bwd_bf16" if bf16 else "fused_ann_bwd",
                  **row)
@@ -1556,9 +1604,20 @@ def ann_bounds(mode, bf16=False):
     )
 
 
-def ann_kernel_rows(fwd, bwd, served, trained):
+def at_h1024(mode, tp_res, direction, bf16=False):
+    """The single-card kernel at the TP ANN path's shape (B, T, 1024),
+    without the affine and the dropout (the training form of the forward),
+    as the TP phases time it: its time beside its bound and its plan."""
+    return dict(shape=[B, T, TP_H], affine=False,
+                ms=tp_res[mode]["single_card_kernel_ms"],
+                **tp_ann_bounds(mode, B, T, TP_H, bf16=bf16)[direction],
+                plan=ann_plan(mode, (B, T, TP_H), bf16,
+                              backward=direction == "bwd"))
+
+
+def ann_kernel_rows(fwd, bwd, served, trained, tp_fwd, tp_bwd):
     """The ``kernels`` entries of the fused ANN cells, one per direction
-    and mode."""
+    and mode, with their plan and their time at H = 1024 (``at_h1024``)."""
     src = "sparch_tpu_torch/csrc/"
     tpu = "sparch_tpu/ops/pallas_ann.py:"
     rows = []
@@ -1572,12 +1631,14 @@ def ann_kernel_rows(fwd, bwd, served, trained):
             max_abs_err=f["max_abs_err"], ms=f["ms"], plain_ms=f["plain_ms"],
             **b["fwd"], library_ms=None, ms_train=f["ms_train"],
             plain_ms_train=f["plain_ms_train"],
-            bound_ms_train=b["fwd_train"]["bound_ms"]))
+            bound_ms_train=b["fwd_train"]["bound_ms"], plan=f["plan"],
+            at_h1024=at_h1024(mode, tp_fwd, "fwd")))
         name = f"fused_ann_bwd_{mode}"
         rows.append(dict(
             name=name, route="cuda", source=src + "fused_ann_bwd.cu",
             replaces=tpu + "392", launches=trained[mode][name], **bwd[mode],
-            **b["bwd"], library_ms=None))
+            **b["bwd"], library_ms=None,
+            at_h1024=at_h1024(mode, tp_bwd, "bwd")))
     return rows
 
 
@@ -1872,7 +1933,8 @@ def training_remat(dev, state_dict, x, y):
          without_remat=plain["row"], with_remat=remat["row"])
 
 
-def bf16_kernel_rows(cell_fwd, cell_bwd, ann_fwd, ann_bwd, served, trained):
+def bf16_kernel_rows(cell_fwd, cell_bwd, ann_fwd, ann_bwd, served, trained,
+                     tp_ann_fwd, tp_ann_bwd):
     """The ``kernels`` entries of the bf16-stream forms; their launches are
     those of the bf16 ``auto`` Predictors and trainers."""
     src = "sparch_tpu_torch/csrc/"
@@ -1906,12 +1968,14 @@ def bf16_kernel_rows(cell_fwd, cell_bwd, ann_fwd, ann_bwd, served, trained):
             max_abs_err=f["max_abs_err"], ms=f["ms"], plain_ms=f["plain_ms"],
             **b["fwd"], library_ms=None, ms_train=f["ms_train"],
             plain_ms_train=f["plain_ms_train"],
-            bound_ms_train=b["fwd_train"]["bound_ms"]))
+            bound_ms_train=b["fwd_train"]["bound_ms"], plan=f["plan"],
+            at_h1024=at_h1024(mode, tp_ann_fwd, "fwd", bf16=True)))
         name = f"fused_ann_bwd_{mode}_bf16"
         rows.append(dict(
             name=name, route="cuda", source=src + "fused_ann_bwd.cu",
             replaces=tpu + "392", launches=trained[ann_type][name],
-            **ann_bwd[mode], **b["bwd"], library_ms=None))
+            **ann_bwd[mode], **b["bwd"], library_ms=None,
+            at_h1024=at_h1024(mode, tp_ann_bwd, "bwd", bf16=True)))
     return rows
 
 
@@ -2978,9 +3042,11 @@ def main() -> int:
              source=src + "readout_bwd.cu", replaces=tpu + "1274",
              launches=trained["readout_bwd"], **readout_bwd,
              **bound(2 * readout_bytes, 2 * readout_ops), library_ms=None),
-    ] + ann_kernel_rows(ann_fwd, ann_bwd, ann_served, ann_trained) \
+    ] + ann_kernel_rows(ann_fwd, ann_bwd, ann_served, ann_trained,
+                        tp_ann_fwd, tp_ann_bwd) \
         + bf16_kernel_rows(bf16_cell, bf16_bwd, bf16_ann_fwd, bf16_ann_bwd,
-                           bf16_served, bf16_trained) \
+                           bf16_served, bf16_trained, tp_ann_fwd16,
+                           tp_ann_bwd16) \
         + tp_kernel_rows(tp_coll_launches, tp_coll, tp_fwd, tp_bwd,
                          tp_trained) \
         + tp_ann_kernel_rows(tp_ann_fwd, tp_ann_bwd, tp_ann_trained) \

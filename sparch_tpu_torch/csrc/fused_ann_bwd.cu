@@ -39,51 +39,66 @@
 // drpre @ Vr^T); then the dV outer products, 2*B*T*H*H FLOP per gate. At
 // (128, 100, 512) the GRU does 40 GFLOP (0.60 ms at the float32 peak
 // outside the tensor cores) on 290 MB of streams (87 us at HBM rate):
-// operations bound it, and in this version the L2 traffic of the time
-// loop does.
+// operations bound it.
 //
 // Design:
-// - Time loop: that of fused_ann_fwd.cu in reverse. One block owns BT
-//   batch rows for all T, thread j owns NPT neurons with the carried
-//   adjoint in registers, each gate's dpre is published in shared memory
-//   as [neuron][row], and the transposed matrices (V^T, Vz^T, Vr^T,
-//   transposed, row-padded and packed once by the wrapper) stream from L2
-//   in 64 KB bulk-copy tiles behind mbarriers (tile_stream.cuh), summed in
-//   ascending order with FMAs.
+// - Time loop: that of fused_ann_fwd.cu in reverse (cluster_slice.cuh). A
+//   cluster of C blocks owns R batch rows for all T, block k the column
+//   slice k*Hs .. k*Hs+Hs-1 of V^T, Vz^T, Vr^T (the rows of V: the adjoint
+//   of its neurons), thread (tx, ty) neuron k*Hs + tx for four of the rows
+//   with the carried adjoint in registers. A step exchanges each gate's
+//   dpre through distributed shared memory and runs its adjoint products
+//   in passes: RNN dpre on parity s & 1 (s = T-1-t), then V^T; LiGRU
+//   [dcpre | dzpre] on parity s & 1, then [V^T | Vz^T]; GRU [dcpre |
+//   dzpre] on parity 0, then [V^T | Vz^T] (dry and the z term), drpre on
+//   parity 1, then Vr^T. Each column is summed over all H rows in
+//   ascending order with FMAs, so dWx, dy0 and the carried adjoint are
+//   those of the kernel this design replaced (one block for whole rows)
+//   and of tp_ann_bwd.cu without the affine and the dropout, bit for bit.
+//   The slice stays in shared memory where it fits, else it streams from
+//   L2 once per cluster and step.
 // - Reductions are in a fixed order, so two runs give the same bits, and
-//   use no atomics. dscale and dshift: each thread sums its neurons over
-//   its rows and all T in registers and writes partials[block][2*gates][H];
-//   a second kernel adds the blocks in ascending order. dV: a product
-//   kernel after the time loop, per gate one (H, B*T) x (B*T, H) product
-//   of the y series shifted by one step (times r for the GRU's candidate)
-//   with the stored dpre series (dWx itself without the affine, else a
-//   scratch series written beside it, since dWx is then dpre*scale).
-//   64x64 tiles, 4x4 per thread, split over B*T into partials that the
-//   same second kernel adds in ascending order (dv_product.cuh, shared
-//   with tp_ann_bwd.cu).
+//   use no atomics. dscale and dshift: each thread sums its neuron over
+//   each pair of its rows (PAIR: H <= 512) or each row, steps from the last
+//   and rows ascending within a step, in registers, and writes
+//   partials[part][2*gates][H]; a second kernel adds the parts in ascending
+//   order. These are the sums of the kernel before the cluster split (one
+//   block for two rows, or one row, of every step), so dscale and dshift
+//   keep their bits too, and a training run its trajectory.
+//   dV: a product kernel after the time loop, per gate one (H, B*T) x (B*T,
+//   H) product of the y series shifted by one step (times r for the GRU's
+//   candidate) with the stored dpre series (dWx itself without the affine,
+//   else a scratch series written beside it, since dWx is then
+//   dpre*scale). 64x64 tiles, 4x4 per thread, split over B*T into partials
+//   that the same second kernel adds in ascending order (dv_product.cuh,
+//   shared with tp_ann_bwd.cu).
 // - Edges are masked: rows >= B and neurons >= H load nothing, hold zero
 //   adjoints and store nothing.
 //
-// C interface, bound with ctypes: sparch_fused_ann_bwd enqueues all the
-// kernels on the stream, returns cudaGetLastError() (or an invalid-value
-// error for arguments it does not take) and never synchronises. n_blocks
-// and ksplit size the caller's partials buffers and are checked against
-// the plan here.
+// C interface, bound with ctypes: sparch_fused_ann_bwd checks the plan it
+// is given (ops/fused_ann.py `_bwd_plan`: the time loop's cluster, rows
+// and resident slice, and n_parts and ksplit, which size the caller's
+// partials buffers) against its own, enqueues all the kernels on the
+// stream, returns the first launch error (or an invalid-value error for
+// arguments it does not take) and never synchronises, unless it is given
+// split_ms: then it records CUDA events around each launch, waits for them
+// and writes the milliseconds of the time loop, the dV product and the
+// second passes there.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster_slice.cuh"
 #include "dropout_hash.cuh"
 #include "dv_product.cuh"
-#include "tile_stream.cuh"
 
 namespace {
 
 using namespace sparch;
+using slice::kRt;
 
-constexpr int kThreads = 512;
-constexpr int kWork = 2;    // rows a block owns times neurons a thread owns
-constexpr int kMaxNpt = 4;  // so H <= kThreads * kMaxNpt = 2048
+constexpr int kMaxH = 2048;
+constexpr int kPairH = 512;  // dscale/dshift partials of two rows up to here
 constexpr int kRnn = 0, kLigru = 1, kGru = 2;
 
 struct Args {
@@ -95,7 +110,7 @@ struct Args {
   const void* r;
   const void* c;
   const float* scale;  // (gates, H), or null for no affine
-  const void* VT;      // the packed transposed matrices, by gate
+  const void* VT;      // the packed slices of the transposed matrices
   const float* y0;
   const int* seed;     // null for no dropout
   void* dwx[3];        // float, bf16 in the bf16 mode, like dd
@@ -108,235 +123,229 @@ struct Args {
   uint32_t keep_u32;
   float inv_keep;
   int tile_rows;
+  int wx_bf16;         // the input streams are bf16, not float
+  int n_parts;         // partials of dscale/dshift
+  slice::Plan plan;
 };
 
-// The bf16 mode's one more flag rides in a struct of its own, so that the
-// float32 kernels' parameter block, and with it their code, stays what it
-// was before the mode existed (an int appended to Args changed how the
-// float32 time loops compiled).
-struct ArgsBf16 : Args {
-  int wx_bf16;  // the input streams are bf16, not float
-};
-template <bool BF>
-struct ModeArgs {
-  using type = Args;
-};
-template <>
-struct ModeArgs<true> {
-  using type = ArgsBf16;
-};
-
-template <int NPT, int BT>
-__device__ __forceinline__ void clear(float (&acc)[NPT][BT]) {
-#pragma unroll
-  for (int i = 0; i < NPT; ++i) {
-#pragma unroll
-    for (int r = 0; r < BT; ++r) acc[i][r] = 0.f;
-  }
-}
-
-template <int MODE, int NPT, bool BF>
-__global__ void __launch_bounds__(kThreads)
-fused_ann_bwd_kernel(const typename ModeArgs<BF>::type p) {
+template <int MODE, bool BF, bool PAIR>
+__global__ void __launch_bounds__(slice::kMaxThreads, 1)
+fused_ann_bwd_kernel(const Args p) {
   using ST = typename Elem<BF>::type;
-  constexpr int BT = kWork / NPT > 0 ? kWork / NPT : 1;
   constexpr int G = MODE + 1;
-  // one published dpre per gate (H*BT floats each), then the stream's
-  // stages
-  extern __shared__ __align__(16) float pub[];
+  constexpr int PR = PAIR ? 2 : 1;          // rows of a dscale partial
+  constexpr int NS = kRt / PR;              // partials a thread sums
+  constexpr int NA = MODE == kRnn ? 1 : 2;      // gates of the first pass
+  constexpr int PL = MODE == kRnn ? 1 : 2;      // operands of a parity
+  // two parities of PL [j][row] operands (R*H floats each), then the
+  // resident slice or the stream's stages
+  extern __shared__ __align__(16) float smem[];
   __shared__ uint64_t full[kStages];
-  const int H = p.H;
-  const int T = p.T;
-  const int row0 = blockIdx.x * BT;
+  const slice::Plan& pl = p.plan;
+  const int H = p.H, T = p.T, R = pl.rows, Hs = pl.cols, C = pl.cluster;
+  const int k = (int)(blockIdx.x % C);
+  const int cluster = (int)(blockIdx.x / C);
+  const int row_base = cluster * R;
+  const size_t RH = (size_t)R * H;
+
+  const int tx = threadIdx.x % Hs;
+  const int ty_raw = threadIdx.x / Hs;
+  const bool thread_live = ty_raw < R / kRt;
+  const int ry0 = thread_live ? ty_raw * kRt : 0;
+  const int row0 = row_base + ry0;
+  const int col = k * Hs + tx;
+  const bool live = thread_live && col < H;
   const bool affine = p.scale != nullptr;
   const bool dropout = p.seed != nullptr;
+  const bool wx_bf16 = BF && p.wx_bf16;
 
-  TileStream<ST> s = stream_over(
-      static_cast<const ST*>(p.VT),
-      reinterpret_cast<ST*>(pub + ((G * H * BT + 3) & ~3)), full, H, G, T);
-  bool wx_bf16 = false;
-  if constexpr (BF) wx_bf16 = p.wx_bf16;
+  const int gates[2] = {NA, MODE == kGru ? 1 : 0};
+  slice::Stream<ST> s = slice::open_stream(
+      static_cast<const ST*>(p.VT) + (size_t)k * G * H * Hs,
+      reinterpret_cast<ST*>(smem + 2 * PL * RH), full, pl, H, Hs, gates, T);
+  slice::begin(s);
   const ST* g_in = static_cast<const ST*>(p.g);
   const ST* y_seq = static_cast<const ST*>(p.y_seq);
   const ST* z_in = static_cast<const ST*>(p.z);
   const ST* r_in = static_cast<const ST*>(p.r);
   const ST* c_in = static_cast<const ST*>(p.c);
 
-  float sc[G][NPT], dsc[G][NPT], dsh[G][NPT];
-  float D[NPT][BT];
-  int col[NPT];
-  bool live[NPT];
-  bool rowlive[BT];
-  uint32_t drop_base[BT];
+  float sc[G], dsc[G][NS], dsh[G][NS];
+  float D[kRt];
+  bool rowlive[kRt];
+  uint32_t drop_base[kRt];
 #pragma unroll
-  for (int r = 0; r < BT; ++r) {
-    rowlive[r] = row0 + r < p.B;
+  for (int r = 0; r < kRt; ++r) {
+    rowlive[r] = thread_live && row0 + r < p.B;
     drop_base[r] = (dropout && rowlive[r])
                        ? dropout_row_base(p.seed, row0 + r, p.tile_rows)
                        : 0u;
+    D[r] = 0.f;
   }
+  const int c0 = live ? col : 0;
 #pragma unroll
-  for (int i = 0; i < NPT; ++i) {
-    const int j = threadIdx.x + i * blockDim.x;
-    live[i] = j < H;
-    col[i] = live[i] ? j : 0;
+  for (int g = 0; g < G; ++g) {
+    sc[g] = affine ? p.scale[g * H + c0] : 1.f;
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      sc[g][i] = affine ? p.scale[g * H + col[i]] : 1.f;
-      dsc[g][i] = dsh[g][i] = 0.f;
-    }
+    for (int q = 0; q < NS; ++q) dsc[g][q] = dsh[g][q] = 0.f;
   }
-  clear<NPT, BT>(D);
-  stream_open(s);
+  // every block of the cluster runs before any stores into it
+  slice::cluster_barrier();
+  slice::await_resident(s);
 
   for (int t = T - 1; t >= 0; --t) {
-    float Gt[NPT][BT], yp[NPT][BT], z[NPT][BT], rr[NPT][BT], c[NPT][BT];
-    float dpre[G][NPT][BT];
+    const int par = (T - 1 - t) & 1;
+    float Gt[kRt], yp[kRt], z[kRt], rr[kRt], c[kRt];
+    float dpre[G][kRt];
 #pragma unroll
-    for (int i = 0; i < NPT; ++i) {
-#pragma unroll
-      for (int r = 0; r < BT; ++r) {
-        const bool ok = live[i] && rowlive[r];
-        const size_t row = (size_t)(row0 + r);
-        const size_t at = (row * T + t) * H + col[i];
-        float g_t = ok ? to_float(g_in[at]) : 0.f;
-        if (dropout) {
-          g_t = dropout_keep(drop_base[r], col[i], t, p.keep_u32)
-                    ? g_t * p.inv_keep
-                    : 0.f;
-        }
-        Gt[i][r] = g_t + D[i][r];
-        if constexpr (MODE == kRnn) {
-          const float y_t = ok ? to_float(y_seq[at]) : 0.f;
-          dpre[0][i][r] = Gt[i][r] * y_t * (1.0f - y_t);
+    for (int r = 0; r < kRt; ++r) {
+      const bool ok = live && rowlive[r];
+      const size_t row = (size_t)(row0 + r);
+      const size_t at = (row * T + t) * H + col;
+      float g_t = ok ? to_float(g_in[at]) : 0.f;
+      if (dropout) {
+        g_t = dropout_keep(drop_base[r], col, t, p.keep_u32)
+                  ? g_t * p.inv_keep
+                  : 0.f;
+      }
+      Gt[r] = g_t + D[r];
+      if constexpr (MODE == kRnn) {
+        const float y_t = ok ? to_float(y_seq[at]) : 0.f;
+        dpre[0][r] = Gt[r] * y_t * (1.0f - y_t);
+      } else {
+        yp[r] = !ok ? 0.f
+                    : (t > 0 ? to_float(y_seq[at - H]) : p.y0[row * H + col]);
+        z[r] = ok ? to_float(z_in[at]) : 0.f;
+        c[r] = ok ? to_float(c_in[at]) : 0.f;
+        const float omz = 1.0f - z[r];
+        dpre[1][r] = Gt[r] * (yp[r] - c[r]) * z[r] * omz;
+        if constexpr (MODE == kLigru) {
+          dpre[0][r] = c[r] > 0.f ? Gt[r] * omz : 0.f;
         } else {
-          yp[i][r] = !ok ? 0.f
-                         : (t > 0 ? to_float(y_seq[at - H])
-                                  : p.y0[row * H + col[i]]);
-          z[i][r] = ok ? to_float(z_in[at]) : 0.f;
-          c[i][r] = ok ? to_float(c_in[at]) : 0.f;
-          const float omz = 1.0f - z[i][r];
-          dpre[1][i][r] = Gt[i][r] * (yp[i][r] - c[i][r]) * z[i][r] * omz;
-          if constexpr (MODE == kLigru) {
-            dpre[0][i][r] = c[i][r] > 0.f ? Gt[i][r] * omz : 0.f;
-          } else {
-            rr[i][r] = ok ? to_float(r_in[at]) : 0.f;
-            dpre[0][i][r] = Gt[i][r] * omz * (1.0f - c[i][r] * c[i][r]);
-          }
+          rr[r] = ok ? to_float(r_in[at]) : 0.f;
+          dpre[0][r] = Gt[r] * omz * (1.0f - c[r] * c[r]);
         }
       }
     }
-    // the step before left its last product behind a barrier, so the
-    // buffers are free
-    float acc[G][NPT][BT];
-    publish<NPT, BT, BF>(pub, dpre[0], col, live);
-    clear<NPT, BT>(acc[0]);
-    if constexpr (MODE != kRnn) {
-      publish<NPT, BT, BF>(pub + H * BT, dpre[1], col, live);
-      clear<NPT, BT>(acc[1]);
+    // the GRU's [dcpre | dzpre] on parity 0, the others' dpre on par
+    float* op = smem + (size_t)(MODE == kGru ? 0 : par) * PL * RH;
+    if (live) {
+      slice::to_cluster<BF>(op, (size_t)col * R + ry0, dpre[0], C);
+      if constexpr (MODE != kRnn) {
+        slice::to_cluster<BF>(op + RH, (size_t)col * R + ry0, dpre[1], C);
+      }
     }
-    stream_matrix<NPT, BT>(s, pub, col, acc[0]);  // dpre_0 @ V^T
+    slice::cluster_barrier();
+    float a[NA][kRt];
+#pragma unroll
+    for (int g = 0; g < NA; ++g) {
+#pragma unroll
+      for (int r = 0; r < kRt; ++r) a[g][r] = 0.f;
+    }
+    // dpre_0 @ V^T [, dpre_1 @ Vz^T]
+    slice::pass<NA, NA == 1>(s, 0, op + ry0, (int)RH, R, tx, Hs, a);
+    float a2[1][kRt] = {};
     if constexpr (MODE == kGru) {
-      // acc[0] is dry, the adjoint of r*y_p
+      // a[0] is dry, the adjoint of r*y_p
 #pragma unroll
-      for (int i = 0; i < NPT; ++i) {
-#pragma unroll
-        for (int r = 0; r < BT; ++r) {
-          dpre[2][i][r] =
-              acc[0][i][r] * yp[i][r] * rr[i][r] * (1.0f - rr[i][r]);
-        }
+      for (int r = 0; r < kRt; ++r) {
+        dpre[2][r] = a[0][r] * yp[r] * rr[r] * (1.0f - rr[r]);
       }
-      publish<NPT, BT, BF>(pub + 2 * H * BT, dpre[2], col, live);
-      clear<NPT, BT>(acc[2]);
-    }
-    if constexpr (MODE != kRnn) {
-      stream_matrix<NPT, BT>(s, pub + H * BT, col, acc[1]);  // @ Vz^T
-    }
-    if constexpr (MODE == kGru) {
-      stream_matrix<NPT, BT>(s, pub + 2 * H * BT, col, acc[2]);  // @ Vr^T
+      float* op1 = smem + PL * RH;
+      if (live) slice::to_cluster<BF>(op1, (size_t)col * R + ry0, dpre[2], C);
+      slice::cluster_barrier();
+      slice::pass<1, true>(s, 1, op1 + ry0, 0, R, tx, Hs, a2);  // @ Vr^T
     }
 #pragma unroll
-    for (int i = 0; i < NPT; ++i) {
+    for (int r = 0; r < kRt; ++r) {
+      if constexpr (MODE == kRnn) {
+        D[r] = a[0][r];
+      } else if constexpr (MODE == kLigru) {
+        D[r] = Gt[r] * z[r] + a[0][r] + a[1][r];
+      } else {
+        D[r] = Gt[r] * z[r] + a[0][r] * rr[r] + a[1][r] + a2[0][r];
+      }
+      const bool ok = live && rowlive[r];
+      const size_t at = ((size_t)(row0 + r) * T + t) * H + col;
 #pragma unroll
-      for (int r = 0; r < BT; ++r) {
-        if constexpr (MODE == kRnn) {
-          D[i][r] = acc[0][i][r];
-        } else if constexpr (MODE == kLigru) {
-          D[i][r] = Gt[i][r] * z[i][r] + acc[0][i][r] + acc[1][i][r];
-        } else {
-          D[i][r] = Gt[i][r] * z[i][r] + acc[0][i][r] * rr[i][r] +
-                    acc[1][i][r] + acc[2][i][r];
-        }
-        const bool ok = live[i] && rowlive[r];
-        const size_t at = ((size_t)(row0 + r) * T + t) * H + col[i];
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const float dp = dpre[g][i][r];
-          if (affine) {
-            const float wx_t =
-                ok ? load_stream<BF>(p.wx[g], at, wx_bf16) : 0.f;
-            dsc[g][i] += dp * wx_t;
-            dsh[g][i] += dp;
-            if (ok) {
-              static_cast<ST*>(p.dwx[g])[at] = from_float<ST>(dp * sc[g][i]);
-              static_cast<ST*>(p.dd[g])[at] = from_float<ST>(dp);
-            }
-          } else if (ok) {
-            static_cast<ST*>(p.dwx[g])[at] = from_float<ST>(dp);
+      for (int g = 0; g < G; ++g) {
+        const float dp = dpre[g][r];
+        if (affine) {
+          const float wx_t = ok ? load_stream<BF>(p.wx[g], at, wx_bf16) : 0.f;
+          dsc[g][r / PR] += dp * wx_t;
+          dsh[g][r / PR] += dp;
+          if (ok) {
+            static_cast<ST*>(p.dwx[g])[at] = from_float<ST>(dp * sc[g]);
+            static_cast<ST*>(p.dd[g])[at] = from_float<ST>(dp);
           }
+        } else if (ok) {
+          static_cast<ST*>(p.dwx[g])[at] = from_float<ST>(dp);
         }
       }
     }
   }
 
-  float* part = p.partials + (size_t)blockIdx.x * 2 * G * H;
+  if (!live) return;
 #pragma unroll
-  for (int i = 0; i < NPT; ++i) {
-    if (!live[i]) continue;
+  for (int r = 0; r < kRt; ++r) {
+    if (rowlive[r]) p.dy0[(size_t)(row0 + r) * H + col] = D[r];
+  }
+  if (affine) {
 #pragma unroll
-    for (int r = 0; r < BT; ++r) {
-      if (rowlive[r]) p.dy0[(size_t)(row0 + r) * H + col[i]] = D[i][r];
-    }
+    for (int q = 0; q < NS; ++q) {
+      const int part_i = row0 / PR + q;
+      if (part_i >= p.n_parts) break;
+      float* part = p.partials + (size_t)part_i * 2 * G * H;
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      part[g * H + col[i]] = dsc[g][i];
-      part[(G + g) * H + col[i]] = dsh[g][i];
+      for (int g = 0; g < G; ++g) {
+        part[g * H + col] = dsc[g][q];
+        part[(G + g) * H + col] = dsh[g][q];
+      }
     }
   }
 }
 
-template <int MODE, int NPT, bool BF>
-void launch_one(const ArgsBf16& p, int n_blocks, int threads, cudaStream_t st) {
-  constexpr int BT = kWork / NPT > 0 ? kWork / NPT : 1;
-  constexpr int G = MODE + 1;
-  const size_t smem = ((((size_t)G * p.H * BT + 3) & ~(size_t)3) +
-                       (size_t)kStages * kTileFloats) * sizeof(float);
-  // more than 48 KB of dynamic shared memory has to be asked for
-  cudaFuncSetAttribute(fused_ann_bwd_kernel<MODE, NPT, BF>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  fused_ann_bwd_kernel<MODE, NPT, BF><<<n_blocks, threads, smem, st>>>(p);
-}
-
-template <int MODE, bool BF>
-void launch_mode(const ArgsBf16& p, int n_blocks, int npt, int threads,
-                 cudaStream_t st) {
-  switch (npt) {
-    case 1: launch_one<MODE, 1, BF>(p, n_blocks, threads, st); break;
-    case 2: launch_one<MODE, 2, BF>(p, n_blocks, threads, st); break;
-    default: launch_one<MODE, 4, BF>(p, n_blocks, threads, st); break;
-  }
-}
+using Kernel = void (*)(Args);
 
 template <int MODE>
-void launch_npt(const ArgsBf16& p, bool bf16, int n_blocks, int npt, int threads,
-                cudaStream_t st) {
-  if (bf16) {
-    launch_mode<MODE, true>(p, n_blocks, npt, threads, st);
-  } else {
-    launch_mode<MODE, false>(p, n_blocks, npt, threads, st);
+Kernel kernel_of(int H, int bf16) {
+  if (H <= kPairH) {
+    return bf16 ? fused_ann_bwd_kernel<MODE, true, true>
+                : fused_ann_bwd_kernel<MODE, false, true>;
+  }
+  return bf16 ? fused_ann_bwd_kernel<MODE, true, false>
+              : fused_ann_bwd_kernel<MODE, false, false>;
+}
+
+// The instantiation that a launch of the mode at width H takes.
+Kernel kernel_for(int mode, int H, int bf16) {
+  switch (mode) {
+    case kRnn: return kernel_of<kRnn>(H, bf16);
+    case kLigru: return kernel_of<kLigru>(H, bf16);
+    default: return kernel_of<kGru>(H, bf16);
   }
 }
+
+slice::Plan bwd_plan(int B, int H, int mode, int bf16) {
+  return slice::make_plan(B, H, mode + 1, bf16 ? 2 : 4, mode == kRnn ? 1 : 2);
+}
+
+// Events around the launches of one call, where split_ms asks for them.
+struct Split {
+  cudaEvent_t ev[4] = {nullptr, nullptr, nullptr, nullptr};
+  bool on = false;
+  explicit Split(bool want) : on(want) {
+    if (!on) return;
+    for (auto& e : ev) cudaEventCreate(&e);
+  }
+  ~Split() {
+    if (!on) return;
+    for (auto& e : ev) cudaEventDestroy(e);
+  }
+  void mark(int i, cudaStream_t st) {
+    if (on) cudaEventRecord(ev[i], st);
+  }
+};
 
 }  // namespace
 
@@ -344,8 +353,13 @@ void launch_npt(const ArgsBf16& p, bool bf16, int n_blocks, int npt, int threads
 // affine: wx, dd and vecs are then not touched) and seed (no dropout).
 // Operands of gates the mode lacks are ignored. vecs is (2*gates, H):
 // dscale by gate, then dshift by gate. bf16 selects the bf16-stream mode:
-// g, the residual series, dwx, dd and VT (rows padded to eight elements) are
-// then bf16, and the raw input streams are bf16 where wx_bf16.
+// g, the residual series, dwx, dd and VT are then bf16, and the raw input
+// streams are bf16 where wx_bf16. VT: every block's slice of the
+// transposed matrices (ops/fused_ann.py `_pack_slices`); cluster, rows,
+// resident, n_parts (partials is (n_parts, 2*gates, H), a part of two
+// rows at H <= 512, else of one) and ksplit
+// (dv_partials is (ksplit, gates, H, H)): the plan. split_ms: null, or
+// three floats of host memory (see above).
 extern "C" int sparch_fused_ann_bwd(
     const void* g, const void* wx0, const void* wx1, const void* wx2,
     const void* y_seq, const void* z, const void* r, const void* c,
@@ -353,12 +367,13 @@ extern "C" int sparch_fused_ann_bwd(
     void* dwx0, void* dwx1, void* dwx2, void* dd0, void* dd1,
     void* dd2, float* partials, float* vecs, float* dV, float* dv_partials,
     float* dy0, int B, int T, int H, int mode, unsigned int keep_u32,
-    float inv_keep, int tile_rows, int n_blocks, int ksplit, int bf16,
-    int wx_bf16, void* stream) {
+    float inv_keep, int tile_rows, int cluster, int rows, int resident,
+    int n_parts, int ksplit, int bf16, int wx_bf16, float* split_ms,
+    void* stream) {
   const void* wx[3] = {wx0, wx1, wx2};
   void* dwx[3] = {dwx0, dwx1, dwx2};
   void* dd[3] = {dd0, dd1, dd2};
-  if (B <= 0 || T <= 0 || H <= 0 || H > kThreads * kMaxNpt || mode < kRnn ||
+  if (B <= 0 || T <= 0 || H <= 0 || H > kMaxH || mode < kRnn ||
       mode > kGru || !g || !y_seq || !VT || !y0 || !partials || !vecs ||
       !dV || !dv_partials || !dy0 || (mode >= kLigru && (!z || !c)) ||
       (mode == kGru && !r) || (seed && tile_rows <= 0) || ksplit < 1 ||
@@ -372,38 +387,23 @@ extern "C" int sparch_fused_ann_bwd(
       return (int)cudaErrorInvalidValue;
     }
   }
-  // fewest neurons per thread that keep the block within kThreads
-  int npt = 1;
-  while ((H + npt - 1) / npt > kThreads) npt *= 2;
-  const int bt = kWork / npt > 0 ? kWork / npt : 1;
-  if (n_blocks != (B + bt - 1) / bt) return (int)cudaErrorInvalidValue;
-  const int threads = (((H + npt - 1) / npt) + 31) / 32 * 32;
-  const ArgsBf16 p{{g, {wx0, wx1, wx2}, y_seq, z, r, c, scale, VT, y0, seed,
-                    {dwx0, dwx1, dwx2}, {dd0, dd1, dd2}, partials, dy0, B, T,
-                    H, keep_u32, inv_keep, tile_rows},
-                   wx_bf16};
+  const slice::Plan pl = bwd_plan(B, H, mode, bf16);
+  const int part_rows = H <= kPairH ? 2 : 1;
+  if (cluster != pl.cluster || rows != pl.rows || resident != pl.resident ||
+      pl.threads > slice::kMaxThreads ||
+      n_parts != (B + part_rows - 1) / part_rows) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Args p{g, {wx0, wx1, wx2}, y_seq, z, r, c, scale, VT, y0, seed,
+               {dwx0, dwx1, dwx2}, {dd0, dd1, dd2}, partials, dy0, B, T, H,
+               keep_u32, inv_keep, tile_rows, wx_bf16, n_parts, pl};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kRnn:
-      launch_npt<kRnn>(p, bf16 != 0, n_blocks, npt, threads, st);
-      break;
-    case kLigru:
-      launch_npt<kLigru>(p, bf16 != 0, n_blocks, npt, threads, st);
-      break;
-    default:
-      launch_npt<kGru>(p, bf16 != 0, n_blocks, npt, threads, st);
-      break;
-  }
-  int err = (int)cudaGetLastError();
+  Split split(split_ms != nullptr);
+  split.mark(0, st);
+  int err = (int)slice::launch(kernel_for(mode, H, bf16), pl, p, st);
+  if (err == 0) err = (int)cudaGetLastError();
   if (err != 0) return err;
-
-  if (affine) {
-    const int n_vec = 2 * G * H;
-    sum_parts_kernel<<<(n_vec + 255) / 256, 256, 0, st>>>(partials, vecs,
-                                                          n_blocks, n_vec);
-    err = (int)cudaGetLastError();
-    if (err != 0) return err;
-  }
+  split.mark(1, st);
 
   const int R = B * T;
   // rows per split, a multiple of the stage depth
@@ -421,8 +421,35 @@ extern "C" int sparch_fused_ann_bwd(
   }
   err = (int)cudaGetLastError();
   if (err != 0) return err;
+  split.mark(2, st);
+
+  if (affine) {
+    const int n_vec = 2 * G * H;
+    sum_parts_kernel<<<(n_vec + 255) / 256, 256, 0, st>>>(partials, vecs,
+                                                          n_parts, n_vec);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
   const int n = G * H * H;
   sum_parts_kernel<<<(n + 255) / 256, 256, 0, st>>>(dv_partials, dV, ksplit,
                                                     n);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  split.mark(3, st);
+  if (split.on) {
+    cudaEventSynchronize(split.ev[3]);
+    for (int i = 0; i < 3; ++i) {
+      cudaEventElapsedTime(&split_ms[i], split.ev[i], split.ev[i + 1]);
+    }
+  }
   return (int)cudaGetLastError();
+}
+
+// How many clusters of the time loop's plan for (B, H, mode, bf16) the card
+// holds at once (cudaOccupancyMaxActiveClusters), or -1.
+extern "C" int sparch_fused_ann_bwd_max_clusters(int B, int H, int mode,
+                                                 int bf16) {
+  if (B <= 0 || H <= 0 || H > kMaxH || mode < kRnn || mode > kGru) return -1;
+  const slice::Plan pl = bwd_plan(B, H, mode, bf16);
+  return slice::max_active_clusters(kernel_for(mode, H, bf16), pl);
 }

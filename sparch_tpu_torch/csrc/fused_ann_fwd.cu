@@ -10,7 +10,7 @@
 // the output, the raw-y series and the gate residuals are bf16 streams, the
 // packed matrices are bf16 (rounded once by the wrapper), each input stream
 // is float32 or bf16 as the projection emitted it, both operands of every
-// product are rounded to bf16 (y, or r*y, where it is published) and summed
+// product are rounded to bf16 (y, or r*y, where it is exchanged) and summed
 // in float32, and the carried y and all elementwise arithmetic stay float32.
 //
 // Per step, for one batch row (y is the previous step's state; gate 0 is
@@ -26,60 +26,61 @@
 // for: the gate series (z[, r], c) and, under dropout, the raw y series
 // beside the dropped output (without dropout the output is that series).
 //
-// What bounds it on this card: the dense products on the chain. Every
-// step is a (rows, H) x (H, H) float32 product per gate against matrices
-// that fit no SM (1 MB each at H = 512, 3 MB for the GRU), T steps one
-// after another, and the GRU has two dependent products per step
-// (y @ Vr -> r -> (r*y) @ V). At (128, 100, 512) the GRU does 20 GFLOP
-// (0.30 ms at the float32 peak outside the tensor cores) on 105 MB of
-// streams (31 us at HBM rate): operations bound it, and in this version
-// the L2 traffic does, since every block reads every matrix at every
-// step.
+// What bounds it on this card: the dense products on the chain, a (rows,
+// H) x (H, H) float32 product per gate and step, T steps one after another,
+// and the GRU's two dependent products per step (y @ Vr -> r -> (r*y) @ V).
+// At (128, 100, 512) the GRU does 20 GFLOP (0.30 ms at the float32 peak
+// outside the tensor cores) on 105 MB of streams (31 us at HBM rate):
+// operations bound it.
 //
-// Design (that of fused_cell_bwd.cu, whose adjoint product has the same
-// shape):
-// - One block owns BT batch rows for the whole sequence and loops over T;
-//   thread j owns NPT neurons for all BT rows (BT*NPT = kWork, BT = 2 at
-//   H <= 512) and keeps y in registers. Blocks run in no order and share
-//   nothing, so the TPU kernel's sequential grid over time chunks, its
-//   carried-product scratches and its padded tail have no counterpart.
-// - The left operand of a product (y, or r*y) is published in shared
-//   memory as [neuron][row] and read back as broadcasts; the matrices
-//   stream from L2 through shared memory in 64 KB bulk-copy tiles behind
-//   mbarriers (tile_stream.cuh), in the order a step reads them (RNN: V;
-//   LiGRU: V, Vz; GRU: Vz, Vr, then V), packed so by the wrapper. Each
-//   thread accumulates its columns over all H in ascending order with
-//   FMAs: float32 outside the tensor cores, one fixed summation order.
+// Design (cluster_slice.cuh): a thread-block cluster of C blocks owns R
+// batch rows for the whole sequence, block k the column slice k*Hs ..
+// k*Hs+Hs-1 of every matrix; thread (tx, ty) owns neuron k*Hs + tx for four
+// of the rows, every gate, y in registers. A step runs its products in
+// passes (RNN: V; LiGRU: [V | Vz]; GRU: [Vz | Vr], then V), each thread
+// summing its column over all H rows in ascending order with FMAs, one
+// shared-memory load of a matrix element for four rows. After each pass
+// that feeds another (the GRU's r*y, every step's y but the last) each
+// block stores its columns into every block's operand buffer through
+// distributed shared memory and the cluster crosses one barrier; the GRU's
+// r*y lands on parity 0 and y on parity 1, the RNN's and LiGRU's y of step
+// t on parity (t+1) & 1. The slice stays in shared memory where it fits
+// beside the operands, else it streams from L2 once per cluster and step.
 // - The step's input streams are loaded before its products, so their
-//   latency hides behind the stream.
+//   latency hides behind them.
 // - Edges are masked: rows >= B and neurons >= H load nothing and store
-//   nothing; nothing is padded but the rows of the packed matrices.
+//   nothing; the packed slices are zero past H.
+// - The sums and the elementwise code are those of the kernel this design
+//   replaced (one block for whole rows, streaming every matrix), so the
+//   outputs are its outputs bit for bit, and those of tp_ann_fwd.cu
+//   without the affine and the dropout.
 //
-// C interface, bound with ctypes: sparch_fused_ann_fwd returns
-// cudaGetLastError() after the launch (or an invalid-value error for
-// arguments it does not take) and never synchronises.
+// C interface, bound with ctypes: sparch_fused_ann_fwd checks the plan it
+// is given (ops/fused_ann.py `_fwd_plan`) against its own, launches the
+// clusters with cudaLaunchKernelEx, returns the launch's error (or an
+// invalid-value error for arguments it does not take) and never
+// synchronises.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster_slice.cuh"
 #include "dropout_hash.cuh"
-#include "tile_stream.cuh"
 
 namespace {
 
 using namespace sparch;
+using slice::kRt;
 
-constexpr int kThreads = 512;
-constexpr int kWork = 2;    // rows a block owns times neurons a thread owns
-constexpr int kMaxNpt = 4;  // so H <= kThreads * kMaxNpt = 2048
+constexpr int kMaxH = 2048;
 constexpr int kRnn = 0, kLigru = 1, kGru = 2;
 
 struct Args {
   const void* wx[3];   // float, or bf16 where wx_bf16 (bf16 mode only)
   const float* scale;  // (gates, H), or null for no affine
   const float* shift;
-  const void* V;       // the packed matrices, in the step's order; bf16 in
-                       // the bf16 mode, like the five output series
+  const void* V;       // the packed slices, [cluster][passes]; bf16 in the
+                       // bf16 mode, like the five output series
   const float* y0;
   const int* seed;     // null for no dropout
   void* y_out;
@@ -93,197 +94,183 @@ struct Args {
   uint32_t keep_u32;
   float inv_keep;
   int tile_rows;
-};
-
-// The bf16 mode's one more flag rides in a struct of its own, so that the
-// float32 kernels' parameter block, and with it their code, stays what it
-// was before the mode existed (an int appended to Args changed how the
-// float32 time loops compiled).
-struct ArgsBf16 : Args {
-  int wx_bf16;  // the input streams are bf16, not float
-};
-template <bool BF>
-struct ModeArgs {
-  using type = Args;
-};
-template <>
-struct ModeArgs<true> {
-  using type = ArgsBf16;
+  int wx_bf16;         // the input streams are bf16, not float
+  slice::Plan plan;
 };
 
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-template <int MODE, int NPT, bool BF>
-__global__ void __launch_bounds__(kThreads)
-fused_ann_fwd_kernel(const typename ModeArgs<BF>::type p) {
+template <int MODE, bool BF>
+__global__ void __launch_bounds__(slice::kMaxThreads, 1)
+fused_ann_fwd_kernel(const Args p) {
   using ST = typename Elem<BF>::type;
-  constexpr int BT = kWork / NPT > 0 ? kWork / NPT : 1;
   constexpr int G = MODE + 1;
-  // the published left operand (H*BT floats), then the stream's stages
-  extern __shared__ __align__(16) float pub[];
+  // the gates of the first pass (the GRU's second pass holds V)
+  constexpr int NA = MODE == kRnn ? 1 : 2;
+  // two parities of the [j][row] operand (R*H floats each), then the
+  // resident slice or the stream's stages
+  extern __shared__ __align__(16) float smem[];
   __shared__ uint64_t full[kStages];
-  const int H = p.H;
-  const int T = p.T;
-  const int row0 = blockIdx.x * BT;
+  const slice::Plan& pl = p.plan;
+  const int H = p.H, T = p.T, R = pl.rows, Hs = pl.cols, C = pl.cluster;
+  const int k = (int)(blockIdx.x % C);
+  const int row_base = (int)(blockIdx.x / C) * R;
+  const size_t RH = (size_t)R * H;
+  float* const op0 = smem;  // the two parities of the operand
+  float* const op1 = smem + RH;
+
+  const int tx = threadIdx.x % Hs;
+  const int ty_raw = threadIdx.x / Hs;
+  const bool thread_live = ty_raw < R / kRt;
+  const int ry0 = thread_live ? ty_raw * kRt : 0;
+  const int row0 = row_base + ry0;
+  const int col = k * Hs + tx;
+  const bool live = thread_live && col < H;
   const bool affine = p.scale != nullptr;
   const bool dropout = p.seed != nullptr;
+  const bool wx_bf16 = BF && p.wx_bf16;
 
-  TileStream<ST> s = stream_over(
-      static_cast<const ST*>(p.V),
-      reinterpret_cast<ST*>(pub + ((H * BT + 3) & ~3)), full, H, G, T);
-  bool wx_bf16 = false;
-  if constexpr (BF) wx_bf16 = p.wx_bf16;
+  const int gates[2] = {NA, MODE == kGru ? 1 : 0};
+  slice::Stream<ST> s = slice::open_stream(
+      static_cast<const ST*>(p.V) + (size_t)k * G * H * Hs,
+      reinterpret_cast<ST*>(smem + 2 * RH), full, pl, H, Hs, gates, T);
+  slice::begin(s);
 
-  float sc[G][NPT], sh[G][NPT];
-  float y[NPT][BT];
-  int col[NPT];
-  bool live[NPT];
-  bool rowlive[BT];
-  uint32_t drop_base[BT];
+  float sc[G], sh[G];
+  float y[kRt];
+  bool rowlive[kRt];
+  uint32_t drop_base[kRt];
 #pragma unroll
-  for (int r = 0; r < BT; ++r) {
-    rowlive[r] = row0 + r < p.B;
+  for (int r = 0; r < kRt; ++r) {
+    rowlive[r] = thread_live && row0 + r < p.B;
     drop_base[r] = (dropout && rowlive[r])
                        ? dropout_row_base(p.seed, row0 + r, p.tile_rows)
                        : 0u;
   }
+  const int c0 = live ? col : 0;
 #pragma unroll
-  for (int i = 0; i < NPT; ++i) {
-    const int j = threadIdx.x + i * blockDim.x;
-    live[i] = j < H;
-    col[i] = live[i] ? j : 0;
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      sc[g][i] = affine ? p.scale[g * H + col[i]] : 1.f;
-      sh[g][i] = affine ? p.shift[g * H + col[i]] : 0.f;
-    }
-#pragma unroll
-    for (int r = 0; r < BT; ++r) {
-      y[i][r] = (live[i] && rowlive[r])
-                    ? p.y0[(size_t)(row0 + r) * H + col[i]]
-                    : 0.f;
-    }
+  for (int g = 0; g < G; ++g) {
+    sc[g] = affine ? p.scale[g * H + c0] : 1.f;
+    sh[g] = affine ? p.shift[g * H + c0] : 0.f;
   }
-  publish<NPT, BT, BF>(pub, y, col, live);
-  stream_open(s);
+#pragma unroll
+  for (int r = 0; r < kRt; ++r) {
+    y[r] = (live && rowlive[r]) ? p.y0[(size_t)(row0 + r) * H + col] : 0.f;
+  }
+  // the first left operand, the cluster's rows of y0: the GRU reads y
+  // from parity 1, the others y of step t from parity t & 1
+  slice::load_state<BF>(MODE == kGru ? op1 : op0, p.y0, p.B, H, R,
+                        row_base);
+  // every block of the cluster runs, and its operand is in place
+  slice::cluster_barrier();
+  slice::await_resident(s);
 
   for (int t = 0; t < T; ++t) {
-    float d[G][NPT][BT];
-    float acc[G][NPT][BT];
+    float d[G][kRt];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
 #pragma unroll
-      for (int i = 0; i < NPT; ++i) {
-#pragma unroll
-        for (int r = 0; r < BT; ++r) {
-          const size_t at = ((size_t)(row0 + r) * T + t) * H + col[i];
-          const float x = (live[i] && rowlive[r])
-                              ? load_stream<BF>(p.wx[g], at, wx_bf16)
-                              : 0.f;
-          d[g][i][r] = affine ? sc[g][i] * x + sh[g][i] : x;
-          acc[g][i][r] = 0.f;
-        }
+      for (int r = 0; r < kRt; ++r) {
+        const size_t at = ((size_t)(row0 + r) * T + t) * H + col;
+        const float x = (live && rowlive[r])
+                            ? load_stream<BF>(p.wx[g], at, wx_bf16)
+                            : 0.f;
+        d[g][r] = affine ? sc[g] * x + sh[g] : x;
       }
     }
-    float z[NPT][BT], rr[NPT][BT], c[NPT][BT];
+    float a[NA][kRt];
+#pragma unroll
+    for (int g = 0; g < NA; ++g) {
+#pragma unroll
+      for (int r = 0; r < kRt; ++r) a[g][r] = 0.f;
+    }
+    float z[kRt], rr[kRt], c[kRt];
+    float pre[kRt];
     if constexpr (MODE == kGru) {
-      stream_matrix<NPT, BT>(s, pub, col, acc[1]);  // y @ Vz
-      stream_matrix<NPT, BT>(s, pub, col, acc[2]);  // y @ Vr
-      float ry[NPT][BT];
+      // [Vz | Vr] against y, from parity 1
+      slice::pass<2, true>(s, 0, op1 + ry0, 0, R, tx, Hs, a);
+      float ry[kRt];
 #pragma unroll
-      for (int i = 0; i < NPT; ++i) {
-#pragma unroll
-        for (int r = 0; r < BT; ++r) {
-          z[i][r] = sigmoidf(d[1][i][r] + acc[1][i][r]);
-          rr[i][r] = sigmoidf(d[2][i][r] + acc[2][i][r]);
-          ry[i][r] = rr[i][r] * y[i][r];
-        }
+      for (int r = 0; r < kRt; ++r) {
+        z[r] = sigmoidf(d[1][r] + a[0][r]);
+        rr[r] = sigmoidf(d[2][r] + a[1][r]);
+        ry[r] = rr[r] * y[r];
       }
-      publish<NPT, BT, BF>(pub, ry, col, live);
-      stream_matrix<NPT, BT>(s, pub, col, acc[0]);  // (r*y) @ V
+      if (live) slice::to_cluster<BF>(op0, (size_t)col * R + ry0, ry, C);
+      slice::cluster_barrier();
+      float ac[1][kRt] = {};
+      slice::pass<1, true>(s, 1, op0 + ry0, 0, R, tx, Hs, ac);  // (r*y) @ V
+#pragma unroll
+      for (int r = 0; r < kRt; ++r) pre[r] = d[0][r] + ac[0][r];
     } else {
-      stream_matrix<NPT, BT>(s, pub, col, acc[0]);  // y @ V
-      if constexpr (MODE == kLigru) {
-        stream_matrix<NPT, BT>(s, pub, col, acc[1]);  // y @ Vz
-      }
+      slice::pass<NA, true>(s, 0, ((t & 1) ? op1 : op0) + ry0, 0, R, tx, Hs,
+                            a);
+#pragma unroll
+      for (int r = 0; r < kRt; ++r) pre[r] = d[0][r] + a[0][r];
     }
 #pragma unroll
-    for (int i = 0; i < NPT; ++i) {
-#pragma unroll
-      for (int r = 0; r < BT; ++r) {
-        const float pre = d[0][i][r] + acc[0][i][r];
-        if constexpr (MODE == kRnn) {
-          y[i][r] = sigmoidf(pre);
+    for (int r = 0; r < kRt; ++r) {
+      if constexpr (MODE == kRnn) {
+        y[r] = sigmoidf(pre[r]);
+      } else {
+        if constexpr (MODE == kLigru) {
+          z[r] = sigmoidf(d[1][r] + a[1][r]);
+          c[r] = fmaxf(pre[r], 0.f);
         } else {
-          if constexpr (MODE == kLigru) {
-            z[i][r] = sigmoidf(d[1][i][r] + acc[1][i][r]);
-            c[i][r] = fmaxf(pre, 0.f);
-          } else {
-            c[i][r] = tanhf(pre);
-          }
-          y[i][r] = z[i][r] * y[i][r] + (1.0f - z[i][r]) * c[i][r];
+          c[r] = tanhf(pre[r]);
         }
-        if (!(live[i] && rowlive[r])) continue;
-        const size_t at = ((size_t)(row0 + r) * T + t) * H + col[i];
-        float stored = y[i][r];
-        if (dropout) {
-          stored = dropout_keep(drop_base[r], col[i], t, p.keep_u32)
-                       ? y[i][r] * p.inv_keep
-                       : 0.f;
-        }
-        static_cast<ST*>(p.y_out)[at] = from_float<ST>(stored);
-        if (p.yraw_out) {
-          static_cast<ST*>(p.yraw_out)[at] = from_float<ST>(y[i][r]);
-        }
-        if constexpr (MODE != kRnn) {
-          if (p.c_out) {
-            static_cast<ST*>(p.z_out)[at] = from_float<ST>(z[i][r]);
-            static_cast<ST*>(p.c_out)[at] = from_float<ST>(c[i][r]);
-            if constexpr (MODE == kGru) {
-              static_cast<ST*>(p.r_out)[at] = from_float<ST>(rr[i][r]);
-            }
+        y[r] = z[r] * y[r] + (1.0f - z[r]) * c[r];
+      }
+      if (!(live && rowlive[r])) continue;
+      const size_t at = ((size_t)(row0 + r) * T + t) * H + col;
+      float stored = y[r];
+      if (dropout) {
+        stored = dropout_keep(drop_base[r], col, t, p.keep_u32)
+                     ? y[r] * p.inv_keep
+                     : 0.f;
+      }
+      static_cast<ST*>(p.y_out)[at] = from_float<ST>(stored);
+      if (p.yraw_out) {
+        static_cast<ST*>(p.yraw_out)[at] = from_float<ST>(y[r]);
+      }
+      if constexpr (MODE != kRnn) {
+        if (p.c_out) {
+          static_cast<ST*>(p.z_out)[at] = from_float<ST>(z[r]);
+          static_cast<ST*>(p.c_out)[at] = from_float<ST>(c[r]);
+          if constexpr (MODE == kGru) {
+            static_cast<ST*>(p.r_out)[at] = from_float<ST>(rr[r]);
           }
         }
       }
     }
-    // every thread left the last product behind its closing barrier, so
-    // the buffer is free for the next step's left operand
-    publish<NPT, BT, BF>(pub, y, col, live);
+    if (t + 1 == T) break;  // the last step's y feeds nothing
+    float* next = (MODE == kGru || !(t & 1)) ? op1 : op0;
+    if (live) slice::to_cluster<BF>(next, (size_t)col * R + ry0, y, C);
+    slice::cluster_barrier();
   }
 }
 
-template <int MODE, int NPT, bool BF>
-void launch_one(const ArgsBf16& p, int threads, cudaStream_t st) {
-  constexpr int BT = kWork / NPT > 0 ? kWork / NPT : 1;
-  const int n_blocks = (p.B + BT - 1) / BT;
-  const size_t smem = ((((size_t)p.H * BT + 3) & ~(size_t)3) +
-                       (size_t)kStages * kTileFloats) * sizeof(float);
-  // more than 48 KB of dynamic shared memory has to be asked for
-  cudaFuncSetAttribute(fused_ann_fwd_kernel<MODE, NPT, BF>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  fused_ann_fwd_kernel<MODE, NPT, BF><<<n_blocks, threads, smem, st>>>(p);
-}
-
-template <int MODE, bool BF>
-void launch_mode(const ArgsBf16& p, int npt, int threads, cudaStream_t st) {
-  switch (npt) {
-    case 1: launch_one<MODE, 1, BF>(p, threads, st); break;
-    case 2: launch_one<MODE, 2, BF>(p, threads, st); break;
-    default: launch_one<MODE, 4, BF>(p, threads, st); break;
-  }
-}
+using Kernel = void (*)(Args);
 
 template <int MODE>
-void launch_npt(const ArgsBf16& p, bool bf16, int npt, int threads,
-                cudaStream_t st) {
-  if (bf16) {
-    launch_mode<MODE, true>(p, npt, threads, st);
-  } else {
-    launch_mode<MODE, false>(p, npt, threads, st);
+Kernel kernel_of(int bf16) {
+  return bf16 ? fused_ann_fwd_kernel<MODE, true>
+              : fused_ann_fwd_kernel<MODE, false>;
+}
+
+// The instantiation that a launch of the mode takes.
+Kernel kernel_for(int mode, int bf16) {
+  switch (mode) {
+    case kRnn: return kernel_of<kRnn>(bf16);
+    case kLigru: return kernel_of<kLigru>(bf16);
+    default: return kernel_of<kGru>(bf16);
   }
+}
+
+slice::Plan fwd_plan(int B, int H, int mode, int bf16) {
+  return slice::make_plan(B, H, mode + 1, bf16 ? 2 : 4, 1);
 }
 
 }  // namespace
@@ -291,16 +278,18 @@ void launch_npt(const ArgsBf16& p, bool bf16, int npt, int threads,
 // mode: 0 RNN, 1 LiGRU, 2 GRU. Null pointers switch parts off: scale and
 // shift (no affine), seed (no dropout), yraw_out and the gate series (no
 // residuals). wx1/wx2 and the gate series of gates the mode lacks are
-// ignored. bf16 selects the bf16-stream mode: V (rows padded to eight
-// elements) and the five output series are then bf16, and the input streams
-// are bf16 where wx_bf16.
+// ignored. bf16 selects the bf16-stream mode: V and the five output series
+// are then bf16, and the input streams are bf16 where wx_bf16. V: every
+// block's slice of the step's matrices (ops/fused_ann.py `_pack_slices`);
+// cluster, rows and resident: the plan the wrapper packed it for.
 extern "C" int sparch_fused_ann_fwd(
     const void* wx0, const void* wx1, const void* wx2, const float* scale,
     const float* shift, const void* V, const float* y0, const int* seed,
     void* y_out, void* yraw_out, void* z_out, void* r_out, void* c_out,
     int B, int T, int H, int mode, unsigned int keep_u32, float inv_keep,
-    int tile_rows, int bf16, int wx_bf16, void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0 || H > kThreads * kMaxNpt || mode < kRnn ||
+    int tile_rows, int bf16, int wx_bf16, int cluster, int rows,
+    int resident, void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0 || H > kMaxH || mode < kRnn ||
       mode > kGru || !wx0 || (mode >= kLigru && !wx1) ||
       (mode == kGru && !wx2) || !V || !y0 || !y_out ||
       ((scale == nullptr) != (shift == nullptr)) ||
@@ -309,19 +298,24 @@ extern "C" int sparch_fused_ann_fwd(
       (mode == kGru && ((r_out == nullptr) != (c_out == nullptr)))) {
     return (int)cudaErrorInvalidValue;
   }
-  // fewest neurons per thread that keep the block within kThreads
-  int npt = 1;
-  while ((H + npt - 1) / npt > kThreads) npt *= 2;
-  const int threads = (((H + npt - 1) / npt) + 31) / 32 * 32;
-  const ArgsBf16 p{{{wx0, wx1, wx2}, scale, shift, V, y0, seed, y_out,
-                    yraw_out, z_out, r_out, c_out, B, T, H, keep_u32,
-                    inv_keep, tile_rows},
-                   wx_bf16};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kRnn: launch_npt<kRnn>(p, bf16 != 0, npt, threads, st); break;
-    case kLigru: launch_npt<kLigru>(p, bf16 != 0, npt, threads, st); break;
-    default: launch_npt<kGru>(p, bf16 != 0, npt, threads, st); break;
+  const slice::Plan pl = fwd_plan(B, H, mode, bf16);
+  if (cluster != pl.cluster || rows != pl.rows || resident != pl.resident ||
+      pl.threads > slice::kMaxThreads) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  const Args p{{wx0, wx1, wx2}, scale, shift, V, y0, seed, y_out, yraw_out,
+               z_out, r_out, c_out, B, T, H, keep_u32, inv_keep, tile_rows,
+               wx_bf16, pl};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = (int)slice::launch(kernel_for(mode, bf16), pl, p, st);
+  return err != 0 ? err : (int)cudaGetLastError();
+}
+
+// How many clusters of the forward's plan for (B, H, mode, bf16) the card
+// holds at once (cudaOccupancyMaxActiveClusters), or -1.
+extern "C" int sparch_fused_ann_fwd_max_clusters(int B, int H, int mode,
+                                                 int bf16) {
+  if (B <= 0 || H <= 0 || H > kMaxH || mode < kRnn || mode > kGru) return -1;
+  const slice::Plan pl = fwd_plan(B, H, mode, bf16);
+  return slice::max_active_clusters(kernel_for(mode, bf16), pl);
 }

@@ -42,11 +42,19 @@ type.
 Launches are counted per cell and stream mode (``fused_ann_fwd_gru``,
 ``fused_ann_fwd_gru_bf16``, ...) and reported by
 ``fused_cells.launch_counts()``.
+
+The kernels run as thread-block clusters (``csrc/cluster_slice.cuh``): a
+cluster of ``cluster`` blocks owns ``rows`` batch rows for the whole
+sequence, each block one column slice of every recurrent matrix, and the
+blocks exchange each step's left operand through distributed shared
+memory. ``_fwd_plan`` and ``_bwd_plan`` give the plan (the kernels check
+that they get the plan they compute themselves), ``_pack_slices`` lays the
+matrices out for it.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -86,17 +94,17 @@ __all__ = [
 MODES = {"rnn": 1, "ligru": 2, "gru": 3}
 _GATE_SERIES = {"rnn": (), "ligru": ("z", "c"), "gru": ("z", "r", "c")}
 _MODE_ID = {"rnn": 0, "ligru": 1, "gru": 2}
-# the order in which one step reads the recurrent matrices, by gate: the
-# kernels stream them from one packed buffer in this order
-_FWD_ORDER = {"rnn": (0,), "ligru": (0, 1), "gru": (1, 2, 0)}
-_BWD_ORDER = {"rnn": (0,), "ligru": (0, 1), "gru": (0, 1, 2)}
+# the passes of one step of csrc/fused_ann_*.cu, by gate: the gates of a
+# pass share its loop over the rows of the matrices (the backward's: V^T)
+_FWD_PASSES = {"rnn": ((0,),), "ligru": ((0, 1),), "gru": ((1, 2), (0,))}
+_BWD_PASSES = {"rnn": ((0,),), "ligru": ((0, 1),), "gru": ((0, 1), (2,))}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint32
-_FWD_ARGS = [_P] * 13 + [_I] * 4 + [_U, _F, _I] + [_I] * 2 + [_P]
-_BWD_ARGS = [_P] * 23 + [_I] * 4 + [_U, _F, _I] + [_I] * 4 + [_P]
+_FWD_ARGS = [_P] * 13 + [_I] * 4 + [_U, _F, _I] + [_I] * 5 + [_P]
+_BWD_ARGS = [_P] * 23 + [_I] * 4 + [_U, _F, _I] + [_I] * 7 + [_P] * 2
 
 
 def _per_mode(source: str, suffix: str = ""):
@@ -114,14 +122,23 @@ FUSED_ANN_BWD_BF16 = _per_mode("fused_ann_bwd", "_bf16")
 KERNELS = tuple(k for group in (FUSED_ANN_FWD, FUSED_ANN_BWD,
                                 FUSED_ANN_FWD_BF16, FUSED_ANN_BWD_BF16)
                 for k in group.values())
-# csrc/fused_ann_*.cu: threads per block, neurons per thread at most (so
-# H <= 2048), (rows * neurons) per thread, and the tile of the dV product
-_THREADS = 512
-_MAX_NPT = 4
-_MAX_H = _THREADS * _MAX_NPT
-_WORK = 2
+# csrc/fused_ann_*.cu: the widest layer, and the tile of the dV product
+_MAX_H = 2048
 _DV_TILE = 64
 _DV_BK = 16
+# csrc/cluster_slice.cuh: blocks of a cluster at most (kMaxCluster, which
+# says why six), a slice's columns at least (H allowing), the slice widths'
+# multiple, the rows a thread owns, the threads of a block at most, the
+# shared memory of a block less the static part, the stream's stages and
+# their largest size (tile_stream.cuh's kStages, kTileBytes)
+_MAX_CLUSTER = 6
+_MIN_COLS = 32
+_COL_ALIGN = 8
+_ROWS_PER_THREAD = 4
+_MAX_THREADS = 384
+_SMEM_BUDGET = 232448 - 1024
+_STAGES = 3
+_MAX_STAGE_BYTES = 65536
 
 
 # ---------------------------------------------------------------------------
@@ -322,18 +339,110 @@ def _check_operands(mode, wxs, scales, shifts, vs, y0,
     _check("y0", y0, (B, H), dev)
 
 
-def _pack(mats: Sequence[torch.Tensor], order,
-          mxu_bf16: bool = False) -> torch.Tensor:
-    """The matrices in the order one step streams them, as one
-    ``(len(order), H, Hc)`` buffer with the rows padded to 16 bytes (four
-    floats; in the bf16 mode, where they are rounded to bf16 here, eight
-    elements), so that every tile of rows is one aligned contiguous
-    piece."""
+class ClusterPlan(NamedTuple):
+    """The launch plan of a kernel's time loop (csrc/cluster_slice.cuh
+    ``make_plan`` computes the same)."""
+
+    cluster: int      # blocks of a cluster, one column slice each
+    rows: int         # batch rows of a cluster
+    cols: int         # columns of a block's slice (padded)
+    resident: bool    # the slice stays in shared memory for all T
+    stage_bytes: int  # else: bytes of each stage of its stream from L2
+    clusters: int
+    threads: int      # of a block
+
+
+def _cluster_plan(B: int, H: int, n: int, mxu_bf16: bool,
+                  planes: int) -> ClusterPlan:
+    """The plan of a time loop over ``n`` recurrent matrices whose left
+    operand is ``planes`` (H,) planes a row: the most blocks a cluster (up
+    to 6) that leave each slice 32 columns or more; 8 rows a cluster (4
+    where the operands would pass 128 KB or the threads 384); the slice
+    resident where it fits in shared memory beside the operands' two
+    parities, else streamed in three stages of what is left (at most 64 KB
+    each)."""
+    if H > _MAX_H:
+        raise ValueError(
+            f"the fused ANN cell kernel takes H <= {_MAX_H}, got {H}")
+    cluster = max(1, min(_MAX_CLUSTER, H // _MIN_COLS))
+    width = -(-H // cluster)
+    cols = -(-width // _COL_ALIGN) * _COL_ALIGN
+    rows = 8 if planes * H <= 2048 and \
+        cols * 8 // _ROWS_PER_THREAD <= _MAX_THREADS else 4
+    operands = 2 * planes * rows * H * 4
+    slices = n * H * cols * (2 if mxu_bf16 else 4)
+    resident = operands + slices <= _SMEM_BUDGET
+    stage = min(_MAX_STAGE_BYTES,
+                (_SMEM_BUDGET - operands) // _STAGES // 16 * 16)
+    threads = -(-cols * (rows // _ROWS_PER_THREAD) // 32) * 32
+    return ClusterPlan(cluster, rows, cols, resident,
+                       0 if resident else stage, -(-B // rows), threads)
+
+
+def _fwd_plan(B: int, H: int, n: int, mxu_bf16: bool = False) -> ClusterPlan:
+    """The plan that ``csrc/fused_ann_fwd.cu`` checks its arguments
+    against: one left operand (y, or the GRU's r*y)."""
+    return _cluster_plan(B, H, n, mxu_bf16, 1)
+
+
+def _dv_split(B: int, T: int, H: int, n: int) -> int:
+    """The split of the dV products over B*T (``dv_product.cuh``)."""
+    tiles = n * (-(-H // _DV_TILE)) ** 2
+    return max(1, min(264 // tiles, -(-(B * T) // (8 * _DV_BK))))
+
+
+def _bwd_plan(B: int, T: int, H: int, n: int, mxu_bf16: bool = False):
+    """(the time loop's plan, partials of dscale/dshift, split of the dV
+    products), the plan that ``csrc/fused_ann_bwd.cu`` checks its
+    arguments against: a gate's dpre per plane (the LiGRU's and the GRU's
+    two at once); one partial per ``_part_rows(H)`` rows."""
+    plan = _cluster_plan(B, H, n, mxu_bf16, 1 if n == 1 else 2)
+    return plan, -(-B // _part_rows(H)), _dv_split(B, T, H, n)
+
+
+def _part_rows(H: int) -> int:
+    """Rows summed into one dscale/dshift partial: two at H <= 512, else
+    one, the rows of a block of the kernel that owned whole rows before the
+    cluster split, so that the reduced gradients keep their bits."""
+    return 2 if H <= 512 else 1
+
+
+def max_active_clusters(mode: str, B: int, H: int, mxu_bf16: bool = False,
+                        backward: bool = False) -> int:
+    """How many clusters of the forward's plan (``backward``: of the
+    backward's time loop) the card holds at once, from
+    ``cudaOccupancyMaxActiveClusters``; -1 where the query fails. For
+    reports: a plan with more clusters than this runs in waves."""
+    from sparch_tpu_torch import _build
+
+    source = "fused_ann_bwd" if backward else "fused_ann_fwd"
+    path = _build.library_path(source)
+    if not path.exists():
+        _build.build([source])
+    fn = getattr(ctypes.CDLL(str(path)), f"sparch_{source}_max_clusters")
+    fn.argtypes = [_I] * 4
+    fn.restype = _I
+    return fn(B, H, _MODE_ID[mode], int(mxu_bf16))
+
+
+def _pack_slices(mats: Sequence[torch.Tensor], passes, plan: ClusterPlan,
+                 mxu_bf16: bool = False) -> torch.Tensor:
+    """Every block's slice of the matrices, ``(cluster, gates*H*cols)``:
+    block k's row holds columns k*cols .. k*cols+cols-1 of each matrix (zero
+    past H), pass after pass, a pass's gates side by side in each of its H
+    rows, so that a block copies its slice as one contiguous piece. In the
+    bf16 mode the matrices are rounded to bf16 here."""
     H = mats[0].shape[0]
-    dtype, q = (_BF16, 8) if mxu_bf16 else (mats[0].dtype, 4)
-    return torch.stack([
-        torch.nn.functional.pad(mats[i].to(dtype), (0, -H % q))
-        for i in order]).contiguous()
+    C, w = plan.cluster, plan.cols
+    dtype = _BF16 if mxu_bf16 else mats[0].dtype
+
+    def sliced(m):  # (C, H, w)
+        m = torch.nn.functional.pad(m.to(dtype), (0, C * w - H))
+        return m.reshape(H, C, w).permute(1, 0, 2)
+
+    return torch.cat([
+        torch.stack([sliced(mats[i]) for i in gates], dim=2).reshape(C, -1)
+        for gates in passes], dim=1).contiguous()
 
 
 def _three(ts):
@@ -369,10 +478,11 @@ def _ann_cell_cuda(mode: str, wxs, scales, shifts, vs, y0, *,
     result = (out, y_raw, tuple(series.values()))
     if out.numel() == 0:
         return result if save_residuals else out
+    plan = _fwd_plan(B, H, MODES[mode], mxu_bf16)
     # named, so that they live until the launch is enqueued
     scale = torch.stack(scales) if scales is not None else None
     shift = torch.stack(shifts) if shifts is not None else None
-    packed = _pack(vs, _FWD_ORDER[mode], mxu_bf16)
+    packed = _pack_slices(vs, _FWD_PASSES[mode], plan, mxu_bf16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         (FUSED_ANN_FWD_BF16 if mxu_bf16 else FUSED_ANN_FWD)[mode](
@@ -380,29 +490,20 @@ def _ann_cell_cuda(mode: str, wxs, scales, shifts, vs, y0, *,
             seed_p, _ptr(out),
             _ptr(y_raw), _ptr(series.get("z")), _ptr(series.get("r")),
             _ptr(series.get("c")), B, T, H, _MODE_ID[mode], keep, inv, tile,
-            int(mxu_bf16), int(wxs[0].dtype == _BF16), stream,
+            int(mxu_bf16), int(wxs[0].dtype == _BF16), plan.cluster,
+            plan.rows, int(plan.resident), stream,
         )
     return result if save_residuals else out
 
 
-def _bwd_plan(B: int, T: int, H: int, n: int):
-    """(blocks of the time loop, split of the dV products over B*T), the
-    launch plan that ``csrc/fused_ann_bwd.cu`` checks its arguments
-    against."""
-    npt = 1
-    while -(-H // npt) > _THREADS:
-        npt *= 2
-    rows = max(1, _WORK // npt)
-    tiles = n * (-(-H // _DV_TILE)) ** 2
-    ksplit = max(1, min(264 // tiles, -(-(B * T) // (8 * _DV_BK))))
-    return -(-B // rows), ksplit
-
-
 def _ann_cell_bwd_cuda(mode: str, g, wxs, y_seq, gates, scales, vs, y0, *,
                        drop_rate: float = 0.0, seed=None,
-                       mxu_bf16: bool = False):
+                       mxu_bf16: bool = False, split_ms=None):
     """Launch ``csrc/fused_ann_bwd.cu`` in the float32 or the bf16 stream
-    mode. Same contract as ``ann_cell_bwd_plain``."""
+    mode. Same contract as ``ann_cell_bwd_plain``. ``split_ms`` (a list, for
+    timing only) receives the milliseconds of the time loop, the dV product
+    and the second passes, CUDA events around each launch; the call then
+    waits for the card."""
     n = MODES[mode]
     affine = scales is not None
     B, T, H = g.shape
@@ -418,7 +519,7 @@ def _ann_cell_bwd_cuda(mode: str, g, wxs, y_seq, gates, scales, vs, y0, *,
         _check(name, t, (B, T, H), dev, sdt)
     series = dict(zip(_GATE_SERIES[mode], gates))
     seed_p, keep, inv, tile = _dropout_args(B, drop_rate, seed, dev)
-    n_blocks, ksplit = _bwd_plan(B, T, H, n)
+    plan, n_parts, ksplit = _bwd_plan(B, T, H, n, mxu_bf16)
 
     def new(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -427,14 +528,16 @@ def _ann_cell_bwd_cuda(mode: str, g, wxs, y_seq, gates, scales, vs, y0, *,
     # dpre before the scale, the right operand of the dV products (in the
     # bf16 mode stored as the bf16 the products consume)
     dds = [torch.empty_like(g) for _ in range(n)] if affine else []
-    partials = new(n_blocks, 2 * n, H)
+    partials = new(n_parts, 2 * n, H)
     vecs = new(2 * n, H)
     dvs = new(n, H, H)
     dv_partials = new(ksplit, n, H, H)
     dy0 = new(B, H)
     # V^T per gate: the adjoint products contract V's second axis
-    vts = _pack([v.t() for v in vs], _BWD_ORDER[mode], mxu_bf16)
+    vts = _pack_slices([v.t() for v in vs], _BWD_PASSES[mode], plan,
+                       mxu_bf16)
     scale = torch.stack(scales) if affine else None
+    split = (ctypes.c_float * 3)() if split_ms is not None else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         (FUSED_ANN_BWD_BF16 if mxu_bf16 else FUSED_ANN_BWD)[mode](
@@ -444,9 +547,12 @@ def _ann_cell_bwd_cuda(mode: str, g, wxs, y_seq, gates, scales, vs, y0, *,
             _ptr(scale), _ptr(vts), _ptr(y0), seed_p, *_three(dwxs),
             *_three(dds), _ptr(partials), _ptr(vecs), _ptr(dvs),
             _ptr(dv_partials), _ptr(dy0),
-            B, T, H, _MODE_ID[mode], keep, inv, tile, n_blocks, ksplit,
-            int(mxu_bf16), int(affine and wxs[0].dtype == _BF16), stream,
+            B, T, H, _MODE_ID[mode], keep, inv, tile, plan.cluster,
+            plan.rows, int(plan.resident), n_parts, ksplit, int(mxu_bf16),
+            int(affine and wxs[0].dtype == _BF16), split, stream,
         )
+    if split is not None:
+        split_ms[:] = list(split)
     if not affine:
         return dwxs, None, None, list(dvs.unbind(0)), dy0
     return (dwxs, list(vecs[:n].unbind(0)), list(vecs[n:].unbind(0)),

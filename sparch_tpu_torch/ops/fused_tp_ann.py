@@ -318,6 +318,12 @@ def _check_operands(mode, wxs, vs, y0, P, wx_dtype=torch.float32):
     _check("y0", y0, (B, H), dev)
 
 
+# the order in which one step reads the recurrent matrices, by gate
+# (csrc/tp_ann_*.cu stream them from one packed buffer in this order)
+_FWD_ORDER = {"rnn": (0,), "ligru": (0, 1), "gru": (1, 2, 0)}
+_BWD_ORDER = {"rnn": (0,), "ligru": (0, 1), "gru": (0, 1, 2)}
+
+
 def _pack(blocks_of, vs, order, P, dtype):
     """Every rank's blocks of the matrices in the order a step streams
     them, as one contiguous (P, len(order), H, H/P) buffer of ``dtype``
@@ -341,9 +347,8 @@ def _tp_ann_cell_cuda(mode: str, wxs, vs, y0, *, num_devices: int,
     out = torch.empty(wxs[0].shape, dtype=sdt, device=dev)
     names = _MODES[mode]["gates"] if save_residuals else ()
     series = {k: torch.empty_like(out) for k in names}
-    # V[:, shard] per rank, in the order of fused_ann_fwd.cu's stream
-    packed = _pack(lambda v, c: v[:, c], vs, fused_ann._FWD_ORDER[mode], P,
-                   sdt)
+    # V[:, shard] per rank, in the order of tp_ann_fwd.cu's stream
+    packed = _pack(lambda v, c: v[:, c], vs, _FWD_ORDER[mode], P, sdt)
     bufs = fused_tp._exchange_buffers((2, B, H), sdt, P, B, dev)
     fused_tp._launch(TP_ANN_FWD_BF16 if mxu_bf16 else TP_ANN_FWD, dev,
                      *fused_ann._three(wxs), _ptr(packed), _ptr(y0),
@@ -371,7 +376,7 @@ def _tp_ann_cell_bwd_cuda(mode: str, g, y_seq, gates, vs, y0, *,
     for name, t in zip(_MODES[mode]["gates"], gates):
         _check(name, t, (B, T, H), dev, sdt)
     series = dict(zip(_MODES[mode]["gates"], gates))
-    ksplit = fused_ann._bwd_plan(B, T, H, n)[1]
+    ksplit = fused_ann._dv_split(B, T, H, n)
 
     def new(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -379,8 +384,8 @@ def _tp_ann_cell_bwd_cuda(mode: str, g, y_seq, gates, vs, y0, *,
     dwxs = [torch.empty_like(g) for _ in range(n)]
     dvs, dv_partials, dy0 = new(n, H, H), new(ksplit, n, H, H), new(B, H)
     # V[shard, :]^T per rank (the rank's columns of V^T), by gate
-    packed = _pack(lambda v, c: v[c, :].t(), vs, fused_ann._BWD_ORDER[mode],
-                   P, sdt)
+    packed = _pack(lambda v, c: v[c, :].t(), vs, _BWD_ORDER[mode], P,
+                   sdt)
     width = _MODES[mode]["bwd_stack"] * H
     bufs = fused_tp._exchange_buffers((2, B, width), sdt, P, B, dev)
     fused_tp._launch(TP_ANN_BWD_BF16 if mxu_bf16 else TP_ANN_BWD, dev,

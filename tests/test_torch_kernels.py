@@ -310,7 +310,12 @@ def test_autograd_reaches_the_kernels_on_card(cuda):
 # ---------------------------------------------------------------------------
 
 ANN_MODES = list(fused_ann.MODES)
-ANN_SHAPES = [(5, 13, 40), (16, 20, 512), (4, 7, 1001), (2, 5, 1100)]
+# (5, 6, 512): a partial cluster with resident slices (the float32 RNN,
+# every bf16 forward); (130, 6, 1001): 17 clusters, the last of two rows,
+# streamed slices; (5, 3, 2048): the widest layer, four rows a cluster in
+# the LiGRU's and the GRU's backward
+ANN_SHAPES = [(5, 13, 40), (16, 20, 512), (4, 7, 1001), (2, 5, 1100),
+              (5, 6, 512), (130, 6, 1001), (5, 3, 2048)]
 
 
 def make_ann_inputs(mode, B, T, H, seed=0):

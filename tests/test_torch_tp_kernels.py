@@ -427,6 +427,41 @@ def test_tp_ann_backward_kernel_matches_plain_on_card(cuda, mode, shape, P):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("shape", [(8, 5, 512), (136, 3, 512), (16, 4, 1024),
+                                   (8, 3, 2048)])
+@pytest.mark.parametrize("mode", ANN_MODES)
+def test_cluster_ann_kernels_equal_tp_p1_on_card(cuda, mode, shape, bf16):
+    """The single-card kernels, each matrix split by columns over the blocks
+    of a cluster, give the P = 1 TP kernels' forward output and gate series
+    and time-loop gradients (dWx, dy0; dV, their product) bit for bit, in
+    both stream modes, at the plan cases these shapes reach: resident and
+    streamed slices, 17 clusters, H = 2048 (four rows a cluster in the
+    LiGRU's and the GRU's backward); two launches give the same bits."""
+    B, T, H = shape
+    d = ann_tp_inputs(mode, B, T, H, seed=6, device=cuda)
+    wxs, g, vs, y0 = d["wxs"], d["g"], d["vs"], d["y0"]
+    if bf16:
+        wxs, g = [w.to(torch.bfloat16) for w in wxs], g.to(torch.bfloat16)
+    kw = dict(mxu_bf16=bf16)
+    one, one_g = fused_tp_ann._tp_ann_cell_cuda(
+        mode, wxs, vs, y0, num_devices=1, save_residuals=True, **kw)
+    tp = fused_tp_ann._tp_ann_cell_bwd_cuda(mode, g, one, one_g, vs, y0,
+                                            num_devices=1, **kw)
+    for _ in range(2):
+        out, y_raw, gates = fused_ann._ann_cell_cuda(
+            mode, wxs, None, None, vs, y0, save_residuals=True, **kw)
+        dwxs, dsc, dsh, dvs, dy0 = fused_ann._ann_cell_bwd_cuda(
+            mode, g, None, one, list(one_g), None, vs, y0, **kw)
+        torch.cuda.synchronize()
+        assert y_raw is None and dsc is None and dsh is None
+        for x, y in zip((out, *gates), (one, *one_g)):
+            assert torch.equal(x, y)
+        for x, y in zip((*dwxs, *dvs, dy0), (*tp[0], *tp[1], tp[2])):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ANN_MODES)
 def test_tp_ann_kernels_walk_row_groups_on_card(cuda, mode):
     """More row groups than the card holds blocks: at P = 4 and B = 1024
