@@ -5,7 +5,8 @@ card.
     python3 chip_profile.py [phase ...]
 
 With phase names (``sweep``, ``profile``, ``h2d``, ``bwd_sweep``,
-``profile_training``, ``bwd_variants``, ``bf16``, ``ab=DIR``) only those
+``profile_training``, ``bwd_variants``, ``bf16``, ``tp_exchange``,
+``ab=DIR``) only those
 run. Prints
 JSON lines (tables of the profiler in between), each measured in
 this run:
@@ -51,14 +52,24 @@ this run:
    kernels: kernel ms (CUDA events) of the float32 spiking cells at (128,
    100, 512), of the fused RNN/LiGRU/GRU kernels (with the affine; the
    forward's serving and training form and the backward) at (128, 100,
-   512) and (128, 100, 1024) in float32 and bf16, of the float32
-   tensor-parallel cells at their main shapes (RadLIF at (256, 100, 1024),
-   RNN/LiGRU/GRU at (128, 100, 1024); P = 1, 2, 4); the ``auto`` training
-   step of the GRU [512, 512, 35] (float32 and bf16) and [1024, 1024, 35]
-   trainers; the ptxas report of the fused ANN kernels; and, per library
-   that the fused ANN kernels do not touch, the kernels whose SASS count,
-   registers or stack bytes (``cuobjdump -sass``, ``-res-usage``) differ
-   between the trees (whole records in ``build/ab/ab_<i>.json``).
+   512) and (128, 100, 1024) in float32 and bf16, of the tensor-parallel
+   cells at their main shapes (RadLIF at (256, 100, 1024), float32;
+   RNN/LiGRU/GRU at (128, 100, 1024) in float32 and bf16, the forward's
+   training and serving form and the backward; P = 1, 2, 4); the ``auto``
+   training step of the GRU [512, 512, 35] (float32 and bf16) and [1024,
+   1024, 35] trainers, and the ``pallas_tp`` step of the latter at P = 1,
+   2, 4 in both modes; the ptxas report of the non-spiking cell kernels;
+   and, per library that the TP ANN kernels do not touch, the kernels
+   whose SASS count, registers or stack bytes (``cuobjdump -sass``,
+   ``-res-usage``) differ between the trees (whole records in
+   ``build/ab/ab_<i>.json``).
+
+10. ``tp_exchange``: what one exchange between ranks costs the TP ANN
+   kernels (GRU and RNN at (128, 100, 1024), float32 and bf16): P = 2 run
+   in P = 1's block shape (clusters of three of the same 352-thread
+   blocks on the same 96 SMs) against P = 1, the difference over the
+   exchanges on a cluster's chain; beside it P = 2 in the plan the wrapper
+   takes.
 
 Without a CUDA card it exits non-zero and prints no result.
 """
@@ -319,6 +330,75 @@ def bwd_variants(dev):
         kernel._fn, fused_cells._BWD_WORK = saved
 
 
+def tp_exchange(dev):
+    """Phase 10: what one exchange between ranks costs the TP ANN kernels.
+    At (128, 100, 1024) the P = 1 plan is sixteen clusters of six blocks of
+    352 threads (96 SMs); P = 2 in clusters of three has the same blocks on
+    the same 96 SMs, so the time it adds over P = 1, over the exchanges on
+    a cluster's chain, is the exchange's (with the cluster barrier of three
+    blocks instead of six). Beside it the P = 2 plan the wrapper takes
+    (clusters of two, four rows, 128 SMs): what the plan buys. GRU and RNN,
+    float32 and bf16, forward (training form) and backward."""
+    import chip_smoke as cs
+    from sparch_tpu_torch.ops import fused_tp_ann
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    shape = (cs.B, cs.T, cs.TP_H)
+    g = torch.randn(shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(6))
+    chosen = fused_tp_ann.launch_plan
+    fast = dict(warmup=1, iters=5, repeats=3)
+
+    def as_p1(mode, B, H, P, mxu_bf16, backward, dev_):
+        """The plan of P = 1's block shape: clusters of 6 // P blocks."""
+        n = fused_tp_ann._MODES[mode]["n_wx"]
+        planes = fused_tp_ann._MODES[mode]["bwd_stack"] if backward else 1
+        c = 6 // P
+        q = fused_tp_ann._rank_plan(B, H, P, n, mxu_bf16, planes, c)
+        with torch.cuda.device(dev_):
+            m = fused_tp_ann.max_active_clusters(mode, B, H, P, c, mxu_bf16,
+                                                 backward)
+        per = min(q.clusters, m // P)
+        return fused_tp_ann.TPPlan(q, per, -(-q.clusters // per), m)
+
+    with torch.no_grad():
+        for mode in ("gru", "rnn"):
+            d = cs.tp_ann_inputs(mode, shape, 4, dev)
+            args = (mode, d["wxs"], d["vs"], d["y0"])
+            for mx in (False, True):
+                gm = g.to(torch.bfloat16) if mx else g
+                row = {}
+                cases = (("p1", 1, chosen), ("p2_as_p1", 2, as_p1),
+                         ("p2", 2, chosen))
+                for case, P, plan in cases:
+                    kw = dict(num_devices=P, mxu_bf16=mx)
+                    fused_tp_ann.launch_plan = plan
+                    try:
+                        fwd = cuda_time_ms(
+                            lambda: fused_tp_ann._tp_ann_cell_cuda(
+                                *args, save_residuals=True, **kw), **fast)
+                        fplan = fused_tp_ann.last_plan("tp_ann_fwd")
+                        out, gates = fused_tp_ann._tp_ann_cell_cuda(
+                            *args, save_residuals=True, **kw)
+                        ba = (mode, gm, out, gates, d["vs"], d["y0"])
+                        bwd = cuda_time_ms(
+                            lambda: fused_tp_ann._tp_ann_cell_bwd_cuda(
+                                *ba, **kw), **fast)
+                        bplan = fused_tp_ann.last_plan("tp_ann_bwd")
+                    finally:
+                        fused_tp_ann.launch_plan = chosen
+                    row[case] = dict(fwd_ms=fwd, bwd_ms=bwd, fwd_plan=fplan,
+                                     bwd_plan=bplan)
+                for direction in ("fwd", "bwd"):
+                    n = cs.tp_ann_exchanges(
+                        mode, direction, row["p2_as_p1"][direction + "_plan"])
+                    row[direction + "_exchange_us"] = (
+                        row["p2_as_p1"][direction + "_ms"]
+                        - row["p1"][direction + "_ms"]) * 1e3 / n
+                emit("tp_exchange", cell=mode, shape=list(shape),
+                     mxu_bf16=mx, **row)
+
+
 # runs in a process of its own with a tree's root as argv[1]: that tree's
 # chip_smoke helpers and kernels, whatever commit it is
 _AB_CODE = r"""
@@ -338,9 +418,10 @@ if not _build.__file__.startswith(root):
     raise RuntimeError("imported the package of another tree: "
                        + _build.__file__)
 torch.backends.cuda.matmul.allow_tf32 = False
-# the fused ANN sources build in this process, whatever was built before,
-# so that their ptxas report is at hand
-for lib in ("fused_ann_fwd", "fused_ann_bwd"):
+# the ANN sources build in this process, whatever was built before, so that
+# their ptxas report is at hand
+ANN_LIBS = ("fused_ann_fwd", "fused_ann_bwd", "tp_ann_fwd", "tp_ann_bwd")
+for lib in ANN_LIBS:
     _build.library_path(lib).unlink(missing_ok=True)
 logs = _build.build()
 dev = torch.device("cuda", 0)
@@ -407,18 +488,26 @@ with torch.no_grad():
         _, u_seq = fused_tp._tp_cell_cuda(*args, save_residuals=True, **kw)
         res[f"tp_cell_bwd_p{P}"] = cuda_time_ms(
             lambda: fused_tp._tp_cell_bwd_cuda(gt, u_seq, *args[1:], **kw))
+        # rows 12-13: the TP RNN/LiGRU/GRU in both modes, the forward's
+        # training and serving form and the backward
         for mode in ("rnn", "ligru", "gru"):
             da = smoke.tp_ann_inputs(mode, ashape, 4, dev)
             fa = (mode, da["wxs"], da["vs"], da["y0"])
-            res[f"tp_ann_fwd_{mode}_p{P}"] = cuda_time_ms(
-                lambda: fused_tp_ann._tp_ann_cell_cuda(
-                    *fa, num_devices=P, save_residuals=True), **fast)
-            out, gates = fused_tp_ann._tp_ann_cell_cuda(
-                *fa, num_devices=P, save_residuals=True)
-            ba = (mode, ga, out, gates, da["vs"], da["y0"])
-            res[f"tp_ann_bwd_{mode}_p{P}"] = cuda_time_ms(
-                lambda: fused_tp_ann._tp_ann_cell_bwd_cuda(*ba, num_devices=P),
-                **fast)
+            for mx in (False, True):
+                sfx = f"_{mode}_p{P}" + ("_bf16" if mx else "")
+                tk = dict(num_devices=P, mxu_bf16=mx)
+                res["tp_ann_fwd" + sfx] = cuda_time_ms(
+                    lambda: fused_tp_ann._tp_ann_cell_cuda(
+                        *fa, save_residuals=True, **tk), **fast)
+                res["tp_ann_fwd_serving" + sfx] = cuda_time_ms(
+                    lambda: fused_tp_ann._tp_ann_cell_cuda(*fa, **tk), **fast)
+                out, gates = fused_tp_ann._tp_ann_cell_cuda(
+                    *fa, save_residuals=True, **tk)
+                ba = (mode, ga.to(bf16) if mx else ga, out, gates, da["vs"],
+                      da["y0"])
+                res["tp_ann_bwd" + sfx] = cuda_time_ms(
+                    lambda: fused_tp_ann._tp_ann_cell_bwd_cuda(*ba, **tk),
+                    **fast)
 # training steps through cell_impl="auto": the GRU [512, 512, 35] trainer
 # of training_ann and its bf16 twin, and the GRU [1024, 1024, 35] auto
 # trainer of training_tp_ann
@@ -428,10 +517,20 @@ y = torch.randint(0, smoke.C, (smoke.B,), generator=gen, device=dev)
 sd = build_model("GRU", (smoke.B, smoke.T, smoke.F_ANN),
                  [smoke.H, smoke.H, smoke.C], dropout=smoke.P_DROP,
                  generator=torch.Generator().manual_seed(0)).state_dict()
-cases = (("gru512", sd, {}), ("gru512_bf16", sd, dict(compute_dtype=bf16)),
-         ("gru1024", smoke.tp_ann_state("GRU"), dict(sizes=smoke.TP_SIZES)))
-for key, state_dict, kw in cases:
-    model, state = smoke.train_run(dev, "auto", state_dict, x, y, 1,
+sd1024 = smoke.tp_ann_state("GRU")
+cases = [("gru512", "auto", sd, {}),
+         ("gru512_bf16", "auto", sd, dict(compute_dtype=bf16)),
+         ("gru1024", "auto", sd1024, dict(sizes=smoke.TP_SIZES))]
+# and the pallas_tp GRU [1024, 1024, 35] trainer of training_tp_ann at
+# each P, in both modes
+for P in (1, 2, 4):
+    for mx in (False, True):
+        cases.append((f"gru1024_tp_p{P}" + ("_bf16" if mx else ""),
+                      "pallas_tp", sd1024,
+                      dict(sizes=smoke.TP_SIZES, tp_mesh=smoke.tp_mesh(dev, P),
+                           **(dict(compute_dtype=bf16) if mx else {}))))
+for key, impl, state_dict, kw in cases:
+    model, state = smoke.train_run(dev, impl, state_dict, x, y, 1,
                                    model_type="GRU", **kw)[:2]
     res["train_step_" + key] = cuda_time_ms(make_train_step(model), state, x,
                                             y, warmup=3, iters=20, repeats=3)
@@ -458,17 +557,17 @@ for lib in _build.SOURCES:
                                                       stack=int(m.group(3)))
 # the ptxas report (-Xptxas -v) of the non-spiking cell kernels
 ptxas = {lib: [l.strip() for l in logs.get(lib, "").splitlines()
-               if "fused_ann" in l or "registers" in l or "spill" in l]
-         for lib in ("fused_ann_fwd", "fused_ann_bwd")}
+               if "_ann_" in l or "registers" in l or "spill" in l]
+         for lib in ANN_LIBS}
 print(json.dumps({"phase": "ab", "tree": root, "ms": res, "code": code,
                   "ptxas": ptxas}), flush=True)
 """
 
-# the libraries whose kernels no change to the single-card non-spiking
+# the libraries whose kernels no change to the tensor-parallel non-spiking
 # cells touches: their code must stay as the other tree compiles it
 AB_UNTOUCHED = ("fused_cell_fwd", "fused_cell_bwd", "readout_fwd",
-                "readout_bwd", "tp_collectives", "tp_cell_fwd", "tp_cell_bwd",
-                "tp_ann_fwd", "tp_ann_bwd")
+                "readout_bwd", "fused_ann_fwd", "fused_ann_bwd",
+                "tp_collectives", "tp_cell_fwd", "tp_cell_bwd")
 
 
 def ab(dev, other: str):
@@ -550,6 +649,7 @@ def main() -> int:
                                          profile_training(dev, "GRU")),
         "bwd_variants": bwd_variants,
         "bf16": bf16,
+        "tp_exchange": tp_exchange,
     }
     chosen = sys.argv[1:] or list(phases)
     unknown = [name for name in chosen

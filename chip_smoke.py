@@ -144,11 +144,13 @@ all at once), then prints one JSON line per phase:
    matrices orthogonal * 0.5: the output and the gate series against
    ``tp_ann_cell_plain`` by the rule of phase 9, the serving form alike;
    bit for bit across P, against the single-card ``fused_ann_fwd`` without
-   the affine and the dropout, and between two launches.
+   the affine and the dropout, and between two launches; the plan of
+   thread-block clusters each P ran (``fused_tp_ann.last_plan``).
 21. ``kernel_vs_plain`` for ``tp_ann_bwd``: the same on the plain forward's
    residuals; every gradient against ``tp_ann_cell_bwd_plain`` by the rule
    of phase 6, bit for bit across P, against the single-card
-   ``fused_ann_bwd`` and between two launches.
+   ``fused_ann_bwd`` and between two launches; the plan, and ``split_ms``
+   (the time loop, the dV product, its second pass).
 22. ``training_tp_ann``: a GRU [1024, 1024, 35] trainer (batchnorm, dropout
    0.1, Adam at lr 1e-2) on one batch of 128 SC-shaped utterances, ``scan``,
    ``auto`` and ``pallas_tp`` at P = 1, 2, 4, checked and timed as phase 8
@@ -187,6 +189,9 @@ all at once), then prints one JSON line per phase:
    this run's shapes and firing rates. The fused ANN kernels add their plan,
    the backward its split, and ``at_h1024``: the kernel at (128, 100, 1024)
    without the affine, as phases 20-21 time it, beside its bound and plan.
+   The TP ANN kernels add the plan each P ran and ``exchange_us`` per P >
+   1 (the kernel at P less at P = 1, over the exchanges on a cluster's
+   chain), the backward its split per P.
    No library call computes any of
    these functions (cuDNN's GRU applies the reset gate after the recurrent
    product, this one before it; no PyTorch call exchanges inside a
@@ -2541,7 +2546,7 @@ def phase_tp_ann_forward(dev, bf16=False):
     max(1, |value|)) of the plain version's, else the float64 witness rule,
     and the same bit-for-bit checks against the single-card bf16 kernel.
     Returns the rows by mode and P."""
-    from sparch_tpu_torch.ops import fused_ann, fused_tp, fused_tp_ann
+    from sparch_tpu_torch.ops import fused_ann, fused_tp_ann
     from sparch_tpu_torch.utils.timing import cuda_time_ms
 
     shape = (B, T, TP_H)
@@ -2575,7 +2580,7 @@ def phase_tp_ann_forward(dev, bf16=False):
             with torch.no_grad():
                 got = flat(fused_tp_ann._tp_ann_cell_cuda(
                     *args, **kw, save_residuals=True))
-                plan = fused_tp.last_plans()["tp_ann_fwd"]
+                plan = fused_tp_ann.last_plan("tp_ann_fwd")
                 again = flat(fused_tp_ann._tp_ann_cell_cuda(
                     *args, **kw, save_residuals=True))
                 served = fused_tp_ann._tp_ann_cell_cuda(*args, **kw)
@@ -2628,7 +2633,7 @@ def phase_tp_ann_backward(dev, bf16=False):
     plain version's and the single-card kernel's. With ``bf16`` the
     bf16-stream form (``tp_ann_bwd_bf16``: g and the series bf16) by the
     bounds of ``bf16_grad_bounds``. Returns the rows by mode and P."""
-    from sparch_tpu_torch.ops import fused_ann, fused_tp, fused_tp_ann
+    from sparch_tpu_torch.ops import fused_ann, fused_tp_ann
     from sparch_tpu_torch.utils.timing import cuda_time_ms
 
     shape = (B, T, TP_H)
@@ -2669,7 +2674,7 @@ def phase_tp_ann_backward(dev, bf16=False):
             kw = dict(num_devices=P, **mkw)
             with torch.no_grad():
                 got = flat(fused_tp_ann._tp_ann_cell_bwd_cuda(*bargs, **kw))
-                plan = fused_tp.last_plans()["tp_ann_bwd"]
+                plan = fused_tp_ann.last_plan("tp_ann_bwd")
                 again = flat(fused_tp_ann._tp_ann_cell_bwd_cuda(*bargs, **kw))
                 want = flat(fused_tp_ann.tp_ann_cell_bwd_plain(*bargs, **kw))
                 torch.cuda.synchronize()
@@ -2695,6 +2700,7 @@ def phase_tp_ann_backward(dev, bf16=False):
                 row["ms"] = cuda_time_ms(
                     lambda: fused_tp_ann._tp_ann_cell_bwd_cuda(*bargs, **kw),
                     warmup=1, iters=5, repeats=3)
+                row["split_ms"] = tp_bwd_split_ms(bargs, kw)
                 row["plain_ms"] = cuda_time_ms(
                     lambda: fused_tp_ann.tp_ann_cell_bwd_plain(*bargs, **kw),
                     **PLAIN_ROUNDS)
@@ -2703,6 +2709,21 @@ def phase_tp_ann_backward(dev, bf16=False):
             emit("kernel_vs_plain",
                  kernel="tp_ann_bwd_bf16" if bf16 else "tp_ann_bwd", **row)
     return main
+
+
+def tp_bwd_split_ms(bargs, kw, n=5):
+    """Median milliseconds of the TP ANN backward's launches (the time
+    loop, the dV product, its second pass) over ``n`` calls, CUDA events
+    around each launch."""
+    from sparch_tpu_torch.ops import fused_tp_ann
+
+    splits = []
+    for _ in range(n):
+        split = []
+        fused_tp_ann._tp_ann_cell_bwd_cuda(*bargs, **kw, split_ms=split)
+        splits.append(split)
+    return {k: statistics.median(s[i] for s in splits)
+            for i, k in enumerate(SPLIT_NAMES)}
 
 
 def tp_ann_state(ann_type):
@@ -2914,11 +2935,30 @@ def tp_ann_bounds(mode, b, t, h, bf16=False):
     )
 
 
+def tp_ann_exchanges(mode, direction, plan):
+    """The exchanges on one cluster's chain: T - 1 a walk in the RNN's and
+    the LiGRU's forward (the last y gather feeds nothing), 2T - 1 in the
+    GRU's; T and 2T in the backward; times the row groups it walks."""
+    per_walk = (2 * T if mode == "gru" else T) - (direction == "fwd")
+    return plan["walks"] * per_walk
+
+
+def exchange_us(mode, direction, rows):
+    """Per P > 1: the kernel's time at P less its time at P = 1, over the
+    exchanges on a cluster's chain at P. The plans differ across P (the
+    cluster size, the rows a cluster), so this bounds what an exchange
+    costs beside what the plan moves."""
+    return {q: (rows[q]["ms"] - rows[1]["ms"]) * 1e3
+            / tp_ann_exchanges(mode, direction, rows[q]["plan"])
+            for q in TP_PS if q > 1}
+
+
 def tp_ann_kernel_rows(fwd, bwd, trained, bf16=False):
     """The ``kernels`` entries of the TP ANN path in one stream mode: the
     GRU at P = 4 (all four ranks in one launch on the one card), each P's
-    and each mode's beside it; launches: the P = 4 GRU trainer's run, and
-    the P = 2 runs of the LiGRU and the RNN by mode."""
+    and each mode's beside it, with the plan each P ran, ``exchange_us``
+    per P and (backward) ``split_ms``; launches: the P = 4 GRU trainer's
+    run, and the P = 2 runs of the LiGRU and the RNN by mode."""
     src = "sparch_tpu_torch/csrc/"
     tpu = "sparch_tpu/ops/pallas_tp_ann.py:"
     P = TP_PS[-1]
@@ -2937,7 +2977,12 @@ def tp_ann_kernel_rows(fwd, bwd, trained, bf16=False):
                 single_card_kernel_ms=res[mode]["single_card_kernel_ms"],
                 launches_by_p={q: trained[(mode, q)][name + sfx]
                                for q in ps},
+                plan_by_p={q: res[mode][q]["plan"] for q in TP_PS},
+                exchange_us_by_p=exchange_us(mode, direction, res[mode]),
                 **tp_ann_bounds(mode, B, T, TP_H, bf16=bf16)[direction])
+            if direction == "bwd":
+                by_mode[mode]["split_ms_by_p"] = {
+                    q: res[mode][q]["split_ms"] for q in TP_PS}
             if direction == "fwd":
                 by_mode[mode]["ms_serving_by_p"] = {
                     q: res[mode][q]["ms_serving"] for q in TP_PS}
@@ -2950,7 +2995,11 @@ def tp_ann_kernel_rows(fwd, bwd, trained, bf16=False):
             **tp_ann_bounds("gru", B, T, TP_H, bf16=bf16)[direction],
             library_ms=None,
             one_card_form=True, P=P, mode="gru", shape=[B, T, TP_H],
-            ms_by_p=by_mode["gru"]["ms_by_p"],
+            ms_by_p=by_mode["gru"]["ms_by_p"], plan=main["plan"],
+            plan_by_p=by_mode["gru"]["plan_by_p"],
+            exchange_us_by_p=by_mode["gru"]["exchange_us_by_p"],
+            **({"split_ms": main["split_ms"]} if direction == "bwd"
+               else {}),
             single_card_kernel_ms=main["single_card_kernel_ms"],
             by_mode=by_mode))
     return rows

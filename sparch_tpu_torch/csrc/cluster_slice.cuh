@@ -69,12 +69,18 @@ struct Plan {
 };
 
 // gates: matrices of a step; elem: bytes of a matrix element; planes:
-// operands of a parity.
-inline Plan make_plan(int B, int H, int gates, int elem, int planes) {
+// operands of a parity. H is the rows of each matrix and the width of the
+// operand; `width` (0: H) the columns split over the cluster, fewer where
+// a rank owns only its block of them (tp_ann.cuh); `cluster` (0: the most
+// blocks, up to kMaxCluster, that leave each slice kMinCols columns) the
+// blocks of a cluster.
+inline Plan make_plan(int B, int H, int gates, int elem, int planes,
+                      int width = 0, int cluster = 0) {
   Plan p;
-  const int c = H / kMinCols < kMaxCluster ? H / kMinCols : kMaxCluster;
-  p.cluster = c > 1 ? c : 1;
-  p.cols = ((H + p.cluster - 1) / p.cluster + kColAlign - 1) / kColAlign *
+  const int w = width > 0 ? width : H;
+  const int c = w / kMinCols < kMaxCluster ? w / kMinCols : kMaxCluster;
+  p.cluster = cluster > 0 ? cluster : (c > 1 ? c : 1);
+  p.cols = ((w + p.cluster - 1) / p.cluster + kColAlign - 1) / kColAlign *
            kColAlign;
   // eight rows, unless the operands would pass 128 KB or the threads 384
   p.rows = planes * H <= 2048 && p.cols * 8 / kRt <= kMaxThreads ? 8 : 4;

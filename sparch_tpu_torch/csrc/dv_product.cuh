@@ -198,4 +198,28 @@ ann_dv_kernel(const AnnDvArgs a) {
   }
 }
 
+// CUDA events around the launches of one backward call, where the caller
+// asks for their milliseconds (split_ms): mark(i) before launch i, mark(n)
+// after the last; report() waits for the last and writes the n times.
+struct Split {
+  cudaEvent_t ev[4] = {nullptr, nullptr, nullptr, nullptr};
+  bool on = false;
+  explicit Split(bool want) : on(want) {
+    if (!on) return;
+    for (auto& e : ev) cudaEventCreate(&e);
+  }
+  ~Split() {
+    if (!on) return;
+    for (auto& e : ev) cudaEventDestroy(e);
+  }
+  void mark(int i, cudaStream_t st) {
+    if (on) cudaEventRecord(ev[i], st);
+  }
+  void report(float* ms, int n) {
+    if (!on) return;
+    cudaEventSynchronize(ev[n]);
+    for (int i = 0; i < n; ++i) cudaEventElapsedTime(&ms[i], ev[i], ev[i + 1]);
+  }
+};
+
 }  // namespace sparch

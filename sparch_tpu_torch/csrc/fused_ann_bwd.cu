@@ -330,23 +330,6 @@ slice::Plan bwd_plan(int B, int H, int mode, int bf16) {
   return slice::make_plan(B, H, mode + 1, bf16 ? 2 : 4, mode == kRnn ? 1 : 2);
 }
 
-// Events around the launches of one call, where split_ms asks for them.
-struct Split {
-  cudaEvent_t ev[4] = {nullptr, nullptr, nullptr, nullptr};
-  bool on = false;
-  explicit Split(bool want) : on(want) {
-    if (!on) return;
-    for (auto& e : ev) cudaEventCreate(&e);
-  }
-  ~Split() {
-    if (!on) return;
-    for (auto& e : ev) cudaEventDestroy(e);
-  }
-  void mark(int i, cudaStream_t st) {
-    if (on) cudaEventRecord(ev[i], st);
-  }
-};
-
 }  // namespace
 
 // mode: 0 RNN, 1 LiGRU, 2 GRU. Null pointers switch parts off: scale (no
@@ -436,12 +419,7 @@ extern "C" int sparch_fused_ann_bwd(
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   split.mark(3, st);
-  if (split.on) {
-    cudaEventSynchronize(split.ev[3]);
-    for (int i = 0; i < 3; ++i) {
-      cudaEventElapsedTime(&split_ms[i], split.ev[i], split.ev[i + 1]);
-    }
-  }
+  split.report(split_ms, 3);
   return (int)cudaGetLastError();
 }
 

@@ -25,62 +25,63 @@
 // y0 once before its kernel; in the one-card form the full y0 is at hand).
 // Normalisation and dropout stay outside, as in the JAX package.
 //
-// The GRU's two exchanges of a step have consecutive indices, so r*y always
-// lands on parity 0 and y on parity 1 (pallas_tp_ann.py:38-44): a rank
-// stores r*y of step t+1 into slot 0 only after it has waited on the y
-// exchange of step t, which each peer publishes only after it has read slot
-// 0 of step t (its y depends on the r*y it read); likewise y of step t+1
-// into slot 1 only after the r*y exchange of step t+1, which each peer
-// publishes after reading slot 1 of step t. The value chain is the
-// backpressure, as in tp_exchange.cuh.
-//
 // What bounds it on this card: the dense products on the chain, as in
 // fused_ann_fwd.cu. Every step is a (B, Hg) x (Hg, Hl) float32 product per
 // gate and rank, 2*B*Hg*Hg FLOP per gate over all ranks, T steps one after
 // another; the GRU has two dependent products per step with an exchange
 // between them. At (128, 100, 1024) the GRU does 80.5 GFLOP (1.20 ms at the
-// float32 peak outside the tensor cores); every block streams its rank's
-// column blocks from L2 at every step, and each exchange is a round trip
-// through L2.
+// float32 peak outside the tensor cores). A block that owned whole rows
+// would read its rank's column blocks from L2 at every step for those rows
+// alone; a cluster reads them once a step for its R rows, and what is left
+// on the chain is issue slots and the exchanges (PERF.md §6).
 //
-// Design (fused_ann_fwd.cu's, per rank):
-// - A block runs one rank's neurons for BT batch rows (a row group) for the
-//   whole sequence and walks the groups k, k + per_rank, ... on every rank
-//   alike; thread j owns the rank's neurons j + i*blockDim.x (NPT of them)
-//   for the BT rows, y in registers. BT is the first of 1, 2, 4, 8 (NPT*BT
-//   <= 8, shared memory allowing) at which the card holds every group of
-//   every rank at once, else the plan with the most rows at work; the launch
-//   is cooperative, so it never deadlocks (tp_exchange.cuh).
-// - The left operand of a product (y_full or ry_full, Hg*BT floats) lies in
-//   shared memory as [j][row], read back from the own slot after the
-//   exchange; the rank's column blocks stream from L2 through shared memory
-//   in 64 KB bulk-copy tiles (tile_stream.cuh), packed by the wrapper per
-//   rank in the order a step reads them (RNN: V; LiGRU: V, Vz; GRU: Vz, Vr,
-//   then V), the stream running on across steps and groups.
+// Design (tp_ann.cuh; fused_ann_fwd.cu's, per rank): a thread-block cluster
+// of C blocks owns R batch rows of one rank for the whole sequence, block k
+// the (Hg, Hs) slice of each of the step's column blocks of its rank,
+// resident or streamed once per cluster and step, so a cluster reads its
+// rank's matrices once a step for R rows. A step runs its products in
+// passes (RNN: V; LiGRU: [V | Vz]; GRU: [Vz | Vr], then V), each thread
+// summing its column over all Hg rows in ascending order with FMAs. After
+// each pass that feeds another (the GRU's r*y, every step's y but the
+// last) the cluster exchanges (tp_ann.cuh): its blocks' columns through
+// distributed shared memory, the peers' through the slots; the GRU's r*y
+// lands on operand parity 0 and slot parity 0, y on parity 1 and 1; the
+// RNN's and LiGRU's y of step t on operand parity (t+1) & 1 and slot
+// parity t & 1. At P = 1 this is fused_ann_fwd.cu without the affine and
+// the dropout. Where the clusters of every rank do not all fit, a cluster
+// walks its row groups, loading each group's rows of y0f before its first
+// step.
 // - Rounding: each output column sums y_full[j]*V[j][col] over all Hg rows
-//   j in ascending order with FMAs, whatever P is, and the elementwise code
-//   is fused_ann_fwd.cu's without the affine: the output equals the
-//   single-card kernel's, and that of every P, bit for bit.
+//   j in ascending order with FMAs, whatever P and the plan are, and the
+//   elementwise code is fused_ann_fwd.cu's without the affine: the output
+//   equals the single-card kernel's, and that of every P, bit for bit.
 // - Rank data: the local rank l's column block starts at column l*Hl of
 //   tensors with row stride ld. In the one-card form they are the full
 //   (…, H) tensors (ld = H); across cards each rank's own (ld = Hl).
+// - Edges are masked: rows >= B and neurons >= Hl load nothing and store
+//   nothing; the packed slices are zero past Hl.
 // - bf16 mode (the JAX kernel's mxu_bf16: rdt/vdt bf16,
-//   pallas_tp_ann.py:243-244): the packed column blocks are bf16 (rounded
-//   once by the wrapper), the wire is bf16 (tp_exchange.cuh), so the
-//   gathered y and r*y that feed the products are rounded to bf16 as they
-//   are staged (:185, :204, :210), and so is the gathered y0 of the first
-//   products (`_dot` rounds its left operand); the output and the gate
-//   series are bf16 streams (:219-222), each input stream is float32 or
-//   bf16 as the model emitted it, and the carried y stays float32 (:172,
+//   pallas_tp_ann.py:243-244): the packed slices are bf16 (rounded once by
+//   the wrapper), the wire is bf16 (tp_exchange.cuh) and the operand is
+//   rounded alike, so the gathered y and r*y that feed the products are
+//   rounded to bf16 (:185, :204, :210), and so is the gathered y0 of the
+//   first products (`_dot` rounds its left operand); the output and the
+//   gate series are bf16 streams (:219-222), each input stream is float32
+//   or bf16 as the model emitted it, and the carried y stays float32 (:172,
 //   :208, :224). A product of two bf16 values is exact in float32, so the
 //   sums are those of a bf16 product with a float32 accumulator. These are
-//   the rounding points of fused_ann_fwd.cu's bf16 mode, so the output still
-//   equals that kernel's without the affine and the dropout, at every P.
+//   the rounding points of fused_ann_fwd.cu's bf16 mode, so the output
+//   still equals that kernel's without the affine and the dropout, at
+//   every P.
 //
-// C interface, bound with ctypes: sparch_tp_ann_fwd returns the launch's
+// C interface, bound with ctypes: sparch_tp_ann_fwd checks the plan it is
+// given (cluster, rows, resident: ops/fused_tp_ann.py `_tp_plan`) against
+// its own at that cluster size, sizes the grid from the clusters the card
+// holds, launches (tp_ann.cuh's launch mode), returns the launch's
 // cudaError_t (or an invalid-value error for arguments it does not take)
-// and never synchronises. `plan` (host memory, may be null) receives {BT,
-// blocks per rank, blocks per SM, threads}.
+// and never synchronises; `plan` (host memory, may be null) receives the
+// plan it ran (tp_ann::report). sparch_tp_ann_fwd_max_clusters answers the
+// wrapper's question: how many clusters of a plan the card holds at once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,270 +92,232 @@ namespace {
 
 using namespace sparch;
 using namespace sparch::tp_ann;
-using sparch::tp::Layout;
-using sparch::tp::Peers;
 
-// Streams, matrices and slots are float, or bf16 in the bf16 mode; wx is
+// Streams, slices and slots are float, or bf16 in the bf16 mode; wx is
 // float or bf16 there, as wx_bf16 says.
-struct FwdArgs {
+struct Args {
   const void* wx[3];   // (B, T, ld) by gate
-  const void* V;       // [n_local][G][Hg][Hl]: the packed column blocks
+  const void* V;       // the packed slices, [n_local][cluster][passes]
   const float* y0f;    // (B, Hg): the gathered initial state
   void* y_out;         // (B, T, ld)
   void* z_out;         // the gate series, (B, T, ld); null: serving form
   void* r_out;
   void* c_out;
-  Peers peers;         // slots: per rank [2][B][Hg] elements
-  Layout lay;
+  tp::Peers peers;     // slots: per rank [2][B][Hg] elements
+  tp::Layout lay;      // per_rank: clusters; n_groups: row groups
   int B, T, Hg, Hl, ld;
+  int wx_bf16;         // the input streams are bf16, not float
+  slice::Plan plan;
 };
 
-// The bf16 mode's one more flag rides in a struct of its own, so that the
-// float32 kernels' parameter block stays what it was before the mode
-// existed (see fused_ann_fwd.cu).
-struct FwdArgsBf16 : FwdArgs {
-  int wx_bf16;  // the input streams are bf16, not float
-};
-template <bool BF>
-struct ModeArgs {
-  using type = FwdArgs;
-};
-template <>
-struct ModeArgs<true> {
-  using type = FwdArgsBf16;
-};
-
-template <int MODE, int NPT, int BT, bool BF>
-__global__ void __launch_bounds__(kThreads)
-tp_ann_fwd_kernel(const typename ModeArgs<BF>::type p) {
-  using ST = typename Elem<BF>::type;  // streams, matrices, wire
+template <int MODE, bool BF>
+__global__ void __launch_bounds__(slice::kMaxThreads, 1)
+tp_ann_fwd_kernel(const __grid_constant__ Args p) {
+  using ST = typename Elem<BF>::type;  // streams, slices, wire
   constexpr int G = MODE + 1;
-  // dynamic shared memory: the left operand (Hg*BT floats), then the
-  // stream's stages
-  extern __shared__ __align__(16) float pub[];
+  // the gates of the first pass (the GRU's second pass holds V)
+  constexpr int NA = MODE == kRnn ? 1 : 2;
+  // two parities of the [j][row] operand (R*Hg floats each), then the
+  // resident slice or the stream's stages
+  extern __shared__ __align__(16) float smem[];
   __shared__ uint64_t full[kStages];
-  const Layout& l = p.lay;
-  const int Hg = p.Hg, Hl = p.Hl, T = p.T, ld = p.ld;
-  const int local = tp::local_rank(l);
-  const int blk = tp::block_in_rank(l);
-  const int rank = l.rank0 + local;
-  const int col0 = local * Hl;  // the rank's first column in rank data
-  const int my_groups = (l.n_groups - blk + l.per_rank - 1) / l.per_rank;
-  TileStream<ST> s = block_stream(
-      static_cast<const ST*>(p.V) + (size_t)local * G * Hg * Hl,
-      reinterpret_cast<ST*>(pub + Hg * BT), full, Hg, Hl, G, my_groups * T);
-  const bool resid = p.c_out != nullptr;
-  bool wx_bf16 = false;
-  if constexpr (BF) wx_bf16 = p.wx_bf16;
+  const slice::Plan& pl = p.plan;
+  const tp::Layout& l = p.lay;
+  const int Hg = p.Hg, T = p.T, R = pl.rows, Hs = pl.cols, C = pl.cluster;
+  const int k = (int)(blockIdx.x % C);
+  const int cl = (int)(blockIdx.x / C);
+  const int local = cl / l.per_rank;
+  const int first = cl % l.per_rank;  // the cluster's first row group
+  const size_t RH = (size_t)R * Hg;
+  float* const op0 = smem;  // the two parities of the operand
+  float* const op1 = smem + RH;
 
-  int col[NPT];
-#pragma unroll
-  for (int i = 0; i < NPT; ++i) col[i] = threadIdx.x + i * blockDim.x;
-  stream_open(s);
+  const int tx = threadIdx.x % Hs;
+  const int ty_raw = threadIdx.x / Hs;
+  const bool thread_live = ty_raw < R / kRt;
+  const int ry0 = thread_live ? ty_raw * kRt : 0;
+  const int col = k * Hs + tx;  // the rank's neuron
+  const size_t scol = (size_t)local * p.Hl + col;  // its column in rank data
+  const bool wx_bf16 = BF && p.wx_bf16;
+  Site x;
+  x.peers = &p.peers;
+  x.lay = &l;
+  x.rank = l.rank0 + local;
+  x.gcol = x.rank * p.Hl + col;
+  x.B = p.B;
+  x.Hg = Hg;
+  x.Hl = p.Hl;
+  x.W = Hg;
+  x.R = R;
+  x.C = C;
+  x.live = thread_live && col < p.Hl;
 
-  for (int grp = blk; grp < l.n_groups; grp += l.per_rank) {
-    const int row0 = grp * BT;
-    float y[NPT][BT];
+  const int gates[2] = {NA, MODE == kGru ? 1 : 0};
+  const int walks = (l.n_groups - first + l.per_rank - 1) / l.per_rank;
+  slice::Stream<ST> s = slice::open_stream(
+      static_cast<const ST*>(p.V) + ((size_t)local * C + k) * G * Hg * Hs,
+      reinterpret_cast<ST*>(smem + 2 * RH), full, pl, Hg, Hs, gates,
+      walks * T);
+  slice::begin(s);
+
+  for (int w = 0; w < walks; ++w) {
+    x.group = first + w * l.per_rank;
+    x.row_base = x.group * R;
+    x.row0 = x.row_base + ry0;
+    float y[kRt];
 #pragma unroll
-    for (int i = 0; i < NPT; ++i) {
-#pragma unroll
-      for (int r = 0; r < BT; ++r) {
-        y[i][r] = p.y0f[(size_t)(row0 + r) * Hg + rank * Hl + col[i]];
-      }
+    for (int r = 0; r < kRt; ++r) {
+      x.rowlive[r] = thread_live && x.row0 + r < p.B;
+      y[r] = (x.live && x.rowlive[r])
+                 ? p.y0f[(size_t)(x.row0 + r) * Hg + x.gcol]
+                 : 0.f;
     }
-    // the first left operand: the group's rows of the gathered y0 (the
-    // group before left its last product behind a barrier), rounded to
-    // bf16 in the bf16 mode
-    for (int idx = threadIdx.x; idx < BT * Hg; idx += blockDim.x) {
-      const int r = idx / Hg;
-      const int j = idx - r * Hg;
-      const float v = p.y0f[(size_t)row0 * Hg + idx];
-      pub[j * BT + r] = BF ? round_bf16(v) : v;
-    }
+    // the group's first left operand, its rows of y0f: the GRU reads y
+    // from parity 1, the others y of step t from parity t & 1; the
+    // block's threads are done with the group before (its last pass read
+    // parity 0 where T is odd)
+    if (w > 0) __syncthreads();
+    slice::load_state<BF>(MODE == kGru ? op1 : op0, p.y0f, p.B, Hg, R,
+                          x.row_base);
+    // every block of the cluster runs (is done with the group before), and
+    // its operand is in place
+    slice::cluster_barrier();
+    if (w == 0) slice::await_resident(s);
 
     for (int t = 0; t < T; ++t) {
-      float d[G][NPT][BT];
-      float acc[G][NPT][BT];
+      float d[G][kRt];
 #pragma unroll
       for (int g = 0; g < G; ++g) {
 #pragma unroll
-        for (int i = 0; i < NPT; ++i) {
-#pragma unroll
-          for (int r = 0; r < BT; ++r) {
-            d[g][i][r] = load_stream<BF>(
-                p.wx[g], ((size_t)(row0 + r) * T + t) * ld + col0 + col[i],
-                wx_bf16);
-            acc[g][i][r] = 0.f;
-          }
+        for (int r = 0; r < kRt; ++r) {
+          const size_t at = ((size_t)(x.row0 + r) * T + t) * p.ld + scol;
+          d[g][r] = (x.live && x.rowlive[r])
+                        ? load_stream<BF>(p.wx[g], at, wx_bf16)
+                        : 0.f;
         }
       }
-      float z[NPT][BT], rr[NPT][BT], c[NPT][BT];
+      float a[NA][kRt];
+#pragma unroll
+      for (int g = 0; g < NA; ++g) {
+#pragma unroll
+        for (int r = 0; r < kRt; ++r) a[g][r] = 0.f;
+      }
+      float z[kRt], rr[kRt], c[kRt];
+      float pre[kRt];
       if constexpr (MODE == kGru) {
-        stream_matrix<NPT, BT>(s, pub, col, acc[1]);  // y_full @ Vz[:, sh]
-        stream_matrix<NPT, BT>(s, pub, col, acc[2]);  // y_full @ Vr[:, sh]
-        float ry[NPT][BT];
+        // [Vz | Vr] against y, from parity 1
+        slice::pass<2, true>(s, 0, op1 + ry0, 0, R, tx, Hs, a);
+        float ry[kRt];
 #pragma unroll
-        for (int i = 0; i < NPT; ++i) {
-#pragma unroll
-          for (int r = 0; r < BT; ++r) {
-            z[i][r] = sigmoidf(d[1][i][r] + acc[1][i][r]);
-            rr[i][r] = sigmoidf(d[2][i][r] + acc[2][i][r]);
-            ry[i][r] = rr[i][r] * y[i][r];
-          }
+        for (int r = 0; r < kRt; ++r) {
+          z[r] = sigmoidf(d[1][r] + a[0][r]);
+          rr[r] = sigmoidf(d[2][r] + a[1][r]);
+          ry[r] = rr[r] * y[r];
         }
-        to_peers<ST, NPT, BT>(p.peers, l.P, p.B, Hg, 0, row0, rank * Hl, ry,
-                              col);
-        tp::exchange(p.peers, l, rank, grp, 2 * t);
-        from_slot<ST, BT>(pub, p.peers.slots[rank], p.B, Hg, 0, row0, Hg, 1);
-        stream_matrix<NPT, BT>(s, pub, col, acc[0]);  // ry_full @ V[:, sh]
+        put<BF, ST>(x, op0, 0, 2 * t, ry);
+        exchange<ST>(x, op0, 1, 2 * t);
+        float ac[1][kRt] = {};
+        slice::pass<1, true>(s, 1, op0 + ry0, 0, R, tx, Hs, ac);  // (r*y) @ V
+#pragma unroll
+        for (int r = 0; r < kRt; ++r) pre[r] = d[0][r] + ac[0][r];
       } else {
-        stream_matrix<NPT, BT>(s, pub, col, acc[0]);  // y_full @ V[:, sh]
-        if constexpr (MODE == kLigru) {
-          stream_matrix<NPT, BT>(s, pub, col, acc[1]);  // y_full @ Vz[:, sh]
-        }
+        slice::pass<NA, true>(s, 0, ((t & 1) ? op1 : op0) + ry0, 0, R, tx,
+                              Hs, a);
+#pragma unroll
+        for (int r = 0; r < kRt; ++r) pre[r] = d[0][r] + a[0][r];
       }
 #pragma unroll
-      for (int i = 0; i < NPT; ++i) {
-#pragma unroll
-        for (int r = 0; r < BT; ++r) {
-          const float pre = d[0][i][r] + acc[0][i][r];
-          if constexpr (MODE == kRnn) {
-            y[i][r] = sigmoidf(pre);
+      for (int r = 0; r < kRt; ++r) {
+        if constexpr (MODE == kRnn) {
+          y[r] = sigmoidf(pre[r]);
+        } else {
+          if constexpr (MODE == kLigru) {
+            z[r] = sigmoidf(d[1][r] + a[1][r]);
+            c[r] = fmaxf(pre[r], 0.f);
           } else {
-            if constexpr (MODE == kLigru) {
-              z[i][r] = sigmoidf(d[1][i][r] + acc[1][i][r]);
-              c[i][r] = fmaxf(pre, 0.f);
-            } else {
-              c[i][r] = tanhf(pre);
-            }
-            y[i][r] = z[i][r] * y[i][r] + (1.0f - z[i][r]) * c[i][r];
+            c[r] = tanhf(pre[r]);
           }
-          const size_t at = ((size_t)(row0 + r) * T + t) * ld + col0 + col[i];
-          static_cast<ST*>(p.y_out)[at] = from_float<ST>(y[i][r]);
-          if constexpr (MODE != kRnn) {
-            if (resid) {
-              static_cast<ST*>(p.z_out)[at] = from_float<ST>(z[i][r]);
-              static_cast<ST*>(p.c_out)[at] = from_float<ST>(c[i][r]);
-              if constexpr (MODE == kGru) {
-                static_cast<ST*>(p.r_out)[at] = from_float<ST>(rr[i][r]);
-              }
+          y[r] = z[r] * y[r] + (1.0f - z[r]) * c[r];
+        }
+        if (!(x.live && x.rowlive[r])) continue;
+        const size_t at = ((size_t)(x.row0 + r) * T + t) * p.ld + scol;
+        static_cast<ST*>(p.y_out)[at] = from_float<ST>(y[r]);
+        if constexpr (MODE != kRnn) {
+          if (p.c_out) {
+            static_cast<ST*>(p.z_out)[at] = from_float<ST>(z[r]);
+            static_cast<ST*>(p.c_out)[at] = from_float<ST>(c[r]);
+            if constexpr (MODE == kGru) {
+              static_cast<ST*>(p.r_out)[at] = from_float<ST>(rr[r]);
             }
           }
         }
       }
       if (t + 1 == T) break;  // the last step's y gather would feed nothing
       const int e = MODE == kGru ? 2 * t + 1 : t;
-      to_peers<ST, NPT, BT>(p.peers, l.P, p.B, Hg, e & 1, row0, rank * Hl,
-                            y, col);
-      tp::exchange(p.peers, l, rank, grp, e);
-      from_slot<ST, BT>(pub, p.peers.slots[rank], p.B, Hg, e & 1, row0, Hg,
-                        1);
+      float* next = (MODE == kGru || !(t & 1)) ? op1 : op0;
+      put<BF, ST>(x, next, 0, e, y);
+      exchange<ST>(x, next, 1, e);
     }
   }
 }
 
-template <int MODE, int NPT, bool BF>
-int launch_npt(typename ModeArgs<BF>::type& p, int* plan,
-               cudaStream_t st) {
-  const int threads = p.Hl / NPT;
-  const int n_local = p.lay.n_local;
-  tp::Plan best{0, 0, 0, 0};
-  bool fit = false;
-  try_plan<1>(tp_ann_fwd_kernel<MODE, NPT, 1, BF>, threads, 1, p.Hg, p.B,
-              n_local, best, fit);
-  try_plan<2>(tp_ann_fwd_kernel<MODE, NPT, 2, BF>, threads, 1, p.Hg, p.B,
-              n_local, best, fit);
-  if constexpr (NPT * 4 <= kMaxWork) {
-    try_plan<4>(tp_ann_fwd_kernel<MODE, NPT, 4, BF>, threads, 1, p.Hg, p.B,
-                n_local, best, fit);
-  }
-  if constexpr (NPT * 8 <= kMaxWork) {
-    try_plan<8>(tp_ann_fwd_kernel<MODE, NPT, 8, BF>, threads, 1, p.Hg, p.B,
-                n_local, best, fit);
-  }
-  if (best.bt == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
-  p.lay.per_rank = best.per_rank;
-  p.lay.n_groups = p.B / best.bt;
-  if (plan) {
-    plan[0] = best.bt;
-    plan[1] = best.per_rank;
-    plan[2] = best.per_sm;
-    plan[3] = threads;
-  }
-  const int blocks = n_local * best.per_rank;
-  cudaError_t err = cudaErrorInvalidValue;
-  switch (best.bt) {
-    case 1:
-      err = tp::launch_cooperative(tp_ann_fwd_kernel<MODE, NPT, 1, BF>,
-                                   blocks, threads, best.smem, p, st);
-      break;
-    case 2:
-      err = tp::launch_cooperative(tp_ann_fwd_kernel<MODE, NPT, 2, BF>,
-                                   blocks, threads, best.smem, p, st);
-      break;
-    case 4:
-      if constexpr (NPT * 4 <= kMaxWork) {
-        err = tp::launch_cooperative(tp_ann_fwd_kernel<MODE, NPT, 4, BF>,
-                                     blocks, threads, best.smem, p, st);
-      }
-      break;
-    default:
-      if constexpr (NPT * 8 <= kMaxWork) {
-        err = tp::launch_cooperative(tp_ann_fwd_kernel<MODE, NPT, 8, BF>,
-                                     blocks, threads, best.smem, p, st);
-      }
-      break;
-  }
-  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+using Kernel = void (*)(Args);
+
+template <int MODE>
+Kernel kernel_of(int bf16) {
+  return bf16 ? tp_ann_fwd_kernel<MODE, true> : tp_ann_fwd_kernel<MODE, false>;
 }
 
-template <int MODE, bool BF>
-int launch_mode(typename ModeArgs<BF>::type& p, int npt, int* plan,
-                cudaStream_t st) {
-  switch (npt) {
-    case 1: return launch_npt<MODE, 1, BF>(p, plan, st);
-    case 2: return launch_npt<MODE, 2, BF>(p, plan, st);
-    default: return launch_npt<MODE, 4, BF>(p, plan, st);
-  }
-}
-
-template <bool BF>
-int launch_form(typename ModeArgs<BF>::type& p, int mode, int npt, int* plan,
-                cudaStream_t st) {
+// The instantiation that a launch of the mode takes.
+Kernel kernel_for(int mode, int bf16) {
   switch (mode) {
-    case kRnn: return launch_mode<kRnn, BF>(p, npt, plan, st);
-    case kLigru: return launch_mode<kLigru, BF>(p, npt, plan, st);
-    default: return launch_mode<kGru, BF>(p, npt, plan, st);
+    case kRnn: return kernel_of<kRnn>(bf16);
+    case kLigru: return kernel_of<kLigru>(bf16);
+    default: return kernel_of<kGru>(bf16);
   }
+}
+
+slice::Plan fwd_plan(int B, int Hg, int P, int cluster, int mode, int bf16) {
+  return rank_plan(B, Hg, P, cluster, mode + 1, bf16, 1);
+}
+
+bool shape_ok(int B, int Hg, int P, int mode, int cluster) {
+  return B > 0 && P >= 1 && P <= tp::kMaxRanks && Hg > 0 && Hg % P == 0 &&
+         (Hg / P) % kColUnit == 0 && Hg / P <= kMaxHl && mode >= kRnn &&
+         mode <= kGru && cluster >= 1 && cluster <= slice::kMaxCluster;
 }
 
 }  // namespace
 
 // mode: 0 RNN, 1 LiGRU, 2 GRU; wx1/wx2 and the gate series of gates the mode
-// lacks are ignored. V: the packed column blocks of the n_local ranks,
-// [n_local][gates][Hg][Hl] in the order a step reads them. slots/flags: host
-// arrays of P device pointers, every rank's slots ([2][B][Hg] floats) and
-// zeroed counters ([P][B][2] u32). c_out non-null (with z_out, and r_out
-// for the GRU) writes the gate series. bf16 selects the bf16-stream mode
-// (V, the slots, y_out and the gate series bf16; wx bf16 where wx_bf16,
-// else float); y0f is float in either mode.
+// lacks are ignored. V: every block's slice of every local rank's column
+// blocks (ops/fused_tp_ann.py `_pack_slices`). slots/flags: host arrays of
+// P device pointers, every rank's slots ([2][B][Hg] elements) and zeroed
+// counters ([P][groups][2] u32). c_out non-null (with z_out, and r_out for
+// the GRU) writes the gate series. bf16 selects the bf16-stream mode (V,
+// the slots, y_out and the gate series bf16; wx bf16 where wx_bf16, else
+// float); y0f is float in either mode. cluster, rows, resident: the plan
+// the wrapper packed V for.
 extern "C" int sparch_tp_ann_fwd(
     const void* wx0, const void* wx1, const void* wx2, const void* V,
     const float* y0f, void* y_out, void* z_out, void* r_out, void* c_out,
     void* const* slots, unsigned* const* flags, int B, int T, int Hg, int P,
     int rank0, int n_local, int ld, int mode, int bf16, int wx_bf16,
-    int* plan, void* stream) {
-  if (B <= 0 || B % 8 != 0 || T <= 0 || P < 1 || P > tp::kMaxRanks ||
-      Hg <= 0 || Hg % (P * 128) != 0 || Hg / P > kThreads * kMaxNpt ||
-      n_local < 1 || rank0 < 0 || rank0 + n_local > P || mode < kRnn ||
-      mode > kGru || !wx0 || (mode >= kLigru && !wx1) ||
+    int cluster, int rows, int resident, int* plan, void* stream) {
+  if (!shape_ok(B, Hg, P, mode, cluster) || T <= 0 || n_local < 1 ||
+      rank0 < 0 || rank0 + n_local > P || !wx0 || (mode >= kLigru && !wx1) ||
       (mode == kGru && !wx2) || !V || !y0f || !y_out ||
       (mode >= kLigru && ((z_out == nullptr) != (c_out == nullptr))) ||
       (mode == kGru && ((r_out == nullptr) != (c_out == nullptr))) ||
       (wx_bf16 && !bf16)) {
     return (int)cudaErrorInvalidValue;
   }
-  FwdArgsBf16 p{};
+  const slice::Plan pl = fwd_plan(B, Hg, P, cluster, mode, bf16);
+  if (rows != pl.rows || resident != pl.resident ||
+      !runs(pl, mode == kRnn ? 1 : 2, bf16)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Args p{};
   if (!tp::make_peers(slots, flags, P, &p.peers)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -367,19 +330,35 @@ extern "C" int sparch_tp_ann_fwd(
   p.z_out = z_out;
   p.r_out = r_out;
   p.c_out = mode == kRnn ? nullptr : c_out;
-  p.lay.P = P;
-  p.lay.rank0 = rank0;
-  p.lay.n_local = n_local;
   p.B = B;
   p.T = T;
   p.Hg = Hg;
   p.Hl = Hg / P;
   p.ld = ld;
-  // fewest neurons per thread that keep the block within kThreads
-  int npt = 1;
-  while (p.Hl / npt > kThreads) npt *= 2;
   p.wx_bf16 = wx_bf16;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) return launch_form<true>(p, mode, npt, plan, st);
-  return launch_form<false>(static_cast<FwdArgs&>(p), mode, npt, plan, st);
+  p.plan = pl;
+  const Kernel kernel = kernel_for(mode, bf16);
+  int max = 0;
+  const int per_rank = clusters_per_rank(kernel, pl, n_local, &max);
+  if (max < 0) {
+    const cudaError_t err = cudaGetLastError();
+    return err != cudaSuccess ? (int)err : (int)cudaErrorInvalidConfiguration;
+  }
+  if (per_rank == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+  p.lay = tp::Layout{P, rank0, n_local, per_rank, pl.clusters};
+  report(plan, pl, per_rank, max);
+  const cudaError_t err = launch(kernel, pl, n_local * per_rank, p,
+                                 static_cast<cudaStream_t>(stream));
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// How many clusters of the forward's plan at `cluster` blocks the card
+// holds at once (cudaOccupancyMaxActiveClusters); -1 where the plan does
+// not run or the query fails.
+extern "C" int sparch_tp_ann_fwd_max_clusters(int B, int Hg, int P, int mode,
+                                              int bf16, int cluster) {
+  if (!shape_ok(B, Hg, P, mode, cluster)) return -1;
+  const slice::Plan pl = fwd_plan(B, Hg, P, cluster, mode, bf16);
+  if (!runs(pl, mode == kRnn ? 1 : 2, bf16)) return -1;
+  return slice::max_active_clusters(kernel_for(mode, bf16), pl);
 }

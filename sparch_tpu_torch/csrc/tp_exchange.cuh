@@ -1,5 +1,7 @@
 // The in-kernel exchange of the tensor-parallel (TP) kernels for Hopper
-// (sm_90a): tp_collectives.cu, tp_cell_fwd.cu and tp_cell_bwd.cu.
+// (sm_90a): tp_collectives.cu, tp_cell_fwd.cu and tp_cell_bwd.cu, and (its
+// two halves, publish and await_peers, once per thread-block cluster)
+// tp_ann.cuh's tp_ann_fwd.cu and tp_ann_bwd.cu.
 //
 // Replaces: sparch_tpu/ops/pallas_tp.py `_collective_barrier` (:87),
 // `_ag_exchange` (:102) and `_rs_exchange` (:138), the building blocks of
@@ -173,6 +175,57 @@ __device__ __forceinline__ void exchange(const Peers& peers, const Layout& l,
     __threadfence();
   }
   __syncthreads();
+}
+
+__device__ __forceinline__ void fence_acq_rel_sys() {
+  asm volatile("fence.acq_rel.sys;" ::: "memory");
+}
+__device__ __forceinline__ void store_relaxed_sys(unsigned* p, unsigned v) {
+  asm volatile("st.relaxed.sys.global.u32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+__device__ __forceinline__ unsigned load_relaxed_sys(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.sys.global.u32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// The two halves of exchange e for kernels in which several blocks (the
+// blocks of a thread-block cluster, tp_ann.cuh) share a row group: after a
+// barrier over all of them, one thread publishes the count for the group;
+// then one thread of each block waits on the peers and its block
+// synchronises. One fence for all the counters, and one after all the
+// waits: a fence.acq_rel.sys before relaxed stores is a release pattern
+// and after relaxed loads an acquire pattern (the PTX memory model), and
+// release is cumulative, so the barrier's order carries the other blocks'
+// slot stores to a peer that reads the count.
+__device__ __forceinline__ void publish(const Peers& peers, const Layout& l,
+                                        int rank, int group, int e) {
+  const unsigned count = (unsigned)(e >> 1) + 1u;
+  fence_acq_rel_sys();
+  for (int q = 0; q < l.P; ++q) {
+    if (q != rank) {
+      store_relaxed_sys(counter(peers.flags[q], l, rank, group, e & 1),
+                        count);
+    }
+  }
+}
+__device__ __forceinline__ void await_peers(const Peers& peers,
+                                            const Layout& l, int rank,
+                                            int group, int e) {
+  const unsigned count = (unsigned)(e >> 1) + 1u;
+  const unsigned long long t0 = globaltimer();
+  for (int q = 0; q < l.P; ++q) {
+    if (q == rank) continue;
+    const unsigned* c = counter(peers.flags[rank], l, q, group, e & 1);
+    while (load_relaxed_sys(c) < count) {
+      if (globaltimer() - t0 > kSpinTimeoutNs) __trap();
+    }
+  }
+  fence_acq_rel_sys();
 }
 
 // Blocks per rank of a cooperative launch of `kernel` (threads, dynamic

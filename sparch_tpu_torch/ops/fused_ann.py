@@ -352,21 +352,22 @@ class ClusterPlan(NamedTuple):
     threads: int      # of a block
 
 
-def _cluster_plan(B: int, H: int, n: int, mxu_bf16: bool,
-                  planes: int) -> ClusterPlan:
-    """The plan of a time loop over ``n`` recurrent matrices whose left
-    operand is ``planes`` (H,) planes a row: the most blocks a cluster (up
-    to 6) that leave each slice 32 columns or more; 8 rows a cluster (4
-    where the operands would pass 128 KB or the threads 384); the slice
-    resident where it fits in shared memory beside the operands' two
-    parities, else streamed in three stages of what is left (at most 64 KB
-    each)."""
-    if H > _MAX_H:
-        raise ValueError(
-            f"the fused ANN cell kernel takes H <= {_MAX_H}, got {H}")
-    cluster = max(1, min(_MAX_CLUSTER, H // _MIN_COLS))
-    width = -(-H // cluster)
-    cols = -(-width // _COL_ALIGN) * _COL_ALIGN
+def _cluster_plan(B: int, H: int, n: int, mxu_bf16: bool, planes: int,
+                  width: Optional[int] = None,
+                  cluster: Optional[int] = None) -> ClusterPlan:
+    """The plan of a time loop over ``n`` recurrent matrices of H rows
+    whose left operand is ``planes`` (H,) planes a row, with ``width``
+    columns (None: H; a tensor-parallel rank's block is narrower) split
+    over ``cluster`` blocks (None: the most, up to 6, that leave each slice
+    32 columns or more); 8 rows a cluster (4 where the operands would pass
+    128 KB or the threads 384); the slice resident where it fits in shared
+    memory beside the operands' two parities, else streamed in three stages
+    of what is left (at most 64 KB each)."""
+    width = H if width is None else width
+    if cluster is None:
+        cluster = max(1, min(_MAX_CLUSTER, width // _MIN_COLS))
+    per_block = -(-width // cluster)
+    cols = -(-per_block // _COL_ALIGN) * _COL_ALIGN
     rows = 8 if planes * H <= 2048 and \
         cols * 8 // _ROWS_PER_THREAD <= _MAX_THREADS else 4
     operands = 2 * planes * rows * H * 4
@@ -379,9 +380,16 @@ def _cluster_plan(B: int, H: int, n: int, mxu_bf16: bool,
                        0 if resident else stage, -(-B // rows), threads)
 
 
+def _check_h(H: int) -> None:
+    if H > _MAX_H:
+        raise ValueError(
+            f"the fused ANN cell kernel takes H <= {_MAX_H}, got {H}")
+
+
 def _fwd_plan(B: int, H: int, n: int, mxu_bf16: bool = False) -> ClusterPlan:
     """The plan that ``csrc/fused_ann_fwd.cu`` checks its arguments
     against: one left operand (y, or the GRU's r*y)."""
+    _check_h(H)
     return _cluster_plan(B, H, n, mxu_bf16, 1)
 
 
@@ -396,6 +404,7 @@ def _bwd_plan(B: int, T: int, H: int, n: int, mxu_bf16: bool = False):
     products), the plan that ``csrc/fused_ann_bwd.cu`` checks its
     arguments against: a gate's dpre per plane (the LiGRU's and the GRU's
     two at once); one partial per ``_part_rows(H)`` rows."""
+    _check_h(H)
     plan = _cluster_plan(B, H, n, mxu_bf16, 1 if n == 1 else 2)
     return plan, -(-B // _part_rows(H)), _dv_split(B, T, H, n)
 
@@ -427,17 +436,18 @@ def max_active_clusters(mode: str, B: int, H: int, mxu_bf16: bool = False,
 
 def _pack_slices(mats: Sequence[torch.Tensor], passes, plan: ClusterPlan,
                  mxu_bf16: bool = False) -> torch.Tensor:
-    """Every block's slice of the matrices, ``(cluster, gates*H*cols)``:
-    block k's row holds columns k*cols .. k*cols+cols-1 of each matrix (zero
-    past H), pass after pass, a pass's gates side by side in each of its H
-    rows, so that a block copies its slice as one contiguous piece. In the
-    bf16 mode the matrices are rounded to bf16 here."""
-    H = mats[0].shape[0]
+    """Every block's slice of the (H, width) matrices, ``(cluster,
+    gates*H*cols)``: block k's row holds columns k*cols .. k*cols+cols-1 of
+    each matrix (zero past its width), pass after pass, a pass's gates side
+    by side in each of its H rows, so that a block copies its slice as one
+    contiguous piece. In the bf16 mode the matrices are rounded to bf16
+    here."""
+    H, width = mats[0].shape
     C, w = plan.cluster, plan.cols
     dtype = _BF16 if mxu_bf16 else mats[0].dtype
 
     def sliced(m):  # (C, H, w)
-        m = torch.nn.functional.pad(m.to(dtype), (0, C * w - H))
+        m = torch.nn.functional.pad(m.to(dtype), (0, C * w - width))
         return m.reshape(H, C, w).permute(1, 0, 2)
 
     return torch.cat([

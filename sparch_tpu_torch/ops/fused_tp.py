@@ -111,8 +111,9 @@ _PLANS: Dict[str, Tuple[int, ...]] = {}
 
 def last_plans() -> Dict[str, Tuple[int, ...]]:
     """The launch plan of each kernel's last launch: the collectives'
-    (blocks per rank, blocks per SM), the cells' (rows per block, blocks per
-    rank, blocks per SM, threads per block)."""
+    (blocks per rank, blocks per SM), the spiking cells' (rows per block,
+    blocks per rank, blocks per SM, threads per block), the non-spiking
+    cells' as ``fused_tp_ann.last_plan`` names them."""
     return dict(_PLANS)
 
 

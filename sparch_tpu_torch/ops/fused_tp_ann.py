@@ -13,8 +13,8 @@ rank of the TP axis, and an exchange inside the kernel at every step.
 The forward (``csrc/tp_ann_fwd.cu``) all-gathers the new y at every step
 (the GRU first r*y, then y); the backward (``csrc/tp_ann_bwd.cu``) all-gathers
 the adjoint blocks for the products with the rows of V: dpre (RNN), one
-stacked [dcpre|dzpre] (LiGRU), dcpre and then a stacked [dzpre|drpre]
-(GRU). One ``torch.autograd.Function`` holds the two kernels, as the JAX
+stacked [dcpre|dzpre] (LiGRU and GRU), then the GRU's drpre. One
+``torch.autograd.Function`` holds the two kernels, as the JAX
 ``custom_vjp`` does (``_get_tp_ann_op``). Gates are numbered as in
 ``ops.fused_ann``: 0 the candidate (``Wx``, ``V``), 1 the update (``Wzx``,
 ``Vz``), 2 the reset (``Wrx``, ``Vr``).
@@ -37,6 +37,14 @@ series; in the one-card form the ranks' dWx blocks side by side are the
 gathered dpre series, and across cards that product would need them
 gathered (ROADMAP queue 1 item 7).
 
+The kernels run thread-block clusters per rank (``csrc/tp_ann.cuh``): a
+cluster owns a row group of one rank, each of its blocks a column slice of
+the rank's column blocks, and the blocks exchange through distributed
+shared memory inside a cluster and through the slots across ranks.
+``_tp_plan`` chooses the cluster size from what the card holds (the
+kernels check the plan they are given against their own), ``_pack_slices``
+lays the matrices out for it; ``last_plan`` reports the plan a launch ran.
+
 The one-card form (``ops.fused_tp``): the P ranks of a mesh that repeats one
 device run in one cooperative launch on it. The entry points take the full
 tensors, ``Wx (B, T, H)``, ``V (H, H)``, ``y0 (B, H)``; rank r's block is
@@ -45,9 +53,10 @@ Dispatch is ``ops.fused_cells``': a CPU tensor runs the plain versions
 (``tp_ann_cell_plain``, ``tp_ann_cell_bwd_plain``), loops over T and over the
 P blocks in the kernels' order; a CUDA tensor launches the kernels or
 raises. Normalisation and dropout stay outside (the layer applies them), as
-in the JAX package. Widths as the JAX kernels take them: H divisible by
-P*128, B by 8; the kernels take H/P <= 2048 and H up to the shared memory of
-a block (``_check_width``).
+in the JAX package. The entry points hold the widths to the JAX kernels'
+checks (H divisible by P*128, B by 8); the kernels take any B, H/P a
+multiple of 8 up to 2048, and H up to what a block's shared memory leaves
+(``_check_width``).
 
 The bf16-stream mode (``mxu_bf16=True``, the JAX kernels' mode of that name)
 rounds where ``ops.fused_ann``'s bf16 mode rounds, and the JAX TP kernels
@@ -63,6 +72,8 @@ counted apart (``tp_ann_fwd_bf16``, ``tp_ann_bwd_bf16``).
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -106,8 +117,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # one C entry point per direction serves both stream modes; the modes are
 # counted apart
-_FWD_ARGS = [_P] * 11 + [_I] * 10 + [_P, _P]
-_BWD_ARGS = [_P] * 15 + [_I] * 10 + [_P, _P]
+_FWD_ARGS = [_P] * 11 + [_I] * 13 + [_P, _P]
+_BWD_ARGS = [_P] * 15 + [_I] * 13 + [_P, _P, _P]
 TP_ANN_FWD = Kernel("tp_ann_fwd", "sparch_tp_ann_fwd", _FWD_ARGS)
 TP_ANN_BWD = Kernel("tp_ann_bwd", "sparch_tp_ann_bwd", _BWD_ARGS)
 TP_ANN_FWD_BF16 = Kernel("tp_ann_fwd", "sparch_tp_ann_fwd", _FWD_ARGS,
@@ -116,31 +127,143 @@ TP_ANN_BWD_BF16 = Kernel("tp_ann_bwd", "sparch_tp_ann_bwd", _BWD_ARGS,
                          name="tp_ann_bwd_bf16")
 KERNELS = (TP_ANN_FWD, TP_ANN_BWD, TP_ANN_FWD_BF16, TP_ANN_BWD_BF16)
 
-# csrc/tp_ann.cuh: the widest block a rank takes, the ranks of a launch, and
-# the shared memory of a block (at one row per block: the gathered planes,
-# then three 64 KB stages)
+# csrc/tp_ann.cuh: the widest block a rank takes, the ranks of a launch, the
+# multiple a rank's width is of (16-byte slot rows), the plan a launch
+# reports (`report`) and how it launches
 _MAX_HL = 2048
 _MAX_RANKS = 8
-_MAX_SMEM = 227 * 1024 - 256
-_STAGES_BYTES = 3 * 65536
+_COL_UNIT = 8
+_PLAN_KEYS = ("cluster", "rows", "cols", "resident", "clusters_per_rank",
+              "walks", "max_active_clusters", "threads")
+LAUNCH_MODE = "cooperative clusters"
 
 
-def _check_width(mode: str, H: int, P: int) -> None:
-    """The kernels' limits: H/P <= 2048, P <= 8, and the backward's widest
-    gathered rows (one plane for the RNN, two for the stacked exchanges)
-    beside the tile stages in one block's shared memory."""
-    if H // P > _MAX_HL:
-        raise ValueError(f"the TP ANN kernels take H/P <= {_MAX_HL}, got "
-                         f"{H // P}")
+class TPPlan(NamedTuple):
+    """The launch plan of a TP kernel's time loop (csrc/tp_ann.cuh)."""
+
+    rank: fused_ann.ClusterPlan  # one rank's; its clusters: the row groups
+    per_rank: int     # clusters a rank runs at once
+    walks: int        # row groups a cluster walks, at most
+    max_active: int   # clusters of that size the card holds at once
+
+
+def _rank_plan(B: int, H: int, P: int, n: int, mxu_bf16: bool, planes: int,
+               cluster: Optional[int] = None) -> fused_ann.ClusterPlan:
+    """One rank's time-loop plan at ``cluster`` blocks (None: the most, up
+    to 6, that leave each slice 32 columns): the single-card plan with the
+    rank's H/P neurons split over the cluster and the operand H wide."""
+    return fused_ann._cluster_plan(B, H, n, mxu_bf16, planes, width=H // P,
+                                   cluster=cluster)
+
+
+def _runs(plan: fused_ann.ClusterPlan, n: int, mxu_bf16: bool) -> bool:
+    """tp_ann.cuh ``runs``: the block fits its threads, and the slice is
+    resident or a stream stage holds a row of the widest pass."""
+    row = min(n, 2) * plan.cols * (2 if mxu_bf16 else 4)
+    return plan.threads <= fused_ann._MAX_THREADS and (
+        plan.resident or plan.stage_bytes >= row)
+
+
+def _tp_plan(B: int, H: int, P: int, n: int, mxu_bf16: bool, planes: int,
+             max_active: Callable[[int], int]) -> TPPlan:
+    """The plan of a time loop over ``n`` matrices with ``planes`` operand
+    planes, the P ranks in one launch; ``max_active(cluster)``: how many
+    clusters of that many blocks the card holds at once. Every cluster size
+    that runs is tried, from the most blocks down; a rank gets every row
+    group at once where the card holds P times as many clusters, else as
+    many as it holds, walking the groups. A thread's work a step is the
+    same in every plan (Hg * gates * 4 rows), and an SM issues for the
+    warps of its one block, so the plan of the fewest warps a block times
+    walks wins (the first of them: the most blocks a cluster, the fewest L2
+    reads). Raises where no cluster size runs or the card holds fewer
+    clusters of every size than ranks."""
+    first = _rank_plan(B, H, P, n, mxu_bf16, planes)
+    if not _runs(first, n, mxu_bf16):
+        raise ValueError(
+            f"the TP ANN kernels take no H={H} over {P} ranks with {planes} "
+            f"operand plane(s): the gathered rows of a cluster's two operand "
+            f"parities leave no room for its slice in a block's shared "
+            f"memory")
+    best, held = None, {}
+    for c in range(first.cluster, 0, -1):
+        q = _rank_plan(B, H, P, n, mxu_bf16, planes, c)
+        if not _runs(q, n, mxu_bf16):
+            continue
+        held[c] = max_active(c)
+        per_rank = min(q.clusters, held[c] // P)
+        if per_rank < 1:
+            continue
+        plan = TPPlan(q, per_rank, -(-q.clusters // per_rank), held[c])
+        if best is None or _cost(plan) < _cost(best):
+            best = plan
+    if best is None:
+        raise ValueError(f"the card holds fewer than {P} clusters of any "
+                         f"size ({held}): the TP ANN kernels run every rank "
+                         f"at once")
+    return best
+
+
+def _cost(plan: TPPlan) -> int:
+    """The warps an SM issues for, a step, times the row groups a cluster
+    walks: what ``_tp_plan`` minimises."""
+    return plan.walks * plan.rank.threads // 32
+
+
+@functools.lru_cache(maxsize=None)
+def max_active_clusters(mode: str, B: int, H: int, P: int, cluster: int,
+                        mxu_bf16: bool = False,
+                        backward: bool = False) -> int:
+    """How many clusters of ``cluster`` blocks of the forward's plan
+    (``backward``: of the backward's time loop) the card holds at once,
+    from ``cudaOccupancyMaxActiveClusters`` on the current card; -1 where
+    that plan does not run or the query fails."""
+    from sparch_tpu_torch import _build
+
+    source = "tp_ann_bwd" if backward else "tp_ann_fwd"
+    path = _build.library_path(source)
+    if not path.exists():
+        _build.build([source])
+    fn = getattr(ctypes.CDLL(str(path)), f"sparch_{source}_max_clusters")
+    fn.argtypes = [_I] * 6
+    fn.restype = _I
+    return fn(B, H, P, fused_ann._MODE_ID[mode], int(mxu_bf16), cluster)
+
+
+def launch_plan(mode: str, B: int, H: int, P: int, mxu_bf16: bool,
+                backward: bool, dev) -> TPPlan:
+    """The plan the wrappers launch on ``dev``: ``_tp_plan`` with what the
+    card holds."""
+    planes = _MODES[mode]["bwd_stack"] if backward else 1
+    with torch.cuda.device(dev):
+        return _tp_plan(B, H, P, _MODES[mode]["n_wx"], mxu_bf16, planes,
+                        lambda c: max_active_clusters(mode, B, H, P, c,
+                                                      mxu_bf16, backward))
+
+
+def last_plan(name: str) -> dict:
+    """The plan of the last launch of ``tp_ann_fwd`` or ``tp_ann_bwd``
+    (either stream mode), as the kernel reported it, and the launch mode."""
+    return dict(zip(_PLAN_KEYS, fused_tp.last_plans()[name]),
+                launch_mode=LAUNCH_MODE)
+
+
+def _check_width(mode: str, H: int, P: int, mxu_bf16: bool) -> None:
+    """The kernels' limits: P <= 8, H/P a multiple of 8 and at most 2048,
+    and the gathered rows of a cluster (one plane for the RNN, two for the
+    backward's stacked exchanges) beside a stage of the slice in one
+    block's shared memory."""
     if P > _MAX_RANKS:
         raise ValueError(f"the TP ANN kernels take at most {_MAX_RANKS} "
                          f"ranks, got {P}")
-    planes = _MODES[mode]["bwd_stack"]
-    if 4 * planes * H + _STAGES_BYTES > _MAX_SMEM:
-        widest = (_MAX_SMEM - _STAGES_BYTES) // (4 * planes)
-        raise ValueError(f"the TP ANN kernels take H <= {widest} for "
-                         f"{mode} (the gathered rows of a block lie in its "
-                         f"shared memory), got H={H}")
+    if H % P or (H // P) % _COL_UNIT:
+        raise ValueError(f"the TP ANN kernels take H/P a multiple of "
+                         f"{_COL_UNIT}, got H={H}, P={P}")
+    if H // P > _MAX_HL:
+        raise ValueError(f"the TP ANN kernels take H/P <= {_MAX_HL}, got "
+                         f"{H // P}")
+    n = _MODES[mode]["n_wx"]
+    for planes in sorted({1, _MODES[mode]["bwd_stack"]}):
+        _tp_plan(1, H, P, n, mxu_bf16, planes, lambda c: P)
 
 
 # ---------------------------------------------------------------------------
@@ -300,14 +423,15 @@ def tp_ann_cell_bwd_plain(mode: str, g, y_seq, gates, vs, y0, *,
 # ---------------------------------------------------------------------------
 
 
-def _check_operands(mode, wxs, vs, y0, P, wx_dtype=torch.float32):
+def _check_operands(mode, wxs, vs, y0, P, mxu_bf16, wx_dtype=torch.float32):
     """``wx_dtype``: the type(s) the input streams may have; they must all
-    have the same one."""
+    have the same one. The kernels take any B and any H/P that is a
+    multiple of 8 within ``_check_width``; the entry points hold the
+    operands to the JAX package's checks besides."""
     n = _MODES[mode]["n_wx"]
     B, T, H = wxs[0].shape
     dev = wxs[0].device
-    fused_tp._validate(B, H, P)
-    _check_width(mode, H, P)
+    _check_width(mode, H, P, mxu_bf16)
     if len(wxs) != n or len(vs) != n:
         raise ValueError(f"{mode}: want {n} input streams and {n} matrices")
     for i, (w, v) in enumerate(zip(wxs, vs)):
@@ -318,20 +442,19 @@ def _check_operands(mode, wxs, vs, y0, P, wx_dtype=torch.float32):
     _check("y0", y0, (B, H), dev)
 
 
-# the order in which one step reads the recurrent matrices, by gate
-# (csrc/tp_ann_*.cu stream them from one packed buffer in this order)
-_FWD_ORDER = {"rnn": (0,), "ligru": (0, 1), "gru": (1, 2, 0)}
-_BWD_ORDER = {"rnn": (0,), "ligru": (0, 1), "gru": (0, 1, 2)}
-
-
-def _pack(blocks_of, vs, order, P, dtype):
-    """Every rank's blocks of the matrices in the order a step streams
-    them, as one contiguous (P, len(order), H, H/P) buffer of ``dtype``
-    (bf16 in the bf16 mode: rounded once here): ``blocks_of(V, shard)`` is
-    the (H, H/P) block a rank reads."""
-    H = vs[0].shape[0]
-    return torch.stack([torch.stack([blocks_of(vs[i], c) for i in order])
-                        for c in _shards(H, P)]).to(dtype).contiguous()
+def _pack_slices(vs, passes, plan: fused_ann.ClusterPlan, P: int,
+                 mxu_bf16: bool, transpose: bool = False) -> torch.Tensor:
+    """Every block's slice of every rank's column blocks of the matrices
+    (``transpose``: of their transposes, the backward's V^T), ``(P,
+    cluster, gates*H*cols)``: rank r's blocks ``V[:, shard_r]`` laid out by
+    ``fused_ann._pack_slices`` for the rank's plan, pass after pass, so
+    that a block copies its slice as one contiguous piece; in the bf16 mode
+    rounded to bf16 once here."""
+    mats = [v.t() for v in vs] if transpose else list(vs)
+    return torch.stack([
+        fused_ann._pack_slices([m[:, c] for m in mats], passes, plan,
+                               mxu_bf16)
+        for c in _shards(mats[0].shape[0], P)]).contiguous()
 
 
 def _tp_ann_cell_cuda(mode: str, wxs, vs, y0, *, num_devices: int,
@@ -340,34 +463,39 @@ def _tp_ann_cell_cuda(mode: str, wxs, vs, y0, *, num_devices: int,
     in the float32 or the bf16 stream mode. Same contract as
     ``tp_ann_cell_plain``."""
     P = num_devices
-    _check_operands(mode, wxs, vs, y0, P, _wx_dtypes(mxu_bf16))
+    _check_operands(mode, wxs, vs, y0, P, mxu_bf16, _wx_dtypes(mxu_bf16))
     B, T, H = wxs[0].shape
     dev = wxs[0].device
     sdt = _BF16 if mxu_bf16 else torch.float32
     out = torch.empty(wxs[0].shape, dtype=sdt, device=dev)
     names = _MODES[mode]["gates"] if save_residuals else ()
     series = {k: torch.empty_like(out) for k in names}
-    # V[:, shard] per rank, in the order of tp_ann_fwd.cu's stream
-    packed = _pack(lambda v, c: v[:, c], vs, _FWD_ORDER[mode], P, sdt)
-    bufs = fused_tp._exchange_buffers((2, B, H), sdt, P, B, dev)
+    plan = launch_plan(mode, B, H, P, mxu_bf16, False, dev).rank
+    packed = _pack_slices(vs, fused_ann._FWD_PASSES[mode], plan, P, mxu_bf16)
+    bufs = fused_tp._exchange_buffers((2, B, H), sdt, P, plan.clusters, dev)
     fused_tp._launch(TP_ANN_FWD_BF16 if mxu_bf16 else TP_ANN_FWD, dev,
                      *fused_ann._three(wxs), _ptr(packed), _ptr(y0),
                      _ptr(out), _ptr(series.get("z")), _ptr(series.get("r")),
                      _ptr(series.get("c")), bufs[2], bufs[3], B, T, H, P, 0,
                      P, H, fused_ann._MODE_ID[mode], int(mxu_bf16),
-                     int(wxs[0].dtype == _BF16), n_plan=4)
+                     int(wxs[0].dtype == _BF16), plan.cluster, plan.rows,
+                     int(plan.resident), n_plan=len(_PLAN_KEYS))
     return (out, tuple(series.values())) if save_residuals else out
 
 
 def _tp_ann_cell_bwd_cuda(mode: str, g, y_seq, gates, vs, y0, *,
-                          num_devices: int, mxu_bf16: bool = False):
+                          num_devices: int, mxu_bf16: bool = False,
+                          split_ms=None):
     """Launch ``csrc/tp_ann_bwd.cu`` over all P ranks (the one-card form)
     in the float32 or the bf16 stream mode. Same contract as
-    ``tp_ann_cell_bwd_plain``."""
+    ``tp_ann_cell_bwd_plain``. ``split_ms`` (a list, for timing only)
+    receives the milliseconds of the time loop, the dV product and its
+    second pass, CUDA events around each launch; the call then waits for
+    the card."""
     P = num_devices
     n = _MODES[mode]["n_wx"]
     sdt = _BF16 if mxu_bf16 else torch.float32
-    _check_operands(mode, [g] * n, vs, y0, P, sdt)
+    _check_operands(mode, [g] * n, vs, y0, P, mxu_bf16, sdt)
     B, T, H = g.shape
     dev = g.device
     _check("y_seq", y_seq, (B, T, H), dev, sdt)
@@ -383,18 +511,24 @@ def _tp_ann_cell_bwd_cuda(mode: str, g, y_seq, gates, vs, y0, *,
 
     dwxs = [torch.empty_like(g) for _ in range(n)]
     dvs, dv_partials, dy0 = new(n, H, H), new(ksplit, n, H, H), new(B, H)
-    # V[shard, :]^T per rank (the rank's columns of V^T), by gate
-    packed = _pack(lambda v, c: v[c, :].t(), vs, _BWD_ORDER[mode], P,
-                   sdt)
+    plan = launch_plan(mode, B, H, P, mxu_bf16, True, dev).rank
+    # the rank's columns of V^T (V[shard, :]^T), by gate
+    packed = _pack_slices(vs, fused_ann._BWD_PASSES[mode], plan, P,
+                          mxu_bf16, transpose=True)
     width = _MODES[mode]["bwd_stack"] * H
-    bufs = fused_tp._exchange_buffers((2, B, width), sdt, P, B, dev)
+    bufs = fused_tp._exchange_buffers((2, B, width), sdt, P, plan.clusters,
+                                      dev)
+    split = (ctypes.c_float * 3)() if split_ms is not None else None
     fused_tp._launch(TP_ANN_BWD_BF16 if mxu_bf16 else TP_ANN_BWD, dev,
                      _ptr(g), _ptr(y_seq), _ptr(series.get("z")),
                      _ptr(series.get("r")), _ptr(series.get("c")),
                      _ptr(packed), _ptr(y0), *fused_ann._three(dwxs),
                      _ptr(dvs), _ptr(dv_partials), _ptr(dy0), bufs[2],
                      bufs[3], B, T, H, P, 0, P, H, fused_ann._MODE_ID[mode],
-                     ksplit, int(mxu_bf16), n_plan=4)
+                     ksplit, int(mxu_bf16), plan.cluster, plan.rows,
+                     int(plan.resident), split, n_plan=len(_PLAN_KEYS))
+    if split is not None:
+        split_ms[:] = list(split)
     return dwxs, list(dvs.unbind(0)), dy0
 
 

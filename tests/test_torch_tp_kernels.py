@@ -17,7 +17,10 @@ The TP RNN/LiGRU/GRU kernels agree with their plain versions within the
 bounds of the single-card ANN kernels (the products sum in another order,
 exp and tanh come from the card's library), and equal the single-card
 kernels without the affine and the dropout, and themselves at every P, bit
-for bit: every product sums its Hg terms in the same ascending order.
+for bit: every product sums its Hg terms in the same ascending order,
+whatever the plan of thread-block clusters (a partial row group, a rank
+width that is no multiple of a cluster's columns, clusters that walk their
+row groups, H = 2048).
 
     python -m pytest tests/test_torch_tp_kernels.py -m cuda --noconftest -q
 """
@@ -34,6 +37,11 @@ GRAD_REL = 1e-4
 GRADS = ("dWx", "dV", "dalpha", "dbeta", "da", "db", "du0", "dw0", "ds0")
 ANN_MODES = ("rnn", "ligru", "gru")
 ANN_FWD_ATOL = 2e-5  # the single-card ANN forward's bound (chip_smoke.py)
+# (B, T, H/P) of the TP ANN kernel tests: a rank of 128 neurons (clusters
+# of four 32-column slices); 256 (six slices of 48 columns, the last
+# ragged); 200 rows short of a multiple of the cluster's columns and B = 12,
+# so the second row group of eight is partial
+ANN_SHAPES = [(8, 13, 128), (24, 20, 256), (12, 9, 200)]
 
 
 def tp_inputs(B, T, H, seed=0, device="cpu"):
@@ -374,7 +382,7 @@ def test_tp_ann_checks_raise():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("P", PS)
-@pytest.mark.parametrize("shape", [(8, 13, 128), (24, 20, 256)])
+@pytest.mark.parametrize("shape", ANN_SHAPES)
 @pytest.mark.parametrize("mode", ANN_MODES)
 def test_tp_ann_forward_kernel_matches_plain_on_card(cuda, mode, shape, P):
     B, T, hl = shape
@@ -401,7 +409,7 @@ def test_tp_ann_forward_kernel_matches_plain_on_card(cuda, mode, shape, P):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("P", PS)
-@pytest.mark.parametrize("shape", [(8, 13, 128), (24, 20, 256)])
+@pytest.mark.parametrize("shape", ANN_SHAPES)
 @pytest.mark.parametrize("mode", ANN_MODES)
 def test_tp_ann_backward_kernel_matches_plain_on_card(cuda, mode, shape, P):
     B, T, hl = shape
@@ -461,26 +469,68 @@ def test_cluster_ann_kernels_equal_tp_p1_on_card(cuda, mode, shape, bf16):
             assert torch.equal(x, y)
 
 
+def _walks(plan, P):
+    """The plan walks: fewer clusters a rank than row groups, and no more
+    clusters than the card holds."""
+    return (plan["walks"] > 1 and plan["clusters_per_rank"] * P
+            <= plan["max_active_clusters"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("P", PS)
+@pytest.mark.parametrize("mode", ANN_MODES)
+def test_tp_ann_kernels_at_h2048_on_card(cuda, mode, P, bf16):
+    """H = 2048, the single-card kernels' widest layer, over P ranks in
+    both stream modes: the forward's output and gate series and the time
+    loop's gradients (dWx, dy0; dV, their product) equal the single-card
+    kernels' without the affine bit for bit (the LiGRU's and the GRU's
+    backward at four rows a cluster)."""
+    B, T, H = 16, 3, 2048
+    d = ann_tp_inputs(mode, B, T, H, seed=7, device=cuda)
+    wxs, g, vs, y0 = d["wxs"], d["g"], d["vs"], d["y0"]
+    if bf16:
+        wxs, g = [w.to(torch.bfloat16) for w in wxs], g.to(torch.bfloat16)
+    kw = dict(mxu_bf16=bf16)
+    out, gates = fused_tp_ann._tp_ann_cell_cuda(
+        mode, wxs, vs, y0, num_devices=P, save_residuals=True, **kw)
+    grads = fused_tp_ann._tp_ann_cell_bwd_cuda(mode, g, out, gates, vs, y0,
+                                               num_devices=P, **kw)
+    bwd_plan = fused_tp_ann.last_plan("tp_ann_bwd")
+    single, _, single_g = fused_ann._ann_cell_cuda(
+        mode, wxs, None, None, vs, y0, save_residuals=True, **kw)
+    sgrads = fused_ann._ann_cell_bwd_cuda(mode, g, None, out, list(gates),
+                                          None, vs, y0, **kw)
+    torch.cuda.synchronize()
+    assert mode == "rnn" or bwd_plan["rows"] == 4, bwd_plan
+    assert torch.isfinite(out.float()).all()
+    for x, y in zip((out, *gates), (single, *single_g)):
+        assert torch.equal(x, y)
+    for x, y in zip((*grads[0], *grads[1], grads[2]),
+                    (*sgrads[0], *sgrads[3], sgrads[4])):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ANN_MODES)
 def test_tp_ann_kernels_walk_row_groups_on_card(cuda, mode):
-    """More row groups than the card holds blocks: at P = 4 and B = 1024
-    each rank has 128 groups of 8 rows, and a block walks several, in the
+    """More row groups than the card holds clusters: at P = 4 and B = 1024
+    each rank has 128 groups of 8 rows, and a cluster walks several, in the
     same order on every rank."""
     P = 4
     d = ann_tp_inputs(mode, 1024, 6, P * 128, seed=4, device=cuda)
     args = (mode, d["wxs"], d["vs"], d["y0"])
     got, got_g = fused_tp_ann._tp_ann_cell_cuda(*args, num_devices=P,
                                                 save_residuals=True)
-    bt, per_rank = fused_tp.last_plans()["tp_ann_fwd"][:2]
+    plan = fused_tp_ann.last_plan("tp_ann_fwd")
     bargs = (mode, d["g"], got, got_g, d["vs"], d["y0"])
     grads = fused_tp_ann._tp_ann_cell_bwd_cuda(*bargs, num_devices=P)
-    bwd_bt, bwd_per_rank = fused_tp.last_plans()["tp_ann_bwd"][:2]
+    bwd_plan = fused_tp_ann.last_plan("tp_ann_bwd")
     want, want_g = fused_tp_ann.tp_ann_cell_plain(*args, num_devices=P,
                                                   save_residuals=True)
     want_grads = fused_tp_ann.tp_ann_cell_bwd_plain(*bargs, num_devices=P)
     torch.cuda.synchronize()
-    assert per_rank < 1024 // bt and bwd_per_rank < 1024 // bwd_bt
+    assert _walks(plan, P) and _walks(bwd_plan, P), (plan, bwd_plan)
     for x, y in zip((got, *got_g), (want, *want_g)):
         assert float((x - y).abs().max()) <= ANN_FWD_ATOL
     for x, y in zip((*grads[0], *grads[1], grads[2]),
@@ -490,10 +540,14 @@ def test_tp_ann_kernels_walk_row_groups_on_card(cuda, mode):
 
 @pytest.mark.cuda
 def test_tp_ann_gru_at_its_widest_on_card(cuda):
-    """The GRU at Hl = 2048 (four neurons a thread) over two ranks, H =
-    4096: the backward's stacked planes fill a block's shared memory beside
-    the tile stages."""
-    P, B, T, H = 2, 8, 3, 4096
+    """The GRU at the widest layer two ranks take, H = 3328 (the next
+    multiple of P*128 fails ``_check_width``): four rows a cluster, and the
+    backward's stacked planes fill a block's shared memory beside stages of
+    a few rows of the slice."""
+    P, B, T, H = 2, 8, 3, 3328
+    fused_tp_ann._check_width("gru", H, P, False)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_tp_ann._check_width("gru", H + P * 128, P, False)
     d = ann_tp_inputs("gru", B, T, H, seed=5, device=cuda)
     args = ("gru", d["wxs"], d["vs"], d["y0"])
     got, got_g = fused_tp_ann._tp_ann_cell_cuda(*args, num_devices=P,
@@ -504,7 +558,8 @@ def test_tp_ann_gru_at_its_widest_on_card(cuda):
                                                   save_residuals=True)
     want_grads = fused_tp_ann.tp_ann_cell_bwd_plain(*bargs, num_devices=P)
     torch.cuda.synchronize()
-    assert fused_tp.last_plans()["tp_ann_bwd"][3] == 512
+    plan = fused_tp_ann.last_plan("tp_ann_bwd")
+    assert plan["rows"] == 4 and not plan["resident"], plan
     for x, y in zip((got, *got_g), (want, *want_g)):
         assert float((x - y).abs().max()) <= ANN_FWD_ATOL
     for x, y in zip((*grads[0], *grads[1], grads[2]),
@@ -538,8 +593,8 @@ def test_tp_ann_gru_exchanges_land_on_fixed_parities_on_card(cuda, P,
                                                              monkeypatch):
     """The GRU's two exchanges of a step have consecutive indices, so r*y
     always lands in slot 0 and y in slot 1 (the backpressure argument of
-    pallas_tp_ann.py:38-44), and in the backward dcpre in slot 0 and
-    [dzpre|drpre] in slot 1. After a launch every rank's slots hold the last
+    pallas_tp_ann.py:38-44), and in the backward [dcpre|dzpre] in slot 0
+    and drpre in slot 1. After a launch every rank's slots hold the last
     exchange of each kind: in the forward r*y of step T-1 and y of step T-2
     (the last y gather is skipped), in the backward those of step 0."""
     slots = []
@@ -563,9 +618,9 @@ def test_tp_ann_gru_exchanges_land_on_fixed_parities_on_card(cuda, P,
     for q in range(P):
         assert torch.equal(fwd[q, 0], r[:, -1] * out[:, -2])
         assert torch.equal(fwd[q, 1], out[:, -2])
-        assert torch.equal(bwd[q, 0, :, :H], dwxs[0][:, 0])
-        assert torch.equal(bwd[q, 1], torch.cat([dwxs[1][:, 0],
-                                                 dwxs[2][:, 0]], dim=1))
+        assert torch.equal(bwd[q, 0], torch.cat([dwxs[0][:, 0],
+                                                 dwxs[1][:, 0]], dim=1))
+        assert torch.equal(bwd[q, 1, :, :H], dwxs[2][:, 0])
 
 
 # ---------------------------------------------------------------------------
@@ -748,7 +803,7 @@ def _bf16_ann_inputs(mode, B, T, H, seed, device, wx_bf16):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("P", PS)
-@pytest.mark.parametrize("shape", [(8, 13, 128), (24, 20, 256)])
+@pytest.mark.parametrize("shape", ANN_SHAPES)
 @pytest.mark.parametrize("wx_bf16", [False, True])
 @pytest.mark.parametrize("mode", ANN_MODES)
 def test_bf16_tp_ann_forward_kernel_matches_plain_on_card(cuda, mode,
@@ -791,7 +846,7 @@ def test_bf16_tp_ann_forward_kernel_matches_plain_on_card(cuda, mode,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("P", PS)
-@pytest.mark.parametrize("shape", [(8, 13, 128), (24, 20, 256)])
+@pytest.mark.parametrize("shape", ANN_SHAPES)
 @pytest.mark.parametrize("mode", ANN_MODES)
 def test_bf16_tp_ann_backward_kernel_matches_plain_on_card(cuda, mode, shape,
                                                            P):
@@ -843,15 +898,15 @@ def test_bf16_tp_ann_kernels_walk_row_groups_on_card(cuda, mode):
     kw = dict(num_devices=P, mxu_bf16=True)
     got, got_g = fused_tp_ann._tp_ann_cell_cuda(*args, save_residuals=True,
                                                 **kw)
-    bt, per_rank = fused_tp.last_plans()["tp_ann_fwd"][:2]
+    plan = fused_tp_ann.last_plan("tp_ann_fwd")
     bargs = (mode, d["g"], got, got_g, d["vs"], d["y0"])
     grads = fused_tp_ann._tp_ann_cell_bwd_cuda(*bargs, **kw)
-    bwd_bt, bwd_per_rank = fused_tp.last_plans()["tp_ann_bwd"][:2]
+    bwd_plan = fused_tp_ann.last_plan("tp_ann_bwd")
     want, want_g = fused_tp_ann.tp_ann_cell_plain(*args, save_residuals=True,
                                                   **kw)
     want_grads = fused_tp_ann.tp_ann_cell_bwd_plain(*bargs, **kw)
     torch.cuda.synchronize()
-    assert per_rank < 1024 // bt and bwd_per_rank < 1024 // bwd_bt
+    assert _walks(plan, P) and _walks(bwd_plan, P), (plan, bwd_plan)
     truth = []
 
     def witness(k):
@@ -915,9 +970,9 @@ def test_bf16_wire_slots_hold_bf16_values_on_card(cuda, P, monkeypatch):
     for q in range(P):
         assert torch.equal(fwd[q, 1], out[:, -2])
         _within(fwd[q, 0], ry, 1.0, "r*y")  # r*y lies in (-1, 1)
-        assert torch.equal(bwd[q, 0, :, :H], dwxs[0][:, 0])
-        assert torch.equal(bwd[q, 1], torch.cat([dwxs[1][:, 0],
-                                                 dwxs[2][:, 0]], dim=1))
+        assert torch.equal(bwd[q, 0], torch.cat([dwxs[0][:, 0],
+                                                 dwxs[1][:, 0]], dim=1))
+        assert torch.equal(bwd[q, 1, :, :H], dwxs[2][:, 0])
         # T exchanges: step 0's is the last, on parity (T - 1) & 1
         assert torch.equal(spk[q, (T - 1) & 1], grads[0][:, 0])
 
