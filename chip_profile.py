@@ -5,9 +5,8 @@ card.
     python3 chip_profile.py [phase ...]
 
 With phase names (``sweep``, ``profile``, ``h2d``, ``bwd_sweep``,
-``profile_training``, ``bwd_variants``, ``bf16``, ``tp_exchange``,
-``ab=DIR``) only those
-run. Prints
+``profile_training``, ``bf16``, ``tp_exchange``, ``spiking_bwd``,
+``ab=DIR``, ``bits=DIR``) only those run. Prints
 JSON lines (tables of the profiler in between), each measured in
 this run:
 
@@ -37,15 +36,11 @@ this run:
    the card (1 - device time / elapsed time between CUDA events around
    the profiled steps, profiler overhead included), and the same share
    against the un-profiled step time (CUDA events over 20 steps).
-7. ``bwd_variants``: the backward kernel built with other rows per block
-   (``-DSPARCH_BWD_WORK``), one ``nvcc`` each, all at once; RadLIF at
-   (128, 100, 512): kernel ms and the worst gradient error against the
-   plain version.
-8. ``bf16``: phases 3 and 6 for the same two models under
+7. ``bf16``: phases 3 and 6 for the same two models under
    ``compute_dtype=bfloat16`` (``cell_impl="auto"``; lines ``profile`` and
    ``profile_training`` with ``compute_dtype`` "bfloat16"), beside their
    float32 ``auto`` runs in the same call.
-9. ``ab=DIR`` (only when named): the kernels of the tree unpacked in
+8. ``ab=DIR`` (only when named): the kernels of the tree unpacked in
    ``DIR`` (another commit of this repository, e.g. from ``git archive``)
    against this tree's, in one call on one card, in the order DIR, this,
    this, DIR, each in a process of its own that builds that tree's
@@ -64,18 +59,28 @@ this run:
    ``-res-usage``) differ between the trees (whole records in
    ``build/ab/ab_<i>.json``).
 
-10. ``tp_exchange``: what one exchange between ranks costs the TP ANN
+9. ``tp_exchange``: what one exchange between ranks costs the TP ANN
    kernels (GRU and RNN at (128, 100, 1024), float32 and bf16): P = 2 run
    in P = 1's block shape (clusters of three of the same 352-thread
    blocks on the same 96 SMs) against P = 1, the difference over the
    exchanges on a cluster's chain; beside it P = 2 in the plan the wrapper
    takes.
 
+10. ``spiking_bwd``: the spiking backward kernels apart (``fused_cell_bwd``
+   at (128, 100, 512) and (256, 100, 1024), ``tp_cell_bwd`` at (256, 100,
+   1024), P = 1, 2, 4; both modes): kernel ms, ``split_ms`` (time loop, dV
+   product, second passes), the dV product's ``torch.matmul`` yardstick,
+   the plan, the two libraries' ptxas report.
+11. ``bits=DIR`` (only when named): where the single-card spiking
+   backward's outputs differ between the tree in ``DIR`` and this one
+   (RadLIF, H = 200 .. 4096, every affine / dropout form, both modes).
+
 Without a CUDA card it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -274,64 +279,74 @@ def profile_training(dev, model_type="RadLIF", impls=None, **model_kw):
                      for k, needles in _TRAIN_KERNELS.items()})
 
 
-def bwd_variants(dev):
-    import ctypes
+def spiking_bwd(dev):
+    """Phase 10: the spiking backward kernels apart, at the main path's
+    shapes, float32 and bf16: ``fused_cell_bwd`` (RadLIF with the affine and
+    the dropout) at (128, 100, 512) and at the (256, 100, 1024) of the
+    bidirectional RadLIF 1024 ``auto`` trainer, ``tp_cell_bwd`` (RadLIF) at
+    (256, 100, 1024) at P = 1, 2, 4: kernel ms, ``split_ms`` (the time loop,
+    the dV product and the second passes, CUDA events around each launch),
+    ``dv_library_ms`` (``torch.matmul`` of the same (H, B*T) x (B*T, H)
+    float32 product, TF32 off: a yardstick the port never calls), the plan
+    the launch ran, and the ptxas report of the two libraries, built in this
+    process."""
     import chip_smoke as cs
     from sparch_tpu_torch import _build
-    from sparch_tpu_torch.ops import fused_cells
+    from sparch_tpu_torch.ops import fused_cells, fused_tp
     from sparch_tpu_torch.utils.timing import cuda_time_ms
 
-    out = _build.BUILD_DIR / "variants"
-    out.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for work in (8, 4, 2, 1):
-        lib = out / f"libfused_cell_bwd-w{work}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS,
-               f"-DSPARCH_BWD_WORK={work}", "-o", str(lib),
-               str(_build.CSRC / "fused_cell_bwd.cu")]
-        jobs[work] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True), lib)
-    for (proc, _) in jobs.values():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{log[-3000:]}")
-
-    B, T, H = cs.B, cs.T, cs.H
+    libs = ("fused_cell_bwd", "tp_cell_bwd")
+    for lib in libs:
+        _build.library_path(lib).unlink(missing_ok=True)
+    logs = _build.build(libs)
+    emit("spiking_bwd_ptxas",
+         **{lib: cs.ptxas_summary(logs[lib]) for lib in libs})
     seed = torch.tensor([1234, 99], dtype=torch.int32, device=dev)
-    d = cs.cell_inputs((B, T, H), dyadic=True, seed=1, dev=dev)
-    g = torch.randn((B, T, H), device=dev,
-                    generator=torch.Generator(device=dev).manual_seed(6))
-    kernel = fused_cells.FUSED_CELL_BWD
-    saved = kernel._fn, fused_cells._BWD_WORK
-    try:
-        with torch.no_grad():
-            _, u_seq = cs.train_forward_call("radlif", d, True, seed=seed)
-            args = (g, d["Wx"], u_seq, d["scale"], d["alpha"], d["beta"],
-                    d["a"], d["b"], d["V"], 1.0, d["u0"], d["w0"], d["s0"])
-            kw = dict(recurrent=True, adaptive=True, drop_rate=cs.P_DROP,
-                      seed=seed)
-            want = fused_cells.fused_cell_bwd_plain(*args, **kw)
-            for work, (_, lib) in jobs.items():
-                fn = getattr(ctypes.CDLL(str(lib)), kernel.symbol)
-                fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
-                kernel._fn, fused_cells._BWD_WORK = fn, work
-                got = fused_cells._fused_cell_bwd_cuda(*args, **kw)
-                torch.cuda.synchronize()
-                err = max(cs.rel_err(x, y) for x, y in zip(got, want)
-                          if x is not None)
-                ms = cuda_time_ms(
-                    lambda: fused_cells._fused_cell_bwd_cuda(*args, **kw),
-                    iters=5, repeats=3)
-                emit("bwd_variants", rows_per_block=work,
-                     blocks=fused_cells._bwd_plan(B, T, H)[1], ms=ms,
-                     worst_rel_err=err)
-    finally:
-        kernel._fn, fused_cells._BWD_WORK = saved
+
+    with torch.no_grad():
+        for shape in ((cs.B, cs.T, cs.H), (2 * cs.B, cs.T, cs.TP_H)):
+            d = cs.cell_inputs(shape, dyadic=True, seed=1, dev=dev)
+            g = torch.randn(shape, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(6))
+            for mx in (False, True):
+                dm = dict(d, Wx=d["Wx"].to(cs.BF16)) if mx else d
+                gm = g.to(cs.BF16) if mx else g
+                _, u_seq = cs.train_forward_call("radlif", dm, True, seed=seed,
+                                                 bf16=mx)
+                args = (gm, dm["Wx"], u_seq, d["scale"], d["alpha"],
+                        d["beta"], d["a"], d["b"], d["V"], 1.0, d["u0"],
+                        d["w0"], d["s0"])
+                kw = dict(recurrent=True, adaptive=True, drop_rate=cs.P_DROP,
+                          seed=seed, mxu_bf16=mx)
+                run = lambda split=None: fused_cells._fused_cell_bwd_cuda(
+                    *args, **kw, split_ms=split)  # noqa: E731
+                ms = cuda_time_ms(run)
+                emit("spiking_bwd", kernel="fused_cell_bwd", shape=list(shape),
+                     mxu_bf16=mx, ms=ms, split_ms=cs.split_ms_of(run),
+                     dv_library_ms=cs.dv_library_ms(*shape, dev),
+                     plan=fused_cells.last_plans()["fused_cell_bwd"])
+        shape = (2 * cs.B, cs.T, cs.TP_H)
+        d = cs.tp_cell_inputs(shape, seed=1, dev=dev, uniform_s0=True)
+        args, ada = cs._tp_args("radlif", d)
+        g = torch.randn(shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(6))
+        for mx in (False, True):
+            gm = g.to(cs.BF16) if mx else g
+            for P in (1, 2, 4):
+                kw = dict(num_devices=P, adaptive=ada, mxu_bf16=mx)
+                _, u_seq = fused_tp._tp_cell_cuda(*args, save_residuals=True,
+                                                  **kw)
+                run = lambda split=None: fused_tp._tp_cell_bwd_cuda(
+                    gm, u_seq, *args[1:], **kw, split_ms=split)  # noqa: E731
+                ms = cuda_time_ms(run)
+                emit("spiking_bwd", kernel="tp_cell_bwd", shape=list(shape),
+                     P=P, mxu_bf16=mx, ms=ms, split_ms=cs.split_ms_of(run),
+                     dv_library_ms=cs.dv_library_ms(*shape, dev),
+                     plan=fused_tp.last_bwd_plan())
 
 
 def tp_exchange(dev):
-    """Phase 10: what one exchange between ranks costs the TP ANN kernels.
+    """Phase 9: what one exchange between ranks costs the TP ANN kernels.
     At (128, 100, 1024) the P = 1 plan is sixteen clusters of six blocks of
     352 threads (96 SMs); P = 2 in clusters of three has the same blocks on
     the same 96 SMs, so the time it adds over P = 1, over the exchanges on
@@ -418,12 +433,23 @@ if not _build.__file__.startswith(root):
     raise RuntimeError("imported the package of another tree: "
                        + _build.__file__)
 torch.backends.cuda.matmul.allow_tf32 = False
-# the ANN sources build in this process, whatever was built before, so that
-# their ptxas report is at hand
-ANN_LIBS = ("fused_ann_fwd", "fused_ann_bwd", "tp_ann_fwd", "tp_ann_bwd")
-for lib in ANN_LIBS:
+# the cell kernels with a product on their time loop build in this
+# process, whatever was built before, so that their ptxas report is at hand
+REPORT_LIBS = ("fused_cell_bwd", "tp_cell_bwd", "fused_ann_fwd",
+               "fused_ann_bwd", "tp_ann_fwd", "tp_ann_bwd")
+for lib in REPORT_LIBS:
     _build.library_path(lib).unlink(missing_ok=True)
 logs = _build.build()
+import hashlib
+def digest(ts):
+    # the bits of a list of tensors (None skipped), in order
+    h = hashlib.sha256()
+    for t in ts:
+        if t is not None:
+            h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                     .tobytes())
+    return h.hexdigest()[:16]
+dig = {}
 dev = torch.device("cuda", 0)
 shape = (smoke.B, smoke.T, smoke.H)
 seed = torch.tensor([1234, 99], dtype=torch.int32, device=dev)
@@ -508,6 +534,88 @@ with torch.no_grad():
                 res["tp_ann_bwd" + sfx] = cuda_time_ms(
                     lambda: fused_tp_ann._tp_ann_cell_bwd_cuda(*ba, **tk),
                     **fast)
+# the spiking backwards, every output's bits: every form with the affine
+# and the dropout on and off in both modes at (128, 100, 512), RadLIF at
+# the (256, 100, 1024) of the bidirectional RadLIF 1024 auto trainer; the
+# TP backward (RLIF, RadLIF) at (256, 100, 1024), P = 1, 2, 4, both modes
+with torch.no_grad():
+    for shape in ((smoke.B, smoke.T, smoke.H),
+                  (2 * smoke.B, smoke.T, smoke.TP_H)):
+        main = shape[2] == smoke.H
+        d = smoke.cell_inputs(shape, dyadic=True, seed=1, dev=dev)
+        d["s0"] = torch.rand(d["s0"].shape, device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(5))
+        g = torch.randn(shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(6))
+        for name in smoke.FORMS if main else ("radlif",):
+            rec, ada = smoke.FORMS[name]
+            for mx in (False, True):
+                dm = dict(d, Wx=d["Wx"].to(bf16)) if mx else d
+                gm = g.to(bf16) if mx else g
+                _, u_seq = smoke.train_forward_call(name, dm, True, seed=seed,
+                                                    bf16=mx)
+                flags = ((True, smoke.P_DROP), (True, 0.0), (False, smoke.P_DROP),
+                         (False, 0.0)) if main else ((True, smoke.P_DROP),)
+                for affine, drop in flags:
+                    args = (gm, dm["Wx"], u_seq, d["scale"] if affine else None,
+                            d["alpha"], d["beta"], d["a"], d["b"], d["V"], 1.0,
+                            d["u0"], d["w0"], d["s0"])
+                    kw = dict(recurrent=rec, adaptive=ada, drop_rate=drop,
+                              seed=seed, mxu_bf16=mx)
+                    key = (f"cell_bwd_{name}_{shape[0]}x{shape[2]}"
+                           + ("_affine" if affine else "")
+                           + ("_dropout" if drop else "")
+                           + ("_bf16" if mx else ""))
+                    dig[key] = digest(
+                        fused_cells._fused_cell_bwd_cuda(*args, **kw))
+                    if name == "radlif" and affine and drop:
+                        res[key] = cuda_time_ms(
+                            lambda: fused_cells._fused_cell_bwd_cuda(*args,
+                                                                     **kw))
+    tshape = (2 * smoke.B, smoke.T, smoke.TP_H)
+    gt = torch.randn(tshape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(6))
+    for name in ("rlif", "radlif"):
+        dt = smoke.tp_cell_inputs(tshape, seed=1, dev=dev, uniform_s0=True)
+        args, ada = smoke._tp_args(name, dt)
+        for mx in (False, True):
+            for P in (1, 2, 4):
+                kw = dict(num_devices=P, adaptive=ada, mxu_bf16=mx)
+                _, u_seq = fused_tp._tp_cell_cuda(*args, save_residuals=True,
+                                                  **kw)
+                ba = (gt.to(bf16) if mx else gt, u_seq, *args[1:])
+                key = f"tp_cell_bwd_{name}_p{P}" + ("_bf16" if mx else "")
+                dig[key] = digest(fused_tp._tp_cell_bwd_cuda(*ba, **kw))
+                if name == "radlif":
+                    res[key] = cuda_time_ms(
+                        lambda: fused_tp._tp_cell_bwd_cuda(*ba, **kw))
+# training steps through the spiking backwards, both modes: the RadLIF
+# [512, 512, 35] auto trainer, and the bidirectional RadLIF [1024, 1024, 35]
+# trainer through auto and pallas_tp at P = 1 (losses of two steps and the
+# first step's gradients digested)
+gen = torch.Generator(device=dev).manual_seed(21)
+xr = (torch.rand((smoke.B, smoke.T, smoke.F), generator=gen, device=dev)
+      < 0.02).float()
+yr = torch.randint(0, smoke.C, (smoke.B,), generator=gen, device=dev)
+xt = torch.randn((smoke.B, smoke.T, smoke.TP_F), generator=gen, device=dev)
+yt = torch.randint(0, smoke.C, (smoke.B,), generator=gen, device=dev)
+sd512, sd1024 = smoke.training_state(dev), smoke.tp_training_state()
+big = dict(sizes=smoke.TP_SIZES, bidirectional=True)
+for mx in (False, True):
+    sfx, kw16 = ("_bf16", dict(compute_dtype=bf16)) if mx else ("", {})
+    for key, impl, sd, x, y, kw in (
+            ("radlif512_auto", "auto", sd512, xr, yr, {}),
+            ("radlif1024_auto", "auto", sd1024, xt, yt, big),
+            ("radlif1024_tp_p1", "pallas_tp", sd1024, xt, yt,
+             dict(big, tp_mesh=smoke.tp_mesh(dev, 1)))):
+        model, state, losses, grads, _ = smoke.train_run(
+            dev, impl, sd, x, y, 2, **kw, **kw16)
+        dig["train_" + key + sfx] = digest(
+            [torch.tensor(losses)] + [grads[k] for k in sorted(grads)])
+        res["train_step_" + key + sfx] = cuda_time_ms(
+            make_train_step(model), state, x, y, warmup=3, iters=20,
+            repeats=3)
 # training steps through cell_impl="auto": the GRU [512, 512, 35] trainer
 # of training_ann and its bf16 twin, and the GRU [1024, 1024, 35] auto
 # trainer of training_tp_ann
@@ -540,7 +648,7 @@ tool = str(Path(_build._nvcc()).with_name("cuobjdump"))
 # bytes (spills included), by mangled name, less the hash that names the
 # anonymous namespace of each tree's build
 def name(fn):
-    return re.sub(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+", "anon::", fn)
+    return re.sub(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "anon::", fn)
 code = {}
 for lib in _build.SOURCES:
     def dump(flag):
@@ -555,23 +663,39 @@ for lib in _build.SOURCES:
                          dump("-res-usage")):
         funcs.setdefault(name(m.group(1)), {}).update(regs=int(m.group(2)),
                                                       stack=int(m.group(3)))
-# the ptxas report (-Xptxas -v) of the non-spiking cell kernels
-ptxas = {lib: [l.strip() for l in logs.get(lib, "").splitlines()
-               if "_ann_" in l or "registers" in l or "spill" in l]
-         for lib in ANN_LIBS}
-print(json.dumps({"phase": "ab", "tree": root, "ms": res, "code": code,
-                  "ptxas": ptxas}), flush=True)
+# the ptxas report (-Xptxas -v) of the cell kernels with a product: each
+# library's summary, and every entry that spills
+ptxas = {}
+for lib in REPORT_LIBS:
+    entries = re.findall(
+        r"Compiling entry function '(\S+)' for[^\n]*\n(?:[^\n]*\n)*?"
+        r"[^\n]*?(\d+) bytes spill stores[^\n]*\n[^\n]*Used (\d+) registers",
+        logs.get(lib, ""))
+    ptxas[lib] = dict(smoke.ptxas_summary(logs.get(lib, "")),
+                      spilling={name(e): [int(r), int(sp)]
+                                for e, sp, r in entries if int(sp)})
+print(json.dumps({"phase": "ab", "tree": root, "ms": res, "digests": dig,
+                  "code": code, "ptxas": ptxas}), flush=True)
 """
 
-# the libraries whose kernels no change to the tensor-parallel non-spiking
-# cells touches: their code must stay as the other tree compiles it
-AB_UNTOUCHED = ("fused_cell_fwd", "fused_cell_bwd", "readout_fwd",
-                "readout_bwd", "fused_ann_fwd", "fused_ann_bwd",
-                "tp_collectives", "tp_cell_fwd", "tp_cell_bwd")
+# the libraries, and within two of them the kernels, that the change to the
+# spiking backwards and the TP GRU backward leaves alone (value: a pattern
+# of the kernels left out of the comparison): their code must stay as the
+# other tree compiles it
+AB_UNTOUCHED = {
+    "fused_cell_fwd": None, "readout_fwd": None, "readout_bwd": None,
+    "fused_ann_fwd": None, "fused_ann_bwd": None, "tp_collectives": None,
+    "tp_cell_fwd": None, "tp_ann_fwd": None,
+    # the non-recurrent forms and the second passes keep their code; the
+    # recurrent forms run the cluster kernel
+    "fused_cell_bwd": r"fused_cell_bwd_kernelILb1E|cell_bwd_cluster_kernel",
+    # the RNN and the LiGRU keep theirs; the GRU holds three operand planes
+    "tp_ann_bwd": r"tp_ann_bwd_kernelILi2E",
+}
 
 
 def ab(dev, other: str):
-    """Phase 9: ``other`` and this tree in turns, each in its own process.
+    """Phase 8: ``other`` and this tree in turns, each in its own process.
     Each run's whole record goes to build/ab/ab_<i>.json; the output
     has each run's times and ptxas report, then, per untouched library,
     the kernels whose SASS count, registers or stack bytes differ between
@@ -583,7 +707,7 @@ def ab(dev, other: str):
     for i, root in enumerate((str(Path(other).resolve()), here, here,
                               str(Path(other).resolve()))):
         proc = subprocess.run([sys.executable, "-c", _AB_CODE, root],
-                              capture_output=True, text=True, timeout=900,
+                              capture_output=True, text=True, timeout=1500,
                               cwd=root)
         if proc.returncode != 0:
             raise RuntimeError(f"ab: {root} failed:\n{proc.stderr[-2000:]}")
@@ -592,13 +716,99 @@ def ab(dev, other: str):
         run = json.loads(line)
         runs.append(run)
         emit("ab", tree=run["tree"], ms=run["ms"], ptxas=run["ptxas"])
+    digests = [r["digests"] for r in runs]
+    keys = sorted(set().union(*digests))
+    emit("ab_digests", cases=len(keys),
+         equal=[k for k in keys if len({d.get(k) for d in digests}) == 1],
+         differ={k: [d.get(k) for d in digests] for k in keys
+                 if len({d.get(k) for d in digests}) != 1})
     parent, change = runs[0]["code"], runs[1]["code"]
-    for lib in AB_UNTOUCHED:
-        a, b = parent.get(lib, {}), change.get(lib, {})
+    for lib, skip in AB_UNTOUCHED.items():
+        a, b = ({k: v for k, v in x.get(lib, {}).items()
+                 if not (skip and re.search(skip, k))}
+                for x in (parent, change))
         moved = {k: [a.get(k), b.get(k)] for k in sorted(set(a) | set(b))
                  if a.get(k) != b.get(k)}
         emit("ab_code", library=lib, kernels=len(b), same=len(b) - len(moved),
              moved=moved)
+
+
+# runs in a process of its own with a tree's root and an output path: the
+# single-card spiking backward's outputs (RadLIF) at widths on both sides
+# of H = 512, every affine / dropout form and both modes, saved for ``bits``
+_BITS_CODE = r"""
+import importlib.util, sys
+import torch
+root, out = sys.argv[1], sys.argv[2]
+sys.path.insert(0, root)
+spec = importlib.util.spec_from_file_location("smoke", root + "/chip_smoke.py")
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+from sparch_tpu_torch.ops import fused_cells
+if not fused_cells.__file__.startswith(root):
+    raise RuntimeError("imported the package of another tree")
+dev = torch.device("cuda", 0)
+seed = torch.tensor([1234, 99], dtype=torch.int32, device=dev)
+res = {}
+with torch.no_grad():
+    for b, h in ((128, 512), (16, 200), (256, 1024), (16, 600), (16, 1536),
+                 (16, 2048), (8, 3000), (4, 4096)):
+        shape = (b, 20, h)
+        d = smoke.cell_inputs(shape, dyadic=True, seed=1, dev=dev)
+        d["s0"] = torch.rand(d["s0"].shape, device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(5))
+        g = torch.randn(shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(6))
+        for mx in (False, True):
+            dm = dict(d, Wx=d["Wx"].to(torch.bfloat16)) if mx else d
+            gm = g.to(torch.bfloat16) if mx else g
+            _, u_seq = smoke.train_forward_call("radlif", dm, True,
+                                                seed=seed, bf16=mx)
+            for affine, drop in ((True, 0.1), (False, 0.0), (True, 0.0),
+                                 (False, 0.1)):
+                args = (gm, dm["Wx"], u_seq, d["scale"] if affine else None,
+                        d["alpha"], d["beta"], d["a"], d["b"], d["V"], 1.0,
+                        d["u0"], d["w0"], d["s0"])
+                o = fused_cells._fused_cell_bwd_cuda(
+                    *args, recurrent=True, adaptive=True, drop_rate=drop,
+                    seed=seed, mxu_bf16=mx)
+                res[(b, h, affine, drop, mx)] = [
+                    None if x is None else x.cpu() for x in o]
+torch.save(res, out)
+"""
+
+
+def bits(dev, other: str):
+    """Phase 11: where the single-card spiking backward's outputs differ
+    between the tree ``other`` and this one (RadLIF, H = 200 .. 4096, every
+    affine / dropout form, both modes), each tree in its own process: per
+    case and gradient, the elements that differ and the largest difference
+    relative to the gradient's largest magnitude."""
+    out_dir = REPO / "build" / "bits"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    saved = []
+    for i, root in enumerate((str(Path(other).resolve()), str(REPO))):
+        path = out_dir / f"bits_{i}.pt"
+        proc = subprocess.run([sys.executable, "-c", _BITS_CODE, root,
+                               str(path)], capture_output=True, text=True,
+                              timeout=900, cwd=root)
+        if proc.returncode != 0:
+            raise RuntimeError(f"bits: {root} failed:\n{proc.stderr[-2000:]}")
+        saved.append(torch.load(path))
+    names = ("dWx", "dscale", "dshift", "dV", "dalpha", "dbeta", "da", "db",
+             "du0", "dw0", "ds0")
+    for key, a in saved[0].items():
+        moved = {}
+        for n, x, y in zip(names, a, saved[1][key]):
+            if x is None or torch.equal(x, y):
+                continue
+            gap = (x - y).abs()
+            moved[n] = dict(elements=int((gap > 0).sum()),
+                            max_rel=float(gap.max() / x.abs().max()))
+        b, h, affine, drop, mx = key
+        emit("bits", shape=[b, 20, h], affine=affine, drop_rate=drop,
+             mxu_bf16=mx, equal=not moved, differ=moved)
 
 
 def h2d(dev):
@@ -647,19 +857,22 @@ def main() -> int:
         "bwd_sweep": bwd_sweep,
         "profile_training": lambda dev: (profile_training(dev),
                                          profile_training(dev, "GRU")),
-        "bwd_variants": bwd_variants,
         "bf16": bf16,
         "tp_exchange": tp_exchange,
+        "spiking_bwd": spiking_bwd,
     }
     chosen = sys.argv[1:] or list(phases)
     unknown = [name for name in chosen
-               if name not in phases and not name.startswith("ab=")]
+               if name not in phases
+               and not name.startswith(("ab=", "bits="))]
     if unknown:
         print(f"chip_profile: unknown phases {unknown}", file=sys.stderr)
         return 2
     for name in chosen:
         if name.startswith("ab="):
             ab(dev, name[3:])
+        elif name.startswith("bits="):
+            bits(dev, name[5:])
         else:
             phases[name](dev)
     return 0

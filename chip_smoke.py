@@ -41,7 +41,12 @@ all at once), then prints one JSON line per phase:
    the error relative to that gradient's largest magnitude, bound 1e-4, or
    else no more than 4 times the float32 plain version's own error against
    the plain version in float64 (both errors are printed); two launches
-   give the same bits.
+   give the same bits. The recurrent forms run thread-block clusters: the
+   lines give their plan; RadLIF adds ``split_ms`` (the time loop, the dV
+   product, the second passes), ``dv_library_ms`` (``torch.matmul`` of the
+   dV product's float32 operands, TF32 off: a yardstick) and
+   ``at_256x1024``: the kernel at the shape of the bidirectional RadLIF
+   1024 ``auto`` trainer, checked alike, timed and split.
 7. ``kernel_vs_plain`` for the readout backward at (128, 100, 35), alike.
 8. ``training``: a RadLIF [512, 512, 35] trainer (batchnorm, dropout 0.1,
    uniform state init, Adam at lr 1e-2; ``create_train_state``,
@@ -129,11 +134,12 @@ all at once), then prints one JSON line per phase:
 18. ``kernel_vs_plain`` for ``tp_cell_bwd``: the same shapes with a
    uniform s0; every gradient against ``tp_cell_bwd_plain`` by the rule of
    phase 6, two launches bit-equal, the gradients that sum over no rows
-   bit-equal to P = 1's.
+   bit-equal to P = 1's; the plan of thread-block clusters per rank each P
+   ran, and at the main shape ``split_ms`` and ``dv_library_ms``.
 19. ``training_tp``: a RadLIF [1024, 1024, 35] bidirectional trainer
    (batchnorm, dropout 0.1, uniform state init, Adam at lr 1e-2) on one
-   batch of 128 SC-shaped utterances (F=40 normal features), ``scan`` and
-   ``pallas_tp`` at P = 1, 2, 4, checked and timed as phase 8 (two TP
+   batch of 128 SC-shaped utterances (F=40 normal features), ``scan``,
+   ``auto`` and ``pallas_tp`` at P = 1, 2, 4, checked and timed as phase 8 (two TP
    forward and two TP backward launches per step, no other kernel), P = 2
    and 4 against P = 1; then one ``make_eval_step`` pass per variant over
    the trained weights (V back on the 2^-8 grid, zero state init): the
@@ -171,7 +177,7 @@ all at once), then prints one JSON line per phase:
    BF16_ULP or else the float64 witness rule, bit for bit across P and
    between launches, the ANN kernels and the spiking backward's gradients
    that sum over no rows bit for bit against the single-card bf16 kernels.
-   The trainers run beside a bf16 ``scan`` twin (5 steps) and a bf16
+   The trainers run beside a bf16 ``scan`` twin (5 steps) and the bf16
    ``auto`` twin, print ``vs_float32_tp`` (the float32 P = 1 trainer's
    losses and step-1 gradient distance, not bounded), and the GRU's eval
    is held against its plain versions as ``serving_bf16`` holds the served
@@ -191,7 +197,8 @@ all at once), then prints one JSON line per phase:
    without the affine, as phases 20-21 time it, beside its bound and plan.
    The TP ANN kernels add the plan each P ran and ``exchange_us`` per P >
    1 (the kernel at P less at P = 1, over the exchanges on a cluster's
-   chain), the backward its split per P.
+   chain), the backward its split per P. The spiking backwards add their
+   plan (per P), split and the dV product's yardstick (``dv_library_ms``).
    No library call computes any of
    these functions (cuDNN's GRU applies the reset gate after the recurrent
    product, this one before it; no PyTorch call exchanges inside a
@@ -911,13 +918,63 @@ def phase_backward(dev, bf16=False):
                     row["plain_ms"] = cuda_time_ms(
                         lambda: fused_cells.fused_cell_bwd_plain(
                             *args(same), **kw), **PLAIN_ROUNDS)
+                if rec:
+                    row["plan"] = fused_cells.last_plans()["fused_cell_bwd"]
                 if name == "radlif":
+                    with torch.no_grad():
+                        row["split_ms"] = split_ms_of(
+                            lambda split: fused_cells._fused_cell_bwd_cuda(
+                                *args(same), **kw, split_ms=split))
                     main = dict(max_abs_err=row["max_abs_err"], ms=row["ms"],
-                                plain_ms=row["plain_ms"])
+                                plain_ms=row["plain_ms"], plan=row["plan"],
+                                split_ms=row["split_ms"],
+                                dv_library_ms=dv_library_ms(B, T, H, dev),
+                                at_256x1024=backward_at_1024(dev, bf16))
             emit("kernel_vs_plain",
                  kernel="fused_cell_bwd_bf16" if bf16 else "fused_cell_bwd",
                  **row)
     return main
+
+
+def backward_at_1024(dev, bf16=False):
+    """``fused_cell_bwd`` RadLIF (affine, dropout) at (256, 100, 1024), the
+    shape the bidirectional RadLIF [1024, 1024, 35] trainer gives it through
+    ``cell_impl="auto"``: ms, ``split_ms``, the dV yardstick and the plan;
+    every gradient against the plain version by the rule of phase 6."""
+    from sparch_tpu_torch.ops import fused_cells
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    shape = (2 * B, T, TP_H)
+    seed = torch.tensor([1234, 99], dtype=torch.int32, device=dev)
+    d = cell_inputs(shape, dyadic=True, seed=1, dev=dev)
+    g = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(6),
+                    device=dev)
+    if bf16:
+        g, d["Wx"] = g.to(BF16), d["Wx"].to(BF16)
+    kw = dict(recurrent=True, adaptive=True, drop_rate=P_DROP, seed=seed,
+              mxu_bf16=bf16)
+    with torch.no_grad():
+        _, u_seq = train_forward_call("radlif", d, True, seed=seed,
+                                      bf16=bf16)
+        args = (g, d["Wx"], u_seq, d["scale"], d["alpha"], d["beta"], d["a"],
+                d["b"], d["V"], 1.0, d["u0"], d["w0"], d["s0"])
+        got = fused_cells._fused_cell_bwd_cuda(*args, **kw)
+        plan = fused_cells.last_plans()["fused_cell_bwd"]
+        want = fused_cells.fused_cell_bwd_plain(*args, **kw)
+        torch.cuda.synchronize()
+        errs = grads_within_bound(
+            f"radlif {shape}", got, want,
+            lambda: fused_cells.fused_cell_bwd_plain(
+                *[a.double() if torch.is_tensor(a) else a for a in args],
+                **kw),
+            rel_max=bf16_grad_bounds(GRAD_NAMES) if bf16 else None)
+        ms = cuda_time_ms(lambda: fused_cells._fused_cell_bwd_cuda(*args,
+                                                                   **kw))
+        split = split_ms_of(lambda sp: fused_cells._fused_cell_bwd_cuda(
+            *args, **kw, split_ms=sp))
+    return dict(shape=list(shape), ms=ms, split_ms=split,
+                dv_library_ms=dv_library_ms(*shape, dev), plan=plan,
+                rel_err=errs)
 
 
 def phase_readout_backward(dev):
@@ -1255,17 +1312,29 @@ def ann_plan(mode, shape, bf16=False, backward=False):
 SPLIT_NAMES = ("time_loop", "dv_product", "second_passes")
 
 
-def bwd_split_ms(mode, d, g, res, seed, bf16, n=5):
-    """Median milliseconds of the fused ANN backward's launches (the time
-    loop, the dV product, the second passes: dV's and dscale/dshift's sums
-    over partials) over ``n`` calls, CUDA events around each launch."""
+def split_ms_of(fn, n=5):
+    """Median milliseconds of a backward wrapper's launches (the time loop,
+    the dV product, the second passes) over ``n`` calls of ``fn(split)``,
+    which passes ``split_ms=split`` on: CUDA events around each launch."""
     splits = []
     for _ in range(n):
         split = []
-        ann_backward(mode, d, g, res, seed, True, bf16=bf16, split_ms=split)
+        fn(split)
         splits.append(split)
     return {k: statistics.median(s[i] for s in splits)
             for i, k in enumerate(SPLIT_NAMES)}
+
+
+def dv_library_ms(b, t, h, dev):
+    """One ``torch.matmul`` of the dV product's (h, b*t) x (b*t, h) float32
+    operands, TF32 off: the yardstick of a backward's dV part (a library
+    call the port never makes)."""
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    left = torch.randn((h, b * t), generator=gen, device=dev)
+    right = torch.randn((b * t, h), generator=gen, device=dev)
+    return cuda_time_ms(torch.matmul, left, right)
 
 
 def ann_grad_names(mode):
@@ -1431,8 +1500,10 @@ def phase_ann_backward(dev, bf16=False):
                     row["plain_ms"] = cuda_time_ms(
                         lambda: ann_backward(mode, d, g, res, seed, False,
                                              **mode_kw), **PLAIN_ROUNDS)
-                    row["split_ms"] = bwd_split_ms(mode, d, g, res, seed,
-                                                   bf16)
+                    row["split_ms"] = split_ms_of(
+                        lambda split: ann_backward(mode, d, g, res, seed,
+                                                   True, bf16=bf16,
+                                                   split_ms=split))
                 row["plan"] = ann_plan(mode, shape, bf16, backward=True)
                 main[mode] = {k: row[k] for k in ("max_abs_err", "ms",
                                                   "plain_ms", "split_ms",
@@ -2227,7 +2298,7 @@ def phase_tp_cell_backward(dev, bf16=False):
 
                 with torch.no_grad():
                     got = bwd(fused_tp._tp_cell_bwd_cuda)
-                    plan = fused_tp.last_plans()["tp_cell_bwd"]
+                    plan = fused_tp.last_bwd_plan()
                     again = bwd(fused_tp._tp_cell_bwd_cuda)
                     want = bwd(fused_tp.tp_cell_bwd_plain)
                     torch.cuda.synchronize()
@@ -2289,6 +2360,13 @@ def phase_tp_cell_backward(dev, bf16=False):
                                 g, args[0], u_seq, None, *args[1:],
                                 recurrent=True, adaptive=ada,
                                 mxu_bf16=bf16))
+                        if name == "radlif":
+                            row["split_ms"] = split_ms_of(
+                                lambda split: fused_tp._tp_cell_bwd_cuda(
+                                    g, u_seq, *args[1:], **kw,
+                                    split_ms=split))
+                            row["dv_library_ms"] = dv_library_ms(*shape,
+                                                                 dev)
                     if name == "radlif":
                         main[P] = row
                 emit("kernel_vs_plain",
@@ -2384,11 +2462,12 @@ def phase_training_tp(dev, bf16=False):
     device-resident batch of 128 SC-shaped utterances (F=40 features drawn
     normal(0, 1)), ``scan`` and ``pallas_tp`` at P = 1, 2, 4 from one state
     dict and seed, each checked and timed as phase 8 (two forward and two
-    backward TP launches per step, no other kernel); P = 2 and 4 against
-    P = 1 (step-1 gradients within GRAD_REL_MAX, the largest gap printed);
-    then ``eval_tp``. With ``bf16`` every trainer under
-    ``compute_dtype=bfloat16`` (the TP kernels' bf16-stream form), the
-    ``scan`` twin for 5 steps, an ``auto`` twin beside it, step-1 gradients
+    backward TP launches per step, no other kernel), beside an ``auto``
+    twin (the single-card kernels at (256, 100, 1024), two launches of each
+    a step); P = 2 and 4 against P = 1 (step-1 gradients within
+    GRAD_REL_MAX, the largest gap printed); then ``eval_tp``. With ``bf16``
+    every trainer under ``compute_dtype=bfloat16`` (the TP kernels'
+    bf16-stream form), the ``scan`` twin for 5 steps, step-1 gradients
     against the plain versions within BF16_ULP (else the float64 witness
     rule), and ``vs_float32_tp``: the float32 P = 1 trainer's losses and its
     step-1 gradients' distance, printed, not bounded. Returns the launch
@@ -2406,11 +2485,10 @@ def phase_training_tp(dev, bf16=False):
     rows["scan"], _ = train_variant(dev, "scan", state_dict, x, y, {}, None,
                                     steps=5 if bf16 else TRAIN_STEPS,
                                     **common)
-    if bf16:
-        rows["auto"], _ = train_variant(
-            dev, "auto", state_dict, x, y,
-            {"fused_cell_fwd_train_bf16": 2, "fused_cell_bwd_bf16": 2},
-            rows["scan"], **common)
+    rows["auto"], _ = train_variant(
+        dev, "auto", state_dict, x, y,
+        {f"fused_cell_fwd_train{sfx}": 2, f"fused_cell_bwd{sfx}": 2},
+        rows["scan"], **common)
     for P in TP_PS:
         kept[P] = {}
         rows[f"pallas_tp_p{P}"], launches[P] = train_variant(
@@ -2500,7 +2578,12 @@ def tp_cell_rows(fwd, bwd, trained, bf16=False):
             ms_by_p={q: main[q]["ms"] for q in TP_PS},
             plain_ms_by_p={q: main[q]["plain_ms"] for q in TP_PS},
             single_card_kernel_ms=main[1]["single_card_kernel_ms"],
-            launches_by_p={q: trained[q][name + sfx] for q in TP_PS}))
+            launches_by_p={q: trained[q][name + sfx] for q in TP_PS},
+            **({} if name == "tp_cell_fwd" else dict(
+                split_ms=main[P]["split_ms"],
+                split_ms_by_p={q: main[q]["split_ms"] for q in TP_PS},
+                dv_library_ms=main[P]["dv_library_ms"],
+                plan_by_p={q: main[q]["plan"] for q in TP_PS}))))
     return rows
 
 
@@ -2700,7 +2783,9 @@ def phase_tp_ann_backward(dev, bf16=False):
                 row["ms"] = cuda_time_ms(
                     lambda: fused_tp_ann._tp_ann_cell_bwd_cuda(*bargs, **kw),
                     warmup=1, iters=5, repeats=3)
-                row["split_ms"] = tp_bwd_split_ms(bargs, kw)
+                row["split_ms"] = split_ms_of(
+                    lambda split: fused_tp_ann._tp_ann_cell_bwd_cuda(
+                        *bargs, **kw, split_ms=split))
                 row["plain_ms"] = cuda_time_ms(
                     lambda: fused_tp_ann.tp_ann_cell_bwd_plain(*bargs, **kw),
                     **PLAIN_ROUNDS)
@@ -2709,21 +2794,6 @@ def phase_tp_ann_backward(dev, bf16=False):
             emit("kernel_vs_plain",
                  kernel="tp_ann_bwd_bf16" if bf16 else "tp_ann_bwd", **row)
     return main
-
-
-def tp_bwd_split_ms(bargs, kw, n=5):
-    """Median milliseconds of the TP ANN backward's launches (the time
-    loop, the dV product, its second pass) over ``n`` calls, CUDA events
-    around each launch."""
-    from sparch_tpu_torch.ops import fused_tp_ann
-
-    splits = []
-    for _ in range(n):
-        split = []
-        fused_tp_ann._tp_ann_cell_bwd_cuda(*bargs, **kw, split_ms=split)
-        splits.append(split)
-    return {k: statistics.median(s[i] for s in splits)
-            for i, k in enumerate(SPLIT_NAMES)}
 
 
 def tp_ann_state(ann_type):

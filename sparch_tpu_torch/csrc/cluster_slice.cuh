@@ -1,6 +1,7 @@
 // A recurrent matrix split by columns over the SMs of a thread-block
-// cluster (sm_90a): the pieces of the single-card non-spiking cell kernels
-// (fused_ann_fwd.cu, fused_ann_bwd.cu).
+// cluster (sm_90a): the pieces of the cell kernels whose time loop runs a
+// product (fused_ann_fwd.cu, fused_ann_bwd.cu, the recurrent forms of
+// fused_cell_bwd.cu, and through tp_ann.cuh the tensor-parallel ones).
 //
 // A cluster of C blocks (up to six), one per SM, owns R batch rows for the
 // whole sequence. Block k owns the columns k*Hs .. k*Hs+Hs-1 of every
@@ -24,12 +25,13 @@
 // shared memory beside the operands it is loaded once by bulk copies (the
 // Tensor Memory Accelerator) and stays for all T ("resident"); else it
 // streams from L2 in tiles of whole rows through tile_stream.cuh's kStages
-// stages (of at most kTileBytes) behind mbarriers, as tile_stream.cuh
-// streams whole matrices, so a cluster reads each matrix once per step.
+// stages (of at most kTileBytes) behind mbarriers, so a cluster reads each
+// matrix once per step.
 //
 // Rounding: each column is summed over j = 0 .. H-1 in ascending order with
-// fmaf in float32, as tile_stream.cuh's stream_matrix sums it, so the
-// kernels' outputs are those of a block that owns whole rows.
+// fmaf in float32, as the kernels before the cluster split summed it (one
+// block streaming whole matrices for whole rows), so their outputs keep
+// those bits.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -73,9 +75,12 @@ struct Plan {
 // operand; `width` (0: H) the columns split over the cluster, fewer where
 // a rank owns only its block of them (tp_ann.cuh); `cluster` (0: the most
 // blocks, up to kMaxCluster, that leave each slice kMinCols columns) the
-// blocks of a cluster.
+// blocks of a cluster; `rows` (0: the rule below) the batch rows of a
+// cluster; `operands` (0: two parities of `planes`) the operand planes a
+// block holds in all (the TP GRU backward's second exchange has one plane).
 inline Plan make_plan(int B, int H, int gates, int elem, int planes,
-                      int width = 0, int cluster = 0) {
+                      int width = 0, int cluster = 0, int rows = 0,
+                      int operands = 0) {
   Plan p;
   const int w = width > 0 ? width : H;
   const int c = w / kMinCols < kMaxCluster ? w / kMinCols : kMaxCluster;
@@ -83,8 +88,10 @@ inline Plan make_plan(int B, int H, int gates, int elem, int planes,
   p.cols = ((w + p.cluster - 1) / p.cluster + kColAlign - 1) / kColAlign *
            kColAlign;
   // eight rows, unless the operands would pass 128 KB or the threads 384
-  p.rows = planes * H <= 2048 && p.cols * 8 / kRt <= kMaxThreads ? 8 : 4;
-  const long op = 2L * planes * p.rows * H * (long)sizeof(float);
+  p.rows = rows > 0 ? rows
+           : planes * H <= 2048 && p.cols * 8 / kRt <= kMaxThreads ? 8 : 4;
+  const long op = (long)(operands > 0 ? operands : 2 * planes) * p.rows * H *
+                  (long)sizeof(float);
   const long mat = (long)gates * H * p.cols * elem;
   const long budget = kSmemMax - kSmemStatic;
   p.resident = op + mat <= budget ? 1 : 0;
@@ -208,37 +215,56 @@ __device__ __forceinline__ void await_resident(Stream<MT>& s) {
 
 // acc[g][r] += sum over the n rows q of the tile at m (row j0 + q of the
 // pass, `width` elements a row, gate g's column at g*Hs) of
-// op_g[(j0 + q)*R + r] * m[q*width + g*Hs]. With SHARED every gate reads
-// the operand op; else gate g reads op + g*plane.
-template <int NP, bool SHARED, typename MT>
+// op_g[(j0 + q)*R + r] * m[q*width + g*Hs], for the RT rows r of the thread
+// (kRt, or every row of the cluster where a thread owns them all). With
+// SHARED every gate reads the operand op; else gate g reads op + g*plane.
+template <int NP, bool SHARED, typename MT, int RT = kRt>
 __device__ __forceinline__ void product_rows(const MT* m, int width, int Hs,
                                              const float* op, int plane,
                                              int R, int j0, int n,
-                                             float (&acc)[NP][kRt]) {
+                                             float (&acc)[NP][RT]) {
   constexpr int NO = SHARED ? 1 : NP;
-  constexpr int NV = kRt / 4;
   const float* o = op + (size_t)j0 * R;
+  if constexpr (RT % 4 == 0) {
+    constexpr int NV = RT / 4;
 #pragma unroll kUnrollRows
-  for (int q = 0; q < n; ++q) {
-    float4 a[NO][NV];
+    for (int q = 0; q < n; ++q) {
+      float4 a[NO][NV];
 #pragma unroll
-    for (int g = 0; g < NO; ++g) {
+      for (int g = 0; g < NO; ++g) {
 #pragma unroll
-      for (int u = 0; u < NV; ++u) {
-        a[g][u] = *reinterpret_cast<const float4*>(o + g * plane + 4 * u);
+        for (int u = 0; u < NV; ++u) {
+          a[g][u] = *reinterpret_cast<const float4*>(o + g * plane + 4 * u);
+        }
+      }
+      o += R;
+#pragma unroll
+      for (int g = 0; g < NP; ++g) {
+        const float v = to_float(m[q * width + g * Hs]);
+#pragma unroll
+        for (int u = 0; u < NV; ++u) {
+          const float4& x = a[SHARED ? 0 : g][u];
+          acc[g][4 * u] = fmaf(x.x, v, acc[g][4 * u]);
+          acc[g][4 * u + 1] = fmaf(x.y, v, acc[g][4 * u + 1]);
+          acc[g][4 * u + 2] = fmaf(x.z, v, acc[g][4 * u + 2]);
+          acc[g][4 * u + 3] = fmaf(x.w, v, acc[g][4 * u + 3]);
+        }
       }
     }
-    o += R;
+  } else {
+#pragma unroll kUnrollRows
+    for (int q = 0; q < n; ++q) {
+      float a[NO][RT];
 #pragma unroll
-    for (int g = 0; g < NP; ++g) {
-      const float v = to_float(m[q * width + g * Hs]);
+      for (int g = 0; g < NO; ++g) load_rows<RT>(o + g * plane, a[g]);
+      o += R;
 #pragma unroll
-      for (int u = 0; u < NV; ++u) {
-        const float4& x = a[SHARED ? 0 : g][u];
-        acc[g][4 * u] = fmaf(x.x, v, acc[g][4 * u]);
-        acc[g][4 * u + 1] = fmaf(x.y, v, acc[g][4 * u + 1]);
-        acc[g][4 * u + 2] = fmaf(x.z, v, acc[g][4 * u + 2]);
-        acc[g][4 * u + 3] = fmaf(x.w, v, acc[g][4 * u + 3]);
+      for (int g = 0; g < NP; ++g) {
+        const float v = to_float(m[q * width + g * Hs]);
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          acc[g][r] = fmaf(a[SHARED ? 0 : g][r], v, acc[g][r]);
+        }
       }
     }
   }
@@ -250,14 +276,14 @@ __device__ __forceinline__ void product_rows(const MT* m, int width, int Hs,
 // column in the slice. Every thread of the block calls it; when it returns
 // the thread is done with the operand (the stream's stages are freed at the
 // next tile's barrier).
-template <int NP, bool SHARED, typename MT>
+template <int NP, bool SHARED, typename MT, int RT = kRt>
 __device__ __forceinline__ void pass(Stream<MT>& s, int p, const float* op,
                                      int plane, int R, int col, int Hs,
-                                     float (&acc)[NP][kRt]) {
+                                     float (&acc)[NP][RT]) {
   const int width = s.width[p];
   if (s.resident) {
-    product_rows<NP, SHARED>(s.smem + s.off[p] + col, width, Hs, op, plane,
-                             R, 0, s.H, acc);
+    product_rows<NP, SHARED, MT, RT>(s.smem + s.off[p] + col, width, Hs, op,
+                                     plane, R, 0, s.H, acc);
     return;
   }
   for (int i = 0; i < s.tiles[p]; ++i, ++s.tile) {
@@ -267,31 +293,44 @@ __device__ __forceinline__ void pass(Stream<MT>& s, int p, const float* op,
     __syncthreads();
     start_tile(s);
     const int j0 = i * s.rows[p];
-    product_rows<NP, SHARED>(s.smem + (size_t)stage * s.stage_elems + col,
-                             width, Hs, op, plane, R, j0,
-                             min(s.rows[p], s.H - j0), acc);
+    product_rows<NP, SHARED, MT, RT>(
+        s.smem + (size_t)stage * s.stage_elems + col, width, Hs, op, plane, R,
+        j0, min(s.rows[p], s.H - j0), acc);
   }
 }
 
-// A thread's kRt values (its rows of column j) into every block's operand
+// A thread's RT values (its rows of column j) into every block's operand
 // buffer at `at` ([j][row] index of the thread's first row), rounded to
 // bf16 on the way where ROUND (the bf16-stream mode's operand rounding).
-template <bool ROUND>
+template <bool ROUND, int RT = kRt>
 __device__ __forceinline__ void to_cluster(float* buf, size_t at,
-                                           const float (&v)[kRt], int C) {
-  float4 x[kRt / 4];
+                                           const float (&v)[RT], int C) {
+  if constexpr (RT % 4 == 0) {
+    float4 x[RT / 4];
 #pragma unroll
-  for (int u = 0; u < kRt / 4; ++u) {
-    const float* w = v + 4 * u;
-    x[u] = ROUND ? make_float4(round_bf16(w[0]), round_bf16(w[1]),
-                               round_bf16(w[2]), round_bf16(w[3]))
-                 : make_float4(w[0], w[1], w[2], w[3]);
-  }
-  cg::cluster_group cl = cg::this_cluster();
-  for (int k = 0; k < C; ++k) {
-    float4* dst = reinterpret_cast<float4*>(cl.map_shared_rank(buf + at, k));
+    for (int u = 0; u < RT / 4; ++u) {
+      const float* w = v + 4 * u;
+      x[u] = ROUND ? make_float4(round_bf16(w[0]), round_bf16(w[1]),
+                                 round_bf16(w[2]), round_bf16(w[3]))
+                   : make_float4(w[0], w[1], w[2], w[3]);
+    }
+    cg::cluster_group cl = cg::this_cluster();
+    for (int k = 0; k < C; ++k) {
+      float4* dst =
+          reinterpret_cast<float4*>(cl.map_shared_rank(buf + at, k));
 #pragma unroll
-    for (int u = 0; u < kRt / 4; ++u) dst[u] = x[u];
+      for (int u = 0; u < RT / 4; ++u) dst[u] = x[u];
+    }
+  } else {
+    float x[RT];
+#pragma unroll
+    for (int r = 0; r < RT; ++r) x[r] = ROUND ? round_bf16(v[r]) : v[r];
+    cg::cluster_group cl = cg::this_cluster();
+    for (int k = 0; k < C; ++k) {
+      float* dst = cl.map_shared_rank(buf + at, k);
+#pragma unroll
+      for (int r = 0; r < RT; ++r) dst[r] = x[r];
+    }
   }
 }
 

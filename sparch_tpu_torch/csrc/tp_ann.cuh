@@ -69,11 +69,12 @@ __device__ __forceinline__ float sigmoidf(float x) {
 
 // One rank's time-loop plan at `cluster` blocks: cluster_slice.cuh's rule
 // with the rank's Hl neurons split over the cluster and the operand Hg
-// wide. gates: matrices of a step; planes: operands of a parity.
+// wide. gates: matrices of a step; planes: operands of a parity;
+// operands: the operand planes a block holds (0: two parities of planes).
 inline slice::Plan rank_plan(int B, int Hg, int P, int cluster, int gates,
-                             int bf16, int planes) {
+                             int bf16, int planes, int operands = 0) {
   return slice::make_plan(B, Hg, gates, bf16 ? 2 : 4, planes, Hg / P,
-                          cluster);
+                          cluster, 0, operands);
 }
 
 // The plan runs: its block fits the threads, and the slice is resident or
@@ -95,8 +96,11 @@ __device__ __forceinline__ float4 wire_load4(const __nv_bfloat16* p) {
                      __uint_as_float(u.y & 0xffff0000u));
 }
 
-// Where a thread's values go at an exchange, and what the exchange needs.
-struct Site {
+// Where a thread's values go at an exchange, and what the exchange needs;
+// RT: the rows a thread owns (kRt; the spiking tp_cell_bwd.cu: all of the
+// cluster's).
+template <int RT>
+struct RowsSite {
   const tp::Peers* peers;
   const tp::Layout* lay;
   int rank;      // the block's rank
@@ -106,28 +110,29 @@ struct Site {
   int gcol;      // the thread's neuron in the gathered state
   int B, Hg, Hl, W, R, C;
   bool live;     // the thread owns a neuron
-  bool rowlive[kRt];
+  bool rowlive[RT];
 };
+using Site = RowsSite<kRt>;
 
-// The thread's kRt values (its neuron, its rows) into plane `plane` of the
+// The thread's RT values (its neuron, its rows) into plane `plane` of the
 // operand `op` ([plane][j][row], R*Hg floats a plane) of every block of the
 // cluster, and where P > 1 into slot e & 1 of every rank (its own
 // included) at plane*Hg + gcol of each live row; ROUND (the bf16 mode)
 // rounds the operand as the wire of type WT rounds the slot.
-template <bool ROUND, typename WT>
-__device__ __forceinline__ void put(const Site& x, float* op, int plane,
-                                    int e, const float (&v)[kRt]) {
+template <bool ROUND, typename WT, int RT>
+__device__ __forceinline__ void put(const RowsSite<RT>& x, float* op,
+                                    int plane, int e, const float (&v)[RT]) {
   if (!x.live) return;
-  slice::to_cluster<ROUND>(op + (size_t)plane * x.R * x.Hg,
-                           (size_t)x.gcol * x.R + (x.row0 - x.row_base), v,
-                           x.C);
+  slice::to_cluster<ROUND, RT>(op + (size_t)plane * x.R * x.Hg,
+                               (size_t)x.gcol * x.R + (x.row0 - x.row_base),
+                               v, x.C);
   const int P = x.lay->P;
   if (P == 1) return;
   for (int q = 0; q < P; ++q) {
     WT* slot = static_cast<WT*>(x.peers->slots[q]) +
                (size_t)(e & 1) * x.B * x.W + (size_t)plane * x.Hg + x.gcol;
 #pragma unroll
-    for (int r = 0; r < kRt; ++r) {
+    for (int r = 0; r < RT; ++r) {
       if (x.rowlive[r]) {
         tp::wire_store(slot + (size_t)(x.row0 + r) * x.W, v[r]);
       }
@@ -140,9 +145,9 @@ __device__ __forceinline__ void put(const Site& x, float* op, int plane,
 // the publish, the wait on the peers, and the copy of the peers' columns
 // of the group's rows from the own slot e & 1 into op (rows past B zero).
 // On return every block's op holds all Hg columns.
-template <typename WT>
-__device__ __forceinline__ void exchange(const Site& x, float* op, int planes,
-                                         int e) {
+template <typename WT, int RT>
+__device__ __forceinline__ void exchange(const RowsSite<RT>& x, float* op,
+                                         int planes, int e) {
   slice::cluster_barrier();
   const tp::Layout& l = *x.lay;
   if (l.P == 1) return;

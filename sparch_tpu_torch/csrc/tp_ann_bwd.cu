@@ -78,7 +78,9 @@
 // adjoint products in passes: RNN dpre on operand parity s & 1, then V^T;
 // LiGRU [dcpre | dzpre] on parity s & 1, then [V^T | Vz^T]; GRU [dcpre |
 // dzpre] on parity 0, then [V^T | Vz^T] (dry and the z term), drpre on
-// parity 1, then Vr^T. The slot parities are the exchange indices' (RNN,
+// parity 1, then Vr^T. The GRU's parity 1 holds one plane, so a block
+// holds three planes of gathered rows, not four: at P = 2 that takes H up
+// to 4096. The slot parities are the exchange indices' (RNN,
 // LiGRU s & 1; GRU 0, then 1). At P = 1 this is fused_ann_bwd.cu's time
 // loop without the affine and the dropout. No atomics; dV's splits are
 // added in a fixed order (sum_parts_kernel): two runs give the same bits.
@@ -127,8 +129,11 @@ tp_ann_bwd_kernel(const __grid_constant__ Args p) {
   constexpr int G = MODE + 1;
   constexpr int NA = MODE == kRnn ? 1 : 2;  // gates of the first pass
   constexpr int PL = MODE == kRnn ? 1 : 2;  // operands of a parity
-  // two parities of PL [j][row] operands (R*Hg floats each), then the
-  // resident slice or the stream's stages
+  // operand planes: two parities of PL, but the GRU's second parity holds
+  // drpre alone
+  constexpr int OPS = MODE == kGru ? 3 : 2 * PL;
+  // the OPS [j][row] operands (R*Hg floats each), then the resident slice
+  // or the stream's stages
   extern __shared__ __align__(16) float smem[];
   __shared__ uint64_t full[kStages];
   const slice::Plan& pl = p.plan;
@@ -163,7 +168,7 @@ tp_ann_bwd_kernel(const __grid_constant__ Args p) {
   const int walks = (l.n_groups - first + l.per_rank - 1) / l.per_rank;
   slice::Stream<ST> s = slice::open_stream(
       static_cast<const ST*>(p.VT) + ((size_t)local * C + k) * G * Hg * Hs,
-      reinterpret_cast<ST*>(smem + 2 * PL * RH), full, pl, Hg, Hs, gates,
+      reinterpret_cast<ST*>(smem + OPS * RH), full, pl, Hg, Hs, gates,
       walks * T);
   slice::begin(s);
   const ST* g_in = static_cast<const ST*>(p.g);
@@ -285,7 +290,8 @@ Kernel kernel_for(int mode, int bf16) {
 }
 
 slice::Plan bwd_plan(int B, int Hg, int P, int cluster, int mode, int bf16) {
-  return rank_plan(B, Hg, P, cluster, mode + 1, bf16, mode == kRnn ? 1 : 2);
+  return rank_plan(B, Hg, P, cluster, mode + 1, bf16, mode == kRnn ? 1 : 2,
+                   mode == kGru ? 3 : 0);
 }
 
 bool shape_ok(int B, int Hg, int P, int mode, int cluster) {

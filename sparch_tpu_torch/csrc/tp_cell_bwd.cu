@@ -44,48 +44,60 @@
 // every reduction stay float32, and B_t takes the unrounded D (:577).
 // These are fused_cell_bwd.cu's bf16 rounding points.
 //
-// Design:
-// - A block runs one rank's neurons for BT batch rows (a row group) and
-//   walks the groups k, k + per_rank, ... on every rank alike; thread j owns
-//   the rank's neurons j + i*blockDim.x (NPT of them) for the BT rows, with
-//   A, B, P, R and the carried u in registers.
-// - Each step the block stores its D rows into every rank's slot and, after
-//   the exchange, reads the group's D_full rows back into shared memory as
-//   [j][row]; R streams the rank's block of V^T from L2 through shared
-//   memory in 64 KB TMA tiles, kStages deep, the stream running on across
-//   steps and groups (tile_stream.cuh's pipeline). Vrow^T is the column
-//   block r*Hl of one V^T that the wrapper transposes once (a pointer
-//   offset, rows ld apart), so a tile is TJ row pieces of Hl floats, one
-//   bulk copy each.
-// - BT is the smallest of 1, 2, 4, 8 (NPT*BT <= 16, shared memory allowing)
-//   at which the card holds every group of every rank at once; more rows
-//   per block also read each V^T tile for more rows. Where even the largest
-//   does not fit, blocks walk groups. Cooperative launch, as every TP kernel.
-// - Reductions in a fixed order: per-block partials, a second kernel adds
-//   them in ascending order; no atomics. Two runs give the same bits.
+// Design: thread-block clusters per rank (tp_ann.cuh on cluster_slice.cuh,
+// as tp_ann_bwd.cu). A cluster of C blocks, one per SM, owns R batch rows
+// (a row group) of one rank; block k owns the rank's neurons k*Hs ..
+// k*Hs+Hs-1 and the (H, Hs) slice of the rank's block of V^T (the rows of
+// V for its neurons), resident in shared memory where it fits beside the
+// operands, else streamed from L2 once per cluster and step. Thread tx owns
+// neuron k*Hs + tx for all R rows of the group (R = 8, or 4, 2, 1 where two
+// parities of R gathered rows of H floats would pass 128 KB), with A, B, P,
+// R and the carried u in registers. Each step the thread puts its D rows
+// into the operand of every block of its cluster (distributed shared
+// memory) and, where P > 1, into every rank's slot; the cluster crosses
+// one barrier, block 0 publishes for the cluster, every block waits on the
+// peers and copies their columns from its slot (tp_ann.cuh exchange); then
+// each thread sums its column over j = 0 .. H-1 in ascending order with
+// fmaf, as the kernel before the cluster split (one block for whole rows,
+// the rank's V^T block streamed per block and step) did, so D, dWx, du0,
+// dw0, ds0 and dV are its bits and the single-card kernel's, at every P.
+// All P ranks run in one cooperative cluster launch; the wrapper chooses
+// the cluster size from cudaOccupancyMaxActiveClusters (ops/fused_tp.py
+// `_bwd_plan`: the fewest warps a block times walks), and a rank walks its
+// row groups where the card holds fewer clusters than it has groups.
+// Reductions in a fixed order, no atomics, so two runs give the same bits:
+// each thread sums dalpha, dbeta, da and db of its neuron over all T and
+// the rows of a partial, steps from the last and rows ascending within a
+// step, and a second kernel adds the partials of a rank in ascending
+// order. A partial has the rows of a block of the kernel before the split
+// (part_rows, chosen by the wrapper), so these gradients keep its bits
+// wherever its blocks held every row group at once.
 //
-// C interface, bound with ctypes: sparch_tp_cell_bwd enqueues the kernels on
-// the stream, returns cudaGetLastError() (or an invalid-value error for
-// arguments it does not take) and never synchronises. `plan` (host memory,
-// may be null) receives {BT, blocks per rank, blocks per SM, threads}.
+// C interface, bound with ctypes: sparch_tp_cell_bwd checks the plan it is
+// given (cluster, rows, resident, part_rows) against its own at that
+// cluster size, enqueues the kernels on the stream, returns the first
+// launch error (or an invalid-value error for arguments it does not take)
+// and never synchronises, unless it is given split_ms: then it records
+// CUDA events around each launch, waits for them and writes the
+// milliseconds of the time loop, the dV product and the second passes
+// there. `plan` (host memory, may be null) receives the time loop's plan
+// (tp_ann::report).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "dv_product.cuh"
-#include "tile_stream.cuh"
-#include "tp_exchange.cuh"
+#include "tp_ann.cuh"
 
 namespace {
 
 using namespace sparch;
-using sparch::tp::Layout;
-using sparch::tp::Peers;
+using sparch::tp_ann::RowsSite;
 
-constexpr int kThreads = 512;
-constexpr int kMaxNpt = 4;    // so Hl <= 2048
-constexpr int kMaxWork = 16;  // NPT * BT
+constexpr int kMaxHl = 2048;  // neurons of a rank
 constexpr int kVecs = 4;      // dalpha, dbeta, da, db
+// two parities of a cluster's gathered rows take at most this
+constexpr long kOperandBytes = 131072;
 
 // g, VT, dwx and the slots are float, or bf16 in the bf16 mode.
 struct BwdArgs {
@@ -95,305 +107,193 @@ struct BwdArgs {
   const float* beta;
   const float* a;
   const float* b;
-  const void* VT;      // (H, ld): V^T, rank l's Vrow^T at column l*Hl
+  const void* VT;      // the packed slices of the ranks' blocks of V^T
   const float* u0;     // (B, ld)
   const float* w0;
   const float* s0f;    // (B, H): the gathered initial spikes
   void* dwx;           // (B, T, ld)
-  float* partials;     // [n_local][per_rank][kVecs][Hl]
+  float* partials;     // [n_local][n_parts][kVecs][Hl]
   float* du0;          // (B, ld)
   float* dw0;
   float* ds0;
-  Peers peers;         // slots: per rank [2][B][H] elements
-  Layout lay;
+  tp::Peers peers;     // slots: per rank [2][B][H] elements
+  tp::Layout lay;
   int B, T, H, Hl, ld;
   float threshold;
+  int n_parts;
+  slice::Plan plan;
 };
 
-// The stream of a rank's (H, Hl) block of V^T (elements MT), whose rows lie
-// ld apart: tile n holds TJ rows j, one bulk copy per row, all reporting to
-// the stage's mbarrier; T passes per row group.
-template <typename MT>
-struct ShardStream {
-  const MT* base;
-  MT* stages;
-  uint64_t* full;
-  int next_tile;
-  int tile;
-  int total_tiles;
-  int n_tiles;
-  int TJ;
-  int H;
-  int Hl;
-  int ld;
-};
-
-template <typename MT>
-__device__ __forceinline__ ShardStream<MT> shard_stream(const MT* base, int ld,
-                                                        MT* stages,
-                                                        uint64_t* full, int H,
-                                                        int Hl, int passes) {
-  ShardStream<MT> s;
-  s.base = base;
-  s.stages = stages;
-  s.full = full;
-  s.next_tile = 0;
-  s.tile = 0;
-  s.H = H;
-  s.Hl = Hl;
-  s.ld = ld;
-  s.TJ = min(H, (kTileBytes / (int)sizeof(MT)) / Hl);
-  s.n_tiles = (H + s.TJ - 1) / s.TJ;
-  s.total_tiles = passes * s.n_tiles;
-  return s;
-}
-
-// Start the copy of the stream's next tile (warp 0), if it has one left.
-template <typename MT>
-__device__ __forceinline__ void shard_start(ShardStream<MT>& s) {
-  const int n = s.next_tile++;
-  if (n >= s.total_tiles || threadIdx.x >= 32) return;
-  const int j0 = (n % s.n_tiles) * s.TJ;
-  const int rows = min(s.TJ, s.H - j0);
-  const uint32_t row_bytes = (uint32_t)s.Hl * sizeof(MT);
-  uint64_t* bar = &s.full[n % kStages];
-  MT* dst = s.stages + (size_t)(n % kStages) * (kTileBytes / sizeof(MT));
-  if (threadIdx.x == 0) mbar_expect_tx(bar, rows * row_bytes);
-  __syncwarp();
-  for (int q = threadIdx.x; q < rows; q += 32) {
-    bulk_copy(dst + (size_t)q * s.Hl, s.base + (size_t)(j0 + q) * s.ld,
-              row_bytes, bar);
-  }
-}
-
-template <typename MT>
-__device__ __forceinline__ void shard_open(ShardStream<MT>& s) {
-  if (threadIdx.x == 0) {
-    for (int k = 0; k < kStages; ++k) mbar_init(&s.full[k], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  for (int k = 0; k < kStages - 1; ++k) shard_start(s);
-}
-
-// mbar_wait with the exchange's time limit: a tile that never lands traps
-// instead of holding the card.
-__device__ __forceinline__ void shard_wait(uint64_t* bar, uint32_t parity) {
-  const unsigned long long t0 = tp::globaltimer();
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(shared_addr(bar)), "r"(parity)
-        : "memory");
-    if (!done && tp::globaltimer() - t0 > tp::kSpinTimeoutNs) __trap();
-  } while (!done);
-}
-
-// acc[i][r] += sum_j left[j][r] * VT[j][col0 + col[i]], j ascending, tile by
-// tile (tile_stream.cuh stream_matrix over the strided block). `left` is
-// H x BT floats in shared memory, written by the block before the call;
-// when the call returns every thread is done reading it.
-template <int NPT, int BT, typename MT>
-__device__ __forceinline__ void shard_product(ShardStream<MT>& s,
-                                              const float* left,
-                                              const int (&col)[NPT],
-                                              float (&acc)[NPT][BT]) {
-  for (int jt = 0; jt < s.n_tiles; ++jt, ++s.tile) {
-    shard_wait(&s.full[s.tile % kStages], (s.tile / kStages) & 1);
-    __syncthreads();
-    shard_start(s);  // into the stage of the tile before, free now
-    const MT* stage =
-        s.stages + (size_t)(s.tile % kStages) * (kTileBytes / sizeof(MT));
-    const int j0 = jt * s.TJ;
-    const int rows = min(s.TJ, s.H - j0);
-#pragma unroll kUnroll
-    for (int q = 0; q < rows; ++q) {
-      float d[BT];
-      load_rows<BT>(left + (size_t)(j0 + q) * BT, d);
-#pragma unroll
-      for (int i = 0; i < NPT; ++i) {
-        const float v = to_float(stage[q * s.Hl + col[i]]);
-#pragma unroll
-        for (int r = 0; r < BT; ++r) acc[i][r] = fmaf(d[r], v, acc[i][r]);
-      }
-    }
-  }
-  __syncthreads();
-}
-
-template <bool ADAPTIVE, int NPT, int BT, bool BF>
-__global__ void __launch_bounds__(kThreads)
-tp_cell_bwd_kernel(const BwdArgs p) {
+// RT: the rows of a cluster, all owned by each thread; PR: the rows of a
+// partial of the parameter gradients.
+template <bool ADAPTIVE, bool BF, int RT, int PR>
+__global__ void __launch_bounds__(slice::kMaxThreads, 1)
+tp_cell_bwd_kernel(const __grid_constant__ BwdArgs p) {
   using ST = typename Elem<BF>::type;  // g, dWx, V^T, wire
-  // dynamic shared memory: the group's D_full as [j][row] (H*BT floats),
-  // then, 16-byte aligned, the kStages tiles of V^T's block
+  constexpr int NS = RT / PR;          // partials a thread sums
+  // two parities of the [j][row] operand (RT*H floats each), then the
+  // resident slice or the stream's stages
   extern __shared__ __align__(16) float smem[];
   __shared__ uint64_t full[kStages];
-  const Layout& l = p.lay;
-  const int H = p.H, T = p.T, ld = p.ld, Hl = p.Hl;
-  const int local = tp::local_rank(l);
-  const int blk = tp::block_in_rank(l);
-  const int rank = l.rank0 + local;
-  const int col0 = local * Hl;
+  const slice::Plan& pl = p.plan;
+  const tp::Layout& l = p.lay;
+  const int H = p.H, T = p.T, Hl = p.Hl, ld = p.ld, Hs = pl.cols;
+  const int CL = pl.cluster;
+  const int k = (int)(blockIdx.x % CL);
+  const int cl = (int)(blockIdx.x / CL);
+  const int local = cl / l.per_rank;
+  const int first = cl % l.per_rank;
+  const size_t RH = (size_t)RT * H;
   const float thr = p.threshold;
-  float* left = smem;
-  const int my_groups = (l.n_groups - blk + l.per_rank - 1) / l.per_rank;
-  ShardStream<ST> vt = shard_stream(
-      static_cast<const ST*>(p.VT) + col0, ld,
-      reinterpret_cast<ST*>(smem + ((H * BT + 3) & ~3)), full, H, Hl,
-      my_groups * T);
 
-  float al[NPT], oma[NPT], be[NPT], aa[NPT], bb[NPT];
-  float dal[NPT], dbe[NPT], daa[NPT], dbb[NPT];
-  float A[NPT][BT], Bw[NPT][BT], Pq[NPT][BT], R[NPT][BT], up[NPT][BT];
-  int col[NPT];
-#pragma unroll
-  for (int i = 0; i < NPT; ++i) {
-    col[i] = threadIdx.x + i * blockDim.x;
-    const int c = col0 + col[i];
-    al[i] = p.alpha[c];
-    oma[i] = 1.0f - al[i];
-    be[i] = ADAPTIVE ? p.beta[c] : 0.f;
-    aa[i] = ADAPTIVE ? p.a[c] : 0.f;
-    bb[i] = ADAPTIVE ? p.b[c] : 0.f;
-    dal[i] = dbe[i] = daa[i] = dbb[i] = 0.f;
-  }
-  shard_open(vt);
+  const int tx = threadIdx.x % Hs;
+  const int col = k * Hs + tx;  // the rank's neuron
+  const bool live = (int)threadIdx.x < Hs && col < Hl;
+  const int rank = l.rank0 + local;
+  const int gc = local * Hl + (live ? col : 0);  // its column of a stream
+  RowsSite<RT> x;
+  x.peers = &p.peers;
+  x.lay = &l;
+  x.rank = rank;
+  x.gcol = rank * Hl + col;
+  x.B = p.B;
+  x.Hg = H;
+  x.Hl = Hl;
+  x.W = H;
+  x.R = RT;
+  x.C = CL;
+  x.live = live;
 
-  for (int grp = blk; grp < l.n_groups; grp += l.per_rank) {
-    const int row0 = grp * BT;
-    bool rowlive[BT];
+  const int gates[2] = {1, 0};
+  const int walks = (l.n_groups - first + l.per_rank - 1) / l.per_rank;
+  slice::Stream<ST> s = slice::open_stream(
+      static_cast<const ST*>(p.VT) + ((size_t)local * CL + k) * H * Hs,
+      reinterpret_cast<ST*>(smem + 2 * RH), full, pl, H, Hs, gates,
+      walks * T);
+  slice::begin(s);
+  const ST* g_in = static_cast<const ST*>(p.g);
+  ST* dwx_out = static_cast<ST*>(p.dwx);
+  const float al = p.alpha[gc];
+  const float oma = 1.0f - al;
+  const float be = ADAPTIVE ? p.beta[gc] : 0.f;
+  const float aa = ADAPTIVE ? p.a[gc] : 0.f;
+  const float bb = ADAPTIVE ? p.b[gc] : 0.f;
+
+  for (int w = 0; w < walks; ++w) {
+    x.group = first + w * l.per_rank;
+    x.row_base = x.group * RT;
+    x.row0 = x.row_base;
+    const int row0 = x.row0;
+    float dal[NS], dbe[NS], daa[NS], dbb[NS];
 #pragma unroll
-    for (int r = 0; r < BT; ++r) rowlive[r] = row0 + r < p.B;
+    for (int q = 0; q < NS; ++q) dal[q] = dbe[q] = daa[q] = dbb[q] = 0.f;
+    float A[RT], Bw[RT], Pq[RT], R[RT], up[RT];
 #pragma unroll
-    for (int i = 0; i < NPT; ++i) {
-#pragma unroll
-      for (int r = 0; r < BT; ++r) {
-        A[i][r] = Bw[i][r] = Pq[i][r] = R[i][r] = 0.f;
-        // u_t of the first step walked, carried as the next one's u_t
-        up[i][r] = rowlive[r]
-                       ? p.u_seq[((size_t)(row0 + r) * T + (T - 1)) * ld +
-                                 col0 + col[i]]
-                       : 0.f;
-      }
+    for (int r = 0; r < RT; ++r) {
+      x.rowlive[r] = row0 + r < p.B;
+      A[r] = Bw[r] = Pq[r] = R[r] = 0.f;
+      // u_t of the first step walked, carried as the next one's u_t
+      up[r] = live && x.rowlive[r]
+                  ? p.u_seq[((size_t)(row0 + r) * T + (T - 1)) * ld + gc]
+                  : 0.f;
     }
+    // every block of the cluster runs, and is done with the group before,
+    // before any stores into it
+    slice::cluster_barrier();
+    if (w == 0) slice::await_resident(s);
 
     for (int t = T - 1; t >= 0; --t) {
       const int e = T - 1 - t;  // exchange index
-      const int parity = e & 1;
+      float dd_r[RT];
 #pragma unroll
-      for (int i = 0; i < NPT; ++i) {
-        const int c = col0 + col[i];
-#pragma unroll
-        for (int r = 0; r < BT; ++r) {
-          const bool ok = rowlive[r];
-          const size_t row = (size_t)(row0 + r);
-          const size_t at = (row * T + t) * ld + c;
-          const float g_t =
-              ok ? to_float(static_cast<const ST*>(p.g)[at]) : 0.f;
-          const float u_t = up[i][r];
-          float u_p = 0.f, s_p = 0.f;
-          if (ok) {
-            if (t > 0) {
-              u_p = p.u_seq[at - ld];
-              s_p = u_p > thr ? 1.f : 0.f;
-            } else {
-              u_p = p.u0[row * ld + c];
-              s_p = p.s0f[row * H + rank * Hl + col[i]];
-            }
+      for (int r = 0; r < RT; ++r) {
+        const bool ok = live && x.rowlive[r];
+        const size_t row = (size_t)(row0 + r);
+        const size_t at = (row * T + t) * ld + gc;
+        const float g_t = ok ? to_float(g_in[at]) : 0.f;
+        const float u_t = up[r];
+        float u_p = 0.f, s_p = 0.f;
+        if (ok) {
+          if (t > 0) {
+            u_p = p.u_seq[at - ld];
+            s_p = u_p > thr ? 1.f : 0.f;
+          } else {
+            u_p = p.u0[row * ld + gc];
+            s_p = p.s0f[row * H + rank * Hl + col];
           }
-          up[i][r] = u_p;
-          const float alphaA = al[i] * A[i][r];
-          float C = g_t - alphaA;
-          C += R[i][r];
-          if (ADAPTIVE) C += bb[i] * Bw[i][r];
-          const float wsub = u_t - thr;
-          const bool window = ok && wsub > -0.5f && wsub <= 0.5f;
-          float A_new = (window ? C : 0.f) + alphaA;
-          if (ADAPTIVE) A_new += aa[i] * Bw[i][r];
-          const float dd = oma[i] * A_new;
-          if (ok) {
-            static_cast<ST*>(p.dwx)[at] = from_float<ST>(dd);
-            const size_t slot_at = ((size_t)parity * p.B + row) * H +
-                                   rank * Hl + col[i];
-            for (int q = 0; q < l.P; ++q) {
-              tp::wire_store(static_cast<ST*>(p.peers.slots[q]) + slot_at,
-                             dd);
-            }
-          }
-          dal[i] += A_new * (u_p - s_p - u_t);
-          if (ADAPTIVE) {
-            const float B_new = be[i] * Bw[i][r] - dd;
-            dbe[i] += (aa[i] * u_p + bb[i] * s_p) * Pq[i][r];
-            Pq[i][r] = B_new + be[i] * Pq[i][r];
-            daa[i] += B_new * u_p;
-            dbb[i] += B_new * s_p;
-            Bw[i][r] = B_new;
-          }
-          A[i][r] = A_new;
         }
-      }
-      tp::exchange(p.peers, l, rank, grp, e);
-      // the group's gathered D rows, [j][row]
-      const ST* in = static_cast<const ST*>(p.peers.slots[rank]) +
-                     ((size_t)parity * p.B + row0) * H;
-      for (int idx = threadIdx.x; idx < BT * H; idx += blockDim.x) {
-        const int r = idx / H;
-        const int j = idx - r * H;
-        left[j * BT + r] = row0 + r < p.B ? tp::wire_load(in + idx) : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < NPT; ++i) {
-#pragma unroll
-        for (int r = 0; r < BT; ++r) R[i][r] = 0.f;
-      }
-      // R[b][i] = sum_j D_full[b][j] * V[rank*Hl + i][j], j ascending
-      shard_product<NPT, BT>(vt, left, col, R);
-    }
-
-    // the group's initial-state gradients
-#pragma unroll
-    for (int i = 0; i < NPT; ++i) {
-#pragma unroll
-      for (int r = 0; r < BT; ++r) {
-        if (!rowlive[r]) continue;
-        const size_t at = (size_t)(row0 + r) * ld + col0 + col[i];
-        float du0 = al[i] * A[i][r];
-        float ds0 = -(al[i] * A[i][r]);
-        ds0 += R[i][r];
+        up[r] = u_p;
+        const float alphaA = al * A[r];
+        float C = g_t - alphaA;
+        C += R[r];
+        if (ADAPTIVE) C += bb * Bw[r];
+        const float wsub = u_t - thr;
+        const bool window = ok && wsub > -0.5f && wsub <= 0.5f;
+        float A_new = (window ? C : 0.f) + alphaA;
+        if (ADAPTIVE) A_new += aa * Bw[r];
+        const float dd = oma * A_new;
+        if (ok) dwx_out[at] = from_float<ST>(dd);
+        dd_r[r] = dd;
+        dal[r / PR] += A_new * (u_p - s_p - u_t);
         if (ADAPTIVE) {
-          du0 += aa[i] * Bw[i][r];
-          ds0 += bb[i] * Bw[i][r];
-          p.dw0[at] = be[i] * Bw[i][r];
-          dbe[i] += p.w0[at] * Pq[i][r];
+          const float B_new = be * Bw[r] - dd;
+          dbe[r / PR] += (aa * u_p + bb * s_p) * Pq[r];
+          Pq[r] = B_new + be * Pq[r];
+          daa[r / PR] += B_new * u_p;
+          dbb[r / PR] += B_new * s_p;
+          Bw[r] = B_new;
         }
-        p.du0[at] = du0;
-        p.ds0[at] = ds0;
+        A[r] = A_new;
       }
-    }
-  }
-
-  float* part = p.partials + ((size_t)local * l.per_rank + blk) * kVecs * Hl;
+      // D into every block's operand and every rank's slot (rounded as the
+      // wire rounds), gathered; then R[b][i] = sum_j D_full[b][j] *
+      // V[rank*Hl + i][j], j ascending
+      float* op = smem + (size_t)(e & 1) * RH;
+      tp_ann::put<BF, ST>(x, op, 0, e, dd_r);
+      tp_ann::exchange<ST>(x, op, 1, e);
+      float acc[1][RT] = {};
+      slice::pass<1, true>(s, 0, op, 0, RT, tx, Hs, acc);
 #pragma unroll
-  for (int i = 0; i < NPT; ++i) {
-    part[0 * Hl + col[i]] = dal[i];
-    part[1 * Hl + col[i]] = dbe[i];
-    part[2 * Hl + col[i]] = daa[i];
-    part[3 * Hl + col[i]] = dbb[i];
+      for (int r = 0; r < RT; ++r) R[r] = acc[0][r];
+    }
+
+    if (!live) continue;
+    // the group's initial-state gradients and the thread's partials
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      if (!x.rowlive[r]) continue;
+      const size_t at = (size_t)(row0 + r) * ld + gc;
+      float du0 = al * A[r];
+      float ds0 = -(al * A[r]);
+      ds0 += R[r];
+      if (ADAPTIVE) {
+        du0 += aa * Bw[r];
+        ds0 += bb * Bw[r];
+        p.dw0[at] = be * Bw[r];
+        dbe[r / PR] += p.w0[at] * Pq[r];
+      }
+      p.du0[at] = du0;
+      p.ds0[at] = ds0;
+    }
+#pragma unroll
+    for (int q = 0; q < NS; ++q) {
+      const int part_i = row0 / PR + q;
+      if (part_i >= p.n_parts) break;
+      float* part =
+          p.partials + ((size_t)local * p.n_parts + part_i) * kVecs * Hl;
+      part[0 * Hl + col] = dal[q];
+      part[1 * Hl + col] = dbe[q];
+      part[2 * Hl + col] = daa[q];
+      part[3 * Hl + col] = dbb[q];
+    }
   }
 }
 
-// out[q][col] = sum over the rank's blocks, ascending, of its partials; the
-// dalpha row (q = 0) is divided by 1 - alpha, hoisted out of the time loop.
+// out[q][col] = sum over the rank's partials, ascending; the dalpha row
+// (q = 0) is divided by 1 - alpha, hoisted out of the time loop.
 __global__ void tp_vec_reduce_kernel(const float* __restrict__ partials,
                                      const float* __restrict__ alpha,
-                                     float* __restrict__ out, int per_rank,
+                                     float* __restrict__ out, int n_parts,
                                      int Hl, int n_cols) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= kVecs * n_cols) return;
@@ -402,89 +302,83 @@ __global__ void tp_vec_reduce_kernel(const float* __restrict__ partials,
   const int local = col / Hl;
   const int c = col - local * Hl;
   float sum = 0.f;
-  for (int k = 0; k < per_rank; ++k) {
-    sum += partials[(((size_t)local * per_rank + k) * kVecs + q) * Hl + c];
+  for (int k = 0; k < n_parts; ++k) {
+    sum += partials[(((size_t)local * n_parts + k) * kVecs + q) * Hl + c];
   }
   if (q == 0) sum = sum / (1.0f - alpha[col]);
   out[idx] = sum;
 }
 
-template <bool A, int NPT, int BT, bool BF>
-void try_plan(const BwdArgs& p, tp::Plan& best, bool& all_fit) {
-  if constexpr (NPT * BT <= kMaxWork) {
-    const size_t smem = (((size_t)p.H * BT + 3) & ~(size_t)3) * sizeof(float) +
-                        (size_t)kStages * kTileBytes;
-    tp::try_plan(tp_cell_bwd_kernel<A, NPT, BT, BF>, BT, p.Hl / NPT, smem,
-                 (p.B + BT - 1) / BT, p.lay.n_local, best, all_fit);
-  }
-}
+using Kernel = void (*)(BwdArgs);
 
-template <bool A, int NPT, bool BF>
-int launch_npt(BwdArgs& p, int* plan, cudaStream_t st) {
-  tp::Plan best{0, 0, 0, 0};
-  bool all_fit = false;
-  try_plan<A, NPT, 1, BF>(p, best, all_fit);
-  try_plan<A, NPT, 2, BF>(p, best, all_fit);
-  try_plan<A, NPT, 4, BF>(p, best, all_fit);
-  try_plan<A, NPT, 8, BF>(p, best, all_fit);
-  if (best.bt == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
-  p.lay.per_rank = best.per_rank;
-  p.lay.n_groups = (p.B + best.bt - 1) / best.bt;
-  if (plan) {
-    plan[0] = best.bt;
-    plan[1] = best.per_rank;
-    plan[2] = best.per_sm;
-    plan[3] = p.Hl / NPT;
+template <bool A, bool BF, int RT>
+Kernel kernel_rows(int part_rows) {
+  if constexpr (RT >= 8) {
+    if (part_rows == 8) return tp_cell_bwd_kernel<A, BF, RT, 8>;
   }
-  const int blocks = p.lay.n_local * best.per_rank;
-  const int threads = p.Hl / NPT;
-  cudaError_t err = cudaErrorInvalidValue;
-  switch (best.bt) {
-    case 1:
-      err = tp::launch_cooperative(tp_cell_bwd_kernel<A, NPT, 1, BF>,
-                                   blocks, threads, best.smem, p, st);
-      break;
-    case 2:
-      err = tp::launch_cooperative(tp_cell_bwd_kernel<A, NPT, 2, BF>,
-                                   blocks, threads, best.smem, p, st);
-      break;
-    case 4:
-      err = tp::launch_cooperative(tp_cell_bwd_kernel<A, NPT, 4, BF>,
-                                   blocks, threads, best.smem, p, st);
-      break;
-    default:
-      if constexpr (NPT * 8 <= kMaxWork) {
-        err = tp::launch_cooperative(tp_cell_bwd_kernel<A, NPT, 8, BF>,
-                                     blocks, threads, best.smem, p, st);
-      }
-      break;
+  if constexpr (RT >= 4) {
+    if (part_rows == 4) return tp_cell_bwd_kernel<A, BF, RT, 4>;
   }
-  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+  if constexpr (RT >= 2) {
+    if (part_rows == 2) return tp_cell_bwd_kernel<A, BF, RT, 2>;
+  }
+  return tp_cell_bwd_kernel<A, BF, RT, 1>;
 }
 
 template <bool A, bool BF>
-int launch_adaptive(BwdArgs& p, int npt, int* plan, cudaStream_t st) {
-  switch (npt) {
-    case 1: return launch_npt<A, 1, BF>(p, plan, st);
-    case 2: return launch_npt<A, 2, BF>(p, plan, st);
-    default: return launch_npt<A, 4, BF>(p, plan, st);
+Kernel kernel_mode(int rows, int part_rows) {
+  switch (rows) {
+    case 8: return kernel_rows<A, BF, 8>(part_rows);
+    case 4: return kernel_rows<A, BF, 4>(part_rows);
+    case 2: return kernel_rows<A, BF, 2>(part_rows);
+    default: return kernel_rows<A, BF, 1>(part_rows);
   }
 }
 
-template <bool BF>
-int launch_form(BwdArgs& p, bool adaptive, int npt, int* plan,
-                cudaStream_t st) {
-  return adaptive ? launch_adaptive<true, BF>(p, npt, plan, st)
-                  : launch_adaptive<false, BF>(p, npt, plan, st);
+// The instantiation a launch takes.
+Kernel kernel_for(int adaptive, int bf16, int rows, int part_rows) {
+  if (adaptive) {
+    return bf16 ? kernel_mode<true, true>(rows, part_rows)
+                : kernel_mode<true, false>(rows, part_rows);
+  }
+  return bf16 ? kernel_mode<false, true>(rows, part_rows)
+              : kernel_mode<false, false>(rows, part_rows);
+}
+
+// One rank's time-loop plan at `cluster` blocks (ops/fused_tp.py
+// `_bwd_rank_plan` computes the same): cluster_slice.cuh's rule for one
+// matrix and one operand plane with the rank's Hl neurons split over the
+// cluster, the most rows of 8, 4, 2, 1 whose two operand parities take at
+// most kOperandBytes, and one thread a column (it owns every row).
+slice::Plan cell_plan(int B, int H, int P, int cluster, int bf16) {
+  int rows = 8;
+  while (rows > 1 && 2L * rows * H * (long)sizeof(float) > kOperandBytes) {
+    rows /= 2;
+  }
+  slice::Plan pl =
+      slice::make_plan(B, H, 1, bf16 ? 2 : 4, 1, H / P, cluster, rows);
+  pl.threads = (pl.cols + 31) / 32 * 32;
+  return pl;
+}
+
+bool shape_ok(int B, int H, int P, int cluster) {
+  return B > 0 && P >= 1 && P <= tp::kMaxRanks && H > 0 &&
+         H % (P * 128) == 0 && H / P <= kMaxHl && cluster >= 1 &&
+         cluster <= slice::kMaxCluster;
 }
 
 }  // namespace
 
 // slots/flags: host arrays of P device pointers, every rank's D slots
-// ([2][B][H] elements) and zeroed counters ([P][B][2] u32). partials holds
-// n_local*B*4*(H/P) floats, vecs (4, n_local*H/P) receives dalpha, dbeta,
-// da, db; dV (H, H) and dv_partials (ksplit, H, H) the dV product. bf16
-// selects the bf16-stream mode (g, VT, dwx and the slots bf16).
+// ([2][B][H] elements) and zeroed counters ([P][groups][2] u32). partials
+// holds n_local*n_parts*4*(H/P) floats (n_parts = B / part_rows, rounded
+// up), vecs (4, n_local*H/P) receives dalpha, dbeta, da, db; dV (H, H) and
+// dv_partials (ksplit, H, H) the dV product. VT: every block's slice of
+// every rank's block of V^T (ops/fused_tp_ann.py `_pack_slices`). bf16
+// selects the bf16-stream mode (g, VT, dwx and the slots bf16). cluster,
+// rows, resident: the plan the wrapper packed VT for; part_rows: the rows
+// of a partial (1, 2, 4 or 8, dividing rows). split_ms: null, or three
+// floats of host memory (see above).
 extern "C" int sparch_tp_cell_bwd(
     const void* g, const float* u_seq, const float* alpha, const float* beta,
     const float* a, const float* b, const void* VT, const float* u0,
@@ -492,13 +386,19 @@ extern "C" int sparch_tp_cell_bwd(
     float* vecs, float* dV, float* dv_partials, float* du0, float* dw0,
     float* ds0, void* const* slots, unsigned* const* flags, int B, int T,
     int H, int P, int rank0, int n_local, int ld, float threshold,
-    int adaptive, int ksplit, int bf16, int* plan, void* stream) {
-  if (B <= 0 || T <= 0 || P < 1 || P > tp::kMaxRanks || H <= 0 ||
-      H % (P * 128) != 0 || H / P > kThreads * kMaxNpt || rank0 != 0 ||
-      n_local != P || ld != H || ksplit < 1 || !g || !u_seq || !alpha ||
-      !VT || !u0 || !s0f || !dwx || !partials || !vecs || !dV ||
-      !dv_partials || !du0 || !ds0 ||
-      (adaptive && (!beta || !a || !b || !w0 || !dw0))) {
+    int adaptive, int ksplit, int bf16, int cluster, int rows, int resident,
+    int part_rows, float* split_ms, int* plan, void* stream) {
+  if (!shape_ok(B, H, P, cluster) || T <= 0 || rank0 != 0 || n_local != P ||
+      ld != H || ksplit < 1 || !g || !u_seq || !alpha || !VT || !u0 ||
+      !s0f || !dwx || !partials || !vecs || !dV || !dv_partials || !du0 ||
+      !ds0 || (adaptive && (!beta || !a || !b || !w0 || !dw0)) ||
+      (part_rows != 1 && part_rows != 2 && part_rows != 4 &&
+       part_rows != 8)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const slice::Plan pl = cell_plan(B, H, P, cluster, bf16);
+  if (rows != pl.rows || resident != pl.resident || pl.rows % part_rows ||
+      !tp_ann::runs(pl, 1, bf16)) {
     return (int)cudaErrorInvalidValue;
   }
   BwdArgs p{};
@@ -520,27 +420,31 @@ extern "C" int sparch_tp_cell_bwd(
   p.du0 = du0;
   p.dw0 = dw0;
   p.ds0 = ds0;
-  p.lay.P = P;
-  p.lay.rank0 = rank0;
-  p.lay.n_local = n_local;
   p.B = B;
   p.T = T;
   p.H = H;
   p.Hl = H / P;
   p.ld = ld;
   p.threshold = threshold;
-  int npt = 1;
-  while (p.Hl / npt > kThreads) npt *= 2;
+  p.n_parts = (B + part_rows - 1) / part_rows;
+  p.plan = pl;
+  const Kernel kernel = kernel_for(adaptive, bf16, pl.rows, part_rows);
+  int max = 0;
+  const int per_rank = tp_ann::clusters_per_rank(kernel, pl, n_local, &max);
+  if (max < 0) {
+    const cudaError_t err = cudaGetLastError();
+    return err != cudaSuccess ? (int)err : (int)cudaErrorInvalidConfiguration;
+  }
+  if (per_rank == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+  p.lay = tp::Layout{P, rank0, n_local, per_rank, pl.clusters};
+  tp_ann::report(plan, pl, per_rank, max);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = bf16 ? launch_form<true>(p, adaptive != 0, npt, plan, st)
-                 : launch_form<false>(p, adaptive != 0, npt, plan, st);
+  Split split(split_ms != nullptr);
+  split.mark(0, st);
+  int err = (int)tp_ann::launch(kernel, pl, n_local * per_rank, p, st);
+  if (err == 0) err = (int)cudaGetLastError();
   if (err != 0) return err;
-
-  const int n_cols = n_local * p.Hl;
-  tp_vec_reduce_kernel<<<(kVecs * n_cols + 255) / 256, 256, 0, st>>>(
-      partials, alpha, vecs, p.lay.per_rank, p.Hl, n_cols);
-  err = (int)cudaGetLastError();
-  if (err != 0) return err;
+  split.mark(1, st);
 
   // dV over the full u series and the ranks' dWx blocks (the gathered D)
   const int R = B * T;
@@ -559,7 +463,32 @@ extern "C" int sparch_tp_cell_bwd(
   }
   err = (int)cudaGetLastError();
   if (err != 0) return err;
+  split.mark(2, st);
+
+  const int n_cols = n_local * p.Hl;
+  tp_vec_reduce_kernel<<<(kVecs * n_cols + 255) / 256, 256, 0, st>>>(
+      partials, alpha, vecs, p.n_parts, p.Hl, n_cols);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
   sum_parts_kernel<<<(H * H + 255) / 256, 256, 0, st>>>(dv_partials, dV,
                                                         ksplit, H * H);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  split.mark(3, st);
+  split.report(split_ms, 3);
   return (int)cudaGetLastError();
+}
+
+// How many clusters of the time loop's plan at `cluster` blocks the card
+// holds at once (cudaOccupancyMaxActiveClusters) for the instantiation of
+// (adaptive, bf16, part_rows); -1 where the plan does not run or the query
+// fails.
+extern "C" int sparch_tp_cell_bwd_max_clusters(int B, int H, int P,
+                                               int adaptive, int bf16,
+                                               int cluster, int part_rows) {
+  if (!shape_ok(B, H, P, cluster)) return -1;
+  const slice::Plan pl = cell_plan(B, H, P, cluster, bf16);
+  if (!tp_ann::runs(pl, 1, bf16) || pl.rows % part_rows) return -1;
+  return slice::max_active_clusters(
+      kernel_for(adaptive, bf16, pl.rows, part_rows), pl);
 }

@@ -259,39 +259,6 @@ cudaError_t plan_blocks(K kernel, int threads, size_t smem, int n_local,
   return cudaSuccess;
 }
 
-// Dynamic shared memory a block may ask for, with room for the static
-// mbarriers.
-constexpr size_t kMaxSmem = 227 * 1024 - 256;
-
-// The launch plan of a cooperative TP kernel: rows per block, blocks per
-// rank and per SM, dynamic shared memory.
-struct Plan {
-  int bt;
-  int per_rank;
-  int per_sm;
-  size_t smem;
-};
-
-// Consider `kernel` at bt rows per block (`groups` row groups, `smem` bytes
-// of dynamic shared memory): the plan with the most rows at work at once
-// wins, and the first bt at which the card holds every group of every rank
-// is taken (all_fit); callers try bt = 1, 2, 4, 8 in turn.
-template <typename K>
-void try_plan(K kernel, int bt, int threads, size_t smem, int groups,
-              int n_local, Plan& best, bool& all_fit) {
-  if (all_fit || smem > kMaxSmem) return;
-  int per_rank = 0, per_sm = 0;
-  if (plan_blocks(kernel, threads, smem, n_local, groups, &per_rank,
-                  &per_sm) != cudaSuccess) {
-    cudaGetLastError();  // a refused plan is no launch error
-    return;
-  }
-  if (best.bt == 0 || per_rank * bt > best.per_rank * best.bt) {
-    best = Plan{bt, per_rank, per_sm, smem};
-  }
-  all_fit = per_rank == groups;
-}
-
 template <typename K, typename A>
 cudaError_t launch_cooperative(K kernel, int blocks, int threads, size_t smem,
                                const A& args, cudaStream_t stream) {

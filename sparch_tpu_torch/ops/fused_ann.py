@@ -354,27 +354,31 @@ class ClusterPlan(NamedTuple):
 
 def _cluster_plan(B: int, H: int, n: int, mxu_bf16: bool, planes: int,
                   width: Optional[int] = None,
-                  cluster: Optional[int] = None) -> ClusterPlan:
+                  cluster: Optional[int] = None,
+                  rows: Optional[int] = None,
+                  operands: Optional[int] = None) -> ClusterPlan:
     """The plan of a time loop over ``n`` recurrent matrices of H rows
     whose left operand is ``planes`` (H,) planes a row, with ``width``
     columns (None: H; a tensor-parallel rank's block is narrower) split
     over ``cluster`` blocks (None: the most, up to 6, that leave each slice
-    32 columns or more); 8 rows a cluster (4 where the operands would pass
-    128 KB or the threads 384); the slice resident where it fits in shared
-    memory beside the operands' two parities, else streamed in three stages
-    of what is left (at most 64 KB each)."""
+    32 columns or more); ``rows`` a cluster (None: 8, or 4 where the
+    operands would pass 128 KB or the threads 384); the slice resident
+    where it fits in shared memory beside the ``operands`` planes of
+    gathered rows (None: the two parities of ``planes``), else streamed in
+    three stages of what is left (at most 64 KB each)."""
     width = H if width is None else width
     if cluster is None:
         cluster = max(1, min(_MAX_CLUSTER, width // _MIN_COLS))
     per_block = -(-width // cluster)
     cols = -(-per_block // _COL_ALIGN) * _COL_ALIGN
-    rows = 8 if planes * H <= 2048 and \
-        cols * 8 // _ROWS_PER_THREAD <= _MAX_THREADS else 4
-    operands = 2 * planes * rows * H * 4
+    if rows is None:
+        rows = 8 if planes * H <= 2048 and \
+            cols * 8 // _ROWS_PER_THREAD <= _MAX_THREADS else 4
+    operand_bytes = (operands or 2 * planes) * rows * H * 4
     slices = n * H * cols * (2 if mxu_bf16 else 4)
-    resident = operands + slices <= _SMEM_BUDGET
+    resident = operand_bytes + slices <= _SMEM_BUDGET
     stage = min(_MAX_STAGE_BYTES,
-                (_SMEM_BUDGET - operands) // _STAGES // 16 * 16)
+                (_SMEM_BUDGET - operand_bytes) // _STAGES // 16 * 16)
     threads = -(-cols * (rows // _ROWS_PER_THREAD) // 32) * 32
     return ClusterPlan(cluster, rows, cols, resident,
                        0 if resident else stage, -(-B // rows), threads)

@@ -64,6 +64,7 @@ __all__ = [
     "READOUT_BWD",
     "launch_counts",
     "reset_launch_counts",
+    "last_plans",
     "clip_and_mask",
     "keep_u32",
     "dropout_tile_rows",
@@ -87,7 +88,7 @@ _FWD_ARGS = [_P] * 12 + [_I] * 3 + [_F] + [_I] * 5 + [_P]
 _FWD_TRAIN_ARGS = ([_P] * 14 + [_I] * 3 + [_F] + [_I] * 3 + [_U, _F, _I]
                    + [_I] * 2 + [_P])
 _BWD_ARGS = ([_P] * 22 + [_I] * 3 + [_F] + [_I] * 3 + [_U, _F, _I]
-             + [_I] * 4 + [_P])
+             + [_I] * 7 + [_P, _P])
 # one C entry point per form serves both stream modes; the modes are
 # counted apart
 FUSED_CELL_FWD = Kernel(
@@ -119,12 +120,12 @@ _KERNELS = (FUSED_CELL_FWD, FUSED_CELL_FWD_TRAIN, FUSED_CELL_BWD,
 # kMaxNpt and 32 * kMaxVpl)
 _MAX_H = 4096
 _MAX_C = 256
-# csrc/fused_cell_bwd.cu: threads per block, (rows * neurons) per thread,
-# and the tile of the dV product
-_BWD_THREADS = 512
-_BWD_WORK = 2
-_DV_TILE = 64
-_DV_BK = 16
+# csrc/fused_cell_bwd.cu: partials of the parameter gradients of two rows
+# up to this width (else one), and the most columns of a slice of six
+# blocks before the cluster takes eight
+_PAIR_H = 512
+_MAX_SIX_COLS = 512
+_PLANS: Dict[str, dict] = {}
 
 
 def _all_kernels():
@@ -146,6 +147,13 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for k in _all_kernels():
         k.launches = 0
+
+
+def last_plans() -> Dict[str, dict]:
+    """The plan of the last launch of ``fused_cell_bwd`` (either stream
+    mode): the time loop's cluster plan (recurrent forms), the partials of
+    the parameter gradients and the split of the dV product."""
+    return dict(_PLANS)
 
 
 def _check(name: str, t: torch.Tensor, shape, device,
@@ -520,25 +528,48 @@ def _fused_cell_cuda(Wx, scale, shift, alpha, beta, a, b, V, threshold,
     return (out, u_seq) if save_residuals else out
 
 
-def _bwd_plan(B: int, T: int, H: int):
-    """(rows per block, blocks, split of the dV product over B*T), the
-    launch plan that ``csrc/fused_cell_bwd.cu`` checks its arguments
+def _part_rows(H: int) -> int:
+    """Rows summed into one partial of the parameter gradients: two at
+    H <= 512, else one, the rows of a block of the kernel before the
+    cluster split, so that the reduced gradients keep their bits."""
+    return 2 if H <= _PAIR_H else 1
+
+
+def _cluster_plan(B: int, H: int, mxu_bf16: bool = False):
+    """The time loop's plan of the recurrent forms (``cluster_plan`` of
+    ``csrc/fused_cell_bwd.cu``): ``csrc/cluster_slice.cuh``'s rule for one
+    matrix (V^T) and one operand plane (dDrive), in clusters of up to six
+    blocks, or of eight where a slice of six would pass 512 columns."""
+    from sparch_tpu_torch.ops import fused_ann
+
+    cols_at_six = -(-H // 6)
+    cols_at_six = -(-cols_at_six // fused_ann._COL_ALIGN) * fused_ann._COL_ALIGN
+    return fused_ann._cluster_plan(
+        B, H, 1, mxu_bf16, 1,
+        cluster=8 if cols_at_six > _MAX_SIX_COLS else None)
+
+
+def _bwd_plan(B: int, T: int, H: int, recurrent: bool,
+              mxu_bf16: bool = False):
+    """(the time loop's cluster plan, None for the non-recurrent forms;
+    partials of the parameter gradients; split of the dV product over
+    B*T), the plan that ``csrc/fused_cell_bwd.cu`` checks its arguments
     against."""
-    npt = 1
-    while -(-H // npt) > _BWD_THREADS:
-        npt *= 2
-    rows = max(1, _BWD_WORK // npt)
-    tiles = (-(-H // _DV_TILE)) ** 2
-    ksplit = max(1, min(264 // tiles, -(-(B * T) // (8 * _DV_BK))))
-    return rows, -(-B // rows), ksplit
+    from sparch_tpu_torch.ops import fused_ann
+
+    plan = _cluster_plan(B, H, mxu_bf16) if recurrent else None
+    return plan, -(-B // _part_rows(H)), fused_ann._dv_split(B, T, H, 1)
 
 
 def _fused_cell_bwd_cuda(g, Wx, u_seq, scale, alpha, beta, a, b, V,
                          threshold, u0, w0, s0, *, recurrent: bool,
                          adaptive: bool, drop_rate: float = 0.0, seed=None,
-                         mxu_bf16: bool = False):
+                         mxu_bf16: bool = False, split_ms=None):
     """Launch ``csrc/fused_cell_bwd.cu`` in the float32 or the bf16 stream
-    mode. Same contract as ``fused_cell_bwd_plain``."""
+    mode. Same contract as ``fused_cell_bwd_plain``. ``split_ms`` (a list,
+    for timing only) receives the milliseconds of the time loop, the dV
+    product and the second passes, CUDA events around each launch; the call
+    then waits for the card."""
     B, T, H = g.shape
     dev = g.device
     affine = scale is not None
@@ -551,27 +582,29 @@ def _fused_cell_bwd_cuda(g, Wx, u_seq, scale, alpha, beta, a, b, V,
     dropout = drop_rate > 0.0
     if dropout:
         _check("seed", seed, (2,), dev, torch.int32)
-    rows, n_blocks, ksplit = _bwd_plan(B, T, H)
+    plan, n_parts, ksplit = _bwd_plan(B, T, H, recurrent, mxu_bf16)
     new = lambda *shape: torch.empty(  # noqa: E731
         shape, dtype=torch.float32, device=dev)
     dWx = torch.empty_like(g)
     # dDrive before the scale, the right operand of the dV product (in the
     # bf16 mode stored as the bf16 the product consumes)
     dd = torch.empty_like(g) if (affine and recurrent) else None
-    partials = new(n_blocks, 6, H)
+    partials = new(n_parts, 6, H)
     vecs = new(6, H)
-    # V^T with its rows padded to 16 bytes (four floats, eight bf16), so
-    # that every tile of rows the kernel streams is one aligned contiguous
-    # piece
-    VT = torch.nn.functional.pad(
-        V.t().to(sdt), (0, -H % (8 if mxu_bf16 else 4))).contiguous() \
-        if recurrent else None
+    # every cluster block's slice of V^T (the rows of V for its neurons),
+    # rounded to bf16 in that mode
+    VT = None
+    if recurrent:
+        from sparch_tpu_torch.ops import fused_ann
+
+        VT = fused_ann._pack_slices([V.t()], ((0,),), plan, mxu_bf16)
     dV = new(H, H) if recurrent else None
     dv_partials = new(ksplit, H, H) if recurrent else None
     du0, ds0 = new(B, H), new(B, H)
     dw0 = new(B, H) if adaptive else None
     if not adaptive:
         beta = a = b = w0 = None
+    split = (ctypes.c_float * 3)() if split_ms is not None else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         launch = FUSED_CELL_BWD_BF16 if mxu_bf16 else FUSED_CELL_BWD
@@ -584,9 +617,14 @@ def _fused_cell_bwd_cuda(g, Wx, u_seq, scale, alpha, beta, a, b, V,
             B, T, H, float(threshold), int(recurrent), int(adaptive),
             int(affine), keep_u32(drop_rate) if dropout else 0,
             _inv_keep(drop_rate) if dropout else 1.0, dropout_tile_rows(B),
-            n_blocks, ksplit, int(mxu_bf16),
-            int(affine and Wx.dtype == _BF16), stream,
+            n_parts, ksplit, plan.cluster if plan else 0,
+            plan.rows if plan else 0, int(plan.resident) if plan else 0,
+            int(mxu_bf16), int(affine and Wx.dtype == _BF16), split, stream,
         )
+    _PLANS["fused_cell_bwd"] = dict(
+        (plan._asdict() if plan else {}), n_parts=n_parts, ksplit=ksplit)
+    if split is not None:
+        split_ms[:] = list(split)
     dalpha, dbeta, da, db, dscale, dshift = vecs.unbind(0)
     if not adaptive:
         dbeta = da = db = None

@@ -26,6 +26,12 @@ tensors, as the layer holds them: ``Wx (B, T, H)``, ``V (H, H)``, the states
 ``(B, H)``; rank r's block is columns ``r*Hl .. (r+1)*Hl`` of each, and the
 gathered initial spikes are the full ``s0``.
 
+The backward's time loop runs thread-block clusters per rank, as the TP
+non-spiking kernels do (``csrc/tp_ann.cuh``): ``_bwd_plan`` chooses the
+cluster size from what the card holds, and ``_bwd_part_rows`` the rows of
+a partial of dalpha, dbeta, da and db (those of a block of the kernel
+before the cluster split, so that these sums keep its bits).
+
 Dispatch is ``ops.fused_cells``': a CPU tensor runs the plain versions
 (``tp_all_gather_plain``, ``tp_reduce_scatter_plain``, ``tp_cell_plain``,
 ``tp_cell_bwd_plain``), loops over T and over the P blocks in the kernels'
@@ -47,7 +53,8 @@ apart (``tp_cell_fwd_bf16``, ``tp_cell_bwd_bf16``).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Tuple
+import functools
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -67,6 +74,7 @@ __all__ = [
     "LANE",
     "SUBLANE",
     "last_plans",
+    "last_bwd_plan",
     "tp_all_gather",
     "tp_reduce_scatter",
     "tp_all_gather_plain",
@@ -96,7 +104,7 @@ TP_REDUCE_SCATTER = Kernel("tp_collectives", "sparch_tp_reduce_scatter",
 # one C entry point per direction serves both stream modes; the modes are
 # counted apart
 _FWD_ARGS = [_P] * 13 + [_I] * 7 + [_F] + [_I] * 3 + [_P, _P]
-_BWD_ARGS = [_P] * 20 + [_I] * 7 + [_F] + [_I] * 3 + [_P, _P]
+_BWD_ARGS = [_P] * 20 + [_I] * 7 + [_F] + [_I] * 7 + [_P] * 3
 TP_CELL_FWD = Kernel("tp_cell_fwd", "sparch_tp_cell_fwd", _FWD_ARGS)
 TP_CELL_BWD = Kernel("tp_cell_bwd", "sparch_tp_cell_bwd", _BWD_ARGS)
 TP_CELL_FWD_BF16 = Kernel("tp_cell_fwd", "sparch_tp_cell_fwd", _FWD_ARGS,
@@ -106,15 +114,38 @@ TP_CELL_BWD_BF16 = Kernel("tp_cell_bwd", "sparch_tp_cell_bwd", _BWD_ARGS,
 KERNELS = (TP_ALL_GATHER, TP_REDUCE_SCATTER, TP_CELL_FWD, TP_CELL_BWD,
            TP_CELL_FWD_BF16, TP_CELL_BWD_BF16)
 
+# csrc/tp_cell_bwd.cu: the bytes of a cluster's two parities of gathered
+# rows at most (they fix its rows: 8, 4, 2 or 1)
+_OPERAND_BYTES = 131072
+# the backward before the cluster split, whose row grouping the partials of
+# dalpha, dbeta, da and db keep: its threads a block at most, its neurons a
+# thread times rows a block at most, the bytes of its stream's stages, and
+# the shared memory a block could ask for (one block an SM)
+_SPLIT_THREADS = 512
+_SPLIT_WORK = 16
+_SPLIT_STAGE_BYTES = 3 * 65536
+_SPLIT_SMEM = 227 * 1024 - 256
+
 _PLANS: Dict[str, Tuple[int, ...]] = {}
 
 
 def last_plans() -> Dict[str, Tuple[int, ...]]:
     """The launch plan of each kernel's last launch: the collectives'
-    (blocks per rank, blocks per SM), the spiking cells' (rows per block,
-    blocks per rank, blocks per SM, threads per block), the non-spiking
-    cells' as ``fused_tp_ann.last_plan`` names them."""
+    (blocks per rank, blocks per SM), the spiking forward's (rows per
+    block, blocks per rank, blocks per SM, threads per block), the spiking
+    backward's (``last_bwd_plan``) and the non-spiking cells' as
+    ``fused_tp_ann.last_plan`` names them."""
     return dict(_PLANS)
+
+
+def last_bwd_plan() -> dict:
+    """The plan of the last launch of ``tp_cell_bwd`` (either stream mode):
+    ``fused_tp_ann.last_plan``'s keys and the rows of a partial."""
+    from sparch_tpu_torch.ops import fused_tp_ann
+
+    *plan, part_rows = _PLANS["tp_cell_bwd"]
+    return dict(zip(fused_tp_ann._PLAN_KEYS, plan), part_rows=part_rows,
+                launch_mode=fused_tp_ann.LAUNCH_MODE)
 
 
 def _shards(H: int, P: int) -> List[slice]:
@@ -446,41 +477,137 @@ def _tp_cell_cuda(Wx, alpha, beta, a, b, V, threshold, u0, w0, s0, *,
     return (out, u_seq) if save_residuals else out
 
 
+def _bwd_rows(H: int) -> int:
+    """Rows of a cluster of the backward's time loop: the most of 8, 4, 2,
+    1 whose two parities of gathered rows (H floats each) take at most
+    128 KB."""
+    rows = 8
+    while rows > 1 and 2 * rows * H * 4 > _OPERAND_BYTES:
+        rows //= 2
+    return rows
+
+
+def _bwd_rank_plan(B: int, H: int, P: int, mxu_bf16: bool,
+                   cluster: Optional[int] = None):
+    """One rank's plan of the backward's time loop at ``cluster`` blocks
+    (None: the most, up to 6, that leave each slice 32 columns;
+    ``cell_plan`` of ``csrc/tp_cell_bwd.cu``): ``csrc/cluster_slice.cuh``'s
+    rule for one matrix (the rank's block of V^T) and one operand plane (the
+    gathered D) with ``_bwd_rows(H)`` rows a cluster and one thread a column
+    (it owns every row of the cluster)."""
+    from sparch_tpu_torch.ops import fused_ann
+
+    q = fused_ann._cluster_plan(B, H, 1, mxu_bf16, 1, width=H // P,
+                                cluster=cluster, rows=_bwd_rows(H))
+    return q._replace(threads=-(-q.cols // 32) * 32)
+
+
+def _bwd_part_rows(B: int, H: int, P: int, sms: int) -> int:
+    """Rows of a partial of dalpha, dbeta, da and db: those of a block of
+    the backward before the cluster split (one block for BT rows of a rank,
+    one block an SM on a card of ``sms`` SMs), so that these gradients keep
+    its bits wherever its blocks held every row group of every rank at
+    once. Its plan took the fewest of 1, 2, 4, 8 rows a block (its neurons a
+    thread times rows at most 16, its shared memory allowing) at which the
+    card held every group of every rank, else the most rows at work."""
+    hl = H // P
+    npt = 1
+    while hl // npt > _SPLIT_THREADS:
+        npt *= 2
+    best = best_rows = 0
+    for bt in (1, 2, 4, 8):
+        smem = -(-H * bt // 4) * 16 + _SPLIT_STAGE_BYTES
+        if npt * bt > _SPLIT_WORK or smem > _SPLIT_SMEM:
+            continue
+        groups = -(-B // bt)
+        per_rank = min(sms // P, groups)
+        if per_rank < 1:
+            continue
+        if per_rank * bt > best_rows:
+            best, best_rows = bt, per_rank * bt
+        if per_rank == groups:
+            break
+    return best or 1
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_max_active(B: int, H: int, P: int, adaptive: bool, mxu_bf16: bool,
+                    cluster: int, part_rows: int) -> int:
+    """How many clusters of ``cluster`` blocks of the backward's plan the
+    current card holds at once (``cudaOccupancyMaxActiveClusters``); -1
+    where that plan does not run or the query fails."""
+    from sparch_tpu_torch import _build
+
+    path = _build.library_path("tp_cell_bwd")
+    if not path.exists():
+        _build.build(["tp_cell_bwd"])
+    fn = getattr(ctypes.CDLL(str(path)), "sparch_tp_cell_bwd_max_clusters")
+    fn.argtypes = [_I] * 7
+    fn.restype = _I
+    return fn(B, H, P, int(adaptive), int(mxu_bf16), cluster, part_rows)
+
+
+def _bwd_plan(B: int, H: int, P: int, mxu_bf16: bool,
+              max_active: Callable[[int], int]):
+    """The backward's launch plan (``fused_tp_ann.TPPlan``): the cluster
+    size by ``fused_tp_ann.choose_plan``'s rule over what the card holds."""
+    from sparch_tpu_torch.ops import fused_tp_ann
+
+    return fused_tp_ann.choose_plan(
+        lambda c: _bwd_rank_plan(B, H, P, mxu_bf16, c),
+        lambda q: fused_tp_ann._runs(q, 1, mxu_bf16), P, max_active,
+        f"the TP cell backward takes no H={H} over {P} ranks")
+
+
 def _tp_cell_bwd_cuda(g, u_seq, alpha, beta, a, b, V, threshold, u0, w0, s0,
                       *, num_devices: int, adaptive: bool,
-                      mxu_bf16: bool = False):
+                      mxu_bf16: bool = False, split_ms=None):
     """Launch ``csrc/tp_cell_bwd.cu`` over all P ranks (the one-card form)
     in the float32 or the bf16 stream mode. Same contract as
-    ``tp_cell_bwd_plain``."""
+    ``tp_cell_bwd_plain``. ``split_ms``: as ``fused_cells``'
+    ``_fused_cell_bwd_cuda`` takes it."""
+    from sparch_tpu_torch.ops import fused_ann, fused_tp_ann
+
     B, T, H = g.shape
     P, dev = num_devices, g.device
     sdt = _BF16 if mxu_bf16 else torch.float32
     fused_cells._check("g", g, (B, T, H), dev, sdt)
     fused_cells._check("u_seq", u_seq, (B, T, H), dev)
     _check_cell(g, alpha, beta, a, b, V, u0, w0, s0, adaptive, P)
-    # one V^T for all ranks: rank r's V[shard_r, :]^T is its column block
-    VT = V.t().to(sdt).contiguous()
-    ksplit = fused_cells._bwd_plan(B, T, H)[2]
+    part_rows = _bwd_part_rows(
+        B, H, P, torch.cuda.get_device_properties(dev).multi_processor_count)
+    with torch.cuda.device(dev):
+        plan = _bwd_plan(B, H, P, mxu_bf16, lambda c: _bwd_max_active(
+            B, H, P, adaptive, mxu_bf16, c, part_rows)).rank
+    # every block's slice of rank r's block of V^T (V[shard_r, :]^T)
+    VT = fused_tp_ann._pack_slices([V], ((0,),), plan, P, mxu_bf16,
+                                   transpose=True)
+    ksplit = fused_ann._dv_split(B, T, H, 1)
 
     def new(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
     dWx = torch.empty_like(g)
-    # per-block partials: a rank has at most one block per batch row
-    partials, vecs = new(P, B, 4, H // P), new(4, H)
+    partials, vecs = new(P, -(-B // part_rows), 4, H // P), new(4, H)
     dV, dv_partials = new(H, H), new(ksplit, H, H)
     du0, ds0 = new(B, H), new(B, H)
     dw0 = new(B, H) if adaptive else None
     if not adaptive:
         beta = a = b = w0 = None
     ptr = fused_cells._ptr
-    bufs = _exchange_buffers((2, B, H), sdt, P, B, dev)
+    bufs = _exchange_buffers((2, B, H), sdt, P, plan.clusters, dev)
+    split = (ctypes.c_float * 3)() if split_ms is not None else None
     _launch(TP_CELL_BWD_BF16 if mxu_bf16 else TP_CELL_BWD, dev, ptr(g),
             ptr(u_seq), ptr(alpha), ptr(beta), ptr(a), ptr(b), ptr(VT),
             ptr(u0), ptr(w0), ptr(s0), ptr(dWx), ptr(partials), ptr(vecs),
             ptr(dV), ptr(dv_partials), ptr(du0), ptr(dw0), ptr(ds0), bufs[2],
             bufs[3], B, T, H, P, 0, P, H, float(threshold), int(adaptive),
-            ksplit, int(mxu_bf16), n_plan=4)
+            ksplit, int(mxu_bf16), plan.cluster, plan.rows,
+            int(plan.resident), part_rows, split,
+            n_plan=len(fused_tp_ann._PLAN_KEYS))
+    _PLANS["tp_cell_bwd"] += (part_rows,)
+    if split is not None:
+        split_ms[:] = list(split)
     dalpha, dbeta, da, db = vecs.unbind(0)
     if not adaptive:
         dbeta = da = db = None

@@ -105,12 +105,13 @@ __all__ = [
 ]
 
 # per-mode structure (pallas_tp_ann._MODES): input streams (one recurrent
-# matrix each), the gate series the backward reads, and the planes of the
-# backward's widest exchange
+# matrix each), the gate series the backward reads, the planes of the
+# backward's widest exchange, and the operand planes its block holds (None:
+# two parities of them; the GRU's second exchange, drpre, has one plane)
 _MODES = {
-    "rnn": dict(n_wx=1, gates=(), bwd_stack=1),
-    "ligru": dict(n_wx=2, gates=("z", "c"), bwd_stack=2),
-    "gru": dict(n_wx=3, gates=("z", "r", "c"), bwd_stack=2),
+    "rnn": dict(n_wx=1, gates=(), bwd_stack=1, bwd_operands=None),
+    "ligru": dict(n_wx=2, gates=("z", "c"), bwd_stack=2, bwd_operands=None),
+    "gru": dict(n_wx=3, gates=("z", "r", "c"), bwd_stack=2, bwd_operands=3),
 }
 
 _P = ctypes.c_void_p
@@ -148,12 +149,14 @@ class TPPlan(NamedTuple):
 
 
 def _rank_plan(B: int, H: int, P: int, n: int, mxu_bf16: bool, planes: int,
-               cluster: Optional[int] = None) -> fused_ann.ClusterPlan:
+               cluster: Optional[int] = None,
+               operands: Optional[int] = None) -> fused_ann.ClusterPlan:
     """One rank's time-loop plan at ``cluster`` blocks (None: the most, up
     to 6, that leave each slice 32 columns): the single-card plan with the
-    rank's H/P neurons split over the cluster and the operand H wide."""
+    rank's H/P neurons split over the cluster and the operand H wide;
+    ``operands``: the operand planes a block holds (None: two parities)."""
     return fused_ann._cluster_plan(B, H, n, mxu_bf16, planes, width=H // P,
-                                   cluster=cluster)
+                                   cluster=cluster, operands=operands)
 
 
 def _runs(plan: fused_ann.ClusterPlan, n: int, mxu_bf16: bool) -> bool:
@@ -165,29 +168,42 @@ def _runs(plan: fused_ann.ClusterPlan, n: int, mxu_bf16: bool) -> bool:
 
 
 def _tp_plan(B: int, H: int, P: int, n: int, mxu_bf16: bool, planes: int,
-             max_active: Callable[[int], int]) -> TPPlan:
+             max_active: Callable[[int], int],
+             operands: Optional[int] = None) -> TPPlan:
     """The plan of a time loop over ``n`` matrices with ``planes`` operand
-    planes, the P ranks in one launch; ``max_active(cluster)``: how many
-    clusters of that many blocks the card holds at once. Every cluster size
-    that runs is tried, from the most blocks down; a rank gets every row
-    group at once where the card holds P times as many clusters, else as
-    many as it holds, walking the groups. A thread's work a step is the
-    same in every plan (Hg * gates * 4 rows), and an SM issues for the
-    warps of its one block, so the plan of the fewest warps a block times
-    walks wins (the first of them: the most blocks a cluster, the fewest L2
-    reads). Raises where no cluster size runs or the card holds fewer
-    clusters of every size than ranks."""
-    first = _rank_plan(B, H, P, n, mxu_bf16, planes)
-    if not _runs(first, n, mxu_bf16):
-        raise ValueError(
-            f"the TP ANN kernels take no H={H} over {P} ranks with {planes} "
-            f"operand plane(s): the gathered rows of a cluster's two operand "
-            f"parities leave no room for its slice in a block's shared "
-            f"memory")
+    planes (``operands`` in all, None: two parities of them), the P ranks in
+    one launch; ``max_active(cluster)``: how many clusters of that many
+    blocks the card holds at once (``choose_plan``). Raises where no
+    cluster size runs or the card holds fewer clusters of every size than
+    ranks."""
+    return choose_plan(
+        lambda c: _rank_plan(B, H, P, n, mxu_bf16, planes, c, operands),
+        lambda q: _runs(q, n, mxu_bf16), P, max_active,
+        f"the TP ANN kernels take no H={H} over {P} ranks with {planes} "
+        f"operand plane(s): the gathered rows of a cluster's operands leave "
+        f"no room for its slice in a block's shared memory")
+
+
+def choose_plan(plan_of: Callable[[Optional[int]], fused_ann.ClusterPlan],
+                runs: Callable[[fused_ann.ClusterPlan], bool], P: int,
+                max_active: Callable[[int], int], refusal: str) -> TPPlan:
+    """The TP launch plan among one rank's plans ``plan_of(cluster)``
+    (None: the most blocks) that ``runs``. Every cluster size that runs is
+    tried, from the most blocks down; a rank gets every row group at once
+    where the card holds P times as many clusters, else as many as it holds,
+    walking the groups. A thread's work a step is the same in every plan,
+    and an SM issues for the warps of its one block, so the plan of the
+    fewest warps a block times walks wins (the first of them: the most
+    blocks a cluster, the fewest L2 reads). Raises ``refusal`` where the
+    first plan does not run, and where the card holds fewer clusters of
+    every size than ranks."""
+    first = plan_of(None)
+    if not runs(first):
+        raise ValueError(refusal)
     best, held = None, {}
     for c in range(first.cluster, 0, -1):
-        q = _rank_plan(B, H, P, n, mxu_bf16, planes, c)
-        if not _runs(q, n, mxu_bf16):
+        q = plan_of(c)
+        if not runs(q):
             continue
         held[c] = max_active(c)
         per_rank = min(q.clusters, held[c] // P)
@@ -198,8 +214,8 @@ def _tp_plan(B: int, H: int, P: int, n: int, mxu_bf16: bool, planes: int,
             best = plan
     if best is None:
         raise ValueError(f"the card holds fewer than {P} clusters of any "
-                         f"size ({held}): the TP ANN kernels run every rank "
-                         f"at once")
+                         f"size ({held}): the TP kernels run every rank at "
+                         f"once")
     return best
 
 
@@ -234,10 +250,12 @@ def launch_plan(mode: str, B: int, H: int, P: int, mxu_bf16: bool,
     """The plan the wrappers launch on ``dev``: ``_tp_plan`` with what the
     card holds."""
     planes = _MODES[mode]["bwd_stack"] if backward else 1
+    operands = _MODES[mode]["bwd_operands"] if backward else None
     with torch.cuda.device(dev):
         return _tp_plan(B, H, P, _MODES[mode]["n_wx"], mxu_bf16, planes,
                         lambda c: max_active_clusters(mode, B, H, P, c,
-                                                      mxu_bf16, backward))
+                                                      mxu_bf16, backward),
+                        operands)
 
 
 def last_plan(name: str) -> dict:
@@ -262,8 +280,9 @@ def _check_width(mode: str, H: int, P: int, mxu_bf16: bool) -> None:
         raise ValueError(f"the TP ANN kernels take H/P <= {_MAX_HL}, got "
                          f"{H // P}")
     n = _MODES[mode]["n_wx"]
-    for planes in sorted({1, _MODES[mode]["bwd_stack"]}):
-        _tp_plan(1, H, P, n, mxu_bf16, planes, lambda c: P)
+    _tp_plan(1, H, P, n, mxu_bf16, 1, lambda c: P)
+    _tp_plan(1, H, P, n, mxu_bf16, _MODES[mode]["bwd_stack"], lambda c: P,
+             _MODES[mode]["bwd_operands"])
 
 
 # ---------------------------------------------------------------------------

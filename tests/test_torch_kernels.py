@@ -810,3 +810,61 @@ def test_bf16_autograd_reaches_the_bf16_kernels_on_card(cuda):
     for leaf in leaves:  # float32 streams get float32 gradients
         assert leaf.grad.dtype == torch.float32
         assert torch.isfinite(leaf.grad).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(12, 9, 200), (16, 6, 1001),
+                                   (128, 20, 512), (256, 4, 1024),
+                                   (4, 3, 4096)])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("name", ["rlif", "radlif"])
+def test_cluster_backward_matches_plain_on_card(cuda, name, bf16, shape):
+    """The recurrent forms' time loop as thread-block clusters
+    (``fused_cells._bwd_plan``) at a partial row group (B = 12), a width no
+    multiple of a cluster's columns (H = 1001), the main paths' widths (512:
+    the slice resident; 1024: streamed, two waves at B = 256) and the
+    widest layer (4096: clusters of eight blocks, four rows), with the
+    affine and the dropout: the launch ran the mirror's plan, every
+    gradient agrees with the plain backward on the same residuals (float32:
+    to 1e-4 of its largest magnitude; bf16: by the bounds above), and two
+    launches give the same bits."""
+    if bf16:
+        t = _bf16_cell_inputs(shape, cuda, uniform_s0=True, seed=5)
+        t["Wx"] = t["Wx"].bfloat16()
+    else:
+        d = make_inputs(*shape, seed=5)
+        d["s0"] = np.random.default_rng(6).uniform(
+            0, 1, d["s0"].shape).astype(np.float32)
+        t = _clamped(d, cuda)
+    args, kw = _cell_args(t, name, True)
+    seed = torch.tensor([42, 7], dtype=torch.int32, device=cuda)
+    kw.update(drop_rate=0.25, seed=seed, mxu_bf16=bf16)
+    _, u_seq = fused_cells.fused_cell_plain(*args, save_residuals=True, **kw)
+    g = torch.from_numpy(np.random.default_rng(7).normal(
+        0, 1, shape).astype(np.float32)).to(cuda)
+    if bf16:
+        g = g.bfloat16()
+    Wx, scale, _, alpha, beta, a, b, V, thr, u0, w0, s0 = args
+    bargs = (g, Wx, u_seq, scale, alpha, beta, a, b, V, thr, u0, w0, s0)
+    got = fused_cells._fused_cell_bwd_cuda(*bargs, **kw)
+    plan = fused_cells.last_plans()["fused_cell_bwd"]
+    again = fused_cells._fused_cell_bwd_cuda(*bargs, **kw)
+    want = fused_cells.fused_cell_bwd_plain(*bargs, **kw)
+    torch.cuda.synchronize()
+    mirror = fused_cells._cluster_plan(shape[0], shape[2], bf16)
+    assert plan["cluster"] == mirror.cluster == (8 if shape[2] > 3072 else
+                                                 plan["cluster"])
+    assert (plan["rows"], plan["resident"]) == (mirror.rows, mirror.resident)
+    names = ("dWx", "dscale", "dshift", "dV", "dalpha", "dbeta", "da", "db",
+             "du0", "dw0", "ds0")
+    for i, (n, x, y, z) in enumerate(zip(names, got, want, again)):
+        assert (x is None) == (y is None), n
+        if x is None:
+            continue
+        assert torch.equal(x, z), f"{n} differs between two launches"
+        if not bf16:
+            assert _rel_err(x, y) <= 1e-4, (n, _rel_err(x, y))
+            continue
+        _held(n, x, y, lambda i=i: fused_cells.fused_cell_bwd_plain(
+            *[x.double() if isinstance(x, torch.Tensor) else x
+              for x in bargs], **kw)[i], BF16_ULP, y.double().abs().max())

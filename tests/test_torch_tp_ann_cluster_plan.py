@@ -29,10 +29,17 @@ def planes_of(mode, backward):
     return fused_tp_ann._MODES[mode]["bwd_stack"] if backward else 1
 
 
+def operands_of(mode, backward):
+    """The operand planes a block holds: two parities of ``planes_of``,
+    but the GRU backward's second exchange (drpre) has one plane."""
+    ops = fused_tp_ann._MODES[mode]["bwd_operands"] if backward else None
+    return ops or 2 * planes_of(mode, backward)
+
+
 def plan_of(mode, B, H, P, bf16, backward, held=H100.get):
     n = fused_tp_ann._MODES[mode]["n_wx"]
     return fused_tp_ann._tp_plan(B, H, P, n, bf16, planes_of(mode, backward),
-                                 held)
+                                 held, operands_of(mode, backward))
 
 
 def cases():
@@ -140,9 +147,10 @@ def test_every_rank_walks_the_row_groups_in_one_order(P):
 
 @pytest.mark.parametrize("P", PS)
 def test_resident_follows_from_the_bytes(P):
-    """Resident exactly where the block's slice and its operands' two
-    parities fit in shared memory; else three stages of at most 64 KB
-    beside the operands, each holding a row of the widest pass."""
+    """Resident exactly where the block's slice and its operands (two
+    parities; the GRU backward's three planes) fit in shared memory; else
+    three stages of at most 64 KB beside the operands, each holding a row
+    of the widest pass."""
     for hl in (8, 64, 136, 256, 512):
         H = P * hl
         for mode in MODES:
@@ -154,7 +162,7 @@ def test_resident_follows_from_the_bytes(P):
                     except ValueError:
                         continue
                     elem = 2 if bf16 else 4
-                    operands = (2 * planes_of(mode, backward) * p.rows * H
+                    operands = (operands_of(mode, backward) * p.rows * H
                                 * 4)
                     slice_bytes = n * H * p.cols * elem
                     assert p.resident == (operands + slice_bytes
@@ -219,14 +227,20 @@ def test_plan_at_p1_is_the_single_card_plan(B, H):
     clusters of six; 136: seventeen), the TP kernels' time loop has the
     single-card kernels' plan: the same cluster, rows, slice and residency.
     (Their bits agree whatever the plans; at a batch that leaves SMs idle,
-    B = 8, the TP plan takes more of them with smaller clusters.)"""
+    B = 8, the TP plan takes more of them with smaller clusters.) The GRU
+    backward's stages may be larger: its block holds three operand planes,
+    the single-card kernel's four."""
     for mode in MODES:
         n = fused_tp_ann._MODES[mode]["n_wx"]
         for bf16 in (False, True):
             assert plan_of(mode, B, H, 1, bf16, False).rank == \
                 fused_ann._fwd_plan(B, H, n, bf16)
-            assert plan_of(mode, B, H, 1, bf16, True).rank == \
-                fused_ann._bwd_plan(B, 20, H, n, bf16)[0]
+            tp = plan_of(mode, B, H, 1, bf16, True).rank
+            single = fused_ann._bwd_plan(B, 20, H, n, bf16)[0]
+            if mode == "gru":
+                tp, single = tp._replace(stage_bytes=0), \
+                    single._replace(stage_bytes=0)
+            assert tp == single
 
 
 def test_the_main_paths_plans():
@@ -246,12 +260,35 @@ def test_the_main_paths_plans():
 
 def test_widths_the_kernels_refuse():
     """H/P a multiple of 8, at most 2048, at most 8 ranks, and the
-    operands' two parities with room for a stage of the slice."""
+    operands with room for a stage of the slice: the GRU takes H = 4096 at
+    P = 2 (its backward's three operand planes), the LiGRU's four stop
+    short of it."""
     ok = fused_tp_ann._check_width
-    ok("gru", 3328, 2, False)
+    ok("gru", 4096, 2, False)
     for args, match in ((("rnn", 2176, 1, False), "H/P <= 2048"),
+                        (("gru", 4096 + 256, 2, False), "H/P <= 2048"),
                         (("rnn", 12, 2, False), "multiple of 8"),
-                        (("gru", 3584, 2, False), "shared memory"),
+                        (("ligru", 3584, 2, False), "shared memory"),
                         (("rnn", 9 * 128, 9, False), "at most 8 ranks")):
         with pytest.raises(ValueError, match=match):
             ok(*args)
+
+
+@pytest.mark.parametrize("held", [H100.get, lambda c: 2, lambda c: 64])
+@pytest.mark.parametrize("H", range(3456, 4097, 128))
+def test_gru_takes_the_widest_layers_at_p2(H, held):
+    """The widths the JAX entry takes at P = 2 past H = 3328: the
+    GRU's plans run in both directions and modes (four rows a cluster, the
+    backward's three planes of gathered rows beside stages that hold a row
+    of its widest pass), whatever the card holds (``max_active``
+    injected)."""
+    for bf16 in (False, True):
+        for backward in (False, True):
+            p = plan_of("gru", 8, H, 2, bf16, backward, held)
+            elem = 2 if bf16 else 4
+            operands = operands_of("gru", backward) * p.rank.rows * H * 4
+            assert p.rank.rows == 4 and not p.rank.resident
+            assert p.rank.threads <= fused_ann._MAX_THREADS
+            assert operands + 3 * p.rank.stage_bytes <= SMEM_BUDGET
+            assert p.rank.stage_bytes >= 2 * p.rank.cols * elem
+            assert p.per_rank * 2 <= held(p.rank.cluster)

@@ -540,13 +540,14 @@ def test_tp_ann_kernels_walk_row_groups_on_card(cuda, mode):
 
 @pytest.mark.cuda
 def test_tp_ann_gru_at_its_widest_on_card(cuda):
-    """The GRU at the widest layer two ranks take, H = 3328 (the next
-    multiple of P*128 fails ``_check_width``): four rows a cluster, and the
-    backward's stacked planes fill a block's shared memory beside stages of
-    a few rows of the slice."""
-    P, B, T, H = 2, 8, 3, 3328
+    """The GRU at the widest layer two ranks take, H = 4096 (H/P = 2048;
+    one more lane of 128 a rank fails ``_check_width``): four rows a
+    cluster, and the backward's three planes of gathered rows (the stacked
+    [dcpre | dzpre] and drpre) fill a block's shared memory beside stages
+    of a few rows of the slice."""
+    P, B, T, H = 2, 8, 3, 4096
     fused_tp_ann._check_width("gru", H, P, False)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="H/P <= 2048"):
         fused_tp_ann._check_width("gru", H + P * 128, P, False)
     d = ann_tp_inputs("gru", B, T, H, seed=5, device=cuda)
     args = ("gru", d["wxs"], d["vs"], d["y0"])
@@ -781,11 +782,11 @@ def test_bf16_tp_cell_kernels_walk_row_groups_on_card(cuda):
     got, u_seq = fused_tp._tp_cell_cuda(*args, save_residuals=True, **kw)
     per_rank = fused_tp.last_plans()["tp_cell_fwd"][1]
     grads = fused_tp._tp_cell_bwd_cuda(*bwd_args(d, u_seq, True), **kw)
-    bt, bwd_per_rank = fused_tp.last_plans()["tp_cell_bwd"][:2]
+    bwd_plan = fused_tp.last_bwd_plan()
     want, want_u = fused_tp.tp_cell_plain(*args, save_residuals=True, **kw)
     want_grads = fused_tp.tp_cell_bwd_plain(*bwd_args(d, u_seq, True), **kw)
     torch.cuda.synchronize()
-    assert per_rank < 1024 and bwd_per_rank < 1024 // bt
+    assert per_rank < 1024 and bwd_plan["walks"] > 1, bwd_plan
     assert torch.equal(got, want) and torch.equal(u_seq, want_u)
     for k, (name, x, y) in enumerate(zip(GRADS, grads, want_grads)):
         _within(x, y, y.double().abs().max(), name,
@@ -1004,3 +1005,75 @@ def test_model_reaches_the_bf16_tp_kernels_on_card(cuda, model_type):
     assert torch.isfinite(out).all()
     assert all(p.dtype == p.grad.dtype == torch.float32 and
                torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("P", PS)
+def test_tp_backward_at_the_widest_rank_on_card(cuda, P, bf16):
+    """H/P = 2048, the widest rank: H = 2048, 4096, 8192 at P = 1, 2, 4, so
+    eight, four and two rows a cluster (a thread owns them all): every
+    gradient against the plain backward (float32: 1e-4 of its largest
+    magnitude; bf16: the bounds above), two launches give the same bits,
+    and where the single-card kernel takes the width (H <= 4096) the
+    gradients that sum over no rows equal its own."""
+    B, T, H = 8, 3, 2048 * P
+    d = _bf16_tp_inputs(B, T, H, 6, cuda, False) if bf16 else \
+        tp_inputs(B, T, H, seed=6, device=cuda)
+    kw = dict(num_devices=P, adaptive=True, mxu_bf16=bf16)
+    _, u_seq = fused_tp.tp_cell_plain(*cell_args(d, True),
+                                      save_residuals=True, **kw)
+    args = bwd_args(d, u_seq, True)
+    got = fused_tp._tp_cell_bwd_cuda(*args, **kw)
+    plan = fused_tp.last_bwd_plan()
+    again = fused_tp._tp_cell_bwd_cuda(*args, **kw)
+    want = fused_tp.tp_cell_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert plan["rows"] == {1: 8, 2: 4, 4: 2}[P], plan
+    for k, (name, x, y, z) in enumerate(zip(GRADS, got, want, again)):
+        assert torch.equal(x, z), name
+        if bf16:
+            _within(x, y, y.double().abs().max(), name,
+                    lambda k=k: fused_tp.tp_cell_bwd_plain(
+                        *_f64(list(args)), **kw)[k])
+        else:
+            assert _rel(x, y) <= GRAD_REL, (name, _rel(x, y))
+    if H <= 4096:
+        single = fused_cells._fused_cell_bwd_cuda(
+            args[0], d["Wx"], args[1], None, *args[2:], recurrent=True,
+            adaptive=True, mxu_bf16=bf16)
+        single = dict(zip(("dWx", "dscale", "dshift", "dV", "dalpha", "dbeta",
+                           "da", "db", "du0", "dw0", "ds0"), single))
+        for name, x in zip(GRADS, got):
+            if name in ("dWx", "dV", "du0", "dw0", "ds0"):
+                assert torch.equal(x, single[name]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_cluster_tp_backward_equals_across_p_on_card(cuda, adaptive, bf16):
+    """At (16, 7, 512) the clusters of P = 1, 2, 4 (their own cluster
+    sizes and partials) give the gradients that sum over no rows bit for
+    bit alike, and those of the single-card kernel without the affine and
+    the dropout: every column sums its H rows in one ascending order,
+    whatever the plan."""
+    B, T, H = 16, 7, 512
+    d = _bf16_tp_inputs(B, T, H, 8, cuda, False) if bf16 else \
+        tp_inputs(B, T, H, seed=8, device=cuda)
+    _, u_seq = fused_tp.tp_cell_plain(*cell_args(d, adaptive), num_devices=1,
+                                      adaptive=adaptive, save_residuals=True,
+                                      mxu_bf16=bf16)
+    args = bwd_args(d, u_seq, adaptive)
+    single = fused_cells._fused_cell_bwd_cuda(
+        args[0], d["Wx"], args[1], None, *args[2:], recurrent=True,
+        adaptive=adaptive, mxu_bf16=bf16)
+    single = dict(zip(("dWx", "dscale", "dshift", "dV", "dalpha", "dbeta",
+                       "da", "db", "du0", "dw0", "ds0"), single))
+    for P in PS:
+        got = fused_tp._tp_cell_bwd_cuda(*args, num_devices=P,
+                                         adaptive=adaptive, mxu_bf16=bf16)
+        torch.cuda.synchronize()
+        for name, x in zip(GRADS, got):
+            if name in ("dWx", "dV", "du0", "dw0", "ds0") and x is not None:
+                assert torch.equal(x, single[name]), (P, name)
