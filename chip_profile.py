@@ -6,7 +6,7 @@ card.
 
 With phase names (``sweep``, ``profile``, ``h2d``, ``bwd_sweep``,
 ``profile_training``, ``bf16``, ``tp_exchange``, ``spiking_bwd``,
-``ab=DIR``, ``bits=DIR``) only those run. Prints
+``spiking_fwd``, ``ab=DIR``, ``bits=DIR``) only those run. Prints
 JSON lines (tables of the profiler in between), each measured in
 this run:
 
@@ -44,8 +44,10 @@ this run:
    ``DIR`` (another commit of this repository, e.g. from ``git archive``)
    against this tree's, in one call on one card, in the order DIR, this,
    this, DIR, each in a process of its own that builds that tree's
-   kernels: kernel ms (CUDA events) of the float32 spiking cells at (128,
-   100, 512), of the fused RNN/LiGRU/GRU kernels (with the affine; the
+   kernels: kernel ms (CUDA events) and the bits of every output of the
+   spiking cells (the recurrent forwards in every form and mode at (128,
+   100, 512) and (256, 100, 1024), the TP forward and backward at P = 1,
+   2, 4; the backwards), of the fused RNN/LiGRU/GRU kernels (with the affine; the
    forward's serving and training form and the backward) at (128, 100,
    512) and (128, 100, 1024) in float32 and bf16, of the tensor-parallel
    cells at their main shapes (RadLIF at (256, 100, 1024), float32;
@@ -53,11 +55,17 @@ this run:
    training and serving form and the backward; P = 1, 2, 4); the ``auto``
    training step of the GRU [512, 512, 35] (float32 and bf16) and [1024,
    1024, 35] trainers, and the ``pallas_tp`` step of the latter at P = 1,
-   2, 4 in both modes; the ptxas report of the non-spiking cell kernels;
-   and, per library that the TP ANN kernels do not touch, the kernels
+   2, 4 in both modes; the RadLIF [512, 512, 35] ``auto`` and the
+   bidirectional RadLIF [1024, 1024, 35] ``auto`` and ``pallas_tp`` (P =
+   1, 2, 4) steps in both modes; the ptxas report of the cell kernels
+   with a product; and, per library in ``AB_UNTOUCHED``, the kernels
    whose SASS count, registers or stack bytes (``cuobjdump -sass``,
    ``-res-usage``) differ between the trees (whole records in
-   ``build/ab/ab_<i>.json``).
+   ``build/ab/ab_<i>.json``). Then ``ab_step``: the RadLIF [512, 512, 35]
+   ``auto`` step (float32, bf16) of both trees, each tree's trainer in a
+   process that stays up: ten alternating pairs (DIR, this, this, DIR,
+   ...) of the step's ms (CUDA events), then its kernels and copies a
+   step (profiler, by name) and the device's idle share.
 
 9. ``tp_exchange``: what one exchange between ranks costs the TP ANN
    kernels (GRU and RNN at (128, 100, 1024), float32 and bf16): P = 2 run
@@ -73,7 +81,21 @@ this run:
    the plan, the two libraries' ptxas report.
 11. ``bits=DIR`` (only when named): where the single-card spiking
    backward's outputs differ between the tree in ``DIR`` and this one
-   (RadLIF, H = 200 .. 4096, every affine / dropout form, both modes).
+   (RadLIF, H = 200 .. 4096, every affine / dropout form, both modes), and
+   the recurrent spiking forwards' (RLIF and RadLIF, H = 200 .. 4096,
+   serving and training form, affine and dropout on and off, both modes,
+   non-dyadic V; the TP forward at P = 1, 2, 4 and at P = 2, H = 4096).
+12. ``spiking_fwd``: the spiking forward kernels apart (``fused_cell_fwd``,
+   RadLIF with the affine, training form with the dropout and serving
+   form, and ``tp_cell_fwd``, RadLIF at P = 1, 2, 4, training form; at
+   (128, 100, 512) and (256, 100, 1024), both modes): kernel ms with s0
+   drawn from U[0, 1) as the training path's state init draws it; the
+   first product's share as the difference of two launches of one step
+   (T = 1), with that s0 and with s0 = 0 (the product then skips every
+   row), for a tree whose wrappers take no ``split_ms``; ``split_ms``
+   (first product, time loop: CUDA events around each launch) where they
+   take it; the plan; at P > 1 the time over P = 1 per exchange; and the
+   two libraries' ptxas report.
 
 Without a CUDA card it exits non-zero and prints no result.
 """
@@ -345,6 +367,105 @@ def spiking_bwd(dev):
                      plan=fused_tp.last_bwd_plan())
 
 
+def spiking_fwd(dev):
+    """Phase 12: the spiking forward kernels apart, at the main paths'
+    shapes, float32 and bf16: ``fused_cell_fwd`` (RadLIF with the affine:
+    the training form with the dropout and the residuals, as the ``auto``
+    trainer launches it, and the serving form) and ``tp_cell_fwd`` (RadLIF,
+    training form, P = 1, 2, 4), each at (128, 100, 512) and (256, 100,
+    1024). Per case: ``ms`` with s0 drawn from U[0, 1); ``split_ms`` (the
+    first product and the time loop, CUDA events around each launch) where
+    the wrappers take ``split_ms``, else ``first_product_ms``, the
+    difference of one-step launches (T = 1) with that s0 and with s0 = 0,
+    where the product skips every row of V (over all T, s0 = 0 moves the
+    firing rate, so only one step is compared); the plan of the launch; at
+    P > 1 ``exchange_us``, the time over P = 1 over the T - 1 exchanges;
+    and the ptxas report of the two libraries, built in this process."""
+    import inspect
+
+    import chip_smoke as cs
+    from sparch_tpu_torch import _build
+    from sparch_tpu_torch.ops import fused_cells, fused_tp
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    libs = ("fused_cell_fwd", "tp_cell_fwd")
+    for lib in libs:
+        _build.library_path(lib).unlink(missing_ok=True)
+    logs = _build.build(libs)
+    emit("spiking_fwd_ptxas",
+         **{lib: cs.ptxas_summary(logs[lib]) for lib in libs})
+    seed = torch.tensor([1234, 99], dtype=torch.int32, device=dev)
+    takes_split = "split_ms" in inspect.signature(
+        fused_cells._fused_cell_cuda).parameters
+
+    def split_of(run, arg, arg1, arg0):
+        """``split_ms`` where the wrapper takes it, else the first
+        product's ms from one-step launches."""
+        if takes_split:
+            return dict(split_ms=cs.split_ms_of(
+                lambda sp: run(arg, sp), names=cs.FWD_SPLIT_NAMES))
+        return dict(first_product_ms=cuda_time_ms(run, arg1)
+                    - cuda_time_ms(run, arg0))
+
+    def uniform(like):
+        return torch.rand(like.shape, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(5))
+
+    with torch.no_grad():
+        for shape in ((cs.B, cs.T, cs.H), (2 * cs.B, cs.T, cs.TP_H)):
+            d = cs.cell_inputs(shape, dyadic=True, seed=1, dev=dev)
+            d["s0"] = uniform(d["s0"])
+            d1 = dict(d, Wx=d["Wx"][:, :1].contiguous())
+            d0 = dict(d1, s0=torch.zeros_like(d["s0"]))
+            for mx in (False, True):
+                for form in ("training", "serving"):
+                    drop = cs.P_DROP if form == "training" else 0.0
+                    kw = dict(drop_rate=drop, seed=seed if drop else None,
+                              save_residuals=form == "training", bf16=mx)
+
+                    def run(dd, split=None):
+                        p = cs._prepared("radlif", dd, True)
+                        extra = {} if split is None else dict(split_ms=split)
+                        return fused_cells._fused_cell_cuda(
+                            *p["args"], **p["kw"], drop_rate=kw["drop_rate"],
+                            seed=kw["seed"],
+                            save_residuals=kw["save_residuals"],
+                            mxu_bf16=mx, **extra)
+
+                    ms = cuda_time_ms(run, d)
+                    out = run(d)
+                    s = out[0] if isinstance(out, tuple) else out
+                    emit("spiking_fwd", kernel="fused_cell_fwd", form=form,
+                         shape=list(shape), mxu_bf16=mx, ms=ms,
+                         **split_of(run, d, d1, d0),
+                         plan=fused_cells.last_plans().get("fused_cell_fwd"),
+                         firing_rate=float(s.float().mean()))
+            dt = cs.tp_cell_inputs(shape, seed=1, dev=dev, uniform_s0=True)
+            args, ada = cs._tp_args("radlif", dt)
+            args1 = (args[0][:, :1].contiguous(),) + args[1:]
+            args0 = args1[:-1] + (torch.zeros_like(args[-1]),)
+            for mx in (False, True):
+                at_p1 = None
+                for P in (1, 2, 4):
+                    kw = dict(num_devices=P, adaptive=ada, mxu_bf16=mx,
+                              save_residuals=True)
+
+                    def run(a, split=None):
+                        extra = {} if split is None else dict(split_ms=split)
+                        return fused_tp._tp_cell_cuda(*a, **kw, **extra)
+
+                    ms = cuda_time_ms(run, args)
+                    s = run(args)[0]
+                    plan = fused_tp.last_plans()["tp_cell_fwd"]
+                    at_p1 = ms if P == 1 else at_p1
+                    emit("spiking_fwd", kernel="tp_cell_fwd", form="training",
+                         shape=list(shape), P=P, mxu_bf16=mx, ms=ms,
+                         **split_of(run, args, args1, args0), plan=plan,
+                         exchange_us=None if P == 1 else
+                         (ms - at_p1) * 1e3 / (shape[1] - 1),
+                         firing_rate=float(s.float().mean()))
+
+
 def tp_exchange(dev):
     """Phase 9: what one exchange between ranks costs the TP ANN kernels.
     At (128, 100, 1024) the P = 1 plan is sixteen clusters of six blocks of
@@ -435,8 +556,9 @@ if not _build.__file__.startswith(root):
 torch.backends.cuda.matmul.allow_tf32 = False
 # the cell kernels with a product on their time loop build in this
 # process, whatever was built before, so that their ptxas report is at hand
-REPORT_LIBS = ("fused_cell_bwd", "tp_cell_bwd", "fused_ann_fwd",
-               "fused_ann_bwd", "tp_ann_fwd", "tp_ann_bwd")
+REPORT_LIBS = ("fused_cell_fwd", "tp_cell_fwd", "fused_cell_bwd",
+               "tp_cell_bwd", "fused_ann_fwd", "fused_ann_bwd", "tp_ann_fwd",
+               "tp_ann_bwd")
 for lib in REPORT_LIBS:
     _build.library_path(lib).unlink(missing_ok=True)
 logs = _build.build()
@@ -534,6 +656,55 @@ with torch.no_grad():
                 res["tp_ann_bwd" + sfx] = cuda_time_ms(
                     lambda: fused_tp_ann._tp_ann_cell_bwd_cuda(*ba, **tk),
                     **fast)
+# the recurrent spiking forwards, every output's bits on a non-dyadic V
+# with s0 drawn from U[0, 1): RLIF and RadLIF, the serving form with the
+# affine on and off and the training form with the affine and the dropout
+# on and off, both modes, at (128, 100, 512) and (256, 100, 1024); the TP
+# forward (RLIF, RadLIF) at (256, 100, 1024), P = 1, 2, 4, both modes,
+# training and serving form; RadLIF's training forms timed
+with torch.no_grad():
+    for shape in ((smoke.B, smoke.T, smoke.H),
+                  (2 * smoke.B, smoke.T, smoke.TP_H)):
+        d = smoke.cell_inputs(shape, dyadic=False, seed=1, dev=dev)
+        d["s0"] = torch.rand(d["s0"].shape, device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(5))
+        for name in ("rlif", "radlif"):
+            rec, ada = smoke.FORMS[name]
+            for mx in (False, True):
+                dm = dict(d, Wx=d["Wx"].to(bf16)) if mx else d
+                base = (f"cell_fwd_{name}_{shape[0]}x{shape[2]}"
+                        + ("_bf16" if mx else ""))
+                for affine in (True, False):
+                    p = smoke._prepared(name, dm, affine)
+                    dig[base + "_serving" + ("_affine" if affine else "")] = \
+                        digest([fused_cells._fused_cell_cuda(
+                            *p["args"], **p["kw"], mxu_bf16=mx)])
+                for drop in (smoke.P_DROP, 0.0):
+                    key = base + "_train" + ("_dropout" if drop else "")
+                    run = lambda: smoke.train_forward_call(
+                        name, dm, True, drop, seed if drop else None,
+                        bf16=mx)
+                    dig[key] = digest(run())
+                    if name == "radlif":
+                        res[key] = cuda_time_ms(run)
+        for P in (1, 2, 4):
+            dt = smoke.tp_cell_inputs(shape, seed=1, dev=dev, uniform_s0=True)
+            dt["V"] = smoke.cell_inputs(shape, dyadic=False, seed=1,
+                                        dev=dev)["V"]
+            for name in ("rlif", "radlif"):
+                args, ada = smoke._tp_args(name, dt)
+                for mx in (False, True):
+                    kw = dict(num_devices=P, adaptive=ada, mxu_bf16=mx)
+                    key = (f"tp_cell_fwd_{name}_{shape[0]}x{shape[2]}_p{P}"
+                           + ("_bf16" if mx else ""))
+                    run = lambda: fused_tp._tp_cell_cuda(
+                        *args, save_residuals=True, **kw)
+                    dig[key] = digest(run())
+                    dig[key + "_serving"] = digest(
+                        [fused_tp._tp_cell_cuda(*args, **kw)])
+                    if name == "radlif":
+                        res[key] = cuda_time_ms(run)
 # the spiking backwards, every output's bits: every form with the affine
 # and the dropout on and off in both modes at (128, 100, 512), RadLIF at
 # the (256, 100, 1024) of the bidirectional RadLIF 1024 auto trainer; the
@@ -590,10 +761,10 @@ with torch.no_grad():
                 if name == "radlif":
                     res[key] = cuda_time_ms(
                         lambda: fused_tp._tp_cell_bwd_cuda(*ba, **kw))
-# training steps through the spiking backwards, both modes: the RadLIF
+# training steps through the spiking kernels, both modes: the RadLIF
 # [512, 512, 35] auto trainer, and the bidirectional RadLIF [1024, 1024, 35]
-# trainer through auto and pallas_tp at P = 1 (losses of two steps and the
-# first step's gradients digested)
+# trainer through auto and pallas_tp at P = 1, 2, 4 (losses of two steps and
+# the first step's gradients digested)
 gen = torch.Generator(device=dev).manual_seed(21)
 xr = (torch.rand((smoke.B, smoke.T, smoke.F), generator=gen, device=dev)
       < 0.02).float()
@@ -607,8 +778,8 @@ for mx in (False, True):
     for key, impl, sd, x, y, kw in (
             ("radlif512_auto", "auto", sd512, xr, yr, {}),
             ("radlif1024_auto", "auto", sd1024, xt, yt, big),
-            ("radlif1024_tp_p1", "pallas_tp", sd1024, xt, yt,
-             dict(big, tp_mesh=smoke.tp_mesh(dev, 1)))):
+            *((f"radlif1024_tp_p{P}", "pallas_tp", sd1024, xt, yt,
+               dict(big, tp_mesh=smoke.tp_mesh(dev, P))) for P in (1, 2, 4))):
         model, state, losses, grads, _ = smoke.train_run(
             dev, impl, sd, x, y, 2, **kw, **kw16)
         dig["train_" + key + sfx] = digest(
@@ -679,18 +850,15 @@ print(json.dumps({"phase": "ab", "tree": root, "ms": res, "digests": dig,
 """
 
 # the libraries, and within two of them the kernels, that the change to the
-# spiking backwards and the TP GRU backward leaves alone (value: a pattern
-# of the kernels left out of the comparison): their code must stay as the
-# other tree compiles it
+# spiking forwards leaves alone (value: a pattern of the kernels left out of
+# the comparison): their code must stay as the other tree compiles it
 AB_UNTOUCHED = {
-    "fused_cell_fwd": None, "readout_fwd": None, "readout_bwd": None,
-    "fused_ann_fwd": None, "fused_ann_bwd": None, "tp_collectives": None,
-    "tp_cell_fwd": None, "tp_ann_fwd": None,
-    # the non-recurrent forms and the second passes keep their code; the
-    # recurrent forms run the cluster kernel
-    "fused_cell_bwd": r"fused_cell_bwd_kernelILb1E|cell_bwd_cluster_kernel",
-    # the RNN and the LiGRU keep theirs; the GRU holds three operand planes
-    "tp_ann_bwd": r"tp_ann_bwd_kernelILi2E",
+    "readout_fwd": None, "readout_bwd": None, "fused_ann_fwd": None,
+    "fused_ann_bwd": None, "tp_collectives": None, "tp_ann_fwd": None,
+    "fused_cell_bwd": None, "tp_cell_bwd": None, "tp_ann_bwd": None,
+    # every kernel of the layout of a block a row keeps its code; the
+    # column-slice layout (spike_slices.cuh) is new
+    "fused_cell_fwd": r"6slices", "tp_cell_fwd": r"6slices",
 }
 
 
@@ -699,7 +867,7 @@ def ab(dev, other: str):
     Each run's whole record goes to build/ab/ab_<i>.json; the output
     has each run's times and ptxas report, then, per untouched library,
     the kernels whose SASS count, registers or stack bytes differ between
-    the two trees."""
+    the two trees; then ``ab_step`` (``step_pairs``)."""
     here = str(REPO)
     out_dir = REPO / "build" / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -731,11 +899,138 @@ def ab(dev, other: str):
                  if a.get(k) != b.get(k)}
         emit("ab_code", library=lib, kernels=len(b), same=len(b) - len(moved),
              moved=moved)
+    step_pairs(other)
+
+
+# runs in a process of its own with a tree's root as argv[1] and stays up:
+# the RadLIF [512, 512, 35] auto trainer of that tree's chip_smoke, float32
+# and bf16; prints the names of its steps, then for each line it reads the
+# named step's ms, or for "profile" (the profiler stays attached to the
+# process once it ran, so it comes last) each step's kernels and copies by
+# name and the device's idle share
+_STEP_CODE = r"""
+import collections, importlib.util, json, re, sys
+import torch
+root = sys.argv[1]
+sys.path.insert(0, root)
+spec = importlib.util.spec_from_file_location("smoke", root + "/chip_smoke.py")
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+from torch.profiler import ProfilerActivity, profile
+from sparch_tpu_torch import _build
+from sparch_tpu_torch.train import make_train_step
+from sparch_tpu_torch.utils.timing import cuda_time_ms
+if not _build.__file__.startswith(root):
+    raise RuntimeError("imported the package of another tree")
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda", 0)
+gen = torch.Generator(device=dev).manual_seed(21)
+x = (torch.rand((smoke.B, smoke.T, smoke.F), generator=gen, device=dev)
+     < 0.02).float()
+y = torch.randint(0, smoke.C, (smoke.B,), generator=gen, device=dev)
+sd = smoke.training_state(dev)
+steps = {}
+for mx in (False, True):
+    kw = dict(compute_dtype=torch.bfloat16) if mx else {}
+    model, state = smoke.train_run(dev, "auto", sd, x, y, 3, **kw)[:2]
+    steps["radlif512_auto" + ("_bf16" if mx else "")] = (
+        make_train_step(model), state)
+print(json.dumps({"tree": root, "steps": list(steps)}), flush=True)
+
+
+def per_step(fn, state, n=5):
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(n):
+            fn(state, x, y)
+        end.record()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    names = collections.Counter(
+        re.sub(r"^void |\(anonymous namespace\)::", "", e.name)
+        .split("<")[0].split("(")[0] for e in ev)
+    copies = sum(c for k, c in names.items()
+                 if k.startswith(("Memcpy", "Memset")))
+    busy = sum(e.device_time for e in ev)
+    return dict(kernels=(len(ev) - copies) / n, copies_and_sets=copies / n,
+                device_us=busy / n,
+                idle_share_profiled=1.0 - busy / (1e3 * start.elapsed_time(
+                    end)),
+                by_name={k: c / n for k, c in names.most_common()})
+
+
+for line in sys.stdin:
+    key = line.strip()
+    if key == "profile":
+        out = {k: per_step(*v) for k, v in steps.items()}
+    else:
+        fn, state = steps[key]
+        out = cuda_time_ms(fn, state, x, y, warmup=3, iters=20, repeats=3)
+    print(json.dumps(out), flush=True)
+"""
+
+
+def step_pairs(other: str, pairs: int = 10):
+    """The RadLIF [512, 512, 35] ``auto`` step of ``other`` and this tree
+    (float32, bf16), each tree's trainer in one process that stays up (its
+    kernels are built once): ``pairs`` alternating pairs (other, this,
+    this, other, ...) of the step's ms, the idle process waiting on its
+    input meanwhile; then each tree's kernels and copies a step."""
+    out_dir = REPO / "build" / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    roots = (str(Path(other).resolve()), str(REPO))
+    procs = []
+
+    def ask(i, line=None):
+        if line is not None:
+            procs[i].stdin.write(line + "\n")
+            procs[i].stdin.flush()
+        out = procs[i].stdout.readline()
+        if not out:
+            raise RuntimeError(f"ab_step: {roots[i]} failed; see "
+                               f"{out_dir / f'step_{i}.err'}")
+        return json.loads(out)
+
+    try:
+        for i, root in enumerate(roots):
+            with open(out_dir / f"step_{i}.err", "w") as err:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", _STEP_CODE, root], cwd=root,
+                    stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                    stderr=err, text=True))
+            keys = ask(i)["steps"]
+        ms = [{k: [] for k in keys} for _ in roots]
+        for r in range(pairs):
+            for i in ((0, 1) if r % 2 == 0 else (1, 0)):
+                for k in keys:
+                    ms[i][k].append(ask(i, k))
+        counts = [ask(i, "profile") for i in range(2)]
+    finally:
+        for p in procs:
+            p.stdin.close()
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    for i, root in enumerate(roots):
+        (out_dir / f"step_{i}.json").write_text(json.dumps(
+            dict(tree=root, ms=ms[i], per_step=counts[i])))
+        emit("ab_step", tree=root, ms=ms[i],
+             per_step={k: {f: v for f, v in h.items() if f != "by_name"}
+                       for k, h in counts[i].items()})
 
 
 # runs in a process of its own with a tree's root and an output path: the
 # single-card spiking backward's outputs (RadLIF) at widths on both sides
-# of H = 512, every affine / dropout form and both modes, saved for ``bits``
+# of H = 512, every affine / dropout form and both modes; the recurrent
+# spiking forwards' (RLIF, RadLIF; serving and training form, affine and
+# dropout on and off, both modes, a non-dyadic V and s0 drawn from U[0, 1))
+# at those widths, and the TP forward's at P = 1, 2, 4; saved for ``bits``
 _BITS_CODE = r"""
 import importlib.util, sys
 import torch
@@ -775,6 +1070,43 @@ with torch.no_grad():
                     seed=seed, mxu_bf16=mx)
                 res[(b, h, affine, drop, mx)] = [
                     None if x is None else x.cpu() for x in o]
+    from sparch_tpu_torch.ops import fused_tp
+    for b, h in ((128, 512), (12, 200), (256, 1024), (130, 600), (16, 1001),
+                 (16, 1536), (16, 2048), (4, 4096)):
+        d = smoke.cell_inputs((b, 20, h), dyadic=False, seed=1, dev=dev)
+        d["s0"] = torch.rand(d["s0"].shape, device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(5))
+        for name in ("rlif", "radlif"):
+            for mx in (False, True):
+                dm = dict(d, Wx=d["Wx"].to(torch.bfloat16)) if mx else d
+                for affine in (True, False):
+                    p = smoke._prepared(name, dm, affine)
+                    o = fused_cells._fused_cell_cuda(*p["args"], **p["kw"],
+                                                     mxu_bf16=mx)
+                    res[("fwd", name, b, h, affine, -1.0, mx)] = [o.cpu()]
+                    for drop in (0.1, 0.0):
+                        o = fused_cells._fused_cell_cuda(
+                            *p["args"], **p["kw"], drop_rate=drop,
+                            seed=seed if drop else None, save_residuals=True,
+                            mxu_bf16=mx)
+                        res[("fwd", name, b, h, affine, drop, mx)] = [
+                            x.cpu() for x in o]
+    for b, h, ps in ((256, 1024, (1, 2, 4)), (24, 512, (1, 2, 4)),
+                     (8, 4096, (2,))):
+        d = smoke.cell_inputs((b, 20, h), dyadic=False, seed=2, dev=dev)
+        d["s0"] = torch.rand(d["s0"].shape, device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(5))
+        for name in ("rlif", "radlif"):
+            args, ada = smoke._tp_args(name, d)
+            for P in ps:
+                for mx in (False, True):
+                    o = fused_tp._tp_cell_cuda(*args, num_devices=P,
+                                               adaptive=ada, mxu_bf16=mx,
+                                               save_residuals=True)
+                    res[("tp_fwd", name, b, h, P, -1.0, mx)] = [
+                        x.cpu() for x in o]
 torch.save(res, out)
 """
 
@@ -800,14 +1132,26 @@ def bits(dev, other: str):
              "du0", "dw0", "ds0")
     for key, a in saved[0].items():
         moved = {}
-        for n, x, y in zip(names, a, saved[1][key]):
+        kind = key[0] if isinstance(key[0], str) else "bwd"
+        for n, x, y in zip(("s", "u_seq") if kind != "bwd" else names, a,
+                           saved[1][key]):
             if x is None or torch.equal(x, y):
                 continue
-            gap = (x - y).abs()
+            gap = (x.float() - y.float()).abs()
             moved[n] = dict(elements=int((gap > 0).sum()),
-                            max_rel=float(gap.max() / x.abs().max()))
-        b, h, affine, drop, mx = key
-        emit("bits", shape=[b, 20, h], affine=affine, drop_rate=drop,
+                            max_rel=float(gap.max()
+                                          / x.float().abs().max()))
+        if kind == "bwd":
+            b, h, affine, drop, mx = key
+            emit("bits", shape=[b, 20, h], affine=affine, drop_rate=drop,
+                 mxu_bf16=mx, equal=not moved, differ=moved)
+            continue
+        _, name, b, h, flag, drop, mx = key
+        emit("bits", kernel="tp_cell_fwd" if kind == "tp_fwd"
+             else "fused_cell_fwd", cell=name, shape=[b, 20, h],
+             **({"P": flag} if kind == "tp_fwd" else
+                {"affine": flag, "form": "serving" if drop < 0 else
+                 "training", "drop_rate": max(drop, 0.0)}),
              mxu_bf16=mx, equal=not moved, differ=moved)
 
 
@@ -860,6 +1204,7 @@ def main() -> int:
         "bf16": bf16,
         "tp_exchange": tp_exchange,
         "spiking_bwd": spiking_bwd,
+        "spiking_fwd": spiking_fwd,
     }
     chosen = sys.argv[1:] or list(phases)
     unknown = [name for name in chosen

@@ -15,7 +15,9 @@ all at once), then prints one JSON line per phase:
    a ragged case (B=5, T=13, H=40). With V on a dyadic grid the kernel's
    spikes must equal the plain version's bit for bit; with an orthogonal V
    the mismatch is bounded as ``orthogonal_check`` says. Kernel and plain
-   times, CUDA events.
+   times, CUDA events; the recurrent forms at the serving shape add their
+   ``plan`` (column slices, ``fused_cells._fwd_plan``) and ``split_ms``
+   (the first product and the time loop, CUDA events around each launch).
 3. ``kernel_vs_plain`` for the readout at (128, 100, 35), rtol 1e-5.
 4. ``serving``: a RadLIF [512, 512, 35] Predictor (F=700, batch 128,
    seeded random weights, zero state init, running statistics from one
@@ -35,7 +37,11 @@ all at once), then prints one JSON line per phase:
    fused cell (``fused_cell_fwd_train``): dropped spikes and the membrane
    series at (128, 100, 512), p = 0.1, and at the ragged shape, the four
    forms, dyadic V, bit for bit against the plain version; the dropped
-   share within 0.1 +- 0.005.
+   share within 0.1 +- 0.005. RadLIF adds its ``plan``, ``split_ms`` and
+   ``at_256x1024``: the training form at the shape of the bidirectional
+   RadLIF 1024 ``auto`` trainer (s0 drawn from U[0, 1) as its state init
+   draws it), bit for bit against the plain version, timed and split, with
+   its bound.
 6. ``kernel_vs_plain`` for the backward (``fused_cell_bwd``): both sides get
    the same forward residuals; every gradient against the plain version,
    the error relative to that gradient's largest magnitude, bound 1e-4, or
@@ -362,12 +368,24 @@ def plain_call(name, d, affine):
     return fused_cells.fused_cell_plain(*p["args"], **p["kw"])
 
 
-def kernel_call(name, d, affine):
-    """The kernel alone, without the wrapper's clamp and mask."""
+def kernel_call(name, d, affine, **kw):
+    """The kernel alone, without the wrapper's clamp and mask (``kw``: the
+    wrapper's own keywords, as ``split_ms``)."""
     from sparch_tpu_torch.ops import fused_cells
 
     p = _prepared(name, d, affine)
-    return fused_cells._fused_cell_cuda(*p["args"], **p["kw"])
+    return fused_cells._fused_cell_cuda(*p["args"], **p["kw"], **kw)
+
+
+def fwd_plan_split(run):
+    """The plan of a recurrent spiking forward's launch and its
+    ``split_ms`` (first product, time loop) over calls of ``run(split)``,
+    which passes ``split_ms=split`` on to the wrapper."""
+    from sparch_tpu_torch.ops import fused_cells
+
+    split = split_ms_of(run, names=FWD_SPLIT_NAMES)
+    return dict(plan=fused_cells.last_plans()["fused_cell_fwd"],
+                split_ms=split)
 
 
 def phase_device():
@@ -409,6 +427,11 @@ def ptxas_summary(log: str):
 
     rows = [(int(regs), int(spill)) for _, spill, regs in entries]
     out = summary(rows)
+    # the column-slice kernels of the spiking forwards (spike_slices.cuh)
+    slices = [(int(regs), int(spill)) for name, spill, regs in entries
+              if "6slices" in name]
+    if slices:
+        out["slice_layout"] = summary(slices)
     for flag, mode in (("0", "float32"), ("1", "bf16")):
         of_mode = [(int(regs), int(spill)) for name, spill, regs in entries
                    if re.search(rf"Lb{flag}EEEvNS_\d*ArgsE$", name)]
@@ -466,10 +489,14 @@ def phase_fused_cell(dev):
                     row["ms"] = cuda_time_ms(kernel_call, name, d, True)
                     row["plain_ms"] = cuda_time_ms(plain_call, name, d, True,
                                                    **PLAIN_ROUNDS)
+                    if rec:
+                        row.update(fwd_plan_split(
+                            lambda sp: kernel_call(name, d, True, split_ms=sp)))
                 if name == "radlif":
                     main = dict(max_abs_err=err, ms=row["ms"],
                                 plain_ms=row["plain_ms"],
-                                firing_rate=row["firing_rate"])
+                                firing_rate=row["firing_rate"],
+                                plan=row["plan"], split_ms=row["split_ms"])
             emit("kernel_vs_plain", kernel="fused_cell_fwd", **row)
     return main
 
@@ -726,15 +753,17 @@ def bound(n_bytes: float, n_ops: float, n_ops_bf16: float = 0.0):
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
-def cell_bounds(rate: float, bf16=False):
-    """Bounds of the fused-cell kernels at (B, T, H), RadLIF with the
-    affine, from the shape and this run's firing rate. Each stream is
+def cell_bounds(rate: float, bf16=False, shape=(B, T, H)):
+    """Bounds of the fused-cell kernels at ``shape`` (the serving shape
+    unless named), RadLIF with the affine, from the shape and this run's
+    firing rate. Each stream is
     counted once: Wx, spikes, the membrane series, g and dWx are B*T*H
     elements, V and dV H*H, the states B*H. The forward's s @ V adds one row
     of V per spike; the backward has two dense products of 2*B*T*H*H. In
     the bf16-stream mode Wx, the spikes, g, dWx and V are two bytes an
     element (the membrane series, dV and the states stay four) and the
     dense products are of bf16 operands."""
+    B, T, H = shape
     e = 2.0 if bf16 else 4.0
     stream, mat, state = e * B * T * H, e * H * H, 4.0 * B * H
     u_series, dv = 4.0 * B * T * H, 4.0 * H * H
@@ -753,16 +782,52 @@ def cell_bounds(rate: float, bf16=False):
 
 
 def train_forward_call(name, d, kernel: bool, drop_rate=P_DROP, seed=None,
-                       save_residuals=True, bf16=False):
+                       save_residuals=True, bf16=False, **kw):
     """The training form of the forward, the kernel or its plain version,
-    on already clamped inputs with the affine."""
+    on already clamped inputs with the affine (``kw``: the kernel wrapper's
+    own keywords, as ``split_ms``)."""
     from sparch_tpu_torch.ops import fused_cells
 
     p = _prepared(name, d, True)
     fn = fused_cells._fused_cell_cuda if kernel else \
         fused_cells.fused_cell_plain
     return fn(*p["args"], **p["kw"], drop_rate=drop_rate, seed=seed,
-              save_residuals=save_residuals, mxu_bf16=bf16)
+              save_residuals=save_residuals, mxu_bf16=bf16, **kw)
+
+
+def forward_at_1024(dev, bf16=False):
+    """``fused_cell_fwd_train`` RadLIF (affine, dropout, u series) at (256,
+    100, 1024), the shape the bidirectional RadLIF [1024, 1024, 35] trainer
+    gives it through ``cell_impl="auto"``, s0 drawn from U[0, 1) as that
+    trainer's state init draws it (bf16: a bf16 drive): the spikes and the
+    membrane series bit for bit against the plain version (dyadic V), ms,
+    ``split_ms``, the plan and the bound at this run's firing rate."""
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    shape = (2 * B, T, TP_H)
+    seed = torch.tensor([1234, 99], dtype=torch.int32, device=dev)
+    d = cell_inputs(shape, dyadic=True, seed=1, dev=dev)
+    d["s0"] = torch.rand(d["s0"].shape, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(5))
+    if bf16:
+        d["Wx"] = d["Wx"].to(BF16)
+    kw = dict(seed=seed, bf16=bf16)
+    with torch.no_grad():
+        out, u_seq = train_forward_call("radlif", d, True, **kw)
+        want, want_u = train_forward_call("radlif", d, False, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(out, want) and torch.equal(u_seq, want_u),
+              f"fused_cell_fwd_train {shape} bf16={bf16}: differs from plain")
+        ms = cuda_time_ms(train_forward_call, "radlif", d, True, P_DROP, seed,
+                          True, bf16)
+        plain_ms = cuda_time_ms(train_forward_call, "radlif", d, False,
+                                P_DROP, seed, True, bf16, **PLAIN_ROUNDS)
+        row = fwd_plan_split(lambda sp: train_forward_call(
+            "radlif", d, True, **kw, split_ms=sp))
+    rate = float((u_seq > 1.0).float().mean())  # the raw spikes
+    return dict(shape=list(shape), max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                **row, firing_rate=rate,
+                **cell_bounds(rate, bf16, shape)["fwd_train"])
 
 
 def phase_train_forward(dev):
@@ -801,8 +866,15 @@ def phase_train_forward(dev):
                     row["ms_without_dropout"] = cuda_time_ms(
                         train_forward_call, name, d, True, 0.0, None)
                 if name == "radlif":
+                    with torch.no_grad():
+                        row.update(fwd_plan_split(
+                            lambda sp: train_forward_call(
+                                name, d, True, P_DROP, seed, split_ms=sp)))
+                        row["at_256x1024"] = forward_at_1024(dev)
                     main = dict(max_abs_err=max(err, u_err), ms=row["ms"],
-                                plain_ms=row["plain_ms"])
+                                plain_ms=row["plain_ms"], plan=row["plan"],
+                                split_ms=row["split_ms"],
+                                at_256x1024=row["at_256x1024"])
                     hashed = dict(
                         max_abs_err=err, ms=row["ms"],
                         plain_ms=row["plain_ms"],
@@ -1310,19 +1382,22 @@ def ann_plan(mode, shape, bf16=False, backward=False):
 
 
 SPLIT_NAMES = ("time_loop", "dv_product", "second_passes")
+FWD_SPLIT_NAMES = ("first_product", "time_loop")
 
 
-def split_ms_of(fn, n=5):
-    """Median milliseconds of a backward wrapper's launches (the time loop,
-    the dV product, the second passes) over ``n`` calls of ``fn(split)``,
-    which passes ``split_ms=split`` on: CUDA events around each launch."""
+def split_ms_of(fn, n=5, names=SPLIT_NAMES):
+    """Median milliseconds of a wrapper's launches (a backward's: the time
+    loop, the dV product, the second passes; a spiking forward's, with
+    ``FWD_SPLIT_NAMES``: the first product, the time loop) over ``n`` calls
+    of ``fn(split)``, which passes ``split_ms=split`` on: CUDA events around
+    each launch."""
     splits = []
     for _ in range(n):
         split = []
         fn(split)
         splits.append(split)
     return {k: statistics.median(s[i] for s in splits)
-            for i, k in enumerate(SPLIT_NAMES)}
+            for i, k in enumerate(names)}
 
 
 def dv_library_ms(b, t, h, dev):
@@ -1808,9 +1883,17 @@ def phase_bf16_cell_forward(dev):
                             ms_train=timed(kernel, train),
                             plain_ms_train=timed(plain, train,
                                                  **PLAIN_ROUNDS))
+                        row.update(fwd_plan_split(lambda sp: kernel(
+                            *p["args"], **call, split_ms=sp)))
+                        split = fwd_plan_split(lambda sp: kernel(
+                            *p["args"], **call, **train, split_ms=sp))
+                        row.update(plan_train=split["plan"],
+                                   split_ms_train=split["split_ms"])
+                        row["at_256x1024"] = forward_at_1024(dev, True)
                     main = {k: row[k] for k in (
                         "max_abs_err", "ms", "plain_ms", "ms_train",
-                        "plain_ms_train", "firing_rate")}
+                        "plain_ms_train", "firing_rate", "plan", "split_ms",
+                        "plan_train", "split_ms_train", "at_256x1024")}
                 emit("kernel_vs_plain", kernel="fused_cell_fwd_bf16", **row)
     return main
 
@@ -2010,9 +2093,11 @@ def training_remat(dev, state_dict, x, y):
 
 
 def bf16_kernel_rows(cell_fwd, cell_bwd, ann_fwd, ann_bwd, served, trained,
-                     tp_ann_fwd, tp_ann_bwd):
+                     tp_ann_fwd, tp_ann_bwd, trained_tp_auto):
     """The ``kernels`` entries of the bf16-stream forms; their launches are
-    those of the bf16 ``auto`` Predictors and trainers."""
+    those of the bf16 ``auto`` Predictors and trainers (``trained_tp_auto``:
+    the bf16 RadLIF 1024 ``auto`` trainer's, for the forward at (256, 100,
+    1024))."""
     src = "sparch_tpu_torch/csrc/"
     cb = cell_bounds(cell_fwd["firing_rate"], bf16=True)
     tpu = "sparch_tpu/ops/pallas_cells.py:"
@@ -2021,13 +2106,18 @@ def bf16_kernel_rows(cell_fwd, cell_bwd, ann_fwd, ann_bwd, served, trained,
              source=src + "fused_cell_fwd.cu", replaces=tpu + "305",
              launches=served["RadLIF"]["fused_cell_fwd_bf16"],
              max_abs_err=cell_fwd["max_abs_err"], ms=cell_fwd["ms"],
-             plain_ms=cell_fwd["plain_ms"], **cb["fwd"], library_ms=None),
+             plain_ms=cell_fwd["plain_ms"], **cb["fwd"], library_ms=None,
+             plan=cell_fwd["plan"], split_ms=cell_fwd["split_ms"]),
         dict(name="fused_cell_fwd_train_bf16", route="cuda",
              source=src + "fused_cell_fwd.cu", replaces=tpu + "305",
              launches=trained["RadLIF"]["fused_cell_fwd_train_bf16"],
              max_abs_err=cell_fwd["max_abs_err"], ms=cell_fwd["ms_train"],
              plain_ms=cell_fwd["plain_ms_train"], **cb["fwd_train"],
-             library_ms=None),
+             library_ms=None, plan=cell_fwd["plan_train"],
+             split_ms=cell_fwd["split_ms_train"],
+             at_256x1024=dict(cell_fwd["at_256x1024"],
+                              launches=trained_tp_auto.get(
+                                  "fused_cell_fwd_train_bf16"))),
         dict(name="fused_cell_bwd_bf16", route="cuda",
              source=src + "fused_cell_bwd.cu", replaces=tpu + "631",
              launches=trained["RadLIF"]["fused_cell_bwd_bf16"], **cell_bwd,
@@ -2250,6 +2340,10 @@ def phase_tp_cell_forward(dev, bf16=False):
                                 args[0], None, None, *args[1:],
                                 recurrent=True, adaptive=ada,
                                 save_residuals=True, mxu_bf16=bf16))
+                        row["split_ms"] = split_ms_of(
+                            lambda sp: fused_tp._tp_cell_cuda(
+                                *args, **kw, save_residuals=True,
+                                split_ms=sp), names=FWD_SPLIT_NAMES)
                     if name == "radlif":
                         main[P] = row
                 emit("kernel_vs_plain",
@@ -2471,7 +2565,7 @@ def phase_training_tp(dev, bf16=False):
     against the plain versions within BF16_ULP (else the float64 witness
     rule), and ``vs_float32_tp``: the float32 P = 1 trainer's losses and its
     step-1 gradients' distance, printed, not bounded. Returns the launch
-    counts of each P's run."""
+    counts of each P's run, and of the ``auto`` twin's under "auto"."""
     state_dict = tp_training_state()
     gen = torch.Generator(device=dev).manual_seed(21)
     x = torch.randn((B, T, TP_F), generator=gen, device=dev)
@@ -2485,7 +2579,7 @@ def phase_training_tp(dev, bf16=False):
     rows["scan"], _ = train_variant(dev, "scan", state_dict, x, y, {}, None,
                                     steps=5 if bf16 else TRAIN_STEPS,
                                     **common)
-    rows["auto"], _ = train_variant(
+    rows["auto"], launches["auto"] = train_variant(
         dev, "auto", state_dict, x, y,
         {f"fused_cell_fwd_train{sfx}": 2, f"fused_cell_bwd{sfx}": 2},
         rows["scan"], **common)
@@ -2579,11 +2673,11 @@ def tp_cell_rows(fwd, bwd, trained, bf16=False):
             plain_ms_by_p={q: main[q]["plain_ms"] for q in TP_PS},
             single_card_kernel_ms=main[1]["single_card_kernel_ms"],
             launches_by_p={q: trained[q][name + sfx] for q in TP_PS},
+            split_ms=main[P]["split_ms"],
+            split_ms_by_p={q: main[q]["split_ms"] for q in TP_PS},
+            plan_by_p={q: main[q]["plan"] for q in TP_PS},
             **({} if name == "tp_cell_fwd" else dict(
-                split_ms=main[P]["split_ms"],
-                split_ms_by_p={q: main[q]["split_ms"] for q in TP_PS},
-                dv_library_ms=main[P]["dv_library_ms"],
-                plan_by_p={q: main[q]["plan"] for q in TP_PS}))))
+                dv_library_ms=main[P]["dv_library_ms"]))))
     return rows
 
 
@@ -3141,7 +3235,10 @@ def main() -> int:
              library_ms=None),
         dict(name="fused_cell_fwd_train", route="cuda",
              source=src + "fused_cell_fwd.cu", replaces=tpu + "305",
-             launches=trained["fused_cell_fwd_train"], **fwd_train,
+             launches=trained["fused_cell_fwd_train"],
+             **dict(fwd_train, at_256x1024=dict(
+                 fwd_train["at_256x1024"],
+                 launches=tp_trained["auto"]["fused_cell_fwd_train"])),
              **cb["fwd_train"], library_ms=None),
         dict(name="dropout_hash", route="cuda",
              source=src + "dropout_hash.cuh", replaces=tpu + "265",
@@ -3165,7 +3262,7 @@ def main() -> int:
                         tp_ann_fwd, tp_ann_bwd) \
         + bf16_kernel_rows(bf16_cell, bf16_bwd, bf16_ann_fwd, bf16_ann_bwd,
                            bf16_served, bf16_trained, tp_ann_fwd16,
-                           tp_ann_bwd16) \
+                           tp_ann_bwd16, tp_trained16["auto"]) \
         + tp_kernel_rows(tp_coll_launches, tp_coll, tp_fwd, tp_bwd,
                          tp_trained) \
         + tp_ann_kernel_rows(tp_ann_fwd, tp_ann_bwd, tp_ann_trained) \

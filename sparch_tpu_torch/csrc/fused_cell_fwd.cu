@@ -33,15 +33,23 @@
 // dropout the raw spike stays in the recurrence and only the stored
 // output is dropped, so the mask needs no storage either.
 //
-// What bounds it on this card: the T dependent steps. At the serving
-// shape (B=128, T=100, H=512) the kernel reads 26 MB of Wx and writes
-// 26 MB of spikes once each, about 16 us at HBM rate, and V (1 MB) stays
-// in L2. But each step of a recurrent cell needs the whole spike vector of
-// the step before, so a step is one block barrier plus an H-long gather,
-// and T of them run one after another: latency, not bandwidth or FLOPs,
-// sets the time.
+// What bounds it on this card (measured, PERF.md section 6): the T
+// dependent steps, each of which needs the whole spike vector of the step
+// before. The layout of one block a batch row read every spiking row of V
+// over all H columns in every block, from L2, in 4-byte requests: at (256,
+// 100, 1024) ~145 MB of L2 a step and 3.04 ms a call, the bf16 mode (half
+// the bytes) 3.06: requests and their latency, not bytes. The recurrent
+// forms therefore run the column-slice layout of spike_slices.cuh: a block
+// holds a slice of V's columns in shared memory for all T and serves a
+// group of batch rows with it, so V is read from L2 once a call and every
+// element loaded from shared memory serves each row whose spike word has
+// its bit; the blocks of a row group exchange their spike words through
+// global memory, one arrival a block and step. The plan (ops/fused_cells.py
+// `_fwd_plan`) comes from the wrapper and is checked here. Past the widest
+// width whose slice fits in shared memory (H > ~1600), and for LIF and
+// adLIF, which have no product, the layout below runs:
 //
-// Design:
+// Design (the layout of one block a batch row):
 // - One block owns one batch row for the whole sequence. Blocks run in no
 //   order, so the TPU kernel's sequential grid over time chunks becomes a
 //   loop over T inside the block, and nothing carries between blocks.
@@ -73,15 +81,24 @@
 //   float32, so float32 adds of float32 products compute the bf16 product
 //   with a float32 sum.
 //
+// Both layouts add the same spiking rows in the same ascending order from
+// 0.f and take the same first product, so their outputs are equal bit for
+// bit on any V.
+//
 // C interface, bound with ctypes: sparch_fused_cell_fwd returns
 // cudaGetLastError() after the launch (or an invalid-value error for a
-// shape it does not take) and never synchronises; so does
-// sparch_fused_cell_fwd_train.
+// shape or a plan it does not take) and never synchronises, unless it is
+// given split_ms (the column-slice layout only): then it records CUDA
+// events around its two launches (the first product, the time loop) and
+// waits for them; so does sparch_fused_cell_fwd_train.
+// sparch_fused_cell_fwd_slice_blocks reports the column-slice kernel's
+// blocks an SM for the wrapper's plan.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "dropout_hash.cuh"
+#include "spike_slices.cuh"
 #include "tile_stream.cuh"
 
 namespace {
@@ -379,7 +396,138 @@ int launch_form(const ArgsBf16& p, int B, int recurrent, int adaptive,
   return (int)cudaGetLastError();
 }
 
+// The recurrent forms in the column-slice layout (spike_slices.cuh): the
+// plan {cols, rows, n_res, n_groups, threads} checked, the first product
+// into sv0, the time loop over slices of V, the tagged spike words
+// through slots ([2][B][ceil(H/32)] u64).
+template <bool A, bool F, bool RS, bool DR, bool BF>
+int launch_slices(const ArgsBf16& p, int B, const int* plan, float* sv0,
+                  void* slots, float* split_ms, cudaStream_t st) {
+  sparch::slices::Args s{};
+  s.wx = p.wx;
+  s.scale = p.scale;
+  s.shift = p.shift;
+  s.alpha = p.alpha;
+  s.beta = p.beta;
+  s.a = p.a;
+  s.b = p.b;
+  s.V = p.V;
+  s.sv0 = sv0;
+  s.u0 = p.u0;
+  s.w0 = p.w0;
+  s.s0f = p.s0;
+  s.s_out = p.s_out;
+  s.u_out = p.u_out;
+  s.seed = p.seed;
+  s.keep_u32 = p.keep_u32;
+  s.inv_keep = p.inv_keep;
+  s.tile_rows = p.tile_rows;
+  s.peers.slots[0] = slots;
+  s.B = B;
+  s.T = p.T;
+  s.H = p.H;
+  s.W = (p.H + 31) / 32;
+  s.P = 1;
+  s.rank0 = 0;
+  s.n_local = 1;
+  s.Hl = p.H;
+  s.ld = p.H;
+  s.cols = plan[0];
+  s.rows = plan[1];
+  s.n_res = plan[2];
+  s.n_groups = plan[3];
+  s.S_r = s.cols > 0 ? (p.H + s.cols - 1) / s.cols : 0;
+  s.threshold = p.threshold;
+  s.wx_bf16 = p.wx_bf16;
+  const int threads = plan[4];
+  if (!sv0 || !slots || !sparch::slices::check_plan(s, threads, BF)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)sparch::slices::launch<A, F, RS, DR, BF>(s, sv0, threads,
+                                                        split_ms, st);
+}
+
+template <bool A, bool F>
+int slices_form(const ArgsBf16& p, int B, bool resid, bool dropout, bool bf16,
+                const int* plan, float* sv0, void* slots, float* split_ms,
+                cudaStream_t st) {
+#define SPARCH_SLICES(RS, DR)                                              \
+  return bf16 ? launch_slices<A, F, RS, DR, true>(p, B, plan, sv0, slots,  \
+                                                  split_ms, st)            \
+              : launch_slices<A, F, RS, DR, false>(p, B, plan, sv0, slots, \
+                                                   split_ms, st)
+  if (resid && dropout) SPARCH_SLICES(true, true);
+  if (resid) SPARCH_SLICES(true, false);
+  if (dropout) SPARCH_SLICES(false, true);
+  SPARCH_SLICES(false, false);
+#undef SPARCH_SLICES
+}
+
+// Both entry points: the column-slice layout where the caller passes a
+// plan (recurrent forms only), else the layout of one block a batch row.
+int launch_any(const ArgsBf16& p, int B, int recurrent, int adaptive,
+               int affine, int bf16, const int* plan, float* sv0,
+               void* slots, float* split_ms, void* stream) {
+  if (!plan) {
+    if (split_ms) return (int)cudaErrorInvalidValue;
+    return launch_form(p, B, recurrent, adaptive, affine, bf16, stream);
+  }
+  const int T = p.T, H = p.H;
+  if (!recurrent || B <= 0 || T <= 0 || H <= 0 || !p.wx || !p.alpha ||
+      !p.u0 || !p.s0 || !p.s_out || !p.V ||
+      (adaptive && (!p.beta || !p.a || !p.b || !p.w0)) ||
+      (affine && (!p.scale || !p.shift)) || (p.wx_bf16 && !bf16) ||
+      (p.seed && p.tile_rows <= 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool resid = p.u_out != nullptr, dropout = p.seed != nullptr;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (adaptive) {
+    return affine ? slices_form<true, true>(p, B, resid, dropout, bf16, plan,
+                                            sv0, slots, split_ms, st)
+                  : slices_form<true, false>(p, B, resid, dropout, bf16, plan,
+                                             sv0, slots, split_ms, st);
+  }
+  return affine ? slices_form<false, true>(p, B, resid, dropout, bf16, plan,
+                                           sv0, slots, split_ms, st)
+                : slices_form<false, false>(p, B, resid, dropout, bf16, plan,
+                                            sv0, slots, split_ms, st);
+}
+
 }  // namespace
+
+// Blocks of the column-slice time loop an SM holds at the plan (cols, rows,
+// threads) of a recurrent form; 0 where that plan cannot run.
+extern "C" int sparch_fused_cell_fwd_slice_blocks(int adaptive, int affine,
+                                                  int resid, int dropout,
+                                                  int bf16, int H, int cols,
+                                                  int rows, int threads) {
+  using sparch::slices::blocks_per_sm;
+#define SPARCH_OCC(A, F)                                                     \
+  {                                                                          \
+    if (bf16) {                                                              \
+      if (resid && dropout)                                                  \
+        return blocks_per_sm<A, F, true, true, true>(H, cols, rows, threads); \
+      if (resid)                                                             \
+        return blocks_per_sm<A, F, true, false, true>(H, cols, rows, threads);\
+      if (dropout)                                                           \
+        return blocks_per_sm<A, F, false, true, true>(H, cols, rows, threads);\
+      return blocks_per_sm<A, F, false, false, true>(H, cols, rows, threads); \
+    }                                                                        \
+    if (resid && dropout)                                                    \
+      return blocks_per_sm<A, F, true, true, false>(H, cols, rows, threads);  \
+    if (resid)                                                               \
+      return blocks_per_sm<A, F, true, false, false>(H, cols, rows, threads); \
+    if (dropout)                                                             \
+      return blocks_per_sm<A, F, false, true, false>(H, cols, rows, threads); \
+    return blocks_per_sm<A, F, false, false, false>(H, cols, rows, threads);  \
+  }
+  if (adaptive && affine) SPARCH_OCC(true, true)
+  if (adaptive) SPARCH_OCC(true, false)
+  if (affine) SPARCH_OCC(false, true)
+  SPARCH_OCC(false, false)
+#undef SPARCH_OCC
+}
 
 // Serving form: spikes only. bf16 selects the bf16-stream mode (s_out and V
 // bf16; wx bf16 where wx_bf16, else float).
@@ -388,11 +536,13 @@ extern "C" int sparch_fused_cell_fwd(
     const float* alpha, const float* beta, const float* a, const float* b,
     const void* V, const float* u0, const float* w0, const float* s0,
     void* s_out, int B, int T, int H, float threshold, int recurrent,
-    int adaptive, int affine, int bf16, int wx_bf16, void* stream) {
+    int adaptive, int affine, int bf16, int wx_bf16, const int* plan,
+    float* sv0, void* slots, float* split_ms, void* stream) {
   const ArgsBf16 p{{wx, scale, shift, alpha, beta, a, b, V, u0, w0, s0, s_out,
                     T, H, threshold, nullptr, nullptr, 0u, 1.f, 1},
                    wx_bf16};
-  return launch_form(p, B, recurrent, adaptive, affine, bf16, stream);
+  return launch_any(p, B, recurrent, adaptive, affine, bf16, plan, sv0,
+                    slots, split_ms, stream);
 }
 
 // Training form: u_out non-null writes the membrane series, seed non-null
@@ -405,10 +555,12 @@ extern "C" int sparch_fused_cell_fwd_train(
     void* s_out, float* u_out, const int* seed, int B, int T, int H,
     float threshold, int recurrent, int adaptive, int affine,
     unsigned int keep_u32, float inv_keep, int tile_rows, int bf16,
-    int wx_bf16, void* stream) {
+    int wx_bf16, const int* plan, float* sv0, void* slots, float* split_ms,
+    void* stream) {
   const ArgsBf16 p{{wx, scale, shift, alpha, beta, a, b, V, u0, w0, s0, s_out,
                     T, H, threshold, u_out, seed, keep_u32, inv_keep,
                     tile_rows},
                    wx_bf16};
-  return launch_form(p, B, recurrent, adaptive, affine, bf16, stream);
+  return launch_any(p, B, recurrent, adaptive, affine, bf16, plan, sv0,
+                    slots, split_ms, stream);
 }

@@ -24,13 +24,23 @@
 // has no time chunks, so its boundaries are u0/s0, and its backward takes
 // dbeta without the w series (as fused_cell_bwd.cu does), so no w is saved.
 //
-// What bounds it on this card: the T dependent steps, as in the single-card
-// kernel: each step needs every rank's spikes of the step before. A step is
-// a gather-sum over the spiking rows of V's column block (from L2) and one
-// exchange: each rank stores its Hl/32 spike words into every rank's slot,
-// and a release/acquire handshake between the P blocks of the row.
+// What bounds it on this card (measured, PERF.md section 6): the T
+// dependent steps, as in the single-card kernel. The layout of one block a
+// (rank, batch row) read the spiking rows of V's column block from L2 at
+// every step and made one release/acquire handshake between the P blocks
+// of each row at system scope: at (256, 100, 1024) 2.94 / 4.40 / 4.95 ms
+// at P = 1 / 2 / 4, 15-20 us more a step at P > 1. It now runs the
+// column-slice layout of spike_slices.cuh where a slice fits in shared
+// memory: each rank's column block is cut into slices, every slice of
+// every rank is a block of one cooperative launch, and the blocks of a row
+// group exchange the spike words through the slots in one arrival a block
+// and step; in the one-card form all ranks share rank 0's slot (no
+// counter), so the exchange between ranks is the exchange between slices
+// and costs the same at every P. The plan (ops/fused_tp.py, through
+// ops/fused_cells.py `_fwd_plan`) comes from the wrapper and is checked
+// here. Past the widest resident width, the layout below runs:
 //
-// Design:
+// Design (the layout of one block a rank and batch row):
 // - One block runs one rank's neurons of one batch row for the whole
 //   sequence (fused_cell_fwd.cu's layout with H replaced by Hl); a block
 //   walks rows k, k + per_rank, ... where the card holds fewer than P*B
@@ -41,13 +51,17 @@
 //   rank's at words r*Hl/32 ... The words are read back from the own slot
 //   into shared memory, and (s_full @ V[:, shard])[j] is the sum of the
 //   rows k of V at which s_full spiked, k ascending, as in
-//   fused_cell_fwd.cu; a row of the column block is read coalesced.
+//   fused_cell_fwd.cu; a row of the column block is read coalesced. Each
+//   (rank, row) block stores its words into every rank's slot and makes a
+//   release/acquire handshake with the P - 1 peers of its row
+//   (tp_exchange.cuh).
 // - Rounding: __fmul_rn/__fadd_rn/__fsub_rn in the JAX kernel's order, so
 //   with V on a dyadic grid every s @ V is exact and the spike trains and
 //   membrane series equal the plain version's (ops/fused_tp.py
 //   tp_cell_plain) and, at any P, the single-card kernel's without the
-//   affine, bit for bit. The first product (s0 need not be 0/1) sums over
-//   k ascending, product then sum, as fused_cell_fwd.cu does.
+//   affine, bit for bit; the two layouts are equal bit for bit on any V.
+//   The first product (s0 need not be 0/1) sums over k ascending, product
+//   then sum, as fused_cell_fwd.cu does.
 // - Rank data: the local rank l's column block starts at column l*Hl of
 //   tensors with row stride ld. In the one-card form they are the full
 //   (…, H) tensors (ld = H); across cards each rank's own (ld = Hl).
@@ -66,12 +80,17 @@
 //
 // C interface, bound with ctypes: sparch_tp_cell_fwd returns the launch's
 // cudaError_t (or an invalid-value error for arguments it does not take)
-// and never synchronises. `plan` (host memory, may be null) receives
-// {1 row per block, blocks per rank, blocks per SM, threads}.
+// and never synchronises, unless given split_ms (column slices only). With
+// `slices` (the column-slice plan, host memory) it runs that layout, else
+// the layout of a block a row, and then `plan` (host memory, may be null)
+// receives {1 row per block, blocks per rank, blocks per SM, threads}.
+// sparch_tp_cell_fwd_slice_blocks reports the column-slice kernel's blocks
+// an SM for the wrapper's plan.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "spike_slices.cuh"
 #include "tile_stream.cuh"
 #include "tp_exchange.cuh"
 
@@ -307,10 +326,86 @@ int launch_form(typename ModeArgs<BF>::type& p, bool adaptive, bool resid,
                : launch_npt<false, false, BF>(p, npt, plan, st);
 }
 
+// The column-slice layout (spike_slices.cuh) over the launch's ranks: the
+// plan {cols, rows, n_res, n_groups, threads} checked, the first product
+// into sv0, the time loop over slices of V.
+template <bool A, bool R, bool BF>
+int launch_slices(const FwdArgsBf16& f, const int* plan, float* sv0,
+                  float* split_ms, cudaStream_t st) {
+  sparch::slices::Args s{};
+  s.wx = f.wx;
+  s.alpha = f.alpha;
+  s.beta = f.beta;
+  s.a = f.a;
+  s.b = f.b;
+  s.V = f.V;
+  s.sv0 = sv0;
+  s.u0 = f.u0;
+  s.w0 = f.w0;
+  s.s0f = f.s0f;
+  s.s_out = f.s_out;
+  s.u_out = f.u_out;
+  s.peers = f.peers;
+  s.B = f.B;
+  s.T = f.T;
+  s.H = f.H;
+  s.W = f.H / 32;
+  s.P = f.lay.P;
+  s.rank0 = f.lay.rank0;
+  s.n_local = f.lay.n_local;
+  s.Hl = f.Hl;
+  s.ld = f.ld;
+  s.cols = plan[0];
+  s.rows = plan[1];
+  s.n_res = plan[2];
+  s.n_groups = plan[3];
+  s.S_r = s.cols > 0 ? (f.Hl + s.cols - 1) / s.cols : 0;
+  s.threshold = f.threshold;
+  s.wx_bf16 = f.wx_bf16;
+  const int threads = plan[4];
+  if (!sv0 || !sparch::slices::check_plan(s, threads, BF)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)sparch::slices::launch<A, false, R, false, BF>(
+      s, sv0, threads, split_ms, st);
+}
+
 }  // namespace
 
+// Blocks of the column-slice time loop an SM holds at the plan (cols, rows,
+// threads); 0 where that plan cannot run.
+extern "C" int sparch_tp_cell_fwd_slice_blocks(int adaptive, int resid,
+                                               int bf16, int H, int cols,
+                                               int rows, int threads) {
+  using sparch::slices::blocks_per_sm;
+  if (adaptive) {
+    if (bf16) {
+      return resid ? blocks_per_sm<true, false, true, false, true>(
+                         H, cols, rows, threads)
+                   : blocks_per_sm<true, false, false, false, true>(
+                         H, cols, rows, threads);
+    }
+    return resid ? blocks_per_sm<true, false, true, false, false>(
+                       H, cols, rows, threads)
+                 : blocks_per_sm<true, false, false, false, false>(
+                       H, cols, rows, threads);
+  }
+  if (bf16) {
+    return resid ? blocks_per_sm<false, false, true, false, true>(
+                       H, cols, rows, threads)
+                 : blocks_per_sm<false, false, false, false, true>(
+                       H, cols, rows, threads);
+  }
+  return resid ? blocks_per_sm<false, false, true, false, false>(
+                     H, cols, rows, threads)
+               : blocks_per_sm<false, false, false, false, false>(
+                     H, cols, rows, threads);
+}
+
 // slots/flags: host arrays of P device pointers, every rank's spike-word
-// slots ([2][B][H/32] u32) and zeroed counters ([P][B][2] u32). u_out
+// slots ([2][B][H/32] u32) and zeroed counters ([P][B][2] u32); with a
+// plan (`slices`) every rank's slot of tagged words ([2][B][H/32] u64;
+// in the one-card form only rank 0's is read) and no counters. u_out
 // non-null writes the membrane series. bf16 selects the bf16-stream mode
 // (V and s_out bf16; wx bf16 where wx_bf16, else float).
 extern "C" int sparch_tp_cell_fwd(
@@ -319,7 +414,8 @@ extern "C" int sparch_tp_cell_fwd(
     const float* s0f, void* s_out, float* u_out, void* const* slots,
     unsigned* const* flags, int B, int T, int H, int P, int rank0,
     int n_local, int ld, float threshold, int adaptive, int bf16,
-    int wx_bf16, int* plan, void* stream) {
+    int wx_bf16, const int* slices, float* sv0, float* split_ms, int* plan,
+    void* stream) {
   if (B <= 0 || T <= 0 || P < 1 || P > sparch::tp::kMaxRanks || H <= 0 ||
       H % (P * 128) != 0 || n_local < 1 || rank0 < 0 ||
       rank0 + n_local > P || H / P > kMaxThreads * kMaxNpt || !wx ||
@@ -328,7 +424,13 @@ extern "C" int sparch_tp_cell_fwd(
     return (int)cudaErrorInvalidValue;
   }
   FwdArgsBf16 p{};
-  if (!sparch::tp::make_peers(slots, flags, P, &p.peers)) {
+  if (slices) {
+    if (!slots) return (int)cudaErrorInvalidValue;
+    for (int q = 0; q < P; ++q) {
+      if (!slots[q]) return (int)cudaErrorInvalidValue;
+      p.peers.slots[q] = slots[q];
+    }
+  } else if (!sparch::tp::make_peers(slots, flags, P, &p.peers)) {
     return (int)cudaErrorInvalidValue;
   }
   p.wx = wx;
@@ -358,6 +460,31 @@ extern "C" int sparch_tp_cell_fwd(
   p.wx_bf16 = wx_bf16;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool resid = u_out != nullptr;
+  if (slices) {
+    if (adaptive) {
+      if (bf16) {
+        return resid ? launch_slices<true, true, true>(p, slices, sv0,
+                                                       split_ms, st)
+                     : launch_slices<true, false, true>(p, slices, sv0,
+                                                        split_ms, st);
+      }
+      return resid ? launch_slices<true, true, false>(p, slices, sv0,
+                                                      split_ms, st)
+                   : launch_slices<true, false, false>(p, slices, sv0,
+                                                       split_ms, st);
+    }
+    if (bf16) {
+      return resid ? launch_slices<false, true, true>(p, slices, sv0,
+                                                      split_ms, st)
+                   : launch_slices<false, false, true>(p, slices, sv0,
+                                                       split_ms, st);
+    }
+    return resid ? launch_slices<false, true, false>(p, slices, sv0,
+                                                     split_ms, st)
+                 : launch_slices<false, false, false>(p, slices, sv0,
+                                                      split_ms, st);
+  }
+  if (split_ms) return (int)cudaErrorInvalidValue;
   if (bf16) return launch_form<true>(p, adaptive, resid, npt, plan, st);
   return launch_form<false>(static_cast<FwdArgs&>(p), adaptive, resid, npt,
                             plan, st);

@@ -45,7 +45,8 @@ which kernels it went through.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+import functools
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -84,9 +85,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint32
-_FWD_ARGS = [_P] * 12 + [_I] * 3 + [_F] + [_I] * 5 + [_P]
+# both entry points end in the column-slice layout's plan, first product,
+# exchange buffers and split (csrc/spike_slices.cuh)
+_FWD_ARGS = [_P] * 12 + [_I] * 3 + [_F] + [_I] * 5 + [_P] * 5
 _FWD_TRAIN_ARGS = ([_P] * 14 + [_I] * 3 + [_F] + [_I] * 3 + [_U, _F, _I]
-                   + [_I] * 2 + [_P])
+                   + [_I] * 2 + [_P] * 5)
 _BWD_ARGS = ([_P] * 22 + [_I] * 3 + [_F] + [_I] * 3 + [_U, _F, _I]
              + [_I] * 7 + [_P, _P])
 # one C entry point per form serves both stream modes; the modes are
@@ -150,9 +153,10 @@ def reset_launch_counts() -> None:
 
 
 def last_plans() -> Dict[str, dict]:
-    """The plan of the last launch of ``fused_cell_bwd`` (either stream
-    mode): the time loop's cluster plan (recurrent forms), the partials of
-    the parameter gradients and the split of the dV product."""
+    """The plan of the last launch of ``fused_cell_fwd`` (any form, either
+    stream mode): ``FwdPlan``'s fields; and of ``fused_cell_bwd``: the time
+    loop's cluster plan (recurrent forms), the partials of the parameter
+    gradients and the split of the dV product."""
     return dict(_PLANS)
 
 
@@ -479,20 +483,162 @@ def _check_cell_operands(Wx, scale, alpha, beta, a, b, V, u0, w0, s0,
         _check("V", V, (H, H), dev)
 
 
+# csrc/spike_slices.cuh: threads of a block at most, the shared memory a
+# block can ask for, batch rows of a first-product block
+_SLICE_THREADS = 512
+_SLICE_SMEM = 232448
+
+
+class FwdPlan(NamedTuple):
+    """The launch plan of a recurrent spiking forward (``csrc/fused_cell_fwd.cu``,
+    ``csrc/tp_cell_fwd.cu``), from ``_fwd_plan``."""
+
+    layout: str    # "slices": csrc/spike_slices.cuh; "rows": a block a row
+    cols: int      # columns of a block's slice of a rank's block (padded)
+    rows: int      # batch rows of a group
+    n_res: int     # groups at work at once (blocks of each slice)
+    n_groups: int
+    slices: int    # slices of a rank
+    threads: int   # of a block
+    per_sm: int    # blocks an SM holds at this plan (0: not asked)
+    walks: int     # groups a block walks, one after another
+
+
+def _slice_lane(mxu_bf16: bool):
+    """(columns a lane owns, rows a warp walks at most): ``Lane`` of
+    ``csrc/spike_slices.cuh``."""
+    return (2, 2) if mxu_bf16 else (1, 4)
+
+
+def _slice_smem(H: int, cols: int, rows: int, threads: int,
+                mxu_bf16: bool) -> int:
+    """Dynamic shared memory of a slice block (``smem_bytes``): the slice
+    and its zero row, two parities of the group's spike words, one list a
+    warp of 4-byte entries."""
+    e = 2 if mxu_bf16 else 4
+    words = -(-H // 32)
+    return (-(-(H + 1) * cols * e // 16) * 16 + -(-rows * words * 8 // 16) * 16
+            + threads // 32 * ((H + 11) // 4 * 4) * 4)
+
+
+def _fwd_plan(B: int, H: int, P: int, mxu_bf16: bool, sms: int,
+              per_sm: Callable[[int, int, int], int]) -> Optional[FwdPlan]:
+    """The column-slice plan of a recurrent spiking forward over P ranks of
+    H/P columns (P = 1: the single-card kernel) on a card of ``sms`` SMs,
+    whose kernel an SM holds ``per_sm(cols, rows, threads)`` blocks of; None
+    where no slice of V fits in shared memory (the kernels then take their
+    layout of one block a batch row and rank).
+
+    A block holds ``cols`` columns of a rank's block (a multiple of 32, 64
+    in the bf16 mode) of all H rows of V, and the neurons of those columns
+    for ``rows`` batch rows; a warp owns a row's 32 (64) columns, so
+    ``threads`` is 32 x warps a slice row x rows at a time (up to 512), and
+    a warp walks at most ``_slice_lane`` rows. The launch holds the slices of
+    all ranks times ``n_res`` groups at once; a block walks its groups. The
+    plan takes the least work an SM and step (rows x cols x the blocks an SM
+    runs x walks), then the fewest walks, the fewest blocks a group (the
+    exchange), the most threads."""
+    cpt, nr = _slice_lane(mxu_bf16)
+    hl = H // P
+    best, best_key = None, None
+    for m in range(1, _SLICE_THREADS // 32 + 1):
+        cols = 32 * cpt * m
+        if cols - 32 * cpt >= hl or \
+                _slice_smem(H, cols, 1, 32 * m, mxu_bf16) > _SLICE_SMEM:
+            break
+        slices = -(-hl // cols)
+        per_group = P * slices
+        q_max = _SLICE_THREADS // 32 // m
+        for rows in range(1, min(B, q_max * nr) + 1):
+            q = min(q_max, rows)
+            threads = 32 * m * q
+            if _slice_smem(H, cols, rows, threads, mxu_bf16) > _SLICE_SMEM:
+                break
+            held = per_sm(cols, rows, threads)
+            n_res = min(-(-B // rows), held * sms // per_group)
+            if n_res < 1:
+                continue
+            n_groups = -(-B // rows)
+            walks = -(-n_groups // n_res)
+            work = walks * -(-per_group * n_res // sms) * rows * cols
+            key = (work, walks, per_group, -threads)
+            if best_key is None or key < best_key:
+                best_key = key
+                best = FwdPlan("slices", cols, rows, n_res, n_groups, slices,
+                               threads, held, walks)
+    return best
+
+
+def _rows_plan(B: int, H: int, P: int, threads: int, per_rank: int = 0,
+               per_sm: int = 0) -> FwdPlan:
+    """The layout of one block a batch row and rank, as a ``FwdPlan``
+    (``per_rank``: blocks a rank, 0 for B)."""
+    per_rank = per_rank or B
+    return FwdPlan("rows", H // P, 1, per_rank, B, 1, threads, per_sm,
+                   -(-B // per_rank))
+
+
+@functools.lru_cache(maxsize=None)
+def card_plan(source: str, form: tuple, B: int, H: int, P: int,
+              mxu_bf16: bool, device_index: int) -> Optional[FwdPlan]:
+    """``_fwd_plan`` on the card ``device_index`` for the kernel form
+    ``form`` of ``source`` (``slice_blocks``' leading arguments), computed
+    once a shape."""
+    with torch.cuda.device(device_index):
+        sms = torch.cuda.get_device_properties(
+            device_index).multi_processor_count
+        return _fwd_plan(B, H, P, mxu_bf16, sms,
+                         lambda c, r, t: slice_blocks(source, *form, H, c, r,
+                                                      t))
+
+
+@functools.lru_cache(maxsize=None)
+def slice_blocks(source: str, *form: int) -> int:
+    """Blocks of the column-slice time loop of ``source`` (``fused_cell_fwd``:
+    form adaptive, affine, resid, dropout, bf16; ``tp_cell_fwd``: adaptive,
+    resid, bf16; then H, cols, rows, threads) that an SM of the current card
+    holds, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; 0 where
+    the plan cannot run."""
+    from sparch_tpu_torch import _build
+
+    path = _build.library_path(source)
+    if not path.exists():
+        _build.build([source])
+    fn = getattr(ctypes.CDLL(str(path)), f"sparch_{source}_slice_blocks")
+    fn.argtypes = [_I] * len(form)
+    fn.restype = _I
+    return fn(*form)
+
+
+def _slice_launch_args(plan: FwdPlan, B: int, H: int, dev):
+    """What a slice launch takes beside the operands and the slot of the
+    spike words: the plan array and the first product's buffer."""
+    plan_arr = (ctypes.c_int * 5)(plan.cols, plan.rows, plan.n_res,
+                                  plan.n_groups, plan.threads)
+    sv0 = torch.empty((B, H), dtype=torch.float32, device=dev)
+    return plan_arr, sv0
+
+
 def _fused_cell_cuda(Wx, scale, shift, alpha, beta, a, b, V, threshold,
                      u0, w0, s0, *, recurrent: bool, adaptive: bool,
                      drop_rate: float = 0.0, seed=None,
-                     save_residuals: bool = False, mxu_bf16: bool = False):
+                     save_residuals: bool = False, mxu_bf16: bool = False,
+                     split_ms=None):
     """Launch ``csrc/fused_cell_fwd.cu``: its serving entry point without
     dropout and residuals, else its training entry point, in the float32
-    or the bf16 stream mode. Same contract as ``fused_cell_plain``."""
+    or the bf16 stream mode; the recurrent forms in the column-slice layout
+    where ``_fwd_plan`` finds one. Same contract as ``fused_cell_plain``.
+    ``split_ms`` (a list, for timing only; slice layout) receives the
+    milliseconds of the first product and of the time loop, CUDA events
+    around each launch; the call then waits for the card."""
     B, T, H = Wx.shape
     dev = Wx.device
     _check_cell_operands(Wx, scale, alpha, beta, a, b, V, u0, w0, s0,
                          recurrent, adaptive, shift=shift,
                          wx_dtype=_wx_dtypes(mxu_bf16))
-    training_form = save_residuals or drop_rate > 0.0
-    if drop_rate > 0.0:
+    dropout = drop_rate > 0.0
+    training_form = save_residuals or dropout
+    if dropout:
         _check("seed", seed, (2,), dev, torch.int32)
     out = torch.empty(Wx.shape, dtype=_stream_dtype(mxu_bf16, Wx),
                       device=dev)
@@ -504,27 +650,54 @@ def _fused_cell_cuda(Wx, scale, shift, alpha, beta, a, b, V, threshold,
         beta = a = b = w0 = None
     if recurrent and mxu_bf16:
         V = V.to(_BF16)  # rounded once, as the JAX wrapper does
+    affine = scale is not None
     mode = (int(mxu_bf16), int(Wx.dtype == _BF16))
+    plan = None
     with torch.cuda.device(dev):
+        if recurrent:
+            form = (int(adaptive), int(affine), int(save_residuals),
+                    int(dropout), int(mxu_bf16))
+            plan = card_plan("fused_cell_fwd", form, B, H, 1, mxu_bf16,
+                             torch.cuda.current_device())
+        if plan is None:
+            if split_ms is not None:
+                raise ValueError("split_ms: the slice layout only")
+            npt = 1
+            while -(-H // npt) > 512:
+                npt *= 2
+            plan = _rows_plan(B, H, 1, -(-H // npt // 32) * 32)
+            tail = (None,) * 4
+        else:
+            plan_arr, sv0 = _slice_launch_args(plan, B, H, dev)
+            # the tagged spike words ([2][B][ceil(H/32)] u64; the first
+            # product's launch zeroes them)
+            slots = torch.empty((2, B, -(-H // 32)), dtype=torch.int64,
+                                device=dev)
+            split = (ctypes.c_float * 2)() if split_ms is not None else None
+            tail = (ctypes.cast(plan_arr, ctypes.c_void_p), _ptr(sv0),
+                    _ptr(slots),
+                    ctypes.cast(split, ctypes.c_void_p) if split else None)
         stream = torch.cuda.current_stream(dev).cuda_stream
         head = (_ptr(Wx), _ptr(scale), _ptr(shift), _ptr(alpha), _ptr(beta),
                 _ptr(a), _ptr(b), _ptr(V) if recurrent else None, _ptr(u0),
                 _ptr(w0), _ptr(s0), _ptr(out))
         shape = (B, T, H, float(threshold), int(recurrent), int(adaptive),
-                 int(scale is not None))
+                 int(affine))
         if training_form:
-            dropout = drop_rate > 0.0
             launch = FUSED_CELL_FWD_TRAIN_BF16 if mxu_bf16 \
                 else FUSED_CELL_FWD_TRAIN
             launch(
                 *head, _ptr(u_seq), _ptr(seed) if dropout else None, *shape,
                 keep_u32(drop_rate) if dropout else 0,
                 _inv_keep(drop_rate) if dropout else 1.0,
-                dropout_tile_rows(B), *mode, stream,
+                dropout_tile_rows(B), *mode, *tail, stream,
             )
         else:
             launch = FUSED_CELL_FWD_BF16 if mxu_bf16 else FUSED_CELL_FWD
-            launch(*head, *shape, *mode, stream)
+            launch(*head, *shape, *mode, *tail, stream)
+    _PLANS["fused_cell_fwd"] = plan._asdict()
+    if split_ms is not None:
+        split_ms[:] = list(split)
     return (out, u_seq) if save_residuals else out
 
 

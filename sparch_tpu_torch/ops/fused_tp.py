@@ -54,7 +54,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -103,7 +103,7 @@ TP_REDUCE_SCATTER = Kernel("tp_collectives", "sparch_tp_reduce_scatter",
                            _COLLECTIVE_ARGS, name="tp_reduce_scatter")
 # one C entry point per direction serves both stream modes; the modes are
 # counted apart
-_FWD_ARGS = [_P] * 13 + [_I] * 7 + [_F] + [_I] * 3 + [_P, _P]
+_FWD_ARGS = [_P] * 13 + [_I] * 7 + [_F] + [_I] * 3 + [_P] * 5
 _BWD_ARGS = [_P] * 20 + [_I] * 7 + [_F] + [_I] * 7 + [_P] * 3
 TP_CELL_FWD = Kernel("tp_cell_fwd", "sparch_tp_cell_fwd", _FWD_ARGS)
 TP_CELL_BWD = Kernel("tp_cell_bwd", "sparch_tp_cell_bwd", _BWD_ARGS)
@@ -126,15 +126,15 @@ _SPLIT_WORK = 16
 _SPLIT_STAGE_BYTES = 3 * 65536
 _SPLIT_SMEM = 227 * 1024 - 256
 
-_PLANS: Dict[str, Tuple[int, ...]] = {}
+_PLANS: Dict[str, Union[Tuple[int, ...], dict]] = {}
 
 
-def last_plans() -> Dict[str, Tuple[int, ...]]:
+def last_plans() -> Dict[str, Union[Tuple[int, ...], dict]]:
     """The launch plan of each kernel's last launch: the collectives'
-    (blocks per rank, blocks per SM), the spiking forward's (rows per
-    block, blocks per rank, blocks per SM, threads per block), the spiking
-    backward's (``last_bwd_plan``) and the non-spiking cells' as
-    ``fused_tp_ann.last_plan`` names them."""
+    (blocks per rank, blocks per SM), the spiking forward's
+    (``fused_cells.FwdPlan``'s fields, as ``fused_cells.last_plans`` holds
+    them), the spiking backward's (``last_bwd_plan``) and the non-spiking
+    cells' as ``fused_tp_ann.last_plan`` names them."""
     return dict(_PLANS)
 
 
@@ -233,6 +233,15 @@ def _exchange_buffers(slot_shape, dtype, P: int, groups: int, dev):
             ctypes.cast(flag_ptrs, ctypes.c_void_p), (slot_ptrs, flag_ptrs))
 
 
+def _slice_slots(B: int, H: int, P: int, dev):
+    """The slot of the column-slice layout's tagged spike words ([2][B]
+    [H/32] u64; the first product's launch zeroes it), which every rank of
+    the one-card form reads, and the host array of P pointers to it that
+    the kernel takes."""
+    slot = torch.empty((2, B, H // 32), dtype=torch.int64, device=dev)
+    return slot, (ctypes.c_void_p * P)(*[slot.data_ptr()] * P)
+
+
 def _launch(kernel: Kernel, dev, *args, n_plan: int):
     plan = (ctypes.c_int * n_plan)()
     with torch.cuda.device(dev):
@@ -240,6 +249,7 @@ def _launch(kernel: Kernel, dev, *args, n_plan: int):
         kernel(*args, ctypes.cast(plan, ctypes.c_void_p), stream)
     # both stream modes of a kernel under one name
     _PLANS[kernel.name.removesuffix("_bf16")] = tuple(plan)
+    return tuple(plan)
 
 
 def _tp_all_gather_cuda(x, *, num_devices: int, rounds: int = 3):
@@ -451,10 +461,13 @@ def _check_cell(Wx, alpha, beta, a, b, V, u0, w0, s0, adaptive, P):
 
 def _tp_cell_cuda(Wx, alpha, beta, a, b, V, threshold, u0, w0, s0, *,
                   num_devices: int, adaptive: bool,
-                  save_residuals: bool = False, mxu_bf16: bool = False):
+                  save_residuals: bool = False, mxu_bf16: bool = False,
+                  split_ms=None):
     """Launch ``csrc/tp_cell_fwd.cu`` over all P ranks (the one-card form)
-    in the float32 or the bf16 stream mode. Same contract as
-    ``tp_cell_plain``."""
+    in the float32 or the bf16 stream mode, in the column-slice layout
+    where ``fused_cells._fwd_plan`` finds one (else a block a batch row and
+    rank). Same contract as ``tp_cell_plain``. ``split_ms``: as
+    ``fused_cells._fused_cell_cuda`` takes it."""
     B, T, H = Wx.shape
     P, dev = num_devices, Wx.device
     fused_cells._check("Wx", Wx, (B, T, H), dev, _wx_dtypes(mxu_bf16))
@@ -468,12 +481,37 @@ def _tp_cell_cuda(Wx, alpha, beta, a, b, V, threshold, u0, w0, s0, *,
     if mxu_bf16:
         V = V.to(_BF16)  # rounded once, as the JAX wrapper does
     ptr = fused_cells._ptr
-    bufs = _exchange_buffers((2, B, H // 32), torch.int32, P, B, dev)
-    _launch(TP_CELL_FWD_BF16 if mxu_bf16 else TP_CELL_FWD, dev, ptr(Wx),
-            ptr(alpha), ptr(beta), ptr(a), ptr(b), ptr(V), ptr(u0), ptr(w0),
-            ptr(s0), ptr(out), ptr(u_seq), bufs[2], bufs[3], B, T, H, P, 0,
-            P, H, float(threshold), int(adaptive), int(mxu_bf16),
-            int(Wx.dtype == _BF16), n_plan=4)
+    with torch.cuda.device(dev):
+        plan = fused_cells.card_plan(
+            "tp_cell_fwd", (int(adaptive), int(save_residuals),
+                            int(mxu_bf16)), B, H, P, mxu_bf16,
+            torch.cuda.current_device())
+    tail, split = (None,) * 3, None
+    if plan is not None:
+        # the tagged spike words, no counters
+        bufs = _slice_slots(B, H, P, dev)
+        peers = (ctypes.cast(bufs[1], ctypes.c_void_p), None)
+        plan_arr, sv0 = fused_cells._slice_launch_args(plan, B, H, dev)
+        split = (ctypes.c_float * 2)() if split_ms is not None else None
+        tail = (ctypes.cast(plan_arr, ctypes.c_void_p), ptr(sv0),
+                ctypes.cast(split, ctypes.c_void_p) if split else None)
+    elif split_ms is not None:
+        raise ValueError("split_ms: the slice layout only")
+    else:
+        # the spike words (u32) and zeroed counters of a block a row
+        bufs = _exchange_buffers((2, B, H // 32), torch.int32, P, B, dev)
+        peers = bufs[2:4]
+    rows = _launch(TP_CELL_FWD_BF16 if mxu_bf16 else TP_CELL_FWD, dev,
+                   ptr(Wx), ptr(alpha), ptr(beta), ptr(a), ptr(b), ptr(V),
+                   ptr(u0), ptr(w0), ptr(s0), ptr(out), ptr(u_seq), *peers,
+                   B, T, H, P, 0, P, H, float(threshold),
+                   int(adaptive), int(mxu_bf16), int(Wx.dtype == _BF16),
+                   *tail, n_plan=4)
+    _PLANS["tp_cell_fwd"] = (plan if plan is not None else
+                             fused_cells._rows_plan(B, H, P, rows[3], rows[1],
+                                                    rows[2]))._asdict()
+    if split is not None:
+        split_ms[:] = list(split)
     return (out, u_seq) if save_residuals else out
 
 

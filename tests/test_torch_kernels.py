@@ -868,3 +868,49 @@ def test_cluster_backward_matches_plain_on_card(cuda, name, bf16, shape):
         _held(n, x, y, lambda i=i: fused_cells.fused_cell_bwd_plain(
             *[x.double() if isinstance(x, torch.Tensor) else x
               for x in bargs], **kw)[i], BF16_ULP, y.double().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(12, 9, 200), (16, 6, 1001),
+                                   (130, 5, 512), (256, 4, 1024),
+                                   (5, 3, 1536), (3, 4, 2048)])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("name", ["rlif", "radlif"])
+def test_slice_forward_matches_plain_on_card(cuda, name, bf16, shape):
+    """The recurrent forms in the column-slice layout
+    (``fused_cells._fwd_plan``): partial slices (H = 200, 1001: the last
+    slice holds 8 or 9 neurons), batches no multiple of a group's rows (B =
+    12, 130), the main paths' widths, the widest resident width (1536) and
+    one past it (2048: a block a row). The launch ran the plan's layout, and
+    the spikes of the serving form and the spikes and the membrane series
+    of the training form (affine, dropout), with s0 drawn from U[0, 1),
+    equal the plain version's bit for bit on a dyadic V; ``split_ms`` gives
+    the first product and the time loop."""
+    t = _bf16_cell_inputs(shape, cuda, uniform_s0=True, seed=8)
+    if bf16:
+        t["Wx"] = t["Wx"].bfloat16()
+    args, kw = _cell_args(t, name, True)
+    kw.update(mxu_bf16=bf16)
+    seed = torch.tensor([42, 7], dtype=torch.int32, device=cuda)
+    train = dict(drop_rate=0.25, seed=seed, save_residuals=True)
+    served = fused_cells._fused_cell_cuda(*args, **kw)
+    out, u_seq = fused_cells._fused_cell_cuda(*args, **kw, **train)
+    plan = fused_cells.last_plans()["fused_cell_fwd"]
+    want_served = fused_cells.fused_cell_plain(*args, **kw)
+    want, want_u = fused_cells.fused_cell_plain(*args, **kw, **train)
+    torch.cuda.synchronize()
+    with torch.cuda.device(cuda):
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        mirror = fused_cells._fwd_plan(
+            shape[0], shape[2], 1, bf16, sms,
+            lambda c, r, th: fused_cells.slice_blocks(
+                "fused_cell_fwd", int(name == "radlif"), 1, 1, 1, int(bf16),
+                shape[2], c, r, th))
+    assert plan["layout"] == ("rows" if mirror is None else "slices")
+    if mirror is not None:
+        assert plan == mirror._asdict()
+        split = []
+        fused_cells._fused_cell_cuda(*args, **kw, **train, split_ms=split)
+        assert len(split) == 2 and min(split) > 0.0
+    assert torch.equal(served, want_served)
+    assert torch.equal(out, want) and torch.equal(u_seq, want_u)

@@ -224,6 +224,39 @@ def test_forward_kernel_matches_plain_on_card(cuda, adaptive, shape, P):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", [(24, 9, 128, 1), (24, 9, 128, 2),
+                                  (24, 9, 128, 4), (136, 5, 256, 1),
+                                  (136, 5, 256, 2), (136, 5, 256, 4),
+                                  (16, 4, 512, 2), (8, 3, 2048, 2)])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_slice_forward_matches_plain_on_card(cuda, adaptive, bf16, case):
+    """(B, T, H/P, P): the column-slice layout over the P ranks' slices
+    (``fused_cells._fwd_plan``) with a batch no multiple of a group's rows
+    (B = 24, 136), P = 1, 2, 4, and at H = 1024 over two ranks; past the
+    widest resident width (P = 2, H = 4096) the layout of a block a row.
+    The launch ran the plan's layout, and the spikes and the membrane
+    series equal the plain version's and the single-card kernel's without
+    the affine, bit for bit (dyadic V, s0 on sixteenths)."""
+    B, T, hl, P = case
+    d = tp_inputs(B, T, P * hl, seed=3, device=cuda)
+    if bf16:
+        d["V"] = d["V"].clamp(-255 / 256, 255 / 256)
+    args = cell_args(d, adaptive)
+    kw = dict(num_devices=P, adaptive=adaptive, mxu_bf16=bf16)
+    got, got_u = fused_tp._tp_cell_cuda(*args, save_residuals=True, **kw)
+    plan = fused_tp.last_plans()["tp_cell_fwd"]
+    want, want_u = fused_tp.tp_cell_plain(*args, save_residuals=True, **kw)
+    single, single_u = fused_cells._fused_cell_cuda(
+        args[0], None, None, *args[1:], recurrent=True, adaptive=adaptive,
+        save_residuals=True, mxu_bf16=bf16)
+    torch.cuda.synchronize()
+    assert plan["layout"] == ("rows" if P * hl >= 2048 else "slices"), plan
+    assert torch.equal(got, want) and torch.equal(got_u, want_u)
+    assert torch.equal(got, single) and torch.equal(got_u, single_u)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("P", PS)
 @pytest.mark.parametrize("shape", [(8, 13, 128), (24, 20, 256),
                                    (256, 100, 256)])
@@ -780,13 +813,14 @@ def test_bf16_tp_cell_kernels_walk_row_groups_on_card(cuda):
     args = cell_args(d, True)
     kw = dict(num_devices=P, adaptive=True, mxu_bf16=True)
     got, u_seq = fused_tp._tp_cell_cuda(*args, save_residuals=True, **kw)
-    per_rank = fused_tp.last_plans()["tp_cell_fwd"][1]
+    fwd_plan = fused_tp.last_plans()["tp_cell_fwd"]
     grads = fused_tp._tp_cell_bwd_cuda(*bwd_args(d, u_seq, True), **kw)
     bwd_plan = fused_tp.last_bwd_plan()
     want, want_u = fused_tp.tp_cell_plain(*args, save_residuals=True, **kw)
     want_grads = fused_tp.tp_cell_bwd_plain(*bwd_args(d, u_seq, True), **kw)
     torch.cuda.synchronize()
-    assert per_rank < 1024 and bwd_plan["walks"] > 1, bwd_plan
+    assert fwd_plan["walks"] > 1 and bwd_plan["walks"] > 1, (fwd_plan,
+                                                          bwd_plan)
     assert torch.equal(got, want) and torch.equal(u_seq, want_u)
     for k, (name, x, y) in enumerate(zip(GRADS, grads, want_grads)):
         _within(x, y, y.double().abs().max(), name,
