@@ -6,7 +6,8 @@ card.
 
 With phase names (``sweep``, ``profile``, ``h2d``, ``bwd_sweep``,
 ``profile_training``, ``bf16``, ``tp_exchange``, ``spiking_bwd``,
-``spiking_fwd``, ``ab=DIR``, ``bits=DIR``) only those run. Prints
+``spiking_fwd``, ``dv_products``, ``ab=DIR``, ``bits=DIR``) only those
+run. Prints
 JSON lines (tables of the profiler in between), each measured in
 this run:
 
@@ -84,7 +85,10 @@ this run:
    (RadLIF, H = 200 .. 4096, every affine / dropout form, both modes), and
    the recurrent spiking forwards' (RLIF and RadLIF, H = 200 .. 4096,
    serving and training form, affine and dropout on and off, both modes,
-   non-dyadic V; the TP forward at P = 1, 2, 4 and at P = 2, H = 4096).
+   non-dyadic V; the TP forward at P = 1, 2, 4 and at P = 2, H = 4096);
+   the non-spiking backwards' (RNN, LiGRU, GRU, H = 200 .. 2048, affine on
+   and off, both modes); the TP backwards' (RadLIF and RNN/LiGRU/GRU at P
+   = 1, 2, 4; RadLIF at P = 2, H = 4096).
 12. ``spiking_fwd``: the spiking forward kernels apart (``fused_cell_fwd``,
    RadLIF with the affine, training form with the dropout and serving
    form, and ``tp_cell_fwd``, RadLIF at P = 1, 2, 4, training form; at
@@ -96,8 +100,17 @@ this run:
    (first product, time loop: CUDA events around each launch) where they
    take it; the plan; at P > 1 the time over P = 1 per exchange; and the
    two libraries' ptxas report.
+13. ``dv_products``: the dV products of the backwards apart (RadLIF's at
+   (128, 100, 512) and (256, 100, 1024), the GRU's at (128, 100, 512) and
+   (128, 100, 1024), both modes): their share of the backward
+   (``split_ms``), the product alone, ``dv_library_ms`` (one
+   ``torch.matmul`` of the same float32 operands, TF32 off), the bound and
+   what binds it, the GRU's tile.
 
-Without a CUDA card it exits non-zero and prints no result.
+The ``ab`` phase also times the dV product of each backward at those four
+shapes in both modes (``dv_*`` in ``ms``: its ``split_ms`` share), in the
+same turns as the rest. Without a CUDA card it exits non-zero and prints
+no result.
 """
 from __future__ import annotations
 
@@ -365,6 +378,106 @@ def spiking_bwd(dev):
                      P=P, mxu_bf16=mx, ms=ms, split_ms=cs.split_ms_of(run),
                      dv_library_ms=cs.dv_library_ms(*shape, dev),
                      plan=fused_tp.last_bwd_plan())
+
+
+def dv_products(dev):
+    """Phase 13: the dV products of the backwards apart, at the main
+    path's four shapes, float32 and bf16: RadLIF's (``fused_cell_bwd``,
+    affine, dropout, s0 drawn from U[0, 1)) at (128, 100, 512) and (256,
+    100, 1024), the GRU's (``fused_ann_bwd``, affine) at (128, 100, 512)
+    and (128, 100, 1024). Per case: ``split_ms`` (the time loop, the dV
+    product, the second passes, CUDA events around each launch), the
+    product alone (``_spike_dv_cuda``, ``_ann_dv_cuda``; CUDA events),
+    ``dv_library_ms`` (one ``torch.matmul`` of (H, B*T) x (B*T, gates*H),
+    TF32 off: a yardstick the port never calls), the bound: the larger of
+    the bytes it must move (the left operand's series, the right ones and
+    s0 or y0 read once, dV written once) over 3.35 TB/s and its operations
+    over 67 TFLOP/s (float32): 2 x H per nonzero left element for the
+    spiking product (this run's spikes), 2 x gates x B*T x H^2 for the
+    GRU's; the GRU's tile; and the two libraries' ptxas report."""
+    import chip_smoke as cs
+    from sparch_tpu_torch import _build
+    from sparch_tpu_torch.ops import fused_ann, fused_cells
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    libs = ("fused_cell_bwd", "fused_ann_bwd")
+    for lib in libs:
+        _build.library_path(lib).unlink(missing_ok=True)
+    logs = _build.build(libs)
+    emit("dv_products_ptxas",
+         **{lib: cs.ptxas_summary(logs[lib]) for lib in libs})
+    seed = torch.tensor([1234, 99], dtype=torch.int32, device=dev)
+
+    def bound(n_bytes, n_ops):
+        ms = (1e3 * n_bytes / cs.PEAK_BYTES_S, 1e3 * n_ops / cs.PEAK_F32_S)
+        return dict(bound_ms=max(ms),
+                    bound_by="bytes" if ms[0] >= ms[1] else "operations")
+
+    with torch.no_grad():
+        for shape in ((cs.B, cs.T, cs.H), (2 * cs.B, cs.T, cs.TP_H)):
+            b, t, h = shape
+            d = cs.cell_inputs(shape, dyadic=True, seed=1, dev=dev)
+            d["s0"] = torch.rand(d["s0"].shape, device=dev,
+                                 generator=torch.Generator(device=dev)
+                                 .manual_seed(5))
+            g = torch.randn(shape, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(6))
+            for mx in (False, True):
+                dm = dict(d, Wx=d["Wx"].to(cs.BF16)) if mx else d
+                gm = g.to(cs.BF16) if mx else g
+                _, u_seq = cs.train_forward_call("radlif", dm, True, seed=seed,
+                                                 bf16=mx)
+                args = (gm, dm["Wx"], u_seq, d["scale"], d["alpha"],
+                        d["beta"], d["a"], d["b"], d["V"], 1.0, d["u0"],
+                        d["w0"], d["s0"])
+                kw = dict(recurrent=True, adaptive=True, drop_rate=cs.P_DROP,
+                          seed=seed, mxu_bf16=mx)
+                nnz = int((u_seq[:, :-1] > 1.0).sum()
+                          + (d["s0"] != 0).sum())
+                elt = 2 if mx else 4
+                emit("dv_products", product="spike_dv", cell="radlif",
+                     shape=list(shape), mxu_bf16=mx,
+                     split_ms=cs.split_ms_of(
+                         lambda split: fused_cells._fused_cell_bwd_cuda(
+                             *args, **kw, split_ms=split), n=9),
+                     ms_alone=cuda_time_ms(
+                         lambda: fused_cells._spike_dv_cuda(
+                             u_seq, d["s0"], gm, 1.0, mxu_bf16=mx)),
+                     dv_library_ms=cs.dv_library_ms(*shape, dev),
+                     firing_rate=nnz / (b * t * h),
+                     **bound(b * t * h * (4 + elt) + b * h * 4 + h * h * 4,
+                             2.0 * nnz * h))
+        for h in (cs.H, cs.TP_H):
+            shape = (cs.B, cs.T, h)
+            b, t, _ = shape
+            a = cs.ann_inputs("gru", shape, 4, dev)
+            g = torch.randn(shape, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(6))
+            for mx in (False, True):
+                am = dict(a, wxs=[w.to(cs.BF16) for w in a["wxs"]]) if mx else a
+                gm = g.to(cs.BF16) if mx else g
+                r = cs.ann_forward("gru", am, True, cs.P_DROP, seed, True,
+                                   bf16=mx)[1:]
+                y_raw, _, reset, _ = r
+                dpres = [gm.clone() for _ in range(3)]
+                ksplit = fused_ann._dv_split(b, t, h, 3)
+                elt = 2 if mx else 4
+                emit("dv_products", product="ann_dv", cell="gru",
+                     shape=list(shape), mxu_bf16=mx,
+                     split_ms=cs.split_ms_of(
+                         lambda split: cs.ann_backward(
+                             "gru", am, gm, r, seed, True, bf16=mx,
+                             split_ms=split), n=9),
+                     ms_alone=cuda_time_ms(
+                         lambda: fused_ann._ann_dv_cuda(
+                             "gru", y_raw, a["y0"], reset, dpres,
+                             mxu_bf16=mx)),
+                     dv_library_ms=cs.dv_library_ms(*shape, dev, 3),
+                     ksplit=ksplit,
+                     tile=fused_ann._DV_TILES[fused_ann._dv_tile(h, 3,
+                                                                 ksplit)],
+                     **bound(b * t * h * elt * 5 + b * h * 4 + 3 * h * h * 4,
+                             2.0 * 3 * b * t * h * h))
 
 
 def spiking_fwd(dev):
@@ -656,6 +769,45 @@ with torch.no_grad():
                 res["tp_ann_bwd" + sfx] = cuda_time_ms(
                     lambda: fused_tp_ann._tp_ann_cell_bwd_cuda(*ba, **tk),
                     **fast)
+# the dV products inside their backwards (split_ms: CUDA events around each
+# launch, median of 9) at the four main shapes, both modes: RadLIF's at
+# (128, 100, 512) and (256, 100, 1024), the GRU's at (128, 100, 512) and
+# (128, 100, 1024)
+with torch.no_grad():
+    for shape in ((smoke.B, smoke.T, smoke.H),
+                  (2 * smoke.B, smoke.T, smoke.TP_H)):
+        d = smoke.cell_inputs(shape, dyadic=True, seed=1, dev=dev)
+        d["s0"] = torch.rand(d["s0"].shape, device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(5))
+        g = torch.randn(shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(6))
+        for mx in (False, True):
+            dm = dict(d, Wx=d["Wx"].to(bf16)) if mx else d
+            _, u_seq = smoke.train_forward_call("radlif", dm, True, seed=seed,
+                                                bf16=mx)
+            args = (g.to(bf16) if mx else g, dm["Wx"], u_seq, d["scale"],
+                    d["alpha"], d["beta"], d["a"], d["b"], d["V"], 1.0,
+                    d["u0"], d["w0"], d["s0"])
+            kw = dict(recurrent=True, adaptive=True, drop_rate=smoke.P_DROP,
+                      seed=seed, mxu_bf16=mx)
+            res[f"dv_radlif_{shape[0]}x{shape[2]}" + ("_bf16" if mx else "")] \
+                = smoke.split_ms_of(
+                    lambda split: fused_cells._fused_cell_bwd_cuda(
+                        *args, **kw, split_ms=split), n=9)["dv_product"]
+    for h in (smoke.H, smoke.TP_H):
+        ashape = (smoke.B, smoke.T, h)
+        ga = torch.randn(ashape, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(6))
+        a = smoke.ann_inputs("gru", ashape, 4, dev)
+        for mx in (False, True):
+            am = dict(a, wxs=[w.to(bf16) for w in a["wxs"]]) if mx else a
+            r = smoke.ann_forward("gru", am, True, smoke.P_DROP, seed, True,
+                                  bf16=mx)[1:]
+            res[f"dv_gru_h{h}" + ("_bf16" if mx else "")] = smoke.split_ms_of(
+                lambda split: smoke.ann_backward(
+                    "gru", am, ga.to(bf16) if mx else ga, r, seed, True,
+                    bf16=mx, split_ms=split), n=9)["dv_product"]
 # the recurrent spiking forwards, every output's bits on a non-dyadic V
 # with s0 drawn from U[0, 1): RLIF and RadLIF, the serving form with the
 # affine on and off and the training form with the affine and the dropout
@@ -849,16 +1001,17 @@ print(json.dumps({"phase": "ab", "tree": root, "ms": res, "digests": dig,
                   "code": code, "ptxas": ptxas}), flush=True)
 """
 
-# the libraries, and within two of them the kernels, that the change to the
-# spiking forwards leaves alone (value: a pattern of the kernels left out of
-# the comparison): their code must stay as the other tree compiles it
+# the libraries, and within four of them the kernels, that the change to the
+# dV products leaves alone (value: a pattern of the kernels left out of the
+# comparison): their code must stay as the other tree compiles it
 AB_UNTOUCHED = {
     "readout_fwd": None, "readout_bwd": None, "fused_ann_fwd": None,
-    "fused_ann_bwd": None, "tp_collectives": None, "tp_ann_fwd": None,
-    "fused_cell_bwd": None, "tp_cell_bwd": None, "tp_ann_bwd": None,
-    # every kernel of the layout of a block a row keeps its code; the
-    # column-slice layout (spike_slices.cuh) is new
-    "fused_cell_fwd": r"6slices", "tp_cell_fwd": r"6slices",
+    "tp_collectives": None, "tp_ann_fwd": None, "fused_cell_fwd": None,
+    "tp_cell_fwd": None,
+    # every kernel of the backwards but the dV products (dv_product.cuh)
+    "fused_cell_bwd": r"dv_kernel|spike_words", "tp_cell_bwd":
+    r"dv_kernel|spike_words", "fused_ann_bwd": r"dv_kernel",
+    "tp_ann_bwd": r"dv_kernel",
 }
 
 
@@ -1039,15 +1192,17 @@ sys.path.insert(0, root)
 spec = importlib.util.spec_from_file_location("smoke", root + "/chip_smoke.py")
 smoke = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(smoke)
+from sparch_tpu_torch import _build
 from sparch_tpu_torch.ops import fused_cells
 if not fused_cells.__file__.startswith(root):
     raise RuntimeError("imported the package of another tree")
+_build.build()  # every library at once, not one at its first launch
 dev = torch.device("cuda", 0)
 seed = torch.tensor([1234, 99], dtype=torch.int32, device=dev)
 res = {}
 with torch.no_grad():
-    for b, h in ((128, 512), (16, 200), (256, 1024), (16, 600), (16, 1536),
-                 (16, 2048), (8, 3000), (4, 4096)):
+    for b, h in ((128, 512), (16, 200), (256, 1024), (16, 600), (16, 1001),
+                 (16, 1536), (16, 2048), (8, 3000), (4, 4096)):
         shape = (b, 20, h)
         d = smoke.cell_inputs(shape, dyadic=True, seed=1, dev=dev)
         d["s0"] = torch.rand(d["s0"].shape, device=dev,
@@ -1107,6 +1262,62 @@ with torch.no_grad():
                                                save_residuals=True)
                     res[("tp_fwd", name, b, h, P, -1.0, mx)] = [
                         x.cpu() for x in o]
+    # the backwards of the non-spiking cells (RNN, LiGRU, GRU) at widths on
+    # both sides of the dV tiles, affine on and off, both modes, on the
+    # residuals of their training forward; the TP backwards (spiking and
+    # non-spiking) at P = 1, 2, 4
+    from sparch_tpu_torch.ops import fused_ann, fused_tp_ann
+    for b, h in ((128, 512), (16, 200), (128, 1024), (16, 1001), (8, 2048)):
+        shape = (b, 20, h)
+        g = torch.randn(shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(6))
+        for mode in ("rnn", "ligru", "gru"):
+            a = smoke.ann_inputs(mode, shape, 4, dev)
+            for mx in (False, True):
+                am = dict(a, wxs=[w.to(torch.bfloat16) for w in a["wxs"]]) \
+                    if mx else a
+                gm = g.to(torch.bfloat16) if mx else g
+                y_raw, *gates = smoke.ann_forward(mode, am, True, 0.1, seed,
+                                                  True, bf16=mx)[1:]
+                for affine in (True, False):
+                    o = fused_ann._ann_cell_bwd_cuda(
+                        mode, gm, am["wxs"], y_raw, gates,
+                        am["scales"] if affine else None, am["vs"], am["y0"],
+                        drop_rate=0.1, seed=seed, mxu_bf16=mx)
+                    res[("ann_bwd", mode, b, h, affine, mx)] = [
+                        x.cpu() for x in (*o[0], *(o[1] or ()), *(o[2] or ()),
+                                          *o[3], o[4])]
+    for b, h, ps in ((16, 512, (1, 2, 4)), (64, 1024, (1, 2, 4)),
+                     (8, 4096, (2,))):
+        shape = (b, 20, h)
+        g = torch.randn(shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(6))
+        d = smoke.tp_cell_inputs(shape, seed=2, dev=dev, uniform_s0=True)
+        args, ada = smoke._tp_args("radlif", d)
+        for P in ps:
+            for mx in (False, True):
+                kw = dict(num_devices=P, adaptive=ada, mxu_bf16=mx)
+                _, u_seq = fused_tp._tp_cell_cuda(*args, save_residuals=True,
+                                                  **kw)
+                o = fused_tp._tp_cell_bwd_cuda(
+                    g.to(torch.bfloat16) if mx else g, u_seq, *args[1:], **kw)
+                res[("tp_bwd", "radlif", b, h, P, mx)] = [
+                    None if x is None else x.cpu() for x in o]
+        if h > 2048:
+            continue
+        for mode in ("rnn", "ligru", "gru"):
+            da = smoke.tp_ann_inputs(mode, shape, 4, dev)
+            for P in ps:
+                for mx in (False, True):
+                    tk = dict(num_devices=P, mxu_bf16=mx)
+                    y, gates = fused_tp_ann._tp_ann_cell_cuda(
+                        mode, da["wxs"], da["vs"], da["y0"],
+                        save_residuals=True, **tk)
+                    o = fused_tp_ann._tp_ann_cell_bwd_cuda(
+                        mode, g.to(torch.bfloat16) if mx else g, y, gates,
+                        da["vs"], da["y0"], **tk)
+                    res[("tp_ann_bwd", mode, b, h, P, mx)] = [
+                        x.cpu() for x in (*o[0], *o[1], o[2])]
 torch.save(res, out)
 """
 
@@ -1133,6 +1344,23 @@ def bits(dev, other: str):
     for key, a in saved[0].items():
         moved = {}
         kind = key[0] if isinstance(key[0], str) else "bwd"
+        if kind not in ("bwd", "fwd", "tp_fwd"):
+            # the backwards added later: outputs by position
+            for i, (x, y) in enumerate(zip(a, saved[1][key])):
+                if x is None or torch.equal(x, y):
+                    continue
+                gap = (x.float() - y.float()).abs()
+                moved[i] = dict(elements=int((gap > 0).sum()),
+                                max_rel=float(gap.max()
+                                              / x.float().abs().max()))
+            _, cell, b, h, flag, mx = key
+            emit("bits", kernel={"ann_bwd": "fused_ann_bwd",
+                                 "tp_bwd": "tp_cell_bwd",
+                                 "tp_ann_bwd": "tp_ann_bwd"}[kind],
+                 cell=cell, shape=[b, 20, h],
+                 **({"affine": flag} if kind == "ann_bwd" else {"P": flag}),
+                 mxu_bf16=mx, outputs=len(a), equal=not moved, differ=moved)
+            continue
         for n, x, y in zip(("s", "u_seq") if kind != "bwd" else names, a,
                            saved[1][key]):
             if x is None or torch.equal(x, y):
@@ -1205,6 +1433,7 @@ def main() -> int:
         "tp_exchange": tp_exchange,
         "spiking_bwd": spiking_bwd,
         "spiking_fwd": spiking_fwd,
+        "dv_products": dv_products,
     }
     chosen = sys.argv[1:] or list(phases)
     unknown = [name for name in chosen

@@ -84,9 +84,11 @@ all at once), then prints one JSON line per phase:
 10. ``kernel_vs_plain`` for its backward (``fused_ann_bwd``): both sides get
    the plain forward's residuals; every gradient (per gate dWx, dscale,
    dshift, dV; dy0) as in phase 6; two launches bit-equal. At the main
-   shape: the plan, and ``split_ms``, the time loop, the dV product and the
+   shape: the plan, ``split_ms``, the time loop, the dV product and the
    second passes (the sums over partials), CUDA events around each launch
-   in a timing pass of its own.
+   in a timing pass of its own, and ``dv_library_ms`` (``torch.matmul`` of
+   the dV products' float32 operands, the gates side by side, TF32 off: a
+   yardstick).
 11. ``serving_ann``: a GRU [512, 512, 35] Predictor (F=40 features drawn
    normal(0, 1), batch 128, seeded random weights, running statistics from
    one train-mode pass) on 300 utterances, variants ``scan`` and ``auto``:
@@ -161,8 +163,8 @@ all at once), then prints one JSON line per phase:
 21. ``kernel_vs_plain`` for ``tp_ann_bwd``: the same on the plain forward's
    residuals; every gradient against ``tp_ann_cell_bwd_plain`` by the rule
    of phase 6, bit for bit across P, against the single-card
-   ``fused_ann_bwd`` and between two launches; the plan, and ``split_ms``
-   (the time loop, the dV product, its second pass).
+   ``fused_ann_bwd`` and between two launches; the plan, ``split_ms``
+   (the time loop, the dV product, its second pass) and ``dv_library_ms``.
 22. ``training_tp_ann``: a GRU [1024, 1024, 35] trainer (batchnorm, dropout
    0.1, Adam at lr 1e-2) on one batch of 128 SC-shaped utterances, ``scan``,
    ``auto`` and ``pallas_tp`` at P = 1, 2, 4, checked and timed as phase 8
@@ -203,13 +205,14 @@ all at once), then prints one JSON line per phase:
    without the affine, as phases 20-21 time it, beside its bound and plan.
    The TP ANN kernels add the plan each P ran and ``exchange_us`` per P >
    1 (the kernel at P less at P = 1, over the exchanges on a cluster's
-   chain), the backward its split per P. The spiking backwards add their
-   plan (per P), split and the dV product's yardstick (``dv_library_ms``).
-   No library call computes any of
-   these functions (cuDNN's GRU applies the reset gate after the recurrent
+   chain), the backward its split per P. Every backward adds the dV
+   product's yardstick (``dv_library_ms``), and the spiking ones their
+   plan (per P) and split. No library call computes any of these
+   functions whole (cuDNN's GRU applies the reset gate after the recurrent
    product, this one before it; no PyTorch call exchanges inside a
    recurrence, and a library all-gather is no port of these harnesses),
-   so ``library_ms`` is null.
+   so ``library_ms`` is null; the dV product that each backward runs after
+   its time loop is one ``torch.matmul``, timed as ``dv_library_ms``.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 if any phase fails, the script exits non-zero and prints no result.
@@ -253,6 +256,7 @@ F_ANN = 40  # filterbank features of the non-spiking models' input
 ANN_ATOL = 2e-5  # fused ANN forward, kernel vs plain
 WITNESS_FWD_FACTOR = 4.0  # else: kernel error <= 4x the f32 plain's, vs f64
 ANN_TYPES = {"rnn": "RNN", "ligru": "LiGRU", "gru": "GRU"}
+ANN_GATES = {"rnn": ("",), "ligru": ("", "z"), "gru": ("", "z", "r")}
 # The bf16-stream mode, kernel vs plain version. Both round the same values
 # at the same places, but sum in float32 in another order, and a sum that
 # differs in its last bit can tip a rounding to bf16 (one ulp, 2^-8
@@ -1400,15 +1404,16 @@ def split_ms_of(fn, n=5, names=SPLIT_NAMES):
             for i, k in enumerate(names)}
 
 
-def dv_library_ms(b, t, h, dev):
-    """One ``torch.matmul`` of the dV product's (h, b*t) x (b*t, h) float32
-    operands, TF32 off: the yardstick of a backward's dV part (a library
-    call the port never makes)."""
+def dv_library_ms(b, t, h, dev, gates=1):
+    """One ``torch.matmul`` of the dV product's (h, b*t) x (b*t, gates*h)
+    float32 operands (the gates' products side by side), TF32 off: the
+    yardstick of a backward's dV part (a library call the port never
+    makes)."""
     from sparch_tpu_torch.utils.timing import cuda_time_ms
 
     gen = torch.Generator(device=dev).manual_seed(3)
     left = torch.randn((h, b * t), generator=gen, device=dev)
-    right = torch.randn((b * t, h), generator=gen, device=dev)
+    right = torch.randn((b * t, gates * h), generator=gen, device=dev)
     return cuda_time_ms(torch.matmul, left, right)
 
 
@@ -1579,10 +1584,12 @@ def phase_ann_backward(dev, bf16=False):
                         lambda split: ann_backward(mode, d, g, res, seed,
                                                    True, bf16=bf16,
                                                    split_ms=split))
+                    row["dv_library_ms"] = dv_library_ms(
+                        *shape, dev, fused_ann.MODES[mode])
                 row["plan"] = ann_plan(mode, shape, bf16, backward=True)
                 main[mode] = {k: row[k] for k in ("max_abs_err", "ms",
                                                   "plain_ms", "split_ms",
-                                                  "plan")}
+                                                  "dv_library_ms", "plan")}
             emit("kernel_vs_plain",
                  kernel="fused_ann_bwd_bf16" if bf16 else "fused_ann_bwd",
                  **row)
@@ -2880,6 +2887,8 @@ def phase_tp_ann_backward(dev, bf16=False):
                 row["split_ms"] = split_ms_of(
                     lambda split: fused_tp_ann._tp_ann_cell_bwd_cuda(
                         *bargs, **kw, split_ms=split))
+                row["dv_library_ms"] = dv_library_ms(
+                    *shape, dev, len(ANN_GATES[mode]))
                 row["plain_ms"] = cuda_time_ms(
                     lambda: fused_tp_ann.tp_ann_cell_bwd_plain(*bargs, **kw),
                     **PLAIN_ROUNDS)
@@ -3147,6 +3156,8 @@ def tp_ann_kernel_rows(fwd, bwd, trained, bf16=False):
             if direction == "bwd":
                 by_mode[mode]["split_ms_by_p"] = {
                     q: res[mode][q]["split_ms"] for q in TP_PS}
+                by_mode[mode]["dv_library_ms"] = res[mode][P][
+                    "dv_library_ms"]
             if direction == "fwd":
                 by_mode[mode]["ms_serving_by_p"] = {
                     q: res[mode][q]["ms_serving"] for q in TP_PS}
@@ -3162,8 +3173,9 @@ def tp_ann_kernel_rows(fwd, bwd, trained, bf16=False):
             ms_by_p=by_mode["gru"]["ms_by_p"], plan=main["plan"],
             plan_by_p=by_mode["gru"]["plan_by_p"],
             exchange_us_by_p=by_mode["gru"]["exchange_us_by_p"],
-            **({"split_ms": main["split_ms"]} if direction == "bwd"
-               else {}),
+            **({"split_ms": main["split_ms"],
+                "dv_library_ms": main["dv_library_ms"]}
+               if direction == "bwd" else {}),
             single_card_kernel_ms=main["single_card_kernel_ms"],
             by_mode=by_mode))
     return rows

@@ -340,8 +340,9 @@ slice::Plan bwd_plan(int B, int H, int mode, int bf16) {
 // streams are bf16 where wx_bf16. VT: every block's slice of the
 // transposed matrices (ops/fused_ann.py `_pack_slices`); cluster, rows,
 // resident, n_parts (partials is (n_parts, 2*gates, H), a part of two
-// rows at H <= 512, else of one) and ksplit
-// (dv_partials is (ksplit, gates, H, H)): the plan. split_ms: null, or
+// rows at H <= 512, else of one), ksplit (dv_partials is (ksplit, gates,
+// H, H), unused and may be null at ksplit 1) and dv_tile (the dV
+// product's, dv_product.cuh `ann_dv_tile`): the plan. split_ms: null, or
 // three floats of host memory (see above).
 extern "C" int sparch_fused_ann_bwd(
     const void* g, const void* wx0, const void* wx1, const void* wx2,
@@ -351,14 +352,15 @@ extern "C" int sparch_fused_ann_bwd(
     void* dd2, float* partials, float* vecs, float* dV, float* dv_partials,
     float* dy0, int B, int T, int H, int mode, unsigned int keep_u32,
     float inv_keep, int tile_rows, int cluster, int rows, int resident,
-    int n_parts, int ksplit, int bf16, int wx_bf16, float* split_ms,
-    void* stream) {
+    int n_parts, int ksplit, int dv_tile, int bf16, int wx_bf16,
+    float* split_ms, void* stream) {
   const void* wx[3] = {wx0, wx1, wx2};
   void* dwx[3] = {dwx0, dwx1, dwx2};
   void* dd[3] = {dd0, dd1, dd2};
   if (B <= 0 || T <= 0 || H <= 0 || H > kMaxH || mode < kRnn ||
       mode > kGru || !g || !y_seq || !VT || !y0 || !partials || !vecs ||
-      !dV || !dv_partials || !dy0 || (mode >= kLigru && (!z || !c)) ||
+      !dV || (ksplit > 1 && !dv_partials) || !dy0 ||
+      (mode >= kLigru && (!z || !c)) ||
       (mode == kGru && !r) || (seed && tile_rows <= 0) || ksplit < 1 ||
       (wx_bf16 && !bf16)) {
     return (int)cudaErrorInvalidValue;
@@ -374,7 +376,8 @@ extern "C" int sparch_fused_ann_bwd(
   const int part_rows = H <= kPairH ? 2 : 1;
   if (cluster != pl.cluster || rows != pl.rows || resident != pl.resident ||
       pl.threads > slice::kMaxThreads ||
-      n_parts != (B + part_rows - 1) / part_rows) {
+      n_parts != (B + part_rows - 1) / part_rows ||
+      dv_tile != ann_dv_tile(H, G, ksplit)) {
     return (int)cudaErrorInvalidValue;
   }
   const Args p{g, {wx0, wx1, wx2}, y_seq, z, r, c, scale, VT, y0, seed,
@@ -388,21 +391,12 @@ extern "C" int sparch_fused_ann_bwd(
   if (err != 0) return err;
   split.mark(1, st);
 
-  const int R = B * T;
-  // rows per split, a multiple of the stage depth
-  int rows_per_split = (R + ksplit - 1) / ksplit;
-  rows_per_split = (rows_per_split + kBK - 1) / kBK * kBK;
-  AnnDvArgs a{y_seq, y0, mode == kGru ? r : nullptr, {}, dv_partials, T, H,
-              R, rows_per_split, G};
+  AnnDvArgs a{y_seq, y0, mode == kGru ? r : nullptr, {},
+              ksplit == 1 ? dV : dv_partials, T, H, B * T,
+              dv_rows_per_split(B * T, ksplit), G, 0};
   for (int k = 0; k < 3; ++k) a.dpre[k] = affine ? dd[k] : dwx[k];
-  const int tiles = (H + kTile - 1) / kTile;
-  const dim3 grid(tiles, tiles, G * ksplit);
-  if (bf16) {
-    ann_dv_kernel<__nv_bfloat16><<<grid, kDvThreads, 0, st>>>(a);
-  } else {
-    ann_dv_kernel<float><<<grid, kDvThreads, 0, st>>>(a);
-  }
-  err = (int)cudaGetLastError();
+  err = (int)(bf16 ? launch_ann_dv<__nv_bfloat16>(a, dv_tile, ksplit, st)
+                   : launch_ann_dv<float>(a, dv_tile, ksplit, st));
   if (err != 0) return err;
   split.mark(2, st);
 
@@ -413,11 +407,13 @@ extern "C" int sparch_fused_ann_bwd(
     err = (int)cudaGetLastError();
     if (err != 0) return err;
   }
-  const int n = G * H * H;
-  sum_parts_kernel<<<(n + 255) / 256, 256, 0, st>>>(dv_partials, dV, ksplit,
-                                                    n);
-  err = (int)cudaGetLastError();
-  if (err != 0) return err;
+  if (ksplit > 1) {
+    const int n = G * H * H;
+    sum_parts_kernel<<<(n + 255) / 256, 256, 0, st>>>(dv_partials, dV,
+                                                      ksplit, n);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
   split.mark(3, st);
   split.report(split_ms, 3);
   return (int)cudaGetLastError();
@@ -430,4 +426,36 @@ extern "C" int sparch_fused_ann_bwd_max_clusters(int B, int H, int mode,
   if (B <= 0 || H <= 0 || H > kMaxH || mode < kRnn || mode > kGru) return -1;
   const slice::Plan pl = bwd_plan(B, H, mode, bf16);
   return slice::max_active_clusters(kernel_for(mode, H, bf16), pl);
+}
+
+// The non-spiking dV product alone (dv_product.cuh), for tests and timing:
+// dV (gates, H, H) from y_seq (B, T, H), y0 (B, H), r (the GRU's reset
+// series, else null) and a dpre series (B, T, H) a gate; the series bf16
+// where bf16; ksplit, dv_tile and dv_partials as for sparch_fused_ann_bwd.
+extern "C" int sparch_ann_dv(const void* y_seq, const float* y0,
+                             const void* r, const void* dpre0,
+                             const void* dpre1, const void* dpre2, float* dV,
+                             float* dv_partials, int B, int T, int H, int G,
+                             int ksplit, int dv_tile, int bf16,
+                             void* stream) {
+  const void* dpre[3] = {dpre0, dpre1, dpre2};
+  if (B <= 0 || T <= 0 || H <= 0 || G < 1 || G > 3 || ksplit < 1 ||
+      !y_seq || !y0 || !dV || (ksplit > 1 && !dv_partials) ||
+      dv_tile != ann_dv_tile(H, G, ksplit)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  for (int k = 0; k < G; ++k) {
+    if (!dpre[k]) return (int)cudaErrorInvalidValue;
+  }
+  AnnDvArgs a{y_seq, y0, r, {dpre0, dpre1, dpre2},
+              ksplit == 1 ? dV : dv_partials, T, H, B * T,
+              dv_rows_per_split(B * T, ksplit), G, 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err = (int)(bf16 ? launch_ann_dv<__nv_bfloat16>(a, dv_tile, ksplit, st)
+                       : launch_ann_dv<float>(a, dv_tile, ksplit, st));
+  if (err != 0 || ksplit == 1) return err;
+  const int n = G * H * H;
+  sum_parts_kernel<<<(n + 255) / 256, 256, 0, st>>>(dv_partials, dV, ksplit,
+                                                    n);
+  return (int)cudaGetLastError();
 }

@@ -613,22 +613,26 @@ slice::Plan cluster_plan(int B, int H, int bf16) {
 // bf16 where wx_bf16. VT (recurrent forms): every block's slice of V^T
 // (ops/fused_ann.py `_pack_slices`), bf16 in that mode. n_parts
 // (partials is (n_parts, 6, H), a part of two rows at H <= 512, else of
-// one), ksplit (dv_partials is (ksplit, H, H)) and, for the recurrent
-// forms, cluster, rows and resident: the plan. split_ms: null, or three
-// floats of host memory (see the header).
+// one), ksplit (dv_partials is (ksplit, H, H), unused and may be null at
+// ksplit 1) and, for the recurrent forms, cluster, rows and resident: the
+// plan. spike_words (recurrent forms): the dV product's scratch,
+// (spike_word_rows(B*T), spike_word_cols(H)) u32 (dv_product.cuh).
+// split_ms: null, or three floats of host memory (see the header).
 extern "C" int sparch_fused_cell_bwd(
     const void* g, const void* wx, const float* u_seq, const float* scale,
     const float* alpha, const float* beta, const float* a, const float* b,
     const void* VT, const float* u0, const float* w0, const float* s0,
     const int* seed, void* dwx, void* dd, float* partials, float* vecs,
-    float* dV, float* dv_partials, float* du0, float* dw0, float* ds0,
-    int B, int T, int H, float threshold, int recurrent, int adaptive,
-    int affine, unsigned int keep_u32, float inv_keep, int tile_rows,
+    float* dV, float* dv_partials, unsigned int* spike_words, float* du0,
+    float* dw0, float* ds0, int B, int T, int H, float threshold,
+    int recurrent, int adaptive, int affine, unsigned int keep_u32,
+    float inv_keep, int tile_rows,
     int n_parts, int ksplit, int cluster, int rows, int resident, int bf16,
     int wx_bf16, float* split_ms, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || H > kThreads * kMaxNpt || !g || !u_seq ||
       !alpha || !u0 || !s0 || !dwx || !partials || !vecs || !du0 || !ds0 ||
-      (recurrent && (!VT || !dV || !dv_partials)) ||
+      (recurrent && (!VT || !dV || !spike_words ||
+                     (ksplit > 1 && !dv_partials))) ||
       (adaptive && (!beta || !a || !b || !w0 || !dw0)) ||
       (affine && (!wx || !scale)) || (affine && recurrent && !dd) ||
       (seed && tile_rows <= 0) || (wx_bf16 && !bf16) || ksplit < 1) {
@@ -680,23 +684,16 @@ extern "C" int sparch_fused_cell_bwd(
   split.mark(1, st);
 
   if (recurrent) {
-    const int R = B * T;
-    // rows per split, a multiple of the stage depth
-    int rows_per_split = (R + ksplit - 1) / ksplit;
-    rows_per_split = (rows_per_split + kBK - 1) / kBK * kBK;
-    const int tiles = (H + kTile - 1) / kTile;
-    const dim3 grid(tiles, tiles, ksplit);
     const void* dd_series = affine ? dd : dwx;
-    if (bf16) {
-      dv_kernel<__nv_bfloat16><<<grid, kDvThreads, 0, st>>>(
-          u_seq, s0, static_cast<const __nv_bfloat16*>(dd_series),
-          dv_partials, T, H, R, rows_per_split, threshold);
-    } else {
-      dv_kernel<float><<<grid, kDvThreads, 0, st>>>(
-          u_seq, s0, static_cast<const float*>(dd_series), dv_partials, T,
-          H, R, rows_per_split, threshold);
-    }
-    err = (int)cudaGetLastError();
+    err = (int)(bf16 ? launch_spike_dv(
+                           u_seq, s0,
+                           static_cast<const __nv_bfloat16*>(dd_series),
+                           spike_words, dV, dv_partials, T, H, B * T, ksplit,
+                           threshold, st)
+                     : launch_spike_dv(u_seq, s0,
+                                       static_cast<const float*>(dd_series),
+                                       spike_words, dV, dv_partials, T, H,
+                                       B * T, ksplit, threshold, st));
     if (err != 0) return err;
   }
   split.mark(2, st);
@@ -706,7 +703,7 @@ extern "C" int sparch_fused_cell_bwd(
                                                          vecs, n_parts, H);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  if (recurrent) {
+  if (recurrent && ksplit > 1) {
     const int n = H * H;
     sum_parts_kernel<<<(n + 255) / 256, 256, 0, st>>>(dv_partials, dV,
                                                       ksplit, n);
@@ -715,5 +712,33 @@ extern "C" int sparch_fused_cell_bwd(
   }
   split.mark(3, st);
   split.report(split_ms, 3);
+  return (int)cudaGetLastError();
+}
+
+// The spiking dV product alone (dv_product.cuh), for tests and timing:
+// dV (H, H) from the u series (B, T, H), s0 (B, H) and the dDrive series
+// dd (B, T, H; bf16 where bf16) over ksplit splits; spike_words and
+// dv_partials as for sparch_fused_cell_bwd.
+extern "C" int sparch_spike_dv(const float* u_seq, const float* s0,
+                               const void* dd, unsigned int* spike_words,
+                               float* dV, float* dv_partials, int B, int T,
+                               int H, int ksplit, float threshold, int bf16,
+                               void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0 || ksplit < 1 || !u_seq || !s0 || !dd ||
+      !spike_words || !dV || (ksplit > 1 && !dv_partials)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err = (int)(bf16 ? launch_spike_dv(
+                             u_seq, s0, static_cast<const __nv_bfloat16*>(dd),
+                             spike_words, dV, dv_partials, T, H, B * T,
+                             ksplit, threshold, st)
+                       : launch_spike_dv(u_seq, s0,
+                                         static_cast<const float*>(dd),
+                                         spike_words, dV, dv_partials, T, H,
+                                         B * T, ksplit, threshold, st));
+  if (err != 0 || ksplit == 1) return err;
+  sum_parts_kernel<<<(H * H + 255) / 256, 256, 0, st>>>(dv_partials, dV,
+                                                        ksplit, H * H);
   return (int)cudaGetLastError();
 }

@@ -308,24 +308,27 @@ bool shape_ok(int B, int Hg, int P, int mode, int cluster) {
 // host arrays of P device pointers, every rank's slots ([2][B][W]
 // elements, W = Hg for the RNN, 2*Hg for the stacked gathers) and zeroed
 // counters ([P][groups][2] u32). dV (gates, Hg, Hg) and dv_partials
-// (ksplit, gates, Hg, Hg) receive the dV product. bf16 selects the
-// bf16-stream mode (g, the series, VT, the slots and dwx bf16); y0, dV and
-// dy0 are float in either mode. cluster, rows, resident: the plan the
-// wrapper packed VT for. split_ms: null, or three floats of host memory
-// (see above).
+// (ksplit, gates, Hg, Hg; unused and may be null at ksplit 1) receive the
+// dV product, in the tile dv_tile (dv_product.cuh `ann_dv_tile`). bf16
+// selects the bf16-stream mode (g, the series, VT, the slots and dwx
+// bf16); y0, dV and dy0 are float in either mode. cluster, rows,
+// resident: the plan the wrapper packed VT for. split_ms: null, or three
+// floats of host memory (see above).
 extern "C" int sparch_tp_ann_bwd(
     const void* g, const void* y_seq, const void* z, const void* r,
     const void* c, const void* VT, const float* y0, void* dwx0, void* dwx1,
     void* dwx2, float* dV, float* dv_partials, float* dy0,
     void* const* slots, unsigned* const* flags, int B, int T, int Hg, int P,
-    int rank0, int n_local, int ld, int mode, int ksplit, int bf16,
+    int rank0, int n_local, int ld, int mode, int ksplit, int dv_tile,
+    int bf16,
     int cluster, int rows, int resident, float* split_ms, int* plan,
     void* stream) {
   void* dwx[3] = {dwx0, dwx1, dwx2};
   if (!shape_ok(B, Hg, P, mode, cluster) || T <= 0 || rank0 != 0 ||
       n_local != P || ld != Hg || ksplit < 1 || !g || !y_seq || !VT || !y0 ||
-      !dV || !dv_partials || !dy0 || (mode >= kLigru && (!z || !c)) ||
-      (mode == kGru && !r)) {
+      !dV || (ksplit > 1 && !dv_partials) || !dy0 ||
+      (mode >= kLigru && (!z || !c)) || (mode == kGru && !r) ||
+      dv_tile != ann_dv_tile(Hg, mode + 1, ksplit)) {
     return (int)cudaErrorInvalidValue;
   }
   const int G = mode + 1;
@@ -376,26 +379,20 @@ extern "C" int sparch_tp_ann_bwd(
   split.mark(1, st);
 
   // dV over the full y series and the ranks' dWx blocks (the gathered dpre)
-  const int BT = B * T;
-  int rows_per_split = (BT + ksplit - 1) / ksplit;
-  rows_per_split = (rows_per_split + kBK - 1) / kBK * kBK;
-  AnnDvArgs a{y_seq, y0, mode == kGru ? r : nullptr, {dwx0, dwx1, dwx2},
-              dv_partials, T, Hg, BT, rows_per_split, G};
-  const int tiles = (Hg + kTile - 1) / kTile;
-  const dim3 grid(tiles, tiles, G * ksplit);
-  if (bf16) {
-    ann_dv_kernel<__nv_bfloat16><<<grid, kDvThreads, 0, st>>>(a);
-  } else {
-    ann_dv_kernel<float><<<grid, kDvThreads, 0, st>>>(a);
-  }
-  err = (int)cudaGetLastError();
+  const AnnDvArgs a{y_seq, y0, mode == kGru ? r : nullptr,
+                    {dwx0, dwx1, dwx2}, ksplit == 1 ? dV : dv_partials, T,
+                    Hg, B * T, dv_rows_per_split(B * T, ksplit), G, 0};
+  err = (int)(bf16 ? launch_ann_dv<__nv_bfloat16>(a, dv_tile, ksplit, st)
+                   : launch_ann_dv<float>(a, dv_tile, ksplit, st));
   if (err != 0) return err;
   split.mark(2, st);
-  const int n = G * Hg * Hg;
-  sum_parts_kernel<<<(n + 255) / 256, 256, 0, st>>>(dv_partials, dV, ksplit,
-                                                    n);
-  err = (int)cudaGetLastError();
-  if (err != 0) return err;
+  if (ksplit > 1) {
+    const int n = G * Hg * Hg;
+    sum_parts_kernel<<<(n + 255) / 256, 256, 0, st>>>(dv_partials, dV,
+                                                      ksplit, n);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
   split.mark(3, st);
   split.report(split_ms, 3);
   return (int)cudaGetLastError();

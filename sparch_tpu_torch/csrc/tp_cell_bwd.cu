@@ -373,7 +373,9 @@ bool shape_ok(int B, int H, int P, int cluster) {
 // ([2][B][H] elements) and zeroed counters ([P][groups][2] u32). partials
 // holds n_local*n_parts*4*(H/P) floats (n_parts = B / part_rows, rounded
 // up), vecs (4, n_local*H/P) receives dalpha, dbeta, da, db; dV (H, H) and
-// dv_partials (ksplit, H, H) the dV product. VT: every block's slice of
+// dv_partials (ksplit, H, H; unused and may be null at ksplit 1) the dV
+// product, spike_words ((spike_word_rows(B*T), spike_word_cols(H)) u32,
+// dv_product.cuh) its scratch. VT: every block's slice of
 // every rank's block of V^T (ops/fused_tp_ann.py `_pack_slices`). bf16
 // selects the bf16-stream mode (g, VT, dwx and the slots bf16). cluster,
 // rows, resident: the plan the wrapper packed VT for; part_rows: the rows
@@ -383,14 +385,16 @@ extern "C" int sparch_tp_cell_bwd(
     const void* g, const float* u_seq, const float* alpha, const float* beta,
     const float* a, const float* b, const void* VT, const float* u0,
     const float* w0, const float* s0f, void* dwx, float* partials,
-    float* vecs, float* dV, float* dv_partials, float* du0, float* dw0,
-    float* ds0, void* const* slots, unsigned* const* flags, int B, int T,
-    int H, int P, int rank0, int n_local, int ld, float threshold,
-    int adaptive, int ksplit, int bf16, int cluster, int rows, int resident,
-    int part_rows, float* split_ms, int* plan, void* stream) {
+    float* vecs, float* dV, float* dv_partials, unsigned int* spike_words,
+    float* du0, float* dw0, float* ds0, void* const* slots,
+    unsigned* const* flags, int B, int T, int H, int P, int rank0,
+    int n_local, int ld, float threshold, int adaptive, int ksplit, int bf16,
+    int cluster, int rows, int resident, int part_rows, float* split_ms,
+    int* plan, void* stream) {
   if (!shape_ok(B, H, P, cluster) || T <= 0 || rank0 != 0 || n_local != P ||
       ld != H || ksplit < 1 || !g || !u_seq || !alpha || !VT || !u0 ||
-      !s0f || !dwx || !partials || !vecs || !dV || !dv_partials || !du0 ||
+      !s0f || !dwx || !partials || !vecs || !dV || !spike_words ||
+      (ksplit > 1 && !dv_partials) || !du0 ||
       !ds0 || (adaptive && (!beta || !a || !b || !w0 || !dw0)) ||
       (part_rows != 1 && part_rows != 2 && part_rows != 4 &&
        part_rows != 8)) {
@@ -447,21 +451,14 @@ extern "C" int sparch_tp_cell_bwd(
   split.mark(1, st);
 
   // dV over the full u series and the ranks' dWx blocks (the gathered D)
-  const int R = B * T;
-  int rows_per_split = (R + ksplit - 1) / ksplit;
-  rows_per_split = (rows_per_split + kBK - 1) / kBK * kBK;
-  const int tiles = (H + kTile - 1) / kTile;
-  const dim3 grid(tiles, tiles, ksplit);
-  if (bf16) {
-    dv_kernel<__nv_bfloat16><<<grid, kDvThreads, 0, st>>>(
-        u_seq, s0f, static_cast<const __nv_bfloat16*>(dwx), dv_partials, T,
-        H, R, rows_per_split, threshold);
-  } else {
-    dv_kernel<float><<<grid, kDvThreads, 0, st>>>(
-        u_seq, s0f, static_cast<const float*>(dwx), dv_partials, T, H, R,
-        rows_per_split, threshold);
-  }
-  err = (int)cudaGetLastError();
+  err = (int)(bf16 ? launch_spike_dv(u_seq, s0f,
+                                     static_cast<const __nv_bfloat16*>(dwx),
+                                     spike_words, dV, dv_partials, T, H,
+                                     B * T, ksplit, threshold, st)
+                   : launch_spike_dv(u_seq, s0f,
+                                     static_cast<const float*>(dwx),
+                                     spike_words, dV, dv_partials, T, H,
+                                     B * T, ksplit, threshold, st));
   if (err != 0) return err;
   split.mark(2, st);
 
@@ -470,10 +467,12 @@ extern "C" int sparch_tp_cell_bwd(
       partials, alpha, vecs, p.n_parts, p.Hl, n_cols);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  sum_parts_kernel<<<(H * H + 255) / 256, 256, 0, st>>>(dv_partials, dV,
-                                                        ksplit, H * H);
-  err = (int)cudaGetLastError();
-  if (err != 0) return err;
+  if (ksplit > 1) {
+    sum_parts_kernel<<<(H * H + 255) / 256, 256, 0, st>>>(dv_partials, dV,
+                                                          ksplit, H * H);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
   split.mark(3, st);
   split.report(split_ms, 3);
   return (int)cudaGetLastError();

@@ -119,7 +119,7 @@ _I = ctypes.c_int
 # one C entry point per direction serves both stream modes; the modes are
 # counted apart
 _FWD_ARGS = [_P] * 11 + [_I] * 13 + [_P, _P]
-_BWD_ARGS = [_P] * 15 + [_I] * 13 + [_P, _P, _P]
+_BWD_ARGS = [_P] * 15 + [_I] * 14 + [_P, _P, _P]
 TP_ANN_FWD = Kernel("tp_ann_fwd", "sparch_tp_ann_fwd", _FWD_ARGS)
 TP_ANN_BWD = Kernel("tp_ann_bwd", "sparch_tp_ann_bwd", _BWD_ARGS)
 TP_ANN_FWD_BF16 = Kernel("tp_ann_fwd", "sparch_tp_ann_fwd", _FWD_ARGS,
@@ -529,7 +529,8 @@ def _tp_ann_cell_bwd_cuda(mode: str, g, y_seq, gates, vs, y0, *,
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
     dwxs = [torch.empty_like(g) for _ in range(n)]
-    dvs, dv_partials, dy0 = new(n, H, H), new(ksplit, n, H, H), new(B, H)
+    dvs, dy0 = new(n, H, H), new(B, H)
+    dv_partials = new(ksplit, n, H, H) if ksplit > 1 else None
     plan = launch_plan(mode, B, H, P, mxu_bf16, True, dev).rank
     # the rank's columns of V^T (V[shard, :]^T), by gate
     packed = _pack_slices(vs, fused_ann._BWD_PASSES[mode], plan, P,
@@ -544,7 +545,8 @@ def _tp_ann_cell_bwd_cuda(mode: str, g, y_seq, gates, vs, y0, *,
                      _ptr(packed), _ptr(y0), *fused_ann._three(dwxs),
                      _ptr(dvs), _ptr(dv_partials), _ptr(dy0), bufs[2],
                      bufs[3], B, T, H, P, 0, P, H, fused_ann._MODE_ID[mode],
-                     ksplit, int(mxu_bf16), plan.cluster, plan.rows,
+                     ksplit, fused_ann._dv_tile(H, n, ksplit), int(mxu_bf16),
+                     plan.cluster, plan.rows,
                      int(plan.resident), split, n_plan=len(_PLAN_KEYS))
     if split is not None:
         split_ms[:] = list(split)

@@ -914,3 +914,143 @@ def test_slice_forward_matches_plain_on_card(cuda, name, bf16, shape):
         assert len(split) == 2 and min(split) > 0.0
     assert torch.equal(served, want_served)
     assert torch.equal(out, want) and torch.equal(u_seq, want_u)
+
+
+# ---------------------------------------------------------------------------
+# The dV products (csrc/dv_product.cuh). Each element of dV is one chain of
+# fmaf over its split's rows in ascending (b, t), the splits added in
+# ascending order; with a binary left operand fmaf(1, x, acc) is acc + x and
+# fmaf(0, x, acc) is acc, so ``ordered_spike_dv`` gives the kernel's bits.
+# On a dyadic grid every product and partial sum is exact in float32, so the
+# kernels equal a float64 matmul.
+# ---------------------------------------------------------------------------
+
+def ordered_spike_dv(u_seq, s0, dd, threshold):
+    """The spiking dV product summed as ``spike_dv_kernel`` sums it, for a
+    binary s0: per split (``fused_ann._dv_split``, ``_dv_rows_per_split``)
+    the dd rows at which each neuron spiked at t - 1 (s0 at t = 0), added in
+    ascending (b, t) from +0 in float32; then the splits in ascending
+    order."""
+    B, T, H = dd.shape
+    assert bool(((s0 == 0) | (s0 == 1)).all()), "the mirror takes a binary s0"
+    left = torch.cat([s0[:, None] != 0, u_seq[:, :-1] > threshold], 1)
+    left, rows = left.reshape(B * T, H), dd.float().reshape(B * T, H)
+    ksplit = fused_ann._dv_split(B, T, H, 1)
+    per = fused_ann._dv_rows_per_split(B, T, ksplit)
+    parts = []
+    for z in range(ksplit):
+        acc = torch.zeros((H, H), dtype=torch.float32, device=dd.device)
+        for q in range(z * per, min(B * T, (z + 1) * per)):
+            acc[left[q]] += rows[q]
+        parts.append(acc)
+    if ksplit == 1:
+        return parts[0]
+    out = torch.zeros_like(parts[0])
+    for p in parts:
+        out = out + p
+    return out
+
+
+def _silent_and_saturated(u_seq, s0, threshold):
+    """u_seq and a binary s0 edited so that some rows of dV see no spike
+    and some a spike at every step, and some (b, t) rows none or all."""
+    u, s = u_seq.clone(), s0.clone()
+    u[:, :, :3] = threshold - 1.0   # never spike
+    u[:, :, 3:6] = threshold + 1.0  # spike at every step
+    u[0] = threshold - 1.0          # a batch row without a spike
+    u[-1, :, 6:] = threshold + 1.0  # one where every other neuron spikes
+    s[:, :3], s[:, 3:6] = 0.0, 1.0
+    s[0], s[-1, 6:] = 0.0, 1.0
+    return u, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 20, 200), (16, 20, 1001),
+                                   (4, 20, 4096)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_spiking_dv_equals_ordered_mirror_on_card(cuda, bf16, shape):
+    """The backward's dV (RadLIF, no affine: its right operand is dWx),
+    with a binary s0, equals ``ordered_spike_dv`` bit for bit, and so does
+    the product alone; the product alone on rows with no spike or every
+    spike too. H = 200 splits in three, at rows inside a word."""
+    d = make_inputs(*shape, seed=11)
+    t = _clamped(d, cuda)
+    args, kw = _cell_args(t, "radlif", False)
+    _, u_seq = fused_cells.fused_cell_plain(*args, save_residuals=True, **kw)
+    g = torch.from_numpy(np.random.default_rng(12).normal(
+        0, 1, shape).astype(np.float32)).to(cuda)
+    Wx, _, _, alpha, beta, a, b, V, thr, u0, w0, s0 = args
+    got = fused_cells._fused_cell_bwd_cuda(
+        g.bfloat16() if bf16 else g, Wx, u_seq, None, alpha, beta, a, b, V,
+        thr, u0, w0, s0, **kw, mxu_bf16=bf16)
+    dWx, dV = got[0], got[3]
+    assert torch.equal(dV, ordered_spike_dv(u_seq, s0, dWx, thr))
+    alone = fused_cells._spike_dv_cuda(u_seq, s0, dWx, thr, mxu_bf16=bf16)
+    assert torch.equal(alone, dV)
+    u, s = _silent_and_saturated(u_seq, s0, thr)
+    edge = fused_cells._spike_dv_cuda(u, s, dWx, thr, mxu_bf16=bf16)
+    assert torch.equal(edge, ordered_spike_dv(u, s, dWx, thr))
+    assert torch.equal(edge[:3], torch.zeros_like(edge[:3]))
+    torch.cuda.synchronize()
+
+
+def _dyadic(rng, shape, k, den, dev, dtype=torch.float32):
+    """Integers in [-k, k] over ``den``: exact in bf16 for k < 256."""
+    return torch.from_numpy((rng.integers(-k, k + 1, shape) / den).astype(
+        np.float32)).to(dev).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 20, 200), (8, 30, 512),
+                                   (4, 20, 1001), (2, 10, 2048)])
+@pytest.mark.parametrize("s0_kind", ["binary", "sixteenths"])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_spiking_dv_is_exact_on_a_dyadic_grid_on_card(cuda, bf16, s0_kind,
+                                                      shape):
+    """With dd on 1/16 and s0 binary or on 1/16, every product and partial
+    sum is exact: the product alone equals the float64 matmul, on rows with
+    no spike or every spike too."""
+    B, T, H = shape
+    rng = np.random.default_rng(13)
+    u_seq = torch.from_numpy(rng.normal(0.8, 0.6, shape).astype(
+        np.float32)).to(cuda)
+    s0 = torch.from_numpy(((rng.uniform(size=(B, H)) > 0.7) if s0_kind ==
+                           "binary" else rng.integers(0, 17, (B, H)) / 16)
+                          .astype(np.float32)).to(cuda)
+    u_seq, s0b = _silent_and_saturated(u_seq, (s0 != 0).float(), 1.0)
+    if s0_kind == "binary":
+        s0 = s0b
+    dd = _dyadic(rng, shape, 64, 16, cuda,
+                 torch.bfloat16 if bf16 else torch.float32)
+    got = fused_cells._spike_dv_cuda(u_seq, s0, dd, 1.0, mxu_bf16=bf16)
+    want = fused_cells.spike_dv_plain(u_seq.double(), s0.double(), dd, 1.0,
+                                      mxu_bf16=bf16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 20, 200), (8, 30, 512),
+                                   (4, 20, 1001), (2, 10, 2048)])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("mode", ["rnn", "ligru", "gru"])
+def test_ann_dv_is_exact_on_a_dyadic_grid_on_card(cuda, mode, bf16, shape):
+    """y, y0 and r on 1/16, dpre on 1/16 up to 4: every product (the GRU's
+    r*y too) and partial sum is exact, so the products equal the float64
+    matmul in every tile of the plan (H = 2048: 128 x 128; 1001: 128 x 64,
+    unaligned rows; 200, 512: 64 x 64, several splits)."""
+    B, T, H = shape
+    n = fused_ann.MODES[mode]
+    sdt = torch.bfloat16 if bf16 else torch.float32
+    rng = np.random.default_rng(14)
+    y_seq = _dyadic(rng, shape, 16, 16, cuda, sdt)
+    y0 = _dyadic(rng, (B, H), 16, 16, cuda)
+    r = torch.from_numpy((rng.integers(0, 17, shape) / 16).astype(
+        np.float32)).to(cuda).to(sdt) if mode == "gru" else None
+    dpres = [_dyadic(rng, shape, 64, 16, cuda, sdt) for _ in range(n)]
+    got = fused_ann._ann_dv_cuda(mode, y_seq, y0, r, dpres, mxu_bf16=bf16)
+    want = fused_ann.ann_dv_plain(mode, y_seq, y0.double(), r, dpres,
+                                  mxu_bf16=bf16)
+    torch.cuda.synchronize()
+    for i, (x, w) in enumerate(zip(got, want)):
+        assert torch.equal(x, w.float()), i

@@ -289,6 +289,31 @@ def test_backward_kernel_matches_plain_on_card(cuda, adaptive, shape, P):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", [(16, 20, 512, 1), (16, 20, 512, 2),
+                                  (16, 20, 512, 4), (8, 20, 4096, 2),
+                                  (8, 20, 4096, 4)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_backward_dv_equals_ordered_mirror_on_card(cuda, bf16, case):
+    """With a binary s0 the TP backward's dV (over every rank's dWx)
+    equals ``ordered_spike_dv`` bit for bit at every P, both modes: each
+    element adds its dWx rows in ascending (b, t), whatever the ranks."""
+    from tests.test_torch_kernels import ordered_spike_dv
+
+    B, T, H, P = case
+    d = tp_inputs(B, T, H, seed=15, device=cuda)
+    d["s0"] = (d["s0"] > 0.5).float()
+    _, u_seq = fused_tp.tp_cell_plain(*cell_args(d, True), num_devices=P,
+                                      adaptive=True, save_residuals=True)
+    args = bwd_args(d, u_seq, True)
+    if bf16:
+        args = (args[0].bfloat16(), *args[1:])
+    dWx, dV = fused_tp._tp_cell_bwd_cuda(*args, num_devices=P, adaptive=True,
+                                         mxu_bf16=bf16)[:2]
+    torch.cuda.synchronize()
+    assert torch.equal(dV, ordered_spike_dv(u_seq, d["s0"], dWx, 1.0))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("neuron", ["RLIF", "RadLIF", "LIF", "adLIF"])
 def test_model_reaches_the_tp_kernels_on_card(cuda, neuron):
     B, T, F, H, C, P = 16, 20, 24, 256, 5, 2
