@@ -105,7 +105,7 @@ this run:
    (128, 100, 1024), both modes): their share of the backward
    (``split_ms``), the product alone, ``dv_library_ms`` (one
    ``torch.matmul`` of the same float32 operands, TF32 off), the bound and
-   what binds it, the GRU's tile.
+   what binds it, the tile.
 
 The ``ab`` phase also times the dV product of each backward at those four
 shapes in both modes (``dv_*`` in ``ms``: its ``split_ms`` share), in the
@@ -387,7 +387,7 @@ def dv_products(dev):
     100, 1024), the GRU's (``fused_ann_bwd``, affine) at (128, 100, 512)
     and (128, 100, 1024). Per case: ``split_ms`` (the time loop, the dV
     product, the second passes, CUDA events around each launch), the
-    product alone (``_spike_dv_cuda``, ``_ann_dv_cuda``; CUDA events),
+    product alone (``fused_ann._dv_product_cuda``; CUDA events),
     ``dv_library_ms`` (one ``torch.matmul`` of (H, B*T) x (B*T, gates*H),
     TF32 off: a yardstick the port never calls), the bound: the larger of
     the bytes it must move (the left operand's series, the right ones and
@@ -441,10 +441,13 @@ def dv_products(dev):
                          lambda split: fused_cells._fused_cell_bwd_cuda(
                              *args, **kw, split_ms=split), n=9),
                      ms_alone=cuda_time_ms(
-                         lambda: fused_cells._spike_dv_cuda(
-                             u_seq, d["s0"], gm, 1.0, mxu_bf16=mx)),
+                         lambda: fused_ann._dv_product_cuda(
+                             u_seq, d["s0"], None, [gm], threshold=1.0,
+                             mxu_bf16=mx)),
                      dv_library_ms=cs.dv_library_ms(*shape, dev),
                      firing_rate=nnz / (b * t * h),
+                     tile=fused_ann._DV_TILES[fused_ann._card_dv_tile(
+                         h, 1, fused_ann._dv_split(b, t, h, 1), dev)],
                      **bound(b * t * h * (4 + elt) + b * h * 4 + h * h * 4,
                              2.0 * nnz * h))
         for h in (cs.H, cs.TP_H):
@@ -469,13 +472,12 @@ def dv_products(dev):
                              "gru", am, gm, r, seed, True, bf16=mx,
                              split_ms=split), n=9),
                      ms_alone=cuda_time_ms(
-                         lambda: fused_ann._ann_dv_cuda(
-                             "gru", y_raw, a["y0"], reset, dpres,
-                             mxu_bf16=mx)),
+                         lambda: fused_ann._dv_product_cuda(
+                             y_raw, a["y0"], reset, dpres, mxu_bf16=mx)),
                      dv_library_ms=cs.dv_library_ms(*shape, dev, 3),
                      ksplit=ksplit,
-                     tile=fused_ann._DV_TILES[fused_ann._dv_tile(h, 3,
-                                                                 ksplit)],
+                     tile=fused_ann._DV_TILES[fused_ann._card_dv_tile(
+                         h, 3, ksplit, dev)],
                      **bound(b * t * h * elt * 5 + b * h * 4 + 3 * h * h * 4,
                              2.0 * 3 * b * t * h * h))
 
@@ -939,6 +941,20 @@ for mx in (False, True):
         res["train_step_" + key + sfx] = cuda_time_ms(
             make_train_step(model), state, x, y, warmup=3, iters=20,
             repeats=3)
+        if key == "radlif1024_auto":
+            # the same step after 25 more steps, its layers firing as a
+            # trained run's do (the spiking dV product is dense: its time
+            # must not move with the rate), and those rates
+            step = make_train_step(model)
+            for _ in range(25):
+                state = step(state, x, y)[0]
+            res["train_step_" + key + "_trained" + sfx] = cuda_time_ms(
+                step, state, x, y, warmup=3, iters=20, repeats=3)
+            with torch.no_grad():
+                rates = model(x, state.generator)[1].float()
+            layers = rates.reshape(len(smoke.TP_SIZES) - 1, -1).mean(1)
+            for i, r in enumerate(layers.tolist()):
+                res[f"rate_{key}_trained_l{i}" + sfx] = r
 # training steps through cell_impl="auto": the GRU [512, 512, 35] trainer
 # of training_ann and its bf16 twin, and the GRU [1024, 1024, 35] auto
 # trainer of training_tp_ann
@@ -1009,8 +1025,8 @@ AB_UNTOUCHED = {
     "tp_collectives": None, "tp_ann_fwd": None, "fused_cell_fwd": None,
     "tp_cell_fwd": None,
     # every kernel of the backwards but the dV products (dv_product.cuh)
-    "fused_cell_bwd": r"dv_kernel|spike_words", "tp_cell_bwd":
-    r"dv_kernel|spike_words", "fused_ann_bwd": r"dv_kernel",
+    "fused_cell_bwd": r"dv_kernel", "tp_cell_bwd": r"dv_kernel",
+    "fused_ann_bwd": r"dv_kernel",
     "tp_ann_bwd": r"dv_kernel",
 }
 

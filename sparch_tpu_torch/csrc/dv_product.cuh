@@ -1,35 +1,36 @@
 // The dV products of the recurrent backward kernels for Hopper (sm_90a),
-// run after their time loops: spike_dv_kernel for the spiking ones
-// (fused_cell_bwd.cu, tp_cell_bwd.cu), ann_dv_kernel for the non-spiking
-// ones (fused_ann_bwd.cu, tp_ann_bwd.cu). They replace the dV part of the
-// TPU backward kernels (sparch_tpu/ops/pallas_cells.py `_bwd_kernel`,
-// pallas_ann.py `_ann_bwd_kernel`, pallas_tp.py `_tp_bwd_kernel`,
-// pallas_tp_ann.py `_tp_ann_bwd_kernel`), which sum it in VMEM a step at a
-// time.
+// run after their time loops: one kernel, dv_kernel, instantiated for the
+// spiking backwards (fused_cell_bwd.cu, tp_cell_bwd.cu) and the
+// non-spiking ones (fused_ann_bwd.cu, tp_ann_bwd.cu). It replaces the dV
+// part of the TPU backward kernels (sparch_tpu/ops/pallas_cells.py
+// `_bwd_kernel`, pallas_ann.py `_ann_bwd_kernel`, pallas_tp.py
+// `_tp_bwd_kernel`, pallas_tp_ann.py `_tp_ann_bwd_kernel`), which sum it in
+// VMEM a step at a time.
 //
 // dV = sum over rows q = (b, t) of left_q^T dpre_q: an (H, B*T) x (B*T, H)
 // product whose left operand comes from the forward's series (the spikes
-// s_{t-1}, s0 at t = 0; the non-spiking y_{t-1}, times r_t for the GRU's
-// candidate, y0 at t = 0) and whose right operand is the stored dDrive or
-// dpre series. The rows are cut into ksplit splits of dv_rows_per_split
-// rows (ops/fused_ann.py `_dv_split` sets ksplit). Each output element is
-// one fmaf chain over its split's rows in ascending (b, t), from +0;
-// sum_parts_kernel (tile_stream.cuh) adds the splits in ascending order,
-// and with one split the product writes dV itself (a chain never ends on
-// -0, so the pass would copy its bits). Tiles and stages change no bit:
-// the chains are the same.
+// s_{t-1} = u_{t-1} > thr, s0 at t = 0; the non-spiking y_{t-1}, times r_t
+// for the GRU's candidate, y0 at t = 0) and whose right operand is the
+// stored dDrive or dpre series. The rows are cut into ksplit splits of
+// dv_rows_per_split rows (ops/fused_ann.py `_dv_split` sets ksplit). Each
+// output element is one fmaf chain over its split's rows in ascending
+// (b, t), from +0; sum_parts_kernel (tile_stream.cuh) adds the splits in
+// ascending order, and with one split the product writes dV itself (a
+// chain never ends on -0, so the pass would copy its bits). Tiles and
+// stages change no bit: the chains are the same.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "tile_stream.cuh"
 
 namespace sparch {
 
-constexpr int kBK = 16;      // a split's rows are a multiple of this
-constexpr int kDvSMs = 132;  // an H100 SXM's SMs: the tile plan's yardstick
+constexpr int kBK = 16;  // a split's rows are a multiple of this
 
 // Rows per split: a multiple of kBK.
 inline int dv_rows_per_split(int R, int ksplit) {
@@ -37,405 +38,32 @@ inline int dv_rows_per_split(int R, int ksplit) {
   return (rows + kBK - 1) / kBK * kBK;
 }
 
-// 16 bytes from global to shared memory without a register (cp.async),
-// the copies of a stage as one group, and the wait for all but the newest
-// N groups of this thread.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   shared_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // ---------------------------------------------------------------------------
-// The spiking product. Its left operand is 0 or 1 but at t = 0, and the
-// rows fire at ~10 %: a dense product spends ~90 % of its FMAs on zeros.
-// fmaf(0, x, acc) is acc for finite x (acc is never -0) and fmaf(1, x,
-// acc) is acc + x, so the product adds, in ascending order, the dDrive rows
-// at which each neuron spiked (t = 0: fmaf(s0, x, acc)), and skips the
-// others: the dense product's bits.
-//
-// spike_words_kernel packs the left operand into words, a bit a row:
-// words[k][m] bit i is set where the left operand of row 32k + i is not 0.
-// spike_dv_kernel: a block owns 64 rows m of dV (so dDrive is read from L2
-// H / 64 times) and 128 columns n, and walks its split's rows in stages of
-// 64 (two words): every thread copies a share of the stage's dDrive rows,
-// the block's words and the s0 of each word's t = 0 row into a ring of
-// four stages of shared memory (cp.async, 16 bytes a copy; three stages
-// in flight while one is summed; one block barrier a stage, where a
-// waiting warp is parked and spends no issue slot). 32 warps own 2 rows m
-// each, a lane 4 columns (at most 64 registers a thread: the warps hide
-// each other's latency). For each m the lanes first rank the
-// word's set rows (a popc each) into a list in shared memory; the warp
-// then adds the listed staged rows to its 4 sums in ascending order, four
-// rows in flight (the lists and the words are the same in every lane: no
-// divergence). Bound: the bytes of u_seq
-// and dDrive, and firing rate x B*T*H^2 adds; at ~10 % firing the walk's
-// issue slots and the L2 reads of dDrive bind it.
-constexpr int kSpkRows = 32;   // rows a word
-constexpr int kSpkWords = 2;   // words a stage
-constexpr int kSpkCols = 128;  // dV columns a block, 4 a lane
-constexpr int kSpkMPW = 2;     // dV rows a warp
-constexpr int kSpkWarps = 32;
-constexpr int kSpkM = kSpkMPW * kSpkWarps;  // dV rows a block
-constexpr int kSpkStages = 4;
-constexpr int kSpkThreads = kSpkWarps * 32;
-
-// The words' shape: (spike_word_rows(R), spike_word_cols(H)), the columns
-// padded to whole blocks of dV rows (ops/fused_cells.py `_spike_words`).
-inline __host__ __device__ int spike_word_rows(int R) {
-  return (R + kSpkRows - 1) / kSpkRows;
-}
-inline __host__ __device__ int spike_word_cols(int H) {
-  return (H + kSpkM - 1) / kSpkM * kSpkM;
-}
-
-// words[k][m] for k < spike_word_rows(R), m < Hp: bit i set where row r =
-// 32k + i < R has a left operand that is not 0: u_seq[r - 1][m] > thr for
-// t > 0, s0[b][m] (rounded to bf16 where kRound) for t = 0; 0 for m >= H.
-// A thread a word, its 32 loads in flight together; the u rows are read
-// across the warp.
-template <bool kRound>
-__global__ void __launch_bounds__(256)
-spike_words_kernel(const float* __restrict__ u_seq,
-                   const float* __restrict__ s0, uint32_t* __restrict__ words,
-                   int T, int H, int Hp, int R, float thr) {
-  const int m = blockIdx.x * 256 + threadIdx.x;
-  if (m >= Hp) return;
-  for (int k = blockIdx.y; k < spike_word_rows(R); k += gridDim.y) {
-    uint32_t w = 0;
-    if (m < H) {
-      const int r0 = k * kSpkRows;
-      int t = r0 % T;
-      int b = r0 / T;
-#pragma unroll
-      for (int i = 0; i < kSpkRows; ++i) {
-        if (r0 + i < R) {
-          bool on;
-          if (t == 0) {
-            float v = __ldg(&s0[(size_t)b * H + m]);
-            if (kRound) v = round_bf16(v);
-            on = v != 0.f;
-          } else {
-            on = __ldg(&u_seq[(size_t)(r0 + i - 1) * H + m]) > thr;
-          }
-          w |= (uint32_t)on << i;
-        }
-        if (++t == T) {
-          t = 0;
-          ++b;
-        }
-      }
-    }
-    words[(size_t)k * Hp + m] = w;
-  }
-}
-
-template <typename DT>
-struct SpikeStages {
-  DT dd[kSpkStages][kSpkWords][kSpkRows + 1][kSpkCols];
-  uint32_t words[kSpkStages][kSpkWords][kSpkM];
-  float s0[kSpkStages][kSpkWords][kSpkM];  // s0 of each word's t = 0 row
-  // per warp and row m, the word's set rows in ascending order, then -1
-  signed char list[kSpkWarps][kSpkMPW][kSpkRows + 4];
-};
-
-// The first row at t = 0 at or after row r.
-__device__ __forceinline__ int first_t0(int r, int T) {
-  return (r + T - 1) / T * T;
-}
-
-// Four staged elements as floats.
-__device__ __forceinline__ void staged4(const float* p, float* x) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  x[0] = v.x;
-  x[1] = v.y;
-  x[2] = v.z;
-  x[3] = v.w;
-}
-__device__ __forceinline__ void staged4(const __nv_bfloat16* p, float* x) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  x[0] = __uint_as_float(v.x << 16);
-  x[1] = __uint_as_float(v.x & 0xffff0000u);
-  x[2] = __uint_as_float(v.y << 16);
-  x[3] = __uint_as_float(v.y & 0xffff0000u);
-}
-
-// out[z][m][n] = the chain over the rows q of split z, ascending, of
-// left_q[m] * dd[q][n] (out is dV itself with one split). DT is the element
-// type of the dDrive series; with bf16 s0 is rounded to bf16 and the sum is
-// float32. vec: the rows of dd, words, s0 and out aligned for 16-byte copies
-// and stores; else the stages are loaded element by element.
-template <typename DT>
-__global__ void __launch_bounds__(kSpkThreads)
-spike_dv_kernel(const uint32_t* __restrict__ words,
-                const float* __restrict__ s0, const DT* __restrict__ dd,
-                float* __restrict__ out, int T, int H, int R,
-                int rows_per_split, int vec) {
-  constexpr bool kRound = sizeof(DT) == 2;
-  constexpr int kPer = 16 / (int)sizeof(DT);  // elements a 16-byte copy
-  extern __shared__ __align__(128) unsigned char spike_smem[];
-  SpikeStages<DT>& sm = *reinterpret_cast<SpikeStages<DT>*>(spike_smem);
-  const int Hp = spike_word_cols(H);
-  const int n0 = blockIdx.x * kSpkCols;
-  const int m0 = blockIdx.y * kSpkM;
-  const int r_begin = blockIdx.z * rows_per_split;
-  const int r_end = min(R, r_begin + rows_per_split);
-  const int k_begin = r_begin / kSpkRows;
-  const int k_end = r_begin < r_end ? (r_end - 1) / kSpkRows + 1 : k_begin;
-  const int n_stages = (k_end - k_begin + kSpkWords - 1) / kSpkWords;
-  const int cols = min(kSpkCols, H - n0);
-  const int ms = min(kSpkM, H - m0);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int tid = threadIdx.x;
-
-  // this thread's 16-byte copies of a stage (the same every stage): row j
-  // of the stage, element e
-  constexpr int kCopies =
-      kSpkWords * kSpkRows * kSpkCols / kPer / kSpkThreads;
-  const int per_row = cols / kPer;
-  int cj[kCopies], ce[kCopies];
-#pragma unroll
-  for (int q = 0; q < kCopies; ++q) {
-    const int c = tid + q * kSpkThreads;
-    cj[q] = per_row > 0 ? c / per_row : kSpkWords * kSpkRows;
-    ce[q] = per_row > 0 ? c % per_row * kPer : 0;
-  }
-  // stage i: words k_begin + 2i and + 1, into buffer i % kSpkStages
-  auto load = [&](int i) {
-    const int b = i % kSpkStages;
-    const int r0 = (k_begin + i * kSpkWords) * kSpkRows;
-    const int rows = min(kSpkWords * kSpkRows, R - r0);
-    if (vec) {
-#pragma unroll
-      for (int q = 0; q < kCopies; ++q) {
-        if (cj[q] < rows) {
-          const int j = cj[q];
-          cp_async16(&sm.dd[b][j / kSpkRows][j % kSpkRows + 1][ce[q]],
-                     dd + (size_t)(r0 + j) * H + n0 + ce[q]);
-        }
-      }
-    } else {
-      for (int c = tid; c < rows * kSpkCols; c += kSpkThreads) {
-        const int j = c / kSpkCols;
-        const int e = c % kSpkCols;
-        if (e < cols) {
-          sm.dd[b][j / kSpkRows][j % kSpkRows + 1][e] =
-              dd[(size_t)(r0 + j) * H + n0 + e];
-        }
-      }
-    }
-    if (tid >= kSpkM / 2) return;
-    for (int w = 0; w < kSpkWords; ++w) {
-      const int k = k_begin + i * kSpkWords + w;
-      if (k >= k_end) break;
-      const int rw = k * kSpkRows;
-      const int z = first_t0(rw, T);
-      const float* s0row = s0 + (size_t)(z / T) * H + m0;
-      const bool has = z < rw + kSpkRows && z < R;
-      if (vec) {
-        if (tid < kSpkM / 4) {
-          cp_async16(&sm.words[b][w][tid * 4],
-                     words + (size_t)k * Hp + m0 + tid * 4);
-        } else if (has && (tid - kSpkM / 4) * 4 < ms) {
-          const int e = (tid - kSpkM / 4) * 4;
-          cp_async16(&sm.s0[b][w][e], s0row + e);
-        }
-      } else {
-        for (int c = tid; c < kSpkM; c += kSpkM / 2) {
-          sm.words[b][w][c] = words[(size_t)k * Hp + m0 + c];
-          if (has && c < ms) sm.s0[b][w][c] = s0row[c];
-        }
-      }
-    }
-  };
-
-  for (int c = tid; c < kSpkStages * kSpkWords * kSpkCols;
-       c += kSpkThreads) {
-    sm.dd[c / (kSpkWords * kSpkCols)][c / kSpkCols % kSpkWords][0]
-         [c % kSpkCols] = DT(0.f);
-  }
-  if (lane < 4) {
-    for (int mi = 0; mi < kSpkMPW; ++mi) {
-      sm.list[warp][mi][kSpkRows + lane] = -1;
-    }
-  }
-  const int mw = m0 + warp * kSpkMPW;  // this warp's first dV row
-  // the next row at t = 0 from the split's first word on
-  int z = first_t0(k_begin * kSpkRows, T);
-  float acc[kSpkMPW][4];
-#pragma unroll
-  for (int mi = 0; mi < kSpkMPW; ++mi) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[mi][c] = 0.f;
-  }
-#pragma unroll 1
-  for (int i = 0; i < kSpkStages - 1; ++i) {
-    if (i < n_stages) load(i);
-    cp_async_commit();
-  }
-  for (int i = 0; i < n_stages; ++i) {
-    cp_async_wait<kSpkStages - 2>();
-    __syncthreads();  // stage i landed; stage i - 1's buffer is free
-    if (i + kSpkStages - 1 < n_stages) load(i + kSpkStages - 1);
-    cp_async_commit();
-    const int b = i % kSpkStages;
-#pragma unroll 1
-    for (int w = 0; w < kSpkWords; ++w) {
-      const int k = k_begin + i * kSpkWords + w;
-      if (k >= k_end) break;
-      const int r0 = k * kSpkRows;
-      // the word's rows that are this split's, and those at t = 0
-      uint32_t in_split = ~0u;
-      if (r0 < r_begin) in_split <<= r_begin - r0;
-      if (r_end - r0 < kSpkRows) in_split &= (1u << (r_end - r0)) - 1u;
-      while (z < r0) z += T;
-      uint32_t first = 0;
-      for (int zz = z; zz < r0 + kSpkRows && zz < R; zz += T) {
-        first |= 1u << (zz - r0);
-      }
-      const int jf = z - r0;
-      uint32_t wd[kSpkMPW];
-#pragma unroll
-      for (int mi = 0; mi < kSpkMPW; ++mi) {
-        wd[mi] = sm.words[b][w][warp * kSpkMPW + mi] & in_split;
-      }
-      // the lists: lane j writes row j at its rank among the set rows, and
-      // -1 at slot j past the last
-      __syncwarp();  // the previous word's lists are read
-      const uint32_t below = (1u << lane) - 1u;
-#pragma unroll
-      for (int mi = 0; mi < kSpkMPW; ++mi) {
-        if ((wd[mi] >> lane) & 1u) {
-          sm.list[warp][mi][__popc(wd[mi] & below)] = (signed char)lane;
-        }
-        if (lane >= __popc(wd[mi])) sm.list[warp][mi][lane] = -1;
-      }
-      __syncwarp();
-      // row j of the word (row -1: zeros) for this lane's 4 columns
-      const DT* rows = &sm.dd[b][w][1][lane * 4];
-#pragma unroll
-      for (int mi = 0; mi < kSpkMPW; ++mi) {
-        const int n = __popc(wd[mi]);
-        // four rows a pass, in ascending order, all four in flight; a slot
-        // past the last adds the zero row
-#pragma unroll 1
-        for (int e0 = 0; e0 < n; e0 += 4) {
-          const int four =
-              *reinterpret_cast<const int*>(&sm.list[warp][mi][e0]);
-          float x[4][4];
-          int j[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            j[e] = (four << (24 - 8 * e)) >> 24;  // the signed byte e
-            staged4(rows + j[e] * kSpkCols, x[e]);
-          }
-          if ((first & wd[mi]) == 0u) {
-            // spikes only: fmaf(1, x, a) is a + x
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-#pragma unroll
-              for (int c = 0; c < 4; ++c) acc[mi][c] += x[e][c];
-            }
-          } else {
-            // a row at t = 0: its left operand is s0
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              float v = 1.f;
-              if (j[e] >= 0 && ((first >> j[e]) & 1u)) {
-                v = j[e] == jf ? sm.s0[b][w][warp * kSpkMPW + mi]
-                               : s0[(size_t)((r0 + j[e]) / T) * H + mw + mi];
-                if (kRound) v = round_bf16(v);
-              }
-#pragma unroll
-              for (int c = 0; c < 4; ++c) {
-                acc[mi][c] = fmaf(v, x[e][c], acc[mi][c]);
-              }
-            }
-          }
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  float* o = out + (size_t)blockIdx.z * H * H;
-  const int n = n0 + lane * 4;
-#pragma unroll
-  for (int mi = 0; mi < kSpkMPW; ++mi) {
-    const int m = mw + mi;
-    if (m >= H) continue;
-    if (vec && n < H) {
-      *reinterpret_cast<float4*>(&o[(size_t)m * H + n]) =
-          make_float4(acc[mi][0], acc[mi][1], acc[mi][2], acc[mi][3]);
-    } else {
-      for (int c = 0; c < 4; ++c) {
-        if (n + c < H) o[(size_t)m * H + n + c] = acc[mi][c];
-      }
-    }
-  }
-}
-
-// The spiking product of a backward: the words (words: spike_word_rows(R)
-// x spike_word_cols(H) u32 of scratch), then the product into dV (ksplit
-// 1) or dv_partials, which the caller sums with sum_parts_kernel.
-template <typename DT>
-cudaError_t launch_spike_dv(const float* u_seq, const float* s0,
-                            const DT* dd, uint32_t* words, float* dV,
-                            float* dv_partials, int T, int H, int R,
-                            int ksplit, float thr, cudaStream_t st) {
-  const int Hp = spike_word_cols(H);
-  const int word_rows = spike_word_rows(R);
-  const dim3 pack((Hp + 255) / 256, word_rows < 65535 ? word_rows : 65535);
-  spike_words_kernel<sizeof(DT) == 2>
-      <<<pack, 256, 0, st>>>(u_seq, s0, words, T, H, Hp, R, thr);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int smem = (int)sizeof(SpikeStages<DT>);
-  err = cudaFuncSetAttribute(spike_dv_kernel<DT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return err;
-  float* out = ksplit == 1 ? dV : dv_partials;
-  // bulk copies: 16-byte aligned rows of dd and s0, sizes a multiple of 16
-  const auto aligned = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  const int vec = H % (16 / sizeof(DT)) == 0 && aligned(dd) && aligned(s0) &&
-                  aligned(words) && aligned(out);
-  const dim3 grid((H + kSpkCols - 1) / kSpkCols, (H + kSpkM - 1) / kSpkM,
-                  ksplit);
-  spike_dv_kernel<DT><<<grid, kSpkThreads, smem, st>>>(
-      words, s0, dd, out, T, H, R, dv_rows_per_split(R, ksplit), vec);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// The non-spiking product: dense (y is no spike), FMAs on the CUDA cores
-// (tensor cores would sum in another order). A block owns a BM x BN tile
-// of one gate's dV for one split, a thread TM x TN outputs; stages of SK
-// rows of both operands go through registers into two shared-memory
-// buffers: the next stage's loads (16-byte, or 8 in bf16) are in flight
-// while this one is summed, and on their way in the left operand is formed
-// once a stage element (y_{t-1} or y0, times r_t for the GRU's candidate,
-// rounded to bf16 in that mode) and bf16 widened. (b, t) of a thread's
-// rows advance a stage at a time; a stage past a split's end is masked.
-// Bound: 2 * gates * B*T * H^2 float32 operations.
-struct AnnDvArgs {
-  const void* y_seq;    // y_seq, r and dpre: float, bf16 in the bf16 mode
-  const float* y0;
+// A dense product, FMAs on the CUDA cores (tensor cores would sum in
+// another order). The spiking left operand is 0 or 1 but at t = 0 and is
+// not skipped: a product that walks the spikes grows with the firing rate
+// (trained layers fire at 8-27 %) and lost to this one past ~15 %. A
+// block owns a BM x BN tile of one gate's dV for one split, a thread TM x
+// TN outputs; stages of SK rows of both operands go through registers into
+// two shared-memory buffers: the next stage's loads (16-byte, or 8 in
+// bf16) are in flight while this one is summed, and on their way in the
+// left operand is formed once a stage element (the spike u_{t-1} > thr or
+// s0; y_{t-1} or y0, times r_t for the GRU's candidate; rounded to bf16 in
+// that mode) and bf16 widened. (b, t) of a thread's rows advance a stage
+// at a time; a stage past a split's end is masked (its right operand is
+// 0, so whatever its left one, the chain keeps its value).
+// Bound: 2 * gates * B*T * H^2 float32 operations (the spiking product:
+// bytes, and 2 * H operations a spike).
+struct DvArgs {
+  const void* left;     // the left operand's series: y_seq (float, bf16 in
+                        // the bf16 mode) or the spiking u_seq (float)
+  const float* left0;   // its row at t = 0: y0, or s0
   const void* r;        // the GRU's reset series, else null
-  const void* dpre[3];  // the right operand, by gate
+  const void* dpre[3];  // the right operand, by gate (float, bf16 in the
+                        // bf16 mode)
   float* out;           // dV (gates, H, H), or with ksplit > 1 the
                         // partials (ksplit, gates, H, H)
+  float thr;            // the spiking threshold
   int T;
   int H;
   int R;                // B*T
@@ -444,32 +72,50 @@ struct AnnDvArgs {
   int vec;              // H % 4 == 0 and every operand 16-byte aligned
 };
 
-// The tiles (dV rows x columns a block), largest first; launch_ann_dv
-// gives each its outputs a thread and stage depth.
-constexpr int kAnnTiles = 3;
-constexpr int kAnnTileM[kAnnTiles] = {128, 128, 64};
-constexpr int kAnnTileN[kAnnTiles] = {128, 64, 64};
+// The tiles (dV rows x columns a block), largest first; launch_dv gives
+// each its outputs a thread and stage depth.
+constexpr int kDvTiles = 3;
+constexpr int kDvTileM[kDvTiles] = {128, 128, 64};
+constexpr int kDvTileN[kDvTiles] = {128, 64, 64};
 
 // The tile plan (ops/fused_ann.py `_dv_tile` computes the same): among the
-// tiles whose grid gives every SM a block, the one whose last round of
-// blocks is fullest (blocks / (SMs * ceil(blocks / SMs))), the larger on a
-// tie; where none does, the smallest.
-inline int ann_dv_tile(int H, int G, int ksplit) {
+// tiles whose grid gives each of the card's sms SMs a block, the one whose
+// last round of blocks is fullest (blocks / (sms * ceil(blocks / sms))),
+// the larger on a tie; where none does, the smallest.
+inline int dv_tile(int H, int G, int ksplit, int sms) {
   int best = -1;
   long long best_blocks = 0, best_rounds = 1;
-  for (int i = 0; i < kAnnTiles; ++i) {
+  for (int i = 0; i < kDvTiles; ++i) {
     const long long blocks = (long long)G * ksplit *
-                             ((H + kAnnTileM[i] - 1) / kAnnTileM[i]) *
-                             ((H + kAnnTileN[i] - 1) / kAnnTileN[i]);
-    if (blocks < kDvSMs) continue;
-    const long long rounds = (blocks + kDvSMs - 1) / kDvSMs;
+                             ((H + kDvTileM[i] - 1) / kDvTileM[i]) *
+                             ((H + kDvTileN[i] - 1) / kDvTileN[i]);
+    if (blocks < sms) continue;
+    const long long rounds = (blocks + sms - 1) / sms;
     if (best < 0 || blocks * best_rounds > best_blocks * rounds) {
       best = i;
       best_blocks = blocks;
       best_rounds = rounds;
     }
   }
-  return best < 0 ? kAnnTiles - 1 : best;
+  return best < 0 ? kDvTiles - 1 : best;
+}
+
+// The SMs of the current card, which the tile plan fills; 0 if unknown.
+inline int device_sms() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    return 0;
+  }
+  return sms;
+}
+
+// Whether `tile` is the plan's for this card (the wrappers compute it from
+// torch's count of the card's SMs).
+inline bool dv_tile_ok(int tile, int H, int G, int ksplit) {
+  const int sms = device_sms();
+  return sms > 0 && tile == dv_tile(H, G, ksplit, sms);
 }
 
 // Four consecutive elements as raw bits (a float's each, or two bf16 a
@@ -515,13 +161,14 @@ __device__ __forceinline__ void unpack4(uint4 v, float* x) {
 }
 
 // out[split][gate][m][n] = the chain over the rows q of the split,
-// ascending, of left[q][m] * dpre_gate[q][n], with left = y_{t-1}[b] (y0 at
-// t = 0), times r_t[b] for the GRU's candidate (gate 0). ST is the element
-// type of the series; with bf16 the left operand is rounded to bf16 too,
-// and the sum is float32.
-template <typename ST, int BM, int BN, int TM, int TN, int SK>
+// ascending, of left[q][m] * dpre_gate[q][n]. kSpike: left = u_{t-1}[b] >
+// thr ? 1 : 0 (s0 at t = 0), else left = y_{t-1}[b] (y0 at t = 0), times
+// r_t[b] for the GRU's candidate (gate 0). ST is the element type of the
+// right operand and of y; with bf16 the left operand is rounded to bf16
+// too, and the sum is float32.
+template <bool kSpike, typename ST, int BM, int BN, int TM, int TN, int SK>
 __global__ void __launch_bounds__(BM / TM * (BN / TN))
-ann_dv_kernel(const AnnDvArgs a) {
+dv_kernel(const DvArgs a) {
   constexpr int NT = BM / TM * (BN / TN);  // threads
   constexpr int kTx = BN / TN;              // threads along n
   constexpr int kAChunks = SK * BM / 4 / NT;  // 4-element pieces of a
@@ -531,13 +178,14 @@ ann_dv_kernel(const AnnDvArgs a) {
   constexpr int GA = BM / (TM / 4);  // a thread's rows: TM / 4 groups of 4,
   constexpr int GB = BN / (TN / 4);  // GA apart; its columns alike
   constexpr bool kBf = sizeof(ST) == 2;
+  using LT = typename std::conditional<kSpike, float, ST>::type;
   static_assert(kAChunks * kAStep == SK && kBChunks * kBStep == SK &&
                     SK % kBK == 0,
                 "a stage is SK rows, a multiple of a split's rounding");
-  extern __shared__ __align__(16) float ann_smem[];
-  float(*As)[SK][BM] = reinterpret_cast<float(*)[SK][BM]>(ann_smem);
+  extern __shared__ __align__(16) float dv_smem[];
+  float(*As)[SK][BM] = reinterpret_cast<float(*)[SK][BM]>(dv_smem);
   float(*Bs)[SK][BN] =
-      reinterpret_cast<float(*)[SK][BN]>(ann_smem + 2 * SK * BM);
+      reinterpret_cast<float(*)[SK][BN]>(dv_smem + 2 * SK * BM);
   const int tid = threadIdx.x;
   const int tx = tid % kTx;
   const int ty = tid / kTx;
@@ -550,9 +198,10 @@ ann_dv_kernel(const AnnDvArgs a) {
   const bool vec = a.vec != 0;
   const ST* dd = static_cast<const ST*>(
       gate == 0 ? a.dpre[0] : gate == 1 ? a.dpre[1] : a.dpre[2]);
-  const ST* ys = static_cast<const ST*>(a.y_seq);
-  const ST* rs =
-      a.r != nullptr && gate == 0 ? static_cast<const ST*>(a.r) : nullptr;
+  const LT* ys = static_cast<const LT*>(a.left);
+  const ST* rs = !kSpike && a.r != nullptr && gate == 0
+                     ? static_cast<const ST*>(a.r)
+                     : nullptr;
   const int q_begin = split * a.rows_per_split;
   const int q_end = min(a.R, q_begin + a.rows_per_split);
   const int n_stages =
@@ -589,7 +238,7 @@ ann_dv_kernel(const AnnDvArgs a) {
         ya[i] = ra[i] = make_uint4(0u, 0u, 0u, 0u);
         if (q < q_end && m < H) {
           ya[i] = tq[i] == 0
-                      ? load4(a.y0 + (size_t)bq[i] * H + m, H - m, vec)
+                      ? load4(a.left0 + (size_t)bq[i] * H + m, H - m, vec)
                       : load4(ys + (size_t)(q - 1) * H + m, H - m, vec);
           if (rs != nullptr) {
             ra[i] = load4(rs + (size_t)q * H + m, H - m, vec);
@@ -647,7 +296,11 @@ ann_dv_kernel(const AnnDvArgs a) {
         if (tq[i] == 0) {
           unpack4<float>(ya[i], y);
         } else {
-          unpack4<ST>(ya[i], y);
+          unpack4<LT>(ya[i], y);
+          if (kSpike) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) y[c] = y[c] > a.thr ? 1.f : 0.f;
+          }
         }
         if (rs != nullptr) {
           float rv[4];
@@ -700,9 +353,9 @@ ann_dv_kernel(const AnnDvArgs a) {
   }
 }
 
-template <typename ST, int BM, int BN, int TM, int TN, int SK>
-cudaError_t launch_tile(const AnnDvArgs& a, dim3 grid, cudaStream_t st) {
-  const auto kernel = ann_dv_kernel<ST, BM, BN, TM, TN, SK>;
+template <bool kSpike, typename ST, int BM, int BN, int TM, int TN, int SK>
+cudaError_t launch_tile(const DvArgs& a, dim3 grid, cudaStream_t st) {
+  const auto kernel = dv_kernel<kSpike, ST, BM, BN, TM, TN, SK>;
   const int smem = 2 * SK * (BM + BN) * (int)sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -711,30 +364,51 @@ cudaError_t launch_tile(const AnnDvArgs& a, dim3 grid, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// The non-spiking product of a backward: a.out is dV with one split, else
-// the partials, which the caller sums with sum_parts_kernel. tile: the
-// plan's (ann_dv_tile), checked by the caller.
-template <typename ST>
-cudaError_t launch_ann_dv(AnnDvArgs a, int tile, int ksplit,
-                          cudaStream_t st) {
+// The dV product of a backward, as it launches it: into dV with one
+// split, else into dv_partials, which sum_parts_kernel then adds into dV.
+// a.out and a.vec are set here; tile: the plan's (dv_tile), checked by
+// the caller.
+template <bool kSpike, typename ST>
+cudaError_t launch_dv(DvArgs a, float* dV, float* dv_partials, int tile,
+                      int ksplit, cudaStream_t st) {
   const auto aligned = [](const void* p) {
     return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
-  a.vec = a.H % 4 == 0 && aligned(a.y_seq) && aligned(a.y0) &&
+  a.out = ksplit == 1 ? dV : dv_partials;
+  a.vec = a.H % 4 == 0 && aligned(a.left) && aligned(a.left0) &&
           aligned(a.r) && aligned(a.out);
   for (int k = 0; k < a.G; ++k) a.vec = a.vec && aligned(a.dpre[k]);
-  const int bm = kAnnTileM[tile];
-  const int bn = kAnnTileN[tile];
+  const int bm = kDvTileM[tile];
+  const int bn = kDvTileN[tile];
   const dim3 grid((a.H + bn - 1) / bn, (a.H + bm - 1) / bm, a.G * ksplit);
   // per tile: outputs a thread and rows a stage (each thread sums 1024
   // products a stage; 128 x 64 at 8 x 8 and 64 x 64 at 4 x 4 with 64-row
   // stages were the fastest of the shapes tried at GRU 1024 and 512)
+  cudaError_t err;
   if (tile == 0) {
-    return launch_tile<ST, 128, 128, 8, 8, 16>(a, grid, st);
+    err = launch_tile<kSpike, ST, 128, 128, 8, 8, 16>(a, grid, st);
   } else if (tile == 1) {
-    return launch_tile<ST, 128, 64, 8, 8, 16>(a, grid, st);
+    err = launch_tile<kSpike, ST, 128, 64, 8, 8, 16>(a, grid, st);
+  } else {
+    err = launch_tile<kSpike, ST, 64, 64, 4, 4, 64>(a, grid, st);
   }
-  return launch_tile<ST, 64, 64, 4, 4, 64>(a, grid, st);
+  if (err != cudaSuccess || ksplit == 1) return err;
+  const int n = a.G * a.H * a.H;
+  sum_parts_kernel<<<(n + 255) / 256, 256, 0, st>>>(dv_partials, dV, ksplit,
+                                                    n);
+  return cudaGetLastError();
+}
+
+// The spiking product of a backward: left = u_seq > thr (s0 at t = 0),
+// right = the dDrive series dd, one gate.
+template <typename DT>
+cudaError_t launch_spike_dv(const float* u_seq, const float* s0,
+                            const DT* dd, float thr, float* dV,
+                            float* dv_partials, int T, int H, int R,
+                            int tile, int ksplit, cudaStream_t st) {
+  const DvArgs a{u_seq, s0, nullptr, {dd, nullptr, nullptr}, nullptr, thr,
+                 T, H, R, dv_rows_per_split(R, ksplit), 1, 0};
+  return launch_dv<true, DT>(a, dV, dv_partials, tile, ksplit, st);
 }
 
 // CUDA events around the launches of one backward call, where the caller

@@ -69,21 +69,21 @@
 //   H) product of the y series shifted by one step (times r for the GRU's
 //   candidate) with the stored dpre series (dWx itself without the affine,
 //   else a scratch series written beside it, since dWx is then
-//   dpre*scale). 64x64 tiles, 4x4 per thread, split over B*T into partials
-//   that the same second kernel adds in ascending order (dv_product.cuh,
-//   shared with tp_ann_bwd.cu).
+//   dpre*scale), tiled by the plan `dv_tile`; where B*T is split, the same
+//   second kernel adds the splits in ascending order (dv_product.cuh,
+//   shared with the other backwards).
 // - Edges are masked: rows >= B and neurons >= H load nothing, hold zero
 //   adjoints and store nothing.
 //
 // C interface, bound with ctypes: sparch_fused_ann_bwd checks the plan it
 // is given (ops/fused_ann.py `_bwd_plan`: the time loop's cluster, rows
-// and resident slice, and n_parts and ksplit, which size the caller's
-// partials buffers) against its own, enqueues all the kernels on the
+// and resident slice, n_parts and ksplit, which size the caller's
+// partials buffers, and the dV product's tile) against its own, enqueues all the kernels on the
 // stream, returns the first launch error (or an invalid-value error for
 // arguments it does not take) and never synchronises, unless it is given
 // split_ms: then it records CUDA events around each launch, waits for them
-// and writes the milliseconds of the time loop, the dV product and the
-// second passes there.
+// and writes the milliseconds of the time loop, the dV product (the sum
+// of its splits included) and the second passes there.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -342,7 +342,7 @@ slice::Plan bwd_plan(int B, int H, int mode, int bf16) {
 // resident, n_parts (partials is (n_parts, 2*gates, H), a part of two
 // rows at H <= 512, else of one), ksplit (dv_partials is (ksplit, gates,
 // H, H), unused and may be null at ksplit 1) and dv_tile (the dV
-// product's, dv_product.cuh `ann_dv_tile`): the plan. split_ms: null, or
+// product's, dv_product.cuh `dv_tile`): the plan. split_ms: null, or
 // three floats of host memory (see above).
 extern "C" int sparch_fused_ann_bwd(
     const void* g, const void* wx0, const void* wx1, const void* wx2,
@@ -377,7 +377,7 @@ extern "C" int sparch_fused_ann_bwd(
   if (cluster != pl.cluster || rows != pl.rows || resident != pl.resident ||
       pl.threads > slice::kMaxThreads ||
       n_parts != (B + part_rows - 1) / part_rows ||
-      dv_tile != ann_dv_tile(H, G, ksplit)) {
+      !dv_tile_ok(dv_tile, H, G, ksplit)) {
     return (int)cudaErrorInvalidValue;
   }
   const Args p{g, {wx0, wx1, wx2}, y_seq, z, r, c, scale, VT, y0, seed,
@@ -391,12 +391,13 @@ extern "C" int sparch_fused_ann_bwd(
   if (err != 0) return err;
   split.mark(1, st);
 
-  AnnDvArgs a{y_seq, y0, mode == kGru ? r : nullptr, {},
-              ksplit == 1 ? dV : dv_partials, T, H, B * T,
-              dv_rows_per_split(B * T, ksplit), G, 0};
+  DvArgs a{y_seq, y0, mode == kGru ? r : nullptr, {}, nullptr, 0.f, T, H,
+           B * T, dv_rows_per_split(B * T, ksplit), G, 0};
   for (int k = 0; k < 3; ++k) a.dpre[k] = affine ? dd[k] : dwx[k];
-  err = (int)(bf16 ? launch_ann_dv<__nv_bfloat16>(a, dv_tile, ksplit, st)
-                   : launch_ann_dv<float>(a, dv_tile, ksplit, st));
+  err = (int)(bf16 ? launch_dv<false, __nv_bfloat16>(a, dV, dv_partials,
+                                                     dv_tile, ksplit, st)
+                   : launch_dv<false, float>(a, dV, dv_partials, dv_tile,
+                                             ksplit, st));
   if (err != 0) return err;
   split.mark(2, st);
 
@@ -404,13 +405,6 @@ extern "C" int sparch_fused_ann_bwd(
     const int n_vec = 2 * G * H;
     sum_parts_kernel<<<(n_vec + 255) / 256, 256, 0, st>>>(partials, vecs,
                                                           n_parts, n_vec);
-    err = (int)cudaGetLastError();
-    if (err != 0) return err;
-  }
-  if (ksplit > 1) {
-    const int n = G * H * H;
-    sum_parts_kernel<<<(n + 255) / 256, 256, 0, st>>>(dv_partials, dV,
-                                                      ksplit, n);
     err = (int)cudaGetLastError();
     if (err != 0) return err;
   }
@@ -428,34 +422,41 @@ extern "C" int sparch_fused_ann_bwd_max_clusters(int B, int H, int mode,
   return slice::max_active_clusters(kernel_for(mode, H, bf16), pl);
 }
 
-// The non-spiking dV product alone (dv_product.cuh), for tests and timing:
-// dV (gates, H, H) from y_seq (B, T, H), y0 (B, H), r (the GRU's reset
-// series, else null) and a dpre series (B, T, H) a gate; the series bf16
-// where bf16; ksplit, dv_tile and dv_partials as for sparch_fused_ann_bwd.
-extern "C" int sparch_ann_dv(const void* y_seq, const float* y0,
-                             const void* r, const void* dpre0,
-                             const void* dpre1, const void* dpre2, float* dV,
-                             float* dv_partials, int B, int T, int H, int G,
-                             int ksplit, int dv_tile, int bf16,
-                             void* stream) {
+// The dV product alone, as the backwards launch it (dv_product.cuh
+// `launch_dv`), for the card tests: dV (gates, H, H) from the left
+// operand's series `left` (B, T, H), its row at t = 0 `left0` (B, H), r
+// (the GRU's reset series, else null) and a right series (B, T, H) a gate.
+// spiking: left is the u series (float), left0 s0, one gate, and the left
+// operand is left > threshold; else left is y and left0 y0. The right
+// series (and y, r) are bf16 where bf16; ksplit, dv_tile and dv_partials
+// as for sparch_fused_ann_bwd.
+extern "C" int sparch_dv_product(const void* left, const float* left0,
+                                 const void* r, const void* dpre0,
+                                 const void* dpre1, const void* dpre2,
+                                 float* dV, float* dv_partials, int B, int T,
+                                 int H, int G, int spiking, float threshold,
+                                 int ksplit, int dv_tile, int bf16,
+                                 void* stream) {
   const void* dpre[3] = {dpre0, dpre1, dpre2};
-  if (B <= 0 || T <= 0 || H <= 0 || G < 1 || G > 3 || ksplit < 1 ||
-      !y_seq || !y0 || !dV || (ksplit > 1 && !dv_partials) ||
-      dv_tile != ann_dv_tile(H, G, ksplit)) {
+  if (B <= 0 || T <= 0 || H <= 0 || G < 1 || G > 3 || (spiking && G != 1) ||
+      ksplit < 1 || !left || !left0 || !dV || (ksplit > 1 && !dv_partials) ||
+      !dv_tile_ok(dv_tile, H, G, ksplit)) {
     return (int)cudaErrorInvalidValue;
   }
   for (int k = 0; k < G; ++k) {
     if (!dpre[k]) return (int)cudaErrorInvalidValue;
   }
-  AnnDvArgs a{y_seq, y0, r, {dpre0, dpre1, dpre2},
-              ksplit == 1 ? dV : dv_partials, T, H, B * T,
-              dv_rows_per_split(B * T, ksplit), G, 0};
+  const DvArgs a{left, left0, r, {dpre0, dpre1, dpre2}, nullptr, threshold,
+                 T, H, B * T, dv_rows_per_split(B * T, ksplit), G, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = (int)(bf16 ? launch_ann_dv<__nv_bfloat16>(a, dv_tile, ksplit, st)
-                       : launch_ann_dv<float>(a, dv_tile, ksplit, st));
-  if (err != 0 || ksplit == 1) return err;
-  const int n = G * H * H;
-  sum_parts_kernel<<<(n + 255) / 256, 256, 0, st>>>(dv_partials, dV, ksplit,
-                                                    n);
-  return (int)cudaGetLastError();
+  if (spiking) {
+    return (int)(bf16 ? launch_dv<true, __nv_bfloat16>(a, dV, dv_partials,
+                                                       dv_tile, ksplit, st)
+                      : launch_dv<true, float>(a, dV, dv_partials, dv_tile,
+                                               ksplit, st));
+  }
+  return (int)(bf16 ? launch_dv<false, __nv_bfloat16>(a, dV, dv_partials,
+                                                      dv_tile, ksplit, st)
+                    : launch_dv<false, float>(a, dV, dv_partials, dv_tile,
+                                              ksplit, st));
 }

@@ -77,8 +77,8 @@
 //   tp_cell_bwd.cu): one (H, B*T) x (B*T, H) product whose left operand is
 //   recomputed from the u series (s0 for the first step of each row) and
 //   whose right operand is the stored dDrive (dWx itself without the
-//   affine, else a scratch stream written beside it). 64x64 tiles, 4x4 per
-//   thread, split over B*T into partials that a fourth kernel adds in
+//   affine, else a scratch stream written beside it), tiled by the plan
+//   `dv_tile`; where B*T is split, a fourth kernel adds the splits in
 //   ascending order.
 // - Edges are masked: rows >= B and neurons >= H load nothing, hold zero
 //   adjoints and store nothing.
@@ -86,12 +86,14 @@
 // C interface, bound with ctypes: sparch_fused_cell_bwd checks the plan it
 // is given (ops/fused_cells.py `_bwd_plan`: for the recurrent forms the
 // time loop's cluster, rows and resident slice; n_parts and ksplit, which
-// size the caller's partials buffers) against its own, enqueues all the
+// size the caller's partials buffers; the dV product's tile) against its
+// own, enqueues all the
 // kernels on the stream, returns the first launch error (or an
 // invalid-value error for arguments it does not take) and never
 // synchronises, unless it is given split_ms: then it records CUDA events
 // around each launch, waits for them and writes the milliseconds of the
-// time loop, the dV product and the second passes there.
+// time loop, the dV product (the sum of its splits included) and the
+// second passes there.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -614,25 +616,22 @@ slice::Plan cluster_plan(int B, int H, int bf16) {
 // (ops/fused_ann.py `_pack_slices`), bf16 in that mode. n_parts
 // (partials is (n_parts, 6, H), a part of two rows at H <= 512, else of
 // one), ksplit (dv_partials is (ksplit, H, H), unused and may be null at
-// ksplit 1) and, for the recurrent forms, cluster, rows and resident: the
-// plan. spike_words (recurrent forms): the dV product's scratch,
-// (spike_word_rows(B*T), spike_word_cols(H)) u32 (dv_product.cuh).
+// ksplit 1) and, for the recurrent forms, cluster, rows, resident and
+// dv_tile (the dV product's, dv_product.cuh `dv_tile`): the plan.
 // split_ms: null, or three floats of host memory (see the header).
 extern "C" int sparch_fused_cell_bwd(
     const void* g, const void* wx, const float* u_seq, const float* scale,
     const float* alpha, const float* beta, const float* a, const float* b,
     const void* VT, const float* u0, const float* w0, const float* s0,
     const int* seed, void* dwx, void* dd, float* partials, float* vecs,
-    float* dV, float* dv_partials, unsigned int* spike_words, float* du0,
-    float* dw0, float* ds0, int B, int T, int H, float threshold,
-    int recurrent, int adaptive, int affine, unsigned int keep_u32,
-    float inv_keep, int tile_rows,
-    int n_parts, int ksplit, int cluster, int rows, int resident, int bf16,
-    int wx_bf16, float* split_ms, void* stream) {
+    float* dV, float* dv_partials, float* du0, float* dw0, float* ds0,
+    int B, int T, int H, float threshold, int recurrent, int adaptive,
+    int affine, unsigned int keep_u32, float inv_keep, int tile_rows,
+    int n_parts, int ksplit, int dv_tile, int cluster, int rows,
+    int resident, int bf16, int wx_bf16, float* split_ms, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || H > kThreads * kMaxNpt || !g || !u_seq ||
       !alpha || !u0 || !s0 || !dwx || !partials || !vecs || !du0 || !ds0 ||
-      (recurrent && (!VT || !dV || !spike_words ||
-                     (ksplit > 1 && !dv_partials))) ||
+      (recurrent && (!VT || !dV || (ksplit > 1 && !dv_partials))) ||
       (adaptive && (!beta || !a || !b || !w0 || !dw0)) ||
       (affine && (!wx || !scale)) || (affine && recurrent && !dd) ||
       (seed && tile_rows <= 0) || (wx_bf16 && !bf16) || ksplit < 1) {
@@ -645,7 +644,8 @@ extern "C" int sparch_fused_cell_bwd(
   const slice::Plan pl = cluster_plan(B, H, bf16);
   if (recurrent && (cluster != pl.cluster || rows != pl.rows ||
                     resident != pl.resident ||
-                    pl.threads > kClusterThreads)) {
+                    pl.threads > kClusterThreads ||
+                    !dv_tile_ok(dv_tile, H, 1, ksplit))) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -688,12 +688,12 @@ extern "C" int sparch_fused_cell_bwd(
     err = (int)(bf16 ? launch_spike_dv(
                            u_seq, s0,
                            static_cast<const __nv_bfloat16*>(dd_series),
-                           spike_words, dV, dv_partials, T, H, B * T, ksplit,
-                           threshold, st)
+                           threshold, dV, dv_partials, T, H, B * T, dv_tile,
+                           ksplit, st)
                      : launch_spike_dv(u_seq, s0,
                                        static_cast<const float*>(dd_series),
-                                       spike_words, dV, dv_partials, T, H,
-                                       B * T, ksplit, threshold, st));
+                                       threshold, dV, dv_partials, T, H,
+                                       B * T, dv_tile, ksplit, st));
     if (err != 0) return err;
   }
   split.mark(2, st);
@@ -703,42 +703,7 @@ extern "C" int sparch_fused_cell_bwd(
                                                          vecs, n_parts, H);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  if (recurrent && ksplit > 1) {
-    const int n = H * H;
-    sum_parts_kernel<<<(n + 255) / 256, 256, 0, st>>>(dv_partials, dV,
-                                                      ksplit, n);
-    err = (int)cudaGetLastError();
-    if (err != 0) return err;
-  }
   split.mark(3, st);
   split.report(split_ms, 3);
-  return (int)cudaGetLastError();
-}
-
-// The spiking dV product alone (dv_product.cuh), for tests and timing:
-// dV (H, H) from the u series (B, T, H), s0 (B, H) and the dDrive series
-// dd (B, T, H; bf16 where bf16) over ksplit splits; spike_words and
-// dv_partials as for sparch_fused_cell_bwd.
-extern "C" int sparch_spike_dv(const float* u_seq, const float* s0,
-                               const void* dd, unsigned int* spike_words,
-                               float* dV, float* dv_partials, int B, int T,
-                               int H, int ksplit, float threshold, int bf16,
-                               void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0 || ksplit < 1 || !u_seq || !s0 || !dd ||
-      !spike_words || !dV || (ksplit > 1 && !dv_partials)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = (int)(bf16 ? launch_spike_dv(
-                             u_seq, s0, static_cast<const __nv_bfloat16*>(dd),
-                             spike_words, dV, dv_partials, T, H, B * T,
-                             ksplit, threshold, st)
-                       : launch_spike_dv(u_seq, s0,
-                                         static_cast<const float*>(dd),
-                                         spike_words, dV, dv_partials, T, H,
-                                         B * T, ksplit, threshold, st));
-  if (err != 0 || ksplit == 1) return err;
-  sum_parts_kernel<<<(H * H + 255) / 256, 256, 0, st>>>(dv_partials, dV,
-                                                        ksplit, H * H);
   return (int)cudaGetLastError();
 }

@@ -39,7 +39,7 @@
 //   dy0 are therefore those of the single-card kernel without the affine and
 //   the dropout, bit for bit, at every P.
 // - dV is not accumulated per step by outer products: it is the product of
-//   fused_ann_bwd.cu after the time loop (dv_product.cuh `ann_dv_kernel`),
+//   fused_ann_bwd.cu after the time loop (dv_product.cuh `dv_kernel`),
 //   dV = sum over (b, t) of y_p^T dpre per gate ((r*y_p)^T dcpre for the
 //   GRU's candidate), over the y series and the dWx series. In the one-card
 //   form the ranks' dWx blocks side by side are the gathered dpre series,
@@ -91,7 +91,8 @@
 // an invalid-value error for arguments it does not take) and never
 // synchronises, unless it is given split_ms: then it records CUDA events
 // around each launch, waits for them and writes the milliseconds of the
-// time loop, the dV product and the second pass there. `plan` (host
+// time loop, the dV product (the sum of its splits included) and 0 (the
+// other backwards' second passes; this one has none). `plan` (host
 // memory, may be null) receives the time loop's plan (tp_ann::report).
 
 #include <cuda_runtime.h>
@@ -309,7 +310,7 @@ bool shape_ok(int B, int Hg, int P, int mode, int cluster) {
 // elements, W = Hg for the RNN, 2*Hg for the stacked gathers) and zeroed
 // counters ([P][groups][2] u32). dV (gates, Hg, Hg) and dv_partials
 // (ksplit, gates, Hg, Hg; unused and may be null at ksplit 1) receive the
-// dV product, in the tile dv_tile (dv_product.cuh `ann_dv_tile`). bf16
+// dV product, in the tile dv_tile (dv_product.cuh `dv_tile`). bf16
 // selects the bf16-stream mode (g, the series, VT, the slots and dwx
 // bf16); y0, dV and dy0 are float in either mode. cluster, rows,
 // resident: the plan the wrapper packed VT for. split_ms: null, or three
@@ -328,7 +329,7 @@ extern "C" int sparch_tp_ann_bwd(
       n_local != P || ld != Hg || ksplit < 1 || !g || !y_seq || !VT || !y0 ||
       !dV || (ksplit > 1 && !dv_partials) || !dy0 ||
       (mode >= kLigru && (!z || !c)) || (mode == kGru && !r) ||
-      dv_tile != ann_dv_tile(Hg, mode + 1, ksplit)) {
+      !dv_tile_ok(dv_tile, Hg, mode + 1, ksplit)) {
     return (int)cudaErrorInvalidValue;
   }
   const int G = mode + 1;
@@ -379,20 +380,15 @@ extern "C" int sparch_tp_ann_bwd(
   split.mark(1, st);
 
   // dV over the full y series and the ranks' dWx blocks (the gathered dpre)
-  const AnnDvArgs a{y_seq, y0, mode == kGru ? r : nullptr,
-                    {dwx0, dwx1, dwx2}, ksplit == 1 ? dV : dv_partials, T,
-                    Hg, B * T, dv_rows_per_split(B * T, ksplit), G, 0};
-  err = (int)(bf16 ? launch_ann_dv<__nv_bfloat16>(a, dv_tile, ksplit, st)
-                   : launch_ann_dv<float>(a, dv_tile, ksplit, st));
+  const DvArgs a{y_seq, y0, mode == kGru ? r : nullptr, {dwx0, dwx1, dwx2},
+                 nullptr, 0.f, T, Hg, B * T,
+                 dv_rows_per_split(B * T, ksplit), G, 0};
+  err = (int)(bf16 ? launch_dv<false, __nv_bfloat16>(a, dV, dv_partials,
+                                                     dv_tile, ksplit, st)
+                   : launch_dv<false, float>(a, dV, dv_partials, dv_tile,
+                                             ksplit, st));
   if (err != 0) return err;
   split.mark(2, st);
-  if (ksplit > 1) {
-    const int n = G * Hg * Hg;
-    sum_parts_kernel<<<(n + 255) / 256, 256, 0, st>>>(dv_partials, dV,
-                                                      ksplit, n);
-    err = (int)cudaGetLastError();
-    if (err != 0) return err;
-  }
   split.mark(3, st);
   split.report(split_ms, 3);
   return (int)cudaGetLastError();

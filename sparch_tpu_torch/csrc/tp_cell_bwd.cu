@@ -79,8 +79,8 @@
 // launch error (or an invalid-value error for arguments it does not take)
 // and never synchronises, unless it is given split_ms: then it records
 // CUDA events around each launch, waits for them and writes the
-// milliseconds of the time loop, the dV product and the second passes
-// there. `plan` (host memory, may be null) receives the time loop's plan
+// milliseconds of the time loop, the dV product (the sum of its splits
+// included) and the second passes there. `plan` (host memory, may be null) receives the time loop's plan
 // (tp_ann::report).
 
 #include <cuda_runtime.h>
@@ -374,8 +374,8 @@ bool shape_ok(int B, int H, int P, int cluster) {
 // holds n_local*n_parts*4*(H/P) floats (n_parts = B / part_rows, rounded
 // up), vecs (4, n_local*H/P) receives dalpha, dbeta, da, db; dV (H, H) and
 // dv_partials (ksplit, H, H; unused and may be null at ksplit 1) the dV
-// product, spike_words ((spike_word_rows(B*T), spike_word_cols(H)) u32,
-// dv_product.cuh) its scratch. VT: every block's slice of
+// product, in the tile dv_tile (dv_product.cuh `dv_tile`). VT: every
+// block's slice of
 // every rank's block of V^T (ops/fused_tp_ann.py `_pack_slices`). bf16
 // selects the bf16-stream mode (g, VT, dwx and the slots bf16). cluster,
 // rows, resident: the plan the wrapper packed VT for; part_rows: the rows
@@ -385,17 +385,17 @@ extern "C" int sparch_tp_cell_bwd(
     const void* g, const float* u_seq, const float* alpha, const float* beta,
     const float* a, const float* b, const void* VT, const float* u0,
     const float* w0, const float* s0f, void* dwx, float* partials,
-    float* vecs, float* dV, float* dv_partials, unsigned int* spike_words,
-    float* du0, float* dw0, float* ds0, void* const* slots,
-    unsigned* const* flags, int B, int T, int H, int P, int rank0,
-    int n_local, int ld, float threshold, int adaptive, int ksplit, int bf16,
-    int cluster, int rows, int resident, int part_rows, float* split_ms,
-    int* plan, void* stream) {
+    float* vecs, float* dV, float* dv_partials, float* du0, float* dw0,
+    float* ds0, void* const* slots, unsigned* const* flags, int B, int T,
+    int H, int P, int rank0, int n_local, int ld, float threshold,
+    int adaptive, int ksplit, int dv_tile, int bf16, int cluster, int rows,
+    int resident, int part_rows, float* split_ms, int* plan, void* stream) {
   if (!shape_ok(B, H, P, cluster) || T <= 0 || rank0 != 0 || n_local != P ||
       ld != H || ksplit < 1 || !g || !u_seq || !alpha || !VT || !u0 ||
-      !s0f || !dwx || !partials || !vecs || !dV || !spike_words ||
+      !s0f || !dwx || !partials || !vecs || !dV ||
       (ksplit > 1 && !dv_partials) || !du0 ||
       !ds0 || (adaptive && (!beta || !a || !b || !w0 || !dw0)) ||
+      !dv_tile_ok(dv_tile, H, 1, ksplit) ||
       (part_rows != 1 && part_rows != 2 && part_rows != 4 &&
        part_rows != 8)) {
     return (int)cudaErrorInvalidValue;
@@ -453,12 +453,12 @@ extern "C" int sparch_tp_cell_bwd(
   // dV over the full u series and the ranks' dWx blocks (the gathered D)
   err = (int)(bf16 ? launch_spike_dv(u_seq, s0f,
                                      static_cast<const __nv_bfloat16*>(dwx),
-                                     spike_words, dV, dv_partials, T, H,
-                                     B * T, ksplit, threshold, st)
+                                     threshold, dV, dv_partials, T, H, B * T,
+                                     dv_tile, ksplit, st)
                    : launch_spike_dv(u_seq, s0f,
                                      static_cast<const float*>(dwx),
-                                     spike_words, dV, dv_partials, T, H,
-                                     B * T, ksplit, threshold, st));
+                                     threshold, dV, dv_partials, T, H, B * T,
+                                     dv_tile, ksplit, st));
   if (err != 0) return err;
   split.mark(2, st);
 
@@ -467,12 +467,6 @@ extern "C" int sparch_tp_cell_bwd(
       partials, alpha, vecs, p.n_parts, p.Hl, n_cols);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  if (ksplit > 1) {
-    sum_parts_kernel<<<(H * H + 255) / 256, 256, 0, st>>>(dv_partials, dV,
-                                                          ksplit, H * H);
-    err = (int)cudaGetLastError();
-    if (err != 0) return err;
-  }
   split.mark(3, st);
   split.report(split_ms, 3);
   return (int)cudaGetLastError();

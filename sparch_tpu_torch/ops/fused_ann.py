@@ -119,12 +119,11 @@ FUSED_ANN_FWD = _per_mode("fused_ann_fwd")
 FUSED_ANN_BWD = _per_mode("fused_ann_bwd")
 FUSED_ANN_FWD_BF16 = _per_mode("fused_ann_fwd", "_bf16")
 FUSED_ANN_BWD_BF16 = _per_mode("fused_ann_bwd", "_bf16")
-# the non-spiking dV product alone, for tests and timing (the backward
-# launches it on the main path)
-ANN_DV = Kernel("fused_ann_bwd", "sparch_ann_dv", [_P] * 8 + [_I] * 7 + [_P],
-                name="ann_dv")
-ANN_DV_BF16 = Kernel("fused_ann_bwd", "sparch_ann_dv",
-                     [_P] * 8 + [_I] * 7 + [_P], name="ann_dv_bf16")
+# the dV product alone, for the card tests (the backwards launch it on the
+# main path)
+DV_PRODUCT = Kernel("fused_ann_bwd", "sparch_dv_product",
+                    [_P] * 8 + [_I] * 5 + [_F] + [_I] * 3 + [_P],
+                    name="dv_product")
 KERNELS = tuple(k for group in (FUSED_ANN_FWD, FUSED_ANN_BWD,
                                 FUSED_ANN_FWD_BF16, FUSED_ANN_BWD_BF16)
                 for k in group.values())
@@ -133,12 +132,11 @@ _MAX_H = 2048
 # csrc/dv_product.cuh: the split of the dV products over B*T counts tiles
 # of 64 x 64 and rounds a split's rows to 16 (kBK), whatever tile the
 # product runs: the split fixes which rows each chain of fmaf sums, so it
-# fixes the bits. The non-spiking product's tiles (dV rows x columns a
-# block), largest first, and the SMs its plan fills (an H100 SXM's).
+# fixes the bits. The product's tiles (dV rows x columns a block), largest
+# first.
 _DV_TILE = 64
 _DV_BK = 16
 _DV_TILES = ((128, 128), (128, 64), (64, 64))
-_DV_SMS = 132
 # csrc/cluster_slice.cuh: blocks of a cluster at most (kMaxCluster, which
 # says why six), a slice's columns at least (H allowing), the slice widths'
 # multiple, the rows a thread owns, the threads of a block at most, the
@@ -421,69 +419,63 @@ def _dv_rows_per_split(B: int, T: int, ksplit: int) -> int:
     return -(-(-(-(B * T) // ksplit)) // _DV_BK) * _DV_BK
 
 
-def _dv_tile(H: int, n: int, ksplit: int) -> int:
-    """The non-spiking dV product's tile, an index into ``_DV_TILES``
-    (``ann_dv_tile`` of ``csrc/dv_product.cuh``, which checks it): among
-    the tiles whose grid gives every SM a block, the one whose last round
+def _dv_tile(H: int, n: int, ksplit: int, sms: int) -> int:
+    """The dV product's tile, an index into ``_DV_TILES`` (``dv_tile`` of
+    ``csrc/dv_product.cuh``, which checks it): among the tiles whose grid
+    gives each of the card's ``sms`` SMs a block, the one whose last round
     of blocks is fullest, the larger on a tie; where none does, the
     smallest."""
     best, best_blocks, best_rounds = -1, 0, 1
     for i, (bm, bn) in enumerate(_DV_TILES):
         blocks = n * ksplit * -(-H // bm) * -(-H // bn)
-        if blocks < _DV_SMS:
+        if blocks < sms:
             continue
-        rounds = -(-blocks // _DV_SMS)
+        rounds = -(-blocks // sms)
         if best < 0 or blocks * best_rounds > best_blocks * rounds:
             best, best_blocks, best_rounds = i, blocks, rounds
     return len(_DV_TILES) - 1 if best < 0 else best
 
 
-def ann_dv_plain(mode: str, y_seq, y0, r, dpres, *,
-                 mxu_bf16: bool = False):
-    """Plain version of the non-spiking dV products of
-    ``csrc/dv_product.cuh`` as ``ann_cell_bwd_plain`` forms them: by gate,
-    the sum over rows (b, t) of left[b, t]^T dpre[b, t], left = y_{t-1}
-    (y0 at t = 0), times r for the GRU's candidate (gate 0), rounded to
-    bf16 with ``mxu_bf16`` (where the series are bf16), in y0's type."""
-    H = y0.shape[1]
-    y_prev = torch.cat([y0[:, None], y_seq[:, :-1].to(y0.dtype)], dim=1)
-    dvs = []
-    for i, dpre in enumerate(dpres):
-        left = r.to(y0.dtype) * y_prev if (mode == "gru" and i == 0) \
-            else y_prev
-        if mxu_bf16:
-            left = _rb(left)
-        dvs.append(torch.matmul(left.reshape(-1, H).t(),
-                                dpre.to(y0.dtype).reshape(-1, H)))
-    return dvs
+def _card_dv_tile(H: int, n: int, ksplit: int, dev) -> int:
+    """``_dv_tile`` for the SMs of the card ``dev``."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _dv_tile(H, n, ksplit, sms)
 
 
-def _ann_dv_cuda(mode: str, y_seq, y0, r, dpres, *, mxu_bf16: bool = False):
-    """Launch the non-spiking dV products alone (``sparch_ann_dv``) in the
-    split and tile the backward takes. Same contract as
-    ``ann_dv_plain``."""
-    n = MODES[mode]
-    B, T, H = y_seq.shape
-    dev = y_seq.device
+def _dv_product_cuda(left, left0, r, rights, *, threshold=None,
+                     mxu_bf16: bool = False):
+    """Launch the dV product alone (``sparch_dv_product``) in the split and
+    tile the backwards take: by gate, the sum over rows (b, t) of
+    l[b, t]^T rights[gate][b, t], one fmaf chain an element, with l the
+    left operand of the row before (``left0`` at t = 0). With a
+    ``threshold`` the spiking product (``left`` the float32 u series, l =
+    left > threshold, one gate), else l = ``left`` (y), times ``r`` for
+    the GRU's candidate (gate 0); rounded to bf16 with ``mxu_bf16``, where
+    the right series (and y, r) are bf16. Returns the gates' dV."""
+    spiking = threshold is not None
+    n = len(rights)
+    B, T, H = rights[0].shape
+    dev = rights[0].device
     sdt = _BF16 if mxu_bf16 else torch.float32
-    _check("y_seq", y_seq, (B, T, H), dev, sdt)
-    _check("y0", y0, (B, H), dev)
-    if mode == "gru":
+    _check("left", left, (B, T, H), dev, torch.float32 if spiking else sdt)
+    _check("left0", left0, (B, H), dev)
+    if r is not None:
         _check("r", r, (B, T, H), dev, sdt)
-    if len(dpres) != n:
-        raise ValueError(f"{mode}: want {n} dpre series, got {len(dpres)}")
-    for i, dpre in enumerate(dpres):
-        _check(f"dpre[{i}]", dpre, (B, T, H), dev, sdt)
+    if not 1 <= n <= (1 if spiking else 3):
+        raise ValueError(f"the dV product takes 1-3 gates (spiking: 1), "
+                         f"got {n}")
+    for i, right in enumerate(rights):
+        _check(f"rights[{i}]", right, (B, T, H), dev, sdt)
     ksplit = _dv_split(B, T, H, n)
     dvs = torch.empty((n, H, H), dtype=torch.float32, device=dev)
     parts = torch.empty((ksplit, n, H, H), dtype=torch.float32, device=dev) \
         if ksplit > 1 else None
     with torch.cuda.device(dev):
-        (ANN_DV_BF16 if mxu_bf16 else ANN_DV)(
-            _ptr(y_seq), _ptr(y0), _ptr(r) if mode == "gru" else None,
-            *_three(dpres), _ptr(dvs), _ptr(parts), B, T, H, n, ksplit,
-            _dv_tile(H, n, ksplit), int(mxu_bf16),
-            torch.cuda.current_stream(dev).cuda_stream)
+        DV_PRODUCT(_ptr(left), _ptr(left0), _ptr(r), *_three(rights),
+                   _ptr(dvs), _ptr(parts), B, T, H, n, int(spiking),
+                   float(threshold or 0.0), ksplit,
+                   _card_dv_tile(H, n, ksplit, dev), int(mxu_bf16),
+                   torch.cuda.current_stream(dev).cuda_stream)
     return list(dvs.unbind(0))
 
 
@@ -630,7 +622,7 @@ def _ann_cell_bwd_cuda(mode: str, g, wxs, y_seq, gates, scales, vs, y0, *,
     vecs = new(2 * n, H)
     dvs = new(n, H, H)
     dv_partials = new(ksplit, n, H, H) if ksplit > 1 else None
-    dv_tile = _dv_tile(H, n, ksplit)
+    dv_tile = _card_dv_tile(H, n, ksplit, dev)
     dy0 = new(B, H)
     # V^T per gate: the adjoint products contract V's second axis
     vts = _pack_slices([v.t() for v in vs], _BWD_PASSES[mode], plan,

@@ -90,8 +90,8 @@ _U = ctypes.c_uint32
 _FWD_ARGS = [_P] * 12 + [_I] * 3 + [_F] + [_I] * 5 + [_P] * 5
 _FWD_TRAIN_ARGS = ([_P] * 14 + [_I] * 3 + [_F] + [_I] * 3 + [_U, _F, _I]
                    + [_I] * 2 + [_P] * 5)
-_BWD_ARGS = ([_P] * 23 + [_I] * 3 + [_F] + [_I] * 3 + [_U, _F, _I]
-             + [_I] * 7 + [_P, _P])
+_BWD_ARGS = ([_P] * 22 + [_I] * 3 + [_F] + [_I] * 3 + [_U, _F, _I]
+             + [_I] * 8 + [_P, _P])
 # one C entry point per form serves both stream modes; the modes are
 # counted apart
 FUSED_CELL_FWD = Kernel(
@@ -110,13 +110,6 @@ FUSED_CELL_BWD = Kernel(
 FUSED_CELL_BWD_BF16 = Kernel(
     "fused_cell_bwd", "sparch_fused_cell_bwd", _BWD_ARGS,
     name="fused_cell_bwd_bf16")
-# the spiking dV product alone, for tests and timing (the backward launches
-# it on the main path)
-SPIKE_DV = Kernel("fused_cell_bwd", "sparch_spike_dv",
-                  [_P] * 6 + [_I] * 4 + [_F, _I, _P], name="spike_dv")
-SPIKE_DV_BF16 = Kernel("fused_cell_bwd", "sparch_spike_dv",
-                       [_P] * 6 + [_I] * 4 + [_F, _I, _P],
-                       name="spike_dv_bf16")
 READOUT_FWD = Kernel(
     "readout_fwd", "sparch_readout_fwd", [_P] * 5 + [_I] * 3 + [_P]
 )
@@ -135,10 +128,6 @@ _MAX_C = 256
 # blocks before the cluster takes eight
 _PAIR_H = 512
 _MAX_SIX_COLS = 512
-# csrc/dv_product.cuh: the spiking dV product's words hold 32 rows
-# (kSpkRows) and its blocks own 64 dV rows (kSpkM)
-_SPIKE_WORD_ROWS = 32
-_SPIKE_DV_ROWS = 64
 _PLANS: Dict[str, dict] = {}
 
 
@@ -745,50 +734,6 @@ def _bwd_plan(B: int, T: int, H: int, recurrent: bool,
     return plan, -(-B // _part_rows(H)), fused_ann._dv_split(B, T, H, 1)
 
 
-def _spike_words(R: int, H: int, dev) -> torch.Tensor:
-    """Scratch of the spiking dV product (``csrc/dv_product.cuh``): a bit
-    a row of its left operand, words of 32 rows by the neurons padded to
-    the product's blocks of 64 dV rows."""
-    return torch.empty((-(-R // _SPIKE_WORD_ROWS),
-                        -(-H // _SPIKE_DV_ROWS) * _SPIKE_DV_ROWS),
-                       dtype=torch.int32, device=dev)
-
-
-def spike_dv_plain(u_seq, s0, dd, threshold, *, mxu_bf16: bool = False):
-    """Plain version of the spiking dV product of ``csrc/dv_product.cuh``
-    as ``fused_cell_bwd_plain`` forms it: the sum over rows (b, t) of
-    s_{t-1}[b]^T dd[b, t] with s_{-1} = s0 (rounded to bf16 with
-    ``mxu_bf16``, where dd is bf16), in float32."""
-    B, T, H = dd.shape
-    s_prev = torch.cat([(_rb(s0) if mxu_bf16 else s0)[:, None],
-                        (u_seq[:, :-1] > threshold).to(s0.dtype)], dim=1)
-    return torch.matmul(s_prev.reshape(-1, H).t(),
-                        dd.to(s0.dtype).reshape(-1, H))
-
-
-def _spike_dv_cuda(u_seq, s0, dd, threshold, *, mxu_bf16: bool = False):
-    """Launch the spiking dV product alone (``sparch_spike_dv``) in the
-    split the backward takes. Same contract as ``spike_dv_plain``."""
-    from sparch_tpu_torch.ops import fused_ann
-
-    B, T, H = dd.shape
-    dev = dd.device
-    _check("u_seq", u_seq, (B, T, H), dev)
-    _check("s0", s0, (B, H), dev)
-    _check("dd", dd, (B, T, H), dev, _BF16 if mxu_bf16 else torch.float32)
-    ksplit = fused_ann._dv_split(B, T, H, 1)
-    dV = torch.empty((H, H), dtype=torch.float32, device=dev)
-    parts = torch.empty((ksplit, H, H), dtype=torch.float32, device=dev) \
-        if ksplit > 1 else None
-    words = _spike_words(B * T, H, dev)
-    with torch.cuda.device(dev):
-        (SPIKE_DV_BF16 if mxu_bf16 else SPIKE_DV)(
-            _ptr(u_seq), _ptr(s0), _ptr(dd), _ptr(words), _ptr(dV),
-            _ptr(parts), B, T, H, ksplit, float(threshold), int(mxu_bf16),
-            torch.cuda.current_stream(dev).cuda_stream)
-    return dV
-
-
 def _fused_cell_bwd_cuda(g, Wx, u_seq, scale, alpha, beta, a, b, V,
                          threshold, u0, w0, s0, *, recurrent: bool,
                          adaptive: bool, drop_rate: float = 0.0, seed=None,
@@ -822,13 +767,13 @@ def _fused_cell_bwd_cuda(g, Wx, u_seq, scale, alpha, beta, a, b, V,
     # every cluster block's slice of V^T (the rows of V for its neurons),
     # rounded to bf16 in that mode
     VT = None
-    if recurrent:
-        from sparch_tpu_torch.ops import fused_ann
+    from sparch_tpu_torch.ops import fused_ann
 
+    if recurrent:
         VT = fused_ann._pack_slices([V.t()], ((0,),), plan, mxu_bf16)
     dV = new(H, H) if recurrent else None
     dv_partials = new(ksplit, H, H) if recurrent and ksplit > 1 else None
-    words = _spike_words(B * T, H, dev) if recurrent else None
+    dv_tile = fused_ann._card_dv_tile(H, 1, ksplit, dev) if recurrent else 0
     du0, ds0 = new(B, H), new(B, H)
     dw0 = new(B, H) if adaptive else None
     if not adaptive:
@@ -842,16 +787,17 @@ def _fused_cell_bwd_cuda(g, Wx, u_seq, scale, alpha, beta, a, b, V,
             _ptr(alpha), _ptr(beta), _ptr(a), _ptr(b), _ptr(VT), _ptr(u0),
             _ptr(w0), _ptr(s0), _ptr(seed) if dropout else None, _ptr(dWx),
             _ptr(dd), _ptr(partials), _ptr(vecs), _ptr(dV),
-            _ptr(dv_partials), _ptr(words), _ptr(du0), _ptr(dw0), _ptr(ds0),
+            _ptr(dv_partials), _ptr(du0), _ptr(dw0), _ptr(ds0),
             B, T, H, float(threshold), int(recurrent), int(adaptive),
             int(affine), keep_u32(drop_rate) if dropout else 0,
             _inv_keep(drop_rate) if dropout else 1.0, dropout_tile_rows(B),
-            n_parts, ksplit, plan.cluster if plan else 0,
+            n_parts, ksplit, dv_tile, plan.cluster if plan else 0,
             plan.rows if plan else 0, int(plan.resident) if plan else 0,
             int(mxu_bf16), int(affine and Wx.dtype == _BF16), split, stream,
         )
     _PLANS["fused_cell_bwd"] = dict(
-        (plan._asdict() if plan else {}), n_parts=n_parts, ksplit=ksplit)
+        (plan._asdict() if plan else {}), n_parts=n_parts, ksplit=ksplit,
+        dv_tile=fused_ann._DV_TILES[dv_tile] if recurrent else None)
     if split is not None:
         split_ms[:] = list(split)
     dalpha, dbeta, da, db, dscale, dshift = vecs.unbind(0)

@@ -104,7 +104,7 @@ TP_REDUCE_SCATTER = Kernel("tp_collectives", "sparch_tp_reduce_scatter",
 # one C entry point per direction serves both stream modes; the modes are
 # counted apart
 _FWD_ARGS = [_P] * 13 + [_I] * 7 + [_F] + [_I] * 3 + [_P] * 5
-_BWD_ARGS = [_P] * 21 + [_I] * 7 + [_F] + [_I] * 7 + [_P] * 3
+_BWD_ARGS = [_P] * 20 + [_I] * 7 + [_F] + [_I] * 8 + [_P] * 3
 TP_CELL_FWD = Kernel("tp_cell_fwd", "sparch_tp_cell_fwd", _FWD_ARGS)
 TP_CELL_BWD = Kernel("tp_cell_bwd", "sparch_tp_cell_bwd", _BWD_ARGS)
 TP_CELL_FWD_BF16 = Kernel("tp_cell_fwd", "sparch_tp_cell_fwd", _FWD_ARGS,
@@ -629,7 +629,6 @@ def _tp_cell_bwd_cuda(g, u_seq, alpha, beta, a, b, V, threshold, u0, w0, s0,
     partials, vecs = new(P, -(-B // part_rows), 4, H // P), new(4, H)
     dV = new(H, H)
     dv_partials = new(ksplit, H, H) if ksplit > 1 else None
-    words = fused_cells._spike_words(B * T, H, dev)
     du0, ds0 = new(B, H), new(B, H)
     dw0 = new(B, H) if adaptive else None
     if not adaptive:
@@ -640,10 +639,10 @@ def _tp_cell_bwd_cuda(g, u_seq, alpha, beta, a, b, V, threshold, u0, w0, s0,
     _launch(TP_CELL_BWD_BF16 if mxu_bf16 else TP_CELL_BWD, dev, ptr(g),
             ptr(u_seq), ptr(alpha), ptr(beta), ptr(a), ptr(b), ptr(VT),
             ptr(u0), ptr(w0), ptr(s0), ptr(dWx), ptr(partials), ptr(vecs),
-            ptr(dV), ptr(dv_partials), ptr(words), ptr(du0), ptr(dw0),
-            ptr(ds0), bufs[2],
-            bufs[3], B, T, H, P, 0, P, H, float(threshold), int(adaptive),
-            ksplit, int(mxu_bf16), plan.cluster, plan.rows,
+            ptr(dV), ptr(dv_partials), ptr(du0), ptr(dw0), ptr(ds0),
+            bufs[2], bufs[3], B, T, H, P, 0, P, H, float(threshold),
+            int(adaptive), ksplit, fused_ann._card_dv_tile(H, 1, ksplit, dev),
+            int(mxu_bf16), plan.cluster, plan.rows,
             int(plan.resident), part_rows, split,
             n_plan=len(fused_tp_ann._PLAN_KEYS))
     _PLANS["tp_cell_bwd"] += (part_rows,)

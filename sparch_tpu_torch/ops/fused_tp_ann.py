@@ -545,7 +545,8 @@ def _tp_ann_cell_bwd_cuda(mode: str, g, y_seq, gates, vs, y0, *,
                      _ptr(packed), _ptr(y0), *fused_ann._three(dwxs),
                      _ptr(dvs), _ptr(dv_partials), _ptr(dy0), bufs[2],
                      bufs[3], B, T, H, P, 0, P, H, fused_ann._MODE_ID[mode],
-                     ksplit, fused_ann._dv_tile(H, n, ksplit), int(mxu_bf16),
+                     ksplit, fused_ann._card_dv_tile(H, n, ksplit, dev),
+                     int(mxu_bf16),
                      plan.cluster, plan.rows,
                      int(plan.resident), split, n_plan=len(_PLAN_KEYS))
     if split is not None:

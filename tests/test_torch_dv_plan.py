@@ -6,9 +6,10 @@ split of B*T (``fused_ann._dv_split``) and the rows of a split
 (``_dv_rows_per_split``, the launchers' rounding to 16). Both are pinned
 here at the main shapes and at odd ones, beside the C constants they
 mirror, so that the bits cannot drift silently. The tile plan of the
-non-spiking product covers every output element once and gives every SM a
-block where the output allows it. On the card the kernels equal
-``ordered_spike_dv`` (tests/test_torch_kernels.py) bit for bit; here that
+product (spiking and not) covers every output element once and gives every
+SM of the card a block where the output allows it. On the card the spiking
+product equals ``ordered_spike_dv`` (tests/test_torch_kernels.py) bit for
+bit; here that
 mirror is held against ``jax.grad`` of the JAX Pallas RadLIF cell (in
 interpret mode) with a binary s0, within the float32 tolerance of the other
 gradient tests (atol 2e-3, rtol 1e-4)."""
@@ -24,7 +25,8 @@ import torch
 from sparch_tpu.ops import pallas_cells
 from sparch_tpu_torch.ops import fused_ann, fused_cells
 
-from tests.test_torch_kernels import call, make_inputs, ordered_spike_dv
+from tests.test_torch_kernels import (call, make_inputs, ordered_spike_dv,
+                                      spike_dv_plain)
 
 HEADER = (Path(fused_cells.__file__).resolve().parent.parent / "csrc"
           / "dv_product.cuh").read_text()
@@ -36,7 +38,7 @@ def _const(name):
 
 
 def _array(name):
-    body = re.search(rf"constexpr int {name}\[kAnnTiles\] = \{{([^}}]*)\}};",
+    body = re.search(rf"constexpr int {name}\[kDvTiles\] = \{{([^}}]*)\}};",
                      HEADER).group(1)
     return tuple(int(x) for x in body.split(","))
 
@@ -44,12 +46,11 @@ def _array(name):
 def test_python_mirrors_the_c_constants():
     """The constants the Python plans compute with are the header's."""
     assert _const("kBK") == fused_ann._DV_BK == 16
-    assert _const("kDvSMs") == fused_ann._DV_SMS == 132
-    assert _const("kSpkRows") == fused_cells._SPIKE_WORD_ROWS == 32
-    assert (_const("kSpkMPW") * _const("kSpkWarps")
-            == fused_cells._SPIKE_DV_ROWS == 64)
-    assert tuple(zip(_array("kAnnTileM"), _array("kAnnTileN"))) == \
+    assert tuple(zip(_array("kDvTileM"), _array("kDvTileN"))) == \
         fused_ann._DV_TILES
+    # the SMs the plan fills are the card's, not a constant
+    assert "cudaDevAttrMultiProcessorCount" in HEADER
+    assert not re.search(r"constexpr int \w*SMs", HEADER)
     # the launchers' rounding of a split's rows, as _dv_rows_per_split
     assert ("const int rows = (R + ksplit - 1) / ksplit;\n"
             "  return (rows + kBK - 1) / kBK * kBK;") in HEADER
@@ -97,57 +98,56 @@ def _covered(H, bm, bn):
 @pytest.mark.parametrize("H", [40, 200, 256, 512, 1001, 1024, 2048])
 @pytest.mark.parametrize("n", [1, 2, 3])
 def test_ann_tile_plan_covers_and_fills(H, n):
-    """Each ksplit: the chosen tile covers every output element once; where
-    a tile gives every SM a block, the chosen one does, and no such tile
-    fills its last round of blocks better."""
-    for ksplit in sorted({1, 2, 4, fused_ann._dv_split(128, 100, H, n)}):
-        tile = fused_ann._dv_tile(H, n, ksplit)
-        bm, bn = fused_ann._DV_TILES[tile]
-        assert (_covered(H, bm, bn) == 1).all()
+    """Each ksplit, on a card of 132 SMs (H100 SXM) and of 114 (H100
+    PCIe): the chosen tile covers every output element once; where a tile
+    gives every SM a block, the chosen one does, and no such tile fills its
+    last round of blocks better. n = 1 is the spiking product's plan too."""
+    for sms in (132, 114):
+        for ksplit in sorted({1, 2, 4, fused_ann._dv_split(128, 100, H, n)}):
+            tile = fused_ann._dv_tile(H, n, ksplit, sms)
+            bm, bn = fused_ann._DV_TILES[tile]
+            assert (_covered(H, bm, bn) == 1).all()
 
-        def blocks(t):
-            return n * ksplit * -(-H // t[0]) * -(-H // t[1])
+            def blocks(t):
+                return n * ksplit * -(-H // t[0]) * -(-H // t[1])
 
-        def fill(t):
-            return blocks(t) / (132 * -(-blocks(t) // 132))
+            def fill(t):
+                return blocks(t) / (sms * -(-blocks(t) // sms))
 
-        full = [t for t in fused_ann._DV_TILES if blocks(t) >= 132]
-        if full:
-            assert blocks((bm, bn)) >= 132
-            assert fill((bm, bn)) == max(fill(t) for t in full)
-        else:
-            assert (bm, bn) == fused_ann._DV_TILES[-1]
+            full = [t for t in fused_ann._DV_TILES if blocks(t) >= sms]
+            if full:
+                assert blocks((bm, bn)) >= sms
+                assert fill((bm, bn)) == max(fill(t) for t in full)
+            else:
+                assert (bm, bn) == fused_ann._DV_TILES[-1]
 
 
 @pytest.mark.parametrize("H,n,ksplit,tile", [
     (1024, 3, 1, (128, 64)),   # GRU 1024: 384 blocks
     (1024, 2, 1, (128, 64)),   # LiGRU 1024
-    (1024, 1, 1, (64, 64)),    # RNN 1024: 256 blocks
+    (1024, 1, 1, (64, 64)),    # RNN and RadLIF 1024: 256 blocks
     (512, 3, 1, (64, 64)),     # GRU 512: 192 blocks
     (512, 2, 2, (64, 64)),     # LiGRU 512
-    (512, 1, 4, (64, 64)),     # RNN 512
+    (512, 1, 4, (64, 64)),     # RNN and RadLIF 512
     (2048, 3, 1, (128, 128)),  # GRU 2048: 768 blocks
 ])
 def test_ann_tile_plan_at_the_main_shapes(H, n, ksplit, tile):
-    assert fused_ann._DV_TILES[fused_ann._dv_tile(H, n, ksplit)] == tile
+    assert fused_ann._DV_TILES[fused_ann._dv_tile(H, n, ksplit, 132)] == tile
 
 
 @pytest.mark.parametrize("B,T,H", [(256, 100, 1024), (128, 100, 512),
                                    (16, 20, 200), (16, 20, 1001),
                                    (4, 20, 4096)])
-def test_spiking_tile_and_words(B, T, H):
-    """64 dV rows x 128 columns a block: every output element once; 128
-    blocks at both RadLIF main shapes (4 SMs of 132 idle, dDrive read from
-    L2 H / 64 times); the words hold a bit for every row and neuron."""
-    assert (_covered(H, 64, 128) == 1).all()
+def test_spiking_tile_plan(B, T, H):
+    """The spiking product runs the one-gate plan: every output element
+    once; 256 blocks of 64 x 64 at both RadLIF main shapes (RadLIF 512 in
+    four splits), so every SM of an H100 has one."""
     ksplit = fused_ann._dv_split(B, T, H, 1)
-    blocks = -(-H // 64) * -(-H // 128) * ksplit
+    bm, bn = fused_ann._DV_TILES[fused_ann._dv_tile(H, 1, ksplit, 132)]
+    assert (_covered(H, bm, bn) == 1).all()
+    blocks = -(-H // bm) * -(-H // bn) * ksplit
     if (B, T, H) in ((256, 100, 1024), (128, 100, 512)):
-        assert blocks == 128
-    words = fused_cells._spike_words(B * T, H, "cpu")
-    assert words.dtype == torch.int32
-    assert words.shape[0] * 32 >= B * T > (words.shape[0] - 1) * 32
-    assert words.shape[1] % 64 == 0 and 0 <= words.shape[1] - H < 64
+        assert (bm, bn) == (64, 64) and blocks == 256
 
 
 def test_ordered_mirror_sums_in_order():
@@ -158,8 +158,8 @@ def test_ordered_mirror_sums_in_order():
     s0 = torch.ones((1, 1))
     dd = torch.tensor([[[1e8], [1.0], [-1e8]]])
     assert float(ordered_spike_dv(u, s0, dd, 1.0)[0, 0]) == 0.0
-    assert float(fused_cells.spike_dv_plain(u.double(), s0.double(), dd,
-                                            1.0)[0, 0]) == 1.0
+    assert float(spike_dv_plain(u.double(), s0.double(), dd, 1.0)[0, 0]) \
+        == 1.0
 
 
 @pytest.mark.parametrize("B,T,H", [(9, 13, 40), (12, 30, 40)])

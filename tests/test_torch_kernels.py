@@ -926,7 +926,7 @@ def test_slice_forward_matches_plain_on_card(cuda, name, bf16, shape):
 # ---------------------------------------------------------------------------
 
 def ordered_spike_dv(u_seq, s0, dd, threshold):
-    """The spiking dV product summed as ``spike_dv_kernel`` sums it, for a
+    """The spiking dV product summed as ``dv_kernel`` sums it, for a
     binary s0: per split (``fused_ann._dv_split``, ``_dv_rows_per_split``)
     the dd rows at which each neuron spiked at t - 1 (s0 at t = 0), added in
     ascending (b, t) from +0 in float32; then the splits in ascending
@@ -951,6 +951,37 @@ def ordered_spike_dv(u_seq, s0, dd, threshold):
     return out
 
 
+def spike_dv_plain(u_seq, s0, dd, threshold, *, mxu_bf16=False):
+    """The spiking dV product as ``fused_cell_bwd_plain`` forms it: the sum
+    over rows (b, t) of s_{t-1}[b]^T dd[b, t] with s_{-1} = s0 (rounded to
+    bf16 with ``mxu_bf16``, where dd is bf16), in s0's type."""
+    B, T, H = dd.shape
+    s_prev = torch.cat([(s0.bfloat16().to(s0.dtype) if mxu_bf16 else s0)
+                        [:, None],
+                        (u_seq[:, :-1] > threshold).to(s0.dtype)], dim=1)
+    return torch.matmul(s_prev.reshape(-1, H).t(),
+                        dd.to(s0.dtype).reshape(-1, H))
+
+
+def ann_dv_plain(mode, y_seq, y0, r, dpres, *, mxu_bf16=False):
+    """The non-spiking dV products as ``ann_cell_bwd_plain`` forms them: by
+    gate, the sum over rows (b, t) of left[b, t]^T dpre[b, t], left =
+    y_{t-1} (y0 at t = 0), times r for the GRU's candidate (gate 0),
+    rounded to bf16 with ``mxu_bf16`` (where the series are bf16), in y0's
+    type."""
+    H = y0.shape[1]
+    y_prev = torch.cat([y0[:, None], y_seq[:, :-1].to(y0.dtype)], dim=1)
+    dvs = []
+    for i, dpre in enumerate(dpres):
+        left = r.to(y0.dtype) * y_prev if (mode == "gru" and i == 0) \
+            else y_prev
+        if mxu_bf16:
+            left = left.bfloat16().to(y0.dtype)
+        dvs.append(torch.matmul(left.reshape(-1, H).t(),
+                                dpre.to(y0.dtype).reshape(-1, H)))
+    return dvs
+
+
 def _silent_and_saturated(u_seq, s0, threshold):
     """u_seq and a binary s0 edited so that some rows of dV see no spike
     and some a spike at every step, and some (b, t) rows none or all."""
@@ -971,8 +1002,8 @@ def _silent_and_saturated(u_seq, s0, threshold):
 def test_spiking_dv_equals_ordered_mirror_on_card(cuda, bf16, shape):
     """The backward's dV (RadLIF, no affine: its right operand is dWx),
     with a binary s0, equals ``ordered_spike_dv`` bit for bit, and so does
-    the product alone; the product alone on rows with no spike or every
-    spike too. H = 200 splits in three, at rows inside a word."""
+    the product alone; the backward's on rows with no spike or every spike
+    too. H = 200 splits in three."""
     d = make_inputs(*shape, seed=11)
     t = _clamped(d, cuda)
     args, kw = _cell_args(t, "radlif", False)
@@ -985,12 +1016,15 @@ def test_spiking_dv_equals_ordered_mirror_on_card(cuda, bf16, shape):
         thr, u0, w0, s0, **kw, mxu_bf16=bf16)
     dWx, dV = got[0], got[3]
     assert torch.equal(dV, ordered_spike_dv(u_seq, s0, dWx, thr))
-    alone = fused_cells._spike_dv_cuda(u_seq, s0, dWx, thr, mxu_bf16=bf16)
+    alone = fused_ann._dv_product_cuda(u_seq, s0, None, [dWx], threshold=thr,
+                                       mxu_bf16=bf16)[0]
     assert torch.equal(alone, dV)
     u, s = _silent_and_saturated(u_seq, s0, thr)
-    edge = fused_cells._spike_dv_cuda(u, s, dWx, thr, mxu_bf16=bf16)
-    assert torch.equal(edge, ordered_spike_dv(u, s, dWx, thr))
-    assert torch.equal(edge[:3], torch.zeros_like(edge[:3]))
+    edge = fused_cells._fused_cell_bwd_cuda(
+        g.bfloat16() if bf16 else g, Wx, u, None, alpha, beta, a, b, V, thr,
+        u0, w0, s, **kw, mxu_bf16=bf16)
+    assert torch.equal(edge[3], ordered_spike_dv(u, s, edge[0], thr))
+    assert torch.equal(edge[3][:3], torch.zeros_like(edge[3][:3]))
     torch.cuda.synchronize()
 
 
@@ -1022,9 +1056,10 @@ def test_spiking_dv_is_exact_on_a_dyadic_grid_on_card(cuda, bf16, s0_kind,
         s0 = s0b
     dd = _dyadic(rng, shape, 64, 16, cuda,
                  torch.bfloat16 if bf16 else torch.float32)
-    got = fused_cells._spike_dv_cuda(u_seq, s0, dd, 1.0, mxu_bf16=bf16)
-    want = fused_cells.spike_dv_plain(u_seq.double(), s0.double(), dd, 1.0,
-                                      mxu_bf16=bf16)
+    got = fused_ann._dv_product_cuda(u_seq, s0, None, [dd], threshold=1.0,
+                                     mxu_bf16=bf16)[0]
+    want = spike_dv_plain(u_seq.double(), s0.double(), dd, 1.0,
+                          mxu_bf16=bf16)
     torch.cuda.synchronize()
     assert torch.equal(got, want.float())
 
@@ -1048,9 +1083,8 @@ def test_ann_dv_is_exact_on_a_dyadic_grid_on_card(cuda, mode, bf16, shape):
     r = torch.from_numpy((rng.integers(0, 17, shape) / 16).astype(
         np.float32)).to(cuda).to(sdt) if mode == "gru" else None
     dpres = [_dyadic(rng, shape, 64, 16, cuda, sdt) for _ in range(n)]
-    got = fused_ann._ann_dv_cuda(mode, y_seq, y0, r, dpres, mxu_bf16=bf16)
-    want = fused_ann.ann_dv_plain(mode, y_seq, y0.double(), r, dpres,
-                                  mxu_bf16=bf16)
+    got = fused_ann._dv_product_cuda(y_seq, y0, r, dpres, mxu_bf16=bf16)
+    want = ann_dv_plain(mode, y_seq, y0.double(), r, dpres, mxu_bf16=bf16)
     torch.cuda.synchronize()
     for i, (x, w) in enumerate(zip(got, want)):
         assert torch.equal(x, w.float()), i
