@@ -138,10 +138,13 @@ def test_ann_tile_plan_at_the_main_shapes(H, n, ksplit, tile):
 @pytest.mark.parametrize("B,T,H", [(256, 100, 1024), (128, 100, 512),
                                    (16, 20, 200), (16, 20, 1001),
                                    (4, 20, 4096)])
-def test_spiking_tile_plan(B, T, H):
+def test_spiking_tile_and_words(B, T, H):
     """The spiking product runs the one-gate plan: every output element
     once; 256 blocks of 64 x 64 at both RadLIF main shapes (RadLIF 512 in
-    four splits), so every SM of an H100 has one."""
+    four splits), so every SM of an H100 has one. It takes no words of
+    spike bits: the dense product forms its left operand from u_seq."""
+    assert not hasattr(fused_cells, "_spike_words")
+    assert "spike_words" not in HEADER
     ksplit = fused_ann._dv_split(B, T, H, 1)
     bm, bn = fused_ann._DV_TILES[fused_ann._dv_tile(H, 1, ksplit, 132)]
     assert (_covered(H, bm, bn) == 1).all()
