@@ -6,7 +6,8 @@ card.
 
 With phase names (``sweep``, ``profile``, ``h2d``, ``bwd_sweep``,
 ``profile_training``, ``bf16``, ``tp_exchange``, ``spiking_bwd``,
-``spiking_fwd``, ``dv_products``, ``ab=DIR``, ``bits=DIR``) only those
+``spiking_fwd``, ``dv_products``, ``readout_phases``, ``ab=DIR``,
+``bits=DIR``) only those
 run. Prints
 JSON lines (tables of the profiler in between), each measured in
 this run:
@@ -53,12 +54,15 @@ this run:
    512) and (128, 100, 1024) in float32 and bf16, of the tensor-parallel
    cells at their main shapes (RadLIF at (256, 100, 1024), float32;
    RNN/LiGRU/GRU at (128, 100, 1024) in float32 and bf16, the forward's
-   training and serving form and the backward; P = 1, 2, 4); the ``auto``
+   training and serving form and the backward; P = 1, 2, 4), of the
+   readout pair at (128, 100, 35), (256, 100, 35) and (128, 100, 20) (the
+   forward's serving and training form and the backward; their device
+   time from a CUDA graph of launches); the ``auto``
    training step of the GRU [512, 512, 35] (float32 and bf16) and [1024,
    1024, 35] trainers, and the ``pallas_tp`` step of the latter at P = 1,
-   2, 4 in both modes; the RadLIF [512, 512, 35] ``auto`` and the
-   bidirectional RadLIF [1024, 1024, 35] ``auto`` and ``pallas_tp`` (P =
-   1, 2, 4) steps in both modes; the ptxas report of the cell kernels
+   2, 4 in both modes; the RadLIF [512, 512, 35] ``auto`` and ``pallas``
+   and the bidirectional RadLIF [1024, 1024, 35] ``auto`` and ``pallas_tp``
+   (P = 1, 2, 4) steps in both modes; the ptxas report of the cell kernels
    with a product; and, per library in ``AB_UNTOUCHED``, the kernels
    whose SASS count, registers or stack bytes (``cuobjdump -sass``,
    ``-res-usage``) differ between the trees (whole records in
@@ -88,7 +92,8 @@ this run:
    non-dyadic V; the TP forward at P = 1, 2, 4 and at P = 2, H = 4096);
    the non-spiking backwards' (RNN, LiGRU, GRU, H = 200 .. 2048, affine on
    and off, both modes); the TP backwards' (RadLIF and RNN/LiGRU/GRU at P
-   = 1, 2, 4; RadLIF at P = 2, H = 4096).
+   = 1, 2, 4; RadLIF at P = 2, H = 4096); the readout pair's (every
+   output, at its main shapes and at the edges of its plan).
 12. ``spiking_fwd``: the spiking forward kernels apart (``fused_cell_fwd``,
    RadLIF with the affine, training form with the dropout and serving
    form, and ``tp_cell_fwd``, RadLIF at P = 1, 2, 4, training form; at
@@ -106,6 +111,14 @@ this run:
    (``split_ms``), the product alone, ``dv_library_ms`` (one
    ``torch.matmul`` of the same float32 operands, TF32 off), the bound and
    what binds it, the tile.
+14. ``readout_phases``: where the readout pair's time goes, on the
+   device's clock: copies of ``readout_fwd.cu`` and ``readout_bwd.cu``
+   with a ``%globaltimer`` stamp by the first thread of every block at
+   each phase boundary (``_READOUT_STAMPS``; built into
+   ``build/readout_phases/``), launched at (128, 100, 35) and (256, 100,
+   35): per form (serving, training, backward) the median over blocks of
+   each phase's ns, and the backward's last block's ticket and dalpha
+   sum. The stamps cost a few instructions a phase.
 
 The ``ab`` phase also times the dV product of each backward at those four
 shapes in both modes (``dv_*`` in ``ms``: its ``split_ms`` share), in the
@@ -252,7 +265,7 @@ _TRAIN_KERNELS = {
     "bwd_dv": ("dv_kernel",),
     "bwd_reduce": ("vec_reduce_kernel", "sum_parts_kernel"),
     "readout_fwd": ("readout_fwd_kernel",),
-    "readout_bwd": ("readout_bwd_kernel", "dalpha_reduce_kernel"),
+    "readout_bwd": ("readout_bwd_kernel",),
     "gemm": ("gemm", "sgemm", "cutlass"),
 }
 
@@ -915,10 +928,59 @@ with torch.no_grad():
                 if name == "radlif":
                     res[key] = cuda_time_ms(
                         lambda: fused_tp._tp_cell_bwd_cuda(*ba, **kw))
+# the readout pair at (128, 100, 35), (256, 100, 35) and (128, 100, 20):
+# every output's bits (the forward's serving and training form, the
+# backward), and each kernel's device time from a CUDA graph of launches
+# (a launch costs the host longer than these kernels run)
+def graph_ms(fn, iters=20, repeats=5):
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return sorted(times)[repeats // 2]
+from sparch_tpu_torch.ops import cells
+with torch.no_grad():
+    for b, c in ((smoke.B, smoke.C), (2 * smoke.B, smoke.C), (smoke.B, 20)):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        Wx = 3.0 * torch.randn((b, smoke.T, c), generator=gen, device=dev)
+        lo, hi = cells.ALPHA_LIM
+        alpha = torch.rand(c, generator=gen, device=dev) * (hi - lo) + lo
+        u0 = torch.rand((b, c), generator=gen, device=dev)
+        gout = torch.randn((b, c), generator=gen, device=dev)
+        key = f"readout_{b}x{smoke.T}x{c}"
+        u_seq = fused_cells._readout_cuda(Wx, alpha, u0, True)[1]
+        dig[key + "_fwd"] = digest([fused_cells._readout_cuda(Wx, alpha,
+                                                              u0)])
+        dig[key + "_fwd_train"] = digest(fused_cells._readout_cuda(
+            Wx, alpha, u0, True))
+        dig[key + "_bwd"] = digest(fused_cells._readout_bwd_cuda(
+            gout, u_seq, alpha, u0))
+        res[key + "_fwd"] = graph_ms(
+            lambda: fused_cells._readout_cuda(Wx, alpha, u0))
+        res[key + "_fwd_train"] = graph_ms(
+            lambda: fused_cells._readout_cuda(Wx, alpha, u0, True))
+        res[key + "_bwd"] = graph_ms(
+            lambda: fused_cells._readout_bwd_cuda(gout, u_seq, alpha, u0))
 # training steps through the spiking kernels, both modes: the RadLIF
-# [512, 512, 35] auto trainer, and the bidirectional RadLIF [1024, 1024, 35]
-# trainer through auto and pallas_tp at P = 1, 2, 4 (losses of two steps and
-# the first step's gradients digested)
+# [512, 512, 35] auto and pallas trainers, and the bidirectional RadLIF
+# [1024, 1024, 35] trainer through auto and pallas_tp at P = 1, 2, 4 (losses
+# of two steps and the first step's gradients digested)
 gen = torch.Generator(device=dev).manual_seed(21)
 xr = (torch.rand((smoke.B, smoke.T, smoke.F), generator=gen, device=dev)
       < 0.02).float()
@@ -931,6 +993,7 @@ for mx in (False, True):
     sfx, kw16 = ("_bf16", dict(compute_dtype=bf16)) if mx else ("", {})
     for key, impl, sd, x, y, kw in (
             ("radlif512_auto", "auto", sd512, xr, yr, {}),
+            ("radlif512_pallas", "pallas", sd512, xr, yr, {}),
             ("radlif1024_auto", "auto", sd1024, xt, yt, big),
             *((f"radlif1024_tp_p{P}", "pallas_tp", sd1024, xt, yt,
                dict(big, tp_mesh=smoke.tp_mesh(dev, P))) for P in (1, 2, 4))):
@@ -1017,17 +1080,13 @@ print(json.dumps({"phase": "ab", "tree": root, "ms": res, "digests": dig,
                   "code": code, "ptxas": ptxas}), flush=True)
 """
 
-# the libraries, and within four of them the kernels, that the change to the
-# dV products leaves alone (value: a pattern of the kernels left out of the
-# comparison): their code must stay as the other tree compiles it
+# the libraries that the change to the readout pair leaves alone (value: a
+# pattern of the kernels left out of the comparison, or None): their code
+# must stay as the other tree compiles it
 AB_UNTOUCHED = {
-    "readout_fwd": None, "readout_bwd": None, "fused_ann_fwd": None,
-    "tp_collectives": None, "tp_ann_fwd": None, "fused_cell_fwd": None,
-    "tp_cell_fwd": None,
-    # every kernel of the backwards but the dV products (dv_product.cuh)
-    "fused_cell_bwd": r"dv_kernel", "tp_cell_bwd": r"dv_kernel",
-    "fused_ann_bwd": r"dv_kernel",
-    "tp_ann_bwd": r"dv_kernel",
+    "fused_cell_fwd": None, "fused_cell_bwd": None, "fused_ann_fwd": None,
+    "fused_ann_bwd": None, "tp_collectives": None, "tp_cell_fwd": None,
+    "tp_cell_bwd": None, "tp_ann_fwd": None, "tp_ann_bwd": None,
 }
 
 
@@ -1334,6 +1393,25 @@ with torch.no_grad():
                         da["vs"], da["y0"], **tk)
                     res[("tp_ann_bwd", mode, b, h, P, mx)] = [
                         x.cpu() for x in (*o[0], *o[1], o[2])]
+    # the readout pair: the forward's serving and training form and the
+    # backward, at the main shapes and at the edges of the plan
+    from sparch_tpu_torch.ops import cells
+    for b, t, c in ((128, 100, 35), (256, 100, 35), (128, 100, 20),
+                    (1, 1, 1), (300, 7, 32), (2, 1000, 33), (4, 150, 256),
+                    (256, 100, 256)):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        Wx = 3.0 * torch.randn((b, t, c), generator=gen, device=dev)
+        lo, hi = cells.ALPHA_LIM
+        alpha = torch.rand(c, generator=gen, device=dev) * (hi - lo) + lo
+        u0 = torch.rand((b, c), generator=gen, device=dev)
+        gout = torch.randn((b, c), generator=gen, device=dev)
+        o, u_seq = fused_cells._readout_cuda(Wx, alpha, u0, True)
+        res[("readout", "fwd", b, t, c)] = [
+            x.cpu() for x in (fused_cells._readout_cuda(Wx, alpha, u0), o,
+                              u_seq)]
+        res[("readout", "bwd", b, t, c)] = [
+            x.cpu() for x in fused_cells._readout_bwd_cuda(gout, u_seq,
+                                                           alpha, u0)]
 torch.save(res, out)
 """
 
@@ -1360,6 +1438,19 @@ def bits(dev, other: str):
     for key, a in saved[0].items():
         moved = {}
         kind = key[0] if isinstance(key[0], str) else "bwd"
+        if kind == "readout":
+            _, form, b, t, c = key
+            for n, x, y in zip(("out", "out_train", "u_seq") if form == "fwd"
+                               else ("dWx", "dalpha", "du0"), a,
+                               saved[1][key]):
+                if not torch.equal(x, y):
+                    gap = (x - y).abs()
+                    moved[n] = dict(elements=int((gap > 0).sum()),
+                                    max_rel=float(gap.max()
+                                                  / x.abs().max()))
+            emit("bits", kernel="readout_" + form, shape=[b, t, c],
+                 equal=not moved, differ=moved)
+            continue
         if kind not in ("bwd", "fwd", "tp_fwd"):
             # the backwards added later: outputs by position
             for i, (x, y) in enumerate(zip(a, saved[1][key])):
@@ -1397,6 +1488,133 @@ def bits(dev, other: str):
                 {"affine": flag, "form": "serving" if drop < 0 else
                  "training", "drop_rate": max(drop, 0.0)}),
              mxu_bf16=mx, equal=not moved, differ=moved)
+
+
+# the phase boundaries of the readout pair, in source order: (a pattern
+# of the line the stamp follows, the phase that ends there)
+_READOUT_STAMPS = {
+    "readout_fwd": (
+        (r"const int tid = threadIdx\.x", "start"),
+        (r"readout::stage_wait\(\);", "staged"),
+        (r"^    __syncthreads\(\);$", "recurrence"),
+        (r"^    __syncthreads\(\);$", "softmaxes"),
+        (r"__syncthreads\(\);  // before", "sum")),
+    "readout_bwd": (
+        (r"const int tid = threadIdx\.x", "start"),
+        (r"readout::stage_wait\(\);", "staged"),
+        (r"^    __syncthreads\(\);$", "softmaxes"),
+        (r"__syncthreads\(\);  // before", "walk"),
+        (r"if \(!last\) return;", "ticket"),
+        (r"if \(tid == 0\) g_ticket = 0;", "dalpha_sum")),
+}
+_STAMP_HEAD = r"""
+__device__ long long g_stamps[4096 * 8];
+#define STAMP(k) if (threadIdx.x == 0) { unsigned long long t_; \
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_)); \
+  g_stamps[blockIdx.x * 8 + (k)] = t_; }
+"""
+_STAMP_TAIL = r"""
+extern "C" void* readout_stamps() {
+  void* p = nullptr;
+  cudaGetSymbolAddress(&p, g_stamps);
+  return p;
+}
+"""
+
+
+def readout_phases(dev):
+    """Phase 14: the readout pair's phases from stamped copies of its
+    sources (``_READOUT_STAMPS``)."""
+    import ctypes
+    import statistics
+
+    from sparch_tpu_torch import _build
+    from sparch_tpu_torch.ops import cells, fused_cells
+
+    out_dir = REPO / "build" / "readout_phases"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name, marks in _READOUT_STAMPS.items():
+        lines, todo = [], list(enumerate(marks))
+        for line in (_build.CSRC / f"{name}.cu").read_text().splitlines():
+            lines.append(line)
+            if line.startswith('#include "readout.cuh"'):
+                lines.append(_STAMP_HEAD)
+            if todo and re.search(todo[0][1][0], line):
+                lines.append(f"STAMP({todo[0][0]})")
+                todo.pop(0)
+        if todo:
+            raise RuntimeError(f"readout_phases: {name} has no line like "
+                               f"{todo[0][1][0]!r}")
+        src, lib = out_dir / f"{name}.cu", out_dir / f"lib{name}.so"
+        src.write_text("\n".join(lines) + _STAMP_TAIL)
+        jobs[name] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+             "-o", str(lib), str(src)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    fns, stamps = {}, {}
+    for name, (lib, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"readout_phases: nvcc failed:\n{log}")
+        so = ctypes.CDLL(str(lib))
+        kernel = {"readout_fwd": fused_cells.READOUT_FWD,
+                  "readout_bwd": fused_cells.READOUT_BWD}[name]
+        fns[name] = getattr(so, kernel.symbol)
+        fns[name].argtypes, fns[name].restype = kernel.argtypes, ctypes.c_int
+        so.readout_stamps.restype = ctypes.c_void_p
+        view = type("Stamps", (), {})()
+        view.__cuda_array_interface__ = dict(
+            shape=(4096, 8), typestr="<i8",
+            data=(so.readout_stamps(), False), version=3)
+        stamps[name] = view
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for B, T, C in ((128, 100, 35), (256, 100, 35)):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        Wx = 3.0 * torch.randn((B, T, C), generator=gen, device=dev)
+        lo, hi = cells.ALPHA_LIM
+        alpha = torch.rand(C, generator=gen, device=dev) * (hi - lo) + lo
+        u0 = torch.rand((B, C), generator=gen, device=dev)
+        gout = torch.randn((B, C), generator=gen, device=dev)
+        out, u_seq = torch.empty_like(u0), torch.empty_like(Wx)
+        dwx, parts = torch.empty_like(Wx), torch.empty_like(u0)
+        dalpha, du0 = torch.empty_like(alpha), torch.empty_like(u0)
+        for form in ("serving", "training", "backward"):
+            name = "readout_bwd" if form == "backward" else "readout_fwd"
+            plan = fused_cells._card_readout_plan(B, T, C, dev,
+                                                  form == "backward")
+            ptrs = ((gout, u_seq, alpha, u0, dwx, parts, dalpha, du0)
+                    if form == "backward" else
+                    (Wx, alpha, u0, out, u_seq if form == "training"
+                     else None))
+            for _ in range(5):  # the stamps of the last, warm launch
+                err = fns[name](*(None if t is None else t.data_ptr()
+                                  for t in ptrs), B, T, C, *plan[:3],
+                                stream)
+                if err != 0:
+                    raise RuntimeError(f"readout_phases: {name} {err}")
+            torch.cuda.synchronize()
+            st = torch.as_tensor(stamps[name], device=dev)[
+                :-(-B // plan.rows)].clone().cpu()
+            names = [m[1] for m in _READOUT_STAMPS[name]]
+            blocks_end = 3 if form == "backward" else 4
+            row = {n: int(statistics.median((st[:, k] - st[:, k - 1])
+                                            .tolist()))
+                   for k, n in enumerate(names[1:blocks_end + 1], 1)}
+            t0 = int(st[:, 0].min())
+            if form == "backward":
+                last = int(st[:, 5].argmax())
+                extra = dict(last_block_ticket_ns=int(st[last, 4]
+                                                      - st[last, 3]),
+                             last_block_dalpha_sum_ns=int(st[last, 5]
+                                                          - st[last, 4]),
+                             end_ns=int(st[last, 5]) - t0)
+            else:
+                extra = dict(end_ns=int(st[:, 4].max()) - t0)
+            emit("readout_phases", shape=[B, T, C], form=form,
+                 plan=plan._asdict(), median_phase_ns=row,
+                 slowest_block_ns=int((st[:, blocks_end] - st[:, 0]).max()),
+                 **extra)
 
 
 def h2d(dev):
@@ -1450,6 +1668,7 @@ def main() -> int:
         "spiking_bwd": spiking_bwd,
         "spiking_fwd": spiking_fwd,
         "dv_products": dv_products,
+        "readout_phases": readout_phases,
     }
     chosen = sys.argv[1:] or list(phases)
     unknown = [name for name in chosen

@@ -18,12 +18,17 @@ all at once), then prints one JSON line per phase:
    times, CUDA events; the recurrent forms at the serving shape add their
    ``plan`` (column slices, ``fused_cells._fwd_plan``) and ``split_ms``
    (the first product and the time loop, CUDA events around each launch).
-3. ``kernel_vs_plain`` for the readout at (128, 100, 35), rtol 1e-5.
+3. ``kernel_vs_plain`` for the readout at (128, 100, 35), rtol 1e-5, the
+   membrane series bit for bit; ``ms`` the kernel's device time from a
+   CUDA graph of launches (``graph_ms``), ``eager_ms`` a wrapper call
+   timed as the other kernels are, its ``plan``, and ``auto_route_ms``:
+   ``cells.readout_sum`` (the route ``auto`` took before it took the
+   kernels) beside ``readout_fused``, eager, with kernels a call.
 4. ``serving``: a RadLIF [512, 512, 35] Predictor (F=700, batch 128,
    seeded random weights, zero state init, running statistics from one
    train-mode pass) on 300 synthetic spike rasters of 2 % density, so the
-   last batch is padded; variants ``scan`` (plain PyTorch), ``auto``
-   (fused cell kernel) and ``pallas`` (both kernels). On both models (see
+   last batch is padded; variants ``scan`` (plain PyTorch), ``auto`` and
+   ``pallas`` (the fused cell and readout kernels). On both models (see
    ``serving_state``) auto and pallas must reproduce the spikes of
    ``plain_fused_forward``, their function with each kernel replaced by
    its plain version. On the "zero_means" model they must also give
@@ -53,7 +58,9 @@ all at once), then prints one JSON line per phase:
    dV product's float32 operands, TF32 off: a yardstick) and
    ``at_256x1024``: the kernel at the shape of the bidirectional RadLIF
    1024 ``auto`` trainer, checked alike, timed and split.
-7. ``kernel_vs_plain`` for the readout backward at (128, 100, 35), alike.
+7. ``kernel_vs_plain`` for the readout backward at (128, 100, 35), alike
+   (one kernel a call, by the profiler; ``auto_route_ms`` of a forward and
+   a backward).
 8. ``training``: a RadLIF [512, 512, 35] trainer (batchnorm, dropout 0.1,
    uniform state init, Adam at lr 1e-2; ``create_train_state``,
    ``make_train_step``) on one device-resident batch of 128 rasters of 2 %
@@ -117,7 +124,9 @@ all at once), then prints one JSON line per phase:
    ``compute_dtype=bfloat16`` through ``Predictor``, ``auto`` and ``scan``,
    with the metrics of phases 4 and 11. ``auto`` is held against the same
    Predictor with each kernel swapped for its plain version (RadLIF: the
-   probabilities bit for bit; GRU: labels on >= 99 %, probabilities within
+   spikes bit for bit, labels on >= 99 % and probabilities within 1e-5 as
+   in phase 4, the readout kernel adding its classes in another order;
+   GRU: labels on >= 99 %, probabilities within
    ``BF16_PROB_MAX``, or else by the float64 witness rule of phase 4's
    calibrated model); its distance from the float32 ``auto`` run is
    printed, not bounded (an untrained RadLIF amplifies any rounding).
@@ -505,27 +514,122 @@ def phase_fused_cell(dev):
     return main
 
 
-def phase_readout(dev):
-    from sparch_tpu_torch.ops import cells, fused_cells
-    from sparch_tpu_torch.utils.timing import cuda_time_ms
+def graph_ms(fn, *args, iters=20, repeats=5):
+    """Median ms per call of ``fn(*args)`` replayed from a CUDA graph of
+    ``iters`` calls: the device time of a kernel that runs shorter than
+    its launch costs the host (``cuda_time_ms`` of such a call times the
+    host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def device_ops(fn, *args):
+    """Kernels (and copies or sets) on the card that one call of
+    ``fn(*args)`` runs, by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    return sum(e.device_type.name == "CUDA" for e in prof.events())
+
+
+def readout_inputs(dev):
+    from sparch_tpu_torch.ops import cells
 
     g = torch.Generator(device=dev).manual_seed(3)
     Wx = 3.0 * torch.randn((B, T, C), generator=g, device=dev)
     lo, hi = cells.ALPHA_LIM
     alpha = torch.rand(C, generator=g, device=dev) * (hi - lo) + lo
     u0 = torch.rand((B, C), generator=g, device=dev)
+    gout = torch.randn((B, C), generator=g, device=dev)
+    return Wx, alpha, u0, gout
+
+
+def readout_routes(Wx, alpha, u0, gout, backward: bool):
+    """The readout as ``cell_impl='auto'`` ran it before it took the
+    kernels (``cells.readout_sum``, a chain of small ops) and as it runs
+    now (``fused_cells.readout_fused``), each a forward (``backward``: a
+    forward and a backward) on the card: eager ms a call (CUDA events) and
+    kernels a call (profiler)."""
+    from sparch_tpu_torch.ops import cells, fused_cells
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    out = {}
+    for name, fn in (("readout_sum", cells.readout_sum),
+                     ("readout_fused", fused_cells.readout_fused)):
+        if backward:
+            w, a = Wx.clone().requires_grad_(), alpha.clone().requires_grad_()
+
+            def call(fn=fn, w=w, a=a):
+                fn(w, a, u0).backward(gout)
+        else:
+            def call(fn=fn):
+                with torch.no_grad():
+                    fn(Wx, alpha, u0)
+        out[name] = dict(ms=cuda_time_ms(call, iters=20),
+                         kernels=device_ops(call))
+    return out
+
+
+def phase_readout(dev):
+    """The readout forward against its plain version at (128, 100, 35)
+    (rtol 1e-5; the membrane series bit for bit; two launches bit-equal);
+    ``ms`` the kernel's device time (``graph_ms``), ``eager_ms`` a call of
+    the wrapper timed as the other kernels are; its plan; and
+    ``auto_route_ms``: ``cells.readout_sum``'s forward, the route the
+    kernel replaces under ``cell_impl='auto'``, beside the fused
+    readout's, each eager with its kernels a call."""
+    from sparch_tpu_torch.ops import fused_cells
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    Wx, alpha, u0, gout = readout_inputs(dev)
     got = fused_cells.readout_fused(Wx, alpha, u0)
     want = fused_cells.readout_plain(Wx, alpha, u0)
+    out, u_seq = fused_cells._readout_cuda(Wx, alpha, u0, save_residuals=True)
+    again = fused_cells._readout_cuda(Wx, alpha, u0, save_residuals=True)
+    want_u = fused_cells.readout_plain(Wx, alpha, u0, save_residuals=True)[1]
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     rel = float(((got - want).abs() / want.abs()).max())
     check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
           f"readout: max abs err {err}, max rel err {rel}")
-    ms = cuda_time_ms(fused_cells._readout_cuda, Wx, alpha, u0)
+    check(torch.equal(u_seq, want_u), "readout: membrane series differs")
+    check(torch.equal(out, again[0]) and torch.equal(u_seq, again[1]),
+          "readout: two launches differ")
+    ms = graph_ms(fused_cells._readout_cuda, Wx, alpha, u0)
+    eager_ms = cuda_time_ms(fused_cells._readout_cuda, Wx, alpha, u0)
     plain_ms = cuda_time_ms(fused_cells.readout_plain, Wx, alpha, u0)
+    plan = fused_cells._card_readout_plan(B, T, C, dev, False)._asdict()
+    routes = readout_routes(Wx, alpha, u0, gout, backward=False)
     emit("kernel_vs_plain", kernel="readout_fwd", shape=[B, T, C],
-         max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+         max_abs_err=err, max_rel_err=rel, ms=ms, eager_ms=eager_ms,
+         train_form_ms=graph_ms(fused_cells._readout_cuda, Wx, alpha, u0,
+                                True),
+         plain_ms=plain_ms, plan=plan, auto_route_ms=routes)
+    return dict(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                plan=plan, auto_route_ms=routes)
 
 
 def serving_state(dev, zero_means: bool):
@@ -590,7 +694,7 @@ def plain_fused_forward(model, x):
     ro = model.readout
     Wx = ro.norm(ro.W(x))
     z = torch.zeros(Wx.shape[0], Wx.shape[2], device=Wx.device)
-    if model.cell_impl == "pallas":
+    if model.cell_impl in ("pallas", "auto"):
         alpha = fused_cells.clip_and_mask(ro.alpha)[0]
         out = fused_cells.readout_plain(Wx, alpha, z)
     else:
@@ -653,7 +757,7 @@ def serve_variants(dev, state, x, timed: bool):
               f"{impl}: probs not finite or of the wrong shape")
         check(bool(np.allclose(probs.sum(-1), 1.0, atol=1e-5)),
               f"{impl}: probs do not sum to 1")
-        want = {"scan": (0, 0), "auto": (1, 0), "pallas": (1, 1)}[impl]
+        want = {"scan": (0, 0), "auto": (1, 1), "pallas": (1, 1)}[impl]
         got = (counts["fused_cell_fwd"] > 0, counts["readout_fwd"] > 0)
         others = sum(n for k, n in counts.items()
                      if k not in ("fused_cell_fwd", "readout_fwd"))
@@ -1054,15 +1158,14 @@ def backward_at_1024(dev, bf16=False):
 
 
 def phase_readout_backward(dev):
-    from sparch_tpu_torch.ops import cells, fused_cells
+    """The readout backward against its plain version on the kernel's
+    residuals (every gradient within GRAD_REL_MAX; two launches
+    bit-equal; one kernel a call), timed as ``phase_readout``, with its
+    plan and ``auto_route_ms`` of a forward and a backward."""
+    from sparch_tpu_torch.ops import fused_cells
     from sparch_tpu_torch.utils.timing import cuda_time_ms
 
-    gen = torch.Generator(device=dev).manual_seed(3)
-    Wx = 3.0 * torch.randn((B, T, C), generator=gen, device=dev)
-    lo, hi = cells.ALPHA_LIM
-    alpha = torch.rand(C, generator=gen, device=dev) * (hi - lo) + lo
-    u0 = torch.rand((B, C), generator=gen, device=dev)
-    gout = torch.randn((B, C), generator=gen, device=dev)
+    Wx, alpha, u0, gout = readout_inputs(dev)
     out, u_seq = fused_cells._readout_cuda(Wx, alpha, u0, save_residuals=True)
     want_out, want_u = fused_cells.readout_plain(Wx, alpha, u0,
                                                  save_residuals=True)
@@ -1079,14 +1182,23 @@ def phase_readout_backward(dev):
         check(errs[n] <= GRAD_REL_MAX, f"readout backward: {n} {errs[n]}")
         check(torch.equal(x, z),
               f"readout backward: {n} differs between two launches")
+    kernels = device_ops(fused_cells._readout_bwd_cuda, gout, u_seq, alpha,
+                         u0)
+    check(kernels == 1, f"readout backward: {kernels} kernels a call")
     err = float((got[0] - want[0]).abs().max())
-    ms = cuda_time_ms(fused_cells._readout_bwd_cuda, gout, u_seq, alpha, u0)
+    ms = graph_ms(fused_cells._readout_bwd_cuda, gout, u_seq, alpha, u0)
+    eager_ms = cuda_time_ms(fused_cells._readout_bwd_cuda, gout, u_seq,
+                            alpha, u0)
     plain_ms = cuda_time_ms(fused_cells.readout_bwd_plain, gout, u_seq,
                             alpha, u0, **PLAIN_ROUNDS)
+    plan = fused_cells._card_readout_plan(B, T, C, dev, True)._asdict()
+    routes = readout_routes(Wx, alpha, u0, gout, backward=True)
     emit("kernel_vs_plain", kernel="readout_bwd", shape=[B, T, C],
-         rel_err=errs, two_launches_bit_equal=True, max_abs_err=err, ms=ms,
-         plain_ms=plain_ms)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+         rel_err=errs, two_launches_bit_equal=True, kernels_a_call=kernels,
+         max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+         plan=plan, auto_route_ms=routes)
+    return dict(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                plan=plan, auto_route_ms=routes)
 
 
 @contextlib.contextmanager
@@ -1288,7 +1400,8 @@ def phase_training(dev):
     y = torch.randint(0, C, (B,), generator=gen, device=dev)
     per_step = {
         "scan": {},
-        "auto": {"fused_cell_fwd_train": 2, "fused_cell_bwd": 2},
+        "auto": {"fused_cell_fwd_train": 2, "fused_cell_bwd": 2,
+                 "readout_fwd": 1, "readout_bwd": 1},
         "pallas": {"fused_cell_fwd_train": 2, "fused_cell_bwd": 2,
                    "readout_fwd": 1, "readout_bwd": 1},
     }
@@ -1908,7 +2021,8 @@ def phase_bf16_cell_forward(dev):
 def serve_bf16(dev, model_type, state, x, timed: bool):
     """Serve ``x`` with one model under ``compute_dtype=bfloat16``,
     cell_impl scan and auto. ``auto`` launches the bf16 forward kernel of
-    its cell twice per batch and no other kernel, and is held against the
+    its cell twice per batch (RadLIF: and the readout kernel once) and no
+    other kernel, and is held against the
     same Predictor with the kernels swapped for their plain versions; its
     distance from the float32 ``auto`` run and from scan is printed."""
     from sparch_tpu_torch.models import build_model
@@ -1941,6 +2055,8 @@ def serve_bf16(dev, model_type, state, x, timed: bool):
         want = {k: 0 for k in counts}
         if impl == "auto":
             want[kernel] = 2 * n_batches
+            if spiking:
+                want["readout_fwd"] = n_batches
         check(counts == want, f"{what}: kernel launches {counts} != {want}")
         out[impl] = (labels, probs)
         row = dict(launches={k: n for k, n in counts.items() if n})
@@ -1949,8 +2065,17 @@ def serve_bf16(dev, model_type, state, x, timed: bool):
                 plain = pred(x)
             row["vs_plain_versions"] = agree = _agreement(out["auto"], plain)
             if spiking:
-                # V on the 2^-8 grid: the same spikes, so the same floats
-                check(np.array_equal(probs, plain[1]),
+                # V on the 2^-8 grid: the same spikes; the readout kernel
+                # adds the classes in another order than its plain version
+                # (rtol 1e-5), so the rule of reference_check
+                xb = torch.from_numpy(x[:B]).to(dev)
+                with torch.no_grad():
+                    rates = pred.model(xb)[1]
+                    with plain_versions():
+                        plain_rates = pred.model(xb)[1]
+                check(torch.equal(rates, plain_rates) and
+                      agree["label_agreement"] >= 0.99 and
+                      agree["max_abs_prob_diff"] <= 1e-5,
                       f"{what}: differs from the plain versions: {agree}")
             elif not (agree["label_agreement"] >= 0.99 and
                       agree["max_abs_prob_diff"] <= BF16_PROB_MAX):
@@ -2034,7 +2159,8 @@ def phase_training_bf16(dev):
         if model_type == "RadLIF":
             state_dict, x = training_state(dev), rasters.float()
             per_step = {"fused_cell_fwd_train_bf16": 2,
-                        "fused_cell_bwd_bf16": 2}
+                        "fused_cell_bwd_bf16": 2, "readout_fwd": 1,
+                        "readout_bwd": 1}
         else:
             state_dict = build_model(
                 model_type, (B, T, F_ANN), [H, H, C], dropout=P_DROP,
@@ -2091,7 +2217,8 @@ def training_remat(dev, state_dict, x, y):
                   if not torch.equal(v, remat[what][k])]
         check(not differ, f"remat: {what} differ in {differ}")
     check(remat["row"]["launches"] ==
-          {"fused_cell_fwd_train_bf16": 12, "fused_cell_bwd_bf16": 6},
+          {"fused_cell_fwd_train_bf16": 12, "fused_cell_bwd_bf16": 6,
+           "readout_fwd": 3, "readout_bwd": 3},
           f"remat: kernel launches {remat['row']['launches']}")
     emit("training_remat", model="RadLIF [512, 512, 35]",
          compute_dtype="bfloat16", cell_impl="auto", steps=3,
@@ -2588,7 +2715,8 @@ def phase_training_tp(dev, bf16=False):
                                     **common)
     rows["auto"], launches["auto"] = train_variant(
         dev, "auto", state_dict, x, y,
-        {f"fused_cell_fwd_train{sfx}": 2, f"fused_cell_bwd{sfx}": 2},
+        {f"fused_cell_fwd_train{sfx}": 2, f"fused_cell_bwd{sfx}": 2,
+         "readout_fwd": 1, "readout_bwd": 1},
         rows["scan"], **common)
     for P in TP_PS:
         kept[P] = {}

@@ -246,11 +246,23 @@ class RadLIFLayer(_SpikingLayerBase):
                                  self.V, self.threshold, u0, w0, s0)
 
 
+def readout_fused_route(cell_impl: str, on_cuda: bool) -> bool:
+    """Whether the readout takes ``fused_cells.readout_fused`` (the fused
+    kernels on a CUDA tensor, their plain versions on a CPU one) rather
+    than ``cells.readout_sum``: always under 'pallas', and under 'auto'
+    for a CUDA tensor. The JAX package keeps ``readout_sum`` for 'auto'
+    because the class dim pads to 128 lanes in its TPU kernel; on the card
+    ``readout_sum`` is ~150 small kernels a step, so 'auto' takes the
+    kernels there (past their class limit it raises), as it takes the
+    fused cells. A CPU tensor under 'auto', 'scan' and 'pallas_tp' keep
+    ``readout_sum``, as in the JAX package."""
+    return cell_impl == "pallas" or (cell_impl == "auto" and on_cuda)
+
+
 class ReadoutLayer(nn.Module):
     """Non-spiking leaky readout producing ``(B, labels)`` as a cumulative
-    softmax of the membrane. The fused readout kernel runs only under
-    ``cell_impl='pallas'``; otherwise the chunked closed form
-    ``cells.readout_sum`` does, as in the JAX package."""
+    softmax of the membrane, through the fused readout or the chunked
+    closed form ``cells.readout_sum`` (``readout_fused_route``)."""
 
     def __init__(self, input_size: int, hidden_size: int,
                  normalization: str = "batchnorm", use_bias: bool = False,
@@ -277,7 +289,7 @@ class ReadoutLayer(nn.Module):
             # and feeds the loss
             Wx = Wx.float()
         (u0,) = _init_states(Wx, 1, self.state_init, generator)
-        if self.cell_impl == "pallas":
+        if readout_fused_route(self.cell_impl, Wx.is_cuda):
             return fused_cells.readout_fused(Wx, self.alpha, u0)
         return cells.readout_sum(Wx, self.alpha, u0)
 

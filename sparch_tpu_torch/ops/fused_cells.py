@@ -14,6 +14,10 @@ dispatches on the device of ``Wx``:
   ``readout_bwd.cu``) and nothing else: a kernel that cannot launch raises;
 - any other device raises.
 
+The readout kernels launch on a plan of rows, warps and T chunk a block
+(``_readout_plan`` over the card's SMs, checked in C); the backward is one
+launch.
+
 Without a gradient to compute (eval, serving, ``torch.no_grad``) the
 forward saves nothing. With one it also writes the membrane series ``u``,
 the only full-length residual: the backward recomputes the spikes as
@@ -110,17 +114,18 @@ FUSED_CELL_BWD = Kernel(
 FUSED_CELL_BWD_BF16 = Kernel(
     "fused_cell_bwd", "sparch_fused_cell_bwd", _BWD_ARGS,
     name="fused_cell_bwd_bf16")
+# the readout pair ends in its plan (rows, warps, T chunk) and the stream
 READOUT_FWD = Kernel(
-    "readout_fwd", "sparch_readout_fwd", [_P] * 5 + [_I] * 3 + [_P]
+    "readout_fwd", "sparch_readout_fwd", [_P] * 5 + [_I] * 6 + [_P]
 )
 READOUT_BWD = Kernel(
-    "readout_bwd", "sparch_readout_bwd", [_P] * 8 + [_I] * 3 + [_P]
+    "readout_bwd", "sparch_readout_bwd", [_P] * 8 + [_I] * 6 + [_P]
 )
 _KERNELS = (FUSED_CELL_FWD, FUSED_CELL_FWD_TRAIN, FUSED_CELL_BWD,
             READOUT_FWD, READOUT_BWD, FUSED_CELL_FWD_BF16,
             FUSED_CELL_FWD_TRAIN_BF16, FUSED_CELL_BWD_BF16)
 # widest layer and class count the kernels take (csrc/*.cu kMaxThreads *
-# kMaxNpt and 32 * kMaxVpl)
+# kMaxNpt and csrc/readout.cuh 32 * kMaxVpl)
 _MAX_H = 4096
 _MAX_C = 256
 # csrc/fused_cell_bwd.cu: partials of the parameter gradients of two rows
@@ -991,6 +996,54 @@ def readout_bwd_plain(gout, u_seq, alpha, u0):
     return dWx, dal.sum(0) / oma, alpha * G
 
 
+# csrc/readout.cuh: the shared memory a readout block stages its rows'
+# chunk into, threads of a block at most, warps the softmaxes take at most
+_READOUT_SMEM = 96 * 1024
+_READOUT_THREADS = 1024
+_READOUT_SOFTMAX_WARPS = 16
+
+
+class ReadoutPlan(NamedTuple):
+    """The launch plan of the readout pair (``readout_plan`` of
+    ``csrc/readout.cuh``, which checks it), from ``_readout_plan``."""
+
+    rows: int     # batch rows of a block: block i owns rows i*rows ..
+    warps: int    # warps of a block
+    t_chunk: int  # steps of each row staged in shared memory at once
+    smem: int     # dynamic shared memory of a block, bytes
+
+
+@functools.lru_cache(maxsize=None)
+def _readout_plan(B: int, T: int, C: int, sms: int,
+                  backward: bool) -> ReadoutPlan:
+    """Rows, warps and T chunk of a readout launch on a card of ``sms``
+    SMs. A block owns ceil(B / sms) rows (so B = 128 and 256 give one
+    block an SM), at most as many as its threads hold (a thread a row and
+    class); it stages ``t_chunk`` steps of each row in ``_READOUT_SMEM``
+    bytes (forward: the C floats of u a step; backward: those, p and
+    <p, gout>, beside u before the chunk and gout), in equal chunks where
+    T does not fit; its warps take the (row, step) softmaxes, up to
+    ``_READOUT_SOFTMAX_WARPS`` unless the (row, class) threads need more."""
+    step = 2 * C + 1 if backward else C
+    fixed = 2 * C if backward else 0
+    rows = max(1, min(-(-B // sms), _READOUT_THREADS // C, B))
+    fit = (_READOUT_SMEM // 4 - rows * fixed) // (rows * step)
+    chunks = -(-T // min(T, fit))
+    t_chunk = -(-T // chunks)
+    warps = min(_READOUT_THREADS // 32,
+                max(-(-rows * C // 32),
+                    min(_READOUT_SOFTMAX_WARPS, rows * t_chunk)))
+    return ReadoutPlan(rows, warps, t_chunk, 4 * rows * (fixed + t_chunk
+                                                         * step))
+
+
+def _card_readout_plan(B: int, T: int, C: int, dev,
+                       backward: bool) -> ReadoutPlan:
+    """``_readout_plan`` for the SMs of the card ``dev``."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _readout_plan(B, T, C, sms, backward)
+
+
 def _check_readout(Wx, alpha, u0):
     B, T, C = Wx.shape
     dev = Wx.device
@@ -1010,10 +1063,11 @@ def _readout_cuda(Wx, alpha, u0, save_residuals: bool = False):
     if Wx.numel() == 0:
         out.zero_()
     else:
+        plan = _card_readout_plan(B, T, C, dev, False)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             READOUT_FWD(_ptr(Wx), _ptr(alpha), _ptr(u0), _ptr(out),
-                        _ptr(u_seq), B, T, C, stream)
+                        _ptr(u_seq), B, T, C, *plan[:3], stream)
     return (out, u_seq) if save_residuals else out
 
 
@@ -1023,14 +1077,15 @@ def _readout_bwd_cuda(gout, u_seq, alpha, u0):
     _check_readout(u_seq, alpha, u0)
     _check("gout", gout, (B, C), dev)
     dWx = torch.empty_like(u_seq)
-    partials = torch.empty_like(u0)
     dalpha = torch.empty_like(alpha)
-    du0 = torch.empty_like(u0)
+    # du0 and the per-row dalpha partials that the launch's last block adds
+    du0, partials = torch.empty((2, B, C), device=dev).unbind(0)
+    plan = _card_readout_plan(B, T, C, dev, True)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         READOUT_BWD(_ptr(gout), _ptr(u_seq), _ptr(alpha), _ptr(u0),
                     _ptr(dWx), _ptr(partials), _ptr(dalpha), _ptr(du0),
-                    B, T, C, stream)
+                    B, T, C, *plan[:3], stream)
     return dWx, dalpha, du0
 
 

@@ -7,7 +7,9 @@ and the modes of later slices raise.
 On a card (tests marked ``cuda``, which skip without one): each CUDA
 kernel against its plain version. With V on a dyadic grid the spike trains,
 the membrane series and the dropped outputs must be bit-identical; the
-readout agrees to rtol 1e-5; every gradient of the backward kernels agrees
+readout agrees to rtol 1e-5 (its membrane series bit for bit, its backward
+one kernel a call, taken by a RadLIF model under ``cell_impl='auto'``);
+every gradient of the backward kernels agrees
 with the plain backward on the same residuals to 1e-4 of that gradient's
 largest magnitude, and two launches give the same bits. The ANN kernels
 (RNN, LiGRU, GRU) sum their dense products in another order than the plain
@@ -159,9 +161,21 @@ def test_kernel_matches_plain_on_card(cuda, name, affine, shape):
     assert torch.equal(got.cpu(), want)
 
 
+# the readout kernels' shapes at the edges of their plan
+# (fused_cells._readout_plan): C = 1, 20, 32, 33, 256 (one to eight classes
+# a lane); T = 1 and series past one chunk of shared memory (T = 1000 at
+# C = 33: two chunks forward, three backward; T = 150 at C = 256); B = 1
+# and B past the card's SMs (two and three rows a block)
+READOUT_SHAPES = [(5, 13, 5), (128, 100, 35), (3, 9, 70), (1, 1, 1),
+                  (256, 100, 20), (300, 7, 32), (2, 1000, 33), (4, 150, 256),
+                  (256, 3, 256)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(5, 13, 5), (128, 100, 35), (3, 9, 70)])
+@pytest.mark.parametrize("shape", READOUT_SHAPES)
 def test_readout_kernel_matches_plain_on_card(cuda, shape):
+    """The output to rtol 1e-5 (the class sum in another order), the
+    membrane series bit for bit, two launches bit-equal."""
     d = make_inputs(*shape, seed=3)
     args = [torch.from_numpy(d[a]) for a in ("Wx", "alpha", "u0")]
     before = fused_cells.READOUT_FWD.launches
@@ -170,6 +184,14 @@ def test_readout_kernel_matches_plain_on_card(cuda, shape):
     assert fused_cells.READOUT_FWD.launches == before + 1
     torch.testing.assert_close(got.cpu(), fused_cells.readout_fused(*args),
                                rtol=1e-5, atol=1e-6)
+    Wx, alpha, u0 = [a.to(cuda) for a in args]
+    alpha = fused_cells.clip_and_mask(alpha)[0]
+    out, u_seq = fused_cells._readout_cuda(Wx, alpha, u0, save_residuals=True)
+    again = fused_cells._readout_cuda(Wx, alpha, u0, save_residuals=True)
+    want_u = fused_cells.readout_plain(Wx, alpha, u0, save_residuals=True)[1]
+    assert torch.equal(u_seq, want_u)
+    assert torch.equal(out, again[0]) and torch.equal(u_seq, again[1])
+    assert torch.equal(out, fused_cells._readout_cuda(Wx, alpha, u0))
 
 
 def _clamped(d, dev):
@@ -256,7 +278,7 @@ def test_backward_kernel_matches_plain_on_card(cuda, name, affine, drop_rate,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(5, 13, 5), (128, 100, 35), (3, 9, 70)])
+@pytest.mark.parametrize("shape", READOUT_SHAPES)
 def test_readout_backward_kernel_matches_plain_on_card(cuda, shape):
     d = make_inputs(*shape, seed=3)
     Wx, alpha, u0 = [torch.from_numpy(d[a]).to(cuda)
@@ -278,6 +300,54 @@ def test_readout_backward_kernel_matches_plain_on_card(cuda, shape):
     for n, x, y, z in zip(("dWx", "dalpha", "du0"), got, want, again):
         assert torch.equal(x, z), n
         assert _rel_err(x, y) <= 1e-4, (n, _rel_err(x, y))
+
+
+@pytest.mark.cuda
+def test_readout_backward_is_one_kernel_on_card(cuda):
+    """The backward adds the per-row dalpha partials in its last block:
+    one kernel on the card a call, and nothing else (no copy, no set)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    d = make_inputs(128, 100, 35, seed=3)
+    Wx, alpha, u0 = [torch.from_numpy(d[a]).to(cuda)
+                     for a in ("Wx", "alpha", "u0")]
+    alpha = fused_cells.clip_and_mask(alpha)[0]
+    _, u_seq = fused_cells._readout_cuda(Wx, alpha, u0, save_residuals=True)
+    gout = torch.ones_like(u0)
+    fused_cells._readout_bwd_cuda(gout, u_seq, alpha, u0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fused_cells._readout_bwd_cuda(gout, u_seq, alpha, u0)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    assert len(names) == 1 and "readout_bwd_kernel" in names[0], names
+
+
+@pytest.mark.cuda
+def test_auto_model_launches_the_readout_kernels_on_card(cuda):
+    """A RadLIF model under cell_impl='auto' on the card takes the fused
+    readout: one readout forward and one backward a training step."""
+    from sparch_tpu_torch.models import build_model
+    from sparch_tpu_torch.train import create_train_state, make_train_step
+
+    B, T, F = 8, 20, 24
+    model = build_model("RadLIF", (B, T, F), [32, 32, 5], dropout=0.1,
+                        cell_impl="auto",
+                        generator=torch.Generator().manual_seed(0))
+    state = create_train_state(model, 1e-2, device=cuda, seed=0)
+    step = make_train_step(model)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(
+        (rng.uniform(size=(B, T, F)) < 0.1).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.integers(0, 5, B)).to(cuda)
+    fused_cells.reset_launch_counts()
+    for _ in range(2):
+        state, _ = step(state, x, y)
+    torch.cuda.synchronize()
+    want = {k: 0 for k in fused_cells.launch_counts()}
+    want.update(fused_cell_fwd_train=4, fused_cell_bwd=4, readout_fwd=2,
+                readout_bwd=2)
+    assert fused_cells.launch_counts() == want
 
 
 @pytest.mark.cuda

@@ -1,0 +1,116 @@
+"""The launch plan of the readout pair (``csrc/readout_fwd.cu``,
+``csrc/readout_bwd.cu``; ``ops.fused_cells._readout_plan``, which
+``csrc/readout.cuh`` checks) and the rule that routes a model's readout to
+the fused readout or to ``cells.readout_sum``
+(``models.snn.readout_fused_route``).
+
+On the CPU, over batches, lengths, class counts and SM counts: every batch
+row is owned by one block and every step by one chunk; a block's threads
+hold its (row, class) pairs; its staged rows fit in the shared memory the
+plan gives it, inside the budget, and T is cut into chunks exactly where
+a row's series does not fit whole; the main shapes get the plans
+``PERF.md`` states. The route: 'pallas' takes the fused readout, 'auto'
+takes it for a CUDA tensor and ``readout_sum`` for a CPU one, 'scan' and
+'pallas_tp' take ``readout_sum``."""
+import pytest
+import torch
+
+from sparch_tpu_torch.models import snn
+from sparch_tpu_torch.ops import cells, fused_cells
+
+BS = (1, 5, 128, 256, 300)
+TS = (1, 7, 100, 1000)
+SMEM = fused_cells._READOUT_SMEM
+
+
+def floats_a_row(C, T, backward):
+    """Shared floats a row needs for a chunk of T steps: u a step (and p
+    and <p, gout> in the backward), beside u before the chunk and gout."""
+    return (2 * C + T * (2 * C + 1)) if backward else T * C
+
+
+@pytest.mark.parametrize("sms", (132, 114, 66))
+@pytest.mark.parametrize("C", (1, 20, 35, 256))
+def test_plan_invariants(C, sms):
+    for backward in (False, True):
+        for B in BS:
+            for T in TS:
+                p = fused_cells._readout_plan(B, T, C, sms, backward)
+                case = (B, T, C, sms, backward, p)
+                # every row in one block, blocks of `rows` from row 0
+                blocks = -(-B // p.rows)
+                owned = [b * p.rows + i for b in range(blocks)
+                         for i in range(min(p.rows, B - b * p.rows))]
+                assert owned == list(range(B)), case
+                # one block an SM at most, unless the threads cap the rows
+                if -(-B // sms) <= fused_cells._READOUT_THREADS // C:
+                    assert blocks <= sms, case
+                # a thread a (row, class), warps for the softmaxes
+                assert p.rows * C <= 32 * p.warps <= \
+                    fused_cells._READOUT_THREADS, case
+                assert p.warps >= min(fused_cells._READOUT_SOFTMAX_WARPS,
+                                      p.rows * p.t_chunk), case
+                # the chunk's rows in the plan's shared memory, within
+                # the budget; the backward's last block adds whole rows
+                assert p.smem == 4 * p.rows * floats_a_row(
+                    C, p.t_chunk, backward), case
+                assert p.smem <= SMEM, case
+                assert p.smem // 4 // C >= 1, case
+                # every step in one chunk, the chunks even; a chunk only
+                # where the whole series does not fit
+                chunks = -(-T // p.t_chunk)
+                steps = [t for k in range(chunks)
+                         for t in range(k * p.t_chunk,
+                                        min(T, (k + 1) * p.t_chunk))]
+                assert steps == list(range(T)), case
+                assert chunks * p.t_chunk - T < chunks, case
+                whole = 4 * p.rows * floats_a_row(C, T, backward) <= SMEM
+                assert (p.t_chunk == T) == whole, case
+
+
+def test_plan_at_the_main_shapes():
+    plan = fused_cells._readout_plan
+    R = fused_cells.ReadoutPlan
+    assert plan(128, 100, 35, 132, False) == R(1, 16, 100, 14000)
+    assert plan(128, 100, 35, 132, True) == R(1, 16, 100, 28680)
+    assert plan(256, 100, 35, 132, False) == R(2, 16, 100, 28000)
+    assert plan(256, 100, 35, 132, True) == R(2, 16, 100, 57360)
+    assert plan(128, 100, 20, 132, True) == R(1, 16, 100, 16560)
+    # a series past the budget is cut into even chunks
+    assert plan(1, 1000, 35, 132, False).t_chunk == 500
+    assert plan(1, 1000, 35, 132, True).t_chunk == 334
+
+
+@pytest.mark.parametrize("cell_impl,on_cuda,fused", [
+    ("pallas", False, True), ("pallas", True, True),
+    ("auto", False, False), ("auto", True, True),
+    ("scan", False, False), ("scan", True, False),
+    ("pallas_tp", False, False), ("pallas_tp", True, False),
+])
+def test_route_rule(cell_impl, on_cuda, fused):
+    assert snn.readout_fused_route(cell_impl, on_cuda) is fused
+
+
+@pytest.mark.parametrize("cell_impl", ["pallas", "auto", "scan",
+                                       "pallas_tp"])
+def test_readout_layer_takes_the_route_on_cpu(cell_impl, monkeypatch):
+    """On a CPU tensor only 'pallas' reaches the fused readout; 'auto'
+    gives ``readout_sum``'s bits, as the JAX 'auto' model computes."""
+    calls = []
+    fused = fused_cells.readout_fused
+
+    def spy(*args):
+        calls.append(args)
+        return fused(*args)
+
+    monkeypatch.setattr(snn.fused_cells, "readout_fused", spy)
+    torch.manual_seed(0)
+    layer = snn.ReadoutLayer(12, 5, normalization="none", state_init="zeros",
+                             cell_impl=cell_impl)
+    x = torch.randn(3, 9, 12)
+    out = layer(x)
+    assert len(calls) == (cell_impl == "pallas")
+    if cell_impl != "pallas":
+        Wx = layer.norm(layer.W(x))
+        want = cells.readout_sum(Wx, layer.alpha, torch.zeros(3, 5))
+        assert torch.equal(out, want)
