@@ -95,9 +95,6 @@ __device__ __forceinline__ void stage_wait() {
   __syncthreads();
 }
 
-// Steps of a row's recurrence whose loads are issued as a group.
-constexpr int kGroup = 8;
-
 // The first half of the softmax of K steps at once (independent chains the
 // scheduler interleaves), warp-wide, as the parent kernels took it: lane l
 // holds classes l, l+32, ... (x[k][v] for class l + 32v); dead classes (c

@@ -40,6 +40,9 @@ namespace {
 
 using readout::kMaxVpl;
 
+// Steps of the recurrence whose loads are issued as a group.
+constexpr int kGroup = 8;
+
 template <int VPL, bool kResid>
 __global__ void __launch_bounds__(readout::kThreads)
 readout_fwd_kernel(const float* __restrict__ wx,
@@ -47,7 +50,7 @@ readout_fwd_kernel(const float* __restrict__ wx,
                    const float* __restrict__ u0, float* __restrict__ out,
                    float* __restrict__ u_out, int B, int T, int C, int rows,
                    int tc) {
-  constexpr int G = readout::kGroup;
+  constexpr int G = kGroup;
   extern __shared__ __align__(16) float s[];  // rows x tc x C
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, nw = blockDim.x >> 5;
