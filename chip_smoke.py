@@ -542,17 +542,25 @@ def graph_ms(fn, *args, iters=20, repeats=5):
     return statistics.median(times)
 
 
-def device_ops(fn, *args):
-    """Kernels (and copies or sets) on the card that one call of
-    ``fn(*args)`` runs, by the profiler."""
+def device_ops(fn, *args, calls=5):
+    """Kernels (and copies or sets) on the card a call of ``fn(*args)``
+    runs, by the profiler over ``calls`` calls. A trace of a few short
+    kernels can come back empty; a call launches at least one kernel, so
+    an empty trace is taken again (at most three times)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn(*args)
-        torch.cuda.synchronize()
-    return sum(e.device_type.name == "CUDA" for e in prof.events())
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(*args)
+            torch.cuda.synchronize()
+        n = sum(e.device_type.name == "CUDA" for e in prof.events())
+        if n:
+            break
+    return n / calls
 
 
 def readout_inputs(dev):

@@ -316,11 +316,20 @@ def test_readout_backward_is_one_kernel_on_card(cuda):
     gout = torch.ones_like(u0)
     fused_cells._readout_bwd_cuda(gout, u_seq, alpha, u0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fused_cells._readout_bwd_cuda(gout, u_seq, alpha, u0)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
-    assert len(names) == 1 and "readout_bwd_kernel" in names[0], names
+    # five calls in a trace; a trace of a few short kernels can come back
+    # empty, and is then taken again (a call launches at least one kernel)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fused_cells._readout_bwd_cuda(gout, u_seq, alpha, u0)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type.name == "CUDA"]
+        if names:
+            break
+    assert len(names) == 5, names
+    assert all("readout_bwd_kernel" in n for n in names), names
 
 
 @pytest.mark.cuda
