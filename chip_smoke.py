@@ -59,8 +59,8 @@ all at once), then prints one JSON line per phase:
    ``at_256x1024``: the kernel at the shape of the bidirectional RadLIF
    1024 ``auto`` trainer, checked alike, timed and split.
 7. ``kernel_vs_plain`` for the readout backward at (128, 100, 35), alike
-   (one kernel a call, by the profiler; ``auto_route_ms`` of a forward and
-   a backward).
+   (one kernel a call, counted in a CUDA graph of the call;
+   ``auto_route_ms`` of a forward and a backward).
 8. ``training``: a RadLIF [512, 512, 35] trainer (batchnorm, dropout 0.1,
    uniform state init, Adam at lr 1e-2; ``create_train_state``,
    ``make_train_step``) on one device-resident batch of 128 rasters of 2 %
@@ -542,25 +542,36 @@ def graph_ms(fn, *args, iters=20, repeats=5):
     return statistics.median(times)
 
 
-def device_ops(fn, *args, calls=5):
-    """Kernels (and copies or sets) on the card a call of ``fn(*args)``
-    runs, by the profiler over ``calls`` calls. A trace of a few short
-    kernels can come back empty; a call launches at least one kernel, so
-    an empty trace is taken again (at most three times)."""
-    from torch.profiler import ProfilerActivity, profile
+def device_ops(fn, *args):
+    """Kernels that one call of ``fn(*args)`` launches on the card: the
+    kernel nodes of a CUDA graph that captures the call (the profiler's
+    trace of a few short kernels can drop some)."""
+    import ctypes
 
-    fn(*args)
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn(*args)
-            torch.cuda.synchronize()
-        n = sum(e.device_type.name == "CUDA" for e in prof.events())
-        if n:
-            break
-    return n / calls
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn(*args)
+    # torch's CUDA runtime, loaded with torch
+    rt = ctypes.CDLL(f"libcudart.so.{torch.version.cuda.split('.')[0]}")
+    raw, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    check(rt.cudaGraphGetNodes(raw, None, ctypes.byref(n)) == 0,
+          "cudaGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(rt.cudaGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0,
+          "cudaGraphGetNodes failed")
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes:
+        check(rt.cudaGraphNodeGetType(ctypes.c_void_p(node),
+                                      ctypes.byref(kind)) == 0,
+              "cudaGraphNodeGetType failed")
+        kernels += kind.value == 0  # cudaGraphNodeTypeKernel
+    graph.reset()
+    return kernels
 
 
 def readout_inputs(dev):
@@ -580,7 +591,7 @@ def readout_routes(Wx, alpha, u0, gout, backward: bool):
     kernels (``cells.readout_sum``, a chain of small ops) and as it runs
     now (``fused_cells.readout_fused``), each a forward (``backward``: a
     forward and a backward) on the card: eager ms a call (CUDA events) and
-    kernels a call (profiler)."""
+    kernels a call (``device_ops``)."""
     from sparch_tpu_torch.ops import cells, fused_cells
     from sparch_tpu_torch.utils.timing import cuda_time_ms
 
