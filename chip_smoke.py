@@ -75,6 +75,31 @@ all at once), then prints one JSON line per phase:
    ``train_step_ms`` (CUDA events over 20 steps after 3 warm-up steps,
    median of 3; ``scan``: 5 steps after 1), ``utterances_per_s`` and the
    forward / backward / optimizer split (median of 10 steps; ``scan``: 3).
+8b. ``experiment``: the CLI's main path. ``run_exp_torch.parse_args`` and
+   ``train.loop.Experiment`` train RadLIF [512, 512, 35] (B=128, defaults
+   otherwise: ``auto``, dropout 0.1, uniform state init, float32) on an
+   SSC-shaped synthetic set made from a fixed seed (700 units, 35
+   classes, 1.4 s, 100 bins, 800-3000 events an utterance; 1280 train, 256
+   valid and 256 test utterances). The card's machine has no h5py
+   (``EXP_DATA``): the Experiment's ``init_dataset`` alone is overridden,
+   to build ``load_shd_or_ssc``'s loaders over datasets that serve the
+   events from memory. Runs: 2 fresh epochs; ``--auto_resume`` for 1 more;
+   ``--use_pretrained_model --only_do_testing``; then
+   ``Predictor.from_experiment`` serves the test split. Checks: the
+   parameters on the card; every run's kernels by name, the counters set
+   to 0 just before ``forward()`` and read just after, 2
+   ``fused_cell_fwd_train``, 2 ``fused_cell_bwd``, 1 ``readout_fwd`` and 1
+   ``readout_bwd`` a step, 2 ``fused_cell_fwd`` and 1 ``readout_fwd`` an
+   eval batch, and no other; one host fetch an epoch; finite losses; a
+   state saved, restored into a fresh state and stepped equals the
+   uninterrupted step bit for bit (loss, parameters, Adam's moments, the
+   CUDA generator); ``from_experiment``'s probabilities equal
+   ``Predictor(model, state_dict)``'s bit for bit. Prints epoch wall
+   times, utterances/s with the loader in them beside phase 8's
+   device-resident ``auto`` step and beside an epoch of the same steps on
+   batches made beforehand (``loader_free_utterances_per_s``), the loader
+   wait, the pinned copy, the binning branch, losses and accuracies by epoch, the served test
+   accuracy and each hidden layer's mean firing rate after training.
 9. ``kernel_vs_plain`` for the fused non-spiking cell, forward
    (``fused_ann_fwd``): RNN, LiGRU and GRU at (128, 100, 512) with the
    batchnorm affine and at the ragged shape, in the serving form (the
@@ -142,7 +167,10 @@ all at once), then prints one JSON line per phase:
    cooperative launch, exchanging through buffers in the card's memory.
    ``tp_collectives``: the all-gather and reduce-scatter harnesses at
    B=128, Hl=256, 3 rounds, P = 1, 2, 4, bit for bit against their plain
-   versions, twice.
+   versions, twice; ``library_ms``: one round of each function as one
+   PyTorch call (``torch.cat`` of the P shards; ``torch.sum`` of the P
+   partials over ranks) timed from a CUDA graph as ``graph_ms`` times,
+   ``library_eager_ms`` the same call timed as the kernel is.
 17. ``kernel_vs_plain`` for ``tp_cell_fwd``: RLIF and RadLIF at P = 1, 2, 4
    on the main path's shape (B_eff=256, T=100, H=1024) and a small one
    (8, 13, P*128), V on the 2^-8 grid: spikes and membrane series bit for
@@ -216,12 +244,14 @@ all at once), then prints one JSON line per phase:
    1 (the kernel at P less at P = 1, over the exchanges on a cluster's
    chain), the backward its split per P. Every backward adds the dV
    product's yardstick (``dv_library_ms``), and the spiking ones their
-   plan (per P) and split. No library call computes any of these
+   plan (per P) and split. No library call computes any of the cell
    functions whole (cuDNN's GRU applies the reset gate after the recurrent
    product, this one before it; no PyTorch call exchanges inside a
-   recurrence, and a library all-gather is no port of these harnesses),
-   so ``library_ms`` is null; the dV product that each backward runs after
-   its time loop is one ``torch.matmul``, timed as ``dv_library_ms``.
+   recurrence), so their ``library_ms`` is null; the dV product that each
+   backward runs after its time loop is one ``torch.matmul``, timed as
+   ``dv_library_ms``. The TP collectives' ``library_ms`` is one round of
+   their function in one call (phase 16). Rows 1-5 add
+   ``launches_experiment``, their launches in the fresh run of phase 8b.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 if any phase fails, the script exits non-zero and prints no result.
@@ -1430,7 +1460,295 @@ def phase_training(dev):
             dev, impl, state_dict, x, y, per_step[impl], rows.get("scan"))
     emit("training", model="RadLIF [512, 512, 35]", batch_size=B, T=T, F=F,
          dropout=P_DROP, lr=LR, steps=TRAIN_STEPS, **rows)
-    return launches
+    return launches, rows["auto"]
+
+
+# ---------------------------------------------------------------------------
+# The CLI's main path: run_exp_torch / Experiment on SSC-shaped data
+# ---------------------------------------------------------------------------
+
+# Where the experiment phase reads its events. The card's machine has no
+# h5py, so the events are served from memory by a SpikingDataset whose
+# spikes group is a dict; everything after the read (binning, collate,
+# loader, epochs, checkpoints, serving) is the port's own code. The HDF5
+# read itself is held against the JAX package on the CPU only
+# (tests/test_torch_data.py).
+EXP_DATA = "memory"
+EXP_SPLITS = {"train": 1280, "valid": 256, "test": 256}
+EXP_EVENTS = (800, 3000)  # events an utterance, tools/gen_synthetic_ssc.py
+EXP_NOISE = 0.5  # share of events on random units, the same tool's default
+EXP_EPOCHS = 2
+PER_TRAIN_STEP = {"fused_cell_fwd_train": 2, "fused_cell_bwd": 2,
+                  "readout_fwd": 1, "readout_bwd": 1}
+PER_EVAL_BATCH = {"fused_cell_fwd": 2, "readout_fwd": 1}
+
+
+def ssc_events(n, seed):
+    """SSC-shaped utterances as gen_synthetic_ssc.py makes them (the
+    Heidelberg layout's fields): class c fires units of its block of 20,
+    EXP_NOISE of the events land on any of the 700 units, times sorted in
+    [0, 0.99 * 1.4) s. Returns (times, units, labels)."""
+    from sparch_tpu_torch.data.spiking import MAX_TIME, NB_UNITS
+
+    rng = np.random.default_rng(seed)
+    labels = np.arange(n) % C
+    block = NB_UNITS // C
+    times, units = [], []
+    for c in labels:
+        k = rng.integers(*EXP_EVENTS)
+        times.append(np.sort(rng.uniform(0, MAX_TIME * 0.99, k)))
+        u = rng.integers(c * block, (c + 1) * block, k)
+        noisy = rng.random(k) < EXP_NOISE
+        units.append(np.where(noisy, rng.integers(0, NB_UNITS, k), u))
+    return times, units, labels.astype(np.int64)
+
+
+def memory_experiment_class(data):
+    """``Experiment`` with only ``init_dataset`` overridden: the SSC
+    loaders of ``load_shd_or_ssc`` over datasets that serve ``data``'s
+    events from memory."""
+    from sparch_tpu_torch.data.spiking import (
+        MAX_TIME, NB_UNITS, SpikingDataset, load_shd_or_ssc)
+    from sparch_tpu_torch.train.loop import Experiment
+
+    class MemorySpikes(SpikingDataset):
+        def __init__(self, times, units, labels, nb_steps):
+            self.nb_steps, self.nb_units, self.max_time = \
+                nb_steps, NB_UNITS, MAX_TIME
+            self.time_bins = np.linspace(0, MAX_TIME, num=nb_steps)
+            self.labels = labels
+            self._events = {"times": times, "units": units}
+            self._h5 = None
+
+        def _spikes(self):
+            return self._events
+
+    class MemoryExperiment(Experiment):
+        def init_dataset(self):
+            self.nb_inputs, self.nb_outputs = NB_UNITS, C
+            kw = self._loader_kw()
+            for split in EXP_SPLITS:
+                setattr(self, f"{split}_loader", load_shd_or_ssc(
+                    split=split, shuffle=split == "train",
+                    dataset=MemorySpikes(*data[split], self.nb_steps), **kw))
+
+    return MemoryExperiment
+
+
+def experiment_run(cls, argv, dev):
+    """One ``run_exp_torch`` run of ``argv`` through ``cls``; the launch
+    counters set to 0 just before ``forward()`` and read just after."""
+    import run_exp_torch
+    from sparch_tpu_torch.ops import fused_cells
+
+    exp = cls(run_exp_torch.parse_args(argv), device=dev)
+    fused_cells.reset_launch_counts()
+    exp.forward()
+    torch.cuda.synchronize()
+    return exp, fused_cells.launch_counts()
+
+
+def expected_launches(exp):
+    """Kernel launches of a run: PER_TRAIN_STEP a step, PER_EVAL_BATCH an
+    eval batch."""
+    steps = sum(len(exp.train_loader) for h in exp.history
+                if h["split"] == "train")
+    evals = sum(len(exp.test_loader if h["split"] == "test"
+                    else exp.valid_loader)
+                for h in exp.history if h["split"] != "train")
+    return steps, evals, {
+        k: steps * PER_TRAIN_STEP.get(k, 0) + evals * PER_EVAL_BATCH.get(k, 0)
+        for k in PER_TRAIN_STEP.keys() | PER_EVAL_BATCH.keys()}
+
+
+def check_launches(what, exp, counts):
+    steps, evals, want = expected_launches(exp)
+    want = {k: want.get(k, 0) for k in counts}
+    check(counts == want, f"experiment {what}: launches {counts} != {want} "
+          f"({steps} steps, {evals} eval batches)")
+    return {k: n for k, n in counts.items() if n}
+
+
+def resume_is_bit_for_bit(exp, dev, folder):
+    """Save the run's state, take one step; restore into a fresh state of
+    the same configuration (other weights, other seed) and take the same
+    step: the loss, every parameter and statistic, Adam's moments and the
+    CUDA generator's state must be the same bits."""
+    from sparch_tpu_torch.models import build_model_from_config
+    from sparch_tpu_torch.train import (
+        create_train_state, make_train_step, restore_checkpoint,
+        save_checkpoint)
+
+    x, _, y = next(iter(exp.train_loader))
+    x, y = exp._put_batch(x, y)
+    save_checkpoint(folder, exp.state, meta={})
+
+    def after_step(state):
+        state, met = make_train_step(state.model)(state, x, y)
+        torch.cuda.synchronize()
+        return float(met["loss"]), dict(
+            model={k: v.clone() for k, v in state.model.state_dict().items()},
+            moments=[v.clone() for st in state.optimizer.state.values()
+                     for v in st.values()],
+            generator=state.generator.get_state())
+
+    want = after_step(exp.state)
+    model = build_model_from_config(exp._model_config)
+    fresh = create_train_state(model, LR, device=dev, seed=9)
+    fresh, _ = restore_checkpoint(folder, fresh)
+    got = after_step(fresh)
+    check(got[0] == want[0], f"resumed step loss {got[0]} != {want[0]}")
+    differ = [k for k in want[1]["model"]
+              if not torch.equal(got[1]["model"][k], want[1]["model"][k])]
+    check(not differ, f"resumed step: parameters differ in {differ}")
+    check(all(torch.equal(a, b) for a, b in zip(got[1]["moments"],
+                                                 want[1]["moments"])),
+          "resumed step: Adam's moments differ")
+    check(torch.equal(got[1]["generator"], want[1]["generator"]),
+          "resumed step: generator states differ")
+    return dict(loss=got[0], parameters=len(want[1]["model"]),
+                bit_equal=True)
+
+
+def one_step_launches(exp):
+    """The kernels one training step of the run's trainer launches, counted
+    as phase 8 counts them."""
+    from sparch_tpu_torch.ops import fused_cells
+
+    x, _, y = next(iter(exp.train_loader))
+    x, y = exp._put_batch(x, y)
+    fused_cells.reset_launch_counts()
+    exp._train_step(exp.state, x, y)
+    torch.cuda.synchronize()
+    counts = fused_cells.launch_counts()
+    want = {k: PER_TRAIN_STEP.get(k, 0) for k in counts}
+    check(counts == want, f"experiment: a step launched {counts}")
+    return {k: n for k, n in counts.items() if n}
+
+
+def loader_free_epoch(exp):
+    """One epoch of the run's steps on its own batches, all made and pinned
+    beforehand: the epoch loop's copies and steps without the loader's
+    thread beside them. Returns utterances/s (host clock, to the sync)."""
+    batches = list(exp.train_loader)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    for x, _, y in batches:
+        x, y = exp._put_batch(x, y)
+        exp.state, _ = exp._train_step(exp.state, x, y)
+        n += x.shape[0]
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def epochs_of(exp, resident_ups):
+    return [dict(epoch=h["epoch"], seconds=h["seconds"],
+                 utterances=h["utterances"],
+                 utterances_per_s=h["utterances"] / h["seconds"],
+                 device_resident_auto_utterances_per_s=resident_ups,
+                 loader_wait_s=h["loader_wait_s"], pinned=h["pinned"],
+                 train_loss=h["loss"], train_acc=h["acc"],
+                 train_rate=h["rate"])
+            for h in exp.history if h["split"] == "train"]
+
+
+def phase_experiment(dev, resident):
+    """The CLI's main path (see the module docstring, phase 8b)."""
+    import shutil
+    import tempfile
+
+    from sparch_tpu_torch.data import native
+    from sparch_tpu_torch.serve import Predictor, load_experiment
+
+    data = {split: ssc_events(n, seed)
+            for seed, (split, n) in enumerate(EXP_SPLITS.items())}
+    cls = memory_experiment_class(data)
+    root = tempfile.mkdtemp(prefix="chip_smoke_exp_")
+    folder = str(Path(root) / "exp")
+    argv = ["--model_type", "RadLIF", "--nb_layers", "3", "--nb_hiddens",
+            str(H), "--batch_size", str(B), "--dataset_name", "ssc",
+            "--data_folder", EXP_DATA, "--new_exp_folder", folder,
+            "--log_tofile", "true"]
+    try:
+        runs = {}
+        exp, counts = experiment_run(
+            cls, argv + ["--nb_epochs", str(EXP_EPOCHS)], dev)
+        check(all(p.is_cuda for p in exp.net.parameters()),
+              "experiment: parameters not on the card")
+        check(exp.host_fetches == {"train": EXP_EPOCHS, "valid": EXP_EPOCHS,
+                                   "test": 1},
+              f"experiment: host fetches {dict(exp.host_fetches)}")
+        losses = [h["loss"] for h in exp.history]
+        check(bool(np.isfinite(losses).all()), f"experiment: {losses}")
+        runs["fresh"] = dict(
+            launches=check_launches("fresh", exp, counts),
+            epochs=epochs_of(exp, resident["utterances_per_s"]),
+            valid_acc=[h["acc"] for h in exp.history
+                       if h["split"] == "valid"],
+            test_acc=exp.test_acc,
+            host_fetches=dict(exp.host_fetches))
+        step_launches = one_step_launches(exp)
+        runs["fresh"]["loader_free_utterances_per_s"] = loader_free_epoch(exp)
+        resumed_step = resume_is_bit_for_bit(exp, dev, str(Path(root) /
+                                                           "resume"))
+
+        exp, counts = experiment_run(
+            cls, argv + ["--nb_epochs", "1", "--auto_resume", "true"], dev)
+        train = [h for h in exp.history if h["split"] == "train"]
+        check(len(train) == 1, "experiment: the resumed run's epochs")
+        runs["auto_resume"] = dict(
+            launches=check_launches("auto_resume", exp, counts),
+            epochs=epochs_of(exp, resident["utterances_per_s"]),
+            valid_acc=[h["acc"] for h in exp.history
+                       if h["split"] == "valid"],
+            test_acc=exp.test_acc)
+        with torch.no_grad():
+            exp.net.eval()
+            x, _, _ = next(iter(exp.test_loader))
+            _, rates = exp.net(x.to(dev), exp._eval_generator)
+        firing = [float(r.mean()) for r in rates.split(H)]
+
+        exp, counts = experiment_run(
+            cls, argv + ["--use_pretrained_model", "true",
+                         "--only_do_testing", "true",
+                         "--load_exp_folder", folder], dev)
+        runs["only_do_testing"] = dict(
+            launches=check_launches("only_do_testing", exp, counts),
+            test_acc=exp.test_acc)
+
+        labels = data["test"][2]
+        ds = exp.test_loader.dataset
+        x = np.stack([ds[i][0] for i in range(len(ds))])
+        served = Predictor.from_experiment(folder, batch_size=B, device=dev)
+        model, state_dict = load_experiment(folder, device=dev)
+        direct = Predictor(model, state_dict, batch_size=B, device=dev)
+        pred, probs = served(x)
+        want_pred, want_probs = direct(x)
+        check(np.array_equal(probs, want_probs) and
+              np.array_equal(pred, want_pred),
+              "from_experiment differs from Predictor(model, state_dict)")
+        check(probs.shape == (len(ds), C) and
+              bool(np.isfinite(probs).all()) and
+              bool(np.allclose(probs.sum(-1), 1.0, atol=1e-5)),
+              "served probabilities")
+        served_acc = float((pred == labels).mean())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("experiment", model="RadLIF [512, 512, 35]", batch_size=B, T=T,
+         F=F, dataset="ssc-shaped synthetic", data=EXP_DATA,
+         utterances=EXP_SPLITS, events_per_utterance=list(EXP_EVENTS),
+         noise=EXP_NOISE, entry="run_exp_torch.parse_args + Experiment "
+         "(init_dataset from memory)", device=str(dev),
+         binning="native" if native.native_available() else "numpy",
+         launches_a_step=step_launches, resumed_step=resumed_step,
+         runs=runs, firing_rate_by_layer=firing,
+         served=dict(from_experiment_bit_equal=True,
+                     test_acc=served_acc, utterances=len(ds)),
+         device_resident_auto=dict(
+             train_step_ms=resident["train_step_ms"],
+             utterances_per_s=resident["utterances_per_s"]))
+    return runs["fresh"]["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -2346,8 +2664,14 @@ def phase_tp_collectives(dev):
     for P, args in inputs.items():
         kw = dict(num_devices=P, rounds=TP_ROUNDS)
         rows[P] = {}
-        for name, arg, out, kernel, plain in zip(names, args, got[P],
-                                                 kernels, plains):
+        # the library call of each function's one round: the P shards
+        # gathered by one torch.cat, the P partials reduced by one sum
+        x, parts = args
+        shards = [x[:, c] for c in fused_tp._shards(x.shape[1], P)]
+        library = (lambda: torch.cat(shards, dim=1),
+                   lambda: torch.sum(parts, dim=0))
+        for name, arg, out, kernel, plain, lib in zip(
+                names, args, got[P], kernels, plains, library):
             want_out = plain(arg, **kw)
             again = kernel(arg, **kw)
             torch.cuda.synchronize()
@@ -2360,7 +2684,9 @@ def phase_tp_collectives(dev):
                 plan=fused_tp.last_plans()[name],
                 ms=cuda_time_ms(lambda: kernel(arg, **kw)),
                 plain_ms=cuda_time_ms(lambda: plain(arg, **kw),
-                                      **PLAIN_ROUNDS))
+                                      **PLAIN_ROUNDS),
+                library_ms=graph_ms(lib),
+                library_eager_ms=cuda_time_ms(lib))
     emit("tp_collectives", batch_size=B, block_per_rank=TP_HL,
          rounds=TP_ROUNDS, one_card_form=True, bit_equal_to_plain=True,
          two_launches_bit_equal=True,
@@ -2799,10 +3125,13 @@ def tp_kernel_rows(coll_launches, coll, fwd, bwd, trained):
             name=name, route="cuda", source=src + "tp_collectives.cu",
             replaces=tpu + line, launches=coll_launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            **coll_bounds[name], library_ms=None, one_card_form=True, P=P,
-            shape=[B, h], rounds=TP_ROUNDS,
+            **coll_bounds[name], library_ms=r["library_ms"],
+            library_eager_ms=r["library_eager_ms"], library_rounds=1,
+            one_card_form=True, P=P, shape=[B, h], rounds=TP_ROUNDS,
             ms_by_p={q: coll[q][name]["ms"] for q in TP_PS},
-            plain_ms_by_p={q: coll[q][name]["plain_ms"] for q in TP_PS}))
+            plain_ms_by_p={q: coll[q][name]["plain_ms"] for q in TP_PS},
+            library_ms_by_p={q: coll[q][name]["library_ms"]
+                             for q in TP_PS}))
     return rows + tp_cell_rows(fwd, bwd, trained)
 
 
@@ -3351,7 +3680,8 @@ def main() -> int:
     bwd = run("backward", phase_backward, dev)
     readout_bwd = run("readout_backward", phase_readout_backward, dev)
     launches = run("serving", phase_serving, dev)
-    trained = run("training", phase_training, dev)
+    trained, trained_auto = run("training", phase_training, dev)
+    experiment = run("experiment", phase_experiment, dev, trained_auto)
     ann_fwd = run("ann_forward", phase_ann_forward, dev)
     ann_bwd = run("ann_backward", phase_ann_backward, dev)
     ann_served = run("serving_ann", phase_serving_ann, dev)
@@ -3390,11 +3720,13 @@ def main() -> int:
     kernels = [
         dict(name="fused_cell_fwd", route="cuda",
              source=src + "fused_cell_fwd.cu", replaces=tpu + "305",
-             launches=launches["fused_cell_fwd"], **cell, **cb["fwd"],
-             library_ms=None),
+             launches=launches["fused_cell_fwd"],
+             launches_experiment=experiment.get("fused_cell_fwd", 0), **cell,
+             **cb["fwd"], library_ms=None),
         dict(name="fused_cell_fwd_train", route="cuda",
              source=src + "fused_cell_fwd.cu", replaces=tpu + "305",
              launches=trained["fused_cell_fwd_train"],
+             launches_experiment=experiment.get("fused_cell_fwd_train", 0),
              **dict(fwd_train, at_256x1024=dict(
                  fwd_train["at_256x1024"],
                  launches=tp_trained["auto"]["fused_cell_fwd_train"])),
@@ -3402,20 +3734,26 @@ def main() -> int:
         dict(name="dropout_hash", route="cuda",
              source=src + "dropout_hash.cuh", replaces=tpu + "265",
              launches=trained["fused_cell_fwd_train"]
-             + trained["fused_cell_bwd"], **hashed, **cb["hash"],
+             + trained["fused_cell_bwd"],
+             launches_experiment=experiment.get("fused_cell_fwd_train", 0)
+             + experiment.get("fused_cell_bwd", 0), **hashed, **cb["hash"],
              library_ms=None),
         dict(name="fused_cell_bwd", route="cuda",
              source=src + "fused_cell_bwd.cu", replaces=tpu + "631",
-             launches=trained["fused_cell_bwd"], **bwd, **cb["bwd"],
-             library_ms=None),
+             launches=trained["fused_cell_bwd"],
+             launches_experiment=experiment.get("fused_cell_bwd", 0), **bwd,
+             **cb["bwd"], library_ms=None),
         dict(name="readout_fwd", route="cuda",
              source=src + "readout_fwd.cu", replaces=tpu + "1235",
              launches=launches["readout_fwd"],
-             launches_training=trained["readout_fwd"], **readout,
+             launches_training=trained["readout_fwd"],
+             launches_experiment=experiment.get("readout_fwd", 0), **readout,
              **bound(readout_bytes, readout_ops), library_ms=None),
         dict(name="readout_bwd", route="cuda",
              source=src + "readout_bwd.cu", replaces=tpu + "1274",
-             launches=trained["readout_bwd"], **readout_bwd,
+             launches=trained["readout_bwd"],
+             launches_experiment=experiment.get("readout_bwd", 0),
+             **readout_bwd,
              **bound(2 * readout_bytes, 2 * readout_ops), library_ms=None),
     ] + ann_kernel_rows(ann_fwd, ann_bwd, ann_served, ann_trained,
                         tp_ann_fwd, tp_ann_bwd) \

@@ -10,6 +10,8 @@ model's ``compute_dtype``.
 """
 from __future__ import annotations
 
+import json
+import os
 from typing import Tuple
 
 import numpy as np
@@ -19,17 +21,35 @@ from sparch_tpu_torch.utils.device import resolve_device
 
 __all__ = ["Predictor", "load_experiment"]
 
-_CHECKPOINT_ITEM = (
-    "the checkpoint slice of the port (ROADMAP queue 1 item 2: "
-    "train/checkpoint.py)"
-)
 
+def load_experiment(exp_folder: str, device=None):
+    """Rebuild the trained model and its ``state_dict`` from an experiment
+    folder of ``run_exp_torch.py``: the training loop records the
+    architecture in the checkpoint's ``meta.json``. Returns
+    ``(model, state_dict)``, the state dict on ``device`` (None: the CUDA
+    card, which raises without one); feed them to :class:`Predictor` or
+    to ``streaming_init``."""
+    from sparch_tpu_torch.models import build_model_from_config
+    from sparch_tpu_torch.train.checkpoint import load_state_tree
 
-def load_experiment(exp_folder: str):
-    raise NotImplementedError(
-        f"loading an experiment folder needs {_CHECKPOINT_ITEM}; build the "
-        "model and convert its weights with convert.variables_from_flax"
-    )
+    device = resolve_device(device)
+    ckdir = os.path.join(exp_folder, "checkpoints")
+    meta_path = os.path.join(ckdir, "meta.json")
+    with open(meta_path) as f:
+        meta = json.load(f)
+    cfg = meta.get("model")
+    if cfg is None:
+        raise ValueError(
+            f"{meta_path} has no 'model' record; rebuild the model and "
+            "pass its state dict directly"
+        )
+    if cfg.get("frontend") == "device":
+        raise NotImplementedError(
+            "a --frontend device experiment serves raw waveforms through "
+            "the device fbank frontend, ROADMAP queue 1 item 5"
+        )
+    model = build_model_from_config(cfg, use_readout_layer=True)
+    return model, load_state_tree(ckdir, device)["model"]
 
 
 class Predictor:
@@ -43,8 +63,19 @@ class Predictor:
     """
 
     @classmethod
-    def from_experiment(cls, exp_folder: str, **kwargs) -> "Predictor":
-        raise NotImplementedError(f"from_experiment needs {_CHECKPOINT_ITEM}")
+    def from_experiment(cls, exp_folder: str, batch_size: int = 128,
+                        seed: int = 0, device=None) -> "Predictor":
+        """Load the best checkpoint of a ``run_exp_torch.py`` experiment
+        for inference:
+
+            predictor = Predictor.from_experiment("exp/test_exps/...")
+            labels, probs = predictor(x)
+
+        (see :func:`load_experiment`; use it directly with
+        ``streaming_init`` for frame-by-frame serving)."""
+        model, state_dict = load_experiment(exp_folder, device)
+        return cls(model, state_dict, batch_size=batch_size, seed=seed,
+                   device=device)
 
     def __init__(self, model, state_dict, batch_size: int = 128,
                  seed: int = 0, pad_multiple: int = 100, device=None,

@@ -88,7 +88,42 @@ def test_plan_at_the_main_shapes():
     ("pallas_tp", False, False), ("pallas_tp", True, False),
 ])
 def test_route_rule(cell_impl, on_cuda, fused):
-    assert snn.readout_fused_route(cell_impl, on_cuda) is fused
+    assert snn.readout_fused_route(cell_impl, on_cuda, 35) is fused
+
+
+@pytest.mark.parametrize("cell_impl,on_cuda,fused", [
+    ("pallas", True, True), ("auto", True, False), ("auto", False, False),
+    ("scan", True, False),
+])
+def test_route_past_the_kernels_class_limit(cell_impl, on_cuda, fused):
+    """Past the kernels' class limit 'auto' keeps ``readout_sum`` on the
+    card too, as the JAX 'auto' runs any class count; 'pallas' still asks
+    for the kernels (which raise there). At the limit 'auto' takes them."""
+    C = fused_cells._MAX_C
+    assert snn.readout_fused_route(cell_impl, on_cuda, C + 1) is fused
+    assert snn.readout_fused_route("auto", True, C) is True
+
+
+def test_auto_readout_past_the_limit_runs_readout_sum(monkeypatch):
+    """A readout of 257 classes under 'auto', its route asked as for a
+    CUDA tensor: ``readout_sum``'s bits, and the fused readout is never
+    called."""
+    route = snn.readout_fused_route
+    monkeypatch.setattr(snn, "readout_fused_route",
+                        lambda impl, on_cuda, c: route(impl, True, c))
+    calls = []
+    monkeypatch.setattr(snn.fused_cells, "readout_fused",
+                        lambda *a: calls.append(a))
+    C = fused_cells._MAX_C + 1
+    torch.manual_seed(0)
+    layer = snn.ReadoutLayer(12, C, normalization="none", state_init="zeros",
+                             cell_impl="auto")
+    x = torch.randn(2, 5, 12)
+    out = layer(x)
+    assert not calls
+    Wx = layer.norm(layer.W(x))
+    assert torch.equal(out, cells.readout_sum(Wx, layer.alpha,
+                                              torch.zeros(2, C)))
 
 
 @pytest.mark.parametrize("cell_impl", ["pallas", "auto", "scan",
