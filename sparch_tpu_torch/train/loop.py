@@ -1,4 +1,4 @@
-"""Experiment orchestration: the end-to-end train/valid/test driver
+"""Experiment orchestration: the end-to-end train/valid/test run
 (counterpart of sparch_tpu/train/loop.py).
 
 The same CLI semantics, experiment-folder conventions, log lines, plateau
@@ -458,7 +458,7 @@ class Experiment:
         return test_acc
 
     # ------------------------------------------------------------------
-    # Main driver
+    # The whole run
     # ------------------------------------------------------------------
 
     def forward(self):
