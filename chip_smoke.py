@@ -61,6 +61,13 @@ all at once), then prints one JSON line per phase:
 7. ``kernel_vs_plain`` for the readout backward at (128, 100, 35), alike
    (one kernel a call, counted in a CUDA graph of the call;
    ``auto_route_ms`` of a forward and a backward).
+7b. ``readout_wide``: the readout pair's wide forms (past the lane
+   layout's 256 classes) at (128, 100, 300) and (8, 1100, 1500), more
+   classes than a block has threads over two chunks of statistics: the
+   forward within rtol 1e-5 of its plain version with the membrane series
+   bit for bit, the backward within GRAD_REL_MAX, two launches bit-equal,
+   each through ``readout_fused`` once (``auto``'s route at that width);
+   ``ms`` of each kernel (``graph_ms``).
 8. ``training``: a RadLIF [512, 512, 35] trainer (batchnorm, dropout 0.1,
    uniform state init, Adam at lr 1e-2; ``create_train_state``,
    ``make_train_step``) on one device-resident batch of 128 rasters of 2 %
@@ -169,8 +176,7 @@ all at once), then prints one JSON line per phase:
    B=128, Hl=256, 3 rounds, P = 1, 2, 4, bit for bit against their plain
    versions, twice; ``library_ms``: one round of each function as one
    PyTorch call (``torch.cat`` of the P shards; ``torch.sum`` of the P
-   partials over ranks) timed from a CUDA graph as ``graph_ms`` times,
-   ``library_eager_ms`` the same call timed as the kernel is.
+   partials over ranks) timed from a CUDA graph as ``graph_ms`` times.
 17. ``kernel_vs_plain`` for ``tp_cell_fwd``: RLIF and RadLIF at P = 1, 2, 4
    on the main path's shape (B_eff=256, T=100, H=1024) and a small one
    (8, 13, P*128), V on the 2^-8 grid: spikes and membrane series bit for
@@ -1250,6 +1256,64 @@ def phase_readout_backward(dev):
                 plan=plan, auto_route_ms=routes)
 
 
+WIDE_READOUT_SHAPES = ((128, 100, 300), (8, 1100, 1500))
+
+
+def phase_readout_wide(dev):
+    """The readout pair past 256 classes (see the module docstring, 7b)."""
+    from sparch_tpu_torch.ops import cells, fused_cells
+
+    out = {}
+    for b, t, c in WIDE_READOUT_SHAPES:
+        what = f"readout ({b}, {t}, {c})"
+        g = torch.Generator(device=dev).manual_seed(5)
+        Wx = 3.0 * torch.randn((b, t, c), generator=g, device=dev)
+        lo, hi = cells.ALPHA_LIM
+        alpha = torch.rand(c, generator=g, device=dev) * (hi - lo) + lo
+        u0 = torch.rand((b, c), generator=g, device=dev)
+        gout = torch.randn((b, c), generator=g, device=dev)
+        fused_cells.reset_launch_counts()
+        w = Wx.clone().requires_grad_()
+        fused_cells.readout_fused(w, alpha, u0).backward(gout)
+        torch.cuda.synchronize()
+        counts = fused_cells.launch_counts()
+        check(counts["readout_fwd"] == 1 and counts["readout_bwd"] == 1,
+              f"{what}: readout_fused launched {counts}")
+        got, u_seq = fused_cells._readout_cuda(Wx, alpha, u0,
+                                               save_residuals=True)
+        again = fused_cells._readout_cuda(Wx, alpha, u0, save_residuals=True)
+        want, want_u = fused_cells.readout_plain(Wx, alpha, u0,
+                                                 save_residuals=True)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+              f"{what}: max abs err {err}")
+        check(torch.equal(u_seq, want_u), f"{what}: membrane series differs")
+        check(torch.equal(got, again[0]) and torch.equal(u_seq, again[1]),
+              f"{what}: two launches differ")
+        check(torch.equal(got, fused_cells._readout_cuda(Wx, alpha, u0)),
+              f"{what}: the serving form differs")
+        grads = fused_cells._readout_bwd_cuda(gout, u_seq, alpha, u0)
+        grads2 = fused_cells._readout_bwd_cuda(gout, u_seq, alpha, u0)
+        want_g = fused_cells.readout_bwd_plain(gout, u_seq, alpha, u0)
+        torch.cuda.synchronize()
+        errs = {}
+        for n, x, y, z in zip(("dWx", "dalpha", "du0"), grads, want_g,
+                              grads2):
+            errs[n] = rel_err(x, y)
+            check(errs[n] <= GRAD_REL_MAX, f"{what} backward: {n} {errs[n]}")
+            check(torch.equal(x, z), f"{what} backward: {n} differs between "
+                  "two launches")
+        out[f"{b}x{t}x{c}"] = dict(
+            max_abs_err=err, bwd_rel_err=errs,
+            plan=fused_cells._card_readout_plan(b, t, c, dev, False)._asdict(),
+            ms=graph_ms(fused_cells._readout_cuda, Wx, alpha, u0),
+            bwd_ms=graph_ms(fused_cells._readout_bwd_cuda, gout, u_seq, alpha,
+                            u0))
+    emit("readout_wide", rtol=1e-5, grad_rel_max=GRAD_REL_MAX, **out)
+    return out
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Inside, every fused entry point runs its plain version on the card
@@ -1505,10 +1569,11 @@ def ssc_events(n, seed):
 
 def memory_experiment_class(data):
     """``Experiment`` with only ``init_dataset`` overridden: the SSC
-    loaders of ``load_shd_or_ssc`` over datasets that serve ``data``'s
-    events from memory."""
+    loaders, built as ``load_shd_or_ssc`` builds them, over datasets that
+    serve ``data``'s events from memory."""
+    from sparch_tpu_torch.data import DataLoader
     from sparch_tpu_torch.data.spiking import (
-        MAX_TIME, NB_UNITS, SpikingDataset, load_shd_or_ssc)
+        MAX_TIME, NB_UNITS, SpikingDataset)
     from sparch_tpu_torch.train.loop import Experiment
 
     class MemorySpikes(SpikingDataset):
@@ -1526,11 +1591,14 @@ def memory_experiment_class(data):
     class MemoryExperiment(Experiment):
         def init_dataset(self):
             self.nb_inputs, self.nb_outputs = NB_UNITS, C
-            kw = self._loader_kw()
             for split in EXP_SPLITS:
-                setattr(self, f"{split}_loader", load_shd_or_ssc(
-                    split=split, shuffle=split == "train",
-                    dataset=MemorySpikes(*data[split], self.nb_steps), **kw))
+                ds = MemorySpikes(*data[split], self.nb_steps)
+                setattr(self, f"{split}_loader", DataLoader(
+                    ds, batch_size=self.batch_size,
+                    collate_fn=ds.generate_batch, shuffle=split == "train",
+                    seed=self.seed, prefetch=2 if self.workers >= 0 else 0,
+                    workers=max(self.workers, 0),
+                    batch_transform=self._to_tensors))
 
     return MemoryExperiment
 
@@ -2685,8 +2753,7 @@ def phase_tp_collectives(dev):
                 ms=cuda_time_ms(lambda: kernel(arg, **kw)),
                 plain_ms=cuda_time_ms(lambda: plain(arg, **kw),
                                       **PLAIN_ROUNDS),
-                library_ms=graph_ms(lib),
-                library_eager_ms=cuda_time_ms(lib))
+                library_ms=graph_ms(lib))
     emit("tp_collectives", batch_size=B, block_per_rank=TP_HL,
          rounds=TP_ROUNDS, one_card_form=True, bit_equal_to_plain=True,
          two_launches_bit_equal=True,
@@ -3126,12 +3193,10 @@ def tp_kernel_rows(coll_launches, coll, fwd, bwd, trained):
             replaces=tpu + line, launches=coll_launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             **coll_bounds[name], library_ms=r["library_ms"],
-            library_eager_ms=r["library_eager_ms"], library_rounds=1,
-            one_card_form=True, P=P, shape=[B, h], rounds=TP_ROUNDS,
+            library_rounds=1, one_card_form=True, P=P, shape=[B, h],
+            rounds=TP_ROUNDS,
             ms_by_p={q: coll[q][name]["ms"] for q in TP_PS},
-            plain_ms_by_p={q: coll[q][name]["plain_ms"] for q in TP_PS},
-            library_ms_by_p={q: coll[q][name]["library_ms"]
-                             for q in TP_PS}))
+            plain_ms_by_p={q: coll[q][name]["plain_ms"] for q in TP_PS}))
     return rows + tp_cell_rows(fwd, bwd, trained)
 
 
@@ -3679,6 +3744,7 @@ def main() -> int:
     fwd_train, hashed = run("train_forward", phase_train_forward, dev)
     bwd = run("backward", phase_backward, dev)
     readout_bwd = run("readout_backward", phase_readout_backward, dev)
+    run("readout_wide", phase_readout_wide, dev)
     launches = run("serving", phase_serving, dev)
     trained, trained_auto = run("training", phase_training, dev)
     experiment = run("experiment", phase_experiment, dev, trained_auto)

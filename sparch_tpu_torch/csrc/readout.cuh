@@ -9,6 +9,13 @@
 // t) softmaxes (independent of each other), one thread a (row, class) for
 // the sum over t. Only the recurrences are sequential, one or two dependent
 // float operations a step.
+//
+// Past 32 * kMaxVpl classes (the widest row the lane layout holds) the
+// wide forms run instead: a block a row, its threads each a class at a
+// time for the recurrences and sums, a warp a step for the softmax's max,
+// sum and dot over all C (the lanes strided over the classes), only those
+// statistics in shared memory; the row's series stays in global memory
+// (the forward writes u there in both forms).
 
 #pragma once
 
@@ -20,10 +27,11 @@
 namespace readout {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxVpl = 8;  // classes a lane holds: C <= 256
+constexpr int kMaxVpl = 8;  // classes a lane holds: C <= 256, else wide
 constexpr int kSmem = 96 * 1024;
 constexpr int kThreads = 1024;
 constexpr int kSoftmaxWarps = 16;
+constexpr int kWideChunk = 1024;  // steps whose statistics a wide block holds
 
 struct Plan {
   int rows;     // batch rows of a block
@@ -37,8 +45,16 @@ struct Plan {
 // class); it stages t_chunk steps of each row in kSmem bytes (forward: C
 // floats a row and step; backward: 2C + 1, beside 2C a row), in equal
 // chunks where T does not fit; its warps take the softmaxes, up to
-// kSoftmaxWarps unless the (row, class) threads need more.
+// kSoftmaxWarps unless the (row, class) threads need more. Past
+// 32 * kMaxVpl classes (the wide forms): one row a block, a warp per 32
+// classes up to kThreads, and the statistics of t_chunk <= kWideChunk
+// steps (forward: max and sum; backward: those and <p, gout>).
 inline Plan plan(int B, int T, int C, int sms, bool backward) {
+  if (C > 32 * kMaxVpl) {
+    const int warps = C < kThreads ? (C + 31) / 32 : kThreads / 32;
+    const int t_chunk = T < kWideChunk ? T : kWideChunk;
+    return Plan{1, warps, t_chunk, 4 * t_chunk * (backward ? 3 : 2)};
+  }
   const int step = backward ? 2 * C + 1 : C;
   const int fixed = backward ? 2 * C : 0;
   int rows = (B + sms - 1) / sms;
@@ -167,6 +183,33 @@ __device__ __forceinline__ void warp_sum(float (&s)[K]) {
       s[k] = __fadd_rn(s[k], __shfl_xor_sync(kFull, s[k], off));
     }
   }
+}
+
+// The max and the sum of e = expf(x - max) of the C values x[0 .. C-1]
+// (one step of one row), warp-wide, as in exp_sum but the lane walking
+// classes lane, lane+32, ... for any C; with g non-null also the FFMA
+// chain of e * g from 0.f, butterflied alike. Every lane ends with the same
+// bits.
+__device__ __forceinline__ void wide_stats(const float* x, const float* g,
+                                           int C, float& m, float& sum,
+                                           float& dot) {
+  const int lane = threadIdx.x & 31;
+  float mx = -INFINITY;
+  for (int c = lane; c < C; c += 32) mx = fmaxf(mx, x[c]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+  }
+  float s[2] = {0.f, 0.f};
+  for (int c = lane; c < C; c += 32) {
+    const float e = expf(__fsub_rn(x[c], mx));
+    s[0] = __fadd_rn(s[0], e);
+    if (g) s[1] = __fmaf_rn(e, g[c], s[1]);
+  }
+  warp_sum<2>(s);
+  m = mx;
+  sum = s[0];
+  dot = s[1];
 }
 
 // Sets the dynamic shared memory limit of `kernel` where a plan needs more

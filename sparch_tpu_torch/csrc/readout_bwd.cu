@@ -37,6 +37,14 @@
 // divides. They are written here as those intrinsics, with p and pg
 // stored apart (not their product).
 //
+// Past 32 * kMaxVpl classes the wide form runs (readout_bwd_wide_kernel):
+// a block a row, walking T in chunks from the last; per chunk a warp a step
+// takes the max, the class sum and <e, gout> (readout.cuh wide_stats) into
+// shared memory, then the threads walk G down the chunk a class at a time,
+// p_t recomputed as e / sum, G and the dalpha partial carried from chunk to
+// chunk in du0 and partials; the last block adds the partial rows per class
+// in ascending order, as above.
+//
 // C interface, bound with ctypes: sparch_readout_bwd enqueues the launch,
 // returns cudaGetLastError() (or an invalid-value error for a shape or plan
 // it does not take) and never synchronises. Two launches must not run at
@@ -249,6 +257,83 @@ readout_bwd_kernel(const float* __restrict__ gout,
   if (tid == 0) g_ticket = 0;
 }
 
+// The wide form (C past the lane layout): one block a row.
+__global__ void __launch_bounds__(readout::kThreads)
+readout_bwd_wide_kernel(const float* __restrict__ gout,
+                        const float* __restrict__ u_seq,
+                        const float* __restrict__ alpha,
+                        const float* __restrict__ u0, float* __restrict__ dwx,
+                        float* __restrict__ partials,
+                        float* __restrict__ dalpha, float* __restrict__ du0,
+                        int B, int T, int C, int tc) {
+  extern __shared__ __align__(16) float s[];  // tc maxes, sums, <p, gout>
+  float* sm = s;
+  float* ss = s + tc;
+  float* spg = s + 2 * tc;
+  __shared__ bool last;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid >> 5, nw = nt >> 5;
+  const size_t row = blockIdx.x;
+  const float* g = gout + row * C;
+  const float* u = u_seq + row * T * C;
+  float* d = dwx + row * T * C;
+  float* carry_g = du0 + row * C;       // G between chunks, then du0
+  float* carry_a = partials + row * C;  // the dalpha partial
+
+  for (int t0 = (T - 1) / tc * tc; t0 >= 0; t0 -= tc) {
+    const int n = min(tc, T - t0);
+    const bool first = t0 + n == T;
+    // 1. each step's max, class sum and <p, gout>, a warp a step
+    for (int j = warp; j < n; j += nw) {
+      float m, sum, dot;
+      readout::wide_stats(u + (size_t)(t0 + j) * C, g, C, m, sum, dot);
+      if ((tid & 31) == 0) {
+        sm[j] = m;
+        ss[j] = sum;
+        spg[j] = __fdiv_rn(dot, sum);
+      }
+    }
+    __syncthreads();
+    // 2. G down the chunk, a class at a time (each thread the same classes
+    // in every chunk, so it reads back only its own carries)
+    for (int c = tid; c < C; c += nt) {
+      const float al = alpha[c], oma = __fsub_rn(1.0f, al), go = g[c];
+      float G = first ? 0.f : carry_g[c];
+      float dal = first ? 0.f : carry_a[c];
+      for (int t = n - 1; t >= 0; --t) {
+        const size_t at = (size_t)(t0 + t) * C + c;
+        const float ut = u[at];
+        const float prev = t0 + t > 0 ? u[at - C] : u0[row * C + c];
+        const float p = __fdiv_rn(expf(__fsub_rn(ut, sm[t])), ss[t]);
+        G = __fmaf_rn(p, __fsub_rn(go, spg[t]), __fmul_rn(al, G));
+        d[at] = __fmul_rn(oma, G);
+        dal = __fmaf_rn(G, __fsub_rn(prev, ut), dal);
+      }
+      carry_g[c] = t0 == 0 ? __fmul_rn(al, G) : G;
+      carry_a[c] = dal;
+    }
+    __syncthreads();  // before the next chunk's statistics
+  }
+
+  // the last block adds the partial rows per class, each from 0.f in
+  // ascending row order (from L2: other blocks wrote them)
+  if (tid == 0) {
+    __threadfence();
+    last = atomicAdd(&g_ticket, 1u) == gridDim.x - 1;
+    if (last) __threadfence();
+  }
+  __syncthreads();
+  if (!last) return;
+  for (int c = tid; c < C; c += nt) {
+    float sum = 0.f;
+    for (int b = 0; b < B; ++b) {
+      sum = __fadd_rn(sum, __ldcg(partials + (size_t)b * C + c));
+    }
+    dalpha[c] = __fdiv_rn(sum, __fsub_rn(1.0f, alpha[c]));
+  }
+  if (tid == 0) g_ticket = 0;
+}
+
 template <int VPL>
 int launch(const float* gout, const float* u_seq, const float* alpha,
            const float* u0, float* dwx, float* partials, float* dalpha,
@@ -274,12 +359,18 @@ extern "C" int sparch_readout_bwd(const float* gout, const float* u_seq,
                                   float* du0, int B, int T, int C, int rows,
                                   int warps, int t_chunk, void* stream) {
   readout::Plan p;
-  if (B <= 0 || T <= 0 || C <= 0 || C > 32 * kMaxVpl || !gout || !u_seq ||
+  if (B <= 0 || T <= 0 || C <= 0 || !gout || !u_seq ||
       !alpha || !u0 || !dwx || !partials || !dalpha || !du0 ||
       !readout::plan_ok(B, T, C, true, rows, warps, t_chunk, &p)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C > 32 * kMaxVpl) {
+    readout_bwd_wide_kernel<<<B, 32 * p.warps, p.smem, st>>>(
+        gout, u_seq, alpha, u0, dwx, partials, dalpha, du0, B, T, C,
+        p.t_chunk);
+    return (int)cudaGetLastError();
+  }
   const int vpl = (C + 31) / 32;
   if (vpl == 1) {
     return launch<1>(gout, u_seq, alpha, u0, dwx, partials, dalpha, du0, B,

@@ -30,6 +30,14 @@
 // its bits; the plain PyTorch version (ops/fused_cells.py readout_plain)
 // differs from them only by the order of the class sum.
 //
+// Past 32 * kMaxVpl classes the wide form runs (readout_fwd_wide_kernel):
+// a block a row; its threads run u_t a class at a time over all of T into
+// u_out (which the wrapper then always passes); per chunk of steps a warp
+// a step takes the max and the class sum of e (readout.cuh wide_stats)
+// into shared memory, and the threads add e / sum over the chunk's steps
+// in ascending t onto out, a class at a time. The recurrence rounds as
+// above, so the membrane series is the plain version's bit for bit.
+//
 // C interface, bound with ctypes: sparch_readout_fwd returns
 // cudaGetLastError() after the launch (or an invalid-value error for a
 // shape or plan it does not take) and never synchronises.
@@ -154,6 +162,62 @@ readout_fwd_kernel(const float* __restrict__ wx,
   if (mine) out[grow * C + c] = acc;
 }
 
+// The wide form (C past the lane layout): one block a row, u_out required.
+__global__ void __launch_bounds__(readout::kThreads)
+readout_fwd_wide_kernel(const float* __restrict__ wx,
+                        const float* __restrict__ alpha,
+                        const float* __restrict__ u0, float* __restrict__ out,
+                        float* __restrict__ u_out, int T, int C, int tc) {
+  extern __shared__ __align__(16) float s[];  // tc maxes, tc sums
+  float* sm = s;
+  float* ss = s + tc;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid >> 5, nw = nt >> 5;
+  const size_t row = blockIdx.x;
+  const float* x = wx + row * T * C;
+  float* u = u_out + row * T * C;
+  float* o = out + row * C;
+
+  // 1. the recurrence over all of T, a class at a time
+  for (int c = tid; c < C; c += nt) {
+    const float al = alpha[c], oma = __fsub_rn(1.0f, al);
+    float v = u0[row * C + c];
+    for (int t = 0; t < T; ++t) {
+      v = __fadd_rn(__fmul_rn(al, v), __fmul_rn(oma, x[(size_t)t * C + c]));
+      u[(size_t)t * C + c] = v;
+    }
+    o[c] = 0.f;
+  }
+  __syncthreads();
+
+  for (int t0 = 0; t0 < T; t0 += tc) {
+    const int n = min(tc, T - t0);
+    // 2. each step's max and class sum, a warp a step
+    for (int j = warp; j < n; j += nw) {
+      float m, sum, dot;
+      readout::wide_stats(u + (size_t)(t0 + j) * C, nullptr, C, m, sum, dot);
+      if ((tid & 31) == 0) {
+        sm[j] = m;
+        ss[j] = sum;
+      }
+    }
+    __syncthreads();
+    // 3. the sum over the chunk's steps in ascending t, a class at a time
+    // (each thread the classes it took in 1)
+    for (int c = tid; c < C; c += nt) {
+      const float* uc = u + (size_t)t0 * C + c;
+      float acc = o[c];
+      for (int t = 0; t < n; ++t) {
+        acc = __fadd_rn(acc, __fdiv_rn(expf(__fsub_rn(uc[(size_t)t * C],
+                                                      sm[t])),
+                                       ss[t]));
+      }
+      o[c] = acc;
+    }
+    __syncthreads();  // before the next chunk's statistics
+  }
+}
+
 template <int VPL>
 int launch(const float* wx, const float* alpha, const float* u0, float* out,
            float* u_out, int B, int T, int C, const readout::Plan& p,
@@ -177,12 +241,18 @@ extern "C" int sparch_readout_fwd(const float* wx, const float* alpha,
                                   int B, int T, int C, int rows, int warps,
                                   int t_chunk, void* stream) {
   readout::Plan p;
-  if (B <= 0 || T <= 0 || C <= 0 || C > 32 * kMaxVpl || !wx || !alpha ||
+  if (B <= 0 || T <= 0 || C <= 0 || !wx || !alpha ||
       !u0 || !out ||
       !readout::plan_ok(B, T, C, false, rows, warps, t_chunk, &p)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C > 32 * kMaxVpl) {
+    if (!u_out) return (int)cudaErrorInvalidValue;
+    readout_fwd_wide_kernel<<<B, 32 * p.warps, p.smem, st>>>(
+        wx, alpha, u0, out, u_out, T, C, p.t_chunk);
+    return (int)cudaGetLastError();
+  }
   const int vpl = (C + 31) / 32;
   if (vpl == 1) return launch<1>(wx, alpha, u0, out, u_out, B, T, C, p, st);
   if (vpl == 2) return launch<2>(wx, alpha, u0, out, u_out, B, T, C, p, st);

@@ -103,14 +103,10 @@ def load_shd_or_ssc(
     num_shards: int = 1,
     shard_index: int = 0,
     batch_transform=None,
-    dataset=None,
 ) -> DataLoader:
     """A loader for a split of SHD or SSC. SHD has no validation split:
     ``valid`` reads ``test``. ``batch_transform`` runs on each collated
-    batch in the loader's producer thread (see ``DataLoader``).
-    ``dataset`` is the split's dataset when the caller built it (a
-    ``SpikingDataset`` subclass); by default it reads the split's HDF5
-    file."""
+    batch in the loader's producer thread (see ``DataLoader``)."""
     if dataset_name not in ["shd", "ssc"]:
         raise ValueError(f"Invalid dataset name {dataset_name}")
     if split not in ["train", "valid", "test"]:
@@ -119,8 +115,7 @@ def load_shd_or_ssc(
         logging.info("SHD does not have a validation split. Using test split.")
         split = "test"
 
-    if dataset is None:
-        dataset = SpikingDataset(dataset_name, data_folder, split, nb_steps)
+    dataset = SpikingDataset(dataset_name, data_folder, split, nb_steps)
     logging.info(f"Number of examples in {split} set: {len(dataset)}")
 
     return DataLoader(

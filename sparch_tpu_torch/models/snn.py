@@ -246,22 +246,17 @@ class RadLIFLayer(_SpikingLayerBase):
                                  self.V, self.threshold, u0, w0, s0)
 
 
-def readout_fused_route(cell_impl: str, on_cuda: bool,
-                        num_classes: int) -> bool:
+def readout_fused_route(cell_impl: str, on_cuda: bool) -> bool:
     """Whether the readout takes ``fused_cells.readout_fused`` (the fused
     kernels on a CUDA tensor, their plain versions on a CPU one) rather
     than ``cells.readout_sum``: always under 'pallas', and under 'auto'
-    for a CUDA tensor of at most ``fused_cells._MAX_C`` classes, the
-    kernels' limit. The JAX package keeps ``readout_sum`` for 'auto'
+    for a CUDA tensor. The JAX package keeps ``readout_sum`` for 'auto'
     because the class dim pads to 128 lanes in its TPU kernel; on the card
     ``readout_sum`` is ~150 small kernels a step, so 'auto' takes the
-    kernels there, as it takes the fused cells, and keeps ``readout_sum``
-    past their limit, where the JAX 'auto' runs too. A CPU tensor under
-    'auto', 'scan' and 'pallas_tp' keep ``readout_sum``, as in the JAX
-    package."""
-    return cell_impl == "pallas" or (
-        cell_impl == "auto" and on_cuda
-        and num_classes <= fused_cells._MAX_C)
+    kernels there, as it takes the fused cells, at any class count. A CPU
+    tensor under 'auto', 'scan' and 'pallas_tp' keep ``readout_sum``, as
+    in the JAX package."""
+    return cell_impl == "pallas" or (cell_impl == "auto" and on_cuda)
 
 
 class ReadoutLayer(nn.Module):
@@ -294,8 +289,7 @@ class ReadoutLayer(nn.Module):
             # and feeds the loss
             Wx = Wx.float()
         (u0,) = _init_states(Wx, 1, self.state_init, generator)
-        if readout_fused_route(self.cell_impl, Wx.is_cuda,
-                               Wx.shape[-1]):
+        if readout_fused_route(self.cell_impl, Wx.is_cuda):
             return fused_cells.readout_fused(Wx, self.alpha, u0)
         return cells.readout_sum(Wx, self.alpha, u0)
 

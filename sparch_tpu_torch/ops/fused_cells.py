@@ -16,7 +16,8 @@ dispatches on the device of ``Wx``:
 
 The readout kernels launch on a plan of rows, warps and T chunk a block
 (``_readout_plan`` over the card's SMs, checked in C); the backward is one
-launch.
+launch. They take any class count: past ``_LANE_C`` classes (the widest
+row their lane layout holds) they run their wide forms, a block a row.
 
 Without a gradient to compute (eval, serving, ``torch.no_grad``) the
 forward saves nothing. With one it also writes the membrane series ``u``,
@@ -124,10 +125,11 @@ READOUT_BWD = Kernel(
 _KERNELS = (FUSED_CELL_FWD, FUSED_CELL_FWD_TRAIN, FUSED_CELL_BWD,
             READOUT_FWD, READOUT_BWD, FUSED_CELL_FWD_BF16,
             FUSED_CELL_FWD_TRAIN_BF16, FUSED_CELL_BWD_BF16)
-# widest layer and class count the kernels take (csrc/*.cu kMaxThreads *
-# kMaxNpt and csrc/readout.cuh 32 * kMaxVpl)
+# widest layer the kernels take (csrc/*.cu kMaxThreads * kMaxNpt), and the
+# widest row of classes the readout kernels' lane layout holds, past which
+# they run their wide forms (csrc/readout.cuh 32 * kMaxVpl)
 _MAX_H = 4096
-_MAX_C = 256
+_LANE_C = 256
 # csrc/fused_cell_bwd.cu: partials of the parameter gradients of two rows
 # up to this width (else one), and the most columns of a slice of six
 # blocks before the cluster takes eight
@@ -1001,6 +1003,8 @@ def readout_bwd_plain(gout, u_seq, alpha, u0):
 _READOUT_SMEM = 96 * 1024
 _READOUT_THREADS = 1024
 _READOUT_SOFTMAX_WARPS = 16
+# and the steps whose softmax statistics a block of the wide forms holds
+_READOUT_WIDE_CHUNK = 1024
 
 
 class ReadoutPlan(NamedTuple):
@@ -1023,7 +1027,15 @@ def _readout_plan(B: int, T: int, C: int, sms: int,
     bytes (forward: the C floats of u a step; backward: those, p and
     <p, gout>, beside u before the chunk and gout), in equal chunks where
     T does not fit; its warps take the (row, step) softmaxes, up to
-    ``_READOUT_SOFTMAX_WARPS`` unless the (row, class) threads need more."""
+    ``_READOUT_SOFTMAX_WARPS`` unless the (row, class) threads need more.
+    Past ``_LANE_C`` classes (the wide forms): a row a block, a warp per
+    32 classes up to the block's threads, and the softmax statistics of
+    ``t_chunk`` steps (forward: max and sum; backward: those and
+    <p, gout>)."""
+    if C > _LANE_C:
+        t_chunk = min(T, _READOUT_WIDE_CHUNK)
+        return ReadoutPlan(1, min(_READOUT_THREADS // 32, -(-C // 32)),
+                           t_chunk, 4 * t_chunk * (3 if backward else 2))
     step = 2 * C + 1 if backward else C
     fixed = 2 * C if backward else 0
     rows = max(1, min(-(-B // sms), _READOUT_THREADS // C, B))
@@ -1048,8 +1060,6 @@ def _check_readout(Wx, alpha, u0):
     B, T, C = Wx.shape
     dev = Wx.device
     _check("Wx", Wx, (B, T, C), dev)
-    if C > _MAX_C:
-        raise ValueError(f"the readout kernel takes C <= {_MAX_C}, got {C}")
     _check("alpha", alpha, (C,), dev)
     _check("u0", u0, (B, C), dev)
 
@@ -1059,7 +1069,10 @@ def _readout_cuda(Wx, alpha, u0, save_residuals: bool = False):
     dev = Wx.device
     _check_readout(Wx, alpha, u0)
     out = torch.empty_like(u0)
-    u_seq = torch.empty_like(Wx) if save_residuals else None
+    # the wide form keeps the membrane series in global memory, whatever
+    # the form
+    u_seq = (torch.empty_like(Wx) if save_residuals or C > _LANE_C
+             else None)
     if Wx.numel() == 0:
         out.zero_()
     else:

@@ -72,14 +72,12 @@ def restore_checkpoint(
     tree = load_state_tree(checkpoint_dir, template.device)
     template.model.load_state_dict(tree["model"], strict=True)
     template.optimizer.load_state_dict(tree["optimizer"])
-    group = template.optimizer.param_groups[0]
-    if not (group.get("capturable") or group.get("fused")):
-        # Adam counts its steps on the host unless it is capturable, as a
-        # fresh optimizer does: a step count on the card costs a host sync
-        # a parameter and step
-        for st in template.optimizer.state.values():
-            if torch.is_tensor(st.get("step")):
-                st["step"] = st["step"].cpu()
+    # Adam (create_train_state's, neither capturable nor fused) counts its
+    # steps on the host, as a fresh optimizer does: a step count on the
+    # card would cost a host sync a parameter and step
+    for st in template.optimizer.state.values():
+        if torch.is_tensor(st.get("step")):
+            st["step"] = st["step"].cpu()
     # a generator's state is a CPU byte tensor, whatever its device
     template.generator.set_state(tree["generator"].cpu())
     template.step = int(tree["step"])

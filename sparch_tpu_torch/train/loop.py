@@ -244,7 +244,15 @@ class Experiment:
             raise ValueError(f"Invalid dataset name {self.dataset_name}")
         self.nb_inputs = 700
         self.nb_outputs = 20 if self.dataset_name == "shd" else 35
-        kw = self._loader_kw()
+        kw = dict(
+            dataset_name=self.dataset_name,
+            data_folder=self.data_folder,
+            batch_size=self.batch_size,
+            nb_steps=self.nb_steps,
+            seed=self.seed,
+            workers=self.workers,
+            batch_transform=self._to_tensors,
+        )
         self.train_loader = load_shd_or_ssc(split="train", shuffle=True, **kw)
         self.valid_loader = load_shd_or_ssc(split="valid", shuffle=False, **kw)
         if self.dataset_name == "ssc":
@@ -255,18 +263,6 @@ class Experiment:
             logging.warning(
                 "\nWarning: Data augmentation not implemented for SHD and SSC.\n"
             )
-
-    def _loader_kw(self) -> dict:
-        """Keywords of ``load_shd_or_ssc`` common to the three splits."""
-        return dict(
-            dataset_name=self.dataset_name,
-            data_folder=self.data_folder,
-            batch_size=self.batch_size,
-            nb_steps=self.nb_steps,
-            seed=self.seed,
-            workers=self.workers,
-            batch_transform=self._to_tensors,
-        )
 
     def init_model(self):
         """Build (or restore) the model and its training state."""

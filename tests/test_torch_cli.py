@@ -12,16 +12,26 @@ within rtol 1e-4 / atol 1e-5, the log lines equal with their numbers
 masked (but the JAX mesh line, the port's device line and the model's
 description), and ``meta.json``'s ``model`` record equal key for key.
 
-Where a value misses its tolerance, the JAX CLI runs again on one device
-of its mesh, which changes only the order of the batch sums, and the port
-may be no further from the JAX run than 3 times that run is. LIF holds
-the tolerances. RadLIF does not, and neither does the JAX package against
-itself: a membrane value within rounding of the threshold spikes in one
-run and not in the other, the recurrence carries the difference on, and
-Adam's first steps turn gradients near zero into steps of +-lr whatever
-their size. On these files the JAX CLI's 8-device and 1-device runs of
-RadLIF part by 3 % in the first epoch's loss and by up to 0.08 in a
-weight after 6 steps, as far as the port parts from either.
+LIF holds these tolerances over the 2 epochs (6 steps). RadLIF does not,
+and neither does the JAX package against itself: a membrane value within
+rounding of the threshold spikes in one run and not in the other, the
+recurrence carries the difference on, and Adam's first steps turn
+gradients near zero into steps of +-lr whatever their size. On these
+files it starts at the first train-mode forward: on a batch of 8 such
+utterances, at the same initial weights, the JAX scan model and the
+port's spike a different number of times in 2 to 9 of the 32 hidden
+neurons, with the matrices on a 2^-12 grid (every product exact) and
+without normalization too, and a first epoch of that one batch gives
+losses 3 % apart. The JAX CLI's 8-device and 1-device runs of RadLIF on
+these files part by 3 % in the first epoch's loss and by up to 0.08 in a
+weight after 6 steps. So where a value misses its tolerance, the JAX CLI runs again on
+one device of its mesh, which changes only the order of the batch sums,
+and the port may be no further from the JAX run than that run is: each
+tensor's largest distance within 3 times that run's largest, and its
+distance as a whole (the L2 norm over its elements) within 2 times that
+run's. The second bound is what holds the weights: a port whose whole
+tensor moves apart from the JAX run fails it where a few flipped elements
+do not.
 
 The port alone: a fresh run, ``--auto_resume``, ``--use_pretrained_model``
 with and without ``--only_do_testing``, ``--input_dtype bfloat16`` (the
@@ -59,8 +69,10 @@ N_TRAIN, N_TEST = 20, 12
 # the 4 moves the mean by 1/8
 ONE_UTTERANCE = 1.0 / 8 + 1e-7
 # how much further from the JAX run than the JAX run on one device the
-# port may land where rounding tips spikes
+# port may land where rounding tips spikes: at a tensor's largest distance,
+# and in its distance as a whole (L2 over the elements)
 WITNESS_FACTOR = 3.0
+WITNESS_NORM_FACTOR = 2.0
 
 
 @pytest.fixture(scope="module")
@@ -170,9 +182,10 @@ def pair(request, data, tmp_path_factory):
 
 def within_or_witnessed(got, want, witness, rtol, atol, what):
     """``got`` (the port) within ``atol + rtol * |want|`` of ``want`` (the
-    JAX CLI on the whole mesh); else no further from it than
-    WITNESS_FACTOR times the JAX CLI's own run on one device
-    (``witness()``) is."""
+    JAX CLI on the whole mesh); else no further from it than the JAX CLI's
+    own run on one device (``witness()``) is: the largest distance within
+    WITNESS_FACTOR times that run's largest, and the L2 distance within
+    WITNESS_NORM_FACTOR times that run's."""
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     err = np.abs(got - want)
     if np.all(err <= atol + rtol * np.abs(want)):
@@ -180,6 +193,9 @@ def within_or_witnessed(got, want, witness, rtol, atol, what):
     spread = np.abs(np.asarray(witness(), np.float64) - want)
     assert err.max() <= WITNESS_FACTOR * spread.max(), \
         (what, got, want, spread)
+    assert np.linalg.norm(err) <= \
+        WITNESS_NORM_FACTOR * np.linalg.norm(spread), \
+        (what, np.linalg.norm(err), np.linalg.norm(spread))
 
 
 def test_epoch_losses_and_accuracies_match_jax(pair):

@@ -35,7 +35,9 @@ def test_plain_fused_cell_matches_pallas(name, affine):
     assert not any(fused_cells.launch_counts().values())
 
 
-@pytest.mark.parametrize("shape", [(3, 11, 24), (9, 13, 40)])
+# the last past the port's lane layout (256 classes): the TPU kernel pads
+# it to 384 lanes, the port's kernels run their wide forms on it
+@pytest.mark.parametrize("shape", [(3, 11, 24), (9, 13, 40), (2, 5, 300)])
 def test_plain_readout_matches_pallas(shape):
     d = make_inputs(*shape)
     args = ("Wx", "alpha", "u0")

@@ -127,10 +127,6 @@ def test_kernel_wrappers_raise_past_their_width():
         fused_cells._fused_cell_cuda(
             t["Wx"], None, None, t["alpha"], None, None, None, None, 1.0,
             t["u0"], None, t["s0"], recurrent=False, adaptive=False)
-    C = fused_cells._MAX_C + 1
-    with pytest.raises(ValueError, match=f"C <= {fused_cells._MAX_C}"):
-        fused_cells._readout_cuda(torch.zeros(1, 1, C), torch.zeros(C),
-                                  torch.zeros(1, C))
     assert not any(fused_cells.launch_counts().values())
     cell = {"fused_cell_fwd", "fused_cell_fwd_train", "fused_cell_bwd"}
     ann = {f"fused_ann_{d}_{m}" for d in ("fwd", "bwd") for m in ANN_MODES}
@@ -165,10 +161,13 @@ def test_kernel_matches_plain_on_card(cuda, name, affine, shape):
 # (fused_cells._readout_plan): C = 1, 20, 32, 33, 256 (one to eight classes
 # a lane); T = 1 and series past one chunk of shared memory (T = 1000 at
 # C = 33: two chunks forward, three backward; T = 150 at C = 256); B = 1
-# and B past the card's SMs (two and three rows a block)
+# and B past the card's SMs (two and three rows a block); the wide forms
+# past 256 classes: C = 257, 300, and 1500 (more classes than a block has
+# threads) over T = 1100 (two chunks of statistics)
 READOUT_SHAPES = [(5, 13, 5), (128, 100, 35), (3, 9, 70), (1, 1, 1),
                   (256, 100, 20), (300, 7, 32), (2, 1000, 33), (4, 150, 256),
-                  (256, 3, 256)]
+                  (256, 3, 256), (3, 9, 257), (128, 100, 300),
+                  (5, 1100, 1500)]
 
 
 @pytest.mark.cuda

@@ -9,9 +9,11 @@ row is owned by one block and every step by one chunk; a block's threads
 hold its (row, class) pairs; its staged rows fit in the shared memory the
 plan gives it, inside the budget, and T is cut into chunks exactly where
 a row's series does not fit whole; the main shapes get the plans
-``PERF.md`` states. The route: 'pallas' takes the fused readout, 'auto'
-takes it for a CUDA tensor and ``readout_sum`` for a CPU one, 'scan' and
-'pallas_tp' take ``readout_sum``."""
+``PERF.md`` states; past the lane layout's 256 classes the wide forms get
+a block a row and every step's statistics in shared memory. The route:
+'pallas' takes the fused readout, 'auto' takes it for a CUDA tensor at any
+class count and ``readout_sum`` for a CPU one, 'scan' and 'pallas_tp'
+take ``readout_sum``."""
 import pytest
 import torch
 
@@ -68,6 +70,25 @@ def test_plan_invariants(C, sms):
                 assert (p.t_chunk == T) == whole, case
 
 
+@pytest.mark.parametrize("sms", (132, 66))
+@pytest.mark.parametrize("C", (257, 300, 1024, 1500, 5000))
+def test_wide_plan_invariants(C, sms):
+    for backward in (False, True):
+        for B in BS:
+            for T in TS + (1024, 1025, 3000):
+                p = fused_cells._readout_plan(B, T, C, sms, backward)
+                case = (B, T, C, sms, backward, p)
+                # a block a row, a warp per 32 classes up to the block
+                assert p.rows == 1, case
+                assert 32 * p.warps == min(-(-C // 32) * 32,
+                                           fused_cells._READOUT_THREADS), case
+                # each step's statistics (forward 2, backward 3 floats)
+                # in shared memory, the chunks covering T
+                assert p.t_chunk == min(T, fused_cells._READOUT_WIDE_CHUNK)
+                assert p.smem == 4 * p.t_chunk * (3 if backward else 2)
+                assert p.smem <= 48 * 1024, case
+
+
 def test_plan_at_the_main_shapes():
     plan = fused_cells._readout_plan
     R = fused_cells.ReadoutPlan
@@ -88,33 +109,40 @@ def test_plan_at_the_main_shapes():
     ("pallas_tp", False, False), ("pallas_tp", True, False),
 ])
 def test_route_rule(cell_impl, on_cuda, fused):
-    assert snn.readout_fused_route(cell_impl, on_cuda, 35) is fused
+    assert snn.readout_fused_route(cell_impl, on_cuda) is fused
 
 
-@pytest.mark.parametrize("cell_impl,on_cuda,fused", [
-    ("pallas", True, True), ("auto", True, False), ("auto", False, False),
-    ("scan", True, False),
-])
-def test_route_past_the_kernels_class_limit(cell_impl, on_cuda, fused):
-    """Past the kernels' class limit 'auto' keeps ``readout_sum`` on the
-    card too, as the JAX 'auto' runs any class count; 'pallas' still asks
-    for the kernels (which raise there). At the limit 'auto' takes them."""
-    C = fused_cells._MAX_C
-    assert snn.readout_fused_route(cell_impl, on_cuda, C + 1) is fused
-    assert snn.readout_fused_route("auto", True, C) is True
+@pytest.mark.parametrize("C", [fused_cells._LANE_C, fused_cells._LANE_C + 1,
+                               1500])
+def test_route_past_the_kernels_class_limit(C, monkeypatch):
+    """Past the lane layout's 256 classes the kernels run their wide forms,
+    so 'auto', its route asked as for a CUDA tensor, still takes the fused
+    readout: the layer calls ``readout_fused`` at every class count and
+    never ``readout_sum``."""
+    monkeypatch.setattr(snn, "readout_fused_route",
+                        lambda impl, on_cuda, r=snn.readout_fused_route:
+                        r(impl, True))
+    calls = []
+    fused = fused_cells.readout_fused
+    monkeypatch.setattr(snn.fused_cells, "readout_fused",
+                        lambda *a: calls.append(a) or fused(*a))
+    monkeypatch.setattr(snn.cells, "readout_sum", lambda *a: 1 / 0)
+    torch.manual_seed(0)
+    layer = snn.ReadoutLayer(12, C, normalization="none", state_init="zeros",
+                             cell_impl="auto")
+    out = layer(torch.randn(2, 5, 12))
+    assert len(calls) == 1 and out.shape == (2, C)
 
 
 def test_auto_readout_past_the_limit_runs_readout_sum(monkeypatch):
-    """A readout of 257 classes under 'auto', its route asked as for a
-    CUDA tensor: ``readout_sum``'s bits, and the fused readout is never
-    called."""
-    route = snn.readout_fused_route
-    monkeypatch.setattr(snn, "readout_fused_route",
-                        lambda impl, on_cuda, c: route(impl, True, c))
+    """On a CPU tensor a readout of 257 classes under 'auto' runs
+    ``readout_sum`` (its bits; the fused readout is never called), as the
+    JAX 'auto' does at any class count; on the card it takes the kernels
+    (``test_route_past_the_kernels_class_limit``)."""
     calls = []
     monkeypatch.setattr(snn.fused_cells, "readout_fused",
                         lambda *a: calls.append(a))
-    C = fused_cells._MAX_C + 1
+    C = fused_cells._LANE_C + 1
     torch.manual_seed(0)
     layer = snn.ReadoutLayer(12, C, normalization="none", state_init="zeros",
                              cell_impl="auto")
