@@ -97,7 +97,8 @@ all at once), then prints one JSON line per phase:
    to 0 just before ``forward()`` and read just after, 2
    ``fused_cell_fwd_train``, 2 ``fused_cell_bwd``, 1 ``readout_fwd`` and 1
    ``readout_bwd`` a step, 2 ``fused_cell_fwd`` and 1 ``readout_fwd`` an
-   eval batch, and no other; one host fetch an epoch; finite losses; a
+   eval batch, and no other, ``cells.readout_sum`` called 0 times; one
+   host fetch an epoch; finite losses; a
    state saved, restored into a fresh state and stepped equals the
    uninterrupted step bit for bit (loss, parameters, Adam's moments, the
    CUDA generator); ``from_experiment``'s probabilities equal
@@ -107,6 +108,50 @@ all at once), then prints one JSON line per phase:
    batches made beforehand (``loader_free_utterances_per_s``), the loader
    wait, the pinned copy, the binning branch, losses and accuracies by epoch, the served test
    accuracy and each hidden layer's mean firing rate after training.
+8c. ``audio``: the HD/SC path. It writes an SC-shaped tree of WAVs with the
+   stdlib ``wave`` module into a temporary folder (35 label folders of
+   one-second 16 kHz utterances made from a seed, two harmonics of each
+   label's pitch over noise; ``validation_list.txt`` and
+   ``testing_list.txt`` of 128 each; a ``_background_noise_`` folder the
+   dataset must leave out) and an HD-shaped one (20 classes, training
+   utterances of 0.6-1.6 s, so that their frame counts fall in two
+   ``pad_multiple`` buckets). Checks: ``fbank_torch`` on the card against
+   ``fbank_np`` on the host on a ragged batch, atol 2e-3 (the JAX twins'
+   bound), and its device time for a batch of 128 one-second utterances;
+   the native Freeverb built by the card machine's ``g++`` against the
+   SciPy formulation. Then ``run_exp_torch.main`` trains README.md's SC
+   flagship, RadLIF [1024, 1024, 1024, 35] bidirectional, ``--use_augm
+   true --pdrop 0.1 --frontend device``, B = 128, 2 epochs: the launch
+   counters set to 0 just before and read just after, 3
+   ``fused_cell_fwd_train``, 3 ``fused_cell_bwd``, 1 ``readout_fwd`` and
+   1 ``readout_bwd`` a step, 3 ``fused_cell_fwd`` and 1 ``readout_fwd`` an
+   eval batch, and no other, ``cells.readout_sum`` called 0 times, the
+   Freeverb called; ``Predictor.from_experiment`` on the test split's
+   waveforms equal bit for bit to the test loader's batch through the
+   restored model (its state draws seeded as the Predictor seeds them);
+   the step's time on a resident batch; then, V of the trained model put
+   back on the 2^-8 grid, one eval forward of a test batch (the serving
+   form at (256, 100, 1024)) with the kernels and again with their plain
+   versions: every hidden layer's spikes bit for bit, the probabilities
+   within 1e-5. One ``--frontend host`` epoch of the same model on the
+   same tree, and one epoch of RadLIF [512, 512, 20] on the HD tree
+   (``--frontend host``), checked alike; on the HD run's T = 200 batch
+   (V on the grid) an eval forward held so against the plain versions,
+   and a training step by phase 8's rule (loss within 1e-3, gradients
+   within 1e-4 of their largest or by the float64 witness). Prints the
+   loader-fed utterances/s of every epoch, its loader wait, losses,
+   accuracies and firing rates.
+8d. ``streaming``: ``serve/streaming.py`` on the card. RadLIF and GRU
+   [512, 512, 35] (``scan``, zero state init, F = 40, B = 128, T = 100):
+   T frames through ``streaming_step`` against one ``(B, T, F)`` forward
+   of the same model. RadLIF, every weight on a 2^-8 grid, inputs on a
+   2^-2 grid and norm gains 4 (so both paths' sums are exact): each hidden
+   layer's spikes bit for bit at every step, the readout within 1e-5
+   relative to its largest value; the GRU's output within 1e-5 relative.
+   Then the waveform form: the GRU in ``FbankFrontend``, one 400-sample
+   window a step advanced by 160 samples, against the frontend's batch
+   forward on the same audio, within 1e-5 relative (each window's fbank
+   within 2e-3 of the batch fbank's frame).
 9. ``kernel_vs_plain`` for the fused non-spiking cell, forward
    (``fused_ann_fwd``): RNN, LiGRU and GRU at (128, 100, 512) with the
    batchnorm affine and at the ragged shape, in the serving form (the
@@ -257,7 +302,9 @@ all at once), then prints one JSON line per phase:
    backward runs after its time loop is one ``torch.matmul``, timed as
    ``dv_library_ms``. The TP collectives' ``library_ms`` is one round of
    their function in one call (phase 16). Rows 1-5 add
-   ``launches_experiment``, their launches in the fresh run of phase 8b.
+   ``launches_experiment``, their launches in the fresh run of phase 8b,
+   and ``launches_audio``, their launches in the SC flagship's run of
+   phase 8c.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 if any phase fails, the script exits non-zero and prints no result.
@@ -1396,6 +1443,48 @@ def step_split_ms(model, state, x, y, n=10):
                                    "optimizer_ms"))}
 
 
+def step1_vs_plain_versions(what, dev, impl, state_dict, x, y, loss, grads,
+                            run, grad_rel_max=GRAD_REL_MAX):
+    """Step 1 of a kernel variant (its ``loss`` and gradients ``grads``)
+    against the same step with each kernel swapped for its plain version:
+    the loss within 1e-3 relative, every gradient finite and within
+    ``grad_rel_max`` of its largest magnitude or else by the float64
+    witness rule of the backward phases. ``run``: ``train_run``'s model
+    keywords."""
+    with plain_versions():
+        _, _, plain_losses, plain_grads, plain_counts = train_run(
+            dev, impl, state_dict, x, y, 1, **run)
+    check(not any(plain_counts.values()),
+          f"{what}: the plain run launched {plain_counts}")
+    loss_rel = abs(loss - plain_losses[0]) / abs(plain_losses[0])
+    errs = {k: rel_err(grads[k], plain_grads[k]) for k in grads}
+    row = dict(step1_loss=plain_losses[0], step1_loss_rel_diff=loss_rel,
+               max_grad_rel_err=max(errs.values()),
+               grad_rel_bound=grad_rel_max, grad_rel_err=errs)
+    check(loss_rel <= 1e-3,
+          f"{what}: step-1 loss {loss} vs plain versions' {plain_losses[0]}")
+    truth = None
+    for k, e in errs.items():
+        check(bool(torch.isfinite(grads[k]).all()),
+              f"{what}: step-1 gradient of {k} is not finite")
+        if e <= grad_rel_max:
+            continue
+        # as for the backward kernels: the same step in float64 is the
+        # truth, and the kernels' step may be no further from it than
+        # WITNESS_GRAD_FACTOR times the float32 plain versions' step
+        if truth is None:
+            with plain_versions():
+                truth = train_run(dev, impl, state_dict, x.double(), y, 1,
+                                  **run)[3]
+        w = dict(vs_plain=e,
+                 kernel_vs_f64=rel_err(grads[k].double(), truth[k]),
+                 plain_vs_f64=rel_err(plain_grads[k].double(), truth[k]))
+        row.setdefault("f64_witness", {})[k] = w
+        check(w["kernel_vs_f64"] <= WITNESS_GRAD_FACTOR * w["plain_vs_f64"],
+              f"{what}: step-1 gradient of {k} {w}")
+    return row
+
+
 def train_variant(dev, impl, state_dict, x, y, per_step, scan_row,
                   model_type="RadLIF", steps=TRAIN_STEPS, timed=True,
                   grad_rel_max=GRAD_REL_MAX, sizes=(H, H, C), keep=None,
@@ -1445,40 +1534,9 @@ def train_variant(dev, impl, state_dict, x, y, per_step, scan_row,
     check(not differ, f"{what}: two runs from one seed differ in {differ}")
     row["two_runs_bit_equal"] = True
     if impl != "scan":
-        with plain_versions():
-            _, _, plain_losses, plain_grads, plain_counts = train_run(
-                dev, impl, state_dict, x, y, 1, **run)
-        check(not any(plain_counts.values()),
-              f"{what}: the plain run launched {plain_counts}")
-        loss_rel = abs(losses[0] - plain_losses[0]) / abs(plain_losses[0])
-        errs = {k: rel_err(grads[k], plain_grads[k]) for k in grads}
-        row["vs_plain_versions"] = dict(
-            step1_loss=plain_losses[0], step1_loss_rel_diff=loss_rel,
-            max_grad_rel_err=max(errs.values()), grad_rel_bound=grad_rel_max,
-            grad_rel_err=errs)
-        check(loss_rel <= 1e-3,
-              f"{what}: step-1 loss {losses[0]} vs plain versions' "
-              f"{plain_losses[0]}")
-        truth = None
-        for k, e in errs.items():
-            check(bool(torch.isfinite(grads[k]).all()),
-                  f"{what}: step-1 gradient of {k} is not finite")
-            if e <= grad_rel_max:
-                continue
-            # as for the backward kernels: the same step in float64 is the
-            # truth, and the kernels' step may be no further from it than
-            # WITNESS_GRAD_FACTOR times the float32 plain versions' step
-            if truth is None:
-                with plain_versions():
-                    truth = train_run(dev, impl, state_dict, x.double(), y,
-                                      1, **run)[3]
-            w = dict(vs_plain=e,
-                     kernel_vs_f64=rel_err(grads[k].double(), truth[k]),
-                     plain_vs_f64=rel_err(plain_grads[k].double(), truth[k]))
-            row["vs_plain_versions"].setdefault("f64_witness", {})[k] = w
-            check(w["kernel_vs_f64"]
-                  <= WITNESS_GRAD_FACTOR * w["plain_vs_f64"],
-                  f"{what}: step-1 gradient of {k} {w}")
+        row["vs_plain_versions"] = step1_vs_plain_versions(
+            what, dev, impl, state_dict, x, y, losses[0], grads, run,
+            grad_rel_max)
     if impl != "scan" and scan_row is not None:
         scan_loss = scan_row["losses"][0]
         row["vs_scan_step1_loss_rel_diff"] = \
@@ -1542,9 +1600,6 @@ EXP_SPLITS = {"train": 1280, "valid": 256, "test": 256}
 EXP_EVENTS = (800, 3000)  # events an utterance, tools/gen_synthetic_ssc.py
 EXP_NOISE = 0.5  # share of events on random units, the same tool's default
 EXP_EPOCHS = 2
-PER_TRAIN_STEP = {"fused_cell_fwd_train": 2, "fused_cell_bwd": 2,
-                  "readout_fwd": 1, "readout_bwd": 1}
-PER_EVAL_BATCH = {"fused_cell_fwd": 2, "readout_fwd": 1}
 
 
 def ssc_events(n, seed):
@@ -1603,37 +1658,94 @@ def memory_experiment_class(data):
     return MemoryExperiment
 
 
-def experiment_run(cls, argv, dev):
-    """One ``run_exp_torch`` run of ``argv`` through ``cls``; the launch
-    counters set to 0 just before ``forward()`` and read just after."""
-    import run_exp_torch
-    from sparch_tpu_torch.ops import fused_cells
+@contextlib.contextmanager
+def patched(module, name, value):
+    """``module.name`` set to ``value`` inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
 
-    exp = cls(run_exp_torch.parse_args(argv), device=dev)
-    fused_cells.reset_launch_counts()
-    exp.forward()
-    torch.cuda.synchronize()
-    return exp, fused_cells.launch_counts()
+
+def counting(module, name, calls):
+    """``patched`` with a wrapper of ``module.name`` that counts its calls
+    into ``calls[name]``."""
+    fn = getattr(module, name)
+    calls[name] = 0
+
+    def wrapper(*args, **kw):
+        calls[name] += 1
+        return fn(*args, **kw)
+
+    return patched(module, name, wrapper)
+
+
+def experiment_run(argv, dev, cls=None):
+    """One run of ``argv``: ``run_exp_torch.main``, or ``forward()`` of
+    ``cls`` (an ``Experiment`` subclass) built from it. The launch counters
+    are set to 0 just before and read just after (building the experiment
+    launches no kernel); the calls of ``cells.readout_sum`` (the plain
+    readout chain) and of the native Freeverb are counted. Returns
+    (experiment, launch counts, calls)."""
+    import run_exp_torch
+    from sparch_tpu_torch.data import native
+    from sparch_tpu_torch.ops import cells, fused_cells
+
+    calls = {}
+    with counting(cells, "readout_sum", calls), \
+            counting(native, "freeverb_channel", calls):
+        fused_cells.reset_launch_counts()
+        if cls is None:
+            exp = run_exp_torch.main(argv, device=dev)
+        else:
+            exp = cls(run_exp_torch.parse_args(argv), device=dev)
+            exp.forward()
+        torch.cuda.synchronize()
+        counts = fused_cells.launch_counts()
+    return exp, counts, calls
+
+
+def per_batch(exp):
+    """Kernel launches of an ``auto`` RadLIF run's training step and of its
+    eval batch: a step launches the training cell and its backward once a
+    hidden layer (a bidirectional layer's two directions in one launch)
+    and the readout pair once; an eval batch the serving cell once a
+    hidden layer and the readout once."""
+    hidden = exp.nb_layers - 1
+    return ({"fused_cell_fwd_train": hidden, "fused_cell_bwd": hidden,
+             "readout_fwd": 1, "readout_bwd": 1},
+            {"fused_cell_fwd": hidden, "readout_fwd": 1})
 
 
 def expected_launches(exp):
-    """Kernel launches of a run: PER_TRAIN_STEP a step, PER_EVAL_BATCH an
-    eval batch."""
+    """Kernel launches of a run: ``per_batch`` a step and an eval batch
+    (HD and SHD test on their valid split)."""
+    step, batch = per_batch(exp)
+    test = getattr(exp, "test_loader", exp.valid_loader)
     steps = sum(len(exp.train_loader) for h in exp.history
                 if h["split"] == "train")
-    evals = sum(len(exp.test_loader if h["split"] == "test"
-                    else exp.valid_loader)
+    evals = sum(len(test if h["split"] == "test" else exp.valid_loader)
                 for h in exp.history if h["split"] != "train")
     return steps, evals, {
-        k: steps * PER_TRAIN_STEP.get(k, 0) + evals * PER_EVAL_BATCH.get(k, 0)
-        for k in PER_TRAIN_STEP.keys() | PER_EVAL_BATCH.keys()}
+        k: steps * step.get(k, 0) + evals * batch.get(k, 0)
+        for k in step.keys() | batch.keys()}
 
 
-def check_launches(what, exp, counts):
+def check_launches(what, exp, counts, calls):
+    """A run's kernels by name, ``cells.readout_sum`` never called, the
+    parameters on the card and the losses finite; returns the launches."""
     steps, evals, want = expected_launches(exp)
     want = {k: want.get(k, 0) for k in counts}
-    check(counts == want, f"experiment {what}: launches {counts} != {want} "
+    check(counts == want, f"{what}: launches {counts} != {want} "
           f"({steps} steps, {evals} eval batches)")
+    check(calls["readout_sum"] == 0,
+          f"{what}: readout_sum ran {calls['readout_sum']} times")
+    check(all(p.is_cuda for p in exp.net.parameters()),
+          f"{what}: parameters not on the card")
+    losses = [h["loss"] for h in exp.history]
+    check(bool(np.isfinite(losses).all()), f"{what}: losses {losses}")
     return {k: n for k, n in counts.items() if n}
 
 
@@ -1689,7 +1801,7 @@ def one_step_launches(exp):
     exp._train_step(exp.state, x, y)
     torch.cuda.synchronize()
     counts = fused_cells.launch_counts()
-    want = {k: PER_TRAIN_STEP.get(k, 0) for k in counts}
+    want = {k: per_batch(exp)[0].get(k, 0) for k in counts}
     check(counts == want, f"experiment: a step launched {counts}")
     return {k: n for k, n in counts.items() if n}
 
@@ -1710,7 +1822,10 @@ def loader_free_epoch(exp):
     return n / (time.perf_counter() - t0)
 
 
-def epochs_of(exp, resident_ups):
+def epochs_of(exp, resident_ups=None):
+    """The run's training epochs: loader-fed utterances/s beside the
+    device-resident step's (``resident_ups``), the loader wait, the
+    losses."""
     return [dict(epoch=h["epoch"], seconds=h["seconds"],
                  utterances=h["utterances"],
                  utterances_per_s=h["utterances"] / h["seconds"],
@@ -1740,17 +1855,13 @@ def phase_experiment(dev, resident):
             "--log_tofile", "true"]
     try:
         runs = {}
-        exp, counts = experiment_run(
-            cls, argv + ["--nb_epochs", str(EXP_EPOCHS)], dev)
-        check(all(p.is_cuda for p in exp.net.parameters()),
-              "experiment: parameters not on the card")
+        exp, counts, calls = experiment_run(
+            argv + ["--nb_epochs", str(EXP_EPOCHS)], dev, cls)
         check(exp.host_fetches == {"train": EXP_EPOCHS, "valid": EXP_EPOCHS,
                                    "test": 1},
               f"experiment: host fetches {dict(exp.host_fetches)}")
-        losses = [h["loss"] for h in exp.history]
-        check(bool(np.isfinite(losses).all()), f"experiment: {losses}")
         runs["fresh"] = dict(
-            launches=check_launches("fresh", exp, counts),
+            launches=check_launches("experiment fresh", exp, counts, calls),
             epochs=epochs_of(exp, resident["utterances_per_s"]),
             valid_acc=[h["acc"] for h in exp.history
                        if h["split"] == "valid"],
@@ -1761,12 +1872,13 @@ def phase_experiment(dev, resident):
         resumed_step = resume_is_bit_for_bit(exp, dev, str(Path(root) /
                                                            "resume"))
 
-        exp, counts = experiment_run(
-            cls, argv + ["--nb_epochs", "1", "--auto_resume", "true"], dev)
+        exp, counts, calls = experiment_run(
+            argv + ["--nb_epochs", "1", "--auto_resume", "true"], dev, cls)
         train = [h for h in exp.history if h["split"] == "train"]
         check(len(train) == 1, "experiment: the resumed run's epochs")
         runs["auto_resume"] = dict(
-            launches=check_launches("auto_resume", exp, counts),
+            launches=check_launches("experiment auto_resume", exp, counts,
+                                    calls),
             epochs=epochs_of(exp, resident["utterances_per_s"]),
             valid_acc=[h["acc"] for h in exp.history
                        if h["split"] == "valid"],
@@ -1777,12 +1889,13 @@ def phase_experiment(dev, resident):
             _, rates = exp.net(x.to(dev), exp._eval_generator)
         firing = [float(r.mean()) for r in rates.split(H)]
 
-        exp, counts = experiment_run(
-            cls, argv + ["--use_pretrained_model", "true",
-                         "--only_do_testing", "true",
-                         "--load_exp_folder", folder], dev)
+        exp, counts, calls = experiment_run(
+            argv + ["--use_pretrained_model", "true",
+                    "--only_do_testing", "true",
+                    "--load_exp_folder", folder], dev, cls)
         runs["only_do_testing"] = dict(
-            launches=check_launches("only_do_testing", exp, counts),
+            launches=check_launches("experiment only_do_testing", exp,
+                                    counts, calls),
             test_acc=exp.test_acc)
 
         labels = data["test"][2]
@@ -1817,6 +1930,449 @@ def phase_experiment(dev, resident):
              train_step_ms=resident["train_step_ms"],
              utterances_per_s=resident["utterances_per_s"]))
     return runs["fresh"]["launches"]
+
+
+# ---------------------------------------------------------------------------
+# The HD/SC audio path: WAV trees, augmentation, the fbank, the frontend
+# ---------------------------------------------------------------------------
+
+SR = 16000
+AUDIO_TRAIN, AUDIO_EVAL = 16, 8  # utterances a label: train, eval candidates
+AUDIO_SPLIT = 128  # utterances in SC's valid and in its test list
+AUDIO_EPOCHS = 2
+HD_CLASSES, HD_TRAIN, HD_TEST = 20, 8, 2  # utterances a class
+HD_HIDDEN = 512
+HD_SECONDS = (0.6, 1.6)  # train; the test utterances stay under 1 s
+FBANK_ATOL = 2e-3  # fbank_torch vs fbank_np (the JAX twins' bound)
+SC_ARGV = ["--model_type", "RadLIF", "--nb_layers", "4", "--nb_hiddens",
+           "1024", "--bidirectional", "true", "--dataset_name", "sc",
+           "--use_augm", "true", "--pdrop", "0.1", "--batch_size", str(B),
+           "--log_tofile", "true"]  # README.md's SC flagship
+
+
+def write_wav(path, x):
+    """Float [-1, 1] mono audio as 16-bit PCM at 16 kHz (stdlib wave)."""
+    import wave
+
+    pcm = np.clip(x * 32767.0, -32768, 32767).astype("<i2")
+    with wave.open(str(path), "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(SR)
+        f.writeframes(pcm.tobytes())
+
+
+def utterance(rng, label, seconds):
+    """A synthetic utterance of class ``label``: two harmonics of the
+    class's pitch under a random envelope, over noise."""
+    n = int(seconds * SR)
+    t = np.arange(n) / SR
+    f0 = 150.0 * 2.0 ** (label / 8.0) * rng.uniform(0.97, 1.03)
+    env = np.exp(-((t - rng.uniform(0.3, 0.7) * seconds) /
+                   (0.25 * seconds)) ** 2)
+    x = rng.uniform(0.2, 0.5) * env * (np.sin(2 * np.pi * f0 * t) +
+                                      0.5 * np.sin(4 * np.pi * f0 * t))
+    return (x + rng.normal(0.0, 0.01, n)).astype(np.float32)
+
+
+def write_sc_tree(root, seed):
+    """Speech Commands' layout: 35 label folders of one-second utterances,
+    ``validation_list.txt`` and ``testing_list.txt`` (AUDIO_SPLIT each,
+    taken round the labels), the rest for training, and a
+    ``_background_noise_`` folder the dataset must leave out."""
+    rng = np.random.default_rng(seed)
+    labels = [f"word{c:02d}" for c in range(C)]
+    names = {}
+    for c, label in enumerate(labels):
+        (root / label).mkdir(parents=True)
+        for k in range(AUDIO_TRAIN + AUDIO_EVAL):
+            name = f"{label}/utt{k:02d}.wav"
+            write_wav(root / name, utterance(rng, c, 1.0))
+            names[(k, c)] = name
+    # the eval candidates k-major, so that each list goes round the labels
+    evals = [names[(k, c)] for k in range(AUDIO_TRAIN, AUDIO_TRAIN +
+                                          AUDIO_EVAL) for c in range(C)]
+    for split, part in (("testing", evals[:AUDIO_SPLIT]),
+                        ("validation", evals[AUDIO_SPLIT:2 * AUDIO_SPLIT])):
+        (root / f"{split}_list.txt").write_text("\n".join(part) + "\n")
+    (root / "_background_noise_").mkdir()
+    write_wav(root / "_background_noise_" / "noise.wav",
+              rng.normal(0.0, 0.1, SR).astype(np.float32))
+    return len(names) - 2 * AUDIO_SPLIT
+
+
+def write_hd_tree(root, seed):
+    """Heidelberg Digits' layout: ``audio/`` and the two filename lists;
+    the label rule is the filename's (digit at index -6, 'g' at index 5
+    for German, which adds 10). Training utterances last HD_SECONDS, so
+    that their frame counts fall in two pad_multiple buckets; the test
+    ones stay under a second (one bucket)."""
+    rng = np.random.default_rng(seed)
+    (root / "audio").mkdir(parents=True)
+    lists = {"train": [], "test": []}
+    for c in range(HD_CLASSES):
+        lang, digit = ("g" if c >= 10 else "e"), c % 10
+        for k in range(HD_TRAIN + HD_TEST):
+            split = "train" if k < HD_TRAIN else "test"
+            name = f"s{k:03d}_{lang}_{digit}0.wav"
+            seconds = (rng.uniform(*HD_SECONDS) if split == "train"
+                       else rng.uniform(HD_SECONDS[0], 0.95))
+            write_wav(root / "audio" / name, utterance(rng, c, seconds))
+            lists[split].append(name)
+    for split, part in lists.items():
+        (root / f"{split}_filenames.txt").write_text("\n".join(part) + "\n")
+
+
+def fbank_check(dev, folder):
+    """``fbank_torch`` on the card against ``fbank_np`` on the host, on a
+    ragged batch (0.3-1.0 s, padded to 100-frame buckets): every true frame
+    within FBANK_ATOL, the padded ones the waveform tail's. Then the
+    fbank's device time for one training batch (B one-second utterances)."""
+    from sparch_tpu_torch.data.audio import pad_waveform_batch, read_wav
+    from sparch_tpu_torch.ops.fbank import fbank_np, fbank_torch, num_frames
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    files = sorted(folder.glob("word*/utt00.wav"))[:16]
+    rng = np.random.default_rng(5)
+    waves = [read_wav(str(f))[:int(rng.uniform(0.3, 1.0) * SR)]
+             for f in files]
+    wav, xlens = pad_waveform_batch(waves, 100)
+    got = fbank_torch(torch.from_numpy(wav).to(dev))
+    check(got.is_cuda and got.shape == (len(waves), 100, 40),
+          f"fbank_torch: {got.device} {tuple(got.shape)}")
+    got = got.cpu().numpy()
+    err = max(float(np.abs(g[:n] - fbank_np(w)).max())
+              for g, n, w in zip(got, xlens, waves))
+    check(err <= FBANK_ATOL, f"fbank_torch vs fbank_np: {err}")
+    full, _ = pad_waveform_batch([read_wav(str(f)) for f in files] * 8, 100)
+    full = torch.from_numpy(full).to(dev)
+    ms = cuda_time_ms(fbank_torch, full, warmup=3, iters=20, repeats=5)
+    return dict(max_abs_err=err, atol=FBANK_ATOL,
+                frames=[int(n) for n in xlens], batch_ms=ms,
+                batch_shape=list(full.shape), batch_frames=num_frames(
+                    full.shape[1]))
+
+
+def freeverb_check():
+    """The native Freeverb, built by the card machine's g++ into
+    build/native/, against the SciPy formulation on 0.125 s."""
+    from sparch_tpu_torch.data import augment, native
+
+    check(native.freeverb_available(), "native freeverb did not build")
+    x = np.random.default_rng(5).normal(size=2000)
+    combs, aps = augment._filter_delays(SR, 0.7, 1.0)
+    got = native.freeverb_channel(x, np.asarray(combs), np.asarray(aps),
+                                  0.93, 0.41)
+    with patched(native, "freeverb_channel", lambda *a: None):
+        want = augment._freeverb_channel(x, SR, 0.7, 1.0, 0.93, 0.41)
+    err = float(np.abs(got - want).max())
+    check(err <= 1e-9, f"native freeverb vs scipy: {err}")
+    return dict(library=native._FV_LIB, vs_scipy_max_abs_err=err)
+
+
+def served_equals_test_path(exp, folder, dev):
+    """``Predictor.from_experiment`` on the test split's waveforms, whole
+    and ragged, against the test loader's batches through the restored
+    model, its state draws seeded as the Predictor seeds them: bit for
+    bit, batch for batch."""
+    from sparch_tpu_torch.serve import Predictor
+
+    ds = exp.test_loader.dataset
+    waves = [ds[i][0] for i in range(len(ds))]
+    labels = np.asarray([ds[i][1] for i in range(len(ds))])
+    pred = Predictor.from_experiment(folder, batch_size=B, device=dev)
+    check(pred.pad_multiple == exp.pad_multiple and pred._waveform,
+          "from_experiment: not a waveform predictor")
+    got_labels, got = pred(waves)
+    want = []
+    gen = torch.Generator(device=dev)
+    exp.net.eval()
+    with torch.no_grad():
+        for x, _, _ in exp.test_loader:
+            x, _ = exp._put_batch(x, torch.zeros(1))
+            gen.manual_seed(0)
+            out, _ = exp.net(x, gen)
+            want.append((out / out.sum(dim=-1, keepdim=True)).cpu().numpy())
+    want = np.concatenate(want)
+    check(np.array_equal(got, want),
+          f"from_experiment vs the test path: {np.abs(got - want).max()}")
+    check(got.shape == (len(ds), C) and bool(np.isfinite(got).all()),
+          "served probabilities")
+    return dict(utterances=len(ds), bit_equal=True,
+                batches=len(exp.test_loader),
+                test_acc=float((got_labels == labels).mean()))
+
+
+def eval_vs_plain_versions(what, model, x, dev):
+    """One eval forward of ``model`` on the batch ``x``, with its kernels
+    and again inside ``plain_versions()``, the state draws seeded alike;
+    the launch counters set to 0 just before each and read just after.
+    Every hidden layer's spikes bit for bit (V on the 2^-8 grid), the
+    probabilities within 1e-5 (the readout kernel's rtol against its plain
+    version, phase 2)."""
+    from sparch_tpu_torch.ops import fused_cells
+
+    layers = getattr(model, "inner", model).hidden_layers()
+    gen = torch.Generator(device=dev)
+    model.eval()
+
+    def forward():
+        spikes = []
+        hooks = [layer.register_forward_hook(
+            lambda mod, args, res: spikes.append(res)) for layer in layers]
+        gen.manual_seed(0)
+        fused_cells.reset_launch_counts()
+        try:
+            with torch.no_grad():
+                out, _ = model(x, gen)
+        finally:
+            for h in hooks:
+                h.remove()
+        torch.cuda.synchronize()
+        counts = fused_cells.launch_counts()
+        return out / out.sum(dim=-1, keepdim=True), spikes, counts
+
+    probs, spikes, counts = forward()
+    with plain_versions():
+        plain, plain_spikes, plain_counts = forward()
+    want = {k: 0 for k in counts}
+    want.update(fused_cell_fwd=len(layers), readout_fwd=1)
+    check(counts == want and not any(plain_counts.values()),
+          f"{what}: launches {counts}, plain {plain_counts}")
+    differ = sum(int((a != b).sum()) for a, b in zip(spikes, plain_spikes))
+    check(differ == 0, f"{what}: {differ} spikes differ from the plain "
+          "versions")
+    err = float((probs - plain).abs().max())
+    check(err <= 1e-5, f"{what}: probabilities vs the plain versions {err}")
+    return dict(shape=[int(n) for n in spikes[0].shape],
+                spikes_bit_equal=True, max_abs_prob_diff=err,
+                launches={k: n for k, n in counts.items() if n},
+                firing_rate_by_layer=[float(s.float().mean())
+                                      for s in spikes])
+
+
+def on_grid(model):
+    """The trained model's V put back on the 2^-8 grid (in place)."""
+    with torch.no_grad():
+        for layer in getattr(model, "inner", model).hidden_layers():
+            layer.V.copy_(dyadic(layer.V))
+
+
+def hd_vs_plain_versions(exp, dev):
+    """The HD run's kernels at T = 200 against their plain versions, on
+    its trained weights with V on the 2^-8 grid and its largest T = 200
+    training batch: an eval forward (``eval_vs_plain_versions``) and
+    a training step of the same configuration (``train_run``, counters set
+    to 0 just before and read just after; ``step1_vs_plain_versions``)."""
+    x, _, y = max(exp.train_loader, key=lambda b: (b[0].shape[1],
+                                                   b[0].shape[0]))
+    check(x.shape[1] == 200, f"hd: no T = 200 batch ({tuple(x.shape)})")
+    x, y = exp._put_batch(x, y)
+    on_grid(exp.net)
+    row = dict(eval=eval_vs_plain_versions("hd eval T=200", exp.net, x, dev))
+    sd = {k: v.detach().clone() for k, v in exp.net.state_dict().items()}
+    run = dict(model_type="RadLIF", sizes=(HD_HIDDEN, HD_HIDDEN, HD_CLASSES))
+    _, _, losses, grads, counts = train_run(dev, "auto", sd, x, y, 1, **run)
+    want = {k: per_batch(exp)[0].get(k, 0) for k in counts}
+    check(counts == want, f"hd step T=200: launches {counts} != {want}")
+    row["train_step"] = dict(
+        shape=list(x.shape), loss=losses[0],
+        launches={k: n for k, n in counts.items() if n},
+        vs_plain_versions=step1_vs_plain_versions(
+            "hd step T=200", dev, "auto", sd, x, y, losses[0], grads, run))
+    return row
+
+
+def phase_audio(dev, smi):
+    """The HD/SC audio path (see the module docstring, phase 8c)."""
+    import shutil
+    import tempfile
+
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_audio_"))
+    try:
+        t0 = time.perf_counter()
+        n_train = write_sc_tree(root / "sc", seed=11)
+        write_hd_tree(root / "hd", seed=12)
+        trees_s = time.perf_counter() - t0
+        fbank = fbank_check(dev, root / "sc")
+        freeverb = freeverb_check()
+
+        sc = SC_ARGV + ["--data_folder", str(root / "sc")]
+        folder = str(root / "sc_device")
+        exp, counts, calls = experiment_run(
+            sc + ["--frontend", "device", "--nb_epochs", str(AUDIO_EPOCHS),
+                  "--new_exp_folder", folder], dev)
+        check(len(exp.train_loader.dataset) == n_train and
+              len(exp.test_loader.dataset) == AUDIO_SPLIT,
+              "sc: the splits' sizes")
+        check(exp.host_fetches == {"train": AUDIO_EPOCHS,
+                                   "valid": AUDIO_EPOCHS, "test": 1},
+              f"sc: host fetches {dict(exp.host_fetches)}")
+        check(calls["freeverb_channel"] > 0, "sc: the reverb never ran")
+        launches = check_launches("sc device", exp, counts, calls)
+        served = served_equals_test_path(exp, folder, dev)
+        test_x, _, _ = next(iter(exp.test_loader))
+        test_x, _ = exp._put_batch(test_x, torch.zeros(1))
+        with torch.no_grad():
+            _, rates = exp.net(test_x, exp._eval_generator)
+        firing = [float(r.mean()) for r in rates.split(2 * 1024)]
+        x, _, y = next(iter(exp.train_loader))
+        x, y = exp._put_batch(x, y)
+        step_ms = cuda_time_ms(exp._train_step, exp.state, x, y, warmup=2,
+                               iters=10, repeats=3)
+        device_run = dict(
+            epochs=epochs_of(exp, B / step_ms * 1e3), launches=launches,
+            freeverb_calls=calls["freeverb_channel"],
+            valid_acc=[h["acc"] for h in exp.history
+                       if h["split"] == "valid"],
+            test_acc=exp.test_acc, resident_step_ms=step_ms,
+            resident_utterances_per_s=B / step_ms * 1e3)
+        on_grid(exp.net)
+        served_vs_plain = eval_vs_plain_versions(
+            "sc eval", exp.net, test_x, dev)
+        del exp
+        torch.cuda.empty_cache()
+
+        exp, counts, calls = experiment_run(
+            sc + ["--frontend", "host", "--nb_epochs", "1",
+                  "--new_exp_folder", str(root / "sc_host")], dev)
+        host_run = dict(
+            launches=check_launches("sc host", exp, counts, calls),
+            epochs=epochs_of(exp))
+        del exp
+        torch.cuda.empty_cache()
+
+        exp, counts, calls = experiment_run(
+            ["--model_type", "RadLIF", "--nb_layers", "3", "--nb_hiddens",
+             str(HD_HIDDEN), "--dataset_name", "hd", "--data_folder",
+             str(root / "hd"), "--frontend", "host", "--batch_size", str(B),
+             "--nb_epochs", "1", "--log_tofile", "true",
+             "--new_exp_folder", str(root / "hd_exp")], dev)
+        check(exp.nb_outputs == HD_CLASSES, "hd: classes")
+        frames = sorted({int(x.shape[1]) for loader in
+                         (exp.train_loader, exp.valid_loader)
+                         for x, _, _ in loader})
+        check(len(frames) >= 2 and all(t % 100 == 0 for t in frames),
+              f"hd: batch frame counts {frames}")
+        hd_run = dict(
+            model=f"RadLIF [{HD_HIDDEN}, {HD_HIDDEN}, {HD_CLASSES}]",
+            launches=check_launches("hd", exp, counts, calls),
+            epochs=epochs_of(exp), batch_frames=frames,
+            test_acc=exp.test_acc, vs_plain_versions=hd_vs_plain_versions(
+                exp, dev))
+        del exp
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("audio", card=smi,
+         model="RadLIF [1024, 1024, 1024, 35] bidirectional",
+         argv=" ".join(SC_ARGV), batch_size=B, F=40, pad_multiple=100,
+         dataset="sc-shaped synthetic WAVs (35 labels, 1 s, 16 kHz)",
+         utterances=dict(train=n_train, valid=AUDIO_SPLIT,
+                         test=AUDIO_SPLIT), write_trees_s=trees_s,
+         entry="run_exp_torch.main", device=str(dev), fbank=fbank,
+         freeverb=freeverb, sc_device=device_run, served=served,
+         served_vs_plain_versions=served_vs_plain,
+         firing_rate_by_layer=firing, sc_host=host_run, hd=hd_run)
+    return launches
+
+
+def dyadic(t, step=2.0 ** -8):
+    return torch.round(t / step) * step
+
+
+def streaming_model(kind, dev):
+    """A ``scan`` [512, 512, 35] model, zero state init, on the card: for
+    RadLIF every weight on a 2^-8 grid and the norm gains 4 (so the batch
+    and the per-frame projections and affines are exact), for the GRU as
+    built; running statistics from one train-mode pass."""
+    from sparch_tpu_torch.models import build_model
+
+    model = build_model(kind, (B, T, F_ANN), [H, H, C], state_init="zeros",
+                        cell_impl="scan", dropout=0.0,
+                        generator=torch.Generator().manual_seed(3)).to(dev)
+    x = torch.randn(B, T, F_ANN, generator=torch.Generator().manual_seed(4))
+    if kind == "RadLIF":
+        x = torch.round(x.abs().clamp(max=1.0) * 4.0) / 4.0
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith(("W.weight", ".V")):
+                    p.copy_(dyadic(p))
+                elif name.endswith("norm.weight"):
+                    p.fill_(4.0)
+                elif name.endswith("norm.bias"):
+                    p.copy_(dyadic(p + 0.5, 2.0 ** -4))
+    x = x.to(dev)
+    model.train()
+    with torch.no_grad():
+        model(x)
+    return model.eval(), x
+
+
+def phase_streaming(dev, smi):
+    """``serve/streaming.py`` on the card (see the module docstring, phase
+    8d)."""
+    from sparch_tpu_torch.models.frontend import FbankFrontend
+    from sparch_tpu_torch.ops.fbank import fbank_torch
+    from sparch_tpu_torch.serve import streaming_init, streaming_step
+
+    out = {}
+    for kind in ("RadLIF", "GRU"):
+        model, x = streaming_model(kind, dev)
+        sd = model.state_dict()
+        spikes = []
+        hooks = [layer.register_forward_hook(
+            lambda mod, args, res: spikes.append(res))
+            for layer in model.hidden_layers()]
+        with torch.no_grad():
+            want, _ = model(x)
+        for h in hooks:
+            h.remove()
+        state = streaming_init(model, sd, B)
+        flips = 0
+        for t in range(T):
+            state, got = streaming_step(model, sd, state, x[:, t])
+            if kind == "RadLIF":
+                flips += sum(int((st["s"] != s[:, t]).sum()) for st, s in
+                             zip(state["layers"], spikes))
+        rel = float((got - want).abs().max() / want.abs().max())
+        if kind == "RadLIF":
+            check(flips == 0, f"streaming RadLIF: {flips} spikes differ")
+            check(rel <= 1e-5, f"streaming RadLIF readout: {rel}")
+            rate = [float(s.float().mean()) for s in spikes]
+            out[kind] = dict(spikes_bit_equal=True, readout_rel_err=rel,
+                             firing_rate_by_layer=rate)
+        else:
+            check(rel <= 1e-5, f"streaming GRU: {rel}")
+            out[kind] = dict(output_rel_err=rel)
+    # the waveform form: the GRU in the frontend, a 400-sample window a
+    # step, advanced by 160
+    model, _ = streaming_model("GRU", dev)
+    wrapped = FbankFrontend(model).eval()
+    n = 400 + (T - 1) * 160
+    wav = 0.3 * torch.randn(B, n, generator=torch.Generator().manual_seed(6))
+    wav = wav.to(dev)
+    with torch.no_grad():
+        want, _ = wrapped(wav)
+        feats = fbank_torch(wav)
+    sd = wrapped.state_dict()
+    state = streaming_init(wrapped, sd, B)
+    feat_err = 0.0
+    for t in range(T):
+        window = wav[:, t * 160:t * 160 + 400]
+        feat_err = max(feat_err, float(
+            (fbank_torch(window)[:, 0] - feats[:, t]).abs().max()))
+        state, got = streaming_step(wrapped, sd, state, window)
+    rel = float((got - want).abs().max() / want.abs().max())
+    check(rel <= 1e-5, f"waveform streaming GRU: {rel}")
+    check(feat_err <= FBANK_ATOL, f"window fbank vs batch: {feat_err}")
+    out["GRU_waveform"] = dict(output_rel_err=rel,
+                               window_vs_batch_fbank_max_abs=feat_err)
+    emit("streaming", card=smi, shape=[B, T, F_ANN], sizes=[H, H, C],
+         frames=T,
+         device=str(dev), **out)
 
 
 # ---------------------------------------------------------------------------
@@ -3748,6 +4304,8 @@ def main() -> int:
     launches = run("serving", phase_serving, dev)
     trained, trained_auto = run("training", phase_training, dev)
     experiment = run("experiment", phase_experiment, dev, trained_auto)
+    audio = run("audio", phase_audio, dev, smi)
+    run("streaming", phase_streaming, dev, smi)
     ann_fwd = run("ann_forward", phase_ann_forward, dev)
     ann_bwd = run("ann_backward", phase_ann_backward, dev)
     ann_served = run("serving_ann", phase_serving_ann, dev)
@@ -3787,12 +4345,14 @@ def main() -> int:
         dict(name="fused_cell_fwd", route="cuda",
              source=src + "fused_cell_fwd.cu", replaces=tpu + "305",
              launches=launches["fused_cell_fwd"],
-             launches_experiment=experiment.get("fused_cell_fwd", 0), **cell,
+             launches_experiment=experiment.get("fused_cell_fwd", 0),
+             launches_audio=audio.get("fused_cell_fwd", 0), **cell,
              **cb["fwd"], library_ms=None),
         dict(name="fused_cell_fwd_train", route="cuda",
              source=src + "fused_cell_fwd.cu", replaces=tpu + "305",
              launches=trained["fused_cell_fwd_train"],
              launches_experiment=experiment.get("fused_cell_fwd_train", 0),
+             launches_audio=audio.get("fused_cell_fwd_train", 0),
              **dict(fwd_train, at_256x1024=dict(
                  fwd_train["at_256x1024"],
                  launches=tp_trained["auto"]["fused_cell_fwd_train"])),
@@ -3802,24 +4362,28 @@ def main() -> int:
              launches=trained["fused_cell_fwd_train"]
              + trained["fused_cell_bwd"],
              launches_experiment=experiment.get("fused_cell_fwd_train", 0)
-             + experiment.get("fused_cell_bwd", 0), **hashed, **cb["hash"],
+             + experiment.get("fused_cell_bwd", 0),
+             launches_audio=audio.get("fused_cell_fwd_train", 0)
+             + audio.get("fused_cell_bwd", 0), **hashed, **cb["hash"],
              library_ms=None),
         dict(name="fused_cell_bwd", route="cuda",
              source=src + "fused_cell_bwd.cu", replaces=tpu + "631",
              launches=trained["fused_cell_bwd"],
-             launches_experiment=experiment.get("fused_cell_bwd", 0), **bwd,
+             launches_experiment=experiment.get("fused_cell_bwd", 0),
+             launches_audio=audio.get("fused_cell_bwd", 0), **bwd,
              **cb["bwd"], library_ms=None),
         dict(name="readout_fwd", route="cuda",
              source=src + "readout_fwd.cu", replaces=tpu + "1235",
              launches=launches["readout_fwd"],
              launches_training=trained["readout_fwd"],
-             launches_experiment=experiment.get("readout_fwd", 0), **readout,
+             launches_experiment=experiment.get("readout_fwd", 0),
+             launches_audio=audio.get("readout_fwd", 0), **readout,
              **bound(readout_bytes, readout_ops), library_ms=None),
         dict(name="readout_bwd", route="cuda",
              source=src + "readout_bwd.cu", replaces=tpu + "1274",
              launches=trained["readout_bwd"],
              launches_experiment=experiment.get("readout_bwd", 0),
-             **readout_bwd,
+             launches_audio=audio.get("readout_bwd", 0), **readout_bwd,
              **bound(2 * readout_bytes, 2 * readout_ops), library_ms=None),
     ] + ann_kernel_rows(ann_fwd, ann_bwd, ann_served, ann_trained,
                         tp_ann_fwd, tp_ann_bwd) \

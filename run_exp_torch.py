@@ -5,11 +5,12 @@ run_exp.py): the same flags, driving ``sparch_tpu_torch.train.loop``'s
 
     python run_exp_torch.py --dataset_name ssc --data_folder DIR ...
 
-Run ``python run_exp_torch.py -h`` for the flags. The flags whose paths the
-port does not have yet raise ``NotImplementedError`` naming their ROADMAP
-item: ``--cell_impl pallas_tp``, ``--mesh_model`` other than 1,
-``--seq_parallel`` other than 1, ``--compile_cache``, ``--profile_dir``,
-``--dataset_name hd|sc`` and ``--frontend device``. From Python,
+Run ``python run_exp_torch.py -h`` for the flags. The four datasets
+(``--dataset_name shd|ssc|hd|sc``) and both audio frontends (``--frontend
+host|device``) run. The flags whose paths the port does not have yet raise
+``NotImplementedError`` naming their ROADMAP item: ``--cell_impl
+pallas_tp``, ``--mesh_model`` other than 1, ``--seq_parallel`` other than
+1, ``--compile_cache`` and ``--profile_dir``. From Python,
 ``main(argv, device="cpu")`` runs on the CPU.
 """
 import argparse
@@ -22,7 +23,7 @@ from sparch_tpu_torch.train.loop import Experiment
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(
         description="Train or evaluate spiking/non-spiking speech-command "
-        "models (SHD/SSC) with the PyTorch/CUDA port."
+        "models (SHD/SSC/HD/SC) with the PyTorch/CUDA port."
     )
     parser = add_model_options(parser)
     parser = add_training_options(parser)

@@ -13,7 +13,10 @@ nested dicts of numpy (or JAX) arrays, onto the port's ``state_dict`` names:
 
 with ``<m>`` one of ``layer_<i>`` and ``readout``, ``<W>`` a projection
 (``W``; an ANN layer's gates also ``Wz``, ``Wr``) and ``<n>`` its norm
-(``norm``; an ANN layer's ``norm_W``, ``norm_Wz``, ``norm_Wr``). Values are
+(``norm``; an ANN layer's ``norm_W``, ``norm_Wz``, ``norm_Wr``). The tree
+of a model wrapped in the audio frontend (``FbankFrontend``) has one level
+more, ``params/inner/<m>/...`` and ``batch_stats/inner/<m>/...``, which
+maps to the prefix ``inner.`` (``inner.<m>.<W>.weight``). Values are
 copied exactly. A leaf that maps to nothing raises here; a port tensor that
 no leaf sets raises in ``model.load_state_dict(..., strict=True)``.
 
@@ -46,8 +49,15 @@ def _leaves(tree, prefix=()):
             yield path, value
 
 
+_INNER = "inner"  # FbankFrontend's wrapped model
+
+
 def _target(path) -> Optional[Tuple[str, bool]]:
     """(state_dict key, transpose?) for one flax leaf path, or None."""
+    if len(path) > 1 and path[1] == _INNER:
+        target = _target(path[:1] + path[2:])
+        return None if target is None else \
+            (f"{_INNER}.{target[0]}", target[1])
     if len(path) < 3:
         return None
     collection, module, rest = path[0], path[1], path[2:]
@@ -99,26 +109,29 @@ def variables_to_flax(state_dict) -> Dict[str, dict]:
 
     for key, tensor in state_dict.items():
         module, *rest = key.split(".")
+        head = ()  # the audio frontend's level, if any
+        if module == _INNER and rest:
+            head = (_INNER,)
+            module, *rest = rest
         arr = tensor.detach().cpu().numpy().copy()
         if len(rest) == 1 and rest[0] in _CELL_PARAMS:
-            put("params", (module, rest[0]), arr)
+            put("params", (*head, module, rest[0]), arr)
             continue
         sub, leaf = rest if len(rest) == 2 else (None, None)
-        norm = ("BatchNorm_0"
-                if f"{module}.{sub}.running_mean" in state_dict
-                else "LayerNorm_0")
+        stats = ".".join((*head, module, str(sub), "running_mean"))
+        norm = "BatchNorm_0" if stats in state_dict else "LayerNorm_0"
         if sub in _DENSES and leaf == "weight":
-            put("params", (module, sub, "kernel"),
+            put("params", (*head, module, sub, "kernel"),
                 np.ascontiguousarray(arr.T))
         elif sub in _DENSES and leaf == "bias":
-            put("params", (module, sub, "bias"), arr)
+            put("params", (*head, module, sub, "bias"), arr)
         elif sub in _NORM_MODULES and leaf in ("weight", "bias"):
             name = "scale" if leaf == "weight" else "bias"
-            put("params", (module, sub, norm, name), arr)
+            put("params", (*head, module, sub, norm, name), arr)
         elif sub in _NORM_MODULES and leaf in ("running_mean",
                                                "running_var"):
             put("batch_stats",
-                (module, sub, norm, leaf[len("running_"):]), arr)
+                (*head, module, sub, norm, leaf[len("running_"):]), arr)
         else:
             raise KeyError(f"no flax leaf for port tensor {key}")
     return variables

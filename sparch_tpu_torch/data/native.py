@@ -1,13 +1,17 @@
-"""Event binning on the host: the shared C++ kernel ``native/binning.cpp``
-through ctypes, or its NumPy version (counterpart of the binning half of
-sparch_tpu/data/native.py).
+"""The host's native hot loops through ctypes (counterpart of
+sparch_tpu/data/native.py): the event binning of the spiking datasets
+(``native/binning.cpp``) and one Freeverb channel of the audio
+augmentation's reverb (``native/freeverb.cpp``), both shared with the JAX
+package.
 
-The library is built with the system ``g++`` at first use into
+Each library is built with the system ``g++`` at first use into
 ``build/native/`` (written under a temporary name and moved into place, so
 that concurrent processes never load a half-written file) and rebuilt when
-the source is newer. Without a toolchain ``bin_events`` runs the NumPy
-version, which gives the same rasters; the module logs which of the two it
-took (``native_available`` says it too).
+its source is newer; the JAX package's builds in ``native/`` are never
+loaded. Without a toolchain ``bin_events`` runs its NumPy version, which
+gives the same rasters, and ``freeverb_channel`` returns None, on which
+``data.augment`` runs its SciPy formulation; the module logs which branch
+each took (``native_available`` and ``freeverb_available`` say it too).
 """
 from __future__ import annotations
 
@@ -22,28 +26,45 @@ import numpy as np
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["bin_events", "native_available"]
+__all__ = [
+    "bin_events",
+    "native_available",
+    "freeverb_channel",
+    "freeverb_available",
+]
 
 _REPO_ROOT = os.path.dirname(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _SRC = os.path.join(_REPO_ROOT, "native", "binning.cpp")
 _LIB = os.path.join(_REPO_ROOT, "build", "native", "libsparch_binning.so")
+_FV_SRC = os.path.join(_REPO_ROOT, "native", "freeverb.cpp")
+_FV_LIB = os.path.join(_REPO_ROOT, "build", "native", "libsparch_freeverb.so")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+_fv_lib: Optional[ctypes.CDLL] = None
+_fv_tried = False
 
 
-def _build() -> None:
-    os.makedirs(os.path.dirname(_LIB), exist_ok=True)
-    tmp = f"{_LIB}.{os.getpid()}.{threading.get_ident()}.tmp"
+def _build(src: str, lib: str) -> None:
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
     try:
-        subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-o", tmp, _SRC],
+        subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-o", tmp, src],
                        check=True, capture_output=True)
-        os.replace(tmp, _LIB)
+        os.replace(tmp, lib)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
+
+
+def _open(src: str, lib: str) -> ctypes.CDLL:
+    """The library built from ``src``, (re)built first where it is missing
+    or older than its source."""
+    if not os.path.exists(lib) or os.path.getmtime(src) > os.path.getmtime(lib):
+        _build(src, lib)
+    return ctypes.CDLL(lib)
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -53,11 +74,7 @@ def _load() -> Optional[ctypes.CDLL]:
             return _lib
         _tried = True
         try:
-            if not os.path.exists(_LIB) or (
-                os.path.getmtime(_SRC) > os.path.getmtime(_LIB)
-            ):
-                _build()
-            lib = ctypes.CDLL(_LIB)
+            lib = _open(_SRC, _LIB)
             lib.bin_events.argtypes = [
                 ctypes.POINTER(ctypes.c_double),
                 ctypes.POINTER(ctypes.c_int64),
@@ -79,6 +96,70 @@ def _load() -> Optional[ctypes.CDLL]:
 
 def native_available() -> bool:
     return _load() is not None
+
+
+def _load_freeverb() -> Optional[ctypes.CDLL]:
+    global _fv_lib, _fv_tried
+    with _lock:
+        if _fv_tried:
+            return _fv_lib
+        _fv_tried = True
+        try:
+            lib = _open(_FV_SRC, _FV_LIB)
+            lib.freeverb_channel.argtypes = [
+                ctypes.POINTER(ctypes.c_double),
+                ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_int64),
+                ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_int64),
+                ctypes.c_int64,
+                ctypes.c_double,
+                ctypes.c_double,
+                ctypes.POINTER(ctypes.c_double),
+            ]
+            lib.freeverb_channel.restype = None
+            _fv_lib = lib
+            logger.info(f"freeverb: native library {_FV_LIB}")
+        except Exception as e:  # toolchain-dependent
+            logger.info(f"freeverb: SciPy (native unavailable: {e})")
+            _fv_lib = None
+        return _fv_lib
+
+
+def freeverb_available() -> bool:
+    return _load_freeverb() is not None
+
+
+def freeverb_channel(
+    x: np.ndarray,
+    comb_lens: np.ndarray,
+    ap_lens: np.ndarray,
+    feedback: float,
+    damp: float,
+) -> Optional[np.ndarray]:
+    """One Freeverb channel (float64) through the native library: the combs
+    of ``comb_lens`` in parallel, then the allpasses of ``ap_lens`` in
+    series, in the order given. None when the library is unavailable (the
+    caller then runs the SciPy formulation)."""
+    lib = _load_freeverb()
+    if lib is None:
+        return None
+    x = np.ascontiguousarray(x, np.float64)
+    comb_lens = np.ascontiguousarray(comb_lens, np.int64)
+    ap_lens = np.ascontiguousarray(ap_lens, np.int64)
+    out = np.empty_like(x)
+    lib.freeverb_channel(
+        x.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        ctypes.c_int64(len(x)),
+        comb_lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.c_int64(len(comb_lens)),
+        ap_lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.c_int64(len(ap_lens)),
+        ctypes.c_double(feedback),
+        ctypes.c_double(damp),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+    )
+    return out
 
 
 def _bin_events_np(

@@ -14,6 +14,13 @@ is an affine map.
 For a unidirectional model (an SNN with ``state_init='zeros'``; an ANN
 always starts from zeros), feeding T frames one at a time gives the cumulative readout of one ``(B, T, F)`` forward.
 Bidirectional models need the reversed sequence and cannot stream.
+
+A model wrapped in the audio frontend (``FbankFrontend``, a ``--frontend
+device`` experiment) streams too: each step takes one 400-sample waveform
+window ``(B, 400)``, the windows advancing by the 160-sample hop, and its
+fbank frame (``ops.fbank.fbank_torch``; the fbank is frame-local, so a
+window's features are the batch fbank's frame) goes through the wrapped
+model; its weights are the ``state_dict``'s ``inner.`` entries.
 """
 from __future__ import annotations
 
@@ -22,7 +29,9 @@ from typing import Dict, Tuple
 import torch
 
 from sparch_tpu_torch.models.common import NORM_EPS
+from sparch_tpu_torch.models.frontend import FbankFrontend
 from sparch_tpu_torch.ops import cells
+from sparch_tpu_torch.ops.fbank import FRAME_LENGTH, FRAME_SHIFT, fbank_torch
 from sparch_tpu_torch.ops.surrogate import spike_boxcar
 
 __all__ = ["streaming_init", "streaming_step"]
@@ -40,6 +49,16 @@ def _check_streams(model):
         raise ValueError("Bidirectional models cannot run in streaming mode.")
 
 
+def _unwrap_frontend(model, state_dict):
+    """(wrapped model, its ``state_dict``) for an ``FbankFrontend``; the
+    pair as it is otherwise."""
+    if not isinstance(model, FbankFrontend):
+        return model, state_dict
+    prefix = "inner."
+    return model.inner, {k[len(prefix):]: v for k, v in state_dict.items()
+                         if k.startswith(prefix)}
+
+
 def _zeros(batch_size: int, vec: torch.Tensor):
     """A zero state as wide as ``vec`` is long, on its device."""
     return torch.zeros((batch_size, vec.shape[0]), dtype=torch.float32,
@@ -49,6 +68,7 @@ def _zeros(batch_size: int, vec: torch.Tensor):
 def streaming_init(model, state_dict, batch_size: int) -> Dict:
     """Zero-initialised streaming state for ``batch_size`` parallel
     streams, on the device of the weights."""
+    model, state_dict = _unwrap_frontend(model, state_dict)
     _check_streams(model)
     state: Dict = {"layers": [], "t": 0}
     if not getattr(model, "is_snn", False):
@@ -98,10 +118,21 @@ def _project(sd, prefix, normalization, x_t, dense="W", norm="norm"):
 @torch.no_grad()
 def streaming_step(model, state_dict, state: Dict,
                    x_t: torch.Tensor) -> Tuple[Dict, torch.Tensor]:
-    """Advance all layers by one ``(B, F)`` frame. Returns
+    """Advance all layers by one ``(B, F)`` frame (for an
+    ``FbankFrontend``: one ``(B, 400)`` waveform window). Returns
     ``(new_state, readout)``: the cumulative-softmax class accumulator
     ``(B, classes)`` (for an ANN: the readout's logits of the running
     sum), or the top layer's output without a readout layer."""
+    if isinstance(model, FbankFrontend):
+        if x_t.ndim != 2 or x_t.shape[-1] != FRAME_LENGTH:
+            # a longer chunk would be cut to its first frame below
+            raise ValueError(
+                f"device-frontend streaming takes ONE {FRAME_LENGTH}-"
+                f"sample (B, window) per step, advanced by the "
+                f"{FRAME_SHIFT}-sample hop; got shape {tuple(x_t.shape)}"
+            )
+        x_t = fbank_torch(x_t, model.num_mel_bins)[:, 0, :]
+    model, state_dict = _unwrap_frontend(model, state_dict)
     _check_streams(model)
     sd = state_dict
     if not getattr(model, "is_snn", False):

@@ -3,7 +3,8 @@
 
 The same CLI semantics, experiment-folder conventions, log lines, plateau
 schedule, best-only checkpoints and test-split choice as the JAX loop, on
-one device (the CUDA card unless the caller asks for another):
+the four datasets (SHD/SSC spike rasters, HD/SC audio), on one device (the
+CUDA card unless the caller asks for another):
 
 - the loader's producer thread makes torch tensors of each batch and, for
   the card, pins them, so the host-to-device copy is asynchronous
@@ -11,7 +12,10 @@ one device (the CUDA card unless the caller asks for another):
 - a step's metrics stay on the device until the end of the epoch, which
   fetches them in one copy;
 - checkpoints carry the optimizer, the generator and the scheduler, so a
-  resumed run continues bit for bit.
+  resumed run continues bit for bit;
+- with ``--frontend device`` (HD/SC) the loader ships padded waveforms and
+  their frame counts, and the model, wrapped in ``FbankFrontend``, computes
+  the fbank on the card.
 
 Flags whose paths the port does not have yet raise ``NotImplementedError``
 before anything is written (``refuse_unported``).
@@ -27,8 +31,10 @@ from datetime import timedelta
 import numpy as np
 import torch
 
+from sparch_tpu_torch.data.audio import load_hd_or_sc
 from sparch_tpu_torch.data.spiking import load_shd_or_ssc
 from sparch_tpu_torch.models import SNN_NEURON_TYPES, build_model
+from sparch_tpu_torch.models.frontend import FbankFrontend
 from sparch_tpu_torch.parsers.model_config import print_model_options
 from sparch_tpu_torch.parsers.training_config import print_training_options
 from sparch_tpu_torch.train.checkpoint import (
@@ -68,16 +74,11 @@ def refuse_unported(args) -> None:
         raise NotImplementedError(
             "--profile_dir is not ported (ROADMAP queue 1 item 9, "
             "utils/profiling.py)")
-    if getattr(args, "dataset_name", "shd") in ("hd", "sc") or \
-            getattr(args, "frontend", "host") == "device":
-        raise NotImplementedError(
-            "the hd/sc datasets and --frontend device need the audio "
-            "pipeline (ROADMAP queue 1 item 5, data/audio.py, "
-            "ops/fbank.py)")
 
 
 class Experiment:
-    """Training and testing of SNN/ANN models on SHD and SSC.
+    """Training and testing of SNN/ANN models on the four speech command
+    recognition datasets (shd, ssc, hd, sc).
 
     ``device=None`` is the CUDA card and raises without one;
     ``device="cpu"`` runs on the CPU.
@@ -139,6 +140,19 @@ class Experiment:
         # torch.Generator whatever it says
         self.prng_impl = getattr(args, "prng_impl", "rbg")
         self.frontend = getattr(args, "frontend", "host")
+        if self.frontend == "device" and self.dataset_name not in ("hd", "sc"):
+            logging.warning(
+                "\n--frontend device only applies to hd/sc (waveform "
+                "datasets); using the standard pipeline.\n"
+            )
+            self.frontend = "host"
+        if self.input_dtype == "bfloat16" and self.frontend == "device":
+            # bf16 would round the audio samples themselves
+            logging.warning(
+                "\n--input_dtype bfloat16 is ignored with --frontend "
+                "device (waveform batches stay float32).\n"
+            )
+            self.input_dtype = "float32"
         self.pinned = self.device.type == "cuda"
 
         self.init_exp_folders()
@@ -239,27 +253,38 @@ class Experiment:
             )
 
     def init_dataset(self):
-        """Loaders of the SHD or SSC splits."""
-        if self.dataset_name not in ["shd", "ssc"]:
+        """Loaders of the dataset's splits: SHD/SSC rasters of 700 units,
+        or HD/SC 40-bin fbanks (or their waveforms, ``--frontend
+        device``)."""
+        if self.dataset_name in ["shd", "ssc"]:
+            self.nb_inputs = 700
+            self.nb_outputs = 20 if self.dataset_name == "shd" else 35
+            load = load_shd_or_ssc
+            kw = dict(nb_steps=self.nb_steps)
+        elif self.dataset_name in ["hd", "sc"]:
+            self.nb_inputs = 40
+            self.nb_outputs = 20 if self.dataset_name == "hd" else 35
+            load = load_hd_or_sc
+            kw = dict(use_augm=self.use_augm, pad_multiple=self.pad_multiple,
+                      frontend=self.frontend)
+        else:
             raise ValueError(f"Invalid dataset name {self.dataset_name}")
-        self.nb_inputs = 700
-        self.nb_outputs = 20 if self.dataset_name == "shd" else 35
-        kw = dict(
+        kw.update(
             dataset_name=self.dataset_name,
             data_folder=self.data_folder,
             batch_size=self.batch_size,
-            nb_steps=self.nb_steps,
             seed=self.seed,
             workers=self.workers,
             batch_transform=self._to_tensors,
         )
-        self.train_loader = load_shd_or_ssc(split="train", shuffle=True, **kw)
-        self.valid_loader = load_shd_or_ssc(split="valid", shuffle=False, **kw)
-        if self.dataset_name == "ssc":
-            self.test_loader = load_shd_or_ssc(
-                split="test", shuffle=False, **kw
-            )
-        if self.use_augm:
+        self.train_loader = load(split="train", shuffle=True, **kw)
+        self.valid_loader = load(split="valid", shuffle=False, **kw)
+        if self.dataset_name in ["sc", "ssc"]:
+            self.test_loader = load(split="test", shuffle=False, **kw)
+        if self.dataset_name in ["hd", "sc"]:
+            if self.use_augm:
+                logging.info("\nData augmentation is used\n")
+        elif self.use_augm:
             logging.warning(
                 "\nWarning: Data augmentation not implemented for SHD and SSC.\n"
             )
@@ -305,6 +330,8 @@ class Experiment:
             remat=self.remat,
             generator=torch.Generator().manual_seed(self.seed),
         )
+        if self.frontend == "device":
+            self.net = FbankFrontend(inner=self.net)
         self.state = create_train_state(self.net, self.lr, device=self.device,
                                         seed=self.seed)
 
@@ -328,7 +355,8 @@ class Experiment:
         """The loader's ``batch_transform``, run in its producer thread:
         torch tensors of the batch (the raster in bf16 under
         ``--input_dtype bfloat16``: lossless for spike counts), pinned when
-        they go to the card."""
+        they go to the card. With ``--frontend device`` the model's input
+        is the pair (waveforms, frame counts)."""
         x, xlens, y = batch
         x = torch.from_numpy(x)
         if self.input_dtype == "bfloat16":
@@ -336,11 +364,17 @@ class Experiment:
         y = torch.from_numpy(y)
         if self.pinned:
             x, y = x.pin_memory(), y.pin_memory()
+        if self.frontend == "device":
+            lens = torch.from_numpy(xlens)
+            x = (x, lens.pin_memory() if self.pinned else lens)
         return x, xlens, y
 
     def _put_batch(self, x, y):
-        return (x.to(self.device, non_blocking=True),
-                y.to(self.device, non_blocking=True))
+        if isinstance(x, tuple):
+            x = tuple(t.to(self.device, non_blocking=True) for t in x)
+        else:
+            x = x.to(self.device, non_blocking=True)
+        return x, y.to(self.device, non_blocking=True)
 
     def _fetch(self, kind: str, losses, accs, rates) -> np.ndarray:
         """The epoch's one host fetch: the metrics' device scalars stacked
@@ -372,7 +406,7 @@ class Experiment:
             losses.append(metrics["loss"])
             accs.append(metrics["acc"])
             rates.append(metrics["spike_rate"])
-            utterances += x.shape[0]
+            utterances += y.shape[0]
 
         # one host fetch for the whole epoch
         losses, accs, rates = self._fetch("train", losses, accs, rates)
@@ -493,8 +527,8 @@ class Experiment:
                     "disabled. Model from last epoch is used for testing."
                 )
 
-        # shd reuses the valid split for the test
-        if self.dataset_name == "ssc":
+        # shd and hd reuse the valid split for the test
+        if self.dataset_name in ["sc", "ssc"]:
             self.test_one_epoch(self.test_loader)
         else:
             self.test_one_epoch(self.valid_loader)

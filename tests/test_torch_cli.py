@@ -127,22 +127,40 @@ def masked(messages, folder):
     return out
 
 
-def run_jax(argv, devices=None):
+def _float64(tree):
+    return jax.tree.map(
+        lambda a: a.astype(np.float64)
+        if np.issubdtype(a.dtype, np.floating) else a, tree)
+
+
+def run_jax(argv, devices=None, float64=False):
     """The JAX CLI's run of ``argv``, on the whole CPU mesh or on
     ``devices``; returns (experiment, messages, initial and final
-    variables)."""
+    variables). ``float64``: with ``jax_enable_x64`` on, the state (every
+    parameter, statistic and optimizer moment) and each input batch cast
+    to float64 (the initial variables are returned as built, in
+    float32)."""
     prng = jax.config.jax_default_prng_impl
     mesh = functools.partial(jax_mesh.make_mesh, devices)
+    put = JaxExperiment._put_batch
+    if float64:
+        def put(self, x, y, put=put):
+            return put(self, _float64(x), y)
     try:
+        jax.config.update("jax_enable_x64", float64)
         with RootMessages() as messages, \
-                mock.patch.object(jax_loop, "make_mesh", mesh):
+                mock.patch.object(jax_loop, "make_mesh", mesh), \
+                mock.patch.object(JaxExperiment, "_put_batch", put):
             exp = JaxExperiment(run_exp.parse_args(argv))
             init = jax.device_get({"params": exp.state.params,
                                    "batch_stats": exp.state.batch_stats})
+            if float64:
+                exp.state = _float64(exp.state)
             exp.forward()
     finally:
         # the JAX loop sets the process's PRNG implementation
         jax.config.update("jax_default_prng_impl", prng)
+        jax.config.update("jax_enable_x64", False)
     final = jax.device_get({"params": exp.state.params,
                             "batch_stats": exp.state.batch_stats})
     return exp, messages, init, final

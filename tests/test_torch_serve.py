@@ -54,12 +54,17 @@ def test_predictor_edges():
     pred = Predictor(model, variables_from_flax(variables), device="cpu")
     labels, probs = pred(x[:0])
     assert labels.shape == (0,) and probs.shape == (0, C)
-    with pytest.raises(NotImplementedError, match="fbank"):
+    # lengths= belongs to waveform models, as in the JAX Predictor
+    with pytest.raises(ValueError, match="device-frontend"):
         pred(x, lengths=np.ones(B))
+    with pytest.raises(ValueError, match="device-frontend"):
+        JaxPredictor(jmodel, variables)(x, lengths=np.ones(B))
     with pytest.raises(NotImplementedError, match="seqpipe"):
         Predictor(model, model.state_dict(), mesh=object())
-    with pytest.raises(NotImplementedError, match="fbank"):
-        Predictor(model, model.state_dict(), pad_multiple=50)
+    # pad_multiple buckets waveform frames: a feature model serves alike
+    other = Predictor(model, model.state_dict(), pad_multiple=50,
+                      device="cpu")
+    np.testing.assert_array_equal(other(x)[1], pred(x)[1])
     # from_experiment is ported (tests/test_torch_cli.py): without a card
     # and without device="cpu" it raises before reading anything
     with pytest.raises(RuntimeError, match="no CUDA device"):
