@@ -152,6 +152,35 @@ all at once), then prints one JSON line per phase:
    window a step advanced by 160 samples, against the frontend's batch
    forward on the same audio, within 1e-5 relative (each window's fbank
    within 2e-3 of the batch fbank's frame).
+8e. ``migrate``: reference checkpoints on the card. README.md's SC flagship,
+   RadLIF [1024, 1024, 1024, 35] bidirectional (F = 40; V on the 2^-8 grid,
+   running statistics of one train-mode pass, from a fixed seed), and a
+   GRU [512, 512, 35], each written as a reference ``state_dict``
+   (``snn.<i>`` / ``ann.<i>`` keys, the ANN gates transposed,
+   ``num_batches_tracked``) and imported as a bare state_dict by
+   ``sparch_tpu_torch.migrate.import_torch_checkpoint`` (the weights back
+   bit for bit). (a) ``Predictor.from_experiment`` serves 300 utterances
+   of normal features (3 batches of 128, ``auto``) through
+   ``fused_cell_fwd``'s serving form at (256, 100, 1024) and
+   ``readout_fwd`` (3 and 1 a batch, and no other), held against the same
+   Predictor inside ``plain_versions()``: every hidden layer's spikes bit
+   for bit, probabilities within 1e-6; (b) the GRU alike through
+   ``fused_ann_fwd_gru`` (2 a batch), labels on >= 99 % and probabilities
+   within 1e-3 of the plain versions (the ``serving_ann`` bound); both
+   timed (host clock, median of 3). (c) ``run_exp_torch`` on the
+   flagship's folder (``--use_pretrained_model``, ``--frontend host``, the
+   SC tree of phase 8c, zero state init): an ``--only_do_testing`` run
+   whose test labels must be ``from_experiment``'s, then one epoch with
+   dropout 0.1, ``--compile_cache build/kernels`` (no library may be
+   written) and ``--profile_dir`` (a trace must be written; the port's
+   kernels found in it by name are printed, not bounded): 3
+   ``fused_cell_fwd_train``, 3 ``fused_cell_bwd``, 1 ``readout_fwd`` and 1
+   ``readout_bwd`` a step, 3 ``fused_cell_fwd`` and 1 ``readout_fwd`` an
+   eval batch, and no other.
+8f. ``fuzz``: ``tools/fuzz_kernels_torch.py`` for up to FUZZ_SECONDS (every
+   kernel family; drawn shapes, affine, dropout and stream type; the
+   kernel against its plain version at the card tests' standard, the plans
+   the launches took); 0 failures.
 9. ``kernel_vs_plain`` for the fused non-spiking cell, forward
    (``fused_ann_fwd``): RNN, LiGRU and GRU at (128, 100, 512) with the
    batchnorm affine and at the ragged shape, in the serving form (the
@@ -303,8 +332,9 @@ all at once), then prints one JSON line per phase:
    ``dv_library_ms``. The TP collectives' ``library_ms`` is one round of
    their function in one call (phase 16). Rows 1-5 add
    ``launches_experiment``, their launches in the fresh run of phase 8b,
-   and ``launches_audio``, their launches in the SC flagship's run of
-   phase 8c.
+   ``launches_audio``, their launches in the SC flagship's run of phase
+   8c, and, with the GRU's forward, ``launches_migrate``: the served
+   models and the fine-tune of phase 8e.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 if any phase fails, the script exits non-zero and prints no result.
@@ -314,9 +344,11 @@ from __future__ import annotations
 import contextlib
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2183,89 +2215,83 @@ def hd_vs_plain_versions(exp, dev):
     return row
 
 
-def phase_audio(dev, smi):
-    """The HD/SC audio path (see the module docstring, phase 8c)."""
-    import shutil
-    import tempfile
-
+def phase_audio(dev, smi, root):
+    """The HD/SC audio path (see the module docstring, phase 8c); the WAV
+    trees go into ``root``, which the caller removes."""
     from sparch_tpu_torch.utils.timing import cuda_time_ms
 
-    root = Path(tempfile.mkdtemp(prefix="chip_smoke_audio_"))
-    try:
-        t0 = time.perf_counter()
-        n_train = write_sc_tree(root / "sc", seed=11)
-        write_hd_tree(root / "hd", seed=12)
-        trees_s = time.perf_counter() - t0
-        fbank = fbank_check(dev, root / "sc")
-        freeverb = freeverb_check()
+    t0 = time.perf_counter()
+    n_train = write_sc_tree(root / "sc", seed=11)
+    write_hd_tree(root / "hd", seed=12)
+    trees_s = time.perf_counter() - t0
+    fbank = fbank_check(dev, root / "sc")
+    freeverb = freeverb_check()
 
-        sc = SC_ARGV + ["--data_folder", str(root / "sc")]
-        folder = str(root / "sc_device")
-        exp, counts, calls = experiment_run(
-            sc + ["--frontend", "device", "--nb_epochs", str(AUDIO_EPOCHS),
-                  "--new_exp_folder", folder], dev)
-        check(len(exp.train_loader.dataset) == n_train and
-              len(exp.test_loader.dataset) == AUDIO_SPLIT,
-              "sc: the splits' sizes")
-        check(exp.host_fetches == {"train": AUDIO_EPOCHS,
-                                   "valid": AUDIO_EPOCHS, "test": 1},
-              f"sc: host fetches {dict(exp.host_fetches)}")
-        check(calls["freeverb_channel"] > 0, "sc: the reverb never ran")
-        launches = check_launches("sc device", exp, counts, calls)
-        served = served_equals_test_path(exp, folder, dev)
-        test_x, _, _ = next(iter(exp.test_loader))
-        test_x, _ = exp._put_batch(test_x, torch.zeros(1))
-        with torch.no_grad():
-            _, rates = exp.net(test_x, exp._eval_generator)
-        firing = [float(r.mean()) for r in rates.split(2 * 1024)]
-        x, _, y = next(iter(exp.train_loader))
-        x, y = exp._put_batch(x, y)
-        step_ms = cuda_time_ms(exp._train_step, exp.state, x, y, warmup=2,
-                               iters=10, repeats=3)
-        device_run = dict(
-            epochs=epochs_of(exp, B / step_ms * 1e3), launches=launches,
-            freeverb_calls=calls["freeverb_channel"],
-            valid_acc=[h["acc"] for h in exp.history
-                       if h["split"] == "valid"],
-            test_acc=exp.test_acc, resident_step_ms=step_ms,
-            resident_utterances_per_s=B / step_ms * 1e3)
-        on_grid(exp.net)
-        served_vs_plain = eval_vs_plain_versions(
-            "sc eval", exp.net, test_x, dev)
-        del exp
-        torch.cuda.empty_cache()
+    sc = SC_ARGV + ["--data_folder", str(root / "sc")]
+    folder = str(root / "sc_device")
+    exp, counts, calls = experiment_run(
+        sc + ["--frontend", "device", "--nb_epochs", str(AUDIO_EPOCHS),
+              "--new_exp_folder", folder], dev)
+    check(len(exp.train_loader.dataset) == n_train and
+          len(exp.test_loader.dataset) == AUDIO_SPLIT,
+          "sc: the splits' sizes")
+    check(exp.host_fetches == {"train": AUDIO_EPOCHS,
+                               "valid": AUDIO_EPOCHS, "test": 1},
+          f"sc: host fetches {dict(exp.host_fetches)}")
+    check(calls["freeverb_channel"] > 0, "sc: the reverb never ran")
+    launches = check_launches("sc device", exp, counts, calls)
+    served = served_equals_test_path(exp, folder, dev)
+    test_x, _, _ = next(iter(exp.test_loader))
+    test_x, _ = exp._put_batch(test_x, torch.zeros(1))
+    with torch.no_grad():
+        _, rates = exp.net(test_x, exp._eval_generator)
+    firing = [float(r.mean()) for r in rates.split(2 * 1024)]
+    x, _, y = next(iter(exp.train_loader))
+    x, y = exp._put_batch(x, y)
+    step_ms = cuda_time_ms(exp._train_step, exp.state, x, y, warmup=2,
+                           iters=10, repeats=3)
+    device_run = dict(
+        epochs=epochs_of(exp, B / step_ms * 1e3), launches=launches,
+        freeverb_calls=calls["freeverb_channel"],
+        valid_acc=[h["acc"] for h in exp.history
+                   if h["split"] == "valid"],
+        test_acc=exp.test_acc, resident_step_ms=step_ms,
+        resident_utterances_per_s=B / step_ms * 1e3)
+    on_grid(exp.net)
+    served_vs_plain = eval_vs_plain_versions(
+        "sc eval", exp.net, test_x, dev)
+    del exp
+    torch.cuda.empty_cache()
 
-        exp, counts, calls = experiment_run(
-            sc + ["--frontend", "host", "--nb_epochs", "1",
-                  "--new_exp_folder", str(root / "sc_host")], dev)
-        host_run = dict(
-            launches=check_launches("sc host", exp, counts, calls),
-            epochs=epochs_of(exp))
-        del exp
-        torch.cuda.empty_cache()
+    exp, counts, calls = experiment_run(
+        sc + ["--frontend", "host", "--nb_epochs", "1",
+              "--new_exp_folder", str(root / "sc_host")], dev)
+    host_run = dict(
+        launches=check_launches("sc host", exp, counts, calls),
+        epochs=epochs_of(exp))
+    del exp
+    torch.cuda.empty_cache()
 
-        exp, counts, calls = experiment_run(
-            ["--model_type", "RadLIF", "--nb_layers", "3", "--nb_hiddens",
-             str(HD_HIDDEN), "--dataset_name", "hd", "--data_folder",
-             str(root / "hd"), "--frontend", "host", "--batch_size", str(B),
-             "--nb_epochs", "1", "--log_tofile", "true",
-             "--new_exp_folder", str(root / "hd_exp")], dev)
-        check(exp.nb_outputs == HD_CLASSES, "hd: classes")
-        frames = sorted({int(x.shape[1]) for loader in
-                         (exp.train_loader, exp.valid_loader)
-                         for x, _, _ in loader})
-        check(len(frames) >= 2 and all(t % 100 == 0 for t in frames),
-              f"hd: batch frame counts {frames}")
-        hd_run = dict(
-            model=f"RadLIF [{HD_HIDDEN}, {HD_HIDDEN}, {HD_CLASSES}]",
-            launches=check_launches("hd", exp, counts, calls),
-            epochs=epochs_of(exp), batch_frames=frames,
-            test_acc=exp.test_acc, vs_plain_versions=hd_vs_plain_versions(
-                exp, dev))
-        del exp
-        torch.cuda.empty_cache()
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    exp, counts, calls = experiment_run(
+        ["--model_type", "RadLIF", "--nb_layers", "3", "--nb_hiddens",
+         str(HD_HIDDEN), "--dataset_name", "hd", "--data_folder",
+         str(root / "hd"), "--frontend", "host", "--batch_size", str(B),
+         "--nb_epochs", "1", "--log_tofile", "true",
+         "--new_exp_folder", str(root / "hd_exp")], dev)
+    check(exp.nb_outputs == HD_CLASSES, "hd: classes")
+    frames = sorted({int(x.shape[1]) for loader in
+                     (exp.train_loader, exp.valid_loader)
+                     for x, _, _ in loader})
+    check(len(frames) >= 2 and all(t % 100 == 0 for t in frames),
+          f"hd: batch frame counts {frames}")
+    hd_run = dict(
+        model=f"RadLIF [{HD_HIDDEN}, {HD_HIDDEN}, {HD_CLASSES}]",
+        launches=check_launches("hd", exp, counts, calls),
+        epochs=epochs_of(exp), batch_frames=frames,
+        test_acc=exp.test_acc, vs_plain_versions=hd_vs_plain_versions(
+            exp, dev))
+    del exp
+    torch.cuda.empty_cache()
     emit("audio", card=smi,
          model="RadLIF [1024, 1024, 1024, 35] bidirectional",
          argv=" ".join(SC_ARGV), batch_size=B, F=40, pad_multiple=100,
@@ -2373,6 +2399,340 @@ def phase_streaming(dev, smi):
     emit("streaming", card=smi, shape=[B, T, F_ANN], sizes=[H, H, C],
          frames=T,
          device=str(dev), **out)
+
+
+# ---------------------------------------------------------------------------
+# Migration: reference checkpoints served and fine-tuned through the kernels
+# ---------------------------------------------------------------------------
+
+MIGRATE_PROB_ATOL = 1e-6  # the flagship's probabilities vs the plain versions
+FUZZ_CASES, FUZZ_SECONDS = 600, 50.0  # at most; stop past the seconds
+SC_SIZES = [1024, 1024, 1024, C]  # README.md's SC flagship, bidirectional
+F_SC = 40
+# the __global__ functions of csrc/, found by name in a profiler trace
+PORT_KERNELS = re.compile(
+    r"\b(cell_bwd_cluster|dv|first_product|fused_ann_bwd|fused_ann_fwd|"
+    r"fused_cell_bwd|fused_cell_fwd|readout_bwd(?:_wide)?|"
+    r"readout_fwd(?:_wide)?|slice_fwd|sum_parts|tp_all_gather|tp_ann_bwd|"
+    r"tp_ann_fwd|tp_cell_bwd|tp_cell_fwd|tp_reduce_scatter|tp_vec_reduce|"
+    r"vec_reduce)_kernel\b")
+
+
+def calibrated_model(dev, model_type, sizes, n_in, seed, calib_seed,
+                     bidirectional=False):
+    """A ``scan`` model of weights drawn from ``seed`` (V of a spiking model
+    on the 2^-8 grid, zero state init) whose running statistics are the
+    batch statistics of one train-mode pass over normal features drawn
+    from ``calib_seed``."""
+    from sparch_tpu_torch.models import build_model
+    from sparch_tpu_torch.models.common import BN_MOMENTUM, SeqNorm
+
+    model = build_model(
+        model_type, (B, T, n_in), sizes, bidirectional=bidirectional,
+        cell_impl="scan", state_init="zeros",
+        generator=torch.Generator().manual_seed(seed)).to(dev)
+    calib = torch.randn((B, T, n_in), device=dev,
+                        generator=torch.Generator(dev).manual_seed(calib_seed))
+    with torch.no_grad():
+        if model.is_snn:
+            for layer in model.hidden_layers():
+                layer.V.copy_(dyadic(layer.V))
+        model.train()
+        model(calib)
+        # undo the running average's first step (see serving_state)
+        w = 1.0 - BN_MOMENTUM
+        for n in model.modules():
+            if isinstance(n, SeqNorm):
+                n.running_mean.copy_(n.running_mean / w)
+                n.running_var.copy_((n.running_var - BN_MOMENTUM) / w)
+    return model.eval()
+
+
+def reference_layout(state_dict, is_snn):
+    """A port ``state_dict`` in the reference's layout (snns.py /
+    anns.py): ``layer_<i>`` and ``readout`` become ``snn.<i>`` / ``ann.<i>``,
+    a spiking V ``V.weight`` as it is, an ANN gate ``V``/``Vz``/``Vr``
+    ``<g>.weight`` transposed (the reference applies it as a module), the
+    ANN norms ``norm_W``/``norm_Wz``/``norm_Wr`` ``norm``/``normz``/
+    ``normr``, every batchnorm with a ``num_batches_tracked``. CPU tensors."""
+    container = "snn" if is_snn else "ann"
+    n_hidden = len({k.split(".")[0] for k in state_dict
+                    if k.startswith("layer_")})
+    norms = {"norm": "norm", "norm_W": "norm", "norm_Wz": "normz",
+             "norm_Wr": "normr"}
+    out = {}
+    for key, t in state_dict.items():
+        module, *rest = key.split(".")
+        i = n_hidden if module == "readout" else int(module.split("_")[1])
+        t = t.detach().cpu().clone()
+        if rest[0] in ("V", "Vz", "Vr"):
+            rest = [rest[0], "weight"]
+            t = t if is_snn else t.t().contiguous()
+        elif rest[0] in norms:
+            rest = [norms[rest[0]], *rest[1:]]
+            if rest[1] == "running_mean":
+                out[f"{container}.{i}.{rest[0]}.num_batches_tracked"] = \
+                    torch.tensor(1)
+        out[".".join([container, str(i), *rest])] = t
+    return out
+
+
+def import_reference(dev, root, name, model, **overrides):
+    """``model``'s weights as a reference ``state_dict`` saved to
+    ``<root>/<name>.pth`` and imported by ``migrate.import_torch_checkpoint``
+    into ``<root>/<name>``; the imported weights must be the model's bit
+    for bit. Returns the folder."""
+    from sparch_tpu_torch import migrate
+
+    pth, folder = str(root / f"{name}.pth"), str(root / name)
+    torch.save(reference_layout(model.state_dict(), model.is_snn), pth)
+    _, imported = migrate.import_torch_checkpoint(
+        pth, folder, config_overrides=dict(batch_size=B, **overrides),
+        device=dev)
+    want = model.state_dict()
+    check(imported.keys() == want.keys() and
+          all(torch.equal(imported[k], want[k].cpu()) for k in want),
+          f"{name}: the imported weights differ from the model's")
+    with open(Path(folder) / "checkpoints" / "meta.json") as f:
+        record = json.load(f)["model"]
+    check(tuple(record) == migrate.MODEL_RECORD_KEYS,
+          f"{name}: model record {list(record)}")
+    return folder
+
+
+def served(pred, x):
+    """``pred(x)`` with the launch counters set to 0 just before and read
+    just after, each hidden layer's output of every batch kept (batch by
+    batch, layer by layer). Returns (probs, outputs, counts)."""
+    from sparch_tpu_torch.ops import fused_cells
+
+    outs = []
+    hooks = [layer.register_forward_hook(
+        lambda mod, args, res: outs.append(res.detach().clone()))
+        for layer in pred.model.hidden_layers()]
+    try:
+        fused_cells.reset_launch_counts()
+        _, probs = pred(x)
+        torch.cuda.synchronize()
+        counts = fused_cells.launch_counts()
+    finally:
+        for h in hooks:
+            h.remove()
+    return probs, outs, counts
+
+
+def serve_imported(dev, folder, x, kernels, what):
+    """Serve ``x`` from an imported folder with ``Predictor.from_experiment``
+    (``auto``, batches of B, the last padded): its launches by name
+    (``kernels``: each a batch, and no other), again inside
+    ``plain_versions()`` (no launch), and timed (host clock, median of 3).
+    Returns (probs, plain probs, hidden outputs of both, the row)."""
+    from sparch_tpu_torch.serve import Predictor
+
+    pred = Predictor.from_experiment(folder, batch_size=B, device=dev)
+    probs, outs, counts = served(pred, x)
+    n_batches = -(-len(x) // B)
+    want = {k: 0 for k in counts}
+    want.update({k: n * n_batches for k, n in kernels.items()})
+    check(counts == want, f"{what}: launches {counts} != {want}")
+    check(probs.shape == (len(x), C) and bool(np.isfinite(probs).all()) and
+          bool(np.allclose(probs.sum(-1), 1.0, atol=1e-5)),
+          f"{what}: served probabilities")
+    with plain_versions():
+        plain, plain_outs, plain_counts = served(pred, x)
+    check(not any(plain_counts.values()), f"{what}: plain run launched "
+          f"{plain_counts}")
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pred(x)
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    row = dict(launches={k: n for k, n in counts.items() if n},
+               predict_ms_per_batch=1e3 * wall / n_batches,
+               utterances_per_s=len(x) / wall)
+    return probs, plain, outs, plain_outs, row
+
+
+def only_testing_labels(argv, dev):
+    """``--only_do_testing`` run of ``argv``, the launch counters set to 0
+    just before ``forward()`` and read just after (the serving form once a
+    hidden layer and the readout once a test batch, and no other): the
+    test split's labels, from a hook on the model's output, and the test
+    batches' features."""
+    import run_exp_torch
+    from sparch_tpu_torch.ops import fused_cells
+    from sparch_tpu_torch.train.loop import Experiment
+
+    exp = Experiment(run_exp_torch.parse_args(argv), device=dev)
+    labels = []
+    hook = exp.net.register_forward_hook(
+        lambda mod, args, res: labels.append(res[0].argmax(-1).cpu()))
+    try:
+        fused_cells.reset_launch_counts()
+        exp.forward()
+        torch.cuda.synchronize()
+        counts = fused_cells.launch_counts()
+    finally:
+        hook.remove()
+    n = len(exp.test_loader)
+    want = {k: 0 for k in counts}
+    want.update(fused_cell_fwd=(exp.nb_layers - 1) * n, readout_fwd=n)
+    check(counts == want, f"only_do_testing: launches {counts} != {want}")
+    x = np.concatenate([xb.numpy() for xb, _, _ in exp.test_loader])
+    return exp, torch.cat(labels).numpy(), x
+
+
+def trace_kernels(folder):
+    """The port's kernels found by name in the profiler trace(s) of
+    ``folder``: {name: events}."""
+    found = {}
+    for path in Path(folder).glob("trace_*.json"):
+        for event in json.loads(path.read_text()).get("traceEvents", []):
+            if event.get("cat") != "kernel":
+                continue
+            m = PORT_KERNELS.search(str(event.get("name", "")))
+            if m:
+                found[m.group(0)] = found.get(m.group(0), 0) + 1
+    return found
+
+
+def listing(folder):
+    """(name, size, mtime) of every file in ``folder``."""
+    return sorted((p.name, p.stat().st_size, p.stat().st_mtime_ns)
+                  for p in Path(folder).iterdir() if p.is_file())
+
+
+def phase_migrate(dev, smi, audio_root):
+    """Reference checkpoints imported into port folders, served and
+    fine-tuned through the kernels (see the module docstring, phase 8e)."""
+    import shutil
+    import tempfile
+
+    from sparch_tpu_torch import _build
+    from sparch_tpu_torch.serve import Predictor
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_migrate_"))
+    x = np.random.default_rng(31).normal(0.0, 1.0, (N_UTT, T, F_SC)) \
+        .astype(np.float32)
+    try:
+        # (a) the SC flagship from a bare reference state_dict
+        flagship = calibrated_model(dev, "RadLIF", SC_SIZES, F_SC, 41, 42,
+                                    bidirectional=True)
+        folder = import_reference(dev, root, "flagship", flagship,
+                                  state_init="zeros", dropout=P_DROP)
+        del flagship
+        probs, plain, outs, plain_outs, sc_row = serve_imported(
+            dev, folder, x, {"fused_cell_fwd": 3, "readout_fwd": 1},
+            "flagship")
+        differ = sum(int((a != b).sum()) for a, b in zip(outs, plain_outs))
+        check(differ == 0, f"flagship: {differ} spikes differ from the "
+              "plain versions")
+        err = float(np.abs(probs - plain).max())
+        check(err <= MIGRATE_PROB_ATOL,
+              f"flagship: probabilities vs the plain versions {err}")
+        sc_row.update(spikes_bit_equal=True, max_abs_prob_diff=err,
+                      atol=MIGRATE_PROB_ATOL,
+                      layer_output_shape=list(outs[0].shape),
+                      firing_rate_by_layer=[
+                          float(torch.stack(outs[i::3]).float().mean())
+                          for i in range(3)])
+
+        # (b) the GRU [512, 512, 35] of serving_ann
+        gru = calibrated_model(dev, "GRU", [H, H, C], F_SC, 0, 11)
+        gru_folder = import_reference(dev, root, "gru", gru)
+        del gru
+        probs, plain, _, _, gru_row = serve_imported(
+            dev, gru_folder, x, {"fused_ann_fwd_gru": 2}, "gru")
+        agree = _agreement((probs.argmax(-1), probs),
+                           (plain.argmax(-1), plain))
+        check(agree["label_agreement"] >= 0.99 and
+              agree["max_abs_prob_diff"] <= 1e-3,
+              f"gru: vs the plain versions {agree}")
+        gru_row["vs_plain_versions"] = agree
+        torch.cuda.empty_cache()
+
+        # (c) the flagship fine-tuned by the CLI from its folder, after an
+        # --only_do_testing run that must label the test split as
+        # from_experiment does
+        sc = SC_ARGV + ["--data_folder", str(audio_root / "sc"),
+                        "--frontend", "host", "--state_init", "zeros",
+                        "--use_pretrained_model", "true",
+                        "--load_exp_folder", folder]
+        exp, labels, test_x = only_testing_labels(
+            sc + ["--only_do_testing", "true"], dev)
+        want, _ = Predictor.from_experiment(folder, batch_size=B,
+                                            device=dev)(test_x)
+        check(np.array_equal(labels, want),
+              f"only_do_testing labels differ from from_experiment on "
+              f"{int((labels != want).sum())} of {len(want)}")
+        imported_test_acc = exp.test_acc
+        del exp
+        kernel_dir = _build.BUILD_DIR
+        before = listing(kernel_dir)
+        trace_dir = root / "trace"
+        exp, counts, calls = experiment_run(
+            sc + ["--nb_epochs", "1", "--compile_cache", str(kernel_dir),
+                  "--profile_dir", str(trace_dir)], dev)
+        check(exp.kernel_dir == kernel_dir and listing(kernel_dir) == before,
+              "fine-tune: a kernel was built again under --compile_cache")
+        check([h["split"] for h in exp.history] ==
+              ["valid", "train", "valid", "test"],
+              f"fine-tune: epochs {[h['split'] for h in exp.history]}")
+        launches = check_launches("fine-tune", exp, counts, calls)
+        traced = trace_kernels(trace_dir)
+        check(bool(list(trace_dir.glob("trace_*.json"))),
+              "fine-tune: no profiler trace")
+        tune_row = dict(
+            argv=" ".join(sc[:-1] + ["<imported>", "--nb_epochs", "1",
+                                     "--compile_cache", "build/kernels",
+                                     "--profile_dir", "<tmp>"]),
+            launches=launches, epochs=epochs_of(exp),
+            valid_acc=[h["acc"] for h in exp.history
+                       if h["split"] == "valid"],
+            test_acc=exp.test_acc, imported_test_acc=imported_test_acc,
+            only_do_testing_labels_equal_from_experiment=True,
+            kernels_rebuilt=0, kernel_dir=str(kernel_dir),
+            trace_kernels=traced)
+        del exp
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("migrate", card=smi, model="RadLIF [1024, 1024, 1024, 35] "
+         "bidirectional (SC flagship) and GRU [512, 512, 35]",
+         source="reference-layout state_dict from a seed, imported by "
+         "sparch_tpu_torch.migrate.import_torch_checkpoint",
+         n_utterances=N_UTT, batch_size=B, T=T, F=F_SC, flagship=sc_row,
+         gru=gru_row, fine_tune=tune_row, device=str(dev))
+    # the path's launches by kernel: the two served models and the
+    # fine-tune
+    path = dict(launches)
+    for row in (sc_row, gru_row):
+        for k, n in row["launches"].items():
+            path[k] = path.get(k, 0) + n
+    return path
+
+
+def phase_fuzz(dev, smi):
+    """``tools/fuzz_kernels_torch.py`` for FUZZ_SECONDS: every kernel
+    family against its plain version at drawn shapes, with the plans the
+    launches took."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "fuzz_kernels_torch", REPO / "tools" / "fuzz_kernels_torch.py")
+    fuzz = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fuzz)
+    summary = fuzz.run(FUZZ_CASES, seed=0, seconds=FUZZ_SECONDS, dev=dev)
+    check(summary["failures"] == 0, f"fuzz: {summary['failures']} of "
+          f"{summary['cases']} cases failed: "
+          f"{list(zip(summary['failed'], summary['errors']))[:3]}")
+    check(set(summary["families"]) == set(fuzz.FAMILIES),
+          f"fuzz: families {summary['families']}")
+    slowest = max(summary["records"], key=lambda r: r["seconds"])
+    emit("fuzz", card=smi, **{k: v for k, v in summary.items()
+                              if k != "records"},
+         slowest_case=[slowest["case"], slowest["seconds"]])
 
 
 # ---------------------------------------------------------------------------
@@ -2674,24 +3034,7 @@ def ann_state(dev, ann_type):
     """State dict of a [512, 512, 35] model of the non-spiking family with
     seeded random weights and, as running statistics, the batch statistics
     of one train-mode pass over a calibration batch."""
-    from sparch_tpu_torch.models import build_model
-    from sparch_tpu_torch.models.common import BN_MOMENTUM, SeqNorm
-
-    model = build_model(
-        ann_type, (B, T, F_ANN), [H, H, C], cell_impl="scan",
-        generator=torch.Generator().manual_seed(0),
-    ).to(dev)
-    g = torch.Generator(device=dev).manual_seed(11)
-    calib = torch.randn((B, T, F_ANN), generator=g, device=dev)
-    with torch.no_grad():
-        model.train()
-        model(calib)
-        # undo the running average's first step (see serving_state)
-        w = 1.0 - BN_MOMENTUM
-        for n in model.modules():
-            if isinstance(n, SeqNorm):
-                n.running_mean.copy_(n.running_mean / w)
-                n.running_var.copy_((n.running_var - BN_MOMENTUM) / w)
+    model = calibrated_model(dev, ann_type, [H, H, C], F_ANN, 0, 11)
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
@@ -2847,9 +3190,10 @@ def at_h1024(mode, tp_res, direction, bf16=False):
                               backward=direction == "bwd"))
 
 
-def ann_kernel_rows(fwd, bwd, served, trained, tp_fwd, tp_bwd):
+def ann_kernel_rows(fwd, bwd, served, trained, tp_fwd, tp_bwd, migrated):
     """The ``kernels`` entries of the fused ANN cells, one per direction
-    and mode, with their plan and their time at H = 1024 (``at_h1024``)."""
+    and mode, with their plan and their time at H = 1024 (``at_h1024``);
+    the forwards' launches on the ``migrate`` path (the imported GRU)."""
     src = "sparch_tpu_torch/csrc/"
     tpu = "sparch_tpu/ops/pallas_ann.py:"
     rows = []
@@ -2860,6 +3204,7 @@ def ann_kernel_rows(fwd, bwd, served, trained, tp_fwd, tp_bwd):
             name=name, route="cuda", source=src + "fused_ann_fwd.cu",
             replaces=tpu + "174", launches=served[mode][name],
             launches_training=trained[mode][name],
+            launches_migrate=migrated.get(name, 0),
             max_abs_err=f["max_abs_err"], ms=f["ms"], plain_ms=f["plain_ms"],
             **b["fwd"], library_ms=None, ms_train=f["ms_train"],
             plain_ms_train=f["plain_ms_train"],
@@ -4304,8 +4649,14 @@ def main() -> int:
     launches = run("serving", phase_serving, dev)
     trained, trained_auto = run("training", phase_training, dev)
     experiment = run("experiment", phase_experiment, dev, trained_auto)
-    audio = run("audio", phase_audio, dev, smi)
-    run("streaming", phase_streaming, dev, smi)
+    audio_root = Path(tempfile.mkdtemp(prefix="chip_smoke_audio_"))
+    try:
+        audio = run("audio", phase_audio, dev, smi, audio_root)
+        run("streaming", phase_streaming, dev, smi)
+        migrated = run("migrate", phase_migrate, dev, smi, audio_root)
+    finally:
+        shutil.rmtree(audio_root, ignore_errors=True)
+    run("fuzz", phase_fuzz, dev, smi)
     ann_fwd = run("ann_forward", phase_ann_forward, dev)
     ann_bwd = run("ann_backward", phase_ann_backward, dev)
     ann_served = run("serving_ann", phase_serving_ann, dev)
@@ -4346,13 +4697,15 @@ def main() -> int:
              source=src + "fused_cell_fwd.cu", replaces=tpu + "305",
              launches=launches["fused_cell_fwd"],
              launches_experiment=experiment.get("fused_cell_fwd", 0),
-             launches_audio=audio.get("fused_cell_fwd", 0), **cell,
+             launches_audio=audio.get("fused_cell_fwd", 0),
+             launches_migrate=migrated.get("fused_cell_fwd", 0), **cell,
              **cb["fwd"], library_ms=None),
         dict(name="fused_cell_fwd_train", route="cuda",
              source=src + "fused_cell_fwd.cu", replaces=tpu + "305",
              launches=trained["fused_cell_fwd_train"],
              launches_experiment=experiment.get("fused_cell_fwd_train", 0),
              launches_audio=audio.get("fused_cell_fwd_train", 0),
+             launches_migrate=migrated.get("fused_cell_fwd_train", 0),
              **dict(fwd_train, at_256x1024=dict(
                  fwd_train["at_256x1024"],
                  launches=tp_trained["auto"]["fused_cell_fwd_train"])),
@@ -4364,29 +4717,34 @@ def main() -> int:
              launches_experiment=experiment.get("fused_cell_fwd_train", 0)
              + experiment.get("fused_cell_bwd", 0),
              launches_audio=audio.get("fused_cell_fwd_train", 0)
-             + audio.get("fused_cell_bwd", 0), **hashed, **cb["hash"],
+             + audio.get("fused_cell_bwd", 0),
+             launches_migrate=migrated.get("fused_cell_fwd_train", 0)
+             + migrated.get("fused_cell_bwd", 0), **hashed, **cb["hash"],
              library_ms=None),
         dict(name="fused_cell_bwd", route="cuda",
              source=src + "fused_cell_bwd.cu", replaces=tpu + "631",
              launches=trained["fused_cell_bwd"],
              launches_experiment=experiment.get("fused_cell_bwd", 0),
-             launches_audio=audio.get("fused_cell_bwd", 0), **bwd,
+             launches_audio=audio.get("fused_cell_bwd", 0),
+             launches_migrate=migrated.get("fused_cell_bwd", 0), **bwd,
              **cb["bwd"], library_ms=None),
         dict(name="readout_fwd", route="cuda",
              source=src + "readout_fwd.cu", replaces=tpu + "1235",
              launches=launches["readout_fwd"],
              launches_training=trained["readout_fwd"],
              launches_experiment=experiment.get("readout_fwd", 0),
-             launches_audio=audio.get("readout_fwd", 0), **readout,
+             launches_audio=audio.get("readout_fwd", 0),
+             launches_migrate=migrated.get("readout_fwd", 0), **readout,
              **bound(readout_bytes, readout_ops), library_ms=None),
         dict(name="readout_bwd", route="cuda",
              source=src + "readout_bwd.cu", replaces=tpu + "1274",
              launches=trained["readout_bwd"],
              launches_experiment=experiment.get("readout_bwd", 0),
-             launches_audio=audio.get("readout_bwd", 0), **readout_bwd,
+             launches_audio=audio.get("readout_bwd", 0),
+             launches_migrate=migrated.get("readout_bwd", 0), **readout_bwd,
              **bound(2 * readout_bytes, 2 * readout_ops), library_ms=None),
     ] + ann_kernel_rows(ann_fwd, ann_bwd, ann_served, ann_trained,
-                        tp_ann_fwd, tp_ann_bwd) \
+                        tp_ann_fwd, tp_ann_bwd, migrated) \
         + bf16_kernel_rows(bf16_cell, bf16_bwd, bf16_ann_fwd, bf16_ann_bwd,
                            bf16_served, bf16_trained, tp_ann_fwd16,
                            tp_ann_bwd16, tp_trained16["auto"]) \

@@ -7,11 +7,12 @@ run_exp.py): the same flags, driving ``sparch_tpu_torch.train.loop``'s
 
 Run ``python run_exp_torch.py -h`` for the flags. The four datasets
 (``--dataset_name shd|ssc|hd|sc``) and both audio frontends (``--frontend
-host|device``) run. The flags whose paths the port does not have yet raise
+host|device``) run; ``--compile_cache DIR`` builds and loads the CUDA
+kernels in DIR, ``--profile_dir DIR`` writes a profiler trace of the first
+epoch there. The flags whose paths the port does not have yet raise
 ``NotImplementedError`` naming their ROADMAP item: ``--cell_impl
-pallas_tp``, ``--mesh_model`` other than 1, ``--seq_parallel`` other than
-1, ``--compile_cache`` and ``--profile_dir``. From Python,
-``main(argv, device="cpu")`` runs on the CPU.
+pallas_tp``, ``--mesh_model`` other than 1 and ``--seq_parallel`` other
+than 1. From Python, ``main(argv, device="cpu")`` runs on the CPU.
 """
 import argparse
 

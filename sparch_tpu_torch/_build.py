@@ -6,6 +6,11 @@ at the repository root; the hash covers the source and the flags, so an
 edited source builds anew. :func:`build` starts one ``nvcc`` per missing
 library, all at once, and waits for them; :class:`Kernel` builds its own
 library at its first launch. Nothing is compiled or loaded at import time.
+
+:func:`set_build_dir` moves the builds elsewhere (``--compile_cache``,
+``utils/cache.py``). :func:`load` opens each library once a process, by
+its file name (which carries the digest): a library loaded before the
+move stays the one in use, and no kernel is ever loaded twice.
 """
 from __future__ import annotations
 
@@ -17,10 +22,12 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "library_path", "Kernel"]
+__all__ = ["SOURCES", "BUILD_DIR", "build", "library_path", "load",
+           "set_build_dir", "Kernel"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+BUILD_DIR = DEFAULT_BUILD_DIR
 SOURCES = ("fused_cell_fwd", "fused_cell_bwd", "readout_fwd", "readout_bwd",
            "fused_ann_fwd", "fused_ann_bwd", "tp_collectives", "tp_cell_fwd",
            "tp_cell_bwd", "tp_ann_fwd", "tp_ann_bwd")
@@ -54,6 +61,30 @@ def library_path(name: str) -> Path:
         digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def set_build_dir(path=None) -> Path:
+    """Build and load the libraries in ``path`` from now on (None:
+    ``build/kernels`` at the repository root). Returns the directory."""
+    global BUILD_DIR
+    BUILD_DIR = DEFAULT_BUILD_DIR if path is None else \
+        Path(path).expanduser().resolve()
+    return BUILD_DIR
+
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, built where missing; opened once
+    a process for each digest of its sources."""
+    path = library_path(name)
+    lib = _LOADED.get(path.name)
+    if lib is None:
+        if not path.exists():
+            build([name])
+        lib = _LOADED[path.name] = ctypes.CDLL(str(path))
+    return lib
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
@@ -108,10 +139,7 @@ class Kernel:
         self._fn: Optional[ctypes._CFuncPtr] = None
 
     def _load(self):
-        path = library_path(self.source)
-        if not path.exists():
-            build([self.source])
-        fn = getattr(ctypes.CDLL(str(path)), self.symbol)
+        fn = getattr(load(self.source), self.symbol)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int
         return fn

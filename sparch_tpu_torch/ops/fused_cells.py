@@ -608,10 +608,7 @@ def slice_blocks(source: str, *form: int) -> int:
     the plan cannot run."""
     from sparch_tpu_torch import _build
 
-    path = _build.library_path(source)
-    if not path.exists():
-        _build.build([source])
-    fn = getattr(ctypes.CDLL(str(path)), f"sparch_{source}_slice_blocks")
+    fn = getattr(_build.load(source), f"sparch_{source}_slice_blocks")
     fn.argtypes = [_I] * len(form)
     fn.restype = _I
     return fn(*form)

@@ -576,10 +576,7 @@ def _bwd_max_active(B: int, H: int, P: int, adaptive: bool, mxu_bf16: bool,
     where that plan does not run or the query fails."""
     from sparch_tpu_torch import _build
 
-    path = _build.library_path("tp_cell_bwd")
-    if not path.exists():
-        _build.build(["tp_cell_bwd"])
-    fn = getattr(ctypes.CDLL(str(path)), "sparch_tp_cell_bwd_max_clusters")
+    fn = getattr(_build.load("tp_cell_bwd"), "sparch_tp_cell_bwd_max_clusters")
     fn.argtypes = [_I] * 7
     fn.restype = _I
     return fn(B, H, P, int(adaptive), int(mxu_bf16), cluster, part_rows)

@@ -236,10 +236,7 @@ def max_active_clusters(mode: str, B: int, H: int, P: int, cluster: int,
     from sparch_tpu_torch import _build
 
     source = "tp_ann_bwd" if backward else "tp_ann_fwd"
-    path = _build.library_path(source)
-    if not path.exists():
-        _build.build([source])
-    fn = getattr(ctypes.CDLL(str(path)), f"sparch_{source}_max_clusters")
+    fn = getattr(_build.load(source), f"sparch_{source}_max_clusters")
     fn.argtypes = [_I] * 6
     fn.restype = _I
     return fn(B, H, P, fused_ann._MODE_ID[mode], int(mxu_bf16), cluster)

@@ -248,9 +248,8 @@ def add_training_options(parser):
         "--profile_dir",
         type=str,
         default=None,
-        help="If set, capture a profiler trace of the first training "
-        "epoch into this directory. run_exp_torch.py refuses it until "
-        "the port has its tracing.",
+        help="If set, capture a profiler trace (torch.profiler, a Chrome "
+        "trace) of the first training epoch into this directory.",
     )
     parser.add_argument(
         "--workers",
@@ -270,10 +269,9 @@ def add_training_options(parser):
         "--compile_cache",
         type=str,
         default=None,
-        help="Persistent compilation-cache directory of the JAX "
-        "package's runs. 'true' enables the default per-user directory, "
-        "'false' disables. run_exp_torch.py refuses any value that "
-        "enables it.",
+        help="Directory in which the CUDA kernels are built and loaded. "
+        "'true' takes a per-user directory under the temporary "
+        "directory; 'false' or unset, build/kernels in the checkout.",
     )
     parser.add_argument(
         "--frontend",

@@ -15,7 +15,11 @@ CUDA card unless the caller asks for another):
   resumed run continues bit for bit;
 - with ``--frontend device`` (HD/SC) the loader ships padded waveforms and
   their frame counts, and the model, wrapped in ``FbankFrontend``, computes
-  the fbank on the card.
+  the fbank on the card;
+- ``--compile_cache`` sets where the CUDA kernels are built and loaded
+  (``utils/cache.py``) before the model is built, and ``--profile_dir``
+  captures a ``torch.profiler`` trace of the first training epoch
+  (``utils/profiling.py``).
 
 Flags whose paths the port does not have yet raise ``NotImplementedError``
 before anything is written (``refuse_unported``).
@@ -45,11 +49,11 @@ from sparch_tpu_torch.train.checkpoint import (
 from sparch_tpu_torch.train.schedule import ReduceLROnPlateau
 from sparch_tpu_torch.train.state import create_train_state
 from sparch_tpu_torch.train.steps import make_eval_step, make_train_step
+from sparch_tpu_torch.utils.cache import use_compile_cache
 from sparch_tpu_torch.utils.device import resolve_device
+from sparch_tpu_torch.utils.profiling import trace
 
 __all__ = ["Experiment", "refuse_unported"]
-
-_FALSY = ("false", "0", "no", "off", "none", "")
 
 
 def refuse_unported(args) -> None:
@@ -65,15 +69,6 @@ def refuse_unported(args) -> None:
         raise NotImplementedError(
             "--seq_parallel needs the sequence pipeline (ROADMAP queue 1 "
             "item 8, parallel/seqpipe.py)")
-    cache = getattr(args, "compile_cache", None)
-    if cache is not None and str(cache).lower() not in _FALSY:
-        raise NotImplementedError(
-            "--compile_cache is not ported (ROADMAP queue 1 item 9, "
-            "utils/cache.py)")
-    if getattr(args, "profile_dir", None) is not None:
-        raise NotImplementedError(
-            "--profile_dir is not ported (ROADMAP queue 1 item 9, "
-            "utils/profiling.py)")
 
 
 class Experiment:
@@ -139,6 +134,11 @@ class Experiment:
         # recorded in the model record; the port draws from one
         # torch.Generator whatever it says
         self.prng_impl = getattr(args, "prng_impl", "rbg")
+        self.profile_dir = getattr(args, "profile_dir", None)
+        # where the kernels are built and loaded: the directory the flag
+        # names, or build/kernels where it is unset or false
+        self.kernel_dir = use_compile_cache(
+            getattr(args, "compile_cache", None))
         self.frontend = getattr(args, "frontend", "host")
         if self.frontend == "device" and self.dataset_name not in ("hd", "sc"):
             logging.warning(
@@ -508,8 +508,12 @@ class Experiment:
 
             logging.info("\n------ Begin training ------\n")
 
+            first_epoch = best_epoch + 1  # best_epoch changes in the loop
             for e in range(best_epoch + 1, best_epoch + self.nb_epochs + 1):
-                self.train_one_epoch(e)
+                # a profiler trace of the first epoch, if asked for
+                with trace(self.profile_dir if e == first_epoch else None,
+                           self.device):
+                    self.train_one_epoch(e)
                 best_epoch, best_acc = self.valid_one_epoch(e, best_epoch, best_acc)
 
             logging.info(f"\nBest valid acc at epoch {best_epoch}: {best_acc}\n")

@@ -1,1 +1,2 @@
-"""Utilities: device timing."""
+"""Utilities: device timing, the kernels' build directory
+(``--compile_cache``), profiler traces (``--profile_dir``)."""

@@ -96,13 +96,18 @@ def test_readout_closed_form_matches_its_scan():
 
 
 def test_port_imports_no_jax():
-    """The port never imports jax, flax or sparch_tpu."""
+    """The port, chip_smoke.py and the port's tools never import jax,
+    flax or sparch_tpu."""
     code = (
         "import sys\n"
         "import sparch_tpu_torch, sparch_tpu_torch._build, "
         "sparch_tpu_torch.convert, sparch_tpu_torch.models, "
         "sparch_tpu_torch.ops.fused_cells, sparch_tpu_torch.serve, "
-        "sparch_tpu_torch.utils.timing\n"
+        "sparch_tpu_torch.utils.timing, sparch_tpu_torch.migrate, "
+        "sparch_tpu_torch.utils.cache, sparch_tpu_torch.utils.profiling, "
+        "sparch_tpu_torch.train.loop, run_exp_torch, chip_smoke\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import import_torch_checkpoint_torch, fuzz_kernels_torch\n"
         "bad = [m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'flax', 'sparch_tpu')]\n"
         "assert not bad, bad\n"

@@ -1,9 +1,9 @@
 """The port's CLI flags (``sparch_tpu_torch.parsers``, ``run_exp_torch.py``)
 against the JAX package's: every action's option strings, dest, type,
 default and choices, found by introspecting both parsers; ``strtobool``;
-the printed options; and the flags the port refuses, each raising
+the printed options; the flags the port refuses, each raising
 ``NotImplementedError`` naming its ROADMAP item before any folder is
-made."""
+made; and the flags of ROADMAP item 9, accepted and acted on."""
 import argparse
 import logging
 import os
@@ -100,9 +100,6 @@ REFUSED = [
     (["--cell_impl", "pallas_tp"], "item 7"),
     (["--mesh_model", "2"], "item 7"),
     (["--seq_parallel", "2"], "item 8"),
-    (["--compile_cache", "cache_dir"], "item 9"),
-    (["--compile_cache", "true"], "item 9"),
-    (["--profile_dir", "trace_dir"], "item 9"),
 ]
 
 
@@ -114,6 +111,53 @@ def test_refused_flags_raise_naming_their_item(tmp_path, argv, item):
     with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
         Experiment(args, device="cpu")
     assert not os.path.exists(exp)
+
+
+# ported with utils/cache.py and utils/profiling.py: accepted, and a run
+# acts on them
+ITEM_9 = [["--compile_cache", "cache_dir"], ["--compile_cache", "true"],
+          ["--profile_dir", "trace_dir"]]
+
+
+@pytest.fixture(scope="module")
+def shd(tmp_path_factory):
+    from tests.fixtures import make_shd_h5
+
+    d = tmp_path_factory.mktemp("shd")
+    make_shd_h5(str(d / "shd_train.h5"), n=8, nb_classes=4, seed=0)
+    make_shd_h5(str(d / "shd_test.h5"), n=4, nb_classes=4, seed=1)
+    return str(d)
+
+
+@pytest.mark.parametrize("argv", ITEM_9, ids=[" ".join(a) for a in ITEM_9])
+def test_item9_flags_are_accepted_and_run(shd, tmp_path, monkeypatch, argv):
+    """The flags that were refused until their modules were ported: a
+    one-epoch run builds its kernels in the cache's directory (a relative
+    path from the working directory, 'true' the per-user default) or
+    writes a profiler trace of its first epoch."""
+    from sparch_tpu_torch.utils import cache
+
+    monkeypatch.chdir(tmp_path)
+    args = run_exp_torch.parse_args(argv + [
+        "--dataset_name", "shd", "--data_folder", shd, "--batch_size", "4",
+        "--nb_hiddens", "8", "--nb_layers", "2", "--nb_epochs", "1",
+        "--new_exp_folder", str(tmp_path / "exp")])
+    refuse_unported(args)
+    try:
+        exp = Experiment(args, device="cpu")
+        exp.forward()
+        kernel_dir = exp.kernel_dir
+    finally:
+        cache.use_compile_cache(None)
+    want = {"cache_dir": tmp_path / "cache_dir",
+            "true": cache.default_cache_dir()}.get(args.compile_cache)
+    if want is None:
+        assert kernel_dir == cache.use_compile_cache(None)
+        assert len(list((tmp_path / "trace_dir").glob("trace_*.json"))) == 1
+    else:
+        assert str(kernel_dir) == os.path.realpath(want)
+        assert not (tmp_path / "trace_dir").exists()
+    assert [h["split"] for h in exp.history] == ["train", "valid", "test"]
 
 
 @pytest.mark.parametrize("argv", [
