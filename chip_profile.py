@@ -6,8 +6,8 @@ card.
 
 With phase names (``sweep``, ``profile``, ``h2d``, ``bwd_sweep``,
 ``profile_training``, ``bf16``, ``tp_exchange``, ``spiking_bwd``,
-``spiking_fwd``, ``dv_products``, ``readout_phases``, ``ab=DIR``,
-``bits=DIR``) only those
+``spiking_fwd``, ``dv_products``, ``readout_phases``, ``collectives``,
+``collective_forms``, ``ab=DIR``, ``bits=DIR``) only those
 run. Prints
 JSON lines (tables of the profiler in between), each measured in
 this run:
@@ -119,10 +119,21 @@ this run:
    35): per form (serving, training, backward) the median over blocks of
    each phase's ns, and the backward's last block's ticket and dalpha
    sum. The stamps cost a few instructions a phase.
+15. ``collectives``: the TP collectives like for like at B = 128, Hl =
+   256, P = 1, 2, 4, 8 and 1-8 rounds: each call from a CUDA graph, the
+   kernel alone (``torch.profiler``), an eager call, the lines fitted
+   through rounds 1, 2, 4, 8, beside ``library_ms`` and ``library_seq_ms``
+   (chip_smoke.py's); on any tree of the port.
+16. ``collective_forms``: this tree's collectives built as they ship (bulk
+   copies) and in their 16-byte vector form, timed in turns, both bit for
+   bit; each round split into push, fence, publish, spin, fetch and stage
+   from ``%globaltimer`` stamps (``COLL_STAMP``); the built form at other
+   rows a group.
 
 The ``ab`` phase also times the dV product of each backward at those four
-shapes in both modes (``dv_*`` in ``ms``: its ``split_ms`` share), in the
-same turns as the rest. Without a CUDA card it exits non-zero and prints
+shapes in both modes (``dv_*`` in ``ms``: its ``split_ms`` share), and the
+TP collectives at P = 1, 2, 4, 8 (each call from a CUDA graph, with a
+digest of its output), in the same turns as the rest. Without a CUDA card it exits non-zero and prints
 no result.
 """
 from __future__ import annotations
@@ -939,7 +950,7 @@ def graph_ms(fn, iters=20, repeats=5):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -977,6 +988,20 @@ with torch.no_grad():
             lambda: fused_cells._readout_cuda(Wx, alpha, u0, True))
         res[key + "_bwd"] = graph_ms(
             lambda: fused_cells._readout_bwd_cuda(gout, u_seq, alpha, u0))
+# the TP collectives at B = 128, Hl = 256, 3 rounds, P = 1, 2, 4, 8: the
+# bits of each output and the call's device time from a CUDA graph
+with torch.no_grad():
+    for P in (1, 2, 4, 8):
+        gen = torch.Generator(device=dev).manual_seed(31 + P)
+        x = torch.randn((smoke.B, P * 256), generator=gen, device=dev)
+        parts = torch.randn((P, smoke.B, P * 256), generator=gen, device=dev)
+        for key, fn, arg in (
+                ("tp_all_gather", fused_tp._tp_all_gather_cuda, x),
+                ("tp_reduce_scatter", fused_tp._tp_reduce_scatter_cuda,
+                 parts)):
+            dig[f"{key}_p{P}"] = digest([fn(arg, num_devices=P, rounds=3)])
+            res[f"{key}_p{P}"] = graph_ms(
+                lambda: fn(arg, num_devices=P, rounds=3))
 # training steps through the spiking kernels, both modes: the RadLIF
 # [512, 512, 35] auto and pallas trainers, and the bidirectional RadLIF
 # [1024, 1024, 35] trainer through auto and pallas_tp at P = 1, 2, 4 (losses
@@ -1080,13 +1105,14 @@ print(json.dumps({"phase": "ab", "tree": root, "ms": res, "digests": dig,
                   "code": code, "ptxas": ptxas}), flush=True)
 """
 
-# the libraries that the change to the readout pair leaves alone (value: a
-# pattern of the kernels left out of the comparison, or None): their code
+# the libraries that the change to the TP collectives leaves alone (value:
+# a pattern of the kernels left out of the comparison, or None): their code
 # must stay as the other tree compiles it
 AB_UNTOUCHED = {
     "fused_cell_fwd": None, "fused_cell_bwd": None, "fused_ann_fwd": None,
-    "fused_ann_bwd": None, "tp_collectives": None, "tp_cell_fwd": None,
-    "tp_cell_bwd": None, "tp_ann_fwd": None, "tp_ann_bwd": None,
+    "fused_ann_bwd": None, "readout_fwd": None, "readout_bwd": None,
+    "tp_cell_fwd": None, "tp_cell_bwd": None, "tp_ann_fwd": None,
+    "tp_ann_bwd": None,
 }
 
 
@@ -1617,6 +1643,236 @@ def readout_phases(dev):
                  **extra)
 
 
+def kernel_device_ms(fn, needle: str, n: int = 20) -> float:
+    """Mean device time (ms) of the kernels whose name holds ``needle``
+    over ``n`` calls of ``fn``, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.device_time for e in prof.events()
+             if e.device_type.name == "CUDA" and needle in e.name]
+    return 1e-3 * sum(times) / len(times) if times else None
+
+
+COLLECTIVE_PS = (1, 2, 4, 8)
+COLLECTIVE_ROUNDS = (1, 2, 3, 4, 8)  # the fit takes 1, 2, 4, 8
+
+
+def collectives(dev):
+    """Phase 15: the TP collectives like for like, at B = 128, Hl = 256,
+    P = 1, 2, 4, 8. Per P and kernel, at rounds 1, 2, 3, 4 and 8: the call
+    from a CUDA graph (``graph_ms``; a graph that cannot be captured gives
+    its error), the kernel's own device time (``kernel_ms``,
+    ``torch.profiler``, mean of 20 calls), an eager wrapper call
+    (``eager_ms``, CUDA events); the lines fitted through rounds 1, 2, 4,
+    8 (slope: a round, intercept: the launch); at 3 rounds ``library_ms``
+    and ``library_seq_ms`` (chip_smoke.py's) and the plan. Works on any
+    tree of the port (the parent's too)."""
+    import functools
+
+    import chip_smoke as cs
+    from sparch_tpu_torch.ops import fused_tp
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    kernels = {"tp_all_gather": (fused_tp._tp_all_gather_cuda,
+                                 cs.library_seq_all_gather, "all_gather"),
+               "tp_reduce_scatter": (fused_tp._tp_reduce_scatter_cuda,
+                                     cs.library_seq_reduce_scatter,
+                                     "reduce_scatter")}
+    for P in COLLECTIVE_PS:
+        args = cs.collective_inputs(dev, P)
+        x, parts = args
+        shards = [x[:, c] for c in fused_tp._shards(x.shape[1], P)]
+        library = (lambda: torch.cat(shards, dim=1),
+                   lambda: torch.sum(parts, dim=0))
+        for arg, lib, (name, (kernel, seq, needle)) in zip(
+                args, library, kernels.items()):
+            by = {k: {} for k in ("graph_ms", "kernel_ms", "eager_ms")}
+            for r in COLLECTIVE_ROUNDS:
+                call = functools.partial(kernel, arg, num_devices=P,
+                                         rounds=r)
+                try:
+                    by["graph_ms"][r] = cs.graph_ms(call)
+                except RuntimeError as e:
+                    by["graph_ms"][r] = f"{type(e).__name__}: {e}"[:200]
+                by["kernel_ms"][r] = kernel_device_ms(call, needle)
+                by["eager_ms"][r] = cuda_time_ms(call)
+            fits = {}
+            for k, v in by.items():
+                pts = [(r, v[r]) for r in cs.TP_COLL_FIT_ROUNDS
+                       if isinstance(v.get(r), float)]
+                if len(pts) > 1:
+                    fits[k] = dict(zip(("slope", "intercept"),
+                                       cs.fit_line(*zip(*pts))))
+            emit("collectives", kernel=name, P=P, batch_size=cs.B,
+                 block_per_rank=cs.TP_HL, by_rounds=by, fits=fits,
+                 library_ms=cs.graph_ms(lib),
+                 library_seq_ms=cs.graph_ms(functools.partial(
+                     seq, arg, P, cs.TP_ROUNDS)),
+                 plan=fused_tp.last_plans().get(name))
+
+
+# csrc/tp_collectives.cu's round phases (COLL_STAMP; by thread 0, the
+# handshake's by the lane of the next rank): 0 round start, 1 payload in
+# every slot, 2 release fence, 3 counts published, 4 that peer's count
+# seen (acquire), 5 every run landed, 6 round end
+_COLL_PHASES = ("push", "fence", "publish", "spin", "fetch", "stage")
+_COLL_STAMP_HEAD = r"""
+__device__ long long g_coll_stamps[4096 * 8 * 8];
+#define COLL_STAMP(round, k) do { if ((round) < 8) { \
+  unsigned long long t_; \
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_)); \
+  g_coll_stamps[(blockIdx.x * 8 + (round)) * 8 + (k)] = t_; } } while (0)
+extern "C" void* coll_stamps() {
+  void* p = nullptr;
+  cudaGetSymbolAddress(&p, g_coll_stamps);
+  return p;
+}
+"""
+
+
+def _collective_forms(out_dir):
+    """Copies of csrc/tp_collectives.cu built into ``out_dir``: the 16-byte
+    vector form (``SPARCH_COLL_BULK=0``) and both forms stamped; returns
+    {form: CDLL}."""
+    import ctypes
+
+    from sparch_tpu_torch import _build
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    head = out_dir / "coll_stamps.h"
+    head.write_text(_COLL_STAMP_HEAD)
+    src = _build.CSRC / "tp_collectives.cu"
+    forms = {"vector": ["-DSPARCH_COLL_BULK=0"],
+             "bulk_stamped": ["-include", str(head)],
+             "vector_stamped": ["-DSPARCH_COLL_BULK=0", "-include",
+                                str(head)]}
+    jobs = {}
+    for form, flags in forms.items():
+        lib = out_dir / f"libtp_collectives_{form}.so"
+        jobs[form] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-I",
+             str(_build.CSRC), "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for form, (lib, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"collectives: nvcc failed for {form}:\n{log}")
+        libs[form] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def _with_library(kernel, lib):
+    """``kernel`` (a ``_build.Kernel``) bound to another build of its
+    source, under the same name."""
+    import copy
+
+    k = copy.copy(kernel)
+    fn = getattr(lib, kernel.symbol)
+    fn.argtypes, fn.restype = kernel.argtypes, __import__("ctypes").c_int
+    k._fn = fn
+    return k
+
+
+def collective_forms(dev):
+    """Phase 16: the collectives' copy forms and round phases, on this
+    tree's source (which has them): at B = 128, Hl = 256, 3 rounds, P = 1,
+    2, 4, 8, the call from a CUDA graph in the built form (bulk copies)
+    and the 16-byte vector form, in turns (bulk, vector, vector, bulk);
+    each form's outputs bit for bit against the plain version; the rounds
+    of the stamped builds (``COLL_STAMP``): per phase the median over
+    blocks and rounds of its ns, and the median round; the built form's
+    graph time at other rows a group (half, twice and four times the
+    plan's)."""
+    import functools
+    import statistics
+
+    import chip_smoke as cs
+    from sparch_tpu_torch.ops import fused_tp
+
+    libs = _collective_forms(REPO / "build" / "collective_forms")
+    kinds = {"tp_all_gather": (fused_tp.TP_ALL_GATHER, False,
+                               fused_tp.tp_all_gather_plain),
+             "tp_reduce_scatter": (fused_tp.TP_REDUCE_SCATTER, True,
+                                   fused_tp.tp_reduce_scatter_plain)}
+    rounds = cs.TP_ROUNDS
+
+    def call(kernel, reduce, arg, P, plan):
+        B, H = arg.shape[-2:]
+        out = torch.empty((rounds, B, H) if reduce else (P, rounds, B, H),
+                          device=dev)
+        slots = torch.empty((P, 2, P, B, H // P), device=dev)
+        fused_tp._collective_launch(kernel, plan, arg, out, slots, P, rounds)
+        return out
+
+    for P in COLLECTIVE_PS:
+        args = cs.collective_inputs(dev, P)
+        for arg, (name, (kernel, reduce, plain)) in zip(args, kinds.items()):
+            B, H = arg.shape[-2:]
+            plan = fused_tp._card_collective_plan(B, H, P, reduce, dev.index)
+            want = plain(arg, num_devices=P, rounds=rounds)
+            forms = {"bulk": kernel,
+                     "vector": _with_library(kernel, libs["vector"])}
+            equal, ms = {}, {f: [] for f in forms}
+            for f, k in forms.items():
+                out = call(k, reduce, arg, P, plan)
+                torch.cuda.synchronize()
+                equal[f] = bool(torch.equal(out, want))
+            for f in ("bulk", "vector", "vector", "bulk"):
+                ms[f].append(cs.graph_ms(functools.partial(
+                    call, forms[f], reduce, arg, P, plan)))
+            phases = {}
+            for f in ("bulk", "vector"):
+                lib = libs[f + "_stamped"]
+                k = _with_library(kernel, lib)
+                for _ in range(5):  # the stamps of the last, warm launch
+                    call(k, reduce, arg, P, plan)
+                torch.cuda.synchronize()
+                lib.coll_stamps.restype = __import__("ctypes").c_void_p
+                view = type("Stamps", (), {})()
+                view.__cuda_array_interface__ = dict(
+                    shape=(4096, 8, 8), typestr="<i8",
+                    data=(lib.coll_stamps(), False), version=3)
+                st = torch.as_tensor(view, device=dev)[
+                    :P * plan.per_rank, :rounds, :7].clone().cpu()
+                d = st[:, :, 1:] - st[:, :, :-1]
+                phases[f] = dict(
+                    median_ns={n: int(statistics.median(
+                        d[:, :, i].flatten().tolist()))
+                        for i, n in enumerate(_COLL_PHASES)},
+                    median_round_ns=int(statistics.median(
+                        (st[:, :, 6] - st[:, :, 0]).flatten().tolist())),
+                    launch_ns=int(st[:, -1, 6].max() - st[:, 0, 0].min()))
+            by_rows = {}
+            for scale in (0.5, 2, 4):
+                rows = max(1, min(B, int(plan.rows * scale)))
+                if rows == plan.rows:
+                    continue
+                groups = -(-B // rows)
+                smem = fused_tp._collective_smem(rows, H, P, reduce)
+                if smem > fused_tp._COLL_SMEM:
+                    continue
+                held = fused_tp.collective_blocks(reduce, smem)
+                per_rank = min(groups, held * torch.cuda.get_device_properties(
+                    dev).multi_processor_count // P)
+                if per_rank < 1:
+                    continue
+                alt = fused_tp.CollectivePlan(
+                    rows, groups, per_rank, -(-groups // per_rank), held,
+                    smem, plan.threads)
+                by_rows[rows] = cs.graph_ms(functools.partial(
+                    call, kernel, reduce, arg, P, alt))
+            emit("collective_forms", kernel=name, P=P, rounds=rounds,
+                 plan=plan._asdict(), bit_equal=equal, graph_ms=ms,
+                 phases=phases, graph_ms_by_rows=by_rows)
+
+
 def h2d(dev):
     import chip_smoke as cs
 
@@ -1669,6 +1925,8 @@ def main() -> int:
         "spiking_fwd": spiking_fwd,
         "dv_products": dv_products,
         "readout_phases": readout_phases,
+        "collectives": collectives,
+        "collective_forms": collective_forms,
     }
     chosen = sys.argv[1:] or list(phases)
     unknown = [name for name in chosen

@@ -247,10 +247,19 @@ all at once), then prints one JSON line per phase:
    form: all P ranks of a mesh that repeats the card P times run in one
    cooperative launch, exchanging through buffers in the card's memory.
    ``tp_collectives``: the all-gather and reduce-scatter harnesses at
-   B=128, Hl=256, 3 rounds, P = 1, 2, 4, bit for bit against their plain
-   versions, twice; ``library_ms``: one round of each function as one
-   PyTorch call (``torch.cat`` of the P shards; ``torch.sum`` of the P
-   partials over ranks) timed from a CUDA graph as ``graph_ms`` times.
+   B=128, Hl=256, 3 rounds, P = 1, 2, 4 (the path, counted) and 8, bit
+   for bit against their plain versions, twice; at a ragged B = 13 and
+   rounds 1 and 5; and a CUDA graph of one call of each replayed twice
+   with no zeroing between, bit for bit. Times, from a CUDA graph
+   (``graph_ms``) unless named: the kernel (``ms``), an eager wrapper call
+   (``eager_ms``, CUDA events), the plain version, ``library_ms`` (one
+   round of each function as one PyTorch call: ``torch.cat`` of the P
+   shards; ``torch.sum`` of the P partials over ranks), ``library_seq_ms``
+   (the whole harness, every round and every rank's output, in PyTorch
+   calls: ``library_seq_all_gather``, ``library_seq_reduce_scatter``), and
+   the kernel at rounds 1, 2, 4, 8 with the line fitted through them
+   (``rounds_slope_ms``: one round; ``rounds_intercept_ms``: the launch);
+   the plan (``fused_tp.last_plans``).
 17. ``kernel_vs_plain`` for ``tp_cell_fwd``: RLIF and RadLIF at P = 1, 2, 4
    on the main path's shape (B_eff=256, T=100, H=1024) and a small one
    (8, 13, P*128), V on the 2^-8 grid: spikes and membrane series bit for
@@ -329,8 +338,9 @@ all at once), then prints one JSON line per phase:
    product, this one before it; no PyTorch call exchanges inside a
    recurrence), so their ``library_ms`` is null; the dV product that each
    backward runs after its time loop is one ``torch.matmul``, timed as
-   ``dv_library_ms``. The TP collectives' ``library_ms`` is one round of
-   their function in one call (phase 16). Rows 1-5 add
+   ``dv_library_ms``. The TP collectives' ``ms`` is their time from a
+   CUDA graph, their ``library_ms`` one round of their function in one
+   call and ``library_seq_ms`` the whole harness (phase 16). Rows 1-5 add
    ``launches_experiment``, their launches in the fresh run of phase 8b,
    ``launches_audio``, their launches in the SC flagship's run of phase
    8c, and, with the GRU's forward, ``launches_migrate``: the served
@@ -342,6 +352,7 @@ if any phase fails, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import re
 import shutil
@@ -633,14 +644,15 @@ def graph_ms(fn, *args, iters=20, repeats=5):
     """Median ms per call of ``fn(*args)`` replayed from a CUDA graph of
     ``iters`` calls: the device time of a kernel that runs shorter than
     its launch costs the host (``cuda_time_ms`` of such a call times the
-    host)."""
+    host). The graph is captured on the stream of the warm-up call (the
+    TP collectives keep their exchange counters by stream)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn(*args)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn(*args)
     graph.replay()
@@ -3604,31 +3616,95 @@ def tp_mesh(dev, P):
     return make_mesh([dev] * P, model=P)
 
 
+TP_COLL_PS = TP_PS + (8,)  # and the most ranks the collectives take
+TP_COLL_CASES = ((13, 1), (13, 5), (128, 1), (128, 5))  # (B, rounds)
+TP_COLL_FIT_ROUNDS = (1, 2, 4, 8)
+
+
+def library_seq_all_gather(x, P, rounds):
+    """``tp_all_gather``'s whole output in PyTorch calls, its rounds
+    chained as the kernel chains them: each round's plane is the last
+    round's + 1 (every rank's own block of the last gather + 1), copied
+    into every rank's plane. Bit for bit with the plain version."""
+    out = x.new_empty((P, rounds) + tuple(x.shape))
+    plane = x
+    for r in range(rounds):
+        if r:
+            plane = out[0, r - 1] + 1.0
+        out[:, r] = plane
+    return out
+
+
+def library_seq_reduce_scatter(parts, P, rounds):
+    """``tp_reduce_scatter``'s whole output in PyTorch calls, chained: round
+    r sums ``parts[q] + acc_{r-1}[:, first column of q]`` over the ranks
+    (one ``torch.sum``, in its own order)."""
+    _, B, H = parts.shape
+    out = parts.new_empty((rounds, B, H))
+    for r in range(rounds):
+        stage = parts if r == 0 else parts + out[r - 1].view(
+            B, P, H // P)[:, :, 0].t().unsqueeze(-1)
+        torch.sum(stage, dim=0, out=out[r])
+    return out
+
+
+def fit_line(xs, ys):
+    """Least-squares slope and intercept of ys over xs."""
+    slope, intercept = np.polyfit(np.asarray(xs, float),
+                                  np.asarray(ys, float), 1)
+    return float(slope), float(intercept)
+
+
+def graph_replays(fn, *args, n=2):
+    """The output of a CUDA graph of one call of ``fn(*args)`` after each
+    of ``n`` replays (nothing reset between them), captured on the stream
+    of a warm-up call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fn(*args)
+    outs = []
+    for _ in range(n):
+        graph.replay()
+        torch.cuda.synchronize()
+        outs.append(out.clone())
+    return outs
+
+
+def collective_inputs(dev, P, b=B, seed=31):
+    g = torch.Generator(device=dev).manual_seed(seed + P)
+    return (torch.randn((b, P * TP_HL), generator=g, device=dev),
+            torch.randn((P, b, P * TP_HL), generator=g, device=dev))
+
+
 def phase_tp_collectives(dev):
-    """Both exchange harnesses at B=128, Hl=256, 3 rounds, P = 1, 2, 4.
-    Their path: one call of each entry point per P, with the counters set
-    to 0 just before and read just after. Each result bit for bit against
-    its plain version, and a second launch alike. Returns (launches, rows
-    by P)."""
+    """Both exchange harnesses at B=128, Hl=256, 3 rounds, P = 1, 2, 4, 8.
+    Their path: one call of each entry point per P of TP_PS, with the
+    counters set to 0 just before and read just after. Each result bit for
+    bit against its plain version, and a second launch alike; B = 13 and
+    rounds 1 and 5 alike; a CUDA graph of a call replayed twice, bit for
+    bit. Returns (launches, rows by P)."""
     from sparch_tpu_torch.ops import fused_cells, fused_tp
     from sparch_tpu_torch.utils.timing import cuda_time_ms
 
-    g = torch.Generator(device=dev).manual_seed(31)
-    inputs = {P: (torch.randn((B, P * TP_HL), generator=g, device=dev),
-                  torch.randn((P, B, P * TP_HL), generator=g, device=dev))
-              for P in TP_PS}
+    inputs = {P: collective_inputs(dev, P) for P in TP_COLL_PS}
     names = ("tp_all_gather", "tp_reduce_scatter")
     fused_cells.reset_launch_counts()
     got = {P: (fused_tp.tp_all_gather(x, num_devices=P, rounds=TP_ROUNDS),
                fused_tp.tp_reduce_scatter(parts, num_devices=P,
                                           rounds=TP_ROUNDS))
-           for P, (x, parts) in inputs.items()}
+           for P, (x, parts) in inputs.items() if P in TP_PS}
     torch.cuda.synchronize()
     counts = fused_cells.launch_counts()
     want = {k: len(TP_PS) if k in names else 0 for k in counts}
     check(counts == want, f"tp_collectives: kernel launches {counts}")
     kernels = (fused_tp._tp_all_gather_cuda, fused_tp._tp_reduce_scatter_cuda)
     plains = (fused_tp.tp_all_gather_plain, fused_tp.tp_reduce_scatter_plain)
+    seqs = (library_seq_all_gather, library_seq_reduce_scatter)
     rows = {}
     for P, args in inputs.items():
         kw = dict(num_devices=P, rounds=TP_ROUNDS)
@@ -3639,25 +3715,52 @@ def phase_tp_collectives(dev):
         shards = [x[:, c] for c in fused_tp._shards(x.shape[1], P)]
         library = (lambda: torch.cat(shards, dim=1),
                    lambda: torch.sum(parts, dim=0))
-        for name, arg, out, kernel, plain, lib in zip(
-                names, args, got[P], kernels, plains, library):
+        small = collective_inputs(dev, P, b=TP_COLL_CASES[0][0], seed=37)
+        for i, (name, arg, kernel, plain, seq, lib) in enumerate(zip(
+                names, args, kernels, plains, seqs, library)):
             want_out = plain(arg, **kw)
+            out = got[P][i] if P in got else kernel(arg, **kw)
             again = kernel(arg, **kw)
+            plan = fused_tp.last_plans()[name]
             torch.cuda.synchronize()
             check(torch.equal(out, want_out),
                   f"{name} P={P}: differs from its plain version")
             check(torch.equal(again, out),
                   f"{name} P={P}: two launches differ")
+            for b, rounds in TP_COLL_CASES:
+                a = small[i] if b < B else arg
+                check(torch.equal(
+                    kernel(a, num_devices=P, rounds=rounds),
+                    plain(a, num_devices=P, rounds=rounds)),
+                    f"{name} P={P} B={b} rounds={rounds}: differs from "
+                    f"its plain version")
+            call = functools.partial(kernel, arg, **kw)
+            for k, replayed in enumerate(graph_replays(call)):
+                check(torch.equal(replayed, want_out),
+                      f"{name} P={P}: graph replay {k} differs")
+            seq_out = seq(arg, P, TP_ROUNDS)
+            check(torch.allclose(seq_out, want_out, rtol=1e-5, atol=1e-5),
+                  f"{name} P={P}: the library's form differs")
+            by_rounds = {r: graph_ms(functools.partial(
+                kernel, arg, num_devices=P, rounds=r))
+                for r in TP_COLL_FIT_ROUNDS}
+            slope, intercept = fit_line(list(by_rounds),
+                                        list(by_rounds.values()))
             rows[P][name] = dict(
                 max_abs_err=float((out - want_out).abs().max()),
-                plan=fused_tp.last_plans()[name],
-                ms=cuda_time_ms(lambda: kernel(arg, **kw)),
-                plain_ms=cuda_time_ms(lambda: plain(arg, **kw),
+                plan=plan,
+                ms=graph_ms(call),
+                eager_ms=cuda_time_ms(call),
+                plain_ms=cuda_time_ms(functools.partial(plain, arg, **kw),
                                       **PLAIN_ROUNDS),
-                library_ms=graph_ms(lib))
+                library_ms=graph_ms(lib),
+                library_seq_ms=graph_ms(seq, arg, P, TP_ROUNDS),
+                ms_by_rounds=by_rounds, rounds_slope_ms=slope,
+                rounds_intercept_ms=intercept)
     emit("tp_collectives", batch_size=B, block_per_rank=TP_HL,
          rounds=TP_ROUNDS, one_card_form=True, bit_equal_to_plain=True,
-         two_launches_bit_equal=True,
+         two_launches_bit_equal=True, graph_replays_bit_equal=True,
+         cases=[list(c) for c in TP_COLL_CASES],
          launches={k: n for k, n in counts.items() if n},
          **{f"P{P}": r for P, r in rows.items()})
     return counts, rows
@@ -4074,7 +4177,8 @@ def vs_float32_tp(dev, state_dict, x, y, kept, **run):
 def tp_kernel_rows(coll_launches, coll, fwd, bwd, trained):
     """The ``kernels`` entries of the TP path. Times at P = 4 (all four
     ranks in one launch on the one card), each P's beside it; launches:
-    the collectives' path (one call per P) and the P = 4 trainer's run."""
+    the collectives' path (one call per P of TP_PS) and the P = 4
+    trainer's run."""
     src = "sparch_tpu_torch/csrc/"
     tpu = "sparch_tpu/ops/pallas_tp.py:"
     P = TP_PS[-1]
@@ -4094,10 +4198,14 @@ def tp_kernel_rows(coll_launches, coll, fwd, bwd, trained):
             replaces=tpu + line, launches=coll_launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             **coll_bounds[name], library_ms=r["library_ms"],
-            library_rounds=1, one_card_form=True, P=P, shape=[B, h],
-            rounds=TP_ROUNDS,
-            ms_by_p={q: coll[q][name]["ms"] for q in TP_PS},
-            plain_ms_by_p={q: coll[q][name]["plain_ms"] for q in TP_PS}))
+            library_rounds=1, library_seq_ms=r["library_seq_ms"],
+            eager_ms=r["eager_ms"], rounds_slope_ms=r["rounds_slope_ms"],
+            rounds_intercept_ms=r["rounds_intercept_ms"], plan=r["plan"],
+            one_card_form=True, P=P, shape=[B, h], rounds=TP_ROUNDS,
+            **{f"{k}_by_p": {q: coll[q][name][k] for q in TP_COLL_PS}
+               for k in ("ms", "eager_ms", "plain_ms", "library_ms",
+                         "library_seq_ms", "rounds_slope_ms",
+                         "rounds_intercept_ms")}))
     return rows + tp_cell_rows(fwd, bwd, trained)
 
 

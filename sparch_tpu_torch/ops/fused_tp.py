@@ -54,7 +54,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -131,7 +131,7 @@ _PLANS: Dict[str, Union[Tuple[int, ...], dict]] = {}
 
 def last_plans() -> Dict[str, Union[Tuple[int, ...], dict]]:
     """The launch plan of each kernel's last launch: the collectives'
-    (blocks per rank, blocks per SM), the spiking forward's
+    (``CollectivePlan``'s fields), the spiking forward's
     (``fused_cells.FwdPlan``'s fields, as ``fused_cells.last_plans`` holds
     them), the spiking backward's (``last_bwd_plan``) and the non-spiking
     cells' as ``fused_tp_ann.last_plan`` names them."""
@@ -252,14 +252,151 @@ def _launch(kernel: Kernel, dev, *args, n_plan: int):
     return tuple(plan)
 
 
+class CollectivePlan(NamedTuple):
+    """A launch of ``csrc/tp_collectives.cu``: a block owns ``rows`` batch
+    rows of one rank; ``groups`` = ceil(B / rows) groups a rank, of which
+    ``per_rank`` run at once and ``walks`` one after another;
+    ``per_sm`` blocks of ``smem`` bytes an SM holds."""
+
+    rows: int
+    groups: int
+    per_rank: int
+    walks: int
+    per_sm: int
+    smem: int
+    threads: int
+
+
+# csrc/tp_collectives.cu: threads a block, and the dynamic shared memory a
+# block may take (kSmemMax); csrc/tp_exchange.cuh kMaxRanks
+_COLL_THREADS = 256
+_COLL_SMEM = 232448 - 1024
+_MAX_RANKS = 8
+# the most rows a group takes (chip_profile.py collective_forms' sweep of
+# the rows a group, PERF.md: at P = 8 four rows two blocks an SM beat
+# eight rows one)
+_COLL_MAX_ROWS = 4
+
+
+def _collective_smem(rows: int, H: int, P: int, reduce: bool) -> int:
+    """Bytes of shared memory of a collective's block of ``rows`` rows:
+    all-gather the payload and two gathered stages, reduce-scatter the
+    partial, the payload, the arrivals and two reduced stages."""
+    hl = H // P
+    return 4 * rows * ((3 * H + 2 * hl) if reduce else (hl + 2 * H))
+
+
+def _collective_plan(B: int, H: int, P: int, reduce: bool, sms: int,
+                     per_sm: Callable[[int], int]) -> CollectivePlan:
+    """Rows a block and blocks a rank of a collective on a card of ``sms``
+    SMs, ``per_sm(smem)`` the blocks an SM holds at ``smem`` bytes: the
+    fewest rows that spread the P ranks' groups over about one block an SM,
+    at most ``_COLL_MAX_ROWS`` and what shared memory holds; every group at
+    once where the card holds them, else the blocks of a rank walk them."""
+    if not 1 <= P <= _MAX_RANKS:
+        raise ValueError(f"TP collective: 1 to {_MAX_RANKS} ranks, got {P}")
+    fit = _COLL_SMEM // _collective_smem(1, H, P, reduce)
+    if fit < 1:
+        raise ValueError(f"TP collective: a row of H={H} over {P} ranks "
+                         f"does not fit in a block's shared memory")
+    rows = max(1, min(-(-P * B // sms), _COLL_MAX_ROWS, fit, B))
+    groups = -(-B // rows)
+    smem = _collective_smem(rows, H, P, reduce)
+    held = per_sm(smem)
+    per_rank = min(groups, held * sms // P)
+    if per_rank < 1:
+        raise ValueError(f"TP collective: the card holds {held} blocks of "
+                         f"{smem} bytes an SM, too few for {P} ranks")
+    return CollectivePlan(rows, groups, per_rank, -(-groups // per_rank),
+                          held, smem, _COLL_THREADS)
+
+
+@functools.lru_cache(maxsize=None)
+def collective_blocks(reduce: bool, smem: int) -> int:
+    """Blocks of a collective with ``smem`` bytes an SM of the current card
+    holds (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    from sparch_tpu_torch import _build
+
+    fn = _build.load("tp_collectives").sparch_tp_collective_blocks
+    fn.argtypes = [_I, _I]
+    fn.restype = _I
+    return fn(int(reduce), smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_collective_plan(B: int, H: int, P: int, reduce: bool,
+                          device_index: int) -> CollectivePlan:
+    """``_collective_plan`` on the card ``device_index``, once a shape."""
+    with torch.cuda.device(device_index):
+        sms = torch.cuda.get_device_properties(
+            device_index).multi_processor_count
+        return _collective_plan(B, H, P, reduce, sms,
+                                lambda smem: collective_blocks(reduce, smem))
+
+
+# The collectives' exchange counters, by (device, stream): zeroed once when
+# allocated, left zero by every launch (each block zeroes its own after its
+# last exchange), never freed (a CUDA graph keeps their address). Sized for
+# the most any plan takes: P * P ranks' counters of at most 2048 / threads
+# blocks an SM, two parities.
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+# keys whose launch raised: zeroed before the next call (a spin that traps
+# after its timeout leaves the CUDA context unusable instead)
+_STALE: set = set()
+
+
+def _counters(dev, stream) -> torch.Tensor:
+    key = (dev.index, stream.cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "TP collectives: call once on this stream before capturing "
+                "it in a CUDA graph (the exchange counters are allocated "
+                "and zeroed then)")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        words = 2 * _MAX_RANKS * (2048 // _COLL_THREADS) * sms
+        buf = _COUNTERS[key] = torch.zeros(words, dtype=torch.int32,
+                                           device=dev)
+    elif key in _STALE:
+        buf.zero_()
+        _STALE.discard(key)
+    return buf
+
+
+def _collective_launch(kernel: Kernel, plan: CollectivePlan, x, out, slots,
+                       P: int, rounds: int) -> None:
+    """One launch of a collective in the one-card form (every rank here,
+    rank q's slots and counters at index q)."""
+    dev = x.device
+    B, H = x.shape[-2:]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev)
+        counters = _counters(dev, stream)
+        span = 4 * P * plan.per_rank * 2  # bytes of a rank's counters
+        slot_ptrs = (ctypes.c_void_p * P)(*[slots[q].data_ptr()
+                                            for q in range(P)])
+        flag_ptrs = (ctypes.c_void_p * P)(*[counters.data_ptr() + q * span
+                                            for q in range(P)])
+        try:
+            kernel(x.data_ptr(), out.data_ptr(), slot_ptrs, flag_ptrs, B, H,
+                   P, 0, P, H, rounds,
+                   (ctypes.c_int * 2)(plan.rows, plan.per_rank),
+                   stream.cuda_stream)
+        except RuntimeError:
+            _STALE.add((dev.index, stream.cuda_stream))
+            raise
+    _PLANS[kernel.name] = plan._asdict()
+
+
 def _tp_all_gather_cuda(x, *, num_devices: int, rounds: int = 3):
     B, H = x.shape
     P, dev = num_devices, x.device
     fused_cells._check("x", x, (B, H), dev)
+    plan = _card_collective_plan(B, H, P, False, dev.index)
     out = torch.empty((P, rounds, B, H), dtype=torch.float32, device=dev)
-    bufs = _exchange_buffers((2, B, H), torch.float32, P, B, dev)
-    _launch(TP_ALL_GATHER, dev, x.data_ptr(), out.data_ptr(), bufs[2],
-            bufs[3], B, H, P, 0, P, H, rounds, n_plan=2)
+    slots = torch.empty((P, 2, P, B, H // P), dtype=torch.float32, device=dev)
+    _collective_launch(TP_ALL_GATHER, plan, x, out, slots, P, rounds)
     return out
 
 
@@ -267,10 +404,10 @@ def _tp_reduce_scatter_cuda(parts, *, num_devices: int, rounds: int = 3):
     P, B, H = parts.shape
     dev = parts.device
     fused_cells._check("parts", parts, (num_devices, B, H), dev)
+    plan = _card_collective_plan(B, H, P, True, dev.index)
     out = torch.empty((rounds, B, H), dtype=torch.float32, device=dev)
-    bufs = _exchange_buffers((2, P, B, H // P), torch.float32, P, B, dev)
-    _launch(TP_REDUCE_SCATTER, dev, parts.data_ptr(), out.data_ptr(),
-            bufs[2], bufs[3], B, H, P, 0, P, H, rounds, n_plan=2)
+    slots = torch.empty((P, 2, P, B, H // P), dtype=torch.float32, device=dev)
+    _collective_launch(TP_REDUCE_SCATTER, plan, parts, out, slots, P, rounds)
     return out
 
 

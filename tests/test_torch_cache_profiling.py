@@ -190,3 +190,30 @@ def test_plan_faults_find_a_bad_plan():
     bad = plan._replace(clusters=plan.clusters + 1)
     assert fuzz.plan_faults(case, {"fwd": bad}, 132)
     assert fuzz.plan_faults(case, {"fwd": plan._replace(cols=1)}, 132)
+
+
+@pytest.mark.parametrize("sms,cap", [(132, 8), (114, 2), (66, 1)])
+def test_fuzz_collective_plans_hold(sms, cap):
+    """The TP collectives' draws (P up to 8, B up to 300, H/P up to 1024,
+    1-6 rounds) get plans without faults at any SM count and occupancy,
+    and a plan that does not cover its rows or fit the card is caught."""
+    seen = set()
+    for k in range(400):
+        case = fuzz.draw_case(1, k)
+        if case["family"] not in fuzz.COLLECTIVES:
+            continue
+        seen.add((case["family"], case["P"]))
+        plans = fuzz.plans_of(
+            case, sms, smem_per_sm, None,
+            lambda reduce, smem: min(cap, fuzz.collective_blocks_model(
+                reduce, smem)))
+        assert fuzz.plan_faults(case, plans, sms) == [], fuzz.case_name(case)
+        assert 1 <= case["rounds"] <= 6 and 1 <= case["B"] <= 300
+        assert case["H"] % (case["P"] * 128) == 0
+        assert case["H"] // case["P"] <= 1024
+    assert {P for _, P in seen} == set(range(1, 9))
+    bad = plans["coll"]._replace(rows=plans["coll"].rows + 1)
+    assert fuzz.plan_faults(case, {"coll": bad}, sms)
+    bad = plans["coll"]._replace(per_rank=plans["coll"].per_sm * sms)
+    assert fuzz.plan_faults(case, {"coll": bad}, sms)
+

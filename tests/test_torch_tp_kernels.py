@@ -6,8 +6,10 @@ plain TP cell at any P equals the single-card plain fused cell without the
 affine, bit for bit; the checks the JAX package makes raise here too.
 
 On a card (tests marked ``cuda``, which skip without one), in the one-card
-form at P = 1, 2, 4: the exchange harnesses equal their plain versions bit
-for bit, launch after launch; the TP forward's spikes and membrane series
+form: the exchange harnesses equal their plain versions bit for bit at P =
+1, 2, 3, 4, 8, ragged B and rounds 1-5, launch after launch and replayed
+from a CUDA graph with nothing zeroed between; at P = 1, 2, 4 the TP
+forward's spikes and membrane series
 equal the plain version's and the single-card kernel's bit for bit (V on a
 dyadic grid, s0 on sixteenths, so every product is exact); every gradient
 of the TP backward agrees with the plain backward on the same residuals to
@@ -172,28 +174,97 @@ def test_tp_checks_raise():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("P", PS)
-@pytest.mark.parametrize("B,Hl", [(8, 128), (128, 256)])
-def test_collectives_match_plain_on_card(cuda, P, B, Hl):
-    rng = np.random.default_rng(P)
+def collective_inputs(P, B, Hl, device):
+    rng = np.random.default_rng(P * 1000 + B)
     H = P * Hl
-    x = torch.from_numpy(rng.normal(0, 1, (B, H)).astype(np.float32)).to(cuda)
-    parts = torch.from_numpy(rng.normal(0, 1, (P, B, H)).astype(
-        np.float32)).to(cuda)
-    want_ag = fused_tp.tp_all_gather_plain(x, num_devices=P, rounds=3)
+    x = torch.from_numpy(rng.normal(0, 1, (B, H)).astype(np.float32))
+    parts = torch.from_numpy(rng.normal(0, 1, (P, B, H)).astype(np.float32))
+    return x.to(device), parts.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", (1, 2, 3, 4, 8))
+@pytest.mark.parametrize("B,Hl", [(1, 128), (13, 256), (128, 256)])
+@pytest.mark.parametrize("rounds", (1, 3, 5))
+def test_collectives_match_plain_on_card(cuda, P, B, Hl, rounds):
+    x, parts = collective_inputs(P, B, Hl, cuda)
+    want_ag = fused_tp.tp_all_gather_plain(x, num_devices=P, rounds=rounds)
     want_rs = fused_tp.tp_reduce_scatter_plain(parts, num_devices=P,
-                                               rounds=3)
+                                               rounds=rounds)
     fused_cells.reset_launch_counts()
-    # back to back: every launch zeroes its own counters
+    # back to back: every launch leaves its counters zero for the next
     for _ in range(3):
-        got_ag = fused_tp.tp_all_gather(x, num_devices=P, rounds=3)
-        got_rs = fused_tp.tp_reduce_scatter(parts, num_devices=P, rounds=3)
+        got_ag = fused_tp.tp_all_gather(x, num_devices=P, rounds=rounds)
+        got_rs = fused_tp.tp_reduce_scatter(parts, num_devices=P,
+                                            rounds=rounds)
         torch.cuda.synchronize()
         assert torch.equal(got_ag, want_ag)
         assert torch.equal(got_rs, want_rs)
     counts = fused_cells.launch_counts()
     assert counts["tp_all_gather"] == counts["tp_reduce_scatter"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", (1, 3, 8))
+def test_collectives_replay_from_a_graph_on_card(cuda, P):
+    """A CUDA graph of one call of each replays its frozen arguments twice,
+    nothing zeroed between, bit for bit: the counters are fresh because
+    each launch zeroes its own."""
+    x, parts = collective_inputs(P, 13, 256, cuda)
+    calls = ((fused_tp.tp_all_gather, fused_tp.tp_all_gather_plain, x),
+             (fused_tp.tp_reduce_scatter, fused_tp.tp_reduce_scatter_plain,
+              parts))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the counters of the capture stream
+        for fn, _, arg in calls:
+            fn(arg, num_devices=P, rounds=3)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = [fn(arg, num_devices=P, rounds=3) for fn, _, arg in calls]
+    wants = [plain(arg, num_devices=P, rounds=3) for _, plain, arg in calls]
+    for _ in range(2):
+        for out in outs:
+            out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for out, want in zip(outs, wants):
+            assert torch.equal(out, want)
+    # an eager call on the capture stream after the replays
+    with torch.cuda.stream(side):
+        again = [fn(arg, num_devices=P, rounds=3) for fn, _, arg in calls]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, w) for a, w in zip(again, wants))
+
+
+@pytest.mark.cuda
+def test_collectives_refuse_a_first_call_inside_a_capture(cuda):
+    x, _ = collective_inputs(2, 8, 128, cuda)
+    fused_tp._COUNTERS.clear()  # as on a fresh process
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="before capturing"):
+        with torch.cuda.graph(graph):
+            fused_tp.tp_all_gather(x, num_devices=2)
+
+
+@pytest.mark.cuda
+def test_collective_plan_is_the_cards(cuda):
+    """The plan a launch takes is ``_collective_plan`` over the card's SM
+    count and occupancy, cached: one occupancy query a shape."""
+    x, parts = collective_inputs(4, 128, 256, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for fn, name, reduce, arg in (
+            (fused_tp.tp_all_gather, "tp_all_gather", False, x),
+            (fused_tp.tp_reduce_scatter, "tp_reduce_scatter", True, parts)):
+        fn(arg, num_devices=4)
+        want = fused_tp._collective_plan(
+            128, 1024, 4, reduce, sms,
+            lambda smem: fused_tp.collective_blocks(reduce, smem))
+        assert fused_tp.last_plans()[name] == want._asdict()
+        hits = fused_tp._card_collective_plan.cache_info().hits
+        fn(arg, num_devices=4)
+        assert fused_tp._card_collective_plan.cache_info().hits == hits + 1
 
 
 @pytest.mark.cuda

@@ -12,7 +12,9 @@ odd shapes are reached only where a case was written for them. This tool
 samples the shape space instead: case ``k`` takes the kernel family
 ``FAMILIES[k % len(FAMILIES)]`` (spiking forward in its serving and its
 training form, spiking backward, readout forward and backward, ANN forward
-and backward, TP spiking and TP ANN forward and backward at P <= 4) and
+and backward, TP spiking and TP ANN forward and backward at P <= 4, the TP
+all-gather and reduce-scatter at P <= 8, B <= 300, H/P a multiple of 128
+up to 1024, 1-6 rounds) and
 draws B, T, H (or C) from ranges that include 1, odd numbers, primes and
 widths no multiple of 32, one spiking forward past H = 1600 (the layout of
 a block a row) and one readout past 256 classes (the wide forms) in the
@@ -20,8 +22,9 @@ first round, then the affine fold, the dropout and the stream type, all
 from ``(seed, k)`` alone: a failure line is its own repro.
 
 Each case runs the kernel and its plain version on the card and holds them
-to the card tests' standard: the spiking forwards (both modes) and the TP
-spiking forward bit for bit (V on the 2^-8 grid); the readout within rtol
+to the card tests' standard: the spiking forwards (both modes), the TP
+spiking forward (V on the 2^-8 grid) and the TP collectives bit for bit;
+the readout within rtol
 1e-5 with its membrane series bit for bit; the ANN forwards within atol
 2e-5 (the dropped positions the same wherever the raw output is nonzero on
 both sides, see ``_dropped_positions``); every float32 gradient within 1e-4
@@ -56,7 +59,8 @@ import torch  # noqa: E402
 
 FAMILIES = ("cell_fwd", "cell_fwd_train", "cell_bwd", "readout_fwd",
             "readout_bwd", "ann_fwd", "ann_bwd", "tp_fwd", "tp_bwd",
-            "tp_ann_fwd", "tp_ann_bwd")
+            "tp_ann_fwd", "tp_ann_bwd", "tp_all_gather", "tp_reduce_scatter")
+COLLECTIVES = ("tp_all_gather", "tp_reduce_scatter")
 SPIKING_FORMS = ("lif", "adlif", "rlif", "radlif")
 ANN_MODES = ("rnn", "ligru", "gru")
 FORM_FLAGS = {"lif": (False, False), "adlif": (False, True),
@@ -96,6 +100,12 @@ def draw_case(seed: int, k: int) -> dict:
     first_round = k < len(FAMILIES)
     case = dict(k=k, seed=seed, family=fam, bf16=False, affine=False,
                 drop=0.0, P=1)
+    if fam in COLLECTIVES:
+        P = int(rng.integers(1, 9))
+        case.update(P=P, B=_pick(rng, _EDGE_B + (128, 300), 1, 300),
+                    rounds=int(rng.integers(1, 7)),
+                    H=P * 128 * int(rng.integers(1, 9)))
+        return case
     B = _pick(rng, _EDGE_B, 1, 64)
     T = _pick(rng, _EDGE_T, 1, 40)
     if fam.startswith("readout"):
@@ -145,7 +155,8 @@ def draw_case(seed: int, k: int) -> dict:
 
 def case_name(case: dict) -> str:
     kind = case.get("form") or case.get("mode") or ""
-    shape = f"B{case['B']}T{case['T']}" + (
+    steps = f"R{case['rounds']}" if "rounds" in case else f"T{case['T']}"
+    shape = f"B{case['B']}{steps}" + (
         f"C{case['C']}" if "C" in case else f"H{case['H']}")
     flags = "".join([
         f"P{case['P']}" if case["family"].startswith("tp") else "",
@@ -172,17 +183,36 @@ def _spiking_fwd_form(case):
                               int(case["bf16"]))
 
 
-def plans_of(case: dict, sms: int, per_sm, max_active) -> dict:
+def collective_blocks_model(reduce: bool, smem: int) -> int:
+    """Blocks of a TP collective an H100 SM holds at ``smem`` bytes of
+    shared memory: by threads (2048 an SM) and by shared memory (233472
+    bytes, 1 KB of it reserved a block)."""
+    from sparch_tpu_torch.ops import fused_tp
+
+    return max(0, min(2048 // fused_tp._COLL_THREADS,
+                      233472 // (smem + 1024)))
+
+
+def plans_of(case: dict, sms: int, per_sm, max_active,
+             coll_per_sm=collective_blocks_model) -> dict:
     """The plans the port's plan functions give for the case on a card of
     ``sms`` SMs. ``per_sm(source, form, H, cols, rows, threads)``: blocks
     of a slice forward an SM holds; ``max_active(kernel, cluster)``:
     clusters of that size the card holds, ``kernel`` one of
-    ``tp_cell_bwd``, ``tp_ann_fwd``, ``tp_ann_bwd``."""
+    ``tp_cell_bwd``, ``tp_ann_fwd``, ``tp_ann_bwd``;
+    ``coll_per_sm(reduce, smem)``: blocks of a TP collective an SM holds."""
     from sparch_tpu_torch.ops import fused_ann, fused_cells, fused_tp, \
         fused_tp_ann
 
-    fam, B, T, bf16 = case["family"], case["B"], case["T"], case["bf16"]
+    fam = case["family"]
     out = {}
+    if fam in COLLECTIVES:
+        reduce = fam == "tp_reduce_scatter"
+        out["coll"] = fused_tp._collective_plan(
+            case["B"], case["H"], case["P"], reduce, sms,
+            lambda smem: coll_per_sm(reduce, smem))
+        return out
+    B, T, bf16 = case["B"], case["T"], case["bf16"]
     if fam.startswith("readout"):
         out["readout"] = fused_cells._readout_plan(
             B, T, case["C"], sms, fam == "readout_bwd")
@@ -245,6 +275,25 @@ def plan_faults(case: dict, plans: dict, sms: int) -> list:
     from sparch_tpu_torch.ops import fused_ann, fused_cells
 
     faults = []
+    c = plans.get("coll")
+    if c is not None:
+        from sparch_tpu_torch.ops import fused_tp
+
+        B, H, P = case["B"], case["H"], case["P"]
+        if c.rows < 1 or c.groups != -(-B // c.rows):
+            faults.append(f"coll: {c.groups} groups of {c.rows} rows, "
+                          f"B = {B}")
+        if c.per_rank < 1 or c.walks * c.per_rank < c.groups or \
+                (c.walks - 1) * c.per_rank >= c.groups:
+            faults.append(f"coll: {c.walks} walks of {c.per_rank} for "
+                          f"{c.groups} groups")
+        if P * c.per_rank > c.per_sm * sms:
+            faults.append(f"coll: {P * c.per_rank} blocks, the card holds "
+                          f"{c.per_sm} x {sms}")
+        if c.smem > fused_tp._COLL_SMEM or c.smem != fused_tp._collective_smem(
+                c.rows, H, P, case["family"] == "tp_reduce_scatter"):
+            faults.append(f"coll: {c.smem} bytes of shared memory")
+        return faults
     B, T = case["B"], case["T"]
     p = plans.get("readout")
     if p is not None:
@@ -690,11 +739,33 @@ def run_tp_ann(case, dev):
     return {"tp_ann_bwd": plan}
 
 
+def run_collective(case, dev):
+    """A TP collective in the one-card form, bit for bit against its
+    plain version."""
+    from sparch_tpu_torch.ops import fused_tp
+
+    rng = np.random.default_rng([case["seed"], case["k"], 3])
+    fam, P, B, H = case["family"], case["P"], case["B"], case["H"]
+    kw = dict(num_devices=P, rounds=case["rounds"])
+    if fam == "tp_all_gather":
+        x = _t(rng.normal(0, 1, (B, H)), dev)
+        got = fused_tp._tp_all_gather_cuda(x, **kw)
+        want = fused_tp.tp_all_gather_plain(x, **kw)
+    else:
+        x = _t(rng.normal(0, 1, (P, B, H)), dev)
+        got = fused_tp._tp_reduce_scatter_cuda(x, **kw)
+        want = fused_tp.tp_reduce_scatter_plain(x, **kw)
+    _equal("output", got, want)
+    return {fam: fused_tp.last_plans()[fam]}
+
+
 RUNNERS = {"cell": run_spiking, "readout": run_readout, "ann": run_ann,
-           "tp": run_tp, "tp_ann": run_tp_ann}
+           "tp": run_tp, "tp_ann": run_tp_ann, "coll": run_collective}
 
 
 def _runner(family):
+    if family in COLLECTIVES:
+        return RUNNERS["coll"]
     for prefix in ("tp_ann", "tp", "readout", "ann", "cell"):
         if family.startswith(prefix):
             return RUNNERS[prefix]
@@ -733,7 +804,8 @@ def card_plans(case, dev) -> dict:
             mode, B, H, P, c, bf16, kernel == "tp_ann_bwd")
 
     with torch.cuda.device(dev):
-        return plans_of(case, sms, per_sm, max_active)
+        return plans_of(case, sms, per_sm, max_active,
+                        fused_tp.collective_blocks)
 
 
 def run_case(case: dict, dev) -> dict:
@@ -753,6 +825,9 @@ def run_case(case: dict, dev) -> dict:
         rec["plans"] = _jsonable(launched)
         fwd = expected.get("fwd")
         got = next(iter(launched.values()))
+        coll = expected.get("coll")
+        if coll is not None and got != coll._asdict():
+            faults.append(f"launched {got}, planned {coll._asdict()}")
         if fwd is not None and hasattr(fwd, "layout") and \
                 isinstance(got, dict) and got.get("layout") == "slices" \
                 and got != fwd._asdict():
