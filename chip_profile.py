@@ -7,7 +7,7 @@ card.
 With phase names (``sweep``, ``profile``, ``h2d``, ``bwd_sweep``,
 ``profile_training``, ``bf16``, ``tp_exchange``, ``spiking_bwd``,
 ``spiking_fwd``, ``dv_products``, ``readout_phases``, ``collectives``,
-``collective_forms``, ``ab=DIR``, ``bits=DIR``) only those
+``collective_phases``, ``ab=DIR``, ``bits=DIR``) only those
 run. Prints
 JSON lines (tables of the profiler in between), each measured in
 this run:
@@ -124,11 +124,10 @@ this run:
    kernel alone (``torch.profiler``), an eager call, the lines fitted
    through rounds 1, 2, 4, 8, beside ``library_ms`` and ``library_seq_ms``
    (chip_smoke.py's); on any tree of the port.
-16. ``collective_forms``: this tree's collectives built as they ship (bulk
-   copies) and in their 16-byte vector form, timed in turns, both bit for
-   bit; each round split into push, fence, publish, spin, fetch and stage
-   from ``%globaltimer`` stamps (``COLL_STAMP``); the built form at other
-   rows a group.
+16. ``collective_phases``: this tree's collectives from a CUDA graph, bit
+   for bit; each round split into push, fence, publish, spin, fetch and
+   stage from ``%globaltimer`` stamps (``COLL_STAMP``) of a stamped copy;
+   the graph time at other rows a group.
 
 The ``ab`` phase also times the dV product of each backward at those four
 shapes in both modes (``dv_*`` in ``ms``: its ``split_ms`` share), and the
@@ -1736,10 +1735,9 @@ extern "C" void* coll_stamps() {
 """
 
 
-def _collective_forms(out_dir):
-    """Copies of csrc/tp_collectives.cu built into ``out_dir``: the 16-byte
-    vector form (``SPARCH_COLL_BULK=0``) and both forms stamped; returns
-    {form: CDLL}."""
+def _stamped_collectives(out_dir):
+    """A copy of csrc/tp_collectives.cu built into ``out_dir`` with its
+    round phases stamped (``COLL_STAMP``); returns its CDLL."""
     import ctypes
 
     from sparch_tpu_torch import _build
@@ -1747,25 +1745,15 @@ def _collective_forms(out_dir):
     out_dir.mkdir(parents=True, exist_ok=True)
     head = out_dir / "coll_stamps.h"
     head.write_text(_COLL_STAMP_HEAD)
-    src = _build.CSRC / "tp_collectives.cu"
-    forms = {"vector": ["-DSPARCH_COLL_BULK=0"],
-             "bulk_stamped": ["-include", str(head)],
-             "vector_stamped": ["-DSPARCH_COLL_BULK=0", "-include",
-                                str(head)]}
-    jobs = {}
-    for form, flags in forms.items():
-        lib = out_dir / f"libtp_collectives_{form}.so"
-        jobs[form] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-I",
-             str(_build.CSRC), "-o", str(lib), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for form, (lib, proc) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"collectives: nvcc failed for {form}:\n{log}")
-        libs[form] = ctypes.CDLL(str(lib))
-    return libs
+    lib = out_dir / "libtp_collectives_stamped.so"
+    proc = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-include", str(head), "-I",
+         str(_build.CSRC), "-o", str(lib),
+         str(_build.CSRC / "tp_collectives.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"collectives: nvcc failed:\n{proc.stdout}")
+    return ctypes.CDLL(str(lib))
 
 
 def _with_library(kernel, lib):
@@ -1780,14 +1768,12 @@ def _with_library(kernel, lib):
     return k
 
 
-def collective_forms(dev):
-    """Phase 16: the collectives' copy forms and round phases, on this
-    tree's source (which has them): at B = 128, Hl = 256, 3 rounds, P = 1,
-    2, 4, 8, the call from a CUDA graph in the built form (bulk copies)
-    and the 16-byte vector form, in turns (bulk, vector, vector, bulk);
-    each form's outputs bit for bit against the plain version; the rounds
-    of the stamped builds (``COLL_STAMP``): per phase the median over
-    blocks and rounds of its ns, and the median round; the built form's
+def collective_phases(dev):
+    """Phase 16: the collectives' round phases, on this tree's source (which
+    stamps them): at B = 128, Hl = 256, 3 rounds, P = 1, 2, 4, 8, the call
+    from a CUDA graph, twice, its outputs bit for bit against the plain
+    version; the rounds of the stamped build (``COLL_STAMP``): per phase
+    the median over blocks and rounds of its ns, and the median round; the
     graph time at other rows a group (half, twice and four times the
     plan's)."""
     import functools
@@ -1796,7 +1782,7 @@ def collective_forms(dev):
     import chip_smoke as cs
     from sparch_tpu_torch.ops import fused_tp
 
-    libs = _collective_forms(REPO / "build" / "collective_forms")
+    stamped = _stamped_collectives(REPO / "build" / "collective_phases")
     kinds = {"tp_all_gather": (fused_tp.TP_ALL_GATHER, False,
                                fused_tp.tp_all_gather_plain),
              "tp_reduce_scatter": (fused_tp.TP_REDUCE_SCATTER, True,
@@ -1816,39 +1802,31 @@ def collective_forms(dev):
         for arg, (name, (kernel, reduce, plain)) in zip(args, kinds.items()):
             B, H = arg.shape[-2:]
             plan = fused_tp._card_collective_plan(B, H, P, reduce, dev.index)
-            want = plain(arg, num_devices=P, rounds=rounds)
-            forms = {"bulk": kernel,
-                     "vector": _with_library(kernel, libs["vector"])}
-            equal, ms = {}, {f: [] for f in forms}
-            for f, k in forms.items():
-                out = call(k, reduce, arg, P, plan)
-                torch.cuda.synchronize()
-                equal[f] = bool(torch.equal(out, want))
-            for f in ("bulk", "vector", "vector", "bulk"):
-                ms[f].append(cs.graph_ms(functools.partial(
-                    call, forms[f], reduce, arg, P, plan)))
-            phases = {}
-            for f in ("bulk", "vector"):
-                lib = libs[f + "_stamped"]
-                k = _with_library(kernel, lib)
-                for _ in range(5):  # the stamps of the last, warm launch
-                    call(k, reduce, arg, P, plan)
-                torch.cuda.synchronize()
-                lib.coll_stamps.restype = __import__("ctypes").c_void_p
-                view = type("Stamps", (), {})()
-                view.__cuda_array_interface__ = dict(
-                    shape=(4096, 8, 8), typestr="<i8",
-                    data=(lib.coll_stamps(), False), version=3)
-                st = torch.as_tensor(view, device=dev)[
-                    :P * plan.per_rank, :rounds, :7].clone().cpu()
-                d = st[:, :, 1:] - st[:, :, :-1]
-                phases[f] = dict(
-                    median_ns={n: int(statistics.median(
-                        d[:, :, i].flatten().tolist()))
-                        for i, n in enumerate(_COLL_PHASES)},
-                    median_round_ns=int(statistics.median(
-                        (st[:, :, 6] - st[:, :, 0]).flatten().tolist())),
-                    launch_ns=int(st[:, -1, 6].max() - st[:, 0, 0].min()))
+            out = call(kernel, reduce, arg, P, plan)
+            torch.cuda.synchronize()
+            equal = bool(torch.equal(
+                out, plain(arg, num_devices=P, rounds=rounds)))
+            ms = [cs.graph_ms(functools.partial(
+                call, kernel, reduce, arg, P, plan)) for _ in range(2)]
+            k = _with_library(kernel, stamped)
+            for _ in range(5):  # the stamps of the last, warm launch
+                call(k, reduce, arg, P, plan)
+            torch.cuda.synchronize()
+            stamped.coll_stamps.restype = __import__("ctypes").c_void_p
+            view = type("Stamps", (), {})()
+            view.__cuda_array_interface__ = dict(
+                shape=(4096, 8, 8), typestr="<i8",
+                data=(stamped.coll_stamps(), False), version=3)
+            st = torch.as_tensor(view, device=dev)[
+                :P * plan.per_rank, :rounds, :7].clone().cpu()
+            d = st[:, :, 1:] - st[:, :, :-1]
+            phases = dict(
+                median_ns={n: int(statistics.median(
+                    d[:, :, i].flatten().tolist()))
+                    for i, n in enumerate(_COLL_PHASES)},
+                median_round_ns=int(statistics.median(
+                    (st[:, :, 6] - st[:, :, 0]).flatten().tolist())),
+                launch_ns=int(st[:, -1, 6].max() - st[:, 0, 0].min()))
             by_rows = {}
             for scale in (0.5, 2, 4):
                 rows = max(1, min(B, int(plan.rows * scale)))
@@ -1858,7 +1836,7 @@ def collective_forms(dev):
                 smem = fused_tp._collective_smem(rows, H, P, reduce)
                 if smem > fused_tp._COLL_SMEM:
                     continue
-                held = fused_tp.collective_blocks(reduce, smem)
+                held = fused_tp.collective_blocks(reduce, smem, dev.index)
                 per_rank = min(groups, held * torch.cuda.get_device_properties(
                     dev).multi_processor_count // P)
                 if per_rank < 1:
@@ -1868,7 +1846,7 @@ def collective_forms(dev):
                     smem, plan.threads)
                 by_rows[rows] = cs.graph_ms(functools.partial(
                     call, kernel, reduce, arg, P, alt))
-            emit("collective_forms", kernel=name, P=P, rounds=rounds,
+            emit("collective_phases", kernel=name, P=P, rounds=rounds,
                  plan=plan._asdict(), bit_equal=equal, graph_ms=ms,
                  phases=phases, graph_ms_by_rows=by_rows)
 
@@ -1926,7 +1904,7 @@ def main() -> int:
         "dv_products": dv_products,
         "readout_phases": readout_phases,
         "collectives": collectives,
-        "collective_forms": collective_forms,
+        "collective_phases": collective_phases,
     }
     chosen = sys.argv[1:] or list(phases)
     unknown = [name for name in chosen

@@ -250,7 +250,8 @@ all at once), then prints one JSON line per phase:
    B=128, Hl=256, 3 rounds, P = 1, 2, 4 (the path, counted) and 8, bit
    for bit against their plain versions, twice; at a ragged B = 13 and
    rounds 1 and 5; and a CUDA graph of one call of each replayed twice
-   with no zeroing between, bit for bit. Times, from a CUDA graph
+   with no zeroing between, on another stream than it was captured on and
+   beside an eager call on that one, bit for bit. Times, from a CUDA graph
    (``graph_ms``) unless named: the kernel (``ms``), an eager wrapper call
    (``eager_ms``, CUDA events), the plain version, ``library_ms`` (one
    round of each function as one PyTorch call: ``torch.cat`` of the P
@@ -3658,8 +3659,9 @@ def fit_line(xs, ys):
 def graph_replays(fn, *args, n=2):
     """The output of a CUDA graph of one call of ``fn(*args)`` after each
     of ``n`` replays (nothing reset between them), captured on the stream
-    of a warm-up call."""
-    side = torch.cuda.Stream()
+    of a warm-up call; each replay runs on another stream beside an eager
+    call on the capture stream, whose output follows the replay's."""
+    side, other = torch.cuda.Stream(), torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn(*args)
@@ -3667,11 +3669,15 @@ def graph_replays(fn, *args, n=2):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=side):
         out = fn(*args)
+    torch.cuda.synchronize()
     outs = []
     for _ in range(n):
-        graph.replay()
+        with torch.cuda.stream(other):
+            graph.replay()
+        with torch.cuda.stream(side):
+            eager = fn(*args)
         torch.cuda.synchronize()
-        outs.append(out.clone())
+        outs += [out.clone(), eager]
     return outs
 
 
@@ -3686,8 +3692,8 @@ def phase_tp_collectives(dev):
     Their path: one call of each entry point per P of TP_PS, with the
     counters set to 0 just before and read just after. Each result bit for
     bit against its plain version, and a second launch alike; B = 13 and
-    rounds 1 and 5 alike; a CUDA graph of a call replayed twice, bit for
-    bit. Returns (launches, rows by P)."""
+    rounds 1 and 5 alike; a CUDA graph of a call replayed twice on another
+    stream beside an eager call on the capture stream, bit for bit. Returns (launches, rows by P)."""
     from sparch_tpu_torch.ops import fused_cells, fused_tp
     from sparch_tpu_torch.utils.timing import cuda_time_ms
 

@@ -47,17 +47,15 @@
 //   another they cost an L2 round trip each).
 // - The payload moves through shared memory. Slots are sender-major
 //   ([parity][sender][row]), so a block's rows for one peer are one run.
-//   With kBulk (the build's form) every copy is a bulk asynchronous copy
-//   (cp.async.bulk, no tensor map): runs of global memory land in shared
-//   memory on an mbarrier, and shared memory goes to a peer's slot (lanes
-//   of warp 0) or to the output (warp 1) as bulk stores. A publish waits
-//   for the pushes with cp.async.bulk.wait_group and orders them before
-//   the release with fence.proxy.async; lane q fetches sender q's run as
-//   soon as q's count is in; the output stores complete behind the next
-//   round (two gathered stages). Without kBulk the same stages move as
-//   16-byte vector accesses by every thread (st.global.cg / ld.global.cg,
-//   barriers between); chip_profile.py `collective_forms` builds that form
-//   from a copy of this source to time the two.
+//   Every copy is a bulk asynchronous copy (cp.async.bulk, no tensor map):
+//   runs of global memory land in shared memory on an mbarrier, and shared
+//   memory goes to a peer's slot (lanes of warp 0) or to the output (warp
+//   1) as bulk stores. A publish waits for the pushes with
+//   cp.async.bulk.wait_group and orders them before the release with
+//   fence.proxy.async; lane q fetches sender q's run as soon as q's count
+//   is in; the output stores complete behind the next round (two gathered
+//   stages). Bulk copies beat 16-byte vector accesses at P = 4 and 8
+//   (PERF.md §6, rows 8-9).
 // - The scope the layout needs. Where the launch runs every rank
 //   (n_local == P, the one-card form) the handshake is at gpu scope
 //   (fence.acq_rel.gpu, relaxed .gpu stores, acquire .gpu loads);
@@ -66,11 +64,19 @@
 //   exchanges of a launch (e/2 + 1 at exchange e of a block's walk). Each
 //   receiving block zeroes its own counters after its last exchange: it has
 //   then seen every sender's last count, and no sender writes them again in
-//   that launch. So a launch leaves them zero for the next one on its
-//   stream, and a CUDA graph replays with no zeroing between (the host
-//   zeroes them once, when it allocates them). Across cards a launch must
-//   start after every peer's launch before it ended (the JAX kernels' entry
-//   barrier stands for that).
+//   that launch. So a launch leaves them zero for the next one that takes
+//   them, and a CUDA graph replays with no zeroing between (the host zeroes
+//   them once, when it allocates them). Two launches that run at once must
+//   not share counters: ops/fused_tp.py gives eager launches those of their
+//   stream and the launches of a graph capture counters of their own (by
+//   capture and stream, sparch_tp_capture_id), so only two overlapping
+//   replays of one graph would share them, which its slots forbid anyway.
+// - The cross-card form (n_local < P; the package launches only the
+//   one-card form) needs the same of every peer: a launch may start only
+//   after every peer's previous launch on these counters and slots has
+//   ended. Nothing here supplies that entry barrier (the JAX kernels' entry
+//   barrier stands for it); its caller must, e.g. by stream waits on the
+//   peers' events.
 // - A spin that has not ended after kSpinTimeoutNs traps.
 //
 // C interface, bound with ctypes: each entry point returns the launch's
@@ -84,9 +90,6 @@
 #include "tile_stream.cuh"
 #include "tp_exchange.cuh"
 
-#ifndef SPARCH_COLL_BULK
-#define SPARCH_COLL_BULK 1
-#endif
 // chip_profile.py `collectives` stamps each round's phases through it
 #ifndef COLL_STAMP
 #define COLL_STAMP(round, k)
@@ -96,7 +99,6 @@ namespace {
 
 using sparch::tp::Peers;
 
-constexpr bool kBulk = SPARCH_COLL_BULK;
 constexpr int kThreads = 256;
 // dynamic shared memory a block may take (ops/fused_tp.py _COLL_SMEM)
 constexpr int kSmemMax = 232448 - 1024;
@@ -205,24 +207,13 @@ __device__ __forceinline__ void fence_proxy_shared() {
 __device__ __forceinline__ int warp_id() { return threadIdx.x >> 5; }
 
 // n pieces from shared memory to global memory (`piece(j)` names piece
-// j): bulk stores by the lanes of warp `W`, or 16-byte stores past L1 by
-// every thread.
+// j): bulk stores by the lanes of warp `W`.
 template <int W, typename F>
 __device__ __forceinline__ void put(int n, int len, F piece) {
-  if constexpr (kBulk) {
-    if (warp_id() == W) {
-      for (int j = threadIdx.x & 31; j < n; j += 32) {
-        const Piece p = piece(j);
-        bulk_store(p.dst, p.src, (uint32_t)len * 4u);
-      }
-    }
-  } else {
-    const int len4 = len >> 2;
-    for (int i = threadIdx.x; i < n * len4; i += blockDim.x) {
-      const int j = i / len4, c = i - j * len4;
+  if (warp_id() == W) {
+    for (int j = threadIdx.x & 31; j < n; j += 32) {
       const Piece p = piece(j);
-      __stcg(reinterpret_cast<float4*>(p.dst) + c,
-             reinterpret_cast<const float4*>(p.src)[c]);
+      bulk_store(p.dst, p.src, (uint32_t)len * 4u);
     }
   }
 }
@@ -232,71 +223,53 @@ __device__ __forceinline__ void put(int n, int len, F piece) {
 // their shared memory), ordered before the warp's next generic accesses.
 template <int W, int pending, bool kRead = false>
 __device__ __forceinline__ void commit_and_wait() {
-  if constexpr (kBulk) {
-    if (warp_id() == W) {
-      asm volatile("cp.async.bulk.commit_group;");
-      if constexpr (kRead) {
-        asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(pending)
-                     : "memory");
-      } else {
-        asm volatile("cp.async.bulk.wait_group %0;" ::"n"(pending)
-                     : "memory");
-        fence_proxy_global();
-      }
-      __syncwarp();
+  if (warp_id() == W) {
+    asm volatile("cp.async.bulk.commit_group;");
+    if constexpr (kRead) {
+      asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(pending)
+                   : "memory");
+    } else {
+      asm volatile("cp.async.bulk.wait_group %0;" ::"n"(pending)
+                   : "memory");
+      fence_proxy_global();
     }
+    __syncwarp();
   }
 }
 
 // n pieces from global memory to shared memory: bulk copies by thread 0
 // onto `bar` (after a proxy fence, so that they see what a generic acquire
-// made visible), or 16-byte loads from L2 by every thread. `land` waits.
+// made visible). `land` waits.
 template <typename F>
 __device__ __forceinline__ void get(int n, int len, uint64_t* bar,
                                     F piece) {
-  if constexpr (kBulk) {
-    if (threadIdx.x == 0) {
-      fence_proxy_global();
-      fence_proxy_shared();
-      sparch::mbar_expect_tx(bar, (uint32_t)(n * len) * 4u);
-      for (int j = 0; j < n; ++j) {
-        const Piece p = piece(j);
-        sparch::bulk_copy(p.dst, p.src, (uint32_t)len * 4u, bar);
-      }
-    }
-  } else {
-    const int len4 = len >> 2;
-    for (int i = threadIdx.x; i < n * len4; i += blockDim.x) {
-      const int j = i / len4, c = i - j * len4;
+  if (threadIdx.x == 0) {
+    fence_proxy_global();
+    fence_proxy_shared();
+    sparch::mbar_expect_tx(bar, (uint32_t)(n * len) * 4u);
+    for (int j = 0; j < n; ++j) {
       const Piece p = piece(j);
-      reinterpret_cast<float4*>(p.dst)[c] =
-          __ldcg(reinterpret_cast<const float4*>(p.src) + c);
+      sparch::bulk_copy(p.dst, p.src, (uint32_t)len * 4u, bar);
     }
   }
 }
 
 __device__ __forceinline__ void land(uint64_t* bar, uint32_t& phase) {
-  if constexpr (kBulk) {
-    sparch::mbar_wait(bar, phase);
-    phase ^= 1u;
-  } else {
-    __syncthreads();
-  }
+  sparch::mbar_wait(bar, phase);
+  phase ^= 1u;
 }
 
 // Generic writes to shared memory are done and visible to bulk copies.
 __device__ __forceinline__ void staged() {
-  if constexpr (kBulk) fence_proxy_shared();
+  fence_proxy_shared();
   __syncthreads();
 }
 
 __device__ __forceinline__ void init_bar(uint64_t* bar) {
-  if constexpr (kBulk) {
-    if (threadIdx.x == 0) {
-      sparch::mbar_init(bar, 1);
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-      fence_proxy_shared();
-    }
+  if (threadIdx.x == 0) {
+    sparch::mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    fence_proxy_shared();
   }
   __syncthreads();
 }
@@ -311,28 +284,24 @@ __device__ __forceinline__ float4 add4(float4 v, float4 w) {
 }
 
 // Exchange e of block k of `rank` (round r of its group), after the
-// block's payload of exchange e is in every rank's slot (warp 0's drain,
-// or the block's barrier, carries the other threads' stores), then the
-// fetch of what every rank sent this block (`piece(q)`: sender q's `len`
-// floats). Lane q of warp 0 stands for rank q: for a peer, a release (one
-// fence for the warp, then the count into peer q's counter) and a spin of
-// acquire loads on peer q's count. Bulk form: lane q then fetches sender
-// q's run at once (its own at once), so early peers' runs land while later
-// ones are awaited; vector form: the block fetches once every peer is in.
+// block's payload of exchange e is in every rank's slot (warp 0's drain
+// carries it), then the fetch of what every rank sent this block
+// (`piece(q)`: sender q's `len` floats). Lane q of warp 0 stands for rank
+// q: for a peer, a release (one fence for the warp, then the count into
+// peer q's counter) and a spin of acquire loads on peer q's count. Lane q
+// then fetches sender q's run at once (its own at once), so early peers'
+// runs land while later ones are awaited.
 template <bool kSys, typename F>
 __device__ __forceinline__ void exchange_fetch(const Args& a, int rank,
                                                int k, int e, int r, int len,
                                                uint64_t* bar, F piece) {
   const int lane = threadIdx.x & 31;
   const int first = (rank + 1) % a.P;  // the lane whose phases are stamped
-  if constexpr (!kBulk) __syncthreads();
   if (warp_id() == 0) {
     const int parity = e & 1;
     const unsigned count = (unsigned)(e >> 1) + 1u;
-    if constexpr (kBulk) {
-      if (lane == 0) sparch::mbar_expect_tx(bar, (uint32_t)(a.P * len) * 4u);
-      __syncwarp();
-    }
+    if (lane == 0) sparch::mbar_expect_tx(bar, (uint32_t)(a.P * len) * 4u);
+    __syncwarp();
     if (lane < a.P && lane != rank) {
       fence_acq_rel<kSys>();
       if (lane == first) COLL_STAMP(r, 2);
@@ -350,19 +319,13 @@ __device__ __forceinline__ void exchange_fetch(const Args& a, int rank,
       COLL_STAMP(r, 3);
     }
     if (lane == first) COLL_STAMP(r, 4);
-    if constexpr (kBulk) {
-      if (lane < a.P) {
-        fence_proxy_global();
-        fence_proxy_shared();
-        const Piece p = piece(lane);
-        sparch::bulk_copy(p.dst, p.src, (uint32_t)len * 4u, bar);
-      }
+    if (lane < a.P) {
+      fence_proxy_global();
+      fence_proxy_shared();
+      const Piece p = piece(lane);
+      sparch::bulk_copy(p.dst, p.src, (uint32_t)len * 4u, bar);
     }
     __syncwarp();
-  }
-  if constexpr (!kBulk) {
-    __syncthreads();
-    get(a.P, len, bar, piece);
   }
 }
 
@@ -609,6 +572,16 @@ bool make_args(const float* x, float* out, void* const* slots,
 
 }  // namespace
 
+// The id of the CUDA graph capture under way on `stream`; 0 where none.
+extern "C" unsigned long long sparch_tp_capture_id(void* stream) {
+  cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+  unsigned long long id = 0;
+  const cudaError_t err = cudaStreamGetCaptureInfo(
+      static_cast<cudaStream_t>(stream), &status, &id);
+  return err == cudaSuccess && status == cudaStreamCaptureStatusActive ? id
+                                                                       : 0;
+}
+
 // Blocks of one collective (reduce: the reduce-scatter) with `smem` bytes
 // of dynamic shared memory that an SM of the current card holds
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor); 0 where it cannot run.
@@ -627,7 +600,8 @@ extern "C" int sparch_tp_collective_blocks(int reduce, int smem) {
 
 // slots/flags: host arrays of P device pointers, every rank's slot buffer
 // ([2][P][B][H/P] floats) and counters ([P][plan[1]][2] u32, zero between
-// launches). x: (B, ld); out: [n_local][rounds][B][H].
+// launches, and taken by no other launch that may run at the same time).
+// x: (B, ld); out: [n_local][rounds][B][H].
 extern "C" int sparch_tp_all_gather(const float* x, float* out,
                                     void* const* slots,
                                     unsigned* const* flags, int B, int H,

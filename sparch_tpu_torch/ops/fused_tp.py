@@ -312,55 +312,86 @@ def _collective_plan(B: int, H: int, P: int, reduce: bool, sms: int,
 
 
 @functools.lru_cache(maxsize=None)
-def collective_blocks(reduce: bool, smem: int) -> int:
-    """Blocks of a collective with ``smem`` bytes an SM of the current card
-    holds (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+def collective_blocks(reduce: bool, smem: int, device_index: int) -> int:
+    """Blocks of a collective with ``smem`` bytes an SM of the card
+    ``device_index`` holds (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     from sparch_tpu_torch import _build
 
     fn = _build.load("tp_collectives").sparch_tp_collective_blocks
     fn.argtypes = [_I, _I]
     fn.restype = _I
-    return fn(int(reduce), smem)
+    with torch.cuda.device(device_index):
+        return fn(int(reduce), smem)
 
 
 @functools.lru_cache(maxsize=None)
 def _card_collective_plan(B: int, H: int, P: int, reduce: bool,
                           device_index: int) -> CollectivePlan:
     """``_collective_plan`` on the card ``device_index``, once a shape."""
-    with torch.cuda.device(device_index):
-        sms = torch.cuda.get_device_properties(
-            device_index).multi_processor_count
-        return _collective_plan(B, H, P, reduce, sms,
-                                lambda smem: collective_blocks(reduce, smem))
+    sms = torch.cuda.get_device_properties(
+        device_index).multi_processor_count
+    return _collective_plan(
+        B, H, P, reduce, sms,
+        lambda smem: collective_blocks(reduce, smem, device_index))
 
 
-# The collectives' exchange counters, by (device, stream): zeroed once when
-# allocated, left zero by every launch (each block zeroes its own after its
-# last exchange), never freed (a CUDA graph keeps their address). Sized for
+# The collectives' exchange counters: zeroed once when allocated, left zero
+# by every launch (each block zeroes its own after its last exchange), never
+# freed (a CUDA graph keeps their address). Two launches that run at once
+# must not share them: eager launches take those of their (device,
+# stream), and the launches that one capture of a CUDA graph records on one
+# stream take a buffer of their own, by (device, stream, capture). So a
+# replay, on any stream, shares its counters only with another replay of
+# the same graph that overlaps it, which its slots forbid anyway. Sized for
 # the most any plan takes: P * P ranks' counters of at most 2048 / threads
 # blocks an SM, two parities.
-_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
-# keys whose launch raised: zeroed before the next call (a spin that traps
-# after its timeout leaves the CUDA context unusable instead)
-_STALE: set = set()
+_COUNTERS: Dict[Tuple[int, ...], torch.Tensor] = {}
+# zeroed buffers for the captures to come, by device, refilled by eager calls
+# (a capture cannot zero memory outside its graph)
+_SPARE: Dict[int, List[torch.Tensor]] = {}
+_SPARES = 4
+
+
+def _capture_id(stream) -> int:
+    """The id of the CUDA graph capture under way on ``stream``; 0 where
+    none."""
+    if not torch.cuda.is_current_stream_capturing():
+        return 0
+    from sparch_tpu_torch import _build
+
+    fn = _build.load("tp_collectives").sparch_tp_capture_id
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_ulonglong
+    return fn(stream.cuda_stream)
+
+
+def _zeroed_counters(dev, n: int) -> List[torch.Tensor]:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    words = 2 * _MAX_RANKS * (2048 // _COLL_THREADS) * sms
+    return list(torch.zeros((n, words), dtype=torch.int32,
+                            device=dev).unbind())
 
 
 def _counters(dev, stream) -> torch.Tensor:
-    key = (dev.index, stream.cuda_stream)
+    spare = _SPARE.setdefault(dev.index, [])
+    capture = _capture_id(stream)
+    if not capture and len(spare) < _SPARES:
+        spare += _zeroed_counters(dev, _SPARES - len(spare))
+        stream.synchronize()  # zero before any capture's replay
+    key = (dev.index, stream.cuda_stream) + ((capture,) if capture else ())
     buf = _COUNTERS.get(key)
     if buf is None:
-        if torch.cuda.is_current_stream_capturing():
+        if not capture:
+            buf = _zeroed_counters(dev, 1)[0]
+        elif spare:
+            buf = spare.pop()
+        else:
             raise RuntimeError(
-                "TP collectives: call once on this stream before capturing "
-                "it in a CUDA graph (the exchange counters are allocated "
-                "and zeroed then)")
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        words = 2 * _MAX_RANKS * (2048 // _COLL_THREADS) * sms
-        buf = _COUNTERS[key] = torch.zeros(words, dtype=torch.int32,
-                                           device=dev)
-    elif key in _STALE:
-        buf.zero_()
-        _STALE.discard(key)
+                "TP collectives: call once on this device before capturing "
+                f"them in a CUDA graph, and capture them on at most "
+                f"{_SPARES} streams between eager calls (their exchange "
+                "counters are zeroed outside the capture)")
+        _COUNTERS[key] = buf
     return buf
 
 
@@ -378,14 +409,9 @@ def _collective_launch(kernel: Kernel, plan: CollectivePlan, x, out, slots,
                                             for q in range(P)])
         flag_ptrs = (ctypes.c_void_p * P)(*[counters.data_ptr() + q * span
                                             for q in range(P)])
-        try:
-            kernel(x.data_ptr(), out.data_ptr(), slot_ptrs, flag_ptrs, B, H,
-                   P, 0, P, H, rounds,
-                   (ctypes.c_int * 2)(plan.rows, plan.per_rank),
-                   stream.cuda_stream)
-        except RuntimeError:
-            _STALE.add((dev.index, stream.cuda_stream))
-            raise
+        kernel(x.data_ptr(), out.data_ptr(), slot_ptrs, flag_ptrs, B, H, P,
+               0, P, H, rounds, (ctypes.c_int * 2)(plan.rows, plan.per_rank),
+               stream.cuda_stream)
     _PLANS[kernel.name] = plan._asdict()
 
 
@@ -413,7 +439,11 @@ def _tp_reduce_scatter_cuda(parts, *, num_devices: int, rounds: int = 3):
 
 def tp_all_gather(x, *, num_devices: int, rounds: int = 3):
     """``rounds`` chained all-gathers over the TP axis (JAX
-    ``tp_all_gather``); see ``tp_all_gather_plain``."""
+    ``tp_all_gather``); see ``tp_all_gather_plain``. On the card the P
+    ranks run in one launch. A CUDA graph may hold the call once it has
+    run eagerly on that device: its replays need nothing zeroed between
+    them and may run on any stream beside other launches, but not beside
+    another replay of the same graph."""
     _check_collective(x, num_devices, rounds)
     fn = fused_cells._by_device(x, tp_all_gather_plain, _tp_all_gather_cuda,
                                 "TP all-gather")
@@ -422,7 +452,8 @@ def tp_all_gather(x, *, num_devices: int, rounds: int = 3):
 
 def tp_reduce_scatter(parts, *, num_devices: int, rounds: int = 3):
     """``rounds`` chained reduce-scatters over the TP axis (JAX
-    ``tp_reduce_scatter``); see ``tp_reduce_scatter_plain``."""
+    ``tp_reduce_scatter``); see ``tp_reduce_scatter_plain``. On the card
+    and in a CUDA graph as ``tp_all_gather``."""
     _check_collective(parts, num_devices, rounds)
     if parts.shape[0] != num_devices:
         raise ValueError(f"want one partial per rank, got {parts.shape[0]} "

@@ -71,7 +71,7 @@ def test_plan_covers_every_row_once_and_fits(sms, cap, reduce):
         assert plan.rows == spread or fused_tp._collective_smem(
             plan.rows + 1, H, P, reduce) > fused_tp._COLL_SMEM
         assert plan.rows <= spread
-        # the counters a launch takes fit in the buffer a stream keeps
+        # the counters a launch takes fit in a counter buffer
         assert P * P * plan.per_rank * 2 <= \
             2 * fused_tp._MAX_RANKS * (2048 // plan.threads) * sms
 

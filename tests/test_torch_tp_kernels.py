@@ -239,9 +239,45 @@ def test_collectives_replay_from_a_graph_on_card(cuda, P):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("P", (2, 4))
+def test_collectives_replay_on_another_stream_on_card(cuda, P):
+    """A graph captured on one stream replays on another while eager calls
+    run on the capture stream: a capture takes counters of its own, so
+    neither launch resets the other's."""
+    x, parts = collective_inputs(P, 128, 256, cuda)
+    calls = ((fused_tp.tp_all_gather, fused_tp.tp_all_gather_plain, x),
+             (fused_tp.tp_reduce_scatter, fused_tp.tp_reduce_scatter_plain,
+              parts))
+    wants = [plain(arg, num_devices=P, rounds=5) for _, plain, arg in calls]
+    capture, other = torch.cuda.Stream(), torch.cuda.Stream()
+    capture.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(capture):
+        for fn, _, arg in calls:
+            fn(arg, num_devices=P, rounds=5)
+    torch.cuda.current_stream().wait_stream(capture)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=capture):
+        outs = [fn(arg, num_devices=P, rounds=5) for fn, _, arg in calls]
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with torch.cuda.stream(other):
+            graph.replay()
+        with torch.cuda.stream(capture):
+            eager = [[fn(arg, num_devices=P, rounds=5)
+                      for fn, _, arg in calls] for _ in range(3)]
+        torch.cuda.synchronize()
+        for out, want in zip(outs, wants):
+            assert torch.equal(out, want)
+        for got in eager:
+            assert all(torch.equal(g, w) for g, w in zip(got, wants))
+
+
+@pytest.mark.cuda
 def test_collectives_refuse_a_first_call_inside_a_capture(cuda):
     x, _ = collective_inputs(2, 8, 128, cuda)
-    fused_tp._COUNTERS.clear()  # as on a fresh process
+    # as on a fresh process: no counters zeroed yet
+    fused_tp._COUNTERS.clear()
+    fused_tp._SPARE.clear()
     graph = torch.cuda.CUDAGraph()
     with pytest.raises(RuntimeError, match="before capturing"):
         with torch.cuda.graph(graph):
@@ -253,14 +289,15 @@ def test_collective_plan_is_the_cards(cuda):
     """The plan a launch takes is ``_collective_plan`` over the card's SM
     count and occupancy, cached: one occupancy query a shape."""
     x, parts = collective_inputs(4, 128, 256, cuda)
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    index = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
     for fn, name, reduce, arg in (
             (fused_tp.tp_all_gather, "tp_all_gather", False, x),
             (fused_tp.tp_reduce_scatter, "tp_reduce_scatter", True, parts)):
         fn(arg, num_devices=4)
         want = fused_tp._collective_plan(
             128, 1024, 4, reduce, sms,
-            lambda smem: fused_tp.collective_blocks(reduce, smem))
+            lambda smem: fused_tp.collective_blocks(reduce, smem, index))
         assert fused_tp.last_plans()[name] == want._asdict()
         hits = fused_tp._card_collective_plan.cache_info().hits
         fn(arg, num_devices=4)

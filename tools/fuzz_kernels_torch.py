@@ -804,8 +804,10 @@ def card_plans(case, dev) -> dict:
             mode, B, H, P, c, bf16, kernel == "tp_ann_bwd")
 
     with torch.cuda.device(dev):
+        index = torch.cuda.current_device()
         return plans_of(case, sms, per_sm, max_active,
-                        fused_tp.collective_blocks)
+                        lambda reduce, smem: fused_tp.collective_blocks(
+                            reduce, smem, index))
 
 
 def run_case(case: dict, dev) -> dict:
