@@ -63,9 +63,9 @@ this run:
    2, 4 in both modes; the RadLIF [512, 512, 35] ``auto`` and ``pallas``
    and the bidirectional RadLIF [1024, 1024, 35] ``auto`` and ``pallas_tp``
    (P = 1, 2, 4) steps in both modes; the ptxas report of the cell kernels
-   with a product; and, per library in ``AB_UNTOUCHED``, the kernels
-   whose SASS count, registers or stack bytes (``cuobjdump -sass``,
-   ``-res-usage``) differ between the trees (whole records in
+   with a product; and, per library, the kernels whose SASS count,
+   registers or stack bytes (``cuobjdump -sass``, ``-res-usage``) differ
+   between the trees, those in ``AB_UNTOUCHED`` marked (whole records in
    ``build/ab/ab_<i>.json``). Then ``ab_step``: the RadLIF [512, 512, 35]
    ``auto`` step (float32, bf16) of both trees, each tree's trainer in a
    process that stays up: ten alternating pairs (DIR, this, this, DIR,
@@ -1104,14 +1104,12 @@ print(json.dumps({"phase": "ab", "tree": root, "ms": res, "digests": dig,
                   "code": code, "ptxas": ptxas}), flush=True)
 """
 
-# the libraries that the change to the TP collectives leaves alone (value:
-# a pattern of the kernels left out of the comparison, or None): their code
-# must stay as the other tree compiles it
+# the libraries that the global-row map of the hash dropout leaves alone
+# (value: a pattern of the kernels left out of the comparison, or None):
+# their code must stay as the other tree compiles it
 AB_UNTOUCHED = {
-    "fused_cell_fwd": None, "fused_cell_bwd": None, "fused_ann_fwd": None,
-    "fused_ann_bwd": None, "readout_fwd": None, "readout_bwd": None,
-    "tp_cell_fwd": None, "tp_cell_bwd": None, "tp_ann_fwd": None,
-    "tp_ann_bwd": None,
+    "readout_fwd": None, "readout_bwd": None, "tp_cell_bwd": None,
+    "tp_ann_fwd": None, "tp_ann_bwd": None, "tp_collectives": None,
 }
 
 
@@ -1144,14 +1142,15 @@ def ab(dev, other: str):
          differ={k: [d.get(k) for d in digests] for k in keys
                  if len({d.get(k) for d in digests}) != 1})
     parent, change = runs[0]["code"], runs[1]["code"]
-    for lib, skip in AB_UNTOUCHED.items():
+    for lib in sorted(set(parent) | set(change)):
+        skip = AB_UNTOUCHED.get(lib)
         a, b = ({k: v for k, v in x.get(lib, {}).items()
                  if not (skip and re.search(skip, k))}
                 for x in (parent, change))
         moved = {k: [a.get(k), b.get(k)] for k in sorted(set(a) | set(b))
                  if a.get(k) != b.get(k)}
-        emit("ab_code", library=lib, kernels=len(b), same=len(b) - len(moved),
-             moved=moved)
+        emit("ab_code", library=lib, untouched=lib in AB_UNTOUCHED,
+             kernels=len(b), same=len(b) - len(moved), moved=moved)
     step_pairs(other)
 
 

@@ -108,6 +108,35 @@ all at once), then prints one JSON line per phase:
    batches made beforehand (``loader_free_utterances_per_s``), the loader
    wait, the pinned copy, the binning branch, losses and accuracies by epoch, the served test
    accuracy and each hidden layer's mean firing rate after training.
+8b'. ``data_parallel``: the CLI's ``Experiment`` on 2 ranks of ``python -m
+   torch.distributed.run --standalone --nproc_per_node 2 chip_smoke.py
+   dp_worker DIR`` (this script's worker mode) sharing the one card, gloo
+   (``parallel/multihost.py``), each run beside the same argv on this
+   process. The ranks load the kernels phase 1 built. RadLIF [512, 512,
+   35], global batch 128 (64 a rank), the SSC-shaped set of 8b served
+   from memory (512 train, 128 valid, 128 test utterances; each rank's
+   loader its shard), 1 epoch: (a) ``--normalization none``, dropout 0.1,
+   ``auto``, every W and V on the 2^-8 grid; (b) batchnorm, ``auto``,
+   ``--use_regularizers true``; (c) ``--cell_impl pallas_tp --mesh_model
+   2``, batchnorm. Checks at step 1: (a) each rank's spikes and logits are
+   its rows of the one-process run's, bit for bit, and every gradient is
+   within 1e-5 of its largest magnitude; (b) and (c) each gradient within
+   that, or else no farther from the step in float64 on one process (the
+   plain versions or, for (c), the scan path, its draws float32 as the
+   run's) than 4 times the one-process run is; the ranks' gradients equal;
+   (b) and (c) layer 0's BatchNorm running mean and variance after step 1
+   (the global batch's statistics of x W, which no spike reaches) equal
+   on the ranks and within 1e-6 of the one-process run's largest.
+   Every rank's kernels by name: (a), (b) the ``auto`` launches of 8b a
+   step and an eval batch, and no other; (c) ``tp_cell_fwd`` and
+   ``tp_cell_bwd`` and no single-card cell kernel. A
+   rank that fails, or ranks not done in 300 s (a hung rendezvous), fail
+   the phase. Prints the world size, backend and each rank's device, the
+   all-reduces of a training step (the median over the steps after the
+   first), of the first step and of the whole run by kind with their bytes
+   and ms (each timed with the card waited for on both sides), epoch
+   seconds and loader-fed utterances/s, losses and accuracies (not
+   bounded); two ranks sharing one card measure correctness, not speed.
 8c. ``audio``: the HD/SC path. It writes an SC-shaped tree of WAVs with the
    stdlib ``wave`` module into a temporary folder (35 label folders of
    one-second 16 kHz utterances made from a seed, two harmonics of each
@@ -355,8 +384,10 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -1669,8 +1700,9 @@ def ssc_events(n, seed):
 
 def memory_experiment_class(data):
     """``Experiment`` with only ``init_dataset`` overridden: the SSC
-    loaders, built as ``load_shd_or_ssc`` builds them, over datasets that
-    serve ``data``'s events from memory."""
+    loaders, built as ``load_shd_or_ssc`` builds them (a data-parallel
+    rank's its shard of each batch), over datasets that serve ``data``'s
+    events from memory."""
     from sparch_tpu_torch.data import DataLoader
     from sparch_tpu_torch.data.spiking import (
         MAX_TIME, NB_UNITS, SpikingDataset)
@@ -1691,14 +1723,14 @@ def memory_experiment_class(data):
     class MemoryExperiment(Experiment):
         def init_dataset(self):
             self.nb_inputs, self.nb_outputs = NB_UNITS, C
-            for split in EXP_SPLITS:
+            for split in data:
                 ds = MemorySpikes(*data[split], self.nb_steps)
                 setattr(self, f"{split}_loader", DataLoader(
                     ds, batch_size=self.batch_size,
                     collate_fn=ds.generate_batch, shuffle=split == "train",
                     seed=self.seed, prefetch=2 if self.workers >= 0 else 0,
                     workers=max(self.workers, 0),
-                    batch_transform=self._to_tensors))
+                    batch_transform=self._to_tensors, **self._shard_kw()))
 
     return MemoryExperiment
 
@@ -4737,6 +4769,345 @@ def tp_ann_kernel_rows(fwd, bwd, trained, bf16=False):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Data parallelism: the CLI's Experiment on ranks of torch.distributed.run
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2
+DP_SPLITS = {"train": 512, "valid": 128, "test": 128}
+DP_TIMEOUT_S = 300  # the ranks' whole run, a hung rendezvous included
+DP_GRAD_REL_MAX = 1e-5  # run (a): R = 2's step-1 gradients vs R = 1's
+DP_STATS_REL_MAX = 1e-6  # (b), (c): layer 0's running statistics, step 1
+DP_THREADS = 2  # host threads of each rank and of the one-process runs
+DP_RUNS = {  # name: the argv beyond DP_ARGV
+    "a_auto_nonorm_dropout": ["--normalization", "none", "--pdrop", "0.1"],
+    "b_auto_batchnorm_reg": ["--use_regularizers", "true"],
+    "c_pallas_tp_p2": ["--cell_impl", "pallas_tp", "--mesh_model", "2"],
+}
+DP_ARGV = ["--model_type", "RadLIF", "--nb_layers", "3", "--nb_hiddens",
+           str(H), "--batch_size", str(B), "--dataset_name", "ssc",
+           "--data_folder", EXP_DATA, "--nb_epochs", "1"]
+
+
+def dp_data():
+    return {split: ssc_events(n, 100 + seed)
+            for seed, (split, n) in enumerate(DP_SPLITS.items())}
+
+
+def on_grid_(model):
+    """Every input weight and recurrent matrix onto the 2^-8 grid, in
+    place: a rank's drives and recurrent products are then exact, so its
+    spikes cannot depend on how the batch is split."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("W.weight") or name.endswith(".V"):
+                p.copy_(torch.round(p * 256.0) / 256.0)
+
+
+def dp_run(name, dev, root, data):
+    """One run of ``DP_RUNS[name]`` through ``Experiment`` on this process
+    (a rank of the group, or the one process): 1 epoch with every kernel
+    launch and all-reduce counted; the first training step's spikes,
+    logits, gradients, loss, batch and initial weights are kept."""
+    import run_exp_torch
+    from sparch_tpu_torch.ops import fused_cells
+    from sparch_tpu_torch.parallel import multihost
+
+    R = multihost.world_size()
+    folder = str(Path(root) / f"{name}_r{R}")
+    argv = DP_ARGV + DP_RUNS[name] + ["--new_exp_folder", folder]
+    exp = memory_experiment_class(data)(run_exp_torch.parse_args(argv),
+                                        device=dev)
+    if name.startswith("a_"):
+        on_grid_(exp.net)
+    first, steps_ar = {}, []
+    step = exp._train_step
+
+    def all_reduces_of(fn):
+        """``fn()`` and the all-reduces it made, by kind."""
+        before = multihost.collective_counts()
+        out = fn()
+        after = multihost.collective_counts()
+        steps_ar.append({what: {k: v - before[what].get(k, 0)
+                                for k, v in after[what].items()}
+                         for what in ("calls", "bytes", "ms")})
+        return out
+
+    def first_step(state, x, y):
+        if first:
+            return all_reduces_of(lambda: step(state, x, y))
+        seen = []
+        hooks = [m.register_forward_hook(
+            lambda mod, i, o: seen.append(o.detach().cpu()))
+            for m in exp.net.hidden_layers() + [exp.net.readout]]
+        init = {k: v.detach().cpu().clone()
+                for k, v in exp.net.state_dict().items()}
+        try:
+            state, met = all_reduces_of(lambda: step(state, x, y))
+        finally:
+            for h in hooks:
+                h.remove()
+        first.update(
+            spikes=seen[:-1], logits=seen[-1], loss=float(met["loss"]),
+            grads={k: p.grad.detach().cpu().clone()
+                   for k, p in exp.net.named_parameters()},
+            # layer 0's BatchNorm statistics after the step
+            running={k: v.detach().cpu().clone()
+                     for k, v in exp.net.state_dict().items()
+                     if k.startswith("layer_0.") and "running_" in k},
+            init=init, x=x.cpu(), y=y.cpu())
+        return state, met
+
+    exp._train_step = first_step
+    fused_cells.reset_launch_counts()
+    multihost.reset_collective_counts()
+    with multihost.timed():
+        exp.forward()
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in fused_cells.launch_counts().items() if n}
+    steps = sum(len(exp.train_loader) for h in exp.history
+                if h["split"] == "train")
+    coll = multihost.collective_counts()
+    if exp.cell_impl == "pallas_tp":
+        check(counts.get("tp_cell_fwd", 0) > 0 and
+              counts.get("tp_cell_bwd", 0) > 0 and
+              not any(k.startswith("fused_cell") for k in counts),
+              f"{name} rank {multihost.rank()}: launches {counts}")
+    else:
+        want = {k: n for k, n in expected_launches(exp)[2].items() if n}
+        check(counts == want, f"{name} rank {multihost.rank()}: launches "
+              f"{counts} != {want}")
+    losses = [h["loss"] for h in exp.history]
+    check(bool(np.isfinite(losses).all()), f"{name}: losses {losses}")
+    # a training step's all-reduces: the median over the steps after the
+    # first (whose first collectives warm up)
+    later = steps_ar[1:] or steps_ar
+    a_step = {what: {k: statistics.median(st[what].get(k, 0) for st in later)
+                     for k in later[0][what]}
+              for what in ("calls", "bytes", "ms")}
+    return dict(
+        first=first, launches=counts, steps=steps,
+        all_reduces_step1=steps_ar[0], all_reduces_a_step=a_step,
+        all_reduces_run=coll,
+        history=[{k: h.get(k) for k in ("split", "epoch", "loss", "acc",
+                                          "rate", "seconds", "utterances")}
+                 for h in exp.history],
+        world=R, rank=multihost.rank(), backend=multihost.backend(),
+        device=str(exp.device), model_config=exp._model_config,
+        reg=dict(use_regularizers=exp.use_regularizers,
+                 reg_factor=exp.reg_factor, reg_fmin=exp.reg_fmin,
+                 reg_fmax=exp.reg_fmax), lr=exp.lr, seed=exp.seed)
+
+
+def dp_worker(root) -> int:
+    """A rank of ``torch.distributed.run``: every run of DP_RUNS, each rank's
+    records into ``root``."""
+    sys.path.insert(0, str(REPO))
+    from sparch_tpu_torch.parallel import multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(DP_THREADS)
+    check(multihost.maybe_initialize(), "the rank found no process group")
+    data = dp_data()
+    for name in DP_RUNS:
+        rec = dp_run(name, None, root, data)
+        torch.save(rec, Path(root) / f"{name}_rank{multihost.rank()}.pt")
+    multihost.barrier()
+    return 0
+
+
+@contextlib.contextmanager
+def float32_draws():
+    """``torch.rand`` draws float32 and casts: a float64 run then takes the
+    float32 run's random states and masks from the same generator."""
+    rand = torch.rand
+
+    def f32(*shape, dtype=None, **kw):
+        return rand(*shape, dtype=torch.float32, **kw).to(
+            dtype or torch.float32)
+
+    with patched(torch, "rand", f32):
+        yield
+
+
+def f64_step1(rec, dev, impl):
+    """The step-1 gradients of ``rec``'s run in float64 on one process:
+    its initial weights and first (global) batch, the same draws; the
+    kernels swapped for their plain versions (``impl`` 'auto'), or the scan
+    path, the same function as the TP kernels' (``impl`` 'scan')."""
+    from sparch_tpu_torch.models import build_model_from_config
+    from sparch_tpu_torch.train import create_train_state, make_train_step
+
+    model = build_model_from_config(rec["model_config"], cell_impl=impl)
+    model.load_state_dict(rec["first"]["init"])
+    model = model.to(dev, torch.float64)
+    state = create_train_state(model, rec["lr"], device=dev,
+                               seed=rec["seed"])
+    with plain_versions(), float32_draws():
+        make_train_step(model, **rec["reg"])(
+            state, rec["first"]["x"].to(dev, torch.float64),
+            rec["first"]["y"].to(dev))
+    return {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+
+
+def dp_compare(name, one, ranks, dev):
+    """Step 1 of the R-rank run against the one-process run: run (a) the
+    spikes and logits bit for bit and each gradient within DP_GRAD_REL_MAX
+    of its largest magnitude; (b) and (c) layer 0's running statistics
+    within DP_STATS_REL_MAX of their largest, and each gradient within
+    DP_GRAD_REL_MAX, or else no farther from the float64 run than
+    WITNESS_GRAD_FACTOR times the one-process run is."""
+    rows = one["first"]["y"].shape[0] // len(ranks)
+    g1 = one["first"]["grads"]
+    for r, rec in enumerate(ranks):
+        check(all(torch.equal(rec["first"]["grads"][k],
+                              ranks[0]["first"]["grads"][k]) for k in g1),
+              f"{name}: rank {r}'s step-1 gradients differ from rank 0's")
+    out = dict(step1_loss_r1=one["first"]["loss"],
+               step1_loss_by_rank=[rec["first"]["loss"] for rec in ranks])
+    lo = [slice(r * rows, (r + 1) * rows) for r in range(len(ranks))]
+    check(all(torch.equal(rec["first"]["x"], one["first"]["x"][sl]) and
+              torch.equal(rec["first"]["y"], one["first"]["y"][sl])
+              for rec, sl in zip(ranks, lo)),
+          f"{name}: the ranks' first batches are not the rows of R = 1's")
+    differ = sorted({k for rec in ranks
+                     for k, v in one["first"]["init"].items()
+                     if not torch.equal(rec["first"]["init"][k], v)})
+    check(not differ, f"{name}: the ranks' initial {differ} differ from "
+          "R = 1's")
+    # the hidden layers' step-1 outputs that differ from R = 1's, by layer
+    out["spikes_differing"] = [
+        sum(int((rec["first"]["spikes"][i] != whole[sl]).sum())
+            for rec, sl in zip(ranks, lo)) / whole.numel()
+        for i, whole in enumerate(one["first"]["spikes"])]
+    if name.startswith("a_"):
+        check(not any(out["spikes_differing"]),
+              f"{name}: step-1 spikes differ {out['spikes_differing']}")
+        check(all(torch.equal(rec["first"]["logits"],
+                              one["first"]["logits"][sl])
+                  for rec, sl in zip(ranks, lo)),
+              f"{name}: step-1 logits differ")
+        out.update(spikes_bit_equal=True, logits_bit_equal=True,
+                   spike_rate_by_layer=[
+                       float((s != 0).float().mean())
+                       for s in one["first"]["spikes"]])
+    # layer 0's running statistics: the global batch's moments of x W,
+    # before any recurrence, so no flipped spike reaches them
+    run1 = one["first"]["running"]
+    check(all(torch.equal(rec["first"]["running"][k], run1_k)
+              for rec in ranks for k, run1_k in
+              ranks[0]["first"]["running"].items()),
+          f"{name}: the ranks' layer-0 running statistics differ")
+    if run1:
+        stats = {k: rel_err(ranks[0]["first"]["running"][k], v)
+                 for k, v in run1.items()}
+        out.update(layer0_stats_rel_err_vs_r1=stats,
+                   stats_rel_bound=DP_STATS_REL_MAX)
+        check(max(stats.values()) <= DP_STATS_REL_MAX,
+              f"{name}: layer 0's step-1 statistics vs R = 1: {stats}")
+    check(bool(run1) == ("--normalization" not in DP_RUNS[name]),
+          f"{name}: layer-0 running statistics {sorted(run1)}")
+    errs = {k: rel_err(ranks[0]["first"]["grads"][k], g)
+            for k, g in g1.items()}
+    out.update(max_grad_rel_err_vs_r1=max(errs.values()),
+               grad_rel_bound=DP_GRAD_REL_MAX)
+    over = [k for k, e in errs.items() if e > DP_GRAD_REL_MAX]
+    if name.startswith("a_"):
+        check(not over, f"{name}: step-1 gradients {over} past "
+              f"{DP_GRAD_REL_MAX}: {errs}")
+    elif over:
+        impl = "scan" if name.startswith("c_") else "auto"
+        truth = f64_step1(one, dev, impl)
+        w = {k: dict(vs_r1=errs[k],
+                     r2_vs_f64=rel_err(ranks[0]["first"]["grads"][k]
+                                       .double(), truth[k]),
+                     r1_vs_f64=rel_err(g1[k].double(), truth[k]))
+             for k in over}
+        out["f64_witness"] = w
+        for k, v in w.items():
+            check(v["r2_vs_f64"] <= WITNESS_GRAD_FACTOR * v["r1_vs_f64"],
+                  f"{name}: step-1 gradient of {k} {v}")
+    return out
+
+
+def phase_data_parallel(dev, smi):
+    """The CLI's ``Experiment`` on DP_RANKS ranks of ``python -m
+    torch.distributed.run`` sharing the one card (gloo), every run of
+    DP_RUNS beside the same run on one process (see the module docstring,
+    phase 8b'). The kernels are built already (phase 1), so the ranks load
+    them and build nothing."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    log = Path(root) / "ranks.log"
+    try:
+        with open(log, "w") as f:
+            ranks_proc = subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nnodes", "1", "--nproc_per_node",
+                 str(DP_RANKS), str(REPO / "chip_smoke.py"), "dp_worker",
+                 root], cwd=str(REPO), stdout=f, stderr=subprocess.STDOUT,
+                env=dict(os.environ, OMP_NUM_THREADS=str(DP_THREADS)),
+                start_new_session=True)
+        threads = torch.get_num_threads()
+        try:
+            # the one-process runs with the ranks' host threads, so that
+            # the models' CPU initialisation takes the same bits
+            torch.set_num_threads(DP_THREADS)
+            data = dp_data()
+            one = {name: dp_run(name, dev, root, data) for name in DP_RUNS}
+            rc = ranks_proc.wait(timeout=DP_TIMEOUT_S)
+        finally:
+            torch.set_num_threads(threads)
+            if ranks_proc.poll() is None:
+                os.killpg(ranks_proc.pid, signal.SIGKILL)
+                ranks_proc.wait()
+        tail = log.read_text()[-4000:]
+        check(rc == 0, f"data_parallel: the ranks exited {rc}:\n{tail}")
+        runs = {}
+        for name in DP_RUNS:
+            ranks = [torch.load(Path(root) / f"{name}_rank{r}.pt",
+                                weights_only=False)
+                     for r in range(DP_RANKS)]
+            step1 = dp_compare(name, one[name], ranks, dev)
+            runs[name] = dict(
+                argv=DP_RUNS[name], step1=step1,
+                ranks=[dict(rank=rec["rank"], device=rec["device"],
+                            launches=rec["launches"],
+                            all_reduces_a_step=rec["all_reduces_a_step"],
+                            all_reduces_step1=rec["all_reduces_step1"],
+                            all_reduces_run=rec["all_reduces_run"])
+                       for rec in ranks],
+                r1_launches=one[name]["launches"],
+                epochs={f"r{R}": [dict(h, utterances_per_s=h["utterances"]
+                                      / h["seconds"])
+                                 for h in rec["history"]
+                                 if h["split"] == "train"]
+                        for R, rec in ((1, one[name]),
+                                       (DP_RANKS, ranks[0]))},
+                eval_by_split={f"r{R}": [dict(split=h["split"],
+                                              loss=h["loss"], acc=h["acc"])
+                                         for h in rec["history"]
+                                         if h["split"] != "train"]
+                               for R, rec in ((1, one[name]),
+                                              (DP_RANKS, ranks[0]))})
+        world = ranks[0]["world"]
+        backend = ranks[0]["backend"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(world == DP_RANKS and backend == "gloo",
+          f"data_parallel: world {world}, backend {backend}")
+    emit("data_parallel", nvidia_smi=smi,
+         note="two ranks share one card: these runs measure correctness, "
+         "not speed", entry="python -m torch.distributed.run "
+         f"--nproc_per_node {DP_RANKS} + Experiment (init_dataset from "
+         "memory)", world_size=world, backend=backend,
+         model="RadLIF [512, 512, 35]", global_batch=B,
+         batch_a_rank=B // DP_RANKS, T=T, F=F, utterances=DP_SPLITS,
+         grad_rel_bound=DP_GRAD_REL_MAX,
+         witness_factor=WITNESS_GRAD_FACTOR, runs=runs)
+    return {name: run["ranks"][0]["launches"] for name, run in runs.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4763,6 +5134,7 @@ def main() -> int:
     launches = run("serving", phase_serving, dev)
     trained, trained_auto = run("training", phase_training, dev)
     experiment = run("experiment", phase_experiment, dev, trained_auto)
+    dp = run("data_parallel", phase_data_parallel, dev, smi)
     audio_root = Path(tempfile.mkdtemp(prefix="chip_smoke_audio_"))
     try:
         audio = run("audio", phase_audio, dev, smi, audio_root)
@@ -4868,6 +5240,15 @@ def main() -> int:
         + tp_cell_rows(tp_fwd16, tp_bwd16, tp_trained16, bf16=True) \
         + tp_ann_kernel_rows(tp_ann_fwd16, tp_ann_bwd16, tp_ann_trained16,
                              bf16=True)
+    for row in kernels:
+        # the ranks' launches (rank 0's; every rank launches as many) in
+        # each run of the data_parallel phase
+        names = (("fused_cell_fwd_train", "fused_cell_bwd")
+                 if row["name"] == "dropout_hash" else (row["name"],))
+        by_run = {run_name: sum(c.get(n, 0) for n in names)
+                  for run_name, c in dp.items()}
+        if any(by_run.values()):
+            row["launches_data_parallel"] = by_run
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4877,4 +5258,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["dp_worker"]:
+        # a rank of the data_parallel phase, started by torch.distributed.run
+        sys.exit(dp_worker(sys.argv[2]))
     sys.exit(main())

@@ -5,14 +5,24 @@ run_exp.py): the same flags, driving ``sparch_tpu_torch.train.loop``'s
 
     python run_exp_torch.py --dataset_name ssc --data_folder DIR ...
 
+Data parallelism over R processes (``--batch_size`` is the global batch,
+a multiple of R; each rank trains on its slice and every rank takes the
+global batch's step):
+
+    python -m torch.distributed.run --nproc_per_node R run_exp_torch.py ...
+
+The ranks take a card each (``nccl``) where there are as many cards, else
+share them (``gloo``, as several ranks on one card or on the CPU do).
+
 Run ``python run_exp_torch.py -h`` for the flags. The four datasets
 (``--dataset_name shd|ssc|hd|sc``) and both audio frontends (``--frontend
-host|device``) run; ``--compile_cache DIR`` builds and loads the CUDA
-kernels in DIR, ``--profile_dir DIR`` writes a profiler trace of the first
-epoch there. The flags whose paths the port does not have yet raise
-``NotImplementedError`` naming their ROADMAP item: ``--cell_impl
-pallas_tp``, ``--mesh_model`` other than 1 and ``--seq_parallel`` other
-than 1. From Python, ``main(argv, device="cpu")`` runs on the CPU.
+host|device``) run; ``--cell_impl pallas_tp --mesh_model P`` runs the
+spiking layers through the tensor-parallel kernels on each process's one
+card, and ``--mesh_model P`` with ``auto``/``scan`` the same function whole;
+``--compile_cache DIR`` builds and loads the CUDA kernels in DIR,
+``--profile_dir DIR`` writes a profiler trace of the first epoch there.
+``--seq_parallel`` other than 1 raises ``NotImplementedError`` naming its
+ROADMAP item. From Python, ``main(argv, device="cpu")`` runs on the CPU.
 """
 import argparse
 

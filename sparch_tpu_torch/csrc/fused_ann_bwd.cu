@@ -122,7 +122,7 @@ struct Args {
   int H;
   uint32_t keep_u32;
   float inv_keep;
-  int tile_rows;
+  DropRows drop;
   int wx_bf16;         // the input streams are bf16, not float
   int n_parts;         // partials of dscale/dshift
   slice::Plan plan;
@@ -178,7 +178,7 @@ fused_ann_bwd_kernel(const Args p) {
   for (int r = 0; r < kRt; ++r) {
     rowlive[r] = thread_live && row0 + r < p.B;
     drop_base[r] = (dropout && rowlive[r])
-                       ? dropout_row_base(p.seed, row0 + r, p.tile_rows)
+                       ? dropout_row_base(p.seed, row0 + r, p.drop)
                        : 0u;
     D[r] = 0.f;
   }
@@ -351,9 +351,11 @@ extern "C" int sparch_fused_ann_bwd(
     void* dwx0, void* dwx1, void* dwx2, void* dd0, void* dd1,
     void* dd2, float* partials, float* vecs, float* dV, float* dv_partials,
     float* dy0, int B, int T, int H, int mode, unsigned int keep_u32,
-    float inv_keep, int tile_rows, int cluster, int rows, int resident,
-    int n_parts, int ksplit, int dv_tile, int bf16, int wx_bf16,
-    float* split_ms, void* stream) {
+    float inv_keep, int tile_rows, int row_seg, int row_stride,
+    int row_off, int cluster, int rows, int resident, int n_parts,
+    int ksplit, int dv_tile, int bf16, int wx_bf16, float* split_ms,
+    void* stream) {
+  const DropRows drop{tile_rows, row_seg, row_stride, row_off};
   const void* wx[3] = {wx0, wx1, wx2};
   void* dwx[3] = {dwx0, dwx1, dwx2};
   void* dd[3] = {dd0, dd1, dd2};
@@ -361,7 +363,7 @@ extern "C" int sparch_fused_ann_bwd(
       mode > kGru || !g || !y_seq || !VT || !y0 || !partials || !vecs ||
       !dV || (ksplit > 1 && !dv_partials) || !dy0 ||
       (mode >= kLigru && (!z || !c)) ||
-      (mode == kGru && !r) || (seed && tile_rows <= 0) || ksplit < 1 ||
+      (mode == kGru && !r) || (seed && !drop_rows_ok(drop)) || ksplit < 1 ||
       (wx_bf16 && !bf16)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -382,7 +384,7 @@ extern "C" int sparch_fused_ann_bwd(
   }
   const Args p{g, {wx0, wx1, wx2}, y_seq, z, r, c, scale, VT, y0, seed,
                {dwx0, dwx1, dwx2}, {dd0, dd1, dd2}, partials, dy0, B, T, H,
-               keep_u32, inv_keep, tile_rows, wx_bf16, n_parts, pl};
+               keep_u32, inv_keep, drop, wx_bf16, n_parts, pl};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Split split(split_ms != nullptr);
   split.mark(0, st);

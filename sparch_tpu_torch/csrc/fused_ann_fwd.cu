@@ -93,7 +93,7 @@ struct Args {
   int H;
   uint32_t keep_u32;
   float inv_keep;
-  int tile_rows;
+  DropRows drop;
   int wx_bf16;         // the input streams are bf16, not float
   slice::Plan plan;
 };
@@ -146,7 +146,7 @@ fused_ann_fwd_kernel(const Args p) {
   for (int r = 0; r < kRt; ++r) {
     rowlive[r] = thread_live && row0 + r < p.B;
     drop_base[r] = (dropout && rowlive[r])
-                       ? dropout_row_base(p.seed, row0 + r, p.tile_rows)
+                       ? dropout_row_base(p.seed, row0 + r, p.drop)
                        : 0u;
   }
   const int c0 = live ? col : 0;
@@ -287,13 +287,14 @@ extern "C" int sparch_fused_ann_fwd(
     const float* shift, const void* V, const float* y0, const int* seed,
     void* y_out, void* yraw_out, void* z_out, void* r_out, void* c_out,
     int B, int T, int H, int mode, unsigned int keep_u32, float inv_keep,
-    int tile_rows, int bf16, int wx_bf16, int cluster, int rows,
-    int resident, void* stream) {
+    int tile_rows, int row_seg, int row_stride, int row_off, int bf16,
+    int wx_bf16, int cluster, int rows, int resident, void* stream) {
+  const DropRows drop{tile_rows, row_seg, row_stride, row_off};
   if (B <= 0 || T <= 0 || H <= 0 || H > kMaxH || mode < kRnn ||
       mode > kGru || !wx0 || (mode >= kLigru && !wx1) ||
       (mode == kGru && !wx2) || !V || !y0 || !y_out ||
       ((scale == nullptr) != (shift == nullptr)) ||
-      (seed && tile_rows <= 0) || (wx_bf16 && !bf16) ||
+      (seed && !drop_rows_ok(drop)) || (wx_bf16 && !bf16) ||
       (mode >= kLigru && ((z_out == nullptr) != (c_out == nullptr))) ||
       (mode == kGru && ((r_out == nullptr) != (c_out == nullptr)))) {
     return (int)cudaErrorInvalidValue;
@@ -304,7 +305,7 @@ extern "C" int sparch_fused_ann_fwd(
     return (int)cudaErrorInvalidValue;
   }
   const Args p{{wx0, wx1, wx2}, scale, shift, V, y0, seed, y_out, yraw_out,
-               z_out, r_out, c_out, B, T, H, keep_u32, inv_keep, tile_rows,
+               z_out, r_out, c_out, B, T, H, keep_u32, inv_keep, drop,
                wx_bf16, pl};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int err = (int)slice::launch(kernel_for(mode, bf16), pl, p, st);

@@ -143,7 +143,7 @@ struct Args {
   float threshold;
   uint32_t keep_u32;
   float inv_keep;
-  int tile_rows;
+  DropRows drop;
 };
 
 // The bf16 mode's one more flag rides in a struct of its own, so that the
@@ -193,8 +193,7 @@ fused_cell_bwd_kernel(const typename ModeArgs<BF>::type p) {
   for (int r = 0; r < BT; ++r) {
     rowlive[r] = row0 + r < p.B;
     drop_base[r] = (DROPOUT && rowlive[r])
-                       ? sparch::dropout_row_base(p.seed, row0 + r,
-                                                  p.tile_rows)
+                       ? sparch::dropout_row_base(p.seed, row0 + r, p.drop)
                        : 0u;
   }
 #pragma unroll
@@ -333,7 +332,7 @@ struct ClusterArgs {
   float threshold;
   uint32_t keep_u32;
   float inv_keep;
-  int tile_rows;
+  DropRows drop;
   int wx_bf16;
   int n_parts;
   slice::Plan plan;
@@ -410,7 +409,7 @@ cell_bwd_cluster_kernel(const __grid_constant__ ClusterArgs p) {
   for (int r = 0; r < kRt; ++r) {
     rowlive[r] = thread_live && row0 + r < p.B;
     drop_base[r] = (dropout && rowlive[r])
-                       ? dropout_row_base(p.seed, row0 + r, p.tile_rows)
+                       ? dropout_row_base(p.seed, row0 + r, p.drop)
                        : 0u;
     A[r] = Bw[r] = P[r] = AV[r] = 0.f;
     // u_t of the first step walked, carried as the next one's u_t
@@ -627,14 +626,16 @@ extern "C" int sparch_fused_cell_bwd(
     float* dV, float* dv_partials, float* du0, float* dw0, float* ds0,
     int B, int T, int H, float threshold, int recurrent, int adaptive,
     int affine, unsigned int keep_u32, float inv_keep, int tile_rows,
+    int row_seg, int row_stride, int row_off,
     int n_parts, int ksplit, int dv_tile, int cluster, int rows,
     int resident, int bf16, int wx_bf16, float* split_ms, void* stream) {
+  const DropRows drop{tile_rows, row_seg, row_stride, row_off};
   if (B <= 0 || T <= 0 || H <= 0 || H > kThreads * kMaxNpt || !g || !u_seq ||
       !alpha || !u0 || !s0 || !dwx || !partials || !vecs || !du0 || !ds0 ||
       (recurrent && (!VT || !dV || (ksplit > 1 && !dv_partials))) ||
       (adaptive && (!beta || !a || !b || !w0 || !dw0)) ||
       (affine && (!wx || !scale)) || (affine && recurrent && !dd) ||
-      (seed && tile_rows <= 0) || (wx_bf16 && !bf16) || ksplit < 1) {
+      (seed && !drop_rows_ok(drop)) || (wx_bf16 && !bf16) || ksplit < 1) {
     return (int)cudaErrorInvalidValue;
   }
   const int part_rows = H <= kPairH ? 2 : 1;
@@ -656,7 +657,7 @@ extern "C" int sparch_fused_cell_bwd(
     const ClusterArgs p{g, affine ? wx : nullptr, u_seq,
                         affine ? scale : nullptr, alpha, beta, a, b, VT, u0,
                         w0, s0, seed, dwx, dd, partials, du0, dw0, ds0, B, T,
-                        H, threshold, keep_u32, inv_keep, tile_rows, wx_bf16,
+                        H, threshold, keep_u32, inv_keep, drop, wx_bf16,
                         n_parts, pl};
     const ClusterKernel kernel = adaptive ? cluster_kernel_of<true>(H, bf16)
                                           : cluster_kernel_of<false>(H, bf16);
@@ -668,7 +669,7 @@ extern "C" int sparch_fused_cell_bwd(
     const int threads = (((H + npt - 1) / npt) + 31) / 32 * 32;
     const ArgsBf16 p{{g, wx, u_seq, scale, alpha, beta, a, b, VT, u0, w0, s0,
                       seed, dwx, dd, partials, du0, dw0, ds0, B, T, H,
-                      threshold, keep_u32, inv_keep, tile_rows},
+                      threshold, keep_u32, inv_keep, drop},
                      wx_bf16};
     const bool dropout = seed != nullptr;
     if (adaptive) {

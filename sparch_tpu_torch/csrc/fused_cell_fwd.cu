@@ -133,7 +133,7 @@ struct Args {
   const int* seed;      // DROPOUT: two int32 in device memory
   uint32_t keep_u32;    // DROPOUT: keep where hash bits < keep_u32
   float inv_keep;       // DROPOUT: float32(1/(1-p))
-  int tile_rows;        // DROPOUT: rows of one batch tile of the hash
+  sparch::DropRows drop;  // DROPOUT: the hash's batch tile and row map
 };
 
 // The bf16 mode's one more flag rides in a struct of its own, so that the
@@ -216,7 +216,7 @@ fused_cell_fwd_kernel(const typename ModeArgs<BF>::type p) {
   ST* s_row = static_cast<ST*>(p.s_out) + row * T * H;
   float* u_row = RESID ? p.u_out + row * T * H : nullptr;
   const uint32_t drop_base =
-      DROPOUT ? sparch::dropout_row_base(p.seed, (int)row, p.tile_rows) : 0u;
+      DROPOUT ? sparch::dropout_row_base(p.seed, (int)row, p.drop) : 0u;
 #pragma unroll
   for (int i = 0; i < NPT; ++i) {
     x[i] = live[i] ? load_stream<BF>(p.wx, wx_row + col[i], wx_bf16) : 0.f;
@@ -371,7 +371,9 @@ int launch_form(const ArgsBf16& p, int B, int recurrent, int adaptive,
   }
   const bool resid = p.u_out != nullptr;
   const bool dropout = p.seed != nullptr;
-  if (dropout && p.tile_rows <= 0) return (int)cudaErrorInvalidValue;
+  if (dropout && !sparch::drop_rows_ok(p.drop)) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (p.wx_bf16 && !bf16) return (int)cudaErrorInvalidValue;
   // fewest neurons per thread that keep the block within kMaxThreads
   int npt = 1;
@@ -421,7 +423,7 @@ int launch_slices(const ArgsBf16& p, int B, const int* plan, float* sv0,
   s.seed = p.seed;
   s.keep_u32 = p.keep_u32;
   s.inv_keep = p.inv_keep;
-  s.tile_rows = p.tile_rows;
+  s.drop = p.drop;
   s.peers.slots[0] = slots;
   s.B = B;
   s.T = p.T;
@@ -477,7 +479,7 @@ int launch_any(const ArgsBf16& p, int B, int recurrent, int adaptive,
       !p.u0 || !p.s0 || !p.s_out || !p.V ||
       (adaptive && (!p.beta || !p.a || !p.b || !p.w0)) ||
       (affine && (!p.scale || !p.shift)) || (p.wx_bf16 && !bf16) ||
-      (p.seed && p.tile_rows <= 0)) {
+      (p.seed && !sparch::drop_rows_ok(p.drop))) {
     return (int)cudaErrorInvalidValue;
   }
   const bool resid = p.u_out != nullptr, dropout = p.seed != nullptr;
@@ -539,14 +541,15 @@ extern "C" int sparch_fused_cell_fwd(
     int adaptive, int affine, int bf16, int wx_bf16, const int* plan,
     float* sv0, void* slots, float* split_ms, void* stream) {
   const ArgsBf16 p{{wx, scale, shift, alpha, beta, a, b, V, u0, w0, s0, s_out,
-                    T, H, threshold, nullptr, nullptr, 0u, 1.f, 1},
+                    T, H, threshold, nullptr, nullptr, 0u, 1.f, {1, 1, 1, 0}},
                    wx_bf16};
   return launch_any(p, B, recurrent, adaptive, affine, bf16, plan, sv0,
                     slots, split_ms, stream);
 }
 
 // Training form: u_out non-null writes the membrane series, seed non-null
-// drops the stored output (keep_u32, inv_keep and tile_rows are then read).
+// drops the stored output (keep_u32, inv_keep, tile_rows and the row map
+// row_seg, row_stride, row_off of dropout_hash.cuh are then read).
 // The membrane series stays float in both modes.
 extern "C" int sparch_fused_cell_fwd_train(
     const void* wx, const float* scale, const float* shift,
@@ -554,12 +557,12 @@ extern "C" int sparch_fused_cell_fwd_train(
     const void* V, const float* u0, const float* w0, const float* s0,
     void* s_out, float* u_out, const int* seed, int B, int T, int H,
     float threshold, int recurrent, int adaptive, int affine,
-    unsigned int keep_u32, float inv_keep, int tile_rows, int bf16,
-    int wx_bf16, const int* plan, float* sv0, void* slots, float* split_ms,
-    void* stream) {
+    unsigned int keep_u32, float inv_keep, int tile_rows, int row_seg,
+    int row_stride, int row_off, int bf16, int wx_bf16, const int* plan,
+    float* sv0, void* slots, float* split_ms, void* stream) {
   const ArgsBf16 p{{wx, scale, shift, alpha, beta, a, b, V, u0, w0, s0, s_out,
                     T, H, threshold, u_out, seed, keep_u32, inv_keep,
-                    tile_rows},
+                    sparch::DropRows{tile_rows, row_seg, row_stride, row_off}},
                    wx_bf16};
   return launch_any(p, B, recurrent, adaptive, affine, bf16, plan, sv0,
                     slots, split_ms, stream);

@@ -99,7 +99,7 @@ struct Args {
   const int* seed;      // DROPOUT
   uint32_t keep_u32;
   float inv_keep;
-  int tile_rows;
+  DropRows drop;
   tp::Peers peers;      // slots [2][B][W] u64 (tag << 32 | word), zeroed
   int B, T, H, W;       // W = ceil(H/32) spike words a row
   int P, rank0, n_local, Hl, ld;  // single card: 1, 0, 1, H, H
@@ -390,7 +390,7 @@ slice_fwd_kernel(const Args p) {
       const bool ok = r < nrow;
       const size_t row = row0 + (ok ? r : 0);
       drop_base[i] =
-          DROPOUT ? dropout_row_base(p.seed, (int)row, p.tile_rows) : 0u;
+          DROPOUT ? dropout_row_base(p.seed, (int)row, p.drop) : 0u;
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const bool on = ok && live[c];

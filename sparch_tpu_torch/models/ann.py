@@ -49,6 +49,7 @@ from sparch_tpu_torch.models.common import (
     remat_layer,
 )
 from sparch_tpu_torch.ops import cells, fused_ann, fused_tp_ann
+from sparch_tpu_torch.parallel import multihost
 
 __all__ = [
     "ANN",
@@ -140,6 +141,7 @@ class _ANNLayerBase(FusedCellPolicy, nn.Module):
         return wxs, scales, shifts
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
+        rows = multihost.batch_rows(x.shape[0])
         if self.bidirectional:
             x = bidir_concat(x)
         fused = self._use_fused(x)
@@ -154,14 +156,15 @@ class _ANNLayerBase(FusedCellPolicy, nn.Module):
             y = type(self)._fused(
                 *wxs, *self._matrices(), y0, scales=scales, shifts=shifts,
                 mxu_bf16=self._mxu_bf16(),
-                **self._fused_dropout(fused, wxs[0], generator))
+                **self._fused_dropout(fused, wxs[0], generator),
+                drop_rows=rows)
         elif self.cell_impl == "pallas_tp":
             mesh, axis, _ = self._tp()
             y = type(self)._tp_cell(*wxs, *self._matrices(), y0, mesh=mesh,
                                     tp_axis=axis, mxu_bf16=self._mxu_bf16())
         else:
             y = type(self)._scan(*wxs, *self._matrices(), y0)
-        return self._post(y, fused, generator)
+        return self._post(y, fused, generator, rows)
 
 
 class MLPLayer(_ANNLayerBase):
@@ -171,7 +174,8 @@ class MLPLayer(_ANNLayerBase):
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         (Wx,), _, _ = self._gate_projections(x, fold=False)
-        return self._post(torch.sigmoid(Wx), False, generator)
+        return self._post(torch.sigmoid(Wx), False, generator,
+                          multihost.batch_rows(x.shape[0]))
 
 
 class RNNLayer(_ANNLayerBase):

@@ -15,6 +15,12 @@ sparch_tpu/models/common.py).
   the bf16 stream, and the fused kernels run in their bf16-stream mode
   (:meth:`FusedCellPolicy._mxu_bf16`). Parameters, running statistics and
   the optimizer's moments stay float32.
+- Under data parallelism, inside ``parallel.multihost.sharded()``, a
+  rank's batch is a slice of the global batch, and every layer computes
+  its slice of the global step: BatchNorm's statistics are the global batch's (one all-reduce of
+  the stacked ``[mean, mean2]``, whose backward all-reduces the gradient),
+  and the dropout masks and seeds are drawn for the global batch, each rank
+  keeping its rows (``FusedCellPolicy``).
 """
 from __future__ import annotations
 
@@ -23,6 +29,8 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+from sparch_tpu_torch.parallel import multihost
 
 __all__ = [
     "BN_MOMENTUM",
@@ -108,6 +116,17 @@ class Dense(nn.Module):
         return y
 
 
+def _batch_moments(flat):
+    """``(mean, mean2)`` over the rows of ``flat``, of the global batch
+    inside ``multihost.sharded()`` (each rank holds as many rows): one
+    all-reduce of the pair stacked."""
+    mean, mean2 = flat.mean(dim=0), (flat * flat).mean(dim=0)
+    if not multihost.is_sharded():
+        return mean, mean2
+    stacked = torch.stack([mean, mean2])
+    return multihost.mean_over_ranks(stacked, "stats").unbind(0)
+
+
 class SeqNorm(nn.Module):
     """Normalisation over flattened ``(B*T, H)``: ``kind`` is 'batchnorm'
     or 'layernorm'; anything else is the identity and holds no tensors.
@@ -154,8 +173,7 @@ class SeqNorm(nn.Module):
             shape = x.shape
             flat = x.reshape(-1, shape[-1])
             if self.training:
-                mean = flat.mean(dim=0)
-                mean2 = (flat * flat).mean(dim=0)
+                mean, mean2 = _batch_moments(flat)
                 var = torch.clamp_min(mean2 - mean * mean, 0.0)
                 self._update_running(mean, var)
             else:
@@ -182,8 +200,7 @@ class SeqNorm(nn.Module):
                 flat = x.reshape(-1, x.shape[-1])
                 if flat.dtype != torch.float64:
                     flat = flat.float()  # statistics in float32 at least
-                mean = flat.mean(dim=0)
-                mean2 = (flat * flat).mean(dim=0)
+                mean, mean2 = _batch_moments(flat)
                 var = mean2 - mean * mean
                 self._update_running(mean, var)
             else:
@@ -263,24 +280,29 @@ class FusedCellPolicy:
         training with dropout on the fused path, the rate and two int32
         drawn from ``generator`` on the layer's device (no host sync);
         otherwise rate 0 and no seed. The mask is drawn per element before
-        the bidirectional split, as in the JAX package."""
+        the bidirectional split, as in the JAX package; the layer passes
+        the kernels ``drop_rows`` too, so that they hash the global batch's
+        rows."""
         if not (fused and self.training and self.dropout > 0):
             return dict(drop_rate=0.0, drop_seed=None)
         seed = torch.randint(0, 2**31 - 1, (2,), generator=generator,
                              dtype=torch.int32, device=like.device)
         return dict(drop_rate=float(self.dropout), drop_seed=seed)
 
-    def _post(self, out, fused: bool, generator):
+    def _post(self, out, fused: bool, generator, rows=None):
         """Bidirectional re-merge, then (unless the kernel dropped the
-        output already) dropout."""
+        output already) dropout, its mask drawn for the global batch
+        (``rows``) and cut to the rank's rows."""
         if self.bidirectional:
             out = bidir_split(out)
         if fused or not (self.training and self.dropout > 0):
             return out  # dropped in the kernel, or not at all
         # inverted dropout with the mask drawn from the run's generator
         draw = torch.float32 if out.dtype == torch.bfloat16 else out.dtype
-        keep = torch.rand(out.shape, generator=generator, dtype=draw,
-                          device=out.device) >= self.dropout
+        keep = multihost.draw_rows(
+            lambda shape: torch.rand(shape, generator=generator, dtype=draw,
+                                     device=out.device),
+            out.shape, rows) >= self.dropout
         return out * keep * (1.0 / (1.0 - self.dropout))
 
 

@@ -28,8 +28,13 @@ tensor-parallel kernels, LIF and adLIF through the fused cell on each
 rank's block, in the bf16-stream mode under ``compute_dtype=bfloat16``. The
 norm is applied to the drive and the dropout drawn from the run's
 generator, both outside the kernels, as on the scan path; the readout is
-the plain one. ``tp_batch_axis`` is kept for the JAX model
-records: the mesh has no data axis yet.
+the plain one. ``tp_batch_axis`` is kept for the JAX model records: the
+port's ``data`` axis is the processes of a data-parallel run.
+
+Under data parallelism (``parallel.multihost``) a rank's forward is its
+slice of the global batch's: the uniform initial states and the dropout
+are drawn for the global batch (``multihost.batch_rows``), BatchNorm takes
+the global statistics and the firing rates are the global batch's means.
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ from sparch_tpu_torch.models.common import (
     remat_layer,
 )
 from sparch_tpu_torch.ops import cells, fused_cells, fused_tp
+from sparch_tpu_torch.parallel import multihost
 
 __all__ = [
     "SNN",
@@ -67,10 +73,15 @@ def _uniform_(t: torch.Tensor, lim, generator):
         t.uniform_(lim[0], lim[1], generator=generator)
 
 
-def _init_states(like: torch.Tensor, n: int, mode: str, generator):
+def _init_states(like: torch.Tensor, n: int, mode: str, generator,
+                 rows=None):
+    """``n`` initial states of ``like``'s rows, drawn for the global
+    batch (``rows``, a ``multihost.RowMap``) and cut to the rank's."""
     shape = (like.shape[0], like.shape[2])
     return [
-        cells.init_state(generator, shape, like.dtype, mode, like.device)
+        multihost.draw_rows(
+            lambda s: cells.init_state(generator, s, like.dtype, mode,
+                                       like.device), shape, rows)
         for _ in range(n)
     ]
 
@@ -148,13 +159,15 @@ class _SpikingLayerBase(FusedCellPolicy, nn.Module):
         return self.norm(Wx), None, None
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
+        rows = multihost.batch_rows(x.shape[0])
         Wx, scale, shift = self._pre(x)
         fused = self._use_fused(x)
         n = 3 if self.adaptive else 2
-        states = _init_states(Wx, n, self.state_init, generator)
-        drop = self._fused_dropout(fused, Wx, generator)
+        states = _init_states(Wx, n, self.state_init, generator, rows)
+        drop = dict(self._fused_dropout(fused, Wx, generator),
+                    drop_rows=rows)
         s = self._cell(Wx, scale, shift, states, fused, drop)
-        return self._post(s, fused, generator)
+        return self._post(s, fused, generator, rows)
 
     def _cell(self, Wx, scale, shift, states, fused, drop):
         raise NotImplementedError
@@ -288,7 +301,8 @@ class ReadoutLayer(nn.Module):
             # the membrane recurrence always runs in float32: it is tiny
             # and feeds the loss
             Wx = Wx.float()
-        (u0,) = _init_states(Wx, 1, self.state_init, generator)
+        (u0,) = _init_states(Wx, 1, self.state_init, generator,
+                             multihost.batch_rows(Wx.shape[0]))
         if readout_fused_route(self.cell_impl, Wx.is_cuda):
             return fused_cells.readout_fused(Wx, self.alpha, u0)
         return cells.readout_sum(Wx, self.alpha, u0)
@@ -413,8 +427,9 @@ class SNN(nn.Module):
             all_spikes.append(x)
         if self.use_readout_layer:
             x = self.readout(x, generator)
-        # per-layer means before concatenating: no (B, T, sum H) stack
-        firing_rates = torch.cat(
+        # per-layer means before concatenating: no (B, T, sum H) stack;
+        # the global batch's under data parallelism
+        firing_rates = multihost.mean_over_ranks(torch.cat(
             [s.float().mean(dim=(0, 1)) for s in all_spikes]
-        )
+        ), "rates")
         return x, firing_rates

@@ -65,6 +65,7 @@ from sparch_tpu_torch.ops.fused_cells import (
     _BF16,
     _as_seed,
     _check,
+    _drop_map,
     _inv_keep,
     _keep_rows,
     _ptr,
@@ -72,7 +73,6 @@ from sparch_tpu_torch.ops.fused_cells import (
     _stream_dtype,
     _work_dtype,
     _wx_dtypes,
-    dropout_tile_rows,
     keep_u32,
 )
 
@@ -103,8 +103,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint32
-_FWD_ARGS = [_P] * 13 + [_I] * 4 + [_U, _F, _I] + [_I] * 5 + [_P]
-_BWD_ARGS = [_P] * 23 + [_I] * 4 + [_U, _F, _I] + [_I] * 8 + [_P] * 2
+# the dropout's tile and row map: fused_cells._drop_map's four ints
+_FWD_ARGS = [_P] * 13 + [_I] * 4 + [_U, _F] + [_I] * 4 + [_I] * 5 + [_P]
+_BWD_ARGS = [_P] * 23 + [_I] * 4 + [_U, _F] + [_I] * 4 + [_I] * 8 + [_P] * 2
 
 
 def _per_mode(source: str, suffix: str = ""):
@@ -165,7 +166,8 @@ def _dot(x, v, mxu_bf16: bool):
 
 def ann_cell_plain(mode: str, wxs, scales, shifts, vs, y0, *,
                    drop_rate: float = 0.0, seed=None,
-                   save_residuals: bool = False, mxu_bf16: bool = False):
+                   save_residuals: bool = False, mxu_bf16: bool = False,
+                   drop_rows=None):
     """Plain PyTorch version of ``csrc/fused_ann_fwd.cu``: the TPU
     ``_ann_fwd_kernel``'s per-step arithmetic as a loop over T. ``wxs``,
     ``vs`` (and ``scales``/``shifts``, or None for no affine) are lists by
@@ -212,7 +214,7 @@ def ann_cell_plain(mode: str, wxs, scales, shifts, vs, y0, *,
             vals = (z, r, c)
         if dropout:
             # the raw y stays in the recurrence
-            mask = _keep_rows(B, H, seed, t, keep)
+            mask = _keep_rows(B, H, seed, t, keep, drop_rows)
             out[:, t] = torch.where(mask, y * inv, torch.zeros_like(y))
             if y_raw is not None:
                 y_raw[:, t] = y
@@ -225,7 +227,7 @@ def ann_cell_plain(mode: str, wxs, scales, shifts, vs, y0, *,
 
 def ann_cell_bwd_plain(mode: str, g, wxs, y_seq, gates, scales, vs, y0, *,
                        drop_rate: float = 0.0, seed=None,
-                       mxu_bf16: bool = False):
+                       mxu_bf16: bool = False, drop_rows=None):
     """Plain PyTorch version of ``csrc/fused_ann_bwd.cu``: reverse-time
     BPTT, the adjoint equations of the TPU ``_ann_bwd_kernel``. With G_t the
     total adjoint of y_t (the masked output cotangent plus what step t+1
@@ -276,7 +278,7 @@ def ann_cell_bwd_plain(mode: str, g, wxs, y_seq, gates, scales, vs, y0, *,
     for t in range(T - 1, -1, -1):
         g_t = g[:, t].to(work)
         if dropout:
-            mask = _keep_rows(B, H, seed, t, keep)
+            mask = _keep_rows(B, H, seed, t, keep, drop_rows)
             g_t = torch.where(mask, g_t * inv, torch.zeros_like(g_t))
         y_p = y_seq[:, t - 1].to(work) if t > 0 else y0
         G = g_t + D
@@ -538,17 +540,19 @@ def _three(ts):
     return tuple(_ptr(t) for t in ts + [None] * (3 - len(ts)))
 
 
-def _dropout_args(B, drop_rate, seed, dev):
+def _dropout_args(B, drop_rate, seed, dev, drop_rows):
+    """(seed pointer, keep_u32, inv_keep, the tile and row map)."""
+    drop = _drop_map(B, drop_rows)
     if not drop_rate > 0.0:
-        return None, 0, 1.0, dropout_tile_rows(B)
+        return None, 0, 1.0, drop
     _check("seed", seed, (2,), dev, torch.int32)
-    return (_ptr(seed), keep_u32(drop_rate), _inv_keep(drop_rate),
-            dropout_tile_rows(B))
+    return _ptr(seed), keep_u32(drop_rate), _inv_keep(drop_rate), drop
 
 
 def _ann_cell_cuda(mode: str, wxs, scales, shifts, vs, y0, *,
                    drop_rate: float = 0.0, seed=None,
-                   save_residuals: bool = False, mxu_bf16: bool = False):
+                   save_residuals: bool = False, mxu_bf16: bool = False,
+                   drop_rows=None):
     """Launch ``csrc/fused_ann_fwd.cu`` in the float32 or the bf16 stream
     mode. Same contract as ``ann_cell_plain``."""
     if (scales is None) != (shifts is None):
@@ -556,7 +560,8 @@ def _ann_cell_cuda(mode: str, wxs, scales, shifts, vs, y0, *,
     _check_operands(mode, wxs, scales, shifts, vs, y0, _wx_dtypes(mxu_bf16))
     B, T, H = wxs[0].shape
     dev = wxs[0].device
-    seed_p, keep, inv, tile = _dropout_args(B, drop_rate, seed, dev)
+    seed_p, keep, inv, drop = _dropout_args(B, drop_rate, seed, dev,
+                                            drop_rows)
     out = torch.empty(wxs[0].shape, dtype=_stream_dtype(mxu_bf16, wxs[0]),
                       device=dev)
     y_raw = torch.empty_like(out) if (save_residuals and seed_p) else None
@@ -576,7 +581,7 @@ def _ann_cell_cuda(mode: str, wxs, scales, shifts, vs, y0, *,
             *_three(wxs), _ptr(scale), _ptr(shift), _ptr(packed), _ptr(y0),
             seed_p, _ptr(out),
             _ptr(y_raw), _ptr(series.get("z")), _ptr(series.get("r")),
-            _ptr(series.get("c")), B, T, H, _MODE_ID[mode], keep, inv, tile,
+            _ptr(series.get("c")), B, T, H, _MODE_ID[mode], keep, inv, *drop,
             int(mxu_bf16), int(wxs[0].dtype == _BF16), plan.cluster,
             plan.rows, int(plan.resident), stream,
         )
@@ -585,7 +590,8 @@ def _ann_cell_cuda(mode: str, wxs, scales, shifts, vs, y0, *,
 
 def _ann_cell_bwd_cuda(mode: str, g, wxs, y_seq, gates, scales, vs, y0, *,
                        drop_rate: float = 0.0, seed=None,
-                       mxu_bf16: bool = False, split_ms=None):
+                       mxu_bf16: bool = False, split_ms=None,
+                       drop_rows=None):
     """Launch ``csrc/fused_ann_bwd.cu`` in the float32 or the bf16 stream
     mode. Same contract as ``ann_cell_bwd_plain``. ``split_ms`` (a list, for
     timing only) receives the milliseconds of the time loop, the dV product
@@ -605,7 +611,8 @@ def _ann_cell_bwd_cuda(mode: str, g, wxs, y_seq, gates, scales, vs, y0, *,
     for name, t in zip(_GATE_SERIES[mode], gates):
         _check(name, t, (B, T, H), dev, sdt)
     series = dict(zip(_GATE_SERIES[mode], gates))
-    seed_p, keep, inv, tile = _dropout_args(B, drop_rate, seed, dev)
+    seed_p, keep, inv, drop = _dropout_args(B, drop_rate, seed, dev,
+                                            drop_rows)
     plan, n_parts, ksplit = _bwd_plan(B, T, H, n, mxu_bf16)
 
     def new(*shape):
@@ -635,7 +642,7 @@ def _ann_cell_bwd_cuda(mode: str, g, wxs, y_seq, gates, scales, vs, y0, *,
             _ptr(scale), _ptr(vts), _ptr(y0), seed_p, *_three(dwxs),
             *_three(dds), _ptr(partials), _ptr(vecs), _ptr(dvs),
             _ptr(dv_partials), _ptr(dy0),
-            B, T, H, _MODE_ID[mode], keep, inv, tile, plan.cluster,
+            B, T, H, _MODE_ID[mode], keep, inv, *drop, plan.cluster,
             plan.rows, int(plan.resident), n_parts, ksplit, dv_tile,
             int(mxu_bf16),
             int(affine and wxs[0].dtype == _BF16), split, stream,
@@ -654,7 +661,7 @@ class _FusedANN(torch.autograd.Function):
     (with the affine), then the recurrent matrices."""
 
     @staticmethod
-    def forward(ctx, mode, mxu_bf16, drop_rate, seed, y0, *ops):
+    def forward(ctx, mode, mxu_bf16, drop_rate, drop_rows, seed, y0, *ops):
         n = MODES[mode]
         affine = len(ops) == 4 * n
         wxs = list(ops[:n])
@@ -663,12 +670,14 @@ class _FusedANN(torch.autograd.Function):
         vs = list(ops[-n:])
         fwd = fused_cells._by_device(wxs[0], ann_cell_plain, _ann_cell_cuda,
                                      "fused ANN cell")
-        flags = dict(drop_rate=drop_rate, seed=seed, mxu_bf16=mxu_bf16)
+        flags = dict(drop_rate=drop_rate, seed=seed, mxu_bf16=mxu_bf16,
+                     drop_rows=drop_rows)
         if not any(ctx.needs_input_grad):
             return fwd(mode, wxs, scales, shifts, vs, y0, **flags)
         out, y_raw, gates = fwd(mode, wxs, scales, shifts, vs, y0,
                                 save_residuals=True, **flags)
         ctx.mode, ctx.drop_rate, ctx.affine = mode, drop_rate, affine
+        ctx.drop_rows = drop_rows
         ctx.mxu_bf16, ctx.wx_dtype = mxu_bf16, wxs[0].dtype
         ctx.save_for_backward(out if y_raw is None else y_raw, y0, seed,
                               *gates, *vs, *(wxs + scales if affine else ()))
@@ -689,16 +698,17 @@ class _FusedANN(torch.autograd.Function):
         # the cotangent often arrives as a view (the bidirectional split)
         dwxs, dscales, dshifts, dvs, dy0 = bwd(
             mode, g.contiguous(), wxs, y_seq, gates, scales, vs, y0,
-            drop_rate=ctx.drop_rate, seed=seed, mxu_bf16=ctx.mxu_bf16)
+            drop_rate=ctx.drop_rate, seed=seed, mxu_bf16=ctx.mxu_bf16,
+            drop_rows=ctx.drop_rows)
         aff = (*dscales, *dshifts) if ctx.affine else ()
         # each gradient in its operand's type: the bf16 mode's dWx streams
         # go back up where the streams arrived float32
         dwxs = [d.to(ctx.wx_dtype) for d in dwxs]
-        return (None, None, None, None, dy0, *dwxs, *aff, *dvs)
+        return (None, None, None, None, None, dy0, *dwxs, *aff, *dvs)
 
 
 def _fused_ann(mode, wxs, vs, y0, mxu_bf16, scales, shifts, drop_rate,
-               drop_seed):
+               drop_seed, drop_rows=None):
     if (scales is None) != (shifts is None):
         raise ValueError("pass both scales and shifts, or neither")
     n = MODES[mode]
@@ -711,31 +721,35 @@ def _fused_ann(mode, wxs, vs, y0, mxu_bf16, scales, shifts, drop_rate,
     aff = (*scales, *shifts) if scales is not None else ()
     # the carried state is float32 (float64 with float64 streams)
     y0 = y0.to(_work_dtype(wxs[0]))
-    return _FusedANN.apply(mode, bool(mxu_bf16), drop_rate, seed, y0, *wxs,
-                           *aff, *vs)
+    return _FusedANN.apply(mode, bool(mxu_bf16), drop_rate,
+                           None if drop_rows is None else tuple(drop_rows),
+                           seed, y0, *wxs, *aff, *vs)
 
 
 def rnn_fused(Wx, V, y0, mxu_bf16: bool = False, scales=None, shifts=None,
-              drop_rate: float = 0.0, drop_seed: Optional[object] = None):
+              drop_rate: float = 0.0, drop_seed: Optional[object] = None,
+              drop_rows=None):
     """Fused sigmoid-RNN recurrence (drop-in for cells.rnn_scan). With
     ``scales``/``shifts`` (one (H,) pair per gate) the normalization affine
     is applied on load and their gradients are returned; with
     ``drop_rate``/``drop_seed`` (two int32) the layer-output dropout is
-    fused and the backward regenerates the mask from the seed."""
+    fused and the backward regenerates the mask from the seed;
+    ``drop_rows`` as in ``fused_cells.radlif_fused``."""
     return _fused_ann("rnn", [Wx], [V], y0, mxu_bf16, scales, shifts,
-                      drop_rate, drop_seed)
+                      drop_rate, drop_seed, drop_rows)
 
 
 def ligru_fused(Wx, Wzx, V, Vz, y0, mxu_bf16: bool = False, scales=None,
-                shifts=None, drop_rate: float = 0.0, drop_seed=None):
+                shifts=None, drop_rate: float = 0.0, drop_seed=None,
+                drop_rows=None):
     """Fused LiGRU recurrence (drop-in for cells.ligru_scan)."""
     return _fused_ann("ligru", [Wx, Wzx], [V, Vz], y0, mxu_bf16, scales,
-                      shifts, drop_rate, drop_seed)
+                      shifts, drop_rate, drop_seed, drop_rows)
 
 
 def gru_fused(Wx, Wzx, Wrx, V, Vz, Vr, y0, mxu_bf16: bool = False,
               scales=None, shifts=None, drop_rate: float = 0.0,
-              drop_seed=None):
+              drop_seed=None, drop_rows=None):
     """Fused GRU recurrence (drop-in for cells.gru_scan)."""
     return _fused_ann("gru", [Wx, Wzx, Wrx], [V, Vz, Vr], y0, mxu_bf16,
-                      scales, shifts, drop_rate, drop_seed)
+                      scales, shifts, drop_rate, drop_seed, drop_rows)

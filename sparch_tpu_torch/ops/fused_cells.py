@@ -31,7 +31,12 @@ hash branch of the JAX ``_random_keep``. The batch tile is the port's own
 convention: ``dropout_tile_rows(B)`` rows, the largest of 128, 64, 32, 16, 8
 that divides B rounded up to a multiple of 8. The JAX kernel picks the same
 tile unless its VMEM plan shrinks it (very wide layers), so at every other
-size the masks of the two packages are equal bit for bit.
+size the masks of the two packages are equal bit for bit. Under data
+parallelism each rank hashes the global batch's rows: ``drop_rows=(seg,
+stride, off)`` maps local row ``b`` to global row ``(b // seg) * stride + off
++ b % seg`` (``parallel.multihost.batch_rows``), and the tile is that of the
+global batch, so the ranks' masks are the rows of the one-process mask. Its
+default, the identity, keeps every kernel's bits.
 
 The bf16-stream mode (``mxu_bf16=True``, the JAX kernels' mode of that
 name): the spike output, the cotangent and ``dWx`` are bf16 streams, ``V``
@@ -93,9 +98,11 @@ _U = ctypes.c_uint32
 # both entry points end in the column-slice layout's plan, first product,
 # exchange buffers and split (csrc/spike_slices.cuh)
 _FWD_ARGS = [_P] * 12 + [_I] * 3 + [_F] + [_I] * 5 + [_P] * 5
-_FWD_TRAIN_ARGS = ([_P] * 14 + [_I] * 3 + [_F] + [_I] * 3 + [_U, _F, _I]
+# the dropout's tile and row map: _drop_map's four ints
+_DROP = [_I] * 4
+_FWD_TRAIN_ARGS = ([_P] * 14 + [_I] * 3 + [_F] + [_I] * 3 + [_U, _F] + _DROP
                    + [_I] * 2 + [_P] * 5)
-_BWD_ARGS = ([_P] * 22 + [_I] * 3 + [_F] + [_I] * 3 + [_U, _F, _I]
+_BWD_ARGS = ([_P] * 22 + [_I] * 3 + [_F] + [_I] * 3 + [_U, _F] + _DROP
              + [_I] * 8 + [_P, _P])
 # one C entry point per form serves both stream modes; the modes are
 # counted apart
@@ -265,12 +272,24 @@ def random_keep_plain(shape, seed, tile_i: int, t: int, keep: int):
     return _hash_keep(r, c, seed, t, tile_i, keep)
 
 
-def _keep_rows(B: int, H: int, seed, t: int, keep: int):
-    """The keep mask of all B rows at timestep ``t``: row ``b`` is row
-    ``b % tile_rows`` of tile ``b // tile_rows``."""
+def _drop_map(B: int, drop_rows=None):
+    """``(tile_rows, seg, stride, off)`` of ``csrc/dropout_hash.cuh``
+    for B local rows: the tile of the global batch and the row map
+    ``drop_rows`` (None: the identity, one process)."""
+    seg, stride, off = drop_rows if drop_rows is not None else (B, B, 0)
+    if seg <= 0 or B % seg or off < 0 or off + seg > stride:
+        raise ValueError(f"drop_rows {drop_rows} does not map {B} rows")
+    return dropout_tile_rows(B // seg * stride), seg, stride, off
+
+
+def _keep_rows(B: int, H: int, seed, t: int, keep: int, drop_rows=None):
+    """The keep mask of all B rows at timestep ``t``: local row ``b`` is
+    global row ``g`` (``drop_rows``, see the module docstring), row ``g %
+    tile_rows`` of tile ``g // tile_rows``."""
     dev = seed.device
-    rows = torch.arange(B, device=dev)[:, None]
-    tr = dropout_tile_rows(B)
+    tr, seg, stride, off = _drop_map(B, drop_rows)
+    b = torch.arange(B, device=dev)[:, None]
+    rows = b // seg * stride + off + b % seg
     c = torch.arange(H, device=dev)[None, :]
     return _hash_keep(rows % tr, c, seed, t, rows // tr, keep)
 
@@ -307,7 +326,8 @@ def _first_product(s0, V):
 def fused_cell_plain(Wx, scale, shift, alpha, beta, a, b, V, threshold,
                      u0, w0, s0, *, recurrent: bool, adaptive: bool,
                      drop_rate: float = 0.0, seed=None,
-                     save_residuals: bool = False, mxu_bf16: bool = False):
+                     save_residuals: bool = False, mxu_bf16: bool = False,
+                     drop_rows=None):
     """Plain PyTorch version of ``csrc/fused_cell_fwd.cu``: the TPU
     ``_fwd_kernel``'s per-step arithmetic as a loop over T. Params must
     already be clamped (and V zero-diagonal); ``scale``/``shift`` None
@@ -349,7 +369,7 @@ def fused_cell_plain(Wx, scale, shift, alpha, beta, a, b, V, threshold,
         if recurrent:
             sV = torch.matmul(s, V)
         if drop_rate > 0.0:
-            mask = _keep_rows(B, H, seed, t, keep)
+            mask = _keep_rows(B, H, seed, t, keep, drop_rows)
             out[:, t] = torch.where(mask, s * inv, torch.zeros_like(s))
         else:
             out[:, t] = s
@@ -361,7 +381,7 @@ def fused_cell_plain(Wx, scale, shift, alpha, beta, a, b, V, threshold,
 def fused_cell_bwd_plain(g, Wx, u_seq, scale, alpha, beta, a, b, V,
                          threshold, u0, w0, s0, *, recurrent: bool,
                          adaptive: bool, drop_rate: float = 0.0, seed=None,
-                         mxu_bf16: bool = False):
+                         mxu_bf16: bool = False, drop_rows=None):
     """Plain PyTorch version of ``csrc/fused_cell_bwd.cu``: reverse-time
     BPTT with the boxcar surrogate, the adjoint recurrence of the TPU
     ``_bwd_kernel``. With A_t = dL/du_t, B_t = dL/dw_t and g_t the (masked)
@@ -404,7 +424,7 @@ def fused_cell_bwd_plain(g, Wx, u_seq, scale, alpha, beta, a, b, V,
     for t in range(T - 1, -1, -1):
         g_t = g[:, t].to(work)
         if drop_rate > 0.0:
-            mask = _keep_rows(B, H, seed, t, keep)
+            mask = _keep_rows(B, H, seed, t, keep, drop_rows)
             g_t = torch.where(mask, g_t * inv, torch.zeros_like(g_t))
         u_t = u_seq[:, t]
         u_p = u_seq[:, t - 1] if t > 0 else u0
@@ -627,7 +647,7 @@ def _fused_cell_cuda(Wx, scale, shift, alpha, beta, a, b, V, threshold,
                      u0, w0, s0, *, recurrent: bool, adaptive: bool,
                      drop_rate: float = 0.0, seed=None,
                      save_residuals: bool = False, mxu_bf16: bool = False,
-                     split_ms=None):
+                     split_ms=None, drop_rows=None):
     """Launch ``csrc/fused_cell_fwd.cu``: its serving entry point without
     dropout and residuals, else its training entry point, in the float32
     or the bf16 stream mode; the recurrent forms in the column-slice layout
@@ -694,7 +714,7 @@ def _fused_cell_cuda(Wx, scale, shift, alpha, beta, a, b, V, threshold,
                 *head, _ptr(u_seq), _ptr(seed) if dropout else None, *shape,
                 keep_u32(drop_rate) if dropout else 0,
                 _inv_keep(drop_rate) if dropout else 1.0,
-                dropout_tile_rows(B), *mode, *tail, stream,
+                *_drop_map(B, drop_rows), *mode, *tail, stream,
             )
         else:
             launch = FUSED_CELL_FWD_BF16 if mxu_bf16 else FUSED_CELL_FWD
@@ -741,7 +761,8 @@ def _bwd_plan(B: int, T: int, H: int, recurrent: bool,
 def _fused_cell_bwd_cuda(g, Wx, u_seq, scale, alpha, beta, a, b, V,
                          threshold, u0, w0, s0, *, recurrent: bool,
                          adaptive: bool, drop_rate: float = 0.0, seed=None,
-                         mxu_bf16: bool = False, split_ms=None):
+                         mxu_bf16: bool = False, split_ms=None,
+                         drop_rows=None):
     """Launch ``csrc/fused_cell_bwd.cu`` in the float32 or the bf16 stream
     mode. Same contract as ``fused_cell_bwd_plain``. ``split_ms`` (a list,
     for timing only) receives the milliseconds of the time loop, the dV
@@ -794,9 +815,10 @@ def _fused_cell_bwd_cuda(g, Wx, u_seq, scale, alpha, beta, a, b, V,
             _ptr(dv_partials), _ptr(du0), _ptr(dw0), _ptr(ds0),
             B, T, H, float(threshold), int(recurrent), int(adaptive),
             int(affine), keep_u32(drop_rate) if dropout else 0,
-            _inv_keep(drop_rate) if dropout else 1.0, dropout_tile_rows(B),
-            n_parts, ksplit, dv_tile, plan.cluster if plan else 0,
-            plan.rows if plan else 0, int(plan.resident) if plan else 0,
+            _inv_keep(drop_rate) if dropout else 1.0,
+            *_drop_map(B, drop_rows), n_parts, ksplit, dv_tile,
+            plan.cluster if plan else 0, plan.rows if plan else 0,
+            int(plan.resident) if plan else 0,
             int(mxu_bf16), int(affine and Wx.dtype == _BF16), split, stream,
         )
     _PLANS["fused_cell_bwd"] = dict(
@@ -827,11 +849,13 @@ class _FusedCell(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, Wx, scale, shift, alpha, beta, a, b, V, u0, w0, s0,
-                seed, threshold, recurrent, adaptive, drop_rate, mxu_bf16):
+                seed, threshold, recurrent, adaptive, drop_rate, mxu_bf16,
+                drop_rows):
         fwd = _by_device(Wx, fused_cell_plain, _fused_cell_cuda,
                          "fused cell")
         flags = dict(recurrent=recurrent, adaptive=adaptive,
-                     drop_rate=drop_rate, seed=seed, mxu_bf16=mxu_bf16)
+                     drop_rate=drop_rate, seed=seed, mxu_bf16=mxu_bf16,
+                     drop_rows=drop_rows)
         args = (Wx, scale, shift, alpha, beta, a, b, V, threshold, u0, w0,
                 s0)
         if not any(ctx.needs_input_grad):
@@ -861,7 +885,7 @@ class _FusedCell(torch.autograd.Function):
         # each gradient in its operand's type: the bf16 mode's dWx stream
         # goes back up where Wx arrived float32
         return (dWx.to(ctx.wx_dtype), dscale, dshift, dalpha, dbeta, da, db,
-                dV, du0, dw0, ds0, None, None, None, None, None, None)
+                dV, du0, dw0, ds0, None, None, None, None, None, None, None)
 
 
 def clip_and_mask(alpha, beta=None, a=None, b=None, V=None):
@@ -881,7 +905,8 @@ def clip_and_mask(alpha, beta=None, a=None, b=None, V=None):
 
 
 def _fused_cell(Wx, scale, shift, alpha, beta, a, b, V, threshold, u0, w0,
-                s0, *, recurrent, adaptive, drop_rate, drop_seed, mxu_bf16):
+                s0, *, recurrent, adaptive, drop_rate, drop_seed, mxu_bf16,
+                drop_rows):
     if (scale is None) != (shift is None):
         raise ValueError("pass both scale and shift, or neither")
     # the state is float32 (float64 with a float64 stream) whatever type it
@@ -897,51 +922,56 @@ def _fused_cell(Wx, scale, shift, alpha, beta, a, b, V, threshold, u0, w0,
     alpha, beta, a, b, V = clip_and_mask(alpha, beta, a, b, V)
     return _FusedCell.apply(Wx, scale, shift, alpha, beta, a, b, V, u0, w0,
                             s0, seed, float(threshold), recurrent, adaptive,
-                            drop_rate, bool(mxu_bf16))
+                            drop_rate, bool(mxu_bf16),
+                            None if drop_rows is None else tuple(drop_rows))
 
 
 def radlif_fused(Wx, alpha, beta, a, b, V, threshold, u0, w0, s0,
                  mxu_bf16: bool = False, scale=None, shift=None,
-                 drop_rate: float = 0.0, drop_seed=None):
+                 drop_rate: float = 0.0, drop_seed=None, drop_rows=None):
     """Fused RadLIF recurrence (drop-in for cells.radlif_scan). With
     ``scale``/``shift`` the normalization affine is applied on load
     (drive = scale*Wx + shift) and their gradients are returned. With
     ``drop_rate``/``drop_seed`` (two int32) the layer-output dropout is
-    fused: the backward regenerates the mask from the seed."""
+    fused: the backward regenerates the mask from the seed. ``drop_rows``
+    (seg, stride, off) places a rank's rows in the global batch for the
+    mask (see the module docstring); None is one process."""
     return _fused_cell(Wx, scale, shift, alpha, beta, a, b, V, threshold,
                        u0, w0, s0, recurrent=True, adaptive=True,
                        drop_rate=drop_rate, drop_seed=drop_seed,
-                       mxu_bf16=mxu_bf16)
+                       mxu_bf16=mxu_bf16, drop_rows=drop_rows)
 
 
 def rlif_fused(Wx, alpha, V, threshold, u0, s0, mxu_bf16: bool = False,
                scale=None, shift=None, drop_rate: float = 0.0,
-               drop_seed=None):
+               drop_seed=None, drop_rows=None):
     """Fused RLIF recurrence (drop-in for cells.rlif_scan)."""
     return _fused_cell(Wx, scale, shift, alpha, None, None, None, V,
                        threshold, u0, None, s0, recurrent=True,
                        adaptive=False, drop_rate=drop_rate,
-                       drop_seed=drop_seed, mxu_bf16=mxu_bf16)
+                       drop_seed=drop_seed, mxu_bf16=mxu_bf16,
+                       drop_rows=drop_rows)
 
 
 def adlif_fused(Wx, alpha, beta, a, b, threshold, u0, w0, s0,
                 scale=None, shift=None, drop_rate: float = 0.0,
-                drop_seed=None, mxu_bf16: bool = False):
+                drop_seed=None, mxu_bf16: bool = False, drop_rows=None):
     """Fused adLIF recurrence (drop-in for cells.adlif_scan)."""
     return _fused_cell(Wx, scale, shift, alpha, beta, a, b, None, threshold,
                        u0, w0, s0, recurrent=False, adaptive=True,
                        drop_rate=drop_rate, drop_seed=drop_seed,
-                       mxu_bf16=mxu_bf16)
+                       mxu_bf16=mxu_bf16, drop_rows=drop_rows)
 
 
 def lif_fused(Wx, alpha, threshold, u0, s0, scale=None, shift=None,
               drop_rate: float = 0.0, drop_seed=None,
-              mxu_bf16: bool = False):
+              mxu_bf16: bool = False, drop_rows=None):
     """Fused LIF recurrence (drop-in for cells.lif_scan)."""
     return _fused_cell(Wx, scale, shift, alpha, None, None, None, None,
                        threshold, u0, None, s0, recurrent=False,
                        adaptive=False, drop_rate=drop_rate,
-                       drop_seed=drop_seed, mxu_bf16=mxu_bf16)
+                       drop_seed=drop_seed, mxu_bf16=mxu_bf16,
+                       drop_rows=drop_rows)
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,7 @@ device (``parallel.make_mesh([dev] * P, model=P)``) in one cooperative launch
 on that device, each rank storing into its peers' buffers in the one card's
 memory. The kernels are written against an array of every rank's buffer
 base and a rank (``csrc/tp_exchange.cuh``), but no multi-card run has been
-made (ROADMAP queue 1 item 7). In this form the entry points take the full
+made (ROADMAP queue 1 item 7b). In this form the entry points take the full
 tensors, as the layer holds them: ``Wx (B, T, H)``, ``V (H, H)``, the states
 ``(B, H)``; rank r's block is columns ``r*Hl .. (r+1)*Hl`` of each, and the
 gathered initial spikes are the full ``s0``.
@@ -72,7 +72,6 @@ from sparch_tpu_torch.ops.fused_cells import (
 __all__ = [
     "KERNELS",
     "LANE",
-    "SUBLANE",
     "last_plans",
     "last_bwd_plan",
     "tp_all_gather",
@@ -89,7 +88,6 @@ __all__ = [
 ]
 
 LANE = 128
-SUBLANE = 8
 # widest block a rank takes (csrc/tp_cell_*.cu kThreads * kMaxNpt)
 _MAX_HL = 2048
 
@@ -153,18 +151,15 @@ def _shards(H: int, P: int) -> List[slice]:
     return [slice(r * hl, (r + 1) * hl) for r in range(P)]
 
 
-def _validate(B: int, H: int, P: int) -> None:
-    """The JAX package's checks (pallas_tp.py:964-970, :619-623)."""
+def _validate(H: int, P: int) -> None:
+    """The JAX package's width check (pallas_tp.py:964-970). Its kernels
+    also wanted the rows a multiple of 8 (a TPU sublane); the CUDA kernels
+    take any number."""
     if H % (P * LANE):
         raise ValueError(
             f"tensor-parallel fused cells need hidden_size divisible by "
             f"num_model_devices*{LANE} (got H={H}, tp={P}); use the scan "
             f"cells for other widths"
-        )
-    if B % SUBLANE or (H // P) % LANE:
-        raise ValueError(
-            f"TP kernel needs B%{SUBLANE}==0 and Hl%{LANE}==0, got B={B} "
-            f"Hl={H // P}"
         )
 
 
@@ -613,7 +608,7 @@ def tp_cell_bwd_plain(g, u_seq, alpha, beta, a, b, V, threshold, u0, w0, s0,
 def _check_cell(Wx, alpha, beta, a, b, V, u0, w0, s0, adaptive, P):
     B, T, H = Wx.shape
     dev = Wx.device
-    _validate(B, H, P)
+    _validate(H, P)
     if H // P > _MAX_HL:
         raise ValueError(f"the TP cell kernels take H/P <= {_MAX_HL}, got "
                          f"{H // P}")
@@ -883,7 +878,7 @@ def _tp_size(mesh, tp_axis: str, x) -> int:
         raise ValueError(f"the mesh has no axis {tp_axis!r}: {mesh.shape}")
     if not mesh.one_card:
         raise NotImplementedError(
-            "TP ranks on distinct cards: ROADMAP queue 1 item 7")
+            "TP ranks on distinct cards: ROADMAP queue 1 item 7b")
     if not _same_device(x.device, mesh.device):
         raise ValueError(f"the tensors lie on {x.device}, the mesh on "
                          f"{mesh.device}")
@@ -892,8 +887,8 @@ def _tp_size(mesh, tp_axis: str, x) -> int:
 
 def _prepare(Wx, alpha, beta, a, b, V, u0, w0, s0, mesh, tp_axis):
     P = _tp_size(mesh, tp_axis, Wx)
-    B, _, H = Wx.shape
-    _validate(B, H, P)
+    H = Wx.shape[2]
+    _validate(H, P)
     # the state is float32 (float64 with a float64 stream), whatever type it
     # was drawn in
     work = _work_dtype(Wx)

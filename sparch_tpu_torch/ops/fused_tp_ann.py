@@ -35,7 +35,7 @@ it is the single-card backward's product after the time loop, y_p^T @ dpre
 per gate ((r*y_p)^T @ dcpre for the GRU's candidate), over the stored
 series; in the one-card form the ranks' dWx blocks side by side are the
 gathered dpre series, and across cards that product would need them
-gathered (ROADMAP queue 1 item 7).
+gathered (ROADMAP queue 1 item 7b).
 
 The kernels run thread-block clusters per rank (``csrc/tp_ann.cuh``): a
 cluster owns a row group of one rank, each of its blocks a column slice of
@@ -595,8 +595,7 @@ class _TPANN(torch.autograd.Function):
 
 def _tp_ann(mode, wxs, vs, y0, mesh, tp_axis, mxu_bf16):
     P = fused_tp._tp_size(mesh, tp_axis, wxs[0])
-    B, _, H = wxs[0].shape
-    fused_tp._validate(B, H, P)
+    fused_tp._validate(wxs[0].shape[2], P)
     # the carried state is float32 (float64 with float64 streams)
     y0 = y0.to(_work_dtype(wxs[0]))
     return _TPANN.apply(mode, P, bool(mxu_bf16), y0, *wxs, *vs)

@@ -9,16 +9,22 @@ The port runs TP in its **one-card form**: ``make_mesh([dev] * P,
 model=P)`` repeats one device P times, and the TP kernels then run all P
 ranks in one cooperative launch on that device, each rank storing into its
 peers' exchange buffers in the one card's memory (``mesh.one_card``). A mesh
-of P distinct cards needs ``torch.distributed`` to place each rank on its
-card and to map the peers' buffers; that is ROADMAP queue 1 item 7, and such
-a mesh is refused until then. So is a ``data`` axis longer than 1 (data
-parallelism: gradient all-reduce and global batch statistics), and so are
-the JAX module's ``shard_state``/``replicate``: the one-card form keeps every
-tensor whole on its one device.
+whose TP ranks lie on distinct cards needs the peers' buffers mapped across
+cards (CUDA IPC), an entry barrier and the cross-card dV forms of the TP
+backwards; that is ROADMAP queue 1 item 7b, and such a mesh is refused until
+then. So are the JAX module's ``shard_state``/``replicate``: the one-card
+form keeps every tensor whole on its one device.
+
+The ``'data'`` axis is the processes of a data-parallel run
+(``parallel.multihost``, started with ``python -m torch.distributed.run
+--nproc_per_node R``): each process holds one row of the mesh, its
+``'model'`` axis in the one-card form on its own card, so under R ranks
+``make_mesh([dev] * P, model=P)`` is the (R, P) mesh. A ``'data'`` axis
+longer than the processes is refused.
 
 :func:`model_param_shard_dims` carries the JAX ``_pspec_for_param`` name
 rules over to the port's ``state_dict`` names: which dimension of each
-tensor the ``'model'`` axis would shard, for item 7 to place them.
+tensor the ``'model'`` axis would shard, for item 7b to place them.
 """
 from __future__ import annotations
 
@@ -26,26 +32,33 @@ from typing import Dict, Mapping, Optional, Sequence
 
 import torch
 
+from sparch_tpu_torch.parallel import multihost
+
 __all__ = ["Mesh", "make_mesh", "model_param_shard_dims"]
 
 AXES = ("data", "model")
 
 
 class Mesh:
-    """Devices on the axes ``('data', 'model')``: ``devices[d][m]``."""
+    """Devices on the axes ``('data', 'model')``: ``devices[d][m]``, the
+    rows this process holds; ``processes`` data-parallel processes hold one
+    such block each."""
 
     axis_names = AXES
 
-    def __init__(self, devices: Sequence[Sequence[torch.device]]):
+    def __init__(self, devices: Sequence[Sequence[torch.device]],
+                 processes: int = 1):
         self.devices = tuple(tuple(torch.device(d) for d in row)
                              for row in devices)
         widths = {len(row) for row in self.devices}
         if not self.devices or len(widths) != 1 or 0 in widths:
             raise ValueError("a mesh is a non-empty rectangle of devices")
+        self.processes = processes
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {"data": len(self.devices), "model": len(self.devices[0])}
+        return {"data": len(self.devices) * self.processes,
+                "model": len(self.devices[0])}
 
     @property
     def one_card(self) -> bool:
@@ -61,41 +74,48 @@ class Mesh:
         return self.devices[0][0]
 
     def __repr__(self) -> str:
+        ranks = (f", one of {self.processes} processes"
+                 if self.processes > 1 else "")
         return (f"Mesh(data={self.shape['data']}, model={self.shape['model']}"
-                f", devices={[str(d) for d in self.devices[0]]})")
+                f", devices={[str(d) for d in self.devices[0]]}{ranks})")
 
 
 def make_mesh(devices: Optional[Sequence] = None, data: Optional[int] = None,
               model: int = 1) -> Mesh:
-    """A ``('data', 'model')`` mesh over ``devices`` (default: every CUDA
-    device). A list that repeats one device P times is the one-card form of
-    a P-rank TP axis: ``make_mesh([torch.device('cuda')] * 4, model=4)``."""
+    """A ``('data', 'model')`` mesh over this process's ``devices``
+    (default: its card, ``multihost.local_device()``, repeated ``model``
+    times).
+    A list that repeats one device P times is the one-card form of a P-rank
+    TP axis: ``make_mesh([torch.device('cuda')] * 4, model=4)``. Under R
+    data-parallel processes each holds one row, and the mesh's ``data``
+    axis is R."""
     if devices is None:
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
-        if not devices:
+        if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device: pass devices= (e.g. [torch.device('cpu')] "
                 "* P for the plain versions on the CPU)"
             )
+        devices = [multihost.local_device()] * model
     devices = [torch.device(d) for d in devices]
     n = len(devices)
+    procs = multihost.world_size()
     if data is None:
-        data = n // model
-    if data * model != n:
-        raise ValueError(f"mesh {data}x{model} != {n} devices")
-    if data > 1:
+        data = n // model * procs
+    if data * model != n * procs:
+        raise ValueError(f"mesh {data}x{model} != {n * procs} devices")
+    if data > procs:
         raise NotImplementedError(
-            "a 'data' axis longer than 1 (data parallelism) needs "
-            "torch.distributed: ROADMAP queue 1 item 7"
+            f"a 'data' axis of {data} over {procs} process(es): the data "
+            "axis is the processes, one row of the mesh each; start the "
+            f"ranks with python -m torch.distributed.run --nproc_per_node "
+            f"{data} (parallel/multihost.py)"
         )
-    mesh = Mesh([devices])
+    mesh = Mesh([devices], processes=procs)
     if not mesh.one_card:
         raise NotImplementedError(
-            "TP ranks on distinct cards need torch.distributed to place them "
-            "and map their exchange buffers: ROADMAP queue 1 item 7; the "
-            "one-card form repeats one device (make_mesh([dev] * P, "
-            "model=P))"
+            "TP ranks on distinct cards need their exchange buffers mapped "
+            "across cards: ROADMAP queue 1 item 7b; the one-card form "
+            "repeats one device (make_mesh([dev] * P, model=P))"
         )
     return mesh
 

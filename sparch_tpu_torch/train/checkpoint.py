@@ -10,6 +10,11 @@ continues the run it was saved from bit for bit. ``meta.json`` beside it
 (the epoch, the best accuracy, the scheduler and the ``model`` record) is
 written to a temporary file and moved into place, so that a crash never
 leaves half a file for the next ``--auto_resume``.
+
+Under data parallelism every rank holds the same state: rank 0 writes and
+the others wait at a barrier until it is written, and a restore reads the
+same files on every rank (the JAX ``save_checkpoint`` writes its metadata
+from process 0 alone).
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from typing import Tuple
 
 import torch
 
+from sparch_tpu_torch.parallel import multihost
 from sparch_tpu_torch.train.state import TrainState
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "checkpoint_exists"]
@@ -39,7 +45,14 @@ def _replace_write(path: str, write) -> None:
 
 
 def save_checkpoint(checkpoint_dir: str, state: TrainState, meta: dict) -> None:
-    """Save (overwrite) the best-model checkpoint and its JSON metadata."""
+    """Save (overwrite) the best-model checkpoint and its JSON metadata
+    (rank 0's; every rank returns once it is written)."""
+    if multihost.is_main():
+        _write(checkpoint_dir, state, meta)
+    multihost.barrier()
+
+
+def _write(checkpoint_dir: str, state: TrainState, meta: dict) -> None:
     path = os.path.join(checkpoint_dir, _STATE_DIR)
     os.makedirs(path, exist_ok=True)
     tree = {

@@ -4,7 +4,9 @@
 The same CLI semantics, experiment-folder conventions, log lines, plateau
 schedule, best-only checkpoints and test-split choice as the JAX loop, on
 the four datasets (SHD/SSC spike rasters, HD/SC audio), on one device (the
-CUDA card unless the caller asks for another):
+CUDA card unless the caller asks for another) or on R data-parallel
+processes (``python -m torch.distributed.run --nproc_per_node R
+run_exp_torch.py ...``; ``parallel/multihost.py``):
 
 - the loader's producer thread makes torch tensors of each batch and, for
   the card, pins them, so the host-to-device copy is asynchronous
@@ -19,7 +21,19 @@ CUDA card unless the caller asks for another):
 - ``--compile_cache`` sets where the CUDA kernels are built and loaded
   (``utils/cache.py``) before the model is built, and ``--profile_dir``
   captures a ``torch.profiler`` trace of the first training epoch
-  (``utils/profiling.py``).
+  (``utils/profiling.py``);
+- under R ranks each rank's loader yields its contiguous slice of every
+  global batch (a ragged last batch is dropped), the model and the train
+  step, inside ``multihost.sharded()``, compute the global batch's step
+  (``parallel/multihost.py``), the
+  epoch's metrics are averaged over the ranks in one all-reduce, so that
+  the scheduler, the best epoch and the logs see the same numbers on every
+  rank, and rank 0 alone creates the folders and writes the log and the
+  checkpoints;
+- ``--cell_impl pallas_tp --mesh_model P`` runs the spiking layers through
+  the tensor-parallel kernels in their one-card form (``parallel/mesh.py``),
+  every batch of any number of rows; ``--mesh_model P`` with
+  ``auto``/``scan`` runs the same function whole on the one card.
 
 Flags whose paths the port does not have yet raise ``NotImplementedError``
 before anything is written (``refuse_unported``).
@@ -39,6 +53,7 @@ from sparch_tpu_torch.data.audio import load_hd_or_sc
 from sparch_tpu_torch.data.spiking import load_shd_or_ssc
 from sparch_tpu_torch.models import SNN_NEURON_TYPES, build_model
 from sparch_tpu_torch.models.frontend import FbankFrontend
+from sparch_tpu_torch.parallel import make_mesh, multihost
 from sparch_tpu_torch.parsers.model_config import print_model_options
 from sparch_tpu_torch.parsers.training_config import print_training_options
 from sparch_tpu_torch.train.checkpoint import (
@@ -59,12 +74,6 @@ __all__ = ["Experiment", "refuse_unported"]
 def refuse_unported(args) -> None:
     """Raise ``NotImplementedError`` for a flag whose path the port does
     not have yet, naming its ROADMAP item (queue 1)."""
-    if getattr(args, "cell_impl", "auto") == "pallas_tp" or \
-            getattr(args, "mesh_model", 1) != 1:
-        raise NotImplementedError(
-            "--cell_impl pallas_tp and --mesh_model > 1 need multi-card "
-            "runs (ROADMAP queue 1 item 7, parallel/mesh.py + "
-            "parallel/multihost.py)")
     if getattr(args, "seq_parallel", 1) != 1:
         raise NotImplementedError(
             "--seq_parallel needs the sequence pipeline (ROADMAP queue 1 "
@@ -75,7 +84,8 @@ class Experiment:
     """Training and testing of SNN/ANN models on the four speech command
     recognition datasets (shd, ssc, hd, sc).
 
-    ``device=None`` is the CUDA card and raises without one;
+    ``device=None`` is the CUDA card (a data-parallel rank's,
+    ``cuda:LOCAL_RANK % device_count``) and raises without one;
     ``device="cpu"`` runs on the CPU.
 
     Besides the log, a run keeps ``history`` (a dict an epoch of each
@@ -87,7 +97,11 @@ class Experiment:
 
     def __init__(self, args, device=None):
         refuse_unported(args)
+        # the process group first (nothing on one process), then the card
+        if multihost.maybe_initialize() and device is None:
+            device = multihost.local_device()
         self.device = resolve_device(device)
+        self.mesh_model = getattr(args, "mesh_model", 1)
 
         # model config
         self.model_type = args.model_type
@@ -162,6 +176,7 @@ class Experiment:
         name = (torch.cuda.get_device_name(self.device)
                 if self.device.type == "cuda" else self.device.type)
         logging.info(f"\nDevice: {self.device} ({name})\n")
+        self.init_mesh()
 
         self.init_dataset()
         self.init_model()
@@ -201,7 +216,8 @@ class Experiment:
     # ------------------------------------------------------------------
 
     def init_exp_folders(self):
-        """Experiment folder conventions."""
+        """Experiment folder conventions. Every rank checks the folder
+        before rank 0 creates it."""
         if self.use_pretrained_model:
             exp_folder = self.load_exp_folder
             self.load_path = os.path.join(exp_folder, "checkpoints")
@@ -234,13 +250,21 @@ class Experiment:
 
         self.log_dir = os.path.join(exp_folder, "log")
         self.checkpoint_dir = os.path.join(exp_folder, "checkpoints")
-        os.makedirs(self.log_dir, exist_ok=True)
-        os.makedirs(self.checkpoint_dir, exist_ok=True)
+        multihost.barrier()
+        if multihost.is_main():
+            os.makedirs(self.log_dir, exist_ok=True)
+            os.makedirs(self.checkpoint_dir, exist_ok=True)
+        multihost.barrier()
         self.exp_folder = exp_folder
 
     def init_logging(self):
-        """Log to a dedicated file or the terminal."""
-        if self.log_tofile:
+        """Log to a dedicated file or the terminal; the ranks other than
+        0 log only warnings, to the terminal."""
+        if not multihost.is_main():
+            logging.basicConfig(level=logging.WARNING,
+                                format=f"[rank {multihost.rank()}] "
+                                "%(message)s", force=True)
+        elif self.log_tofile:
             logging.basicConfig(
                 filename=os.path.join(self.log_dir, "exp.log"),
                 level=logging.INFO,
@@ -251,6 +275,39 @@ class Experiment:
             logging.basicConfig(
                 level=logging.INFO, format="%(message)s", force=True
             )
+
+    def init_mesh(self):
+        """The ('data', 'model') mesh: the data axis is the processes, the
+        model axis the one-card form on this process's device."""
+        P = self.mesh_model
+        self.mesh = make_mesh([self.device] * P, model=P)
+        shape = self.mesh.shape
+        logging.info(
+            f"\nDevice mesh: {shape['data'] * P} ranks on "
+            f"{multihost.world_size()} process(es) x {self.device.type} "
+            f"(data={shape['data']}, model={shape['model']})\n"
+        )
+        if multihost.data_parallel():
+            logging.info(
+                f"Data parallel: {multihost.world_size()} processes, backend "
+                f"{multihost.backend()}, global batch {self.batch_size} "
+                f"({self.batch_size // multihost.world_size()} a rank)\n"
+            )
+        if P > 1 and self.cell_impl != "pallas_tp":
+            logging.info(
+                f"--mesh_model {P} with --cell_impl {self.cell_impl}: each "
+                "process computes the same function whole on its one "
+                "device (only --cell_impl pallas_tp splits the neurons over "
+                "the model axis)\n"
+            )
+
+    def _shard_kw(self):
+        """Each rank's slice of every global batch (the JAX
+        ``_shard_kw``)."""
+        if not multihost.data_parallel():
+            return {}
+        return dict(num_shards=multihost.world_size(),
+                    shard_index=multihost.rank())
 
     def init_dataset(self):
         """Loaders of the dataset's splits: SHD/SSC rasters of 700 units,
@@ -276,6 +333,7 @@ class Experiment:
             seed=self.seed,
             workers=self.workers,
             batch_transform=self._to_tensors,
+            **self._shard_kw(),
         )
         self.train_loader = load(split="train", shuffle=True, **kw)
         self.valid_loader = load(split="valid", shuffle=False, **kw)
@@ -315,6 +373,11 @@ class Experiment:
             "prng_impl": self.prng_impl,
             "pad_multiple": self.pad_multiple,
         }
+        tp = {}
+        if self.cell_impl == "pallas_tp":
+            self._check_pallas_tp()
+            tp = dict(tp_mesh=self.mesh, tp_axis="model",
+                      tp_batch_axis="data")
         self.net = build_model(
             self.model_type, input_shape, layer_sizes,
             threshold=self.threshold,
@@ -329,6 +392,7 @@ class Experiment:
                            else torch.bfloat16),
             remat=self.remat,
             generator=torch.Generator().manual_seed(self.seed),
+            **tp,
         )
         if self.frontend == "device":
             self.net = FbankFrontend(inner=self.net)
@@ -341,11 +405,35 @@ class Experiment:
                 self.load_path, self.state
             )
             logging.info(f"\nLoaded model at: {self.load_path}\n")
+        # every rank starts from rank 0's weights and statistics: a CPU
+        # initialisation (the orthogonal V's QR) need not give the same
+        # bits in processes of other thread counts or on other hosts
+        multihost.broadcast_([t for t in self.net.state_dict().values()
+                              if t.is_floating_point()])
 
         self.nb_params = sum(p.numel() for p in self.net.parameters())
         kind = "spiking" if self.model_type in SNN_NEURON_TYPES else "non-spiking"
         logging.info(f"\nCreated new {kind} model: {self.net}\n")
         logging.info(f"Total number of trainable parameters is {self.nb_params}")
+
+    def _check_pallas_tp(self):
+        """The JAX loop's conditions on ``--cell_impl pallas_tp``."""
+        if self.model_type not in SNN_NEURON_TYPES:
+            raise ValueError(
+                "--cell_impl pallas_tp covers the spiking models "
+                "(LIF/adLIF/RLIF/RadLIF); the ANN cells run --cell_impl auto"
+            )
+        if self.mesh_model < 2:
+            raise ValueError(
+                "--cell_impl pallas_tp needs --mesh_model >= 2 (the kernels "
+                "split the neurons over the 'model' mesh axis)"
+            )
+        if self.nb_hiddens % (self.mesh_model * 128):
+            raise ValueError(
+                f"--cell_impl pallas_tp needs --nb_hiddens divisible by "
+                f"mesh_model*128 = {self.mesh_model * 128}, got "
+                f"{self.nb_hiddens}"
+            )
 
     # ------------------------------------------------------------------
     # Host and device
@@ -370,19 +458,37 @@ class Experiment:
         return x, xlens, y
 
     def _put_batch(self, x, y):
+        if multihost.data_parallel() and self.dataset_name in ("hd", "sc"):
+            x = self._pad_to_global_length(x)
         if isinstance(x, tuple):
             x = tuple(t.to(self.device, non_blocking=True) for t in x)
         else:
             x = x.to(self.device, non_blocking=True)
         return x, y.to(self.device, non_blocking=True)
 
+    def _pad_to_global_length(self, x):
+        """HD/SC batches are padded to their longest utterance: a rank's
+        slice is padded further, with zeros, to the longest of the global
+        batch, the length the one-process batch has (one scalar all-reduce
+        a step)."""
+        lead = x[0] if isinstance(x, tuple) else x
+        n = multihost.max_over_ranks(lead.shape[1], self.device)
+        if n == lead.shape[1]:
+            return x
+        pad = [0, 0] * (lead.ndim - 2) + [0, n - lead.shape[1]]
+        lead = torch.nn.functional.pad(lead, pad)
+        return (lead, x[1]) if isinstance(x, tuple) else lead
+
     def _fetch(self, kind: str, losses, accs, rates) -> np.ndarray:
         """The epoch's one host fetch: the metrics' device scalars stacked
-        and copied at once; returns (3, batches)."""
+        and copied at once, averaged over the ranks in one all-reduce (the
+        global batch's, since the ranks hold as many rows); returns (3,
+        batches)."""
         self.host_fetches[kind] += 1
-        return torch.stack(
-            [torch.stack(losses), torch.stack(accs), torch.stack(rates)]
-        ).cpu().numpy()
+        stacked = torch.stack(
+            [torch.stack(losses), torch.stack(accs), torch.stack(rates)])
+        multihost.all_reduce_mean_([stacked], "metrics")
+        return stacked.cpu().numpy()
 
     # ------------------------------------------------------------------
     # Train / valid / test epochs
@@ -402,11 +508,13 @@ class Experiment:
                 break
             x, _, y = batch
             x, y = self._put_batch(x, y)
-            self.state, metrics = self._train_step(self.state, x, y)
+            with multihost.sharded():
+                self.state, metrics = self._train_step(self.state, x, y)
             losses.append(metrics["loss"])
             accs.append(metrics["acc"])
             rates.append(metrics["spike_rate"])
-            utterances += y.shape[0]
+            # the global batch's utterances
+            utterances += y.shape[0] * multihost.world_size()
 
         # one host fetch for the whole epoch
         losses, accs, rates = self._fetch("train", losses, accs, rates)
@@ -432,7 +540,9 @@ class Experiment:
         losses, accs, rates = [], [], []
         for x, _, y in loader:
             x, y = self._put_batch(x, y)
-            metrics = self._eval_step(self.state, x, y, self._eval_generator)
+            with multihost.sharded():
+                metrics = self._eval_step(self.state, x, y,
+                                          self._eval_generator)
             losses.append(metrics["loss"])
             accs.append(metrics["acc"])
             rates.append(metrics["spike_rate"])
@@ -511,8 +621,9 @@ class Experiment:
             first_epoch = best_epoch + 1  # best_epoch changes in the loop
             for e in range(best_epoch + 1, best_epoch + self.nb_epochs + 1):
                 # a profiler trace of the first epoch, if asked for
-                with trace(self.profile_dir if e == first_epoch else None,
-                           self.device):
+                # (rank 0's, under data parallelism)
+                with trace(self.profile_dir if e == first_epoch and
+                           multihost.is_main() else None, self.device):
                     self.train_one_epoch(e)
                 best_epoch, best_acc = self.valid_one_epoch(e, best_epoch, best_acc)
 

@@ -7,6 +7,12 @@ the Adam update. Metrics come back as device tensors and nothing inside a
 step reads a value on the host, so steps queue on the card back to back;
 the caller fetches metrics when it wants them.
 
+Under data parallelism (``parallel.multihost``) each rank runs the step on
+its slice of the global batch; the model's statistics and firing rates are
+the global batch's, and one all-reduce of the flattened gradients, divided
+by the ranks, gives every rank the global batch's gradient before the Adam
+update, so that every rank takes the same step.
+
 The logged loss is the cross-entropy *before* the regularizer is added, as
 in the JAX package and the original sparch. Under
 ``compute_dtype=bfloat16`` the parameters, their gradients and Adam's
@@ -17,6 +23,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from sparch_tpu_torch.parallel import multihost
 
 __all__ = ["make_train_step", "make_eval_step"]
 
@@ -68,6 +76,10 @@ def make_train_step(model, use_regularizers: bool = False,
             reg_burst = F.relu(rates - reg_fmax).sum()
             loss = loss + reg_factor * (reg_quiet + reg_burst)
         loss.backward()
+        if multihost.is_sharded():
+            # the global batch's gradient: the ranks' mean
+            multihost.all_reduce_mean_(
+                [p.grad for p in model.parameters() if p.grad is not None])
         state.optimizer.step()
         state.step += 1
         with torch.no_grad():

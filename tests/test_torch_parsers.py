@@ -96,21 +96,39 @@ def test_printed_options_equal_jax(root_messages):
     assert messages[:2] == messages[2:]
 
 
+# item 7 (data parallelism, the TP mesh through the CLI) is ported: its
+# flags build an Experiment; --seq_parallel (item 8) still raises
 REFUSED = [
-    (["--cell_impl", "pallas_tp"], "item 7"),
-    (["--mesh_model", "2"], "item 7"),
+    (["--cell_impl", "pallas_tp", "--mesh_model", "2", "--nb_hiddens",
+      "256"], None),
+    (["--mesh_model", "2"], None),
     (["--seq_parallel", "2"], "item 8"),
 ]
 
 
 @pytest.mark.parametrize("argv,item", REFUSED,
-                         ids=[" ".join(a) for a, _ in REFUSED])
-def test_refused_flags_raise_naming_their_item(tmp_path, argv, item):
+                         ids=[" ".join(a[:2]) for a, _ in REFUSED])
+def test_refused_flags_raise_naming_their_item(tmp_path, argv, item,
+                                               monkeypatch):
     exp = str(tmp_path / "exp")
     args = run_exp_torch.parse_args(argv + ["--new_exp_folder", exp])
-    with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
-        Experiment(args, device="cpu")
-    assert not os.path.exists(exp)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
+            Experiment(args, device="cpu")
+        assert not os.path.exists(exp)
+        return
+    # no data on disk: the run builds everything but its loaders
+    monkeypatch.setattr(Experiment, "init_dataset", _no_data)
+    exp = Experiment(args, device="cpu")
+    P = int(argv[argv.index("--mesh_model") + 1])
+    assert exp.mesh.shape == {"data": 1, "model": P} and exp.mesh.one_card
+    layer = exp.net.layer_0
+    assert layer.cell_impl == exp.cell_impl
+    assert (layer.tp_mesh is exp.mesh) == (exp.cell_impl == "pallas_tp")
+
+
+def _no_data(self):
+    self.nb_inputs, self.nb_outputs = 700, 20
 
 
 # ported with utils/cache.py and utils/profiling.py: accepted, and a run

@@ -312,9 +312,10 @@ def test_mesh_forms():
     mesh = make_mesh([torch.device("cpu")] * 4, model=4)
     assert mesh.shape == {"data": 1, "model": 4} and mesh.one_card
     assert mesh.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    # the data axis is the processes: without a process group it is 1
+    with pytest.raises(NotImplementedError, match="torch.distributed.run"):
         make_mesh([torch.device("cpu")] * 4, data=2, model=2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 7b"):
         make_mesh([torch.device("cpu"), torch.device("meta")], model=2)
     with pytest.raises(ValueError, match="2x2 != 3"):
         make_mesh([torch.device("cpu")] * 3, data=2, model=2)
