@@ -137,6 +137,36 @@ all at once), then prints one JSON line per phase:
    and ms (each timed with the card waited for on both sides), epoch
    seconds and loader-fed utterances/s, losses and accuracies (not
    bounded); two ranks sharing one card measure correctness, not speed.
+8b''. ``seqpipe``: the sequence pipeline (``parallel/seqpipe.py``), its S
+   stages in this process on the card (``make_seq_mesh(seq=S)``), M = 4
+   microbatches; each case prints its chunks and ticks. (a) RadLIF [512,
+   512, 35], no norm, zero states, no dropout, W (scaled by 8) and V on the
+   2^-8 grid, S = 2 and 4: step 1 against the single-device ``scan`` step,
+   every hidden layer's spikes bit for bit, the readout's output and every
+   gradient within 1e-5 of their largest (the closed-form readout is the
+   only reordered arithmetic). (b) The default recipe (batchnorm, dropout
+   0.1, uniform states), S = 2: the noise drawn once (``draw_noise``) and
+   injected into the pipelined step; the scan step, from the same
+   generator state, draws the same (checked draw by draw). Each step-1
+   gradient within 1e-5 of the scan step's, or else no farther from the
+   scan step in float64 (the same draws) than 4 times the float32 scan
+   step; layer 0's running statistics within 1e-6. (c) ``Experiment``
+   with ``--seq_parallel 2 --seq_microbatches 4``, 1 epoch on the SSC-shaped
+   set of 8b from memory, cut as 8b' cuts it (514 train, 128 valid, 128
+   test utterances): four train batches and the eval batches take the
+   pipeline, the ragged train batch of 2 the ordinary ``auto`` step, whose
+   kernels launch (once, and no other); epoch seconds, loader-fed
+   utterances/s, and on one resident batch the pipelined step's ms (CUDA
+   events) and peak memory beside the single-device ``scan`` and ``auto``
+   steps'. (d) README.md's SC flagship, RadLIF [1024, 1024, 1024, 35]
+   bidirectional (F = 40, W and V on the 2^-8 grid, features on a 2^-4
+   grid), 300 utterances through ``Predictor(mesh=make_seq_mesh(seq=2))``
+   (the time reversal on the card) against the single-device ``scan``
+   Predictor: labels on >= 99 %, else the float64 witness rule of phase 14.
+   (e) One train step of GRU [512, 512, 35] (F = 40, no norm) at S = 2
+   with ``model = 2`` against the scan step: every gradient within 1e-4 of
+   its largest. No pipelined run launches a kernel: the chunk recurrences
+   are plain PyTorch.
 8c. ``audio``: the HD/SC path. It writes an SC-shaped tree of WAVs with the
    stdlib ``wave`` module into a temporary folder (35 label folders of
    one-second 16 kHz utterances made from a seed, two harmonics of each
@@ -5108,6 +5138,423 @@ def phase_data_parallel(dev, smi):
     return {name: run["ranks"][0]["launches"] for name, run in runs.items()}
 
 
+# ---------------------------------------------------------------------------
+# The sequence pipeline (parallel/seqpipe.py): its stages in this process
+# ---------------------------------------------------------------------------
+
+SEQ_M = 4  # microbatches of every pipelined case
+SEQ_REL_MAX = 1e-5  # (a) logits and gradients vs the scan step, (b) else
+SEQ_STATS_REL_MAX = 1e-6  # (b): layer 0's running statistics after step 1
+SEQ_ANN_REL_MAX = 1e-4  # (e): the GRU's gradients vs the scan step
+# (c): the cut of data_parallel, with a ragged train batch of 2 rows, which
+# M = 4 does not divide: it takes the ordinary (auto) step
+SEQ_SPLITS = {"train": 4 * B + 2, "valid": B, "test": B}
+SEQ_ARGV = ["--model_type", "RadLIF", "--nb_layers", "3", "--nb_hiddens",
+            str(H), "--batch_size", str(B), "--dataset_name", "ssc",
+            "--data_folder", EXP_DATA, "--nb_epochs", "1", "--seq_parallel",
+            "2", "--seq_microbatches", str(SEQ_M)]
+
+
+def pipeline_shape(S, M=SEQ_M):
+    """A pipeline's chunks (a recurrent layer's, each run once) and ticks."""
+    return dict(S=S, M=M, chunks_a_layer=S * M, ticks=M + S - 1)
+
+
+@contextlib.contextmanager
+def pipeline_outputs(record):
+    """Inside, the pipelined steps built and run keep each spiking layer's
+    spikes (its stages' chunks joined on time) and the readout's output
+    in ``record``, in order."""
+    from sparch_tpu_torch.parallel import seqpipe
+
+    layer, readout = seqpipe._snn_layer, seqpipe._snn_readout
+
+    def keep_layer(*args, **kw):
+        out = layer(*args, **kw)
+        record.append(torch.cat([o.detach() for o in out], dim=1))
+        return out
+
+    def keep_readout(*args, **kw):
+        out = readout(*args, **kw)
+        record.append(out.detach().clone())
+        return out
+
+    with patched(seqpipe, "_snn_layer", keep_layer), \
+            patched(seqpipe, "_snn_readout", keep_readout):
+        yield
+
+
+@contextlib.contextmanager
+def recorded_rand(record):
+    """Inside, every ``torch.rand`` draw is kept in ``record``."""
+    rand = torch.rand
+
+    def keep(*shape, **kw):
+        out = rand(*shape, **kw)
+        record.append(out.detach().clone())
+        return out
+
+    with patched(torch, "rand", keep):
+        yield
+
+
+def seq_step1(dev, model, x, y, seed=0, mesh=None, noise=None):
+    """Step 1 of a new trainer of ``model``: the single-device step
+    (``mesh`` None) or the pipelined one over ``mesh`` (its noise
+    ``noise``, or drawn). The launch counters set to 0 just before and
+    read just after. Returns the loss, the hidden layers' outputs and the
+    readout's, the gradients, layer 0's running statistics, the spike
+    rate, the launches and the torch.rand draws of the step."""
+    from sparch_tpu_torch.ops import fused_cells
+    from sparch_tpu_torch.parallel import make_seqpipe_train_step
+    from sparch_tpu_torch.train import create_train_state, make_train_step
+
+    state = create_train_state(model, LR, device=dev, seed=seed)
+    outs, draws, hooks = [], [], []
+    with contextlib.ExitStack() as stack:
+        if mesh is None:
+            step = make_train_step(model)
+            hooks = [m.register_forward_hook(
+                lambda mod, i, o: outs.append(o.detach().clone()))
+                for m in model.hidden_layers() + [model.readout]]
+        else:
+            stack.enter_context(pipeline_outputs(outs))
+            pipe = make_seqpipe_train_step(model, mesh, n_micro=SEQ_M)
+            step = functools.partial(pipe, noise=noise)
+        stack.enter_context(recorded_rand(draws))
+        fused_cells.reset_launch_counts()
+        try:
+            state, met = step(state, x, y)
+        finally:
+            for h in hooks:
+                h.remove()
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in fused_cells.launch_counts().items() if n}
+    return dict(
+        loss=float(met["loss"]), outs=outs, rate=float(met["spike_rate"]),
+        grads={k: p.grad.detach().clone()
+               for k, p in model.named_parameters()},
+        running={k: v.detach().clone() for k, v in model.state_dict().items()
+                 if k.startswith("layer_0.") and "running_" in k},
+        launches=counts, draws=draws)
+
+
+def seq_build(dev, model_type, sizes, n_in, seed, grid_w=1.0, **kw):
+    """A ``scan`` model of weights from ``seed`` and a copy-maker of it:
+    ``grid_w`` scales the input weights before a spiking model's W and V
+    go onto the 2^-8 grid (``grid_w`` None: no grid)."""
+    from sparch_tpu_torch.models import build_model
+
+    model = build_model(model_type, (B, T, n_in), list(sizes),
+                        cell_impl="scan",
+                        generator=torch.Generator().manual_seed(seed), **kw)
+    if grid_w is not None:
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("W.weight"):
+                    p.copy_(dyadic(p * grid_w))
+                elif name.endswith(".V"):
+                    p.copy_(dyadic(p))
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def fresh(dtype=torch.float32):
+        m = build_model(model_type, (B, T, n_in), list(sizes),
+                        cell_impl="scan", **kw)
+        m.load_state_dict(sd)
+        return m.to(dev, dtype)
+
+    return fresh
+
+
+def seq_exact(dev, x, y):
+    """(a) RadLIF [512, 512, 35], no norm, zero states, no dropout, W and V
+    on the 2^-8 grid, S = 2 and 4: step 1 against the single-device scan
+    step, spikes bit for bit, logits and every gradient within SEQ_REL_MAX
+    of their largest."""
+    from sparch_tpu_torch.parallel import make_seq_mesh
+
+    fresh = seq_build(dev, "RadLIF", (H, H, C), F, seed=0, grid_w=8.0,
+                      normalization="none", state_init="zeros", dropout=0.0)
+    ref = seq_step1(dev, fresh(), x, y)
+    rates = [float((s != 0).float().mean()) for s in ref["outs"][:-1]]
+    check(min(rates) > 0.01, f"seqpipe (a): firing rates {rates}")
+    rows = {}
+    for S in (2, 4):
+        what = f"seqpipe (a) S={S}"
+        t0 = time.perf_counter()
+        got = seq_step1(dev, fresh(), x, y, mesh=make_seq_mesh(seq=S))
+        seconds = time.perf_counter() - t0
+        check(not got["launches"], f"{what}: launched {got['launches']}")
+        check(len(got["outs"]) == len(ref["outs"]), f"{what}: outputs")
+        differ = [int((a != b).sum()) for a, b in
+                  zip(got["outs"][:-1], ref["outs"][:-1])]
+        check(not any(differ), f"{what}: spikes differ {differ}")
+        logits = rel_err(got["outs"][-1], ref["outs"][-1])
+        errs = {k: rel_err(g, ref["grads"][k])
+                for k, g in got["grads"].items()}
+        check(logits <= SEQ_REL_MAX, f"{what}: logits {logits}")
+        over = {k: e for k, e in errs.items() if e > SEQ_REL_MAX}
+        check(not over, f"{what}: gradients past {SEQ_REL_MAX}: {over}")
+        rows[f"S{S}"] = dict(
+            pipeline_shape(S), spikes_bit_equal=True, logits_rel_err=logits,
+            max_grad_rel_err=max(errs.values()), grad_rel_err=errs,
+            loss=got["loss"], scan_loss=ref["loss"], step_s=seconds)
+    return dict(model="RadLIF [512, 512, 35]", normalization="none",
+                state_init="zeros", dropout=0.0, firing_rate_by_layer=rates,
+                rel_bound=SEQ_REL_MAX, **rows)
+
+
+def noise_drawn(model, draws, noise, p):
+    """Whether ``draws`` (a step's torch.rand draws, in order) are
+    ``noise``: each layer's states, then its mask's uniforms, the readout's
+    u0 last."""
+    want = []
+    for i in range(len(model.hidden_layers())):
+        nz = noise[f"layer_{i}"]
+        want += [("state", s) for s in nz["states"]]
+        want.append(("mask", nz["mask"]))
+    want.append(("state", noise["readout"]["u0"]))
+    if len(draws) != len(want):
+        return False
+    for d, (kind, w) in zip(draws, want):
+        if kind == "mask":
+            d = (d >= p).to(w.dtype) * (1.0 / (1.0 - p))
+        if not torch.equal(d, w):
+            return False
+    return True
+
+
+def seq_recipe(dev, x, y):
+    """(b) RadLIF [512, 512, 35], batchnorm, dropout 0.1, uniform states,
+    S = 2: the noise drawn once (``draw_noise``) and injected into the
+    pipelined step; the single-device scan step from the same generator
+    state draws the same (checked draw by draw). Each step-1 gradient
+    within SEQ_REL_MAX of the scan step's largest, or else no farther from
+    the float64 scan step (the same draws) than WITNESS_GRAD_FACTOR times
+    the float32 scan step; layer 0's running statistics within
+    SEQ_STATS_REL_MAX."""
+    from sparch_tpu_torch.parallel import draw_noise, make_seq_mesh
+
+    fresh = seq_build(dev, "RadLIF", (H, H, C), F, seed=0,
+                      dropout=P_DROP, normalization="batchnorm",
+                      state_init="uniform")
+    seed = 5
+    model = fresh()
+    noise = draw_noise(model, torch.Generator(dev).manual_seed(seed),
+                       x.shape)
+    got = seq_step1(dev, model, x, y, seed=seed, mesh=make_seq_mesh(seq=2),
+                    noise=noise)
+    check(not got["launches"], f"seqpipe (b): launched {got['launches']}")
+    check(not got["draws"], "seqpipe (b): the pipelined step drew noise")
+    ref = seq_step1(dev, fresh(), x, y, seed=seed)
+    check(ref["rate"] > 0.0, f"seqpipe (b): spike rate {ref['rate']}")
+    check(noise_drawn(model, ref["draws"], noise, P_DROP),
+          "seqpipe (b): the scan step drew other noise than the injected")
+    stats = {k: rel_err(got["running"][k], v)
+             for k, v in ref["running"].items()}
+    check(len(stats) == 2 and max(stats.values()) <= SEQ_STATS_REL_MAX,
+          f"seqpipe (b): layer 0's running statistics {stats}")
+    errs = {k: rel_err(g, ref["grads"][k]) for k, g in got["grads"].items()}
+    witness = {}
+    over = [k for k, e in errs.items() if e > SEQ_REL_MAX]
+    if over:
+        with float32_draws():
+            truth = seq_step1(dev, fresh(torch.float64), x.double(), y,
+                              seed=seed)["grads"]
+        for k in over:
+            witness[k] = dict(
+                vs_scan=errs[k],
+                pipe_vs_f64=rel_err(got["grads"][k].double(), truth[k]),
+                scan_vs_f64=rel_err(ref["grads"][k].double(), truth[k]))
+            check(witness[k]["pipe_vs_f64"]
+                  <= WITNESS_GRAD_FACTOR * witness[k]["scan_vs_f64"],
+                  f"seqpipe (b): step-1 gradient of {k} {witness[k]}")
+    return dict(model="RadLIF [512, 512, 35]", normalization="batchnorm",
+                dropout=P_DROP, state_init="uniform", **pipeline_shape(2),
+                noise_equals_scan_draws=True, loss=got["loss"],
+                scan_loss=ref["loss"], spike_rate=got["rate"],
+                scan_spike_rate=ref["rate"],
+                layer0_stats_rel_err=stats, stats_rel_bound=SEQ_STATS_REL_MAX,
+                max_grad_rel_err=max(errs.values()),
+                grad_rel_bound=SEQ_REL_MAX, witness_factor=WITNESS_GRAD_FACTOR, f64_witness=witness)
+
+
+def step_ms_and_memory(step, state, x, y, slow):
+    """A step's ms (CUDA events; fewer calls for a slow step) and the peak
+    memory it allocates beyond what was allocated before it, in MiB."""
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(state, x, y)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ms = cuda_time_ms(step, state, x, y, warmup=1, iters=2 if slow else 5,
+                      repeats=3)
+    return dict(ms=ms, peak_mib=peak / 2 ** 20,
+                peak_over_before_mib=(peak - base) / 2 ** 20)
+
+
+def seq_cli(dev):
+    """(c) ``Experiment`` with ``--seq_parallel 2 --seq_microbatches 4``,
+    one epoch on the SSC-shaped set served from memory: the batches by
+    step (the ragged one on the ordinary step, whose kernels launch, and
+    no other), finite losses; the pipelined step's ms and memory beside
+    the single-device scan and auto steps' on one resident batch."""
+    from sparch_tpu_torch.models import build_model_from_config
+    from sparch_tpu_torch.train import create_train_state, make_train_step
+
+    data = {split: ssc_events(n, 200 + seed)
+            for seed, (split, n) in enumerate(SEQ_SPLITS.items())}
+    root = tempfile.mkdtemp(prefix="chip_smoke_seq_")
+    try:
+        argv = SEQ_ARGV + ["--new_exp_folder", str(Path(root) / "exp")]
+        exp, counts, _ = experiment_run(argv, dev,
+                                        memory_experiment_class(data))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(exp.seq_mesh is not None and exp.seq_mesh.one_card,
+          f"seqpipe (c): mesh {exp.seq_mesh}")
+    paths = {h["split"]: h["steps_by_path"] for h in exp.history}
+    want_paths = {"train": {"seqpipe": 4, "ordinary": 1},
+                  "valid": {"seqpipe": 1, "ordinary": 0},
+                  "test": {"seqpipe": 1, "ordinary": 0}}
+    check(paths == want_paths, f"seqpipe (c): batches by step {paths}")
+    want = {k: n for k, n in per_batch(exp)[0].items()}
+    got = {k: n for k, n in counts.items() if n}
+    check(got == want, f"seqpipe (c): launches {got} != the one ordinary "
+          f"step's {want}")
+    losses = [h["loss"] for h in exp.history]
+    check(bool(np.isfinite(losses).all()), f"seqpipe (c): losses {losses}")
+    train = [h for h in exp.history if h["split"] == "train"][0]
+    # one resident batch of B rows
+    x, _, y = next(iter(exp.train_loader))
+    x, y = exp._put_batch(x, y)
+    scan = build_model_from_config(exp._model_config, cell_impl="scan")
+    scan.load_state_dict(exp.net.state_dict())
+    scan_state = create_train_state(scan, LR, device=dev, seed=1)
+    steps = {
+        "seqpipe": step_ms_and_memory(exp._pipe_train_step, exp.state, x, y,
+                                      slow=True),
+        "scan": step_ms_and_memory(make_train_step(scan), scan_state, x, y,
+                                   slow=True),
+        "auto": step_ms_and_memory(exp._train_step, exp.state, x, y,
+                                   slow=False),
+    }
+    return dict(
+        entry="Experiment (init_dataset from memory)", argv=SEQ_ARGV,
+        model="RadLIF [512, 512, 35]", utterances=SEQ_SPLITS,
+        **pipeline_shape(2), batches_by_step=paths,
+        launches=got, epoch_seconds=train["seconds"],
+        loader_fed_utterances_per_s=train["utterances"] / train["seconds"],
+        loader_wait_s=train["loader_wait_s"],
+        losses={h["split"]: h["loss"] for h in exp.history},
+        accs={h["split"]: h["acc"] for h in exp.history},
+        resident_step=steps)
+
+
+def seq_serving(dev):
+    """(d) The SC flagship, RadLIF [1024, 1024, 1024, 35] bidirectional (F
+    = 40, zero states, running statistics of one pass, W and V on the 2^-8
+    grid; features on a 2^-4 grid, so the projections are exact), served
+    through ``Predictor(mesh=make_seq_mesh(seq=2))`` (the time reversal on
+    the card) against the single-device scan Predictor: labels on >= 99 %,
+    or else the float64 witness rule of ``serve_bf16``."""
+    from sparch_tpu_torch.models import build_model
+    from sparch_tpu_torch.ops import fused_cells
+    from sparch_tpu_torch.parallel import make_seq_mesh
+    from sparch_tpu_torch.serve import Predictor
+
+    model = calibrated_model(dev, "RadLIF", SC_SIZES, F_SC, seed=41,
+                             calib_seed=42, bidirectional=True)
+    sd = {k: (dyadic(v) if k.endswith("W.weight") else v).detach().clone()
+          for k, v in model.state_dict().items()}
+    g = torch.Generator(dev).manual_seed(43)
+    x = dyadic(torch.randn((N_UTT, T, F_SC), generator=g, device=dev),
+               2.0 ** -4).cpu().numpy()
+
+    def predictor(dtype=torch.float32, **kw):
+        m = build_model("RadLIF", (B, T, F_SC), SC_SIZES, bidirectional=True,
+                        state_init="zeros", cell_impl="scan")
+        return Predictor(m.to(dtype), sd, batch_size=B, device=dev, **kw)
+
+    pipe = predictor(mesh=make_seq_mesh(seq=2), n_micro=SEQ_M)
+    fused_cells.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = pipe(x)
+    seconds = time.perf_counter() - t0
+    counts = {k: n for k, n in fused_cells.launch_counts().items() if n}
+    check(not counts, f"seqpipe (d): launched {counts}")
+    check(got[1].shape == (N_UTT, C) and bool(np.isfinite(got[1]).all()) and
+          bool(np.allclose(got[1].sum(-1), 1.0, atol=1e-5)),
+          "seqpipe (d): served probabilities")
+    single = predictor()(x)
+    agree = _agreement(got, single)
+    row = dict(model="RadLIF [1024, 1024, 1024, 35] bidirectional",
+               F=F_SC, n_utterances=N_UTT, batch_size=B, **pipeline_shape(2),
+               vs_single_device_scan=agree, serve_s=seconds)
+    if agree["label_agreement"] < 0.99:
+        truth = predictor(torch.float64)(x)
+        w = dict(pipe_vs_f64=_agreement(got, truth),
+                 single_vs_f64=_agreement(single, truth))
+        row["f64_witness"] = w
+        check(w["pipe_vs_f64"]["label_agreement"]
+              >= w["single_vs_f64"]["label_agreement"]
+              - WITNESS_LABEL_MARGIN and
+              w["pipe_vs_f64"]["max_abs_prob_diff"] <= WITNESS_PROB_FACTOR
+              * w["single_vs_f64"]["max_abs_prob_diff"],
+              f"seqpipe (d): vs the single-device Predictor {agree}, {w}")
+    return row
+
+
+def seq_ann(dev):
+    """(e) One train step of GRU [512, 512, 35] (F = 40, no norm, no
+    dropout) at S = 2 with model = 2 against the single-device scan step:
+    every gradient within SEQ_ANN_REL_MAX of its largest."""
+    from sparch_tpu_torch.parallel import make_seq_mesh
+
+    fresh = seq_build(dev, "GRU", (H, H, C), F_ANN, seed=3, grid_w=None,
+                      normalization="none", dropout=0.0)
+    g = torch.Generator(dev).manual_seed(44)
+    x = torch.randn((B, T, F_ANN), generator=g, device=dev)
+    y = torch.randint(0, C, (B,), generator=g, device=dev)
+    ref = seq_step1(dev, fresh(), x, y)
+    mesh = make_seq_mesh(seq=2, model=2)
+    check(mesh.shape == {"data": 1, "seq": 2, "model": 2},
+          f"seqpipe (e): mesh {mesh.shape}")
+    got = seq_step1(dev, fresh(), x, y, mesh=mesh)
+    check(not got["launches"], f"seqpipe (e): launched {got['launches']}")
+    errs = {k: rel_err(v, ref["grads"][k]) for k, v in got["grads"].items()}
+    over = {k: e for k, e in errs.items() if e > SEQ_ANN_REL_MAX}
+    check(not over, f"seqpipe (e): gradients past {SEQ_ANN_REL_MAX}: {over}")
+    return dict(model="GRU [512, 512, 35]", F=F_ANN, normalization="none",
+                model_axis=2, **pipeline_shape(2), loss=got["loss"],
+                scan_loss=ref["loss"], max_grad_rel_err=max(errs.values()),
+                grad_rel_bound=SEQ_ANN_REL_MAX, grad_rel_err=errs)
+
+
+def phase_seqpipe(dev, smi):
+    """The sequence pipeline on the card, its stages in this process (see
+    the module docstring, phase 8b'')."""
+    g = torch.Generator(device=dev).manual_seed(45)
+    x = (torch.rand((B, T, F), generator=g, device=dev) < 0.02).float()
+    y = torch.randint(0, C, (B,), generator=g, device=dev)
+    seconds = {}
+    rows = {}
+    for name, case in (("a_exact", lambda: seq_exact(dev, x, y)),
+                       ("b_recipe", lambda: seq_recipe(dev, x, y)),
+                       ("c_cli", lambda: seq_cli(dev)),
+                       ("d_serving", lambda: seq_serving(dev)),
+                       ("e_gru", lambda: seq_ann(dev))):
+        t0 = time.perf_counter()
+        rows[name] = case()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+    emit("seqpipe", nvidia_smi=smi, batch_size=B, T=T, seconds=seconds,
+         **rows)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5135,6 +5582,7 @@ def main() -> int:
     trained, trained_auto = run("training", phase_training, dev)
     experiment = run("experiment", phase_experiment, dev, trained_auto)
     dp = run("data_parallel", phase_data_parallel, dev, smi)
+    run("seqpipe", phase_seqpipe, dev, smi)
     audio_root = Path(tempfile.mkdtemp(prefix="chip_smoke_audio_"))
     try:
         audio = run("audio", phase_audio, dev, smi, audio_root)

@@ -20,9 +20,10 @@ host|device``) run; ``--cell_impl pallas_tp --mesh_model P`` runs the
 spiking layers through the tensor-parallel kernels on each process's one
 card, and ``--mesh_model P`` with ``auto``/``scan`` the same function whole;
 ``--compile_cache DIR`` builds and loads the CUDA kernels in DIR,
-``--profile_dir DIR`` writes a profiler trace of the first epoch there.
-``--seq_parallel`` other than 1 raises ``NotImplementedError`` naming its
-ROADMAP item. From Python, ``main(argv, device="cpu")`` runs on the CPU.
+``--profile_dir DIR`` writes a profiler trace of the first epoch there;
+``--seq_parallel S --seq_microbatches M`` trains through the time-pipelined
+steps, the S stages in each process on its card. From Python,
+``main(argv, device="cpu")`` runs on the CPU.
 """
 import argparse
 

@@ -37,6 +37,7 @@ __all__ = [
     "NORM_EPS",
     "torch_linear_init",
     "Dense",
+    "rec_dot",
     "SeqNorm",
     "FusedCellPolicy",
     "check_precision_fields",
@@ -114,6 +115,16 @@ class Dense(nn.Module):
         if self.bias is not None:
             y = y + self.bias
         return y
+
+
+def rec_dot(a, V):
+    """``a @ V`` in the type of ``a`` (JAX ``cells.rec_dot``): where ``a``
+    is narrower than the float32 ``V`` (a bf16 stream), ``V`` is cast
+    where it is used and its gradient summed in float32, as
+    :class:`Dense` does with its weight."""
+    if a.dtype == V.dtype:
+        return torch.matmul(a, V)
+    return _CastLinear.apply(a, V.t(), None)
 
 
 def _batch_moments(flat):

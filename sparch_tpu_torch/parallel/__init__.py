@@ -1,8 +1,9 @@
 """Parallel layouts (counterpart of sparch_tpu/parallel): the device mesh,
-the tensor-parallel sharding rules and multi-process data parallelism
+the tensor-parallel sharding rules, multi-process data parallelism
 (``multihost``: the process group, the global batch's statistics, draws
-and gradient). TP ranks on distinct cards and the sequence pipeline wait
-(ROADMAP queue 1 items 7b and 8).
+and gradient) and the sequence pipeline (``seqpipe``: the time-pipelined
+steps over a ``seq`` axis). TP ranks and pipeline stages on distinct cards
+wait (ROADMAP queue 1 item 7b).
 """
 from sparch_tpu_torch.parallel import multihost
 from sparch_tpu_torch.parallel.mesh import (
@@ -10,5 +11,24 @@ from sparch_tpu_torch.parallel.mesh import (
     make_mesh,
     model_param_shard_dims,
 )
+from sparch_tpu_torch.parallel.seqpipe import (
+    SeqMesh,
+    draw_noise,
+    make_seq_mesh,
+    make_seqpipe_eval_step,
+    make_seqpipe_predict,
+    make_seqpipe_train_step,
+)
 
-__all__ = ["Mesh", "make_mesh", "model_param_shard_dims", "multihost"]
+__all__ = [
+    "Mesh",
+    "make_mesh",
+    "model_param_shard_dims",
+    "multihost",
+    "SeqMesh",
+    "make_seq_mesh",
+    "draw_noise",
+    "make_seqpipe_train_step",
+    "make_seqpipe_eval_step",
+    "make_seqpipe_predict",
+]

@@ -218,9 +218,9 @@ def add_training_options(parser):
         "--mesh_model",
         type=int,
         default=1,
-        help="Tensor-parallel ('model' mesh axis) size; 1 = one card. "
-        "run_exp_torch.py refuses any other value until the port has "
-        "multi-card runs.",
+        help="Tensor-parallel ('model' mesh axis) size; the P ranks run "
+        "in the one-card form on each process's card (ranks on distinct "
+        "cards wait for ROADMAP item 7b).",
     )
     parser.add_argument(
         "--seq_parallel",
@@ -228,13 +228,13 @@ def add_training_options(parser):
         default=1,
         help="Sequence-parallel ('seq' mesh axis) size: shard the time "
         "axis and run the recurrences as a state-passing pipeline "
-        "(parallel/seqpipe.py). Composes with --mesh_model (tensor "
-        "parallel) and uses the leftover devices as the 'data' axis. "
-        "Supports bidirectional models (the batch trick runs across the "
-        "sharded time axis). Requires a readout layer and --frontend "
-        "host; batches whose shapes do not divide the mesh fall back to "
-        "the plain step. run_exp_torch.py refuses any value but 1 until "
-        "the port has the sequence pipeline.",
+        "(parallel/seqpipe.py), its S stages in each process on its "
+        "card. Composes with --mesh_model (tensor parallel) and with data "
+        "parallelism (each process pipelines its rows). Supports "
+        "bidirectional models (the batch trick runs across the sharded "
+        "time axis). Requires a readout layer and --frontend host; "
+        "batches whose shapes do not divide the mesh fall back to the "
+        "plain step.",
     )
     parser.add_argument(
         "--seq_microbatches",

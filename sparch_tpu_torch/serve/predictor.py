@@ -13,6 +13,11 @@ device`` experiment) serves raw 16 kHz waveforms: they are padded by the
 training collate's own policy (``data.audio.pad_waveform_batch``, frame
 counts rounded up to ``pad_multiple``), so serving gives the training eval
 path's probabilities.
+
+With ``mesh=`` (``parallel.make_seq_mesh``) a feature model serves through
+the time-pipelined forward of ``parallel/seqpipe.py`` instead, its stages
+on the mesh's device: long sequences over S stages and ``n_micro``
+microbatches, the same probabilities.
 """
 from __future__ import annotations
 
@@ -75,6 +80,12 @@ class Predictor:
 
     ``device=None`` is the CUDA card and raises without one;
     ``device="cpu"`` runs on the CPU.
+
+    ``mesh``: a ``parallel.SeqMesh`` (``make_seq_mesh``) on the same device
+    serves through the time-pipelined forward over its ``seq`` stages
+    with ``n_micro`` microbatches (``parallel/seqpipe.py``). Checked
+    loudly: feature models only, ``batch_size`` divisible by ``n_micro``,
+    and each call's T divisible by the ``seq`` axis.
     """
 
     @classmethod
@@ -101,12 +112,7 @@ class Predictor:
 
     def __init__(self, model, state_dict, batch_size: int = 128,
                  seed: int = 0, pad_multiple: int = 100, device=None,
-                 mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "sequence-sharded serving is ROADMAP queue 1 item 8 "
-                "(parallel/seqpipe.py)"
-            )
+                 mesh=None, n_micro: int = 4):
         self.device = resolve_device(device)
         model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device).eval()
@@ -120,12 +126,45 @@ class Predictor:
             torch.Generator(device=self.device)
             if getattr(model, "state_init", None) == "uniform" else None
         )
+        self._predict = None
+        if mesh is not None:
+            self._predict = self._seq_predict(mesh, n_micro)
+
+    def _seq_predict(self, mesh, n_micro):
+        """The time-pipelined forward over ``mesh``, ``predict(x,
+        generator)``, with the JAX Predictor's checks and messages."""
+        from sparch_tpu_torch.parallel.seqpipe import make_seqpipe_predict
+
+        if self._waveform:
+            raise ValueError(
+                "seq-sharded serving takes feature inputs; run the "
+                "fbank frontend on host (ops.fbank.fbank_np) or use "
+                "the single-chip waveform path"
+            )
+        if "seq" not in getattr(mesh, "axis_names", ()):
+            raise ValueError(
+                f"mesh axes {getattr(mesh, 'axis_names', None)} have no "
+                "'seq' axis; build one with parallel.seqpipe.make_seq_mesh"
+            )
+        if mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh's device {mesh.device} is not the "
+                             f"Predictor's {self.device}")
+        if self.batch_size % n_micro:
+            raise ValueError(
+                f"batch_size {self.batch_size} not divisible by n_micro "
+                f"({n_micro})"
+            )
+        # a call's T not divisible by the seq axis raises in the forward
+        return make_seqpipe_predict(self.model, mesh, n_micro)
 
     @torch.no_grad()
     def _forward(self, x) -> torch.Tensor:
         if self._generator is not None:
             self._generator.manual_seed(self.seed)
-        out, _ = self.model(x, self._generator)
+        if self._predict is not None:
+            out = self._predict(x, self._generator)
+        else:
+            out, _ = self.model(x, self._generator)
         if out.dtype == torch.bfloat16:
             # probabilities are float32 whatever the model computes in
             out = out.float()

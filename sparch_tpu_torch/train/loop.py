@@ -33,10 +33,12 @@ run_exp_torch.py ...``; ``parallel/multihost.py``):
 - ``--cell_impl pallas_tp --mesh_model P`` runs the spiking layers through
   the tensor-parallel kernels in their one-card form (``parallel/mesh.py``),
   every batch of any number of rows; ``--mesh_model P`` with
-  ``auto``/``scan`` runs the same function whole on the one card.
-
-Flags whose paths the port does not have yet raise ``NotImplementedError``
-before anything is written (``refuse_unported``).
+  ``auto``/``scan`` runs the same function whole on the one card;
+- ``--seq_parallel S --seq_microbatches M`` trains and evaluates through
+  the time-pipelined steps (``parallel/seqpipe.py``), its S stages in this
+  process on its one device; a batch whose shape does not divide them (T
+  by S, the process's rows by M) takes the ordinary step, as in the JAX
+  loop, and is logged and counted (``history``'s ``steps_by_path``).
 """
 from __future__ import annotations
 
@@ -53,7 +55,13 @@ from sparch_tpu_torch.data.audio import load_hd_or_sc
 from sparch_tpu_torch.data.spiking import load_shd_or_ssc
 from sparch_tpu_torch.models import SNN_NEURON_TYPES, build_model
 from sparch_tpu_torch.models.frontend import FbankFrontend
-from sparch_tpu_torch.parallel import make_mesh, multihost
+from sparch_tpu_torch.parallel import (
+    make_mesh,
+    make_seq_mesh,
+    make_seqpipe_eval_step,
+    make_seqpipe_train_step,
+    multihost,
+)
 from sparch_tpu_torch.parsers.model_config import print_model_options
 from sparch_tpu_torch.parsers.training_config import print_training_options
 from sparch_tpu_torch.train.checkpoint import (
@@ -68,16 +76,7 @@ from sparch_tpu_torch.utils.cache import use_compile_cache
 from sparch_tpu_torch.utils.device import resolve_device
 from sparch_tpu_torch.utils.profiling import trace
 
-__all__ = ["Experiment", "refuse_unported"]
-
-
-def refuse_unported(args) -> None:
-    """Raise ``NotImplementedError`` for a flag whose path the port does
-    not have yet, naming its ROADMAP item (queue 1)."""
-    if getattr(args, "seq_parallel", 1) != 1:
-        raise NotImplementedError(
-            "--seq_parallel needs the sequence pipeline (ROADMAP queue 1 "
-            "item 8, parallel/seqpipe.py)")
+__all__ = ["Experiment"]
 
 
 class Experiment:
@@ -92,16 +91,18 @@ class Experiment:
     split: its loss, accuracy and mean firing rate; a training epoch also
     its wall seconds with the host fetch, its utterances, the seconds the
     loop waited on the loader for its next batch and whether the batches
-    were pinned) and ``host_fetches`` (the metric fetches by split: one an
-    epoch)."""
+    were pinned; under ``--seq_parallel`` every epoch also its batches by
+    step, ``steps_by_path``) and ``host_fetches`` (the metric fetches by
+    split: one an epoch)."""
 
     def __init__(self, args, device=None):
-        refuse_unported(args)
         # the process group first (nothing on one process), then the card
         if multihost.maybe_initialize() and device is None:
             device = multihost.local_device()
         self.device = resolve_device(device)
         self.mesh_model = getattr(args, "mesh_model", 1)
+        self.seq_parallel = getattr(args, "seq_parallel", 1)
+        self.seq_microbatches = getattr(args, "seq_microbatches", 4)
 
         # model config
         self.model_type = args.model_type
@@ -168,6 +169,7 @@ class Experiment:
             )
             self.input_dtype = "float32"
         self.pinned = self.device.type == "cuda"
+        self._check_seq_parallel()
 
         self.init_exp_folders()
         self.init_logging()
@@ -203,6 +205,15 @@ class Experiment:
             reg_fmax=self.reg_fmax,
         )
         self._eval_step = make_eval_step(self.net)
+        self._pipe_train_step = self._pipe_eval_step = None
+        if self.seq_mesh is not None:
+            self._pipe_train_step = make_seqpipe_train_step(
+                self.net, self.seq_mesh, n_micro=self.seq_microbatches,
+                use_regularizers=self.use_regularizers,
+                reg_factor=self.reg_factor, reg_fmin=self.reg_fmin,
+                reg_fmax=self.reg_fmax)
+            self._pipe_eval_step = make_seqpipe_eval_step(
+                self.net, self.seq_mesh, n_micro=self.seq_microbatches)
         # The JAX loop splits one state-init key a batch from seed + 1;
         # here one generator seeded seed + 1 gives every eval batch its
         # draws in batch order (another stream, the same role)
@@ -300,6 +311,51 @@ class Experiment:
                 "device (only --cell_impl pallas_tp splits the neurons over "
                 "the model axis)\n"
             )
+        # the optional time-pipelined mesh: its S x P stages and ranks in
+        # this process, on its one device (dp x sp x tp)
+        self.seq_mesh = None
+        if self.seq_parallel > 1:
+            S = self.seq_parallel
+            self.seq_mesh = make_seq_mesh([self.device] * (S * P), seq=S,
+                                          model=P)
+            logging.info(f"Sequence-parallel mesh: {self.seq_mesh.shape}, "
+                         f"{self.seq_microbatches} microbatches\n")
+
+    def _check_seq_parallel(self):
+        """The JAX loop's conditions on ``--seq_parallel``, before anything
+        is written."""
+        if self.seq_parallel <= 1:
+            return
+        if self.remat:
+            raise ValueError(
+                "--remat has no effect under --seq_parallel: the "
+                "time-pipelined step stores only per-microbatch "
+                "activations already (its own memory bound). Drop "
+                "one of the two flags."
+            )
+        if self.frontend == "device":
+            raise ValueError(
+                "--seq_parallel requires --frontend host (waveform "
+                "pytree batches cannot shard the time axis)"
+            )
+        if self.cell_impl == "pallas_tp":
+            raise ValueError(
+                "--cell_impl pallas_tp does not compose with "
+                "--seq_parallel (the time-pipelined step shards the "
+                "recurrence itself)"
+            )
+
+    def _step_for(self, x, ordinary, pipelined, paths):
+        """Under ``--seq_parallel``, the pipelined step for a batch whose
+        shape divides the pipeline (the JAX ``_seq_ok``: T by the stages,
+        the process's rows by the microbatches), counted in ``paths``;
+        otherwise the ordinary step."""
+        if pipelined is None:
+            return ordinary
+        piped = (x.shape[0] % self.seq_microbatches == 0
+                 and x.shape[1] % self.seq_parallel == 0)
+        paths["seqpipe" if piped else "ordinary"] += 1
+        return pipelined if piped else ordinary
 
     def _shard_kw(self):
         """Each rank's slice of every global batch (the JAX
@@ -498,6 +554,7 @@ class Experiment:
         start = time.time()
         losses, accs, rates = [], [], []
         waited, utterances = 0.0, 0
+        paths = Counter()
 
         batches = iter(self.train_loader)
         while True:
@@ -508,8 +565,10 @@ class Experiment:
                 break
             x, _, y = batch
             x, y = self._put_batch(x, y)
+            step = self._step_for(x, self._train_step,
+                                  self._pipe_train_step, paths)
             with multihost.sharded():
-                self.state, metrics = self._train_step(self.state, x, y)
+                self.state, metrics = step(self.state, x, y)
             losses.append(metrics["loss"])
             accs.append(metrics["acc"])
             rates.append(metrics["spike_rate"])
@@ -532,35 +591,53 @@ class Experiment:
         self.history.append(dict(
             split="train", epoch=e, loss=train_loss, acc=train_acc,
             rate=rate, seconds=seconds, utterances=utterances,
-            loader_wait_s=waited, pinned=self.pinned))
+            loader_wait_s=waited, pinned=self.pinned,
+            **self._log_paths(f"Epoch {e}: train", paths)))
         elapsed = str(timedelta(seconds=time.time() - start))
         logging.info(f"Epoch {e}: train elapsed time={elapsed}")
 
+    def _log_paths(self, what: str, paths) -> dict:
+        """Under ``--seq_parallel``: log the batches that took the ordinary
+        step, and return ``{"steps_by_path": ...}`` for the history."""
+        if self.seq_mesh is None:
+            return {}
+        if paths["ordinary"]:
+            logging.info(
+                f"{what}: {paths['ordinary']} of {sum(paths.values())} "
+                "batches took the ordinary step (T not divisible by "
+                f"--seq_parallel {self.seq_parallel} or the rows by "
+                f"--seq_microbatches {self.seq_microbatches})")
+        return {"steps_by_path": {"seqpipe": paths["seqpipe"],
+                                  "ordinary": paths["ordinary"]}}
+
     def _eval_epoch(self, loader, kind: str):
         losses, accs, rates = [], [], []
+        paths = Counter()
         for x, _, y in loader:
             x, y = self._put_batch(x, y)
+            step = self._step_for(x, self._eval_step,
+                                  self._pipe_eval_step, paths)
             with multihost.sharded():
-                metrics = self._eval_step(self.state, x, y,
-                                          self._eval_generator)
+                metrics = step(self.state, x, y, self._eval_generator)
             losses.append(metrics["loss"])
             accs.append(metrics["acc"])
             rates.append(metrics["spike_rate"])
         losses, accs, rates = self._fetch(kind, losses, accs, rates)
-        return float(np.mean(losses)), float(np.mean(accs)), float(np.mean(rates))
+        return (float(np.mean(losses)), float(np.mean(accs)),
+                float(np.mean(rates)), self._log_paths(kind, paths))
 
-    def _record(self, split, epoch, loss, acc, rate):
+    def _record(self, split, epoch, loss, acc, rate, paths):
         self.history.append(dict(split=split, epoch=epoch, loss=loss,
-                                 acc=acc, rate=rate))
+                                 acc=acc, rate=rate, **paths))
 
     def valid_one_epoch(self, e: int, best_epoch: int, best_acc: float):
-        valid_loss, valid_acc, rate = self._eval_epoch(self.valid_loader,
-                                                       "valid")
+        valid_loss, valid_acc, rate, paths = self._eval_epoch(
+            self.valid_loader, "valid")
         logging.info(f"Epoch {e}: valid loss={valid_loss}")
         logging.info(f"Epoch {e}: valid acc={valid_acc}")
         if self.net.is_snn:
             logging.info(f"Epoch {e}: valid mean act rate={rate}")
-        self._record("valid", e, valid_loss, valid_acc, rate)
+        self._record("valid", e, valid_loss, valid_acc, rate, paths)
 
         # plateau on the valid accuracy
         new_lr = self.scheduler.step(valid_acc)
@@ -587,12 +664,13 @@ class Experiment:
 
     def test_one_epoch(self, test_loader):
         logging.info("\n------ Begin Testing ------\n")
-        test_loss, test_acc, rate = self._eval_epoch(test_loader, "test")
+        test_loss, test_acc, rate, paths = self._eval_epoch(test_loader,
+                                                            "test")
         logging.info(f"Test loss={test_loss}")
         logging.info(f"Test acc={test_acc}")
         if self.net.is_snn:
             logging.info(f"Test mean act rate={rate}")
-        self._record("test", None, test_loss, test_acc, rate)
+        self._record("test", None, test_loss, test_acc, rate, paths)
         logging.info("\n-----------------------------\n")
         self.test_acc = test_acc
         return test_acc

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from sparch_tpu_torch.parallel import multihost
 
-__all__ = ["make_train_step", "make_eval_step"]
+__all__ = ["make_train_step", "make_eval_step", "take_step", "eval_metrics"]
 
 
 def _metrics(ce, out, rates, y, is_snn):
@@ -50,6 +50,36 @@ def _check_state(state, model):
         raise ValueError("the state was created for another model")
 
 
+def take_step(state, model, forward, y, use_regularizers: bool = False,
+              reg_factor: float = 0.5, reg_fmin: float = 0.01,
+              reg_fmax: float = 0.5):
+    """The body of a train step, shared by :func:`make_train_step` and the
+    time-pipelined step (``parallel/seqpipe.py``): ``forward()`` gives the
+    model's ``(out, rates)``; the mean cross-entropy plus the optional
+    firing-rate hinge, the backward, the gradients' mean over the ranks
+    inside ``multihost.sharded()``, the Adam update. Returns ``(state,
+    metrics)``."""
+    is_snn = getattr(model, "is_snn", False)
+    state.optimizer.zero_grad(set_to_none=True)
+    out, rates = forward()
+    ce = F.cross_entropy(_f32_logits(out), y)
+    loss = ce
+    if is_snn and use_regularizers:
+        # hinge penalty on per-neuron firing rates
+        reg_quiet = F.relu(reg_fmin - rates).sum()
+        reg_burst = F.relu(rates - reg_fmax).sum()
+        loss = loss + reg_factor * (reg_quiet + reg_burst)
+    loss.backward()
+    if multihost.is_sharded():
+        # the global batch's gradient: the ranks' mean
+        multihost.all_reduce_mean_(
+            [p.grad for p in model.parameters() if p.grad is not None])
+    state.optimizer.step()
+    state.step += 1
+    with torch.no_grad():
+        return state, _metrics(ce, out, rates, y, is_snn)
+
+
 def make_train_step(model, use_regularizers: bool = False,
                     reg_factor: float = 0.5, reg_fmin: float = 0.01,
                     reg_fmax: float = 0.5):
@@ -61,29 +91,14 @@ def make_train_step(model, use_regularizers: bool = False,
     state's device; ``metrics`` = {loss, acc, spike_rate} as device
     tensors.
     """
-    is_snn = getattr(model, "is_snn", False)
+    reg = dict(use_regularizers=use_regularizers, reg_factor=reg_factor,
+               reg_fmin=reg_fmin, reg_fmax=reg_fmax)
 
     def train_step(state, x, y):
         _check_state(state, model)
         model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        out, rates = model(x, state.generator)
-        ce = F.cross_entropy(_f32_logits(out), y)
-        loss = ce
-        if is_snn and use_regularizers:
-            # hinge penalty on per-neuron firing rates
-            reg_quiet = F.relu(reg_fmin - rates).sum()
-            reg_burst = F.relu(rates - reg_fmax).sum()
-            loss = loss + reg_factor * (reg_quiet + reg_burst)
-        loss.backward()
-        if multihost.is_sharded():
-            # the global batch's gradient: the ranks' mean
-            multihost.all_reduce_mean_(
-                [p.grad for p in model.parameters() if p.grad is not None])
-        state.optimizer.step()
-        state.step += 1
-        with torch.no_grad():
-            return state, _metrics(ce, out, rates, y, is_snn)
+        return take_step(state, model, lambda: model(x, state.generator), y,
+                         **reg)
 
     return train_step
 
@@ -93,14 +108,17 @@ def make_eval_step(model):
     metrics``. ``generator`` drives the uniform state init (the original
     sparch randomises the states in eval too); it is unused with
     ``state_init='zeros'``."""
-    is_snn = getattr(model, "is_snn", False)
 
     @torch.no_grad()
     def eval_step(state, x, y, generator=None):
         _check_state(state, model)
         model.eval()
-        out, rates = model(x, generator)
-        ce = F.cross_entropy(_f32_logits(out), y)
-        return _metrics(ce, out, rates, y, is_snn)
+        return eval_metrics(model, *model(x, generator), y)
 
     return eval_step
+
+
+def eval_metrics(model, out, rates, y):
+    """The eval step's metrics of the model's ``(out, rates)``."""
+    ce = F.cross_entropy(_f32_logits(out), y)
+    return _metrics(ce, out, rates, y, getattr(model, "is_snn", False))

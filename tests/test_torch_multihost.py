@@ -24,6 +24,11 @@ compiles.
 - The global-row map of the hash dropout: the plain masks, forwards and
   backwards of two half batches equal the rows of the whole batch's, the
   bidirectional stacking included.
+- The sequence pipeline under data parallelism: LIF [16, 16, 20] with
+  batchnorm and the default recipe (dropout 0.1, uniform states), 3
+  time-pipelined steps (S = 2, M = 2) at R = 2 against one process at S =
+  2 on the global batch: the loss, the weights and the running statistics
+  within rtol 1e-5, every rank's state equal bit for bit.
 - A 2-rank CLI run on SHD-schema files against the 1-rank run of the same
   argv (the loaders' shards and forced ``drop_last`` included), and
   ``--cell_impl pallas_tp --mesh_model 2`` at H = 256 against ``--cell_impl
@@ -54,6 +59,8 @@ LR = 1e-3
 STEPS = 3
 LIF_CFG = dict(type="LIF", shape=(B, T, F), sizes=[H, H, C],
                kw=dict(state_init="zeros", normalization="batchnorm"))
+SEQ_CFG = dict(LIF_CFG, kw=dict(state_init="uniform", dropout=0.1,
+                                normalization="batchnorm"))
 RAD_B, RAD_H, RAD_C = 8, 16, 5
 N_TRAIN, N_TEST = 24, 16
 
@@ -159,6 +166,8 @@ def _jobs2(lif_payload, data, tmp):
     jobs += [("local_forward", dict(cfg=fwd["cfg"],
                                     state_dict=fwd["state_dict"], seed=9,
                                     x=[x[:RAD_B // 2], x[RAD_B // 2:]]))]
+    jobs += [("train_steps", dict(lif_payload, cfg=SEQ_CFG, seq=2,
+                                  n_micro=2))]
     jobs += [("cli", dict(argv=cli_argv(data, "--new_exp_folder",
                                         str(tmp / "exp")))), ("pad", {})]
     return jobs
@@ -249,6 +258,32 @@ def test_a_forward_outside_sharded_is_its_own_batch(two_ranks):
         assert torch.equal(got["rates"], one["rates"])
         torch.testing.assert_close(got["out"], one["out"], rtol=1e-6,
                                    atol=1e-6)
+
+
+def test_seq_pipeline_two_ranks_take_the_one_process_steps(two_ranks):
+    """Each rank pipelines its rows of the global batch (the noise drawn
+    for the global batch, the global statistics and firing rates); the
+    ranks' mean loss and their state are the one process's."""
+    jobs, results = two_ranks
+    index = 2 + len(RADLIF_FORMS)
+    payload = jobs[index][1]
+    one = worker.train_steps(payload)
+    two = [res[index] for res in results]
+    for k, v in two[0]["state"].items():
+        assert torch.equal(two[1]["state"][k], v), k
+    np.testing.assert_allclose(np.mean([r["loss"] for r in two], axis=0),
+                               one["loss"], rtol=1e-5)
+    np.testing.assert_allclose(np.mean([r["rate"] for r in two], axis=0),
+                               one["rate"], rtol=1e-5)
+    assert min(one["rate"]) > 0.0
+    for k, v in one["state"].items():
+        np.testing.assert_allclose(two[0]["state"][k], v, rtol=1e-5,
+                                   atol=1e-7, err_msg=k)
+    # the step's all-reduces: the three norms' statistics and their
+    # gradients, the firing rates, the gradients
+    counts = two[0]["counts"]
+    assert counts["grads"] == 1 and counts["rates"] == 1
+    assert counts["stats"] == counts["stats_grad"] == 3
 
 
 def _halves(B, bidir):

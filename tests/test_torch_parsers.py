@@ -1,9 +1,8 @@
 """The port's CLI flags (``sparch_tpu_torch.parsers``, ``run_exp_torch.py``)
 against the JAX package's: every action's option strings, dest, type,
 default and choices, found by introspecting both parsers; ``strtobool``;
-the printed options; the flags the port refuses, each raising
-``NotImplementedError`` naming its ROADMAP item before any folder is
-made; and the flags of ROADMAP item 9, accepted and acted on."""
+the printed options; the flags of the parallel paths (items 7 and 8) and of
+ROADMAP item 9, accepted and acted on."""
 import argparse
 import logging
 import os
@@ -15,7 +14,7 @@ import run_exp_torch
 from sparch_tpu.parsers import model_config as jax_model_config
 from sparch_tpu.parsers import training_config as jax_training_config
 from sparch_tpu_torch.parsers import model_config, training_config
-from sparch_tpu_torch.train.loop import Experiment, refuse_unported
+from sparch_tpu_torch.train.loop import Experiment
 
 
 def surface(add):
@@ -96,8 +95,9 @@ def test_printed_options_equal_jax(root_messages):
     assert messages[:2] == messages[2:]
 
 
-# item 7 (data parallelism, the TP mesh through the CLI) is ported: its
-# flags build an Experiment; --seq_parallel (item 8) still raises
+# the flags that were refused until their items were ported: item 7 (data
+# parallelism, the TP mesh through the CLI) and item 8 (--seq_parallel,
+# the sequence pipeline) build an Experiment on their meshes
 REFUSED = [
     (["--cell_impl", "pallas_tp", "--mesh_model", "2", "--nb_hiddens",
       "256"], None),
@@ -112,14 +112,17 @@ def test_refused_flags_raise_naming_their_item(tmp_path, argv, item,
                                                monkeypatch):
     exp = str(tmp_path / "exp")
     args = run_exp_torch.parse_args(argv + ["--new_exp_folder", exp])
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
-            Experiment(args, device="cpu")
-        assert not os.path.exists(exp)
-        return
     # no data on disk: the run builds everything but its loaders
     monkeypatch.setattr(Experiment, "init_dataset", _no_data)
     exp = Experiment(args, device="cpu")
+    if item is not None:
+        # the pipeline's mesh and steps; no item-8 refusal is left
+        assert exp.seq_mesh.shape == {"data": 1, "seq": 2, "model": 1}
+        assert exp.seq_mesh.one_card and exp.mesh.shape["model"] == 1
+        assert callable(exp._pipe_train_step)
+        assert callable(exp._pipe_eval_step)
+        return
+    assert exp.seq_mesh is None
     P = int(argv[argv.index("--mesh_model") + 1])
     assert exp.mesh.shape == {"data": 1, "model": P} and exp.mesh.one_card
     layer = exp.net.layer_0
@@ -160,7 +163,6 @@ def test_item9_flags_are_accepted_and_run(shd, tmp_path, monkeypatch, argv):
         "--dataset_name", "shd", "--data_folder", shd, "--batch_size", "4",
         "--nb_hiddens", "8", "--nb_layers", "2", "--nb_epochs", "1",
         "--new_exp_folder", str(tmp_path / "exp")])
-    refuse_unported(args)
     try:
         exp = Experiment(args, device="cpu")
         exp.forward()
@@ -185,5 +187,10 @@ def test_item9_flags_are_accepted_and_run(shd, tmp_path, monkeypatch, argv):
     ["--dataset_name", "hd"], ["--dataset_name", "sc"],
     ["--frontend", "device"],
 ])
-def test_accepted_flags(argv):
-    refuse_unported(run_exp_torch.parse_args(argv))
+def test_accepted_flags(argv, tmp_path, monkeypatch):
+    """Each builds an Experiment (no data on disk: all but the loaders)."""
+    monkeypatch.setattr(Experiment, "init_dataset", _no_data)
+    args = run_exp_torch.parse_args(argv + ["--new_exp_folder",
+                                            str(tmp_path / "exp")])
+    exp = Experiment(args, device="cpu")
+    assert exp.net.layer_0.cell_impl == args.cell_impl

@@ -11,6 +11,7 @@ from sparch_tpu.serve import streaming_init as jax_streaming_init
 from sparch_tpu.serve import streaming_step as jax_streaming_step
 from sparch_tpu_torch.convert import variables_from_flax
 from sparch_tpu_torch.models import build_model
+from sparch_tpu_torch.parallel import make_seq_mesh
 from sparch_tpu_torch.serve import Predictor, streaming_init, streaming_step
 
 from tests.test_torch_models import B, C, T, jax_snn, port_snn
@@ -59,8 +60,15 @@ def test_predictor_edges():
         pred(x, lengths=np.ones(B))
     with pytest.raises(ValueError, match="device-frontend"):
         JaxPredictor(jmodel, variables)(x, lengths=np.ones(B))
-    with pytest.raises(NotImplementedError, match="seqpipe"):
-        Predictor(model, model.state_dict(), mesh=object())
+    # a mesh with a seq axis serves through the sequence pipeline (the
+    # same answers); any other mesh raises
+    stages = make_seq_mesh([torch.device("cpu")] * T)
+    seq = Predictor(model, model.state_dict(), device="cpu", mesh=stages,
+                    n_micro=1)
+    np.testing.assert_array_equal(seq(x)[0], pred(x)[0])
+    np.testing.assert_allclose(seq(x)[1], pred(x)[1], rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="no 'seq' axis"):
+        Predictor(model, model.state_dict(), mesh=object(), device="cpu")
     # pad_multiple buckets waveform frames: a feature model serves alike
     other = Predictor(model, model.state_dict(), pad_multiple=50,
                       device="cpu")

@@ -20,7 +20,11 @@ from datetime import timedelta
 import torch
 
 from sparch_tpu_torch.models import build_model
-from sparch_tpu_torch.parallel import multihost
+from sparch_tpu_torch.parallel import (
+    make_seq_mesh,
+    make_seqpipe_train_step,
+    multihost,
+)
 from sparch_tpu_torch.train import create_train_state, make_train_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -45,10 +49,17 @@ def train_steps(p):
     """``p["steps"]`` train steps of the global batches ``p["batches"]``
     on this rank's slices: the metrics of each step, the parameters and
     buffers after the last, the first step's gradients and, with
-    ``p["spikes"]``, the first step's hidden spikes and logits."""
+    ``p["spikes"]``, the first step's hidden spikes and logits. With
+    ``p["seq"]`` the steps are the time-pipelined ones over that many
+    stages and ``p["n_micro"]`` microbatches."""
     model = _model(p["cfg"], p["state_dict"])
     state = create_train_state(model, p["lr"], device="cpu", seed=p["seed"])
-    step = make_train_step(model, **p.get("step_kw", {}))
+    if p.get("seq"):
+        mesh = make_seq_mesh([torch.device("cpu")] * p["seq"])
+        step = make_seqpipe_train_step(model, mesh, n_micro=p["n_micro"],
+                                       **p.get("step_kw", {}))
+    else:
+        step = make_train_step(model, **p.get("step_kw", {}))
     spikes = []
     if p.get("spikes"):
         for layer in model.hidden_layers():
