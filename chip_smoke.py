@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (sparch_tpu_torch) on one CUDA card and check it.
+"""Drive the PyTorch/CUDA port (sparch_tpu_torch) on a CUDA card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase; 25 where it sees 2+ cards
+    python3 chip_smoke.py multicard   # the build, phase 1 and phase 25 only
 
 Builds every CUDA kernel of the serving and the training paths (the spiking
 family's, the non-spiking family's and the tensor-parallel ones) from
@@ -111,7 +112,8 @@ all at once), then prints one JSON line per phase:
 8b'. ``data_parallel``: the CLI's ``Experiment`` on 2 ranks of ``python -m
    torch.distributed.run --standalone --nproc_per_node 2 chip_smoke.py
    dp_worker DIR`` (this script's worker mode) sharing the one card, gloo
-   (``parallel/multihost.py``), each run beside the same argv on this
+   (``parallel/multihost.py``; where the machine has two cards or more,
+   each rank on a card of its own, nccl), each run beside the same argv on this
    process. The ranks load the kernels phase 1 built. RadLIF [512, 512,
    35], global batch 128 (64 a rank), the SSC-shaped set of 8b served
    from memory (512 train, 128 valid, 128 test utterances; each rank's
@@ -338,7 +340,8 @@ all at once), then prints one JSON line per phase:
    and 4 against P = 1; then one ``make_eval_step`` pass per variant over
    the trained weights (V back on the 2^-8 grid, zero state init): the
    probabilities bit for bit against the plain versions' and P = 1's, and
-   against scan by the witness rule of phase 4. No multi-card run is made.
+   against scan by the witness rule of phase 4. Phases 2-24 see one card
+   whatever the machine has (``one_card_placement``).
 20. ``kernel_vs_plain`` for ``tp_ann_fwd``: the TP RNN, LiGRU and GRU at
    P = 1, 2, 4 on the main path's shape (B=128, T=100, H=1024), recurrent
    matrices orthogonal * 0.5: the output and the gate series against
@@ -405,6 +408,33 @@ all at once), then prints one JSON line per phase:
    ``launches_audio``, their launches in the SC flagship's run of phase
    8c, and, with the GRU's forward, ``launches_migrate``: the served
    models and the fine-tune of phase 8e.
+
+25. ``multicard``, where the process sees two cards or more (else a line
+   saying that it did not run, ``"cards": 1``): the form across cards, one
+   TP rank or pipeline stage a card (``ops/tp_cards.py``). (a) ``nvidia-smi
+   topo -m`` and ``can_device_access_peer`` for every pair. (b)
+   ``tp_all_gather`` / ``tp_reduce_scatter`` across P = 2, 4 cards at B =
+   128, Hl = 256: bit for bit against their plain versions (and at B = 13,
+   rounds 1 and 3), one launch a card; ``ms`` the launches alone replayed
+   from a CUDA graph across the cards, ``eager_ms``, ``call_ms`` (the entry
+   point with scatter and gather), ``library_ms`` / ``library_seq_ms``
+   (one round / the chained harness in PyTorch peer copies and adds). (c)
+   ``tp_cell_fwd`` / ``tp_cell_bwd`` (RLIF, RadLIF) across P = 2, 4 cards
+   at (256, 100, 1024), both stream modes: spikes, membrane series and
+   every gradient bit for bit against the one-card form; ms beside the
+   one-card form's at P and at P = 1, the exchange's µs a step, the plans,
+   launches by card. (d) Phase 19's recipe (float32 and bf16) with
+   ``pallas_tp`` across P = 2, 4 cards beside the one-card form: 10 steps'
+   losses, the step-1 gradients and an eval pass bit for bit;
+   ``train_step_ms`` of both; launches by card. (e) The SC flagship,
+   RadLIF [1024, 1024, 1024, 35] bidirectional, through ``Experiment
+   --cell_impl pallas_tp --mesh_model 4`` on four cards (the placement
+   rule), one epoch of 8b's set from memory: the TP kernels launched on
+   every card, the Device-mesh log line, epoch seconds. (f)
+   ``make_seq_mesh`` over S = 2, 4 cards: case (a) of 8b'' against the
+   one-card pipeline, spikes, readout and gradients bit for bit; the
+   step's ms and peak memory by card; the SC flagship served through four
+   stages across cards against the single-device Predictor (8b'' (d)).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 if any phase fails, the script exits non-zero and prints no result.
@@ -5124,11 +5154,13 @@ def phase_data_parallel(dev, smi):
         backend = ranks[0]["backend"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    check(world == DP_RANKS and backend == "gloo",
+    own_cards = torch.cuda.device_count() >= DP_RANKS
+    check(world == DP_RANKS and backend == ("nccl" if own_cards else "gloo"),
           f"data_parallel: world {world}, backend {backend}")
     emit("data_parallel", nvidia_smi=smi,
-         note="two ranks share one card: these runs measure correctness, "
-         "not speed", entry="python -m torch.distributed.run "
+         note="each rank on a card of its own (nccl)" if own_cards else
+         "two ranks share one card: these runs measure correctness, not "
+         "speed", entry="python -m torch.distributed.run "
          f"--nproc_per_node {DP_RANKS} + Experiment (init_dataset from "
          "memory)", world_size=world, backend=backend,
          model="RadLIF [512, 512, 35]", global_batch=B,
@@ -5171,7 +5203,8 @@ def pipeline_outputs(record):
 
     def keep_layer(*args, **kw):
         out = layer(*args, **kw)
-        record.append(torch.cat([o.detach() for o in out], dim=1))
+        record.append(torch.cat([o.detach().to(out[0].device) for o in out],
+                                dim=1))
         return out
 
     def keep_readout(*args, **kw):
@@ -5454,13 +5487,14 @@ def seq_cli(dev):
         resident_step=steps)
 
 
-def seq_serving(dev):
+def seq_serving(dev, mesh=None, S=2):
     """(d) The SC flagship, RadLIF [1024, 1024, 1024, 35] bidirectional (F
     = 40, zero states, running statistics of one pass, W and V on the 2^-8
     grid; features on a 2^-4 grid, so the projections are exact), served
     through ``Predictor(mesh=make_seq_mesh(seq=2))`` (the time reversal on
-    the card) against the single-device scan Predictor: labels on >= 99 %,
-    or else the float64 witness rule of ``serve_bf16``."""
+    the card; ``mesh``: another mesh of S stages) against the
+    single-device scan Predictor: labels on >= 99 %, or else the float64
+    witness rule of ``serve_bf16``."""
     from sparch_tpu_torch.models import build_model
     from sparch_tpu_torch.ops import fused_cells
     from sparch_tpu_torch.parallel import make_seq_mesh
@@ -5479,7 +5513,7 @@ def seq_serving(dev):
                         state_init="zeros", cell_impl="scan")
         return Predictor(m.to(dtype), sd, batch_size=B, device=dev, **kw)
 
-    pipe = predictor(mesh=make_seq_mesh(seq=2), n_micro=SEQ_M)
+    pipe = predictor(mesh=mesh or make_seq_mesh(seq=S), n_micro=SEQ_M)
     fused_cells.reset_launch_counts()
     t0 = time.perf_counter()
     got = pipe(x)
@@ -5492,7 +5526,7 @@ def seq_serving(dev):
     single = predictor()(x)
     agree = _agreement(got, single)
     row = dict(model="RadLIF [1024, 1024, 1024, 35] bidirectional",
-               F=F_SC, n_utterances=N_UTT, batch_size=B, **pipeline_shape(2),
+               F=F_SC, n_utterances=N_UTT, batch_size=B, **pipeline_shape(S),
                vs_single_device_scan=agree, serve_s=seconds)
     if agree["label_agreement"] < 0.99:
         truth = predictor(torch.float64)(x)
@@ -5555,6 +5589,561 @@ def phase_seqpipe(dev, smi):
          **rows)
 
 
+# ---------------------------------------------------------------------------
+# Across cards: TP ranks and pipeline stages one a card (phase 25)
+# ---------------------------------------------------------------------------
+
+MC_PS = (2, 4)  # TP ranks across cards
+MC_SEQ_S = (2, 4)  # pipeline stages across cards
+MC_EXP_SPLITS = {"train": 1280, "valid": 256, "test": 256}  # one epoch
+
+
+def mc_cards(n):
+    return tuple(torch.device("cuda", i) for i in range(n))
+
+
+def joined(fn, on):
+    """``fn`` then the first card's stream waiting on every card's current
+    stream: CUDA events around a call then time all its cards' work."""
+    def call(*args):
+        out = fn(*args)
+        home = torch.cuda.current_stream(on[0])
+        for c in on[1:]:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(c))
+            home.wait_event(ev)
+        return out
+
+    return call
+
+
+def sync_all(on):
+    for c in on:
+        torch.cuda.synchronize(c)
+
+
+def cards_graph_ms(fn, on, iters=20, repeats=5):
+    """``(ms, None)``: the median ms per call of ``fn()`` replayed from one
+    CUDA graph of ``iters`` calls that spans ``on``, captured on a side
+    stream of the first card, the others' side streams joined to the
+    capture by events, the first card waiting on them at its end.
+    ``(None, error)`` where the capture itself is refused; any failure
+    after it (a replay, a kernel) raises."""
+    import statistics as st
+
+    side = {c: torch.cuda.Stream(c) for c in on}
+    with contextlib.ExitStack() as stack:
+        for c in on:
+            stack.enter_context(torch.cuda.device(c))
+            stack.enter_context(torch.cuda.stream(side[c]))
+        fn()
+    sync_all(on)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.device(on[0]), contextlib.ExitStack() as stack:
+            for c in on[1:]:
+                stack.enter_context(torch.cuda.stream(side[c]))
+            with torch.cuda.graph(graph, stream=side[on[0]]):
+                cap = side[on[0]]
+                fork = torch.cuda.Event()
+                fork.record(cap)
+                for c in on[1:]:
+                    side[c].wait_event(fork)
+                for _ in range(iters):
+                    fn()
+                for c in on[1:]:
+                    ev = torch.cuda.Event()
+                    ev.record(side[c])
+                    cap.wait_event(ev)
+    except RuntimeError as e:  # the capture across cards refused
+        sync_all(on)
+        return None, str(e)[:300]
+    graph.replay()
+    sync_all(on)
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    sync_all(on)
+    return st.median(times), None
+
+
+def library_collective_ms(x, on, reduce, rounds):
+    """The collective's work in PyTorch calls across the cards (peer
+    copies and adds): one round (``library_ms``) and ``rounds`` chained
+    rounds (``library_seq_ms``: round r's input the rank's own block of
+    round r-1's result + 1, as the harness chains them; the reduce-scatter
+    adds its own block first, then the senders by offset)."""
+    from sparch_tpu_torch.ops import tp_cards
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    P = len(on)
+    if reduce:
+        ins = [x[q].to(c) for q, c in enumerate(on)]
+    else:
+        ins = [tp_cards.columns(x, P, q).contiguous().to(c)
+               for q, c in enumerate(on)]
+
+    def round_(src):
+        if reduce:
+            out = []
+            for d, c in enumerate(on):
+                acc = tp_cards.columns(src[d], P, d)
+                for off in range(1, P):
+                    q = (d - off) % P
+                    acc = acc + tp_cards.columns(src[q], P, d).to(c)
+                out.append(acc)
+            return out
+        return [torch.cat([s.to(c) for s in src], dim=1) for c in on]
+
+    def seq():
+        src = ins
+        for _ in range(rounds):
+            out = round_(src)
+            src = ([i + o[:, :1] for i, o in zip(ins, out)] if reduce else
+                   [tp_cards.columns(o, P, q) + 1.0
+                    for q, o in enumerate(out)])
+
+    return (cuda_time_ms(joined(lambda: round_(ins), on), warmup=3,
+                         iters=20, repeats=5),
+            cuda_time_ms(joined(seq, on), warmup=3, iters=20, repeats=5))
+
+
+def mc_collectives(on_all):
+    """(b) ``tp_all_gather`` and ``tp_reduce_scatter`` across P cards, P of
+    MC_PS: bit for bit against their plain versions at B = 128 and a
+    ragged B = 13, rounds 3 and 1; ``ms`` the launches alone (the operands
+    placed, ``fused_tp.cards_collective``) replayed from a CUDA graph
+    across the cards, ``eager_ms`` an eager call of them, ``call_ms`` the
+    entry point with its scatter and gather; ``library_ms`` and
+    ``library_seq_ms`` the same work in PyTorch calls across the cards
+    (``library_collective_ms``); the plan every card agreed on, launches
+    per card."""
+    from sparch_tpu_torch.ops import fused_cells, fused_tp
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    rows = {}
+    for P in MC_PS:
+        if P > len(on_all):
+            continue
+        on = on_all[:P]
+        dev = on[0]
+        x, parts = collective_inputs(dev, P)
+        small = collective_inputs(dev, P, b=13, seed=37)
+        rows[P] = {}
+        for i, (name, plain) in enumerate((
+                ("tp_all_gather", fused_tp.tp_all_gather_plain),
+                ("tp_reduce_scatter", fused_tp.tp_reduce_scatter_plain))):
+            entry = getattr(fused_tp, name)
+            reduce = i == 1
+            arg = (x, parts)[i]
+            what = f"multicard {name} P={P}"
+            fused_cells.reset_launch_counts()
+            out = entry(arg, num_devices=P, rounds=TP_ROUNDS, cards=on)
+            sync_all(on)
+            by_card = {str(on[k]): c.get(name, 0) for k, c in
+                       fused_cells.launch_counts_by_device().items()}
+            check(list(by_card.values()) == [1] * P,
+                  f"{what}: launches by card {by_card}")
+            check(torch.equal(out, plain(arg, num_devices=P,
+                                         rounds=TP_ROUNDS)),
+                  f"{what}: differs from its plain version")
+            for a, rounds in ((small[i], 1), (small[i], TP_ROUNDS),
+                              (arg, 1)):
+                check(torch.equal(
+                    entry(a, num_devices=P, rounds=rounds, cards=on),
+                    plain(a, num_devices=P, rounds=rounds)),
+                    f"{what} B={a.shape[-2]} rounds={rounds}: differs")
+            run = fused_tp.cards_collective(arg, on, reduce=reduce,
+                                            rounds=TP_ROUNDS)
+            row = dict(bit_equal_to_plain=True, plan=run.plan._asdict(),
+                       launches_by_card=by_card,
+                       eager_ms=cuda_time_ms(joined(run, on), iters=20),
+                       call_ms=cuda_time_ms(joined(functools.partial(
+                           entry, arg, num_devices=P, rounds=TP_ROUNDS,
+                           cards=on), on)))
+            row["ms"], refused = cards_graph_ms(run, on)
+            if refused is not None:
+                row["graph_error"] = refused
+            run()
+            sync_all(on)
+            got = (torch.cat([o.to(dev) for o in run.outs]) if not reduce
+                   else torch.cat([o.to(dev) for o in run.outs], -1))
+            check(torch.equal(got, plain(arg, num_devices=P,
+                                         rounds=TP_ROUNDS)),
+                  f"{what}: differs after the graph's replays")
+            row["library_ms"], row["library_seq_ms"] = \
+                library_collective_ms(arg, on, reduce, TP_ROUNDS)
+            rows[P][name] = row
+    return rows
+
+
+def mc_cells(on_all):
+    """(c) ``tp_cell_fwd`` and ``tp_cell_bwd`` (RadLIF; RLIF's bits too)
+    across P cards, P of MC_PS, both stream modes, at (256, 100, 1024):
+    the spikes, the membrane series and every gradient bit for bit against
+    the one-card form at the same P; ms of the entry points (scatter,
+    launches and gather) beside the one-card form's at P and at P = 1;
+    ``exchange_us_per_step``: (ms across cards at P - one-card ms at P =
+    1) over the exchanges of a row (T - 1 forward, T backward), as the
+    one-card form's was taken; the plans the cards agreed on; launches by
+    card."""
+    from sparch_tpu_torch.ops import fused_cells, fused_tp
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    dev = on_all[0]
+    rows = {}
+    for bf16 in (False, True):
+        shape = tp_shapes(1)[0]
+        for name in ("rlif", "radlif"):
+            d = tp_cell_inputs(shape, seed=1, dev=dev, uniform_s0=True)
+            args, ada = _tp_args(name, d)
+            g = torch.randn(shape, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(6))
+            if bf16:
+                g = g.to(BF16)
+            kw = dict(adaptive=ada, mxu_bf16=bf16)
+            with torch.no_grad():
+                base_f = cuda_time_ms(lambda: fused_tp._tp_cell_cuda(
+                    *args, num_devices=1, save_residuals=True, **kw))
+                _, u1 = fused_tp._tp_cell_cuda(*args, num_devices=1,
+                                               save_residuals=True, **kw)
+                base_b = cuda_time_ms(lambda: fused_tp._tp_cell_bwd_cuda(
+                    g, u1, *args[1:], num_devices=1, **kw))
+            for P in MC_PS:
+                if P > len(on_all):
+                    continue
+                on = on_all[:P]
+                what = (f"multicard tp_cell {name} P={P}"
+                        + (" bf16" if bf16 else ""))
+                with torch.no_grad():
+                    s, u = fused_tp._tp_cell_cuda(
+                        *args, num_devices=P, save_residuals=True, **kw)
+                    fused_cells.reset_launch_counts()
+                    cs, cu = fused_tp._tp_cell_cards(
+                        *args, cards=on, save_residuals=True, **kw)
+                    fplan = fused_tp.last_plans()["tp_cell_fwd"]
+                    want = fused_tp._tp_cell_bwd_cuda(
+                        g, u, *args[1:], num_devices=P, **kw)
+                    got = fused_tp._tp_cell_bwd_cards(g, cu, *args[1:],
+                                                      cards=on, **kw)
+                    bplan = fused_tp.last_bwd_plan()
+                    sync_all(on)
+                    launches = {str(on[k]): v for k, v in
+                                fused_cells.launch_counts_by_device().items()}
+                check(torch.equal(cs, s) and torch.equal(
+                    torch.cat([x.to(dev) for x in cu], -1), u),
+                    f"{what}: the forward differs from the one-card form")
+                for n, a, b in zip(TP_GRAD_NAMES, got, want):
+                    check(a is None or torch.equal(a, b),
+                          f"{what}: {n} differs from the one-card form")
+                if name != "radlif":
+                    continue
+                with torch.no_grad():
+                    fwd_ms = cuda_time_ms(lambda: fused_tp._tp_cell_cards(
+                        *args, cards=on, save_residuals=True, **kw))
+                    one_f = cuda_time_ms(lambda: fused_tp._tp_cell_cuda(
+                        *args, num_devices=P, save_residuals=True, **kw))
+                    bwd_ms = cuda_time_ms(lambda: fused_tp._tp_cell_bwd_cards(
+                        g, cu, *args[1:], cards=on, **kw))
+                    one_b = cuda_time_ms(lambda: fused_tp._tp_cell_bwd_cuda(
+                        g, u, *args[1:], num_devices=P, **kw))
+                Tn = shape[1]
+                rows[f"{'bf16' if bf16 else 'f32'}_P{P}"] = dict(
+                    shape=list(shape), P=P, firing_rate=float(
+                        s.float().mean()), bit_equal_to_one_card=True,
+                    launches_by_card=launches, fwd_plan=fplan,
+                    bwd_plan=bplan, fwd_ms=fwd_ms, one_card_fwd_ms=one_f,
+                    one_card_p1_fwd_ms=base_f, bwd_ms=bwd_ms,
+                    one_card_bwd_ms=one_b, one_card_p1_bwd_ms=base_b,
+                    fwd_exchange_us_per_step=(fwd_ms - base_f) * 1e3
+                    / (Tn - 1),
+                    one_card_fwd_exchange_us_per_step=(one_f - base_f)
+                    * 1e3 / (Tn - 1),
+                    bwd_exchange_us_per_step=(bwd_ms - base_b) * 1e3 / Tn,
+                    one_card_bwd_exchange_us_per_step=(one_b - base_b)
+                    * 1e3 / Tn)
+    return rows
+
+
+def mc_trainers(on_all):
+    """(d) The ``training_tp`` recipe, RadLIF [1024, 1024, 35]
+    bidirectional, ``pallas_tp`` at P of MC_PS across P cards beside the
+    one-card form at the same P, float32 and bf16: TRAIN_STEPS steps whose
+    losses and step-1 gradients are equal bit for bit, an eval pass equal
+    too, ``train_step_ms`` of both (CUDA events), launches by card."""
+    from sparch_tpu_torch.ops import fused_cells
+    from sparch_tpu_torch.parallel import make_mesh
+    from sparch_tpu_torch.train import make_eval_step, make_train_step
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    dev = on_all[0]
+    state_dict = tp_training_state()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn((B, T, TP_F), generator=gen, device=dev)
+    y = torch.randint(0, C, (B,), generator=gen, device=dev)
+    rows = {}
+    for bf16 in (False, True):
+        kw = dict(sizes=TP_SIZES, bidirectional=True,
+                  **({"compute_dtype": BF16} if bf16 else {}))
+        for P in MC_PS:
+            if P > len(on_all):
+                continue
+            on = on_all[:P]
+            what = f"multicard trainer P={P}" + (" bf16" if bf16 else "")
+            runs = {}
+            for form, mesh in (("one_card", tp_mesh(dev, P)),
+                               ("across_cards", make_mesh(list(on),
+                                                          model=P))):
+                model, state, losses, grads, counts = train_run(
+                    dev, "pallas_tp", state_dict, x, y, TRAIN_STEPS,
+                    tp_mesh=mesh, **kw)
+                sync_all(on)
+                by_card = {str(on[k]): {n: v for n, v in c.items() if v}
+                           for k, c in
+                           fused_cells.launch_counts_by_device().items()}
+                # the eval's uniform state init drawn alike in both forms
+                ev = make_eval_step(model)(
+                    state, x, y, torch.Generator(device=dev).manual_seed(22))
+                step = make_train_step(model)
+                ms = cuda_time_ms(lambda: step(state, x, y), warmup=2,
+                                  iters=5, repeats=3)
+                runs[form] = dict(losses=losses, grads=grads,
+                                  eval={k: float(v) for k, v in ev.items()},
+                                  train_step_ms=ms, launches_by_card=by_card)
+            one, cross = runs["one_card"], runs["across_cards"]
+            check(cross["losses"] == one["losses"],
+                  f"{what}: losses {cross['losses']} != {one['losses']}")
+            differ = [k for k, v in cross["grads"].items()
+                      if not torch.equal(v, one["grads"][k])]
+            check(not differ, f"{what}: step-1 gradients differ: {differ}")
+            check(cross["eval"] == one["eval"],
+                  f"{what}: eval {cross['eval']} != {one['eval']}")
+            tp_names = {"tp_cell_fwd_bf16" if bf16 else "tp_cell_fwd",
+                        "tp_cell_bwd_bf16" if bf16 else "tp_cell_bwd"}
+            check(len(cross["launches_by_card"]) == P and all(
+                tp_names <= set(c) for c in
+                cross["launches_by_card"].values()),
+                f"{what}: launches by card {cross['launches_by_card']}")
+            rows[f"{'bf16' if bf16 else 'f32'}_P{P}"] = dict(
+                losses=cross["losses"], losses_equal=True,
+                step1_grads_bit_equal=True, eval=cross["eval"],
+                eval_equal=True, train_step_ms=cross["train_step_ms"],
+                one_card_train_step_ms=one["train_step_ms"],
+                launches_by_card=cross["launches_by_card"],
+                one_card_launches=one["launches_by_card"])
+    return rows
+
+
+def mc_experiment(on_all):
+    """(e) The SC flagship, RadLIF [1024, 1024, 1024, 35] bidirectional,
+    through ``run_exp_torch.parse_args`` and ``Experiment`` with
+    ``--cell_impl pallas_tp --mesh_model 4`` on four cards (the placement
+    rule puts the ranks on cuda:0..3), one epoch of the SSC-shaped set of
+    8b from memory: kernels by name on each card, the Device-mesh log
+    line, epoch seconds and loader-fed utterances/s."""
+    import tempfile
+
+    from sparch_tpu_torch.ops import fused_cells
+
+    P = 4
+    if len(on_all) < P:
+        return dict(ran=False, cards=len(on_all))
+    data = {split: ssc_events(n, seed)
+            for seed, (split, n) in enumerate(MC_EXP_SPLITS.items())}
+    root = tempfile.mkdtemp(prefix="chip_smoke_mc_")
+    try:
+        argv = ["--model_type", "RadLIF", "--nb_layers", "4",
+                "--nb_hiddens", "1024", "--bidirectional", "true",
+                "--pdrop", "0.1", "--batch_size", str(B), "--dataset_name",
+                "ssc", "--data_folder", EXP_DATA, "--cell_impl", "pallas_tp",
+                "--mesh_model", str(P), "--nb_epochs", "1",
+                "--new_exp_folder", str(Path(root) / "exp"),
+                "--log_tofile", "true"]
+        exp, counts, _ = experiment_run(argv, on_all[0],
+                                        memory_experiment_class(data))
+        by_card = {str(on_all[k]): {n: v for n, v in c.items() if v}
+                   for k, c in fused_cells.launch_counts_by_device().items()}
+        log = next(Path(root).rglob("exp.log")).read_text()
+        mesh_line = next((ln for ln in log.splitlines()
+                          if ln.startswith("Device mesh")), "")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(list(exp.mesh.cards) == list(on_all[:P]) and not
+          exp.mesh.one_card, f"multicard experiment: mesh {exp.mesh}")
+    check(len(by_card) == P and all(
+        {"tp_cell_fwd", "tp_cell_bwd"} <= set(c) for c in by_card.values()),
+        f"multicard experiment: launches by card {by_card}")
+    train = [h for h in exp.history if h["split"] == "train"]
+    check(len(train) == 1 and np.isfinite(train[0]["loss"]),
+          f"multicard experiment: {train}")
+    return dict(model="RadLIF [1024, 1024, 1024, 35] bidirectional",
+                argv=" ".join(argv[:-4]), data=EXP_DATA,
+                utterances=MC_EXP_SPLITS, mesh=repr(exp.mesh),
+                device_mesh_log=mesh_line, launches_by_card=by_card,
+                launches={k: v for k, v in counts.items() if v},
+                epochs=epochs_of(exp), test_acc=exp.test_acc)
+
+
+def memory_by_card(step, state, x, y, on, slow):
+    """A step's ms (CUDA events) and the peak memory it allocates on each
+    card, in MiB."""
+    from sparch_tpu_torch.utils.timing import cuda_time_ms
+
+    sync_all(on)
+    for c in on:
+        torch.cuda.reset_peak_memory_stats(c)
+    step(state, x, y)
+    sync_all(on)
+    peak = {str(c): torch.cuda.max_memory_allocated(c) / 2 ** 20
+            for c in on}
+    ms = cuda_time_ms(joined(lambda: step(state, x, y), on), warmup=1,
+                      iters=2 if slow else 5, repeats=3)
+    return dict(ms=ms, peak_mib_by_card=peak)
+
+
+def mc_seqpipe(on_all):
+    """(f) ``make_seq_mesh`` on S of MC_SEQ_S distinct cards: RadLIF [512,
+    512, 35] as case (a) of ``seqpipe`` (no norm, zero states, W and V on
+    the 2^-8 grid): step 1 against the one-card pipeline at the same S,
+    every hidden layer's spikes, the readout's output and every gradient
+    bit for bit; the resident step's ms and peak memory per card beside the
+    one-card pipeline's; then the SC flagship served through four stages
+    across cards against the single-device Predictor (``seq_serving``)."""
+    from sparch_tpu_torch.parallel import (
+        make_seq_mesh, make_seqpipe_train_step)
+    from sparch_tpu_torch.train import create_train_state
+
+    dev = on_all[0]
+    g = torch.Generator(device=dev).manual_seed(45)
+    x = (torch.rand((B, T, F), generator=g, device=dev) < 0.02).float()
+    y = torch.randint(0, C, (B,), generator=g, device=dev)
+    fresh = seq_build(dev, "RadLIF", (H, H, C), F, seed=0, grid_w=8.0,
+                      normalization="none", state_init="zeros", dropout=0.0)
+    rows = {}
+    for S in MC_SEQ_S:
+        if S > len(on_all):
+            continue
+        on = on_all[:S]
+        what = f"multicard seqpipe S={S}"
+        one = seq_step1(dev, fresh(), x, y, mesh=make_seq_mesh(seq=S))
+        cross_mesh = make_seq_mesh(list(on))
+        cross = seq_step1(dev, fresh(), x, y, mesh=cross_mesh)
+        check(len(cross["outs"]) == len(one["outs"]) and all(
+            torch.equal(a.to(dev), b) for a, b in
+            zip(cross["outs"], one["outs"])),
+            f"{what}: spikes or readout differ from the one-card pipeline")
+        differ = [k for k, v in cross["grads"].items()
+                  if not torch.equal(v, one["grads"][k])]
+        check(not differ, f"{what}: gradients differ: {differ}")
+        timing = {}
+        for form, mesh in (("one_card", make_seq_mesh(seq=S)),
+                           ("across_cards", cross_mesh)):
+            model = fresh()
+            state = create_train_state(model, LR, device=dev, seed=0)
+            step = make_seqpipe_train_step(model, mesh, n_micro=SEQ_M)
+            timing[form] = memory_by_card(step, state, x, y, on, slow=True)
+        rows[f"S{S}"] = dict(pipeline_shape(S), loss=cross["loss"],
+                             spikes_logits_grads_bit_equal=True, **timing)
+    if len(on_all) >= 4:
+        rows["sc_flagship_served_S4"] = seq_serving(
+            dev, mesh=make_seq_mesh(list(on_all[:4])), S=4)
+    return rows
+
+
+def phase_multicard(smi):
+    """Phase 25 (see the module docstring). Runs where the process sees two
+    cards or more; on one card it prints that it did not run."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        emit("multicard", ran=False, cards=n,
+             why="one card: the form across cards needs two or more")
+        return None
+    on = mc_cards(n)
+    topo, nvlink = (subprocess.run(
+        ["nvidia-smi", *args], capture_output=True, text=True, timeout=60)
+        for args in (["topo", "-m"], ["nvlink", "--status"]))
+    topo = (topo.stdout or topo.stderr).strip()
+    nvlink = (nvlink.stdout or nvlink.stderr).strip()[:3000]
+    peer = {f"cuda:{a}->cuda:{b}": torch.cuda.can_device_access_peer(a, b)
+            for a in range(n) for b in range(n) if a != b}
+    cards_smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    emit("multicard_a_topology", nvidia_smi=smi, nvidia_smi_by_card=cards_smi,
+         topo_m=topo, nvlink_status=nvlink, peer_access=peer)
+    check(all(peer.values()), f"multicard: peer access {peer}")
+    seconds, rows = {}, {}
+    for name, case in (("b_collectives", lambda: mc_collectives(on)),
+                       ("c_cells", lambda: mc_cells(on)),
+                       ("d_trainers", lambda: mc_trainers(on)),
+                       ("e_experiment", lambda: mc_experiment(on)),
+                       ("f_seqpipe", lambda: mc_seqpipe(on))):
+        t0 = time.perf_counter()
+        rows[name] = case()
+        sync_all(on)
+        seconds[name] = time.perf_counter() - t0
+        # each case's line as it ends, so that a later failure keeps it
+        emit(f"multicard_{name}", nvidia_smi=smi, seconds=seconds[name],
+             **{name: rows[name]})
+    emit("multicard", ran=True, cards=n, nvidia_smi=smi, seconds=seconds,
+         cases=["multicard_a_topology"] + [f"multicard_{k}" for k in rows])
+    return rows
+
+
+@contextlib.contextmanager
+def one_card_placement():
+    """Every ``Experiment`` inside on the one card however many the machine
+    has: the placement rule (``parallel.mesh.placement``) sees one, so the
+    phases before ``multicard`` run as on a machine with one card."""
+    from sparch_tpu_torch.train import loop
+
+    with patched(loop, "visible_cards", lambda device: 1):
+        yield
+
+
+def last_lines(smi, kernels=None) -> None:
+    """The contract's closing lines: the card's name and power limit, the
+    ``kernels`` line where given, then the result."""
+    print(smi, flush=True)
+    if kernels is not None:
+        print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def across_cards_rows(kernels, mc) -> None:
+    """Rows 8-11 of the ``kernels`` line (and their bf16 rows) gain
+    ``across_cards``: phase 25's numbers for the form across cards."""
+    coll, cells, trained = (mc["b_collectives"], mc["c_cells"],
+                            mc["d_trainers"])
+    for row in kernels:
+        name = row["name"]
+        if name in ("tp_all_gather", "tp_reduce_scatter"):
+            row["across_cards"] = {f"P{P}": r[name] for P, r in coll.items()}
+        elif name.startswith(("tp_cell_fwd", "tp_cell_bwd")):
+            mode = "bf16" if name.endswith("_bf16") else "f32"
+            kind = "fwd" if name.startswith("tp_cell_fwd") else "bwd"
+            row["across_cards"] = {
+                key.split("_")[1]: dict(
+                    ms=r[f"{kind}_ms"], one_card_ms=r[f"one_card_{kind}_ms"],
+                    one_card_p1_ms=r[f"one_card_p1_{kind}_ms"],
+                    exchange_us_per_step=r[f"{kind}_exchange_us_per_step"],
+                    one_card_exchange_us_per_step=r[
+                        f"one_card_{kind}_exchange_us_per_step"],
+                    plan=r[f"{kind}_plan"], bit_equal_to_one_card=True,
+                    trainer_launches_by_card=trained.get(key, {}).get(
+                        "launches_by_card"))
+                for key, r in cells.items() if key.startswith(mode)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5572,6 +6161,33 @@ def main() -> int:
         return result
 
     smi = run("device", phase_device)
+    if sys.argv[1:2] == ["multicard"]:
+        run("multicard", phase_multicard, smi)
+        emit("seconds", **seconds)
+        last_lines(smi)
+        return 0
+    with one_card_placement():
+        kernels, dp = one_card_phases(dev, smi, run)
+    mc = run("multicard", phase_multicard, smi)
+    if mc is not None:
+        across_cards_rows(kernels, mc)
+    emit("seconds", **seconds)
+    for row in kernels:
+        # the ranks' launches (rank 0's; every rank launches as many) in
+        # each run of the data_parallel phase
+        names = (("fused_cell_fwd_train", "fused_cell_bwd")
+                 if row["name"] == "dropout_hash" else (row["name"],))
+        by_run = {run_name: sum(c.get(n, 0) for n in names)
+                  for run_name, c in dp.items()}
+        if any(by_run.values()):
+            row["launches_data_parallel"] = by_run
+    last_lines(smi, kernels)
+    return 0
+
+
+def one_card_phases(dev, smi, run):
+    """Phases 2-24 on the one card; returns the ``kernels`` rows and the
+    data_parallel phase's launches."""
     cell = run("fused_cell", phase_fused_cell, dev)
     readout = run("readout", phase_readout, dev)
     fwd_train, hashed = run("train_forward", phase_train_forward, dev)
@@ -5620,7 +6236,6 @@ def main() -> int:
                        bf16=True)
     tp_ann_trained16 = run("training_tp_ann_bf16", phase_training_tp_ann,
                            dev, bf16=True)
-    emit("seconds", **seconds)
     cb = cell_bounds(cell.pop("firing_rate"))
     readout_bytes = 4.0 * (B * T * C + 2 * B * C + C)
     readout_ops = 12.0 * B * T * C
@@ -5688,21 +6303,7 @@ def main() -> int:
         + tp_cell_rows(tp_fwd16, tp_bwd16, tp_trained16, bf16=True) \
         + tp_ann_kernel_rows(tp_ann_fwd16, tp_ann_bwd16, tp_ann_trained16,
                              bf16=True)
-    for row in kernels:
-        # the ranks' launches (rank 0's; every rank launches as many) in
-        # each run of the data_parallel phase
-        names = (("fused_cell_fwd_train", "fused_cell_bwd")
-                 if row["name"] == "dropout_hash" else (row["name"],))
-        by_run = {run_name: sum(c.get(n, 0) for n in names)
-                  for run_name, c in dp.items()}
-        if any(by_run.values()):
-            row["launches_data_parallel"] = by_run
-    print(smi, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return kernels, dp
 
 
 if __name__ == "__main__":

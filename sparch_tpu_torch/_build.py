@@ -125,8 +125,10 @@ class Kernel:
     Calling it launches the kernel on the given stream and raises if the
     launch was refused (the C function returns ``cudaGetLastError()``).
     ``launches`` counts the launches that went through, so a run can show
-    that its path reached the kernel; ``name`` (the source's, unless one
-    source has several entry points) is the key it is reported under.
+    that its path reached the kernel, and ``by_device`` the same by the
+    index of the current card (the one launched on); ``name`` (the
+    source's, unless one source has several entry points) is the key it is
+    reported under.
     """
 
     def __init__(self, source: str, symbol: str, argtypes,
@@ -136,6 +138,7 @@ class Kernel:
         self.name = name or source
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.by_device: Dict[int, int] = {}
         self._fn: Optional[ctypes._CFuncPtr] = None
 
     def _load(self):
@@ -151,3 +154,7 @@ class Kernel:
         if err != 0:
             raise RuntimeError(f"{self.symbol} failed: cudaError_t {err}")
         self.launches += 1
+        import torch
+
+        card = torch.cuda.current_device()
+        self.by_device[card] = self.by_device.get(card, 0) + 1

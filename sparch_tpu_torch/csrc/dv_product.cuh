@@ -18,6 +18,12 @@
 // ascending order, and with one split the product writes dV itself (a
 // chain never ends on -0, so the pass would copy its bits). Tiles and
 // stages change no bit: the chains are the same.
+//
+// Columns. The square product (N = H) is every backward's on one card. The
+// TP spiking backward across cards (tp_cell_bwd.cu, one rank a card) takes
+// the rank's N = Hl columns: its (B*T, Hl) block of the right operand and
+// its (H, Hl) block of dV, beside the full left operand. Each element's
+// chain is the square product's, so a rank's block keeps its bits.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -61,8 +67,8 @@ struct DvArgs {
   const void* r;        // the GRU's reset series, else null
   const void* dpre[3];  // the right operand, by gate (float, bf16 in the
                         // bf16 mode)
-  float* out;           // dV (gates, H, H), or with ksplit > 1 the
-                        // partials (ksplit, gates, H, H)
+  float* out;           // dV (gates, H, N), or with ksplit > 1 the
+                        // partials (ksplit, gates, H, N)
   float thr;            // the spiking threshold
   int T;
   int H;
@@ -70,6 +76,8 @@ struct DvArgs {
   int rows_per_split;
   int G;
   int vec;              // H % 4 == 0 and every operand 16-byte aligned
+  int N;                // columns of the right operand and of dV (kCols;
+                        // H otherwise)
 };
 
 // The tiles (dV rows x columns a block), largest first; launch_dv gives
@@ -82,13 +90,14 @@ constexpr int kDvTileN[kDvTiles] = {128, 64, 64};
 // tiles whose grid gives each of the card's sms SMs a block, the one whose
 // last round of blocks is fullest (blocks / (sms * ceil(blocks / sms))),
 // the larger on a tie; where none does, the smallest.
-inline int dv_tile(int H, int G, int ksplit, int sms) {
+inline int dv_tile(int H, int G, int ksplit, int sms, int N = 0) {
+  if (N <= 0) N = H;
   int best = -1;
   long long best_blocks = 0, best_rounds = 1;
   for (int i = 0; i < kDvTiles; ++i) {
     const long long blocks = (long long)G * ksplit *
                              ((H + kDvTileM[i] - 1) / kDvTileM[i]) *
-                             ((H + kDvTileN[i] - 1) / kDvTileN[i]);
+                             ((N + kDvTileN[i] - 1) / kDvTileN[i]);
     if (blocks < sms) continue;
     const long long rounds = (blocks + sms - 1) / sms;
     if (best < 0 || blocks * best_rounds > best_blocks * rounds) {
@@ -113,9 +122,9 @@ inline int device_sms() {
 
 // Whether `tile` is the plan's for this card (the wrappers compute it from
 // torch's count of the card's SMs).
-inline bool dv_tile_ok(int tile, int H, int G, int ksplit) {
+inline bool dv_tile_ok(int tile, int H, int G, int ksplit, int N = 0) {
   const int sms = device_sms();
-  return sms > 0 && tile == dv_tile(H, G, ksplit, sms);
+  return sms > 0 && tile == dv_tile(H, G, ksplit, sms, N);
 }
 
 // Four consecutive elements as raw bits (a float's each, or two bf16 a
@@ -165,8 +174,10 @@ __device__ __forceinline__ void unpack4(uint4 v, float* x) {
 // thr ? 1 : 0 (s0 at t = 0), else left = y_{t-1}[b] (y0 at t = 0), times
 // r_t[b] for the GRU's candidate (gate 0). ST is the element type of the
 // right operand and of y; with bf16 the left operand is rounded to bf16
-// too, and the sum is float32.
-template <bool kSpike, typename ST, int BM, int BN, int TM, int TN, int SK>
+// too, and the sum is float32. kCols: N = a.N columns of the right operand
+// and of out (else N = H).
+template <bool kSpike, typename ST, int BM, int BN, int TM, int TN, int SK,
+          bool kCols = false>
 __global__ void __launch_bounds__(BM / TM * (BN / TN))
 dv_kernel(const DvArgs a) {
   constexpr int NT = BM / TM * (BN / TN);  // threads
@@ -194,6 +205,7 @@ dv_kernel(const DvArgs a) {
   const int gate = blockIdx.z % a.G;
   const int split = blockIdx.z / a.G;
   const int H = a.H;
+  const int N = kCols ? a.N : H;
   const int T = a.T;
   const bool vec = a.vec != 0;
   const ST* dd = static_cast<const ST*>(
@@ -249,8 +261,8 @@ dv_kernel(const DvArgs a) {
       for (int i = 0; i < kBChunks; ++i) {
         const int q = q0 + brow + i * kBStep;
         const int n = n0 + bcol;
-        yb[i] = q < q_end && n < H
-                    ? load4(dd + (size_t)q * H + n, H - n, vec)
+        yb[i] = q < q_end && n < N
+                    ? load4(dd + (size_t)q * N + n, N - n, vec)
                     : make_uint4(0u, 0u, 0u, 0u);
       }
     }
@@ -331,7 +343,7 @@ dv_kernel(const DvArgs a) {
     __syncthreads();
   }
 
-  float* out = a.out + ((size_t)split * a.G + gate) * H * H;
+  float* out = a.out + ((size_t)split * a.G + gate) * H * N;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int m = m0 + (i / 4) * GA + ty * 4 + i % 4;
@@ -339,14 +351,14 @@ dv_kernel(const DvArgs a) {
 #pragma unroll
     for (int h = 0; h < TN / 4; ++h) {
       const int n = n0 + h * GB + tx * 4;
-      if (vec && n < H) {
-        *reinterpret_cast<float4*>(&out[(size_t)m * H + n]) =
+      if (vec && n < N) {
+        *reinterpret_cast<float4*>(&out[(size_t)m * N + n]) =
             make_float4(acc[i][h * 4], acc[i][h * 4 + 1], acc[i][h * 4 + 2],
                         acc[i][h * 4 + 3]);
       } else {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          if (n + c < H) out[(size_t)m * H + n + c] = acc[i][h * 4 + c];
+          if (n + c < N) out[(size_t)m * N + n + c] = acc[i][h * 4 + c];
         }
       }
     }
@@ -355,7 +367,10 @@ dv_kernel(const DvArgs a) {
 
 template <bool kSpike, typename ST, int BM, int BN, int TM, int TN, int SK>
 cudaError_t launch_tile(const DvArgs& a, dim3 grid, cudaStream_t st) {
-  const auto kernel = dv_kernel<kSpike, ST, BM, BN, TM, TN, SK>;
+  auto kernel = dv_kernel<kSpike, ST, BM, BN, TM, TN, SK>;
+  if constexpr (kSpike) {  // only the spiking TP backward takes columns
+    if (a.N != a.H) kernel = dv_kernel<kSpike, ST, BM, BN, TM, TN, SK, true>;
+  }
   const int smem = 2 * SK * (BM + BN) * (int)sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -366,21 +381,22 @@ cudaError_t launch_tile(const DvArgs& a, dim3 grid, cudaStream_t st) {
 
 // The dV product of a backward, as it launches it: into dV with one
 // split, else into dv_partials, which sum_parts_kernel then adds into dV.
-// a.out and a.vec are set here; tile: the plan's (dv_tile), checked by
-// the caller.
+// a.out and a.vec are set here, and a.N where it is 0 (the square
+// product); tile: the plan's (dv_tile), checked by the caller.
 template <bool kSpike, typename ST>
 cudaError_t launch_dv(DvArgs a, float* dV, float* dv_partials, int tile,
                       int ksplit, cudaStream_t st) {
   const auto aligned = [](const void* p) {
     return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
+  if (a.N <= 0) a.N = a.H;
   a.out = ksplit == 1 ? dV : dv_partials;
-  a.vec = a.H % 4 == 0 && aligned(a.left) && aligned(a.left0) &&
-          aligned(a.r) && aligned(a.out);
+  a.vec = a.H % 4 == 0 && a.N % 4 == 0 && aligned(a.left) &&
+          aligned(a.left0) && aligned(a.r) && aligned(a.out);
   for (int k = 0; k < a.G; ++k) a.vec = a.vec && aligned(a.dpre[k]);
   const int bm = kDvTileM[tile];
   const int bn = kDvTileN[tile];
-  const dim3 grid((a.H + bn - 1) / bn, (a.H + bm - 1) / bm, a.G * ksplit);
+  const dim3 grid((a.N + bn - 1) / bn, (a.H + bm - 1) / bm, a.G * ksplit);
   // per tile: outputs a thread and rows a stage (each thread sums 1024
   // products a stage; 128 x 64 at 8 x 8 and 64 x 64 at 4 x 4 with 64-row
   // stages were the fastest of the shapes tried at GRU 1024 and 512)
@@ -393,21 +409,22 @@ cudaError_t launch_dv(DvArgs a, float* dV, float* dv_partials, int tile,
     err = launch_tile<kSpike, ST, 64, 64, 4, 4, 64>(a, grid, st);
   }
   if (err != cudaSuccess || ksplit == 1) return err;
-  const int n = a.G * a.H * a.H;
+  const int n = a.G * a.H * a.N;
   sum_parts_kernel<<<(n + 255) / 256, 256, 0, st>>>(dv_partials, dV, ksplit,
                                                     n);
   return cudaGetLastError();
 }
 
 // The spiking product of a backward: left = u_seq > thr (s0 at t = 0),
-// right = the dDrive series dd, one gate.
+// right = the dDrive series dd, one gate; N: its columns (0: H).
 template <typename DT>
 cudaError_t launch_spike_dv(const float* u_seq, const float* s0,
                             const DT* dd, float thr, float* dV,
                             float* dv_partials, int T, int H, int R,
-                            int tile, int ksplit, cudaStream_t st) {
+                            int tile, int ksplit, cudaStream_t st,
+                            int N = 0) {
   const DvArgs a{u_seq, s0, nullptr, {dd, nullptr, nullptr}, nullptr, thr,
-                 T, H, R, dv_rows_per_split(R, ksplit), 1, 0};
+                 T, H, R, dv_rows_per_split(R, ksplit), 1, 0, N};
   return launch_dv<true, DT>(a, dV, dv_partials, tile, ksplit, st);
 }
 

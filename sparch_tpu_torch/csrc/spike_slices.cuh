@@ -28,15 +28,17 @@
 //   Every block of a group publishes its rows' spike words (one
 //   __ballot_sync word a warp and row) into the slot of global memory that
 //   the group's rows own, each word in one 64-bit store beside its step's
-//   tag (t + 1; the first product's launch zeroes the slot). A block then
+//   tag (t + 1; the first product's launch zeroes the slot, or across
+//   cards the caller behind its entry barrier). A block then
 //   reads its rows' words (rows x ceil(H/32)), polling each until it
 //   carries the step's tag: the word is its own flag, so a step needs no
 //   fence, no counter and no second trip to L2, and a block waits only on
 //   the blocks of its group. Two parities of slot and of the words in
 //   shared memory, one block barrier a step. The stores and loads are at
-//   system scope, which the form across cards (each rank's own slot, no
-//   run made) needs; on one card they took the time of gpu scope and gave
-//   the same bits (PERF.md section 6).
+//   system scope, which the form across cards needs (one rank a card, each
+//   rank's own slot on its card, every word stored into every rank's slot
+//   over NVLink); on one card they took the time of gpu scope and gave the
+//   same bits (PERF.md section 6).
 // - A warp owns 32 (bf16: 64) columns of a row: it
 //   turns the row's words into a list of its spiking rows k, ascending
 //   (popc, a warp scan, __ffs; each entry the byte offset of row k in the
@@ -640,13 +642,15 @@ cudaError_t launch(const Args& p, float* sv0, int threads, float* split_ms,
   while (cols_b > 32 && (n_cols + cols_b - 1) / cols_b * row_blocks < sms)
     cols_b /= 2;
   const dim3 grid((n_cols + cols_b - 1) / cols_b, row_blocks);
-  // one-card form: the one slot every block uses (across cards each rank
-  // zeroes its own, which would need a barrier between the cards first)
+  // one-card form: the first product zeroes the one slot every block uses.
+  // Across cards every rank's slot is zeroed by the caller before the entry
+  // barrier (ops/tp_cards.py), since the peers store into it.
   const bool one_card = p.n_local == p.P;
-  unsigned long long* slot = static_cast<unsigned long long*>(
-      p.peers.slots[one_card ? 0 : p.rank0]);
+  unsigned long long* slot =
+      one_card ? static_cast<unsigned long long*>(p.peers.slots[0]) : nullptr;
   first<<<grid, cols_b, first_smem, st>>>(
-      p.V, p.s0f, sv0, p.B, p.H, p.ld, n_cols, slot, (size_t)2 * p.B * p.W);
+      p.V, p.s0f, sv0, p.B, p.H, p.ld, n_cols, slot,
+      one_card ? (size_t)2 * p.B * p.W : 0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   split.mark(1, st);

@@ -44,8 +44,8 @@
 //   GRU's candidate), over the y series and the dWx series. In the one-card
 //   form the ranks' dWx blocks side by side are the gathered dpre series,
 //   so the product runs over the full tensors. Across cards a rank would
-//   need the gathered dpre series (ROADMAP queue 1 item 7b); that form is not
-//   written and the entry point refuses n_local < P.
+//   need the y and gate series gathered (ROADMAP queue 1 item 7c); that form
+//   is not written and the entry point refuses n_local < P.
 //
 // What bounds it on this card: operations. Per step and gate a dense (B,
 // Hg) x (Hg, Hl) product per rank, 2*B*Hg*Hg FLOP over all ranks, T times

@@ -25,9 +25,11 @@
 // backward computes it, over the membrane series (s recomputed as u > thr)
 // and the D series. In the one-card form the ranks' dWx blocks side by side
 // are the gathered D series, so the dV blocks of all ranks are one product
-// over the full u series and dWx. Across cards a rank would keep the
-// gathered series it reads from its slots; that form is not written (no
-// multi-card run is possible here) and the entry point refuses n_local < P.
+// over the full u series and dWx. Across cards (one rank a card, n_local =
+// 1) rank r's block dV[:, c_r] = sum s_{t-1,full}^T D_{t,r} takes the full
+// u series, which the wrapper gathers onto the rank's card beside its own
+// block (u_dv), and the rank's dWx block: the product's column form, whose
+// every element is the one-card product's chain, so dV keeps its bits.
 //
 // What bounds it on this card: operations. Every step is a dense (B, H) x
 // (H, Hl) product per rank, 2*B*H*H FLOP over all ranks, T times in
@@ -101,7 +103,7 @@ constexpr long kOperandBytes = 131072;
 
 // g, VT, dwx and the slots are float, or bf16 in the bf16 mode.
 struct BwdArgs {
-  const void* g;       // (B, T, ld)
+  const void* g;       // (B, T, ld): local rank l's block at column l*Hl
   const float* u_seq;  // (B, T, ld)
   const float* alpha;  // (ld,)
   const float* beta;
@@ -369,12 +371,18 @@ bool shape_ok(int B, int H, int P, int cluster) {
 
 }  // namespace
 
-// slots/flags: host arrays of P device pointers, every rank's D slots
-// ([2][B][H] elements) and zeroed counters ([P][groups][2] u32). partials
+// The launch runs the ranks rank0 .. rank0+n_local-1 (tp_exchange.cuh):
+// all P on one card (ld = H), or one across cards (ld = H/P, each rank's
+// own blocks on its card). slots/flags: host arrays of P device pointers,
+// every rank's D slots ([2][B][H] elements) and zeroed counters
+// ([P][groups][2] u32); across cards every peer's launch must start
+// behind one entry barrier (ops/tp_cards.py). u_dv: the full (B, T, H)
+// u series for the dV product, or null where u_seq is it (ld = H). partials
 // holds n_local*n_parts*4*(H/P) floats (n_parts = B / part_rows, rounded
-// up), vecs (4, n_local*H/P) receives dalpha, dbeta, da, db; dV (H, H) and
-// dv_partials (ksplit, H, H; unused and may be null at ksplit 1) the dV
-// product, in the tile dv_tile (dv_product.cuh `dv_tile`). VT: every
+// up), vecs (4, n_local*H/P) receives dalpha, dbeta, da, db; dV (H, ld) and
+// dv_partials (ksplit, H, ld; unused and may be null at ksplit 1) the dV
+// product, in the tile dv_tile (dv_product.cuh `dv_tile` of N = ld
+// columns). VT: every
 // block's slice of
 // every rank's block of V^T (ops/fused_tp_ann.py `_pack_slices`). bf16
 // selects the bf16-stream mode (g, VT, dwx and the slots bf16). cluster,
@@ -382,7 +390,8 @@ bool shape_ok(int B, int H, int P, int cluster) {
 // of a partial (1, 2, 4 or 8, dividing rows). split_ms: null, or three
 // floats of host memory (see above).
 extern "C" int sparch_tp_cell_bwd(
-    const void* g, const float* u_seq, const float* alpha, const float* beta,
+    const void* g, const float* u_seq, const float* u_dv, const float* alpha,
+    const float* beta,
     const float* a, const float* b, const void* VT, const float* u0,
     const float* w0, const float* s0f, void* dwx, float* partials,
     float* vecs, float* dV, float* dv_partials, float* du0, float* dw0,
@@ -390,12 +399,14 @@ extern "C" int sparch_tp_cell_bwd(
     int H, int P, int rank0, int n_local, int ld, float threshold,
     int adaptive, int ksplit, int dv_tile, int bf16, int cluster, int rows,
     int resident, int part_rows, float* split_ms, int* plan, void* stream) {
-  if (!shape_ok(B, H, P, cluster) || T <= 0 || rank0 != 0 || n_local != P ||
-      ld != H || ksplit < 1 || !g || !u_seq || !alpha || !VT || !u0 ||
+  if (!shape_ok(B, H, P, cluster) || T <= 0 || rank0 < 0 || n_local < 1 ||
+      rank0 + n_local > P || ld != n_local * (H / P) ||
+      (ld != H && !u_dv) || ksplit < 1 || !g || !u_seq || !alpha || !VT ||
+      !u0 ||
       !s0f || !dwx || !partials || !vecs || !dV ||
       (ksplit > 1 && !dv_partials) || !du0 ||
       !ds0 || (adaptive && (!beta || !a || !b || !w0 || !dw0)) ||
-      !dv_tile_ok(dv_tile, H, 1, ksplit) ||
+      !dv_tile_ok(dv_tile, H, 1, ksplit, ld) ||
       (part_rows != 1 && part_rows != 2 && part_rows != 4 &&
        part_rows != 8)) {
     return (int)cudaErrorInvalidValue;
@@ -450,15 +461,17 @@ extern "C" int sparch_tp_cell_bwd(
   if (err != 0) return err;
   split.mark(1, st);
 
-  // dV over the full u series and the ranks' dWx blocks (the gathered D)
-  err = (int)(bf16 ? launch_spike_dv(u_seq, s0f,
+  // dV over the full u series and the launch's dWx blocks (in the
+  // one-card form the gathered D)
+  const float* u_full = u_dv ? u_dv : u_seq;
+  err = (int)(bf16 ? launch_spike_dv(u_full, s0f,
                                      static_cast<const __nv_bfloat16*>(dwx),
                                      threshold, dV, dv_partials, T, H, B * T,
-                                     dv_tile, ksplit, st)
-                   : launch_spike_dv(u_seq, s0f,
+                                     dv_tile, ksplit, st, ld)
+                   : launch_spike_dv(u_full, s0f,
                                      static_cast<const float*>(dwx),
                                      threshold, dV, dv_partials, T, H, B * T,
-                                     dv_tile, ksplit, st));
+                                     dv_tile, ksplit, st, ld));
   if (err != 0) return err;
   split.mark(2, st);
 

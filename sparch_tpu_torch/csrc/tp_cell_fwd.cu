@@ -85,7 +85,8 @@
 // the layout of a block a row, and then `plan` (host memory, may be null)
 // receives {1 row per block, blocks per rank, blocks per SM, threads}.
 // sparch_tp_cell_fwd_slice_blocks reports the column-slice kernel's blocks
-// an SM for the wrapper's plan.
+// an SM for the wrapper's plan, sparch_tp_cell_fwd_row_blocks the other
+// layout's (across cards every card must agree on blocks per rank).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -283,12 +284,25 @@ tp_cell_fwd_kernel(const typename ModeArgs<BF>::type p) {
   }
 }
 
+// Dynamic shared memory of the layout of a block a row: the s0 row and the
+// gathered spike words.
+inline size_t row_smem(int H) {
+  return (size_t)H * sizeof(float) + (H / 32) * 4;
+}
+
+// Fewest neurons per thread that keep the block within kMaxThreads.
+inline int row_npt(int Hl) {
+  int npt = 1;
+  while (Hl / npt > kMaxThreads) npt *= 2;
+  return npt;
+}
+
 template <bool A, bool R, int NPT, bool BF>
 int plan_and_launch(typename ModeArgs<BF>::type& p, int* plan,
                     cudaStream_t st) {
   auto kernel = tp_cell_fwd_kernel<A, R, NPT, BF>;
   const int threads = p.Hl / NPT;
-  const size_t smem = (size_t)p.H * sizeof(float) + (p.H / 32) * 4;
+  const size_t smem = row_smem(p.H);
   int per_sm = 0;
   cudaError_t err = sparch::tp::plan_blocks(
       kernel, threads, smem, p.lay.n_local, p.lay.n_groups, &p.lay.per_rank,
@@ -370,6 +384,26 @@ int launch_slices(const FwdArgsBf16& f, const int* plan, float* sv0,
       s, sv0, threads, split_ms, st);
 }
 
+template <bool A, bool R, bool BF>
+int row_blocks_npt(int H, int Hl) {
+  const int npt = row_npt(Hl);
+  void (*k)(typename ModeArgs<BF>::type) =
+      npt == 1 ? tp_cell_fwd_kernel<A, R, 1, BF>
+               : npt == 2 ? tp_cell_fwd_kernel<A, R, 2, BF>
+                          : tp_cell_fwd_kernel<A, R, 4, BF>;
+  const size_t smem = row_smem(H);
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess) {
+    return 0;
+  }
+  int n = 0;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k, Hl / npt,
+                                                       smem) == cudaSuccess
+             ? n
+             : 0;
+}
+
 }  // namespace
 
 // Blocks of the column-slice time loop an SM holds at the plan (cols, rows,
@@ -402,10 +436,34 @@ extern "C" int sparch_tp_cell_fwd_slice_blocks(int adaptive, int resid,
                      H, cols, rows, threads);
 }
 
+// Blocks of the layout of a block a row an SM of the current card holds,
+// at H over P ranks; 0 where the query fails.
+extern "C" int sparch_tp_cell_fwd_row_blocks(int adaptive, int resid,
+                                             int bf16, int H, int P) {
+  if (P < 1 || H % (P * 128) || H / P > kMaxThreads * kMaxNpt) return 0;
+  const int Hl = H / P;
+  if (adaptive) {
+    if (bf16) {
+      return resid ? row_blocks_npt<true, true, true>(H, Hl)
+                   : row_blocks_npt<true, false, true>(H, Hl);
+    }
+    return resid ? row_blocks_npt<true, true, false>(H, Hl)
+                 : row_blocks_npt<true, false, false>(H, Hl);
+  }
+  if (bf16) {
+    return resid ? row_blocks_npt<false, true, true>(H, Hl)
+                 : row_blocks_npt<false, false, true>(H, Hl);
+  }
+  return resid ? row_blocks_npt<false, true, false>(H, Hl)
+               : row_blocks_npt<false, false, false>(H, Hl);
+}
+
 // slots/flags: host arrays of P device pointers, every rank's spike-word
 // slots ([2][B][H/32] u32) and zeroed counters ([P][B][2] u32); with a
 // plan (`slices`) every rank's slot of tagged words ([2][B][H/32] u64;
-// in the one-card form only rank 0's is read) and no counters. u_out
+// in the one-card form only rank 0's is read and the first product zeroes
+// it; across cards each rank's own, zeroed by the caller before the entry
+// barrier) and no counters. u_out
 // non-null writes the membrane series. bf16 selects the bf16-stream mode
 // (V and s_out bf16; wx bf16 where wx_bf16, else float).
 extern "C" int sparch_tp_cell_fwd(
@@ -454,9 +512,7 @@ extern "C" int sparch_tp_cell_fwd(
   p.Hl = H / P;
   p.ld = ld;
   p.threshold = threshold;
-  // fewest neurons per thread that keep the block within kMaxThreads
-  int npt = 1;
-  while (p.Hl / npt > kMaxThreads) npt *= 2;
+  const int npt = row_npt(p.Hl);
   p.wx_bf16 = wx_bf16;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool resid = u_out != nullptr;

@@ -26,8 +26,8 @@
 //   publishes only after it has read that slot for exchange e.
 // - The kernels are written against `Peers` (tp_exchange.cuh: every rank's
 //   slot and counter base) and run the ranks rank0 .. rank0+n_local-1; the
-//   one-card form runs all P (n_local = P), a launch per card across cards
-//   would run one.
+//   one-card form runs all P (n_local = P), the form across cards one a
+//   card (n_local = 1, a launch per card, ops/tp_cards.py).
 //
 // What bounds them on this card: latency. At the smoke's shape (B=128,
 // Hl=256, P=4, 3 rounds) a round moves about 2 MB through L2, a few
@@ -71,12 +71,12 @@
 //   stream and the launches of a graph capture counters of their own (by
 //   capture and stream, sparch_tp_capture_id), so only two overlapping
 //   replays of one graph would share them, which its slots forbid anyway.
-// - The cross-card form (n_local < P; the package launches only the
-//   one-card form) needs the same of every peer: a launch may start only
-//   after every peer's previous launch on these counters and slots has
-//   ended. Nothing here supplies that entry barrier (the JAX kernels' entry
-//   barrier stands for it); its caller must, e.g. by stream waits on the
-//   peers' events.
+// - The cross-card form (n_local < P) needs the same of every peer: a
+//   launch may start only after every peer's previous launch on these
+//   counters and slots has ended. Its caller supplies that entry barrier
+//   (the JAX kernels' entry barrier stands for it): ops/tp_cards.py zeroes
+//   every card's counters, then every card's stream waits on every card's
+//   zeroing and on the peers' previous launches, by CUDA events.
 // - A spin that has not ended after kSpinTimeoutNs traps.
 //
 // C interface, bound with ctypes: each entry point returns the launch's
@@ -540,7 +540,7 @@ bool make_args(const float* x, float* out, void* const* slots,
   if (!x || !out || !plan || B < 1 || H < 1 || P < 1 ||
       P > sparch::tp::kMaxRanks || H % P || (H / P) % 4 || n_local < 1 ||
       rank0 < 0 || rank0 + n_local > P || rounds < 1 || ld % 4 ||
-      ld < (reduce ? n_local * (H / P) : H) || !aligned(x) || !aligned(out)) {
+      ld < n_local * (H / P) || !aligned(x) || !aligned(out)) {
     return false;
   }
   Args v{};
@@ -571,6 +571,20 @@ bool make_args(const float* x, float* out, void* const* slots,
 }
 
 }  // namespace
+
+// Peer access from card `dev` to card `peer` (cudaDeviceEnablePeerAccess;
+// already enabled counts as done, and that error is cleared, so that no
+// later launch reports it). Leaves `dev` the current device.
+extern "C" int sparch_tp_enable_peer(int dev, int peer) {
+  cudaError_t err = cudaSetDevice(dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();
+    err = cudaSuccess;
+  }
+  return (int)err;
+}
 
 // The id of the CUDA graph capture under way on `stream`; 0 where none.
 extern "C" unsigned long long sparch_tp_capture_id(void* stream) {

@@ -15,11 +15,13 @@
 // every rank's slot buffer and counter array, in rank order, and against
 // the rank a block runs. A launch runs the ranks rank0 .. rank0+n_local-1,
 // `per_rank` blocks each (block b runs local rank b / per_rank). In the
-// one-card form that this repository runs, one cooperative launch runs all
-// P ranks on the one card and every peer buffer lies in its memory, so a
-// peer store is an ordinary global store. Across cards (n_local = 1 per
-// card, the peers' buffers mapped over NVLink) the same code would run; no
-// such run has been made.
+// one-card form one cooperative launch runs all P ranks on the one card and
+// every peer buffer lies in its memory, so a peer store is an ordinary
+// global store. In the form across cards (ops/tp_cards.py) each card runs
+// one rank (n_local = 1), a cooperative launch a card, and rank q's buffers
+// lie on card q: a peer store crosses NVLink, with peer access enabled
+// between every pair of cards and every card agreeing on per_rank and
+// n_groups.
 //
 // The exchange of one row group at exchange index e:
 // - Every thread stores its part of the block into slot `e & 1` of every
@@ -45,8 +47,11 @@
 // - Counters are monotonic within a launch and zeroed before each launch
 //   (the wrapper allocates them zeroed on the launch's stream), so a count
 //   of an earlier launch or an earlier exchange cannot be read as this
-//   one's. Across cards the zeroing would also need a host barrier before
-//   the launch, which the JAX kernels' entry barrier stands for.
+//   one's. Across cards the zeroing also needs a barrier before the launch,
+//   as the JAX kernels' entry barrier: every card zeroes its counters, and
+//   every card's stream waits on every card's zeroing, and on the peers'
+//   previous launches on the same buffers, by CUDA events
+//   (ops/tp_cards.py).
 //
 // Deadlock. A block waits on its peers' blocks of the same row group, so
 // all of them must be resident at once: every launch is cooperative

@@ -274,8 +274,10 @@ class FusedCellPolicy:
         (JAX ``FusedCellPolicy._tp``). Normalisation and dropout stay
         outside the TP kernels: the norm is applied to the drive, and
         ``_post`` drops the output with a mask from the run's generator,
-        as on the scan path. The inheriting module defines ``tp_mesh``,
-        ``tp_axis`` and ``tp_batch_axis``."""
+        as on the scan path. The mesh may hold its ranks on one card or one
+        a card; either way the layer's tensors are on its ``home``. The
+        inheriting module defines ``tp_mesh``, ``tp_axis`` and
+        ``tp_batch_axis``."""
         if self.tp_mesh is None:
             raise ValueError(
                 "cell_impl='pallas_tp' needs tp_mesh=<sparch_tpu_torch."

@@ -28,7 +28,11 @@ tensor-parallel kernels, LIF and adLIF through the fused cell on each
 rank's block, in the bf16-stream mode under ``compute_dtype=bfloat16``. The
 norm is applied to the drive and the dropout drawn from the run's
 generator, both outside the kernels, as on the scan path; the readout is
-the plain one. ``tp_batch_axis`` is kept for the JAX model records: the
+the plain one. A mesh across cards (``make_mesh([cuda:0, .., cuda:P-1],
+model=P)``) takes the same path: the layer lives on the mesh's ``home``
+card, its projections, norms and readout run there, and only the cell runs
+one rank a card (the entry points scatter and gather), with the one-card
+form's bits. ``tp_batch_axis`` is kept for the JAX model records: the
 port's ``data`` axis is the processes of a data-parallel run.
 
 Under data parallelism (``parallel.multihost``) a rank's forward is its

@@ -421,15 +421,18 @@ def _dv_rows_per_split(B: int, T: int, ksplit: int) -> int:
     return -(-(-(-(B * T) // ksplit)) // _DV_BK) * _DV_BK
 
 
-def _dv_tile(H: int, n: int, ksplit: int, sms: int) -> int:
+def _dv_tile(H: int, n: int, ksplit: int, sms: int,
+             N: Optional[int] = None) -> int:
     """The dV product's tile, an index into ``_DV_TILES`` (``dv_tile`` of
     ``csrc/dv_product.cuh``, which checks it): among the tiles whose grid
     gives each of the card's ``sms`` SMs a block, the one whose last round
     of blocks is fullest, the larger on a tie; where none does, the
-    smallest."""
+    smallest. ``N``: dV's columns (default H; a rank's block across
+    cards)."""
+    N = H if N is None else N
     best, best_blocks, best_rounds = -1, 0, 1
     for i, (bm, bn) in enumerate(_DV_TILES):
-        blocks = n * ksplit * -(-H // bm) * -(-H // bn)
+        blocks = n * ksplit * -(-H // bm) * -(-N // bn)
         if blocks < sms:
             continue
         rounds = -(-blocks // sms)
@@ -438,10 +441,11 @@ def _dv_tile(H: int, n: int, ksplit: int, sms: int) -> int:
     return len(_DV_TILES) - 1 if best < 0 else best
 
 
-def _card_dv_tile(H: int, n: int, ksplit: int, dev) -> int:
+def _card_dv_tile(H: int, n: int, ksplit: int, dev,
+                  N: Optional[int] = None) -> int:
     """``_dv_tile`` for the SMs of the card ``dev``."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return _dv_tile(H, n, ksplit, sms)
+    return _dv_tile(H, n, ksplit, sms, N)
 
 
 def _dv_product_cuda(left, left0, r, rights, *, threshold=None,

@@ -74,6 +74,7 @@ __all__ = [
     "READOUT_FWD",
     "READOUT_BWD",
     "launch_counts",
+    "launch_counts_by_device",
     "reset_launch_counts",
     "last_plans",
     "clip_and_mask",
@@ -161,9 +162,21 @@ def launch_counts() -> Dict[str, int]:
     return {k.name: k.launches for k in _all_kernels()}
 
 
+def launch_counts_by_device() -> Dict[int, Dict[str, int]]:
+    """``launch_counts``, by the index of the card launched on: the cards
+    of a mesh across cards each count their own."""
+    out: Dict[int, Dict[str, int]] = {}
+    for k in _all_kernels():
+        for card, n in k.by_device.items():
+            out.setdefault(card, {})[k.name] = \
+                out.get(card, {}).get(k.name, 0) + n
+    return out
+
+
 def reset_launch_counts() -> None:
     for k in _all_kernels():
         k.launches = 0
+        k.by_device = {}
 
 
 def last_plans() -> Dict[str, dict]:
@@ -549,12 +562,14 @@ def _slice_smem(H: int, cols: int, rows: int, threads: int,
 
 
 def _fwd_plan(B: int, H: int, P: int, mxu_bf16: bool, sms: int,
-              per_sm: Callable[[int, int, int], int]) -> Optional[FwdPlan]:
+              per_sm: Callable[[int, int, int], int],
+              n_local: Optional[int] = None) -> Optional[FwdPlan]:
     """The column-slice plan of a recurrent spiking forward over P ranks of
     H/P columns (P = 1: the single-card kernel) on a card of ``sms`` SMs,
     whose kernel an SM holds ``per_sm(cols, rows, threads)`` blocks of; None
     where no slice of V fits in shared memory (the kernels then take their
-    layout of one block a batch row and rank).
+    layout of one block a batch row and rank). ``n_local``: the ranks the
+    card runs (default P, the one-card form; 1 across cards).
 
     A block holds ``cols`` columns of a rank's block (a multiple of 32, 64
     in the bf16 mode) of all H rows of V, and the neurons of those columns
@@ -574,7 +589,7 @@ def _fwd_plan(B: int, H: int, P: int, mxu_bf16: bool, sms: int,
                 _slice_smem(H, cols, 1, 32 * m, mxu_bf16) > _SLICE_SMEM:
             break
         slices = -(-hl // cols)
-        per_group = P * slices
+        per_group = (P if n_local is None else n_local) * slices
         q_max = _SLICE_THREADS // 32 // m
         for rows in range(1, min(B, q_max * nr) + 1):
             q = min(q_max, rows)
@@ -607,7 +622,8 @@ def _rows_plan(B: int, H: int, P: int, threads: int, per_rank: int = 0,
 
 @functools.lru_cache(maxsize=None)
 def card_plan(source: str, form: tuple, B: int, H: int, P: int,
-              mxu_bf16: bool, device_index: int) -> Optional[FwdPlan]:
+              mxu_bf16: bool, device_index: int,
+              n_local: Optional[int] = None) -> Optional[FwdPlan]:
     """``_fwd_plan`` on the card ``device_index`` for the kernel form
     ``form`` of ``source`` (``slice_blocks``' leading arguments), computed
     once a shape."""
@@ -616,22 +632,28 @@ def card_plan(source: str, form: tuple, B: int, H: int, P: int,
             device_index).multi_processor_count
         return _fwd_plan(B, H, P, mxu_bf16, sms,
                          lambda c, r, t: slice_blocks(source, *form, H, c, r,
-                                                      t))
+                                                      t),
+                         n_local)
 
 
-@functools.lru_cache(maxsize=None)
 def slice_blocks(source: str, *form: int) -> int:
     """Blocks of the column-slice time loop of ``source`` (``fused_cell_fwd``:
     form adaptive, affine, resid, dropout, bf16; ``tp_cell_fwd``: adaptive,
     resid, bf16; then H, cols, rows, threads) that an SM of the current card
     holds, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; 0 where
-    the plan cannot run."""
+    the plan cannot run. Asked of the current card, once a card."""
+    return _slice_blocks_on(torch.cuda.current_device(), source, *form)
+
+
+@functools.lru_cache(maxsize=None)
+def _slice_blocks_on(device_index: int, source: str, *form: int) -> int:
     from sparch_tpu_torch import _build
 
     fn = getattr(_build.load(source), f"sparch_{source}_slice_blocks")
     fn.argtypes = [_I] * len(form)
     fn.restype = _I
-    return fn(*form)
+    with torch.cuda.device(device_index):
+        return fn(*form)
 
 
 def _slice_launch_args(plan: FwdPlan, B: int, H: int, dev):

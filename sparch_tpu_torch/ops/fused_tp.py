@@ -16,15 +16,21 @@ kernel at every step.
 - ``tp_all_gather``, ``tp_reduce_scatter``: the harnesses that pin the
   exchange (``csrc/tp_collectives.cu``).
 
-The one-card form: the port runs all P ranks of a mesh that repeats one
-device (``parallel.make_mesh([dev] * P, model=P)``) in one cooperative launch
-on that device, each rank storing into its peers' buffers in the one card's
-memory. The kernels are written against an array of every rank's buffer
-base and a rank (``csrc/tp_exchange.cuh``), but no multi-card run has been
-made (ROADMAP queue 1 item 7b). In this form the entry points take the full
-tensors, as the layer holds them: ``Wx (B, T, H)``, ``V (H, H)``, the states
-``(B, H)``; rank r's block is columns ``r*Hl .. (r+1)*Hl`` of each, and the
-gathered initial spikes are the full ``s0``.
+Two forms, one function, the same bits. The one-card form runs all P ranks
+of a mesh that repeats one device (``parallel.make_mesh([dev] * P,
+model=P)``) in one cooperative launch on that device, each rank storing into
+its peers' buffers in the one card's memory. The form across cards runs a
+mesh of P distinct cards (``make_mesh([cuda:0, .., cuda:P-1], model=P)``),
+one rank a card: the entry points scatter rank r's column blocks to card r,
+make one launch a card with ``rank0 = r``, ``n_local = 1`` behind one entry
+barrier, the peers' buffers on their cards (``ops/tp_cards.py``), and gather
+the outputs back. Either way the entry points take the full tensors, as the
+layer holds them on the mesh's ``home`` card: ``Wx (B, T, H)``, ``V (H,
+H)``, the states ``(B, H)``; rank r's block is columns ``r*Hl .. (r+1)*Hl``
+of each, and the gathered initial spikes are the full ``s0``. Across cards
+the backward's dV block of rank r takes the full u series, gathered onto its
+card after the forward (``tp_cell_bwd.cu``). The ``*_cards_plain``
+functions mirror that form rank by rank on the CPU.
 
 The backward's time loop runs thread-block clusters per rank, as the TP
 non-spiking kernels do (``csrc/tp_ann.cuh``): ``_bwd_plan`` chooses the
@@ -52,6 +58,7 @@ apart (``tp_cell_fwd_bf16``, ``tp_cell_bwd_bf16``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple, Union
@@ -60,7 +67,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from sparch_tpu_torch._build import Kernel
-from sparch_tpu_torch.ops import fused_cells
+from sparch_tpu_torch.ops import fused_cells, tp_cards
 from sparch_tpu_torch.ops.fused_cells import (
     _BF16,
     _rb,
@@ -78,8 +85,12 @@ __all__ = [
     "tp_reduce_scatter",
     "tp_all_gather_plain",
     "tp_reduce_scatter_plain",
+    "tp_all_gather_cards_plain",
+    "tp_reduce_scatter_cards_plain",
     "tp_cell_plain",
     "tp_cell_bwd_plain",
+    "tp_cell_cards_plain",
+    "tp_cell_bwd_cards_plain",
     "zero_diag_shard",
     "rlif_tp",
     "radlif_tp",
@@ -102,7 +113,7 @@ TP_REDUCE_SCATTER = Kernel("tp_collectives", "sparch_tp_reduce_scatter",
 # one C entry point per direction serves both stream modes; the modes are
 # counted apart
 _FWD_ARGS = [_P] * 13 + [_I] * 7 + [_F] + [_I] * 3 + [_P] * 5
-_BWD_ARGS = [_P] * 20 + [_I] * 7 + [_F] + [_I] * 8 + [_P] * 3
+_BWD_ARGS = [_P] * 21 + [_I] * 7 + [_F] + [_I] * 8 + [_P] * 3
 TP_CELL_FWD = Kernel("tp_cell_fwd", "sparch_tp_cell_fwd", _FWD_ARGS)
 TP_CELL_BWD = Kernel("tp_cell_bwd", "sparch_tp_cell_bwd", _BWD_ARGS)
 TP_CELL_FWD_BF16 = Kernel("tp_cell_fwd", "sparch_tp_cell_fwd", _FWD_ARGS,
@@ -205,6 +216,42 @@ def tp_reduce_scatter_plain(parts, *, num_devices: int, rounds: int = 3):
     return out
 
 
+def tp_all_gather_cards_plain(x, *, num_devices: int, rounds: int = 3):
+    """``tp_all_gather_plain`` as the form across cards computes it, rank
+    by rank: rank q holds only its block of ``x`` and its own planes, and
+    each round takes what every rank sent it."""
+    P = num_devices
+    own = [tp_cards.columns(x, P, q) for q in range(P)]
+    planes = [[] for _ in range(P)]
+    for r in range(rounds):
+        sent = own if r == 0 else [
+            tp_cards.columns(planes[q][r - 1], P, q) + 1.0 for q in range(P)]
+        for q in range(P):
+            planes[q].append(torch.cat(sent, dim=1))
+    return torch.stack([torch.stack(p) for p in planes])
+
+
+def tp_reduce_scatter_cards_plain(parts, *, num_devices: int,
+                                  rounds: int = 3):
+    """``tp_reduce_scatter_plain`` as the form across cards computes it,
+    rank by rank: rank q holds only its partial and its reduced block, sends
+    column block d to rank d, and adds what it receives in the kernel's
+    order (its own first, then sender offsets 1 .. P-1)."""
+    P = num_devices
+    acc = [[] for _ in range(P)]
+    for r in range(rounds):
+        stages = [parts[q] if r == 0 else parts[q] + acc[q][r - 1][:, :1]
+                  for q in range(P)]
+        for d in range(P):
+            got = stages[d]
+            total = tp_cards.columns(got, P, d)
+            for off in range(1, P):
+                total = total + tp_cards.columns(stages[(d - off) % P], P, d)
+            acc[d].append(total)
+    return torch.stack([torch.cat([acc[d][r] for d in range(P)], dim=1)
+                        for r in range(rounds)])
+
+
 def _check_collective(x, num_devices: int, rounds: int) -> None:
     H = x.shape[-1]
     if H % (num_devices * LANE):
@@ -282,26 +329,30 @@ def _collective_smem(rows: int, H: int, P: int, reduce: bool) -> int:
 
 
 def _collective_plan(B: int, H: int, P: int, reduce: bool, sms: int,
-                     per_sm: Callable[[int], int]) -> CollectivePlan:
+                     per_sm: Callable[[int], int],
+                     n_local: Optional[int] = None) -> CollectivePlan:
     """Rows a block and blocks a rank of a collective on a card of ``sms``
     SMs, ``per_sm(smem)`` the blocks an SM holds at ``smem`` bytes: the
-    fewest rows that spread the P ranks' groups over about one block an SM,
-    at most ``_COLL_MAX_ROWS`` and what shared memory holds; every group at
-    once where the card holds them, else the blocks of a rank walk them."""
+    fewest rows that spread the card's ranks' groups over about one block
+    an SM, at most ``_COLL_MAX_ROWS`` and what shared memory holds; every
+    group at once where the card holds them, else the blocks of a rank walk
+    them. ``n_local``: the ranks the card runs (default P, the one-card
+    form; 1 across cards)."""
     if not 1 <= P <= _MAX_RANKS:
         raise ValueError(f"TP collective: 1 to {_MAX_RANKS} ranks, got {P}")
+    n = P if n_local is None else n_local
     fit = _COLL_SMEM // _collective_smem(1, H, P, reduce)
     if fit < 1:
         raise ValueError(f"TP collective: a row of H={H} over {P} ranks "
                          f"does not fit in a block's shared memory")
-    rows = max(1, min(-(-P * B // sms), _COLL_MAX_ROWS, fit, B))
+    rows = max(1, min(-(-n * B // sms), _COLL_MAX_ROWS, fit, B))
     groups = -(-B // rows)
     smem = _collective_smem(rows, H, P, reduce)
     held = per_sm(smem)
-    per_rank = min(groups, held * sms // P)
+    per_rank = min(groups, held * sms // n)
     if per_rank < 1:
         raise ValueError(f"TP collective: the card holds {held} blocks of "
-                         f"{smem} bytes an SM, too few for {P} ranks")
+                         f"{smem} bytes an SM, too few for {n} ranks")
     return CollectivePlan(rows, groups, per_rank, -(-groups // per_rank),
                           held, smem, _COLL_THREADS)
 
@@ -321,13 +372,14 @@ def collective_blocks(reduce: bool, smem: int, device_index: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _card_collective_plan(B: int, H: int, P: int, reduce: bool,
-                          device_index: int) -> CollectivePlan:
+                          device_index: int,
+                          n_local: Optional[int] = None) -> CollectivePlan:
     """``_collective_plan`` on the card ``device_index``, once a shape."""
     sms = torch.cuda.get_device_properties(
         device_index).multi_processor_count
     return _collective_plan(
         B, H, P, reduce, sms,
-        lambda smem: collective_blocks(reduce, smem, device_index))
+        lambda smem: collective_blocks(reduce, smem, device_index), n_local)
 
 
 # The collectives' exchange counters: zeroed once when allocated, left zero
@@ -432,30 +484,126 @@ def _tp_reduce_scatter_cuda(parts, *, num_devices: int, rounds: int = 3):
     return out
 
 
-def tp_all_gather(x, *, num_devices: int, rounds: int = 3):
+class CardsCollective(NamedTuple):
+    """A collective across cards with its operands placed: rank r's input
+    and output on card r, the plan every card agreed on, the exchange."""
+
+    kernel: Kernel
+    cards: Tuple[torch.device, ...]
+    plan: CollectivePlan
+    ins: List[torch.Tensor]
+    outs: List[torch.Tensor]
+    ex: tp_cards.Exchange
+    B: int
+    H: int
+    rounds: int
+
+    def __call__(self) -> None:
+        """One launch a card behind the entry barrier; no host wait."""
+        P, hl = len(self.cards), self.H // len(self.cards)
+        plan = (ctypes.c_int * 2)(self.plan.rows, self.plan.per_rank)
+        streams = self.ex.enter()
+        for r, card in enumerate(self.cards):
+            with torch.cuda.device(card):
+                self.kernel(self.ins[r].data_ptr(), self.outs[r].data_ptr(),
+                            self.ex.slot_ptrs, self.ex.flag_ptrs, self.B,
+                            self.H, P, r, 1, hl, self.rounds, plan,
+                            streams[r].cuda_stream)
+        self.ex.leave(streams)
+        _PLANS[self.kernel.name] = dict(self.plan._asdict(),
+                                        cards=[str(c) for c in self.cards])
+
+
+def cards_collective(x, cards, *, reduce: bool,
+                     rounds: int = 3) -> CardsCollective:
+    """A collective of ``x`` (all-gather: (B, H); reduce-scatter: (P, B,
+    H)) across ``cards``, its operands scattered: rank r's block of x (its
+    partial) to card r."""
+    cards = tuple(torch.device(c) for c in cards)
+    P = len(cards)
+    B, H = x.shape[-2:]
+    tp_cards.enable_peers(cards)
+    plan = tp_cards.agreed_plan(cards, lambda c: _card_collective_plan(
+        B, H, P, reduce, c.index, 1))
+    hl = H // P
+    if reduce:
+        ins = [x[r:r + 1].contiguous().to(c) for r, c in enumerate(cards)]
+        outs = [torch.empty((rounds, B, hl), dtype=torch.float32, device=c)
+                for c in cards]
+    else:
+        ins = [tp_cards.columns(x, P, r).contiguous().to(c)
+               for r, c in enumerate(cards)]
+        outs = [torch.empty((1, rounds, B, H), dtype=torch.float32,
+                            device=c) for c in cards]
+    kernel = TP_REDUCE_SCATTER if reduce else TP_ALL_GATHER
+    ex = tp_cards.exchange(kernel.name, cards, (2, P, B, hl), torch.float32,
+                           P * plan.per_rank * 2)
+    return CardsCollective(kernel, cards, plan, ins, outs, ex, B, H, rounds)
+
+
+def _collective_cards(x, cards, *, reduce: bool, rounds: int):
+    run = cards_collective(x, cards, reduce=reduce, rounds=rounds)
+    run()
+    if reduce:
+        return tp_cards.gather_columns(run.outs, x.device)
+    return torch.cat([o.to(x.device) for o in run.outs])
+
+
+def _cards_of(cards) -> Optional[Tuple[torch.device, ...]]:
+    """The distinct cards of a mesh across cards (or of a device list);
+    None for the one-card form."""
+    if cards is None:
+        return None
+    devs = tuple(cards.cards) if hasattr(cards, "cards") else tuple(
+        torch.device(c) for c in cards)
+    return devs if len(set(devs)) > 1 else None
+
+
+def tp_all_gather(x, *, num_devices: int, rounds: int = 3, cards=None):
     """``rounds`` chained all-gathers over the TP axis (JAX
     ``tp_all_gather``); see ``tp_all_gather_plain``. On the card the P
     ranks run in one launch. A CUDA graph may hold the call once it has
     run eagerly on that device: its replays need nothing zeroed between
     them and may run on any stream beside other launches, but not beside
-    another replay of the same graph."""
+    another replay of the same graph. ``cards`` (a mesh across cards or a
+    list of distinct cards): one rank a card, ``x`` and the result on the
+    first card."""
     _check_collective(x, num_devices, rounds)
+    on = _cards_of(cards)
+    if on is not None:
+        _check_cards(x, on, num_devices, "TP all-gather")
+        return _collective_cards(x, on, reduce=False, rounds=rounds)
     fn = fused_cells._by_device(x, tp_all_gather_plain, _tp_all_gather_cuda,
                                 "TP all-gather")
     return fn(x, num_devices=num_devices, rounds=rounds)
 
 
-def tp_reduce_scatter(parts, *, num_devices: int, rounds: int = 3):
+def tp_reduce_scatter(parts, *, num_devices: int, rounds: int = 3,
+                      cards=None):
     """``rounds`` chained reduce-scatters over the TP axis (JAX
     ``tp_reduce_scatter``); see ``tp_reduce_scatter_plain``. On the card
-    and in a CUDA graph as ``tp_all_gather``."""
+    and in a CUDA graph, and across ``cards``, as ``tp_all_gather``."""
     _check_collective(parts, num_devices, rounds)
     if parts.shape[0] != num_devices:
         raise ValueError(f"want one partial per rank, got {parts.shape[0]} "
                          f"for {num_devices}")
+    on = _cards_of(cards)
+    if on is not None:
+        _check_cards(parts, on, num_devices, "TP reduce-scatter")
+        return _collective_cards(parts, on, reduce=True, rounds=rounds)
     fn = fused_cells._by_device(parts, tp_reduce_scatter_plain,
                                 _tp_reduce_scatter_cuda, "TP reduce-scatter")
     return fn(parts, num_devices=num_devices, rounds=rounds)
+
+
+def _check_cards(x, cards, P: int, what: str) -> None:
+    if len(cards) != P:
+        raise ValueError(f"{what}: {len(cards)} cards for {P} ranks")
+    if any(c.type != "cuda" for c in cards) or x.device != cards[0]:
+        raise ValueError(f"{what} across cards: want the tensors on "
+                         f"{cards[0]}, the first of {len(cards)} CUDA "
+                         f"cards; got {x.device}")
+    fused_cells._check("x", x, tuple(x.shape), cards[0])
 
 
 # ---------------------------------------------------------------------------
@@ -600,6 +748,174 @@ def tp_cell_bwd_plain(g, u_seq, alpha, beta, a, b, V, threshold, u0, w0, s0,
     return dWx, dV, dalpha, dbeta, da, db, du0, dw0, ds0
 
 
+def _own_columns(x_full, M_r, r: int, P: int, transposed: bool = False):
+    """Rank r's columns of ``x_full @ M``, from its block ``M_r`` alone
+    (``transposed``: of ``x_full @ V^T`` from its rows of V): the product
+    at the full width, zero past the rank's block, so that it has the
+    one-card plain version's shapes and layouts and its columns take the
+    same sums."""
+    if transposed:
+        hl = M_r.shape[0]
+        M = M_r.new_zeros((hl * P, M_r.shape[1]))
+        M[r * hl:(r + 1) * hl] = M_r
+        M = M.t()
+    else:
+        hl = M_r.shape[1]
+        M = M_r.new_zeros((M_r.shape[0], hl * P))
+        M[:, r * hl:(r + 1) * hl] = M_r
+    return tp_cards.columns(torch.matmul(x_full, M), P, r)
+
+
+def _scatter(P: int, cards, blocks=(), whole=()):
+    """Rank r's operands on ``cards[r]``: its column blocks of
+    ``blocks`` (None stays None) and the whole of ``whole``."""
+    def put(t, r, cut):
+        if t is None:
+            return None
+        part = tp_cards.columns(t, P, r) if cut else t
+        return part.contiguous().to(cards[r])
+
+    return [([put(t, r, True) for t in blocks],
+             [put(t, r, False) for t in whole]) for r in range(P)]
+
+
+def tp_cell_cards_plain(Wx, alpha, beta, a, b, V, threshold, u0, w0, s0, *,
+                        num_devices: int, adaptive: bool,
+                        save_residuals: bool = False,
+                        mxu_bf16: bool = False):
+    """``tp_cell_plain`` as the form across cards computes it, rank by
+    rank: rank r holds its column blocks of Wx, the constants, V and the
+    states, and the full s0; each step it takes the spikes every rank sent
+    it. Same contract and bits as ``tp_cell_plain``."""
+    P = num_devices
+    B, T, H = Wx.shape
+    work = _work_dtype(Wx)
+    ranks = _scatter(P, [Wx.device] * P,
+                     (Wx, alpha, beta, a, b, _rb(V) if mxu_bf16 else V, u0,
+                      w0), (s0,))
+    state, out, u_out = [], [], []
+    for (wx, al, be, aa, bb, v, u, w), (s_full,) in ranks:
+        # fused_cells._first_product on the rank's columns
+        first = torch.zeros((B, v.shape[1]), dtype=s_full.dtype)
+        for k in range(H):
+            first = first + (_rb(s_full) if mxu_bf16 else s_full)[:, k:k + 1] \
+                * v[k]
+        state.append([u, w, tp_cards.columns(s_full, P, len(state)), first])
+        out.append(torch.empty(wx.shape, dtype=_stream_dtype(mxu_bf16, Wx)))
+        u_out.append(torch.empty(wx.shape, dtype=work))
+    for t in range(T):
+        for r, ((wx, al, be, aa, bb, _, _, _), _) in enumerate(ranks):
+            u, w, s, sV = state[r]
+            drive = wx[:, t].to(work) + sV
+            if adaptive:
+                w = be * w + aa * u + bb * s
+                drive = drive - w
+            u = al * (u - s) + (1.0 - al) * drive
+            s = (u > threshold).to(u.dtype)
+            out[r][:, t] = s
+            u_out[r][:, t] = u
+            state[r][:3] = [u, w, s]
+        if t + 1 < T:  # every rank receives every rank's spikes
+            s_full = torch.cat([st[2] for st in state], dim=1)
+            for r, ((_, _, _, _, _, v, _, _), _) in enumerate(ranks):
+                state[r][3] = _own_columns(s_full, v, r, P)
+    spikes = tp_cards.gather_columns(out, Wx.device)
+    if save_residuals:
+        return spikes, tp_cards.gather_columns(u_out, Wx.device)
+    return spikes
+
+
+def tp_cell_bwd_cards_plain(g, u_seq, alpha, beta, a, b, V, threshold, u0,
+                            w0, s0, *, num_devices: int, adaptive: bool,
+                            mxu_bf16: bool = False):
+    """``tp_cell_bwd_plain`` as the form across cards computes it, rank
+    by rank: rank r holds its column blocks of g, u_seq, the constants,
+    V^T (V's rows of its neurons) and the states, and the full s0; each
+    step it takes the adjoint blocks every rank sent it; its dV block is
+    the product of the full u series, gathered onto it, and its own D
+    series. Same contract and bits as ``tp_cell_bwd_plain``."""
+    P = num_devices
+    B, T, H = g.shape
+    work = _work_dtype(u_seq)
+    VT = (_rb(V) if mxu_bf16 else V).t()
+    home = g.device
+    ranks = _scatter(P, [home] * P,
+                     (g, u_seq, alpha, beta, a, b, VT, u0, w0), (s0,))
+    zero = torch.zeros((B, H // P), dtype=work)
+    st = [dict(A=zero, Bw=zero, Pq=zero, R=zero, dal=zero, dbe=zero,
+               daa=zero, dbb=zero) for _ in range(P)]
+    dWx = [torch.empty((B, T, H // P), dtype=_stream_dtype(mxu_bf16, u_seq))
+           for _ in range(P)]
+    for t in range(T - 1, -1, -1):
+        dd = []
+        for r, ((gr, ur, al, be, aa, bb, _, u0r, _), (s_full,)) in \
+                enumerate(ranks):
+            x = st[r]
+            u_t = ur[:, t]
+            u_p = ur[:, t - 1] if t > 0 else u0r
+            s_p = (u_p > threshold).to(u_p.dtype) if t > 0 \
+                else tp_cards.columns(s_full, P, r)
+            alphaA = al * x["A"]
+            C = gr[:, t].to(work) - alphaA + x["R"]
+            if adaptive:
+                C = C + bb * x["Bw"]
+            wsub = u_t - threshold
+            window = (wsub > -0.5) & (wsub <= 0.5)
+            A_new = torch.where(window, C, torch.zeros_like(C)) + alphaA
+            if adaptive:
+                A_new = A_new + aa * x["Bw"]
+            d = (1.0 - al) * A_new
+            x["dal"] = x["dal"] + A_new * (u_p - s_p - u_t)
+            if adaptive:
+                B_new = be * x["Bw"] - d
+                x["dbe"] = x["dbe"] + (aa * u_p + bb * s_p) * x["Pq"]
+                x["Pq"] = B_new + be * x["Pq"]
+                x["daa"] = x["daa"] + B_new * u_p
+                x["dbb"] = x["dbb"] + B_new * s_p
+                x["Bw"] = B_new
+            x["A"] = A_new
+            dd.append(d)
+        # every rank receives every rank's D, as the wire carries it
+        D_full = torch.cat(dd, dim=1)
+        if mxu_bf16:
+            D_full = _rb(D_full)
+        for r, ((_, _, _, _, _, _, vt, _, _), _) in enumerate(ranks):
+            dWx[r][:, t] = tp_cards.columns(D_full, P, r)
+            st[r]["R"] = _own_columns(D_full, vt.t(), r, P, transposed=True)
+    # dV: each rank's block from the full u series, gathered onto it
+    u_full = tp_cards.gather_columns([rk[0][1] for rk in ranks], home)
+    out = {k: [] for k in ("dV", "dalpha", "du0", "ds0", "dw0", "dbeta",
+                           "da", "db")}
+    for r, ((_, _, al, be, aa, bb, _, _, w0r), (s_full,)) in \
+            enumerate(ranks):
+        x = st[r]
+        s_prev = torch.cat([(_rb(s_full) if mxu_bf16 else s_full)[:, None],
+                            (u_full[:, :-1] > threshold).to(work)], dim=1)
+        D_r = u_full.new_zeros((B, T, H)).to(work)
+        D_r[..., r * (H // P):(r + 1) * (H // P)] = dWx[r].to(work)
+        out["dV"].append(tp_cards.columns(torch.matmul(
+            s_prev.reshape(-1, H).t(), D_r.reshape(-1, H)), P, r))
+        out["dalpha"].append(x["dal"].sum(0) / (1.0 - al))
+        du0 = al * x["A"]
+        ds0 = -(al * x["A"]) + x["R"]
+        if adaptive:
+            du0 = du0 + aa * x["Bw"]
+            ds0 = ds0 + bb * x["Bw"]
+            out["dw0"].append(be * x["Bw"])
+            out["dbeta"].append((x["dbe"] + w0r * x["Pq"]).sum(0))
+            out["da"].append(x["daa"].sum(0))
+            out["db"].append(x["dbb"].sum(0))
+        out["du0"].append(du0)
+        out["ds0"].append(ds0)
+
+    def cat(k):
+        return tp_cards.gather_columns(out[k], home) if out[k] else None
+
+    return (tp_cards.gather_columns(dWx, home), cat("dV"), cat("dalpha"),
+            cat("dbeta"), cat("da"), cat("db"), cat("du0"), cat("dw0"),
+            cat("ds0"))
+
+
 # ---------------------------------------------------------------------------
 # RLIF / RadLIF: kernels
 # ---------------------------------------------------------------------------
@@ -733,27 +1049,34 @@ def _bwd_part_rows(B: int, H: int, P: int, sms: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _bwd_max_active(B: int, H: int, P: int, adaptive: bool, mxu_bf16: bool,
-                    cluster: int, part_rows: int) -> int:
+                    cluster: int, part_rows: int,
+                    device_index: Optional[int] = None) -> int:
     """How many clusters of ``cluster`` blocks of the backward's plan the
-    current card holds at once (``cudaOccupancyMaxActiveClusters``); -1
-    where that plan does not run or the query fails."""
+    card ``device_index`` (None: the current card) holds at once
+    (``cudaOccupancyMaxActiveClusters``); -1 where that plan does not run
+    or the query fails."""
     from sparch_tpu_torch import _build
 
     fn = getattr(_build.load("tp_cell_bwd"), "sparch_tp_cell_bwd_max_clusters")
     fn.argtypes = [_I] * 7
     fn.restype = _I
-    return fn(B, H, P, int(adaptive), int(mxu_bf16), cluster, part_rows)
+    with torch.cuda.device(device_index):
+        return fn(B, H, P, int(adaptive), int(mxu_bf16), cluster, part_rows)
 
 
 def _bwd_plan(B: int, H: int, P: int, mxu_bf16: bool,
-              max_active: Callable[[int], int]):
+              max_active: Callable[[int], int],
+              n_local: Optional[int] = None):
     """The backward's launch plan (``fused_tp_ann.TPPlan``): the cluster
-    size by ``fused_tp_ann.choose_plan``'s rule over what the card holds."""
+    size by ``fused_tp_ann.choose_plan``'s rule over what the card holds
+    for its ``n_local`` ranks (default P, the one-card form; 1 across
+    cards)."""
     from sparch_tpu_torch.ops import fused_tp_ann
 
     return fused_tp_ann.choose_plan(
         lambda c: _bwd_rank_plan(B, H, P, mxu_bf16, c),
-        lambda q: fused_tp_ann._runs(q, 1, mxu_bf16), P, max_active,
+        lambda q: fused_tp_ann._runs(q, 1, mxu_bf16),
+        P if n_local is None else n_local, max_active,
         f"the TP cell backward takes no H={H} over {P} ranks")
 
 
@@ -797,7 +1120,7 @@ def _tp_cell_bwd_cuda(g, u_seq, alpha, beta, a, b, V, threshold, u0, w0, s0,
     bufs = _exchange_buffers((2, B, H), sdt, P, plan.clusters, dev)
     split = (ctypes.c_float * 3)() if split_ms is not None else None
     _launch(TP_CELL_BWD_BF16 if mxu_bf16 else TP_CELL_BWD, dev, ptr(g),
-            ptr(u_seq), ptr(alpha), ptr(beta), ptr(a), ptr(b), ptr(VT),
+            ptr(u_seq), None, ptr(alpha), ptr(beta), ptr(a), ptr(b), ptr(VT),
             ptr(u0), ptr(w0), ptr(s0), ptr(dWx), ptr(partials), ptr(vecs),
             ptr(dV), ptr(dv_partials), ptr(du0), ptr(dw0), ptr(ds0),
             bufs[2], bufs[3], B, T, H, P, 0, P, H, float(threshold),
@@ -814,41 +1137,224 @@ def _tp_cell_bwd_cuda(g, u_seq, alpha, beta, a, b, V, threshold, u0, w0, s0,
     return dWx, dV, dalpha, dbeta, da, db, du0, dw0, ds0
 
 
+def _row_blocks(adaptive: bool, resid: bool, mxu_bf16: bool, H: int,
+                P: int, device_index: int) -> int:
+    """Blocks of the forward's layout of a block a row an SM of the card
+    holds (``sparch_tp_cell_fwd_row_blocks``)."""
+    from sparch_tpu_torch import _build
+
+    fn = _build.load("tp_cell_fwd").sparch_tp_cell_fwd_row_blocks
+    fn.argtypes = [_I] * 5
+    fn.restype = _I
+    with torch.cuda.device(device_index):
+        return fn(int(adaptive), int(resid), int(mxu_bf16), H, P)
+
+
+def _cards_fwd_plan(B, H, P, adaptive, resid, mxu_bf16, card):
+    """One card's plan of the forward across cards (one rank a card):
+    the column-slice plan, else the layout of a block a row (blocks a
+    rank, blocks an SM)."""
+    plan = fused_cells.card_plan(
+        "tp_cell_fwd", (int(adaptive), int(resid), int(mxu_bf16)), B, H, P,
+        mxu_bf16, card.index, 1)
+    if plan is not None:
+        return plan
+    per_sm = _row_blocks(adaptive, resid, mxu_bf16, H, P, card.index)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    return ("rows", min(B, per_sm * sms), per_sm)
+
+
+def _tp_cell_cards(Wx, alpha, beta, a, b, V, threshold, u0, w0, s0, *,
+                   cards, adaptive: bool, save_residuals: bool = False,
+                   mxu_bf16: bool = False):
+    """``csrc/tp_cell_fwd.cu`` across ``cards``, one rank a card: the
+    operands (full, on the first card) scattered by rank, one launch a card
+    behind the entry barrier (``ops/tp_cards.py``), the spikes gathered.
+    Returns the spikes, and with ``save_residuals`` also each rank's
+    membrane series on its card (the backward's residuals)."""
+    B, T, H = Wx.shape
+    P, home = len(cards), cards[0]
+    hl = H // P
+    fused_cells._check("Wx", Wx, (B, T, H), home, _wx_dtypes(mxu_bf16))
+    _check_cell(Wx, alpha, beta, a, b, V, u0, w0, s0, adaptive, P)
+    if not adaptive:
+        beta = a = b = w0 = None
+    if mxu_bf16:
+        V = V.to(_BF16)  # rounded once, as the JAX wrapper does
+    tp_cards.enable_peers(cards)
+    plan = tp_cards.agreed_plan(cards, lambda c: _cards_fwd_plan(
+        B, H, P, adaptive, save_residuals, mxu_bf16, c))
+    slices = isinstance(plan, fused_cells.FwdPlan)
+    if slices:  # tagged spike words, no counters
+        ex = tp_cards.exchange("tp_cell_fwd_slices", cards, (2, B, H // 32),
+                               torch.int64, 0)
+    else:  # spike words and the counters of a block a row
+        ex = tp_cards.exchange("tp_cell_fwd_rows", cards, (2, B, H // 32),
+                               torch.int32, P * B * 2)
+    ranks = _scatter(P, cards, (Wx, alpha, beta, a, b, V, u0, w0), (s0,))
+    ptr = fused_cells._ptr
+    outs, us, tails = [], [], []
+    for r, card in enumerate(cards):
+        outs.append(torch.empty((B, T, hl), dtype=_stream_dtype(mxu_bf16, Wx),
+                                device=card))
+        us.append(torch.empty((B, T, hl), dtype=torch.float32, device=card)
+                  if save_residuals else None)
+        if slices:
+            plan_arr, sv0 = fused_cells._slice_launch_args(plan, B, hl, card)
+            tails.append((ctypes.cast(plan_arr, ctypes.c_void_p), ptr(sv0),
+                          None, plan_arr, sv0))
+        else:
+            tails.append((None,) * 3)
+    streams = ex.enter(zero_slots=slices)
+    reported = []
+    for r, card in enumerate(cards):
+        (wx, al, be, aa, bb, v, u0r, w0r), (s0r,) = ranks[r]
+        reported.append(_launch(
+            TP_CELL_FWD_BF16 if mxu_bf16 else TP_CELL_FWD, card, ptr(wx),
+            ptr(al), ptr(be), ptr(aa), ptr(bb), ptr(v), ptr(u0r), ptr(w0r),
+            ptr(s0r), ptr(outs[r]), ptr(us[r]), ex.slot_ptrs, ex.flag_ptrs,
+            B, T, H, P, r, 1, hl, float(threshold), int(adaptive),
+            int(mxu_bf16), int(Wx.dtype == _BF16), *tails[r][:3], n_plan=4))
+    ex.leave(streams)
+    if slices:
+        _PLANS["tp_cell_fwd"] = dict(plan._asdict(), cards=P)
+    else:
+        row_plan = fused_cells._rows_plan(B, H, P, reported[0][3], plan[1],
+                                          plan[2])
+        if any(rep[1:3] != (plan[1], plan[2]) for rep in reported):
+            raise tp_cards.PlanDisagreement(
+                f"tp_cell_fwd across cards launched {reported}, agreed "
+                f"on {plan}")
+        _PLANS["tp_cell_fwd"] = dict(row_plan._asdict(), cards=P)
+    out = tp_cards.gather_columns(outs, home)
+    return (out, us) if save_residuals else out
+
+
+def _tp_cell_bwd_cards(g, u_blocks, alpha, beta, a, b, V, threshold, u0, w0,
+                       s0, *, cards, adaptive: bool, mxu_bf16: bool = False):
+    """``csrc/tp_cell_bwd.cu`` across ``cards``, one rank a card: ``g``
+    and the operands (on the first card) scattered by rank, ``u_blocks``
+    each rank's membrane series on its card (from ``_tp_cell_cards``),
+    gathered whole onto every card for the rank's dV block; one launch a
+    card behind the entry barrier; the gradients gathered. Same contract
+    as ``tp_cell_bwd_plain`` otherwise, and its one-card form's bits."""
+    from sparch_tpu_torch.ops import fused_ann, fused_tp_ann
+
+    B, T, H = g.shape
+    P, home = len(cards), cards[0]
+    hl = H // P
+    sdt = _BF16 if mxu_bf16 else torch.float32
+    fused_cells._check("g", g, (B, T, H), home, sdt)
+    for r, (u, card) in enumerate(zip(u_blocks, cards)):
+        fused_cells._check(f"u_seq[{r}]", u, (B, T, hl), card)
+    _check_cell(g, alpha, beta, a, b, V, u0, w0, s0, adaptive, P)
+    tp_cards.enable_peers(cards)
+    # the one-card form's rows of a partial at this P keep its bits
+    part_rows = _bwd_part_rows(
+        B, H, P, torch.cuda.get_device_properties(home).multi_processor_count)
+    plan = tp_cards.agreed_plan(cards, lambda c: _bwd_plan(
+        B, H, P, mxu_bf16, lambda cl: _bwd_max_active(
+            B, H, P, adaptive, mxu_bf16, cl, part_rows, c.index), 1)).rank
+    VT = fused_tp_ann._pack_slices([V], ((0,),), plan, P, mxu_bf16,
+                                   transpose=True)
+    ksplit = fused_ann._dv_split(B, T, H, 1)
+    if not adaptive:
+        beta = a = b = w0 = None
+    ranks = _scatter(P, cards, (g, alpha, beta, a, b, u0, w0), (s0,))
+    u_full = [tp_cards.gather_columns(u_blocks, c) for c in cards]
+    vts = [VT[r].to(c) for r, c in enumerate(cards)]
+    ex = tp_cards.exchange("tp_cell_bwd", cards, (2, B, H), sdt,
+                           P * plan.clusters * 2)
+    n_parts = -(-B // part_rows)
+    res = []
+    for r, card in enumerate(cards):
+        def new(*shape):
+            return torch.empty(shape, dtype=torch.float32, device=card)
+
+        res.append(dict(
+            dWx=torch.empty((B, T, hl), dtype=sdt, device=card),
+            partials=new(1, n_parts, 4, hl), vecs=new(4, hl), dV=new(H, hl),
+            dv_partials=new(ksplit, H, hl) if ksplit > 1 else None,
+            du0=new(B, hl), ds0=new(B, hl),
+            dw0=new(B, hl) if adaptive else None,
+            tile=fused_ann._card_dv_tile(H, 1, ksplit, card, hl)))
+    ptr = fused_cells._ptr
+    streams = ex.enter()
+    for r, card in enumerate(cards):
+        (gr, al, be, aa, bb, u0r, w0r), (s0r,) = ranks[r]
+        o = res[r]
+        _launch(TP_CELL_BWD_BF16 if mxu_bf16 else TP_CELL_BWD, card,
+                ptr(gr), ptr(u_blocks[r]), ptr(u_full[r]), ptr(al), ptr(be),
+                ptr(aa), ptr(bb), ptr(vts[r]), ptr(u0r), ptr(w0r), ptr(s0r),
+                ptr(o["dWx"]), ptr(o["partials"]), ptr(o["vecs"]),
+                ptr(o["dV"]), ptr(o["dv_partials"]), ptr(o["du0"]),
+                ptr(o["dw0"]), ptr(o["ds0"]), ex.slot_ptrs, ex.flag_ptrs, B,
+                T, H, P, r, 1, hl, float(threshold), int(adaptive), ksplit,
+                o["tile"], int(mxu_bf16), plan.cluster, plan.rows,
+                int(plan.resident), part_rows, None,
+                n_plan=len(fused_tp_ann._PLAN_KEYS))
+    ex.leave(streams)
+    _PLANS["tp_cell_bwd"] += (part_rows,)
+
+    def cat(k):
+        return None if res[0][k] is None else \
+            tp_cards.gather_columns([o[k] for o in res], home)
+
+    dalpha, dbeta, da, db = cat("vecs").unbind(0)
+    if not adaptive:
+        dbeta = da = db = None
+    return (cat("dWx"), cat("dV"), dalpha, dbeta, da, db, cat("du0"),
+            cat("dw0"), cat("ds0"))
+
+
 class _TPCell(torch.autograd.Function):
     """The TP cell on clamped and masked operands (JAX ``_get_tp_op``). A
-    None operand (RLIF: beta, a, b, w0) gets no gradient."""
+    None operand (RLIF: beta, a, b, w0) gets no gradient. ``cards``: the
+    distinct cards of a mesh across cards (the residuals then stay on
+    them), None for the one-card form."""
 
     @staticmethod
     def forward(ctx, Wx, alpha, beta, a, b, V, u0, w0, s0, threshold,
-                adaptive, num_devices, mxu_bf16):
-        fwd = fused_cells._by_device(Wx, tp_cell_plain, _tp_cell_cuda,
-                                     "TP cell")
-        flags = dict(num_devices=num_devices, adaptive=adaptive,
-                     mxu_bf16=mxu_bf16)
+                adaptive, num_devices, mxu_bf16, cards=None):
+        if cards is not None:
+            fwd = functools.partial(_tp_cell_cards, cards=cards)
+            flags = dict(adaptive=adaptive, mxu_bf16=mxu_bf16)
+        else:
+            fwd = fused_cells._by_device(Wx, tp_cell_plain, _tp_cell_cuda,
+                                         "TP cell")
+            flags = dict(num_devices=num_devices, adaptive=adaptive,
+                         mxu_bf16=mxu_bf16)
         args = (Wx, alpha, beta, a, b, V, threshold, u0, w0, s0)
         if not any(ctx.needs_input_grad):
             return fwd(*args, **flags)
         out, u_seq = fwd(*args, save_residuals=True, **flags)
         ctx.flags = dict(flags, threshold=threshold)
+        ctx.cards = cards
         ctx.wx_dtype = Wx.dtype
-        ctx.save_for_backward(u_seq, alpha, beta, a, b, V, u0, w0, s0)
+        u_list = list(u_seq) if cards is not None else [u_seq]
+        ctx.save_for_backward(alpha, beta, a, b, V, u0, w0, s0, *u_list)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        u_seq, alpha, beta, a, b, V, u0, w0, s0 = ctx.saved_tensors
+        alpha, beta, a, b, V, u0, w0, s0, *u_seq = ctx.saved_tensors
         flags = dict(ctx.flags)
         threshold = flags.pop("threshold")
-        bwd = fused_cells._by_device(g, tp_cell_bwd_plain, _tp_cell_bwd_cuda,
-                                     "TP cell backward")
+        if ctx.cards is not None:
+            bwd = functools.partial(_tp_cell_bwd_cards, cards=ctx.cards)
+        else:
+            bwd = fused_cells._by_device(g, tp_cell_bwd_plain,
+                                         _tp_cell_bwd_cuda,
+                                         "TP cell backward")
+            (u_seq,) = u_seq
         # the cotangent often arrives as a view (the bidirectional split)
         (dWx, dV, dalpha, dbeta, da, db, du0, dw0,
          ds0) = bwd(g.contiguous(), u_seq, alpha, beta, a, b, V, threshold,
                     u0, w0, s0, **flags)
         # the bf16 mode's dWx stream goes back up where Wx arrived float32
         return (dWx.to(ctx.wx_dtype), dalpha, dbeta, da, db, dV, du0, dw0,
-                ds0, None, None, None, None)
+                ds0, None, None, None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -872,17 +1378,20 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
 
 
 def _tp_size(mesh, tp_axis: str, x) -> int:
-    """P, the length of the mesh's TP axis, for a one-card mesh on the
-    device of ``x``."""
+    """P, the length of the mesh's TP axis, for a mesh in either form
+    whose ``home`` (its one device, or its first card) holds ``x``."""
     if tp_axis not in mesh.shape:
         raise ValueError(f"the mesh has no axis {tp_axis!r}: {mesh.shape}")
-    if not mesh.one_card:
-        raise NotImplementedError(
-            "TP ranks on distinct cards: ROADMAP queue 1 item 7b")
-    if not _same_device(x.device, mesh.device):
+    if not _same_device(x.device, mesh.home):
         raise ValueError(f"the tensors lie on {x.device}, the mesh on "
-                         f"{mesh.device}")
+                         f"{mesh.home}")
     return mesh.shape[tp_axis]
+
+
+def mesh_cards(mesh) -> Optional[Tuple[torch.device, ...]]:
+    """The cards of a mesh across cards, rank order; None for the
+    one-card form."""
+    return None if mesh.one_card else tuple(mesh.cards)
 
 
 def _prepare(Wx, alpha, beta, a, b, V, u0, w0, s0, mesh, tp_axis):
@@ -908,7 +1417,8 @@ def rlif_tp(Wx, alpha, V, threshold, u0, s0, *, mesh, tp_axis="model",
     P, (alpha, _, _, _, V, u0, _, s0) = _prepare(
         Wx, alpha, None, None, None, V, u0, None, s0, mesh, tp_axis)
     return _TPCell.apply(Wx, alpha, None, None, None, V, u0, None, s0,
-                         float(threshold), False, P, bool(mxu_bf16))
+                         float(threshold), False, P, bool(mxu_bf16),
+                         mesh_cards(mesh))
 
 
 def radlif_tp(Wx, alpha, beta, a, b, V, threshold, u0, w0, s0, *, mesh,
@@ -918,19 +1428,27 @@ def radlif_tp(Wx, alpha, beta, a, b, V, threshold, u0, w0, s0, *, mesh,
     P, (alpha, beta, a, b, V, u0, w0, s0) = _prepare(
         Wx, alpha, beta, a, b, V, u0, w0, s0, mesh, tp_axis)
     return _TPCell.apply(Wx, alpha, beta, a, b, V, u0, w0, s0,
-                         float(threshold), True, P, bool(mxu_bf16))
+                         float(threshold), True, P, bool(mxu_bf16),
+                         mesh_cards(mesh))
 
 
 def _per_block(fn, Wx, mesh, tp_axis, vecs, states):
-    """``fn`` on each rank's column block, the outputs side by side."""
+    """``fn`` on each rank's column block, the outputs side by side;
+    across cards each block on its rank's card (autograd brings the
+    gradients home)."""
     P = _tp_size(mesh, tp_axis, Wx)
     H = Wx.shape[-1]
     if H % P:
         raise ValueError(f"H={H} does not split over {P} ranks")
-    return torch.cat([
-        fn(Wx[..., c].contiguous(), *[v[c] for v in vecs],
-           *[s[:, c].contiguous() for s in states])
-        for c in _shards(H, P)], dim=-1)
+    cards = mesh_cards(mesh) or (Wx.device,) * P
+    outs = []
+    for c, card in zip(_shards(H, P), cards):
+        with torch.cuda.device(card) if card.type == "cuda" else \
+                contextlib.nullcontext():
+            outs.append(fn(Wx[..., c].contiguous().to(card),
+                           *[v[c].to(card) for v in vecs],
+                           *[s[:, c].contiguous().to(card) for s in states]))
+    return torch.cat([o.to(Wx.device) for o in outs], dim=-1)
 
 
 def lif_tp(Wx, alpha, threshold, u0, s0, *, mesh, tp_axis="model",

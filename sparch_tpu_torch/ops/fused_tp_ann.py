@@ -34,8 +34,9 @@ Vr^T) (LiGRU: G*z + dcpre-term + dzpre-term), the order of
 it is the single-card backward's product after the time loop, y_p^T @ dpre
 per gate ((r*y_p)^T @ dcpre for the GRU's candidate), over the stored
 series; in the one-card form the ranks' dWx blocks side by side are the
-gathered dpre series, and across cards that product would need them
-gathered (ROADMAP queue 1 item 7b).
+gathered dpre series. The form across cards (one rank a card, which the
+spiking TP cells run) is refused here: its dV products need the y and
+gate series gathered onto every card, ROADMAP queue 1 item 7c.
 
 The kernels run thread-block clusters per rank (``csrc/tp_ann.cuh``): a
 cluster owns a row group of one rank, each of its blocks a column slice of
@@ -594,6 +595,12 @@ class _TPANN(torch.autograd.Function):
 
 
 def _tp_ann(mode, wxs, vs, y0, mesh, tp_axis, mxu_bf16):
+    if not mesh.one_card:
+        raise NotImplementedError(
+            f"the TP {mode.upper()} cells across cards "
+            f"({[str(c) for c in mesh.cards]}): ROADMAP queue 1 item 7c; "
+            "the one-card form repeats one card (make_mesh([dev] * P, "
+            "model=P))")
     P = fused_tp._tp_size(mesh, tp_axis, wxs[0])
     fused_tp._validate(wxs[0].shape[2], P)
     # the carried state is float32 (float64 with float64 streams)

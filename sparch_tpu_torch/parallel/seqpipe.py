@@ -20,17 +20,24 @@ Here the S stages are held in one process as a list of devices
 differentiates by itself:
 
 - ``ppermute`` to the next stage: ``.to(next stage's device)``;
-- ``psum`` over ``seq``: a sum over the stages' partials;
+- ``psum`` over ``seq``: a sum over the stages' partials, brought to stage
+  0's device in stage order (so the bits do not depend on placement);
 - ``all_gather`` of the readout's boundary drives: a list;
 - the ``i -> S-1-i`` time reversal of the bidirectional batch trick:
   reversing the list of chunks (and flipping each).
 
-On one card every stage lies on that card and the hops are the identity;
-stages on distinct cards are refused (ROADMAP queue 1 item 7b), as
-``parallel/mesh.py`` refuses TP ranks there. The ``model`` axis runs in its
-one-card form: each stage computes its layer whole, the concatenation of
-its P column shards, so the axis only checks that P divides every hidden
-size. The ``data`` axis is the processes of a data-parallel run
+On one card every stage lies on that card and the hops are the identity.
+The stages may also lie on S distinct cards, one a card (``make_seq_mesh
+([cuda:0, .., cuda:S-1])``, as the JAX mesh puts them on S chips): a stage
+then computes its chunks on its card with copies of the layer's parameters
+moved there (autograd brings their gradients home), and a tick issues its
+chunks with no host synchronisation, so the cards overlap. The model and
+the batch live on stage 0's card (``mesh.home``). Every move to a stage's
+device goes through ``_to_stage``. The ``model`` axis runs in its one-card
+form: each stage computes its layer whole, the concatenation of its P
+column shards, so the axis only checks that P divides every hidden size;
+``model > 1`` with the stages on distinct cards is refused (ROADMAP queue 1
+item 7c). The ``data`` axis is the processes of a data-parallel run
 (``parallel/multihost.py``): inside ``multihost.sharded()`` each rank
 pipelines its own rows, the batch statistics and firing rates are the
 global batch's and the noise is drawn at the global batch's shape.
@@ -56,7 +63,6 @@ themselves: the JAX ``seq_batch_sharding`` has no counterpart.
 """
 from __future__ import annotations
 
-import functools
 from typing import Optional, Sequence
 
 import torch
@@ -66,6 +72,7 @@ import sparch_tpu_torch.train.steps as steps
 from sparch_tpu_torch.ops import cells
 from sparch_tpu_torch.ops.surrogate import spike_boxcar
 from sparch_tpu_torch.parallel import multihost
+from sparch_tpu_torch.parallel.mesh import check_cards
 
 __all__ = [
     "SeqMesh",
@@ -113,6 +120,11 @@ class SeqMesh:
             raise ValueError("a mesh over several devices has no one device")
         return self.devices[0]
 
+    @property
+    def home(self) -> torch.device:
+        """Stage 0's device, where the model and the batch live."""
+        return self.devices[0]
+
     def __repr__(self) -> str:
         devices = [str(d) for d in self.devices]
         return (f"SeqMesh(data={self.processes}, seq={self.seq}, "
@@ -130,6 +142,7 @@ def make_seq_mesh(devices: Optional[Sequence] = None,
 
         make_seq_mesh(seq=4)                               # the card
         make_seq_mesh(devices=[torch.device("cpu")] * 2)   # the CPU
+        make_seq_mesh(devices=[torch.device("cuda", i) for i in range(4)])
     """
     if devices is None:
         if not torch.cuda.is_available():
@@ -154,11 +167,68 @@ def make_seq_mesh(devices: Optional[Sequence] = None,
             f"{data} (parallel/multihost.py)")
     mesh = SeqMesh(devices, seq, model, processes=procs)
     if not mesh.one_card:
-        raise NotImplementedError(
-            "pipeline stages or TP ranks on distinct cards: ROADMAP queue 1 "
-            "item 7b; the one-card form repeats one device "
-            "(make_seq_mesh([dev] * S))")
+        check_cards(devices, "pipeline stages")
+        if model > 1:
+            raise NotImplementedError(
+                "the 'model' axis inside the pipeline across cards: ROADMAP "
+                "queue 1 item 7c; give one card a stage (model=1), or "
+                "repeat one device (make_seq_mesh([dev] * (S * P), "
+                "model=P))")
+        if procs > 1:
+            raise NotImplementedError(
+                "pipeline stages across cards under data-parallel processes "
+                "(each process holds one card): ROADMAP queue 1 item 7c")
     return mesh
+
+
+def _to_stage(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``t`` on a stage's device: a hop between stages and a stage's copy
+    of a parameter (differentiable; a no-op where it lies there already).
+    The one place the pipeline moves a tensor to a mesh device."""
+    return t.to(dev)
+
+
+class _Fanout(torch.autograd.Function):
+    """One use of ``t`` for each of ``devices`` (a view where it lies there
+    already, else a copy); its gradient is the uses' gradients added on
+    ``t``'s device in list order. Autograd would add them as they arrive,
+    and from several cards' threads that order varies: this way a stage's
+    or a microbatch's share of a parameter's gradient is added in one
+    order, wherever the stages lie."""
+
+    @staticmethod
+    def forward(ctx, t, *devices):
+        ctx.home = t.device
+        return tuple(t.view_as(t) if torch.device(d) == t.device
+                     else _to_stage(t, d) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = None
+        for g in grads:
+            if g is None:
+                continue
+            g = _to_stage(g, ctx.home)
+            total = g if total is None else total + g
+        return (total,) + (None,) * len(grads)
+
+
+def _fanout(t: torch.Tensor, devices):
+    """``_Fanout``: ``t``'s use on each of ``devices``, in order."""
+    return list(_Fanout.apply(t, *devices))
+
+
+def _per_stage(module, chunks, devices):
+    """``module`` on each stage's chunk, with its parameters fanned out to
+    the stages (``_Fanout``) and its buffers moved there
+    (``torch.func.functional_call``)."""
+    params = {n: _fanout(p, devices) for n, p in module.named_parameters()}
+    bufs = {n: [_to_stage(b, d) for d in devices]
+            for n, b in module.named_buffers()}
+    return [torch.func.functional_call(
+        module, {**{n: v[s] for n, v in params.items()},
+                 **{n: v[s] for n, v in bufs.items()}}, (c,))
+        for s, c in enumerate(chunks)]
 
 
 def _stream_dtypes(model):
@@ -237,32 +307,34 @@ def _stage_chunks(x, devices):
         raise ValueError(f"sequence length {T} not divisible by the mesh's "
                          f"seq axis ({S})")
     Tl = T // S
-    return [x[:, s * Tl:(s + 1) * Tl].to(d) for s, d in enumerate(devices)]
+    return [_to_stage(x[:, s * Tl:(s + 1) * Tl], d)
+            for s, d in enumerate(devices)]
 
 
 def _time_reverse(chunks, devices):
     """The global time flip of a chunked sequence: each chunk flipped and
     the stage order reversed (the JAX ``ppermute`` ``i -> S-1-i``)."""
     S = len(chunks)
-    return [torch.flip(chunks[S - 1 - s], dims=[1]).to(d)
+    return [_to_stage(torch.flip(chunks[S - 1 - s], dims=[1]), d)
             for s, d in enumerate(devices)]
 
 
-def _norm(norm, chunks, train: bool):
+def _norm(norm, chunks, train: bool, devices):
     """The layer's norm of each stage's ``(B, Tl, H)`` chunk. Training
     BatchNorm takes the statistics of the whole sequence: the stages'
-    sums (float32 at least) added, then, inside ``multihost.sharded()``,
-    the mean over the ranks; the running statistics move once. Everything
-    else acts per chunk through the module, in its mode: eval BatchNorm
-    reads the running statistics, LayerNorm is per sample."""
+    sums (float32 at least) added on stage 0's device in stage order, then,
+    inside ``multihost.sharded()``, the mean over the ranks; the running
+    statistics move once. Everything else acts per chunk through the
+    module, in its mode: eval BatchNorm reads the running statistics,
+    LayerNorm is per sample."""
     if norm.kind != "batchnorm" or not train:
-        return [norm(c) for c in chunks]
+        return _per_stage(norm, chunks, devices)
     flats = [c.reshape(-1, c.shape[-1]) for c in chunks]
     flats = [f.float() if f.dtype == torch.bfloat16 else f for f in flats]
-    dev = flats[0].device
+    dev = devices[0]
     n = sum(f.shape[0] for f in flats)
-    s1 = sum(f.sum(dim=0).to(dev) for f in flats)
-    s2 = sum((f * f).sum(dim=0).to(dev) for f in flats)
+    s1 = sum(_to_stage(f.sum(dim=0), dev) for f in flats)
+    s2 = sum(_to_stage((f * f).sum(dim=0), dev) for f in flats)
     mean, mean2 = s1 / n, s2 / n
     if multihost.is_sharded():
         mean, mean2 = multihost.mean_over_ranks(
@@ -270,9 +342,9 @@ def _norm(norm, chunks, train: bool):
     var = torch.clamp_min(mean2 - mean * mean, 0.0)
     norm._update_running(mean, var)
     mul = torch.rsqrt(var + common.NORM_EPS) * norm.weight
-    return [((f - mean.to(f.device)) * mul.to(f.device)
-             + norm.bias.to(f.device)).reshape(c.shape)
-            for f, c in zip(flats, chunks)]
+    return [((f - m) * k + b).reshape(c.shape) for f, c, m, k, b in zip(
+        flats, chunks, _fanout(mean, devices), _fanout(mul, devices),
+        _fanout(norm.bias, devices))]
 
 
 def _snn_chunk_scan(cp, threshold, wxs, state):
@@ -329,22 +401,28 @@ def _ann_chunk_scan(ann_type, mats, wxs, state):
     return (y,), torch.stack(out, dim=1)
 
 
-def _pipelined_recurrence(chunk_fn, wxs, n_micro: int, devices,
+def _pipelined_recurrence(chunk_fn, consts, wxs, n_micro: int, devices,
                           init_state=None, n_slots: int = 1):
     """The state-passing pipeline. ``wxs``: per stage, the tuple of
-    per-gate ``(B, Tl, H)`` drive chunks; ``chunk_fn(wxs_chunk, state) ->
-    (state, outputs)``. Each (stage, microbatch) chunk runs once, in tick
-    order ``t = s + m`` (the JAX pipeline also computes throwaway chunks
-    on its inactive ticks; skipping them gives the same result). A stage's
-    final state hops to the next stage by ``.to()``; stage 0 starts each
-    microbatch from its rows of ``init_state`` (per-slot ``(B, H)``
-    tensors) or from zeros. Returns each stage's ``(B, Tl, H)`` outputs."""
+    per-gate ``(B, Tl, H)`` drive chunks; ``chunk_fn(consts, wxs_chunk,
+    state) -> (state, outputs)``, where ``consts`` (a dict of the layer's
+    constants) is fanned out to every (stage, microbatch) chunk
+    (``_Fanout``: their gradients add in that order). Each (stage,
+    microbatch) chunk runs once, in tick order ``t = s + m`` (the JAX
+    pipeline also computes throwaway chunks on its inactive ticks; skipping
+    them gives the same result). A stage's final state hops to the next
+    stage (``_to_stage``); stage 0 starts each microbatch from its rows of
+    ``init_state`` (per-slot ``(B, H)`` tensors) or from zeros. Returns
+    each stage's ``(B, Tl, H)`` outputs."""
     S, M = len(wxs), n_micro
     B, _, H = wxs[0][0].shape
     if B % M:
         raise ValueError(f"batch {B} not divisible by microbatches {M}")
     mb = B // M
     outs = [[None] * M for _ in range(S)]
+    # the constants of chunk (s, m) at index s * M + m
+    fanned = {k: _fanout(v, [d for d in devices for _ in range(M)])
+              for k, v in consts.items()}
     inbox = {}
     for t in range(M + S - 1):
         for s in range(max(0, t - M + 1), min(t, S - 1) + 1):
@@ -357,10 +435,11 @@ def _pipelined_recurrence(chunk_fn, wxs, n_micro: int, devices,
             else:
                 zero = wxs[0][0].new_zeros((mb, H))
                 state = (zero,) * n_slots
-            state, outs[s][m] = chunk_fn(tuple(w[rows] for w in wxs[s]),
-                                         state)
+            state, outs[s][m] = chunk_fn(
+                {k: v[s * M + m] for k, v in fanned.items()},
+                tuple(w[rows] for w in wxs[s]), state)
             if s + 1 < S:
-                inbox[(s + 1, m)] = tuple(v.to(devices[s + 1])
+                inbox[(s + 1, m)] = tuple(_to_stage(v, devices[s + 1])
                                           for v in state)
     return [torch.cat(o, dim=0) for o in outs]
 
@@ -379,7 +458,8 @@ def _clamped(layer, neuron):
 
 
 def _snn_layer(model, layer, chunks, states, train, n_micro, devices):
-    wx = _norm(layer.norm, [layer.W(c) for c in chunks], train)
+    wx = _norm(layer.norm, _per_stage(layer.W, chunks, devices), train,
+               devices)
     cp = _clamped(layer, model.neuron_type)
     adaptive = "beta" in cp
     if states is not None:
@@ -388,22 +468,25 @@ def _snn_layer(model, layer, chunks, states, train, n_micro, devices):
         states = [s.reshape(-1, s.shape[-1]).to(wx[0].dtype) for s in states]
         states = states if adaptive else [states[0], states[2]]
     return _pipelined_recurrence(
-        functools.partial(_snn_chunk_scan, cp, layer.threshold),
-        [(w,) for w in wx], n_micro, devices, init_state=states,
+        lambda c, wxs, state: _snn_chunk_scan(c, layer.threshold, wxs,
+                                              state),
+        cp, [(w,) for w in wx], n_micro, devices, init_state=states,
         n_slots=3 if adaptive else 2)
 
 
 def _ann_layer(model, layer, chunks, states, train, n_micro, devices):
     wxs = [_norm(getattr(layer, f"norm_{g}"),
-                 [getattr(layer, g)(c) for c in chunks], train)
+                 _per_stage(getattr(layer, g), chunks, devices), train,
+                 devices)
            for g in layer.gates]
     per_stage = list(zip(*wxs))
     if model.ann_type == "MLP":
         return [torch.sigmoid(w[0]) for w in per_stage]
+    mats = dict(enumerate(layer._matrices()))
     return _pipelined_recurrence(
-        functools.partial(_ann_chunk_scan, model.ann_type,
-                          layer._matrices()),
-        per_stage, n_micro, devices)
+        lambda c, wxs, state: _ann_chunk_scan(
+            model.ann_type, [c[i] for i in range(len(c))], wxs, state),
+        mats, per_stage, n_micro, devices)
 
 
 def _snn_readout(readout, chunks, train, u0, devices):
@@ -411,23 +494,26 @@ def _snn_readout(readout, chunks, train, u0, devices):
     membrane from a zero start, its boundary drive, the chain of chunk
     starts seeded with ``u0`` (or zeros), then each chunk's series
     shifted by its start; the softmaxes summed over t and the stages."""
-    wx = _norm(readout.norm, [readout.W(c) for c in chunks], train)
+    wx = _norm(readout.norm, _per_stage(readout.W, chunks, devices), train,
+               devices)
     # the membrane recurrence runs in float32 (models/snn.py ReadoutLayer)
     wx = [w.float() if w.dtype == torch.bfloat16 else w for w in wx]
     B, Tl, C = wx[0].shape
     alpha = torch.clamp(readout.alpha, *cells.ALPHA_LIM).to(wx[0].dtype)
-    intra = [cells.leaky_cumsum(w, alpha, w.new_zeros((B, C))) for w in wx]
+    intra = [cells.leaky_cumsum(w, a, w.new_zeros((B, C)))
+             for w, a in zip(wx, _fanout(alpha, devices))]
     a_pow_T = alpha ** Tl
     j = torch.arange(Tl, dtype=wx[0].dtype, device=wx[0].device)
     decay = torch.exp((j[None, :, None] + 1.0) * torch.log(alpha))
     u = wx[0].new_zeros((B, C)) if u0 is None else u0.to(wx[0].dtype)
     out = None
-    for s, it in enumerate(intra):
-        u = u.to(it.device)
-        part = torch.softmax(decay.to(it.device) * u[:, None, :] + it,
-                             dim=-1).sum(dim=1).to(devices[0])
+    for it, d, dec, apt in zip(intra, devices, _fanout(decay, devices),
+                               _fanout(a_pow_T, devices)):
+        u = _to_stage(u, d)
+        part = _to_stage(torch.softmax(dec * u[:, None, :] + it,
+                                       dim=-1).sum(dim=1), devices[0])
         out = part if out is None else out + part
-        u = a_pow_T.to(it.device) * u + it[:, -1, :]
+        u = apt * u + it[:, -1, :]
     return out
 
 
@@ -487,7 +573,8 @@ def _build_seqpipe(model, mesh: SeqMesh, n_micro: int = 4,
                 h = [(c * m).to(c.dtype) for c, m in
                      zip(h, _stage_chunks(nz["mask"], devices))]
             if is_snn:
-                rate_sums.append(sum(c.float().sum(dim=(0, 1)).to(devices[0])
+                rate_sums.append(sum(_to_stage(c.float().sum(dim=(0, 1)),
+                                               devices[0])
                                      for c in h) / (B * T))
         if is_snn:
             out = _snn_readout(model.readout, h, train,

@@ -218,9 +218,12 @@ def add_training_options(parser):
         "--mesh_model",
         type=int,
         default=1,
-        help="Tensor-parallel ('model' mesh axis) size; the P ranks run "
-        "in the one-card form on each process's card (ranks on distinct "
-        "cards wait for ROADMAP item 7b).",
+        help="Tensor-parallel ('model' mesh axis) size. The P ranks run "
+        "one a card on cuda:0..P-1 where the process sees at least P cards, "
+        "in the one-card form where it sees one (each data-parallel process "
+        "sees its own), and are refused in between; across cards only the "
+        "spiking pallas_tp cells split (the ANN ones wait for "
+        "ROADMAP item 7c).",
     )
     parser.add_argument(
         "--seq_parallel",
@@ -228,9 +231,11 @@ def add_training_options(parser):
         default=1,
         help="Sequence-parallel ('seq' mesh axis) size: shard the time "
         "axis and run the recurrences as a state-passing pipeline "
-        "(parallel/seqpipe.py), its S stages in each process on its "
-        "card. Composes with --mesh_model (tensor parallel) and with data "
-        "parallelism (each process pipelines its rows). Supports "
+        "(parallel/seqpipe.py), its S stages one a card on cuda:0..S-1 "
+        "where the process sees at least S x P (the model axis) cards, else "
+        "on its one card. Composes with --mesh_model (tensor parallel, on "
+        "one card; across cards ROADMAP item 7c) and with data parallelism "
+        "(each process pipelines its rows on its card). Supports "
         "bidirectional models (the batch trick runs across the sharded "
         "time axis). Requires a readout layer and --frontend host; "
         "batches whose shapes do not divide the mesh fall back to the "

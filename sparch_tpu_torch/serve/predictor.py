@@ -16,8 +16,9 @@ path's probabilities.
 
 With ``mesh=`` (``parallel.make_seq_mesh``) a feature model serves through
 the time-pipelined forward of ``parallel/seqpipe.py`` instead, its stages
-on the mesh's device: long sequences over S stages and ``n_micro``
-microbatches, the same probabilities.
+on the mesh's devices (one card, or one a card with the model on the first):
+long sequences over S stages and ``n_micro`` microbatches, the same
+probabilities.
 """
 from __future__ import annotations
 
@@ -81,8 +82,8 @@ class Predictor:
     ``device=None`` is the CUDA card and raises without one;
     ``device="cpu"`` runs on the CPU.
 
-    ``mesh``: a ``parallel.SeqMesh`` (``make_seq_mesh``) on the same device
-    serves through the time-pipelined forward over its ``seq`` stages
+    ``mesh``: a ``parallel.SeqMesh`` (``make_seq_mesh``) whose home is the
+    same device serves through the time-pipelined forward over its ``seq`` stages
     with ``n_micro`` microbatches (``parallel/seqpipe.py``). Checked
     loudly: feature models only, ``batch_size`` divisible by ``n_micro``,
     and each call's T divisible by the ``seq`` axis.
@@ -146,9 +147,9 @@ class Predictor:
                 f"mesh axes {getattr(mesh, 'axis_names', None)} have no "
                 "'seq' axis; build one with parallel.seqpipe.make_seq_mesh"
             )
-        if mesh.device.type != self.device.type:
-            raise ValueError(f"the mesh's device {mesh.device} is not the "
-                             f"Predictor's {self.device}")
+        if mesh.home.type != self.device.type:
+            raise ValueError(f"the mesh's home {mesh.home} is not on the "
+                             f"Predictor's device {self.device}")
         if self.batch_size % n_micro:
             raise ValueError(
                 f"batch_size {self.batch_size} not divisible by n_micro "

@@ -57,6 +57,8 @@ from sparch_tpu_torch.models import SNN_NEURON_TYPES, build_model
 from sparch_tpu_torch.models.frontend import FbankFrontend
 from sparch_tpu_torch.parallel import (
     make_mesh,
+    placement,
+    visible_cards,
     make_seq_mesh,
     make_seqpipe_eval_step,
     make_seqpipe_train_step,
@@ -288,15 +290,29 @@ class Experiment:
             )
 
     def init_mesh(self):
-        """The ('data', 'model') mesh: the data axis is the processes, the
-        model axis the one-card form on this process's device."""
+        """The ('data', 'model') mesh and the optional ('data', 'seq',
+        'model') pipeline mesh: the data axis is the processes; the S x P
+        stages and ranks go by ``parallel.mesh.placement`` over the cards
+        this process sees (JAX loop.py:143-186 spreads them over every
+        device): one card, or S x P = 1, the one-card form; at least S x
+        P, one card each; between the two, refused."""
         P = self.mesh_model
-        self.mesh = make_mesh([self.device] * P, model=P)
+        S = max(self.seq_parallel, 1)
+        cards, note = placement(S, P, visible_cards(self.device))
+        if cards is not None and self.device.index not in (None, 0):
+            raise ValueError(f"the form across cards starts at {cards[0]}, "
+                             f"the run's device is {self.device}")
+        if cards is None:
+            self.mesh = make_mesh([self.device] * P, model=P)
+        elif S == 1:
+            self.mesh = make_mesh(cards, model=P)
+        else:  # the pipeline runs the layers (make_seq_mesh checks P)
+            self.mesh = make_mesh([cards[0]] * P, model=P)
         shape = self.mesh.shape
         logging.info(
             f"\nDevice mesh: {shape['data'] * P} ranks on "
             f"{multihost.world_size()} process(es) x {self.device.type} "
-            f"(data={shape['data']}, model={shape['model']})\n"
+            f"(data={shape['data']}, model={shape['model']}); {note}\n"
         )
         if multihost.data_parallel():
             logging.info(
@@ -312,12 +328,12 @@ class Experiment:
                 "the model axis)\n"
             )
         # the optional time-pipelined mesh: its S x P stages and ranks in
-        # this process, on its one device (dp x sp x tp)
+        # this process (dp x sp x tp)
         self.seq_mesh = None
-        if self.seq_parallel > 1:
-            S = self.seq_parallel
-            self.seq_mesh = make_seq_mesh([self.device] * (S * P), seq=S,
-                                          model=P)
+        if S > 1:
+            self.seq_mesh = make_seq_mesh(
+                [self.device] * (S * P) if cards is None else cards, seq=S,
+                model=P)
             logging.info(f"Sequence-parallel mesh: {self.seq_mesh.shape}, "
                          f"{self.seq_microbatches} microbatches\n")
 
